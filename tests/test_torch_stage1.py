@@ -1,0 +1,152 @@
+"""The fused P stage 1 and the pass-2 pieces vs the JAX reference on a
+real mid-stream state carried over by `state.from_reference`: the packed
+stage-1 array (rho compared bit for bit), the pass-1 `res`, the
+incremental re-encode of a flipped subset and the lean level pack."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from video_steganography_pcamv_tpu.encoder import core as JCORE
+from video_steganography_pcamv_tpu.encoder import inter_incr as JINC
+from video_steganography_pcamv_tpu.encoder import partition as JPT
+from video_steganography_pcamv_tpu.encoder import slicetype as JST
+from video_steganography_pcamv_tpu.encoder.core import Encoder as JEncoder
+from video_steganography_pcamv_tpu.encoder.me import lambda_tab
+from video_steganography_pcamv_tpu.ops.transform import chroma_qp
+from video_steganography_pcamv_tpu.params import Params, StegoParams
+from video_steganography_pcamv_tpu.stego.cost import cost_mv_table
+from video_steganography_pcamv_tpu.utils.yuv import Frame
+
+from video_steganography_pcamv_torch import Encoder as TEncoder
+from video_steganography_pcamv_torch.encoder import core as TCORE
+from video_steganography_pcamv_torch.encoder import inter_incr as TINC
+from video_steganography_pcamv_torch.encoder import partition as TPT
+from video_steganography_pcamv_torch.encoder import slicetype as TST
+from video_steganography_pcamv_torch.state import from_reference
+
+W, H = 112, 80
+MBH, MBW = 5, 7
+RES_KEYS = ("luma_lev", "cbp_luma", "cbp_chroma", "chroma_dc", "chroma_ac",
+            "recon_y", "recon_u", "recon_v")
+
+
+def _seq(n, seed=1):
+    rng = np.random.RandomState(seed)
+    big = rng.randint(30, 226, ((H + 64) // 4, (W + 64) // 4))
+    big = np.repeat(np.repeat(big, 4, 0), 4, 1).astype(np.uint8)
+    frames = []
+    for i in range(n):
+        f = big[16 + i:16 + i + H, 16 + 2 * i:16 + 2 * i + W].copy()
+        u = np.full((H // 2, W // 2), 120 + i, np.uint8)
+        frames.append(Frame(f, u, u.copy()))
+    return frames
+
+
+def _params():
+    p = Params(width=W, height=H, qp=26, me_range=16, deblock_device=True,
+               psnr=False, stego=StegoParams(em_rate=64, key=99))
+    p.tail_kernel = False
+    return p
+
+
+@pytest.fixture(scope="module")
+def stage1():
+    """Both stage-1 results on frame 3, after three reference frames."""
+    frames = _seq(4)
+    jenc = JEncoder(_params())
+    for f in frames[:3]:
+        jenc.encode_frame(f)
+    tenc = TEncoder(_params(), device="cpu")
+    tenc.load_state(from_reference(jenc))
+    qp = 26
+    qpc, lam = chroma_qp(qp), lambda_tab(qp)
+    y, u, v = jenc._pad(frames[3])
+    lr_j = JST.lowres_costs(JST.lowres(y), jenc.lookahead.prev_lr, MBH, MBW,
+                            rng=8)
+    packed_j, res_j, *_ = JPT.p_stage1_stego(
+        y, u, v, jenc.ref["luma"], jenc.ref["u"], jenc.ref["v"],
+        jnp.asarray(jenc.prev_mv), qp, qpc, lam,
+        jnp.asarray(cost_mv_table(lam)), 16, MBH, MBW, 2, False, True,
+        False, nr_offset=None, extra=lr_j, full_pass1=True,
+        tail_kernel=False)
+    yt, ut, vt = tenc._pad(frames[3])
+    lr_t = TST.lowres_costs(TST.lowres(yt), tenc.lookahead.prev_lr, MBH,
+                            MBW, rng=8)
+    packed_t, res_t = TPT.p_stage1_stego(
+        yt, ut, vt, tenc.ref["luma"], tenc.ref["u"], tenc.ref["v"],
+        torch.as_tensor(tenc.prev_mv), qp, qpc, lam,
+        torch.as_tensor(cost_mv_table(lam)), 16, MBH, MBW, extra=lr_t)
+    return dict(jenc=jenc, tenc=tenc, yuv_j=(y, u, v), yuv_t=(yt, ut, vt),
+                packed_j=np.asarray(packed_j), packed_t=packed_t.numpy(),
+                res_j=res_j, res_t=res_t, qp=qp, qpc=qpc)
+
+
+def test_packed_stage1_equal(stage1):
+    pj, pt = stage1["packed_j"], stage1["packed_t"]
+    assert pj.dtype == pt.dtype == np.float32 and pj.shape == pt.shape
+    n = MBH * MBW
+    assert pj.shape == (24 * n + 2,)
+    np.testing.assert_array_equal(pj.view(np.int32), pt.view(np.int32))
+    assert (pj[20 * n:24 * n] >= 1).all()          # rho is a cost
+
+
+def test_pass1_res_equal(stage1):
+    for k in RES_KEYS:
+        np.testing.assert_array_equal(np.asarray(stage1["res_j"][k]),
+                                      stage1["res_t"][k].numpy(), err_msg=k)
+
+
+def test_incremental_reencode_equal(stage1):
+    n = MBH * MBW
+    pj = stage1["packed_j"]
+    mv8 = pj[n:9 * n].astype(np.int32).reshape(2 * MBH, 2 * MBW, 2)
+    skip1 = pj[11 * n:12 * n].astype(bool).reshape(MBH, MBW)
+    final8 = mv8.copy()
+    r = np.random.RandomState(0)
+    for _ in range(4):
+        gy, gx = r.randint(0, 2 * MBH), r.randint(0, 2 * MBW)
+        final8[gy, gx] += (1, 0)
+    skip = skip1.copy()
+    skip[0, 0] = not skip[0, 0]
+    idx, fz = JINC.changed_mbs(mv8, final8, skip1, skip, MBH, MBW)
+    assert 0 < len(idx) <= n // 4
+    idx_p, fz_p, cap = JINC.pad_subset(idx, fz, n)
+    tidx, tfz, tcap = TINC.pad_subset(idx, fz, n)
+    assert cap == tcap and (idx_p == tidx).all()
+    jenc, tenc = stage1["jenc"], stage1["tenc"]
+    y, u, v = stage1["yuv_j"]
+    want = JINC.reencode_p_incremental(
+        stage1["res_j"], y, u, v, jenc.ref["luma"], jenc.ref["u"],
+        jenc.ref["v"], jnp.asarray(final8), jnp.asarray(idx_p),
+        jnp.asarray(fz_p), stage1["qp"], stage1["qpc"], MBH, MBW, cap)
+    yt, ut, vt = stage1["yuv_t"]
+    got = TINC.reencode_p_incremental(
+        stage1["res_t"], yt, ut, vt, tenc.ref["luma"], tenc.ref["u"],
+        tenc.ref["v"], torch.as_tensor(final8), torch.as_tensor(tidx),
+        torch.as_tensor(tfz), stage1["qp"], stage1["qpc"], MBH, MBW)
+    for k in RES_KEYS:
+        np.testing.assert_array_equal(np.asarray(want[k]), got[k].numpy(),
+                                      err_msg=k)
+
+
+def test_lean_pack_equal(stage1):
+    n = MBH * MBW
+    res_j = dict(stage1["res_j"])
+    res_t = dict(stage1["res_t"])
+    # push some levels past int8 so the exception list is exercised
+    big = np.zeros((MBH, MBW, 256), np.int16)
+    big[1, 2, 5], big[3, 4, 0], big[0, 6, 255] = 300, -200, 128
+    res_j["luma_lev"] = res_j["luma_lev"] + jnp.asarray(big)
+    res_t["luma_lev"] = res_t["luma_lev"] + torch.as_tensor(big)
+    lev_in = {k: res_j[k] for k in ("luma_lev", "chroma_dc", "chroma_ac",
+                                    "cbp_luma", "cbp_chroma")}
+    want = np.asarray(JCORE._pack_frame_lean(lev_in, n, False))
+    got = TCORE._pack_frame_lean(res_t, n).numpy()
+    np.testing.assert_array_equal(want, got)
+    dj = JCORE._unpack_frame_lean(want, MBH, MBW, False)
+    dt = TCORE._unpack_frame_lean(got, MBH, MBW)
+    for k, a in dj.items():
+        np.testing.assert_array_equal(a, dt[k], err_msg=k)

@@ -1,0 +1,497 @@
+"""Encoder lifecycle + the pipelined stego serving loop (port of the
+IPP subset of encoder/core.py).
+
+Per P frame: the lowres lookahead costs and the fused stage 1
+(`p_stage1_stego`) are enqueued on the device; the previous frame's
+entropy (native CAVLC) is written on the host meanwhile; then ONE
+`.cpu()` pull of the packed stage-1 tensor feeds the slice-type
+decision and the host STC; the flip re-encode, the lean level pack and
+the in-loop deblock (kernel B5) are enqueued, and the level buffer is
+pulled and entropy-coded during the next frame's call (`flush` drains
+the last one). Frame 0 and keyint/scenecut frames are IDR frames.
+
+The port follows one semantics on every device: the reference's
+non-TPU P-analysis branch (full-pel predictor `prev_mv >> 2`, gather
+MC, no MV bound, no analyse-tail kernels). Its stream on CUDA equals its
+stream on the CPU, and on the CPU it equals the reference `Encoder`.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from video_steganography_pcamv_tpu import native
+from video_steganography_pcamv_tpu.encoder import headers as H
+from video_steganography_pcamv_tpu.encoder.ratecontrol import RateControl
+from video_steganography_pcamv_tpu.params import (Params, SLICE_I, SLICE_P,
+                                                  param2string)
+from video_steganography_pcamv_tpu.utils.bitstream import (
+    BitWriter, nal_unit, NAL_SLICE, NAL_SLICE_IDR, NAL_SPS, NAL_PPS,
+    NAL_PRIORITY_HIGHEST, NAL_PRIORITY_HIGH)
+from video_steganography_pcamv_tpu.utils.log import log, LOG_WARNING
+from video_steganography_pcamv_tpu.utils.yuv import Frame
+
+from ..ops import mc
+from ..ops.deblock import deblock_frame
+from ..ops.transform import chroma_qp
+from ..stego.cost import cost_mv_table
+from ..state import load_state
+from ..stego.embed import StegoEngine
+from . import inter as P
+from . import me as ME
+from .inter_incr import changed_mbs, pad_subset, reencode_p_incremental
+from .intra import encode_i_frame
+from .partition import p_stage1_stego
+from .slicetype import Lookahead
+
+_LEAN_EXC_CAP = 4096
+_LEAN_WIDTH = 394       # luma 256 | chroma dc 8 | chroma ac 128 | cbp 2
+
+
+def check_slice(p: Params) -> None:
+    """Raise NotImplementedError for any option outside the ported
+    serving slice (IPPP, CQP, CAVLC, partitions, one reference, subpel
+    2, decimation, incremental re-encode, stego on, device deblock,
+    pipelined serving loop, metrics off)."""
+    bad = []
+    for name, ok in (
+            ("cabac", not p.cabac), ("bframes", p.bframes == 0),
+            ("ref_frames>1", p.ref_frames == 1), ("p4x4", not p.p4x4),
+            ("transform_8x8", not p.transform_8x8),
+            ("trellis", not p.trellis), ("rd", not p.rd),
+            ("aq_mode", not p.aq_mode),
+            ("noise_reduction", p.noise_reduction == 0),
+            ("rc_mode!=0", p.rc_mode == 0),
+            ("pipeline_deep", not p.pipeline_deep),
+            ("pipeline off", p.pipeline),
+            ("partitions off", p.partitions), ("i4x4 off", p.i4x4),
+            ("subpel!=2", p.subpel == 2),
+            ("dct_decimate off", p.dct_decimate),
+            ("incremental off", p.incremental),
+            ("psnr", not p.psnr), ("ssim", not p.ssim),
+            ("zones", not p.zones), ("qpfile", not p.qpfile),
+            ("cqm", p.cqm == "flat" and p.cqm4i is None
+             and p.cqm4p is None),
+            ("deadzones", p.deadzone_inter == 21
+             and p.deadzone_intra == 11),
+            ("deblock off", p.deblock),
+            ("deblock_device off", p.deblock_device),
+            ("stego off", p.stego.enabled),
+            ("stego em_file", not p.stego.em_file),
+            ("stego alpha_com", p.stego.alpha_com == 0.0)):
+        if not ok:
+            bad.append(name)
+    if bad:
+        raise NotImplementedError(
+            "outside the ported serving slice: " + ", ".join(bad))
+
+
+@dataclass
+class EncodeStats:
+    frames: int = 0
+    bits: int = 0
+    i_frames: int = 0
+    p_frames: int = 0
+    mv_covers: int = 0
+    message_bits: int = 0
+    mv_flips: int = 0
+    elapsed: float = 0.0
+
+
+def _nnz4(lev, mbh: int, mbw: int):
+    """Per-4x4 total_coeff map [4mbh, 4mbw] for the deblocker; lev is
+    [mbh, mbw, ...] with 256 levels per MB in (by, bx, r, c) order."""
+    l6 = lev.reshape(mbh, mbw, 4, 4, 16)
+    return (l6 != 0).sum(4, dtype=torch.int32).permute(0, 2, 1, 3) \
+        .reshape(4 * mbh, 4 * mbw)
+
+
+def _levels_i16(res: dict, n: int) -> torch.Tensor:
+    """The entropy writer's inputs as one [n, _LEAN_WIDTH] int16 tensor."""
+    return torch.cat([res[k].reshape(n, w).to(torch.int16) for k, w in (
+        ("luma_lev", 256), ("chroma_dc", 8), ("chroma_ac", 128),
+        ("cbp_luma", 1), ("cbp_chroma", 1))], dim=1)
+
+
+def _pack_frame_lean(res: dict, n: int) -> torch.Tensor:
+    """Everything the entropy writer needs in ONE int8 buffer: levels and
+    cbp clamped to int8, plus a fixed-capacity exception list (count,
+    flat indices, int16 values) of entries with |x| > 127."""
+    flat = _levels_i16(res, n).reshape(-1)
+    dev = flat.device
+    big = flat.abs() > 127
+    count = big.sum(dtype=torch.int32).reshape(1)
+    pos = torch.cumsum(big.to(torch.int32), 0) - 1
+    slot = torch.where(big & (pos < _LEAN_EXC_CAP), pos, _LEAN_EXC_CAP)
+    idx = torch.full((_LEAN_EXC_CAP + 1,), -1, dtype=torch.int32, device=dev)
+    idx.scatter_(0, slot.long(),
+                 torch.arange(flat.shape[0], dtype=torch.int32, device=dev))
+    idx = idx[:_LEAN_EXC_CAP]       # slot CAP collected the overflow
+    vals = torch.where(idx >= 0, flat[idx.clamp(min=0).long()], 0) \
+        .to(torch.int16)
+    lo = flat.clamp(-128, 127).to(torch.int8)
+    meta = torch.cat([count, idx]).view(torch.int8)
+    return torch.cat([lo, meta, vals.view(torch.int8)])
+
+
+def _unpack_frame_lean(buf: np.ndarray, mbh: int, mbw: int):
+    """Host half of _pack_frame_lean -> level/cbp dict, or None if the
+    exception list overflowed."""
+    n = mbh * mbw
+    flat_len = n * _LEAN_WIDTH
+    lo = buf[:flat_len].astype(np.int16)
+    meta = buf[flat_len:flat_len + 4 * (1 + _LEAN_EXC_CAP)].view(np.int32)
+    if int(meta[0]) > _LEAN_EXC_CAP:
+        return None
+    idx = meta[1:]
+    vals = buf[flat_len + 4 * (1 + _LEAN_EXC_CAP):].view(np.int16)
+    sel = idx >= 0
+    lo[idx[sel]] = vals[sel]
+    return _split_levels(lo.reshape(n, _LEAN_WIDTH), mbh, mbw)
+
+
+def _split_levels(packed: np.ndarray, mbh: int, mbw: int) -> dict:
+    return {
+        "luma_lev": np.ascontiguousarray(packed[:, :256])
+        .reshape(mbh, mbw, 4, 4, 4, 4),
+        "chroma_dc": np.ascontiguousarray(packed[:, 256:264])
+        .reshape(mbh, mbw, 2, 2, 2),
+        "chroma_ac": np.ascontiguousarray(packed[:, 264:392])
+        .reshape(mbh, mbw, 2, 2, 2, 4, 4),
+        "cbp_luma": packed[:, 392].astype(np.uint8).reshape(mbh, mbw),
+        "cbp_chroma": packed[:, 393].astype(np.uint8).reshape(mbh, mbw),
+    }
+
+
+def _levels_exact(res: dict, mbh: int, mbw: int) -> dict:
+    """Exact int16 pull (the lean buffer's overflow fallback)."""
+    packed = _levels_i16(res, mbh * mbw).cpu().numpy()
+    return _split_levels(packed, mbh, mbw)
+
+
+class Encoder:
+    """Construct -> encode_frame per frame -> flush. `device` is where
+    every tensor of the encode lives ("cpu" or "cuda[:k]")."""
+
+    def __init__(self, params: Params, device="cpu"):
+        params.validate()
+        check_slice(params)
+        dev = torch.device(device)
+        if dev.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("Encoder(device=%r): CUDA is not available"
+                               % str(device))
+        if dev.type not in ("cpu", "cuda"):
+            raise NotImplementedError("device type %s" % dev.type)
+        self.device = dev
+        self.p = params
+        self.sps = H.SPS(params.width, params.height,
+                         num_ref_frames=params.ref_frames,
+                         log2_max_frame_num=8)
+        self.pps = H.PPS(pic_init_qp=params.qp,
+                         chroma_qp_index_offset=params.chroma_qp_offset,
+                         num_ref_idx_l0_active=params.ref_frames,
+                         cabac=params.cabac, weighted_bipred_idc=0)
+        self.sps.sps_id = params.sps_id
+        self.pps.sps_id = params.sps_id
+        self.sps.vui = H.VUI(
+            sar_width=params.sar_width, sar_height=params.sar_height,
+            overscan=params.overscan, videoformat=params.videoformat,
+            fullrange=params.fullrange, colorprim=params.colorprim,
+            transfer=params.transfer, colmatrix=params.colmatrix,
+            chromaloc=params.chromaloc, fps_num=params.fps_num,
+            fps_den=params.fps_den, num_reorder_frames=0,
+            max_dec_frame_buffering=self.sps.num_ref_frames,
+            mv_range=params.me_range)
+        if params.level_idc:
+            self.sps.level_idc = params.level_idc
+        else:
+            self.sps.level_idc = H.pick_level(
+                params.mb_width, params.mb_height, params.fps_num,
+                params.fps_den, self.sps.num_ref_frames, params.me_range)
+        for msg in H.validate_levels(
+                self.sps.level_idc, params.mb_width, params.mb_height,
+                params.fps_num, params.fps_den, self.sps.num_ref_frames,
+                params.me_range, params.vbv_maxrate, params.vbv_bufsize,
+                self.sps.profile >= H.PROFILE_HIGH):
+            log(LOG_WARNING, msg)
+        if native.load() is None:
+            raise RuntimeError("the native CAVLC/STC library did not load "
+                               "(video_steganography_pcamv_tpu/native)")
+        self._dpb_store = []   # reference dicts, newest first
+        self.ref = None        # the P slices' one reference (newest)
+        self._poc_lsb = 0      # IPP only: every slice carries POC LSB 0
+        self._pending_p = None
+        self.frame_num = 0
+        self.idr_pic_id = 0
+        self.stats = EncodeStats()
+        self.prev_mv = None
+        self._stego = StegoEngine(params)
+        self.rc = RateControl(params)
+        self.lookahead = Lookahead(params)
+        self._cmv_cache = {}
+
+    # ------------------------------------------------------------------
+    def headers(self) -> bytes:
+        """SPS + PPS + SEI Annex-B chunk."""
+        out = nal_unit(NAL_SPS, NAL_PRIORITY_HIGHEST, self.sps.write())
+        out += nal_unit(NAL_PPS, NAL_PRIORITY_HIGHEST, self.pps.write())
+        out += nal_unit(H.NAL_SEI, 0,
+                        H.sei_version_payload(param2string(self.p)))
+        return out
+
+    def _pad(self, frame: Frame):
+        """Edge-replicate planes to MB multiples as int32 device tensors."""
+        mbw, mbh = self.p.mb_width, self.p.mb_height
+        y = np.asarray(frame.y, np.int32)
+        u = np.asarray(frame.u, np.int32)
+        v = np.asarray(frame.v, np.int32)
+        py, px = mbh * 16 - y.shape[0], mbw * 16 - y.shape[1]
+        if py or px:
+            y = np.pad(y, ((0, py), (0, px)), mode="edge")
+            u = np.pad(u, ((0, py // 2), (0, px // 2)), mode="edge")
+            v = np.pad(v, ((0, py // 2), (0, px // 2)), mode="edge")
+        return tuple(torch.as_tensor(a).to(self.device) for a in (y, u, v))
+
+    def _aud(self, slice_type: int) -> bytes:
+        if not self.p.aud:
+            return b""
+        return nal_unit(H.NAL_AUD, 0, H.aud_payload(slice_type))
+
+    def encode_frame(self, frame: Frame) -> bytes:
+        """Encode one input frame; returns the NALs ready so far (the
+        pipelined loop emits frame N's slice during frame N+1's call)."""
+        t0 = time.time()
+        y, u, v = self._pad(frame)
+        if self.ref is not None and self.lookahead.prev_lr is not None:
+            return self._encode_frame_ipp_fast(y, u, v, t0)
+        out_pend = self._drain_pending()
+        is_idr, satd = self.lookahead.decide(y)
+        if self.ref is None:
+            is_idr = True
+        if not is_idr:
+            raise NotImplementedError("non-fused P frame path")
+        qp = self.rc.start(SLICE_I, satd)
+        out = self._aud(SLICE_I) + self._encode_idr(y, u, v, qp)
+        self.frame_num += 1
+        self.stats.frames += 1
+        self.stats.bits += 8 * len(out)
+        self.rc.end(8 * len(out))
+        self.stats.elapsed += time.time() - t0
+        return out_pend + out
+
+    def _encode_idr(self, y, u, v, qp: int) -> bytes:
+        self.frame_num = 0
+        self._dpb_store = []
+        out = self.headers()
+        nal = self._encode_i(y, u, v, qp)
+        self.stats.i_frames += 1
+        return out + nal_unit(NAL_SLICE_IDR, NAL_PRIORITY_HIGHEST, nal)
+
+    def _encode_frame_ipp_fast(self, y, u, v, t0) -> bytes:
+        p = self.p
+        lr2 = self.lookahead.costs_device(y)
+        qp = self.rc.start(SLICE_P, 1)
+        qpc = chroma_qp(qp, p.chroma_qp_offset)
+        d = self._fused_dispatch(y, u, v, qp, qpc, extra=lr2)
+        # the previous frame's entropy runs while the device works
+        out_prev = self._drain_pending()
+        n = p.mb_height * p.mb_width
+        packed = d["packed"].cpu().numpy()        # the one blocking pull
+        ci, cp = int(packed[24 * n]), int(packed[24 * n + 1])
+        is_idr, satd = self.lookahead.decide_from_costs(ci, cp)
+        out = self._aud(SLICE_I if is_idr else SLICE_P)
+        if not is_idr:
+            d["packed"] = packed
+            pend = self._fused_complete(d)
+            pend.update(frame_num=self.frame_num, poc_lsb=self._poc_lsb,
+                        aud=out)
+            self._pending_p = pend
+            self.stats.p_frames += 1
+            self.frame_num += 1
+            self.stats.frames += 1
+            self.stats.elapsed += time.time() - t0
+            return out_prev
+        qp = self.rc.start(SLICE_I, satd)
+        out += self._encode_idr(y, u, v, qp)
+        self.frame_num += 1
+        self.stats.frames += 1
+        self.stats.bits += 8 * len(out)
+        self.rc.end(8 * len(out))
+        self.stats.elapsed += time.time() - t0
+        return out_prev + out
+
+    def flush(self) -> bytes:
+        """Drain the deferred entropy of the last P frame."""
+        return self._drain_pending()
+
+    def _drain_pending(self) -> bytes:
+        pd = self._pending_p
+        if pd is None:
+            return b""
+        self._pending_p = None
+        t0 = time.time()
+        p = self.p
+        mbh, mbw = p.mb_height, p.mb_width
+        res_np = _unpack_frame_lean(pd["buf"].cpu().numpy(), mbh, mbw)
+        if res_np is None:
+            res_np = _levels_exact(pd["res"], mbh, mbw)
+        nal = self._finish_p_slice(res_np, pd["qp"], pd["part"], pd["mvd"],
+                                   pd["skip"], pd["frame_num"],
+                                   pd["poc_lsb"])
+        out = pd["aud"] + nal_unit(NAL_SLICE, NAL_PRIORITY_HIGH, nal)
+        self.stats.bits += 8 * len(out)
+        self.rc.end(8 * len(out))
+        self.stats.elapsed += time.time() - t0
+        return out
+
+    # ------------------------------------------------------------------
+    def _encode_i(self, y, u, v, qp: int) -> bytes:
+        p = self.p
+        mbh, mbw = p.mb_height, p.mb_width
+        n = mbh * mbw
+        qpc = chroma_qp(qp, p.chroma_qp_offset)
+        res_dev = encode_i_frame(y, u, v, qp, qpc, mbw, mbh,
+                                 lam=ME.lambda_tab(qp))
+        dev = self.device
+        i32 = torch.int32
+        self._deblock_device(
+            res_dev, torch.ones((mbh, mbw), dtype=i32, device=dev),
+            torch.zeros((mbh, mbw), dtype=i32, device=dev),
+            torch.zeros((4 * mbh, 4 * mbw, 2), dtype=i32, device=dev), qp,
+            _nnz4(res_dev["luma_ac"], mbh, mbw))
+        res = {k: res_dev[k].cpu().numpy() for k in
+               ("mode", "cmode", "cbp_luma", "cbp_chroma", "luma_dc",
+                "luma_ac", "chroma_dc", "chroma_ac", "mb_i4", "i4_modes")}
+        self.prev_mv = np.zeros((mbh, mbw, 2), np.int32)
+        bw = BitWriter()
+        H.write_slice_header(bw, self.sps, self.pps, H.SLICE_TYPE_I,
+                             self.frame_num, qp, idr=True,
+                             idr_pic_id=self.idr_pic_id,
+                             disable_deblock=0,
+                             alpha_div2=p.deblock_alpha,
+                             beta_div2=p.deblock_beta,
+                             poc_lsb=self._poc_lsb)
+        self.idr_pic_id = (self.idr_pic_id + 1) % 65536
+        hdr, nbits = bw.partial_bytes()
+        return native.write_slice(
+            hdr, nbits, H.SLICE_TYPE_I, mbw, mbh,
+            mode=res["mode"].reshape(n), cmode=res["cmode"].reshape(n),
+            cbp_luma=res["cbp_luma"], cbp_chroma=res["cbp_chroma"],
+            luma_dc=res["luma_dc"].reshape(n, 16),
+            luma_blocks=res["luma_ac"].reshape(n, 16, 16),
+            chroma_dc=res["chroma_dc"].reshape(n, 2, 4),
+            chroma_ac=res["chroma_ac"].reshape(n, 2, 4, 16),
+            mb_i4=res["mb_i4"].reshape(n),
+            i4_modes=res["i4_modes"].reshape(n, 16))
+
+    def _cost_mv_dev(self, qp: int, lam: int) -> torch.Tensor:
+        if qp not in self._cmv_cache:
+            self._cmv_cache[qp] = torch.as_tensor(
+                cost_mv_table(lam)).to(self.device)
+        return self._cmv_cache[qp]
+
+    def _fused_dispatch(self, y, u, v, qp: int, qpc: int, extra=None):
+        """Enqueue the fused stage 1; no blocking pull here."""
+        p = self.p
+        mbh, mbw = p.mb_height, p.mb_width
+        lam = ME.lambda_tab(qp)
+        prev_mv = torch.as_tensor(self.prev_mv).to(self.device)
+        packed, res = p_stage1_stego(
+            y, u, v, self.ref["luma"], self.ref["u"], self.ref["v"],
+            prev_mv, qp, qpc, lam, self._cost_mv_dev(qp, lam), p.me_range,
+            mbh, mbw, extra=extra)
+        return dict(packed=packed, res=res, y=y, u=u, v=v, qp=qp, qpc=qpc)
+
+    def _fused_complete(self, d) -> dict:
+        """Host STC + flips, then enqueue the re-encode (incremental
+        where few MBs changed), the lean level pack and the deblock.
+        Returns the pending record the next frame's call drains."""
+        p = self.p
+        mbh, mbw = p.mb_height, p.mb_width
+        n = mbh * mbw
+        qp, qpc, y, u, v = d["qp"], d["qpc"], d["y"], d["u"], d["v"]
+        packed = d["packed"]
+        part_np = packed[:n].astype(np.int32).reshape(mbh, mbw)
+        mv8_np = packed[n:9 * n].astype(np.int32).reshape(2 * mbh, 2 * mbw, 2)
+        skip1 = packed[11 * n:12 * n].astype(bool).reshape(mbh, mbw)
+        alt_u = packed[12 * n:20 * n].astype(np.int32).reshape(mbh, mbw, 4, 2)
+        rho_u = np.ascontiguousarray(packed[20 * n:24 * n]) \
+            .reshape(mbh, mbw, 4).astype(np.float64)
+
+        final8, skip, mvd = self._stego.apply_costs(
+            self, part_np, mv8_np, skip1, rho_u, alt_u)
+        dev = self.device
+        final8_t = torch.as_tensor(np.ascontiguousarray(final8)).to(dev)
+        idx, fzs = changed_mbs(mv8_np, final8, skip1, skip, mbh, mbw)
+        if len(idx) <= n // 4:
+            idx_p, fz_p, _cap = pad_subset(idx, fzs, n)
+            res2 = reencode_p_incremental(
+                d["res"], y, u, v, self.ref["luma"], self.ref["u"],
+                self.ref["v"], final8_t, torch.as_tensor(idx_p).to(dev),
+                torch.as_tensor(fz_p).to(dev), qp, qpc, mbh, mbw)
+        else:
+            res2 = P.encode_p_frame_device8(
+                y, u, v, self.ref["luma"], self.ref["u"], self.ref["v"],
+                final8_t, qp, qpc, mbh, mbw,
+                force_zero=torch.as_tensor(skip).to(dev))
+        nnz = _nnz4(res2["luma_lev"], mbh, mbw)
+        # the lean level buffer is enqueued before the deblock waves
+        buf = _pack_frame_lean(res2, n)
+        mv4 = final8_t.repeat_interleave(2, 0).repeat_interleave(2, 1)
+        self._deblock_device(
+            res2, torch.zeros((mbh, mbw), dtype=torch.int32, device=dev),
+            torch.as_tensor(skip.astype(np.int32)).to(dev), mv4, qp, nnz)
+        # no intra MBs in stego P frames: the predictor is the final field
+        self.prev_mv = np.ascontiguousarray(final8[::2, ::2], np.int32)
+        return dict(buf=buf, res=res2, qp=qp, part=part_np, mvd=mvd,
+                    skip=skip, final8=final8)
+
+    def _deblock_device(self, res, intra, skip, mv4, qp: int, nnz4):
+        """In-loop deblock (kernel B5 on CUDA) into the new reference."""
+        p = self.p
+        off_a, off_b = 2 * p.deblock_alpha, 2 * p.deblock_beta
+        dy, du, dv = deblock_frame(
+            res["recon_y"].to(torch.int32), res["recon_u"].to(torch.int32),
+            res["recon_v"].to(torch.int32), intra, skip, nnz4, mv4, qp,
+            chroma_qp(qp, p.chroma_qp_offset), p.mb_height, p.mb_width,
+            qp_thresh=(15 - min(off_a, off_b) - max(0, p.chroma_qp_offset)),
+            off_a=off_a, off_b=off_b)
+        self._push_ref(mc.build_ref(dy, du, dv))
+
+    def _push_ref(self, refdict: dict):
+        """Sliding-window DPB update (newest first; spec 8.2.5.3). With
+        P frames only, decode order is the P list order."""
+        self._dpb_store.insert(0, refdict)
+        del self._dpb_store[self.sps.num_ref_frames:]
+        self.ref = self._dpb_store[0]
+
+    def _finish_p_slice(self, res_np, qp: int, part_np, mvd, skip,
+                        frame_num: int, poc_lsb: int) -> bytes:
+        """P slice header + native CAVLC entropy of a completed frame."""
+        p = self.p
+        mbh, mbw = p.mb_height, p.mb_width
+        n = mbh * mbw
+        bw = BitWriter()
+        H.write_slice_header(bw, self.sps, self.pps, H.SLICE_TYPE_P,
+                             frame_num, qp, idr=False, disable_deblock=0,
+                             alpha_div2=p.deblock_alpha,
+                             beta_div2=p.deblock_beta, poc_lsb=poc_lsb,
+                             reorder_l0=None, p_l0_active=1)
+        hdr, nbits = bw.partial_bytes()
+        return native.write_slice(
+            hdr, nbits, H.SLICE_TYPE_P, mbw, mbh,
+            skip=skip.reshape(n).astype(np.uint8),
+            part=part_np.reshape(n), mvd4=mvd.reshape(n, 4, 2),
+            cbp_luma=res_np["cbp_luma"], cbp_chroma=res_np["cbp_chroma"],
+            luma_blocks=res_np["luma_lev"].reshape(n, 16, 16),
+            chroma_dc=res_np["chroma_dc"].reshape(n, 2, 4),
+            chroma_ac=res_np["chroma_ac"].reshape(n, 2, 4, 16))
+
+    def load_state(self, d: dict) -> None:
+        """Resume mid-stream from a state dict of numpy arrays (see
+        `video_steganography_pcamv_torch.state.from_reference`)."""
+        load_state(self, d)

@@ -1,0 +1,320 @@
+"""I-frame encoder on the knight wavefront (port of encoder/intra.py).
+
+Every MB of wave d = mx + 2*my only depends on MBs of earlier waves
+(left, top, top-left and the i4x4 top-right), so a wave is one batch.
+The reference pads each wave to a fixed width and drops inactive lanes;
+here a wave is exactly its active MBs, which gives the same values.
+Scope of the port: i16x16 + i4x4 + chroma, no i8x8 / rd / trellis.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..ops import const
+from ..ops import transform as T
+from ..ops import predict as P
+from ..ops.blocks import to_blocks
+
+_I32 = torch.int32
+BIG = 1 << 30
+
+LUMA_SCAN = [(0, 0), (0, 1), (1, 0), (1, 1), (0, 2), (0, 3), (1, 2), (1, 3),
+             (2, 0), (2, 1), (3, 0), (3, 1), (2, 2), (2, 3), (3, 2), (3, 3)]
+_SCAN_IDX = {pos: i for i, pos in enumerate(LUMA_SCAN)}
+_UE_SIZE4 = np.array([1, 3, 3, 5], np.int32)
+
+
+def wave_tables(mbw: int, mbh: int):
+    """Knight-move wave membership (d = mx + 2*my): (mx, my, active)
+    arrays of shape [n_waves, W], as in the reference."""
+    n_waves = mbw + 2 * (mbh - 1)
+    rows = [[] for _ in range(n_waves)]
+    for my in range(mbh):
+        for mx in range(mbw):
+            rows[mx + 2 * my].append((mx, my))
+    w = max(len(r) for r in rows)
+    mx_t = np.zeros((n_waves, w), np.int32)
+    my_t = np.zeros((n_waves, w), np.int32)
+    act = np.zeros((n_waves, w), bool)
+    for d, r in enumerate(rows):
+        for lane, (x, y) in enumerate(r):
+            mx_t[d, lane] = x
+            my_t[d, lane] = y
+            act[d, lane] = True
+    return mx_t, my_t, act
+
+
+_WAVES: dict = {}
+
+
+def waves(mbw: int, mbh: int, device) -> list:
+    """Per wave, the (my, mx) long tensors of its MBs on `device`."""
+    key = (mbw, mbh, str(torch.device(device)))
+    if key not in _WAVES:
+        mx_t, my_t, act = wave_tables(mbw, mbh)
+        out = []
+        for d in range(mx_t.shape[0]):
+            a = act[d]
+            out.append((torch.as_tensor(my_t[d][a], device=device).long(),
+                        torch.as_tensor(mx_t[d][a], device=device).long()))
+        _WAVES[key] = out
+    return _WAVES[key]
+
+
+def _tile(img: torch.Tensor, n: int) -> torch.Tensor:
+    h, w = img.shape
+    return img.reshape(h // n, n, w // n, n).permute(0, 2, 1, 3)
+
+
+def _untile(t: torch.Tensor) -> torch.Tensor:
+    mh, mw, n, _ = t.shape
+    return t.permute(0, 2, 1, 3).reshape(mh * n, mw * n)
+
+
+def _take_mode(preds, mode):
+    return preds[torch.arange(preds.shape[0], device=preds.device), mode]
+
+
+def _i16_mb(enc, top, left, topleft, at, al, qp: int, lam: int):
+    preds = P.predict_i16x16_all(top, left, topleft, at, al)
+    d = to_blocks(enc[:, None] - preds, 4)
+    satd = torch.abs(T.hadamard4x4(d)).sum((-4, -3, -2, -1),
+                                           dtype=_I32) >> 1
+    satd = satd + lam * const(_UE_SIZE4, enc.device)[None, :]
+    valid = torch.stack([at, al, torch.ones_like(at), at & al], dim=1)
+    cost = torch.where(valid, satd, BIG)
+    mode = torch.argmin(cost, dim=1)
+    best_cost = cost.min(dim=1).values
+    pred = _take_mode(preds, mode)
+
+    coef = T.dct4x4(to_blocks(enc - pred, 4))
+    dc = coef[:, 0, 0, :, :]
+    dc_t = T.hadamard4x4(dc[..., None, None], final_shift=True)[..., 0, 0]
+    ac = coef.clone()
+    ac[:, 0, 0] = 0
+    dc_lev = T.quant_dc(dc_t, qp, intra=True)
+    ac_lev = T.quant4x4(ac, qp, intra=True)
+    cbp_luma = (ac_lev != 0).any(4).any(3).any(2).any(1)
+
+    deq = T.dequant4x4(ac_lev, qp)
+    dc_rec = T.hadamard4x4(dc_lev[..., None, None])[..., 0, 0]
+    deq[:, 0, 0] = T.dequant_dc_luma(dc_rec, qp)
+    recon = T.idct4x4_add(to_blocks(pred, 4), deq)
+    recon = recon.permute(0, 3, 1, 4, 2).reshape(-1, 16, 16)
+    return mode.to(_I32), dc_lev, ac_lev, cbp_luma, recon, best_cost
+
+
+def _satd4(a, b):
+    d = (a[:, None] - b)[..., None, None]
+    return torch.abs(T.hadamard4x4(d)).sum((-4, -3, -2, -1),
+                                           dtype=_I32) >> 1
+
+
+def _i4_mb(enc, top20, left, topleft, at, al, atr, qp: int, lam: int,
+           nb_left_modes, nb_top_modes):
+    """Batched i4x4 encode: the 16-block z-scan chain per MB."""
+    dev = enc.device
+    W = enc.shape[0]
+    ones = torch.ones(W, dtype=torch.bool, device=dev)
+    wt = torch.zeros((W, 16, 16), dtype=_I32, device=dev)
+    m4 = torch.full((W, 4, 4), 2, dtype=_I32, device=dev)
+    lev_out = torch.zeros((W, 4, 4, 4, 4), dtype=_I32, device=dev)
+    modes_out = []
+    cost = torch.zeros(W, dtype=_I32, device=dev)
+    needs_t = const(P.I4_NEEDS_TOP, dev)
+    needs_l = const(P.I4_NEEDS_LEFT, dev)
+    nine = torch.arange(9, device=dev)
+
+    for by, bx in LUMA_SCAN:
+        if by == 0:
+            t8 = top20[:, 4 * bx:4 * bx + 8]
+            t_av = at
+            if bx == 3:
+                rep = t8[:, 3:4].expand(W, 4)
+                t8 = torch.where(atr[:, None], t8,
+                                 torch.cat([t8[:, :4], rep], 1))
+        else:
+            row = wt[:, 4 * by - 1, :]
+            t4 = row[:, 4 * bx:4 * bx + 4]
+            tr_ok = (bx < 3
+                     and _SCAN_IDX[(by - 1, bx + 1)] < _SCAN_IDX[(by, bx)])
+            if tr_ok:
+                t8 = row[:, 4 * bx:4 * bx + 8]
+            else:
+                t8 = torch.cat([t4, t4[:, 3:4].expand(W, 4)], 1)
+            t_av = ones
+        if bx == 0:
+            l4 = left[:, 4 * by:4 * by + 4]
+            l_av = al
+        else:
+            l4 = wt[:, 4 * by:4 * by + 4, 4 * bx - 1]
+            l_av = ones
+        if by == 0 and bx == 0:
+            lt = topleft
+        elif by == 0:
+            lt = top20[:, 4 * bx - 1]
+        elif bx == 0:
+            lt = left[:, 4 * by - 1]
+        else:
+            lt = wt[:, 4 * by - 1, 4 * bx - 1]
+
+        preds = P.predict_i4x4_all(t8, l4, lt, t_av, l_av)
+        eblk = enc[:, 4 * by:4 * by + 4, 4 * bx:4 * bx + 4]
+        satd = _satd4(eblk, preds)
+
+        mA = nb_left_modes[:, by] if bx == 0 else m4[:, by, bx - 1]
+        mB = nb_top_modes[:, bx] if by == 0 else m4[:, by - 1, bx]
+        av_a = al if bx == 0 else ones
+        av_b = at if by == 0 else ones
+        pm = torch.where(av_a & av_b, torch.minimum(mA, mB), 2)
+        bits = torch.where(nine[None, :] == pm[:, None], 1, 4).to(_I32)
+        valid = ~((needs_t[None, :] & ~t_av[:, None])
+                  | (needs_l[None, :] & ~l_av[:, None]))
+        mcost = torch.where(valid, satd + lam * bits, BIG)
+        mode = torch.argmin(mcost, dim=1)
+        cost = cost + mcost.min(dim=1).values
+        pred = _take_mode(preds, mode)
+
+        coef = T.dct4x4((eblk - pred)[..., None, None])
+        lev = T.quant4x4(coef, qp, intra=True)
+        deq = T.dequant4x4(lev, qp)
+        rec = T.idct4x4_add(pred[..., None, None], deq)[..., 0, 0]
+        wt[:, 4 * by:4 * by + 4, 4 * bx:4 * bx + 4] = rec
+        m4[:, by, bx] = mode.to(_I32)
+        lev_out[:, by, bx] = lev[..., 0, 0]
+        modes_out.append(mode.to(_I32))
+
+    cost = cost + 24 * lam
+    nz = (lev_out != 0).any(4).any(3)                        # [W,4,4]
+    cbp8 = nz.reshape(W, 2, 2, 2, 2).any(4).any(2)           # [W,2,2]
+    cbp_luma = (cbp8[:, 0, 0].to(_I32) * 1 + cbp8[:, 0, 1] * 2
+                + cbp8[:, 1, 0] * 4 + cbp8[:, 1, 1] * 8).to(_I32)
+    return torch.stack(modes_out, dim=1), lev_out, cbp_luma, wt, cost
+
+
+def _chroma_mb(enc_u, enc_v, tops, lefts, tl_u, tl_v, at, al, qpc: int,
+               lam: int):
+    """Batched chroma encode with a joint U+V mode decision."""
+    (top_u, top_v), (left_u, left_v) = tops, lefts
+    pu = P.predict_chroma_all(top_u, left_u, tl_u, at, al)
+    pv = P.predict_chroma_all(top_v, left_v, tl_v, at, al)
+    du = to_blocks(enc_u[:, None] - pu, 4)
+    dv = to_blocks(enc_v[:, None] - pv, 4)
+    axes = (-4, -3, -2, -1)
+    satd = (torch.abs(T.hadamard4x4(du)).sum(axes, dtype=_I32)
+            + torch.abs(T.hadamard4x4(dv)).sum(axes, dtype=_I32)) >> 1
+    satd = satd + lam * const(_UE_SIZE4, enc_u.device)[None, :]
+    valid = torch.stack([torch.ones_like(at), al, at, at & al], dim=1)
+    mode = torch.argmin(torch.where(valid, satd, BIG), dim=1)
+
+    def encode_plane(enc, preds):
+        pred = _take_mode(preds, mode)
+        coef = T.dct4x4(to_blocks(enc - pred, 4))             # [W,4,4,2,2]
+        dc_t = T.hadamard2x2(coef[:, 0, 0][..., None, None])[..., 0, 0]
+        ac = coef.clone()
+        ac[:, 0, 0] = 0
+        dc_lev = T.quant_dc(dc_t, qpc, intra=True)            # [W,2,2]
+        ac_lev = T.quant4x4(ac, qpc, intra=True)
+        deq = T.dequant4x4(ac_lev, qpc)
+        dc_rec = T.hadamard2x2(dc_lev[..., None, None])[..., 0, 0]
+        deq[:, 0, 0] = T.dequant_dc_chroma(dc_rec, qpc)
+        recon = T.idct4x4_add(to_blocks(pred, 4), deq)
+        recon = recon.permute(0, 3, 1, 4, 2).reshape(-1, 8, 8)
+        return dc_lev, ac_lev, recon
+
+    dcu, acu, ru = encode_plane(enc_u, pu)
+    dcv, acv, rv = encode_plane(enc_v, pv)
+    dc_lev = torch.stack([dcu, dcv], dim=1)                   # [W,2,2,2]
+    ac_lev = torch.stack([acu, acv], dim=1)                   # [W,2,4,4,2,2]
+    ac_nz = (ac_lev != 0).flatten(1).any(1)
+    dc_nz = (dc_lev != 0).flatten(1).any(1)
+    cbp_chroma = torch.where(ac_nz, 2, torch.where(dc_nz, 1, 0)).to(_I32)
+    return mode.to(_I32), dc_lev, ac_lev, cbp_chroma, ru, rv
+
+
+def _z_to_grid(m4_z):
+    g = torch.empty((m4_z.shape[0], 4, 4), dtype=m4_z.dtype,
+                    device=m4_z.device)
+    for blk, (by, bx) in enumerate(LUMA_SCAN):
+        g[:, by, bx] = m4_z[:, blk]
+    return g
+
+
+def encode_i_frame(y, u, v, qp: int, qpc: int, mbw: int, mbh: int,
+                   lam: int = 0) -> dict:
+    """Encode one I frame. y: [16mbh, 16mbw] int32; u, v half size.
+    Returns the reference's dict of per-MB decisions, levels and recon
+    planes (i4x4 on, i8x8 off)."""
+    dev = y.device
+    ty, tu, tv = _tile(y, 16), _tile(u, 8), _tile(v, 8)
+
+    def z(*shape, fill=0, dtype=_I32):
+        return torch.full((mbh, mbw) + shape, fill, dtype=dtype, device=dev)
+
+    st = dict(
+        ry=z(16, 16), ru=z(8, 8), rv=z(8, 8), mode=z(), cmode=z(),
+        mb_i4=z(dtype=torch.bool), i4_modes=z(16, fill=2),
+        modes4=z(4, 4, fill=2), cbp_luma=z(), cbp_chroma=z(),
+        luma_dc=z(4, 4), luma_ac=z(4, 4, 4, 4), chroma_dc=z(2, 2, 2),
+        chroma_ac=z(2, 2, 2, 4, 4))
+
+    for my, mx in waves(mbw, mbh, dev):
+        at = my > 0
+        al = mx > 0
+        atr = at & (mx < mbw - 1)
+        mxc = torch.clamp(mx - 1, min=0)
+        myc = torch.clamp(my - 1, min=0)
+        mxr = torch.clamp(mx + 1, max=mbw - 1)
+
+        enc = ty[my, mx]
+        top = st["ry"][myc, mx, 15, :]
+        left = st["ry"][my, mxc, :, 15]
+        tl = st["ry"][myc, mxc, 15, 15]
+        mode16, dc_lev, ac_lev, cbpl16, rec16, cost16 = _i16_mb(
+            enc, top, left, tl, at, al, qp, lam)
+
+        nb_lm = st["modes4"][my, mxc, :, 3]
+        nb_tm = st["modes4"][myc, mx, 3, :]
+        top20 = torch.cat([top, st["ry"][myc, mxr, 15, 0:4]], dim=1)
+        m4, lev4, cbpl4, rec4, cost4 = _i4_mb(
+            enc, top20, left, tl, at, al, atr, qp, lam, nb_lm, nb_tm)
+        use4 = cost4 < cost16
+
+        u4 = use4[:, None, None]
+        rec = torch.where(u4, rec4, rec16)
+        luma_ac = torch.where(use4[:, None, None, None, None], lev4,
+                              ac_lev.movedim((1, 2), (3, 4)))
+        cbp_luma = torch.where(use4, cbpl4, cbpl16.to(_I32) * 15)
+        dc_out = torch.where(u4, torch.zeros_like(dc_lev), dc_lev)
+        ctx4 = torch.where(u4, _z_to_grid(m4), 2)
+
+        cmode, cdc, cac, cbpc, ruu, rvv = _chroma_mb(
+            tu[my, mx], tv[my, mx],
+            (st["ru"][myc, mx, 7, :], st["rv"][myc, mx, 7, :]),
+            (st["ru"][my, mxc, :, 7], st["rv"][my, mxc, :, 7]),
+            st["ru"][myc, mxc, 7, 7], st["rv"][myc, mxc, 7, 7], at, al,
+            qpc, lam)
+
+        st["ry"][my, mx] = rec
+        st["ru"][my, mx] = ruu
+        st["rv"][my, mx] = rvv
+        st["mode"][my, mx] = mode16
+        st["cmode"][my, mx] = cmode
+        st["mb_i4"][my, mx] = use4
+        st["i4_modes"][my, mx] = m4
+        st["modes4"][my, mx] = ctx4.to(_I32)
+        st["cbp_luma"][my, mx] = cbp_luma
+        st["cbp_chroma"][my, mx] = cbpc
+        st["luma_dc"][my, mx] = dc_out
+        st["luma_ac"][my, mx] = luma_ac
+        st["chroma_dc"][my, mx] = cdc
+        st["chroma_ac"][my, mx] = cac.movedim((2, 3), (4, 5))
+
+    out = dict(st)
+    out.pop("modes4")
+    out["recon_y"] = _untile(out.pop("ry"))
+    out["recon_u"] = _untile(out.pop("ru"))
+    out["recon_v"] = _untile(out.pop("rv"))
+    return out

@@ -1,0 +1,110 @@
+"""Lookahead slice-type decision (port of encoder/slicetype.py, the IPP
+subset: `lowres`, `lowres_costs`, `Lookahead.decide`, `costs_device`,
+`decide_from_costs`)."""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops.blocks import to_blocks
+
+_I32 = torch.int32
+
+
+def lowres(y: torch.Tensor) -> torch.Tensor:
+    """Half-res 2x2 average, rounding up."""
+    h, w = y.shape
+    t = y.reshape(h // 2, 2, w // 2, 2)
+    return (t[:, 0, :, 0] + t[:, 0, :, 1] + t[:, 1, :, 0]
+            + t[:, 1, :, 1] + 2) >> 2
+
+
+def _edge_pad(x: torch.Tensor, r: int) -> torch.Tensor:
+    h, w = x.shape
+    rows = torch.arange(-r, h + r, device=x.device).clamp(0, h - 1)
+    cols = torch.arange(-r, w + r, device=x.device).clamp(0, w - 1)
+    return x[rows][:, cols]
+
+
+def lowres_costs(cur_lr, ref_lr, bh: int, bw: int, rng: int = 8):
+    """(cost_i, cost_p) of a lowres frame: per-8x8 exhaustive inter SAD
+    against the previous lowres frame vs a DC intra SAD. Returns an
+    int32 [2] tensor."""
+    h, w = 8 * bh, 8 * bw
+    ref_pad = _edge_pad(ref_lr, rng)
+    best = torch.full((bh, bw), 1 << 30, dtype=_I32, device=cur_lr.device)
+    side = 2 * rng + 1
+    for i in range(side * side):
+        dy = i // side - rng
+        dx = i % side - rng
+        win = ref_pad[rng + dy:rng + dy + h, rng + dx:rng + dx + w]
+        sad = to_blocks(torch.abs(cur_lr - win), 8).sum((-4, -3),
+                                                       dtype=_I32)
+        best = torch.minimum(best, sad + 4 * (abs(dy) + abs(dx)))
+    blocks = to_blocks(cur_lr, 8)
+    dc = torch.div(blocks.sum((-4, -3), keepdim=True, dtype=_I32), 64,
+                   rounding_mode="floor")
+    intra = torch.abs(blocks - dc).sum((-4, -3), dtype=_I32)
+    cost_p = torch.minimum(best, intra).sum(dtype=_I32)
+    cost_i = intra.sum(dtype=_I32)
+    return torch.stack([cost_i, cost_p])
+
+
+class Lookahead:
+    """IDR-vs-P decision: keyint expiry or scenecut (slicetype.c:437)."""
+
+    def __init__(self, params):
+        self.p = params
+        self.prev_lr = None
+        self.last_keyframe = -(10 ** 9)
+        self.frame_idx = -1
+        self._pending_lr = None
+
+    def costs_device(self, y: torch.Tensor) -> torch.Tensor:
+        """Enqueue the lowres costs without a host pull; pair with
+        decide_from_costs once the values are on the host."""
+        p = self.p
+        cur_lr = lowres(y)
+        out = lowres_costs(cur_lr, self.prev_lr, p.mb_height, p.mb_width,
+                           rng=p.lookahead_me_range)
+        self._pending_lr = cur_lr
+        return out
+
+    def decide_from_costs(self, ci: int, cp: int):
+        self.frame_idx += 1
+        self.prev_lr = self._pending_lr
+        return self._decide_host(self.frame_idx, ci, cp)
+
+    def decide(self, y: torch.Tensor):
+        """(is_idr, complexity) for the incoming padded luma plane."""
+        p = self.p
+        self.frame_idx += 1
+        idx = self.frame_idx
+        bh, bw = p.mb_height, p.mb_width
+        cur_lr = lowres(y)
+        if self.prev_lr is None:
+            self.prev_lr = cur_lr
+            self.last_keyframe = idx
+            both = lowres_costs(cur_lr, cur_lr, bh, bw, rng=0).cpu()
+            return True, int(both[0])
+        both = lowres_costs(cur_lr, self.prev_lr, bh, bw,
+                            rng=p.lookahead_me_range).cpu()
+        ci, cp = int(both[0]), int(both[1])
+        self.prev_lr = cur_lr
+        return self._decide_host(idx, ci, cp)
+
+    def _decide_host(self, idx: int, ci: int, cp: int):
+        p = self.p
+        since_key = idx - self.last_keyframe
+        is_idr = since_key >= p.keyint_max
+        if (not is_idr and p.scenecut_threshold > 0
+                and since_key >= p.keyint_min):
+            thresh = p.scenecut_threshold / 100.0
+            bias = min(thresh * 4,
+                       thresh + thresh * (since_key / p.keyint_max))
+            if cp >= (1.0 - bias) * ci:
+                is_idr = True
+        if is_idr:
+            self.last_keyframe = idx
+            return True, ci
+        return False, cp

@@ -1,0 +1,102 @@
+"""Build and load the hand-written CUDA kernels.
+
+All `csrc/*.cu` files are compiled by `nvcc` for sm_90a into one shared
+library with a plain C interface, at first use, into
+`build/torch_kernels/` at the repository root (git-ignored). The
+library name carries a hash of the sources and flags, so an edit
+rebuilds it. The wrappers in `ops/` bind the entry points with ctypes:
+tensor pointers and the CUDA stream go in as `c_void_p`, and every
+entry point returns `cudaGetLastError()`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC_DIR = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_lib = None
+build_seconds = None
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (PATH or /usr/local/cuda/bin)")
+
+
+def sources() -> list:
+    return sorted(glob.glob(os.path.join(SRC_DIR, "*.cu")))
+
+
+def lib_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources() + sorted(glob.glob(os.path.join(SRC_DIR,
+                                                          "*.cuh"))):
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + f.read())
+    return os.path.join(BUILD_DIR, "pcamv_kernels_%s.so" % h.hexdigest()[:16])
+
+
+def build() -> str:
+    """Compile the kernels if the library for these sources is missing;
+    returns its path."""
+    global build_seconds
+    out = lib_path()
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = "%s.%d.tmp" % (out, os.getpid())
+    t0 = time.time()
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()]
+    r = subprocess.run(cmd, capture_output=True, text=True)
+    if r.returncode != 0:
+        raise RuntimeError("nvcc failed (%d):\n%s\n%s"
+                           % (r.returncode, " ".join(cmd), r.stderr))
+    os.replace(tmp, out)
+    build_seconds = time.time() - t0
+    return out
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library (built on first use)."""
+    global _lib
+    if _lib is None:
+        _lib = ctypes.CDLL(build())
+    return _lib
+
+
+def check(rc: int, name: str) -> None:
+    """Raise if an entry point returned a CUDA error."""
+    if rc != 0:
+        raise RuntimeError("%s: CUDA error %d at launch" % (name, rc))
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def check_tensor(fn: str, name: str, t, dtype, shape) -> None:
+    """Validate a kernel argument: CUDA, dtype, shape, contiguous."""
+    if not t.is_cuda:
+        raise ValueError("%s: %s is not a CUDA tensor" % (fn, name))
+    if t.dtype != dtype:
+        raise TypeError("%s: %s dtype %s, expected %s"
+                        % (fn, name, t.dtype, dtype))
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError("%s: %s shape %s, expected %s"
+                         % (fn, name, tuple(t.shape), tuple(shape)))
+    if not t.is_contiguous():
+        raise ValueError("%s: %s is not contiguous" % (fn, name))

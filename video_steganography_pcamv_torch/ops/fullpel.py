@@ -1,0 +1,170 @@
+"""Kernel B1: full-pel all-partition motion search.
+
+`fullpel_parts` replaces the TPU kernel `fullpel_parts_pallas`
+(video_steganography_pcamv_tpu/ops/pallas_kernels.py:435). On a CUDA
+tensor it launches the hand-written kernel `csrc/fullpel.cu`; on a CPU
+tensor it runs `fullpel_search_parts`, the plain PyTorch port of the
+reference's `encoder/partition.py:fullpel_search_parts`, which is also
+the kernel's oracle.
+
+Both take the full-pel MV predictor as an input, so the one kernel
+serves the reference's CPU branch (predictor `prev_mv >> 2`) and its
+TPU branch (zero predictor). On the H100 the kernel is bound by integer
+ALU work and shared-memory reads (~2.3 G abs-differences a 1080p frame
+at rng 16); device-memory traffic is ~10 KB per MB.
+
+Output (both paths): the reference's `st` dict — c16 [mbh,mbw],
+mv16 [mbh,mbw,2], c16x8/mv16x8 [mbh,mbw,2(,2)], c8x16/mv8x16,
+c8 [mbh,mbw,4], mv8 [mbh,mbw,4,2]; MVs are full-pel (x, y).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from . import mc
+from .. import kernels
+from ..encoder.me import mv_bits_table
+from ..ops.blocks import to_blocks
+
+_I32 = torch.int32
+BIG = 1 << 30
+
+# unit order of the kernel's 9 outputs: 16x16; 16x8 T/B; 8x16 L/R;
+# 8x8 in z-order
+_UNIT_KEYS = (("c16", "mv16", 0, 1), ("c16x8", "mv16x8", 1, 2),
+              ("c8x16", "mv8x16", 3, 2), ("c8", "mv8", 5, 4))
+
+
+def bits_table(rng: int) -> np.ndarray:
+    """The reference's se(v) bit-size table for a +-rng scan."""
+    return mv_bits_table(4 * (rng + 64))
+
+
+def fullpel_search_parts(cur_y, ref_fp, pred_mv_fp, rng: int, mbh: int,
+                         mbw: int, lam: int = 1) -> dict:
+    """Plain version: a loop over the (2rng+1)^2 displacements in
+    dy-outer, dx-inner order with strict-< running minima."""
+    dev = cur_y.device
+    h, w = 16 * mbh, 16 * mbw
+    bits_t = _bits_on(dev, rng)
+    off = 4 * (rng + 64)
+    nb = bits_t.shape[0]
+    pmx = pred_mv_fp[..., 0]
+    pmy = pred_mv_fp[..., 1]
+
+    def full(*shape):
+        return torch.full((mbh, mbw) + shape, BIG, dtype=_I32, device=dev)
+
+    def zeros(*shape):
+        return torch.zeros((mbh, mbw) + shape, dtype=_I32, device=dev)
+
+    st = dict(c16=full(), mv16=zeros(2), c16x8=full(2), mv16x8=zeros(2, 2),
+              c8x16=full(2), mv8x16=zeros(2, 2), c8=full(4),
+              mv8=zeros(4, 2))
+
+    def upd(ck, mk, cost, mv_i):
+        better = cost < st[ck]
+        st[ck] = torch.where(better, cost, st[ck])
+        st[mk] = torch.where(better[..., None], mv_i, st[mk])
+
+    side = 2 * rng + 1
+    grid = np.stack(np.meshgrid(np.arange(-rng, rng + 1),
+                                np.arange(-rng, rng + 1),
+                                indexing="xy"), -1).reshape(-1, 2)
+    mvs = torch.as_tensor(grid, device=dev).to(_I32)   # (dx, dy) rows
+    for i in range(side * side):
+        dy, dx = i // side - rng, i % side - rng
+        win = ref_fp[mc.PAD + dy:mc.PAD + dy + h,
+                     mc.PAD + dx:mc.PAD + dx + w]
+        sad8 = to_blocks(torch.abs(cur_y - win), 8).sum((-4, -3),
+                                                       dtype=_I32)
+        q = sad8.reshape(mbh, 2, mbw, 2).permute(0, 2, 1, 3)
+        ix = torch.clamp(4 * dx - 4 * pmx + off, 0, nb - 1).long()
+        iy = torch.clamp(4 * dy - 4 * pmy + off, 0, nb - 1).long()
+        mvc = (bits_t[ix] + bits_t[iy]) * lam
+        mv_i = mvs[i]
+        upd("c16", "mv16", q.sum((2, 3), dtype=_I32) + mvc, mv_i)
+        upd("c16x8", "mv16x8", q.sum(3, dtype=_I32) + mvc[..., None],
+            mv_i)
+        upd("c8x16", "mv8x16", q.sum(2, dtype=_I32) + mvc[..., None],
+            mv_i)
+        upd("c8", "mv8", q.reshape(mbh, mbw, 4) + mvc[..., None], mv_i)
+    return st
+
+
+def units_to_st(cost9: torch.Tensor, idx9: torch.Tensor, rng: int) -> dict:
+    """[mbh,mbw,9] (cost, dy-outer scan index) -> the `st` dict."""
+    side = 2 * rng + 1
+    dy = torch.div(idx9, side, rounding_mode="floor") - rng
+    dx = idx9 % side - rng
+    mv9 = torch.stack([dx, dy], dim=-1).to(_I32)
+    st = {}
+    for ck, mk, lo, cnt in _UNIT_KEYS:
+        if cnt == 1:
+            st[ck] = cost9[..., lo]
+            st[mk] = mv9[..., lo, :]
+        else:
+            st[ck] = cost9[..., lo:lo + cnt]
+            st[mk] = mv9[..., lo:lo + cnt, :]
+    return st
+
+
+def fullpel_parts(cur_y, ref_fp, pred_mv_fp, rng: int, mbh: int, mbw: int,
+                  lam: int = 1) -> dict:
+    """Kernel B1, replacing the TPU kernel `fullpel_parts_pallas`
+    (video_steganography_pcamv_tpu/ops/pallas_kernels.py:435). On the
+    H100 it is bound by integer ALU work and shared-memory reads.
+
+    cur_y [16mbh,16mbw] int32; ref_fp the PAD-padded full-pel plane
+    int32; pred_mv_fp [mbh,mbw,2] int32 full-pel predictor. CPU tensors
+    run the plain version; CUDA tensors launch the kernel (counted in
+    `fullpel_parts.launches`) into outputs allocated here; anything else
+    raises."""
+    if cur_y.device.type == "cpu":
+        return fullpel_search_parts(cur_y, ref_fp, pred_mv_fp, rng, mbh,
+                                    mbw, lam)
+    h, w = 16 * mbh, 16 * mbw
+    if not 0 <= rng <= mc.PAD:
+        raise ValueError("fullpel_parts: rng %d outside [0, %d]"
+                         % (rng, mc.PAD))
+    for name, t, shape in (
+            ("cur_y", cur_y, (h, w)),
+            ("ref_fp", ref_fp, (h + 2 * mc.PAD, w + 2 * mc.PAD)),
+            ("pred_mv_fp", pred_mv_fp, (mbh, mbw, 2))):
+        kernels.check_tensor("fullpel_parts", name, t, _I32, shape)
+    lib = kernels.load()
+    fn = lib.pcamv_fullpel_parts
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    bits_t = _bits_on(cur_y.device, rng)
+    cost9 = torch.empty((mbh, mbw, 9), dtype=_I32, device=cur_y.device)
+    idx9 = torch.empty((mbh, mbw, 9), dtype=_I32, device=cur_y.device)
+    stream = torch.cuda.current_stream(cur_y.device).cuda_stream
+    ptr = kernels.ptr
+    rc = fn(ptr(cur_y), w, ptr(ref_fp), w + 2 * mc.PAD, ptr(pred_mv_fp),
+            ptr(bits_t), bits_t.shape[0], rng, int(lam), mbh, mbw,
+            ptr(cost9), ptr(idx9), ctypes.c_void_p(stream))
+    kernels.check(rc, "pcamv_fullpel_parts")
+    fullpel_parts.launches += 1
+    return units_to_st(cost9, idx9, rng)
+
+
+fullpel_parts.launches = 0
+
+_BITS: dict = {}
+
+
+def _bits_on(device, rng: int) -> torch.Tensor:
+    key = (str(device), rng)
+    if key not in _BITS:
+        _BITS[key] = torch.as_tensor(bits_table(rng), device=device) \
+            .to(_I32).contiguous()
+    return _BITS[key]
