@@ -5,42 +5,71 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 Phases (any failure raises and the script exits non-zero):
-  1. card name + power limit, kernel build (nvcc, sm_90a) and its time;
+  1. card name + power limit; the nvcc kernel build (one nvcc per CUDA
+     source, all started together) and the g++ build of the port's
+     native library, in parallel, with their times;
   2. kernel B1 (full-pel partition search) against its plain version at
      1080p shapes, random and zero predictor: array-equal, both timed;
   3. kernel B5 (deblock) against its plain version at 1080p with fuzzed
      intra/skip/nnz/mv maps at qp 26 and 40: array-equal, both timed;
-  4. 112x80 six-frame encode on cuda and on cpu: byte-equal streams that
-     the reference decoder decodes and the reference extractor reads;
-  5. the serving main path at 1920x1088 (bench.py's Params), ten frames
-     plus flush: payload recovered, both kernels launched, fps printed.
-The line before the last holds the per-kernel JSON record; the last
-line is {"ok": true, "device": {...}}.
+  4. kernels B2 (qpel tables), B3 (subpel) and B4 (probe maps) against
+     their plain versions at 1080p shapes on a real frame pair run
+     through the accelerator branch's B1 + partition decision:
+     array-equal, timed, beside their bounds;
+  5. 112x80 six-frame encode on cuda and on cpu for both tail_kernel
+     settings: byte-equal streams that the port's decoder decodes and
+     the port's extractor reads;
+  6. the main path at 1920x1088, bench.py's Params (tail_kernel=True, the
+     reference's accelerator branch), ten frames plus flush: payload
+     recovered, all five kernels launched, fps printed;
+  7. the tail_kernel=False path (B1 against the predictor prev_mv >> 2)
+     at 1920x1088, IDR + 3 P frames plus flush: payload recovered, all
+     five kernels launched;
+  8. per-stage times of a 1080p P frame on the tail_kernel=True path.
+The line before the last two holds the per-kernel JSON record, then the
+card line; the last line is {"ok": true, "device": {...}}.
 """
 
 import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
 import torch
 
 MBH, MBW = 68, 120          # 1920x1088
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 rate
 
 
 def log(msg):
     print(msg, flush=True)
 
 
-def card_line() -> str:
-    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+def card_query(fields: str) -> str:
+    r = subprocess.run(["nvidia-smi", "--query-gpu=" + fields,
                         "--format=csv,noheader"], capture_output=True,
                        text=True, timeout=60)
     if r.returncode != 0:
         raise RuntimeError("nvidia-smi failed: " + r.stderr)
     return r.stdout.strip().splitlines()[0]
+
+
+def int32_ops_per_s() -> float:
+    """Peak 32-bit integer rate: 132 SMs x 64 INT32 lanes x the SM clock
+    (the maximum that nvidia-smi reports)."""
+    mhz = float(card_query("clocks.max.sm").split()[0])
+    return 132 * 64 * mhz * 1e6
+
+
+def bound(nbytes: float, ops: float, ops_rate: float):
+    """(bound_ms, bound_by): the larger of bytes over the HBM rate and
+    integer operations over the int32 rate."""
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = ops / ops_rate * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -60,14 +89,46 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return float(np.median(times))
 
 
-def max_abs(a: dict, b: dict) -> int:
-    return max(int((a[k].long() - b[k].long()).abs().max()) for k in a)
+def max_abs(a, b) -> int:
+    return max(int((x.long() - y.long()).abs().max()) for x, y in zip(a, b))
 
 
-def phase_b1(dev):
+def record(name, source, replaces, err, ms, plain_ms, bnd):
+    return {"name": name, "route": "cuda",
+            "source": "video_steganography_pcamv_torch/csrc/" + source,
+            "replaces": "video_steganography_pcamv_tpu/" + replaces,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
+
+
+def phase_build():
+    from video_steganography_pcamv_torch import kernels, native
+    t0 = time.time()
+    errs = []
+
+    def run(fn):
+        try:
+            fn()
+        except Exception as e:          # re-raised below
+            errs.append(e)
+
+    th = threading.Thread(target=run, args=(native.build,))
+    th.start()
+    run(kernels.load)
+    th.join()
+    if errs:
+        raise errs[0]
+    native.load()
+    log("kernels built/loaded in %.1f s (nvcc %.1f s) -> %s; native g++ "
+        "%.1f s" % (time.time() - t0, kernels.build_seconds or 0.0,
+                    os.path.relpath(kernels.lib_path()),
+                    native.build_seconds or 0.0))
+
+
+def phase_b1(dev, int_rate):
     from video_steganography_pcamv_torch.ops import fullpel as FP
     from video_steganography_pcamv_torch.ops import mc
-    from video_steganography_pcamv_tpu.utils.yuv import synthetic_sequence
+    from video_steganography_pcamv_torch.utils.yuv import synthetic_sequence
     fr = synthetic_sequence(16 * MBW, 16 * MBH, 2, seed=3)
     rs = np.random.RandomState(11)
     cur = torch.as_tensor(fr[1].y.astype(np.int32), device=dev)
@@ -81,7 +142,7 @@ def phase_b1(dev):
         got = FP.fullpel_parts(cur, ref, pred, rng, MBH, MBW, lam)
         want = FP.fullpel_search_parts(cur, ref, pred, rng, MBH, MBW, lam)
         torch.cuda.synchronize()
-        err = max_abs(got, want)
+        err = max_abs([got[k] for k in want], want.values())
         if err != 0 or any(not torch.equal(got[k], want[k]) for k in want):
             raise AssertionError("B1 kernel != plain (%s predictor), max "
                                  "abs err %d" % (name, err))
@@ -92,16 +153,20 @@ def phase_b1(dev):
                                           lam), reps=20, warmup=3)
     plain_ms = cuda_ms(lambda: FP.fullpel_search_parts(
         cur, ref, pred, rng, MBH, MBW, lam), reps=3)
-    log("B1 time: kernel %.3f ms, plain %.3f ms (median, 1080p)"
-        % (ms, plain_ms))
-    return {"name": "fullpel_parts", "route": "cuda",
-            "source": "video_steganography_pcamv_torch/csrc/fullpel.cu",
-            "replaces": "video_steganography_pcamv_tpu/ops/"
-                        "pallas_kernels.py:435",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+    # bytes: cur, the padded reference, the predictor read once; 9
+    # (cost, index) pairs written per MB. ops: per MB and displacement,
+    # 256 abs-differences of 3 int ops (sub, abs, add)
+    n = MBH * MBW
+    nbytes = (cur.numel() + ref.numel() + 2 * n + 18 * n) * 4
+    ops = n * (2 * rng + 1) ** 2 * 256 * 3
+    bnd = bound(nbytes, ops, int_rate)
+    log("B1 time: kernel %.3f ms, plain %.3f ms, bound %.3f ms (%s) "
+        "(median, 1080p)" % (ms, plain_ms, *bnd))
+    return record("fullpel_parts", "fullpel.cu",
+                  "ops/pallas_kernels.py:435", worst, ms, plain_ms, bnd)
 
 
-def phase_b5(dev):
+def phase_b5(dev, int_rate):
     from video_steganography_pcamv_torch.ops import deblock as DB
     H, W = 16 * MBH, 16 * MBW
     worst = 0
@@ -125,12 +190,11 @@ def phase_b5(dev):
         got = DB.deblock_frame_cuda(t[0], t[1], t[2], par, MBH, MBW)
         want = DB.deblock_frame_plain(t[0], t[1], t[2], par, MBH, MBW)
         torch.cuda.synchronize()
-        for a, b, name in zip(got, want, "yuv"):
-            err = int((a.long() - b.long()).abs().max())
-            worst = max(worst, err)
-            if not torch.equal(a, b):
-                raise AssertionError("B5 kernel != plain, plane %s qp %d, "
-                                     "max abs err %d" % (name, qp, err))
+        err = max_abs(got, want)
+        worst = max(worst, err)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError("B5 kernel != plain at qp %d, max abs err "
+                                 "%d" % (qp, err))
         log("B5 qp %d: kernel == plain at %dx%d MBs" % (qp, MBH, MBW))
         ms = cuda_ms(lambda: DB.deblock_frame_cuda(t[0], t[1], t[2], par,
                                                    MBH, MBW), 20, 3)
@@ -138,19 +202,130 @@ def phase_b5(dev):
             t[0], t[1], t[2], par, MBH, MBW), 3)
         log("B5 qp %d time: kernel %.3f ms, plain %.3f ms (median, 1080p)"
             % (qp, ms, plain_ms))
-    return {"name": "deblock_frame", "route": "cuda",
-            "source": "video_steganography_pcamv_torch/csrc/deblock.cu",
-            "replaces": "video_steganography_pcamv_tpu/ops/"
-                        "deblock_pallas.py:469",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+    # bytes: the three int32 planes read and written, the [n, 128] int32
+    # parameter rows read. ops: per MB 8 luma edges x 16 lines and 2 x 4
+    # chroma edges x 8 lines, ~30 int ops a filtered line
+    n = MBH * MBW
+    nbytes = 2 * 4 * (H * W + 2 * (H // 2) * (W // 2)) + n * 128 * 4
+    ops = n * (8 * 16 + 2 * 4 * 8) * 30
+    bnd = bound(nbytes, ops, int_rate)
+    log("B5 bound %.4f ms (%s)" % bnd)
+    return record("deblock_frame", "deblock.cu",
+                  "ops/deblock_pallas.py:469", worst, ms, plain_ms, bnd)
 
 
-def _params(w, h, me_range):
-    from video_steganography_pcamv_tpu.params import Params, StegoParams
+def _tail_inputs(dev):
+    """A real 1080p frame pair through the accelerator branch's head:
+    B1 with a zero predictor, the partition decision, the windows."""
+    from video_steganography_pcamv_torch.encoder import partition as PT
+    from video_steganography_pcamv_torch.encoder.me import lambda_tab
+    from video_steganography_pcamv_torch.ops import fullpel as FP
+    from video_steganography_pcamv_torch.ops import mc
+    from video_steganography_pcamv_torch.utils.yuv import synthetic_sequence
+    fr = synthetic_sequence(16 * MBW, 16 * MBH, 2, seed=3)
+    qp = 26
+    lam = lambda_tab(qp)
+    cur = torch.as_tensor(fr[1].y.astype(np.int32), device=dev)
+    c = torch.as_tensor(fr[0].u.astype(np.int32), device=dev)
+    ref = mc.build_ref(torch.as_tensor(fr[0].y.astype(np.int32),
+                                       device=dev), c, c)
+    zero = torch.zeros((MBH, MBW, 2), dtype=torch.int32, device=dev)
+    st = FP.fullpel_parts(cur, ref["luma"][0], zero, 16, MBH, MBW, lam)
+    part, mvfp8 = PT.decide_partition(st, MBH, MBW, lam)
+    windows = PT.gather_windows8(ref["luma"].to(torch.uint8), mvfp8, MBH,
+                                 MBW).contiguous()
+    prev_mv = torch.as_tensor(np.random.RandomState(4).randint(
+        -40, 41, (MBH, MBW, 2)).astype(np.int32), device=dev)
+    return cur, windows, part, mvfp8.contiguous(), prev_mv, lam, qp
+
+
+def phase_tail(dev, int_rate):
+    from video_steganography_pcamv_torch.ops import probe as PR
+    cur, windows, part, mvfp8, prev_mv, lam, qp = _tail_inputs(dev)
+    n = MBH * MBW
+    n8 = 4 * n
+    recs = []
+
+    def check(name, got, want):
+        torch.cuda.synchronize()
+        err = max_abs(got, want)
+        if err != 0 or not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError("%s kernel != plain, max abs err %d"
+                                 % (name, err))
+        log("%s: kernel == plain at %dx%d MBs (N8 %d)" % (name, MBH, MBW,
+                                                         n8))
+        return err
+
+    # B2: reads the windows, writes both tables; per 8x8 and offset, 64
+    # averages (3 ops) and four 4x4 WHTs (64 ops each)
+    blocks8, wht8 = PR.qpel_tables(windows)
+    want = PR.block_table8(windows)
+    err = check("B2 qpel_tables", (blocks8, wht8),
+                (want, PR.wht8_table(want)))
+    del want
+    ms = cuda_ms(lambda: PR.qpel_tables(windows), 20, 3)
+    plain_ms = cuda_ms(lambda: PR.wht8_table(PR.block_table8(windows)), 3)
+    bnd = bound(n8 * (1024 + 169 * 64 * 3), n8 * 169 * (64 * 3 + 4 * 64),
+                int_rate)
+    recs.append(record("qpel_tables", "qpel_tables.cu",
+                       "ops/probe_pallas.py:221", err, ms, plain_ms, bnd))
+
+    # B3: reads cur (int32), 49 WHT rows per 8x8, part/mv/pred; writes
+    # mv8 and r_idx8; per 8x8 and offset ~3 ops a coefficient
+    got = PR.subpel(cur, wht8, part, mvfp8, prev_mv, lam, MBH, MBW)
+    want = PR.subpel_parts(cur, wht8, part, mvfp8, prev_mv, MBH, MBW, lam)
+    err = check("B3 subpel", got, want)
+    r_idx8 = got[1]
+    ms = cuda_ms(lambda: PR.subpel(cur, wht8, part, mvfp8, prev_mv, lam,
+                                   MBH, MBW), 20, 3)
+    plain_ms = cuda_ms(lambda: PR.subpel_parts(cur, wht8, part, mvfp8,
+                                               prev_mv, MBH, MBW, lam), 3)
+    bnd = bound(n8 * (64 * 4 + 49 * 128 + 8 + 12) + n * 12,
+                n8 * 49 * 64 * 3, int_rate)
+    recs.append(record("subpel", "subpel.cu", "ops/probe_pallas.py:301",
+                       err, ms, plain_ms, bnd))
+
+    # B4: the probe lattice's distinct rows per 8x8 (13 pred rows, the
+    # WHT rows centre+neighbour reaches), cur and r_idx read; SK, SP, sc8
+    # written. ops per (8x8, version, 4x4): residual+DCT 80, quant 80,
+    # decimate 80, dequant+IDCT 144, recon 64, the recon's WHT 64, 9
+    # SATDs of 48 for SK. The pred's WHT is the table row at the
+    # version's centre, so it costs no op; an SP entry is the SATD of two
+    # table rows, and each unordered pair of distinct rows is counted
+    # once (48 ops a 4x4)
+    for decimate in (True, False):
+        got = PR.probe_maps(cur, blocks8, wht8, r_idx8, qp, MBH, MBW,
+                            decimate)
+        want = PR.probe_maps_plain(cur, blocks8, wht8, r_idx8, qp, MBH, MBW,
+                                   decimate)
+        err = check("B4 probe_maps (decimate %s)" % decimate, got, want)
+    ms = cuda_ms(lambda: PR.probe_maps(cur, blocks8, wht8, r_idx8, qp, MBH,
+                                       MBW), 20, 3)
+    plain_ms = cuda_ms(lambda: PR.probe_maps_plain(
+        cur, blocks8, wht8, r_idx8, qp, MBH, MBW), 3)
+    rows = {(cy + ny, cx + nx) for cy, cx in PR._CENTERS for ny, nx in PR._NB}
+    nbytes = n8 * (len(rows) * 128 + 13 * 64 + 64 * 4 + 4
+                   + (2 * 117 + 13) * 4)
+    sp_pairs = {frozenset((c, (c[0] + ny, c[1] + nx))) for c in PR._CENTERS
+                for ny, nx in PR._NB if (ny, nx) != (0, 0)}
+    ops = n8 * 4 * (13 * (80 + 80 + 80 + 144 + 64 + 64 + 9 * 48)
+                    + len(sp_pairs) * 48)
+    bnd = bound(nbytes, ops, int_rate)
+    recs.append(record("probe_maps", "probe_maps.cu",
+                       "ops/probe_pallas.py:481", err, ms, plain_ms, bnd))
+    for r in recs:
+        log("%s time: kernel %.3f ms, plain %.3f ms, bound %.4f ms (%s) "
+            "(median, 1080p)" % (r["name"], r["ms"], r["plain_ms"],
+                                 r["bound_ms"], r["bound_by"]))
+    return recs
+
+
+def _params(w, h, tail_kernel, me_range=16):
+    from video_steganography_pcamv_torch.params import Params, StegoParams
     p = Params(width=w, height=h, qp=26, me_range=me_range,
                deblock_device=True, psnr=False,
                stego=StegoParams(em_rate=64, key=99))
-    p.tail_kernel = False
+    p.tail_kernel = tail_kernel
     p.pipeline_deep = False
     return p
 
@@ -163,8 +338,8 @@ def _encode(p, frames, device):
 
 
 def _check_payload(bs, enc, n_frames):
-    from video_steganography_pcamv_tpu.decoder import decode_annexb
-    from video_steganography_pcamv_tpu.stego.extract import (
+    from video_steganography_pcamv_torch.decoder import decode_annexb
+    from video_steganography_pcamv_torch.stego.extract import (
         extract_from_stream)
     dec = decode_annexb(bs)
     if len(dec) != n_frames:
@@ -178,36 +353,43 @@ def _check_payload(bs, enc, n_frames):
 
 
 def phase_small(dev):
-    from video_steganography_pcamv_tpu.utils.yuv import Frame
-    W, H = 112, 80
-    rng = np.random.RandomState(1)
-    big = rng.randint(30, 226, ((H + 64) // 4, (W + 64) // 4))
-    big = np.repeat(np.repeat(big, 4, 0), 4, 1).astype(np.uint8)
-    frames = []
-    for i in range(6):
-        f = big[16 + i:16 + i + H, 16 + 2 * i:16 + 2 * i + W].copy()
-        c = np.full((H // 2, W // 2), 120 + i, np.uint8)
-        frames.append(Frame(f, c, c.copy()))
-    enc_g, bs_g = _encode(_params(W, H, 16), frames, dev)
-    _enc_c, bs_c = _encode(_params(W, H, 16), frames, "cpu")
-    if bs_g != bs_c:
-        raise AssertionError("112x80 stream: cuda (%d B) != cpu (%d B)"
-                             % (len(bs_g), len(bs_c)))
-    bits = _check_payload(bs_g, enc_g, len(frames))
-    log("112x80 x6: cuda stream == cpu stream (%d bytes), %d payload bits "
-        "recovered" % (len(bs_g), bits))
+    from video_steganography_pcamv_torch.utils.yuv import synthetic_sequence
+    frames = synthetic_sequence(112, 80, 6, seed=7)
+    streams = {}
+    for tail_kernel in (True, False):
+        p = _params(112, 80, tail_kernel)
+        enc_g, bs_g = _encode(p, frames, dev)
+        _enc_c, bs_c = _encode(_params(112, 80, tail_kernel), frames, "cpu")
+        if bs_g != bs_c:
+            raise AssertionError("112x80 stream, tail_kernel=%s: cuda (%d B)"
+                                 " != cpu (%d B)" % (tail_kernel, len(bs_g),
+                                                     len(bs_c)))
+        bits = _check_payload(bs_g, enc_g, len(frames))
+        streams[tail_kernel] = bs_g
+        log("112x80 x6, tail_kernel=%s: cuda stream == cpu stream (%d "
+            "bytes), %d payload bits recovered" % (tail_kernel, len(bs_g),
+                                                   bits))
+    log("112x80: the two branches' streams %s"
+        % ("differ" if streams[True] != streams[False] else "are equal"))
 
 
-def phase_main(dev, card):
-    from video_steganography_pcamv_tpu.utils.yuv import synthetic_sequence
+def _counters():
     from video_steganography_pcamv_torch.ops.deblock import deblock_frame
     from video_steganography_pcamv_torch.ops.fullpel import fullpel_parts
-    frames = synthetic_sequence(1920, 1088, 10, seed=7)
-    p = _params(1920, 1088, 16)
+    from video_steganography_pcamv_torch.ops import probe as PR
+    return {"fullpel_parts": fullpel_parts, "qpel_tables": PR.qpel_tables,
+            "subpel": PR.subpel, "probe_maps": PR.probe_maps,
+            "deblock_frame": deblock_frame}
+
+
+def phase_main(dev, card, tail_kernel: bool, n_frames: int):
     from video_steganography_pcamv_torch import Encoder
-    enc = Encoder(p, device=dev)
-    fullpel_parts.launches = 0
-    deblock_frame.launches = 0
+    from video_steganography_pcamv_torch.utils.yuv import synthetic_sequence
+    frames = synthetic_sequence(1920, 1088, n_frames, seed=7)
+    enc = Encoder(_params(1920, 1088, tail_kernel), device=dev)
+    fns = _counters()
+    for fn in fns.values():
+        fn.launches = 0
     t0 = time.time()
     bs = enc.encode_frame(frames[0])
     torch.cuda.synchronize()
@@ -217,23 +399,92 @@ def phase_main(dev, card):
     bs += enc.flush()
     torch.cuda.synchronize()
     t2 = time.time()
-    launches = {"fullpel_parts": fullpel_parts.launches,
-                "deblock_frame": deblock_frame.launches}
+    launches = {k: fn.launches for k, fn in fns.items()}
     n_p = enc.stats.p_frames
-    if launches["fullpel_parts"] < n_p or n_p < 1:
-        raise AssertionError("B1 launched %d times for %d P frames"
-                             % (launches["fullpel_parts"], n_p))
-    if launches["deblock_frame"] < len(frames):
-        raise AssertionError("B5 launched %d times for %d frames"
-                             % (launches["deblock_frame"], len(frames)))
+    if n_p < 1:
+        raise AssertionError("no P frame in the main path")
+    want = {"fullpel_parts": n_p, "qpel_tables": n_p, "subpel": n_p,
+            "probe_maps": n_p, "deblock_frame": len(frames)}
+    for k, lo in want.items():
+        if launches[k] < lo:
+            raise AssertionError("%s launched %d times, want >= %d"
+                                 % (k, launches[k], lo))
     bits = _check_payload(bs, enc, len(frames))
     fps_p = (len(frames) - 1) / (t2 - t1)
-    log("1080p main path: %d frames (%d I, %d P), %d bytes, %d payload "
-        "bits recovered; IDR %.3f s; P frames %.4f fps incl. flush; "
-        "all %.4f fps  [%s]" % (len(frames), enc.stats.i_frames, n_p,
-                                len(bs), bits, t1 - t0, fps_p,
-                                len(frames) / (t2 - t0), card))
+    log("1080p tail_kernel=%s: %d frames (%d I, %d P), %d bytes, %d "
+        "payload bits recovered; IDR %.3f s; P frames %.4f fps incl. "
+        "flush; all %.4f fps; launches %s  [%s]"
+        % (tail_kernel, len(frames), enc.stats.i_frames, n_p, len(bs), bits,
+           t1 - t0, fps_p, len(frames) / (t2 - t0), json.dumps(launches),
+           card))
     return launches
+
+
+def phase_stages(dev, card, n_frames: int = 7):
+    """Per-stage device time of a 1080p P frame on the tail_kernel=True
+    path: every stage is wrapped with a device sync on each side (the
+    syncs remove the pipelining, so the stages sum to more than a P
+    frame of phase 6). Averages over the P frames after the first."""
+    from video_steganography_pcamv_torch import Encoder, native
+    from video_steganography_pcamv_torch.encoder import core as CORE
+    from video_steganography_pcamv_torch.encoder import inter as INTER
+    from video_steganography_pcamv_torch.encoder import partition as PT
+    from video_steganography_pcamv_torch.encoder import slicetype as ST
+    from video_steganography_pcamv_torch.ops import probe as PR
+    from video_steganography_pcamv_torch.stego import embed as EMB
+    from video_steganography_pcamv_torch.utils.yuv import synthetic_sequence
+    targets = [(ST.Lookahead, "costs_device"), (PT, "fullpel_parts"),
+               (PT, "decide_partition"), (PT, "gather_windows8"),
+               (PR, "qpel_tables"), (PR, "subpel"), (PR, "probe_maps"),
+               (INTER, "encode_p_frame_device8"), (PT, "scan_p_device"),
+               (PT, "probe_combine"), (EMB.StegoEngine, "apply_costs"),
+               (CORE, "reencode_p_incremental"), (CORE, "deblock_frame"),
+               (native, "write_slice")]
+    totals = {name: 0.0 for _, name in targets}
+    state = {"on": False}
+
+    def timed(name, fn):
+        def wrap(*a, **kw):
+            if not state["on"]:
+                return fn(*a, **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            totals[name] += time.perf_counter() - t0
+            return out
+        # a kernel wrapper counts its launches on the name it is called
+        # by, which is now this one
+        wrap.launches = 0
+        return wrap
+
+    saved = [(obj, name, getattr(obj, name)) for obj, name in targets]
+    frames = synthetic_sequence(1920, 1088, n_frames, seed=7)
+    try:
+        for obj, name, fn in saved:
+            setattr(obj, name, timed(name, fn))
+        enc = Encoder(_params(1920, 1088, True), device=dev)
+        enc.encode_frame(frames[0])
+        enc.encode_frame(frames[1])
+        torch.cuda.synchronize()
+        state["on"] = True
+        t0 = time.perf_counter()
+        for f in frames[2:]:
+            enc.encode_frame(f)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        enc.flush()
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+    n = len(frames) - 2
+    log("1080p tail_kernel=True stage times, ms per P frame over %d P "
+        "frames, a device sync around each stage  [%s]" % (n, card))
+    for name, s in sorted(totals.items(), key=lambda kv: -kv[1]):
+        log("  %-24s %9.3f" % (name, 1e3 * s / n))
+    log("  %-24s %9.3f" % ("(rest of the frame)",
+                           1e3 * (wall - sum(totals.values())) / n))
+    log("  %-24s %9.3f" % ("(frame, with the syncs)", 1e3 * wall / n))
 
 
 def main() -> int:
@@ -242,23 +493,26 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from video_steganography_pcamv_torch import kernels
+    t_start = time.time()
     dev = torch.device("cuda", 0)
-    card = card_line()
+    card = card_query("name,power.limit")
     log(card)
     log("python %s, torch %s, cuda %s" % (sys.version.split()[0],
                                           torch.__version__,
                                           torch.version.cuda))
-    t0 = time.time()
-    kernels.load()
-    log("kernels built/loaded in %.1f s (nvcc %.1f s) -> %s"
-        % (time.time() - t0, kernels.build_seconds or 0.0,
-           os.path.relpath(kernels.lib_path())))
-    recs = [phase_b1(dev), phase_b5(dev)]
+    phase_build()
+    int_rate = int32_ops_per_s()
+    log("int32 peak %.3e ops/s (132 SMs x 64 lanes x max SM clock)"
+        % int_rate)
+    recs = [phase_b1(dev, int_rate), phase_b5(dev, int_rate)]
+    recs += phase_tail(dev, int_rate)
     phase_small(dev)
-    launches = phase_main(dev, card)
+    launches = phase_main(dev, card, tail_kernel=True, n_frames=10)
+    phase_main(dev, card, tail_kernel=False, n_frames=4)
+    phase_stages(dev, card)
     for r in recs:
         r["launches"] = launches[r["name"]]
+    log("total %.1f s" % (time.time() - t_start))
     print(json.dumps({"kernels": recs}))
     print(card)
     print(json.dumps({"ok": True, "device": {

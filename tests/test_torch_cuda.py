@@ -5,21 +5,26 @@ its own:  python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
 - kernel B1 vs its plain version (textured and flat content, random
   predictor);
 - kernel B5 vs its plain version at qp 26 and 40;
-- a small encode on cuda is byte-equal to the same encode on the cpu.
+- kernels B2, B3 and B4 vs their plain versions at 112x80 and on a
+  band of 1080p MB rows (decimate on and off for B4);
+- a small encode on cuda is byte-equal to the same encode on the cpu,
+  for both tail_kernel settings.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from video_steganography_pcamv_tpu.params import Params, StegoParams
-from video_steganography_pcamv_tpu.utils.yuv import Frame
-
 from video_steganography_pcamv_torch import Encoder
+from video_steganography_pcamv_torch.encoder import partition as PT
 from video_steganography_pcamv_torch.ops import deblock as DB
 from video_steganography_pcamv_torch.ops import fullpel as FP
 from video_steganography_pcamv_torch.ops import mc as TMC
+from video_steganography_pcamv_torch.ops import probe as PR
 from video_steganography_pcamv_torch.ops.transform import chroma_qp
+from video_steganography_pcamv_torch.params import Params, StegoParams
+from video_steganography_pcamv_torch.utils.yuv import (Frame,
+                                                       synthetic_sequence)
 
 pytestmark = pytest.mark.cuda
 
@@ -71,7 +76,52 @@ def test_b5_kernel_matches_plain(dev, qp):
         assert torch.equal(a, b)
 
 
-def test_cuda_stream_equals_cpu_stream(dev):
+def _tail_inputs(dev, w, h, seed):
+    """A frame pair through B1 (zero predictor), the partition decision
+    and the window gather, as the accelerator branch runs them."""
+    mbh, mbw = h // 16, w // 16
+    fr = synthetic_sequence(w, h, 2, seed=seed)
+    cur = torch.as_tensor(fr[1].y.astype(np.int32), device=dev)
+    c = torch.as_tensor(fr[0].u.astype(np.int32), device=dev)
+    ref = TMC.build_ref(torch.as_tensor(fr[0].y.astype(np.int32),
+                                        device=dev), c, c)
+    zero = torch.zeros((mbh, mbw, 2), dtype=torch.int32, device=dev)
+    st = FP.fullpel_parts(cur, ref["luma"][0], zero, 16, mbh, mbw, 4)
+    part, mvfp8 = PT.decide_partition(st, mbh, mbw, 4)
+    windows = PT.gather_windows8(ref["luma"].to(torch.uint8), mvfp8, mbh,
+                                 mbw).contiguous()
+    prev_mv = torch.as_tensor(np.random.RandomState(seed).randint(
+        -40, 41, (mbh, mbw, 2)).astype(np.int32), device=dev)
+    return cur, windows, part, mvfp8.contiguous(), prev_mv, mbh, mbw
+
+
+@pytest.mark.parametrize("w,h,qp", [(112, 80, 26), (112, 80, 40),
+                                    (1920, 64, 26)],
+                         ids=["112x80-q26", "112x80-q40", "1080p-band"])
+def test_b2_b3_b4_kernels_match_plain(dev, w, h, qp):
+    cur, windows, part, mvfp8, prev_mv, mbh, mbw = _tail_inputs(
+        dev, w, h, qp)
+    lam = 4
+    blocks8, wht8 = PR.qpel_tables(windows)
+    want_b = PR.block_table8(windows)
+    assert torch.equal(blocks8, want_b)
+    assert torch.equal(wht8, PR.wht8_table(want_b))
+    mv8, r_idx8 = PR.subpel(cur, wht8, part, mvfp8, prev_mv, lam, mbh, mbw)
+    want_mv8, want_r = PR.subpel_parts(cur, wht8, part, mvfp8, prev_mv,
+                                       mbh, mbw, lam)
+    assert torch.equal(mv8, want_mv8) and torch.equal(r_idx8, want_r)
+    for decimate in (True, False):
+        got = PR.probe_maps(cur, blocks8, wht8, r_idx8, qp, mbh, mbw,
+                            decimate)
+        want = PR.probe_maps_plain(cur, blocks8, wht8, r_idx8, qp, mbh, mbw,
+                                   decimate)
+        for g, x in zip(got, want):
+            assert torch.equal(g, x)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("tail_kernel", [True, False])
+def test_cuda_stream_equals_cpu_stream(dev, tail_kernel):
     W, H = 64, 48
     r = np.random.RandomState(4)
     big = np.repeat(np.repeat(r.randint(30, 226, (30, 40)), 4, 0), 4, 1)
@@ -84,6 +134,7 @@ def test_cuda_stream_equals_cpu_stream(dev):
         p = Params(width=W, height=H, qp=26, me_range=16,
                    deblock_device=True, psnr=False,
                    stego=StegoParams(em_rate=16, key=5))
+        p.tail_kernel = tail_kernel
         enc = Encoder(p, device=device)
         return b"".join(enc.encode_frame(f) for f in frames) + enc.flush()
 

@@ -110,3 +110,33 @@ def test_plain_b5_matches_pallas_interpret():
                                  par_t, mbh, mbw)
     for name, w_, g_ in zip("yuv", want, got):
         np.testing.assert_array_equal(w_, g_.numpy(), err_msg=name)
+
+
+@pytest.mark.parametrize("qp,mbh,mbw,off_a,off_b", CASES[:2])
+def test_edge_params_with_ref4_match_reference(qp, mbh, mbw, off_a, off_b):
+    """Per-4x4 reference indices (the decoder's multi-reference P
+    streams): blocks that differ in ref4 get bS 1, as in the reference's
+    edge_params and its native deblocker."""
+    f = _frame(qp + 2, mbh, mbw)
+    f[6][:] = 0             # one motion field: bS 1 comes from ref4 alone
+    qpc = chroma_qp(qp)
+    ref4 = np.random.default_rng(qp).integers(0, 3, (mbh, mbw, 2, 2))
+    ref4 = np.ascontiguousarray(np.repeat(np.repeat(
+        ref4.transpose(0, 2, 1, 3).reshape(2 * mbh, 2 * mbw), 2, 0), 2, 1),
+        np.int32)
+    thresh = 15 - min(off_a, off_b)
+    want = DP.edge_params(*(jnp.asarray(a) for a in f[3:]), qp, qpc, mbh,
+                          mbw, ref4=jnp.asarray(ref4), qp_thresh=thresh,
+                          off_a=off_a, off_b=off_b)
+    par = DB.edge_params(*(torch.as_tensor(a) for a in f[3:]), qp, qpc,
+                         mbh, mbw, qp_thresh=thresh, off_a=off_a,
+                         off_b=off_b, ref4=torch.as_tensor(ref4))
+    np.testing.assert_array_equal(np.asarray(want), par.numpy())
+    got = DB.deblock_frame_plain(*(torch.as_tensor(a) for a in f[:3]), par,
+                                 mbh, mbw)
+    planes = [np.ascontiguousarray(a, np.uint8) for a in f[:3]]
+    native.deblock_frame(*planes, f[3].astype(np.uint8), f[5], f[6],
+                         f[4].astype(np.uint8), qp, qpc, ref4=ref4,
+                         alpha_off=off_a, beta_off=off_b)
+    for name, t, nat in zip("yuv", got, planes):
+        np.testing.assert_array_equal(nat, t.numpy(), err_msg=name)

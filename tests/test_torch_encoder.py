@@ -1,8 +1,11 @@
-"""The whole ported serving slice vs the JAX reference Encoder on the CPU:
-byte-equal Annex-B streams, decodable, payload recovered by the
-reference's blind extractor. Also resumes the port mid-stream from a
-live reference encoder (`state.from_reference`) with a pipelined frame
-still pending, and requires the rest of the stream to be byte-equal."""
+"""The whole ported serving slice (its CPU branch, tail_kernel=False)
+vs the JAX reference Encoder on the CPU: byte-equal Annex-B streams,
+decoded alike by the port's decoder and the reference's, payload
+recovered alike by the port's blind extractor and the reference's. Also
+resumes the port mid-stream from a live reference encoder
+(`state.from_reference`) with a pipelined frame still pending, and
+requires the rest of the stream to be byte-equal. The port's Encoder is
+given the port's own Params built from the same keyword arguments."""
 
 import numpy as np
 import pytest
@@ -14,7 +17,12 @@ from video_steganography_pcamv_tpu.stego.extract import extract_from_stream
 from video_steganography_pcamv_tpu.utils.yuv import Frame
 
 from video_steganography_pcamv_torch import Encoder as TEncoder
+from video_steganography_pcamv_torch import params as TP
+from video_steganography_pcamv_torch.decoder import (
+    decode_annexb as t_decode)
 from video_steganography_pcamv_torch.state import from_reference
+from video_steganography_pcamv_torch.stego.extract import (
+    extract_from_stream as t_extract)
 
 W, H = 112, 80
 EM_RATE, KEY = 64, 99
@@ -32,14 +40,17 @@ def _seq(n, seed=1):
     return frames
 
 
-def _params(**kw):
+def _params(params=Params, stego=StegoParams, **kw):
     """bench.py's serving Params, analyse-tail kernels off."""
-    p = Params(width=W, height=H, qp=26, me_range=16, deblock_device=True,
-               psnr=False, stego=StegoParams(em_rate=EM_RATE, key=KEY),
-               **kw)
+    p = params(width=W, height=H, qp=26, me_range=16, deblock_device=True,
+               psnr=False, stego=stego(em_rate=EM_RATE, key=KEY), **kw)
     p.tail_kernel = False
     p.pipeline_deep = False
     return p
+
+
+def _tparams(**kw):
+    return _params(TP.Params, TP.StegoParams, **kw)
 
 
 def _run(enc, frames):
@@ -54,17 +65,19 @@ def test_stream_byte_equal_and_payload(kw):
     frames = _seq(6)
     jenc = JEncoder(_params(**kw))
     want = _run(jenc, frames)
-    tenc = TEncoder(_params(**kw), device="cpu")
+    tenc = TEncoder(_tparams(**kw), device="cpu")
     got = _run(tenc, frames)
     assert got == want
     assert tenc.stats.i_frames == jenc.stats.i_frames
     assert (tenc.stats.i_frames > 1) == ("keyint_max" in kw)
-    assert len(decode_annexb(got)) == len(frames)
+    for dec in (decode_annexb(got), t_decode(got)):
+        assert len(dec) == len(frames)
     sent = tenc._stego.sent_messages
-    rec = extract_from_stream(got, em_rate=EM_RATE, key=KEY)
-    assert len(rec) == len(sent) and sum(len(s) for s in sent) > 0
-    for g, s in zip(rec, sent):
-        np.testing.assert_array_equal(g, s)
+    for extract in (extract_from_stream, t_extract):
+        rec = extract(got, em_rate=EM_RATE, key=KEY)
+        assert len(rec) == len(sent) and sum(len(s) for s in sent) > 0
+        for g, s in zip(rec, sent):
+            np.testing.assert_array_equal(g, s)
 
 
 def test_resume_mid_stream_from_reference():
@@ -73,13 +86,14 @@ def test_resume_mid_stream_from_reference():
     head = b"".join(jenc.encode_frame(f) for f in frames[:3])
     assert jenc._pending_p is not None
     state = from_reference(jenc)
-    tenc = TEncoder(_params(), device="cpu")
+    tenc = TEncoder(_tparams(), device="cpu")
     tenc.load_state(state)
     want_tail = _run(jenc, frames[3:])
     got_tail = _run(tenc, frames[3:])
     assert got_tail == want_tail
-    rec = extract_from_stream(head + got_tail, em_rate=EM_RATE, key=KEY)
     sent = tenc._stego.sent_messages
-    assert len(rec) == len(sent)
-    for g, s in zip(rec, sent):
-        np.testing.assert_array_equal(g, s)
+    for extract in (extract_from_stream, t_extract):
+        rec = extract(head + got_tail, em_rate=EM_RATE, key=KEY)
+        assert len(rec) == len(sent)
+        for g, s in zip(rec, sent):
+            np.testing.assert_array_equal(g, s)

@@ -1,0 +1,99 @@
+"""The port's accelerator branch (tail_kernel=True, bench.py's default)
+end to end vs the JAX `Encoder` on its own accelerator branch.
+
+The reference takes that branch only on a TPU. A fixture puts it there
+on the CPU without changing the JAX package, through `monkeypatch`
+alone: `jax.default_backend` answers "tpu"; the full-pel kernel B1 and
+the analyse tail run their Pallas kernels in interpret mode; the
+deblocker runs `deblock_jax.deblock_frame_device`, the bit-exact twin
+the reference's CPU branch already uses."""
+
+import jax
+import numpy as np
+import pytest
+
+from video_steganography_pcamv_tpu.decoder import decode_annexb as j_decode
+from video_steganography_pcamv_tpu.encoder.core import Encoder as JEncoder
+from video_steganography_pcamv_tpu.ops import deblock_jax
+from video_steganography_pcamv_tpu.ops import deblock_pallas
+from video_steganography_pcamv_tpu.ops import pallas_kernels
+from video_steganography_pcamv_tpu.ops import probe_pallas
+from video_steganography_pcamv_tpu.params import Params, StegoParams
+from video_steganography_pcamv_tpu.stego.extract import (
+    extract_from_stream as j_extract)
+from video_steganography_pcamv_tpu.utils.yuv import synthetic_sequence
+
+from video_steganography_pcamv_torch import Encoder as TEncoder
+from video_steganography_pcamv_torch import params as TP
+from video_steganography_pcamv_torch.decoder import decode_annexb
+from video_steganography_pcamv_torch.stego.extract import extract_from_stream
+
+W, H = 112, 80
+EM_RATE, KEY = 64, 99
+
+
+def _bench_kw():
+    """bench.py's Params (tail_kernel left at its default, True)."""
+    return dict(width=W, height=H, qp=26, me_range=16, deblock_device=True,
+                psnr=False)
+
+
+def _run(enc, frames):
+    return b"".join(enc.encode_frame(f) for f in frames) + enc.flush()
+
+
+@pytest.fixture
+def reference_accel(monkeypatch):
+    """Puts the JAX Encoder on its accelerator branch; counts the calls
+    of the patched kernel entries."""
+    calls = {"fullpel": 0, "tail": 0}
+    orig_fp = pallas_kernels.fullpel_parts_pallas
+    orig_tail = probe_pallas.analyse_tail_pallas
+
+    class _Fullpel:
+        @staticmethod
+        def __wrapped__(*args, **kw):
+            calls["fullpel"] += 1
+            return orig_fp.__wrapped__(*args, interpret=True, **kw)
+
+    def tail(*args, **kw):
+        calls["tail"] += 1
+        return orig_tail(*args, interpret=True, **kw)
+
+    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    monkeypatch.setattr(pallas_kernels, "fullpel_parts_pallas", _Fullpel())
+    monkeypatch.setattr(probe_pallas, "analyse_tail_pallas", tail)
+    monkeypatch.setattr(deblock_pallas, "deblock_frame_pallas",
+                        deblock_jax.deblock_frame_device)
+    return calls
+
+
+def test_accel_stream_byte_equal_to_reference(reference_accel):
+    frames = synthetic_sequence(W, H, 6, seed=7)
+    jp = Params(**_bench_kw(), stego=StegoParams(em_rate=EM_RATE, key=KEY))
+    assert jp.tail_kernel
+    want = _run(JEncoder(jp), frames)
+    # the patched entries were traced: the reference took its branch
+    assert reference_accel["fullpel"] >= 1 and reference_accel["tail"] >= 1
+
+    tp = TP.Params(**_bench_kw(),
+                   stego=TP.StegoParams(em_rate=EM_RATE, key=KEY))
+    assert tp.tail_kernel
+    tenc = TEncoder(tp, device="cpu")
+    got = _run(tenc, frames)
+    assert got == want
+
+    tp_cpu = TP.Params(**_bench_kw(),
+                       stego=TP.StegoParams(em_rate=EM_RATE, key=KEY))
+    tp_cpu.tail_kernel = False
+    assert _run(TEncoder(tp_cpu, device="cpu"), frames) != got
+
+    dec = decode_annexb(got)
+    assert len(dec) == len(frames) == len(j_decode(got))
+    sent = tenc._stego.sent_messages
+    assert sum(len(s) for s in sent) > 0
+    for rec in (extract_from_stream(got, em_rate=EM_RATE, key=KEY),
+                j_extract(got, em_rate=EM_RATE, key=KEY)):
+        assert len(rec) == len(sent)
+        for g, s in zip(rec, sent):
+            np.testing.assert_array_equal(g, s)

@@ -1,8 +1,15 @@
-"""The port imports no jax, and its Encoder refuses what it cannot run.
+"""The port imports neither jax nor the JAX package, reads no file of
+the JAX package, and its Encoder refuses what it cannot run.
 
 The import check runs in a subprocess whose meta-path finder refuses
-every `jax` import, then imports every module of the port package."""
+every `jax` and `video_steganography_pcamv_tpu` import and whose `open`
+refuses every path inside the JAX package; it imports every module of
+the port package and runs a tiny encode, decode and extraction. A
+source scan refuses any import of the JAX package in the port or in
+chip_smoke.py."""
 
+import ast
+import glob
 import os
 import subprocess
 import sys
@@ -11,26 +18,55 @@ import textwrap
 import pytest
 import torch
 
-from video_steganography_pcamv_tpu.params import Params, StegoParams
+from video_steganography_pcamv_torch.params import Params, StegoParams
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+JAX_PKG = "video_steganography_pcamv_tpu"
 
 _BLOCKED_IMPORT = textwrap.dedent("""
-    import importlib, pkgutil, sys
+    import builtins, importlib, io, pkgutil, sys
 
-    class _NoJax:
+    BLOCKED = ("jax", "jaxlib", "video_steganography_pcamv_tpu")
+
+    class _Blocker:
         def find_spec(self, name, path=None, target=None):
-            if name == "jax" or name.startswith(("jax.", "jaxlib")):
-                raise ImportError("jax is blocked: " + name)
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError("blocked: " + name)
             return None
 
-    sys.meta_path.insert(0, _NoJax())
+    _open = builtins.open
+
+    def _guarded_open(file, *a, **kw):
+        if "video_steganography_pcamv_tpu" in str(file):
+            raise PermissionError("blocked read: %s" % file)
+        return _open(file, *a, **kw)
+
+    sys.meta_path.insert(0, _Blocker())
+    builtins.open = io.open = _guarded_open
+    import numpy as np
     import video_steganography_pcamv_torch as pkg
     names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
                                                    pkg.__name__ + ".")]
     for name in names:
         importlib.import_module(name)
-    assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules)
+
+    from video_steganography_pcamv_torch import Encoder
+    from video_steganography_pcamv_torch.decoder import decode_annexb
+    from video_steganography_pcamv_torch.params import Params, StegoParams
+    from video_steganography_pcamv_torch.stego.extract import (
+        extract_from_stream)
+    from video_steganography_pcamv_torch.utils.yuv import synthetic_sequence
+    p = Params(width=32, height=32, qp=26, me_range=16, deblock_device=True,
+               psnr=False, stego=StegoParams(em_rate=4, key=3))
+    enc = Encoder(p, device="cpu")
+    frames = synthetic_sequence(32, 32, 3, seed=1)
+    bs = b"".join(enc.encode_frame(f) for f in frames) + enc.flush()
+    assert len(decode_annexb(bs)) == 3
+    got = extract_from_stream(bs, em_rate=4, key=3)
+    sent = enc._stego.sent_messages
+    assert len(got) == len(sent) and all(
+        np.array_equal(a, b) for a, b in zip(got, sent))
+    assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
     print(len(names))
 """)
 
@@ -41,7 +77,38 @@ def test_port_imports_without_jax():
     r = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=ROOT,
                        capture_output=True, text=True, env=env, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
-    assert int(r.stdout.strip().splitlines()[-1]) >= 20
+    assert int(r.stdout.strip().splitlines()[-1]) >= 30
+
+
+def _imported_modules(path):
+    """Every module name an import statement of `path` names (relative
+    imports resolved by their level only)."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    out = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            out += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            out.append(node.module or "")
+        elif (isinstance(node, ast.Call) and node.args
+              and isinstance(node.args[0], ast.Constant)
+              and isinstance(node.args[0].value, str)
+              and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              in ("import_module", "__import__")):
+            out.append(node.args[0].value)
+    return out
+
+
+def test_source_scan_no_jax_package_import():
+    files = sorted(glob.glob(os.path.join(
+        ROOT, "video_steganography_pcamv_torch", "**", "*.py"),
+        recursive=True)) + [os.path.join(ROOT, "chip_smoke.py")]
+    assert len(files) >= 30
+    bad = [(os.path.relpath(f, ROOT), m) for f in files
+           for m in _imported_modules(f)
+           if m.split(".")[0] in (JAX_PKG, "jax", "jaxlib")]
+    assert not bad, bad
 
 
 def _slice_params(**kw):
@@ -58,6 +125,14 @@ def test_encoder_cuda_raises_without_cuda():
     from video_steganography_pcamv_torch import Encoder
     with pytest.raises(RuntimeError, match="CUDA"):
         Encoder(_slice_params(), device="cuda")
+
+
+def test_encoder_defaults_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is available here")
+    from video_steganography_pcamv_torch import Encoder
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Encoder(_slice_params())
 
 
 @pytest.mark.parametrize("kw", [

@@ -1,0 +1,161 @@
+"""The port's analyse tail (ops/probe.py) vs the JAX reference's TPU
+kernels run in interpret mode: the plain B2 tables against
+`qpel_tables_pallas`, the plain `analyse_tail` (B2 -> B3 -> B4) against
+`analyse_tail_pallas`, and `probe_combine` on the port's maps against
+the reference's `stego_costs_parts`. Every comparison is exact."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from video_steganography_pcamv_tpu.encoder import me as JME
+from video_steganography_pcamv_tpu.encoder import partition as JPT
+from video_steganography_pcamv_tpu.ops import mc as JMC
+from video_steganography_pcamv_tpu.ops.probe_pallas import (
+    analyse_tail_pallas, qpel_tables_pallas)
+from video_steganography_pcamv_tpu.stego.cost import cost_mv_table
+
+from video_steganography_pcamv_torch.encoder import partition as TPT
+from video_steganography_pcamv_torch.ops import probe as TPR
+
+
+def _t(a):
+    return torch.as_tensor(np.array(a))
+
+
+def _sp_to_z_rows(a, mbh, mbw):
+    """[N8 spatial, ...] -> [N8 z-order, ...] (the TPU kernels' lanes)."""
+    rest = a.shape[1:]
+    return a.reshape(mbh, 2, mbw, 2, *rest) \
+        .transpose(0, 2, 1, 3, *range(4, 4 + len(rest))) \
+        .reshape(4 * mbh * mbw, *rest)
+
+
+def _z_to_sp_rows(a, mbh, mbw):
+    rest = a.shape[1:]
+    return a.reshape(mbh, mbw, 2, 2, *rest) \
+        .transpose(0, 2, 1, 3, *range(4, 4 + len(rest))) \
+        .reshape(4 * mbh * mbw, *rest)
+
+
+def _setup(seed, mbh, mbw, flat=False):
+    """Inputs as tests/test_probe_pallas.py builds them; `flat` makes
+    both frames one grey level and the predictor sit 5 qpel left of and
+    above block 0's full-pel MV, so every SATD is 0 and the subpel
+    costs tie between neighbouring offsets."""
+    rng = np.random.RandomState(seed)
+    h, w = 16 * mbh, 16 * mbw
+    prev = rng.randint(0, 256, (h, w)).astype(np.int32)
+    cur = np.clip(prev + rng.randint(-20, 21, (h, w)), 0, 255) \
+        .astype(np.int32)
+    if flat:
+        prev[:] = 128
+        cur[:] = 128
+    u = rng.randint(0, 256, (h // 2, w // 2)).astype(np.int32)
+    ref = JMC.build_ref(jnp.asarray(prev), jnp.asarray(u), jnp.asarray(u))
+    part = rng.randint(0, 4, (mbh, mbw)).astype(np.int32)
+    mvfp8 = rng.randint(-16, 17, (2 * mbh, 2 * mbw, 2)).astype(np.int32)
+    # members of a partition unit share their MV
+    mvz = np.array(JPT._sp_to_z(jnp.asarray(mvfp8), mbh, mbw))
+    for pt, units in JPT.UNIT_BLOCKS.items():
+        sel = part == pt
+        for blocks in units:
+            for b in blocks[1:]:
+                mvz[sel, b] = mvz[sel, blocks[0]]
+    mvfp8 = np.asarray(JPT._z_to_sp(jnp.asarray(mvz), mbh, mbw))
+    if flat:
+        prev_mv = (4 * mvz[:, :, 0] - 5).astype(np.int32)
+    else:
+        prev_mv = rng.randint(-32, 33, (mbh, mbw, 2)).astype(np.int32)
+    planes = ref["luma"].astype(jnp.uint8)
+    windows = JPT.gather_windows8_jnp(planes, jnp.asarray(mvfp8), mbh, mbw)
+    return cur, windows, part, mvfp8, prev_mv
+
+
+@pytest.mark.parametrize("seed,qp,decimate,flat", [
+    (0, 26, True, False), (1, 26, True, False), (0, 38, True, False),
+    (1, 38, True, False), (2, 26, False, False), (3, 26, True, True)],
+    ids=["s0-q26", "s1-q26", "s0-q38", "s1-q38", "nodecimate", "flat"])
+def test_analyse_tail_plain_matches_pallas(seed, qp, decimate, flat):
+    mbh, mbw = 2, 3
+    cur, windows, part, mvfp8, prev_mv = _setup(seed, mbh, mbw, flat)
+    lam = JME.lambda_tab(qp)
+    # `decimate` is static in the reference, so each setting is a trace
+    # of its own; with it off, the reference's probe kernel writes the
+    # same SK, SP = SK and sc8 = 0 (probe_pallas.py:470-476), so the
+    # decimate-off result is held against the decimate-on trace
+    want = analyse_tail_pallas(
+        jnp.asarray(cur), windows, jnp.asarray(part), jnp.asarray(mvfp8),
+        jnp.asarray(prev_mv), lam, qp, mbh, mbw, decimate=True,
+        interpret=True)
+    if not decimate:
+        mv8, r_idx8, SK, _SP, sc8 = want
+        want = (mv8, r_idx8, SK, SK, jnp.zeros_like(sc8))
+    got = TPR.analyse_tail(_t(cur), _t(windows), _t(part), _t(mvfp8),
+                           _t(prev_mv), lam, qp, mbh, mbw,
+                           decimate=decimate)
+    for name, g, w in zip(("mv8", "r_idx8", "SK", "SP", "sc8"), got, want):
+        assert g.dtype == torch.int32, name
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w),
+                                      err_msg=name)
+    if flat:
+        # every SATD is 0; where the predictor sits (-5, -5) qpel from
+        # 4 * mv, offsets -3 and -2 tie in each component and the first
+        # (-3, -3), table index 42, must win
+        pred8 = np.repeat(np.repeat(prev_mv, 2, 0), 2, 1)
+        tied = ((pred8 - 4 * mvfp8) == -5).all(-1).reshape(-1)
+        assert tied.sum() >= 8
+        assert (got[1].numpy()[tied] == 42).all()
+
+
+def test_probe_combine_matches_stego_costs_parts():
+    mbh, mbw, qp = 2, 3, 26
+    cur, windows, part, mvfp8, prev_mv = _setup(3, mbh, mbw)
+    lam = JME.lambda_tab(qp)
+    cur_j = jnp.asarray(cur)
+    blocks8 = JPT.block_table8(windows)
+    wht8 = JPT.wht8_flat(blocks8).astype(jnp.int16)
+    mv8, ridx, _ = JPT.subpel_parts(
+        cur_j, wht8, jnp.asarray(part), jnp.asarray(mvfp8),
+        jnp.asarray(prev_mv), mbh, mbw, lam, 2)
+    mvp_u = np.random.RandomState(9).randint(
+        -64, 65, (mbh, mbw, 4, 2)).astype(np.int32)
+    cmv = cost_mv_table(lam)
+    want = JPT.stego_costs_parts(
+        cur_j, blocks8, wht8, ridx, jnp.asarray(part), mv8,
+        jnp.asarray(mvp_u), jnp.asarray(cmv), qp, mbh, mbw, True)
+
+    mv8_t, _r, SK, SP, sc8 = TPR.analyse_tail(
+        _t(cur), _t(windows), _t(part), _t(mvfp8), _t(prev_mv), lam, qp,
+        mbh, mbw)
+    np.testing.assert_array_equal(mv8_t.numpy(), np.asarray(mv8))
+    got = TPT.probe_combine(SK, SP, sc8, _t(part), mv8_t, _t(mvp_u),
+                            _t(cmv), mbh, mbw)
+    for name, g, w in zip(("rho", "alt", "valid"), got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w),
+                                      err_msg=name)
+
+
+def test_qpel_tables_plain_matches_pallas():
+    mbh, mbw = 5, 7
+    n8 = 4 * mbh * mbw
+    windows = np.random.RandomState(5).randint(
+        0, 256, (n8, 4, 16, 16)).astype(np.uint8)
+    pad = (-n8) % 128
+    w1024 = _sp_to_z_rows(windows.reshape(n8, 1024), mbh, mbw).T
+    w1024 = np.pad(w1024.astype(np.int16), ((0, 0), (0, pad)))
+    blk_p, wht_p = qpel_tables_pallas(jnp.asarray(w1024), interpret=True)
+
+    def to_sp(tab):
+        t = np.asarray(tab).reshape(169, 64, n8 + pad)[:, :, :n8]
+        return np.stack([_z_to_sp_rows(t[o].T, mbh, mbw)
+                         for o in range(169)])            # [169, N8, 64]
+
+    blocks8, wht8 = TPR.qpel_tables(_t(windows))
+    assert blocks8.dtype == torch.uint8 and wht8.dtype == torch.int16
+    np.testing.assert_array_equal(
+        blocks8.numpy().reshape(169, n8, 64).astype(np.int16),
+        to_sp(blk_p))
+    np.testing.assert_array_equal(wht8.numpy(), to_sp(wht_p))

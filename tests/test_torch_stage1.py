@@ -1,7 +1,12 @@
 """The fused P stage 1 and the pass-2 pieces vs the JAX reference on a
 real mid-stream state carried over by `state.from_reference`: the packed
 stage-1 array (rho compared bit for bit), the pass-1 `res`, the
-incremental re-encode of a flipped subset and the lean level pack."""
+incremental re-encode of a flipped subset and the lean level pack.
+
+Both branches of stage 1 are covered: the reference's CPU branch
+(`tail_kernel=False`, its own `p_stage1_stego`) and its accelerator
+branch (`tail_kernel=True`), whose reference is composed here from
+partition.py's TPU branch with the Pallas kernels in interpret mode."""
 
 import numpy as np
 import pytest
@@ -12,19 +17,27 @@ import jax.numpy as jnp
 from video_steganography_pcamv_tpu.encoder import core as JCORE
 from video_steganography_pcamv_tpu.encoder import inter_incr as JINC
 from video_steganography_pcamv_tpu.encoder import partition as JPT
+from video_steganography_pcamv_tpu.encoder import inter as JINTER
 from video_steganography_pcamv_tpu.encoder import slicetype as JST
 from video_steganography_pcamv_tpu.encoder.core import Encoder as JEncoder
 from video_steganography_pcamv_tpu.encoder.me import lambda_tab
+from video_steganography_pcamv_tpu.encoder.scan_device import _scan_p_device
+from video_steganography_pcamv_tpu.ops.pallas_kernels import (
+    fullpel_parts_pallas)
+from video_steganography_pcamv_tpu.ops.probe_pallas import (
+    analyse_tail_pallas)
 from video_steganography_pcamv_tpu.ops.transform import chroma_qp
 from video_steganography_pcamv_tpu.params import Params, StegoParams
 from video_steganography_pcamv_tpu.stego.cost import cost_mv_table
-from video_steganography_pcamv_tpu.utils.yuv import Frame
+from video_steganography_pcamv_tpu.utils.yuv import Frame, synthetic_sequence
 
 from video_steganography_pcamv_torch import Encoder as TEncoder
 from video_steganography_pcamv_torch.encoder import core as TCORE
 from video_steganography_pcamv_torch.encoder import inter_incr as TINC
 from video_steganography_pcamv_torch.encoder import partition as TPT
 from video_steganography_pcamv_torch.encoder import slicetype as TST
+from video_steganography_pcamv_torch.params import Params as TParams
+from video_steganography_pcamv_torch.params import StegoParams as TStegoParams
 from video_steganography_pcamv_torch.state import from_reference
 
 W, H = 112, 80
@@ -45,11 +58,18 @@ def _seq(n, seed=1):
     return frames
 
 
-def _params():
-    p = Params(width=W, height=H, qp=26, me_range=16, deblock_device=True,
-               psnr=False, stego=StegoParams(em_rate=64, key=99))
-    p.tail_kernel = False
+def _params(params=Params, stego=StegoParams, tail_kernel=False,
+            size=(W, H)):
+    p = params(width=size[0], height=size[1], qp=26, me_range=16,
+               deblock_device=True, psnr=False,
+               stego=stego(em_rate=64, key=99))
+    p.tail_kernel = tail_kernel
     return p
+
+
+def _tparams(tail_kernel=False, size=(W, H)):
+    """The same encode described by the port's own Params."""
+    return _params(TParams, TStegoParams, tail_kernel, size)
 
 
 @pytest.fixture(scope="module")
@@ -59,7 +79,7 @@ def stage1():
     jenc = JEncoder(_params())
     for f in frames[:3]:
         jenc.encode_frame(f)
-    tenc = TEncoder(_params(), device="cpu")
+    tenc = TEncoder(_tparams(), device="cpu")
     tenc.load_state(from_reference(jenc))
     qp = 26
     qpc, lam = chroma_qp(qp), lambda_tab(qp)
@@ -150,3 +170,86 @@ def test_lean_pack_equal(stage1):
     dt = TCORE._unpack_frame_lean(got, MBH, MBW)
     for k, a in dj.items():
         np.testing.assert_array_equal(a, dt[k], err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# The accelerator branch (tail_kernel=True), at the same 112x80 size, so
+# that its reference encoder reuses the compiled programs of the one above
+# ---------------------------------------------------------------------------
+
+def _accel_reference(y, u, v, ref, prev_mv, qp, qpc, lam, cost_mv, extra):
+    """The reference's TPU branch of p_stage1_stego
+    (encoder/partition.py:1448-1504), composed with the Pallas kernels
+    in interpret mode; the pass-1 encode keeps its levels
+    (cbp_only=False) as the serving path's full_pass1 does."""
+    rng = 16
+    st = fullpel_parts_pallas(y, ref["luma"][0], rng, MBH, MBW, lam,
+                              interpret=True)
+    part, mvfp8 = JPT.decide_partition.__wrapped__(st, MBH, MBW, lam)
+    windows = JPT.gather_windows8_mm(ref["luma"].astype(jnp.uint8), mvfp8,
+                                     MBH, MBW, rng).astype(jnp.uint8)
+    mv8, _r, SK, SP, sc8 = analyse_tail_pallas(
+        y, windows, part, mvfp8, prev_mv, lam, qp, MBH, MBW, decimate=True,
+        interpret=True)
+    res = JINTER.encode_p_frame_device8.__wrapped__(
+        y, u, v, ref["luma"], ref["u"], ref["v"], mv8, qp, qpc, MBH, MBW,
+        True, None, False, None, cbp_only=False, mv_bound=rng + 2)
+    cbp_l = res["cbp_luma"].astype(jnp.int32)
+    cbp_c = res["cbp_chroma"].astype(jnp.int32)
+    skip, _mvd, mvp_u, _ = _scan_p_device(part, mv8, cbp_l, cbp_c, MBH, MBW)
+    rho, alt, _valid = JPT.probe_combine(SK, SP, sc8, part, mv8, mvp_u,
+                                         cost_mv, MBH, MBW, True)
+    packed = jnp.concatenate([a.reshape(-1).astype(jnp.float32) for a in (
+        part, mv8, cbp_l, cbp_c, skip, alt, rho, extra)])
+    return np.asarray(packed), res
+
+
+@pytest.fixture(scope="module")
+def stage1_accel():
+    """Both packed arrays and pass-1 results of the accelerator branch on
+    frames 3 and 4 of a synthetic sequence, each from the reference
+    encoder's state after the frames before it."""
+    frames = synthetic_sequence(W, H, 5, seed=7)
+    jenc = JEncoder(_params(size=(W, H)))
+    for f in frames[:3]:
+        jenc.encode_frame(f)
+    out = []
+    qp = 26
+    qpc, lam = chroma_qp(qp), lambda_tab(qp)
+    cmv = cost_mv_table(lam)
+    for f in frames[3:]:
+        tenc = TEncoder(_tparams(True, size=(W, H)), device="cpu")
+        tenc.load_state(from_reference(jenc))
+        y, u, v = jenc._pad(f)
+        lr_j = JST.lowres_costs(JST.lowres(y), jenc.lookahead.prev_lr, MBH,
+                                MBW, rng=8)
+        packed_j, res_j = _accel_reference(
+            y, u, v, jenc.ref, jnp.asarray(jenc.prev_mv), qp, qpc, lam,
+            jnp.asarray(cmv), lr_j)
+        yt, ut, vt = tenc._pad(f)
+        lr_t = TST.lowres_costs(TST.lowres(yt), tenc.lookahead.prev_lr, MBH,
+                                MBW, rng=8)
+        packed_t, res_t = TPT.p_stage1_stego(
+            yt, ut, vt, tenc.ref["luma"], tenc.ref["u"], tenc.ref["v"],
+            torch.as_tensor(tenc.prev_mv), qp, qpc, lam,
+            torch.as_tensor(cmv), 16, MBH, MBW, extra=lr_t,
+            tail_kernel=True)
+        out.append((packed_j, packed_t.numpy(), res_j, res_t))
+        jenc.encode_frame(f)
+    return out
+
+
+@pytest.mark.parametrize("frame", [0, 1], ids=["p3", "p4"])
+def test_accel_packed_stage1_equal(stage1_accel, frame):
+    pj, pt, _, _ = stage1_accel[frame]
+    n = MBH * MBW
+    assert pj.shape == pt.shape == (24 * n + 2,)
+    np.testing.assert_array_equal(pj.view(np.int32), pt.view(np.int32))
+
+
+@pytest.mark.parametrize("frame", [0, 1], ids=["p3", "p4"])
+def test_accel_pass1_res_equal(stage1_accel, frame):
+    _, _, res_j, res_t = stage1_accel[frame]
+    for k in RES_KEYS:
+        np.testing.assert_array_equal(np.asarray(res_j[k]), res_t[k].numpy(),
+                                      err_msg=k)

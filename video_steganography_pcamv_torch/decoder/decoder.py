@@ -1,0 +1,968 @@
+"""Verification decoder: Annex-B H.264 (baseline subset) -> planes + MB info.
+
+Independent of the encoder internals (shares only the spec constant
+tables). Purpose (SURVEY.md §4.3): prove the encoder's reconstruction
+matches a conforming decoder bit-exactly, and expose the motion-vector
+field for the blind stego extractor (the reference never shipped its
+extractor — stc_extract include commented out, analyse.c:43).
+
+The port's copy of the reference's decoder/decoder.py, cut to the CAVLC
+I/P path that the port's streams take (I16x16/I4x4, P partitions incl.
+sub-8x8, P_SKIP, sliding-window DPB). CABAC, the 8x8 transform, scaling
+matrices, B slices and per-MB QP changes in a deblocked slice raise
+NotImplementedError. The in-loop filter is the port's `ops.deblock`.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from ..utils.bitstream import BitReader, nal_unescape
+from ..encoder import vlc_tables as VT
+from ..ops import deblock as DB
+from . import recon as R
+
+# luma blkIdx -> (by, bx) and chroma blkIdx -> (by, bx) (the reference's
+# encoder/cavlc.py LUMA_SCAN / CHROMA_SCAN)
+LUMA_SCAN = [(0, 0), (0, 1), (1, 0), (1, 1), (0, 2), (0, 3), (1, 2), (1, 3),
+             (2, 0), (2, 1), (3, 0), (3, 1), (2, 2), (2, 3), (3, 2), (3, 3)]
+CHROMA_SCAN = [(0, 0), (0, 1), (1, 0), (1, 1)]
+
+# partition-unit geometry (y4_off, x4_off, w4, h4) per P mb_type 0..3, and
+# per sub_mb_type (0=P_L0_8x8, 1=8x4, 2=4x8, 3=4x4) relative to its 8x8
+# (the reference's encoder/scan.py UNIT_GEOM / SUB_GEOM)
+UNIT_GEOM = {
+    0: [(0, 0, 4, 4)],
+    1: [(0, 0, 4, 2), (2, 0, 4, 2)],
+    2: [(0, 0, 2, 4), (0, 2, 2, 4)],
+    3: [(0, 0, 2, 2), (0, 2, 2, 2), (2, 0, 2, 2), (2, 2, 2, 2)],
+}
+SUB_GEOM = {
+    0: [(0, 0, 2, 2)],
+    1: [(0, 0, 2, 1), (1, 0, 2, 1)],
+    2: [(0, 0, 1, 2), (0, 1, 1, 2)],
+    3: [(0, 0, 1, 1), (0, 1, 1, 1), (1, 0, 1, 1), (1, 1, 1, 1)],
+}
+
+
+def mb_units(part: int, subs=None):
+    """Unit geometry of one MB in coding order (the reference's
+    encoder/scan.py mb_units)."""
+    if part != 3:
+        return UNIT_GEOM[part]
+    out = []
+    for b in range(4):
+        boy, box = 2 * (b >> 1), 2 * (b & 1)
+        st = 0 if subs is None else int(subs[b])
+        for (soy, sox, w4, h4) in SUB_GEOM[st]:
+            out.append((boy + soy, box + sox, w4, h4))
+    return out
+
+
+CHROMA_QP = np.concatenate([
+    np.arange(30),
+    np.array([29, 30, 31, 32, 32, 33, 34, 34, 35, 35, 36, 36, 37, 37, 37,
+              38, 38, 38, 39, 39, 39, 39])]).astype(int)
+
+
+def _build_decode_map(codes, values):
+    m = {}
+    for code, val in zip(codes, values):
+        if code:
+            m[code] = val
+    return m
+
+# coeff_token decode maps per table: bitstring -> (total_coeff, t1s)
+_CT_MAPS = []
+for _tab in range(5):
+    codes = list(VT.COEFF_TOKEN[_tab])
+    vals = [((i // 4) + 1, i % 4) for i in range(64)]
+    codes.append(VT.COEFF0[_tab])
+    vals.append((0, 0))
+    _CT_MAPS.append(_build_decode_map(codes, vals))
+
+_TZ_MAPS = [_build_decode_map(row, range(16)) for row in VT.TOTAL_ZEROS]
+_TZDC_MAPS = [_build_decode_map(row, range(4)) for row in VT.TOTAL_ZEROS_DC]
+_RB_MAPS = [_build_decode_map(row, range(15)) for row in VT.RUN_BEFORE]
+
+
+def _read_vlc(br: BitReader, dmap: dict):
+    s = ""
+    for _ in range(20):
+        s += str(br.read1())
+        if s in dmap:
+            return dmap[s]
+    from ..utils.log import PcamvError
+    raise PcamvError(f"VLC decode failure: {s}")
+
+
+def read_residual(br: BitReader, max_coeff: int, nc: int) -> list[int]:
+    """Spec 9.2 residual_block_cavlc. Returns scan-ordered levels."""
+    if nc == -1:
+        tab = 4
+    elif nc < 2:
+        tab = 0
+    elif nc < 4:
+        tab = 1
+    elif nc < 8:
+        tab = 2
+    else:
+        tab = 3
+    tc, t1s = _read_vlc(br, _CT_MAPS[tab])
+    levels = [0] * max_coeff
+    if tc == 0:
+        return levels
+
+    vals = []
+    for _ in range(t1s):
+        vals.append(-1 if br.read1() else 1)
+    sl = 1 if (tc > 10 and t1s < 3) else 0
+    for i in range(tc - t1s):
+        prefix = 0
+        while br.read1() == 0:
+            prefix += 1
+            assert prefix < 32
+        if sl == 0 and prefix == 14:
+            sz = 4
+        elif prefix >= 15:
+            sz = prefix - 3
+        else:
+            sz = sl
+        code = (min(15, prefix) << sl) + (br.read(sz) if sz else 0)
+        if prefix >= 15 and sl == 0:
+            code += 15
+        if prefix >= 16:
+            code += (1 << (prefix - 3)) - 4096
+        if i == 0 and t1s < 3:
+            code += 2
+        val = (code + 2) >> 1 if code % 2 == 0 else -((code + 1) >> 1)
+        vals.append(val)
+        if sl == 0:
+            sl = 1
+        if abs(val) > (3 << (sl - 1)) and sl < 6:
+            sl += 1
+
+    if tc < max_coeff:
+        if max_coeff == 4:
+            tz = _read_vlc(br, _TZDC_MAPS[tc - 1])
+        else:
+            tz = _read_vlc(br, _TZ_MAPS[tc - 1])
+    else:
+        tz = 0
+
+    # place coefficients: vals[0] is the highest-frequency coefficient
+    runs = []
+    zeros_left = tz
+    for _ in range(tc - 1):
+        if zeros_left > 0:
+            run = _read_vlc(br, _RB_MAPS[min(zeros_left, 7) - 1])
+        else:
+            run = 0
+        runs.append(run)
+        zeros_left -= run
+    pos = tc - 1 + tz
+    for k, v in enumerate(vals):
+        levels[pos] = v
+        if k < len(runs):
+            pos -= 1 + runs[k]
+    return levels
+
+
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class DecSPS:
+    profile: int = 66
+    width: int = 0
+    height: int = 0
+    log2_max_frame_num: int = 4
+    num_ref_frames: int = 1
+    poc_type: int = 2
+    log2_max_poc_lsb: int = 10
+    crop = (0, 0, 0, 0)
+    level_idc: int = 0
+    sps_id: int = 0
+    # VUI (None when absent): dict with sar/fps/etc.
+    vui: dict = None
+
+
+@dataclass
+class DecPPS:
+    pic_init_qp: int = 26
+    chroma_qp_index_offset: int = 0
+    num_ref_idx_l0_active: int = 1
+    deblocking_control_present: bool = True
+
+
+@dataclass
+class MBInfo:
+    """Per-MB decode record; MVs feed the blind extractor."""
+    mb_type: str = "SKIP"  # "I16x16", "I4x4", "P16x16", "P16x8",
+                           # "P8x16", "P8x8", "SKIP"
+    mv: tuple = (0, 0)
+    qp: int = 0
+    unit_mvs: list = None  # partition-unit MVs in coding order
+
+
+@dataclass
+class DecodedFrame:
+    y: np.ndarray
+    u: np.ndarray
+    v: np.ndarray
+    slice_type: int = 2
+    mbs: list = field(default_factory=list)
+    poc: int = 0
+
+
+def parse_nals(data: bytes):
+    """Split Annex-B stream into (nal_type, ref_idc, rbsp) tuples."""
+    out = []
+    i = 0
+    n = len(data)
+    starts = []
+    while i < n - 3:
+        if data[i] == 0 and data[i + 1] == 0:
+            if data[i + 2] == 1:
+                starts.append(i + 3)
+                i += 3
+                continue
+            if i < n - 4 and data[i + 2] == 0 and data[i + 3] == 1:
+                starts.append(i + 4)
+                i += 4
+                continue
+        i += 1
+    for k, s in enumerate(starts):
+        e = (starts[k + 1] - 3) if k + 1 < len(starts) else n
+        # trim preceding zeros of the next start code
+        while e > s and data[e - 1] == 0 and k + 1 < len(starts):
+            e -= 1
+        hdr = data[s]
+        out.append((hdr & 0x1F, (hdr >> 5) & 3, nal_unescape(data[s + 1:e])))
+    return out
+
+
+def parse_sps(rbsp: bytes) -> DecSPS:
+    br = BitReader(rbsp)
+    profile = br.read(8)
+    br.read(8)  # constraints
+    sps = DecSPS()
+    sps.level_idc = br.read(8)
+    sps.sps_id = br.read_ue()
+    sps.profile = profile
+    if profile in (100, 110, 122, 244, 44, 83, 86, 118, 128):
+        # High-profile extension block (spec 7.3.2.1)
+        chroma_format = br.read_ue()
+        assert chroma_format == 1, "only 4:2:0 supported"
+        assert br.read_ue() == 0 and br.read_ue() == 0, "8-bit only"
+        br.read1()  # qpprime_y_zero_transform_bypass
+        if br.read1():   # seq_scaling_matrix_present
+            raise NotImplementedError("scaling matrices")
+    sps.log2_max_frame_num = br.read_ue() + 4
+    sps.poc_type = br.read_ue()
+    assert sps.poc_type in (0, 2), \
+        f"unsupported poc_type {sps.poc_type}"
+    if sps.poc_type == 0:
+        sps.log2_max_poc_lsb = br.read_ue() + 4
+    sps.num_ref_frames = br.read_ue()
+    br.read1()
+    mbw = br.read_ue() + 1
+    mbh = br.read_ue() + 1
+    frame_mbs_only = br.read1()
+    assert frame_mbs_only == 1
+    br.read1()  # direct_8x8
+    crop = br.read1()
+    cl = cr = ct = cb = 0
+    if crop:
+        cl, cr, ct, cb = (br.read_ue(), br.read_ue(),
+                          br.read_ue(), br.read_ue())
+    if br.read1():  # vui_parameters_present
+        sps.vui = _parse_vui(br)
+    sps.width = mbw * 16 - 2 * (cl + cr)
+    sps.height = mbh * 16 - 2 * (ct + cb)
+    sps.crop = (cl, cr, ct, cb)
+    return sps
+
+
+_SAR_TABLE = {1: (1, 1), 2: (12, 11), 3: (10, 11), 4: (16, 11),
+              5: (40, 33), 6: (24, 11), 7: (20, 11), 8: (32, 11),
+              9: (80, 33), 10: (18, 11), 11: (15, 11), 12: (64, 33),
+              13: (160, 99)}
+
+
+def _parse_vui(br) -> dict:
+    """VUI parameters (spec E.1.1) — metadata surfaced for tests."""
+    v = {}
+    if br.read1():  # aspect_ratio_info
+        idc = br.read(8)
+        if idc == 255:
+            v["sar"] = (br.read(16), br.read(16))
+        else:
+            v["sar"] = _SAR_TABLE.get(idc, (0, 0))
+    if br.read1():  # overscan_info
+        v["overscan"] = br.read1()
+    if br.read1():  # signal_type
+        v["videoformat"] = br.read(3)
+        v["fullrange"] = br.read1()
+        if br.read1():  # colour_description
+            v["colorprim"] = br.read(8)
+            v["transfer"] = br.read(8)
+            v["colmatrix"] = br.read(8)
+    if br.read1():  # chroma_loc_info
+        v["chromaloc"] = (br.read_ue(), br.read_ue())
+    if br.read1():  # timing_info
+        num_units = br.read(32)
+        time_scale = br.read(32)
+        v["fps"] = (time_scale, 2 * num_units)  # fps = ts / (2*nuit)
+        v["fixed_frame_rate"] = br.read1()
+    assert br.read1() == 0  # nal_hrd
+    assert br.read1() == 0  # vcl_hrd
+    br.read1()  # pic_struct
+    if br.read1():  # bitstream_restriction
+        br.read1()
+        br.read_ue()
+        br.read_ue()
+        v["log2_max_mv_h"] = br.read_ue()
+        v["log2_max_mv_v"] = br.read_ue()
+        v["num_reorder_frames"] = br.read_ue()
+        v["max_dec_frame_buffering"] = br.read_ue()
+    return v
+
+
+def parse_pps(rbsp: bytes) -> DecPPS:
+    br = BitReader(rbsp)
+    pps = DecPPS()
+    br.read_ue()  # pps id
+    br.read_ue()  # sps id
+    if br.read1():  # entropy_coding_mode
+        raise NotImplementedError("CABAC")
+    br.read1()  # pic_order_present
+    assert br.read_ue() == 0, "slice groups unsupported"
+    pps.num_ref_idx_l0_active = br.read_ue() + 1
+    br.read_ue()
+    br.read1()
+    br.read(2)      # weighted_bipred_idc
+    pps.pic_init_qp = 26 + br.read_se()
+    br.read_se()
+    pps.chroma_qp_index_offset = br.read_se()
+    pps.deblocking_control_present = bool(br.read1())
+    br.read1()
+    br.read1()
+    if br.more_rbsp_data():
+        # FRExt tail (spec 7.3.2.2)
+        if br.read1():
+            raise NotImplementedError("the 8x8 transform")
+        assert br.read1() == 0, "pic scaling matrices unsupported"
+        br.read_se()  # second_chroma_qp_index_offset
+    return pps
+
+
+class SliceDecoder:
+    """Decodes one frame (single slice)."""
+
+    def __init__(self, sps: DecSPS, pps: DecPPS, refs=None):
+        self.sps, self.pps = sps, pps
+        # DPB: refs[0] = most recent reference (the P slice's L0 list)
+        self.refs = refs or []
+        self.p_l0_active = None  # P-slice num_ref override (7.4.3)
+        self.mbw = (sps.width + 15) // 16
+        self.mbh = (sps.height + 15) // 16
+        self.y = np.zeros((self.mbh * 16, self.mbw * 16), np.int64)
+        self.u = np.zeros((self.mbh * 8, self.mbw * 8), np.int64)
+        self.v = np.zeros((self.mbh * 8, self.mbw * 8), np.int64)
+        self.nnz_y = np.zeros((4 * self.mbh, 4 * self.mbw), np.int32)
+        self.nnz_c = np.zeros((2, 2 * self.mbh, 2 * self.mbw), np.int32)
+        # i4x4 mode map for predIntra4x4PredMode (2 = not i4x4-coded)
+        self.modes4 = np.full((4 * self.mbh, 4 * self.mbw), 2, np.int32)
+        self.mb_intra = np.zeros((self.mbh, self.mbw), bool)
+        self.mb_skip = np.zeros((self.mbh, self.mbw), bool)
+        # 4x4-granularity MV field (the reference's cache.mv): supports
+        # all partition shapes uniformly
+        self.mv4 = np.zeros((4 * self.mbh, 4 * self.mbw, 2), np.int32)
+        self.ref4 = np.full((4 * self.mbh, 4 * self.mbw), -1, np.int32)
+        self.dec4 = np.zeros((4 * self.mbh, 4 * self.mbw), bool)
+        self.decoded = np.zeros((self.mbh, self.mbw), bool)
+        self.mbs: list[MBInfo] = []
+
+    def _nc(self, arr, by, bx):
+        has_l, has_t = bx > 0, by > 0
+        if has_l and has_t:
+            return int(arr[by, bx - 1] + arr[by - 1, bx] + 1) >> 1
+        if has_l:
+            return int(arr[by, bx - 1])
+        if has_t:
+            return int(arr[by - 1, bx])
+        return 0
+
+    def decode_i16x16(self, br: BitReader, mx: int, my: int, mb_type: int,
+                      qp: int):
+        mode = (mb_type - 1) % 4
+        cbp_chroma = ((mb_type - 1) // 4) % 3
+        cbp_luma = 15 if (mb_type - 1) >= 12 else 0
+        cmode = br.read_ue()
+        qp_delta = br.read_se()
+        qp = (qp + qp_delta + 52) % 52   # spec 7.4.5 QP chain
+        qpc = int(CHROMA_QP[np.clip(qp + self.pps.chroma_qp_index_offset,
+                                    0, 51)])
+
+        gx, gy = 16 * mx, 16 * my
+        at, al = my > 0, mx > 0
+        top = self.y[gy - 1, gx:gx + 16] if at else np.zeros(16, np.int64)
+        left = self.y[gy:gy + 16, gx - 1] if al else np.zeros(16, np.int64)
+        tl = self.y[gy - 1, gx - 1] if (at and al) else 0
+        pred = R.pred_16x16(mode, top, left, tl, at, al)
+
+        # DC block
+        nc = self._nc(self.nnz_y, 4 * my, 4 * mx)
+        dc_lev = R.dezigzag(read_residual(br, 16, nc))
+        dc = R.ihadamard4x4(dc_lev)
+        dc = R.dequant_dc_luma(dc, qp)
+
+        blocks = np.zeros((4, 4, 4, 4), np.int64)  # [by,bx,r,c] dequant AC
+        for blk in range(16):
+            by, bx = LUMA_SCAN[blk]
+            if cbp_luma:
+                nc = self._nc(self.nnz_y, 4 * my + by, 4 * mx + bx)
+                lv = read_residual(br, 15, nc)
+                self.nnz_y[4 * my + by, 4 * mx + bx] = \
+                    sum(1 for x in lv if x)
+                blocks[by, bx] = R.dequant4x4(R.dezigzag([0] + lv), qp,
+                                              intra=True)
+            else:
+                self.nnz_y[4 * my + by, 4 * mx + bx] = 0
+        blocks[:, :, 0, 0] = dc
+        for by in range(4):
+            for bx in range(4):
+                py, px = gy + 4 * by, gx + 4 * bx
+                self.y[py:py + 4, px:px + 4] = R.recon_block4x4(
+                    pred[4 * by:4 * by + 4, 4 * bx:4 * bx + 4],
+                    blocks[by, bx])
+
+        self._decode_chroma(br, mx, my, cmode, cbp_chroma, qpc, intra=True)
+        self.mb_intra[my, mx] = True
+        # intra neighbours are AVAILABLE with mv 0 /
+        # ref -1 for MVP/P_SKIP (x264 cache -1 vs -2
+        # outside, macroblock.c:28-46; scan.py twin)
+        self.dec4[4 * my:4 * my + 4, 4 * mx:4 * mx + 4] = True
+        self.mv4[4 * my:4 * my + 4, 4 * mx:4 * mx + 4] = 0
+        self.ref4[4 * my:4 * my + 4, 4 * mx:4 * mx + 4] = -1
+        return qp
+
+    def decode_i4x4(self, br: BitReader, mx: int, my: int, qp: int):
+        """I_NxN (Intra_4x4) macroblock (spec 7.3.5.1 + 8.3.1)."""
+        # 16 predicted-mode syntax elements, z-scan order
+        modes = np.zeros(16, np.int32)
+        for blk in range(16):
+            by, bx = LUMA_SCAN[blk]
+            gy4, gx4 = 4 * my + by, 4 * mx + bx
+            pm = self._pred_i4_mode(gy4, gx4)
+            if br.read1():
+                modes[blk] = pm
+            else:
+                rem = br.read(3)
+                modes[blk] = rem + (1 if rem >= pm else 0)
+            self.modes4[gy4, gx4] = modes[blk]
+
+        cmode = br.read_ue()
+        cbp = VT.CBP_INTRA_TO_GOLOMB.index(br.read_ue())
+        cbp_luma, cbp_chroma = cbp & 15, cbp >> 4
+        if cbp:
+            qp = (qp + br.read_se() + 52) % 52
+        qpc = int(CHROMA_QP[np.clip(qp + self.pps.chroma_qp_index_offset,
+                                    0, 51)])
+
+        # residual parse (16-coeff blocks), then recon in z-order
+        blocks = np.zeros((4, 4, 4, 4), np.int64)
+        for blk in range(16):
+            by, bx = LUMA_SCAN[blk]
+            if cbp_luma & (1 << (blk >> 2)):
+                nc = self._nc(self.nnz_y, 4 * my + by, 4 * mx + bx)
+                lv = read_residual(br, 16, nc)
+                self.nnz_y[4 * my + by, 4 * mx + bx] = \
+                    sum(1 for x in lv if x)
+                blocks[by, bx] = R.dequant4x4(R.dezigzag(lv), qp,
+                                              intra=True)
+            else:
+                self.nnz_y[4 * my + by, 4 * mx + bx] = 0
+        for blk in range(16):
+            by, bx = LUMA_SCAN[blk]
+            pred = self._i4_pred_block(mx, my, by, bx, int(modes[blk]))
+            py, px = 16 * my + 4 * by, 16 * mx + 4 * bx
+            self.y[py:py + 4, px:px + 4] = R.recon_block4x4(
+                pred, blocks[by, bx])
+
+        self._decode_chroma(br, mx, my, cmode, cbp_chroma, qpc, intra=True)
+        self.mb_intra[my, mx] = True
+        # intra neighbours are AVAILABLE with mv 0 /
+        # ref -1 for MVP/P_SKIP (x264 cache -1 vs -2
+        # outside, macroblock.c:28-46; scan.py twin)
+        self.dec4[4 * my:4 * my + 4, 4 * mx:4 * mx + 4] = True
+        self.mv4[4 * my:4 * my + 4, 4 * mx:4 * mx + 4] = 0
+        self.ref4[4 * my:4 * my + 4, 4 * mx:4 * mx + 4] = -1
+        return qp
+
+    def _pred_i4_mode(self, gy4: int, gx4: int) -> int:
+        """predIntra4x4PredMode (spec 8.3.1.1): DC if either neighbour
+        block is unavailable, else min of the neighbour modes (2 for
+        blocks not coded Intra_4x4)."""
+        if gx4 == 0 or gy4 == 0:
+            return 2
+        return int(min(self.modes4[gy4, gx4 - 1], self.modes4[gy4 - 1, gx4]))
+
+    def _i4_pred_block(self, mx, my, by, bx, mode):
+        """Assemble borders from reconstructed samples + spec top-right
+        availability/substitution, then predict."""
+        gy4, gx4 = 4 * my + by, 4 * mx + bx
+        py, px = 4 * gy4, 4 * gx4
+        at, al = gy4 > 0, gx4 > 0
+        t = np.zeros(8, np.int64)
+        l = np.zeros(4, np.int64)
+        lt = 0
+        if at:
+            t[:4] = self.y[py - 1, px:px + 4]
+            # top-right: available iff that 4x4 block precedes this one
+            # in decoding order (spec 6.4.8 + 8.3.1.2 substitution)
+            tr_ok = False
+            if gx4 + 1 < 4 * self.mbw:
+                my2, mx2 = (gy4 - 1) // 4, (gx4 + 1) // 4
+                if (my2, mx2) < (my, mx):
+                    tr_ok = True
+                elif (my2, mx2) == (my, mx):
+                    zi = {p: i for i, p in enumerate(LUMA_SCAN)}
+                    tr_ok = (zi[(by - 1, bx + 1)] < zi[(by, bx)])
+            if tr_ok:
+                t[4:] = self.y[py - 1, px + 4:px + 8]
+            else:
+                t[4:] = t[3]
+        if al:
+            l[:] = self.y[py:py + 4, px - 1]
+        if at and al:
+            lt = int(self.y[py - 1, px - 1])
+        return R.pred_4x4(mode, t, l, lt, at, al)
+
+    def _decode_chroma(self, br, mx, my, cmode, cbp_chroma, qpc, intra,
+                       preds=None):
+        gx, gy = 8 * mx, 8 * my
+        at, al = my > 0, mx > 0
+        # spec residual() order: both chroma DC blocks first, then all ACs
+        dcs = []
+        for ch in range(2):
+            if cbp_chroma:
+                lv = read_residual(br, 4, -1)  # raster scan over the 2x2
+                dc2 = np.array([[lv[0], lv[1]], [lv[2], lv[3]]], np.int64)
+                dc = R.dequant_dc_chroma(R.ihadamard2x2(dc2), qpc,
+                                         intra=intra)
+            else:
+                dc = np.zeros((2, 2), np.int64)
+            dcs.append(dc)
+        for ch, plane in ((0, self.u), (1, self.v)):
+            blocks = np.zeros((2, 2, 4, 4), np.int64)
+            if cbp_chroma == 2:
+                for blk in range(4):
+                    by, bx = CHROMA_SCAN[blk]
+                    nc = self._nc(self.nnz_c[ch], 2 * my + by, 2 * mx + bx)
+                    lv = read_residual(br, 15, nc)
+                    self.nnz_c[ch, 2 * my + by, 2 * mx + bx] = \
+                        sum(1 for x in lv if x)
+                    blocks[by, bx] = R.dequant4x4(
+                        R.dezigzag([0] + lv), qpc, intra=intra)
+            else:
+                self.nnz_c[ch, 2 * my:2 * my + 2, 2 * mx:2 * mx + 2] = 0
+            blocks[:, :, 0, 0] = dcs[ch]
+
+            if preds is not None:
+                pred = preds[ch]
+            elif intra:
+                top = plane[gy - 1, gx:gx + 8] if at else np.zeros(8, np.int64)
+                left = plane[gy:gy + 8, gx - 1] if al else np.zeros(8, np.int64)
+                tl = plane[gy - 1, gx - 1] if (at and al) else 0
+                pred = R.pred_chroma(cmode, top, left, tl, at, al)
+            else:
+                pred = self._inter_pred_chroma(ch, mx, my)
+            for by in range(2):
+                for bx in range(2):
+                    py, px = gy + 4 * by, gx + 4 * bx
+                    plane[py:py + 4, px:px + 4] = R.recon_block4x4(
+                        pred[4 * by:4 * by + 4, 4 * bx:4 * bx + 4],
+                        blocks[by, bx])
+
+    def _inter_pred_chroma(self, ch, mx, my):
+        """Chroma MB prediction from the 4x4-granularity luma MVs: one
+        2x2 chroma block per luma 4x4 (spec 8.4.2.2 partition mapping;
+        identical to the coarser per-8x8 path when the MV is uniform
+        within the 8x8 — bilinear MC is position-independent)."""
+        out = np.zeros((8, 8), np.int64)
+        mvblk = self.mv4[4 * my:4 * my + 4, 4 * mx:4 * mx + 4]
+        rblk = self.ref4[4 * my:4 * my + 4, 4 * mx:4 * mx + 4]
+
+        def plane_of(r):
+            d = self.refs[max(0, int(r))]
+            return d["u"] if ch == 0 else d["v"]
+
+        # fast path: uniform MV + ref over the MB -> one 8x8 MC
+        if (mvblk == mvblk[0, 0]).all() and (rblk == rblk[0, 0]).all():
+            mv = mvblk[0, 0]
+            return R.np_mc_chroma(plane_of(rblk[0, 0]), 8 * my, 8 * mx,
+                                  int(mv[0]), int(mv[1]), bh=8, bw=8)
+        for j in range(4):
+            for i in range(4):
+                mv = mvblk[j, i]
+                out[2 * j:2 * j + 2, 2 * i:2 * i + 2] = R.np_mc_chroma(
+                    plane_of(rblk[j, i]), 8 * my + 2 * j, 8 * mx + 2 * i,
+                    int(mv[0]), int(mv[1]), bh=2, bw=2)
+        return out
+
+    # ---- MVP at 4x4 granularity (spec 8.4.1.3 / 8.4.1.1) ----
+    def _nb4(self, y4, x4):
+        if (0 <= y4 < 4 * self.mbh and 0 <= x4 < 4 * self.mbw
+                and self.dec4[y4, x4]):
+            return self.mv4[y4, x4], int(self.ref4[y4, x4]), True
+        return np.zeros(2, np.int32), -1, False
+
+    def _unit_mvp(self, y4, x4, w4, part, unit, ref=0):
+        mva, ra, av_a = self._nb4(y4, x4 - 1)
+        mvb, rb, av_b = self._nb4(y4 - 1, x4)
+        mvc, rc, av_c = self._nb4(y4 - 1, x4 + w4)
+        if not av_c:
+            mvc, rc, av_c = self._nb4(y4 - 1, x4 - 1)
+        if part == 1:      # D_16x8
+            if unit == 0 and av_b and rb == ref:
+                return mvb.copy()
+            if unit == 1 and av_a and ra == ref:
+                return mva.copy()
+        elif part == 2:    # D_8x16
+            if unit == 0 and av_a and ra == ref:
+                return mva.copy()
+            if unit == 1 and av_c and rc == ref:
+                return mvc.copy()
+        match = [av_a and ra == ref, av_b and rb == ref,
+                 av_c and rc == ref]
+        if sum(match) == 1:
+            return (mva if match[0] else mvb if match[1]
+                    else mvc).copy()
+        if not av_b and not av_c and av_a:
+            return mva.copy()
+        return np.median(np.stack([mva, mvb, mvc]), axis=0).astype(np.int32)
+
+    def _pskip_mv(self, my, mx):
+        y4, x4 = 4 * my, 4 * mx
+        mva, ra, av_a = self._nb4(y4, x4 - 1)
+        mvb, rb, av_b = self._nb4(y4 - 1, x4)
+        if not av_a or not av_b:
+            return np.zeros(2, np.int32)
+        if ((ra == 0 and mva[0] == 0 and mva[1] == 0)
+                or (rb == 0 and mvb[0] == 0 and mvb[1] == 0)):
+            return np.zeros(2, np.int32)
+        return self._unit_mvp(y4, x4, 4, 0, 0, ref=0)
+
+    def _recon_inter_luma(self, mx, my, blocks):
+        """blocks: [4,4,4,4] dequantized (by,bx,r,c) incl. DC. Prediction
+        at 4x4 granularity from mv4 (uniform-MV 8x8s collapse to one
+        8x8 MC — the FIR interpolation is position-independent, so the
+        result is identical either way)."""
+        gy, gx = 16 * my, 16 * mx
+        pred = self._inter_pred_luma16(mx, my)
+        for by in range(4):
+            for bx in range(4):
+                py, px = gy + 4 * by, gx + 4 * bx
+                self.y[py:py + 4, px:px + 4] = R.recon_block4x4(
+                    pred[4 * by:4 * by + 4, 4 * bx:4 * bx + 4],
+                    blocks[by, bx])
+
+    def _inter_pred_luma16(self, mx, my):
+        gy, gx = 16 * my, 16 * mx
+        pred = np.zeros((16, 16), np.int64)
+        mvblk = self.mv4[4 * my:4 * my + 4, 4 * mx:4 * mx + 4]
+        rblk = self.ref4[4 * my:4 * my + 4, 4 * mx:4 * mx + 4]
+        for b in range(4):
+            j2, i2 = (b >> 1) * 2, (b & 1) * 2
+            oy, ox = 8 * (b >> 1), 8 * (b & 1)
+            sub = mvblk[j2:j2 + 2, i2:i2 + 2]
+            rlum = self.refs[max(0, int(rblk[j2, i2]))]["luma"]
+            if (sub == sub[0, 0]).all():
+                mv = sub[0, 0]
+                pred[oy:oy + 8, ox:ox + 8] = R.np_mc_luma(
+                    rlum, gy + oy, gx + ox,
+                    int(mv[0]), int(mv[1]), bh=8, bw=8)
+            else:
+                for j in range(2):
+                    for i in range(2):
+                        mv = sub[j, i]
+                        pred[oy + 4 * j:oy + 4 * j + 4,
+                             ox + 4 * i:ox + 4 * i + 4] = R.np_mc_luma(
+                            rlum, gy + oy + 4 * j,
+                            gx + ox + 4 * i,
+                            int(mv[0]), int(mv[1]), bh=4, bw=4)
+        return pred
+
+    def decode_p_mb(self, br: BitReader, mx: int, my: int, mb_type: int,
+                    qp: int):
+        """P_L0_16x16 / P_L0_L0_16x8 / P_L0_L0_8x16 / P_8x8 (spec
+        7.3.5.2), incl. sub_mb_types P_L0_8x8/8x4/4x8/4x4."""
+        ref0_inferred = mb_type == 4      # P_8x8ref0 (Table 7-13)
+        if mb_type == 4:
+            mb_type = 3
+        if mb_type == 3:
+            subs = [br.read_ue() for _ in range(4)]
+            assert all(0 <= st <= 3 for st in subs), \
+                f"unsupported sub_mb_type in {subs}"
+            geom = mb_units(3, subs)
+            ref_geom = UNIT_GEOM[3]
+        else:
+            subs = None
+            geom = UNIT_GEOM[mb_type]
+            ref_geom = geom
+        y4, x4 = 4 * my, 4 * mx
+        num_ref = (self.p_l0_active if self.p_l0_active is not None
+                   else self.pps.num_ref_idx_l0_active)
+        if ref0_inferred:
+            self.ref4[y4:y4 + 4, x4:x4 + 4] = 0
+        elif num_ref > 1:
+            for (oy, ox, w4, h4) in ref_geom:
+                if num_ref == 2:
+                    r = 1 - br.read1()        # te(v), range 0..1
+                else:
+                    r = br.read_ue()
+                self.ref4[y4 + oy:y4 + oy + h4,
+                          x4 + ox:x4 + ox + w4] = r
+        else:
+            self.ref4[y4:y4 + 4, x4:x4 + 4] = 0
+        unit_mvs = []
+        for u, (oy, ox, w4, h4) in enumerate(geom):
+            mvd = (br.read_se(), br.read_se())
+            r = int(self.ref4[y4 + oy, x4 + ox])
+            mvp = self._unit_mvp(y4 + oy, x4 + ox, w4, mb_type, u,
+                                 ref=r)
+            mv = np.array([mvp[0] + mvd[0], mvp[1] + mvd[1]], np.int32)
+            self.mv4[y4 + oy:y4 + oy + h4, x4 + ox:x4 + ox + w4] = mv
+            self.dec4[y4 + oy:y4 + oy + h4, x4 + ox:x4 + ox + w4] = True
+            unit_mvs.append((int(mv[0]), int(mv[1])))
+        cbp_code = br.read_ue()
+        cbp = VT.CBP_INTER_TO_GOLOMB.index(cbp_code)
+        cbp_luma, cbp_chroma = cbp & 15, cbp >> 4
+        if cbp:
+            qp = (qp + br.read_se() + 52) % 52
+        qpc = int(CHROMA_QP[np.clip(qp + self.pps.chroma_qp_index_offset,
+                                    0, 51)])
+        blocks = np.zeros((4, 4, 4, 4), np.int64)
+        for blk in range(16):
+            by, bx = LUMA_SCAN[blk]
+            if cbp_luma & (1 << (blk >> 2)):
+                nc = self._nc(self.nnz_y, 4 * my + by, 4 * mx + bx)
+                lv = read_residual(br, 16, nc)
+                self.nnz_y[4 * my + by, 4 * mx + bx] = \
+                    sum(1 for x in lv if x)
+                blocks[by, bx] = R.dequant4x4(R.dezigzag(lv), qp)
+            else:
+                self.nnz_y[4 * my + by, 4 * mx + bx] = 0
+        self._recon_inter_luma(mx, my, blocks)
+        self._decode_chroma(br, mx, my, 0, cbp_chroma if cbp else 0, qpc,
+                            intra=False)
+        self.decoded[my, mx] = True
+        kind = ("P16x16", "P16x8", "P8x16", "P8x8")[mb_type]
+        self.mbs.append(MBInfo(kind, unit_mvs[0], qp, unit_mvs=unit_mvs))
+        return qp
+
+    def decode_pskip(self, mx: int, my: int, qp: int):
+        mv = self._pskip_mv(my, mx)
+        y4, x4 = 4 * my, 4 * mx
+        self.mv4[y4:y4 + 4, x4:x4 + 4] = mv
+        self.ref4[y4:y4 + 4, x4:x4 + 4] = 0
+        self.dec4[y4:y4 + 4, x4:x4 + 4] = True
+        self._recon_inter_luma(mx, my, np.zeros((4, 4, 4, 4), np.int64))
+        for ch, plane in ((0, self.u), (1, self.v)):
+            pred = self._inter_pred_chroma(ch, mx, my)
+            gy, gx = 8 * my, 8 * mx
+            plane[gy:gy + 8, gx:gx + 8] = pred
+        self.nnz_y[4 * my:4 * my + 4, 4 * mx:4 * mx + 4] = 0
+        self.nnz_c[:, 2 * my:2 * my + 2, 2 * mx:2 * mx + 2] = 0
+        self.decoded[my, mx] = True
+        self.mb_skip[my, mx] = True
+        self.mbs.append(MBInfo("SKIP", (int(mv[0]), int(mv[1])), qp,
+                               unit_mvs=[(int(mv[0]), int(mv[1]))]))
+
+    def decode_slice(self, br: BitReader, slice_type: int, qp: int):
+        if slice_type in (2, 7):
+            for my in range(self.mbh):
+                for mx in range(self.mbw):
+                    mb_type = br.read_ue()
+                    assert 0 <= mb_type <= 24, \
+                        f"unsupported I mb_type {mb_type}"
+                    if mb_type == 0:
+                        qp = self.decode_i4x4(br, mx, my, qp)
+                        kind = "I4x4"
+                    else:
+                        qp = self.decode_i16x16(br, mx, my, mb_type, qp)
+                        kind = "I16x16"
+                    self.decoded[my, mx] = True
+                    self.mbs.append(MBInfo(kind, (0, 0), qp))
+            return
+        if slice_type not in (0, 5):
+            raise NotImplementedError(f"slice_type {slice_type}")
+        n_mbs = self.mbh * self.mbw
+        addr = 0
+        while addr < n_mbs:
+            skip_run = br.read_ue()
+            for _ in range(skip_run):
+                my, mx = addr // self.mbw, addr % self.mbw
+                self.decode_pskip(mx, my, qp)
+                addr += 1
+            if addr >= n_mbs:
+                break
+            my, mx = addr // self.mbw, addr % self.mbw
+            mb_type = br.read_ue()
+            if mb_type <= 4:
+                # 4 = P_8x8ref0 (spec Table 7-13, CAVLC only): P_8x8
+                # with every ref inferred 0, no ref_idx syntax — the
+                # reference always prefers it when all refs are 0
+                # (encoder/cavlc.c:428-436)
+                qp = self.decode_p_mb(br, mx, my, mb_type, qp)
+            elif mb_type == 5:
+                self.mb_intra[my, mx] = True
+                qp = self.decode_i4x4(br, mx, my, qp)
+                self.decoded[my, mx] = True
+                self.mbs.append(MBInfo("I4x4", (0, 0), qp))
+            elif 6 <= mb_type <= 29:
+                self.mb_intra[my, mx] = True
+                qp = self.decode_i16x16(br, mx, my, mb_type - 5, qp)
+                self.decoded[my, mx] = True
+                self.mbs.append(MBInfo("I16x16", (0, 0), qp))
+            else:
+                raise AssertionError(f"unsupported P mb_type {mb_type}")
+            addr += 1
+
+
+def _deblock(dec: SliceDecoder, qp: int, alpha_off: int, beta_off: int,
+             cqo: int):
+    """The in-loop filter of a decoded slice, with the port's deblocker
+    (`ops.deblock`, its plain version on the CPU). It serves one QP per
+    slice; per-MB QP changes raise NotImplementedError."""
+    qp_map = np.array([m.qp for m in dec.mbs], np.int32)
+    if (qp_map != qp).any():
+        raise NotImplementedError("deblocking with per-MB QP changes")
+    qpc = int(CHROMA_QP[np.clip(qp + cqo, 0, 51)])
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a, np.int32))
+
+    par = DB.edge_params(t(dec.mb_intra), t(dec.mb_skip), t(dec.nnz_y),
+                         t(dec.mv4), qp, qpc, dec.mbh, dec.mbw,
+                         qp_thresh=15 - min(alpha_off, beta_off)
+                         - max(cqo, 0), off_a=alpha_off, off_b=beta_off,
+                         ref4=t(np.maximum(dec.ref4, 0)))
+    planes = DB.deblock_frame_plain(t(dec.y), t(dec.u), t(dec.v), par,
+                                    dec.mbh, dec.mbw)
+    return tuple(p.numpy().astype(np.int64) for p in planes)
+
+
+def decode_annexb(data: bytes) -> list[DecodedFrame]:
+    """Decode an Annex-B stream (IDR + P chain, sliding-window DPB of
+    sps.num_ref_frames references)."""
+    sps = pps = None
+    frames = []
+    dpb = []   # [0] = most recent reference
+    prev_poc_lsb = prev_poc_msb = 0
+    for nal_type, ref_idc, rbsp in parse_nals(data):
+        if nal_type == 7:
+            sps = parse_sps(rbsp)
+        elif nal_type == 8:
+            pps = parse_pps(rbsp)
+        elif nal_type in (1, 5):
+            br = BitReader(rbsp)
+            first_mb = br.read_ue()
+            assert first_mb == 0, "multi-slice frames unsupported"
+            slice_type = br.read_ue()
+            if slice_type in (1, 6):
+                raise NotImplementedError("B slices")
+            br.read_ue()  # pps id
+            frame_num = br.read(sps.log2_max_frame_num)
+            if nal_type == 5:
+                br.read_ue()  # idr_pic_id
+            poc = 0
+            if sps.poc_type == 0:
+                lsb = br.read(sps.log2_max_poc_lsb)
+                max_lsb = 1 << sps.log2_max_poc_lsb
+                if nal_type == 5:
+                    prev_poc_lsb = prev_poc_msb = 0
+                    msb = 0
+                elif (lsb < prev_poc_lsb
+                        and prev_poc_lsb - lsb >= max_lsb // 2):
+                    msb = prev_poc_msb + max_lsb
+                elif (lsb > prev_poc_lsb
+                        and lsb - prev_poc_lsb > max_lsb // 2):
+                    msb = prev_poc_msb - max_lsb
+                else:
+                    msb = prev_poc_msb
+                poc = msb + lsb
+                if ref_idc != 0:
+                    prev_poc_lsb, prev_poc_msb = lsb, msb
+            reorder_l0 = None
+            l0_override = None
+            if slice_type in (0, 5):
+                if br.read1():  # num_ref_idx_override
+                    l0_override = br.read_ue() + 1
+                if br.read1():  # ref_pic_list_reordering_flag_l0
+                    # short-term reordering ops (spec 7.3.3.1)
+                    reorder_l0 = []
+                    while True:
+                        idc = br.read_ue()
+                        if idc == 3:
+                            break
+                        assert idc in (0, 1), \
+                            "long-term reordering unsupported"
+                        reorder_l0.append((idc, br.read_ue()))
+            if nal_type == 5:
+                br.read1()
+                br.read1()
+            elif ref_idc != 0:
+                assert br.read1() == 0  # sliding window
+            qp = pps.pic_init_qp + br.read_se()
+            disable = 1
+            alpha_off = beta_off = 0
+            if pps.deblocking_control_present:
+                disable = br.read_ue()
+                if disable != 1:
+                    alpha_off = 2 * br.read_se()
+                    beta_off = 2 * br.read_se()
+            if nal_type == 5:
+                dpb = []   # IDR resets the DPB
+            l0p = list(dpb)   # default P order: PicNum descending
+            if reorder_l0:
+                # apply 8.2.4.3.1: move each addressed short-term
+                # ref to the next list position
+                max_fn = 1 << sps.log2_max_frame_num
+                pred = frame_num
+                for idx, (idc, arg) in enumerate(reorder_l0):
+                    if idc == 0:
+                        pred -= arg + 1
+                        if pred < 0:
+                            pred += max_fn
+                    else:
+                        pred += arg + 1
+                        if pred >= max_fn:
+                            pred -= max_fn
+                    j = next(i for i, e in enumerate(l0p)
+                             if e["frame_num"] % max_fn == pred)
+                    l0p.insert(idx, l0p.pop(j))
+            dec = SliceDecoder(sps, pps, refs=l0p)
+            dec.p_l0_active = l0_override
+            dec.decode_slice(br, slice_type, qp)
+            if disable != 1:
+                dec.y, dec.u, dec.v = _deblock(dec, qp, alpha_off, beta_off,
+                                               pps.chroma_qp_index_offset)
+            h, w = sps.height, sps.width
+            frames.append(DecodedFrame(
+                y=dec.y[:h, :w].astype(np.uint8),
+                u=dec.u[:h // 2, :w // 2].astype(np.uint8),
+                v=dec.v[:h // 2, :w // 2].astype(np.uint8),
+                slice_type=slice_type, mbs=dec.mbs, poc=poc))
+            if ref_idc != 0:
+                dpb.insert(0, {"luma": R.np_hpel_planes(R.np_pad(dec.y)),
+                               "u": R.np_pad(dec.u),
+                               "v": R.np_pad(dec.v),
+                               "frame_num": frame_num})
+                del dpb[max(1, sps.num_ref_frames):]
+    return frames

@@ -10,10 +10,14 @@ the in-loop deblock (kernel B5) are enqueued, and the level buffer is
 pulled and entropy-coded during the next frame's call (`flush` drains
 the last one). Frame 0 and keyint/scenecut frames are IDR frames.
 
-The port follows one semantics on every device: the reference's
-non-TPU P-analysis branch (full-pel predictor `prev_mv >> 2`, gather
-MC, no MV bound, no analyse-tail kernels). Its stream on CUDA equals its
-stream on the CPU, and on the CPU it equals the reference `Encoder`.
+The reference's two P-analysis branches differ, for this slice, in
+B1's MV predictor, a choice the reference ties to its backend. The port
+maps it onto `Params.tail_kernel` and serves it on every device: True
+(the default, bench.py's serving configuration) gives the stream of the
+reference's accelerator branch (a zero predictor), False that of its
+CPU branch (`prev_mv >> 2`). Both run the analyse-tail kernels B2-B4 on
+CUDA. Either way the stream on CUDA equals the stream on the CPU, and
+equals the reference `Encoder` on the same branch.
 """
 
 from __future__ import annotations
@@ -24,28 +28,26 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from video_steganography_pcamv_tpu import native
-from video_steganography_pcamv_tpu.encoder import headers as H
-from video_steganography_pcamv_tpu.encoder.ratecontrol import RateControl
-from video_steganography_pcamv_tpu.params import (Params, SLICE_I, SLICE_P,
-                                                  param2string)
-from video_steganography_pcamv_tpu.utils.bitstream import (
-    BitWriter, nal_unit, NAL_SLICE, NAL_SLICE_IDR, NAL_SPS, NAL_PPS,
-    NAL_PRIORITY_HIGHEST, NAL_PRIORITY_HIGH)
-from video_steganography_pcamv_tpu.utils.log import log, LOG_WARNING
-from video_steganography_pcamv_tpu.utils.yuv import Frame
-
+from .. import native
 from ..ops import mc
 from ..ops.deblock import deblock_frame
 from ..ops.transform import chroma_qp
+from ..params import Params, SLICE_I, SLICE_P, param2string
 from ..stego.cost import cost_mv_table
 from ..state import load_state
 from ..stego.embed import StegoEngine
+from ..utils.bitstream import (BitWriter, nal_unit, NAL_SLICE, NAL_SLICE_IDR,
+                               NAL_SPS, NAL_PPS, NAL_PRIORITY_HIGHEST,
+                               NAL_PRIORITY_HIGH)
+from ..utils.log import log, LOG_WARNING
+from ..utils.yuv import Frame
+from . import headers as H
 from . import inter as P
 from . import me as ME
 from .inter_incr import changed_mbs, pad_subset, reencode_p_incremental
 from .intra import encode_i_frame
 from .partition import p_stage1_stego
+from .ratecontrol import RateControl
 from .slicetype import Lookahead
 
 _LEAN_EXC_CAP = 4096
@@ -175,9 +177,10 @@ def _levels_exact(res: dict, mbh: int, mbw: int) -> dict:
 
 class Encoder:
     """Construct -> encode_frame per frame -> flush. `device` is where
-    every tensor of the encode lives ("cpu" or "cuda[:k]")."""
+    every tensor of the encode lives ("cuda[:k]", the default, or
+    "cpu"); a CUDA request without CUDA raises."""
 
-    def __init__(self, params: Params, device="cpu"):
+    def __init__(self, params: Params, device="cuda"):
         params.validate()
         check_slice(params)
         dev = torch.device(device)
@@ -218,9 +221,7 @@ class Encoder:
                 params.me_range, params.vbv_maxrate, params.vbv_bufsize,
                 self.sps.profile >= H.PROFILE_HIGH):
             log(LOG_WARNING, msg)
-        if native.load() is None:
-            raise RuntimeError("the native CAVLC/STC library did not load "
-                               "(video_steganography_pcamv_tpu/native)")
+        native.load()
         self._dpb_store = []   # reference dicts, newest first
         self.ref = None        # the P slices' one reference (newest)
         self._poc_lsb = 0      # IPP only: every slice carries POC LSB 0
@@ -403,7 +404,7 @@ class Encoder:
         packed, res = p_stage1_stego(
             y, u, v, self.ref["luma"], self.ref["u"], self.ref["v"],
             prev_mv, qp, qpc, lam, self._cost_mv_dev(qp, lam), p.me_range,
-            mbh, mbw, extra=extra)
+            mbh, mbw, extra=extra, tail_kernel=bool(p.tail_kernel))
         return dict(packed=packed, res=res, y=y, u=u, v=v, qp=qp, qpc=qpc)
 
     def _fused_complete(self, d) -> dict:

@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels.
 
-All `csrc/*.cu` files are compiled by `nvcc` for sm_90a into one shared
+Every `csrc/*.cu` file is compiled by its own `nvcc` process for sm_90a
+(all started together), and the objects are linked into one shared
 library with a plain C interface, at first use, into
 `build/torch_kernels/` at the repository root (git-ignored). The
 library name carries a hash of the sources and flags, so an edit
@@ -23,7 +24,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 _lib = None
 build_seconds = None
@@ -50,6 +51,12 @@ def lib_path() -> str:
     return os.path.join(BUILD_DIR, "pcamv_kernels_%s.so" % h.hexdigest()[:16])
 
 
+def _check_build(cmd, rc, err) -> None:
+    if rc != 0:
+        raise RuntimeError("nvcc failed (%d):\n%s\n%s"
+                           % (rc, " ".join(cmd), err))
+
+
 def build() -> str:
     """Compile the kernels if the library for these sources is missing;
     returns its path."""
@@ -60,11 +67,22 @@ def build() -> str:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = "%s.%d.tmp" % (out, os.getpid())
     t0 = time.time()
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError("nvcc failed (%d):\n%s\n%s"
-                           % (r.returncode, " ".join(cmd), r.stderr))
+    nvcc = _nvcc()
+    objs, procs = [], []
+    for src in sources():
+        obj = "%s.%s.o" % (tmp, os.path.basename(src))
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    for cmd, proc in procs:
+        err = proc.communicate()[1]
+        _check_build(cmd, proc.returncode, err)
+    link = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]
+    r = subprocess.run(link, capture_output=True, text=True)
+    _check_build(link, r.returncode, r.stderr)
+    for obj in objs:
+        os.remove(obj)
     os.replace(tmp, out)
     build_seconds = time.time() - t0
     return out

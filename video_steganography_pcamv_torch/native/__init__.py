@@ -1,0 +1,178 @@
+"""ctypes loader for the port's native host back-end.
+
+`pcamv_native.cpp` (CAVLC slice writer, forced partition MVP scan, STC
+embedder) is the port's copy of the reference package's C++ source. It
+is compiled with g++ at first use into `build/torch_native/` at the
+repository root (git-ignored); the library name carries a hash of the
+sources and flags, so an edit rebuilds it. A failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+import numpy as np
+
+_DIR = os.path.dirname(os.path.abspath(__file__))
+BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_DIR)), "build",
+                         "torch_native")
+CXX_FLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17"]
+_SOURCES = ("pcamv_native.cpp",)
+
+_lib = None
+build_seconds = None
+
+
+def lib_path() -> str:
+    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    for path in [os.path.join(_DIR, s) for s in _SOURCES] + sorted(
+            glob.glob(os.path.join(_DIR, "*.inc"))):
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + f.read())
+    return os.path.join(BUILD_DIR, "pcamv_native_%s.so" % h.hexdigest()[:16])
+
+
+def build() -> str:
+    """Compile the library if the one for these sources is missing;
+    returns its path."""
+    global build_seconds
+    out = lib_path()
+    if os.path.exists(out):
+        return out
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        raise RuntimeError("the port's native library needs g++")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = "%s.%d.tmp" % (out, os.getpid())
+    t0 = time.time()
+    cmd = [cxx, *CXX_FLAGS, "-o", tmp,
+           *[os.path.join(_DIR, s) for s in _SOURCES]]
+    r = subprocess.run(cmd, capture_output=True, text=True)
+    if r.returncode != 0:
+        raise RuntimeError("g++ failed (%d):\n%s\n%s"
+                           % (r.returncode, " ".join(cmd), r.stderr))
+    os.replace(tmp, out)
+    build_seconds = time.time() - t0
+    return out
+
+
+def load() -> ctypes.CDLL:
+    """The native library (built on first use)."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    lib = ctypes.CDLL(build())
+    i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+    u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+    vp = ctypes.c_void_p
+    ci = ctypes.c_int
+
+    lib.pcamv_write_slice.restype = ctypes.c_long
+    lib.pcamv_write_slice.argtypes = [
+        u8p, ctypes.c_long, u8p, ci, ci, ci, ci,
+        vp, vp, vp, i32p, i32p, vp, i32p, i32p, i32p, vp, vp, vp, vp]
+    lib.pcamv_scan_p_parts_forced.restype = None
+    lib.pcamv_scan_p_parts_forced.argtypes = [
+        i32p, i32p, u8p, ci, ci, i32p, i32p, i32p]
+    lib.pcamv_stc_embed.restype = ctypes.c_int
+    lib.pcamv_stc_embed.argtypes = [
+        u8p, ctypes.c_long, u8p, ctypes.c_long,
+        ctypes.POINTER(ctypes.c_float), ci, ctypes.POINTER(ctypes.c_uint32),
+        u8p, ctypes.POINTER(ctypes.c_double)]
+    _lib = lib
+    return lib
+
+
+def _as_i32(x):
+    return np.ascontiguousarray(x, np.int32)
+
+
+def _ptr(a):
+    return None if a is None else a.ctypes.data_as(ctypes.c_void_p)
+
+
+def write_slice(header_bytes: bytes, header_nbits: int, slice_type: int,
+                mbw: int, mbh: int, *, skip=None, mode=None, cmode=None,
+                cbp_luma, cbp_chroma, luma_dc=None, luma_blocks, chroma_dc,
+                chroma_ac, mb_i4=None, i4_modes=None, part=None,
+                mvd4=None) -> bytes:
+    """Native whole-slice CAVLC entropy coding (I slices, and P slices
+    with partitions and one reference). Shapes: luma_blocks [N,16,16],
+    luma_dc [N,16], chroma_dc [N,2,4], chroma_ac [N,2,4,16], mb_i4 [N]
+    u8, i4_modes [N,16], part [N], mvd4 [N,4,2]."""
+    lib = load()
+    n = mbw * mbh
+    hdr = np.frombuffer(header_bytes + b"\0" * 8, np.uint8).copy()
+    skip_a = (np.ascontiguousarray(skip, np.uint8)
+              if skip is not None else None)
+    mode_a = _as_i32(mode) if mode is not None else None
+    cmode_a = _as_i32(cmode) if cmode is not None else None
+    dc_a = _as_i32(luma_dc) if luma_dc is not None else None
+    i4_a = (np.ascontiguousarray(mb_i4, np.uint8)
+            if mb_i4 is not None else None)
+    i4m_a = (_as_i32(i4_modes).reshape(n * 16)
+             if i4_modes is not None else None)
+    part_a = _as_i32(part).reshape(n) if part is not None else None
+    mvd4_a = _as_i32(mvd4).reshape(n * 8) if mvd4 is not None else None
+    cap = 1 << 22
+    while True:
+        out = np.zeros(cap, np.uint8)
+        r = lib.pcamv_write_slice(
+            out, cap, hdr, header_nbits, slice_type, mbw, mbh,
+            _ptr(skip_a), _ptr(mode_a), _ptr(cmode_a),
+            _as_i32(cbp_luma).reshape(n), _as_i32(cbp_chroma).reshape(n),
+            _ptr(dc_a), _as_i32(luma_blocks).reshape(n * 256),
+            _as_i32(chroma_dc).reshape(n * 8),
+            _as_i32(chroma_ac).reshape(n * 128),
+            _ptr(i4_a), _ptr(i4m_a), _ptr(part_a), _ptr(mvd4_a))
+        if r >= 0:
+            return bytes(out[:r])
+        cap *= 4
+        if cap > (1 << 28):
+            raise RuntimeError("native slice writer overflow")
+
+
+def scan_p_parts_forced(part, mv8, skip):
+    """Forced partition scan (twin of the reference's scan.py
+    scan_p_frame_forced). Returns (final8, mvd, mvp)."""
+    lib = load()
+    mbh, mbw = part.shape
+    final8 = np.zeros(2 * mbh * 2 * mbw * 2, np.int32)
+    mvd = np.zeros(mbh * mbw * 8, np.int32)
+    mvp = np.zeros(mbh * mbw * 8, np.int32)
+    lib.pcamv_scan_p_parts_forced(
+        _as_i32(part).reshape(-1), _as_i32(mv8).reshape(-1),
+        np.ascontiguousarray(skip, np.uint8).reshape(-1), mbw, mbh,
+        final8, mvd, mvp)
+    return (final8.reshape(2 * mbh, 2 * mbw, 2),
+            mvd.reshape(mbh, mbw, 4, 2), mvp.reshape(mbh, mbw, 4, 2))
+
+
+def stc_embed(cover, message, rho, h=10, state=None):
+    """Reference-parity STC (embed.h:309-548). `state` is a
+    stego.stc.StcState whose persistent LCG word is advanced in place
+    (the reference's static myholdrand, embed.h:134)."""
+    from ..stego.stc import StcState
+    lib = load()
+    if state is None:
+        state = StcState()
+    cover = np.ascontiguousarray(cover, np.uint8)
+    message = np.ascontiguousarray(message, np.uint8)
+    rho32 = np.ascontiguousarray(rho, np.float32)
+    stego = np.zeros(len(cover), np.uint8)
+    cost = ctypes.c_double(0.0)
+    hold = ctypes.c_uint32(state.holdrand & 0xFFFFFFFF)
+    r = lib.pcamv_stc_embed(
+        cover, len(cover), message, len(message),
+        rho32.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), h,
+        ctypes.byref(hold), stego, ctypes.byref(cost))
+    state.holdrand = int(hold.value)
+    if r != 0:
+        raise ValueError(f"stc_embed native error {r}")
+    return stego, float(cost.value)

@@ -43,10 +43,10 @@ PAD = 4
 
 
 def _parse_tables():
-    """alpha/beta/tc0 tables from the reference's C++ include."""
-    import video_steganography_pcamv_tpu.native as native_pkg
-    path = os.path.join(os.path.dirname(os.path.abspath(native_pkg.__file__)),
-                        "deblock_tables.inc")
+    """alpha/beta/tc0 tables from the port's copy of the C++ include
+    (native/deblock_tables.inc)."""
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "native", "deblock_tables.inc")
     with open(path) as f:
         src = f.read()
 
@@ -74,10 +74,11 @@ def _shift_down(x):
 
 def edge_params(intra, skip, nnz4, mv4, qp: int, qpc: int, mbh: int,
                 mbw: int, qp_thresh: int = 15, off_a: int = 0,
-                off_b: int = 0) -> torch.Tensor:
+                off_b: int = 0, ref4=None) -> torch.Tensor:
     """Per-MB deblock parameters [mbh*mbw, 128] int32 (layout above),
-    for one reference and the 4x4 transform (the reference's ref4 and
-    trans8 inputs at their defaults)."""
+    for the 4x4 transform (the reference's trans8 input at its default).
+    ref4 [4mbh, 4mbw] holds the L0 reference index of each 4x4 block
+    (None: all 0, one reference); blocks that differ in it get bS 1."""
     dev = nnz4.device
     ALPHA = const(ALPHA_TAB, dev)
     BETA = const(BETA_TAB, dev)
@@ -91,9 +92,11 @@ def edge_params(intra, skip, nnz4, mv4, qp: int, qpc: int, mbh: int,
 
     nnz4 = nnz4.to(_I32)
     mvx4, mvy4 = mv4[..., 0].to(_I32), mv4[..., 1].to(_I32)
-    cur = [grid4(t) for t in (nnz4, mvx4, mvy4)]
-    left = [grid4(_shift_right(t)) for t in (nnz4, mvx4, mvy4)]
-    top = [grid4(_shift_down(t)) for t in (nnz4, mvx4, mvy4)]
+    ref4 = torch.zeros_like(nnz4) if ref4 is None else ref4.to(_I32)
+    maps = (nnz4, mvx4, mvy4, ref4)
+    cur = [grid4(t) for t in maps]
+    left = [grid4(_shift_right(t)) for t in maps]
+    top = [grid4(_shift_down(t)) for t in maps]
 
     cur_i = intra_g
     left_i = _shift_right(intra_g)
@@ -117,15 +120,16 @@ def edge_params(intra, skip, nnz4, mv4, qp: int, qpc: int, mbh: int,
             src = (left if d == 0 else top) if e == 0 else cur
             k = 0 if e == 0 else e - 1
             if d == 0:
-                qn, qx, qy = (t[..., e] for t in cur)
-                pn, px, py = (t[..., k] for t in src)
+                qn, qx, qy, qr = (t[..., e] for t in cur)
+                pn, px, py, pr = (t[..., k] for t in src)
                 nb_i = left_i
             else:
-                qn, qx, qy = (t[..., e, :] for t in cur)
-                pn, px, py = (t[..., k, :] for t in src)
+                qn, qx, qy, qr = (t[..., e, :] for t in cur)
+                pn, px, py, pr = (t[..., k, :] for t in src)
                 nb_i = top_i
             bs = torch.where((qn > 0) | (pn > 0), 2, 0)
-            mvd = ((qx - px).abs() >= 4) | ((qy - py).abs() >= 4)
+            mvd = (((qx - px).abs() >= 4) | ((qy - py).abs() >= 4)
+                   | (qr != pr))
             bs = torch.where((bs == 0) & mvd, 1, bs)
             promote = cur_i | nb_i if e == 0 else cur_i
             bs = torch.where(promote[..., None], 3, bs).to(_I32)

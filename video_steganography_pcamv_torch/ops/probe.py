@@ -1,0 +1,379 @@
+"""Kernels B2-B4: the analyse tail (qpel tables, subpel refine, RCA probe
+SATD maps).
+
+`analyse_tail` is the counterpart of the TPU orchestrator
+`analyse_tail_pallas` (video_steganography_pcamv_tpu/ops/probe_pallas.py
+:574). It chains three wrappers, each replacing one TPU kernel:
+
+  B2 `qpel_tables` <- `qpel_tables_pallas` (probe_pallas.py:221),
+     hand-written kernel `csrc/qpel_tables.cu`;
+  B3 `subpel`      <- `subpel_pallas` (probe_pallas.py:301),
+     `csrc/subpel.cu`;
+  B4 `probe_maps`  <- `probe_maps_pallas` (probe_pallas.py:481),
+     `csrc/probe_maps.cu`.
+
+On a CPU tensor each wrapper runs its plain PyTorch version (the port's
+twins of the reference's XLA chain: `block_table8` + `wht8_table`,
+`subpel_parts`, `probe_maps_plain`); on a CUDA tensor it launches its
+kernel, counted in `<wrapper>.launches`, or raises. The TPU's z-order
+block lanes and 128-lane padding are layout for its vector unit and are
+dropped: every tensor here keeps the 8x8 blocks in spatial order,
+`blocks8 [169, N8, 8, 8]` uint8 and `wht8 [169, N8, 64]` int16 in
+`wht8_flat` order (sub-block s = 2*(y>=4) + (x>=4), then 4*vr + vc).
+
+Block index convention per MB: 8x8 blocks b in {0: TL, 1: TR, 2: BL,
+3: BR} (z-order).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from . import const
+from . import transform as T
+from .blocks import from_blocks, to_blocks
+from .. import kernels
+from ..encoder import inter as INTER
+from ..encoder import qpel_table as QT
+from ..encoder.me import mv_bits_table
+from ..stego.cost import D_MV, D_NB
+
+_I32 = torch.int32
+
+# subpel=2: the qpel offset box around each full-pel MV, oy outer
+_SUBPEL_OFFSETS = [(oy, ox) for oy in range(-3, 4) for ox in range(-3, 4)]
+_SUBPEL_BITS = mv_bits_table(4 * 512)
+# probe versions: the centre, then the 12 D_MV deltas, as (dy, dx)
+_CENTERS = [(0, 0)] + [(int(D_MV[c][1]), int(D_MV[c][0]))
+                       for c in range(12)]
+# the 9 lattice neighbours of a version, as (dy, dx)
+_NB = [(int(D_NB[k][1]), int(D_NB[k][0])) for k in range(9)]
+
+
+# ---------------------------------------------------------------------------
+# Plain versions (the CPU path and the kernels' oracles)
+# ---------------------------------------------------------------------------
+
+def block_table8(windows):
+    """[N8, 4, 16, 16] uint8 -> [169, N8, 8, 8] uint8: every qpel offset
+    in [-6, 6]^2 as a static slice-average of two phase planes."""
+    w16 = windows.to(torch.int16)
+    outs = []
+    for oy in range(-6, 7):
+        for ox in range(-6, 7):
+            (p1, y1, x1), (p2, y2, x2) = QT._phase_slices(oy, ox)
+            a = w16[:, p1, y1:y1 + 8, x1:x1 + 8]
+            b = w16[:, p2, y2:y2 + 8, x2:x2 + 8]
+            outs.append(((a + b + 1) >> 1).to(torch.uint8))
+    return torch.stack(outs)
+
+
+def wht8_flat(blocks):
+    """Per-8x8 WHT, [..., 8, 8] -> [..., 64] ordered (sub-block by, bx,
+    then r, c)."""
+    w = QT.wht16(blocks.to(_I32))                     # [..., 4,4,2,2]
+    w = w.movedim((-4, -3), (-2, -1))                 # [..., 2,2,4,4]
+    return w.reshape(*w.shape[:-4], 64)
+
+
+def wht8_table(blocks8):
+    """wht8_flat of the [169, N8, 8, 8] table as int16, in chunks of 13
+    offsets (bounds the int32 intermediates)."""
+    return torch.cat([wht8_flat(blocks8[k:k + 13]).to(torch.int16)
+                      for k in range(0, blocks8.shape[0], 13)])
+
+
+def satd_flat(wa, wb):
+    """SATD between flat WHT tensors [..., 64]."""
+    d = torch.abs(wa.to(_I32) - wb.to(_I32))
+    per_sub = d.reshape(*d.shape[:-1], 4, 16).sum(-1, dtype=_I32) >> 1
+    return per_sub.sum(-1, dtype=_I32)
+
+
+def _mb_blocks8(y, mbh: int, mbw: int):
+    return y.reshape(2 * mbh, 8, 2 * mbw, 8).permute(0, 2, 1, 3) \
+        .reshape(4 * mbh * mbw, 8, 8)
+
+
+def sp_to_z(a, mbh: int, mbw: int):
+    """[2mbh, 2mbw, *rest] spatial 8x8-block grid -> [mbh, mbw, 4, *rest]
+    with the z-order block axis."""
+    rest = a.shape[2:]
+    r = len(rest)
+    return a.reshape(mbh, 2, mbw, 2, *rest) \
+        .permute(0, 2, 1, 3, *range(4, 4 + r)).reshape(mbh, mbw, 4, *rest)
+
+
+def z_to_sp(a, mbh: int, mbw: int):
+    """[mbh, mbw, 4, *rest] -> [2mbh, 2mbw, *rest]."""
+    rest = a.shape[3:]
+    r = len(rest)
+    return a.reshape(mbh, mbw, 2, 2, *rest) \
+        .permute(0, 2, 1, 3, *range(4, 4 + r)) \
+        .reshape(2 * mbh, 2 * mbw, *rest)
+
+
+def subpel_parts(cur_y, wht8, part, mvfp8, prev_mv, mbh: int, mbw: int,
+                 lam: int = 1):
+    """Subpel refinement (subpel=2) per partition unit from the qpel
+    tables. Returns (mv8 [2mbh,2mbw,2] qpel, r_idx8 [N8] chosen table
+    index)."""
+    dev = cur_y.device
+    n8 = 4 * mbh * mbw
+    wcur = wht8_flat(_mb_blocks8(cur_y, mbh, mbw))
+    mvf = mvfp8.reshape(n8, 2)
+    bits_t = const(_SUBPEL_BITS, dev)
+    off = 4 * 512
+    pred8 = prev_mv.repeat_interleave(2, 0).repeat_interleave(2, 1) \
+        .reshape(n8, 2)
+    offsets = _SUBPEL_OFFSETS
+    satds, mvcs = [], []
+    for oy, ox in offsets:
+        satds.append(satd_flat(wcur, wht8[QT.off_index(oy, ox)]))
+        qx = 4 * mvf[:, 0] + ox
+        qy = 4 * mvf[:, 1] + oy
+        ix = torch.clamp(qx - pred8[:, 0], -off, off) + off
+        iy = torch.clamp(qy - pred8[:, 1], -off, off) + off
+        mvcs.append((bits_t[ix.long()] + bits_t[iy.long()]) * lam)
+    K = len(offsets)
+
+    def k_to_z(s):
+        return s.reshape(K, mbh, 2, mbw, 2).permute(0, 1, 3, 2, 4) \
+            .reshape(K, mbh, mbw, 4)
+
+    satz = k_to_z(torch.stack(satds))
+    mvcz = k_to_z(torch.stack(mvcs))
+    sums = torch.stack([
+        satz.sum(-1, keepdim=True, dtype=_I32).expand_as(satz),
+        satz[..., [0, 0, 2, 2]] + satz[..., [1, 1, 3, 3]],
+        satz[..., [0, 1, 0, 1]] + satz[..., [2, 3, 2, 3]],
+        satz,
+    ])                                          # [4, K, mbh, mbw, 4]
+    idx = part.long()[None, None, :, :, None].expand(1, K, mbh, mbw, 4)
+    cost = torch.gather(sums, 0, idx)[0] + mvcz
+    sel = torch.argmin(cost, dim=0)
+    offs = torch.as_tensor(np.array(offsets, np.int32), device=dev)
+    oy_sel = offs[sel, 0]
+    ox_sel = offs[sel, 1]
+    mvz = sp_to_z(mvfp8, mbh, mbw)
+    mvq = torch.stack([4 * mvz[..., 0] + ox_sel,
+                       4 * mvz[..., 1] + oy_sel], dim=-1)
+    r_idx = (oy_sel + 6) * 13 + (ox_sel + 6)
+    mv8 = z_to_sp(mvq, mbh, mbw)
+    r_idx8 = z_to_sp(r_idx[..., None], mbh, mbw)[..., 0].reshape(n8)
+    return mv8.to(_I32), r_idx8.to(_I32)
+
+
+def _didx(dy: int, dx: int) -> int:
+    return dy * 13 + dx
+
+
+def _select_rows(table, idx):
+    """out[n] = table[idx[n], n] for a [K, N, ...] table."""
+    return table[idx.long(), torch.arange(table.shape[1],
+                                          device=table.device)]
+
+
+def probe_maps_plain(cur_y, blocks8, wht8, r_idx8, qp: int, mbh: int,
+                     mbw: int, decimate: bool = True):
+    """Per-version probe SATD maps and decimate scores (the heavy half
+    of the RCA probe stage). Returns (SK [13,9,n,4], SP [13,9,n,4],
+    sc8 [13,n,4]); with decimate off, SP = SK and sc8 = 0."""
+    n = mbh * mbw
+    roy = torch.div(r_idx8, 13, rounding_mode="floor") - 6
+    rox = r_idx8 % 13 - 6
+    if not bool(((roy.abs() <= 3) & (rox.abs() <= 3)).all()):
+        raise ValueError("probe_maps: r_idx8 outside the subpel box, the "
+                         "probe lattice would leave the [-6, 6]^2 table")
+    cur = INTER.mb_tiles(cur_y, 16)
+
+    sel_whtz = {}
+    for dy in range(-3, 4):
+        for dx in range(-3, 4):
+            w = _select_rows(wht8, r_idx8 + _didx(dy, dx))     # [N8,64]
+            sel_whtz[(dy, dx)] = sp_to_z(
+                w.reshape(2 * mbh, 2 * mbw, 64), mbh, mbw).reshape(n, 4, 64)
+
+    curz = cur.reshape(n, 2, 8, 2, 8).permute(0, 1, 3, 2, 4) \
+        .reshape(n * 4, 8, 8)
+    SK, SP, sc8 = [], [], []
+    for cen in _CENTERS:
+        b8 = _select_rows(blocks8, r_idx8 + _didx(*cen)).to(_I32)
+        pv = sp_to_z(b8.reshape(2 * mbh, 2 * mbw, 8, 8), mbh, mbw) \
+            .reshape(n * 4, 8, 8)
+        lev = T.quant4x4(T.dct4x4(to_blocks(curz - pv, 4)), qp, intra=False)
+        rec = T.idct4x4_add(to_blocks(pv, 4), T.dequant4x4(lev, qp))
+        wk = wht8_flat(from_blocks(rec)).reshape(n, 4, 64)
+        sels = torch.stack([sel_whtz[(cen[0] + d0, cen[1] + d1)]
+                            for d0, d1 in _NB])               # [9,n,4,64]
+        SK.append(satd_flat(wk[None], sels))
+        if decimate:
+            wp = wht8_flat(pv).reshape(n, 4, 64)
+            sc = INTER.decimate_score(INTER._zigzag_gather(lev))
+            sc8.append(sc.sum((1, 2), dtype=_I32).reshape(n, 4))
+            SP.append(satd_flat(wp[None], sels))
+    SK = torch.stack(SK)
+    if not decimate:
+        return SK, SK.clone(), torch.zeros((13, n, 4), dtype=_I32,
+                                           device=SK.device)
+    return SK, torch.stack(SP), torch.stack(sc8)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+_VP, _CI = ctypes.c_void_p, ctypes.c_int
+
+
+def _fn(name: str, argtypes):
+    fn = getattr(kernels.load(), name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = argtypes
+    return fn
+
+
+def _stream(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def qpel_tables(windows):
+    """Kernel B2, replacing `qpel_tables_pallas`
+    (video_steganography_pcamv_tpu/ops/probe_pallas.py:221). On the
+    H100 it is bound by its table writes (169 * 64 * 3 B per 8x8).
+
+    windows [N8, 4, 16, 16] uint8 (the four hpel phase planes around each
+    8x8 block's full-pel MV) -> (blocks8 [169, N8, 8, 8] uint8, wht8
+    [169, N8, 64] int16)."""
+    if windows.device.type == "cpu":
+        blocks8 = block_table8(windows)
+        return blocks8, wht8_table(blocks8)
+    n8 = windows.shape[0]
+    kernels.check_tensor("qpel_tables", "windows", windows, torch.uint8,
+                         (n8, 4, 16, 16))
+    if n8 % 4 or windows.data_ptr() % 16:
+        raise ValueError("qpel_tables: N8 %d is not a multiple of 4, or "
+                         "windows is not 16-byte aligned" % n8)
+    dev = windows.device
+    blocks8 = torch.empty((169, n8, 8, 8), dtype=torch.uint8, device=dev)
+    wht8 = torch.empty((169, n8, 64), dtype=torch.int16, device=dev)
+    fn = _fn("pcamv_qpel_tables", [_VP, _CI, _VP, _VP, _VP])
+    ptr = kernels.ptr
+    rc = fn(ptr(windows), n8, ptr(blocks8), ptr(wht8), _stream(windows))
+    kernels.check(rc, "pcamv_qpel_tables")
+    qpel_tables.launches += 1
+    return blocks8, wht8
+
+
+qpel_tables.launches = 0
+
+
+def subpel(cur_y, wht8, part, mvfp8, prev_mv, lam: int, mbh: int,
+           mbw: int):
+    """Kernel B3, replacing `subpel_pallas`
+    (video_steganography_pcamv_tpu/ops/probe_pallas.py:301): the subpel=2
+    refine over the 49-offset box, SATD summed over each partition unit
+    plus lam * bits(mv - qpel predictor), first minimum in (oy, ox)
+    order. On the H100 it is bound by its reads of the WHT table rows.
+
+    cur_y [16mbh,16mbw] int32, wht8 [169,N8,64] int16, part [mbh,mbw]
+    int32, mvfp8 [2mbh,2mbw,2] int32 full-pel, prev_mv [mbh,mbw,2] int32
+    qpel predictor -> (mv8 [2mbh,2mbw,2] int32 qpel, r_idx8 [N8] int32
+    in spatial order)."""
+    if cur_y.device.type == "cpu":
+        return subpel_parts(cur_y, wht8, part, mvfp8, prev_mv, mbh, mbw,
+                            lam)
+    n8 = 4 * mbh * mbw
+    chk = kernels.check_tensor
+    chk("subpel", "cur_y", cur_y, _I32, (16 * mbh, 16 * mbw))
+    chk("subpel", "wht8", wht8, torch.int16, (169, n8, 64))
+    chk("subpel", "part", part, _I32, (mbh, mbw))
+    chk("subpel", "mvfp8", mvfp8, _I32, (2 * mbh, 2 * mbw, 2))
+    chk("subpel", "prev_mv", prev_mv, _I32, (mbh, mbw, 2))
+    dev = cur_y.device
+    mv8 = torch.empty((2 * mbh, 2 * mbw, 2), dtype=_I32, device=dev)
+    r_idx8 = torch.empty((n8,), dtype=_I32, device=dev)
+    fn = _fn("pcamv_subpel", [_VP] * 5 + [_CI] * 3 + [_VP] * 3)
+    ptr = kernels.ptr
+    rc = fn(ptr(cur_y), ptr(wht8), ptr(part), ptr(mvfp8), ptr(prev_mv),
+            int(lam), mbh, mbw, ptr(mv8), ptr(r_idx8), _stream(cur_y))
+    kernels.check(rc, "pcamv_subpel")
+    subpel.launches += 1
+    return mv8, r_idx8
+
+
+subpel.launches = 0
+
+
+def quant_params(qp: int) -> np.ndarray:
+    """The inter quant tables at qp in (vr, vh) order: mf [16] | bias
+    [16] | dequant mf [16], int32 (B4's per-qp constants)."""
+    return np.concatenate([T.QUANT4_MF[qp].reshape(16),
+                           T.QUANT4_BIAS_INTER[qp].reshape(16),
+                           T.DEQUANT4_MF[qp % 6].reshape(16)]) \
+        .astype(np.int32)
+
+
+_QPARAMS = [quant_params(q) for q in range(52)]
+
+
+def probe_maps(cur_y, blocks8, wht8, r_idx8, qp: int, mbh: int, mbw: int,
+               decimate: bool = True):
+    """Kernel B4, replacing `probe_maps_pallas`
+    (video_steganography_pcamv_tpu/ops/probe_pallas.py:481): per 8x8
+    block and per probe version (the centre, then the 12 D_MV deltas),
+    DCT -> quant -> decimate score -> dequant -> IDCT -> recon, and the
+    SATD of the recon and of the pred against the 9 D_NB lattice rows.
+    On the H100 its integer operations (~1450 per version and 4x4
+    sub-block) outweigh its reads of the lattice rows (~6.6 KB per 8x8).
+
+    Returns (SK [13,9,n,4], SP [13,9,n,4], sc8 [13,n,4]) int32; with
+    decimate off, SP = SK and sc8 = 0."""
+    if cur_y.device.type == "cpu":
+        return probe_maps_plain(cur_y, blocks8, wht8, r_idx8, qp, mbh,
+                                mbw, decimate)
+    n = mbh * mbw
+    n8 = 4 * n
+    chk = kernels.check_tensor
+    chk("probe_maps", "cur_y", cur_y, _I32, (16 * mbh, 16 * mbw))
+    chk("probe_maps", "blocks8", blocks8, torch.uint8, (169, n8, 8, 8))
+    chk("probe_maps", "wht8", wht8, torch.int16, (169, n8, 64))
+    chk("probe_maps", "r_idx8", r_idx8, _I32, (n8,))
+    if not 0 <= qp <= 51:
+        raise ValueError("probe_maps: qp %d outside [0, 51]" % qp)
+    dev = cur_y.device
+    qtab = const(_QPARAMS[qp], dev)
+    SK = torch.empty((13, 9, n, 4), dtype=_I32, device=dev)
+    SP = torch.empty((13, 9, n, 4), dtype=_I32, device=dev)
+    sc8 = torch.empty((13, n, 4), dtype=_I32, device=dev)
+    fn = _fn("pcamv_probe_maps", [_VP] * 5 + [_CI] * 4 + [_VP] * 4)
+    ptr = kernels.ptr
+    rc = fn(ptr(cur_y), ptr(blocks8), ptr(wht8), ptr(r_idx8), ptr(qtab),
+            qp // 6 - 4, int(decimate), mbh, mbw, ptr(SK), ptr(SP),
+            ptr(sc8), _stream(cur_y))
+    kernels.check(rc, "pcamv_probe_maps")
+    probe_maps.launches += 1
+    return SK, SP, sc8
+
+
+probe_maps.launches = 0
+
+
+def analyse_tail(cur_y, windows, part, mvfp8, prev_mv, lam: int, qp: int,
+                 mbh: int, mbw: int, decimate: bool = True):
+    """B2 -> B3 -> B4, the contract of `analyse_tail_pallas`
+    (video_steganography_pcamv_tpu/ops/probe_pallas.py:574).
+
+    cur_y [16mbh,16mbw] int32; windows [N8,4,16,16] uint8 (spatial
+    order, `gather_windows8` layout); part [mbh,mbw]; mvfp8 [2mbh,2mbw,2]
+    full-pel; prev_mv [mbh,mbw,2] qpel predictor. Returns (mv8
+    [2mbh,2mbw,2] qpel, r_idx8 [N8] spatial, SK [13,9,n,4], SP, sc8
+    [13,n,4])."""
+    blocks8, wht8 = qpel_tables(windows)
+    mv8, r_idx8 = subpel(cur_y, wht8, part, mvfp8, prev_mv, lam, mbh, mbw)
+    SK, SP, sc8 = probe_maps(cur_y, blocks8, wht8, r_idx8, qp, mbh, mbw,
+                             decimate)
+    return mv8, r_idx8, SK, SP, sc8

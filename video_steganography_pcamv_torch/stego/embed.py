@@ -3,18 +3,17 @@ construction, `_next_message` and `apply_costs`).
 
 Host half of the partition embedding: MVC cost adjustment, cover
 assembly in coding order, STC (native library), flip application and
-the forced rescan. Pure numpy; it reuses the reference's jax-free STC
-module and its native library.
+the forced rescan. Pure numpy; the STC and the forced scan run in the
+port's native library.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from video_steganography_pcamv_tpu import native
-from video_steganography_pcamv_tpu.stego.stc import StcState, stc_feasible_k
-
+from .. import native
 from ..encoder.partition import N_UNITS, UNIT_BLOCKS
+from .stc import StcState, stc_feasible_k
 
 
 class StegoEngine:
