@@ -25,11 +25,34 @@ Phases (any failure raises and the script exits non-zero):
   7. the tail_kernel=False path (B1 against the predictor prev_mv >> 2)
      at 1920x1088, IDR + 3 P frames plus flush: payload recovered, all
      five kernels launched;
-  8. per-stage times of a 1080p P frame on the tail_kernel=True path.
-The line before the last two holds the per-kernel JSON record, then the
-card line; the last line is {"ok": true, "device": {...}}.
+  8. per-stage times of a 1080p P frame on the tail_kernel=True path;
+  9. kernels B6 (16x16 full-pel search), B7 (MB window fetch) and
+     B8a/B8b (4x4 DCT+quant, dequant+IDCT) against their plain versions
+     at 1080p shapes on a real frame pair, B8 at qp 26 and 20 and on the
+     13-version probe batch: array-equal, timed, beside their bounds;
+ 10. the 16x16-only path (partitions=False, deblock_device=False) at
+     112x80, six frames on cuda and on cpu: byte-equal streams that the
+     port's decoder decodes and the port's extractor reads;
+ 11. the 16x16-only path at 1920x1088, IDR + 3 P frames: payload
+     recovered by the extractor, B6, B7, B8a, B8b and B5 launched, fps
+     printed;
+ 12. (only with --stages16) per-stage times of a 1080p P frame on the
+     16x16-only path.
+Phase 9 runs right after phase 4, so that a new kernel that fails
+stops the run early. Each phase logs its wall time. The line before the
+last two holds the per-kernel JSON record, then the card line; the last
+line is {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --ab PARENT_ROOT
+
+instead compares two checkouts on one card: the main path's 1080p
+encode (phase 6 without the payload check) and its stage times (phase
+8), run in a fresh process from PARENT_ROOT, this checkout, this
+checkout and PARENT_ROOT again, each with that checkout's chip_smoke.py
+and package.
 """
 
+import argparse
 import json
 import os
 import subprocess
@@ -93,12 +116,12 @@ def max_abs(a, b) -> int:
     return max(int((x.long() - y.long()).abs().max()) for x, y in zip(a, b))
 
 
-def record(name, source, replaces, err, ms, plain_ms, bnd):
+def record(name, source, replaces, err, ms, plain_ms, bnd, library_ms=None):
     return {"name": name, "route": "cuda",
             "source": "video_steganography_pcamv_torch/csrc/" + source,
             "replaces": "video_steganography_pcamv_tpu/" + replaces,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
+            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": library_ms}
 
 
 def phase_build():
@@ -198,8 +221,9 @@ def phase_b5(dev, int_rate):
         log("B5 qp %d: kernel == plain at %dx%d MBs" % (qp, MBH, MBW))
         ms = cuda_ms(lambda: DB.deblock_frame_cuda(t[0], t[1], t[2], par,
                                                    MBH, MBW), 20, 3)
+        # the plain wave loop takes seconds a call: one timed call
         plain_ms = cuda_ms(lambda: DB.deblock_frame_plain(
-            t[0], t[1], t[2], par, MBH, MBW), 3)
+            t[0], t[1], t[2], par, MBH, MBW), 1, warmup=0)
         log("B5 qp %d time: kernel %.3f ms, plain %.3f ms (median, 1080p)"
             % (qp, ms, plain_ms))
     # bytes: the three int32 planes read and written, the [n, 128] int32
@@ -320,10 +344,161 @@ def phase_tail(dev, int_rate):
     return recs
 
 
-def _params(w, h, tail_kernel, me_range=16):
+def _check_equal(name, got, want):
+    torch.cuda.synchronize()
+    err = max_abs(got, want)
+    if err != 0 or not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("%s kernel != plain, max abs err %d"
+                             % (name, err))
+    return err
+
+
+def phase_b678(dev, int_rate):
+    """B6, B7, B8a and B8b at 1080p on a real frame pair, fed as the
+    16x16-only path feeds them."""
+    from video_steganography_pcamv_torch.encoder import analyse2 as A2
+    from video_steganography_pcamv_torch.encoder import inter as INTER
+    from video_steganography_pcamv_torch.encoder import qpel_table as QT
+    from video_steganography_pcamv_torch.encoder.me import (fullpel_search,
+                                                            lambda_tab)
+    from video_steganography_pcamv_torch.ops import fullpel as FP
+    from video_steganography_pcamv_torch.ops import mc
+    from video_steganography_pcamv_torch.ops import tq4 as TQ
+    from video_steganography_pcamv_torch.utils.yuv import synthetic_sequence
+    fr = synthetic_sequence(16 * MBW, 16 * MBH, 2, seed=3)
+    n = MBH * MBW
+    rng, qp = 16, 26
+    lam = lambda_tab(qp)
+    cur = torch.as_tensor(fr[1].y.astype(np.int32), device=dev)
+    c = torch.as_tensor(fr[0].u.astype(np.int32), device=dev)
+    ref = mc.build_ref(torch.as_tensor(fr[0].y.astype(np.int32), device=dev),
+                       c, c)
+    ref_fp = ref["luma"][0]
+    recs = []
+
+    # B6. bytes: cur and the padded reference read once, (mv, cost)
+    # written; ops: per MB and displacement 256 abs-differences of 3 int
+    # ops (sub, abs, add), as B1
+    zero = torch.zeros((MBH, MBW, 2), dtype=torch.int32, device=dev)
+    got = FP.fullpel_search16(cur, ref_fp, rng, MBH, MBW, lam)
+    want = fullpel_search(cur, ref_fp, zero, rng, MBH, MBW, lam)
+    err = _check_equal("B6 fullpel_search16", got, want)
+    mv_fp = got[0]
+    ms = cuda_ms(lambda: FP.fullpel_search16(cur, ref_fp, rng, MBH, MBW,
+                                             lam), 20, 3)
+    plain_ms = cuda_ms(lambda: fullpel_search(cur, ref_fp, zero, rng, MBH,
+                                              MBW, lam), 3)
+    bnd = bound((cur.numel() + ref_fp.numel() + 3 * n) * 4,
+                n * (2 * rng + 1) ** 2 * 256 * 3, int_rate)
+    recs.append(record("fullpel_search16", "fullpel.cu",
+                       "ops/pallas_kernels.py:549", err, ms, plain_ms, bnd))
+
+    # B7. bytes: the plane samples that this run's windows touch, each
+    # read once (neighbouring windows overlap), the 4 x 24 x 24 window
+    # written per MB, the MV field read; no arithmetic. library: the one
+    # advanced-index gather
+    planes = ref["luma"].to(torch.uint8)
+    got = QT.gather_windows(planes, mv_fp, MBH, MBW)
+    err = _check_equal("B7 gather_windows", (got,),
+                       (QT.gather_windows_plain(planes, mv_fp, MBH, MBW),))
+    ms = cuda_ms(lambda: QT.gather_windows(planes, mv_fp, MBH, MBW), 20, 3)
+    plain_ms = cuda_ms(lambda: QT.gather_windows_plain(planes, mv_fp, MBH,
+                                                       MBW), 5)
+    ys, xs = QT._window_origins(mv_fp, MBH, MBW)
+    w = torch.arange(QT.WIN, device=dev)
+    yy = (ys[:, None] + w)[:, :, None]
+    xx = (xs[:, None] + w)[:, None, :]
+    lib_ms = cuda_ms(lambda: planes[:, yy, xx], 20, 3)
+    touched = torch.zeros(planes.shape[1:], dtype=torch.bool, device=dev)
+    touched[yy, xx] = True
+    read = 4 * int(touched.sum())
+    log("B7 reads %d distinct plane bytes (%d window bytes)"
+        % (read, n * 4 * QT.WIN * QT.WIN))
+    bnd = bound(read + n * 4 * QT.WIN * QT.WIN + n * 8, 0, int_rate)
+    recs.append(record("gather_windows", "windows.cu",
+                       "encoder/qpel_table.py:64", err, ms, plain_ms, bnd,
+                       lib_ms))
+
+    # B8a/B8b on the pass-1 luma encode's inputs (the MBs at their
+    # subpel MVs), at qp 26 and qp 20 (the qb < 0 dequant branch), with
+    # zero_dc / use_dc, and on the probe's 13-version batch
+    mv_q, r_idx, blocks, wht = A2.analyse_p_frame(
+        cur, ref["luma"], zero, rng, MBH, MBW, lam)
+    ar = torch.arange(n, device=dev, dtype=torch.int32)
+    pred = mc.mc_luma(ref["luma"], torch.div(ar, MBW, rounding_mode="floor")
+                      * 16, (ar % MBW) * 16, mv_q.reshape(n, 2))
+    cur16 = INTER._mb_to_coef16(INTER.mb_tiles(cur, 16))
+    pred16 = INTER._mb_to_coef16(pred)
+    blk = torch.cat([QT.select_rows(blocks, r_idx + A2._didx(*cc))
+                     for cc in A2._CENTERS]).to(torch.int32)
+    cur16_13 = cur16.repeat(1, len(A2._CENTERS))
+    pred16_13 = INTER._mb_to_coef16(blk)
+    g = np.random.default_rng(5)
+    err_a = err_b = 0
+    times = {}
+    for tag, c16, p16, q in (("pass", cur16, pred16, 26),
+                             ("pass", cur16, pred16, 20),
+                             ("probe13", cur16_13, pred16_13, 26)):
+        L = c16.shape[1]
+        mf = torch.as_tensor(INTER._MF16[q], device=dev)
+        bias = torch.as_tensor(INTER._BIAS16[q], device=dev)
+        dmf = torch.as_tensor(INTER._DMF16[q % 6], device=dev)
+        dc = torch.as_tensor(g.integers(-3000, 3000, (1, L)).astype(np.int32),
+                             device=dev)
+        for zdc in (False, True):
+            lev = TQ.dct_quant(c16, p16, mf, bias, zdc)
+            err_a = max(err_a, _check_equal(
+                "B8a dct_quant %s qp %d zero_dc %s" % (tag, q, zdc), (lev,),
+                (TQ.dct_quant_plain(c16, p16, mf, bias, zdc),)))
+        lev = lev * INTER._decimate_keep16(lev, L // 16)
+        for udc in (False, True):
+            rec = TQ.deq_idct(lev, p16, dmf, q // 6 - 4, dc, udc)
+            err_b = max(err_b, _check_equal(
+                "B8b deq_idct %s qp %d use_dc %s" % (tag, q, udc), (rec,),
+                (TQ.deq_idct_plain(lev, p16, dmf, q // 6 - 4, dc, udc),)))
+        key = (tag, q)
+        times[key] = (
+            cuda_ms(lambda: TQ.dct_quant(c16, p16, mf, bias), 20, 3),
+            cuda_ms(lambda: TQ.dct_quant_plain(c16, p16, mf, bias), 5),
+            cuda_ms(lambda: TQ.deq_idct(lev, p16, dmf, q // 6 - 4), 20, 3),
+            cuda_ms(lambda: TQ.deq_idct_plain(lev, p16, dmf, q // 6 - 4), 5),
+            L)
+        log("B8 %s qp %d (L %d): kernel == plain; B8a %.4f ms (plain %.3f),"
+            " B8b %.4f ms (plain %.3f) (median)" % (tag, q, L, *times[key][:4]))
+    # bytes per lane: 16 int32 read from each of two rows and 16 written;
+    # ops per lane: B8a 16 subs + 2 x 4 x 8 butterfly ops + 16 x 5 quant
+    # ops; B8b 16 x 2 dequant ops + 2 x 4 x 10 butterfly ops + 16 x 4
+    # recon ops
+    L = cur16.shape[1]
+    ta = times[("pass", 26)]
+    recs.append(record("dct_quant", "dct_quant.cu",
+                       "ops/pallas_kernels.py:175", err_a, ta[0], ta[1],
+                       bound(L * 16 * 4 * 3 + 2 * 64, L * (16 + 64 + 80),
+                             int_rate)))
+    recs.append(record("deq_idct", "dct_quant.cu",
+                       "ops/pallas_kernels.py:204", err_b, ta[2], ta[3],
+                       bound(L * 16 * 4 * 3 + 64, L * (32 + 80 + 64),
+                             int_rate)))
+    for r in recs:
+        log("%s time: kernel %.4f ms, plain %.3f ms, library %s, bound "
+            "%.4f ms (%s) (median, 1080p)"
+            % (r["name"], r["ms"], r["plain_ms"],
+               "n/a" if r["library_ms"] is None else "%.4f ms"
+               % r["library_ms"], r["bound_ms"], r["bound_by"]))
+    L13 = cur16_13.shape[1]
+    tb = times[("probe13", 26)]
+    log("B8 probe13 batch bounds: B8a %.4f ms, B8b %.4f ms (%s); times "
+        "B8a %.4f ms, B8b %.4f ms"
+        % (bound(L13 * 16 * 4 * 3, L13 * 160, int_rate)[0],
+           bound(L13 * 16 * 4 * 3, L13 * 176, int_rate)[0],
+           bound(L13 * 16 * 4 * 3, L13 * 160, int_rate)[1], tb[0], tb[2]))
+    return recs
+
+
+def _params(w, h, tail_kernel, me_range=16, partitions=True):
     from video_steganography_pcamv_torch.params import Params, StegoParams
     p = Params(width=w, height=h, qp=26, me_range=me_range,
-               deblock_device=True, psnr=False,
+               deblock_device=partitions, psnr=False, partitions=partitions,
                stego=StegoParams(em_rate=64, key=99))
     p.tail_kernel = tail_kernel
     p.pipeline_deep = False
@@ -337,13 +512,18 @@ def _encode(p, frames, device):
     return enc, bs
 
 
-def _check_payload(bs, enc, n_frames):
+def _check_payload(bs, enc, n_frames, decode=True):
+    """The payload recovered by the port's blind extractor (which parses
+    every slice); with `decode`, also the port's decoder reconstructs
+    every frame (a CPU deblock, seconds a frame at 1080p)."""
     from video_steganography_pcamv_torch.decoder import decode_annexb
     from video_steganography_pcamv_torch.stego.extract import (
         extract_from_stream)
-    dec = decode_annexb(bs)
-    if len(dec) != n_frames:
-        raise AssertionError("decoded %d frames of %d" % (len(dec), n_frames))
+    if decode:
+        dec = decode_annexb(bs)
+        if len(dec) != n_frames:
+            raise AssertionError("decoded %d frames of %d"
+                                 % (len(dec), n_frames))
     got = extract_from_stream(bs, em_rate=64, key=99)
     sent = enc._stego.sent_messages
     if len(got) != len(sent) or not all(
@@ -373,20 +553,42 @@ def phase_small(dev):
         % ("differ" if streams[True] != streams[False] else "are equal"))
 
 
+def phase_small16(dev):
+    from video_steganography_pcamv_torch.utils.yuv import synthetic_sequence
+    frames = synthetic_sequence(112, 80, 6, seed=7)
+    enc_g, bs_g = _encode(_params(112, 80, True, partitions=False), frames,
+                          dev)
+    _enc_c, bs_c = _encode(_params(112, 80, True, partitions=False), frames,
+                           "cpu")
+    if bs_g != bs_c:
+        raise AssertionError("112x80 16x16-only stream: cuda (%d B) != cpu "
+                             "(%d B)" % (len(bs_g), len(bs_c)))
+    bits = _check_payload(bs_g, enc_g, len(frames))
+    log("112x80 x6, partitions=False: cuda stream == cpu stream (%d bytes),"
+        " %d payload bits recovered" % (len(bs_g), bits))
+
+
 def _counters():
+    from video_steganography_pcamv_torch.encoder import qpel_table as QT
     from video_steganography_pcamv_torch.ops.deblock import deblock_frame
-    from video_steganography_pcamv_torch.ops.fullpel import fullpel_parts
+    from video_steganography_pcamv_torch.ops import fullpel as FP
     from video_steganography_pcamv_torch.ops import probe as PR
-    return {"fullpel_parts": fullpel_parts, "qpel_tables": PR.qpel_tables,
+    from video_steganography_pcamv_torch.ops import tq4 as TQ
+    return {"fullpel_parts": FP.fullpel_parts, "qpel_tables": PR.qpel_tables,
             "subpel": PR.subpel, "probe_maps": PR.probe_maps,
-            "deblock_frame": deblock_frame}
+            "deblock_frame": deblock_frame,
+            "fullpel_search16": FP.fullpel_search16,
+            "gather_windows": QT.gather_windows,
+            "dct_quant": TQ.dct_quant, "deq_idct": TQ.deq_idct}
 
 
-def phase_main(dev, card, tail_kernel: bool, n_frames: int):
+def phase_main(dev, card, tail_kernel: bool, n_frames: int,
+               partitions: bool = True):
     from video_steganography_pcamv_torch import Encoder
     from video_steganography_pcamv_torch.utils.yuv import synthetic_sequence
     frames = synthetic_sequence(1920, 1088, n_frames, seed=7)
-    enc = Encoder(_params(1920, 1088, tail_kernel), device=dev)
+    enc = Encoder(_params(1920, 1088, tail_kernel, partitions=partitions),
+                  device=dev)
     fns = _counters()
     for fn in fns.values():
         fn.launches = 0
@@ -403,43 +605,70 @@ def phase_main(dev, card, tail_kernel: bool, n_frames: int):
     n_p = enc.stats.p_frames
     if n_p < 1:
         raise AssertionError("no P frame in the main path")
-    want = {"fullpel_parts": n_p, "qpel_tables": n_p, "subpel": n_p,
-            "probe_maps": n_p, "deblock_frame": len(frames)}
+    if partitions:
+        want = {"fullpel_parts": n_p, "qpel_tables": n_p, "subpel": n_p,
+                "probe_maps": n_p, "deblock_frame": len(frames)}
+    else:
+        # per P frame: pass 1, the batched 13-version probe and pass 2
+        want = {"fullpel_search16": n_p, "gather_windows": n_p,
+                "dct_quant": 3 * n_p, "deq_idct": 3 * n_p,
+                "deblock_frame": len(frames)}
     for k, lo in want.items():
         if launches[k] < lo:
             raise AssertionError("%s launched %d times, want >= %d"
                                  % (k, launches[k], lo))
-    bits = _check_payload(bs, enc, len(frames))
+    # the 16x16 stream's decode is checked at 112x80 (phase 10)
+    bits = _check_payload(bs, enc, len(frames), decode=partitions)
     fps_p = (len(frames) - 1) / (t2 - t1)
-    log("1080p tail_kernel=%s: %d frames (%d I, %d P), %d bytes, %d "
+    log("1080p %s: %d frames (%d I, %d P), %d bytes, %d "
         "payload bits recovered; IDR %.3f s; P frames %.4f fps incl. "
         "flush; all %.4f fps; launches %s  [%s]"
-        % (tail_kernel, len(frames), enc.stats.i_frames, n_p, len(bs), bits,
+        % ("tail_kernel=%s" % tail_kernel if partitions
+           else "partitions=False", len(frames), enc.stats.i_frames, n_p,
+           len(bs), bits,
            t1 - t0, fps_p, len(frames) / (t2 - t0), json.dumps(launches),
            card))
     return launches
 
 
-def phase_stages(dev, card, n_frames: int = 7):
-    """Per-stage device time of a 1080p P frame on the tail_kernel=True
-    path: every stage is wrapped with a device sync on each side (the
-    syncs remove the pipelining, so the stages sum to more than a P
-    frame of phase 6). Averages over the P frames after the first."""
-    from video_steganography_pcamv_torch import Encoder, native
+def _stage_targets(partitions: bool):
+    """(object, attribute) of every stage that phase_stages times, for
+    the partitioned path or the 16x16-only path."""
+    from video_steganography_pcamv_torch import native
+    from video_steganography_pcamv_torch.encoder import analyse2 as A2
     from video_steganography_pcamv_torch.encoder import core as CORE
     from video_steganography_pcamv_torch.encoder import inter as INTER
     from video_steganography_pcamv_torch.encoder import partition as PT
+    from video_steganography_pcamv_torch.encoder import qpel_table as QT
     from video_steganography_pcamv_torch.encoder import slicetype as ST
     from video_steganography_pcamv_torch.ops import probe as PR
     from video_steganography_pcamv_torch.stego import embed as EMB
+    if partitions:
+        return [(ST.Lookahead, "costs_device"), (PT, "fullpel_parts"),
+                (PT, "decide_partition"), (PT, "gather_windows8"),
+                (PR, "qpel_tables"), (PR, "subpel"), (PR, "probe_maps"),
+                (INTER, "encode_p_frame_device8"), (PT, "scan_p_device"),
+                (PT, "probe_combine"), (EMB.StegoEngine, "apply_costs"),
+                (CORE, "reencode_p_incremental"), (CORE, "deblock_frame"),
+                (native, "write_slice")]
+    # encode_p_frame_device sums pass 1 and pass 2
+    return [(ST.Lookahead, "decide"), (A2, "fullpel_search16"),
+            (QT, "gather_windows"), (QT, "block_table"), (QT, "wht_table"),
+            (A2, "subpel_from_table"), (INTER, "encode_p_frame_device"),
+            (native, "host_scan_p"), (A2, "stego_costs_from_table"),
+            (native, "stc_embed"), (native, "host_scan_p_forced"),
+            (CORE, "deblock_frame"), (native, "write_slice")]
+
+
+def phase_stages(dev, card, n_frames: int = 7, partitions: bool = True):
+    """Per-stage device time of a 1080p P frame on the tail_kernel=True
+    path (or the 16x16-only path): every stage is wrapped with a device
+    sync on each side (the syncs remove the pipelining, so the stages
+    sum to more than a P frame of phase 6). Averages over the P frames
+    after the first."""
+    from video_steganography_pcamv_torch import Encoder
     from video_steganography_pcamv_torch.utils.yuv import synthetic_sequence
-    targets = [(ST.Lookahead, "costs_device"), (PT, "fullpel_parts"),
-               (PT, "decide_partition"), (PT, "gather_windows8"),
-               (PR, "qpel_tables"), (PR, "subpel"), (PR, "probe_maps"),
-               (INTER, "encode_p_frame_device8"), (PT, "scan_p_device"),
-               (PT, "probe_combine"), (EMB.StegoEngine, "apply_costs"),
-               (CORE, "reencode_p_incremental"), (CORE, "deblock_frame"),
-               (native, "write_slice")]
+    targets = _stage_targets(partitions)
     totals = {name: 0.0 for _, name in targets}
     state = {"on": False}
 
@@ -463,7 +692,8 @@ def phase_stages(dev, card, n_frames: int = 7):
     try:
         for obj, name, fn in saved:
             setattr(obj, name, timed(name, fn))
-        enc = Encoder(_params(1920, 1088, True), device=dev)
+        enc = Encoder(_params(1920, 1088, True, partitions=partitions),
+                      device=dev)
         enc.encode_frame(frames[0])
         enc.encode_frame(frames[1])
         torch.cuda.synchronize()
@@ -478,8 +708,10 @@ def phase_stages(dev, card, n_frames: int = 7):
         for obj, name, fn in saved:
             setattr(obj, name, fn)
     n = len(frames) - 2
-    log("1080p tail_kernel=True stage times, ms per P frame over %d P "
-        "frames, a device sync around each stage  [%s]" % (n, card))
+    log("1080p %s stage times, ms per P frame over %d P frames, a device "
+        "sync around each stage  [%s]"
+        % ("tail_kernel=True" if partitions else "partitions=False", n,
+           card))
     for name, s in sorted(totals.items(), key=lambda kv: -kv[1]):
         log("  %-24s %9.3f" % (name, 1e3 * s / n))
     log("  %-24s %9.3f" % ("(rest of the frame)",
@@ -487,11 +719,61 @@ def phase_stages(dev, card, n_frames: int = 7):
     log("  %-24s %9.3f" % ("(frame, with the syncs)", 1e3 * wall / n))
 
 
+# run from a checkout's root by `--ab`: the main path's 1080p encode and
+# stage times with that checkout's chip_smoke.py and package (the names
+# used here exist in every checkout since the main path's stage phase)
+_AB_CHILD = r"""
+import time
+import torch
+import chip_smoke as C
+from video_steganography_pcamv_torch import Encoder
+from video_steganography_pcamv_torch.utils.yuv import synthetic_sequence
+dev = torch.device("cuda", 0)
+card = C.card_query("name,power.limit")
+C.phase_build()
+frames = synthetic_sequence(1920, 1088, 10, seed=7)
+enc = Encoder(C._params(1920, 1088, True), device=dev)
+t0 = time.time()
+bs = enc.encode_frame(frames[0])
+torch.cuda.synchronize()
+t1 = time.time()
+for f in frames[1:]:
+    bs += enc.encode_frame(f)
+bs += enc.flush()
+torch.cuda.synchronize()
+t2 = time.time()
+C.log("1080p tail_kernel=True: %d bytes; IDR %.3f s; P frames %.4f fps "
+      "incl. flush  [%s]" % (len(bs), t1 - t0, 9 / (t2 - t1), card))
+C.phase_stages(dev, card)
+"""
+
+
+def ab(parent_root: str) -> int:
+    here = os.path.dirname(os.path.abspath(__file__))
+    parent_root = os.path.abspath(parent_root)
+    for label, root in (("parent", parent_root), ("change", here),
+                        ("change", here), ("parent", parent_root)):
+        log("== %s: %s" % (label, os.path.relpath(root, here)))
+        t0 = time.time()
+        subprocess.run([sys.executable, "-c", _AB_CHILD], cwd=root,
+                       check=True)
+        log("== %s: %.1f s" % (label, time.time() - t0))
+    return 0
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--stages16", action="store_true",
+                    help="also time the stages of the 16x16-only path")
+    ap.add_argument("--ab", metavar="PARENT_ROOT",
+                    help="compare the main path with another checkout")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 2
+    if args.ab:
+        return ab(args.ab)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     t_start = time.time()
     dev = torch.device("cuda", 0)
@@ -500,18 +782,38 @@ def main() -> int:
     log("python %s, torch %s, cuda %s" % (sys.version.split()[0],
                                           torch.__version__,
                                           torch.version.cuda))
-    phase_build()
+
+    def phase(name, fn, *a, **kw):
+        t0 = time.time()
+        out = fn(*a, **kw)
+        log("[phase %s: %.1f s]" % (name, time.time() - t0))
+        return out
+
+    phase("1 build", phase_build)
     int_rate = int32_ops_per_s()
     log("int32 peak %.3e ops/s (132 SMs x 64 lanes x max SM clock)"
         % int_rate)
-    recs = [phase_b1(dev, int_rate), phase_b5(dev, int_rate)]
-    recs += phase_tail(dev, int_rate)
-    phase_small(dev)
-    launches = phase_main(dev, card, tail_kernel=True, n_frames=10)
-    phase_main(dev, card, tail_kernel=False, n_frames=4)
-    phase_stages(dev, card)
+    recs = [phase("2 B1", phase_b1, dev, int_rate),
+            phase("3 B5", phase_b5, dev, int_rate)]
+    recs += phase("4 B2-B4", phase_tail, dev, int_rate)
+    recs16 = phase("9 B6-B8", phase_b678, dev, int_rate)
+    phase("5 112x80", phase_small, dev)
+    launches = phase("6 main path", phase_main, dev, card, tail_kernel=True,
+                     n_frames=10)
+    phase("7 tail_kernel=False", phase_main, dev, card, tail_kernel=False,
+          n_frames=4)
+    phase("8 stages", phase_stages, dev, card)
+    phase("10 112x80 16x16", phase_small16, dev)
+    launches16 = phase("11 16x16 path", phase_main, dev, card,
+                       tail_kernel=True, n_frames=4, partitions=False)
+    if args.stages16:
+        phase("12 16x16 stages", phase_stages, dev, card, n_frames=6,
+              partitions=False)
     for r in recs:
         r["launches"] = launches[r["name"]]
+    for r in recs16:
+        r["launches"] = launches16[r["name"]]
+    recs += recs16
     log("total %.1f s" % (time.time() - t_start))
     print(json.dumps({"kernels": recs}))
     print(card)

@@ -8,7 +8,11 @@ its own:  python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
 - kernels B2, B3 and B4 vs their plain versions at 112x80 and on a
   band of 1080p MB rows (decimate on and off for B4);
 - a small encode on cuda is byte-equal to the same encode on the cpu,
-  for both tail_kernel settings.
+  for both tail_kernel settings;
+- kernels B6, B7, B8a and B8b vs their plain versions (B8 at qp 20, 26
+  and 38, zero_dc and use_dc on and off);
+- the 112x80 16x16-only encode (partitions=False) on cuda is
+  byte-equal to the same encode on the cpu.
 """
 
 import numpy as np
@@ -16,11 +20,15 @@ import pytest
 import torch
 
 from video_steganography_pcamv_torch import Encoder
+from video_steganography_pcamv_torch.encoder import inter as INTER
 from video_steganography_pcamv_torch.encoder import partition as PT
+from video_steganography_pcamv_torch.encoder import qpel_table as QT
+from video_steganography_pcamv_torch.encoder.me import fullpel_search
 from video_steganography_pcamv_torch.ops import deblock as DB
 from video_steganography_pcamv_torch.ops import fullpel as FP
 from video_steganography_pcamv_torch.ops import mc as TMC
 from video_steganography_pcamv_torch.ops import probe as PR
+from video_steganography_pcamv_torch.ops import tq4 as TQ
 from video_steganography_pcamv_torch.ops.transform import chroma_qp
 from video_steganography_pcamv_torch.params import Params, StegoParams
 from video_steganography_pcamv_torch.utils.yuv import (Frame,
@@ -135,6 +143,68 @@ def test_cuda_stream_equals_cpu_stream(dev, tail_kernel):
                    deblock_device=True, psnr=False,
                    stego=StegoParams(em_rate=16, key=5))
         p.tail_kernel = tail_kernel
+        enc = Encoder(p, device=device)
+        return b"".join(enc.encode_frame(f) for f in frames) + enc.flush()
+
+    assert run(dev) == run("cpu")
+
+
+@pytest.mark.parametrize("flat", [False, True])
+def test_b6_b7_kernels_match_plain(dev, flat):
+    mbh, mbw, rng, lam = 5, 7, 16, 4
+    fr = synthetic_sequence(16 * mbw, 16 * mbh, 2, seed=9)
+    cur = torch.as_tensor(fr[1].y.astype(np.int32), device=dev)
+    c = torch.as_tensor(fr[0].u.astype(np.int32), device=dev)
+    ref = TMC.build_ref(torch.as_tensor(fr[0].y.astype(np.int32),
+                                        device=dev), c, c)
+    if flat:
+        cur[:] = 101
+        ref["luma"][:] = 100
+    zero = torch.zeros((mbh, mbw, 2), dtype=torch.int32, device=dev)
+    mv, cost = FP.fullpel_search16(cur, ref["luma"][0], rng, mbh, mbw, lam)
+    want_mv, want_cost = fullpel_search(cur, ref["luma"][0], zero, rng, mbh,
+                                        mbw, lam)
+    assert torch.equal(mv, want_mv) and torch.equal(cost, want_cost)
+    planes = ref["luma"].to(torch.uint8)
+    edge = torch.as_tensor(np.random.RandomState(1).choice(
+        [-rng, rng], (mbh, mbw, 2)).astype(np.int32), device=dev)
+    for mv_fp in (mv, edge):
+        got = QT.gather_windows(planes, mv_fp, mbh, mbw)
+        assert torch.equal(got, QT.gather_windows_plain(planes, mv_fp, mbh,
+                                                        mbw))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("qp", [20, 26, 38])
+def test_b8_kernels_match_plain(dev, qp):
+    g = np.random.default_rng(qp)
+    L = 13 * 35 * 16
+    cur = g.integers(0, 256, (16, L))
+    pred = np.clip(cur + g.integers(-40, 41, (16, L)), 0, 255)
+    dc = g.integers(-3000, 3000, (1, L))
+    cur, pred, dc = (torch.as_tensor(a.astype(np.int32), device=dev)
+                     for a in (cur, pred, dc))
+    mf, bias, dmf = (torch.as_tensor(t, device=dev) for t in (
+        INTER._MF16[qp], INTER._BIAS16[qp], INTER._DMF16[qp % 6]))
+    for zero_dc in (False, True):
+        lev = TQ.dct_quant(cur, pred, mf, bias, zero_dc)
+        assert torch.equal(lev, TQ.dct_quant_plain(cur, pred, mf, bias,
+                                                   zero_dc))
+    lev = lev * INTER._decimate_keep16(lev, L // 16)
+    for use_dc in (False, True):
+        rec = TQ.deq_idct(lev, pred, dmf, qp // 6 - 4, dc, use_dc)
+        assert torch.equal(rec, TQ.deq_idct_plain(lev, pred, dmf,
+                                                  qp // 6 - 4, dc, use_dc))
+    torch.cuda.synchronize()
+
+
+def test_cuda_stream_equals_cpu_stream_16x16(dev):
+    frames = synthetic_sequence(112, 80, 4, seed=7)
+
+    def run(device):
+        p = Params(width=112, height=80, qp=26, me_range=16,
+                   deblock_device=False, partitions=False, psnr=False,
+                   stego=StegoParams(em_rate=16, key=5))
         enc = Encoder(p, device=device)
         return b"".join(enc.encode_frame(f) for f in frames) + enc.flush()
 

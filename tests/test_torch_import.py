@@ -111,6 +111,22 @@ def test_source_scan_no_jax_package_import():
     assert not bad, bad
 
 
+def test_every_cuda_source_is_built_and_names_its_tpu_kernel():
+    """Each csrc/*.cu file is in the kernel build, exports a C entry
+    point and names the TPU kernel it replaces."""
+    from video_steganography_pcamv_torch import kernels
+    srcs = sorted(glob.glob(os.path.join(
+        ROOT, "video_steganography_pcamv_torch", "csrc", "*.cu")))
+    assert len(srcs) >= 7
+    assert kernels.sources() == srcs
+    for path in srcs:
+        with open(path) as f:
+            text = f.read()
+        assert 'extern "C" int pcamv_' in text, path
+        assert "video_steganography_pcamv_tpu/" in text, path
+        assert "_pallas" in text or "_kernel" in text, path
+
+
 def _slice_params(**kw):
     base = dict(width=112, height=80, qp=26, me_range=16,
                 deblock_device=True, psnr=False,

@@ -1,20 +1,28 @@
-// Full-pel all-partition motion search (Hopper, sm_90a).
+// Full-pel motion search (Hopper, sm_90a): two entry points over one
+// kernel template.
 //
-// Replaces the TPU kernel fullpel_parts_pallas
+// pcamv_fullpel_parts replaces the TPU kernel fullpel_parts_pallas
 // (video_steganography_pcamv_tpu/ops/pallas_kernels.py:435, kernels
 // _fullpel_parts_kernel2 / _fullpel_parts_kernel). For every MB and
 // every full-pel displacement (dx, dy) in [-rng, rng]^2 it computes the
 // SAD of the MB's four 8x8 blocks and, for the 9 partition units
 // (16x16; 16x8 top/bottom; 8x16 left/right; 8x8 x4 in z-order),
 //   cost = unit SAD + lam * (bits(4dx - 4pmx) + bits(4dy - 4pmy))
-// against the MB's full-pel predictor (pmx, pmy). The winner per unit
-// is the FIRST strict-< minimum in dy-outer, dx-inner scan order: the
-// block reduction takes the minimum of (cost << 32 | scan index).
+// against the MB's full-pel predictor (pmx, pmy).
+//
+// pcamv_fullpel_search16 replaces the TPU kernel fullpel_search_pallas
+// (pallas_kernels.py:549, kernel _fullpel_kernel :42): the 16x16 unit
+// alone against a zero predictor, written as (mv, cost). Its template
+// instance keeps one running minimum instead of nine.
+//
+// The winner per unit is the FIRST strict-< minimum in dy-outer,
+// dx-inner scan order: the block reduction takes the minimum of
+// (cost << 32 | scan index).
 //
 // Design: one block per MB. The 16x16 current block and the
 // (16+2rng)^2 reference window sit in shared memory; threads stride
-// over the displacements keeping 9 running (cost, index) minima, then
-// reduce with warp shuffles and one shared-memory pass. At 1080p
+// over the displacements keeping their running (cost, index) minima,
+// then reduce with warp shuffles and one shared-memory pass. At 1080p
 // (8160 MBs, rng 16, 1089 displacements) the search is ~2.3 G
 // abs-differences a frame, bound by integer ALU work and shared-memory
 // reads, not by device memory (each MB reads ~10 KB once).
@@ -26,14 +34,17 @@ namespace {
 
 constexpr int kPad = 24;       // full-pel border of the reference plane
 constexpr int kThreads = 256;
-constexpr int kUnits = 9;
 
-__global__ void fullpel_parts_kernel(
+// kUnits 9: all partition units, out_a = cost [n, 9], out_b = scan
+// index [n, 9]. kUnits 1: the 16x16 unit, out_a = mv [n, 2] (x, y),
+// out_b = cost [n]. pred == nullptr is the zero predictor.
+template <int kUnits>
+__global__ void fullpel_kernel(
     const int* __restrict__ cur, int cur_w,
     const int* __restrict__ ref, int ref_w,
     const int* __restrict__ pred, const int* __restrict__ bits,
     int bits_len, int rng, int lam, int mbw,
-    int* __restrict__ out_cost, int* __restrict__ out_idx) {
+    int* __restrict__ out_a, int* __restrict__ out_b) {
   extern __shared__ int smem[];
   const int side = 2 * rng + 1;
   const int ws = 16 + 2 * rng;
@@ -59,8 +70,8 @@ __global__ void fullpel_parts_kernel(
   }
   __syncthreads();
 
-  const int pmx = pred[2 * mb];
-  const int pmy = pred[2 * mb + 1];
+  const int pmx = pred ? pred[2 * mb] : 0;
+  const int pmy = pred ? pred[2 * mb + 1] : 0;
   const int off = (bits_len - 1) / 2;
   unsigned long long best[kUnits];
 #pragma unroll
@@ -88,11 +99,12 @@ __global__ void fullpel_parts_kernel(
     ix = min(max(ix, 0), bits_len - 1);
     iy = min(max(iy, 0), bits_len - 1);
     const int mvc = (bits[ix] + bits[iy]) * lam;
-    const int cost[kUnits] = {
+    const int all9[9] = {
         q0 + q1 + q2 + q3 + mvc,
         q0 + q1 + mvc, q2 + q3 + mvc,
         q0 + q2 + mvc, q1 + q3 + mvc,
         q0 + mvc, q1 + mvc, q2 + mvc, q3 + mvc};
+    const int* cost = all9;
 #pragma unroll
     for (int u = 0; u < kUnits; ++u) {
       const unsigned long long key =
@@ -121,9 +133,40 @@ __global__ void fullpel_parts_kernel(
       const unsigned long long x = s_red[w * kUnits + tid];
       v = x < v ? x : v;
     }
-    out_cost[mb * kUnits + tid] = static_cast<int>(v >> 32);
-    out_idx[mb * kUnits + tid] = static_cast<int>(v & 0xffffffffu);
+    const int cost = static_cast<int>(v >> 32);
+    const int idx = static_cast<int>(v & 0xffffffffu);
+    if constexpr (kUnits == 1) {
+      const int dyo = idx / side;
+      out_a[2 * mb] = idx - dyo * side - rng;
+      out_a[2 * mb + 1] = dyo - rng;
+      out_b[mb] = cost;
+    } else {
+      out_a[mb * kUnits + tid] = cost;
+      out_b[mb * kUnits + tid] = idx;
+    }
   }
+}
+
+template <int kUnits>
+int launch(const void* cur, int cur_w, const void* ref, int ref_w,
+           const void* pred, const void* bits, int bits_len, int rng,
+           int lam, int mbh, int mbw, void* out_a, void* out_b,
+           void* stream) {
+  const int ws = 16 + 2 * rng;
+  const size_t smem = (256 + ws * ws) * sizeof(int)
+      + (kThreads / 32) * kUnits * sizeof(unsigned long long);
+  if (smem > 48 * 1024) {
+    cudaFuncSetAttribute(fullpel_kernel<kUnits>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(smem));
+  }
+  fullpel_kernel<kUnits><<<mbh * mbw, kThreads, smem,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(cur), cur_w, static_cast<const int*>(ref),
+      ref_w, static_cast<const int*>(pred),
+      static_cast<const int*>(bits), bits_len, rng, lam, mbw,
+      static_cast<int*>(out_a), static_cast<int*>(out_b));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -132,19 +175,14 @@ extern "C" int pcamv_fullpel_parts(
     const void* cur, int cur_w, const void* ref, int ref_w,
     const void* pred, const void* bits, int bits_len, int rng, int lam,
     int mbh, int mbw, void* out_cost, void* out_idx, void* stream) {
-  const int ws = 16 + 2 * rng;
-  const size_t smem = (256 + ws * ws) * sizeof(int)
-      + (kThreads / 32) * kUnits * sizeof(unsigned long long);
-  if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(fullpel_parts_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(smem));
-  }
-  fullpel_parts_kernel<<<mbh * mbw, kThreads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(cur), cur_w, static_cast<const int*>(ref),
-      ref_w, static_cast<const int*>(pred),
-      static_cast<const int*>(bits), bits_len, rng, lam, mbw,
-      static_cast<int*>(out_cost), static_cast<int*>(out_idx));
-  return static_cast<int>(cudaGetLastError());
+  return launch<9>(cur, cur_w, ref, ref_w, pred, bits, bits_len, rng, lam,
+                   mbh, mbw, out_cost, out_idx, stream);
+}
+
+extern "C" int pcamv_fullpel_search16(
+    const void* cur, int cur_w, const void* ref, int ref_w,
+    const void* bits, int bits_len, int rng, int lam, int mbh, int mbw,
+    void* out_mv, void* out_cost, void* stream) {
+  return launch<1>(cur, cur_w, ref, ref_w, nullptr, bits, bits_len, rng,
+                   lam, mbh, mbw, out_mv, out_cost, stream);
 }

@@ -18,6 +18,16 @@ reference's accelerator branch (a zero predictor), False that of its
 CPU branch (`prev_mv >> 2`). Both run the analyse-tail kernels B2-B4 on
 CUDA. Either way the stream on CUDA equals the stream on the CPU, and
 equals the reference `Encoder` on the same branch.
+
+With `partitions=False` (x264's `--partitions none`) every frame takes
+the reference's non-fused IPP branch instead, unpipelined: each call
+returns its own access unit. A P frame runs the 16x16 analysis
+(`analyse2`: kernels B6 and B7, the qpel tables), the pass-1 encode
+(kernels B8a/B8b), the native MVP/P_SKIP scan, the stego embedding with
+its batched probe encode and pass-2 re-encode (`StegoEngine.
+embed_frame`), the in-loop deblock (kernel B5) and the native CAVLC
+writer. The reference serves this path only with its host deblocker
+(`deblock_device=False`); the port's deblocker is bit-exact to it.
 """
 
 from __future__ import annotations
@@ -44,6 +54,7 @@ from ..utils.yuv import Frame
 from . import headers as H
 from . import inter as P
 from . import me as ME
+from .analyse2 import analyse_p_frame
 from .inter_incr import changed_mbs, pad_subset, reencode_p_incremental
 from .intra import encode_i_frame
 from .partition import p_stage1_stego
@@ -56,9 +67,17 @@ _LEAN_WIDTH = 394       # luma 256 | chroma dc 8 | chroma ac 128 | cbp 2
 
 def check_slice(p: Params) -> None:
     """Raise NotImplementedError for any option outside the ported
-    serving slice (IPPP, CQP, CAVLC, partitions, one reference, subpel
-    2, decimation, incremental re-encode, stego on, device deblock,
-    pipelined serving loop, metrics off)."""
+    slice: IPPP, CQP, CAVLC, one reference, subpel 2, decimation,
+    incremental re-encode, stego on, pipelined serving loop, metrics
+    off, and either partitions with the device deblock (the serving
+    path) or partitions off with the host deblock (the 16x16-only
+    path)."""
+    if not p.partitions and p.deblock_device:
+        raise NotImplementedError(
+            "partitions off with deblock_device on: the reference drops "
+            "the recon planes (need_recon is False, core.py:3475-3478) and "
+            "its host deblock then raises KeyError 'recon_y' (core.py:3480)"
+            "; use deblock_device=False")
     bad = []
     for name, ok in (
             ("cabac", not p.cabac), ("bframes", p.bframes == 0),
@@ -70,7 +89,7 @@ def check_slice(p: Params) -> None:
             ("rc_mode!=0", p.rc_mode == 0),
             ("pipeline_deep", not p.pipeline_deep),
             ("pipeline off", p.pipeline),
-            ("partitions off", p.partitions), ("i4x4 off", p.i4x4),
+            ("i4x4 off", p.i4x4),
             ("subpel!=2", p.subpel == 2),
             ("dct_decimate off", p.dct_decimate),
             ("incremental off", p.incremental),
@@ -81,7 +100,9 @@ def check_slice(p: Params) -> None:
             ("deadzones", p.deadzone_inter == 21
              and p.deadzone_intra == 11),
             ("deblock off", p.deblock),
-            ("deblock_device off", p.deblock_device),
+            ("deblock_device off", p.deblock_device or not p.partitions),
+            ("me_range>20 without partitions",
+             p.partitions or p.me_range <= 20),
             ("stego off", p.stego.enabled),
             ("stego em_file", not p.stego.em_file),
             ("stego alpha_com", p.stego.alpha_com == 0.0)):
@@ -267,16 +288,23 @@ class Encoder:
         pipelined loop emits frame N's slice during frame N+1's call)."""
         t0 = time.time()
         y, u, v = self._pad(frame)
-        if self.ref is not None and self.lookahead.prev_lr is not None:
+        if (self.p.partitions and self.ref is not None
+                and self.lookahead.prev_lr is not None):
             return self._encode_frame_ipp_fast(y, u, v, t0)
         out_pend = self._drain_pending()
         is_idr, satd = self.lookahead.decide(y)
         if self.ref is None:
             is_idr = True
-        if not is_idr:
-            raise NotImplementedError("non-fused P frame path")
-        qp = self.rc.start(SLICE_I, satd)
-        out = self._aud(SLICE_I) + self._encode_idr(y, u, v, qp)
+        if not is_idr and self.p.partitions:
+            raise NotImplementedError("non-fused partitioned P frame")
+        qp = self.rc.start(SLICE_I if is_idr else SLICE_P, satd)
+        out = self._aud(SLICE_I if is_idr else SLICE_P)
+        if is_idr:
+            out += self._encode_idr(y, u, v, qp)
+        else:
+            out += nal_unit(NAL_SLICE, NAL_PRIORITY_HIGH,
+                            self._encode_p16(y, u, v, qp))
+            self.stats.p_frames += 1
         self.frame_num += 1
         self.stats.frames += 1
         self.stats.bits += 8 * len(out)
@@ -326,7 +354,8 @@ class Encoder:
         return out_prev + out
 
     def flush(self) -> bytes:
-        """Drain the deferred entropy of the last P frame."""
+        """Drain the deferred entropy of the last P frame (b"" on the
+        unpipelined 16x16-only path)."""
         return self._drain_pending()
 
     def _drain_pending(self) -> bytes:
@@ -350,6 +379,45 @@ class Encoder:
         return out
 
     # ------------------------------------------------------------------
+    def _encode_p16(self, y, u, v, qp: int) -> bytes:
+        """The unpartitioned P frame (the reference's `_encode_p`
+        16x16 branch with `analyse_p`): the 16x16 analysis (B6 -> B7 ->
+        qpel tables -> subpel), pass-1 encode, scan, embed (pass 2),
+        deblock, entropy."""
+        p = self.p
+        mbh, mbw = p.mb_height, p.mb_width
+        qpc = chroma_qp(qp, p.chroma_qp_offset)
+        dev = self.device
+        mv_q, r_idx, blocks, wht = analyse_p_frame(
+            y, self.ref["luma"], torch.as_tensor(self.prev_mv).to(dev),
+            p.me_range, mbh, mbw, ME.lambda_tab(qp))
+        mv_np = mv_q.cpu().numpy()
+        res = P.encode_p_frame_device(
+            y, u, v, self.ref["luma"], self.ref["u"], self.ref["v"], mv_q,
+            qp, qpc, mbh, mbw)
+        skip, mvd, mvp = native.host_scan_p(
+            mv_np, res["cbp_luma"].cpu().numpy(),
+            res["cbp_chroma"].cpu().numpy())
+        replaced = self._stego.embed_frame(
+            self, y, u, v, qp, mv_np, skip, mvp,
+            {"blocks": blocks, "wht": wht, "r_idx": r_idx})
+        if replaced is not None:
+            mv_np, skip, mvd, res = replaced
+        mv4 = torch.as_tensor(mv_np).to(dev) \
+            .repeat_interleave(4, 0).repeat_interleave(4, 1)
+        self._deblock_device(
+            res, torch.zeros((mbh, mbw), dtype=torch.int32, device=dev),
+            torch.as_tensor(skip.astype(np.int32)).to(dev), mv4, qp,
+            _nnz4(res["luma_lev"], mbh, mbw))
+        self.prev_mv = np.ascontiguousarray(mv_np, np.int32)
+        res_np = _levels_exact(res, mbh, mbw)
+        mvd4 = np.zeros((mbh, mbw, 4, 2), np.int32)
+        mvd4[:, :, 0] = mvd
+        return self._finish_p_slice(res_np, qp, np.zeros((mbh, mbw),
+                                                          np.int32),
+                                    mvd4, skip, self.frame_num,
+                                    self._poc_lsb)
+
     def _encode_i(self, y, u, v, qp: int) -> bytes:
         p = self.p
         mbh, mbw = p.mb_height, p.mb_width

@@ -5,9 +5,9 @@ Every `csrc/*.cu` file is compiled by its own `nvcc` process for sm_90a
 library with a plain C interface, at first use, into
 `build/torch_kernels/` at the repository root (git-ignored). The
 library name carries a hash of the sources and flags, so an edit
-rebuilds it. The wrappers in `ops/` bind the entry points with ctypes:
-tensor pointers and the CUDA stream go in as `c_void_p`, and every
-entry point returns `cudaGetLastError()`.
+rebuilds it. The wrappers bind the entry points with ctypes (`entry`):
+tensor pointers and the CUDA stream go in as `c_void_p` (`VP`), ints as
+`c_int` (`CI`), and every entry point returns `cudaGetLastError()`.
 """
 
 from __future__ import annotations
@@ -19,6 +19,10 @@ import os
 import shutil
 import subprocess
 import time
+
+import torch
+
+VP, CI = ctypes.c_void_p, ctypes.c_int
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG, "csrc")
@@ -94,6 +98,20 @@ def load() -> ctypes.CDLL:
     if _lib is None:
         _lib = ctypes.CDLL(build())
     return _lib
+
+
+def entry(name: str, argtypes):
+    """The library's entry point `name` bound to `argtypes`, returning
+    its CUDA error code."""
+    fn = getattr(load(), name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = argtypes
+    return fn
+
+
+def stream(t) -> ctypes.c_void_p:
+    """The current CUDA stream of `t`'s device."""
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
 def check(rc: int, name: str) -> None:

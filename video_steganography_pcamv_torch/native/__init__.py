@@ -1,7 +1,7 @@
 """ctypes loader for the port's native host back-end.
 
-`pcamv_native.cpp` (CAVLC slice writer, forced partition MVP scan, STC
-embedder) is the port's copy of the reference package's C++ source. It
+`pcamv_native.cpp` (CAVLC slice writer, the partition and 16x16 MVP /
+P_SKIP scans, STC embedder) is the port's copy of the reference package's C++ source. It
 is compiled with g++ at first use into `build/torch_native/` at the
 repository root (git-ignored); the library name carries a hash of the
 sources and flags, so an edit rebuilds it. A failed build raises.
@@ -80,6 +80,11 @@ def load() -> ctypes.CDLL:
     lib.pcamv_scan_p_parts_forced.restype = None
     lib.pcamv_scan_p_parts_forced.argtypes = [
         i32p, i32p, u8p, ci, ci, i32p, i32p, i32p]
+    lib.pcamv_host_scan_p.restype = None
+    lib.pcamv_host_scan_p.argtypes = [i32p, i32p, i32p, ci, ci, u8p, i32p,
+                                      i32p]
+    lib.pcamv_host_scan_p_forced.restype = None
+    lib.pcamv_host_scan_p_forced.argtypes = [i32p, u8p, ci, ci, i32p, i32p]
     lib.pcamv_stc_embed.restype = ctypes.c_int
     lib.pcamv_stc_embed.argtypes = [
         u8p, ctypes.c_long, u8p, ctypes.c_long,
@@ -152,6 +157,39 @@ def scan_p_parts_forced(part, mv8, skip):
         final8, mvd, mvp)
     return (final8.reshape(2 * mbh, 2 * mbw, 2),
             mvd.reshape(mbh, mbw, 4, 2), mvp.reshape(mbh, mbw, 4, 2))
+
+
+def host_scan_p(mv, cbp_luma, cbp_chroma):
+    """Pass-1 scan of a 16x16-only P frame (twin of the reference's
+    encoder/inter.py host_scan_p): skip flags, mvd and the median MVP
+    from the chosen qpel MVs [mbh, mbw, 2]. Returns (skip [mbh,mbw]
+    bool, mvd [mbh,mbw,2], mvp [mbh,mbw,2])."""
+    lib = load()
+    mbh, mbw = cbp_luma.shape
+    skip = np.zeros(mbh * mbw, np.uint8)
+    mvd = np.zeros(mbh * mbw * 2, np.int32)
+    mvp = np.zeros(mbh * mbw * 2, np.int32)
+    lib.pcamv_host_scan_p(_as_i32(mv).reshape(-1),
+                          _as_i32(cbp_luma).reshape(-1),
+                          _as_i32(cbp_chroma).reshape(-1), mbw, mbh, skip,
+                          mvd, mvp)
+    return (skip.reshape(mbh, mbw).astype(bool), mvd.reshape(mbh, mbw, 2),
+            mvp.reshape(mbh, mbw, 2))
+
+
+def host_scan_p_forced(mv, skip):
+    """Pass-2 scan of a 16x16-only P frame with the skip flags forced
+    (twin of the reference's host_scan_p_forced): skipped MBs take the
+    P_SKIP vector of the new MV context. Returns (final_mv [mbh,mbw,2],
+    mvd [mbh,mbw,2])."""
+    lib = load()
+    mbh, mbw = skip.shape
+    final = np.zeros(mbh * mbw * 2, np.int32)
+    mvd = np.zeros(mbh * mbw * 2, np.int32)
+    lib.pcamv_host_scan_p_forced(
+        _as_i32(mv).reshape(-1), np.ascontiguousarray(skip, np.uint8)
+        .reshape(-1), mbw, mbh, final, mvd)
+    return final.reshape(mbh, mbw, 2), mvd.reshape(mbh, mbw, 2)
 
 
 def stc_embed(cover, message, rho, h=10, state=None):

@@ -1,11 +1,12 @@
-// Native host back-end of the port: CAVLC slice writer, the forced
-// partition MVP scan and the STC embedder.
+// Native host back-end of the port: CAVLC slice writer, the MVP / P_SKIP
+// scans and the STC embedder.
 //
 // A copy of the reference package's native/pcamv_native.cpp cut to the
-// three entry points the port calls (pcamv_write_slice,
-// pcamv_scan_p_parts_forced, pcamv_stc_embed) and to the port's slice:
-// I slices (I16x16, I4x4) and P slices with partitions, one reference
-// and the 4x4 transform. Twins of the reference's serial host paths:
+// five entry points the port calls (pcamv_write_slice,
+// pcamv_scan_p_parts_forced, pcamv_host_scan_p, pcamv_host_scan_p_forced,
+// pcamv_stc_embed) and to the port's slice: I slices (I16x16, I4x4) and P
+// slices with or without partitions, one reference and the 4x4
+// transform. Twins of the reference's serial host paths:
 //   - encoder/cavlc.c:288-717 (MB + residual writers) and common/bs.h
 //   - common/macroblock.c:28-165 (median MVP / pskip derivation)
 //   - embed.h:309-548 (STC Viterbi)
@@ -609,4 +610,107 @@ extern "C" void pcamv_scan_p_parts_forced(
         g.commit(y4 + gg[0], x4 + gg[1], gg[3], gg[2], mv);
       }
     }
+}
+
+// ------------------------------------------------------ 16x16 host scan ---
+// MVP / P_SKIP scans of the unpartitioned P path: the reference
+// package's pcamv_host_scan_p and pcamv_host_scan_p_forced, copied.
+namespace {
+inline void median3(const int32_t* a, const int32_t* b, const int32_t* c,
+                    int32_t* out) {
+  for (int i = 0; i < 2; i++) {
+    int x = a[i], y = b[i], z = c[i];
+    int mx = x > y ? (x > z ? x : z) : (y > z ? y : z);
+    int mn = x < y ? (x < z ? x : z) : (y < z ? y : z);
+    out[i] = x + y + z - mx - mn;
+  }
+}
+
+static const int32_t ZERO2[2] = {0, 0};
+
+// spec 8.4.1.3 reduced to single-ref all-inter frames (the reference
+// encoder/inter.py median_mvp derives the rule)
+static void mvp_16x16(const int32_t* mv, const uint8_t* avail, int mbw,
+                      int mbh, int my, int mx, int32_t* out) {
+  bool a_ok = mx > 0 && avail[my * mbw + mx - 1];
+  bool b_ok = my > 0 && avail[(my - 1) * mbw + mx];
+  bool c_ok = my > 0 && mx + 1 < mbw && avail[(my - 1) * mbw + mx + 1];
+  bool d_ok = my > 0 && mx > 0 && avail[(my - 1) * mbw + mx - 1];
+  const int32_t* A = a_ok ? &mv[(my * mbw + mx - 1) * 2] : ZERO2;
+  const int32_t* B = b_ok ? &mv[((my - 1) * mbw + mx) * 2] : ZERO2;
+  const int32_t* C = ZERO2;
+  bool c_use = false;
+  if (c_ok) { C = &mv[((my - 1) * mbw + mx + 1) * 2]; c_use = true; }
+  else if (d_ok) { C = &mv[((my - 1) * mbw + mx - 1) * 2]; c_use = true; }
+  if (!b_ok && !c_use && a_ok) { out[0] = A[0]; out[1] = A[1]; return; }
+  int n_ok = (int)a_ok + (int)b_ok + (int)c_use;
+  if (n_ok == 1) {
+    const int32_t* s = a_ok ? A : b_ok ? B : C;
+    out[0] = s[0]; out[1] = s[1];
+    return;
+  }
+  median3(A, B, C, out);
+}
+
+static void pskip_16x16(const int32_t* mv, const uint8_t* avail, int mbw,
+                        int mbh, int my, int mx, int32_t* out) {
+  bool a_ok = mx > 0 && avail[my * mbw + mx - 1];
+  bool b_ok = my > 0 && avail[(my - 1) * mbw + mx];
+  if (!a_ok || !b_ok) { out[0] = out[1] = 0; return; }
+  const int32_t* A = &mv[(my * mbw + mx - 1) * 2];
+  const int32_t* B = &mv[((my - 1) * mbw + mx) * 2];
+  if ((A[0] == 0 && A[1] == 0) || (B[0] == 0 && B[1] == 0)) {
+    out[0] = out[1] = 0;
+    return;
+  }
+  mvp_16x16(mv, avail, mbw, mbh, my, mx, out);
+}
+}  // namespace
+
+extern "C" void pcamv_host_scan_p(const int32_t* mv, const int32_t* cbp_luma,
+                                  const int32_t* cbp_chroma, int mbw,
+                                  int mbh, uint8_t* skip_out,
+                                  int32_t* mvd_out, int32_t* mvp_out) {
+  std::vector<uint8_t> avail(mbw * mbh, 0);
+  for (int my = 0; my < mbh; my++) {
+    for (int mx = 0; mx < mbw; mx++) {
+      int a = my * mbw + mx;
+      int32_t mvp[2], ps[2];
+      mvp_16x16(mv, avail.data(), mbw, mbh, my, mx, mvp);
+      pskip_16x16(mv, avail.data(), mbw, mbh, my, mx, ps);
+      const int32_t* here = &mv[a * 2];
+      skip_out[a] = (cbp_luma[a] == 0 && cbp_chroma[a] == 0 &&
+                     here[0] == ps[0] && here[1] == ps[1]);
+      mvd_out[a * 2] = here[0] - mvp[0];
+      mvd_out[a * 2 + 1] = here[1] - mvp[1];
+      mvp_out[a * 2] = mvp[0];
+      mvp_out[a * 2 + 1] = mvp[1];
+      avail[a] = 1;
+    }
+  }
+}
+
+extern "C" void pcamv_host_scan_p_forced(const int32_t* mv,
+                                         const uint8_t* skip, int mbw,
+                                         int mbh, int32_t* final_mv,
+                                         int32_t* mvd_out) {
+  int n = mbw * mbh;
+  std::memcpy(final_mv, mv, n * 2 * sizeof(int32_t));
+  std::vector<uint8_t> avail(n, 0);
+  for (int my = 0; my < mbh; my++) {
+    for (int mx = 0; mx < mbw; mx++) {
+      int a = my * mbw + mx;
+      if (skip[a]) {
+        pskip_16x16(final_mv, avail.data(), mbw, mbh, my, mx,
+                    &final_mv[a * 2]);
+        mvd_out[a * 2] = mvd_out[a * 2 + 1] = 0;
+      } else {
+        int32_t mvp[2];
+        mvp_16x16(final_mv, avail.data(), mbw, mbh, my, mx, mvp);
+        mvd_out[a * 2] = final_mv[a * 2] - mvp[0];
+        mvd_out[a * 2 + 1] = final_mv[a * 2 + 1] - mvp[1];
+      }
+      avail[a] = 1;
+    }
+  }
 }

@@ -27,7 +27,6 @@ latency (~mbw + 2*mbh waves, each a few dozen MBs), not by bytes (the
 
 from __future__ import annotations
 
-import ctypes
 import os
 import re
 
@@ -301,13 +300,10 @@ def deblock_frame_cuda(y, u, v, par, mbh: int, mbw: int):
     yp = torch.nn.functional.pad(y, (PAD,) * 4).contiguous()
     up = torch.nn.functional.pad(u, (PAD,) * 4).contiguous()
     vp = torch.nn.functional.pad(v, (PAD,) * 4).contiguous()
-    fn = kernels.load().pcamv_deblock_frame
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 \
-        + [ctypes.c_void_p]
-    stream = torch.cuda.current_stream(y.device).cuda_stream
+    fn = kernels.entry("pcamv_deblock_frame",
+                       [kernels.VP] * 4 + [kernels.CI] * 2 + [kernels.VP])
     rc = fn(kernels.ptr(yp), kernels.ptr(up), kernels.ptr(vp),
-            kernels.ptr(par), mbh, mbw, ctypes.c_void_p(stream))
+            kernels.ptr(par), mbh, mbw, kernels.stream(y))
     kernels.check(rc, "pcamv_deblock_frame")
     deblock_frame.launches += 1
     Hc, Wc = H // 2, W // 2

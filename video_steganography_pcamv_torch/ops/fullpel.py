@@ -1,6 +1,6 @@
-"""Kernel B1: full-pel all-partition motion search.
+"""Kernels B1 and B6: full-pel motion search.
 
-`fullpel_parts` replaces the TPU kernel `fullpel_parts_pallas`
+B1: `fullpel_parts` replaces the TPU kernel `fullpel_parts_pallas`
 (video_steganography_pcamv_tpu/ops/pallas_kernels.py:435). On a CUDA
 tensor it launches the hand-written kernel `csrc/fullpel.cu`; on a CPU
 tensor it runs `fullpel_search_parts`, the plain PyTorch port of the
@@ -16,18 +16,22 @@ at rng 16); device-memory traffic is ~10 KB per MB.
 Output (both paths): the reference's `st` dict — c16 [mbh,mbw],
 mv16 [mbh,mbw,2], c16x8/mv16x8 [mbh,mbw,2(,2)], c8x16/mv8x16,
 c8 [mbh,mbw,4], mv8 [mbh,mbw,4,2]; MVs are full-pel (x, y).
+
+B6: `fullpel_search16` replaces the TPU kernel `fullpel_search_pallas`
+(pallas_kernels.py:549), the 16x16-only search of the unpartitioned P
+path against a zero predictor. Its kernel is the 16x16 instance of the
+same CUDA template (`csrc/fullpel.cu`, one running minimum instead of
+nine); its plain version is `encoder/me.py:fullpel_search`.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import numpy as np
 import torch
 
 from . import mc
 from .. import kernels
-from ..encoder.me import mv_bits_table
+from ..encoder.me import fullpel_search, mv_bits_table
 from ..ops.blocks import to_blocks
 
 _I32 = torch.int32
@@ -136,28 +140,63 @@ def fullpel_parts(cur_y, ref_fp, pred_mv_fp, rng: int, mbh: int, mbw: int,
             ("ref_fp", ref_fp, (h + 2 * mc.PAD, w + 2 * mc.PAD)),
             ("pred_mv_fp", pred_mv_fp, (mbh, mbw, 2))):
         kernels.check_tensor("fullpel_parts", name, t, _I32, shape)
-    lib = kernels.load()
-    fn = lib.pcamv_fullpel_parts
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p]
+    VP, CI = kernels.VP, kernels.CI
+    fn = kernels.entry("pcamv_fullpel_parts",
+                       [VP, CI, VP, CI, VP, VP] + [CI] * 5 + [VP] * 3)
     bits_t = _bits_on(cur_y.device, rng)
     cost9 = torch.empty((mbh, mbw, 9), dtype=_I32, device=cur_y.device)
     idx9 = torch.empty((mbh, mbw, 9), dtype=_I32, device=cur_y.device)
-    stream = torch.cuda.current_stream(cur_y.device).cuda_stream
     ptr = kernels.ptr
     rc = fn(ptr(cur_y), w, ptr(ref_fp), w + 2 * mc.PAD, ptr(pred_mv_fp),
             ptr(bits_t), bits_t.shape[0], rng, int(lam), mbh, mbw,
-            ptr(cost9), ptr(idx9), ctypes.c_void_p(stream))
+            ptr(cost9), ptr(idx9), kernels.stream(cur_y))
     kernels.check(rc, "pcamv_fullpel_parts")
     fullpel_parts.launches += 1
     return units_to_st(cost9, idx9, rng)
 
 
 fullpel_parts.launches = 0
+
+
+def fullpel_search16(cur_y, ref_fp, rng: int, mbh: int, mbw: int,
+                     lam: int = 1):
+    """Kernel B6, replacing the TPU kernel `fullpel_search_pallas`
+    (video_steganography_pcamv_tpu/ops/pallas_kernels.py:549): the
+    exhaustive +-rng 16x16 SAD search, cost = SAD + lam * (bits(se(4dx))
+    + bits(se(4dy))) against a zero predictor, first strict-< minimum in
+    dy-outer, dx-inner order. On the H100 it is bound by integer ALU
+    work and shared-memory reads, like B1.
+
+    cur_y [16mbh,16mbw] int32; ref_fp the PAD-padded full-pel plane
+    int32. Returns (mv [mbh,mbw,2] int32 full-pel (x, y), cost [mbh,mbw]
+    int32). CPU tensors run the plain `fullpel_search`; CUDA tensors
+    launch the kernel (counted in `fullpel_search16.launches`)."""
+    if cur_y.device.type == "cpu":
+        zero = torch.zeros((mbh, mbw, 2), dtype=_I32)
+        return fullpel_search(cur_y, ref_fp, zero, rng, mbh, mbw, lam)
+    h, w = 16 * mbh, 16 * mbw
+    if not 0 <= rng <= mc.PAD:
+        raise ValueError("fullpel_search16: rng %d outside [0, %d]"
+                         % (rng, mc.PAD))
+    kernels.check_tensor("fullpel_search16", "cur_y", cur_y, _I32, (h, w))
+    kernels.check_tensor("fullpel_search16", "ref_fp", ref_fp, _I32,
+                         (h + 2 * mc.PAD, w + 2 * mc.PAD))
+    VP, CI = kernels.VP, kernels.CI
+    fn = kernels.entry("pcamv_fullpel_search16",
+                       [VP, CI, VP, CI, VP] + [CI] * 5 + [VP] * 3)
+    bits_t = _bits_on(cur_y.device, rng)
+    mv = torch.empty((mbh, mbw, 2), dtype=_I32, device=cur_y.device)
+    cost = torch.empty((mbh, mbw), dtype=_I32, device=cur_y.device)
+    ptr = kernels.ptr
+    rc = fn(ptr(cur_y), w, ptr(ref_fp), w + 2 * mc.PAD, ptr(bits_t),
+            bits_t.shape[0], rng, int(lam), mbh, mbw, ptr(mv), ptr(cost),
+            kernels.stream(cur_y))
+    kernels.check(rc, "pcamv_fullpel_search16")
+    fullpel_search16.launches += 1
+    return mv, cost
+
+
+fullpel_search16.launches = 0
 
 _BITS: dict = {}
 

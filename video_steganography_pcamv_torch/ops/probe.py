@@ -27,8 +27,6 @@ Block index convention per MB: 8x8 blocks b in {0: TL, 1: TR, 2: BL,
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
@@ -226,18 +224,7 @@ def probe_maps_plain(cur_y, blocks8, wht8, r_idx8, qp: int, mbh: int,
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-_VP, _CI = ctypes.c_void_p, ctypes.c_int
-
-
-def _fn(name: str, argtypes):
-    fn = getattr(kernels.load(), name)
-    fn.restype = ctypes.c_int
-    fn.argtypes = argtypes
-    return fn
-
-
-def _stream(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+_VP, _CI = kernels.VP, kernels.CI
 
 
 def qpel_tables(windows):
@@ -260,9 +247,9 @@ def qpel_tables(windows):
     dev = windows.device
     blocks8 = torch.empty((169, n8, 8, 8), dtype=torch.uint8, device=dev)
     wht8 = torch.empty((169, n8, 64), dtype=torch.int16, device=dev)
-    fn = _fn("pcamv_qpel_tables", [_VP, _CI, _VP, _VP, _VP])
+    fn = kernels.entry("pcamv_qpel_tables", [_VP, _CI, _VP, _VP, _VP])
     ptr = kernels.ptr
-    rc = fn(ptr(windows), n8, ptr(blocks8), ptr(wht8), _stream(windows))
+    rc = fn(ptr(windows), n8, ptr(blocks8), ptr(wht8), kernels.stream(windows))
     kernels.check(rc, "pcamv_qpel_tables")
     qpel_tables.launches += 1
     return blocks8, wht8
@@ -296,10 +283,10 @@ def subpel(cur_y, wht8, part, mvfp8, prev_mv, lam: int, mbh: int,
     dev = cur_y.device
     mv8 = torch.empty((2 * mbh, 2 * mbw, 2), dtype=_I32, device=dev)
     r_idx8 = torch.empty((n8,), dtype=_I32, device=dev)
-    fn = _fn("pcamv_subpel", [_VP] * 5 + [_CI] * 3 + [_VP] * 3)
+    fn = kernels.entry("pcamv_subpel", [_VP] * 5 + [_CI] * 3 + [_VP] * 3)
     ptr = kernels.ptr
     rc = fn(ptr(cur_y), ptr(wht8), ptr(part), ptr(mvfp8), ptr(prev_mv),
-            int(lam), mbh, mbw, ptr(mv8), ptr(r_idx8), _stream(cur_y))
+            int(lam), mbh, mbw, ptr(mv8), ptr(r_idx8), kernels.stream(cur_y))
     kernels.check(rc, "pcamv_subpel")
     subpel.launches += 1
     return mv8, r_idx8
@@ -349,11 +336,11 @@ def probe_maps(cur_y, blocks8, wht8, r_idx8, qp: int, mbh: int, mbw: int,
     SK = torch.empty((13, 9, n, 4), dtype=_I32, device=dev)
     SP = torch.empty((13, 9, n, 4), dtype=_I32, device=dev)
     sc8 = torch.empty((13, n, 4), dtype=_I32, device=dev)
-    fn = _fn("pcamv_probe_maps", [_VP] * 5 + [_CI] * 4 + [_VP] * 4)
+    fn = kernels.entry("pcamv_probe_maps", [_VP] * 5 + [_CI] * 4 + [_VP] * 4)
     ptr = kernels.ptr
     rc = fn(ptr(cur_y), ptr(blocks8), ptr(wht8), ptr(r_idx8), ptr(qtab),
             qp // 6 - 4, int(decimate), mbh, mbw, ptr(SK), ptr(SP),
-            ptr(sc8), _stream(cur_y))
+            ptr(sc8), kernels.stream(cur_y))
     kernels.check(rc, "pcamv_probe_maps")
     probe_maps.launches += 1
     return SK, SP, sc8

@@ -1,15 +1,18 @@
 """Stego engine, serving subset (port of stego/embed.py: `StegoEngine`
-construction, `_next_message` and `apply_costs`).
+construction, `_next_message`, `embed_frame` and `apply_costs`).
 
-Host half of the partition embedding: MVC cost adjustment, cover
-assembly in coding order, STC (native library), flip application and
-the forced rescan. Pure numpy; the STC and the forced scan run in the
-port's native library.
+`apply_costs` is the host half of the partition embedding: MVC cost
+adjustment, cover assembly in coding order, STC (native library), flip
+application and the forced rescan, all numpy. `embed_frame` is the
+16x16-only path's whole embedding: the RCA costs from the analysis
+tables on the device, then the same host steps and the pass-2
+re-encode.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .. import native
 from ..encoder.partition import N_UNITS, UNIT_BLOCKS
@@ -27,6 +30,73 @@ class StegoEngine:
     def _next_message(self, an: int) -> np.ndarray:
         return self._rng.randint(0, 2, an).astype(np.uint8)
 
+    def _cover_size(self, enc, n_cov: int) -> int:
+        st = self.p.stego
+        rate = st.em_rate
+        an = int(rate) if rate > 1 else int(rate * n_cov)
+        an = min(an, n_cov)
+        an = stc_feasible_k(n_cov, an, st.stc_h, self._stc_state)
+        enc.stats.mv_covers += n_cov
+        return an
+
+    def _embed(self, enc, cov, rho_cov, an: int) -> np.ndarray:
+        """STC-embed the next message into the cover bits; returns the
+        flip mask over the cover."""
+        message = self._next_message(an)
+        stego_bits, _cost = native.stc_embed(
+            cov, message, rho_cov, h=self.p.stego.stc_h,
+            state=self._stc_state)
+        flips = (cov ^ stego_bits).astype(bool)
+        self.sent_messages.append(message)
+        enc.stats.message_bits += an
+        enc.stats.mv_flips += int(flips.sum())
+        return flips
+
+    def embed_frame(self, enc, y, u, v, qp: int, mv, skip1, mvp1, tables):
+        """16x16-only P frame: cover = LSB(mvx + mvy) of the coded MBs in
+        raster order, RCA costs from the analysis tables (`blocks`,
+        `wht`, `r_idx` on the device), STC, flipped MBs take their
+        alternative MV, the forced rescan and the pass-2 re-encode with
+        pass 1's skips forced. mv/skip1/mvp1 are host arrays from pass 1.
+        Returns (final_mv, skip, mvd, res2), or None when nothing is
+        embedded this frame."""
+        from ..encoder import inter as INTER
+        from ..encoder.analyse2 import stego_costs_from_table
+        from ..encoder.me import lambda_tab
+        from ..ops.transform import chroma_qp
+        from .cost import cost_mv_table
+        p, st = self.p, self.p.stego
+        mbh, mbw = p.mb_height, p.mb_width
+        cover_mask = ~skip1
+        n_cov = int(cover_mask.sum())
+        an = self._cover_size(enc, n_cov)
+        if an <= 0 or n_cov == 0:
+            self.sent_messages.append(np.zeros(0, np.uint8))
+            return None
+
+        dev = enc.device
+        rho, alt_mv, _flags = stego_costs_from_table(
+            y, tables["blocks"], tables["wht"], tables["r_idx"],
+            torch.as_tensor(mv).to(dev), torch.as_tensor(mvp1).to(dev),
+            enc._cost_mv_dev(qp, lambda_tab(qp)), qp, mbh, mbw)
+        rho = rho.cpu().numpy()
+        alt_mv = alt_mv.cpu().numpy()
+        cov = ((mv[..., 0] + mv[..., 1]) & 1).astype(np.uint8)[cover_mask]
+        rho_cov = st.alpha_loc * rho[cover_mask].astype(np.float64)
+        flip_cov = self._embed(enc, cov, rho_cov, an)
+
+        flip_full = np.zeros((mbh, mbw), bool)
+        flip_full[cover_mask] = flip_cov
+        mv2 = mv.copy()
+        mv2[flip_full] = alt_mv[flip_full]
+        final_mv, mvd2 = native.host_scan_p_forced(mv2, skip1)
+        res2 = INTER.encode_p_frame_device(
+            y, u, v, enc.ref["luma"], enc.ref["u"], enc.ref["v"],
+            torch.as_tensor(final_mv).to(dev), qp,
+            chroma_qp(qp, p.chroma_qp_offset), mbh, mbw,
+            force_zero=torch.as_tensor(skip1).to(dev))
+        return final_mv, skip1, mvd2, res2
+
     def apply_costs(self, enc, part, mv8, skip1, rho_u, alt_u):
         """MVC adjustment, cover assembly, STC, flips, forced rescan.
         Returns (final_mv8, skip, mvd4)."""
@@ -36,11 +106,7 @@ class StegoEngine:
         rho_u = rho_u.astype(np.float64).copy()
         covered = (~skip1) * nu
         n_cov = int(covered.sum())
-        rate = st.em_rate
-        an = int(rate) if rate > 1 else int(rate * n_cov)
-        an = min(an, n_cov)
-        an = stc_feasible_k(n_cov, an, st.stc_h, self._stc_state)
-        enc.stats.mv_covers += n_cov
+        an = self._cover_size(enc, n_cov)
         if an <= 0 or n_cov == 0:
             self.sent_messages.append(np.zeros(0, np.uint8))
             f8, md, _ = native.scan_p_parts_forced(part, mv8, skip1)
@@ -77,13 +143,7 @@ class StegoEngine:
         cov = ((umv_f[:, 0] + umv_f[:, 1]) & 1).astype(np.uint8)
         rho_cov = rho_u.reshape(-1)[cov_idx].astype(np.float64)
 
-        message = self._next_message(an)
-        stego_bits, _cost = native.stc_embed(
-            cov, message, rho_cov, h=st.stc_h, state=self._stc_state)
-        flips = (cov ^ stego_bits).astype(bool)
-        self.sent_messages.append(message)
-        enc.stats.message_bits += an
-        enc.stats.mv_flips += int(flips.sum())
+        flips = self._embed(enc, cov, rho_cov, an)
 
         mv8_2 = mv8.copy()
         for fi in cov_idx[flips]:
