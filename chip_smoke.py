@@ -37,8 +37,21 @@ Phases (any failure raises and the script exits non-zero):
      recovered by the extractor, B6, B7, B8a, B8b and B5 launched, fps
      printed;
  12. (only with --stages16) per-stage times of a 1080p P frame on the
-     16x16-only path.
-Phase 9 runs right after phase 4, so that a new kernel that fails
+     16x16-only path;
+ 13. kernel B9 (per-8x8 window fetch) against its plain version at 1080p
+     on the main path's real MVs and on synthetic +-16 MVs at the frame
+     corners, and B10 (lowres frame costs on B1's kernel) against its
+     plain version at the 960x544 lowres shape, rng 8: array-equal,
+     timed, beside their bounds;
+ 14. BASELINE config 3 (transform_8x8 + rd 1, bench.py's other Params)
+     at 128x96, six frames on cuda and on cpu: byte-equal streams with
+     Intra_8x8 and 8x8-transform P MBs, decoded and read by the port's
+     decoder and extractor;
+ 15. config 3 at 1280x720 (45x80 MBs), IDR + 4 P frames plus flush:
+     payload recovered, B1, B9, B2-B4 launched every P frame and B5
+     every frame, I8x8 and trans8 MB counts, fps printed;
+ 16. (only with --stages8) per-stage times of a 720p config-3 P frame.
+Phases 9 and 13 run right after phase 4, so that a new kernel that fails
 stops the run early. Each phase logs its wall time. The line before the
 last two holds the per-kernel JSON record, then the card line; the last
 line is {"ok": true, "device": {...}}.
@@ -256,11 +269,12 @@ def _tail_inputs(dev):
     zero = torch.zeros((MBH, MBW, 2), dtype=torch.int32, device=dev)
     st = FP.fullpel_parts(cur, ref["luma"][0], zero, 16, MBH, MBW, lam)
     part, mvfp8 = PT.decide_partition(st, MBH, MBW, lam)
+    mvfp8 = mvfp8.contiguous()
     windows = PT.gather_windows8(ref["luma"].to(torch.uint8), mvfp8, MBH,
-                                 MBW).contiguous()
+                                 MBW)
     prev_mv = torch.as_tensor(np.random.RandomState(4).randint(
         -40, 41, (MBH, MBW, 2)).astype(np.int32), device=dev)
-    return cur, windows, part, mvfp8.contiguous(), prev_mv, lam, qp
+    return cur, windows, part, mvfp8, prev_mv, lam, qp
 
 
 def phase_tail(dev, int_rate):
@@ -341,6 +355,104 @@ def phase_tail(dev, int_rate):
         log("%s time: kernel %.3f ms, plain %.3f ms, bound %.4f ms (%s) "
             "(median, 1080p)" % (r["name"], r["ms"], r["plain_ms"],
                                  r["bound_ms"], r["bound_by"]))
+    return recs
+
+
+def _touched_bytes(planes, yy, xx) -> int:
+    """Distinct plane bytes that windows at rows yy [N, k] and columns
+    xx [N, k] of the [4, Hp, Wp] planes read (overlaps counted once)."""
+    touched = torch.zeros(planes.shape[1:], dtype=torch.bool,
+                          device=planes.device)
+    touched[yy[:, :, None], xx[:, None, :]] = True
+    return 4 * int(touched.sum())
+
+
+def phase_b9b10(dev, int_rate):
+    """B9 on the main path's real MVs (B1 with a zero predictor and the
+    partition decision on a 1080p frame pair) and on +-16 corner MVs;
+    B10 on the lowres planes of the same pair."""
+    from video_steganography_pcamv_torch.encoder import partition as PT
+    from video_steganography_pcamv_torch.encoder import slicetype as ST
+    from video_steganography_pcamv_torch.encoder.me import lambda_tab
+    from video_steganography_pcamv_torch.ops import fullpel as FP
+    from video_steganography_pcamv_torch.ops import mc
+    from video_steganography_pcamv_torch.utils.yuv import synthetic_sequence
+    fr = synthetic_sequence(16 * MBW, 16 * MBH, 2, seed=3)
+    lam = lambda_tab(26)
+    cur = torch.as_tensor(fr[1].y.astype(np.int32), device=dev)
+    prev = torch.as_tensor(fr[0].y.astype(np.int32), device=dev)
+    c = torch.as_tensor(fr[0].u.astype(np.int32), device=dev)
+    ref = mc.build_ref(prev, c, c)
+    zero = torch.zeros((MBH, MBW, 2), dtype=torch.int32, device=dev)
+    st = FP.fullpel_parts(cur, ref["luma"][0], zero, 16, MBH, MBW, lam)
+    real = PT.decide_partition(st, MBH, MBW, lam)[1].contiguous()
+    planes = ref["luma"].to(torch.uint8)
+    n8 = 4 * MBH * MBW
+    recs = []
+
+    # B9. bytes: the plane samples the run's windows touch, each read
+    # once, the [N8, 4, 16, 16] windows written, the MVs read; no
+    # arithmetic. library: the one advanced-index gather
+    cases = [("main-path MVs", real)]
+    g = np.random.RandomState(12)
+    for sx, sy in ((-1, -1), (-1, 1), (1, -1), (1, 1)):
+        mv = g.randint(-16, 17, (2 * MBH, 2 * MBW, 2)).astype(np.int32)
+        for by, bx in ((0, 0), (0, -1), (-1, 0), (-1, -1)):
+            mv[by, bx] = (16 * sx, 16 * sy)
+        cases.append(("corner MVs %+d, %+d" % (16 * sx, 16 * sy),
+                      torch.as_tensor(mv, device=dev)))
+    err = 0
+    for name, mv in cases:
+        got = PT.gather_windows8(planes, mv, MBH, MBW)
+        err = max(err, _check_equal(
+            "B9 gather_windows8 (%s)" % name, (got,),
+            (PT.gather_windows8_plain(planes, mv, MBH, MBW),)))
+        log("B9 %s: kernel == plain at %dx%d MBs (N8 %d)"
+            % (name, MBH, MBW, n8))
+    ms = cuda_ms(lambda: PT.gather_windows8(planes, real, MBH, MBW), 20, 3)
+    plain_ms = cuda_ms(lambda: PT.gather_windows8_plain(planes, real, MBH,
+                                                        MBW), 5)
+    yy, xx = PT.window8_index(real, MBH, MBW)
+    yi, xi = yy[:, :, None], xx[:, None, :]
+    lib_ms = cuda_ms(lambda: planes[:, yi, xi], 20, 3)
+    read = _touched_bytes(planes, yy, xx)
+    log("B9 reads %d distinct plane bytes (%d window bytes written)"
+        % (read, n8 * 4 * 256))
+    recs.append(record("gather_windows8", "windows8.cu",
+                       "ops/pallas_kernels.py:259", err, ms, plain_ms,
+                       bound(read + n8 * 4 * 256 + n8 * 8, 0, int_rate),
+                       lib_ms))
+
+    # B10 at the lowres shape (960x544: 68x120 8x8 blocks, 34x60 B1
+    # tiles). bytes: the lowres cur and the padded lowres ref read once,
+    # B1's 9 (cost, index) pairs a tile and the two costs written; ops:
+    # B1's 256 abs-differences of 3 ops a tile and displacement, and ~4
+    # ops a sample for the intra pass
+    lr_cur, lr_ref = ST.lowres(cur), ST.lowres(prev)
+    rng = 8
+    got = ST.lowres_costs_kernel(lr_cur, lr_ref, MBH, MBW, rng)
+    err = _check_equal("B10 lowres_costs_kernel", (got,),
+                       (ST.lowres_costs_kernel_plain(lr_cur, lr_ref, MBH,
+                                                     MBW, rng),))
+    log("B10: kernel == plain at %dx%d lowres, rng %d: (cost_i, cost_p) "
+        "= %s" % (lr_cur.shape[1], lr_cur.shape[0], rng, got.tolist()))
+    ms = cuda_ms(lambda: ST.lowres_costs_kernel(lr_cur, lr_ref, MBH, MBW,
+                                                rng), 20, 3)
+    plain_ms = cuda_ms(lambda: ST.lowres_costs_kernel_plain(
+        lr_cur, lr_ref, MBH, MBW, rng), 3)
+    nt = (lr_cur.shape[0] // 16) * (lr_cur.shape[1] // 16)
+    nbytes = (lr_cur.numel() + (lr_cur.shape[0] + 2 * mc.PAD)
+              * (lr_cur.shape[1] + 2 * mc.PAD) + nt * 18 + 2) * 4
+    ops = nt * (2 * rng + 1) ** 2 * 256 * 3 + lr_cur.numel() * 4
+    recs.append(record("lowres_costs_kernel", "fullpel.cu",
+                       "encoder/slicetype.py:41", err, ms, plain_ms,
+                       bound(nbytes, ops, int_rate)))
+    for r in recs:
+        log("%s time: kernel %.4f ms, plain %.3f ms, library %s, bound "
+            "%.4f ms (%s) (median, 1080p)"
+            % (r["name"], r["ms"], r["plain_ms"],
+               "n/a" if r["library_ms"] is None else "%.4f ms"
+               % r["library_ms"], r["bound_ms"], r["bound_by"]))
     return recs
 
 
@@ -495,10 +607,14 @@ def phase_b678(dev, int_rate):
     return recs
 
 
-def _params(w, h, tail_kernel, me_range=16, partitions=True):
+def _params(w, h, tail_kernel, me_range=16, partitions=True,
+            config3=False):
+    """bench.py's Params; `config3` adds BASELINE config 3's
+    transform_8x8 and rd 1."""
     from video_steganography_pcamv_torch.params import Params, StegoParams
     p = Params(width=w, height=h, qp=26, me_range=me_range,
                deblock_device=partitions, psnr=False, partitions=partitions,
+               transform_8x8=config3, rd=int(config3),
                stego=StegoParams(em_rate=64, key=99))
     p.tail_kernel = tail_kernel
     p.pipeline_deep = False
@@ -512,19 +628,17 @@ def _encode(p, frames, device):
     return enc, bs
 
 
-def _check_payload(bs, enc, n_frames, decode=True):
-    """The payload recovered by the port's blind extractor (which parses
-    every slice); with `decode`, also the port's decoder reconstructs
-    every frame (a CPU deblock, seconds a frame at 1080p)."""
+def _check_payload(bs, enc, n_frames):
+    """The port's decoder reconstructs every frame (a CPU deblock,
+    seconds a frame at 1080p) and the port's blind extractor recovers
+    the payload from the decoded frames."""
     from video_steganography_pcamv_torch.decoder import decode_annexb
     from video_steganography_pcamv_torch.stego.extract import (
-        extract_from_stream)
-    if decode:
-        dec = decode_annexb(bs)
-        if len(dec) != n_frames:
-            raise AssertionError("decoded %d frames of %d"
-                                 % (len(dec), n_frames))
-    got = extract_from_stream(bs, em_rate=64, key=99)
+        extract_from_frames)
+    dec = decode_annexb(bs)
+    if len(dec) != n_frames:
+        raise AssertionError("decoded %d frames of %d" % (len(dec), n_frames))
+    got = extract_from_frames(dec, em_rate=64)
     sent = enc._stego.sent_messages
     if len(got) != len(sent) or not all(
             np.array_equal(a, b) for a, b in zip(got, sent)):
@@ -568,7 +682,32 @@ def phase_small16(dev):
         " %d payload bits recovered" % (len(bs_g), bits))
 
 
+def phase_small8(dev):
+    """Config 3 at 128x96: the cuda stream equals the cpu stream."""
+    from video_steganography_pcamv_torch.utils.yuv import synthetic_sequence
+    frames = synthetic_sequence(128, 96, 6, seed=7)
+    enc_g, bs_g = _encode(_params(128, 96, True, config3=True), frames, dev)
+    enc_c, bs_c = _encode(_params(128, 96, True, config3=True), frames,
+                          "cpu")
+    if bs_g != bs_c:
+        raise AssertionError("128x96 config-3 stream: cuda (%d B) != cpu "
+                             "(%d B)" % (len(bs_g), len(bs_c)))
+    counts = (enc_g.stats.i8x8_mbs, enc_g.stats.trans8_mbs)
+    if min(counts) < 1 or counts != (enc_c.stats.i8x8_mbs,
+                                     enc_c.stats.trans8_mbs):
+        raise AssertionError("128x96 config 3: I8x8 / trans8 MBs %s on "
+                             "cuda, %s on cpu" % (counts, (
+                                 enc_c.stats.i8x8_mbs,
+                                 enc_c.stats.trans8_mbs)))
+    bits = _check_payload(bs_g, enc_g, len(frames))
+    log("128x96 x6, config 3 (transform_8x8, rd 1): cuda stream == cpu "
+        "stream (%d bytes), %d I8x8 MBs, %d trans8 P MBs, %d payload bits "
+        "recovered" % (len(bs_g), counts[0], counts[1], bits))
+
+
 def _counters():
+    from video_steganography_pcamv_torch.encoder import partition as PT
+    from video_steganography_pcamv_torch.encoder import slicetype as ST
     from video_steganography_pcamv_torch.encoder import qpel_table as QT
     from video_steganography_pcamv_torch.ops.deblock import deblock_frame
     from video_steganography_pcamv_torch.ops import fullpel as FP
@@ -579,16 +718,21 @@ def _counters():
             "deblock_frame": deblock_frame,
             "fullpel_search16": FP.fullpel_search16,
             "gather_windows": QT.gather_windows,
-            "dct_quant": TQ.dct_quant, "deq_idct": TQ.deq_idct}
+            "dct_quant": TQ.dct_quant, "deq_idct": TQ.deq_idct,
+            "gather_windows8": PT.gather_windows8,
+            "lowres_costs_kernel": ST.lowres_costs_kernel}
 
 
 def phase_main(dev, card, tail_kernel: bool, n_frames: int,
-               partitions: bool = True):
+               partitions: bool = True, config3: bool = False):
+    """One path end to end at full width: 1920x1088, or 1280x720 for
+    config 3."""
     from video_steganography_pcamv_torch import Encoder
     from video_steganography_pcamv_torch.utils.yuv import synthetic_sequence
-    frames = synthetic_sequence(1920, 1088, n_frames, seed=7)
-    enc = Encoder(_params(1920, 1088, tail_kernel, partitions=partitions),
-                  device=dev)
+    w, h = (1280, 720) if config3 else (1920, 1088)
+    frames = synthetic_sequence(w, h, n_frames, seed=7)
+    enc = Encoder(_params(w, h, tail_kernel, partitions=partitions,
+                          config3=config3), device=dev)
     fns = _counters()
     for fn in fns.values():
         fn.launches = 0
@@ -606,8 +750,9 @@ def phase_main(dev, card, tail_kernel: bool, n_frames: int,
     if n_p < 1:
         raise AssertionError("no P frame in the main path")
     if partitions:
-        want = {"fullpel_parts": n_p, "qpel_tables": n_p, "subpel": n_p,
-                "probe_maps": n_p, "deblock_frame": len(frames)}
+        want = {"fullpel_parts": n_p, "gather_windows8": n_p,
+                "qpel_tables": n_p, "subpel": n_p, "probe_maps": n_p,
+                "deblock_frame": len(frames)}
     else:
         # per P frame: pass 1, the batched 13-version probe and pass 2
         want = {"fullpel_search16": n_p, "gather_windows": n_p,
@@ -617,17 +762,26 @@ def phase_main(dev, card, tail_kernel: bool, n_frames: int,
         if launches[k] < lo:
             raise AssertionError("%s launched %d times, want >= %d"
                                  % (k, launches[k], lo))
-    # the 16x16 stream's decode is checked at 112x80 (phase 10)
-    bits = _check_payload(bs, enc, len(frames), decode=partitions)
+    if config3 and min(enc.stats.i8x8_mbs, enc.stats.trans8_mbs) < 1:
+        raise AssertionError("config 3: %d I8x8 MBs, %d trans8 P MBs"
+                             % (enc.stats.i8x8_mbs, enc.stats.trans8_mbs))
+    bits = _check_payload(bs, enc, len(frames))
     fps_p = (len(frames) - 1) / (t2 - t1)
-    log("1080p %s: %d frames (%d I, %d P), %d bytes, %d "
+    label = ("720p config 3 (transform_8x8, rd 1)" if config3
+             else "1080p tail_kernel=%s" % tail_kernel if partitions
+             else "1080p partitions=False")
+    log("%s: %d frames (%d I, %d P), %d bytes, %d "
         "payload bits recovered; IDR %.3f s; P frames %.4f fps incl. "
         "flush; all %.4f fps; launches %s  [%s]"
-        % ("tail_kernel=%s" % tail_kernel if partitions
-           else "partitions=False", len(frames), enc.stats.i_frames, n_p,
-           len(bs), bits,
+        % (label, len(frames), enc.stats.i_frames, n_p, len(bs), bits,
            t1 - t0, fps_p, len(frames) / (t2 - t0), json.dumps(launches),
            card))
+    if config3:
+        log("720p config 3: %d I8x8 MBs in the IDR, %d trans8 P MBs; "
+            "launches per P frame: %s; B5 per frame %.2f"
+            % (enc.stats.i8x8_mbs, enc.stats.trans8_mbs, json.dumps(
+                {k: launches[k] / n_p for k in want if k != "deblock_frame"}),
+               launches["deblock_frame"] / len(frames)))
     return launches
 
 
@@ -660,12 +814,13 @@ def _stage_targets(partitions: bool):
             (CORE, "deblock_frame"), (native, "write_slice")]
 
 
-def phase_stages(dev, card, n_frames: int = 7, partitions: bool = True):
+def phase_stages(dev, card, n_frames: int = 7, partitions: bool = True,
+                 config3: bool = False):
     """Per-stage device time of a 1080p P frame on the tail_kernel=True
-    path (or the 16x16-only path): every stage is wrapped with a device
-    sync on each side (the syncs remove the pipelining, so the stages
-    sum to more than a P frame of phase 6). Averages over the P frames
-    after the first."""
+    path (or the 16x16-only path, or a 720p P frame of config 3): every
+    stage is wrapped with a device sync on each side (the syncs remove
+    the pipelining, so the stages sum to more than a P frame of phase
+    6). Averages over the P frames after the first."""
     from video_steganography_pcamv_torch import Encoder
     from video_steganography_pcamv_torch.utils.yuv import synthetic_sequence
     targets = _stage_targets(partitions)
@@ -688,12 +843,13 @@ def phase_stages(dev, card, n_frames: int = 7, partitions: bool = True):
         return wrap
 
     saved = [(obj, name, getattr(obj, name)) for obj, name in targets]
-    frames = synthetic_sequence(1920, 1088, n_frames, seed=7)
+    w, h = (1280, 720) if config3 else (1920, 1088)
+    frames = synthetic_sequence(w, h, n_frames, seed=7)
     try:
         for obj, name, fn in saved:
             setattr(obj, name, timed(name, fn))
-        enc = Encoder(_params(1920, 1088, True, partitions=partitions),
-                      device=dev)
+        enc = Encoder(_params(w, h, True, partitions=partitions,
+                              config3=config3), device=dev)
         enc.encode_frame(frames[0])
         enc.encode_frame(frames[1])
         torch.cuda.synchronize()
@@ -708,10 +864,10 @@ def phase_stages(dev, card, n_frames: int = 7, partitions: bool = True):
         for obj, name, fn in saved:
             setattr(obj, name, fn)
     n = len(frames) - 2
-    log("1080p %s stage times, ms per P frame over %d P frames, a device "
+    log("%s stage times, ms per P frame over %d P frames, a device "
         "sync around each stage  [%s]"
-        % ("tail_kernel=True" if partitions else "partitions=False", n,
-           card))
+        % ("720p config 3" if config3 else "1080p tail_kernel=True"
+           if partitions else "1080p partitions=False", n, card))
     for name, s in sorted(totals.items(), key=lambda kv: -kv[1]):
         log("  %-24s %9.3f" % (name, 1e3 * s / n))
     log("  %-24s %9.3f" % ("(rest of the frame)",
@@ -765,6 +921,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--stages16", action="store_true",
                     help="also time the stages of the 16x16-only path")
+    ap.add_argument("--stages8", action="store_true",
+                    help="also time the stages of config 3 at 720p")
     ap.add_argument("--ab", metavar="PARENT_ROOT",
                     help="compare the main path with another checkout")
     args = ap.parse_args()
@@ -796,8 +954,10 @@ def main() -> int:
     recs = [phase("2 B1", phase_b1, dev, int_rate),
             phase("3 B5", phase_b5, dev, int_rate)]
     recs += phase("4 B2-B4", phase_tail, dev, int_rate)
+    recs9 = phase("13 B9-B10", phase_b9b10, dev, int_rate)
     recs16 = phase("9 B6-B8", phase_b678, dev, int_rate)
     phase("5 112x80", phase_small, dev)
+    phase("14 128x96 config 3", phase_small8, dev)
     launches = phase("6 main path", phase_main, dev, card, tail_kernel=True,
                      n_frames=10)
     phase("7 tail_kernel=False", phase_main, dev, card, tail_kernel=False,
@@ -809,11 +969,18 @@ def main() -> int:
     if args.stages16:
         phase("12 16x16 stages", phase_stages, dev, card, n_frames=6,
               partitions=False)
-    for r in recs:
+    launches8 = phase("15 720p config 3", phase_main, dev, card,
+                      tail_kernel=True, n_frames=5, config3=True)
+    if args.stages8:
+        phase("16 config-3 stages", phase_stages, dev, card, n_frames=6,
+              config3=True)
+    if launches8["gather_windows8"] < 1:
+        raise AssertionError("config 3 did not launch B9")
+    for r in recs + recs9:
         r["launches"] = launches[r["name"]]
     for r in recs16:
         r["launches"] = launches16[r["name"]]
-    recs += recs16
+    recs += recs16 + recs9
     log("total %.1f s" % (time.time() - t_start))
     print(json.dumps({"kernels": recs}))
     print(card)

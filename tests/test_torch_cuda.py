@@ -12,7 +12,11 @@ its own:  python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
 - kernels B6, B7, B8a and B8b vs their plain versions (B8 at qp 20, 26
   and 38, zero_dc and use_dc on and off);
 - the 112x80 16x16-only encode (partitions=False) on cuda is
-  byte-equal to the same encode on the cpu.
+  byte-equal to the same encode on the cpu;
+- kernel B9 vs its plain version on real MVs and on +-20 corner MVs,
+  B10 vs its plain version, B5 with the trans8 rule in its rows;
+- the 128x96 config-3 encode (transform_8x8, rd 1) on cuda is byte-equal
+  to the same encode on the cpu.
 """
 
 import numpy as np
@@ -23,6 +27,7 @@ from video_steganography_pcamv_torch import Encoder
 from video_steganography_pcamv_torch.encoder import inter as INTER
 from video_steganography_pcamv_torch.encoder import partition as PT
 from video_steganography_pcamv_torch.encoder import qpel_table as QT
+from video_steganography_pcamv_torch.encoder import slicetype as ST
 from video_steganography_pcamv_torch.encoder.me import fullpel_search
 from video_steganography_pcamv_torch.ops import deblock as DB
 from video_steganography_pcamv_torch.ops import fullpel as FP
@@ -96,11 +101,12 @@ def _tail_inputs(dev, w, h, seed):
     zero = torch.zeros((mbh, mbw, 2), dtype=torch.int32, device=dev)
     st = FP.fullpel_parts(cur, ref["luma"][0], zero, 16, mbh, mbw, 4)
     part, mvfp8 = PT.decide_partition(st, mbh, mbw, 4)
+    mvfp8 = mvfp8.contiguous()
     windows = PT.gather_windows8(ref["luma"].to(torch.uint8), mvfp8, mbh,
-                                 mbw).contiguous()
+                                 mbw)
     prev_mv = torch.as_tensor(np.random.RandomState(seed).randint(
         -40, 41, (mbh, mbw, 2)).astype(np.int32), device=dev)
-    return cur, windows, part, mvfp8.contiguous(), prev_mv, mbh, mbw
+    return cur, windows, part, mvfp8, prev_mv, mbh, mbw
 
 
 @pytest.mark.parametrize("w,h,qp", [(112, 80, 26), (112, 80, 40),
@@ -207,5 +213,70 @@ def test_cuda_stream_equals_cpu_stream_16x16(dev):
                    stego=StegoParams(em_rate=16, key=5))
         enc = Encoder(p, device=device)
         return b"".join(enc.encode_frame(f) for f in frames) + enc.flush()
+
+    assert run(dev) == run("cpu")
+
+
+@pytest.mark.parametrize("corner", [False, True])
+def test_b9_kernel_matches_plain(dev, corner):
+    cur, _w, _p, mvfp8, _pm, mbh, mbw = _tail_inputs(dev, 112, 80, 3)
+    fr = synthetic_sequence(112, 80, 1, seed=5)
+    c = torch.as_tensor(fr[0].u.astype(np.int32), device=dev)
+    planes = TMC.build_ref(torch.as_tensor(fr[0].y.astype(np.int32),
+                                           device=dev), c, c)["luma"] \
+        .to(torch.uint8)
+    if corner:
+        mv = np.random.RandomState(2).randint(-20, 21, (2 * mbh, 2 * mbw, 2))
+        # outward at each corner: the furthest windows the encoder admits
+        for by, bx, v in ((0, 0, (-20, -20)), (0, -1, (20, -20)),
+                          (-1, 0, (-20, 20)), (-1, -1, (20, 20))):
+            mv[by, bx] = v
+        mvfp8 = torch.as_tensor(mv.astype(np.int32), device=dev)
+    got = PT.gather_windows8(planes, mvfp8, mbh, mbw)
+    assert torch.equal(got, PT.gather_windows8_plain(planes, mvfp8, mbh,
+                                                     mbw))
+    torch.cuda.synchronize()
+
+
+def test_b10_kernel_matches_plain(dev):
+    fr = synthetic_sequence(256, 144, 2, seed=4)     # lowres 128x72
+    cur, ref = (ST.lowres(torch.as_tensor(f.y.astype(np.int32), device=dev))
+                for f in fr[::-1])
+    bh, bw = cur.shape[0] // 8, cur.shape[1] // 8
+    assert torch.equal(ST.lowres_costs_kernel(cur, ref, bh, bw, 8),
+                       ST.lowres_costs_kernel_plain(cur, ref, bh, bw, 8))
+
+
+def test_b5_kernel_matches_plain_trans8(dev):
+    mbh, mbw, qp = 5, 9, 30
+    g = np.random.default_rng(8)
+    H, W = 16 * mbh, 16 * mbw
+    planes = [np.clip(128 + g.integers(-24, 25, s), 0, 255)
+              for s in ((H, W), (H // 2, W // 2), (H // 2, W // 2))]
+    maps = [g.random((mbh, mbw)) < 0.15, g.random((mbh, mbw)) < 0.2,
+            g.random((4 * mbh, 4 * mbw)) < 0.5,
+            g.integers(-20, 21, (4 * mbh, 4 * mbw, 2))]
+    t = [torch.as_tensor(np.ascontiguousarray(a, np.int32), device=dev)
+         for a in planes + maps]
+    t8 = torch.as_tensor((g.random((mbh, mbw)) < 0.5).astype(np.int32),
+                         device=dev)
+    par = DB.edge_params(*t[3:], qp, chroma_qp(qp), mbh, mbw, trans8=t8)
+    got = DB.deblock_frame_cuda(*t[:3], par, mbh, mbw)
+    want = DB.deblock_frame_plain(*t[:3], par, mbh, mbw)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_cuda_stream_equals_cpu_stream_config3(dev):
+    frames = synthetic_sequence(128, 96, 5, seed=7)
+
+    def run(device):
+        p = Params(width=128, height=96, qp=26, me_range=16,
+                   deblock_device=True, psnr=False, transform_8x8=True, rd=1,
+                   stego=StegoParams(em_rate=16, key=5))
+        enc = Encoder(p, device=device)
+        bs = b"".join(enc.encode_frame(f) for f in frames) + enc.flush()
+        assert enc.stats.i8x8_mbs > 0 and enc.stats.trans8_mbs > 0
+        return bs
 
     assert run(dev) == run("cpu")

@@ -1,0 +1,102 @@
+"""The port's BASELINE config 3 (the 8x8 transform with rd 1, CAVLC, one
+reference, no B frames) on the pipelined stego path, against the JAX
+`Encoder` on its CPU branch (tail_kernel=False): byte-equal Annex-B
+streams over IDR + 4 P frames for (transform_8x8, rd) in {(1, 1),
+(1, 0), (0, 1)}, with Intra_8x8 MBs in the IDR and 8x8-transform P MBs
+present; the port's decoder reproduces the JAX decoder's frames, and
+both extractors recover the payload. The accelerator branch's config-3
+case is in tests/test_torch_encoder_accel.py."""
+
+import numpy as np
+import pytest
+
+from video_steganography_pcamv_tpu.decoder import decode_annexb as j_decode
+from video_steganography_pcamv_tpu.encoder.core import Encoder as JEncoder
+from video_steganography_pcamv_tpu.params import Params, StegoParams
+from video_steganography_pcamv_tpu.stego.extract import (
+    extract_from_stream as j_extract)
+from video_steganography_pcamv_tpu.utils.yuv import Frame
+
+from video_steganography_pcamv_torch import Encoder as TEncoder
+from video_steganography_pcamv_torch import params as TP
+from video_steganography_pcamv_torch.decoder import decode_annexb
+from video_steganography_pcamv_torch.stego.extract import extract_from_stream
+
+W, H = 128, 96
+EM_RATE, KEY = 64, 99
+
+
+def config3_frames(n, w=W, h=H, seed=2):
+    """Gradient + sine content (favours Intra_8x8 and the 8x8 transform)
+    panning 2 pels a frame, with a textured band (favours 4x4)."""
+    rng = np.random.RandomState(seed)
+    pad = 40
+    yy, xx = np.mgrid[0:h + 2 * pad, 0:w + 2 * pad]
+    base = (40 + 0.8 * xx + 0.5 * yy
+            + 14 * np.sin(xx / 9.0) * np.cos(yy / 13.0))
+    band = (yy > (h + 2 * pad) // 2) & (yy < (h + 2 * pad) // 2 + 24)
+    base = np.where(band, base + rng.randint(-50, 51, base.shape), base)
+    out = []
+    for i in range(n):
+        s = 2 * i
+        y = base[pad:pad + h, pad + s:pad + s + w] + rng.randn(h, w) * 2
+        gy, gx = np.mgrid[0:h // 2, 0:w // 2]
+        u = 100 + (gx + s // 2) // 2
+        v = 150 - gy // 2
+        out.append(Frame(*(np.ascontiguousarray(np.clip(a, 0, 255),
+                                                np.uint8) for a in (y, u, v))))
+    return out
+
+
+def config3_kw(transform_8x8=True, rd=1):
+    """bench.py's serving Params with the 8x8 transform and rd."""
+    return dict(width=W, height=H, qp=26, me_range=16, deblock_device=True,
+                psnr=False, transform_8x8=transform_8x8, rd=rd)
+
+
+def _run(enc, frames):
+    return b"".join(enc.encode_frame(f) for f in frames) + enc.flush()
+
+
+def check_decode_and_payload(got, n_frames, sent):
+    """The port's decoder equals the JAX decoder frame by frame; both
+    extractors recover the sent payload."""
+    dec, jdec = decode_annexb(got), j_decode(got)
+    assert len(dec) == len(jdec) == n_frames
+    for a, b in zip(dec, jdec):
+        for pl in ("y", "u", "v"):
+            np.testing.assert_array_equal(getattr(a, pl), getattr(b, pl))
+        assert [m.mb_type for m in a.mbs] == [m.mb_type for m in b.mbs]
+    assert sum(len(s) for s in sent) > 0
+    for rec in (extract_from_stream(got, em_rate=EM_RATE, key=KEY),
+                j_extract(got, em_rate=EM_RATE, key=KEY)):
+        assert len(rec) == len(sent)
+        for g, s in zip(rec, sent):
+            np.testing.assert_array_equal(g, s)
+    return dec
+
+
+@pytest.mark.parametrize("t8,rd", [(True, 1), (True, 0), (False, 1)],
+                         ids=["trans8_rd1", "trans8_rd0", "rd1"])
+def test_config3_stream_byte_equal_cpu_branch(t8, rd):
+    frames = config3_frames(5)
+    jp = Params(**config3_kw(t8, rd),
+                stego=StegoParams(em_rate=EM_RATE, key=KEY))
+    jp.tail_kernel = False
+    jp.pipeline_deep = False
+    want = _run(JEncoder(jp), frames)
+    tp = TP.Params(**config3_kw(t8, rd),
+                   stego=TP.StegoParams(em_rate=EM_RATE, key=KEY))
+    tp.tail_kernel = False
+    tenc = TEncoder(tp, device="cpu")
+    got = _run(tenc, frames)
+    assert got == want
+    assert tenc.stats.i_frames == 1 and tenc.stats.p_frames == 4
+    dec = check_decode_and_payload(got, len(frames),
+                                   tenc._stego.sent_messages)
+    kinds = {m.mb_type for m in dec[0].mbs}
+    if t8:
+        assert tenc.stats.i8x8_mbs > 0 and "I8x8" in kinds
+        assert tenc.stats.trans8_mbs > 0
+    else:
+        assert tenc.stats.i8x8_mbs == tenc.stats.trans8_mbs == 0

@@ -97,3 +97,35 @@ def test_accel_stream_byte_equal_to_reference(reference_accel):
         assert len(rec) == len(sent)
         for g, s in zip(rec, sent):
             np.testing.assert_array_equal(g, s)
+
+
+def test_accel_config3_stream_byte_equal_to_reference(reference_accel):
+    """BASELINE config 3 (transform_8x8 + rd 1) on the accelerator
+    branch: byte-equal over IDR + 4 P frames with Intra_8x8 and
+    8x8-transform P MBs; the port's decoder equals the JAX decoder and
+    both extractors recover the payload."""
+    frames = synthetic_sequence(W, H, 5, seed=7)
+    kw = dict(_bench_kw(), transform_8x8=True, rd=1)
+    want = _run(JEncoder(Params(**kw, stego=StegoParams(em_rate=EM_RATE,
+                                                        key=KEY))), frames)
+    assert reference_accel["fullpel"] >= 1 and reference_accel["tail"] >= 1
+    tenc = TEncoder(TP.Params(**kw, stego=TP.StegoParams(em_rate=EM_RATE,
+                                                         key=KEY)),
+                    device="cpu")
+    got = _run(tenc, frames)
+    assert got == want
+    assert tenc.stats.p_frames == 4
+    assert tenc.stats.i8x8_mbs > 0 and tenc.stats.trans8_mbs > 0
+    dec, jdec = decode_annexb(got), j_decode(got)
+    assert len(dec) == len(jdec) == len(frames)
+    for a, b in zip(dec, jdec):
+        for pl in ("y", "u", "v"):
+            np.testing.assert_array_equal(getattr(a, pl), getattr(b, pl))
+    assert "I8x8" in {m.mb_type for m in dec[0].mbs}
+    sent = tenc._stego.sent_messages
+    assert sum(len(s) for s in sent) > 0
+    for rec in (extract_from_stream(got, em_rate=EM_RATE, key=KEY),
+                j_extract(got, em_rate=EM_RATE, key=KEY)):
+        assert len(rec) == len(sent)
+        for g, s in zip(rec, sent):
+            np.testing.assert_array_equal(g, s)

@@ -117,7 +117,7 @@ def test_every_cuda_source_is_built_and_names_its_tpu_kernel():
     from video_steganography_pcamv_torch import kernels
     srcs = sorted(glob.glob(os.path.join(
         ROOT, "video_steganography_pcamv_torch", "csrc", "*.cu")))
-    assert len(srcs) >= 7
+    assert len(srcs) >= 8
     assert kernels.sources() == srcs
     for path in srcs:
         with open(path) as f:
@@ -125,6 +125,34 @@ def test_every_cuda_source_is_built_and_names_its_tpu_kernel():
         assert 'extern "C" int pcamv_' in text, path
         assert "video_steganography_pcamv_tpu/" in text, path
         assert "_pallas" in text or "_kernel" in text, path
+
+
+def test_kernel_wrappers_name_their_tpu_kernel():
+    """Every wrapper of a TPU kernel names it, file and line, and counts
+    its launches; B10 rides on B1's kernel and names the reference's
+    wrapper of B1."""
+    from video_steganography_pcamv_torch.encoder import partition, slicetype
+    from video_steganography_pcamv_torch.encoder import qpel_table
+    from video_steganography_pcamv_torch.ops import deblock, fullpel, probe
+    from video_steganography_pcamv_torch.ops import tq4
+    wrappers = {
+        fullpel.fullpel_parts: "ops/pallas_kernels.py:435",
+        fullpel.fullpel_search16: "ops/pallas_kernels.py:549",
+        probe.qpel_tables: "ops/probe_pallas.py:221",
+        probe.subpel: "ops/probe_pallas.py:301",
+        probe.probe_maps: "ops/probe_pallas.py:481",
+        deblock.deblock_frame: "ops/deblock_pallas.py:469",
+        qpel_table.gather_windows: "encoder/qpel_table.py:64",
+        tq4.dct_quant: "ops/pallas_kernels.py:175",
+        tq4.deq_idct: "ops/pallas_kernels.py:204",
+        partition.gather_windows8: "ops/pallas_kernels.py:259",
+    }
+    for fn, where in wrappers.items():
+        doc = " ".join(fn.__doc__.split())
+        assert "video_steganography_pcamv_tpu/" + where in doc, fn.__name__
+        assert fn.launches >= 0
+    doc = " ".join(slicetype.lowres_costs_kernel.__doc__.split())
+    assert "video_steganography_pcamv_tpu/encoder/slicetype.py:41" in doc
 
 
 def _slice_params(**kw):
@@ -153,7 +181,9 @@ def test_encoder_defaults_to_cuda():
 
 @pytest.mark.parametrize("kw", [
     dict(cabac=True), dict(bframes=2), dict(ref_frames=2), dict(p4x4=True),
-    dict(transform_8x8=True), dict(rd=1), dict(aq_mode=1),
+    dict(rd=2), dict(transform_8x8=True, partitions=False,
+                     deblock_device=False), dict(me_range=24),
+    dict(aq_mode=1),
     dict(noise_reduction=100), dict(crf=23.0), dict(pipeline_deep=True),
     dict(psnr=True), dict(ssim=True), dict(zones="0,5,q=30"),
     dict(stego=StegoParams(em_rate=0)),

@@ -7,10 +7,11 @@ field for the blind stego extractor (the reference never shipped its
 extractor — stc_extract include commented out, analyse.c:43).
 
 The port's copy of the reference's decoder/decoder.py, cut to the CAVLC
-I/P path that the port's streams take (I16x16/I4x4, P partitions incl.
-sub-8x8, P_SKIP, sliding-window DPB). CABAC, the 8x8 transform, scaling
-matrices, B slices and per-MB QP changes in a deblocked slice raise
-NotImplementedError. The in-loop filter is the port's `ops.deblock`.
+I/P path that the port's streams take (I16x16/I4x4/I8x8, P partitions
+incl. sub-8x8, the adaptive 8x8 transform, P_SKIP, sliding-window DPB).
+CABAC, scaling matrices, B slices and per-MB QP changes in a deblocked
+slice raise NotImplementedError. The in-loop filter is the port's
+`ops.deblock`.
 """
 
 from __future__ import annotations
@@ -196,6 +197,7 @@ class DecPPS:
     chroma_qp_index_offset: int = 0
     num_ref_idx_l0_active: int = 1
     deblocking_control_present: bool = True
+    transform_8x8: bool = False
 
 
 @dataclass
@@ -353,8 +355,7 @@ def parse_pps(rbsp: bytes) -> DecPPS:
     br.read1()
     if br.more_rbsp_data():
         # FRExt tail (spec 7.3.2.2)
-        if br.read1():
-            raise NotImplementedError("the 8x8 transform")
+        pps.transform_8x8 = bool(br.read1())
         assert br.read1() == 0, "pic scaling matrices unsupported"
         br.read_se()  # second_chroma_qp_index_offset
     return pps
@@ -379,6 +380,11 @@ class SliceDecoder:
         self.modes4 = np.full((4 * self.mbh, 4 * self.mbw), 2, np.int32)
         self.mb_intra = np.zeros((self.mbh, self.mbw), bool)
         self.mb_skip = np.zeros((self.mbh, self.mbw), bool)
+        self.mb_trans8 = np.zeros((self.mbh, self.mbw), bool)
+        # per-8x8 coeff counts of trans8 inter MBs (deblock bS reads the
+        # 8x8's count through every covered 4x4 cell, while nnz_y keeps
+        # the interleaved sub-block counts for CAVLC nC)
+        self.nnz8 = np.zeros((2 * self.mbh, 2 * self.mbw), np.int32)
         # 4x4-granularity MV field (the reference's cache.mv): supports
         # all partition shapes uniformly
         self.mv4 = np.zeros((4 * self.mbh, 4 * self.mbw, 2), np.int32)
@@ -503,6 +509,97 @@ class SliceDecoder:
         self.mv4[4 * my:4 * my + 4, 4 * mx:4 * mx + 4] = 0
         self.ref4[4 * my:4 * my + 4, 4 * mx:4 * mx + 4] = -1
         return qp
+
+    _Z8 = [(0, 0), (0, 1), (1, 0), (1, 1)]
+
+    def _read_lev8(self, br: BitReader, mx: int, my: int, cbp_luma: int):
+        """The 8x8-transform luma residual: per coded 8x8 four
+        interleaved 4x4 CAVLC blocks, sub-block j carrying zigzag
+        positions 4k + j (spec 7.4.5.3.3). Returns [2, 2, 64] levels in
+        zigzag order."""
+        lev8 = np.zeros((2, 2, 64), np.int64)
+        for b, (by8, bx8) in enumerate(self._Z8):
+            for j, (sy, sx) in enumerate(self._Z8):
+                yy = 4 * my + 2 * by8 + sy
+                xx = 4 * mx + 2 * bx8 + sx
+                if cbp_luma & (1 << b):
+                    nc = self._nc(self.nnz_y, yy, xx)
+                    lv = read_residual(br, 16, nc)
+                    self.nnz_y[yy, xx] = sum(1 for x in lv if x)
+                    lev8[by8, bx8, j::4] = lv
+                else:
+                    self.nnz_y[yy, xx] = 0
+        return lev8
+
+    def decode_i8x8(self, br: BitReader, mx: int, my: int, qp: int):
+        """I_NxN with transform_size_8x8_flag 1 (spec 7.3.5 + 8.3.2)."""
+        modes = np.zeros(4, np.int32)
+        for b, (by8, bx8) in enumerate(self._Z8):
+            gy4, gx4 = 4 * my + 2 * by8, 4 * mx + 2 * bx8
+            pm = self._pred_i4_mode(gy4, gx4)
+            if br.read1():
+                modes[b] = pm
+            else:
+                rem = br.read(3)
+                modes[b] = rem + (1 if rem >= pm else 0)
+            # i8x8 modes replicate into the 2x2 ctx cells (x264 cache)
+            self.modes4[gy4:gy4 + 2, gx4:gx4 + 2] = modes[b]
+
+        cmode = br.read_ue()
+        cbp = VT.CBP_INTRA_TO_GOLOMB.index(br.read_ue())
+        cbp_luma, cbp_chroma = cbp & 15, cbp >> 4
+        if cbp:
+            qp = (qp + br.read_se() + 52) % 52
+        qpc = int(CHROMA_QP[np.clip(qp + self.pps.chroma_qp_index_offset,
+                                    0, 51)])
+        lev8 = self._read_lev8(br, mx, my, cbp_luma)
+        for b, (by8, bx8) in enumerate(self._Z8):
+            deq = R.dequant8x8(R.dezigzag8(lev8[by8, bx8]), qp, intra=True)
+            pred = self._i8_pred_block(mx, my, by8, bx8, int(modes[b]))
+            py, px = 16 * my + 8 * by8, 16 * mx + 8 * bx8
+            self.y[py:py + 8, px:px + 8] = R.idct8x8_add(pred, deq)
+
+        self._decode_chroma(br, mx, my, cmode, cbp_chroma, qpc, intra=True)
+        self.mb_intra[my, mx] = True
+        self.mb_trans8[my, mx] = True
+        # intra neighbours are AVAILABLE with mv 0 / ref -1 for MVP/P_SKIP
+        self.dec4[4 * my:4 * my + 4, 4 * mx:4 * mx + 4] = True
+        self.mv4[4 * my:4 * my + 4, 4 * mx:4 * mx + 4] = 0
+        self.ref4[4 * my:4 * my + 4, 4 * mx:4 * mx + 4] = -1
+        return qp
+
+    def _i8_pred_block(self, mx, my, by8, bx8, mode):
+        """Borders from reconstructed samples with the spec's top-right
+        availability and substitution, then the 8x8 edge filter and the
+        prediction."""
+        gy8, gx8 = 2 * my + by8, 2 * mx + bx8
+        py, px = 8 * gy8, 8 * gx8
+        at, al = gy8 > 0, gx8 > 0
+        t = np.zeros(16, np.int64)
+        lf = np.zeros(8, np.int64)
+        lt = 0
+        have_lt = at and al
+        have_tr = False
+        if at:
+            t[:8] = self.y[py - 1, px:px + 8]
+            if gx8 + 1 < 2 * self.mbw:
+                mb2 = ((gy8 - 1) // 2, (gx8 + 1) // 2)
+                if mb2 < (my, mx):
+                    have_tr = True
+                elif mb2 == (my, mx):
+                    z = {q: i for i, q in enumerate(self._Z8)}
+                    have_tr = (z[((gy8 - 1) % 2, (gx8 + 1) % 2)]
+                               < z[(by8, bx8)])
+            if have_tr:
+                t[8:] = self.y[py - 1, px + 8:px + 16]
+            else:
+                t[8:] = t[7]
+        if al:
+            lf[:] = self.y[py:py + 8, px - 1]
+        if have_lt:
+            lt = int(self.y[py - 1, px - 1])
+        edge = R.filter_edge8(lt, t, lf, have_lt, have_tr)
+        return R.pred_8x8(mode, edge, at, al)
 
     def _pred_i4_mode(self, gy4: int, gx4: int) -> int:
         """predIntra4x4PredMode (spec 8.3.1.1): DC if either neighbour
@@ -672,6 +769,17 @@ class SliceDecoder:
                     pred[4 * by:4 * by + 4, 4 * bx:4 * bx + 4],
                     blocks[by, bx])
 
+    def _recon_inter_luma8(self, mx, my, deq8):
+        """8x8-transform inter recon: deq8 [2,2,8,8] dequantized."""
+        gy, gx = 16 * my, 16 * mx
+        pred = self._inter_pred_luma16(mx, my)
+        for by8 in range(2):
+            for bx8 in range(2):
+                py, px = gy + 8 * by8, gx + 8 * bx8
+                self.y[py:py + 8, px:px + 8] = R.idct8x8_add(
+                    pred[8 * by8:8 * by8 + 8, 8 * bx8:8 * bx8 + 8],
+                    deq8[by8, bx8])
+
     def _inter_pred_luma16(self, mx, my):
         gy, gx = 16 * my, 16 * mx
         pred = np.zeros((16, 16), np.int64)
@@ -743,22 +851,38 @@ class SliceDecoder:
         cbp_code = br.read_ue()
         cbp = VT.CBP_INTER_TO_GOLOMB.index(cbp_code)
         cbp_luma, cbp_chroma = cbp & 15, cbp >> 4
+        # transform_size_8x8_flag between cbp and dqp (spec 7.3.5);
+        # absent when a sub-partition is smaller than 8x8
+        t8_present = subs is None or all(st == 0 for st in subs)
+        trans8 = bool(self.pps.transform_8x8 and cbp_luma and t8_present
+                      and br.read1())
         if cbp:
             qp = (qp + br.read_se() + 52) % 52
         qpc = int(CHROMA_QP[np.clip(qp + self.pps.chroma_qp_index_offset,
                                     0, 51)])
-        blocks = np.zeros((4, 4, 4, 4), np.int64)
-        for blk in range(16):
-            by, bx = LUMA_SCAN[blk]
-            if cbp_luma & (1 << (blk >> 2)):
-                nc = self._nc(self.nnz_y, 4 * my + by, 4 * mx + bx)
-                lv = read_residual(br, 16, nc)
-                self.nnz_y[4 * my + by, 4 * mx + bx] = \
-                    sum(1 for x in lv if x)
-                blocks[by, bx] = R.dequant4x4(R.dezigzag(lv), qp)
-            else:
-                self.nnz_y[4 * my + by, 4 * mx + bx] = 0
-        self._recon_inter_luma(mx, my, blocks)
+        if trans8:
+            lev8 = self._read_lev8(br, mx, my, cbp_luma)
+            deq8 = np.stack([np.stack([
+                R.dequant8x8(R.dezigzag8(lev8[a, b2]), qp, intra=False)
+                for b2 in range(2)]) for a in range(2)])
+            self._recon_inter_luma8(mx, my, deq8)
+            self.mb_trans8[my, mx] = True
+            for by8, bx8 in self._Z8:
+                self.nnz8[2 * my + by8, 2 * mx + bx8] = int(
+                    np.count_nonzero(lev8[by8, bx8]))
+        else:
+            blocks = np.zeros((4, 4, 4, 4), np.int64)
+            for blk in range(16):
+                by, bx = LUMA_SCAN[blk]
+                if cbp_luma & (1 << (blk >> 2)):
+                    nc = self._nc(self.nnz_y, 4 * my + by, 4 * mx + bx)
+                    lv = read_residual(br, 16, nc)
+                    self.nnz_y[4 * my + by, 4 * mx + bx] = \
+                        sum(1 for x in lv if x)
+                    blocks[by, bx] = R.dequant4x4(R.dezigzag(lv), qp)
+                else:
+                    self.nnz_y[4 * my + by, 4 * mx + bx] = 0
+            self._recon_inter_luma(mx, my, blocks)
         self._decode_chroma(br, mx, my, 0, cbp_chroma if cbp else 0, qpc,
                             intra=False)
         self.decoded[my, mx] = True
@@ -792,8 +916,12 @@ class SliceDecoder:
                     assert 0 <= mb_type <= 24, \
                         f"unsupported I mb_type {mb_type}"
                     if mb_type == 0:
-                        qp = self.decode_i4x4(br, mx, my, qp)
-                        kind = "I4x4"
+                        if self.pps.transform_8x8 and br.read1():
+                            qp = self.decode_i8x8(br, mx, my, qp)
+                            kind = "I8x8"
+                        else:
+                            qp = self.decode_i4x4(br, mx, my, qp)
+                            kind = "I4x4"
                     else:
                         qp = self.decode_i16x16(br, mx, my, mb_type, qp)
                         kind = "I16x16"
@@ -822,9 +950,14 @@ class SliceDecoder:
                 qp = self.decode_p_mb(br, mx, my, mb_type, qp)
             elif mb_type == 5:
                 self.mb_intra[my, mx] = True
-                qp = self.decode_i4x4(br, mx, my, qp)
+                if self.pps.transform_8x8 and br.read1():
+                    qp = self.decode_i8x8(br, mx, my, qp)
+                    kind = "I8x8"
+                else:
+                    qp = self.decode_i4x4(br, mx, my, qp)
+                    kind = "I4x4"
                 self.decoded[my, mx] = True
-                self.mbs.append(MBInfo("I4x4", (0, 0), qp))
+                self.mbs.append(MBInfo(kind, (0, 0), qp))
             elif 6 <= mb_type <= 29:
                 self.mb_intra[my, mx] = True
                 qp = self.decode_i16x16(br, mx, my, mb_type - 5, qp)
@@ -848,11 +981,16 @@ def _deblock(dec: SliceDecoder, qp: int, alpha_off: int, beta_off: int,
     def t(a):
         return torch.as_tensor(np.ascontiguousarray(a, np.int32))
 
-    par = DB.edge_params(t(dec.mb_intra), t(dec.mb_skip), t(dec.nnz_y),
+    # a trans8 MB's 4x4 cells carry their 8x8 block's coefficient count
+    t8r = np.repeat(np.repeat(dec.mb_trans8, 4, 0), 4, 1)
+    nz8r = np.repeat(np.repeat(dec.nnz8, 2, 0), 2, 1)
+    nnz = np.where(t8r, nz8r, dec.nnz_y)
+    par = DB.edge_params(t(dec.mb_intra), t(dec.mb_skip), t(nnz),
                          t(dec.mv4), qp, qpc, dec.mbh, dec.mbw,
                          qp_thresh=15 - min(alpha_off, beta_off)
                          - max(cqo, 0), off_a=alpha_off, off_b=beta_off,
-                         ref4=t(np.maximum(dec.ref4, 0)))
+                         ref4=t(np.maximum(dec.ref4, 0)),
+                         trans8=t(dec.mb_trans8))
     planes = DB.deblock_frame_plain(t(dec.y), t(dec.u), t(dec.v), par,
                                     dec.mbh, dec.mbw)
     return tuple(p.numpy().astype(np.int64) for p in planes)

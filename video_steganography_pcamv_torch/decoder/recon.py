@@ -1,6 +1,6 @@
 """Decoder-side reconstruction math (numpy, scalar per MB): the port's
-copy of the reference's decoder/recon.py for the 4x4 transform and flat
-scaling lists (the 8x8 transform and CQM are outside the port).
+copy of the reference's decoder/recon.py for the 4x4 and 8x8 transforms
+with flat scaling lists (CQM is outside the port).
 
 Deliberately an *independent* implementation of the normative H.264
 inverse transforms / prediction (spec 8.3, 8.5) — not a reuse of the
@@ -314,4 +314,111 @@ def pred_chroma(mode: int, top, left, topleft, at: bool, al: bool):
     out[:4, 4:] = (t[1] + 2) >> 2 if at else ((l[0] + 2) >> 2 if al else 128)
     out[4:, :4] = (l[1] + 2) >> 2 if al else ((t[0] + 2) >> 2 if at else 128)
     out[4:, 4:] = q(t[1], l[1], at, al)
+    return out
+
+
+# ---------------------------------------------------------------- 8x8 ---
+# High-profile 8x8 decode path (spec 8.3.2 Intra_8x8 + 8.5.12.2; x264's
+# IDCT8_1D and dequant_8x8), scalar numpy. Only the spec's constant
+# tables come from the port's ops.
+
+def dequant8x8(block: np.ndarray, qp: int, intra: bool) -> np.ndarray:
+    from ..ops.transform8 import _DEQUANT8_SCALE, pos_class8
+    dmf = _DEQUANT8_SCALE[qp % 6][pos_class8()] * 16
+    qbits = qp // 6 - 6
+    v = block.astype(np.int64) * dmf
+    if qbits >= 0:
+        return v << qbits
+    f = 1 << (-qbits - 1)
+    return (v + f) >> (-qbits)
+
+
+def dezigzag8(levels) -> np.ndarray:
+    from ..ops.transform8 import ZIGZAG_8x8
+    out = np.zeros((8, 8), np.int64)
+    for i, (r, c) in enumerate(ZIGZAG_8x8):
+        out[r, c] = levels[i]
+    return out
+
+
+def idct8x8_add(pred: np.ndarray, coef: np.ndarray) -> np.ndarray:
+    # coef in the spec orientation C[r][c]; the passes mirror x264's
+    # add8x8_idct8, which runs on the transpose
+    dct = coef.T.astype(np.int64).copy()
+    dct[0][0] += 32
+
+    def pass1d(get, put):
+        s = [get(x) for x in range(8)]
+        a0, a2 = s[0] + s[4], s[0] - s[4]
+        a4, a6 = (s[2] >> 1) - s[6], (s[6] >> 1) + s[2]
+        b0, b2, b4, b6 = a0 + a6, a2 + a4, a2 - a4, a0 - a6
+        a1 = -s[3] + s[5] - s[7] - (s[7] >> 1)
+        a3 = s[1] + s[7] - s[3] - (s[3] >> 1)
+        a5 = -s[1] + s[7] + s[5] + (s[5] >> 1)
+        a7 = s[3] + s[5] + s[1] + (s[1] >> 1)
+        b1, b3 = (a7 >> 2) + a1, a3 + (a5 >> 2)
+        b5, b7 = (a3 >> 2) - a5, a7 - (a1 >> 2)
+        for k, val in enumerate([b0 + b7, b2 + b5, b4 + b3, b6 + b1,
+                                 b6 - b1, b4 - b3, b2 - b5, b0 - b7]):
+            put(k, val)
+
+    for i in range(8):
+        pass1d(lambda x: dct[x][i],
+               lambda x, val: dct.__setitem__((x, i), val))
+    tr = np.zeros((8, 8), np.int64)
+    for i in range(8):
+        pass1d(lambda x: dct[i][x],
+               lambda x, val: tr.__setitem__((x, i), val))
+    return np.clip(pred.astype(np.int64) + (tr >> 6), 0, 255)
+
+
+def filter_edge8(lt, t, left, have_lt, have_tr):
+    """x264_predict_8x8_filter, scalar. t: [16] raw with t8.. already
+    substituted when the top-right is absent; left: [8]."""
+    def f2(a, b, c):
+        return (a + 2 * b + c + 2) >> 2
+    e = np.zeros(33, np.int64)
+    e[15] = (t[0] + 2 * lt + left[0] + 2) >> 2
+    e[14] = ((lt if have_lt else left[0]) + 2 * left[0] + left[1] + 2) >> 2
+    for y in range(1, 7):
+        e[14 - y] = f2(left[y - 1], left[y], left[y + 1])
+    e[7] = (left[6] + 3 * left[7] + 2) >> 2
+    e[16] = ((lt if have_lt else t[0]) + 2 * t[0] + t[1] + 2) >> 2
+    for x in range(1, 7):
+        e[16 + x] = f2(t[x - 1], t[x], t[x + 1])
+    e[23] = (t[6] + 2 * t[7] + (t[8] if have_tr else t[7]) + 2) >> 2
+    if have_tr:
+        for x in range(8, 15):
+            e[16 + x] = f2(t[x - 1], t[x], t[x + 1])
+        e[31] = e[32] = (t[14] + 3 * t[15] + 2) >> 2
+    else:
+        e[24:32] = t[7]
+        e[32] = t[7]
+    return e
+
+
+def pred_8x8(mode: int, edge: np.ndarray, at: bool, al: bool):
+    """One Intra_8x8 prediction from the filtered edge (spec 8.3.2.2;
+    the directional modes through ops.predict8's [6, 64, 3] table)."""
+    from ..ops.predict8 import I8_TABLES
+    e = edge.astype(np.int64)
+    out = np.zeros((8, 8), np.int64)
+    lcol = e[14:6:-1]
+    trow = e[16:24]
+    if mode == 0:
+        out[:, :] = trow[None, :]
+    elif mode == 1:
+        out[:, :] = lcol[:, None]
+    elif mode == 2:
+        if at and al:
+            out[:, :] = (lcol.sum() + trow.sum() + 8) >> 4
+        elif al:
+            out[:, :] = (lcol.sum() + 4) >> 3
+        elif at:
+            out[:, :] = (trow.sum() + 4) >> 3
+        else:
+            out[:, :] = 128
+    else:
+        g = e[I8_TABLES[mode - 3]]                          # [64, 3]
+        out = ((g[:, 0] + 2 * g[:, 1] + g[:, 2] + 2) >> 2).reshape(8, 8)
     return out

@@ -19,6 +19,12 @@ CPU branch (`prev_mv >> 2`). Both run the analyse-tail kernels B2-B4 on
 CUDA. Either way the stream on CUDA equals the stream on the CPU, and
 equals the reference `Encoder` on the same branch.
 
+BASELINE config 3 (`transform_8x8`, `rd` 1) takes the same pipelined
+path: a High-profile SPS/PPS, Intra_8x8 and the RD choice in the IDR,
+the 8x8-transform candidate and its choice in the P encodes, a full
+(never incremental) pass 2, the trans8 flags into the deblock and the
+8x8 levels through the lean buffer to the writer, as the reference does.
+
 With `partitions=False` (x264's `--partitions none`) every frame takes
 the reference's non-fused IPP branch instead, unpipelined: each call
 returns its own access unit. A P frame runs the 16x16 analysis
@@ -54,6 +60,7 @@ from ..utils.yuv import Frame
 from . import headers as H
 from . import inter as P
 from . import me as ME
+from . import qpel_table as QT
 from .analyse2 import analyse_p_frame
 from .inter_incr import changed_mbs, pad_subset, reencode_p_incremental
 from .intra import encode_i_frame
@@ -62,15 +69,18 @@ from .ratecontrol import RateControl
 from .slicetype import Lookahead
 
 _LEAN_EXC_CAP = 4096
-_LEAN_WIDTH = 394       # luma 256 | chroma dc 8 | chroma ac 128 | cbp 2
+# luma 256 | chroma dc 8 | chroma ac 128 | cbp 2 [| luma8 256 | trans8 1]
+_LEAN_WIDTH = 394
+_LEAN_WIDTH8 = 257
 
 
 def check_slice(p: Params) -> None:
     """Raise NotImplementedError for any option outside the ported
     slice: IPPP, CQP, CAVLC, one reference, subpel 2, decimation,
     incremental re-encode, stego on, pipelined serving loop, metrics
-    off, and either partitions with the device deblock (the serving
-    path) or partitions off with the host deblock (the 16x16-only
+    off, me_range <= PAD - MARGIN, and either partitions with the device
+    deblock (the serving path, optionally with the 8x8 transform and
+    rd 1) or partitions off with the host deblock (the 16x16-only
     path)."""
     if not p.partitions and p.deblock_device:
         raise NotImplementedError(
@@ -82,8 +92,10 @@ def check_slice(p: Params) -> None:
     for name, ok in (
             ("cabac", not p.cabac), ("bframes", p.bframes == 0),
             ("ref_frames>1", p.ref_frames == 1), ("p4x4", not p.p4x4),
-            ("transform_8x8", not p.transform_8x8),
-            ("trellis", not p.trellis), ("rd", not p.rd),
+            ("transform_8x8 without partitions",
+             p.partitions or not p.transform_8x8),
+            ("trellis", not p.trellis), ("rd>=2", p.rd <= 1),
+            ("rd without partitions", p.partitions or not p.rd),
             ("aq_mode", not p.aq_mode),
             ("noise_reduction", p.noise_reduction == 0),
             ("rc_mode!=0", p.rc_mode == 0),
@@ -101,8 +113,10 @@ def check_slice(p: Params) -> None:
              and p.deadzone_intra == 11),
             ("deblock off", p.deblock),
             ("deblock_device off", p.deblock_device or not p.partitions),
-            ("me_range>20 without partitions",
-             p.partitions or p.me_range <= 20),
+            ("me_range>%d (a window of the qpel analysis would leave "
+             "the padded planes, where the reference's CPU branch reads "
+             "clamped gather indices and its TPU branch clamped strips)"
+             % (mc.PAD - QT.MARGIN), p.me_range <= mc.PAD - QT.MARGIN),
             ("stego off", p.stego.enabled),
             ("stego em_file", not p.stego.em_file),
             ("stego alpha_com", p.stego.alpha_com == 0.0)):
@@ -123,6 +137,8 @@ class EncodeStats:
     message_bits: int = 0
     mv_flips: int = 0
     elapsed: float = 0.0
+    i8x8_mbs: int = 0       # Intra_8x8 MBs of the I slices
+    trans8_mbs: int = 0     # P MBs coded with the 8x8 transform
 
 
 def _nnz4(lev, mbh: int, mbw: int):
@@ -133,11 +149,28 @@ def _nnz4(lev, mbh: int, mbw: int):
         .reshape(4 * mbh, 4 * mbw)
 
 
+def _nnz4_t8(lev4, lev8, t8, mbh: int, mbw: int):
+    """Per-4x4 total_coeff map for the deblocker under the 8x8
+    transform: every 4x4 cell of a t8 MB carries its 8x8 block's count
+    (the 8x8's edges read any covered cell; its inner 4x4 edges are off
+    by the deblocker's trans8 rule). lev8 [mbh, mbw, ...] with 256
+    levels per MB in (by8, bx8, r, c) order."""
+    nz8 = (lev8.reshape(mbh, mbw, 2, 2, 64) != 0).sum(4, dtype=torch.int32) \
+        .permute(0, 2, 1, 3).reshape(2 * mbh, 2 * mbw)
+    nz8 = nz8.repeat_interleave(2, 0).repeat_interleave(2, 1)
+    t8r = t8.to(torch.bool).repeat_interleave(4, 0).repeat_interleave(4, 1)
+    return torch.where(t8r, nz8, _nnz4(lev4, mbh, mbw))
+
+
 def _levels_i16(res: dict, n: int) -> torch.Tensor:
-    """The entropy writer's inputs as one [n, _LEAN_WIDTH] int16 tensor."""
-    return torch.cat([res[k].reshape(n, w).to(torch.int16) for k, w in (
-        ("luma_lev", 256), ("chroma_dc", 8), ("chroma_ac", 128),
-        ("cbp_luma", 1), ("cbp_chroma", 1))], dim=1)
+    """The entropy writer's inputs as one [n, _LEAN_WIDTH (+
+    _LEAN_WIDTH8 with the 8x8 transform)] int16 tensor."""
+    cols = [("luma_lev", 256), ("chroma_dc", 8), ("chroma_ac", 128),
+            ("cbp_luma", 1), ("cbp_chroma", 1)]
+    if "luma8_lev" in res:
+        cols += [("luma8_lev", 256), ("trans8", 1)]
+    return torch.cat([res[k].reshape(n, w).to(torch.int16) for k, w in cols],
+                     dim=1)
 
 
 def _pack_frame_lean(res: dict, n: int) -> torch.Tensor:
@@ -161,11 +194,13 @@ def _pack_frame_lean(res: dict, n: int) -> torch.Tensor:
     return torch.cat([lo, meta, vals.view(torch.int8)])
 
 
-def _unpack_frame_lean(buf: np.ndarray, mbh: int, mbw: int):
+def _unpack_frame_lean(buf: np.ndarray, mbh: int, mbw: int,
+                       has8: bool = False):
     """Host half of _pack_frame_lean -> level/cbp dict, or None if the
     exception list overflowed."""
     n = mbh * mbw
-    flat_len = n * _LEAN_WIDTH
+    width = _LEAN_WIDTH + (_LEAN_WIDTH8 if has8 else 0)
+    flat_len = n * width
     lo = buf[:flat_len].astype(np.int16)
     meta = buf[flat_len:flat_len + 4 * (1 + _LEAN_EXC_CAP)].view(np.int32)
     if int(meta[0]) > _LEAN_EXC_CAP:
@@ -174,11 +209,11 @@ def _unpack_frame_lean(buf: np.ndarray, mbh: int, mbw: int):
     vals = buf[flat_len + 4 * (1 + _LEAN_EXC_CAP):].view(np.int16)
     sel = idx >= 0
     lo[idx[sel]] = vals[sel]
-    return _split_levels(lo.reshape(n, _LEAN_WIDTH), mbh, mbw)
+    return _split_levels(lo.reshape(n, width), mbh, mbw)
 
 
 def _split_levels(packed: np.ndarray, mbh: int, mbw: int) -> dict:
-    return {
+    out = {
         "luma_lev": np.ascontiguousarray(packed[:, :256])
         .reshape(mbh, mbw, 4, 4, 4, 4),
         "chroma_dc": np.ascontiguousarray(packed[:, 256:264])
@@ -188,6 +223,11 @@ def _split_levels(packed: np.ndarray, mbh: int, mbw: int) -> dict:
         "cbp_luma": packed[:, 392].astype(np.uint8).reshape(mbh, mbw),
         "cbp_chroma": packed[:, 393].astype(np.uint8).reshape(mbh, mbw),
     }
+    if packed.shape[1] > _LEAN_WIDTH:
+        out["luma8_lev"] = np.ascontiguousarray(packed[:, 394:650]) \
+            .reshape(mbh, mbw, 2, 2, 8, 8)
+        out["trans8"] = packed[:, 650].astype(bool).reshape(mbh, mbw)
+    return out
 
 
 def _levels_exact(res: dict, mbh: int, mbw: int) -> dict:
@@ -219,6 +259,9 @@ class Encoder:
                          chroma_qp_index_offset=params.chroma_qp_offset,
                          num_ref_idx_l0_active=params.ref_frames,
                          cabac=params.cabac, weighted_bipred_idc=0)
+        if params.transform_8x8:
+            self.sps.profile = H.PROFILE_HIGH
+            self.pps.transform_8x8 = True
         self.sps.sps_id = params.sps_id
         self.pps.sps_id = params.sps_id
         self.sps.vui = H.VUI(
@@ -366,9 +409,13 @@ class Encoder:
         t0 = time.time()
         p = self.p
         mbh, mbw = p.mb_height, p.mb_width
-        res_np = _unpack_frame_lean(pd["buf"].cpu().numpy(), mbh, mbw)
+        res_np = _unpack_frame_lean(pd["buf"].cpu().numpy(), mbh, mbw,
+                                    bool(p.transform_8x8))
         if res_np is None:
             res_np = _levels_exact(pd["res"], mbh, mbw)
+        if "trans8" in res_np:
+            self.stats.trans8_mbs += int(
+                (res_np["trans8"] & (res_np["cbp_luma"] != 0)).sum())
         nal = self._finish_p_slice(res_np, pd["qp"], pd["part"], pd["mvd"],
                                    pd["skip"], pd["frame_num"],
                                    pd["poc_lsb"])
@@ -423,18 +470,33 @@ class Encoder:
         mbh, mbw = p.mb_height, p.mb_width
         n = mbh * mbw
         qpc = chroma_qp(qp, p.chroma_qp_offset)
+        t8 = bool(p.transform_8x8)
         res_dev = encode_i_frame(y, u, v, qp, qpc, mbw, mbh,
-                                 lam=ME.lambda_tab(qp))
+                                 lam=ME.lambda_tab(qp), i8x8=t8,
+                                 rd=bool(p.rd))
         dev = self.device
         i32 = torch.int32
+        if t8:
+            # I_8x8 MBs carry transform_size_8x8_flag = 1 whatever their
+            # cbp (spec 7.3.5)
+            t8_i = res_dev["mb_i8"]
+            nnz = _nnz4_t8(res_dev["luma_ac"], res_dev["luma8_lev"], t8_i,
+                           mbh, mbw)
+        else:
+            t8_i = None
+            nnz = _nnz4(res_dev["luma_ac"], mbh, mbw)
         self._deblock_device(
             res_dev, torch.ones((mbh, mbw), dtype=i32, device=dev),
             torch.zeros((mbh, mbw), dtype=i32, device=dev),
             torch.zeros((4 * mbh, 4 * mbw, 2), dtype=i32, device=dev), qp,
-            _nnz4(res_dev["luma_ac"], mbh, mbw))
-        res = {k: res_dev[k].cpu().numpy() for k in
-               ("mode", "cmode", "cbp_luma", "cbp_chroma", "luma_dc",
-                "luma_ac", "chroma_dc", "chroma_ac", "mb_i4", "i4_modes")}
+            nnz, trans8=t8_i)
+        keys = ("mode", "cmode", "cbp_luma", "cbp_chroma", "luma_dc",
+                "luma_ac", "chroma_dc", "chroma_ac", "mb_i4", "i4_modes")
+        if t8:
+            keys += ("mb_i8", "i8_modes", "luma8_lev")
+        res = {k: res_dev[k].cpu().numpy() for k in keys}
+        if t8:
+            self.stats.i8x8_mbs += int(res["mb_i8"].sum())
         self.prev_mv = np.zeros((mbh, mbw, 2), np.int32)
         bw = BitWriter()
         H.write_slice_header(bw, self.sps, self.pps, H.SLICE_TYPE_I,
@@ -455,7 +517,10 @@ class Encoder:
             chroma_dc=res["chroma_dc"].reshape(n, 2, 4),
             chroma_ac=res["chroma_ac"].reshape(n, 2, 4, 16),
             mb_i4=res["mb_i4"].reshape(n),
-            i4_modes=res["i4_modes"].reshape(n, 16))
+            i4_modes=res["i4_modes"].reshape(n, 16),
+            mb_i8=res["mb_i8"].reshape(n) if t8 else None,
+            i8_modes=res["i8_modes"].reshape(n, 4) if t8 else None,
+            luma8_lev=res["luma8_lev"] if t8 else None, trans8_mode=t8)
 
     def _cost_mv_dev(self, qp: int, lam: int) -> torch.Tensor:
         if qp not in self._cmv_cache:
@@ -472,13 +537,15 @@ class Encoder:
         packed, res = p_stage1_stego(
             y, u, v, self.ref["luma"], self.ref["u"], self.ref["v"],
             prev_mv, qp, qpc, lam, self._cost_mv_dev(qp, lam), p.me_range,
-            mbh, mbw, extra=extra, tail_kernel=bool(p.tail_kernel))
+            mbh, mbw, extra=extra, tail_kernel=bool(p.tail_kernel),
+            trans8=bool(p.transform_8x8), rd=bool(p.rd))
         return dict(packed=packed, res=res, y=y, u=u, v=v, qp=qp, qpc=qpc)
 
     def _fused_complete(self, d) -> dict:
         """Host STC + flips, then enqueue the re-encode (incremental
-        where few MBs changed), the lean level pack and the deblock.
-        Returns the pending record the next frame's call drains."""
+        where few MBs changed, always full under the 8x8 transform, as
+        in the reference), the lean level pack and the deblock. Returns
+        the pending record the next frame's call drains."""
         p = self.p
         mbh, mbw = p.mb_height, p.mb_width
         n = mbh * mbw
@@ -496,7 +563,8 @@ class Encoder:
         dev = self.device
         final8_t = torch.as_tensor(np.ascontiguousarray(final8)).to(dev)
         idx, fzs = changed_mbs(mv8_np, final8, skip1, skip, mbh, mbw)
-        if len(idx) <= n // 4:
+        t8 = bool(p.transform_8x8)
+        if not t8 and len(idx) <= n // 4:
             idx_p, fz_p, _cap = pad_subset(idx, fzs, n)
             res2 = reencode_p_incremental(
                 d["res"], y, u, v, self.ref["luma"], self.ref["u"],
@@ -506,21 +574,33 @@ class Encoder:
             res2 = P.encode_p_frame_device8(
                 y, u, v, self.ref["luma"], self.ref["u"], self.ref["v"],
                 final8_t, qp, qpc, mbh, mbw,
-                force_zero=torch.as_tensor(skip).to(dev))
-        nnz = _nnz4(res2["luma_lev"], mbh, mbw)
+                force_zero=torch.as_tensor(skip).to(dev), trans8=t8,
+                rd=bool(p.rd))
+        if t8:
+            # the effective flag: the decision AND cbp_luma != 0 (with no
+            # luma residual the flag is not sent and reads as 0)
+            t8_eff = res2["trans8"] & (res2["cbp_luma"] != 0)
+            nnz = _nnz4_t8(res2["luma_lev"], res2["luma8_lev"], t8_eff, mbh,
+                           mbw)
+        else:
+            t8_eff = None
+            nnz = _nnz4(res2["luma_lev"], mbh, mbw)
         # the lean level buffer is enqueued before the deblock waves
         buf = _pack_frame_lean(res2, n)
         mv4 = final8_t.repeat_interleave(2, 0).repeat_interleave(2, 1)
         self._deblock_device(
             res2, torch.zeros((mbh, mbw), dtype=torch.int32, device=dev),
-            torch.as_tensor(skip.astype(np.int32)).to(dev), mv4, qp, nnz)
+            torch.as_tensor(skip.astype(np.int32)).to(dev), mv4, qp, nnz,
+            trans8=t8_eff)
         # no intra MBs in stego P frames: the predictor is the final field
         self.prev_mv = np.ascontiguousarray(final8[::2, ::2], np.int32)
         return dict(buf=buf, res=res2, qp=qp, part=part_np, mvd=mvd,
                     skip=skip, final8=final8)
 
-    def _deblock_device(self, res, intra, skip, mv4, qp: int, nnz4):
-        """In-loop deblock (kernel B5 on CUDA) into the new reference."""
+    def _deblock_device(self, res, intra, skip, mv4, qp: int, nnz4,
+                        trans8=None):
+        """In-loop deblock (kernel B5 on CUDA) into the new reference;
+        trans8 [mbh, mbw] marks the MBs coded with the 8x8 transform."""
         p = self.p
         off_a, off_b = 2 * p.deblock_alpha, 2 * p.deblock_beta
         dy, du, dv = deblock_frame(
@@ -528,7 +608,7 @@ class Encoder:
             res["recon_v"].to(torch.int32), intra, skip, nnz4, mv4, qp,
             chroma_qp(qp, p.chroma_qp_offset), p.mb_height, p.mb_width,
             qp_thresh=(15 - min(off_a, off_b) - max(0, p.chroma_qp_offset)),
-            off_a=off_a, off_b=off_b)
+            off_a=off_a, off_b=off_b, trans8=trans8)
         self._push_ref(mc.build_ref(dy, du, dv))
 
     def _push_ref(self, refdict: dict):
@@ -558,7 +638,10 @@ class Encoder:
             cbp_luma=res_np["cbp_luma"], cbp_chroma=res_np["cbp_chroma"],
             luma_blocks=res_np["luma_lev"].reshape(n, 16, 16),
             chroma_dc=res_np["chroma_dc"].reshape(n, 2, 4),
-            chroma_ac=res_np["chroma_ac"].reshape(n, 2, 4, 16))
+            chroma_ac=res_np["chroma_ac"].reshape(n, 2, 4, 16),
+            trans8=res_np["trans8"].reshape(n) if "trans8" in res_np
+            else None, luma8_lev=res_np.get("luma8_lev"),
+            trans8_mode=bool(p.transform_8x8))
 
     def load_state(self, d: dict) -> None:
         """Resume mid-stream from a state dict of numpy arrays (see

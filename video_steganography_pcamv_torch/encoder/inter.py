@@ -1,9 +1,11 @@
 """P-frame transform/quant/recon at given MVs (port of the serving
-subset of encoder/inter.py): decimation on; trellis, 8x8 transform,
-rd and noise reduction off; gather MC only.
+subset of encoder/inter.py): decimation on; the High-profile adaptive
+8x8 transform and its RD decision as options; trellis and noise
+reduction off; gather MC only.
 
 Two encodes: `encode_p_frame_device8` at per-8x8 MVs (the partitioned
-path, luma through the plain `luma_p_encode`) and
+path, luma through the plain `luma_p_encode`, with `trans8`/`rd` the
+8x8-transform candidate and its choice per MB) and
 `encode_p_frame_device` at one MV per MB (the 16x16-only path, luma
 through `luma_p_encode_fast`: kernel B8a -> decimation -> kernel B8b in
 the reference's [16, L] layout)."""
@@ -16,10 +18,24 @@ import torch
 from ..ops import const
 from ..ops import mc
 from ..ops import transform as T
+from ..ops import transform8 as T8
 from ..ops import tq4 as TQ
 from ..ops.blocks import to_blocks
+from ..ops.pixel import sa8d_16x16
+from ..ops.rdcost import cavlc_block_bits
 
 _I32 = torch.int32
+
+# lambda2 = lambda^2 * 0.9 * 256 (x264_lambda2_tab); RD cost = ssd +
+# (lambda2 * bits + 128) >> 8 (x264 rdo.c)
+LAMBDA2_TAB = np.array([
+    14, 18, 22, 28, 36, 45, 57, 72,
+    91, 115, 145, 182, 230, 290, 365, 460,
+    580, 731, 921, 1161, 1462, 1843, 2322, 2925,
+    3686, 4644, 5851, 7372, 9289, 11703, 14745, 18578,
+    23407, 29491, 37156, 46814, 58982, 74313, 93628, 117964,
+    148626, 187257, 235929, 297252, 374514, 471859, 594505, 749029,
+    943718, 1189010, 1498059, 1887436], np.int32)
 
 # JVT-B118 decimation table (quant.c x264_mb_decimate_score)
 _DS_TAB = np.array([3, 2, 2, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0],
@@ -216,15 +232,19 @@ def _force_zero(force_zero, n: int, dev):
     return force_zero.reshape(n).to(torch.bool)
 
 
-def _p_result(lev, rec, pred, chroma, fz, mbh: int, mbw: int) -> dict:
+def _p_result(lev, rec, pred, chroma, fz, mbh: int, mbw: int,
+              cbp_luma=None) -> dict:
     """The per-frame result dict of a P encode; MBs in `fz` keep no
-    luma residual and reconstruct as their prediction."""
+    luma residual and reconstruct as their prediction. `cbp_luma` [n]
+    overrides the 4x4 levels' own (the 8x8-transform MBs')."""
     n = mbh * mbw
     lev = lev * ~fz[:, None, None, None, None]
     rec = torch.where(fz[:, None, None], pred, rec)
     cdc, cac = pack_chroma(chroma, n)
+    if cbp_luma is None:
+        cbp_luma = cbp_luma_of(lev)
     return dict(
-        cbp_luma=cbp_luma_of(lev).reshape(mbh, mbw).to(torch.uint8),
+        cbp_luma=cbp_luma.reshape(mbh, mbw).to(torch.uint8),
         cbp_chroma=cbp_chroma_of(chroma).reshape(mbh, mbw).to(torch.uint8),
         luma_lev=lev.movedim((1, 2), (3, 4)).reshape(mbh, mbw, 256)
         .to(torch.int16),
@@ -257,10 +277,66 @@ def encode_p_frame_device(y, u, v, ref_luma, ref_u, ref_v, mv, qp: int,
     return _p_result(lev, rec, pred, chroma, fz, mbh, mbw)
 
 
+def _luma8_select(cur, pred, lev, rec, cbp_luma, fz, qp: int, rd: bool):
+    """The 8x8-transform candidate of every MB and the per-MB choice
+    between it and the 4x4 encode (lev, rec, cbp_luma, after `fz`):
+    x264's sa8d < satd rule (x264_mb_analyse_transform), or with `rd`
+    SSD + lambda2 * CAVLC bits at nC 0 with strict < (the first minimum
+    wins ties). The 8x8 levels keep x264's decimation (per 8x8 >= 4, per
+    MB >= 6 over the coded 8x8s). Returns (lev, rec, cbp_luma, t8 [n]
+    bool, lev8 [n,2,2,8,8])."""
+    n = cur.shape[0]
+    dev = cur.device
+    d4 = to_blocks(cur - pred, 4)
+    satd16 = torch.abs(T.hadamard4x4(d4)).sum((1, 2, 3, 4),
+                                              dtype=_I32) >> 1
+    t8 = (sa8d_16x16(cur, pred) < satd16) & ~fz
+
+    blk8 = (cur - pred).reshape(n, 2, 8, 2, 8).transpose(2, 3)
+    pred8 = pred.reshape(n, 2, 8, 2, 8).transpose(2, 3)
+    lev8 = T8.quant8x8(T8.dct8x8(blk8), qp, intra=False)
+    nz8 = (lev8 != 0).any(4).any(3)                              # [n,2,2]
+    sc8 = T8.decimate_score64(lev8)
+    tot = torch.where(nz8, sc8, 0).sum((1, 2), dtype=_I32)
+    keep8 = nz8 & (sc8 >= 4) & (tot >= 6)[:, None, None]
+    lev8 = lev8 * keep8[:, :, :, None, None]
+    rec8 = T8.idct8x8_add(pred8, T8.dequant8x8(lev8, qp, intra=False)) \
+        .transpose(2, 3).reshape(n, 16, 16)
+    k = keep8.to(_I32)
+    cbp8 = k[:, 0, 0] + 2 * k[:, 0, 1] + 4 * k[:, 1, 0] + 8 * k[:, 1, 1]
+
+    if rd:
+        lam2 = int(LAMBDA2_TAB[qp])
+        nc0 = torch.zeros(n * 16, dtype=_I32, device=dev)
+        v4 = _zigzag_gather(lev).permute(0, 2, 3, 1).reshape(n * 16, 16)
+        bits4 = cavlc_block_bits(v4, nc0).reshape(n, 16).sum(1, dtype=_I32)
+        sub = T8.zigzag8(lev8).reshape(n, 2, 2, 16, 4).transpose(3, 4) \
+            .reshape(n * 16, 16)
+        bits8 = cavlc_block_bits(sub, nc0).reshape(n, 16).sum(1, dtype=_I32)
+        d4r, d8r = rec - cur, rec8 - cur
+        cost4 = (d4r * d4r).sum((1, 2), dtype=_I32) \
+            + ((lam2 * bits4 + 128) >> 8)
+        cost8 = (d8r * d8r).sum((1, 2), dtype=_I32) \
+            + ((lam2 * bits8 + 128) >> 8)
+        t8 = (cost8 < cost4) & ~fz
+
+    lev = lev * ~t8[:, None, None, None, None]
+    lev8 = lev8 * t8[:, None, None, None, None]
+    rec = torch.where(t8[:, None, None], rec8, rec)
+    cbp_luma = torch.where(t8, cbp8, cbp_luma)
+    return lev, rec, cbp_luma, t8, lev8
+
+
 def encode_p_frame_device8(y, u, v, ref_luma, ref_u, ref_v, mv8,
                            qp: int, qpc: int, mbh: int, mbw: int,
-                           force_zero=None) -> dict:
-    """Partitioned P encode at per-8x8 MVs ([2mbh,2mbw,2] qpel)."""
+                           force_zero=None, trans8: bool = False,
+                           rd: bool = False, cbp_only: bool = False
+                           ) -> dict:
+    """Partitioned P encode at per-8x8 MVs ([2mbh,2mbw,2] qpel). With
+    `trans8` each MB also tries the 8x8 transform (`rd`: by RD cost) and
+    the result carries `trans8` [mbh,mbw] bool and `luma8_lev` [mbh,mbw,
+    256] int16 ((by8, bx8, r, c) order). `cbp_only` returns just the
+    cbp maps (the stego pass 1 when the pass 2 is a full re-encode)."""
     n = mbh * mbw
     dev = y.device
     fz = _force_zero(force_zero, n, dev)
@@ -268,6 +344,12 @@ def encode_p_frame_device8(y, u, v, ref_luma, ref_u, ref_v, mv8,
     cur = mb_tiles(y, 16)
     pred = assemble_pred_luma(ref_luma, mv8, mbh, mbw)
     lev, rec = luma_p_encode(cur, pred, qp)
+    lev = lev * ~fz[:, None, None, None, None]
+    rec = torch.where(fz[:, None, None], pred, rec)
+    cbp_l = cbp_luma_of(lev)
+    if trans8:
+        lev, rec, cbp_l, t8, lev8 = _luma8_select(cur, pred, lev, rec,
+                                                  cbp_l, fz, qp, rd)
 
     n8 = 4 * mbh * mbw
     ar = torch.arange(n8, device=dev, dtype=_I32)
@@ -281,4 +363,13 @@ def encode_p_frame_device8(y, u, v, ref_luma, ref_u, ref_v, mv8,
             .reshape(8 * mbh, 8 * mbw)
         chroma.append(chroma_encode(mb_tiles(plane, 8), mb_tiles(predc, 8),
                                     qpc, fz))
-    return _p_result(lev, rec, pred, chroma, fz, mbh, mbw)
+    if cbp_only:
+        return dict(
+            cbp_luma=cbp_l.reshape(mbh, mbw).to(torch.uint8),
+            cbp_chroma=cbp_chroma_of(chroma).reshape(mbh, mbw)
+            .to(torch.uint8))
+    out = _p_result(lev, rec, pred, chroma, fz, mbh, mbw, cbp_luma=cbp_l)
+    if trans8:
+        out["trans8"] = t8.reshape(mbh, mbw)
+        out["luma8_lev"] = lev8.reshape(mbh, mbw, 256).to(torch.int16)
+    return out

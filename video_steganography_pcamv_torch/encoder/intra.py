@@ -4,7 +4,9 @@ Every MB of wave d = mx + 2*my only depends on MBs of earlier waves
 (left, top, top-left and the i4x4 top-right), so a wave is one batch.
 The reference pads each wave to a fixed width and drops inactive lanes;
 here a wave is exactly its active MBs, which gives the same values.
-Scope of the port: i16x16 + i4x4 + chroma, no i8x8 / rd / trellis.
+Scope of the port: i16x16 + i4x4 + chroma, with the High-profile i8x8
+and the RD choice between the three as options (`i8x8`, `rd`); no
+trellis.
 """
 
 from __future__ import annotations
@@ -13,9 +15,12 @@ import numpy as np
 import torch
 
 from ..ops import const
-from ..ops import transform as T
 from ..ops import predict as P
+from ..ops import predict8 as P8
+from ..ops import transform as T
+from ..ops import transform8 as T8
 from ..ops.blocks import to_blocks
+from ..ops.rdcost import cavlc_block_bits, ue_len
 
 _I32 = torch.int32
 BIG = 1 << 30
@@ -79,10 +84,8 @@ def _take_mode(preds, mode):
 
 def _i16_mb(enc, top, left, topleft, at, al, qp: int, lam: int):
     preds = P.predict_i16x16_all(top, left, topleft, at, al)
-    d = to_blocks(enc[:, None] - preds, 4)
-    satd = torch.abs(T.hadamard4x4(d)).sum((-4, -3, -2, -1),
-                                           dtype=_I32) >> 1
-    satd = satd + lam * const(_UE_SIZE4, enc.device)[None, :]
+    satd = _satd_modes(enc, preds) + lam * const(_UE_SIZE4,
+                                                 enc.device)[None, :]
     valid = torch.stack([at, al, torch.ones_like(at), at & al], dim=1)
     cost = torch.where(valid, satd, BIG)
     mode = torch.argmin(cost, dim=1)
@@ -123,6 +126,7 @@ def _i4_mb(enc, top20, left, topleft, at, al, atr, qp: int, lam: int,
     lev_out = torch.zeros((W, 4, 4, 4, 4), dtype=_I32, device=dev)
     modes_out = []
     cost = torch.zeros(W, dtype=_I32, device=dev)
+    modebits = torch.zeros(W, dtype=_I32, device=dev)
     needs_t = const(P.I4_NEEDS_TOP, dev)
     needs_l = const(P.I4_NEEDS_LEFT, dev)
     nine = torch.arange(9, device=dev)
@@ -175,6 +179,7 @@ def _i4_mb(enc, top20, left, topleft, at, al, atr, qp: int, lam: int,
         mcost = torch.where(valid, satd + lam * bits, BIG)
         mode = torch.argmin(mcost, dim=1)
         cost = cost + mcost.min(dim=1).values
+        modebits = modebits + torch.where(mode == pm, 1, 4).to(_I32)
         pred = _take_mode(preds, mode)
 
         coef = T.dct4x4((eblk - pred)[..., None, None])
@@ -191,7 +196,145 @@ def _i4_mb(enc, top20, left, topleft, at, al, atr, qp: int, lam: int,
     cbp8 = nz.reshape(W, 2, 2, 2, 2).any(4).any(2)           # [W,2,2]
     cbp_luma = (cbp8[:, 0, 0].to(_I32) * 1 + cbp8[:, 0, 1] * 2
                 + cbp8[:, 1, 0] * 4 + cbp8[:, 1, 1] * 8).to(_I32)
-    return torch.stack(modes_out, dim=1), lev_out, cbp_luma, wt, cost
+    return (torch.stack(modes_out, dim=1), lev_out, cbp_luma, wt, cost,
+            modebits)
+
+
+def _satd_modes(enc, preds):
+    """[W, M] SATD of enc [W, b, b] against preds [W, M, b, b]."""
+    d = to_blocks(enc[:, None] - preds, 4)
+    return torch.abs(T.hadamard4x4(d)).sum((-4, -3, -2, -1),
+                                           dtype=_I32) >> 1
+
+
+_Z8 = ((0, 0), (0, 1), (1, 0), (1, 1))
+
+
+def _i8_mb(enc, top24, left, topleft, at, al, atr, qp: int, lam: int,
+           nb_left_modes, nb_top_modes):
+    """Batched Intra_8x8 encode: the MB's four 8x8 blocks in z-order,
+    each one's borders from the blocks before it (x264's i8x8 sweep +
+    x264_mb_encode_i8x8). top24 [W, 24]: the above MB's row 15 and the
+    above-right MB's first 8 samples. Returns (modes [W,4], lev
+    [W,2,2,8,8], cbp_luma [W], recon [W,16,16], cost [W], ctx4 [W,4,4]
+    (each mode replicated into its 2x2 cells, as x264 caches it),
+    modebits [W])."""
+    dev = enc.device
+    W = enc.shape[0]
+    ones = torch.ones(W, dtype=torch.bool, device=dev)
+    wt = torch.zeros((W, 16, 16), dtype=_I32, device=dev)
+    ctx4 = torch.full((W, 4, 4), 2, dtype=_I32, device=dev)
+    lev_out = torch.zeros((W, 2, 2, 8, 8), dtype=_I32, device=dev)
+    modes_out = []
+    cost = torch.zeros(W, dtype=_I32, device=dev)
+    modebits = torch.zeros(W, dtype=_I32, device=dev)
+    needs_t = const(P8.I8_NEEDS_TOP, dev)
+    needs_l = const(P8.I8_NEEDS_LEFT, dev)
+    nine = torch.arange(9, device=dev)
+
+    for by8, bx8 in _Z8:
+        y0, x0 = 8 * by8, 8 * bx8
+        if by8 == 0:
+            t16 = top24[:, x0:x0 + 16]
+            t_av = at
+            have_tr = at if bx8 == 0 else atr
+        else:
+            row = wt[:, 7, :]
+            if bx8 == 0:
+                t16 = row[:, 0:16]
+                have_tr = ones
+            else:
+                t16 = torch.cat([row[:, 8:16], row[:, 15:16].expand(W, 8)],
+                                1)
+                have_tr = ~ones
+            t_av = ones
+        if bx8 == 0:
+            l8 = left[:, y0:y0 + 8]
+            l_av = al
+        else:
+            l8 = wt[:, y0:y0 + 8, 7]
+            l_av = ones
+        if by8 == 0 and bx8 == 0:
+            lt, have_lt = topleft, at & al
+        elif by8 == 0:
+            lt, have_lt = top24[:, 7], at
+        elif bx8 == 0:
+            lt, have_lt = left[:, 7], al
+        else:
+            lt, have_lt = wt[:, 7, 7], ones
+        t16 = torch.where(have_tr[:, None], t16,
+                          torch.cat([t16[:, :8], t16[:, 7:8].expand(W, 8)],
+                                    1))
+
+        edge = P8.filter_edges(lt, t16, l8, have_lt, have_tr)
+        preds = P8.predict_i8x8_all(edge, t_av, l_av)        # [W,9,8,8]
+        eblk = enc[:, y0:y0 + 8, x0:x0 + 8]
+        satd = _satd_modes(eblk, preds)
+
+        cy, cx = 2 * by8, 2 * bx8
+        mA = nb_left_modes[:, cy] if bx8 == 0 else ctx4[:, cy, cx - 1]
+        mB = nb_top_modes[:, cx] if by8 == 0 else ctx4[:, cy - 1, cx]
+        av_a = al if bx8 == 0 else ones
+        av_b = at if by8 == 0 else ones
+        pm = torch.where(av_a & av_b, torch.minimum(mA, mB), 2)
+        bits = torch.where(nine[None, :] == pm[:, None], 1, 4).to(_I32)
+        valid = ~((needs_t[None, :] & ~t_av[:, None])
+                  | (needs_l[None, :] & ~l_av[:, None]))
+        mcost = torch.where(valid, satd + lam * bits, BIG)
+        mode = torch.argmin(mcost, dim=1)
+        cost = cost + mcost.min(dim=1).values
+        modebits = modebits + torch.where(mode == pm, 1, 4).to(_I32)
+        pred = _take_mode(preds, mode)
+
+        lev = T8.quant8x8(T8.dct8x8(eblk - pred), qp, intra=True)
+        rec = T8.idct8x8_add(pred, T8.dequant8x8(lev, qp, intra=True))
+        wt[:, y0:y0 + 8, x0:x0 + 8] = rec
+        ctx4[:, cy:cy + 2, cx:cx + 2] = mode.to(_I32)[:, None, None]
+        lev_out[:, by8, bx8] = lev
+        modes_out.append(mode.to(_I32))
+
+    nz8 = (lev_out != 0).any(4).any(3).to(_I32)                 # [W,2,2]
+    cbp_luma = (nz8[:, 0, 0] + 2 * nz8[:, 0, 1] + 4 * nz8[:, 1, 0]
+                + 8 * nz8[:, 1, 1])
+    return (torch.stack(modes_out, dim=1), lev_out, cbp_luma, wt, cost,
+            ctx4, modebits)
+
+
+def _rd_costs(enc, qp: int, mode16, dc_lev, ac_lev, cbpl16, rec16, lev4,
+              mb4bits, rec4, cost4, lev8, mb8bits, rec8):
+    """True-RD intra costs (x264_intra_rd): SSD + lambda2 * the exact
+    CAVLC bits at nC 0 of each candidate's residual plus its mode bits.
+    Returns (c16, c4, c8) [W] int32."""
+    from .inter import LAMBDA2_TAB, _zigzag_gather
+    dev = enc.device
+    W = enc.shape[0]
+    lam2 = int(LAMBDA2_TAB[qp])
+
+    def rdc(rec, bits):
+        d = rec - enc
+        return (d * d).sum((1, 2), dtype=_I32) + ((lam2 * bits + 128) >> 8)
+
+    def bits16(v):
+        nc0 = torch.zeros(v.shape[0], dtype=_I32, device=dev)
+        return cavlc_block_bits(v, nc0, max_coeff=v.shape[1]) \
+            .reshape(W, -1).sum(1, dtype=_I32)
+
+    zz = const(T.ZIGZAG_4x4, dev).long()
+    bits_dc = cavlc_block_bits(dc_lev[:, zz[:, 0], zz[:, 1]],
+                               torch.zeros(W, dtype=_I32, device=dev))
+    vac = _zigzag_gather(ac_lev)[:, 1:].permute(0, 2, 3, 1) \
+        .reshape(W * 16, 15)
+    c16 = cbpl16.to(_I32)
+    b16 = (bits_dc + torch.where(cbpl16, bits16(vac), 0)
+           + ue_len(1 + mode16 + 12 * c16))
+    v4 = _zigzag_gather(lev4.movedim((1, 2), (3, 4))).permute(0, 2, 3, 1) \
+        .reshape(W * 16, 16)
+    c4 = torch.where(cost4 < (1 << 29),
+                     rdc(rec4, bits16(v4) + mb4bits + 1 + 6), BIG)
+    v8 = T8.zigzag8(lev8).reshape(W, 2, 2, 16, 4).transpose(3, 4) \
+        .reshape(W * 16, 16)
+    c8 = rdc(rec8, bits16(v8) + mb8bits + 2 + 6)
+    return rdc(rec16, b16), c4, c8
 
 
 def _chroma_mb(enc_u, enc_v, tops, lefts, tl_u, tl_v, at, al, qpc: int,
@@ -243,10 +386,12 @@ def _z_to_grid(m4_z):
 
 
 def encode_i_frame(y, u, v, qp: int, qpc: int, mbw: int, mbh: int,
-                   lam: int = 0) -> dict:
+                   lam: int = 0, i8x8: bool = False, rd: bool = False
+                   ) -> dict:
     """Encode one I frame. y: [16mbh, 16mbw] int32; u, v half size.
     Returns the reference's dict of per-MB decisions, levels and recon
-    planes (i4x4 on, i8x8 off)."""
+    planes (i4x4 on; `i8x8` adds the Intra_8x8 candidate, `rd` chooses
+    between the candidates by RD cost instead of SATD)."""
     dev = y.device
     ty, tu, tv = _tile(y, 16), _tile(u, 8), _tile(v, 8)
 
@@ -258,7 +403,9 @@ def encode_i_frame(y, u, v, qp: int, qpc: int, mbw: int, mbh: int,
         mb_i4=z(dtype=torch.bool), i4_modes=z(16, fill=2),
         modes4=z(4, 4, fill=2), cbp_luma=z(), cbp_chroma=z(),
         luma_dc=z(4, 4), luma_ac=z(4, 4, 4, 4), chroma_dc=z(2, 2, 2),
-        chroma_ac=z(2, 2, 2, 4, 4))
+        chroma_ac=z(2, 2, 2, 4, 4), mb_i8=z(dtype=torch.bool),
+        i8_modes=z(4, fill=2),
+        luma8_lev=z(2, 2, 8, 8, dtype=_I32 if i8x8 else torch.int8))
 
     for my, mx in waves(mbw, mbh, dev):
         at = my > 0
@@ -278,17 +425,43 @@ def encode_i_frame(y, u, v, qp: int, qpc: int, mbw: int, mbh: int,
         nb_lm = st["modes4"][my, mxc, :, 3]
         nb_tm = st["modes4"][myc, mx, 3, :]
         top20 = torch.cat([top, st["ry"][myc, mxr, 15, 0:4]], dim=1)
-        m4, lev4, cbpl4, rec4, cost4 = _i4_mb(
+        m4, lev4, cbpl4, rec4, cost4, mb4bits = _i4_mb(
             enc, top20, left, tl, at, al, atr, qp, lam, nb_lm, nb_tm)
         use4 = cost4 < cost16
+        W = enc.shape[0]
+        if i8x8:
+            top24 = torch.cat([top, st["ry"][myc, mxr, 15, 0:8]], dim=1)
+            m8, lev8, cbpl8, rec8, cost8, ctx8, mb8bits = _i8_mb(
+                enc, top24, left, tl, at, al, atr, qp, lam, nb_lm, nb_tm)
+            use8 = (cost8 < cost16) & (cost8 <= cost4)
+            use4 = use4 & ~use8
+        else:
+            use8 = torch.zeros_like(use4)
+            m8 = torch.full((W, 4), 2, dtype=_I32, device=dev)
+            lev8 = torch.zeros((W, 2, 2, 8, 8), dtype=_I32, device=dev)
+            cbpl8 = torch.zeros(W, dtype=_I32, device=dev)
+            rec8 = rec16
+            ctx8 = torch.full((W, 4, 4), 2, dtype=_I32, device=dev)
+            mb8bits = torch.zeros(W, dtype=_I32, device=dev)
+        if rd:
+            c16r, c4r, c8r = _rd_costs(
+                enc, qp, mode16, dc_lev, ac_lev, cbpl16, rec16, lev4,
+                mb4bits, rec4, cost4, lev8, mb8bits, rec8)
+            if not i8x8:
+                c8r = torch.full_like(c16r, BIG)
+            use8 = (c8r < c16r) & (c8r <= c4r)
+            use4 = (c4r < c16r) & ~use8
 
         u4 = use4[:, None, None]
-        rec = torch.where(u4, rec4, rec16)
+        u8 = use8[:, None, None]
+        rec = torch.where(u8, rec8, torch.where(u4, rec4, rec16))
         luma_ac = torch.where(use4[:, None, None, None, None], lev4,
                               ac_lev.movedim((1, 2), (3, 4)))
-        cbp_luma = torch.where(use4, cbpl4, cbpl16.to(_I32) * 15)
-        dc_out = torch.where(u4, torch.zeros_like(dc_lev), dc_lev)
-        ctx4 = torch.where(u4, _z_to_grid(m4), 2)
+        luma_ac = torch.where(use8[:, None, None, None, None], 0, luma_ac)
+        cbp_luma = torch.where(use8, cbpl8,
+                               torch.where(use4, cbpl4, cbpl16.to(_I32) * 15))
+        dc_out = torch.where(u4 | u8, torch.zeros_like(dc_lev), dc_lev)
+        ctx4 = torch.where(u8, ctx8, torch.where(u4, _z_to_grid(m4), 2))
 
         cmode, cdc, cac, cbpc, ruu, rvv = _chroma_mb(
             tu[my, mx], tv[my, mx],
@@ -304,6 +477,9 @@ def encode_i_frame(y, u, v, qp: int, qpc: int, mbw: int, mbh: int,
         st["cmode"][my, mx] = cmode
         st["mb_i4"][my, mx] = use4
         st["i4_modes"][my, mx] = m4
+        st["mb_i8"][my, mx] = use8
+        st["i8_modes"][my, mx] = m8
+        st["luma8_lev"][my, mx] = lev8.to(st["luma8_lev"].dtype)
         st["modes4"][my, mx] = ctx4.to(_I32)
         st["cbp_luma"][my, mx] = cbp_luma
         st["cbp_chroma"][my, mx] = cbpc

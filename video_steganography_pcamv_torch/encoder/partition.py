@@ -9,16 +9,17 @@ static slice-averages, and SATD against any of them uses the
 WHT-linearity trick (`ops/probe.py`).
 
 `p_stage1_stego` runs one path on every device: B1 -> partition decision
--> window gather -> the analyse tail, kernels B2 -> B3 -> B4 on a CUDA
-tensor and their plain versions on a CPU one (`ops.probe.analyse_tail`).
-The reference's two P-analysis branches differ, for this slice, only in
-B1's MV predictor: zero on its accelerator branch, prev_mv >> 2 on its
-CPU branch. The reference ties that choice to its backend
-(`use_pallas`); the port maps it onto `tail_kernel` (True: zero), so
-that either stream is served on either device. The accelerator
-branch's bounded one-hot window fetch and MC (`gather_windows8_mm`,
-`mv_bound`) are the TPU's gather workaround and bit-exact to the gather
-for |mv| <= rng, so the port keeps the gather.
+-> window fetch (kernel B9) -> the analyse tail, kernels B2 -> B3 -> B4
+on a CUDA tensor and their plain versions on a CPU one
+(`ops.probe.analyse_tail`). The reference's two P-analysis branches
+differ, for this slice, only in B1's MV predictor: zero on its
+accelerator branch, prev_mv >> 2 on its CPU branch. The reference ties
+that choice to its backend (`use_pallas`); the port maps it onto
+`tail_kernel` (True: zero), so that either stream is served on either
+device. The accelerator branch's bounded one-hot window fetch and MC
+(`gather_windows8_mm`, `mv_bound`) are the TPU's gather workaround and
+bit-exact to the gather for |mv| <= rng: the port fetches the windows
+with B9 and keeps the gather MC.
 
 Block index convention per MB: 8x8 blocks b in {0: TL, 1: TR, 2: BL,
 3: BR} (z-order).
@@ -29,6 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import kernels
 from ..ops import const
 from ..ops import mc
 from ..ops import probe as PR
@@ -78,20 +80,62 @@ def decide_partition(st: dict, mbh: int, mbw: int, lam: int = 1):
     return part.to(_I32), mvsp
 
 
-def gather_windows8(planes, mvfp8, mbh: int, mbw: int):
-    """Per-8x8-block [N8, 4, 16, 16] window at (block + mv - MARGIN)."""
+def window8_index(mvfp8, mbh: int, mbw: int):
+    """Row and column indices [N8, 16] of every 8x8 block's window."""
     n8 = 4 * mbh * mbw
-    dev = planes.device
+    dev = mvfp8.device
     ar = torch.arange(n8, device=dev)
     bys = torch.div(ar, 2 * mbw, rounding_mode="floor") * 8
     bxs = (ar % (2 * mbw)) * 8
     mvf = mvfp8.reshape(n8, 2).long()
-    ys = bys + mc.PAD - QT.MARGIN + mvf[:, 1]
-    xs = bxs + mc.PAD - QT.MARGIN + mvf[:, 0]
     w16 = torch.arange(16, device=dev)
-    yy = ys[:, None] + w16
-    xx = xs[:, None] + w16
-    return planes[:, yy[:, :, None], xx[:, None, :]].permute(1, 0, 2, 3)
+    yy = (bys + mc.PAD - QT.MARGIN + mvf[:, 1])[:, None] + w16
+    xx = (bxs + mc.PAD - QT.MARGIN + mvf[:, 0])[:, None] + w16
+    return yy, xx
+
+
+def gather_windows8_plain(planes, mvfp8, mbh: int, mbw: int):
+    """Plain version of B9 (the reference's `gather_windows8_jnp`): the
+    per-8x8-block [N8, 4, 16, 16] window at (block + mv - MARGIN), one
+    advanced-index gather."""
+    yy, xx = window8_index(mvfp8, mbh, mbw)
+    return planes[:, yy[:, :, None], xx[:, None, :]].permute(1, 0, 2, 3) \
+        .contiguous()
+
+
+def gather_windows8(planes, mvfp8, mbh: int, mbw: int):
+    """Kernel B9, replacing the TPU kernel `gather_windows8_banked`
+    (video_steganography_pcamv_tpu/ops/pallas_kernels.py:259): every 8x8
+    block's 16x16 window of the four hpel planes. Bound by device memory.
+
+    planes [4, Hp, Wp] uint8 (PAD-padded hpel planes); mvfp8 [2mbh, 2mbw,
+    2] int32 full-pel. |mv| <= PAD - MARGIN keeps every window inside the
+    planes (the furthest column is W + 47, the last of W + 2 * PAD); the
+    encoder refuses larger search ranges (`check_slice`), and the kernel
+    traps on a window outside the planes. Returns [N8, 4, 16, 16] uint8.
+    CPU tensors run `gather_windows8_plain`; CUDA tensors launch the
+    kernel (counted in `gather_windows8.launches`)."""
+    if planes.device.type == "cpu":
+        return gather_windows8_plain(planes, mvfp8, mbh, mbw)
+    hp, wp = 16 * mbh + 2 * mc.PAD, 16 * mbw + 2 * mc.PAD
+    kernels.check_tensor("gather_windows8", "planes", planes, torch.uint8,
+                         (4, hp, wp))
+    kernels.check_tensor("gather_windows8", "mvfp8", mvfp8, _I32,
+                         (2 * mbh, 2 * mbw, 2))
+    out = torch.empty((4 * mbh * mbw, 4, 16, 16), dtype=torch.uint8,
+                      device=planes.device)
+    VP, CI = kernels.VP, kernels.CI
+    fn = kernels.entry("pcamv_gather_windows8",
+                       [VP, CI, CI, VP, CI, CI, VP, VP])
+    ptr = kernels.ptr
+    rc = fn(ptr(planes), hp, wp, ptr(mvfp8), mbh, mbw, ptr(out),
+            kernels.stream(planes))
+    kernels.check(rc, "pcamv_gather_windows8")
+    gather_windows8.launches += 1
+    return out
+
+
+gather_windows8.launches = 0
 
 
 def probe_combine(SK, SP, sc8, part, mv8, mvp_u, cost_mv, mbh: int,
@@ -163,24 +207,28 @@ def probe_combine(SK, SP, sc8, part, mv8, mvp_u, cost_mv, mbh: int,
 
 def p_stage1_stego(y, u, v, ref_luma, ref_u, ref_v, prev_mv, qp: int,
                    qpc: int, lam: int, cost_mv, rng: int, mbh: int,
-                   mbw: int, extra=None, tail_kernel: bool = False):
+                   mbw: int, extra=None, tail_kernel: bool = False,
+                   trans8: bool = False, rd: bool = False):
     """Fused P stage 1: analyse -> pass-1 encode -> device scan -> RCA
     stego costs. `tail_kernel` picks B1's MV predictor: zero (True, the
     reference's accelerator branch) or prev_mv >> 2 (False, its CPU
-    branch); see the module docstring. Returns (packed f32, res) with
-    the reference's layout
+    branch); see the module docstring. `trans8`/`rd` go to the pass-1
+    encode, which then returns only its cbp maps (the reference's pass 2
+    is a full re-encode under the 8x8 transform). Returns (packed f32,
+    res) with the reference's layout
       [part n | mv8 8n | cbp_l n | cbp_c n | skip n | alt 8n | rho 4n
        | extra]."""
     pred = torch.zeros_like(prev_mv) if tail_kernel else prev_mv >> 2
     st = fullpel_parts(y, ref_luma[0], pred.contiguous(), rng, mbh, mbw,
                        lam)
     part, mvfp8 = decide_partition(st, mbh, mbw, lam)
-    windows = gather_windows8(ref_luma.to(torch.uint8), mvfp8, mbh,
-                              mbw).contiguous()
+    mvfp8 = mvfp8.contiguous()
+    windows = gather_windows8(ref_luma.to(torch.uint8), mvfp8, mbh, mbw)
     mv8, _r_idx8, SK, SP, sc8 = PR.analyse_tail(
         y, windows, part, mvfp8, prev_mv.contiguous(), lam, qp, mbh, mbw)
     res = INTER.encode_p_frame_device8(
-        y, u, v, ref_luma, ref_u, ref_v, mv8, qp, qpc, mbh, mbw)
+        y, u, v, ref_luma, ref_u, ref_v, mv8, qp, qpc, mbh, mbw,
+        trans8=trans8, rd=rd, cbp_only=trans8)
     cbp_l = res["cbp_luma"].to(_I32)
     cbp_c = res["cbp_chroma"].to(_I32)
     skip, _mvd, mvp_u, _ = scan_p_device(part, mv8, cbp_l, cbp_c, mbh, mbw)

@@ -1,12 +1,20 @@
 """Lookahead slice-type decision (port of encoder/slicetype.py, the IPP
 subset: `lowres`, `lowres_costs`, `Lookahead.decide`, `costs_device`,
-`decide_from_costs`)."""
+`decide_from_costs`), and B10, `lowres_costs_kernel`.
+
+The lookahead runs the plain `lowres_costs` on every device: B10's MV
+cost differs from it (the se(v) bits of B1 against a 4(|dx| + |dy|)
+penalty), so a lookahead on B10 would decide other frame types than the
+reference does, and the stream would stop matching. B10 is ported for
+the kernel table and serves no path."""
 
 from __future__ import annotations
 
 import torch
 
+from ..ops import mc
 from ..ops.blocks import to_blocks
+from ..ops.fullpel import fullpel_parts, fullpel_search_parts
 
 _I32 = torch.int32
 
@@ -41,13 +49,61 @@ def lowres_costs(cur_lr, ref_lr, bh: int, bw: int, rng: int = 8):
         sad = to_blocks(torch.abs(cur_lr - win), 8).sum((-4, -3),
                                                        dtype=_I32)
         best = torch.minimum(best, sad + 4 * (abs(dy) + abs(dx)))
-    blocks = to_blocks(cur_lr, 8)
-    dc = torch.div(blocks.sum((-4, -3), keepdim=True, dtype=_I32), 64,
-                   rounding_mode="floor")
-    intra = torch.abs(blocks - dc).sum((-4, -3), dtype=_I32)
+    intra = _dc_intra(cur_lr)
     cost_p = torch.minimum(best, intra).sum(dtype=_I32)
     cost_i = intra.sum(dtype=_I32)
     return torch.stack([cost_i, cost_p])
+
+
+def _dc_intra(cur_lr):
+    """Per-8x8 DC-prediction SAD [bh, bw] int32."""
+    blocks = to_blocks(cur_lr, 8)
+    dc = torch.div(blocks.sum((-4, -3), keepdim=True, dtype=_I32), 64,
+                   rounding_mode="floor")
+    return torch.abs(blocks - dc).sum((-4, -3), dtype=_I32)
+
+
+def _lowres_costs_b1(search, cur_lr, ref_lr, bh: int, bw: int, rng: int):
+    h, w = 8 * bh, 8 * bw
+    ph, pw = (-h) % 16, (-w) % 16
+    rows = torch.arange(h + ph, device=cur_lr.device).clamp(max=h - 1)
+    cols = torch.arange(w + pw, device=cur_lr.device).clamp(max=w - 1)
+    cur_p = cur_lr.to(_I32)[rows][:, cols].contiguous()
+    ref_p = mc.pad_plane(ref_lr.to(_I32)[rows][:, cols]).contiguous()
+    mh, mw = (h + ph) // 16, (w + pw) // 16
+    zero = torch.zeros((mh, mw, 2), dtype=_I32, device=cur_lr.device)
+    c8 = search(cur_p, ref_p, zero, rng, mh, mw, 1)["c8"]
+    inter = c8.reshape(mh, mw, 2, 2).permute(0, 2, 1, 3) \
+        .reshape(2 * mh, 2 * mw)[:bh, :bw]
+    intra = _dc_intra(cur_lr)
+    return torch.stack([intra.sum(dtype=_I32),
+                        torch.minimum(inter, intra).sum(dtype=_I32)])
+
+
+def lowres_costs_kernel_plain(cur_lr, ref_lr, bh: int, bw: int,
+                              rng: int = 8):
+    """Plain version of B10: the same wrapper over B1's plain version
+    `fullpel_search_parts`."""
+    return _lowres_costs_b1(fullpel_search_parts, cur_lr, ref_lr, bh, bw,
+                            rng)
+
+
+def lowres_costs_kernel(cur_lr, ref_lr, bh: int, bw: int, rng: int = 8):
+    """B10, replacing the reference's `lowres_costs_pallas`
+    (video_steganography_pcamv_tpu/encoder/slicetype.py:41), a wrapper
+    over the TPU kernel B1: the lowres plane, edge-padded to 16-multiples,
+    tiled as 16x16 "MBs" so that B1's c8 output (zero predictor, lam 1)
+    is every 8x8 block's inter SAD argmin; DC intra as in `lowres_costs`.
+    Returns int32 [2] (cost_i, cost_p). On a CUDA tensor B1's kernel
+    runs (counted in `lowres_costs_kernel.launches` and in
+    `fullpel_parts.launches`), on a CPU one its plain version."""
+    out = _lowres_costs_b1(fullpel_parts, cur_lr, ref_lr, bh, bw, rng)
+    if cur_lr.is_cuda:
+        lowres_costs_kernel.launches += 1
+    return out
+
+
+lowres_costs_kernel.launches = 0
 
 
 class Lookahead:

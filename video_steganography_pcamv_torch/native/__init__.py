@@ -76,7 +76,8 @@ def load() -> ctypes.CDLL:
     lib.pcamv_write_slice.restype = ctypes.c_long
     lib.pcamv_write_slice.argtypes = [
         u8p, ctypes.c_long, u8p, ci, ci, ci, ci,
-        vp, vp, vp, i32p, i32p, vp, i32p, i32p, i32p, vp, vp, vp, vp]
+        vp, vp, vp, i32p, i32p, vp, i32p, i32p, i32p, vp, vp, vp, vp,
+        vp, vp, vp, vp, ci]
     lib.pcamv_scan_p_parts_forced.restype = None
     lib.pcamv_scan_p_parts_forced.argtypes = [
         i32p, i32p, u8p, ci, ci, i32p, i32p, i32p]
@@ -106,11 +107,15 @@ def write_slice(header_bytes: bytes, header_nbits: int, slice_type: int,
                 mbw: int, mbh: int, *, skip=None, mode=None, cmode=None,
                 cbp_luma, cbp_chroma, luma_dc=None, luma_blocks, chroma_dc,
                 chroma_ac, mb_i4=None, i4_modes=None, part=None,
-                mvd4=None) -> bytes:
+                mvd4=None, mb_i8=None, i8_modes=None, luma8_lev=None,
+                trans8=None, trans8_mode: bool = False) -> bytes:
     """Native whole-slice CAVLC entropy coding (I slices, and P slices
     with partitions and one reference). Shapes: luma_blocks [N,16,16],
     luma_dc [N,16], chroma_dc [N,2,4], chroma_ac [N,2,4,16], mb_i4 [N]
-    u8, i4_modes [N,16], part [N], mvd4 [N,4,2]."""
+    u8, i4_modes [N,16], part [N], mvd4 [N,4,2]. High-profile 8x8
+    transform (`trans8_mode`, the PPS flag): mb_i8 [N] u8, i8_modes
+    [N,4], luma8_lev [N,2,2,8,8] raster (zigzag-scanned here), trans8
+    [N] u8."""
     lib = load()
     n = mbw * mbh
     hdr = np.frombuffer(header_bytes + b"\0" * 8, np.uint8).copy()
@@ -125,6 +130,17 @@ def write_slice(header_bytes: bytes, header_nbits: int, slice_type: int,
              if i4_modes is not None else None)
     part_a = _as_i32(part).reshape(n) if part is not None else None
     mvd4_a = _as_i32(mvd4).reshape(n * 8) if mvd4 is not None else None
+    i8_a = (np.ascontiguousarray(mb_i8, np.uint8).reshape(n)
+            if mb_i8 is not None else None)
+    i8m_a = _as_i32(i8_modes).reshape(n * 4) if i8_modes is not None \
+        else None
+    l8_a = None
+    if luma8_lev is not None:
+        from ..ops.transform8 import ZIGZAG_8x8_FLAT
+        l8_a = np.ascontiguousarray(_as_i32(luma8_lev).reshape(n, 4, 64)
+                                    [:, :, ZIGZAG_8x8_FLAT].reshape(n * 256))
+    t8_a = (np.ascontiguousarray(trans8, np.uint8).reshape(n)
+            if trans8 is not None else None)
     cap = 1 << 22
     while True:
         out = np.zeros(cap, np.uint8)
@@ -135,7 +151,9 @@ def write_slice(header_bytes: bytes, header_nbits: int, slice_type: int,
             _ptr(dc_a), _as_i32(luma_blocks).reshape(n * 256),
             _as_i32(chroma_dc).reshape(n * 8),
             _as_i32(chroma_ac).reshape(n * 128),
-            _ptr(i4_a), _ptr(i4m_a), _ptr(part_a), _ptr(mvd4_a))
+            _ptr(i4_a), _ptr(i4m_a), _ptr(part_a), _ptr(mvd4_a),
+            _ptr(i8_a), _ptr(i8m_a), _ptr(l8_a), _ptr(t8_a),
+            1 if trans8_mode else 0)
         if r >= 0:
             return bytes(out[:r])
         cap *= 4

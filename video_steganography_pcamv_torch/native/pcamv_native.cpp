@@ -4,9 +4,10 @@
 // A copy of the reference package's native/pcamv_native.cpp cut to the
 // five entry points the port calls (pcamv_write_slice,
 // pcamv_scan_p_parts_forced, pcamv_host_scan_p, pcamv_host_scan_p_forced,
-// pcamv_stc_embed) and to the port's slice: I slices (I16x16, I4x4) and P
-// slices with or without partitions, one reference and the 4x4
-// transform. Twins of the reference's serial host paths:
+// pcamv_stc_embed) and to the port's slice: I slices (I16x16, I4x4 and,
+// with the 8x8 transform, I8x8) and P slices with or without partitions,
+// one reference, the 4x4 or the adaptive 8x8 transform. Twins of the
+// reference's serial host paths:
 //   - encoder/cavlc.c:288-717 (MB + residual writers) and common/bs.h
 //   - common/macroblock.c:28-165 (median MVP / pskip derivation)
 //   - embed.h:309-548 (STC Viterbi)
@@ -214,6 +215,31 @@ static void write_chroma(BitWriter& bw, FrameCtx& fc, int mx, int my,
   }
 }
 
+// 8x8-transform luma residual: four interleaved 4x4 CAVLC blocks per
+// coded 8x8 (spec 7.4.5.3.3 level8x8 split). scan: [4][64]
+// zigzag-ordered levels per 8x8 block in z-order (0,0),(0,1),(1,0),
+// (1,1); sub-block j carries zigzag positions 4k + j and its TotalCoeff
+// lands in its 4x4 nnz cell (spec 9.2.1).
+static void write_luma8(BitWriter& bw, FrameCtx& fc, int mx, int my,
+                        int cbp_luma, const int32_t* scan) {
+  static const int BY8[4] = {0, 0, 1, 1}, BX8[4] = {0, 1, 0, 1};
+  static const int SY[4] = {0, 0, 1, 1}, SX[4] = {0, 1, 0, 1};
+  for (int b = 0; b < 4; b++) {
+    for (int j = 0; j < 4; j++) {
+      int yy = 4 * my + 2 * BY8[b] + SY[j];
+      int xx = 4 * mx + 2 * BX8[b] + SX[j];
+      if (cbp_luma & (1 << b)) {
+        int lv[16];
+        for (int i = 0; i < 16; i++) lv[i] = scan[b * 64 + 4 * i + j];
+        int nc = fc.ctx(true, 0, yy, xx);
+        fc.set_ny(yy, xx, write_residual(bw, lv, 16, nc));
+      } else {
+        fc.set_ny(yy, xx, 0);
+      }
+    }
+  }
+}
+
 }  // namespace
 
 // ------------------------------------------------------------ slice API ---
@@ -225,7 +251,13 @@ extern "C" long pcamv_write_slice(
     const int32_t* luma_dc, const int32_t* luma_blocks,
     const int32_t* chroma_dc, const int32_t* chroma_ac,
     const uint8_t* mb_i4, const int32_t* i4_modes,
-    const int32_t* part, const int32_t* mvd4) {
+    const int32_t* part, const int32_t* mvd4,
+    // High-profile 8x8 transform (PPS transform_8x8_mode_flag):
+    // mb_i8 [n] I_NxN-8x8 flags; i8_modes [n][4] z-order pred modes;
+    // luma8_scan [n][4][64] zigzag-ordered 8x8 levels; trans8 [n]
+    // per-MB inter transform flags; trans8_mode = PPS flag
+    const uint8_t* mb_i8, const int32_t* i8_modes,
+    const int32_t* luma8_scan, const uint8_t* trans8, int trans8_mode) {
   BitWriter bw(out, out_cap);
   for (int i = 0; i < header_nbits; i++)
     bw.put(1, (header[i >> 3] >> (7 - (i & 7))) & 1);
@@ -260,18 +292,26 @@ extern "C" long pcamv_write_slice(
       }
       int cbp = (cbp_chroma[a] << 4) | cbp_luma[a];
       bw.put_ue(CBP_INTER_TO_GOLOMB[cbp]);
+      // transform_size_8x8_flag between cbp and dqp (spec 7.3.5), only
+      // when luma residual exists
+      int t8 = (trans8 && trans8[a]) ? 1 : 0;
+      if (trans8_mode && cbp_luma[a]) bw.put(1, t8);
       if (cbp) bw.put_se(0);  // qp_delta (CQP)
-      for (int blk = 0; blk < 16; blk++) {
-        int braster = LSCAN[blk];
-        int by = braster >> 2, bx = braster & 3;
-        int yy = 4 * my + by, xx = 4 * mx + bx;
-        if (cbp_luma[a] & (1 << (blk >> 2))) {
-          int z[16];
-          zigzag16(&luma_blocks[(a * 16 + braster) * 16], z);
-          int nc = fc.ctx(true, 0, yy, xx);
-          fc.set_ny(yy, xx, write_residual(bw, z, 16, nc));
-        } else {
-          fc.set_ny(yy, xx, 0);
+      if (t8 && cbp_luma[a]) {
+        write_luma8(bw, fc, mx, my, cbp_luma[a], &luma8_scan[a * 256]);
+      } else {
+        for (int blk = 0; blk < 16; blk++) {
+          int braster = LSCAN[blk];
+          int by = braster >> 2, bx = braster & 3;
+          int yy = 4 * my + by, xx = 4 * mx + bx;
+          if (cbp_luma[a] & (1 << (blk >> 2))) {
+            int z[16];
+            zigzag16(&luma_blocks[(a * 16 + braster) * 16], z);
+            int nc = fc.ctx(true, 0, yy, xx);
+            fc.set_ny(yy, xx, write_residual(bw, z, 16, nc));
+          } else {
+            fc.set_ny(yy, xx, 0);
+          }
         }
       }
       if (cbp) {
@@ -283,8 +323,35 @@ extern "C" long pcamv_write_slice(
             for (int c = 0; c < 2; c++)
               fc.set_nc(ch, 2 * my + b, 2 * mx + c, 0);
       }
+    } else if (mb_i8 && mb_i8[a]) {  // I_NxN (Intra_8x8), High profile
+      bw.put_ue(0);                  // mb_type (I slice)
+      bw.put(1, 1);                  // transform_size_8x8_flag
+      static const int GY8[4] = {0, 0, 2, 2}, GX8[4] = {0, 2, 0, 2};
+      for (int b = 0; b < 4; b++) {
+        int gy = 4 * my + GY8[b], gx = 4 * mx + GX8[b];
+        int m = i8_modes[a * 4 + b];
+        int pm = fc.pred_i4(gy, gx);
+        if (m == pm) {
+          bw.put(1, 1);
+        } else {
+          bw.put(1, 0);
+          bw.put(3, m - (m > pm ? 1 : 0));
+        }
+        // replicate into the 2x2 ctx cells (x264 cache layout)
+        for (int dy = 0; dy < 2; dy++)
+          for (int dx = 0; dx < 2; dx++)
+            fc.set_m4(gy + dy, gx + dx, m);
+      }
+      bw.put_ue(cmode[a]);
+      int cbp = (cbp_chroma[a] << 4) | cbp_luma[a];
+      bw.put_ue(CBP_INTRA_TO_GOLOMB[cbp]);
+      if (cbp) bw.put_se(0);  // qp_delta
+      write_luma8(bw, fc, mx, my, cbp_luma[a], &luma8_scan[a * 256]);
+      write_chroma(bw, fc, mx, my, cbp_chroma[a], &chroma_dc[a * 8],
+                   &chroma_ac[a * 128]);
     } else if (mb_i4 && mb_i4[a]) {  // I_NxN (Intra_4x4), spec 7.3.5.1
       bw.put_ue(0);  // mb_type (I slice)
+      if (trans8_mode) bw.put(1, 0);  // transform_size_8x8_flag
       for (int blk = 0; blk < 16; blk++) {
         int braster = LSCAN[blk];
         int by = braster >> 2, bx = braster & 3;

@@ -73,11 +73,13 @@ def _shift_down(x):
 
 def edge_params(intra, skip, nnz4, mv4, qp: int, qpc: int, mbh: int,
                 mbw: int, qp_thresh: int = 15, off_a: int = 0,
-                off_b: int = 0, ref4=None) -> torch.Tensor:
-    """Per-MB deblock parameters [mbh*mbw, 128] int32 (layout above),
-    for the 4x4 transform (the reference's trans8 input at its default).
+                off_b: int = 0, ref4=None, trans8=None) -> torch.Tensor:
+    """Per-MB deblock parameters [mbh*mbw, 128] int32 (layout above).
     ref4 [4mbh, 4mbw] holds the L0 reference index of each 4x4 block
-    (None: all 0, one reference); blocks that differ in it get bS 1."""
+    (None: all 0, one reference); blocks that differ in it get bS 1.
+    trans8 [mbh, mbw] marks the MBs coded with the 8x8 transform (None:
+    none), whose inner luma edges 1 and 3 are no transform edges and
+    stay off (the rule lives in these rows; the filter is unchanged)."""
     dev = nnz4.device
     ALPHA = const(ALPHA_TAB, dev)
     BETA = const(BETA_TAB, dev)
@@ -101,6 +103,8 @@ def edge_params(intra, skip, nnz4, mv4, qp: int, qpc: int, mbh: int,
     left_i = _shift_right(intra_g)
     top_i = _shift_down(intra_g)
     cur_skip = skip.to(_I32) > 0
+    t8 = (torch.zeros_like(intra_g) if trans8 is None
+          else trans8.to(_I32) > 0)
     eqp = [(_shift_right(qp_g) + qp_g + 1) >> 1,
            (_shift_down(qp_g) + qp_g + 1) >> 1]
     eqpc = [(_shift_right(qpc_g) + qpc_g + 1) >> 1,
@@ -142,7 +146,8 @@ def edge_params(intra, skip, nnz4, mv4, qp: int, qpc: int, mbh: int,
             act = gate & (a_e > 0) & (b_e > 0)
             par[..., d * 4 + e] = a_e
             par[..., 8 + d * 4 + e] = b_e
-            par[..., 16 + d * 4 + e] = act.to(_I32)
+            par[..., 16 + d * 4 + e] = (act & ~t8 if e in (1, 3)
+                                        else act).to(_I32)
             bsc = torch.clamp(bs, 0, 3).long()
             par[..., 64 + d * 16 + e * 4:68 + d * 16 + e * 4] = \
                 TC0[ia[..., None], bsc]
@@ -314,17 +319,18 @@ def deblock_frame_cuda(y, u, v, par, mbh: int, mbw: int):
 
 def deblock_frame(y, u, v, intra, skip, nnz4, mv4, qp: int, qpc: int,
                   mbh: int, mbw: int, qp_thresh: int = 15, off_a: int = 0,
-                  off_b: int = 0):
+                  off_b: int = 0, trans8=None):
     """Kernel B5, replacing the TPU kernel `deblock_frame_pallas`
     (video_steganography_pcamv_tpu/ops/deblock_pallas.py:469). On the
     H100 it is bound by launch latency (one grid per knight wave).
 
     The contract of the reference's deblock_frame_device: int32 planes +
-    per-MB intra/skip, per-4x4 nnz/mv -> uint8 planes. CPU tensors run
-    the plain version; CUDA tensors launch the kernel; anything else
-    raises."""
+    per-MB intra/skip (and trans8), per-4x4 nnz/mv -> uint8 planes. CPU
+    tensors run the plain version; CUDA tensors launch the kernel;
+    anything else raises."""
     par = edge_params(intra, skip, nnz4, mv4, qp, qpc, mbh, mbw,
-                      qp_thresh=qp_thresh, off_a=off_a, off_b=off_b)
+                      qp_thresh=qp_thresh, off_a=off_a, off_b=off_b,
+                      trans8=trans8)
     if y.device.type == "cpu":
         return deblock_frame_plain(y, u, v, par, mbh, mbw)
     return deblock_frame_cuda(y.to(_I32).contiguous(),

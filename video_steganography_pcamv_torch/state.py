@@ -20,7 +20,7 @@ import torch
 
 _REF_KEYS = ("luma", "u", "v")
 _RES_KEYS = ("luma_lev", "chroma_dc", "chroma_ac", "cbp_luma",
-             "cbp_chroma")
+             "cbp_chroma", "luma8_lev", "trans8")
 _PEND_KEYS = ("qp", "part", "mvd", "skip", "final8", "frame_num",
               "poc_lsb", "aud")
 
@@ -32,7 +32,8 @@ def from_reference(enc) -> dict:
     if enc._pending_p is not None:
         pd = enc._pending_p
         pend = {"buf": np.asarray(pd["buf"]),
-                "res": {k: np.asarray(pd["res"][k]) for k in _RES_KEYS},
+                "res": {k: np.asarray(pd["res"][k]) for k in _RES_KEYS
+                        if k in pd["res"]},
                 **{k: copy.deepcopy(pd[k]) for k in _PEND_KEYS}}
     st = enc._stego
     return {

@@ -34,9 +34,16 @@ def extract_from_stream(data: bytes, em_rate: float, key: int = 0,
     toolbox table + the persistent LCG replayed in frame order exactly
     as the embedder consumed it); `key` is kept for API compatibility
     but only guards the message PRNG on the embed side."""
+    return extract_from_frames(decode_annexb(data), em_rate, stc_h)
+
+
+def extract_from_frames(frames, em_rate: float,
+                        stc_h: int = 10) -> list[np.ndarray]:
+    """`extract_from_stream` on the stream's decoded frames (the
+    `decode_annexb` output), for a caller that decodes anyway."""
     out = []
     state = StcState()  # replays the embedder's matrix sequence
-    for frame in decode_annexb(data):
+    for frame in frames:
         if frame.slice_type not in (0, 5):
             continue   # covers live only in P slices (encoder.c:1276)
         cov = cover_bits_of_frame(frame)
