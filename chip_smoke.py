@@ -10,21 +10,29 @@ Phases (any failure raises and the script exits non-zero):
      native library, in parallel, with their times;
   2. kernel B1 (full-pel partition search) against its plain version at
      1080p shapes, random and zero predictor: array-equal, both timed;
-  3. kernel B5 (deblock) against its plain version at 1080p with fuzzed
-     intra/skip/nnz/mv maps at qp 26 and 40: array-equal, both timed;
-  4. kernels B2 (qpel tables), B3 (subpel) and B4 (probe maps) against
-     their plain versions at 1080p shapes on a real frame pair run
-     through the accelerator branch's B1 + partition decision:
-     array-equal, timed, beside their bounds;
+  3. kernel B5 (the whole deblock_frame call: edge parameters and
+     filter, uint8 in and out, one launch) against edge_params + its
+     plain version at 1080p with fuzzed intra/skip/nnz/mv maps at qp 26
+     and 40, with fuzzed trans8, with slice offsets, at a qp at or below
+     qp_thresh, and on a frame with more MB rows than the card holds
+     CTAs at once: array-equal, timed, beside its byte/op bound and a
+     latency bound (the knight chain's steps x a cross-SM handoff that
+     a ping-pong kernel measures);
+  4. kernels B3 (subpel) and B4 (probe maps), which take the windows
+     and build B2's qpel rows themselves, and B2's standalone entry
+     (qpel tables) against their plain versions at 1080p shapes on a
+     real frame pair run through the accelerator branch's B1 +
+     partition decision: array-equal, timed, beside their bounds;
   5. 112x80 six-frame encode on cuda and on cpu for both tail_kernel
      settings: byte-equal streams that the port's decoder decodes and
      the port's extractor reads;
   6. the main path at 1920x1088, bench.py's Params (tail_kernel=True, the
      reference's accelerator branch), ten frames plus flush: payload
-     recovered, all five kernels launched, fps printed;
+     recovered, B1, B9, B3 and B4 launched once per P frame, B5 once
+     per frame, B2's entry never, fps printed;
   7. the tail_kernel=False path (B1 against the predictor prev_mv >> 2)
-     at 1920x1088, IDR + 3 P frames plus flush: payload recovered, all
-     five kernels launched;
+     at 1920x1088, IDR + 3 P frames plus flush: payload recovered, the
+     same launch counts;
   8. per-stage times of a 1080p P frame on the tail_kernel=True path;
   9. kernels B6 (16x16 full-pel search), B7 (MB window fetch) and
      B8a/B8b (4x4 DCT+quant, dequant+IDCT) against their plain versions
@@ -48,8 +56,9 @@ Phases (any failure raises and the script exits non-zero):
      Intra_8x8 and 8x8-transform P MBs, decoded and read by the port's
      decoder and extractor;
  15. config 3 at 1280x720 (45x80 MBs), IDR + 4 P frames plus flush:
-     payload recovered, B1, B9, B2-B4 launched every P frame and B5
-     every frame, I8x8 and trans8 MB counts, fps printed;
+     payload recovered, B1, B9, B3 and B4 launched every P frame, B5
+     every frame, B2's entry never, I8x8 and trans8 MB counts, fps
+     printed;
  16. (only with --stages8) per-stage times of a 720p config-3 P frame.
 Phases 9 and 13 run right after phase 4, so that a new kernel that fails
 stops the run early. Each phase logs its wall time. The line before the
@@ -202,53 +211,122 @@ def phase_b1(dev, int_rate):
                   "ops/pallas_kernels.py:435", worst, ms, plain_ms, bnd)
 
 
+def _deblock_case(dev, g, mbh, mbw, trans8: bool):
+    """Planes with MB-level steps and noise, fuzzed intra/skip/nnz/mv
+    maps (mv constant over 8x8 blocks) and, optionally, trans8."""
+    H, W = 16 * mbh, 16 * mbw
+    base = g.integers(60, 180, (mbh, mbw))
+    y = np.clip(np.repeat(np.repeat(base, 16, 0), 16, 1)
+                + g.integers(-24, 25, (H, W)), 0, 255)
+    u = np.clip(128 + g.integers(-24, 25, (H // 2, W // 2)), 0, 255)
+    v = np.clip(128 + g.integers(-24, 25, (H // 2, W // 2)), 0, 255)
+    intra = (g.random((mbh, mbw)) < 0.15).astype(np.int32)
+    skip = ((g.random((mbh, mbw)) < 0.2) & (intra == 0)).astype(np.int32)
+    nnz4 = (g.random((4 * mbh, 4 * mbw)) < 0.5).astype(np.int32)
+    mv4 = g.integers(-20, 21, (4 * mbh, 4 * mbw, 2)).astype(np.int32)
+    mv4 = np.repeat(np.repeat(mv4[::2, ::2], 2, 0), 2, 1)
+    t8 = (g.random((mbh, mbw)) < 0.5).astype(np.int32) if trans8 else None
+    planes = [torch.as_tensor(a.astype(np.uint8), device=dev)
+              for a in (y, u, v)]
+    maps = [torch.as_tensor(np.ascontiguousarray(a), device=dev)
+            for a in (intra, skip, nnz4, mv4)]
+    return planes, maps, (None if t8 is None
+                          else torch.as_tensor(t8, device=dev))
+
+
+def handoff_ms(dev, rounds: int = 20000) -> float:
+    """One cross-SM handoff of the deblocker's progress counters (fence +
+    release store, acquire spin), from a two-CTA ping-pong on two SMs."""
+    from video_steganography_pcamv_torch import kernels
+    flag = torch.zeros((1,), dtype=torch.int32, device=dev)
+    fn = kernels.entry("pcamv_handoff_pingpong",
+                       [kernels.VP, kernels.CI, kernels.VP])
+
+    def run():
+        kernels.check(fn(kernels.ptr(flag), rounds, kernels.stream(flag)),
+                      "pcamv_handoff_pingpong")
+    ms = cuda_ms(run, 3, warmup=1)
+    if int(flag.item()) != 2 * rounds:
+        raise AssertionError("ping-pong ended at %d, want %d"
+                             % (int(flag.item()), 2 * rounds))
+    return ms / (2 * rounds)
+
+
 def phase_b5(dev, int_rate):
+    """B5, the whole deblock_frame call (edge parameters + filter, uint8
+    in and out) in one launch, against edge_params + the plain wave
+    filter: qp 26 and 40, fuzzed trans8, slice offsets, a qp at or
+    below qp_thresh (internal edges off) and a frame with more MB rows
+    than the card holds CTAs at once."""
     from video_steganography_pcamv_torch.ops import deblock as DB
-    H, W = 16 * MBH, 16 * MBW
+    from video_steganography_pcamv_torch.ops.transform import chroma_qp
+    # name, MB rows and columns, qp, off_a, off_b, trans8
+    cases = [("qp 26", MBH, MBW, 26, 0, 0, False),
+             ("qp 40", MBH, MBW, 40, 0, 0, False),
+             ("qp 30, trans8 fuzzed", MBH, MBW, 30, 0, 0, True),
+             ("qp 33, off_a +6, off_b -4, trans8", MBH, MBW, 33, 6, -4,
+              True),
+             ("qp 14 <= qp_thresh 15", MBH, MBW, 14, 0, 0, False)]
+    wide = 1024
+    resident = DB.resident_ctas(wide)
+    cases.append(("%d MB rows > %d resident CTAs (%dx%d)"
+                  % (resident + 32, resident, 16 * wide,
+                     16 * (resident + 32)), resident + 32, wide, 28, 0, 0,
+                  True))
     worst = 0
     ms = plain_ms = None
-    for qp in (26, 40):
-        g = np.random.default_rng(qp)
-        base = g.integers(60, 180, (MBH, MBW))
-        y = np.clip(np.repeat(np.repeat(base, 16, 0), 16, 1)
-                    + g.integers(-24, 25, (H, W)), 0, 255)
-        u = np.clip(128 + g.integers(-24, 25, (H // 2, W // 2)), 0, 255)
-        v = np.clip(128 + g.integers(-24, 25, (H // 2, W // 2)), 0, 255)
-        intra = (g.random((MBH, MBW)) < 0.15).astype(np.int32)
-        skip = ((g.random((MBH, MBW)) < 0.2) & (intra == 0)).astype(np.int32)
-        nnz4 = (g.random((4 * MBH, 4 * MBW)) < 0.5).astype(np.int32)
-        mv4 = g.integers(-20, 21, (4 * MBH, 4 * MBW, 2)).astype(np.int32)
-        mv4 = np.repeat(np.repeat(mv4[::2, ::2], 2, 0), 2, 1)
-        t = [torch.as_tensor(np.ascontiguousarray(a, np.int32), device=dev)
-             for a in (y, u, v, intra, skip, nnz4, mv4)]
-        qpc = min(qp, 39)
-        par = DB.edge_params(t[3], t[4], t[5], t[6], qp, qpc, MBH, MBW)
-        got = DB.deblock_frame_cuda(t[0], t[1], t[2], par, MBH, MBW)
-        want = DB.deblock_frame_plain(t[0], t[1], t[2], par, MBH, MBW)
+    for i, (name, mbh, mbw, qp, off_a, off_b, t8) in enumerate(cases):
+        g = np.random.default_rng(100 + i)
+        planes, maps, trans8 = _deblock_case(dev, g, mbh, mbw, t8)
+        qpc = chroma_qp(qp)
+        kw = dict(qp_thresh=15 - min(off_a, off_b), off_a=off_a,
+                  off_b=off_b, trans8=trans8)
+        got = DB.deblock_frame(*planes, *maps, qp, qpc, mbh, mbw, **kw)
+
+        def plain():
+            par = DB.edge_params(*maps, qp, qpc, mbh, mbw, **kw)
+            return DB.deblock_frame_plain(*planes, par, mbh, mbw)
+        want = plain()
         torch.cuda.synchronize()
         err = max_abs(got, want)
         worst = max(worst, err)
         if not all(torch.equal(a, b) for a, b in zip(got, want)):
-            raise AssertionError("B5 kernel != plain at qp %d, max abs err "
-                                 "%d" % (qp, err))
-        log("B5 qp %d: kernel == plain at %dx%d MBs" % (qp, MBH, MBW))
-        ms = cuda_ms(lambda: DB.deblock_frame_cuda(t[0], t[1], t[2], par,
-                                                   MBH, MBW), 20, 3)
-        # the plain wave loop takes seconds a call: one timed call
-        plain_ms = cuda_ms(lambda: DB.deblock_frame_plain(
-            t[0], t[1], t[2], par, MBH, MBW), 1, warmup=0)
-        log("B5 qp %d time: kernel %.3f ms, plain %.3f ms (median, 1080p)"
-            % (qp, ms, plain_ms))
-    # bytes: the three int32 planes read and written, the [n, 128] int32
-    # parameter rows read. ops: per MB 8 luma edges x 16 lines and 2 x 4
-    # chroma edges x 8 lines, ~30 int ops a filtered line
+            raise AssertionError("B5 kernel != plain (%s), max abs err %d"
+                                 % (name, err))
+        changed = sum(int((a != b).sum()) for a, b in zip(got, planes))
+        log("B5 %s: kernel == plain at %dx%d MBs (%d samples filtered)"
+            % (name, mbh, mbw, changed))
+        if i == 0:
+            ms = cuda_ms(lambda: DB.deblock_frame(
+                *planes, *maps, qp, qpc, mbh, mbw, **kw), 20, 3)
+            # the plain wave loop takes seconds a call: one timed call
+            plain_ms = cuda_ms(plain, 1, warmup=0)
+            log("B5 qp 26 time, the whole call (edge parameters + filter, "
+                "uint8 in and out, one launch): kernel %.4f ms, plain "
+                "%.3f ms (median, 1080p)" % (ms, plain_ms))
+    # bytes: the three uint8 planes read and written once; the per-MB
+    # intra/skip/trans8 and the per-4x4 nnz and mv maps (int32) and the
+    # 456-entry table read once. ops: the edge parameters, ~40 int ops
+    # for each of 32 lanes per MB, and the filter, 8 luma edges x 16
+    # lines and 2 x 4 chroma edges x 8 lines, ~30 int ops a line
     n = MBH * MBW
-    nbytes = 2 * 4 * (H * W + 2 * (H // 2) * (W // 2)) + n * 128 * 4
-    ops = n * (8 * 16 + 2 * 4 * 8) * 30
+    pix = 256 * n * 3 // 2
+    nbytes = 2 * pix + n * 4 * 3 + 16 * n * 4 * 3 + 456 * 4
+    ops = n * (32 * 40 + (8 * 16 + 2 * 4 * 8) * 30)
     bnd = bound(nbytes, ops, int_rate)
-    log("B5 bound %.4f ms (%s)" % bnd)
-    return record("deblock_frame", "deblock.cu",
-                  "ops/deblock_pallas.py:469", worst, ms, plain_ms, bnd)
+    # latency: the reference's knight-wave chain, mbw + 2(mbh-1) MB steps
+    # (254 at 1080p), each priced at one cross-SM handoff of a progress
+    # counter. The kernel's half-MB order has mbh-1 handoffs on its
+    # chain, the rest are MB filter passes on one warp.
+    steps = MBW + 2 * (MBH - 1)
+    hop = handoff_ms(dev)
+    log("B5 bound %.4f ms (%s); latency bound %d steps x %.5f ms handoff "
+        "= %.4f ms" % (*bnd, steps, hop, steps * hop))
+    rec = record("deblock_frame", "deblock.cu", "ops/deblock_pallas.py:469",
+                 worst, ms, plain_ms, bnd)
+    rec.update(latency_bound_ms=steps * hop, handoff_ms=hop,
+               latency_steps=steps)
+    return rec
 
 
 def _tail_inputs(dev):
@@ -294,59 +372,67 @@ def phase_tail(dev, int_rate):
                                                          n8))
         return err
 
-    # B2: reads the windows, writes both tables; per 8x8 and offset, 64
-    # averages (3 ops) and four 4x4 WHTs (64 ops each)
+    # B2's standalone entry (on no path: B3 and B4 build their rows
+    # themselves): reads the windows, writes both tables; per 8x8 and
+    # offset, 64 averages (3 ops) and four 4x4 WHTs (64 ops each)
     blocks8, wht8 = PR.qpel_tables(windows)
     want = PR.block_table8(windows)
-    err = check("B2 qpel_tables", (blocks8, wht8),
+    err = check("B2 qpel_tables (standalone entry)", (blocks8, wht8),
                 (want, PR.wht8_table(want)))
-    del want
+    del want, blocks8, wht8
     ms = cuda_ms(lambda: PR.qpel_tables(windows), 20, 3)
     plain_ms = cuda_ms(lambda: PR.wht8_table(PR.block_table8(windows)), 3)
     bnd = bound(n8 * (1024 + 169 * 64 * 3), n8 * 169 * (64 * 3 + 4 * 64),
                 int_rate)
     recs.append(record("qpel_tables", "qpel_tables.cu",
                        "ops/probe_pallas.py:221", err, ms, plain_ms, bnd))
+    torch.cuda.empty_cache()
 
-    # B3: reads cur (int32), 49 WHT rows per 8x8, part/mv/pred; writes
-    # mv8 and r_idx8; per 8x8 and offset ~3 ops a coefficient
-    got = PR.subpel(cur, wht8, part, mvfp8, prev_mv, lam, MBH, MBW)
-    want = PR.subpel_parts(cur, wht8, part, mvfp8, prev_mv, MBH, MBW, lam)
-    err = check("B3 subpel", got, want)
+    # a row's 4x4 sub-block, built from the window: 16 averages of 3 ops
+    # (add, add 1, shift) and the 4x4 WHT's 8 butterflies of 8 ops
+    build = 16 * 3 + 8 * 8
+    # B3 with B2's rows fused in: reads cur (int32), the windows (1 KB
+    # per 8x8), part/mv/pred; writes mv8 and r_idx8. ops per 8x8: the 49
+    # offsets' rows (4 sub-blocks each) and their SATDs against cur's
+    # WHT, 64 coefficients x 3 ops (sub, abs, add)
+    got = PR.subpel(cur, windows, part, mvfp8, prev_mv, lam, MBH, MBW)
+    want = PR.subpel_parts(cur, windows, part, mvfp8, prev_mv, MBH, MBW,
+                           lam)
+    err = check("B3 subpel (windows in, B2 fused)", got, want)
     r_idx8 = got[1]
-    ms = cuda_ms(lambda: PR.subpel(cur, wht8, part, mvfp8, prev_mv, lam,
+    ms = cuda_ms(lambda: PR.subpel(cur, windows, part, mvfp8, prev_mv, lam,
                                    MBH, MBW), 20, 3)
-    plain_ms = cuda_ms(lambda: PR.subpel_parts(cur, wht8, part, mvfp8,
+    plain_ms = cuda_ms(lambda: PR.subpel_parts(cur, windows, part, mvfp8,
                                                prev_mv, MBH, MBW, lam), 3)
-    bnd = bound(n8 * (64 * 4 + 49 * 128 + 8 + 12) + n * 12,
-                n8 * 49 * 64 * 3, int_rate)
+    bnd = bound(n8 * (64 * 4 + 1024 + 8 + 12) + n * 12,
+                n8 * 49 * (4 * build + 64 * 3), int_rate)
     recs.append(record("subpel", "subpel.cu", "ops/probe_pallas.py:301",
                        err, ms, plain_ms, bnd))
 
-    # B4: the probe lattice's distinct rows per 8x8 (13 pred rows, the
-    # WHT rows centre+neighbour reaches), cur and r_idx read; SK, SP, sc8
-    # written. ops per (8x8, version, 4x4): residual+DCT 80, quant 80,
-    # decimate 80, dequant+IDCT 144, recon 64, the recon's WHT 64, 9
-    # SATDs of 48 for SK. The pred's WHT is the table row at the
-    # version's centre, so it costs no op; an SP entry is the SATD of two
-    # table rows, and each unordered pair of distinct rows is counted
-    # once (48 ops a 4x4)
+    # B4 with B2's rows fused in: reads cur, the windows and r_idx8;
+    # writes SK, SP, sc8. ops per 8x8: the 45 distinct lattice rows
+    # around r_idx8 (4 sub-blocks each; the 13 pred rows are among them),
+    # then per (version, 4x4): residual+DCT 80, quant 80, decimate 80,
+    # dequant+IDCT 144, recon 64, the recon's WHT 64, 9 SATDs of 48 for
+    # SK. The pred's WHT is the lattice row at the version's centre, so
+    # it costs no op; an SP entry is the SATD of two lattice rows, and
+    # each unordered pair of distinct rows is counted once (48 ops a 4x4)
     for decimate in (True, False):
-        got = PR.probe_maps(cur, blocks8, wht8, r_idx8, qp, MBH, MBW,
-                            decimate)
-        want = PR.probe_maps_plain(cur, blocks8, wht8, r_idx8, qp, MBH, MBW,
+        got = PR.probe_maps(cur, windows, r_idx8, qp, MBH, MBW, decimate)
+        want = PR.probe_maps_plain(cur, windows, r_idx8, qp, MBH, MBW,
                                    decimate)
-        err = check("B4 probe_maps (decimate %s)" % decimate, got, want)
-    ms = cuda_ms(lambda: PR.probe_maps(cur, blocks8, wht8, r_idx8, qp, MBH,
-                                       MBW), 20, 3)
+        err = check("B4 probe_maps (windows in, B2 fused; decimate %s)"
+                    % decimate, got, want)
+    ms = cuda_ms(lambda: PR.probe_maps(cur, windows, r_idx8, qp, MBH, MBW),
+                 20, 3)
     plain_ms = cuda_ms(lambda: PR.probe_maps_plain(
-        cur, blocks8, wht8, r_idx8, qp, MBH, MBW), 3)
+        cur, windows, r_idx8, qp, MBH, MBW), 3)
     rows = {(cy + ny, cx + nx) for cy, cx in PR._CENTERS for ny, nx in PR._NB}
-    nbytes = n8 * (len(rows) * 128 + 13 * 64 + 64 * 4 + 4
-                   + (2 * 117 + 13) * 4)
+    nbytes = n8 * (1024 + 64 * 4 + 4 + (2 * 117 + 13) * 4)
     sp_pairs = {frozenset((c, (c[0] + ny, c[1] + nx))) for c in PR._CENTERS
                 for ny, nx in PR._NB if (ny, nx) != (0, 0)}
-    ops = n8 * 4 * (13 * (80 + 80 + 80 + 144 + 64 + 64 + 9 * 48)
+    ops = n8 * 4 * (len(rows) * build
+                    + 13 * (80 + 80 + 80 + 144 + 64 + 64 + 9 * 48)
                     + len(sp_pairs) * 48)
     bnd = bound(nbytes, ops, int_rate)
     recs.append(record("probe_maps", "probe_maps.cu",
@@ -750,18 +836,26 @@ def phase_main(dev, card, tail_kernel: bool, n_frames: int,
     if n_p < 1:
         raise AssertionError("no P frame in the main path")
     if partitions:
+        # B2 is fused into B3 and B4: its standalone entry never runs
         want = {"fullpel_parts": n_p, "gather_windows8": n_p,
-                "qpel_tables": n_p, "subpel": n_p, "probe_maps": n_p,
+                "subpel": n_p, "probe_maps": n_p,
                 "deblock_frame": len(frames)}
+        exact = {"qpel_tables": 0, "subpel": n_p, "probe_maps": n_p,
+                 "deblock_frame": len(frames)}
     else:
         # per P frame: pass 1, the batched 13-version probe and pass 2
         want = {"fullpel_search16": n_p, "gather_windows": n_p,
                 "dct_quant": 3 * n_p, "deq_idct": 3 * n_p,
                 "deblock_frame": len(frames)}
+        exact = {"deblock_frame": len(frames)}
     for k, lo in want.items():
         if launches[k] < lo:
             raise AssertionError("%s launched %d times, want >= %d"
                                  % (k, launches[k], lo))
+    for k, n in exact.items():
+        if launches[k] != n:
+            raise AssertionError("%s launched %d times, want %d"
+                                 % (k, launches[k], n))
     if config3 and min(enc.stats.i8x8_mbs, enc.stats.trans8_mbs) < 1:
         raise AssertionError("config 3: %d I8x8 MBs, %d trans8 P MBs"
                              % (enc.stats.i8x8_mbs, enc.stats.trans8_mbs))
@@ -800,7 +894,7 @@ def _stage_targets(partitions: bool):
     if partitions:
         return [(ST.Lookahead, "costs_device"), (PT, "fullpel_parts"),
                 (PT, "decide_partition"), (PT, "gather_windows8"),
-                (PR, "qpel_tables"), (PR, "subpel"), (PR, "probe_maps"),
+                (PR, "subpel"), (PR, "probe_maps"),
                 (INTER, "encode_p_frame_device8"), (PT, "scan_p_device"),
                 (PT, "probe_combine"), (EMB.StegoEngine, "apply_costs"),
                 (CORE, "reencode_p_incremental"), (CORE, "deblock_frame"),

@@ -4,9 +4,11 @@ This file imports no jax, so on a GPU machine without jax it runs on
 its own:  python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
 - kernel B1 vs its plain version (textured and flat content, random
   predictor);
-- kernel B5 vs its plain version at qp 26 and 40;
-- kernels B2, B3 and B4 vs their plain versions at 112x80 and on a
-  band of 1080p MB rows (decimate on and off for B4);
+- kernel B5 (the whole deblock_frame call, uint8 in and out) vs
+  edge_params + its plain version at qp 26 and 40;
+- kernels B3 and B4 (the windows in, B2's rows built inside) vs their
+  plain versions, and B2's standalone entry vs the plain tables, at
+  112x80 and on a band of 1080p MB rows (decimate on and off for B4);
 - a small encode on cuda is byte-equal to the same encode on the cpu,
   for both tail_kernel settings;
 - kernels B6, B7, B8a and B8b vs their plain versions (B8 at qp 20, 26
@@ -14,7 +16,8 @@ its own:  python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
 - the 112x80 16x16-only encode (partitions=False) on cuda is
   byte-equal to the same encode on the cpu;
 - kernel B9 vs its plain version on real MVs and on +-20 corner MVs,
-  B10 vs its plain version, B5 with the trans8 rule in its rows;
+  B10 vs its plain version, B5 with the trans8 rule and slice
+  offsets;
 - the 128x96 config-3 encode (transform_8x8, rd 1) on cuda is byte-equal
   to the same encode on the cpu.
 """
@@ -82,10 +85,15 @@ def test_b5_kernel_matches_plain(dev, qp):
     mv4 = g.integers(-20, 21, (4 * mbh, 4 * mbw, 2))
     t = [torch.as_tensor(np.ascontiguousarray(a, np.int32), device=dev)
          for a in planes + [intra, skip, nnz4, mv4]]
+    y8 = [p.to(torch.uint8) for p in t[:3]]
+    kept = [p.clone() for p in y8]
+    got = DB.deblock_frame(*y8, *t[3:], qp, chroma_qp(qp), mbh, mbw)
     par = DB.edge_params(*t[3:], qp, chroma_qp(qp), mbh, mbw)
-    got = DB.deblock_frame_cuda(*t[:3], par, mbh, mbw)
     want = DB.deblock_frame_plain(*t[:3], par, mbh, mbw)
     for a, b in zip(got, want):
+        assert a.dtype == torch.uint8 and torch.equal(a, b)
+    # the inputs are left as they were
+    for a, b in zip(y8, kept):
         assert torch.equal(a, b)
 
 
@@ -120,14 +128,14 @@ def test_b2_b3_b4_kernels_match_plain(dev, w, h, qp):
     want_b = PR.block_table8(windows)
     assert torch.equal(blocks8, want_b)
     assert torch.equal(wht8, PR.wht8_table(want_b))
-    mv8, r_idx8 = PR.subpel(cur, wht8, part, mvfp8, prev_mv, lam, mbh, mbw)
-    want_mv8, want_r = PR.subpel_parts(cur, wht8, part, mvfp8, prev_mv,
+    mv8, r_idx8 = PR.subpel(cur, windows, part, mvfp8, prev_mv, lam, mbh,
+                            mbw)
+    want_mv8, want_r = PR.subpel_parts(cur, windows, part, mvfp8, prev_mv,
                                        mbh, mbw, lam)
     assert torch.equal(mv8, want_mv8) and torch.equal(r_idx8, want_r)
     for decimate in (True, False):
-        got = PR.probe_maps(cur, blocks8, wht8, r_idx8, qp, mbh, mbw,
-                            decimate)
-        want = PR.probe_maps_plain(cur, blocks8, wht8, r_idx8, qp, mbh, mbw,
+        got = PR.probe_maps(cur, windows, r_idx8, qp, mbh, mbw, decimate)
+        want = PR.probe_maps_plain(cur, windows, r_idx8, qp, mbh, mbw,
                                    decimate)
         for g, x in zip(got, want):
             assert torch.equal(g, x)
@@ -260,8 +268,10 @@ def test_b5_kernel_matches_plain_trans8(dev):
          for a in planes + maps]
     t8 = torch.as_tensor((g.random((mbh, mbw)) < 0.5).astype(np.int32),
                          device=dev)
-    par = DB.edge_params(*t[3:], qp, chroma_qp(qp), mbh, mbw, trans8=t8)
-    got = DB.deblock_frame_cuda(*t[:3], par, mbh, mbw)
+    kw = dict(qp_thresh=19, off_a=2, off_b=-4, trans8=t8)
+    got = DB.deblock_frame(*t[:3], *t[3:], qp, chroma_qp(qp), mbh, mbw,
+                           **kw)
+    par = DB.edge_params(*t[3:], qp, chroma_qp(qp), mbh, mbw, **kw)
     want = DB.deblock_frame_plain(*t[:3], par, mbh, mbw)
     for a, b in zip(got, want):
         assert torch.equal(a, b)

@@ -1,10 +1,15 @@
-// Kernel B3: subpel=2 refinement per partition unit (Hopper, sm_90a).
+// Kernel B3: subpel=2 refinement per partition unit, with B2 fused in
+// (Hopper, sm_90a).
 //
 // Replaces the TPU kernel subpel_pallas
 // (video_steganography_pcamv_tpu/ops/probe_pallas.py:301, body
-// _subpel_kernel). For every 8x8 block and each of the 49 qpel offsets
-// (oy, ox) in [-3, 3]^2 around its full-pel MV (oy outer, ox inner):
-//   satd  = sum over the 4 sub-blocks of (sum |WHT(cur) - wht8[o]|) >> 1
+// _subpel_kernel), and builds the 49 rows of the TPU kernel
+// qpel_tables_pallas (probe_pallas.py:221) that it reads itself, from the
+// per-8x8 windows (qpel_rows.cuh). For every 8x8 block and each of the
+// 49 qpel offsets (oy, ox) in [-3, 3]^2 around its full-pel MV (oy
+// outer, ox inner):
+//   satd  = sum over the 4 sub-blocks of (sum |WHT(cur) - WHT(row)|) >> 1,
+//           row the (oy, ox) average of the block's window;
 //   cost  = satd summed over the block's partition unit (16x16: all four
 //           blocks; 16x8: pairs (0,1),(2,3); 8x16: pairs (0,2),(1,3);
 //           8x8: the block alone) + lam * (bits(se(dx)) + bits(se(dy))),
@@ -15,28 +20,27 @@
 // The TPU's bf16 MXU WHT is integer adds here and its lane rolls for the
 // partition coupling are a shared-memory exchange.
 //
-// Design: one thread block per MB, one warp per 8x8 block (z-order
-// b = 2*by + bx). Each lane owns two of the 64 WHT coefficients: it
-// computes them for the current block once, then for every offset reads
-// its 4-byte pair of the table row (128 contiguous bytes per warp),
-// reduces |diff| over the 8 lanes of a sub-block, shifts, and reduces
-// over the 4 sub-blocks. The 4x49 SATDs meet in shared memory, where
-// lanes 0-3 of warp 0 run the per-block argmin. What bounds it: its
-// reads of the table rows, 49*128 B per 8x8 (205 MB a 1080p frame,
-// ~0.06 ms at 3.35 TB/s).
+// Design: one thread block per MB, 128 threads. The MB's four 1 KB
+// windows are staged in shared memory (two 16-byte loads a thread; the
+// planes padded against bank conflicts) and the WHT of its 16 current
+// 4x4 sub-blocks is computed once. Then the threads stride over the
+// 4 x 4 x 49 (block, sub-block, offset) items: each averages its 4x4 of
+// the row from the staged window (a word per row and slice, one
+// per-byte average), transforms it in registers and writes its
+// sub-block SATD to shared memory. The 4x49
+// block SATDs are summed there, and threads 0-3 run the per-block
+// argmin. What bounds it: the row building, ~250 int ops per item (~1.6
+// G a 1080p frame, ~0.1 ms at the int32 rate), ahead of its reads of
+// the windows (1 KB per 8x8, 33 MB a frame) and of cur.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "qpel_rows.cuh"
+
 namespace {
 
 constexpr int kOffsets = 49;
-
-__device__ __forceinline__ int h4(int v, int k) {
-  // hadamard4x4 row map: [[1,1,1,1],[1,1,-1,-1],[1,-1,-1,1],[1,-1,1,-1]]
-  const int m = (v == 0) ? 0x0 : (v == 1) ? 0xC : (v == 2) ? 0x6 : 0xA;
-  return ((m >> k) & 1) ? -1 : 1;
-}
 
 // bits(se(v)) = 2 * floor(log2(ue(v) + 1)) + 1 (me.mv_bits_table)
 __device__ __forceinline__ int se_bits(int v) {
@@ -45,59 +49,60 @@ __device__ __forceinline__ int se_bits(int v) {
 }
 
 __global__ void __launch_bounds__(128)
-subpel_kernel(const int* __restrict__ cur, const int16_t* __restrict__ wht8,
+subpel_kernel(const int* __restrict__ cur, const uint8_t* __restrict__ windows,
               const int* __restrict__ part, const int* __restrict__ mvf,
               const int* __restrict__ pred, int lam, int mbh, int mbw,
               int* __restrict__ mv8, int* __restrict__ r_idx8) {
-  __shared__ int s_cur[4][64];
+  __shared__ __align__(16) uint8_t s_win[4][qpel::kWinStride];
+  __shared__ int s_wc[4][4][16];            // [block][sub-block][coef]
+  __shared__ int s_sub[4][kOffsets][4];     // [block][offset][sub-block]
   __shared__ int s_sat[4][kOffsets];
   const int mb = blockIdx.x;
   const int my = mb / mbw, mx = mb - my * mbw;
-  const int b = threadIdx.x >> 5;           // z-order block of the MB
-  const int lane = threadIdx.x & 31;
-  const int by = b >> 1, bx = b & 1;
+  const int t = threadIdx.x;
   const int w8 = 2 * mbw;
-  const int n8 = 4 * mbh * mbw;
-  const int nb = (2 * my + by) * w8 + 2 * mx + bx;   // spatial index
 
-  const int cur_w = 16 * mbw;
-  for (int p = lane; p < 64; p += 32)
-    s_cur[b][p] = cur[(16 * my + 8 * by + (p >> 3)) * cur_w + 16 * mx +
-                      8 * bx + (p & 7)];
-  __syncwarp();
-
-  // this lane's two coefficients, wht8_flat index c = s*16 + 4*vr + vc
-  int wc[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int c = 2 * lane + h;
-    const int s = c >> 4, vr = (c >> 2) & 3, vc = c & 3;
-    const int oy = 4 * (s >> 1), ox = 4 * (s & 1);
-    int acc = 0;
+  // the windows of the MB's z-order blocks; TL/TR and BL/BR are
+  // neighbours in the spatial N8 order
+  for (int i = t; i < 256; i += 128) {
+    const int b = i >> 6;
+    const int nb = (2 * my + (b >> 1)) * w8 + 2 * mx + (b & 1);
+    qpel::stage16(s_win[b], windows + (size_t)nb * 1024, i & 63);
+  }
+  if (t < 16) {
+    const int b = t >> 2, s = t & 3;
+    const int* c0 = cur + (size_t)(16 * my + 8 * (b >> 1) + 4 * (s >> 1)) *
+                              (16 * mbw) +
+                    16 * mx + 8 * (b & 1) + 4 * (s & 1);
+    int px[4][4];
 #pragma unroll
     for (int r = 0; r < 4; ++r)
 #pragma unroll
-      for (int q = 0; q < 4; ++q)
-        acc += h4(vr, r) * h4(vc, q) * s_cur[b][(oy + r) * 8 + ox + q];
-    wc[h] = acc;
+      for (int c = 0; c < 4; ++c) px[r][c] = c0[r * 16 * mbw + c];
+    qpel::wht4x4(px);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) s_wc[b][s][i] = px[i >> 2][i & 3];
   }
+  __syncthreads();
 
-  for (int k = 0; k < kOffsets; ++k) {
-    const int oy = k / 7 - 3, ox = k % 7 - 3;
-    const int o = (oy + 6) * 13 + (ox + 6);
-    const uint32_t pair = reinterpret_cast<const uint32_t*>(
-        wht8 + ((size_t)o * n8 + nb) * 64)[lane];
-    const int w0 = (int16_t)(pair & 0xffffu);
-    const int w1 = (int16_t)(pair >> 16);
-    int d = abs(wc[0] - w0) + abs(wc[1] - w1);
-    // the 16 coefficients of sub-block s sit in lanes 8s .. 8s+7
-    d += __shfl_xor_sync(0xffffffffu, d, 1);
-    d += __shfl_xor_sync(0xffffffffu, d, 2);
-    d += __shfl_xor_sync(0xffffffffu, d, 4);
-    d >>= 1;
-    d += __shfl_xor_sync(0xffffffffu, d, 8);
-    d += __shfl_xor_sync(0xffffffffu, d, 16);
-    if (lane == 0) s_sat[b][k] = d;
+  // offset fastest: a warp's lanes share (block, sub-block), so their
+  // reads of cur's WHT are broadcasts
+  for (int item = t; item < kOffsets * 16; item += 128) {
+    const int bs = item / kOffsets, k = item - bs * kOffsets;
+    const int b = bs >> 2, s = bs & 3;
+    int px[4][4];
+    qpel::avg4x4(s_win[b], k / 7 - 3, k % 7 - 3, s, px);
+    qpel::wht4x4(px);
+    int d = 0;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) d += abs(s_wc[b][s][i] - px[i >> 2][i & 3]);
+    s_sub[b][k][s] = d >> 1;
+  }
+  __syncthreads();
+  for (int i = t; i < 4 * kOffsets; i += 128) {
+    const int b = i / kOffsets, k = i - b * kOffsets;
+    s_sat[b][k] = (s_sub[b][k][0] + s_sub[b][k][1]) +
+                  (s_sub[b][k][2] + s_sub[b][k][3]);
   }
   __syncthreads();
 
@@ -136,12 +141,13 @@ subpel_kernel(const int* __restrict__ cur, const int16_t* __restrict__ wht8,
 
 }  // namespace
 
-extern "C" int pcamv_subpel(const void* cur, const void* wht8,
+extern "C" int pcamv_subpel(const void* cur, const void* windows,
                             const void* part, const void* mvf,
                             const void* pred, int lam, int mbh, int mbw,
                             void* mv8, void* r_idx8, void* stream) {
   subpel_kernel<<<mbh * mbw, 128, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(cur), static_cast<const int16_t*>(wht8),
+      static_cast<const int*>(cur),
+      static_cast<const uint8_t*>(windows),
       static_cast<const int*>(part), static_cast<const int*>(mvf),
       static_cast<const int*>(pred), lam, mbh, mbw, static_cast<int*>(mv8),
       static_cast<int*>(r_idx8));

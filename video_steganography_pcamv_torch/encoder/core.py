@@ -599,13 +599,14 @@ class Encoder:
 
     def _deblock_device(self, res, intra, skip, mv4, qp: int, nnz4,
                         trans8=None):
-        """In-loop deblock (kernel B5 on CUDA) into the new reference;
-        trans8 [mbh, mbw] marks the MBs coded with the 8x8 transform."""
+        """In-loop deblock (kernel B5 on CUDA, one launch on uint8 copies
+        of the recon planes) into the new reference; trans8 [mbh, mbw]
+        marks the MBs coded with the 8x8 transform."""
         p = self.p
         off_a, off_b = 2 * p.deblock_alpha, 2 * p.deblock_beta
         dy, du, dv = deblock_frame(
-            res["recon_y"].to(torch.int32), res["recon_u"].to(torch.int32),
-            res["recon_v"].to(torch.int32), intra, skip, nnz4, mv4, qp,
+            res["recon_y"], res["recon_u"], res["recon_v"], intra, skip,
+            nnz4, mv4, qp,
             chroma_qp(qp, p.chroma_qp_offset), p.mb_height, p.mb_width,
             qp_thresh=(15 - min(off_a, off_b) - max(0, p.chroma_qp_offset)),
             off_a=off_a, off_b=off_b, trans8=trans8)

@@ -1,28 +1,36 @@
 """Kernel B5: the in-loop deblocker (spec 8.7).
 
 `deblock_frame` replaces the TPU kernel `deblock_frame_pallas`
-(video_steganography_pcamv_tpu/ops/deblock_pallas.py:469, run by `_run`
-with the body from `_make_kernel`). On a CUDA tensor it launches the
-hand-written kernel `csrc/deblock.cu`; on a CPU tensor it runs
-`deblock_frame_plain`.
+(video_steganography_pcamv_tpu/ops/deblock_pallas.py:469): the whole
+function, its parameter precompute `edge_params` (:61), pads, wave loop
+(`_run`, :449) and uint8 slices. On a CUDA tensor it launches the
+hand-written kernel `csrc/deblock.cu` once a frame: one persistent CTA
+per MB row computes the edge parameters itself and filters the uint8
+planes in place (on a copy of the input planes), rows handing over to
+each other through progress counters. On a CPU tensor it runs
+`edge_params` and `deblock_frame_plain`, the kernel's oracle.
 
-Both share `edge_params`, the plain-torch port of the reference's
-per-MB parameter precompute (deblock_pallas.py:61): boundary strengths,
-alpha/beta, tc0 and active masks per MB, edge and 4-line group, in the
-reference's [n_mb, 128] row layout:
+`edge_params` is the plain-torch port of the reference's per-MB
+parameter precompute: boundary strengths, alpha/beta, tc0 and active
+masks per MB, edge and 4-line group, in the reference's [n_mb, 128] row
+layout:
   0:8 alpha_l [dir*4+e] | 8:16 beta_l | 16:24 active_l | 24:26 strong
   [dir] | 32:64 bs_l [dir*16+e*4+g] | 64:96 tc0_l | 96:100 alpha_c
   [dir*2+ei] | 100:104 beta_c | 104:108 active_c | 108:124 tc0_c
   [dir*8+ei*4+g]   (dir 0 = vertical edges; ei 0/1 = edge 0/2)
 The pixel filter then only does normative arithmetic with those scalars.
+The kernel computes the same rows (as bytes, in shared memory).
 
-Order: MBs go in knight waves d = mx + 2*my (the order of the
-reference's `deblock_jax.deblock_frame_device`): every MB a tile
-touches was finished in an earlier wave, and the 20x20 tiles of one
-wave are disjoint, so a wave is one parallel step and the result equals
-the serial raster order. On the H100 the kernel is bound by launch and
-latency (~mbw + 2*mbh waves, each a few dozen MBs), not by bytes (the
-1080p planes are ~3 MB).
+Order: the reference filters MBs in raster order; MB (mx, my) may run
+once MB (mx+1, my-1) has, the knight dependency. The plain version
+filters the knight waves d = mx + 2*my (the order of the reference's
+`deblock_jax.deblock_frame_device`) with `filter_mbs`, which filters any
+set of MBs whose tiles are disjoint; the kernel runs the rows
+concurrently at half-MB grain: MB (mx, my)'s vertical edges after MB
+(mx-1, my), its horizontal edges once row my-1 has finished MB mx and
+the vertical edges of MB mx+1. Both give the raster-order result. On
+the H100 the kernel is bound by the latency of its step chain, not by
+bytes (the 1080p planes are ~3 MB).
 """
 
 from __future__ import annotations
@@ -60,6 +68,8 @@ def _parse_tables():
 
 
 ALPHA_TAB, BETA_TAB, TC0_TAB = _parse_tables()
+# the kernel's copy: alpha [76] | beta [76] | tc0 [76][4]
+_TABS = np.concatenate([ALPHA_TAB, BETA_TAB, TC0_TAB.reshape(-1)])
 
 
 def _shift_right(x):
@@ -220,101 +230,155 @@ def _chroma_lines(s, a, b, tc0, bs, strong, active):
               w(nf, torch.clamp(q0 - delta, 0, 255), q0)))
 
 
+def pad_planes(y, u, v):
+    """int32 copies of the planes with a PAD-pixel zero border, the
+    layout `filter_mbs` works in."""
+    return tuple(torch.nn.functional.pad(p.to(_I32), (PAD,) * 4)
+                 for p in (y, u, v))
+
+
+def unpad_planes(planes, shape_y, shape_c):
+    """The uint8 frame planes of `pad_planes` output."""
+    (H, W), (Hc, Wc) = shape_y, shape_c
+    yp, up, vp = planes
+    return (yp[PAD:PAD + H, PAD:PAD + W].to(torch.uint8),
+            up[PAD:PAD + Hc, PAD:PAD + Wc].to(torch.uint8),
+            vp[PAD:PAD + Hc, PAD:PAD + Wc].to(torch.uint8))
+
+
+def filter_mbs(planes, par, my, mx, mbw: int, dirs=(0, 1)):
+    """Filter the MBs (my, mx) [W] long in place in the padded planes,
+    each on its 20x20 luma / 12x12 chroma tile with its `edge_params`
+    row: the vertical edges (dir 0), then the horizontal ones (dir 1), of
+    `dirs`. The tiles must be disjoint and every MB a tile reaches that
+    comes earlier in raster order filtered: the knight waves, or one MB
+    at a time in any order that keeps the row above min(mx+2, mbw) MBs
+    ahead (or, per direction, the CUDA kernel's half-MB rule)."""
+    yp, up, vp = planes
+    dev = yp.device
+    r20 = torch.arange(20, device=dev)
+    r12 = torch.arange(12, device=dev)
+    rows = (16 * my)[:, None] + r20
+    cols = (16 * mx)[:, None] + r20
+    crows = (8 * my)[:, None] + r12
+    ccols = (8 * mx)[:, None] + r12
+    tile = yp[rows[:, :, None], cols[:, None, :]]
+    tu = up[crows[:, :, None], ccols[:, None, :]]
+    tv = vp[crows[:, :, None], ccols[:, None, :]]
+    pr = par[my * mbw + mx]                           # [W,128]
+
+    def sc(i):
+        return pr[:, i:i + 1]
+
+    def vec(lo, rep):
+        return pr[:, lo:lo + 4].repeat_interleave(rep, 1)
+
+    zero = torch.zeros_like(sc(0), dtype=torch.bool)
+    for d in dirs:
+        for e in range(4):
+            pos = 4 + 4 * e
+            strong = (sc(24 + d) > 0) if e == 0 else zero
+            args = (sc(d * 4 + e), sc(8 + d * 4 + e),
+                    vec(64 + d * 16 + e * 4, 4), vec(32 + d * 16 + e * 4, 4),
+                    strong, sc(16 + d * 4 + e) > 0)
+            if d == 0:
+                s = [tile[:, 4:20, pos + k] for k in range(-4, 4)]
+                outs = _luma_lines(s, *args)
+                for k, o in enumerate(outs):
+                    tile[:, 4:20, pos - 3 + k] = o
+            else:
+                s = [tile[:, pos + k, 4:20] for k in range(-4, 4)]
+                outs = _luma_lines(s, *args)
+                for k, o in enumerate(outs):
+                    tile[:, pos - 3 + k, 4:20] = o
+    for d in dirs:
+        for ei, e in enumerate((0, 2)):
+            pos = 4 + 2 * e
+            strong = (sc(24 + d) > 0) if e == 0 else zero
+            args = (sc(96 + d * 2 + ei), sc(100 + d * 2 + ei),
+                    vec(108 + d * 8 + ei * 4, 2),
+                    vec(32 + d * 16 + e * 4, 2), strong,
+                    sc(104 + d * 2 + ei) > 0)
+            for t in (tu, tv):
+                if d == 0:
+                    s = [t[:, 4:12, pos + k] for k in range(-2, 2)]
+                    p0o, q0o = _chroma_lines(s, *args)
+                    t[:, 4:12, pos - 1] = p0o
+                    t[:, 4:12, pos] = q0o
+                else:
+                    s = [t[:, pos + k, 4:12] for k in range(-2, 2)]
+                    p0o, q0o = _chroma_lines(s, *args)
+                    t[:, pos - 1, 4:12] = p0o
+                    t[:, pos, 4:12] = q0o
+    yp[rows[:, :, None], cols[:, None, :]] = tile
+    up[crows[:, :, None], ccols[:, None, :]] = tu
+    vp[crows[:, :, None], ccols[:, None, :]] = tv
+
+
 def deblock_frame_plain(y, u, v, par, mbh: int, mbw: int):
     """Plain version: the knight-wavefront tile filter of the reference's
     deblock_jax.deblock_frame_device, fed by `edge_params` rows.
-    y/u/v int32 MB-aligned planes; returns filtered uint8 planes."""
-    dev = y.device
-    yp = torch.nn.functional.pad(y.to(_I32), (PAD,) * 4)
-    up = torch.nn.functional.pad(u.to(_I32), (PAD,) * 4)
-    vp = torch.nn.functional.pad(v.to(_I32), (PAD,) * 4)
-    r20 = torch.arange(20, device=dev)
-    r12 = torch.arange(12, device=dev)
-    for my, mx in waves(mbw, mbh, dev):
-        rows = (16 * my)[:, None] + r20
-        cols = (16 * mx)[:, None] + r20
-        crows = (8 * my)[:, None] + r12
-        ccols = (8 * mx)[:, None] + r12
-        tile = yp[rows[:, :, None], cols[:, None, :]]
-        tu = up[crows[:, :, None], ccols[:, None, :]]
-        tv = vp[crows[:, :, None], ccols[:, None, :]]
-        pr = par[my * mbw + mx]                           # [W,128]
-
-        def sc(i):
-            return pr[:, i:i + 1]
-
-        def vec(lo, rep):
-            return pr[:, lo:lo + 4].repeat_interleave(rep, 1)
-
-        zero = torch.zeros_like(sc(0), dtype=torch.bool)
-        for d in range(2):
-            for e in range(4):
-                pos = 4 + 4 * e
-                strong = (sc(24 + d) > 0) if e == 0 else zero
-                args = (sc(d * 4 + e), sc(8 + d * 4 + e),
-                        vec(64 + d * 16 + e * 4, 4), vec(32 + d * 16 + e * 4, 4),
-                        strong, sc(16 + d * 4 + e) > 0)
-                if d == 0:
-                    s = [tile[:, 4:20, pos + k] for k in range(-4, 4)]
-                    outs = _luma_lines(s, *args)
-                    for k, o in enumerate(outs):
-                        tile[:, 4:20, pos - 3 + k] = o
-                else:
-                    s = [tile[:, pos + k, 4:20] for k in range(-4, 4)]
-                    outs = _luma_lines(s, *args)
-                    for k, o in enumerate(outs):
-                        tile[:, pos - 3 + k, 4:20] = o
-        for d in range(2):
-            for ei, e in enumerate((0, 2)):
-                pos = 4 + 2 * e
-                strong = (sc(24 + d) > 0) if e == 0 else zero
-                args = (sc(96 + d * 2 + ei), sc(100 + d * 2 + ei),
-                        vec(108 + d * 8 + ei * 4, 2),
-                        vec(32 + d * 16 + e * 4, 2), strong,
-                        sc(104 + d * 2 + ei) > 0)
-                for t in (tu, tv):
-                    if d == 0:
-                        s = [t[:, 4:12, pos + k] for k in range(-2, 2)]
-                        p0o, q0o = _chroma_lines(s, *args)
-                        t[:, 4:12, pos - 1] = p0o
-                        t[:, 4:12, pos] = q0o
-                    else:
-                        s = [t[:, pos + k, 4:12] for k in range(-2, 2)]
-                        p0o, q0o = _chroma_lines(s, *args)
-                        t[:, pos - 1, 4:12] = p0o
-                        t[:, pos, 4:12] = q0o
-        yp[rows[:, :, None], cols[:, None, :]] = tile
-        up[crows[:, :, None], ccols[:, None, :]] = tu
-        vp[crows[:, :, None], ccols[:, None, :]] = tv
-    H, W = y.shape
-    Hc, Wc = u.shape
-    return (yp[PAD:PAD + H, PAD:PAD + W].to(torch.uint8),
-            up[PAD:PAD + Hc, PAD:PAD + Wc].to(torch.uint8),
-            vp[PAD:PAD + Hc, PAD:PAD + Wc].to(torch.uint8))
+    y/u/v MB-aligned planes (uint8 or int32); returns filtered uint8
+    planes."""
+    planes = pad_planes(y, u, v)
+    for my, mx in waves(mbw, mbh, y.device):
+        filter_mbs(planes, par, my, mx, mbw)
+    return unpad_planes(planes, y.shape, u.shape)
 
 
-def deblock_frame_cuda(y, u, v, par, mbh: int, mbw: int):
-    """Launch the CUDA deblocker on int32 planes + edge_params rows.
-    The outputs are allocated here (zero-bordered int32 copies the
-    kernel filters in place); counted in `deblock_frame.launches`."""
+def _map(name, t, shape):
+    """A per-MB / per-4x4 map as the kernel reads it: int32, contiguous."""
+    t = t.to(_I32).contiguous()
+    kernels.check_tensor("deblock_frame", name, t, _I32, shape)
+    return t
+
+
+def deblock_frame_cuda(y, u, v, intra, skip, nnz4, mv4, qp: int, qpc: int,
+                       mbh: int, mbw: int, qp_thresh: int = 15,
+                       off_a: int = 0, off_b: int = 0, trans8=None):
+    """One launch of the CUDA deblocker: edge parameters and filter, on
+    uint8 copies of the planes (one device-to-device copy each, inside
+    the launch call). Counted in `deblock_frame.launches`."""
     H, W = 16 * mbh, 16 * mbw
+    if not (0 <= qp <= 51 and 0 <= qpc <= 51 and -12 <= off_a <= 12
+            and -12 <= off_b <= 12):
+        raise ValueError("deblock_frame: qp %d / qpc %d / offsets %d, %d "
+                         "outside the spec tables" % (qp, qpc, off_a, off_b))
+    src = []
     for name, t, shape in (("y", y, (H, W)), ("u", u, (H // 2, W // 2)),
-                           ("v", v, (H // 2, W // 2)),
-                           ("par", par, (mbh * mbw, 128))):
-        kernels.check_tensor("deblock_frame", name, t, _I32, shape)
-    yp = torch.nn.functional.pad(y, (PAD,) * 4).contiguous()
-    up = torch.nn.functional.pad(u, (PAD,) * 4).contiguous()
-    vp = torch.nn.functional.pad(v, (PAD,) * 4).contiguous()
+                           ("v", v, (H // 2, W // 2))):
+        t = t.to(torch.uint8).contiguous()
+        kernels.check_tensor("deblock_frame", name, t, torch.uint8, shape)
+        src.append(t)
+    maps = [_map("intra", intra, (mbh, mbw)), _map("skip", skip, (mbh, mbw)),
+            None if trans8 is None else _map("trans8", trans8, (mbh, mbw)),
+            _map("nnz4", nnz4, (4 * mbh, 4 * mbw)),
+            _map("mv4", mv4, (4 * mbh, 4 * mbw, 2))]
+    dev = y.device
+    out = [torch.empty_like(t) for t in src]
+    # the row ticket, then the luma and the chroma progress counters
+    sync = torch.empty((2 * mbh + 1,), dtype=_I32, device=dev)
     fn = kernels.entry("pcamv_deblock_frame",
-                       [kernels.VP] * 4 + [kernels.CI] * 2 + [kernels.VP])
-    rc = fn(kernels.ptr(yp), kernels.ptr(up), kernels.ptr(vp),
-            kernels.ptr(par), mbh, mbw, kernels.stream(y))
+                       [kernels.VP] * 12 + [kernels.CI] * 7 + [kernels.VP] * 2)
+    ptr = kernels.ptr
+    rc = fn(*(ptr(t) for t in src + out),
+            *(None if m is None else ptr(m) for m in maps),
+            ptr(const(_TABS, dev)), qp, qpc, qp_thresh, off_a, off_b, mbh,
+            mbw, ptr(sync), kernels.stream(y))
     kernels.check(rc, "pcamv_deblock_frame")
     deblock_frame.launches += 1
-    Hc, Wc = H // 2, W // 2
-    return (yp[PAD:PAD + H, PAD:PAD + W].to(torch.uint8),
-            up[PAD:PAD + Hc, PAD:PAD + Wc].to(torch.uint8),
-            vp[PAD:PAD + Hc, PAD:PAD + Wc].to(torch.uint8))
+    return tuple(out)
+
+
+def resident_ctas(mbw: int) -> int:
+    """How many CTAs of the CUDA deblocker the current card holds at once
+    for a row of mbw MBs (a frame with more MB rows starts some rows only
+    after others have finished)."""
+    fn = kernels.entry("pcamv_deblock_resident_ctas", [kernels.CI])
+    n = fn(mbw)
+    if n <= 0:
+        raise RuntimeError("pcamv_deblock_resident_ctas failed")
+    return n
 
 
 def deblock_frame(y, u, v, intra, skip, nnz4, mv4, qp: int, qpc: int,
@@ -322,20 +386,22 @@ def deblock_frame(y, u, v, intra, skip, nnz4, mv4, qp: int, qpc: int,
                   off_b: int = 0, trans8=None):
     """Kernel B5, replacing the TPU kernel `deblock_frame_pallas`
     (video_steganography_pcamv_tpu/ops/deblock_pallas.py:469). On the
-    H100 it is bound by launch latency (one grid per knight wave).
+    H100 it is one launch a frame, bound by the latency of its
+    mbw + 2(mbh-1) step chain.
 
-    The contract of the reference's deblock_frame_device: int32 planes +
-    per-MB intra/skip (and trans8), per-4x4 nnz/mv -> uint8 planes. CPU
-    tensors run the plain version; CUDA tensors launch the kernel;
-    anything else raises."""
-    par = edge_params(intra, skip, nnz4, mv4, qp, qpc, mbh, mbw,
-                      qp_thresh=qp_thresh, off_a=off_a, off_b=off_b,
-                      trans8=trans8)
+    The contract of the reference's deblock_frame_device: planes (uint8
+    or int32, MB-aligned) + per-MB intra/skip (and trans8), per-4x4
+    nnz/mv -> new uint8 planes (the inputs are left as they are). CPU
+    tensors run `edge_params` + the plain version; CUDA tensors launch
+    the kernel; anything else raises."""
     if y.device.type == "cpu":
+        par = edge_params(intra, skip, nnz4, mv4, qp, qpc, mbh, mbw,
+                          qp_thresh=qp_thresh, off_a=off_a, off_b=off_b,
+                          trans8=trans8)
         return deblock_frame_plain(y, u, v, par, mbh, mbw)
-    return deblock_frame_cuda(y.to(_I32).contiguous(),
-                              u.to(_I32).contiguous(),
-                              v.to(_I32).contiguous(), par, mbh, mbw)
+    return deblock_frame_cuda(y, u, v, intra, skip, nnz4, mv4, qp, qpc, mbh,
+                              mbw, qp_thresh=qp_thresh, off_a=off_a,
+                              off_b=off_b, trans8=trans8)
 
 
 deblock_frame.launches = 0

@@ -1,25 +1,35 @@
-"""Kernels B2-B4: the analyse tail (qpel tables, subpel refine, RCA probe
+"""Kernels B2-B4: the analyse tail (qpel rows, subpel refine, RCA probe
 SATD maps).
 
 `analyse_tail` is the counterpart of the TPU orchestrator
 `analyse_tail_pallas` (video_steganography_pcamv_tpu/ops/probe_pallas.py
-:574). It chains three wrappers, each replacing one TPU kernel:
+:574), which runs three TPU kernels:
 
-  B2 `qpel_tables` <- `qpel_tables_pallas` (probe_pallas.py:221),
-     hand-written kernel `csrc/qpel_tables.cu`;
-  B3 `subpel`      <- `subpel_pallas` (probe_pallas.py:301),
-     `csrc/subpel.cu`;
-  B4 `probe_maps`  <- `probe_maps_pallas` (probe_pallas.py:481),
-     `csrc/probe_maps.cu`.
+  B2 `qpel_tables_pallas` (probe_pallas.py:221): the 169 qpel rows of
+     every 8x8 and their WHTs, written to two tables;
+  B3 `subpel_pallas` (probe_pallas.py:301), replaced by `subpel`,
+     hand-written kernel `csrc/subpel.cu`;
+  B4 `probe_maps_pallas` (probe_pallas.py:481), replaced by
+     `probe_maps`, `csrc/probe_maps.cu`.
+
+On the H100, B2 is fused into B3 and B4: each builds the rows it reads
+from the per-8x8 windows (B9's output) in shared memory, with the device
+functions of `csrc/qpel_rows.cuh`, so the tables (1.06 GB a 1080p
+frame) are never written. `qpel_tables` keeps B2 as a standalone entry
+over the same device functions (`csrc/qpel_tables.cu`), on no path: it
+holds the shared row code against `block_table8` / `wht8_table` on its
+own.
 
 On a CPU tensor each wrapper runs its plain PyTorch version (the port's
-twins of the reference's XLA chain: `block_table8` + `wht8_table`,
-`subpel_parts`, `probe_maps_plain`); on a CUDA tensor it launches its
-kernel, counted in `<wrapper>.launches`, or raises. The TPU's z-order
-block lanes and 128-lane padding are layout for its vector unit and are
-dropped: every tensor here keeps the 8x8 blocks in spatial order,
-`blocks8 [169, N8, 8, 8]` uint8 and `wht8 [169, N8, 64]` int16 in
-`wht8_flat` order (sub-block s = 2*(y>=4) + (x>=4), then 4*vr + vc).
+twins of the reference's XLA chain: `subpel_parts`, `probe_maps_plain`,
+which take the windows as the kernels do and build only the rows they
+read, through `window_rows`; `block_table8` + `wht8_table` for B2); on a
+CUDA tensor it launches its kernel, counted in `<wrapper>.launches`, or
+raises. The TPU's z-order block lanes and 128-lane padding are layout
+for its vector unit and are dropped: every tensor here keeps the 8x8
+blocks in spatial order; a WHT row is in `wht8_flat` order (sub-block
+s = 2*(y>=4) + (x>=4), then 4*vr + vc), the tables are `blocks8 [169,
+N8, 8, 8]` uint8 and `wht8 [169, N8, 64]` int16.
 
 Block index convention per MB: 8x8 blocks b in {0: TL, 1: TR, 2: BL,
 3: BR} (z-order).
@@ -55,18 +65,54 @@ _NB = [(int(D_NB[k][1]), int(D_NB[k][0])) for k in range(9)]
 # Plain versions (the CPU path and the kernels' oracles)
 # ---------------------------------------------------------------------------
 
+def _phase_index(oy, ox):
+    """qpel_table._phase_slices for [N8] offset tensors: the flat window
+    index [N8, 2] (plane*256 + row*16 + col) of each averaged slice's
+    origin."""
+    fx, fy = ox & 3, oy & 3
+    bx, by = (ox >> 2) + QT.MARGIN, (oy >> 2) + QT.MARGIN
+    one_x, one_y = (fx == 3).to(ox.dtype), (fy == 3).to(oy.dtype)
+    ex, ey = fx % 2 == 0, fy % 2 == 0
+    w = torch.where
+    p1 = w(ex & ey, (fx >> 1) + 2 * (fy >> 1),
+           w(ey, 1 + 2 * (fy >> 1), w(ex, (fx >> 1) + 2, 1)))
+    p2 = w(ex & ey, p1, w(ey, 2 * (fy >> 1), w(ex, fx >> 1, 2)))
+    y1 = w(~ex & ~ey, by + one_y, by)
+    x1 = bx
+    y2 = w(ex & ~ey, by + one_y, by)
+    x2 = w(~ex, bx + one_x, bx)
+    return torch.stack([p1 * 256 + y1 * 16 + x1, p2 * 256 + y2 * 16 + x2],
+                       dim=1)
+
+
+_RC8 = (torch.arange(8)[:, None] * 16 + torch.arange(8)).reshape(64)
+
+
+def block_row8(windows, oy, ox):
+    """The [N8, 8, 8] uint8 qpel row of offset (oy, ox) from the
+    [N8, 4, 16, 16] windows: the (a + b + 1) >> 1 average of two phase
+    plane slices. Int offsets are static slices; [N8] int tensors give
+    every 8x8 its own offset (a gather)."""
+    w16 = windows.to(torch.int16)
+    if isinstance(oy, int):
+        (p1, y1, x1), (p2, y2, x2) = QT._phase_slices(oy, ox)
+        a = w16[:, p1, y1:y1 + 8, x1:x1 + 8]
+        b = w16[:, p2, y2:y2 + 8, x2:x2 + 8]
+    else:
+        n8 = windows.shape[0]
+        org = _phase_index(oy.long(), ox.long())            # [N8, 2]
+        idx = org[:, :, None] + _RC8.to(windows.device)     # [N8, 2, 64]
+        flat = w16.reshape(n8, 1024)
+        a = torch.gather(flat, 1, idx[:, 0]).reshape(n8, 8, 8)
+        b = torch.gather(flat, 1, idx[:, 1]).reshape(n8, 8, 8)
+    return ((a + b + 1) >> 1).to(torch.uint8)
+
+
 def block_table8(windows):
     """[N8, 4, 16, 16] uint8 -> [169, N8, 8, 8] uint8: every qpel offset
-    in [-6, 6]^2 as a static slice-average of two phase planes."""
-    w16 = windows.to(torch.int16)
-    outs = []
-    for oy in range(-6, 7):
-        for ox in range(-6, 7):
-            (p1, y1, x1), (p2, y2, x2) = QT._phase_slices(oy, ox)
-            a = w16[:, p1, y1:y1 + 8, x1:x1 + 8]
-            b = w16[:, p2, y2:y2 + 8, x2:x2 + 8]
-            outs.append(((a + b + 1) >> 1).to(torch.uint8))
-    return torch.stack(outs)
+    in [-6, 6]^2 (B2's first table)."""
+    return torch.stack([block_row8(windows, oy, ox)
+                        for oy in range(-6, 7) for ox in range(-6, 7)])
 
 
 def wht8_flat(blocks):
@@ -82,6 +128,15 @@ def wht8_table(blocks8):
     offsets (bounds the int32 intermediates)."""
     return torch.cat([wht8_flat(blocks8[k:k + 13]).to(torch.int16)
                       for k in range(0, blocks8.shape[0], 13)])
+
+
+def window_rows(windows):
+    """The plain tail's row source over the windows: (pred, wht) with
+    pred(oy, ox) the [N8, 8, 8] uint8 qpel row of offset (oy, ox) and
+    wht(oy, ox) its [N8, 64] int32 WHT row; offsets as `block_row8`
+    takes them. Only the rows a caller asks for are built."""
+    return (lambda oy, ox: block_row8(windows, oy, ox),
+            lambda oy, ox: wht8_flat(block_row8(windows, oy, ox)))
 
 
 def satd_flat(wa, wb):
@@ -114,11 +169,11 @@ def z_to_sp(a, mbh: int, mbw: int):
         .reshape(2 * mbh, 2 * mbw, *rest)
 
 
-def subpel_parts(cur_y, wht8, part, mvfp8, prev_mv, mbh: int, mbw: int,
-                 lam: int = 1):
-    """Subpel refinement (subpel=2) per partition unit from the qpel
-    tables. Returns (mv8 [2mbh,2mbw,2] qpel, r_idx8 [N8] chosen table
-    index)."""
+def subpel_parts(cur_y, windows, part, mvfp8, prev_mv, mbh: int,
+                 mbw: int, lam: int = 1):
+    """Subpel refinement (subpel=2) per partition unit from the 49 WHT
+    rows of the [-3, 3]^2 box, built from the windows. Returns (mv8
+    [2mbh,2mbw,2] qpel, r_idx8 [N8] chosen table index)."""
     dev = cur_y.device
     n8 = 4 * mbh * mbw
     wcur = wht8_flat(_mb_blocks8(cur_y, mbh, mbw))
@@ -127,10 +182,11 @@ def subpel_parts(cur_y, wht8, part, mvfp8, prev_mv, mbh: int, mbw: int,
     off = 4 * 512
     pred8 = prev_mv.repeat_interleave(2, 0).repeat_interleave(2, 1) \
         .reshape(n8, 2)
+    _pred, wht = window_rows(windows)
     offsets = _SUBPEL_OFFSETS
     satds, mvcs = [], []
     for oy, ox in offsets:
-        satds.append(satd_flat(wcur, wht8[QT.off_index(oy, ox)]))
+        satds.append(satd_flat(wcur, wht(oy, ox)))
         qx = 4 * mvf[:, 0] + ox
         qy = 4 * mvf[:, 1] + oy
         ix = torch.clamp(qx - pred8[:, 0], -off, off) + off
@@ -165,21 +221,19 @@ def subpel_parts(cur_y, wht8, part, mvfp8, prev_mv, mbh: int, mbw: int,
     return mv8.to(_I32), r_idx8.to(_I32)
 
 
-def _didx(dy: int, dx: int) -> int:
-    return dy * 13 + dx
+# the distinct lattice deltas (cy + ny, cx + nx) around the chosen row:
+# the [-3, 3]^2 box but its four corners
+_LATTICE = sorted({(cy + ny, cx + nx) for cy, cx in _CENTERS
+                   for ny, nx in _NB})
 
 
-def _select_rows(table, idx):
-    """out[n] = table[idx[n], n] for a [K, N, ...] table."""
-    return table[idx.long(), torch.arange(table.shape[1],
-                                          device=table.device)]
-
-
-def probe_maps_plain(cur_y, blocks8, wht8, r_idx8, qp: int, mbh: int,
-                     mbw: int, decimate: bool = True):
+def probe_maps_plain(cur_y, windows, r_idx8, qp: int, mbh: int, mbw: int,
+                     decimate: bool = True):
     """Per-version probe SATD maps and decimate scores (the heavy half
-    of the RCA probe stage). Returns (SK [13,9,n,4], SP [13,9,n,4],
-    sc8 [13,n,4]); with decimate off, SP = SK and sc8 = 0."""
+    of the RCA probe stage), from the 13 pred rows and 45 WHT rows
+    around each 8x8's chosen row r_idx8, built from the windows.
+    Returns (SK [13,9,n,4], SP [13,9,n,4], sc8 [13,n,4]); with decimate
+    off, SP = SK and sc8 = 0."""
     n = mbh * mbw
     roy = torch.div(r_idx8, 13, rounding_mode="floor") - 6
     rox = r_idx8 % 13 - 6
@@ -187,19 +241,19 @@ def probe_maps_plain(cur_y, blocks8, wht8, r_idx8, qp: int, mbh: int,
         raise ValueError("probe_maps: r_idx8 outside the subpel box, the "
                          "probe lattice would leave the [-6, 6]^2 table")
     cur = INTER.mb_tiles(cur_y, 16)
+    pred_row, wht_row = window_rows(windows)
 
     sel_whtz = {}
-    for dy in range(-3, 4):
-        for dx in range(-3, 4):
-            w = _select_rows(wht8, r_idx8 + _didx(dy, dx))     # [N8,64]
-            sel_whtz[(dy, dx)] = sp_to_z(
-                w.reshape(2 * mbh, 2 * mbw, 64), mbh, mbw).reshape(n, 4, 64)
+    for dy, dx in _LATTICE:
+        w = wht_row(roy + dy, rox + dx)                        # [N8,64]
+        sel_whtz[(dy, dx)] = sp_to_z(
+            w.reshape(2 * mbh, 2 * mbw, 64), mbh, mbw).reshape(n, 4, 64)
 
     curz = cur.reshape(n, 2, 8, 2, 8).permute(0, 1, 3, 2, 4) \
         .reshape(n * 4, 8, 8)
     SK, SP, sc8 = [], [], []
     for cen in _CENTERS:
-        b8 = _select_rows(blocks8, r_idx8 + _didx(*cen)).to(_I32)
+        b8 = pred_row(roy + cen[0], rox + cen[1]).to(_I32)
         pv = sp_to_z(b8.reshape(2 * mbh, 2 * mbw, 8, 8), mbh, mbw) \
             .reshape(n * 4, 8, 8)
         lev = T.quant4x4(T.dct4x4(to_blocks(curz - pv, 4)), qp, intra=False)
@@ -227,10 +281,20 @@ def probe_maps_plain(cur_y, blocks8, wht8, r_idx8, qp: int, mbh: int,
 _VP, _CI = kernels.VP, kernels.CI
 
 
+def _check_windows(fn: str, windows, n8: int) -> None:
+    kernels.check_tensor(fn, "windows", windows, torch.uint8,
+                         (n8, 4, 16, 16))
+    if windows.data_ptr() % 16:
+        raise ValueError("%s: windows is not 16-byte aligned" % fn)
+
+
 def qpel_tables(windows):
-    """Kernel B2, replacing `qpel_tables_pallas`
+    """Kernel B2's standalone entry, replacing `qpel_tables_pallas`
     (video_steganography_pcamv_tpu/ops/probe_pallas.py:221). On the
-    H100 it is bound by its table writes (169 * 64 * 3 B per 8x8).
+    serving path B2 is fused into `subpel` and `probe_maps`, and this
+    entry is not launched; it checks the shared row code
+    (`csrc/qpel_rows.cuh`) on its own. On the H100 it is bound by its
+    table writes (169 * 64 * 3 B per 8x8).
 
     windows [N8, 4, 16, 16] uint8 (the four hpel phase planes around each
     8x8 block's full-pel MV) -> (blocks8 [169, N8, 8, 8] uint8, wht8
@@ -239,11 +303,9 @@ def qpel_tables(windows):
         blocks8 = block_table8(windows)
         return blocks8, wht8_table(blocks8)
     n8 = windows.shape[0]
-    kernels.check_tensor("qpel_tables", "windows", windows, torch.uint8,
-                         (n8, 4, 16, 16))
-    if n8 % 4 or windows.data_ptr() % 16:
-        raise ValueError("qpel_tables: N8 %d is not a multiple of 4, or "
-                         "windows is not 16-byte aligned" % n8)
+    _check_windows("qpel_tables", windows, n8)
+    if n8 % 4:
+        raise ValueError("qpel_tables: N8 %d is not a multiple of 4" % n8)
     dev = windows.device
     blocks8 = torch.empty((169, n8, 8, 8), dtype=torch.uint8, device=dev)
     wht8 = torch.empty((169, n8, 64), dtype=torch.int16, device=dev)
@@ -258,25 +320,27 @@ def qpel_tables(windows):
 qpel_tables.launches = 0
 
 
-def subpel(cur_y, wht8, part, mvfp8, prev_mv, lam: int, mbh: int,
+def subpel(cur_y, windows, part, mvfp8, prev_mv, lam: int, mbh: int,
            mbw: int):
     """Kernel B3, replacing `subpel_pallas`
-    (video_steganography_pcamv_tpu/ops/probe_pallas.py:301): the subpel=2
-    refine over the 49-offset box, SATD summed over each partition unit
-    plus lam * bits(mv - qpel predictor), first minimum in (oy, ox)
-    order. On the H100 it is bound by its reads of the WHT table rows.
+    (video_steganography_pcamv_tpu/ops/probe_pallas.py:301), with the 49
+    rows it reads of `qpel_tables_pallas` (probe_pallas.py:221) built
+    from the windows: the subpel=2 refine over the 49-offset box, SATD
+    summed over each partition unit plus lam * bits(mv - qpel
+    predictor), first minimum in (oy, ox) order. On the H100 it is bound
+    by building the rows (integer operations).
 
-    cur_y [16mbh,16mbw] int32, wht8 [169,N8,64] int16, part [mbh,mbw]
-    int32, mvfp8 [2mbh,2mbw,2] int32 full-pel, prev_mv [mbh,mbw,2] int32
-    qpel predictor -> (mv8 [2mbh,2mbw,2] int32 qpel, r_idx8 [N8] int32
-    in spatial order)."""
+    cur_y [16mbh,16mbw] int32, windows [N8,4,16,16] uint8, part
+    [mbh,mbw] int32, mvfp8 [2mbh,2mbw,2] int32 full-pel, prev_mv
+    [mbh,mbw,2] int32 qpel predictor -> (mv8 [2mbh,2mbw,2] int32 qpel,
+    r_idx8 [N8] int32 in spatial order)."""
     if cur_y.device.type == "cpu":
-        return subpel_parts(cur_y, wht8, part, mvfp8, prev_mv, mbh, mbw,
+        return subpel_parts(cur_y, windows, part, mvfp8, prev_mv, mbh, mbw,
                             lam)
     n8 = 4 * mbh * mbw
     chk = kernels.check_tensor
     chk("subpel", "cur_y", cur_y, _I32, (16 * mbh, 16 * mbw))
-    chk("subpel", "wht8", wht8, torch.int16, (169, n8, 64))
+    _check_windows("subpel", windows, n8)
     chk("subpel", "part", part, _I32, (mbh, mbw))
     chk("subpel", "mvfp8", mvfp8, _I32, (2 * mbh, 2 * mbw, 2))
     chk("subpel", "prev_mv", prev_mv, _I32, (mbh, mbw, 2))
@@ -285,7 +349,7 @@ def subpel(cur_y, wht8, part, mvfp8, prev_mv, lam: int, mbh: int,
     r_idx8 = torch.empty((n8,), dtype=_I32, device=dev)
     fn = kernels.entry("pcamv_subpel", [_VP] * 5 + [_CI] * 3 + [_VP] * 3)
     ptr = kernels.ptr
-    rc = fn(ptr(cur_y), ptr(wht8), ptr(part), ptr(mvfp8), ptr(prev_mv),
+    rc = fn(ptr(cur_y), ptr(windows), ptr(part), ptr(mvfp8), ptr(prev_mv),
             int(lam), mbh, mbw, ptr(mv8), ptr(r_idx8), kernels.stream(cur_y))
     kernels.check(rc, "pcamv_subpel")
     subpel.launches += 1
@@ -307,27 +371,30 @@ def quant_params(qp: int) -> np.ndarray:
 _QPARAMS = [quant_params(q) for q in range(52)]
 
 
-def probe_maps(cur_y, blocks8, wht8, r_idx8, qp: int, mbh: int, mbw: int,
+def probe_maps(cur_y, windows, r_idx8, qp: int, mbh: int, mbw: int,
                decimate: bool = True):
     """Kernel B4, replacing `probe_maps_pallas`
-    (video_steganography_pcamv_tpu/ops/probe_pallas.py:481): per 8x8
-    block and per probe version (the centre, then the 12 D_MV deltas),
-    DCT -> quant -> decimate score -> dequant -> IDCT -> recon, and the
-    SATD of the recon and of the pred against the 9 D_NB lattice rows.
-    On the H100 its integer operations (~1450 per version and 4x4
-    sub-block) outweigh its reads of the lattice rows (~6.6 KB per 8x8).
+    (video_steganography_pcamv_tpu/ops/probe_pallas.py:481), with the
+    rows it reads of `qpel_tables_pallas` (probe_pallas.py:221) built
+    from the windows: per 8x8 block and per probe version (the centre,
+    then the 12 D_MV deltas), DCT -> quant -> decimate score -> dequant
+    -> IDCT -> recon, and the SATD of the recon and of the pred against
+    the 9 D_NB lattice rows. On the H100 it is bound by its integer
+    operations (~1450 per version and 4x4 sub-block, plus the 45 WHT
+    rows it builds per 8x8).
 
-    Returns (SK [13,9,n,4], SP [13,9,n,4], sc8 [13,n,4]) int32; with
-    decimate off, SP = SK and sc8 = 0."""
+    cur_y [16mbh,16mbw] int32, windows [N8,4,16,16] uint8, r_idx8 [N8]
+    int32 (B3's chosen rows, in the +-3 box) -> (SK [13,9,n,4], SP
+    [13,9,n,4], sc8 [13,n,4]) int32; with decimate off, SP = SK and
+    sc8 = 0."""
     if cur_y.device.type == "cpu":
-        return probe_maps_plain(cur_y, blocks8, wht8, r_idx8, qp, mbh,
-                                mbw, decimate)
+        return probe_maps_plain(cur_y, windows, r_idx8, qp, mbh, mbw,
+                                decimate)
     n = mbh * mbw
     n8 = 4 * n
     chk = kernels.check_tensor
     chk("probe_maps", "cur_y", cur_y, _I32, (16 * mbh, 16 * mbw))
-    chk("probe_maps", "blocks8", blocks8, torch.uint8, (169, n8, 8, 8))
-    chk("probe_maps", "wht8", wht8, torch.int16, (169, n8, 64))
+    _check_windows("probe_maps", windows, n8)
     chk("probe_maps", "r_idx8", r_idx8, _I32, (n8,))
     if not 0 <= qp <= 51:
         raise ValueError("probe_maps: qp %d outside [0, 51]" % qp)
@@ -336,11 +403,11 @@ def probe_maps(cur_y, blocks8, wht8, r_idx8, qp: int, mbh: int, mbw: int,
     SK = torch.empty((13, 9, n, 4), dtype=_I32, device=dev)
     SP = torch.empty((13, 9, n, 4), dtype=_I32, device=dev)
     sc8 = torch.empty((13, n, 4), dtype=_I32, device=dev)
-    fn = kernels.entry("pcamv_probe_maps", [_VP] * 5 + [_CI] * 4 + [_VP] * 4)
+    fn = kernels.entry("pcamv_probe_maps", [_VP] * 4 + [_CI] * 4 + [_VP] * 4)
     ptr = kernels.ptr
-    rc = fn(ptr(cur_y), ptr(blocks8), ptr(wht8), ptr(r_idx8), ptr(qtab),
-            qp // 6 - 4, int(decimate), mbh, mbw, ptr(SK), ptr(SP),
-            ptr(sc8), kernels.stream(cur_y))
+    rc = fn(ptr(cur_y), ptr(windows), ptr(r_idx8), ptr(qtab), qp // 6 - 4,
+            int(decimate), mbh, mbw, ptr(SK), ptr(SP), ptr(sc8),
+            kernels.stream(cur_y))
     kernels.check(rc, "pcamv_probe_maps")
     probe_maps.launches += 1
     return SK, SP, sc8
@@ -351,7 +418,8 @@ probe_maps.launches = 0
 
 def analyse_tail(cur_y, windows, part, mvfp8, prev_mv, lam: int, qp: int,
                  mbh: int, mbw: int, decimate: bool = True):
-    """B2 -> B3 -> B4, the contract of `analyse_tail_pallas`
+    """B3 -> B4 on the windows (B2 fused into both), the contract of
+    `analyse_tail_pallas`
     (video_steganography_pcamv_tpu/ops/probe_pallas.py:574).
 
     cur_y [16mbh,16mbw] int32; windows [N8,4,16,16] uint8 (spatial
@@ -359,8 +427,8 @@ def analyse_tail(cur_y, windows, part, mvfp8, prev_mv, lam: int, qp: int,
     full-pel; prev_mv [mbh,mbw,2] qpel predictor. Returns (mv8
     [2mbh,2mbw,2] qpel, r_idx8 [N8] spatial, SK [13,9,n,4], SP, sc8
     [13,n,4])."""
-    blocks8, wht8 = qpel_tables(windows)
-    mv8, r_idx8 = subpel(cur_y, wht8, part, mvfp8, prev_mv, lam, mbh, mbw)
-    SK, SP, sc8 = probe_maps(cur_y, blocks8, wht8, r_idx8, qp, mbh, mbw,
+    mv8, r_idx8 = subpel(cur_y, windows, part, mvfp8, prev_mv, lam, mbh,
+                         mbw)
+    SK, SP, sc8 = probe_maps(cur_y, windows, r_idx8, qp, mbh, mbw,
                              decimate)
     return mv8, r_idx8, SK, SP, sc8
