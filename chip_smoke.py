@@ -9,7 +9,8 @@ Phases (any failure raises and the script exits non-zero):
      source, all started together) and the g++ build of the port's
      native library, in parallel, with their times;
   2. kernel B1 (full-pel partition search) against its plain version at
-     1080p shapes, random and zero predictor: array-equal, both timed;
+     1080p shapes, rng 16 with random and zero predictors, rng 7 and 20
+     with random ones: array-equal, both timed at rng 16;
   3. kernel B5 (the whole deblock_frame call: edge parameters and
      filter, uint8 in and out, one launch) against edge_params + its
      plain version at 1080p with fuzzed intra/skip/nnz/mv maps at qp 26
@@ -34,7 +35,8 @@ Phases (any failure raises and the script exits non-zero):
      at 1920x1088, IDR + 3 P frames plus flush: payload recovered, the
      same launch counts;
   8. per-stage times of a 1080p P frame on the tail_kernel=True path;
-  9. kernels B6 (16x16 full-pel search), B7 (MB window fetch) and
+  9. kernels B6 (16x16 full-pel search, rng 7, 20 and 16), B7 (MB
+     window fetch) and
      B8a/B8b (4x4 DCT+quant, dequant+IDCT) against their plain versions
      at 1080p shapes on a real frame pair, B8 at qp 26 and 20 and on the
      13-version probe batch: array-equal, timed, beside their bounds;
@@ -47,10 +49,10 @@ Phases (any failure raises and the script exits non-zero):
  12. (only with --stages16) per-stage times of a 1080p P frame on the
      16x16-only path;
  13. kernel B9 (per-8x8 window fetch) against its plain version at 1080p
-     on the main path's real MVs and on synthetic +-16 MVs at the frame
-     corners, and B10 (lowres frame costs on B1's kernel) against its
-     plain version at the 960x544 lowres shape, rng 8: array-equal,
-     timed, beside their bounds;
+     on the main path's real MVs and on synthetic +-16 and +-20 MVs at
+     the frame corners, and B10 (lowres frame costs on B1's kernel)
+     against its plain version at the 960x544 lowres shape, rng 7, 20
+     and 8 (timed): array-equal, timed, beside their bounds;
  14. BASELINE config 3 (transform_8x8 + rd 1, bench.py's other Params)
      at 128x96, six frames on cuda and on cpu: byte-equal streams with
      Intra_8x8 and 8x8-transform P MBs, decoded and read by the port's
@@ -67,11 +69,11 @@ line is {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --ab PARENT_ROOT
 
-instead compares two checkouts on one card: the main path's 1080p
-encode (phase 6 without the payload check) and its stage times (phase
-8), run in a fresh process from PARENT_ROOT, this checkout, this
-checkout and PARENT_ROOT again, each with that checkout's chip_smoke.py
-and package.
+instead compares two checkouts on one card: kernels B1, B9 and B10
+(phases 2 and 13), the main path's 1080p encode (phase 6 without the
+payload check) and its stage times (phase 8), run in a fresh process
+from PARENT_ROOT, this checkout, this checkout and PARENT_ROOT again,
+each with that checkout's chip_smoke.py and package.
 """
 
 import argparse
@@ -170,43 +172,63 @@ def phase_build():
                     native.build_seconds or 0.0))
 
 
+# 4-way SIMD instructions per four absolute differences, summed, in the
+# full-pel search's hot loop, as its SASS shows them (csrc/fullpel.cu's
+# header): one VABSDIFF4 with accumulate
+SAD_OPS_PER_4 = 1
+
+
+def search_ops(n: int, rng: int) -> int:
+    """The least work of an exhaustive +-rng search of n 16x16 blocks:
+    256 absolute differences per block and displacement, taken and
+    summed four at a time."""
+    return n * (2 * rng + 1) ** 2 * 64 * SAD_OPS_PER_4
+
+
 def phase_b1(dev, int_rate):
+    """B1 at 1080p shapes: rng 16 (the main path's) with random and zero
+    predictors, rng 7 and 20 (not multiples of 4; 20 is the largest the
+    encoder admits) with random predictors; timed at rng 16, zero
+    predictor (the main path's accelerator branch)."""
     from video_steganography_pcamv_torch.ops import fullpel as FP
     from video_steganography_pcamv_torch.ops import mc
     from video_steganography_pcamv_torch.utils.yuv import synthetic_sequence
     fr = synthetic_sequence(16 * MBW, 16 * MBH, 2, seed=3)
     rs = np.random.RandomState(11)
     cur = torch.as_tensor(fr[1].y.astype(np.int32), device=dev)
-    ref = mc.pad_plane(torch.as_tensor(fr[0].y.astype(np.int32), device=dev))
-    rng, lam = 16, 4
+    ref = mc.pad_plane(torch.as_tensor(fr[0].y.astype(np.uint8),
+                                       device=dev))
+    lam = 4
     worst = 0
-    preds = {"random": rs.randint(-12, 13, (MBH, MBW, 2)),
-             "zero": np.zeros((MBH, MBW, 2))}
-    for name, pr in preds.items():
+    cases = [("random", 16, rs.randint(-12, 13, (MBH, MBW, 2))),
+             ("random", 7, rs.randint(-12, 13, (MBH, MBW, 2))),
+             ("random", 20, rs.randint(-24, 25, (MBH, MBW, 2))),
+             ("zero", 16, np.zeros((MBH, MBW, 2)))]
+    for name, rng, pr in cases:
         pred = torch.as_tensor(pr.astype(np.int32), device=dev)
         got = FP.fullpel_parts(cur, ref, pred, rng, MBH, MBW, lam)
         want = FP.fullpel_search_parts(cur, ref, pred, rng, MBH, MBW, lam)
         torch.cuda.synchronize()
         err = max_abs([got[k] for k in want], want.values())
         if err != 0 or any(not torch.equal(got[k], want[k]) for k in want):
-            raise AssertionError("B1 kernel != plain (%s predictor), max "
-                                 "abs err %d" % (name, err))
+            raise AssertionError("B1 kernel != plain (%s predictor, rng %d),"
+                                 " max abs err %d" % (name, rng, err))
         worst = max(worst, err)
         log("B1 %s predictor: kernel == plain at %dx%d MBs, rng %d"
             % (name, MBH, MBW, rng))
+    rng = 16
     ms = cuda_ms(lambda: FP.fullpel_parts(cur, ref, pred, rng, MBH, MBW,
                                           lam), reps=20, warmup=3)
     plain_ms = cuda_ms(lambda: FP.fullpel_search_parts(
         cur, ref, pred, rng, MBH, MBW, lam), reps=3)
-    # bytes: cur, the padded reference, the predictor read once; 9
-    # (cost, index) pairs written per MB. ops: per MB and displacement,
-    # 256 abs-differences of 3 int ops (sub, abs, add)
+    # bytes: cur (int32) and the padded uint8 reference plane read once,
+    # the predictor read; 9 (cost, index) pairs written per MB. ops:
+    # search_ops
     n = MBH * MBW
-    nbytes = (cur.numel() + ref.numel() + 2 * n + 18 * n) * 4
-    ops = n * (2 * rng + 1) ** 2 * 256 * 3
-    bnd = bound(nbytes, ops, int_rate)
-    log("B1 time: kernel %.3f ms, plain %.3f ms, bound %.3f ms (%s) "
-        "(median, 1080p)" % (ms, plain_ms, *bnd))
+    nbytes = cur.numel() * 4 + ref.numel() + (2 * n + 18 * n) * 4
+    bnd = bound(nbytes, search_ops(n, rng), int_rate)
+    log("B1 time: kernel %.4f ms, plain %.3f ms, bound %.4f ms (%s) "
+        "(median, 1080p, rng 16)" % (ms, plain_ms, *bnd))
     return record("fullpel_parts", "fullpel.cu",
                   "ops/pallas_kernels.py:435", worst, ms, plain_ms, bnd)
 
@@ -345,11 +367,11 @@ def _tail_inputs(dev):
     ref = mc.build_ref(torch.as_tensor(fr[0].y.astype(np.int32),
                                        device=dev), c, c)
     zero = torch.zeros((MBH, MBW, 2), dtype=torch.int32, device=dev)
-    st = FP.fullpel_parts(cur, ref["luma"][0], zero, 16, MBH, MBW, lam)
+    ref8 = ref["luma"].to(torch.uint8)
+    st = FP.fullpel_parts(cur, ref8[0], zero, 16, MBH, MBW, lam)
     part, mvfp8 = PT.decide_partition(st, MBH, MBW, lam)
     mvfp8 = mvfp8.contiguous()
-    windows = PT.gather_windows8(ref["luma"].to(torch.uint8), mvfp8, MBH,
-                                 MBW)
+    windows = PT.gather_windows8(ref8, mvfp8, MBH, MBW)
     prev_mv = torch.as_tensor(np.random.RandomState(4).randint(
         -40, 41, (MBH, MBW, 2)).astype(np.int32), device=dev)
     return cur, windows, part, mvfp8, prev_mv, lam, qp
@@ -455,8 +477,8 @@ def _touched_bytes(planes, yy, xx) -> int:
 
 def phase_b9b10(dev, int_rate):
     """B9 on the main path's real MVs (B1 with a zero predictor and the
-    partition decision on a 1080p frame pair) and on +-16 corner MVs;
-    B10 on the lowres planes of the same pair."""
+    partition decision on a 1080p frame pair) and on +-16 and +-20
+    corner MVs; B10 on the lowres planes of the same pair."""
     from video_steganography_pcamv_torch.encoder import partition as PT
     from video_steganography_pcamv_torch.encoder import slicetype as ST
     from video_steganography_pcamv_torch.encoder.me import lambda_tab
@@ -470,9 +492,9 @@ def phase_b9b10(dev, int_rate):
     c = torch.as_tensor(fr[0].u.astype(np.int32), device=dev)
     ref = mc.build_ref(prev, c, c)
     zero = torch.zeros((MBH, MBW, 2), dtype=torch.int32, device=dev)
-    st = FP.fullpel_parts(cur, ref["luma"][0], zero, 16, MBH, MBW, lam)
-    real = PT.decide_partition(st, MBH, MBW, lam)[1].contiguous()
     planes = ref["luma"].to(torch.uint8)
+    st = FP.fullpel_parts(cur, planes[0], zero, 16, MBH, MBW, lam)
+    real = PT.decide_partition(st, MBH, MBW, lam)[1].contiguous()
     n8 = 4 * MBH * MBW
     recs = []
 
@@ -481,12 +503,13 @@ def phase_b9b10(dev, int_rate):
     # arithmetic. library: the one advanced-index gather
     cases = [("main-path MVs", real)]
     g = np.random.RandomState(12)
-    for sx, sy in ((-1, -1), (-1, 1), (1, -1), (1, 1)):
-        mv = g.randint(-16, 17, (2 * MBH, 2 * MBW, 2)).astype(np.int32)
-        for by, bx in ((0, 0), (0, -1), (-1, 0), (-1, -1)):
-            mv[by, bx] = (16 * sx, 16 * sy)
-        cases.append(("corner MVs %+d, %+d" % (16 * sx, 16 * sy),
-                      torch.as_tensor(mv, device=dev)))
+    for r in (16, 20):
+        for sx, sy in ((-1, -1), (-1, 1), (1, -1), (1, 1)):
+            mv = g.randint(-r, r + 1, (2 * MBH, 2 * MBW, 2)).astype(np.int32)
+            for by, bx in ((0, 0), (0, -1), (-1, 0), (-1, -1)):
+                mv[by, bx] = (r * sx, r * sy)
+            cases.append(("corner MVs %+d, %+d" % (r * sx, r * sy),
+                          torch.as_tensor(mv, device=dev)))
     err = 0
     for name, mv in cases:
         got = PT.gather_windows8(planes, mv, MBH, MBW)
@@ -510,26 +533,38 @@ def phase_b9b10(dev, int_rate):
                        lib_ms))
 
     # B10 at the lowres shape (960x544: 68x120 8x8 blocks, 34x60 B1
-    # tiles). bytes: the lowres cur and the padded lowres ref read once,
-    # B1's 9 (cost, index) pairs a tile and the two costs written; ops:
-    # B1's 256 abs-differences of 3 ops a tile and displacement, and ~4
-    # ops a sample for the intra pass
+    # tiles), rng 8 (the lookahead's), also 7 and 20. bytes: the lowres
+    # cur (int32) and the padded lowres ref (uint8) read once, B1's 9
+    # (cost, index) pairs a tile and the two costs written; ops: B1's
+    # search_ops a tile, and ~4 ops a sample for the intra pass
     lr_cur, lr_ref = ST.lowres(cur), ST.lowres(prev)
-    rng = 8
-    got = ST.lowres_costs_kernel(lr_cur, lr_ref, MBH, MBW, rng)
-    err = _check_equal("B10 lowres_costs_kernel", (got,),
-                       (ST.lowres_costs_kernel_plain(lr_cur, lr_ref, MBH,
-                                                     MBW, rng),))
-    log("B10: kernel == plain at %dx%d lowres, rng %d: (cost_i, cost_p) "
-        "= %s" % (lr_cur.shape[1], lr_cur.shape[0], rng, got.tolist()))
+    err = 0
+    for rng in (7, 20, 8):
+        got = ST.lowres_costs_kernel(lr_cur, lr_ref, MBH, MBW, rng)
+        err = max(err, _check_equal(
+            "B10 lowres_costs_kernel rng %d" % rng, (got,),
+            (ST.lowres_costs_kernel_plain(lr_cur, lr_ref, MBH, MBW,
+                                          rng),)))
+        log("B10: kernel == plain at %dx%d lowres, rng %d: (cost_i, "
+            "cost_p) = %s" % (lr_cur.shape[1], lr_cur.shape[0], rng,
+                              got.tolist()))
     ms = cuda_ms(lambda: ST.lowres_costs_kernel(lr_cur, lr_ref, MBH, MBW,
                                                 rng), 20, 3)
     plain_ms = cuda_ms(lambda: ST.lowres_costs_kernel_plain(
         lr_cur, lr_ref, MBH, MBW, rng), 3)
-    nt = (lr_cur.shape[0] // 16) * (lr_cur.shape[1] // 16)
-    nbytes = (lr_cur.numel() + (lr_cur.shape[0] + 2 * mc.PAD)
-              * (lr_cur.shape[1] + 2 * mc.PAD) + nt * 18 + 2) * 4
-    ops = nt * (2 * rng + 1) ** 2 * 256 * 3 + lr_cur.numel() * 4
+    # B10's B1 wrapper call alone (960x544 is 34x60 whole tiles: no edge
+    # pad); like every time here, CUDA events around one call, so a slow
+    # host's enqueue time shows in it
+    th, tw = lr_cur.shape[0] // 16, lr_cur.shape[1] // 16
+    lr_pad = mc.pad_plane(lr_ref.to(torch.uint8))
+    tz = torch.zeros((th, tw, 2), dtype=torch.int32, device=dev)
+    log("B10's B1 call alone: %.4f ms (median, %dx%d tiles, rng %d)"
+        % (cuda_ms(lambda: FP.fullpel_parts(lr_cur, lr_pad, tz, rng, th, tw,
+                                            1), 20, 3), th, tw, rng))
+    nt = th * tw
+    nbytes = (lr_cur.numel() * 4 + (lr_cur.shape[0] + 2 * mc.PAD)
+              * (lr_cur.shape[1] + 2 * mc.PAD) + (nt * 18 + 2) * 4)
+    ops = search_ops(nt, rng) + lr_cur.numel() * 4
     recs.append(record("lowres_costs_kernel", "fullpel.cu",
                        "encoder/slicetype.py:41", err, ms, plain_ms,
                        bound(nbytes, ops, int_rate)))
@@ -571,23 +606,28 @@ def phase_b678(dev, int_rate):
     c = torch.as_tensor(fr[0].u.astype(np.int32), device=dev)
     ref = mc.build_ref(torch.as_tensor(fr[0].y.astype(np.int32), device=dev),
                        c, c)
-    ref_fp = ref["luma"][0]
+    planes = ref["luma"].to(torch.uint8)
+    ref_fp = planes[0]
     recs = []
 
-    # B6. bytes: cur and the padded reference read once, (mv, cost)
-    # written; ops: per MB and displacement 256 abs-differences of 3 int
-    # ops (sub, abs, add), as B1
+    # B6 at rng 7, 20 and 16 (the path's, timed). bytes: cur (int32) and
+    # the padded uint8 reference read once, (mv, cost) written; ops:
+    # search_ops, as B1
     zero = torch.zeros((MBH, MBW, 2), dtype=torch.int32, device=dev)
-    got = FP.fullpel_search16(cur, ref_fp, rng, MBH, MBW, lam)
-    want = fullpel_search(cur, ref_fp, zero, rng, MBH, MBW, lam)
-    err = _check_equal("B6 fullpel_search16", got, want)
+    err = 0
+    for r in (7, 20, rng):
+        got = FP.fullpel_search16(cur, ref_fp, r, MBH, MBW, lam)
+        want = fullpel_search(cur, ref_fp, zero, r, MBH, MBW, lam)
+        err = max(err, _check_equal("B6 fullpel_search16 rng %d" % r, got,
+                                    want))
+        log("B6: kernel == plain at %dx%d MBs, rng %d" % (MBH, MBW, r))
     mv_fp = got[0]
     ms = cuda_ms(lambda: FP.fullpel_search16(cur, ref_fp, rng, MBH, MBW,
                                              lam), 20, 3)
     plain_ms = cuda_ms(lambda: fullpel_search(cur, ref_fp, zero, rng, MBH,
                                               MBW, lam), 3)
-    bnd = bound((cur.numel() + ref_fp.numel() + 3 * n) * 4,
-                n * (2 * rng + 1) ** 2 * 256 * 3, int_rate)
+    bnd = bound(cur.numel() * 4 + ref_fp.numel() + 3 * n * 4,
+                search_ops(n, rng), int_rate)
     recs.append(record("fullpel_search16", "fullpel.cu",
                        "ops/pallas_kernels.py:549", err, ms, plain_ms, bnd))
 
@@ -595,7 +635,6 @@ def phase_b678(dev, int_rate):
     # read once (neighbouring windows overlap), the 4 x 24 x 24 window
     # written per MB, the MV field read; no arithmetic. library: the one
     # advanced-index gather
-    planes = ref["luma"].to(torch.uint8)
     got = QT.gather_windows(planes, mv_fp, MBH, MBW)
     err = _check_equal("B7 gather_windows", (got,),
                        (QT.gather_windows_plain(planes, mv_fp, MBH, MBW),))
@@ -969,9 +1008,10 @@ def phase_stages(dev, card, n_frames: int = 7, partitions: bool = True,
     log("  %-24s %9.3f" % ("(frame, with the syncs)", 1e3 * wall / n))
 
 
-# run from a checkout's root by `--ab`: the main path's 1080p encode and
-# stage times with that checkout's chip_smoke.py and package (the names
-# used here exist in every checkout since the main path's stage phase)
+# run from a checkout's root by `--ab`: the medians of kernels B1 and B9
+# at 1080p, the main path's 1080p encode and its stage times, with that
+# checkout's chip_smoke.py and package (the names used here exist in
+# every checkout since B9's phase)
 _AB_CHILD = r"""
 import time
 import torch
@@ -981,6 +1021,10 @@ from video_steganography_pcamv_torch.utils.yuv import synthetic_sequence
 dev = torch.device("cuda", 0)
 card = C.card_query("name,power.limit")
 C.phase_build()
+rate = C.int32_ops_per_s()
+recs = [C.phase_b1(dev, rate)] + C.phase_b9b10(dev, rate)
+C.log("kernel medians: " + ", ".join("%s %.4f ms" % (r["name"], r["ms"])
+                                     for r in recs) + "  [%s]" % card)
 frames = synthetic_sequence(1920, 1088, 10, seed=7)
 enc = Encoder(C._params(1920, 1088, True), device=dev)
 t0 = time.time()

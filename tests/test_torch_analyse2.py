@@ -75,8 +75,8 @@ def test_b6_plain_matches_pallas_and_jax(mbh, mbw, rng, flat):
                                     jnp.asarray(zero), rng, mbh, mbw, lam)
     mv_t, cost_t = t_fullpel_search(_t(cur), _t(ref_p), _t(zero), rng, mbh,
                                     mbw, lam)
-    mv_w, cost_w = TFP.fullpel_search16(_t(cur), _t(ref_p), rng, mbh, mbw,
-                                        lam)
+    mv_w, cost_w = TFP.fullpel_search16(_t(cur), _t(ref_p).to(torch.uint8),
+                                        rng, mbh, mbw, lam)
     for mv, cost in ((mv_j, cost_j), (mv_t, cost_t), (mv_w, cost_w)):
         _eq(mv, mv_p)
         _eq(cost, cost_p)

@@ -2,8 +2,9 @@
 
 This file imports no jax, so on a GPU machine without jax it runs on
 its own:  python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
-- kernel B1 vs its plain version (textured and flat content, random
-  predictor);
+- kernels B1 and B6 vs their plain versions on an odd MB grid
+  (textured and flat content, random predictors for B1) at rng 7, 16
+  and 20, and at the largest lam their 32-bit keys admit;
 - kernel B5 (the whole deblock_frame call, uint8 in and out) vs
   edge_params + its plain version at qp 26 and 40;
 - kernels B3 and B4 (the windows in, B2's rows built inside) vs their
@@ -15,9 +16,11 @@ its own:  python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
   and 38, zero_dc and use_dc on and off);
 - the 112x80 16x16-only encode (partitions=False) on cuda is
   byte-equal to the same encode on the cpu;
-- kernel B9 vs its plain version on real MVs and on +-20 corner MVs,
-  B10 vs its plain version, B5 with the trans8 rule and slice
-  offsets;
+- kernel B9 vs its plain version on real MVs and on +-20 corner MVs
+  (7x5 and 8x5 MB grids), and a window outside the planes failing the
+  launch; B10 vs its plain version at rng 7, 8, 16 and 20; B5 with the
+  trans8 rule and slice offsets;
+- a 120x72 (cropped) encode on cuda is byte-equal to the cpu encode;
 - the 128x96 config-3 encode (transform_8x8, rd 1) on cuda is byte-equal
   to the same encode on the cpu.
 """
@@ -52,24 +55,62 @@ def dev():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("flat", [False, True])
-def test_b1_kernel_matches_plain(dev, flat):
-    mbh, mbw, rng, lam = 4, 6, 16, 4
-    r = np.random.RandomState(2)
+def _search_inputs(dev, mbh, mbw, flat, seed):
+    """(cur int32, the padded uint8 reference plane) on a textured or a
+    flat frame pair (flat: every displacement ties)."""
+    r = np.random.RandomState(seed)
     h, w = 16 * mbh, 16 * mbw
     ref = r.randint(0, 256, (h, w)).astype(np.int32)
     cur = np.roll(ref, (2, -3), (0, 1))
     if flat:
         ref[:] = 100
         cur[:] = 101
-    pred = r.randint(-9, 10, (mbh, mbw, 2)).astype(np.int32)
-    args = [torch.as_tensor(cur, device=dev),
-            TMC.pad_plane(torch.as_tensor(ref, device=dev)),
-            torch.as_tensor(pred, device=dev)]
-    got = FP.fullpel_parts(*args, rng, mbh, mbw, lam)
-    want = FP.fullpel_search_parts(*args, rng, mbh, mbw, lam)
+    return (torch.as_tensor(cur, device=dev),
+            TMC.pad_plane(torch.as_tensor(ref, device=dev)).to(torch.uint8))
+
+
+@pytest.mark.parametrize("rng", [7, 16, 20])
+@pytest.mark.parametrize("flat", [False, True])
+def test_b1_kernel_matches_plain(dev, flat, rng):
+    """B1 on an odd 5x7 MB grid, random predictors (past the window's
+    edge too), at search ranges that are and are not multiples of 4."""
+    mbh, mbw, lam = 5, 7, 4
+    cur, ref = _search_inputs(dev, mbh, mbw, flat, rng)
+    pred = torch.as_tensor(np.random.RandomState(rng).randint(
+        -rng - 4, rng + 5, (mbh, mbw, 2)).astype(np.int32), device=dev)
+    got = FP.fullpel_parts(cur, ref, pred, rng, mbh, mbw, lam)
+    want = FP.fullpel_search_parts(cur, ref, pred, rng, mbh, mbw, lam)
     for k in want:
         assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("rng", [7, 20])
+def test_b1_b6_kernels_match_plain_at_the_largest_lam(dev, rng):
+    """Costs next to 2^20, the limit of the kernel's 32-bit key."""
+    mbh, mbw = 5, 7
+    lam = FP.max_lam(rng)
+    cur, ref = _search_inputs(dev, mbh, mbw, False, rng + 2)
+    pred = torch.as_tensor(np.random.RandomState(rng).randint(
+        -rng, rng + 1, (mbh, mbw, 2)).astype(np.int32), device=dev)
+    got = FP.fullpel_parts(cur, ref, pred, rng, mbh, mbw, lam)
+    want = FP.fullpel_search_parts(cur, ref, pred, rng, mbh, mbw, lam)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    zero = torch.zeros_like(pred)
+    got = FP.fullpel_search16(cur, ref, rng, mbh, mbw, lam)
+    want = fullpel_search(cur, ref, zero, rng, mbh, mbw, lam)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("rng", [7, 16, 20])
+@pytest.mark.parametrize("flat", [False, True])
+def test_b6_kernel_matches_plain_odd_grid(dev, flat, rng):
+    mbh, mbw, lam = 5, 7, 4
+    cur, ref = _search_inputs(dev, mbh, mbw, flat, rng + 1)
+    zero = torch.zeros((mbh, mbw, 2), dtype=torch.int32, device=dev)
+    got = FP.fullpel_search16(cur, ref, rng, mbh, mbw, lam)
+    want = fullpel_search(cur, ref, zero, rng, mbh, mbw, lam)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.parametrize("qp", [26, 40])
@@ -107,11 +148,11 @@ def _tail_inputs(dev, w, h, seed):
     ref = TMC.build_ref(torch.as_tensor(fr[0].y.astype(np.int32),
                                         device=dev), c, c)
     zero = torch.zeros((mbh, mbw, 2), dtype=torch.int32, device=dev)
-    st = FP.fullpel_parts(cur, ref["luma"][0], zero, 16, mbh, mbw, 4)
+    ref8 = ref["luma"].to(torch.uint8)
+    st = FP.fullpel_parts(cur, ref8[0], zero, 16, mbh, mbw, 4)
     part, mvfp8 = PT.decide_partition(st, mbh, mbw, 4)
     mvfp8 = mvfp8.contiguous()
-    windows = PT.gather_windows8(ref["luma"].to(torch.uint8), mvfp8, mbh,
-                                 mbw)
+    windows = PT.gather_windows8(ref8, mvfp8, mbh, mbw)
     prev_mv = torch.as_tensor(np.random.RandomState(seed).randint(
         -40, 41, (mbh, mbw, 2)).astype(np.int32), device=dev)
     return cur, windows, part, mvfp8, prev_mv, mbh, mbw
@@ -175,11 +216,11 @@ def test_b6_b7_kernels_match_plain(dev, flat):
         cur[:] = 101
         ref["luma"][:] = 100
     zero = torch.zeros((mbh, mbw, 2), dtype=torch.int32, device=dev)
-    mv, cost = FP.fullpel_search16(cur, ref["luma"][0], rng, mbh, mbw, lam)
-    want_mv, want_cost = fullpel_search(cur, ref["luma"][0], zero, rng, mbh,
+    planes = ref["luma"].to(torch.uint8)
+    mv, cost = FP.fullpel_search16(cur, planes[0], rng, mbh, mbw, lam)
+    want_mv, want_cost = fullpel_search(cur, planes[0], zero, rng, mbh,
                                         mbw, lam)
     assert torch.equal(mv, want_mv) and torch.equal(cost, want_cost)
-    planes = ref["luma"].to(torch.uint8)
     edge = torch.as_tensor(np.random.RandomState(1).choice(
         [-rng, rng], (mbh, mbw, 2)).astype(np.int32), device=dev)
     for mv_fp in (mv, edge):
@@ -225,10 +266,14 @@ def test_cuda_stream_equals_cpu_stream_16x16(dev):
     assert run(dev) == run("cpu")
 
 
+@pytest.mark.parametrize("w,h", [(112, 80), (128, 80)],
+                         ids=["112x80", "120x72-padded"])
 @pytest.mark.parametrize("corner", [False, True])
-def test_b9_kernel_matches_plain(dev, corner):
-    cur, _w, _p, mvfp8, _pm, mbh, mbw = _tail_inputs(dev, 112, 80, 3)
-    fr = synthetic_sequence(112, 80, 1, seed=5)
+def test_b9_kernel_matches_plain(dev, corner, w, h):
+    """B9 on odd MB grids (7x5; 8x5, a 120x72 frame padded to 128x80),
+    on real MVs and at the +-20 corner MVs."""
+    cur, _w, _p, mvfp8, _pm, mbh, mbw = _tail_inputs(dev, w, h, 3)
+    fr = synthetic_sequence(w, h, 1, seed=5)
     c = torch.as_tensor(fr[0].u.astype(np.int32), device=dev)
     planes = TMC.build_ref(torch.as_tensor(fr[0].y.astype(np.int32),
                                            device=dev), c, c)["luma"] \
@@ -246,13 +291,42 @@ def test_b9_kernel_matches_plain(dev, corner):
     torch.cuda.synchronize()
 
 
-def test_b10_kernel_matches_plain(dev):
-    fr = synthetic_sequence(256, 144, 2, seed=4)     # lowres 128x72
+@pytest.mark.parametrize("rng", [7, 8, 16, 20])
+def test_b10_kernel_matches_plain(dev, rng):
+    fr = synthetic_sequence(224, 144, 2, seed=4)     # lowres 112x72
     cur, ref = (ST.lowres(torch.as_tensor(f.y.astype(np.int32), device=dev))
                 for f in fr[::-1])
-    bh, bw = cur.shape[0] // 8, cur.shape[1] // 8
-    assert torch.equal(ST.lowres_costs_kernel(cur, ref, bh, bw, 8),
-                       ST.lowres_costs_kernel_plain(cur, ref, bh, bw, 8))
+    bh, bw = cur.shape[0] // 8, cur.shape[1] // 8    # tiles 5x7
+    assert torch.equal(ST.lowres_costs_kernel(cur, ref, bh, bw, rng),
+                       ST.lowres_costs_kernel_plain(cur, ref, bh, bw, rng))
+
+
+_OUTSIDE = r"""
+import torch
+from video_steganography_pcamv_torch.encoder import partition as PT
+mbh, mbw = 5, 7
+planes = torch.full((4, 16 * mbh + 48, 16 * mbw + 48), 7, dtype=torch.uint8,
+                    device="cuda")
+mv = torch.zeros((2 * mbh, 2 * mbw, 2), dtype=torch.int32, device="cuda")
+mv[0, 0] = torch.tensor([-21, 0])       # one column left of the planes
+out = PT.gather_windows8(planes, mv, mbh, mbw)
+torch.cuda.synchronize()
+print("RETURNED", int((out == 0).sum()))
+"""
+
+
+def test_b9_window_outside_the_planes_fails_the_launch(dev):
+    """A window outside the planes traps the launch instead of returning
+    zeros or neighbouring bytes (in a subprocess, since the trap ends
+    the CUDA context)."""
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-c", _OUTSIDE], cwd=root,
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode != 0 and "RETURNED" not in r.stdout, r.stdout
+    assert "CUDA" in r.stderr or "cuda" in r.stderr, r.stderr[-2000:]
 
 
 def test_b5_kernel_matches_plain_trans8(dev):
@@ -275,6 +349,21 @@ def test_b5_kernel_matches_plain_trans8(dev):
     want = DB.deblock_frame_plain(*t[:3], par, mbh, mbw)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+def test_cuda_stream_equals_cpu_stream_cropped_120x72(dev):
+    """A frame size that is not a multiple of 16 (SPS cropping): B1 and
+    B9 run on the padded frame's edge MBs."""
+    frames = synthetic_sequence(120, 72, 5, seed=7)
+
+    def run(device):
+        p = Params(width=120, height=72, qp=26, me_range=16,
+                   deblock_device=True, psnr=False,
+                   stego=StegoParams(em_rate=16, key=5))
+        enc = Encoder(p, device=device)
+        return b"".join(enc.encode_frame(f) for f in frames) + enc.flush()
+
+    assert run(dev) == run("cpu")
 
 
 def test_cuda_stream_equals_cpu_stream_config3(dev):

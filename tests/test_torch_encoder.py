@@ -4,7 +4,8 @@ decoded alike by the port's decoder and the reference's, payload
 recovered alike by the port's blind extractor and the reference's. Also
 resumes the port mid-stream from a live reference encoder
 (`state.from_reference`) with a pipelined frame still pending, and
-requires the rest of the stream to be byte-equal. The port's Encoder is
+requires the rest of the stream to be byte-equal; and a cropped 120x72
+frame, whose padded edge MBs B1 and B9 search. The port's Encoder is
 given the port's own Params built from the same keyword arguments."""
 
 import numpy as np
@@ -28,22 +29,23 @@ W, H = 112, 80
 EM_RATE, KEY = 64, 99
 
 
-def _seq(n, seed=1):
+def _seq(n, seed=1, w=W, h=H):
     rng = np.random.RandomState(seed)
-    big = rng.randint(30, 226, ((H + 64) // 4, (W + 64) // 4))
+    big = rng.randint(30, 226, ((h + 64) // 4, (w + 64) // 4))
     big = np.repeat(np.repeat(big, 4, 0), 4, 1).astype(np.uint8)
     frames = []
     for i in range(n):
-        f = big[16 + i:16 + i + H, 16 + 2 * i:16 + 2 * i + W].copy()
-        u = np.full((H // 2, W // 2), 120 + i, np.uint8)
+        f = big[16 + i:16 + i + h, 16 + 2 * i:16 + 2 * i + w].copy()
+        u = np.full((h // 2, w // 2), 120 + i, np.uint8)
         frames.append(Frame(f, u, u.copy()))
     return frames
 
 
 def _params(params=Params, stego=StegoParams, **kw):
     """bench.py's serving Params, analyse-tail kernels off."""
-    p = params(width=W, height=H, qp=26, me_range=16, deblock_device=True,
-               psnr=False, stego=stego(em_rate=EM_RATE, key=KEY), **kw)
+    kw = dict(dict(width=W, height=H), **kw)
+    p = params(qp=26, me_range=16, deblock_device=True, psnr=False,
+               stego=stego(em_rate=EM_RATE, key=KEY), **kw)
     p.tail_kernel = False
     p.pipeline_deep = False
     return p
@@ -72,6 +74,26 @@ def test_stream_byte_equal_and_payload(kw):
     assert (tenc.stats.i_frames > 1) == ("keyint_max" in kw)
     for dec in (decode_annexb(got), t_decode(got)):
         assert len(dec) == len(frames)
+    sent = tenc._stego.sent_messages
+    for extract in (extract_from_stream, t_extract):
+        rec = extract(got, em_rate=EM_RATE, key=KEY)
+        assert len(rec) == len(sent) and sum(len(s) for s in sent) > 0
+        for g, s in zip(rec, sent):
+            np.testing.assert_array_equal(g, s)
+
+
+def test_cropped_120x72_stream_byte_equal_and_payload():
+    """120x72 is not a multiple of 16: the SPS crops a 128x80 coded
+    frame, and B1 and B9 search the padded frame's edge MBs."""
+    frames = _seq(5, seed=3, w=120, h=72)
+    kw = dict(width=120, height=72)
+    want = _run(JEncoder(_params(**kw)), frames)
+    tenc = TEncoder(_tparams(**kw), device="cpu")
+    got = _run(tenc, frames)
+    assert got == want
+    dec = t_decode(got)
+    assert len(dec) == len(frames)
+    assert dec[0].y.shape == (72, 120)
     sent = tenc._stego.sent_messages
     for extract in (extract_from_stream, t_extract):
         rec = extract(got, em_rate=EM_RATE, key=KEY)

@@ -4,7 +4,10 @@
   textured content and on flat content where many displacements tie
   (the first minimum in dy-outer, dx-inner order must win);
 - against the Pallas kernel `fullpel_parts_pallas` in interpret mode
-  with a zero predictor.
+  with a zero predictor;
+- the wrappers' input contract (int32 current frame, uint8 reference
+  plane, rng <= PAD, costs below 2^20), which the CPU path holds as the
+  kernels do.
 The CUDA kernel is held against the plain version in test_torch_cuda.py.
 """
 
@@ -59,7 +62,8 @@ def test_plain_b1_matches_reference(kind, rng, lam):
                                    JMC.pad_plane(jnp.asarray(ref)),
                                    jnp.asarray(pred), rng, mbh, mbw, lam)
     tst = FP.fullpel_parts(torch.as_tensor(cur),
-                           TMC.pad_plane(torch.as_tensor(ref)),
+                           TMC.pad_plane(torch.as_tensor(ref))
+                           .to(torch.uint8),
                            torch.as_tensor(pred), rng, mbh, mbw, lam)
     _assert_st(jst, tst)
 
@@ -86,3 +90,28 @@ def test_units_to_st_scan_order():
     i = 5 * 5
     assert st["mv8"][0, 0, 0].tolist() == [i % side - rng, i // side - rng]
     assert st["c16"].item() == 0 and st["c8"][0, 0].tolist() == [5, 6, 7, 8]
+
+
+def test_wrappers_hold_the_kernel_input_contract_on_cpu():
+    mbh, mbw, rng = 2, 3, 4
+    cur, ref = _content("texture", 1, mbh, mbw)
+    tcur = torch.as_tensor(cur)
+    ref32 = TMC.pad_plane(torch.as_tensor(ref))
+    ref8 = ref32.to(torch.uint8)
+    zero = torch.zeros((mbh, mbw, 2), dtype=torch.int32)
+    _assert_st(FP.fullpel_search_parts(tcur, ref32, zero, rng, mbh, mbw, 4),
+               FP.fullpel_parts(tcur, ref8, zero, rng, mbh, mbw, 4))
+    for fn, args in ((FP.fullpel_parts, (zero,)), (FP.fullpel_search16, ())):
+        with pytest.raises(TypeError, match="uint8"):
+            fn(tcur, ref32, *args, rng, mbh, mbw, 4)
+        with pytest.raises(TypeError, match="int32"):
+            fn(tcur.to(torch.uint8), ref8, *args, rng, mbh, mbw, 4)
+        with pytest.raises(ValueError, match="rng 25"):
+            fn(tcur, ref8, *args, 25, mbh, mbw, 4)
+        # the kernel's 32-bit (cost, scan index) key: costs below 2^20
+        fn(tcur, ref8, *args, rng, mbh, mbw, FP.max_lam(rng))
+        with pytest.raises(ValueError, match="lam"):
+            fn(tcur, ref8, *args, rng, mbh, mbw, FP.max_lam(rng) + 1)
+    assert 65280 + 2 * FP.max_lam(rng) * int(FP.bits_table(rng).max()) \
+        < 1 << 20 <= 65280 + 2 * (FP.max_lam(rng) + 1) * int(
+            FP.bits_table(rng).max())

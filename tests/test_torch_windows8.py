@@ -53,6 +53,10 @@ def test_b9_plain_equals_reference_at_corner_mvs(rng):
         banked = pallas_kernels.gather_windows8_banked(
             jnp.asarray(planes), jnp.asarray(mv), MBH, MBW, interpret=True)
         np.testing.assert_array_equal(got.numpy(), np.asarray(banked))
+    # the kernel's input contract, held on the CPU path too
+    with pytest.raises(TypeError, match="uint8"):
+        TPT.gather_windows8(tplanes.to(torch.int32), torch.as_tensor(mv),
+                            MBH, MBW)
 
 
 def test_b10_plain_equals_reference(monkeypatch):

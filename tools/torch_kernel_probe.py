@@ -1,0 +1,233 @@
+"""Probe the card for the PyTorch port's full-pel search (B1/B6/B10) and
+per-8x8 window fetch (B9).
+
+    python3 tools/torch_kernel_probe.py
+
+On a machine with one NVIDIA H100 and nvcc, from the repository root:
+1. the SASS opcode counts and registers of `csrc/fullpel.cu` and
+   `csrc/windows8.cu` (nvcc -cubin, cuobjdump -sass);
+2. whether a tensor-map TMA load runs: a 16 x 16 x 4 uint8 box through
+   libcu++'s `cp_async_bulk_tensor_3d_global_to_shared` (map as a
+   `__grid_constant__` parameter), through inline PTX (map in global
+   memory), and, for comparison, a 1D `cp.async.bulk` copy; each in its
+   own process, since a fault ends the CUDA context;
+3. B9's kernel at 1080p on the main path's MVs against a variant that
+   reads each window row as five aligned 4-byte words
+   (`tools/torch_kernel_probe.cu`), both array-equal to the plain
+   gather, both called through their C entry points into preallocated
+   outputs and timed in turns as 50 back-to-back launches between CUDA
+   events (median of 5, three rounds), so that the wrapper's host time
+   does not count;
+4. the same device-only time of B1, B6 and B10's B1 launch at 1080p.
+The probe library is built into build/torch_probe/ (git-ignored).
+"""
+
+import collections
+import ctypes
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+OUT = os.path.join(ROOT, "build", "torch_probe")
+LIB = os.path.join(OUT, "probe.so")
+VP, CI = ctypes.c_void_p, ctypes.c_int
+
+
+def sass_counts(nvcc, flags, name):
+    """Registers and opcode counts of csrc/NAME.cu, one line a kernel."""
+    cubin = os.path.join(OUT, name + ".cubin")
+    r = subprocess.run([nvcc, *flags, "-Xptxas", "-v", "-cubin", "-o",
+                        cubin, os.path.join(ROOT, "video_steganography_"
+                                            "pcamv_torch", "csrc",
+                                            name + ".cu")],
+                       capture_output=True, text=True, check=True)
+    print(name, [ln.split(":", 1)[1].strip() for ln in
+                 r.stderr.splitlines() if "Used" in ln])
+    sass = subprocess.run([os.path.join(os.path.dirname(nvcc), "cuobjdump"),
+                           "-sass", cubin], capture_output=True, text=True,
+                          check=True).stdout
+    for f in re.split(r"\n\s*Function : ", sass)[1:]:
+        ops = collections.Counter(
+            m.group(1).split(".")[0] for m in re.finditer(
+                r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]+)", f))
+        print("  %s: %d instructions; %s" % (
+            f.split("\n", 1)[0].strip(), sum(ops.values()),
+            dict(ops.most_common(12))))
+
+
+def copy_case(mode: int) -> None:
+    """One probe_copy mode on a small random [4, 128, 160] plane set."""
+    lib = ctypes.CDLL(LIB)
+    lib.probe_copy.restype = CI
+    lib.probe_copy.argtypes = [CI, VP, CI, CI, VP, CI, VP, VP]
+    g = np.random.RandomState(0)
+    hp, wp, n = 128, 160, 64
+    planes = torch.as_tensor(g.randint(0, 256, (4, hp, wp)).astype(np.uint8),
+                             device="cuda")
+    xy = np.stack([g.randint(0, wp - 16, n), g.randint(0, hp - 16, n)], 1)
+    xyt = torch.as_tensor(xy.astype(np.int32), device="cuda")
+    out = torch.zeros((n, 4, 16, 16), dtype=torch.uint8, device="cuda")
+    map_dev = torch.zeros(128, dtype=torch.uint8, device="cuda")
+    rc = lib.probe_copy(mode, planes.data_ptr(), hp, wp, xyt.data_ptr(), n,
+                        out.data_ptr(), map_dev.data_ptr())
+    torch.cuda.synchronize()
+    if mode == 2:
+        want = torch.stack([planes[0, y:y + 16, (x & ~15):(x & ~15) + 16]
+                            for x, y in xy])
+        ok = torch.equal(out[:, 0], want)
+    else:
+        want = torch.stack([planes[:, y:y + 16, x:x + 16] for x, y in xy])
+        ok = torch.equal(out, want)
+    print("rc %d, copy equal %s" % (rc, ok))
+
+
+def launch_ms(fn, launches=50, reps=5):
+    """Median over reps of the CUDA-event time of `launches` back-to-back
+    calls, per call: the device time when a call enqueues faster than
+    the kernel runs."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(launches):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / launches)
+    return float(np.median(times))
+
+
+def b9_variants() -> None:
+    from video_steganography_pcamv_torch.encoder import partition as PT
+    from video_steganography_pcamv_torch.ops import fullpel as FP
+    from video_steganography_pcamv_torch.ops import mc
+    from video_steganography_pcamv_torch.utils.yuv import synthetic_sequence
+    from video_steganography_pcamv_torch import kernels
+    mbh, mbw = 68, 120
+    dev = torch.device("cuda", 0)
+    fr = synthetic_sequence(16 * mbw, 16 * mbh, 2, seed=3)
+    cur = torch.as_tensor(fr[1].y.astype(np.int32), device=dev)
+    c = torch.as_tensor(fr[0].u.astype(np.int32), device=dev)
+    planes = mc.build_ref(torch.as_tensor(fr[0].y.astype(np.int32),
+                                          device=dev), c, c)["luma"] \
+        .to(torch.uint8)
+    zero = torch.zeros((mbh, mbw, 2), dtype=torch.int32, device=dev)
+    st = FP.fullpel_parts(cur, planes[0], zero, 16, mbh, mbw, 4)
+    mv = PT.decide_partition(st, mbh, mbw, 4)[1].contiguous()
+    want = PT.gather_windows8_plain(planes, mv, mbh, mbw)
+    lib = ctypes.CDLL(LIB)
+    hp, wp = planes.shape[1:]
+    args = [VP, CI, CI, VP, CI, CI, VP, VP]
+    runs = {}
+    for label, fn in (
+            ("two aligned 16-byte chunks a row (csrc/windows8.cu)",
+             kernels.entry("pcamv_gather_windows8", args)),
+            ("five aligned 4-byte words a row", lib.probe_windows8_words)):
+        fn.restype, fn.argtypes = CI, args
+        out = torch.empty_like(want)
+
+        def run(fn=fn, out=out):
+            kernels.check(fn(planes.data_ptr(), hp, wp, mv.data_ptr(), mbh,
+                             mbw, out.data_ptr(), kernels.stream(planes)),
+                          "B9 variant")
+        run()
+        torch.cuda.synchronize()
+        print("B9 %s == plain: %s" % (label, torch.equal(out, want)))
+        runs[label] = run
+    for _ in range(3):
+        print("B9 1080p, ms a launch (50 back-to-back launches, median of "
+              "5): " + "; ".join("%s %.4f" % (k, launch_ms(f))
+                                 for k, f in runs.items()))
+
+
+def search_device_ms() -> None:
+    """B1 (rng 16, zero predictor), B6 (rng 16) and B10's B1 launch (the
+    960x544 lowres planes as 34x60 tiles, rng 8) at 1080p, called
+    through their C entry points into preallocated outputs."""
+    from video_steganography_pcamv_torch import kernels
+    from video_steganography_pcamv_torch.encoder import slicetype as ST
+    from video_steganography_pcamv_torch.ops import fullpel as FP
+    from video_steganography_pcamv_torch.ops import mc
+    from video_steganography_pcamv_torch.utils.yuv import synthetic_sequence
+    dev = torch.device("cuda", 0)
+    fr = synthetic_sequence(1920, 1088, 2, seed=3)
+    cur = torch.as_tensor(fr[1].y.astype(np.int32), device=dev)
+    prev = torch.as_tensor(fr[0].y.astype(np.int32), device=dev)
+    lr_cur = ST.lowres(cur).contiguous()
+    cases = [("B1 1080p rng 16", cur, mc.pad_plane(prev.to(torch.uint8)),
+              16, 68, 120, 4),
+             ("B10's B1 launch, 960x544 rng 8", lr_cur,
+              mc.pad_plane(ST.lowres(prev).to(torch.uint8)), 8, 34, 60, 1)]
+    ptr = kernels.ptr
+    parts = kernels.entry("pcamv_fullpel_parts", [VP, CI, VP, CI, VP, VP]
+                          + [CI] * 5 + [VP] * 3)
+    s16 = kernels.entry("pcamv_fullpel_search16", [VP, CI, VP, CI, VP]
+                        + [CI] * 5 + [VP] * 3)
+    for name, c, r, rng, mbh, mbw, lam in cases:
+        bits = FP._bits_on(dev, rng)
+        zero = torch.zeros((mbh, mbw, 2), dtype=torch.int32, device=dev)
+        a = torch.empty((mbh, mbw, 9), dtype=torch.int32, device=dev)
+        b = torch.empty_like(a)
+        w = 16 * mbw
+
+        def run():
+            kernels.check(parts(ptr(c), w, ptr(r), w + 48, ptr(zero),
+                                ptr(bits), bits.shape[0], rng, lam, mbh, mbw,
+                                ptr(a), ptr(b), kernels.stream(c)), name)
+        print("%s: %.4f ms a launch" % (name, launch_ms(run)))
+        if rng == 16:
+            mv = torch.empty((mbh, mbw, 2), dtype=torch.int32, device=dev)
+            cost = torch.empty((mbh, mbw), dtype=torch.int32, device=dev)
+
+            def run16():
+                kernels.check(s16(ptr(c), w, ptr(r), w + 48, ptr(bits),
+                                  bits.shape[0], rng, lam, mbh, mbw, ptr(mv),
+                                  ptr(cost), kernels.stream(c)), "B6")
+            print("B6 1080p rng 16: %.4f ms a launch" % launch_ms(run16))
+
+
+def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--copy":
+        copy_case(int(sys.argv[2]))
+        return 0
+    if not torch.cuda.is_available():
+        print("torch_kernel_probe: no CUDA device", file=sys.stderr)
+        return 2
+    from video_steganography_pcamv_torch import kernels
+    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,"
+                        "driver_version", "--format=csv,noheader"],
+                       capture_output=True, text=True, check=True)
+    print(r.stdout.strip(), "| torch", torch.__version__, "cuda",
+          torch.version.cuda)
+    os.makedirs(OUT, exist_ok=True)
+    nvcc = kernels._nvcc()
+    subprocess.run([nvcc, *kernels.NVCC_FLAGS, "-shared", "-o", LIB,
+                    os.path.join(ROOT, "tools", "torch_kernel_probe.cu")],
+                   check=True)
+    for name in ("fullpel", "windows8"):
+        sass_counts(nvcc, kernels.NVCC_FLAGS, name)
+    for mode, what in ((0, "TMA tensor load, libcu++, map as parameter"),
+                       (1, "TMA tensor load, PTX, map in global memory"),
+                       (2, "1D cp.async.bulk copy")):
+        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--copy", str(mode)], capture_output=True,
+                           text=True, timeout=300)
+        err = [ln for ln in r.stderr.splitlines() if "rror" in ln]
+        print("%s: exit %d; %s %s" % (what, r.returncode, r.stdout.strip(),
+                                      err[-1:] if err else ""))
+    b9_variants()
+    search_device_ms()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

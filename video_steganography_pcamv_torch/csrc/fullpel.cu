@@ -1,5 +1,5 @@
 // Full-pel motion search (Hopper, sm_90a): two entry points over one
-// kernel template.
+// kernel template, as packed-byte SAD.
 //
 // pcamv_fullpel_parts replaces the TPU kernel fullpel_parts_pallas
 // (video_steganography_pcamv_tpu/ops/pallas_kernels.py:435, kernels
@@ -13,19 +13,38 @@
 // pcamv_fullpel_search16 replaces the TPU kernel fullpel_search_pallas
 // (pallas_kernels.py:549, kernel _fullpel_kernel :42): the 16x16 unit
 // alone against a zero predictor, written as (mv, cost). Its template
-// instance keeps one running minimum instead of nine.
+// instance keeps one running minimum instead of nine. The lowres
+// lookahead check entry (B10, slicetype.lowres_costs_kernel) runs
+// pcamv_fullpel_parts.
 //
 // The winner per unit is the FIRST strict-< minimum in dy-outer,
-// dx-inner scan order: the block reduction takes the minimum of
-// (cost << 32 | scan index).
+// dx-inner scan order: the block reduction takes the minimum of the
+// 32-bit key (cost << 12 | scan index), with scan index dyo * side + dxo
+// whatever thread computed it. The wrapper holds the key exact: rng <=
+// PAD 24 keeps the index below 2^12, and it refuses a lam for which a
+// cost (at most 16 x 16 x 255 + lam x twice the table's largest bit
+// count) could reach 2^20.
 //
-// Design: one block per MB. The 16x16 current block and the
-// (16+2rng)^2 reference window sit in shared memory; threads stride
-// over the displacements keeping their running (cost, index) minima,
-// then reduce with warp shuffles and one shared-memory pass. At 1080p
-// (8160 MBs, rng 16, 1089 displacements) the search is ~2.3 G
-// abs-differences a frame, bound by integer ALU work and shared-memory
-// reads, not by device memory (each MB reads ~10 KB once).
+// Inputs: cur int32 (8-bit samples, packed to bytes while loading) and
+// the PAD-padded reference plane as uint8.
+//
+// What bounds it: per MB and displacement 256 absolute differences (a
+// 1080p frame at rng 16: 8160 x 1089 x 256 = 2.27 G). Design: one CTA
+// per MB; the current MB sits in shared memory as 64 words of four
+// pixels (packed from int32 while loading), the (16+2rng)^2 window as
+// bytes (2.3 KB at rng 16). A thread owns four consecutive dx of two
+// consecutive dy: ceil(side/4) * ceil(side/2) threads, one item each,
+// so only the last warp has idle lanes (153 of 160 lanes at rng 16).
+// It walks the 17 window rows its two dy need; each row's five window
+// words are loaded once, aligned for its four dx with three funnel
+// shifts each, and serve MB row t of the first dy and t - 1 of the
+// second. Every four byte differences take one VABSDIFF4 that also adds
+// them into the running quadrant sum (at most 64 x 255, so quadrant
+// costs stay exact). Per thread at rng 16, in the SASS of the 9-unit
+// instance: 512 VABSDIFF4 for its 2048 absolute differences, 215 SHF and
+// 131 LDS of window and row traffic, of 1672 instructions in all. The
+// per-thread minima over its 8 displacements then reduce across the CTA
+// with warp shuffles and one shared-memory pass, one 32-bit min a step.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -33,7 +52,20 @@
 namespace {
 
 constexpr int kPad = 24;       // full-pel border of the reference plane
-constexpr int kThreads = 256;
+
+constexpr int kDy = 2;         // consecutive dy per thread
+constexpr int kIdxBits = 12;   // scan index bits of a key (side^2 <= 4096)
+
+// |a - b| summed over the four bytes, added to acc: one VABSDIFF4 with
+// accumulate in the SASS (__vabsdiffu4 + __dp4a and __vsadu4 + add take
+// two instructions)
+__device__ __forceinline__ unsigned sad4(unsigned a, unsigned b,
+                                         unsigned acc) {
+  unsigned d;
+  asm("vabsdiff4.u32.u32.u32.add %0, %1, %2, %3;"
+      : "=r"(d) : "r"(a), "r"(b), "r"(acc));
+  return d;
+}
 
 // kUnits 9: all partition units, out_a = cost [n, 9], out_b = scan
 // index [n, 9]. kUnits 1: the 16x16 unit, out_a = mv [n, 2] (x, y),
@@ -41,76 +73,145 @@ constexpr int kThreads = 256;
 template <int kUnits>
 __global__ void fullpel_kernel(
     const int* __restrict__ cur, int cur_w,
-    const int* __restrict__ ref, int ref_w,
+    const uint8_t* __restrict__ ref, int ref_w,
     const int* __restrict__ pred, const int* __restrict__ bits,
     int bits_len, int rng, int lam, int mbw,
     int* __restrict__ out_a, int* __restrict__ out_b) {
-  extern __shared__ int smem[];
+  extern __shared__ uint4 smem[];
   const int side = 2 * rng + 1;
-  const int ws = 16 + 2 * rng;
-  int* s_cur = smem;
-  int* s_win = smem + 256;
-  unsigned long long* s_red =
-      reinterpret_cast<unsigned long long*>(s_win + ws * ws);
+  const int ws = 16 + 2 * rng;          // window rows and used columns
+  const int groups = (side + 3) >> 2;   // dx groups of four
+  const int dy_sets = (side + kDy - 1) / kDy;
+  const int rows = kDy * dy_sets + 15;  // window rows held (>= ws)
+  const int nw = groups + 4;            // words per window row
+  uint4* s_cur = smem;                  // 16 rows x 4 packed words
+  unsigned* s_win = reinterpret_cast<unsigned*>(smem + 16);
+  unsigned* s_red = s_win + rows * nw;
 
   const int mb = blockIdx.x;
   const int my = mb / mbw;
   const int mx = mb - my * mbw;
   const int tid = threadIdx.x;
 
-  for (int t = tid; t < 256; t += blockDim.x) {
-    s_cur[t] = cur[(16 * my + (t >> 4)) * cur_w + 16 * mx + (t & 15)];
+  for (int t = tid; t < 64; t += blockDim.x) {
+    const int4 v = *reinterpret_cast<const int4*>(
+        cur + (16 * my + (t >> 2)) * cur_w + 16 * mx + 4 * (t & 3));
+    reinterpret_cast<unsigned*>(s_cur)[t] =
+        static_cast<unsigned>(v.x) | static_cast<unsigned>(v.y) << 8 |
+        static_cast<unsigned>(v.z) << 16 | static_cast<unsigned>(v.w) << 24;
   }
+  // window word k of row r holds columns 4k..4k+3 of the window at
+  // (wy0, wx0); rows past ws - 1 and words past column ws - 1 only feed
+  // dy or dx >= side, whose results are dropped. Aligned 32-bit loads
+  // (rows start 4-aligned): the word after is read only when one of its
+  // bytes is a used column, and then it lies inside the row.
   const int wy0 = kPad + 16 * my - rng;
   const int wx0 = kPad + 16 * mx - rng;
-  for (int t = tid; t < ws * ws; t += blockDim.x) {
-    const int r = t / ws;
-    const int c = t - r * ws;
-    s_win[t] = ref[(wy0 + r) * ref_w + wx0 + c];
+  for (int t = tid; t < rows * nw; t += blockDim.x) {
+    const int r = t / nw;
+    const int k = t - r * nw;
+    unsigned word = 0;
+    if (4 * k < ws && r < ws) {
+      const uint8_t* p = ref + static_cast<size_t>(wy0 + r) * ref_w + wx0 +
+                         4 * k;
+      const int sh = static_cast<int>(reinterpret_cast<uintptr_t>(p) & 3);
+      const unsigned* a = reinterpret_cast<const unsigned*>(p - sh);
+      const unsigned lo = __ldg(a);
+      const unsigned hi = (sh != 0 && 4 * k + 4 - sh < ws) ? __ldg(a + 1)
+                                                           : 0u;
+      word = __funnelshift_r(lo, hi, 8 * sh);
+    }
+    s_win[t] = word;
   }
   __syncthreads();
+
+  // a thread owns dx group grp (4 dx) of kDy consecutive dy from dyo0
+  const int grp = tid % groups;
+  const int dyo0 = (tid / groups) * kDy;  // dy + rng of its first dy
+  unsigned q[kDy][4][4];                  // [dy][dx in group][quadrant]
+  if (dyo0 < side) {
+    const unsigned* w = s_win + dyo0 * nw + grp;
+    unsigned al[kDy][4], ar[kDy][4];
+#pragma unroll
+    for (int j = 0; j < kDy; ++j) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) al[j][k] = ar[j][k] = 0;
+    }
+    // window row t serves MB row t - j of the j-th dy
+#pragma unroll
+    for (int t = 0; t < 15 + kDy; ++t) {
+      const unsigned* wr = w + t * nw;
+      const unsigned w0 = wr[0], w1 = wr[1], w2 = wr[2], w3 = wr[3],
+                     w4 = wr[4];
+      unsigned x[4][4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        x[k][0] = k ? __funnelshift_r(w0, w1, 8 * k) : w0;
+        x[k][1] = k ? __funnelshift_r(w1, w2, 8 * k) : w1;
+        x[k][2] = k ? __funnelshift_r(w2, w3, 8 * k) : w2;
+        x[k][3] = k ? __funnelshift_r(w3, w4, 8 * k) : w3;
+      }
+#pragma unroll
+      for (int j = 0; j < kDy; ++j) {
+        const int r = t - j;
+        if (r < 0 || r > 15) continue;
+        const uint4 c = s_cur[r];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          al[j][k] = sad4(c.y, x[k][1], sad4(c.x, x[k][0], al[j][k]));
+          ar[j][k] = sad4(c.w, x[k][3], sad4(c.z, x[k][2], ar[j][k]));
+        }
+        if (r == 7 || r == 15) {
+          const int h = r == 7 ? 0 : 2;
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            q[j][k][h] = al[j][k];
+            q[j][k][h + 1] = ar[j][k];
+            al[j][k] = ar[j][k] = 0;
+          }
+        }
+      }
+    }
+  }
 
   const int pmx = pred ? pred[2 * mb] : 0;
   const int pmy = pred ? pred[2 * mb + 1] : 0;
   const int off = (bits_len - 1) / 2;
-  unsigned long long best[kUnits];
+  unsigned best[kUnits];
 #pragma unroll
-  for (int u = 0; u < kUnits; ++u) best[u] = ~0ull;
-
-  for (int i = tid; i < side * side; i += blockDim.x) {
-    const int dyo = i / side;            // dy + rng
-    const int dxo = i - dyo * side;      // dx + rng
-    int q0 = 0, q1 = 0, q2 = 0, q3 = 0;
-#pragma unroll 4
-    for (int r = 0; r < 16; ++r) {
-      const int* crow = s_cur + r * 16;
-      const int* wrow = s_win + (r + dyo) * ws + dxo;
-      int a = 0, b = 0;
+  for (int u = 0; u < kUnits; ++u) best[u] = ~0u;
+  int bx[4];
 #pragma unroll
-      for (int c = 0; c < 8; ++c) a += abs(crow[c] - wrow[c]);
+  for (int k = 0; k < 4; ++k) {
+    const int ix = min(max(4 * (4 * grp + k - rng) - 4 * pmx + off, 0),
+                       bits_len - 1);
+    bx[k] = __ldg(bits + ix);
+  }
 #pragma unroll
-      for (int c = 8; c < 16; ++c) b += abs(crow[c] - wrow[c]);
-      if (r < 8) { q0 += a; q1 += b; } else { q2 += a; q3 += b; }
-    }
-    const int dx = dxo - rng;
-    const int dy = dyo - rng;
-    int ix = 4 * dx - 4 * pmx + off;
-    int iy = 4 * dy - 4 * pmy + off;
-    ix = min(max(ix, 0), bits_len - 1);
-    iy = min(max(iy, 0), bits_len - 1);
-    const int mvc = (bits[ix] + bits[iy]) * lam;
-    const int all9[9] = {
-        q0 + q1 + q2 + q3 + mvc,
-        q0 + q1 + mvc, q2 + q3 + mvc,
-        q0 + q2 + mvc, q1 + q3 + mvc,
-        q0 + mvc, q1 + mvc, q2 + mvc, q3 + mvc};
-    const int* cost = all9;
+  for (int j = 0; j < kDy; ++j) {
+    const int dyo = dyo0 + j;           // dy + rng
+    if (dyo >= side) continue;
+    const int iy = min(max(4 * (dyo - rng) - 4 * pmy + off, 0),
+                       bits_len - 1);
+    const int by = __ldg(bits + iy);
 #pragma unroll
-    for (int u = 0; u < kUnits; ++u) {
-      const unsigned long long key =
-          (static_cast<unsigned long long>(static_cast<unsigned>(cost[u]))
-           << 32) | static_cast<unsigned>(i);
-      best[u] = key < best[u] ? key : best[u];
+    for (int k = 0; k < 4; ++k) {
+      const int dxo = 4 * grp + k;        // dx + rng
+      if (dxo >= side) continue;
+      const int mvc = (bx[k] + by) * lam;
+      const int q0 = q[j][k][0], q1 = q[j][k][1], q2 = q[j][k][2],
+                q3 = q[j][k][3];
+      const int all9[9] = {
+          q0 + q1 + q2 + q3 + mvc,
+          q0 + q1 + mvc, q2 + q3 + mvc,
+          q0 + q2 + mvc, q1 + q3 + mvc,
+          q0 + mvc, q1 + mvc, q2 + mvc, q3 + mvc};
+      const unsigned i = static_cast<unsigned>(dyo * side + dxo);
+#pragma unroll
+      for (int u = 0; u < kUnits; ++u) {
+        best[u] = min(best[u], static_cast<unsigned>(all9[u]) << kIdxBits |
+                                   i);
+      }
     }
   }
 
@@ -118,27 +219,23 @@ __global__ void fullpel_kernel(
   const int warp = tid >> 5;
 #pragma unroll
   for (int u = 0; u < kUnits; ++u) {
-    unsigned long long v = best[u];
+    unsigned v = best[u];
     for (int o = 16; o > 0; o >>= 1) {
-      const unsigned long long w = __shfl_down_sync(0xffffffffu, v, o);
-      v = w < v ? w : v;
+      v = min(v, __shfl_down_sync(0xffffffffu, v, o));
     }
     if (lane == 0) s_red[warp * kUnits + u] = v;
   }
   __syncthreads();
   if (tid < kUnits) {
-    unsigned long long v = ~0ull;
+    unsigned v = ~0u;
     const int n_warps = blockDim.x >> 5;
-    for (int w = 0; w < n_warps; ++w) {
-      const unsigned long long x = s_red[w * kUnits + tid];
-      v = x < v ? x : v;
-    }
-    const int cost = static_cast<int>(v >> 32);
-    const int idx = static_cast<int>(v & 0xffffffffu);
+    for (int w = 0; w < n_warps; ++w) v = min(v, s_red[w * kUnits + tid]);
+    const int cost = static_cast<int>(v >> kIdxBits);
+    const int idx = static_cast<int>(v & ((1u << kIdxBits) - 1));
     if constexpr (kUnits == 1) {
-      const int dyo = idx / side;
-      out_a[2 * mb] = idx - dyo * side - rng;
-      out_a[2 * mb + 1] = dyo - rng;
+      const int dyw = idx / side;
+      out_a[2 * mb] = idx - dyw * side - rng;
+      out_a[2 * mb + 1] = dyw - rng;
       out_b[mb] = cost;
     } else {
       out_a[mb * kUnits + tid] = cost;
@@ -152,17 +249,16 @@ int launch(const void* cur, int cur_w, const void* ref, int ref_w,
            const void* pred, const void* bits, int bits_len, int rng,
            int lam, int mbh, int mbw, void* out_a, void* out_b,
            void* stream) {
-  const int ws = 16 + 2 * rng;
-  const size_t smem = (256 + ws * ws) * sizeof(int)
-      + (kThreads / 32) * kUnits * sizeof(unsigned long long);
-  if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(fullpel_kernel<kUnits>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(smem));
-  }
-  fullpel_kernel<kUnits><<<mbh * mbw, kThreads, smem,
+  const int side = 2 * rng + 1;
+  const int groups = (side + 3) / 4;
+  const int dy_sets = (side + kDy - 1) / kDy;
+  const int rows = kDy * dy_sets + 15;
+  const int threads = (groups * dy_sets + 31) / 32 * 32;
+  const size_t smem = 16 * sizeof(uint4)
+      + (rows * (groups + 4) + (threads / 32) * kUnits) * sizeof(unsigned);
+  fullpel_kernel<kUnits><<<mbh * mbw, threads, smem,
                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(cur), cur_w, static_cast<const int*>(ref),
+      static_cast<const int*>(cur), cur_w, static_cast<const uint8_t*>(ref),
       ref_w, static_cast<const int*>(pred),
       static_cast<const int*>(bits), bits_len, rng, lam, mbw,
       static_cast<int*>(out_a), static_cast<int*>(out_b));

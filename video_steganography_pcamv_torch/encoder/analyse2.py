@@ -68,8 +68,9 @@ def analyse_p_frame(y, ref_luma, prev_mv, rng: int, mbh: int, mbw: int,
     block table -> subpel argmin. Returns (mv [mbh,mbw,2] qpel, r_idx
     [N], blocks [169,N,16,16] int16, wht [169,N,4,4,4,4] int16); the
     tables stay on the device for the stego pass."""
-    mv_fp, _cost = fullpel_search16(y, ref_luma[0], rng, mbh, mbw, lam)
-    windows = QT.gather_windows(ref_luma.to(torch.uint8), mv_fp, mbh, mbw)
+    ref8 = ref_luma.to(torch.uint8)          # B6 reads plane 0, B7 all 4
+    mv_fp, _cost = fullpel_search16(y, ref8[0], rng, mbh, mbw, lam)
+    windows = QT.gather_windows(ref8, mv_fp, mbh, mbw)
     blocks = QT.block_table(windows)
     wht = QT.wht_table(blocks)
     mv_q, r_idx = subpel_from_table(y, wht, mv_fp, prev_mv, mbh, mbw, lam)

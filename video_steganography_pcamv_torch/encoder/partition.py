@@ -106,7 +106,9 @@ def gather_windows8_plain(planes, mvfp8, mbh: int, mbw: int):
 def gather_windows8(planes, mvfp8, mbh: int, mbw: int):
     """Kernel B9, replacing the TPU kernel `gather_windows8_banked`
     (video_steganography_pcamv_tpu/ops/pallas_kernels.py:259): every 8x8
-    block's 16x16 window of the four hpel planes. Bound by device memory.
+    block's 16x16 window of the four hpel planes, a warp a block: aligned
+    16-byte loads, funnel shifts, coalesced 16-byte stores
+    (`csrc/windows8.cu`). Bound by device memory.
 
     planes [4, Hp, Wp] uint8 (PAD-padded hpel planes); mvfp8 [2mbh, 2mbw,
     2] int32 full-pel. |mv| <= PAD - MARGIN keeps every window inside the
@@ -115,11 +117,16 @@ def gather_windows8(planes, mvfp8, mbh: int, mbw: int):
     traps on a window outside the planes. Returns [N8, 4, 16, 16] uint8.
     CPU tensors run `gather_windows8_plain`; CUDA tensors launch the
     kernel (counted in `gather_windows8.launches`)."""
+    if planes.dtype != torch.uint8:
+        raise TypeError("gather_windows8: planes %s, expected uint8"
+                        % planes.dtype)
     if planes.device.type == "cpu":
         return gather_windows8_plain(planes, mvfp8, mbh, mbw)
     hp, wp = 16 * mbh + 2 * mc.PAD, 16 * mbw + 2 * mc.PAD
     kernels.check_tensor("gather_windows8", "planes", planes, torch.uint8,
                          (4, hp, wp))
+    if planes.data_ptr() % 16:
+        raise ValueError("gather_windows8: planes are not 16-byte aligned")
     kernels.check_tensor("gather_windows8", "mvfp8", mvfp8, _I32,
                          (2 * mbh, 2 * mbw, 2))
     out = torch.empty((4 * mbh * mbw, 4, 16, 16), dtype=torch.uint8,
@@ -219,11 +226,11 @@ def p_stage1_stego(y, u, v, ref_luma, ref_u, ref_v, prev_mv, qp: int,
       [part n | mv8 8n | cbp_l n | cbp_c n | skip n | alt 8n | rho 4n
        | extra]."""
     pred = torch.zeros_like(prev_mv) if tail_kernel else prev_mv >> 2
-    st = fullpel_parts(y, ref_luma[0], pred.contiguous(), rng, mbh, mbw,
-                       lam)
+    ref8 = ref_luma.to(torch.uint8)          # B1 reads plane 0, B9 all 4
+    st = fullpel_parts(y, ref8[0], pred.contiguous(), rng, mbh, mbw, lam)
     part, mvfp8 = decide_partition(st, mbh, mbw, lam)
     mvfp8 = mvfp8.contiguous()
-    windows = gather_windows8(ref_luma.to(torch.uint8), mvfp8, mbh, mbw)
+    windows = gather_windows8(ref8, mvfp8, mbh, mbw)
     mv8, _r_idx8, SK, SP, sc8 = PR.analyse_tail(
         y, windows, part, mvfp8, prev_mv.contiguous(), lam, qp, mbh, mbw)
     res = INTER.encode_p_frame_device8(

@@ -69,7 +69,8 @@ def _lowres_costs_b1(search, cur_lr, ref_lr, bh: int, bw: int, rng: int):
     rows = torch.arange(h + ph, device=cur_lr.device).clamp(max=h - 1)
     cols = torch.arange(w + pw, device=cur_lr.device).clamp(max=w - 1)
     cur_p = cur_lr.to(_I32)[rows][:, cols].contiguous()
-    ref_p = mc.pad_plane(ref_lr.to(_I32)[rows][:, cols]).contiguous()
+    ref_p = mc.pad_plane(ref_lr.to(torch.uint8)[rows][:, cols]) \
+        .contiguous()
     mh, mw = (h + ph) // 16, (w + pw) // 16
     zero = torch.zeros((mh, mw, 2), dtype=_I32, device=cur_lr.device)
     c8 = search(cur_p, ref_p, zero, rng, mh, mw, 1)["c8"]

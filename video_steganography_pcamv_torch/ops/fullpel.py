@@ -9,9 +9,11 @@ the kernel's oracle.
 
 Both take the full-pel MV predictor as an input, so the one kernel
 serves the reference's CPU branch (predictor `prev_mv >> 2`) and its
-TPU branch (zero predictor). On the H100 the kernel is bound by integer
-ALU work and shared-memory reads (~2.3 G abs-differences a 1080p frame
-at rng 16); device-memory traffic is ~10 KB per MB.
+TPU branch (zero predictor). The kernel takes the reference plane as
+uint8 and packs the int32 current frame to bytes while loading it; on
+the H100 it is bound by SIMD byte-SAD work (~2.3 G absolute differences
+a 1080p frame at rng 16, four to an instruction); device-memory traffic
+is ~3.4 KB per MB.
 
 Output (both paths): the reference's `st` dict — c16 [mbh,mbw],
 mv16 [mbh,mbw,2], c16x8/mv16x8 [mbh,mbw,2(,2)], c8x16/mv8x16,
@@ -25,6 +27,8 @@ nine); its plain version is `encoder/me.py:fullpel_search`.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -46,6 +50,13 @@ _UNIT_KEYS = (("c16", "mv16", 0, 1), ("c16x8", "mv16x8", 1, 2),
 def bits_table(rng: int) -> np.ndarray:
     """The reference's se(v) bit-size table for a +-rng scan."""
     return mv_bits_table(4 * (rng + 64))
+
+
+@functools.lru_cache(maxsize=None)
+def max_lam(rng: int) -> int:
+    """The largest lam whose costs (a 16x16 SAD of at most 65280 plus
+    lam times two table entries) stay below 2^20."""
+    return ((1 << 20) - 1 - 256 * 255) // (2 * int(bits_table(rng).max()))
 
 
 def fullpel_search_parts(cur_y, ref_fp, pred_mv_fp, rng: int, mbh: int,
@@ -117,29 +128,50 @@ def units_to_st(cost9: torch.Tensor, idx9: torch.Tensor, rng: int) -> dict:
     return st
 
 
+def _check_inputs(fn: str, cur_y, ref_fp, rng: int, mbh: int, mbw: int,
+                  lam: int):
+    """The kernels' input contract, held on every device: cur_y int32
+    (8-bit samples), ref_fp uint8, 0 <= rng <= PAD, and a lam that keeps
+    every cost below 2^20 (the kernel's 32-bit (cost, scan index) key);
+    on CUDA also the shapes, contiguity and 16-byte aligned data."""
+    if cur_y.dtype != _I32 or ref_fp.dtype != torch.uint8:
+        raise TypeError("%s: cur_y %s / ref_fp %s, expected int32 / uint8"
+                        % (fn, cur_y.dtype, ref_fp.dtype))
+    if not 0 <= rng <= mc.PAD:
+        raise ValueError("%s: rng %d outside [0, %d]" % (fn, rng, mc.PAD))
+    if not 0 <= lam <= max_lam(rng):
+        raise ValueError("%s: lam %d outside [0, %d]" % (fn, lam,
+                                                         max_lam(rng)))
+    if cur_y.device.type == "cpu":
+        return
+    h, w = 16 * mbh, 16 * mbw
+    kernels.check_tensor(fn, "cur_y", cur_y, _I32, (h, w))
+    kernels.check_tensor(fn, "ref_fp", ref_fp, torch.uint8,
+                         (h + 2 * mc.PAD, w + 2 * mc.PAD))
+    for name, t in (("cur_y", cur_y), ("ref_fp", ref_fp)):
+        if t.data_ptr() % 16:
+            raise ValueError("%s: %s is not 16-byte aligned" % (fn, name))
+
+
 def fullpel_parts(cur_y, ref_fp, pred_mv_fp, rng: int, mbh: int, mbw: int,
                   lam: int = 1) -> dict:
     """Kernel B1, replacing the TPU kernel `fullpel_parts_pallas`
     (video_steganography_pcamv_tpu/ops/pallas_kernels.py:435). On the
-    H100 it is bound by integer ALU work and shared-memory reads.
+    H100 it is bound by SIMD byte-SAD work.
 
-    cur_y [16mbh,16mbw] int32; ref_fp the PAD-padded full-pel plane
-    int32; pred_mv_fp [mbh,mbw,2] int32 full-pel predictor. CPU tensors
+    cur_y [16mbh,16mbw] int32 (8-bit samples); ref_fp the PAD-padded
+    full-pel plane, uint8; pred_mv_fp [mbh,mbw,2] int32 full-pel
+    predictor; 0 <= rng <= PAD; 0 <= lam <= max_lam(rng). CPU tensors
     run the plain version; CUDA tensors launch the kernel (counted in
     `fullpel_parts.launches`) into outputs allocated here; anything else
     raises."""
+    _check_inputs("fullpel_parts", cur_y, ref_fp, rng, mbh, mbw, lam)
     if cur_y.device.type == "cpu":
         return fullpel_search_parts(cur_y, ref_fp, pred_mv_fp, rng, mbh,
                                     mbw, lam)
-    h, w = 16 * mbh, 16 * mbw
-    if not 0 <= rng <= mc.PAD:
-        raise ValueError("fullpel_parts: rng %d outside [0, %d]"
-                         % (rng, mc.PAD))
-    for name, t, shape in (
-            ("cur_y", cur_y, (h, w)),
-            ("ref_fp", ref_fp, (h + 2 * mc.PAD, w + 2 * mc.PAD)),
-            ("pred_mv_fp", pred_mv_fp, (mbh, mbw, 2))):
-        kernels.check_tensor("fullpel_parts", name, t, _I32, shape)
+    w = 16 * mbw
+    kernels.check_tensor("fullpel_parts", "pred_mv_fp", pred_mv_fp, _I32,
+                         (mbh, mbw, 2))
     VP, CI = kernels.VP, kernels.CI
     fn = kernels.entry("pcamv_fullpel_parts",
                        [VP, CI, VP, CI, VP, VP] + [CI] * 5 + [VP] * 3)
@@ -164,23 +196,19 @@ def fullpel_search16(cur_y, ref_fp, rng: int, mbh: int, mbw: int,
     (video_steganography_pcamv_tpu/ops/pallas_kernels.py:549): the
     exhaustive +-rng 16x16 SAD search, cost = SAD + lam * (bits(se(4dx))
     + bits(se(4dy))) against a zero predictor, first strict-< minimum in
-    dy-outer, dx-inner order. On the H100 it is bound by integer ALU
-    work and shared-memory reads, like B1.
+    dy-outer, dx-inner order. On the H100 it is bound by SIMD byte-SAD
+    work, like B1.
 
-    cur_y [16mbh,16mbw] int32; ref_fp the PAD-padded full-pel plane
-    int32. Returns (mv [mbh,mbw,2] int32 full-pel (x, y), cost [mbh,mbw]
+    cur_y [16mbh,16mbw] int32 (8-bit samples); ref_fp the PAD-padded
+    full-pel plane, uint8; 0 <= rng <= PAD; 0 <= lam <= max_lam(rng).
+    Returns (mv [mbh,mbw,2] int32 full-pel (x, y), cost [mbh,mbw]
     int32). CPU tensors run the plain `fullpel_search`; CUDA tensors
     launch the kernel (counted in `fullpel_search16.launches`)."""
+    _check_inputs("fullpel_search16", cur_y, ref_fp, rng, mbh, mbw, lam)
     if cur_y.device.type == "cpu":
         zero = torch.zeros((mbh, mbw, 2), dtype=_I32)
         return fullpel_search(cur_y, ref_fp, zero, rng, mbh, mbw, lam)
-    h, w = 16 * mbh, 16 * mbw
-    if not 0 <= rng <= mc.PAD:
-        raise ValueError("fullpel_search16: rng %d outside [0, %d]"
-                         % (rng, mc.PAD))
-    kernels.check_tensor("fullpel_search16", "cur_y", cur_y, _I32, (h, w))
-    kernels.check_tensor("fullpel_search16", "ref_fp", ref_fp, _I32,
-                         (h + 2 * mc.PAD, w + 2 * mc.PAD))
+    w = 16 * mbw
     VP, CI = kernels.VP, kernels.CI
     fn = kernels.entry("pcamv_fullpel_search16",
                        [VP, CI, VP, CI, VP] + [CI] * 5 + [VP] * 3)
