@@ -30,22 +30,30 @@ Phases (any failure raises and the script exits non-zero):
   6. the main path at 1920x1088, bench.py's Params (tail_kernel=True, the
      reference's accelerator branch), ten frames plus flush: payload
      recovered, B1, B9, B3 and B4 launched once per P frame, B5 once
-     per frame, B2's entry never, fps printed;
+     per frame, the fused luma encode once or twice per P frame (pass 1,
+     and pass 2 unless no MB changed), B2's entry and B8a/B8b never,
+     fps printed;
   7. the tail_kernel=False path (B1 against the predictor prev_mv >> 2)
      at 1920x1088, IDR + 3 P frames plus flush: payload recovered, the
      same launch counts;
-  8. per-stage times of a 1080p P frame on the tail_kernel=True path;
+  8. per-stage times of a 1080p P frame on the tail_kernel=True path,
+     the pass-1 encode and a full pass 2 in rows of their own;
   9. kernels B6 (16x16 full-pel search, rng 7, 20 and 16), B7 (MB
-     window fetch) and
-     B8a/B8b (4x4 DCT+quant, dequant+IDCT) against their plain versions
-     at 1080p shapes on a real frame pair, B8 at qp 26 and 20 and on the
-     13-version probe batch: array-equal, timed, beside their bounds;
+     window fetch), the fused luma encode (csrc/luma_p.cu: DCT+quant,
+     decimation, dequant+IDCT+recon, cbp) and B8a/B8b (4x4 DCT+quant,
+     dequant+IDCT, standalone check entries) against their plain
+     versions at 1080p shapes on a real frame pair, the luma encodes at
+     qp 26 and 20 and on the 13-version probe batch (the fused one also
+     with force-zero and on an MB subset, and timed beside the earlier
+     B8a -> decimation -> B8b chain on the same inputs): array-equal,
+     timed, beside their bounds;
  10. the 16x16-only path (partitions=False, deblock_device=False) at
      112x80, six frames on cuda and on cpu: byte-equal streams that the
      port's decoder decodes and the port's extractor reads;
  11. the 16x16-only path at 1920x1088, IDR + 3 P frames: payload
-     recovered by the extractor, B6, B7, B8a, B8b and B5 launched, fps
-     printed;
+     recovered by the extractor, B6, B7 and B5 launched, the fused luma
+     encode three times per P frame (pass 1, the 13-version probe, pass
+     2), B8a/B8b never, fps printed;
  12. (only with --stages16) per-stage times of a 1080p P frame on the
      16x16-only path;
  13. kernel B9 (per-8x8 window fetch) against its plain version at 1080p
@@ -59,9 +67,10 @@ Phases (any failure raises and the script exits non-zero):
      decoder and extractor;
  15. config 3 at 1280x720 (45x80 MBs), IDR + 4 P frames plus flush:
      payload recovered, B1, B9, B3 and B4 launched every P frame, B5
-     every frame, B2's entry never, I8x8 and trans8 MB counts, fps
-     printed;
- 16. (only with --stages8) per-stage times of a 720p config-3 P frame.
+     every frame, the fused luma encode once or twice per P frame, B2's
+     entry and B8a/B8b never, I8x8 and trans8 MB counts, fps printed;
+ 16. (only with --stages8) per-stage times of a 720p config-3 P frame,
+     the pass-1 encode in a row of its own.
 Phases 9 and 13 run right after phase 4, so that a new kernel that fails
 stops the run early. Each phase logs its wall time. The line before the
 last two holds the per-kernel JSON record, then the card line; the last
@@ -70,10 +79,12 @@ line is {"ok": true, "device": {...}}.
     python3 chip_smoke.py --ab PARENT_ROOT
 
 instead compares two checkouts on one card: kernels B1, B9 and B10
-(phases 2 and 13), the main path's 1080p encode (phase 6 without the
-payload check) and its stage times (phase 8), run in a fresh process
-from PARENT_ROOT, this checkout, this checkout and PARENT_ROOT again,
-each with that checkout's chip_smoke.py and package.
+(phases 2 and 13), each checkout's 1080p luma encode (the main path's
+and the 16x16 path's probe batch), the main path's 1080p encode (phase
+6 without the payload check) and its stage times (phase 8), run in a
+fresh process from PARENT_ROOT, this checkout, this checkout and
+PARENT_ROOT again, each with that checkout's chip_smoke.py and
+package.
 """
 
 import argparse
@@ -587,14 +598,15 @@ def _check_equal(name, got, want):
 
 
 def phase_b678(dev, int_rate):
-    """B6, B7, B8a and B8b at 1080p on a real frame pair, fed as the
-    16x16-only path feeds them."""
+    """B6, B7, the fused luma encode and B8a/B8b at 1080p on a real frame
+    pair, fed as the 16x16-only path feeds them."""
     from video_steganography_pcamv_torch.encoder import analyse2 as A2
     from video_steganography_pcamv_torch.encoder import inter as INTER
     from video_steganography_pcamv_torch.encoder import qpel_table as QT
     from video_steganography_pcamv_torch.encoder.me import (fullpel_search,
                                                             lambda_tab)
     from video_steganography_pcamv_torch.ops import fullpel as FP
+    from video_steganography_pcamv_torch.ops import lumap as LP
     from video_steganography_pcamv_torch.ops import mc
     from video_steganography_pcamv_torch.ops import tq4 as TQ
     from video_steganography_pcamv_torch.utils.yuv import synthetic_sequence
@@ -656,18 +668,22 @@ def phase_b678(dev, int_rate):
                        "encoder/qpel_table.py:64", err, ms, plain_ms, bnd,
                        lib_ms))
 
-    # B8a/B8b on the pass-1 luma encode's inputs (the MBs at their
-    # subpel MVs), at qp 26 and qp 20 (the qb < 0 dequant branch), with
-    # zero_dc / use_dc, and on the probe's 13-version batch
+    # the luma encodes on the pass-1 inputs (the MBs at their subpel
+    # MVs) at qp 26 and 20 (the qb < 0 dequant branch), and on the
+    # probe's 13-version batch
     mv_q, r_idx, blocks, wht = A2.analyse_p_frame(
         cur, ref["luma"], zero, rng, MBH, MBW, lam)
     ar = torch.arange(n, device=dev, dtype=torch.int32)
     pred = mc.mc_luma(ref["luma"], torch.div(ar, MBW, rounding_mode="floor")
                       * 16, (ar % MBW) * 16, mv_q.reshape(n, 2))
-    cur16 = INTER._mb_to_coef16(INTER.mb_tiles(cur, 16))
-    pred16 = INTER._mb_to_coef16(pred)
     blk = torch.cat([QT.select_rows(blocks, r_idx + A2._didx(*cc))
                      for cc in A2._CENTERS]).to(torch.int32)
+    recs.append(phase_luma_p(dev, int_rate, cur, pred, blk))
+
+    # B8a/B8b, standalone check entries, on the same inputs with
+    # zero_dc / use_dc
+    cur16 = INTER._mb_to_coef16(INTER.mb_tiles(cur, 16))
+    pred16 = INTER._mb_to_coef16(pred)
     cur16_13 = cur16.repeat(1, len(A2._CENTERS))
     pred16_13 = INTER._mb_to_coef16(blk)
     g = np.random.default_rng(5)
@@ -677,9 +693,9 @@ def phase_b678(dev, int_rate):
                              ("pass", cur16, pred16, 20),
                              ("probe13", cur16_13, pred16_13, 26)):
         L = c16.shape[1]
-        mf = torch.as_tensor(INTER._MF16[q], device=dev)
-        bias = torch.as_tensor(INTER._BIAS16[q], device=dev)
-        dmf = torch.as_tensor(INTER._DMF16[q % 6], device=dev)
+        mf = torch.as_tensor(LP.MF16[q], device=dev)
+        bias = torch.as_tensor(LP.BIAS16[q], device=dev)
+        dmf = torch.as_tensor(LP.DMF16[q % 6], device=dev)
         dc = torch.as_tensor(g.integers(-3000, 3000, (1, L)).astype(np.int32),
                              device=dev)
         for zdc in (False, True):
@@ -730,6 +746,80 @@ def phase_b678(dev, int_rate):
            bound(L13 * 16 * 4 * 3, L13 * 176, int_rate)[0],
            bound(L13 * 16 * 4 * 3, L13 * 160, int_rate)[1], tb[0], tb[2]))
     return recs
+
+
+# integer operations of the fused luma encode per 4x4 block: 16
+# residual subtractions, 2 x 4 x 8 forward butterfly ops, 16 x 5 quant
+# ops, 16 x 4 decimate-score ops, 16 x 2 dequant ops, 2 x 4 x 10 inverse
+# butterfly ops and 16 x 4 recon ops
+LUMA_P_OPS_PER_BLOCK = 16 + 64 + 80 + 64 + 32 + 80 + 64
+
+
+def phase_luma_p(dev, int_rate, cur, pred, blk):
+    """The fused luma encode against its plain version at 1080p: the
+    pass-1 inputs at qp 26 and 20, with a force-zero mask, on an MB
+    subset, and on the 13-version batch `blk` without the levels; each
+    timed beside the earlier chain (B8a -> decimation -> B8b in the
+    [16, L] layout, `INTER.luma_p_encode_fast`) on the same inputs, the
+    probe's with its `repeat` of the current MBs."""
+    from video_steganography_pcamv_torch.encoder import inter as INTER
+    from video_steganography_pcamv_torch.ops import lumap as LP
+    n = pred.shape[0]
+    g = np.random.default_rng(9)
+    fz = torch.as_tensor(g.random(n) < 0.3, device=dev)
+    idx = torch.as_tensor(np.sort(g.choice(n, n // 8, replace=False))
+                          .astype(np.int32), device=dev)
+    p_sub = pred[idx.long()].contiguous()
+    tiles = INTER.mb_tiles(cur, 16)
+    cases = [("pass qp 26", pred, 26, {}), ("pass qp 20", pred, 20, {}),
+             ("pass qp 26 force-zero", pred, 26, {"fz": fz}),
+             ("subset qp 26", p_sub, 26, {"idx": idx}),
+             ("probe13 qp 26", blk, 26, {"lev": False})]
+    err = 0
+    times = {}
+    for tag, p, q, kw in cases:
+        got = LP.luma_p_encode(cur, p, q, **kw)
+        want = LP.luma_p_encode_plain(cur, p, q, **kw)
+        if kw.get("lev", True) != (got[0] is not None):
+            raise AssertionError("luma_p_encode %s: levels %s"
+                                 % (tag, "missing" if got[0] is None
+                                    else "not omitted"))
+        err = max(err, _check_equal("luma_p_encode " + tag,
+                                    [t for t in got if t is not None],
+                                    [t for t in want if t is not None]))
+        if tag.startswith("pass") and "fz" not in kw:
+            fast = INTER.luma_p_encode_fast(tiles, p, q)
+            _check_equal("luma_p_encode %s vs the B8a/B8b chain" % tag,
+                         got[:2], fast)
+        if tag in ("pass qp 26", "pass qp 20", "probe13 qp 26"):
+            rep = p.shape[0] // n
+
+            def chain(p=p, q=q, rep=rep):
+                return INTER.luma_p_encode_fast(
+                    tiles if rep == 1 else tiles.repeat(rep, 1, 1), p, q)
+            times[tag] = (
+                cuda_ms(lambda p=p, q=q, kw=kw: LP.luma_p_encode(cur, p, q,
+                                                                 **kw), 20, 3),
+                cuda_ms(lambda p=p, q=q, kw=kw: LP.luma_p_encode_plain(
+                    cur, p, q, **kw), 5),
+                cuda_ms(chain, 20, 3))
+        log("luma_p_encode %s (%d MBs): kernel == plain" % (tag, p.shape[0]))
+
+    def bnd(n_out, with_lev):
+        # cur (the plane's MBs, each read once) and pred read, rec and
+        # cbp (and the levels) written; the [16] tables
+        nbytes = (n * 1024 + n_out * (1024 + 1024 + 4)
+                  + (n_out * 1024 if with_lev else 0) + 3 * 64)
+        return bound(nbytes, n_out * 16 * LUMA_P_OPS_PER_BLOCK, int_rate)
+    for tag in times:
+        nb = bnd(blk.shape[0], False) if tag.startswith("probe") \
+            else bnd(n, True)
+        log("luma_p_encode %s: fused %.4f ms, plain %.3f ms, earlier "
+            "B8a/decimation/B8b chain %.4f ms, bound %.4f ms (%s) (median)"
+            % (tag, *times[tag], *nb))
+    t = times["pass qp 26"]
+    return record("luma_p_encode", "luma_p.cu", "ops/pallas_kernels.py:175",
+                  err, t[0], t[1], bnd(n, True))
 
 
 def _params(w, h, tail_kernel, me_range=16, partitions=True,
@@ -836,6 +926,7 @@ def _counters():
     from video_steganography_pcamv_torch.encoder import qpel_table as QT
     from video_steganography_pcamv_torch.ops.deblock import deblock_frame
     from video_steganography_pcamv_torch.ops import fullpel as FP
+    from video_steganography_pcamv_torch.ops import lumap as LP
     from video_steganography_pcamv_torch.ops import probe as PR
     from video_steganography_pcamv_torch.ops import tq4 as TQ
     return {"fullpel_parts": FP.fullpel_parts, "qpel_tables": PR.qpel_tables,
@@ -844,6 +935,7 @@ def _counters():
             "fullpel_search16": FP.fullpel_search16,
             "gather_windows": QT.gather_windows,
             "dct_quant": TQ.dct_quant, "deq_idct": TQ.deq_idct,
+            "luma_p_encode": LP.luma_p_encode,
             "gather_windows8": PT.gather_windows8,
             "lowres_costs_kernel": ST.lowres_costs_kernel}
 
@@ -874,23 +966,29 @@ def phase_main(dev, card, tail_kernel: bool, n_frames: int,
     n_p = enc.stats.p_frames
     if n_p < 1:
         raise AssertionError("no P frame in the main path")
+    # B2 is fused into B3 and B4, B8a/B8b into the fused luma encode:
+    # their standalone entries never run
+    exact = {"qpel_tables": 0, "dct_quant": 0, "deq_idct": 0,
+             "deblock_frame": len(frames)}
     if partitions:
-        # B2 is fused into B3 and B4: its standalone entry never runs
+        # the fused luma encode: pass 1, and pass 2 unless no MB changed
         want = {"fullpel_parts": n_p, "gather_windows8": n_p,
-                "subpel": n_p, "probe_maps": n_p,
-                "deblock_frame": len(frames)}
-        exact = {"qpel_tables": 0, "subpel": n_p, "probe_maps": n_p,
-                 "deblock_frame": len(frames)}
+                "subpel": n_p, "probe_maps": n_p, "luma_p_encode": n_p}
+        most = {"luma_p_encode": 2 * n_p}
+        exact.update(subpel=n_p, probe_maps=n_p)
     else:
         # per P frame: pass 1, the batched 13-version probe and pass 2
-        want = {"fullpel_search16": n_p, "gather_windows": n_p,
-                "dct_quant": 3 * n_p, "deq_idct": 3 * n_p,
-                "deblock_frame": len(frames)}
-        exact = {"deblock_frame": len(frames)}
+        want = {"fullpel_search16": n_p, "gather_windows": n_p}
+        most = {}
+        exact["luma_p_encode"] = 3 * n_p
     for k, lo in want.items():
         if launches[k] < lo:
             raise AssertionError("%s launched %d times, want >= %d"
                                  % (k, launches[k], lo))
+    for k, hi in most.items():
+        if launches[k] > hi:
+            raise AssertionError("%s launched %d times, want <= %d"
+                                 % (k, launches[k], hi))
     for k, n in exact.items():
         if launches[k] != n:
             raise AssertionError("%s launched %d times, want %d"
@@ -913,9 +1011,14 @@ def phase_main(dev, card, tail_kernel: bool, n_frames: int,
         log("720p config 3: %d I8x8 MBs in the IDR, %d trans8 P MBs; "
             "launches per P frame: %s; B5 per frame %.2f"
             % (enc.stats.i8x8_mbs, enc.stats.trans8_mbs, json.dumps(
-                {k: launches[k] / n_p for k in want if k != "deblock_frame"}),
+                {k: launches[k] / n_p for k in want}),
                launches["deblock_frame"] / len(frames)))
     return launches
+
+
+# the P encodes that serve both passes: pass 1 passes no force_zero,
+# pass 2 always does, so each pass gets a stage row of its own
+_BY_PASS = ("encode_p_frame_device8", "encode_p_frame_device")
 
 
 def _stage_targets(partitions: bool):
@@ -938,7 +1041,6 @@ def _stage_targets(partitions: bool):
                 (PT, "probe_combine"), (EMB.StegoEngine, "apply_costs"),
                 (CORE, "reencode_p_incremental"), (CORE, "deblock_frame"),
                 (native, "write_slice")]
-    # encode_p_frame_device sums pass 1 and pass 2
     return [(ST.Lookahead, "decide"), (A2, "fullpel_search16"),
             (QT, "gather_windows"), (QT, "block_table"), (QT, "wht_table"),
             (A2, "subpel_from_table"), (INTER, "encode_p_frame_device"),
@@ -953,22 +1055,27 @@ def phase_stages(dev, card, n_frames: int = 7, partitions: bool = True,
     path (or the 16x16-only path, or a 720p P frame of config 3): every
     stage is wrapped with a device sync on each side (the syncs remove
     the pipelining, so the stages sum to more than a P frame of phase
-    6). Averages over the P frames after the first."""
+    6). The median and the mean over the P frames after the first, per
+    frame (a stage that did not run in a frame counts 0 there)."""
     from video_steganography_pcamv_torch import Encoder
     from video_steganography_pcamv_torch.utils.yuv import synthetic_sequence
     targets = _stage_targets(partitions)
-    totals = {name: 0.0 for _, name in targets}
+    frame = {}
     state = {"on": False}
 
     def timed(name, fn):
         def wrap(*a, **kw):
             if not state["on"]:
                 return fn(*a, **kw)
+            key = name
+            if name in _BY_PASS:
+                key += " pass %d" % (1 if kw.get("force_zero") is None
+                                     else 2)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = fn(*a, **kw)
             torch.cuda.synchronize()
-            totals[name] += time.perf_counter() - t0
+            frame[key] = frame.get(key, 0.0) + time.perf_counter() - t0
             return out
         # a kernel wrapper counts its launches on the name it is called
         # by, which is now this one
@@ -978,6 +1085,7 @@ def phase_stages(dev, card, n_frames: int = 7, partitions: bool = True,
     saved = [(obj, name, getattr(obj, name)) for obj, name in targets]
     w, h = (1280, 720) if config3 else (1920, 1088)
     frames = synthetic_sequence(w, h, n_frames, seed=7)
+    per_frame, walls = [], []
     try:
         for obj, name, fn in saved:
             setattr(obj, name, timed(name, fn))
@@ -987,36 +1095,50 @@ def phase_stages(dev, card, n_frames: int = 7, partitions: bool = True,
         enc.encode_frame(frames[1])
         torch.cuda.synchronize()
         state["on"] = True
-        t0 = time.perf_counter()
         for f in frames[2:]:
+            frame.clear()
+            t0 = time.perf_counter()
             enc.encode_frame(f)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            per_frame.append(dict(frame))
         enc.flush()
     finally:
         for obj, name, fn in saved:
             setattr(obj, name, fn)
-    n = len(frames) - 2
-    log("%s stage times, ms per P frame over %d P frames, a device "
-        "sync around each stage  [%s]"
+    n = len(per_frame)
+    rows = {k: [1e3 * d.get(k, 0.0) for d in per_frame]
+            for k in sorted({k for d in per_frame for k in d})}
+    rows["(rest of the frame)"] = [1e3 * (wl - sum(d.values()))
+                                   for wl, d in zip(walls, per_frame)]
+    rows["(frame, with the syncs)"] = [1e3 * wl for wl in walls]
+    log("%s stage times, ms per P frame over %d P frames (median, mean), "
+        "a device sync around each stage  [%s]"
         % ("720p config 3" if config3 else "1080p tail_kernel=True"
            if partitions else "1080p partitions=False", n, card))
-    for name, s in sorted(totals.items(), key=lambda kv: -kv[1]):
-        log("  %-24s %9.3f" % (name, 1e3 * s / n))
-    log("  %-24s %9.3f" % ("(rest of the frame)",
-                           1e3 * (wall - sum(totals.values())) / n))
-    log("  %-24s %9.3f" % ("(frame, with the syncs)", 1e3 * wall / n))
+    for name, v in sorted(rows.items(), key=lambda kv: (
+            kv[0].startswith("("), -float(np.mean(kv[1])))):
+        log("  %-30s %9.3f %9.3f" % (name, float(np.median(v)),
+                                      float(np.mean(v))))
 
 
 # run from a checkout's root by `--ab`: the medians of kernels B1 and B9
-# at 1080p, the main path's 1080p encode and its stage times, with that
-# checkout's chip_smoke.py and package (the names used here exist in
-# every checkout since B9's phase)
+# at 1080p, of the checkout's luma encode at 1080p (the main path's
+# pass-1 encode on predictions at random per-8x8 MVs, and the 16x16
+# path's 13-version probe batch: the fused kernel where the checkout has
+# it, else the eager luma_p_encode + cbp_luma_of and the B8a ->
+# decimation -> B8b chain with its repeat of the current MBs), the main
+# path's 1080p encode and its stage times, with that checkout's
+# chip_smoke.py and package (the names used here exist in every
+# checkout since B9's phase)
 _AB_CHILD = r"""
 import time
+import numpy as np
 import torch
 import chip_smoke as C
 from video_steganography_pcamv_torch import Encoder
+from video_steganography_pcamv_torch.encoder import inter as INTER
+from video_steganography_pcamv_torch.ops import mc
 from video_steganography_pcamv_torch.utils.yuv import synthetic_sequence
 dev = torch.device("cuda", 0)
 card = C.card_query("name,power.limit")
@@ -1025,6 +1147,33 @@ rate = C.int32_ops_per_s()
 recs = [C.phase_b1(dev, rate)] + C.phase_b9b10(dev, rate)
 C.log("kernel medians: " + ", ".join("%s %.4f ms" % (r["name"], r["ms"])
                                      for r in recs) + "  [%s]" % card)
+fr = synthetic_sequence(1920, 1088, 2, seed=3)
+y = torch.as_tensor(fr[1].y.astype(np.int32), device=dev)
+c = torch.as_tensor(fr[0].u.astype(np.int32), device=dev)
+ref = mc.build_ref(torch.as_tensor(fr[0].y.astype(np.int32), device=dev),
+                   c, c)
+g = np.random.RandomState(5)
+mv8 = torch.as_tensor(g.randint(-40, 41, (136, 240, 2)).astype(np.int32),
+                      device=dev)
+pred = INTER.assemble_pred_luma(ref["luma"], mv8, 68, 120)
+p13 = torch.clamp(pred.repeat(13, 1, 1) + torch.as_tensor(
+    g.randint(-4, 5, (13 * 8160, 16, 16)).astype(np.int32), device=dev),
+    0, 255)
+tiles = INTER.mb_tiles(y, 16)
+try:
+    from video_steganography_pcamv_torch.ops import lumap as LP
+    cases = (("fused luma_p_encode", lambda: LP.luma_p_encode(y, pred, 26)),
+             ("fused luma_p_encode, probe batch",
+              lambda: LP.luma_p_encode(y, p13, 26, lev=False)))
+except ImportError:
+    cases = (("eager luma_p_encode + cbp_luma_of", lambda: INTER.cbp_luma_of(
+                 INTER.luma_p_encode(tiles, pred, 26)[0])),
+             ("B8a/decimation/B8b chain, probe batch",
+              lambda: INTER.luma_p_encode_fast(tiles.repeat(13, 1, 1), p13,
+                                               26)))
+C.log("luma encode medians at 1080p: " + ", ".join(
+    "%s %.4f ms" % (k, C.cuda_ms(f, 20, 3)) for k, f in cases)
+    + "  [%s]" % card)
 frames = synthetic_sequence(1920, 1088, 10, seed=7)
 enc = Encoder(C._params(1920, 1088, True), device=dev)
 t0 = time.time()
@@ -1117,7 +1266,9 @@ def main() -> int:
     for r in recs + recs9:
         r["launches"] = launches[r["name"]]
     for r in recs16:
-        r["launches"] = launches16[r["name"]]
+        # the main path's count where the kernel runs there (the fused
+        # luma encode), else the 16x16 path's (B6, B7)
+        r["launches"] = launches[r["name"]] or launches16[r["name"]]
     recs += recs16 + recs9
     log("total %.1f s" % (time.time() - t_start))
     print(json.dumps({"kernels": recs}))

@@ -14,6 +14,10 @@ its own:  python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
   for both tail_kernel settings;
 - kernels B6, B7, B8a and B8b vs their plain versions (B8 at qp 20, 26
   and 38, zero_dc and use_dc on and off);
+- the fused luma encode (csrc/luma_p.cu) vs its plain version on an odd
+  MB count at qp 0-51, on flat content, with force-zero, with an MB
+  subset and the 13 x n probe form, with the levels omitted, and an MB
+  number outside the plane failing the launch;
 - the 112x80 16x16-only encode (partitions=False) on cuda is
   byte-equal to the same encode on the cpu;
 - kernel B9 vs its plain version on real MVs and on +-20 corner MVs
@@ -37,6 +41,7 @@ from video_steganography_pcamv_torch.encoder import slicetype as ST
 from video_steganography_pcamv_torch.encoder.me import fullpel_search
 from video_steganography_pcamv_torch.ops import deblock as DB
 from video_steganography_pcamv_torch.ops import fullpel as FP
+from video_steganography_pcamv_torch.ops import lumap as LP
 from video_steganography_pcamv_torch.ops import mc as TMC
 from video_steganography_pcamv_torch.ops import probe as PR
 from video_steganography_pcamv_torch.ops import tq4 as TQ
@@ -240,7 +245,7 @@ def test_b8_kernels_match_plain(dev, qp):
     cur, pred, dc = (torch.as_tensor(a.astype(np.int32), device=dev)
                      for a in (cur, pred, dc))
     mf, bias, dmf = (torch.as_tensor(t, device=dev) for t in (
-        INTER._MF16[qp], INTER._BIAS16[qp], INTER._DMF16[qp % 6]))
+        LP.MF16[qp], LP.BIAS16[qp], LP.DMF16[qp % 6]))
     for zero_dc in (False, True):
         lev = TQ.dct_quant(cur, pred, mf, bias, zero_dc)
         assert torch.equal(lev, TQ.dct_quant_plain(cur, pred, mf, bias,
@@ -251,6 +256,96 @@ def test_b8_kernels_match_plain(dev, qp):
         assert torch.equal(rec, TQ.deq_idct_plain(lev, pred, dmf,
                                                   qp // 6 - 4, dc, use_dc))
     torch.cuda.synchronize()
+
+
+def _luma_p_inputs(dev, mbh, mbw, seed, flat=False):
+    """(y plane, pred [n, 16, 16]) on the card: a third of the MBs with a
+    sparse residual, a third small noise, a third large noise; flat: a
+    constant plane and prediction one level apart."""
+    g = np.random.default_rng(seed)
+    y = g.integers(0, 256, (16 * mbh, 16 * mbw))
+    cur = y.reshape(mbh, 16, mbw, 16).transpose(0, 2, 1, 3).reshape(-1, 16,
+                                                                    16)
+    noise = g.integers(-3, 4, cur.shape)
+    sparse = np.where(g.random(cur.shape) < 0.03,
+                      g.integers(-25, 26, cur.shape), 0)
+    pred = cur + sparse
+    pred[1::3] = cur[1::3] + noise[1::3]
+    pred[2::3] = cur[2::3] + 8 * noise[2::3]
+    if flat:
+        y[:] = 101
+        pred[:] = 100
+    return (torch.as_tensor(y.astype(np.int32), device=dev),
+            torch.as_tensor(np.clip(pred, 0, 255).astype(np.int32),
+                            device=dev))
+
+
+def _luma_p_equal(got, want):
+    for a, b in zip(got, want):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("flat", [False, True])
+def test_luma_p_kernel_matches_plain(dev, flat):
+    """The fused kernel on 35 MBs (an odd count: the last warp's idle
+    half repeats an MB) at every qp, with and without force-zero."""
+    y, pred = _luma_p_inputs(dev, 5, 7, 3, flat)
+    fz = torch.as_tensor(np.random.default_rng(4).random(35) < 0.3,
+                         device=dev)
+    for qp in range(52):
+        for f in (None, fz):
+            got = LP.luma_p_encode(y, pred, qp, fz=f)
+            _luma_p_equal(got, LP.luma_p_encode_plain(y, pred, qp, fz=f))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("qp", [20, 26])
+def test_luma_p_kernel_index_forms(dev, qp):
+    """An MB subset (odd length, repeats) with force-zero, and the probe's
+    13 x n batch with the levels omitted."""
+    y, pred = _luma_p_inputs(dev, 5, 7, qp)
+    g = np.random.default_rng(qp)
+    idx = torch.as_tensor(g.integers(0, 35, 23).astype(np.int32),
+                          device=dev)
+    fz = torch.as_tensor(g.random(23) < 0.3, device=dev)
+    p_sub = pred[g.integers(0, 35, 23)]
+    _luma_p_equal(LP.luma_p_encode(y, p_sub, qp, idx=idx, fz=fz),
+                  LP.luma_p_encode_plain(y, p_sub, qp, idx=idx, fz=fz))
+    p13 = torch.clamp(pred.repeat(13, 1, 1) + torch.as_tensor(
+        g.integers(-6, 7, (13 * 35, 16, 16)).astype(np.int32), device=dev),
+        0, 255)
+    got = LP.luma_p_encode(y, p13, qp, lev=False)
+    assert got[0] is None
+    _luma_p_equal(got, LP.luma_p_encode_plain(y, p13, qp, lev=False))
+    torch.cuda.synchronize()
+
+
+_LUMA_P_OUTSIDE = r"""
+import torch
+from video_steganography_pcamv_torch.ops import lumap as LP
+y = torch.full((80, 112), 7, dtype=torch.int32, device="cuda")
+pred = torch.zeros((3, 16, 16), dtype=torch.int32, device="cuda")
+idx = torch.tensor([0, 35, 1], dtype=torch.int32, device="cuda")
+out = LP.luma_p_encode(y, pred, 26, idx=idx)
+torch.cuda.synchronize()
+print("RETURNED", int(out[1].sum()))
+"""
+
+
+def test_luma_p_mb_outside_the_plane_fails_the_launch(dev):
+    """An MB number outside the plane traps the launch: the call fails
+    and does not go on with the plain version (in a subprocess, since
+    the trap ends the CUDA context)."""
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-c", _LUMA_P_OUTSIDE], cwd=root,
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode != 0 and "RETURNED" not in r.stdout, r.stdout
+    assert "CUDA" in r.stderr or "cuda" in r.stderr, r.stderr[-2000:]
 
 
 def test_cuda_stream_equals_cpu_stream_16x16(dev):

@@ -134,7 +134,7 @@ def test_kernel_wrappers_name_their_tpu_kernel():
     from video_steganography_pcamv_torch.encoder import partition, slicetype
     from video_steganography_pcamv_torch.encoder import qpel_table
     from video_steganography_pcamv_torch.ops import deblock, fullpel, probe
-    from video_steganography_pcamv_torch.ops import tq4
+    from video_steganography_pcamv_torch.ops import lumap, tq4
     wrappers = {
         fullpel.fullpel_parts: "ops/pallas_kernels.py:435",
         fullpel.fullpel_search16: "ops/pallas_kernels.py:549",
@@ -146,11 +146,14 @@ def test_kernel_wrappers_name_their_tpu_kernel():
         tq4.dct_quant: "ops/pallas_kernels.py:175",
         tq4.deq_idct: "ops/pallas_kernels.py:204",
         partition.gather_windows8: "ops/pallas_kernels.py:259",
+        lumap.luma_p_encode: "ops/pallas_kernels.py:175",
     }
     for fn, where in wrappers.items():
         doc = " ".join(fn.__doc__.split())
         assert "video_steganography_pcamv_tpu/" + where in doc, fn.__name__
         assert fn.launches >= 0
+    doc = " ".join(lumap.luma_p_encode.__doc__.split())
+    assert "video_steganography_pcamv_tpu/ops/pallas_kernels.py:204" in doc
     doc = " ".join(slicetype.lowres_costs_kernel.__doc__.split())
     assert "video_steganography_pcamv_tpu/encoder/slicetype.py:41" in doc
 

@@ -1,11 +1,12 @@
-"""Probe the card for the PyTorch port's full-pel search (B1/B6/B10) and
-per-8x8 window fetch (B9).
+"""Probe the card for the PyTorch port's full-pel search (B1/B6/B10),
+per-8x8 window fetch (B9) and 4x4 luma encode (B8).
 
     python3 tools/torch_kernel_probe.py
 
 On a machine with one NVIDIA H100 and nvcc, from the repository root:
-1. the SASS opcode counts and registers of `csrc/fullpel.cu` and
-   `csrc/windows8.cu` (nvcc -cubin, cuobjdump -sass);
+1. the SASS opcode counts and registers of `csrc/fullpel.cu`,
+   `csrc/windows8.cu`, `csrc/luma_p.cu` and `csrc/dct_quant.cu` (nvcc
+   -cubin, cuobjdump -sass);
 2. whether a tensor-map TMA load runs: a 16 x 16 x 4 uint8 box through
    libcu++'s `cp_async_bulk_tensor_3d_global_to_shared` (map as a
    `__grid_constant__` parameter), through inline PTX (map in global
@@ -18,7 +19,11 @@ On a machine with one NVIDIA H100 and nvcc, from the repository root:
    outputs and timed in turns as 50 back-to-back launches between CUDA
    events (median of 5, three rounds), so that the wrapper's host time
    does not count;
-4. the same device-only time of B1, B6 and B10's B1 launch at 1080p.
+4. the same device-only time of B1, B6 and B10's B1 launch at 1080p;
+5. the same device-only time of the fused luma encode
+   (`csrc/luma_p.cu`) and of B8a and B8b (`csrc/dct_quant.cu`) at
+   1080p, on the whole frame at qp 26 and 20 and on the stego probe's
+   13-version batch.
 The probe library is built into build/torch_probe/ (git-ignored).
 """
 
@@ -195,6 +200,86 @@ def search_device_ms() -> None:
             print("B6 1080p rng 16: %.4f ms a launch" % launch_ms(run16))
 
 
+def luma_device_ms() -> None:
+    """The fused luma encode and B8a/B8b at 1080p (8160 MBs), called
+    through their C entry points into preallocated outputs: predictions
+    at random per-8x8 qpel MVs, and the 13-version batch as the 16x16
+    path's probe gives it (13 predictions per MB, the levels
+    omitted)."""
+    from video_steganography_pcamv_torch import kernels
+    from video_steganography_pcamv_torch.encoder import inter as INTER
+    from video_steganography_pcamv_torch.ops import const
+    from video_steganography_pcamv_torch.ops import lumap as LP
+    from video_steganography_pcamv_torch.ops import mc
+    from video_steganography_pcamv_torch.utils.yuv import synthetic_sequence
+    mbh, mbw = 68, 120
+    dev = torch.device("cuda", 0)
+    fr = synthetic_sequence(16 * mbw, 16 * mbh, 2, seed=3)
+    y = torch.as_tensor(fr[1].y.astype(np.int32), device=dev)
+    c = torch.as_tensor(fr[0].u.astype(np.int32), device=dev)
+    ref = mc.build_ref(torch.as_tensor(fr[0].y.astype(np.int32),
+                                       device=dev), c, c)
+    g = np.random.RandomState(5)
+    mv8 = torch.as_tensor(g.randint(-40, 41, (2 * mbh, 2 * mbw, 2))
+                          .astype(np.int32), device=dev)
+    pred = INTER.assemble_pred_luma(ref["luma"], mv8, mbh, mbw)
+    p13 = torch.clamp(pred.repeat(13, 1, 1) + torch.as_tensor(
+        g.randint(-4, 5, (13 * mbh * mbw, 16, 16)).astype(np.int32),
+        device=dev), 0, 255)
+    ptr = kernels.ptr
+    fused = kernels.entry("pcamv_luma_p_encode",
+                          [VP] * 2 + [CI] * 2 + [VP] * 2 + [CI] + [VP] * 3
+                          + [CI] + [VP] * 4)
+    dq = kernels.entry("pcamv_dct_quant", [VP] * 4 + [CI] * 2 + [VP] * 2)
+    di = kernels.entry("pcamv_deq_idct", [VP] * 3 + [CI, VP] + [CI] * 2
+                       + [VP] * 2)
+    cur_tiles = INTER.mb_tiles(y, 16)
+    for label, p, qp, with_lev in (("frame qp 26", pred, 26, True),
+                                   ("frame qp 20", pred, 20, True),
+                                   ("13-version batch qp 26", p13, 26,
+                                    False)):
+        n = p.shape[0]
+        lev = torch.empty((n, 4, 4, 4, 4), dtype=torch.int32, device=dev)
+        rec = torch.empty((n, 16, 16), dtype=torch.int32, device=dev)
+        cbp = torch.empty((n,), dtype=torch.int32, device=dev)
+        mf, bias, dmf = (const(t, dev) for t in (
+            LP.MF16[qp], LP.BIAS16[qp], LP.DMF16[qp % 6]))
+
+        def run(p=p, qp=qp, with_lev=with_lev, lev=lev, rec=rec, cbp=cbp,
+                n=n, mf=mf, bias=bias, dmf=dmf):
+            kernels.check(fused(ptr(y), ptr(p), 16 * mbw, mbh * mbw, None,
+                                None, n, ptr(mf), ptr(bias), ptr(dmf),
+                                qp // 6 - 4, ptr(lev) if with_lev else None,
+                                ptr(rec), ptr(cbp), kernels.stream(y)),
+                          "fused luma encode")
+        run()
+        want = LP.luma_p_encode_plain(y, p, qp, lev=with_lev)
+        same = torch.equal(rec, want[1]) and torch.equal(cbp, want[2]) and (
+            not with_lev or torch.equal(lev, want[0]))
+        cur = cur_tiles.repeat(n // cur_tiles.shape[0], 1, 1)
+        cur16, pred16 = INTER._mb_to_coef16(cur), INTER._mb_to_coef16(p)
+        L = cur16.shape[1]
+        lev16 = torch.empty((16, L), dtype=torch.int32, device=dev)
+        rec16 = torch.empty_like(lev16)
+
+        def run_a(cur16=cur16, pred16=pred16, mf=mf, bias=bias, L=L,
+                  lev16=lev16):
+            kernels.check(dq(ptr(cur16), ptr(pred16), ptr(mf), ptr(bias), L,
+                             0, ptr(lev16), kernels.stream(y)), "B8a")
+
+        def run_b(pred16=pred16, dmf=dmf, qp=qp, L=L, lev16=lev16,
+                  rec16=rec16):
+            kernels.check(di(ptr(lev16), ptr(pred16), ptr(dmf), qp // 6 - 4,
+                             None, 0, L, ptr(rec16), kernels.stream(y)),
+                          "B8b")
+        run_a()
+        for _ in range(3):
+            print("B8 %s (%d MBs), ms a launch (50 back-to-back launches, "
+                  "median of 5): fused %.4f (== plain: %s); B8a %.4f; B8b "
+                  "%.4f" % (label, n, launch_ms(run), same, launch_ms(run_a),
+                            launch_ms(run_b)))
+
+
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--copy":
         copy_case(int(sys.argv[2]))
@@ -213,7 +298,7 @@ def main() -> int:
     subprocess.run([nvcc, *kernels.NVCC_FLAGS, "-shared", "-o", LIB,
                     os.path.join(ROOT, "tools", "torch_kernel_probe.cu")],
                    check=True)
-    for name in ("fullpel", "windows8"):
+    for name in ("fullpel", "windows8", "luma_p", "dct_quant"):
         sass_counts(nvcc, kernels.NVCC_FLAGS, name)
     for mode, what in ((0, "TMA tensor load, libcu++, map as parameter"),
                        (1, "TMA tensor load, PTX, map in global memory"),
@@ -226,6 +311,7 @@ def main() -> int:
                                       err[-1:] if err else ""))
     b9_variants()
     search_device_ms()
+    luma_device_ms()
     return 0
 
 

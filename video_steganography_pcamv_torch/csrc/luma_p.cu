@@ -1,0 +1,203 @@
+// Fused inter luma encode of 16x16 MBs (Hopper, sm_90a): kernel B8 in
+// one launch.
+//
+// pcamv_luma_p_encode replaces the TPU kernels dct_quant_pallas
+// (video_steganography_pcamv_tpu/ops/pallas_kernels.py:175, kernel
+// _dct_quant_kernel :88) and deq_idct_pallas (:204, kernel
+// _deq_idct_kernel :123) together with the JVT-B118 decimation that the
+// reference runs between them (encoder/inter.py luma_p_encode_fast
+// :124, the arithmetic of luma_p_encode :225):
+//   residual cur - pred, forward 4x4 core transform, inter quant
+//   sign(c) * ((bias + |c|) * mf >> 16); the decimate score of each 4x4
+//   over the zigzag scan (the run table, 9 if any |level| > 1), summed
+//   per 8x8 (kept where >= 4) and over the kept 8x8s of the MB (kept
+//   where >= 6); levels zeroed where not kept or where the MB is forced
+//   to zero; dequant lev * dmf, << qb for qb >= 0 or (+ 2^(-qb-1)) >>
+//   -qb below (qp < 24); inverse 4x4 transform, (x + 32) >> 6, pred add,
+//   clip to [0, 255]; cbp_luma, one bit per 8x8 with a nonzero level.
+//
+// Layout: a half-warp per MB, a lane per 4x4 block, the lanes ordered
+// so that the four blocks of an 8x8 are adjacent (lane 4 * b8 + sub):
+// the 8x8 sums are two __shfl_xor_sync, the MB sum two more, the cbp
+// one __ballot_sync. A lane reads its 4x4 of cur (from the luma plane,
+// through the MB index) and of pred as four 16-byte rows, writes its
+// recon as four 16-byte rows, and the 16 lanes of an MB write each
+// coefficient's 16 levels as 64 contiguous bytes ([N, 4(r), 4(c),
+// 4(by), 4(bx)]). Bound by device memory: 1 KB of cur and of pred read
+// and 1 KB of levels and of recon written per MB (4 KB), against ~400
+// integer operations per 4x4 block (6.4 K per MB).
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;  // 16 MBs a block
+constexpr unsigned kFull = 0xffffffffu;
+
+__global__ void __launch_bounds__(kThreads)
+    luma_p_kernel(const int* __restrict__ y, const int* __restrict__ pred,
+                  int width, int n_plane, const int* __restrict__ idx,
+                  const unsigned char* __restrict__ fz, int n,
+                  const int* __restrict__ mf, const int* __restrict__ bias,
+                  const int* __restrict__ dmf, int qb, int* __restrict__ lev,
+                  int* __restrict__ rec, int* __restrict__ cbp) {
+  const int mb_raw = (blockIdx.x * kThreads + threadIdx.x) >> 4;
+  const bool active = mb_raw < n;
+  // the idle half-warp of an odd N repeats the last MB, so that every
+  // lane of the warp takes part in the shuffles and the ballot
+  const int mb = active ? mb_raw : n - 1;
+  const int k = threadIdx.x & 15;
+  const int b8 = k >> 2, sub = k & 3;
+  const int by = (b8 & 2) | (sub >> 1);
+  const int bx = ((b8 & 1) << 1) | (sub & 1);
+  const int m = idx ? __ldg(&idx[mb]) : mb % n_plane;
+  if (m < 0 || m >= n_plane) __trap();
+  const int mbw = width >> 4;
+  const int mby = m / mbw, mbx = m - mby * mbw;
+  const int* cur_p =
+      y + (static_cast<size_t>(16 * mby + 4 * by) * width + 16 * mbx + 4 * bx);
+  const int* pred_p = pred + (static_cast<size_t>(mb) * 256 + 64 * by + 4 * bx);
+
+  int p[16], x[16];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int4 c = __ldg(reinterpret_cast<const int4*>(cur_p + i * width));
+    const int4 q = __ldg(reinterpret_cast<const int4*>(pred_p + 16 * i));
+    p[4 * i] = q.x, p[4 * i + 1] = q.y, p[4 * i + 2] = q.z,
+    p[4 * i + 3] = q.w;
+    x[4 * i] = c.x - q.x, x[4 * i + 1] = c.y - q.y, x[4 * i + 2] = c.z - q.z,
+    x[4 * i + 3] = c.w - q.w;
+  }
+
+  int t[16];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {  // horizontal pass over c within row r
+    const int s03 = x[4 * r] + x[4 * r + 3], s12 = x[4 * r + 1] + x[4 * r + 2];
+    const int d03 = x[4 * r] - x[4 * r + 3], d12 = x[4 * r + 1] - x[4 * r + 2];
+    t[4 * r + 0] = s03 + s12;
+    t[4 * r + 1] = 2 * d03 + d12;
+    t[4 * r + 2] = s03 - s12;
+    t[4 * r + 3] = d03 - 2 * d12;
+  }
+  int lv[16];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {  // vertical pass over r within column c
+    const int s03 = t[c] + t[12 + c], s12 = t[4 + c] + t[8 + c];
+    const int d03 = t[c] - t[12 + c], d12 = t[4 + c] - t[8 + c];
+    lv[c] = s03 + s12;
+    lv[4 + c] = 2 * d03 + d12;
+    lv[8 + c] = s03 - s12;
+    lv[12 + c] = d03 - 2 * d12;
+  }
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int cc = lv[i];
+    const int mag = ((__ldg(&bias[i]) + abs(cc)) * __ldg(&mf[i])) >> 16;
+    lv[i] = cc > 0 ? mag : (cc < 0 ? -mag : 0);
+  }
+
+  // decimate score over the zigzag scan (positions as 4r + c): each
+  // nonzero level adds the table entry of the zero run before it
+  const int zz[16] = {lv[0], lv[1],  lv[4],  lv[8],  lv[5],  lv[2],
+                      lv[3], lv[6],  lv[9],  lv[12], lv[13], lv[10],
+                      lv[7], lv[11], lv[14], lv[15]};
+  int score = 0, last = -1;
+  bool big = false;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int a = abs(zz[i]);
+    big |= a > 1;
+    if (a != 0) {
+      const int run = i - last - 1;
+      score += run == 0 ? 3 : (run <= 2 ? 2 : (run <= 5 ? 1 : 0));
+      last = i;
+    }
+  }
+  if (big) score = 9;
+  int s8 = score + __shfl_xor_sync(kFull, score, 1);
+  s8 += __shfl_xor_sync(kFull, s8, 2);
+  int kept = s8 >= 4 ? s8 : 0;
+  kept += __shfl_xor_sync(kFull, kept, 4);
+  kept += __shfl_xor_sync(kFull, kept, 8);
+  const bool keep =
+      s8 >= 4 && kept >= 6 && !(fz != nullptr && fz[mb] != 0);
+  bool nz = false;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    lv[i] = keep ? lv[i] : 0;
+    nz |= lv[i] != 0;
+  }
+  const unsigned bal = __ballot_sync(kFull, nz) >> (threadIdx.x & 16);
+  if (active) {
+    if (lev != nullptr) {
+      int* lev_p = lev + (static_cast<size_t>(mb) * 256 + 4 * by + bx);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) lev_p[16 * i] = lv[i];
+    }
+    if (k == 0)
+      cbp[mb] = ((bal & 0xfu) ? 1 : 0) | ((bal & 0xf0u) ? 2 : 0) |
+                ((bal & 0xf00u) ? 4 : 0) | ((bal & 0xf000u) ? 8 : 0);
+  }
+
+  const int shl = qb > 0 ? qb : 0;
+  const int shr = qb < 0 ? -qb : 0;
+  const int f = qb < 0 ? (1 << (shr - 1)) : 0;
+  int d[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int v = lv[i] * __ldg(&dmf[i]);
+    // a left shift as a product: defined for negative levels
+    d[i] = qb >= 0 ? v * (1 << shl) : (v + f) >> shr;
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {  // horizontal pass
+    const int x0 = d[4 * r], x1 = d[4 * r + 1], x2 = d[4 * r + 2],
+              x3 = d[4 * r + 3];
+    const int s02 = x0 + x2, d02 = x0 - x2;
+    const int s13 = x1 + (x3 >> 1), d13 = (x1 >> 1) - x3;
+    t[4 * r + 0] = s02 + s13;
+    t[4 * r + 1] = d02 + d13;
+    t[4 * r + 2] = d02 - d13;
+    t[4 * r + 3] = s02 - s13;
+  }
+  int o[16];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {  // vertical pass, then recon
+    const int x0 = t[c], x1 = t[4 + c], x2 = t[8 + c], x3 = t[12 + c];
+    const int s02 = x0 + x2, d02 = x0 - x2;
+    const int s13 = x1 + (x3 >> 1), d13 = (x1 >> 1) - x3;
+    const int vals[4] = {s02 + s13, d02 + d13, d02 - d13, s02 - s13};
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int v = p[4 * r + c] + ((vals[r] + 32) >> 6);
+      o[4 * r + c] = v < 0 ? 0 : (v > 255 ? 255 : v);
+    }
+  }
+  if (active) {
+    int* rec_p = rec + (static_cast<size_t>(mb) * 256 + 64 * by + 4 * bx);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      *reinterpret_cast<int4*>(rec_p + 16 * i) =
+          make_int4(o[4 * i], o[4 * i + 1], o[4 * i + 2], o[4 * i + 3]);
+  }
+}
+
+}  // namespace
+
+extern "C" int pcamv_luma_p_encode(const void* y, const void* pred, int width,
+                                   int n_plane, const void* idx,
+                                   const void* fz, int n, const void* mf,
+                                   const void* bias, const void* dmf, int qb,
+                                   void* lev, void* rec, void* cbp,
+                                   void* stream) {
+  if (n <= 0) return 0;
+  const int blocks = (n + kThreads / 16 - 1) / (kThreads / 16);
+  luma_p_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(y), static_cast<const int*>(pred), width,
+      n_plane, static_cast<const int*>(idx),
+      static_cast<const unsigned char*>(fz), n, static_cast<const int*>(mf),
+      static_cast<const int*>(bias), static_cast<const int*>(dmf), qb,
+      static_cast<int*>(lev), static_cast<int*>(rec), static_cast<int*>(cbp));
+  return static_cast<int>(cudaGetLastError());
+}

@@ -14,10 +14,11 @@ import numpy as np
 import torch
 
 from ..ops import const
+from ..ops import lumap as LP
 from ..ops.fullpel import fullpel_search16
 from ..stego.cost import D_MV, D_NB, rca_decide
 from . import qpel_table as QT
-from .inter import luma_p_encode_fast, mb_tiles
+from .inter import mb_tiles
 from .me import mv_bits_table
 
 _I32 = torch.int32
@@ -78,17 +79,15 @@ def analyse_p_frame(y, ref_luma, prev_mv, rng: int, mbh: int, mbw: int,
 
 
 def stego_costs_from_table(cur_y, blocks169, wht169, r_idx, mv, mvp,
-                           cost_mv, qp: int, mbh: int, mbw: int,
-                           decimate: bool = True):
+                           cost_mv, qp: int, mbh: int, mbw: int):
     """Table-based x264_ih_get_mv_cost: each MB is encoded at its chosen
-    offset and at the 12 D_MV candidates (one batched luma encode, so
-    one B8a and one B8b launch for all 13 versions), and each recon is
-    probed against its 9 lattice neighbours. r_idx [N]; mv [mbh,mbw,2]
-    qpel; mvp [mbh,mbw,2] the probe mv-cost predictor. Returns (rho
-    [mbh,mbw] f32, alt_mv [mbh,mbw,2], flags [mbh,mbw,3])."""
+    offset and at the 12 D_MV candidates (one fused luma encode launch
+    for all 13 versions, the current MBs read from the plane), and each
+    recon is probed against its 9 lattice neighbours. r_idx [N]; mv
+    [mbh,mbw,2] qpel; mvp [mbh,mbw,2] the probe mv-cost predictor.
+    Returns (rho [mbh,mbw] f32, alt_mv [mbh,mbw,2], flags [mbh,mbw,3])."""
     n = mbh * mbw
     ncm = cost_mv.shape[0]
-    cur = mb_tiles(cur_y, 16)
     mvf = mv.reshape(n, 2)
     mvpf = mvp.reshape(n, 2)
     sel_wht = {(dy, dx): QT.select_rows(wht169, r_idx + _didx(dy, dx))
@@ -102,8 +101,7 @@ def stego_costs_from_table(cur_y, blocks169, wht169, r_idx, mv, mvp,
 
     blk = torch.cat([QT.select_rows(blocks169, r_idx + _didx(*c))
                      for c in _CENTERS]).to(_I32)          # [13N,16,16]
-    _, rec = luma_p_encode_fast(cur.repeat(len(_CENTERS), 1, 1), blk, qp,
-                                decimate)
+    _, rec, _ = LP.luma_p_encode(cur_y, blk, qp, lev=False)
     wrec = QT.wht16(rec).reshape(len(_CENTERS), n, 4, 4, 4, 4)
     nbs = []
     for v, (cy, cx) in enumerate(_CENTERS):

@@ -4,11 +4,13 @@ subset of encoder/inter.py): decimation on; the High-profile adaptive
 reduction off; gather MC only.
 
 Two encodes: `encode_p_frame_device8` at per-8x8 MVs (the partitioned
-path, luma through the plain `luma_p_encode`, with `trans8`/`rd` the
-8x8-transform candidate and its choice per MB) and
-`encode_p_frame_device` at one MV per MB (the 16x16-only path, luma
-through `luma_p_encode_fast`: kernel B8a -> decimation -> kernel B8b in
-the reference's [16, L] layout)."""
+path, with `trans8`/`rd` the 8x8-transform candidate and its choice per
+MB) and `encode_p_frame_device` at one MV per MB (the 16x16-only path).
+The 4x4 luma encode of both, and of the incremental re-encode and the
+16x16 path's probe, is the fused kernel `ops/lumap.luma_p_encode`.
+`luma_p_encode_fast` keeps the earlier chain (kernel B8a -> decimation
+-> kernel B8b in the reference's [16, L] layout) as the fused kernel's
+yardstick; no path calls it."""
 
 from __future__ import annotations
 
@@ -20,7 +22,9 @@ from ..ops import mc
 from ..ops import transform as T
 from ..ops import transform8 as T8
 from ..ops import tq4 as TQ
-from ..ops.blocks import to_blocks
+from ..ops import lumap as LP
+from ..ops.blocks import mb_tiles, to_blocks
+from ..ops.lumap import decimate_score, zigzag_gather
 from ..ops.pixel import sa8d_16x16
 from ..ops.rdcost import cavlc_block_bits
 
@@ -37,64 +41,10 @@ LAMBDA2_TAB = np.array([
     148626, 187257, 235929, 297252, 374514, 471859, 594505, 749029,
     943718, 1189010, 1498059, 1887436], np.int32)
 
-# JVT-B118 decimation table (quant.c x264_mb_decimate_score)
-_DS_TAB = np.array([3, 2, 2, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0],
-                   np.int32)
-
-
-def mb_tiles(plane: torch.Tensor, b: int) -> torch.Tensor:
-    """[b*mbh, b*mbw] plane -> [mbh*mbw, b, b] MB tiles (raster)."""
-    h, w = plane.shape
-    return plane.reshape(h // b, b, w // b, b).permute(0, 2, 1, 3) \
-        .reshape(-1, b, b)
-
-
 def untile(t: torch.Tensor, mbh: int, mbw: int) -> torch.Tensor:
     b = t.shape[-1]
     return t.reshape(mbh, mbw, b, b).permute(0, 2, 1, 3) \
         .reshape(mbh * b, mbw * b)
-
-
-def _zigzag_gather(levels: torch.Tensor) -> torch.Tensor:
-    """[N, 4, 4, BY, BX] -> [N, 16, BY, BX] in zigzag order."""
-    zz = const(T.ZIGZAG_4x4, levels.device).long()
-    return levels[:, zz[:, 0], zz[:, 1]]
-
-
-def decimate_score(levels: torch.Tensor) -> torch.Tensor:
-    """x264_mb_decimate_score over zigzag levels [N, 16, BY, BX]."""
-    a = torch.abs(levels)
-    anybig = (a > 1).any(1)
-    nz = a > 0
-    idx = torch.arange(16, device=levels.device,
-                       dtype=_I32)[None, :, None, None]
-    marked = torch.where(nz, idx, -1)
-    prev = torch.cummax(marked, dim=1).values
-    prev_excl = torch.cat([torch.full_like(prev[:, :1], -1),
-                           prev[:, :-1]], dim=1)
-    run = idx - prev_excl - 1
-    tab = const(_DS_TAB, levels.device)
-    contrib = torch.where(nz, tab[torch.clamp(run, 0, 15).long()], 0)
-    return torch.where(anybig, 9, contrib.sum(1, dtype=_I32))
-
-
-def luma_p_encode(cur, pred, qp: int):
-    """Inter luma encode of [N,16,16] MBs: levels [N,4(r),4(c),4(by),
-    4(bx)] after decimation, and the recon [N,16,16]."""
-    n = cur.shape[0]
-    coef = T.dct4x4(to_blocks(cur - pred, 4))
-    lev = T.quant4x4(coef, qp, intra=False)
-    sc = decimate_score(_zigzag_gather(lev))                 # [N,4,4]
-    sc8 = sc.reshape(n, 2, 2, 2, 2).sum((2, 4), dtype=_I32)
-    keep8 = sc8 >= 4
-    keep_mb = torch.where(keep8, sc8, 0).sum((1, 2), dtype=_I32) >= 6
-    keep = keep8 & keep_mb[:, None, None]
-    keep_blk = keep.repeat_interleave(2, 1).repeat_interleave(2, 2)
-    lev = lev * keep_blk[:, None, None, :, :]
-    deq = T.dequant4x4(lev, qp)
-    rec = T.idct4x4_add(to_blocks(pred, 4), deq)
-    rec = rec.permute(0, 3, 1, 4, 2).reshape(n, 16, 16)
-    return lev, rec
 
 
 def _mb_to_coef16(x):
@@ -132,7 +82,7 @@ def _decimate_keep16(lev16, n: int):
     prev = torch.cummax(marked, dim=0).values
     prev_excl = torch.cat([torch.full_like(prev[:1], -1), prev[:-1]])
     run = idx - prev_excl - 1
-    tab = const(_DS_TAB, dev)
+    tab = const(LP.DS_TAB, dev)
     contrib = torch.where(nz, tab[torch.clamp(run, 0, 15).long()], 0)
     score = torch.where(anybig, 9, contrib.sum(0, dtype=_I32))  # [L]
     sc8 = score.reshape(n, 2, 2, 2, 2).sum((2, 4), dtype=_I32)  # [n,2,2]
@@ -143,35 +93,22 @@ def _decimate_keep16(lev16, n: int):
     return keep_blk.reshape(1, n * 16).to(_I32)
 
 
-# per-qp [16] tables in (4r + c) order: quant mf, inter bias, dequant mf
-_MF16 = [T.QUANT4_MF[q].reshape(16).copy() for q in range(52)]
-_BIAS16 = [T.QUANT4_BIAS_INTER[q].reshape(16).copy() for q in range(52)]
-_DMF16 = [T.DEQUANT4_MF[q].reshape(16).copy() for q in range(6)]
-
-
 def luma_p_encode_fast(cur, pred, qp: int, decimate: bool = True):
-    """The reference's bit-identical kernel twin of luma_p_encode: B8a
-    (DCT + quant) and B8b (dequant + IDCT + recon) over [16, L] lanes,
-    the decimation between them as plain row ops. cur/pred [N,16,16]
-    int32 -> (lev [N,4,4,4,4], rec [N,16,16])."""
+    """The reference's bit-identical kernel twin of its luma_p_encode,
+    as the fused kernel's yardstick: B8a (DCT + quant) and B8b (dequant
+    + IDCT + recon) over [16, L] lanes, the decimation between them as
+    plain row ops. cur/pred [N,16,16] int32 -> (lev [N,4,4,4,4], rec
+    [N,16,16])."""
     n = cur.shape[0]
     dev = cur.device
     pred16 = _mb_to_coef16(pred)
-    lev16 = TQ.dct_quant(_mb_to_coef16(cur), pred16, const(_MF16[qp], dev),
-                         const(_BIAS16[qp], dev))
+    lev16 = TQ.dct_quant(_mb_to_coef16(cur), pred16, const(LP.MF16[qp], dev),
+                         const(LP.BIAS16[qp], dev))
     if decimate:
         lev16 = lev16 * _decimate_keep16(lev16, n)
-    rec16 = TQ.deq_idct(lev16, pred16, const(_DMF16[qp % 6], dev),
+    rec16 = TQ.deq_idct(lev16, pred16, const(LP.DMF16[qp % 6], dev),
                         qp // 6 - 4)
     return _coef16_to_lev(lev16, n), _coef16_to_mb(rec16, n)
-
-
-def cbp_luma_of(lev: torch.Tensor) -> torch.Tensor:
-    n = lev.shape[0]
-    nz_blk = (lev != 0).any(2).any(1)                        # [N,4,4]
-    cbp8 = nz_blk.reshape(n, 2, 2, 2, 2).any(4).any(2)       # [N,2,2]
-    return (cbp8[:, 0, 0].to(_I32) + 2 * cbp8[:, 0, 1].to(_I32)
-            + 4 * cbp8[:, 1, 0].to(_I32) + 8 * cbp8[:, 1, 1].to(_I32))
 
 
 def chroma_encode(curc, predc, qpc: int, fz):
@@ -184,7 +121,7 @@ def chroma_encode(curc, predc, qpc: int, fz):
     ac[:, 0, 0] = 0
     dc_lev = T.quant_dc(dch, qpc, intra=False)
     ac_lev = T.quant4x4(ac, qpc, intra=False)
-    scc = decimate_score(_zigzag_gather(ac_lev)).sum((1, 2), dtype=_I32)
+    scc = decimate_score(zigzag_gather(ac_lev)).sum((1, 2), dtype=_I32)
     ac_lev = ac_lev * (scc >= 7)[:, None, None, None, None]
     dc_lev = dc_lev * ~fz[:, None, None]
     ac_lev = ac_lev * ~fz[:, None, None, None, None]
@@ -232,17 +169,11 @@ def _force_zero(force_zero, n: int, dev):
     return force_zero.reshape(n).to(torch.bool)
 
 
-def _p_result(lev, rec, pred, chroma, fz, mbh: int, mbw: int,
-              cbp_luma=None) -> dict:
-    """The per-frame result dict of a P encode; MBs in `fz` keep no
-    luma residual and reconstruct as their prediction. `cbp_luma` [n]
-    overrides the 4x4 levels' own (the 8x8-transform MBs')."""
+def _p_result(lev, rec, cbp_luma, chroma, mbh: int, mbw: int) -> dict:
+    """The per-frame result dict of a P encode from its luma levels,
+    recon and cbp (force-zero already applied) and its chroma."""
     n = mbh * mbw
-    lev = lev * ~fz[:, None, None, None, None]
-    rec = torch.where(fz[:, None, None], pred, rec)
     cdc, cac = pack_chroma(chroma, n)
-    if cbp_luma is None:
-        cbp_luma = cbp_luma_of(lev)
     return dict(
         cbp_luma=cbp_luma.reshape(mbh, mbw).to(torch.uint8),
         cbp_chroma=cbp_chroma_of(chroma).reshape(mbh, mbw).to(torch.uint8),
@@ -260,7 +191,7 @@ def encode_p_frame_device(y, u, v, ref_luma, ref_u, ref_v, mv, qp: int,
                           force_zero=None) -> dict:
     """16x16 P encode at one qpel MV per MB (mv [mbh,mbw,2]); MBs in
     force_zero [mbh,mbw] drop their residual (the stego pass 2's forced
-    P_SKIPs). Luma runs through kernels B8a/B8b on CUDA."""
+    P_SKIPs)."""
     n = mbh * mbw
     dev = y.device
     fz = _force_zero(force_zero, n, dev)
@@ -269,12 +200,12 @@ def encode_p_frame_device(y, u, v, ref_luma, ref_u, ref_v, mv, qp: int,
     xs = (ar % mbw) * 16
     mvf = mv.reshape(n, 2)
     pred = mc.mc_luma(ref_luma, ys, xs, mvf)
-    lev, rec = luma_p_encode_fast(mb_tiles(y, 16), pred, qp)
+    lev, rec, cbp_l = LP.luma_p_encode(y, pred, qp, fz=fz)
     chroma = [chroma_encode(mb_tiles(plane, 8),
                             mc.mc_chroma(refp, ys // 2, xs // 2, mvf),
                             qpc, fz)
               for plane, refp in ((u, ref_u), (v, ref_v))]
-    return _p_result(lev, rec, pred, chroma, fz, mbh, mbw)
+    return _p_result(lev, rec, cbp_l, chroma, mbh, mbw)
 
 
 def _luma8_select(cur, pred, lev, rec, cbp_luma, fz, qp: int, rd: bool):
@@ -308,7 +239,7 @@ def _luma8_select(cur, pred, lev, rec, cbp_luma, fz, qp: int, rd: bool):
     if rd:
         lam2 = int(LAMBDA2_TAB[qp])
         nc0 = torch.zeros(n * 16, dtype=_I32, device=dev)
-        v4 = _zigzag_gather(lev).permute(0, 2, 3, 1).reshape(n * 16, 16)
+        v4 = zigzag_gather(lev).permute(0, 2, 3, 1).reshape(n * 16, 16)
         bits4 = cavlc_block_bits(v4, nc0).reshape(n, 16).sum(1, dtype=_I32)
         sub = T8.zigzag8(lev8).reshape(n, 2, 2, 16, 4).transpose(3, 4) \
             .reshape(n * 16, 16)
@@ -341,15 +272,11 @@ def encode_p_frame_device8(y, u, v, ref_luma, ref_u, ref_v, mv8,
     dev = y.device
     fz = _force_zero(force_zero, n, dev)
 
-    cur = mb_tiles(y, 16)
     pred = assemble_pred_luma(ref_luma, mv8, mbh, mbw)
-    lev, rec = luma_p_encode(cur, pred, qp)
-    lev = lev * ~fz[:, None, None, None, None]
-    rec = torch.where(fz[:, None, None], pred, rec)
-    cbp_l = cbp_luma_of(lev)
+    lev, rec, cbp_l = LP.luma_p_encode(y, pred, qp, fz=fz)
     if trans8:
-        lev, rec, cbp_l, t8, lev8 = _luma8_select(cur, pred, lev, rec,
-                                                  cbp_l, fz, qp, rd)
+        lev, rec, cbp_l, t8, lev8 = _luma8_select(
+            mb_tiles(y, 16), pred, lev, rec, cbp_l, fz, qp, rd)
 
     n8 = 4 * mbh * mbw
     ar = torch.arange(n8, device=dev, dtype=_I32)
@@ -368,7 +295,7 @@ def encode_p_frame_device8(y, u, v, ref_luma, ref_u, ref_v, mv8,
             cbp_luma=cbp_l.reshape(mbh, mbw).to(torch.uint8),
             cbp_chroma=cbp_chroma_of(chroma).reshape(mbh, mbw)
             .to(torch.uint8))
-    out = _p_result(lev, rec, pred, chroma, fz, mbh, mbw, cbp_luma=cbp_l)
+    out = _p_result(lev, rec, cbp_l, chroma, mbh, mbw)
     if trans8:
         out["trans8"] = t8.reshape(mbh, mbw)
         out["luma8_lev"] = lev8.reshape(mbh, mbw, 256).to(torch.int16)

@@ -15,9 +15,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops import lumap as LP
 from ..ops import mc
-from .inter import (chroma_encode, luma_p_encode, cbp_luma_of,
-                    cbp_chroma_of, pack_chroma, mb_tiles)
+from .inter import chroma_encode, cbp_chroma_of, pack_chroma, mb_tiles
 
 
 def reencode_p_incremental(res: dict, y, u, v, ref_luma, ref_u, ref_v,
@@ -28,7 +28,8 @@ def reencode_p_incremental(res: dict, y, u, v, ref_luma, ref_u, ref_v,
     padding (index n); those rows are dropped here."""
     n = mbh * mbw
     keep = idx < n
-    idx = idx[keep].long()
+    idx32 = idx[keep].to(torch.int32)
+    idx = idx32.long()
     fz = fz[keep].to(torch.bool)
     cap = idx.shape[0]
     out = dict(res)
@@ -47,10 +48,7 @@ def reencode_p_incremental(res: dict, y, u, v, ref_luma, ref_u, ref_v,
     p8 = mc.mc_luma(ref_luma, ys8, xs8, mvu, 8, 8)
     pred = p8.reshape(cap, 2, 2, 8, 8).permute(0, 1, 3, 2, 4) \
         .reshape(cap, 16, 16)
-    lev, rec = luma_p_encode(mb_tiles(y, 16)[idx], pred, qp)
-    lev = lev * ~fz[:, None, None, None, None]
-    rec = torch.where(fz[:, None, None], pred, rec)
-    cbp_luma = cbp_luma_of(lev)
+    lev, rec, cbp_luma = LP.luma_p_encode(y, pred, qp, idx=idx32, fz=fz)
 
     ysc = (8 * my[:, None] + 4 * dy[None, :]).reshape(-1)
     xsc = (8 * mx[:, None] + 4 * dx[None, :]).reshape(-1)

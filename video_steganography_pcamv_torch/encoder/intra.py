@@ -305,7 +305,8 @@ def _rd_costs(enc, qp: int, mode16, dc_lev, ac_lev, cbpl16, rec16, lev4,
     """True-RD intra costs (x264_intra_rd): SSD + lambda2 * the exact
     CAVLC bits at nC 0 of each candidate's residual plus its mode bits.
     Returns (c16, c4, c8) [W] int32."""
-    from .inter import LAMBDA2_TAB, _zigzag_gather
+    from .inter import LAMBDA2_TAB
+    from ..ops.lumap import zigzag_gather
     dev = enc.device
     W = enc.shape[0]
     lam2 = int(LAMBDA2_TAB[qp])
@@ -322,12 +323,12 @@ def _rd_costs(enc, qp: int, mode16, dc_lev, ac_lev, cbpl16, rec16, lev4,
     zz = const(T.ZIGZAG_4x4, dev).long()
     bits_dc = cavlc_block_bits(dc_lev[:, zz[:, 0], zz[:, 1]],
                                torch.zeros(W, dtype=_I32, device=dev))
-    vac = _zigzag_gather(ac_lev)[:, 1:].permute(0, 2, 3, 1) \
+    vac = zigzag_gather(ac_lev)[:, 1:].permute(0, 2, 3, 1) \
         .reshape(W * 16, 15)
     c16 = cbpl16.to(_I32)
     b16 = (bits_dc + torch.where(cbpl16, bits16(vac), 0)
            + ue_len(1 + mode16 + 12 * c16))
-    v4 = _zigzag_gather(lev4.movedim((1, 2), (3, 4))).permute(0, 2, 3, 1) \
+    v4 = zigzag_gather(lev4.movedim((1, 2), (3, 4))).permute(0, 2, 3, 1) \
         .reshape(W * 16, 16)
     c4 = torch.where(cost4 < (1 << 29),
                      rdc(rec4, bits16(v4) + mb4bits + 1 + 6), BIG)

@@ -16,6 +16,13 @@ def to_blocks(x: torch.Tensor, n: int = 4) -> torch.Tensor:
     return x.movedim((-3, -1), (-4, -3))
 
 
+def mb_tiles(plane: torch.Tensor, b: int) -> torch.Tensor:
+    """[b*mbh, b*mbw] plane -> [mbh*mbw, b, b] MB tiles (raster)."""
+    h, w = plane.shape
+    return plane.reshape(h // b, b, w // b, b).permute(0, 2, 1, 3) \
+        .reshape(-1, b, b)
+
+
 def from_blocks(x: torch.Tensor) -> torch.Tensor:
     """[..., n, n, BY, BX] -> [..., H, W]."""
     *lead, n, n2, by, bx = x.shape

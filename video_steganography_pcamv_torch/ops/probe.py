@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from . import const
+from . import lumap as LP
 from . import transform as T
 from .blocks import from_blocks, to_blocks
 from .. import kernels
@@ -264,7 +265,7 @@ def probe_maps_plain(cur_y, windows, r_idx8, qp: int, mbh: int, mbw: int,
         SK.append(satd_flat(wk[None], sels))
         if decimate:
             wp = wht8_flat(pv).reshape(n, 4, 64)
-            sc = INTER.decimate_score(INTER._zigzag_gather(lev))
+            sc = LP.decimate_score(LP.zigzag_gather(lev))
             sc8.append(sc.sum((1, 2), dtype=_I32).reshape(n, 4))
             SP.append(satd_flat(wp[None], sels))
     SK = torch.stack(SK)

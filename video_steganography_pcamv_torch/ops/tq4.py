@@ -16,6 +16,12 @@ lane padding to 2048 is dropped. Both kernels are bound by their device
 memory traffic (B8a reads two int32 rows and writes one per
 coefficient, B8b the same plus the optional DC row).
 
+No path launches them: every 4x4 luma encode runs the fused kernel of
+`ops/lumap.py`, which also does the decimation between the two. They
+stay as standalone check entries, held against their plain versions on
+the card, and as the earlier chain that the fused kernel is timed
+against.
+
 On a CPU tensor each wrapper runs its plain version, the port's
 transform arithmetic (`ops/transform.py`) on the same layout; on a CUDA
 tensor it launches its kernel, counted in `<wrapper>.launches`, or
