@@ -70,9 +70,21 @@ Phases (any failure raises and the script exits non-zero):
      every frame, the fused luma encode once or twice per P frame, B2's
      entry and B8a/B8b never, I8x8 and trans8 MB counts, fps printed;
  16. (only with --stages8) per-stage times of a 720p config-3 P frame,
-     the pass-1 encode in a row of its own.
+     the pass-1 encode in a row of its own;
+ 17. at 112x80, six frames on cuda and on cpu: CABAC on the main path,
+     on config 3 and on the 16x16-only path, and the reference's
+     default Params (PSNR and SSIM on, deblock_device=False: the fused
+     P step unpipelined): byte-equal streams and equal close() dicts
+     (PSNR exactly, SSIM to rtol 1e-5), payload recovered;
+ 18. the main path at 1920x1088 at the default Params plus SSIM, IDR + 3
+     P: the stream is the first four frames of phase 6's, the payload
+     phase 6's; PSNR/SSIM and fps printed, the same launch counts;
+ 19. the main path at 1920x1088 under CABAC, IDR + 2 P: payload
+     recovered by the port's CABAC decoder and extractor (the decode
+     timed), the same launch counts, the host CABAC write per P slice
+     beside CAVLC's on the same syntax, fps printed.
 Phases 9 and 13 run right after phase 4, so that a new kernel that fails
-stops the run early. Each phase logs its wall time. The line before the
+stops the run early; 17 runs after 14, and 18 and 19 after 6. Each phase logs its wall time. The line before the
 last two holds the per-kernel JSON record, then the card line; the last
 line is {"ok": true, "device": {...}}.
 
@@ -822,15 +834,23 @@ def phase_luma_p(dev, int_rate, cur, pred, blk):
                   err, t[0], t[1], bnd(n, True))
 
 
+# the reference's default Params where bench.py's Params differ from
+# them, plus SSIM: PSNR/SSIM on and the host deblock put the fused P step
+# on its unpipelined branch
+DEFAULTS = dict(deblock_device=False, psnr=True, ssim=True)
+
+
 def _params(w, h, tail_kernel, me_range=16, partitions=True,
-            config3=False):
+            config3=False, **kw):
     """bench.py's Params; `config3` adds BASELINE config 3's
-    transform_8x8 and rd 1."""
+    transform_8x8 and rd 1; `kw` overrides the rest (cabac, DEFAULTS)."""
     from video_steganography_pcamv_torch.params import Params, StegoParams
-    p = Params(width=w, height=h, qp=26, me_range=me_range,
-               deblock_device=partitions, psnr=False, partitions=partitions,
-               transform_8x8=config3, rd=int(config3),
-               stego=StegoParams(em_rate=64, key=99))
+    base = dict(width=w, height=h, qp=26, me_range=me_range,
+                deblock_device=partitions, psnr=False, partitions=partitions,
+                transform_8x8=config3, rd=int(config3),
+                stego=StegoParams(em_rate=64, key=99))
+    base.update(kw)
+    p = Params(**base)
     p.tail_kernel = tail_kernel
     p.pipeline_deep = False
     return p
@@ -920,6 +940,137 @@ def phase_small8(dev):
         "recovered" % (len(bs_g), counts[0], counts[1], bits))
 
 
+def _close_equal(what, got, want):
+    """close() dicts of the same encode on two devices: the same keys,
+    PSNR and the counts exactly, SSIM to rtol 1e-5 (a float32 sum whose
+    order differs); fps is a rate of the wall clock."""
+    if got.keys() != want.keys():
+        raise AssertionError("%s: close() keys differ" % what)
+    for k in want:
+        if k == "fps":
+            continue
+        ok = (abs(got[k] - want[k]) <= 1e-5 * abs(want[k]) if k == "ssim_y"
+              else got[k] == want[k])
+        if not ok:
+            raise AssertionError("%s: close()[%r] %r on cuda, %r on cpu"
+                                 % (what, k, got[k], want[k]))
+
+
+def phase_small_cabac(dev):
+    """CABAC on the main path, on config 3 and on the 16x16-only path,
+    and the reference's default Params (PSNR, SSIM, the host deblock's
+    twin, unpipelined) at 112x80: cuda == cpu streams and close()
+    dicts, the payload recovered by the port's decoder and extractor."""
+    from video_steganography_pcamv_torch.utils.yuv import synthetic_sequence
+    frames = synthetic_sequence(112, 80, 6, seed=7)
+    cases = (("cabac main path", dict(cabac=True)),
+             ("cabac config 3", dict(cabac=True, config3=True)),
+             ("cabac 16x16 path", dict(cabac=True, partitions=False)),
+             ("default Params", DEFAULTS))
+    for what, kw in cases:
+        enc_g, bs_g = _encode(_params(112, 80, True, **kw), frames, dev)
+        enc_c, bs_c = _encode(_params(112, 80, True, **kw), frames, "cpu")
+        if bs_g != bs_c:
+            raise AssertionError("112x80 %s: cuda (%d B) != cpu (%d B)"
+                                 % (what, len(bs_g), len(bs_c)))
+        d_g, d_c = enc_g.close(), enc_c.close()
+        _close_equal("112x80 " + what, d_g, d_c)
+        bits = _check_payload(bs_g, enc_g, len(frames))
+        log("112x80 x6, %s: cuda stream == cpu stream (%d bytes), close() "
+            "equal (PSNR-Y %.4f, SSIM-Y %.6f / %.6f), %d payload bits "
+            "recovered" % (what, len(bs_g), d_g["psnr_y"], d_g["ssim_y"],
+                           d_c["ssim_y"], bits))
+
+
+def phase_defaults(dev, card, bs6, enc6):
+    """The 1080p main path at the reference's default Params plus SSIM,
+    IDR + 3 P: the unpipelined branch, the deblock on B5 (bit-exact to
+    the reference's host deblock), PSNR/SSIM on the card. Pipelining
+    only reorders work, so the stream must be the first four frames of
+    phase 6's stream, with the same payload."""
+    launches, bs, enc = phase_main(dev, card, True, 4,
+                                   label="1080p default Params",
+                                   payload=False, **DEFAULTS)
+    if not (bs6.startswith(bs)
+            and bs6[len(bs):len(bs) + 4] == b"\0\0\0\1"):
+        raise AssertionError("1080p default Params: %d bytes, not the first "
+                             "four frames of phase 6's stream" % len(bs))
+    sent, sent6 = enc._stego.sent_messages, enc6._stego.sent_messages
+    if len(sent) != 3 or not all(np.array_equal(a, b)
+                                 for a, b in zip(sent, sent6)):
+        raise AssertionError("1080p default Params: payload != phase 6's")
+    d = enc.close()
+    if not (20 < d["psnr_y"] < 99 and 0 < d["ssim_y"] <= 1):
+        raise AssertionError("1080p default Params: close() %s" % d)
+    log("1080p default Params (psnr, ssim, deblock_device=False): %d bytes "
+        "== phase 6's first 4 frames; PSNR Y/U/V %.4f / %.4f / %.4f, "
+        "SSIM-Y %.6f; close() fps %.4f  [%s]"
+        % (len(bs), d["psnr_y"], d["psnr_u"], d["psnr_v"], d["ssim_y"],
+           d["fps"], card))
+    return launches
+
+
+def _frame_bytes(bs: bytes) -> list:
+    """Bytes per frame of an Annex-B stream of one slice a frame: every
+    NAL (4-byte start code included) counts to the next slice NAL."""
+    sizes, cur = [], 0
+    for nal in bs.split(b"\0\0\0\1")[1:]:
+        cur += 4 + len(nal)
+        if nal[0] & 0x1F in (1, 5):
+            sizes.append(cur)
+            cur = 0
+    return sizes
+
+
+def phase_cabac(dev, card, bs6):
+    """The 1080p main path under CABAC, IDR + 2 P: the payload recovered
+    by the port's CABAC decoder and extractor (timed); its bytes per
+    frame beside phase 6's CAVLC stream on the same frames; the host
+    CABAC write of each slice, and after the run CAVLC's write of the
+    same P slices' syntax (5 reps each, median)."""
+    from video_steganography_pcamv_torch import native
+    calls, orig = [], native.write_slice_cabac
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        out = orig(*a, **kw)
+        calls.append((time.perf_counter() - t0, a, kw))
+        return out
+    native.write_slice_cabac = timed
+    try:
+        launches, bs, _enc = phase_main(dev, card, True, 3,
+                                        label="1080p CABAC main path",
+                                        cabac=True)
+    finally:
+        native.write_slice_cabac = orig
+    cab, cav = _frame_bytes(bs), _frame_bytes(bs6)[:3]
+    log("1080p bytes per frame, CABAC %s against CAVLC (phase 6) %s: "
+        "%+.2f%% in all, %+.2f%% over the P frames"
+        % (cab, cav, 100.0 * (sum(cab) / sum(cav) - 1),
+           100.0 * (sum(cab[1:]) / sum(cav[1:]) - 1)))
+
+    def median_ms(fn, *a, **kw):
+        t = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn(*a, **kw)
+            t.append(time.perf_counter() - t0)
+        return 1e3 * float(np.median(t))
+    rows = []
+    for t_run, a, kw in calls:
+        if a[2] != 0:
+            continue      # the I slice
+        cavlc_kw = {k: v for k, v in kw.items() if k not in ("luma8_lev",
+                                                             "trans8")}
+        rows.append("%.3f in the run, %.3f median; CAVLC %.3f"
+                    % (1e3 * t_run, median_ms(orig, *a, **kw),
+                       median_ms(native.write_slice, *a[:5], **cavlc_kw)))
+    log("1080p CABAC host write per P slice (write_slice_cabac ms; CAVLC "
+        "write_slice on the same syntax): %s; I slice %.1f ms  [%s]"
+        % ("; ".join(rows), 1e3 * calls[0][0], card))
+    return launches
+
+
 def _counters():
     from video_steganography_pcamv_torch.encoder import partition as PT
     from video_steganography_pcamv_torch.encoder import slicetype as ST
@@ -941,15 +1092,18 @@ def _counters():
 
 
 def phase_main(dev, card, tail_kernel: bool, n_frames: int,
-               partitions: bool = True, config3: bool = False):
+               partitions: bool = True, config3: bool = False,
+               label: str = None, payload: bool = True, **kw):
     """One path end to end at full width: 1920x1088, or 1280x720 for
-    config 3."""
+    config 3; `kw` overrides bench.py's Params (cabac, DEFAULTS).
+    Returns the launch counts, the stream and the encoder. Without
+    `payload` the stream is not decoded (the caller checks it)."""
     from video_steganography_pcamv_torch import Encoder
     from video_steganography_pcamv_torch.utils.yuv import synthetic_sequence
     w, h = (1280, 720) if config3 else (1920, 1088)
     frames = synthetic_sequence(w, h, n_frames, seed=7)
     enc = Encoder(_params(w, h, tail_kernel, partitions=partitions,
-                          config3=config3), device=dev)
+                          config3=config3, **kw), device=dev)
     fns = _counters()
     for fn in fns.values():
         fn.launches = 0
@@ -996,15 +1150,18 @@ def phase_main(dev, card, tail_kernel: bool, n_frames: int,
     if config3 and min(enc.stats.i8x8_mbs, enc.stats.trans8_mbs) < 1:
         raise AssertionError("config 3: %d I8x8 MBs, %d trans8 P MBs"
                              % (enc.stats.i8x8_mbs, enc.stats.trans8_mbs))
-    bits = _check_payload(bs, enc, len(frames))
+    t3 = time.time()
+    bits = _check_payload(bs, enc, len(frames)) if payload else 0
+    t_dec = time.time() - t3
     fps_p = (len(frames) - 1) / (t2 - t1)
-    label = ("720p config 3 (transform_8x8, rd 1)" if config3
-             else "1080p tail_kernel=%s" % tail_kernel if partitions
-             else "1080p partitions=False")
-    log("%s: %d frames (%d I, %d P), %d bytes, %d "
-        "payload bits recovered; IDR %.3f s; P frames %.4f fps incl. "
-        "flush; all %.4f fps; launches %s  [%s]"
-        % (label, len(frames), enc.stats.i_frames, n_p, len(bs), bits,
+    label = label or ("720p config 3 (transform_8x8, rd 1)" if config3
+                      else "1080p tail_kernel=%s" % tail_kernel
+                      if partitions else "1080p partitions=False")
+    log("%s: %d frames (%d I, %d P), %d bytes, %s; IDR %.3f s; P frames "
+        "%.4f fps incl. flush; all %.4f fps; launches %s  [%s]"
+        % (label, len(frames), enc.stats.i_frames, n_p, len(bs),
+           "%d payload bits recovered (decode + extraction %.1f s)"
+           % (bits, t_dec) if payload else "not decoded here",
            t1 - t0, fps_p, len(frames) / (t2 - t0), json.dumps(launches),
            card))
     if config3:
@@ -1013,7 +1170,7 @@ def phase_main(dev, card, tail_kernel: bool, n_frames: int,
             % (enc.stats.i8x8_mbs, enc.stats.trans8_mbs, json.dumps(
                 {k: launches[k] / n_p for k in want}),
                launches["deblock_frame"] / len(frames)))
-    return launches
+    return launches, bs, enc
 
 
 # the P encodes that serve both passes: pass 1 passes no force_zero,
@@ -1245,19 +1402,22 @@ def main() -> int:
     recs16 = phase("9 B6-B8", phase_b678, dev, int_rate)
     phase("5 112x80", phase_small, dev)
     phase("14 128x96 config 3", phase_small8, dev)
-    launches = phase("6 main path", phase_main, dev, card, tail_kernel=True,
-                     n_frames=10)
+    phase("17 112x80 CABAC, default Params", phase_small_cabac, dev)
+    launches, bs6, enc6 = phase("6 main path", phase_main, dev, card,
+                                tail_kernel=True, n_frames=10)
+    phase("18 1080p default Params", phase_defaults, dev, card, bs6, enc6)
+    phase("19 1080p CABAC", phase_cabac, dev, card, bs6)
     phase("7 tail_kernel=False", phase_main, dev, card, tail_kernel=False,
           n_frames=4)
     phase("8 stages", phase_stages, dev, card)
     phase("10 112x80 16x16", phase_small16, dev)
-    launches16 = phase("11 16x16 path", phase_main, dev, card,
-                       tail_kernel=True, n_frames=4, partitions=False)
+    launches16, _, _ = phase("11 16x16 path", phase_main, dev, card,
+                             tail_kernel=True, n_frames=4, partitions=False)
     if args.stages16:
         phase("12 16x16 stages", phase_stages, dev, card, n_frames=6,
               partitions=False)
-    launches8 = phase("15 720p config 3", phase_main, dev, card,
-                      tail_kernel=True, n_frames=5, config3=True)
+    launches8, _, _ = phase("15 720p config 3", phase_main, dev, card,
+                            tail_kernel=True, n_frames=5, config3=True)
     if args.stages8:
         phase("16 config-3 stages", phase_stages, dev, card, n_frames=6,
               config3=True)

@@ -26,7 +26,12 @@ its own:  python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
   trans8 rule and slice offsets;
 - a 120x72 (cropped) encode on cuda is byte-equal to the cpu encode;
 - the 128x96 config-3 encode (transform_8x8, rd 1) on cuda is byte-equal
-  to the same encode on the cpu.
+  to the same encode on the cpu;
+- at 112x80, cuda == cpu streams under CABAC on the main path (both
+  tail_kernel settings), on config 3 and on the 16x16-only path, and at
+  the reference's default Params (PSNR and SSIM on, the host deblock's
+  twin on the card, unpipelined), whose close() dicts agree too (PSNR
+  exactly, SSIM to rtol 1e-5: the float32 sums' order differs).
 """
 
 import numpy as np
@@ -474,3 +479,32 @@ def test_cuda_stream_equals_cpu_stream_config3(dev):
         return bs
 
     assert run(dev) == run("cpu")
+
+
+@pytest.mark.parametrize("kw", [
+    dict(cabac=True, deblock_device=True, psnr=False),
+    dict(cabac=True, deblock_device=True, psnr=False, tail_kernel=False),
+    dict(cabac=True, deblock_device=True, psnr=False, transform_8x8=True,
+         rd=1),
+    dict(cabac=True, partitions=False, psnr=False),
+    dict(ssim=True)],
+    ids=["cabac", "cabac_cpu_branch", "cabac_config3", "cabac_16x16",
+         "defaults_ssim"])
+def test_cuda_stream_equals_cpu_stream_cabac_and_defaults(dev, kw):
+    frames = synthetic_sequence(112, 80, 4, seed=7)
+
+    def run(device):
+        p = Params(width=112, height=80,
+                   stego=StegoParams(em_rate=16, key=5), **kw)
+        enc = Encoder(p, device=device)
+        bs = b"".join(enc.encode_frame(f) for f in frames) + enc.flush()
+        return bs, enc.close()
+
+    (bs_g, d_g), (bs_c, d_c) = run(dev), run("cpu")
+    assert bs_g == bs_c
+    assert d_g.keys() == d_c.keys()
+    for k in d_c:
+        if k == "ssim_y":
+            np.testing.assert_allclose(d_g[k], d_c[k], rtol=1e-5)
+        elif k != "fps":
+            assert d_g[k] == d_c[k], k

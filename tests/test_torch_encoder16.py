@@ -6,7 +6,8 @@ the port's extractor and the reference's. One JAX encode is shared; it
 also snapshots its state after frame 2 (`state.from_reference`), from
 which the port resumes and must give the same tail. The reference
 itself fails with deblock_device=True on this path, so the port
-refuses that combination."""
+refuses that combination. Under CABAC, with PSNR and SSIM on, the
+stream and the `close()` dict equal the reference's too."""
 
 import numpy as np
 import pytest
@@ -102,3 +103,33 @@ def test_refuses_device_deblock_without_partitions():
         TEncoder(_tparams(deblock_device=True), device="cpu")
     with pytest.raises(NotImplementedError, match="me_range"):
         TEncoder(_tparams(me_range=24), device="cpu")
+
+
+def test_cabac_with_metrics_stream_byte_equal_and_close():
+    """The 16x16-only path under CABAC (the writer's 16x16 form: part 0,
+    the MVD in slot 0) with PSNR and SSIM accumulated every frame:
+    byte-equal access units; close() equal, PSNR exactly and SSIM to
+    rtol 1e-5 (a float32 sum in another order)."""
+    frames = synthetic_sequence(W, H, 4, seed=7)
+    kw = dict(cabac=True, psnr=True, ssim=True)
+    jenc = JEncoder(_params(**kw))
+    want = [jenc.encode_frame(f) for f in frames]
+    tenc = TEncoder(_tparams(**kw), device="cpu")
+    got = [tenc.encode_frame(f) for f in frames]
+    assert got == want and tenc.flush() == b""
+    jd, td = jenc.close(), tenc.close()
+    assert td.keys() == jd.keys()
+    for k in jd:
+        if k == "ssim_y":
+            np.testing.assert_allclose(td[k], jd[k], rtol=1e-5)
+            assert td[k] > 0
+        elif k != "fps":
+            assert td[k] == jd[k], k
+    bs = b"".join(got)
+    dec, jdec = t_decode(bs), decode_annexb(bs)
+    assert len(dec) == len(jdec) == len(frames)
+    for a, b in zip(dec, jdec):
+        for pl in ("y", "u", "v"):
+            np.testing.assert_array_equal(getattr(a, pl), getattr(b, pl))
+        assert [m.unit_mvs for m in a.mbs] == [m.unit_mvs for m in b.mbs]
+    _check_payload(bs, tenc._stego.sent_messages)

@@ -4,8 +4,10 @@ reference, no B frames) on the pipelined stego path, against the JAX
 streams over IDR + 4 P frames for (transform_8x8, rd) in {(1, 1),
 (1, 0), (0, 1)}, with Intra_8x8 MBs in the IDR and 8x8-transform P MBs
 present; the port's decoder reproduces the JAX decoder's frames, and
-both extractors recover the payload. The accelerator branch's config-3
-case is in tests/test_torch_encoder_accel.py."""
+both extractors recover the payload; the same under CABAC, where the
+deblocker's nnz map of an 8x8-transform MB comes from its 8x8 blocks
+whatever the entropy mode. The accelerator branch's config-3 case is in
+tests/test_torch_encoder_accel.py."""
 
 import numpy as np
 import pytest
@@ -20,7 +22,8 @@ from video_steganography_pcamv_tpu.utils.yuv import Frame
 from video_steganography_pcamv_torch import Encoder as TEncoder
 from video_steganography_pcamv_torch import params as TP
 from video_steganography_pcamv_torch.decoder import decode_annexb
-from video_steganography_pcamv_torch.stego.extract import extract_from_stream
+from video_steganography_pcamv_torch.stego.extract import (
+    extract_from_frames)
 
 W, H = 128, 96
 EM_RATE, KEY = 64, 99
@@ -68,7 +71,7 @@ def check_decode_and_payload(got, n_frames, sent):
             np.testing.assert_array_equal(getattr(a, pl), getattr(b, pl))
         assert [m.mb_type for m in a.mbs] == [m.mb_type for m in b.mbs]
     assert sum(len(s) for s in sent) > 0
-    for rec in (extract_from_stream(got, em_rate=EM_RATE, key=KEY),
+    for rec in (extract_from_frames(dec, em_rate=EM_RATE),
                 j_extract(got, em_rate=EM_RATE, key=KEY)):
         assert len(rec) == len(sent)
         for g, s in zip(rec, sent):
@@ -100,3 +103,23 @@ def test_config3_stream_byte_equal_cpu_branch(t8, rd):
         assert tenc.stats.trans8_mbs > 0
     else:
         assert tenc.stats.i8x8_mbs == tenc.stats.trans8_mbs == 0
+
+
+def test_config3_cabac_stream_byte_equal_cpu_branch():
+    """Config 3 under CABAC (the cat-5 8x8 residuals, the transform
+    flag's contexts), trans8 + rd 1 as in the first case above."""
+    frames = config3_frames(5)
+    jp = Params(**config3_kw(), cabac=True,
+                stego=StegoParams(em_rate=EM_RATE, key=KEY))
+    jp.tail_kernel = False
+    want = _run(JEncoder(jp), frames)
+    tp = TP.Params(**config3_kw(), cabac=True,
+                   stego=TP.StegoParams(em_rate=EM_RATE, key=KEY))
+    tp.tail_kernel = False
+    tenc = TEncoder(tp, device="cpu")
+    got = _run(tenc, frames)
+    assert got == want
+    assert tenc.stats.i8x8_mbs > 0 and tenc.stats.trans8_mbs > 0
+    dec = check_decode_and_payload(got, len(frames),
+                                   tenc._stego.sent_messages)
+    assert "I8x8" in {m.mb_type for m in dec[0].mbs}

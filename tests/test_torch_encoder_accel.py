@@ -6,7 +6,11 @@ on the CPU without changing the JAX package, through `monkeypatch`
 alone: `jax.default_backend` answers "tpu"; the full-pel kernel B1 and
 the analyse tail run their Pallas kernels in interpret mode; the
 deblocker runs `deblock_jax.deblock_frame_device`, the bit-exact twin
-the reference's CPU branch already uses."""
+the reference's CPU branch already uses.
+
+The same branch also serves CABAC and the reference's default Params
+(PSNR on, host deblock: the fused P step unpipelined, `close()` equal).
+"""
 
 import jax
 import numpy as np
@@ -26,7 +30,8 @@ from video_steganography_pcamv_tpu.utils.yuv import synthetic_sequence
 from video_steganography_pcamv_torch import Encoder as TEncoder
 from video_steganography_pcamv_torch import params as TP
 from video_steganography_pcamv_torch.decoder import decode_annexb
-from video_steganography_pcamv_torch.stego.extract import extract_from_stream
+from video_steganography_pcamv_torch.stego.extract import (
+    extract_from_frames)
 
 W, H = 112, 80
 EM_RATE, KEY = 64, 99
@@ -92,7 +97,7 @@ def test_accel_stream_byte_equal_to_reference(reference_accel):
     assert len(dec) == len(frames) == len(j_decode(got))
     sent = tenc._stego.sent_messages
     assert sum(len(s) for s in sent) > 0
-    for rec in (extract_from_stream(got, em_rate=EM_RATE, key=KEY),
+    for rec in (extract_from_frames(dec, em_rate=EM_RATE),
                 j_extract(got, em_rate=EM_RATE, key=KEY)):
         assert len(rec) == len(sent)
         for g, s in zip(rec, sent):
@@ -124,8 +129,52 @@ def test_accel_config3_stream_byte_equal_to_reference(reference_accel):
     assert "I8x8" in {m.mb_type for m in dec[0].mbs}
     sent = tenc._stego.sent_messages
     assert sum(len(s) for s in sent) > 0
-    for rec in (extract_from_stream(got, em_rate=EM_RATE, key=KEY),
+    for rec in (extract_from_frames(dec, em_rate=EM_RATE),
                 j_extract(got, em_rate=EM_RATE, key=KEY)):
         assert len(rec) == len(sent)
         for g, s in zip(rec, sent):
             np.testing.assert_array_equal(g, s)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(_bench_kw(), cabac=True), dict(width=W, height=H)],
+    ids=["cabac", "defaults"])
+def test_accel_cabac_and_defaults_byte_equal_to_reference(reference_accel,
+                                                          kw):
+    """CABAC on the pipelined main path; Params(width, height, stego) at
+    its defaults: byte-equal streams, equal close() dicts (PSNR exactly,
+    SSIM to rtol 1e-5), the same frames and MV fields from both
+    decoders, the payload recovered."""
+    frames = synthetic_sequence(W, H, 4, seed=7)
+    jenc = JEncoder(Params(**kw, stego=StegoParams(em_rate=EM_RATE,
+                                                   key=KEY)))
+    want = _run(jenc, frames)
+    # (the patched entries are traced once per process and static
+    # configuration; this stream equals the port's tail_kernel=True one,
+    # which differs from its CPU branch's, see the first test)
+    tenc = TEncoder(TP.Params(**kw, stego=TP.StegoParams(em_rate=EM_RATE,
+                                                         key=KEY)),
+                    device="cpu")
+    got = _run(tenc, frames)
+    assert got == want
+    assert tenc.stats.p_frames == 3
+    jd, td = jenc.close(), tenc.close()
+    assert td.keys() == jd.keys()
+    for k in jd:
+        if k == "ssim_y":
+            np.testing.assert_allclose(td[k], jd[k], rtol=1e-5)
+        elif k != "fps":
+            assert td[k] == jd[k], k
+    assert (td["psnr_y"] < 99) == kw.get("psnr", True)
+    dec, jdec = decode_annexb(got), j_decode(got)
+    assert len(dec) == len(jdec) == len(frames)
+    for a, b in zip(dec, jdec):
+        for pl in ("y", "u", "v"):
+            np.testing.assert_array_equal(getattr(a, pl), getattr(b, pl))
+        assert [m.unit_mvs for m in a.mbs] == [m.unit_mvs for m in b.mbs]
+    sent = tenc._stego.sent_messages
+    assert sum(len(s) for s in sent) > 0
+    rec = extract_from_frames(dec, em_rate=EM_RATE)
+    assert len(rec) == len(sent)
+    for g, s in zip(rec, sent):
+        np.testing.assert_array_equal(g, s)

@@ -4,7 +4,8 @@ the JAX package, and its Encoder refuses what it cannot run.
 The import check runs in a subprocess whose meta-path finder refuses
 every `jax` and `video_steganography_pcamv_tpu` import and whose `open`
 refuses every path inside the JAX package; it imports every module of
-the port package and runs a tiny encode, decode and extraction. A
+the port package and runs a tiny encode, decode and extraction, under
+CAVLC and under CABAC at the reference's default Params. A
 source scan refuses any import of the JAX package in the port or in
 chip_smoke.py."""
 
@@ -56,16 +57,20 @@ _BLOCKED_IMPORT = textwrap.dedent("""
     from video_steganography_pcamv_torch.stego.extract import (
         extract_from_stream)
     from video_steganography_pcamv_torch.utils.yuv import synthetic_sequence
-    p = Params(width=32, height=32, qp=26, me_range=16, deblock_device=True,
-               psnr=False, stego=StegoParams(em_rate=4, key=3))
-    enc = Encoder(p, device="cpu")
     frames = synthetic_sequence(32, 32, 3, seed=1)
-    bs = b"".join(enc.encode_frame(f) for f in frames) + enc.flush()
-    assert len(decode_annexb(bs)) == 3
-    got = extract_from_stream(bs, em_rate=4, key=3)
-    sent = enc._stego.sent_messages
-    assert len(got) == len(sent) and all(
-        np.array_equal(a, b) for a, b in zip(got, sent))
+    for p in (Params(width=32, height=32, qp=26, me_range=16,
+                     deblock_device=True, psnr=False,
+                     stego=StegoParams(em_rate=4, key=3)),
+              Params(width=32, height=32, cabac=True, ssim=True,
+                     stego=StegoParams(em_rate=4, key=3))):
+        enc = Encoder(p, device="cpu")
+        bs = b"".join(enc.encode_frame(f) for f in frames) + enc.flush()
+        assert len(decode_annexb(bs)) == 3
+        got = extract_from_stream(bs, em_rate=4, key=3)
+        sent = enc._stego.sent_messages
+        assert len(got) == len(sent) and all(
+            np.array_equal(a, b) for a, b in zip(got, sent))
+    assert enc.close()["psnr_y"] < 99 and enc.close()["ssim_y"] > 0
     assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
     print(len(names))
 """)
@@ -183,18 +188,40 @@ def test_encoder_defaults_to_cuda():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(cabac=True), dict(bframes=2), dict(ref_frames=2), dict(p4x4=True),
+    dict(bframes=2), dict(ref_frames=2), dict(p4x4=True),
     dict(rd=2), dict(transform_8x8=True, partitions=False,
                      deblock_device=False), dict(me_range=24),
     dict(aq_mode=1),
     dict(noise_reduction=100), dict(crf=23.0), dict(pipeline_deep=True),
-    dict(psnr=True), dict(ssim=True), dict(zones="0,5,q=30"),
+    dict(zones="0,5,q=30"),
     dict(stego=StegoParams(em_rate=0)),
     dict(stego=StegoParams(em_rate=64, key=99, alpha_com=0.5)),
-    dict(deblock_device=False), dict(subpel=1), dict(dct_decimate=False),
-    dict(incremental=False),
+    dict(subpel=1), dict(dct_decimate=False),
+    dict(incremental=False), dict(partitions=False, deblock_device=True),
+    dict(cabac=True, bframes=2), dict(cabac=True, ref_frames=2),
 ], ids=lambda kw: ",".join(kw))
 def test_encoder_rejects_options_outside_the_slice(kw):
     from video_steganography_pcamv_torch import Encoder
     with pytest.raises(NotImplementedError):
         Encoder(_slice_params(**kw), device="cpu")
+
+
+@pytest.mark.parametrize("kw", [
+    dict(cabac=True), dict(psnr=True), dict(ssim=True),
+    dict(deblock_device=False), dict(pipeline=False),
+    dict(cabac=True, transform_8x8=True, rd=1),
+    dict(cabac=True, partitions=False, deblock_device=False),
+], ids=lambda kw: ",".join(kw))
+def test_encoder_accepts_the_reference_defaults_and_cabac(kw):
+    """Options the port serves since it took the reference's default
+    Params (PSNR on, host deblock, unpipelined) and CABAC."""
+    from video_steganography_pcamv_torch import Encoder
+    enc = Encoder(_slice_params(**kw), device="cpu")
+    assert enc.p.cabac == kw.get("cabac", False)
+
+
+def test_encoder_accepts_params_at_their_defaults():
+    from video_steganography_pcamv_torch import Encoder
+    p = Params(width=112, height=80, stego=StegoParams(em_rate=64, key=99))
+    assert p.psnr and not p.deblock_device and p.pipeline
+    Encoder(p, device="cpu")

@@ -6,11 +6,12 @@ matches a conforming decoder bit-exactly, and expose the motion-vector
 field for the blind stego extractor (the reference never shipped its
 extractor — stc_extract include commented out, analyse.c:43).
 
-The port's copy of the reference's decoder/decoder.py, cut to the CAVLC
-I/P path that the port's streams take (I16x16/I4x4/I8x8, P partitions
-incl. sub-8x8, the adaptive 8x8 transform, P_SKIP, sliding-window DPB).
-CABAC, scaling matrices, B slices and per-MB QP changes in a deblocked
-slice raise NotImplementedError. The in-loop filter is the port's
+The port's copy of the reference's decoder/decoder.py, cut to the I/P
+path that the port's streams take, under CAVLC or CABAC
+(I16x16/I4x4/I8x8, P partitions incl. sub-8x8, the adaptive 8x8
+transform, P_SKIP, sliding-window DPB; the CABAC parser is
+`cabac_dec.py`). Scaling matrices, B slices and per-MB QP changes in a
+deblocked slice raise NotImplementedError. The in-loop filter is the port's
 `ops.deblock`.
 """
 
@@ -198,6 +199,7 @@ class DecPPS:
     num_ref_idx_l0_active: int = 1
     deblocking_control_present: bool = True
     transform_8x8: bool = False
+    cabac: bool = False
 
 
 @dataclass
@@ -339,8 +341,7 @@ def parse_pps(rbsp: bytes) -> DecPPS:
     pps = DecPPS()
     br.read_ue()  # pps id
     br.read_ue()  # sps id
-    if br.read1():  # entropy_coding_mode
-        raise NotImplementedError("CABAC")
+    pps.cabac = bool(br.read1())  # entropy_coding_mode
     br.read1()  # pic_order_present
     assert br.read_ue() == 0, "slice groups unsupported"
     pps.num_ref_idx_l0_active = br.read_ue() + 1
@@ -1057,6 +1058,9 @@ def decode_annexb(data: bytes) -> list[DecodedFrame]:
                 br.read1()
             elif ref_idc != 0:
                 assert br.read1() == 0  # sliding window
+            cabac_model = 0
+            if pps.cabac and slice_type not in (2, 7):
+                cabac_model = br.read_ue()  # cabac_init_idc
             qp = pps.pic_init_qp + br.read_se()
             disable = 1
             alpha_off = beta_off = 0
@@ -1087,7 +1091,10 @@ def decode_annexb(data: bytes) -> list[DecodedFrame]:
                     l0p.insert(idx, l0p.pop(j))
             dec = SliceDecoder(sps, pps, refs=l0p)
             dec.p_l0_active = l0_override
-            dec.decode_slice(br, slice_type, qp)
+            if pps.cabac:
+                _decode_slice_cabac(dec, br, slice_type, qp, cabac_model)
+            else:
+                dec.decode_slice(br, slice_type, qp)
             if disable != 1:
                 dec.y, dec.u, dec.v = _deblock(dec, qp, alpha_off, beta_off,
                                                pps.chroma_qp_index_offset)
@@ -1104,3 +1111,236 @@ def decode_annexb(data: bytes) -> list[DecodedFrame]:
                                "frame_num": frame_num})
                 del dpb[max(1, sps.num_ref_frames):]
     return frames
+
+
+# ---------------------------------------------------------------------------
+# CABAC slice decode (spec 7.3.4 ae(v) path; parser in cabac_dec.py)
+# ---------------------------------------------------------------------------
+
+def _dez16(levels):
+    return R.dezigzag(list(levels))
+
+
+def _decode_slice_cabac(dec: SliceDecoder, br, slice_type: int, qp: int,
+                        model: int = 0):
+    from .cabac_dec import CabacSliceParser
+
+    while br.bit_position() % 8:
+        assert br.read1() == 1, "cabac_alignment_one_bit must be 1"
+    is_i = slice_type in (2, 7)
+    ps = CabacSliceParser(br, dec.mbw, dec.mbh, qp, is_i, model,
+                          num_ref=(dec.p_l0_active
+                                   if dec.p_l0_active is not None
+                                   else dec.pps.num_ref_idx_l0_active),
+                          trans8_mode=dec.pps.transform_8x8)
+    qpc = int(CHROMA_QP[np.clip(qp + dec.pps.chroma_qp_index_offset,
+                                0, 51)])
+    n = dec.mbh * dec.mbw
+    for a in range(n):
+        my, mx = a // dec.mbw, a % dec.mbw
+        if is_i:
+            i4, mode16, cbpl, cbpc = ps.mb_type_i_slice(my, mx)
+            if i4:
+                if ps.trans8_mode and ps.transform_size_flag(my, mx):
+                    _recon_i8_cabac(dec, ps, my, mx, qp, qpc)
+                else:
+                    _recon_i4_cabac(dec, ps, my, mx, qp, qpc)
+            else:
+                _recon_i16_cabac(dec, ps, my, mx, mode16, cbpl, cbpc,
+                                 qp, qpc)
+            dec.decoded[my, mx] = True
+        else:
+            if ps.skip_flag(my, mx):
+                ps.parse_skip_mb(my, mx)
+                dec.decode_pskip(mx, my, ps.qp)
+            else:
+                is_intra, info = ps.mb_type_p()
+                if is_intra:
+                    i4, mode16, cbpl, cbpc = info
+                    dec.mb_intra[my, mx] = True
+                    if i4:
+                        if ps.trans8_mode \
+                                and ps.transform_size_flag(my, mx):
+                            _recon_i8_cabac(dec, ps, my, mx, qp, qpc)
+                        else:
+                            _recon_i4_cabac(dec, ps, my, mx, qp, qpc)
+                    else:
+                        _recon_i16_cabac(dec, ps, my, mx, mode16, cbpl,
+                                         cbpc, qp, qpc)
+                    dec.decoded[my, mx] = True
+                else:
+                    _recon_p_cabac(dec, ps, my, mx, info, qp, qpc)
+        eos = ps.end_mb()
+        assert eos == (1 if a == n - 1 else 0), f"end_of_slice at MB {a}"
+    dec.nnz_y = ps.nnz_y  # deblock consumes the luma nnz map
+
+
+def _recon_chroma_from(dec, ps, my, mx, cmode, cbp_chroma, cdcs, cacs,
+                       qpc, intra):
+    gx, gy = 8 * mx, 8 * my
+    at, al = my > 0, mx > 0
+    for ch, plane in ((0, dec.u), (1, dec.v)):
+        dc2 = np.array([[cdcs[ch][0], cdcs[ch][1]],
+                        [cdcs[ch][2], cdcs[ch][3]]], np.int64)
+        dc = (R.dequant_dc_chroma(R.ihadamard2x2(dc2), qpc,
+                                  intra=intra)
+              if cbp_chroma else np.zeros((2, 2), np.int64))
+        blocks = np.zeros((2, 2, 4, 4), np.int64)
+        if cbp_chroma == 2:
+            for by in range(2):
+                for bx in range(2):
+                    blocks[by, bx] = R.dequant4x4(
+                        _dez16(cacs[ch, by, bx]), qpc, intra=intra)
+        blocks[:, :, 0, 0] = dc
+        if intra:
+            top = plane[gy - 1, gx:gx + 8] if at else np.zeros(8, np.int64)
+            left = plane[gy:gy + 8, gx - 1] if al else np.zeros(8, np.int64)
+            tl = plane[gy - 1, gx - 1] if (at and al) else 0
+            pred = R.pred_chroma(cmode, top, left, tl, at, al)
+        else:
+            pred = dec._inter_pred_chroma(ch, mx, my)
+        for by in range(2):
+            for bx in range(2):
+                py, px = gy + 4 * by, gx + 4 * bx
+                plane[py:py + 4, px:px + 4] = R.recon_block4x4(
+                    pred[4 * by:4 * by + 4, 4 * bx:4 * bx + 4],
+                    blocks[by, bx])
+
+
+def _recon_i16_cabac(dec, ps, my, mx, mode16, cbpl, cbpc, qp, qpc):
+    cmode, dc_lv, acs, cdcs, cacs = ps.parse_i16_mb(
+        my, mx, mode16, cbpl, cbpc)
+    qp = ps.qp
+    qpc = int(CHROMA_QP[np.clip(qp + dec.pps.chroma_qp_index_offset,
+                                0, 51)])
+    gx, gy = 16 * mx, 16 * my
+    at, al = my > 0, mx > 0
+    top = dec.y[gy - 1, gx:gx + 16] if at else np.zeros(16, np.int64)
+    left = dec.y[gy:gy + 16, gx - 1] if al else np.zeros(16, np.int64)
+    tl = dec.y[gy - 1, gx - 1] if (at and al) else 0
+    pred = R.pred_16x16(mode16, top, left, tl, at, al)
+    dc = R.dequant_dc_luma(R.ihadamard4x4(_dez16(dc_lv)), qp)
+    blocks = np.zeros((4, 4, 4, 4), np.int64)
+    for by in range(4):
+        for bx in range(4):
+            if cbpl:
+                blocks[by, bx] = R.dequant4x4(_dez16(acs[by, bx]), qp,
+                                              intra=True)
+    blocks[:, :, 0, 0] = dc
+    for by in range(4):
+        for bx in range(4):
+            py, px = gy + 4 * by, gx + 4 * bx
+            dec.y[py:py + 4, px:px + 4] = R.recon_block4x4(
+                pred[4 * by:4 * by + 4, 4 * bx:4 * bx + 4],
+                blocks[by, bx])
+    _recon_chroma_from(dec, ps, my, mx, cmode, cbpc, cdcs, cacs, qpc,
+                       True)
+    # intra neighbours: AVAILABLE with mv 0 / ref -1 for MVP/P_SKIP
+    # (x264 cache -1 vs -2 outside, macroblock.c:28-46)
+    dec.dec4[4 * my:4 * my + 4, 4 * mx:4 * mx + 4] = True
+    dec.mv4[4 * my:4 * my + 4, 4 * mx:4 * mx + 4] = 0
+    dec.ref4[4 * my:4 * my + 4, 4 * mx:4 * mx + 4] = -1
+    dec.mb_intra[my, mx] = True
+    dec.mbs.append(MBInfo("I16x16", (0, 0), qp))
+
+
+def _recon_i4_cabac(dec, ps, my, mx, qp, qpc):
+    modes, cmode, cbp_luma, cbp_chroma, blk_lv, cdcs, cacs = \
+        ps.parse_i4_mb(my, mx)
+    qp = ps.qp
+    qpc = int(CHROMA_QP[np.clip(qp + dec.pps.chroma_qp_index_offset,
+                                0, 51)])
+    blocks = np.zeros((4, 4, 4, 4), np.int64)
+    for by in range(4):
+        for bx in range(4):
+            blocks[by, bx] = R.dequant4x4(_dez16(blk_lv[by, bx]), qp,
+                                          intra=True)
+    for blk in range(16):
+        by, bx = LUMA_SCAN[blk]
+        # keep the CAVLC-path mode map in sync for any later MBs
+        dec.modes4[4 * my + by, 4 * mx + bx] = modes[blk]
+        pred = dec._i4_pred_block(mx, my, by, bx, int(modes[blk]))
+        py, px = 16 * my + 4 * by, 16 * mx + 4 * bx
+        dec.y[py:py + 4, px:px + 4] = R.recon_block4x4(
+            pred, blocks[by, bx])
+    _recon_chroma_from(dec, ps, my, mx, cmode, cbp_chroma, cdcs, cacs,
+                       qpc, True)
+    # intra neighbours: AVAILABLE with mv 0 / ref -1 for MVP/P_SKIP
+    # (x264 cache -1 vs -2 outside, macroblock.c:28-46)
+    dec.dec4[4 * my:4 * my + 4, 4 * mx:4 * mx + 4] = True
+    dec.mv4[4 * my:4 * my + 4, 4 * mx:4 * mx + 4] = 0
+    dec.ref4[4 * my:4 * my + 4, 4 * mx:4 * mx + 4] = -1
+    dec.mb_intra[my, mx] = True
+    dec.mbs.append(MBInfo("I4x4", (0, 0), qp))
+
+
+def _recon_i8_cabac(dec, ps, my, mx, qp, qpc):
+    """I_NxN with transform flag 1 under CABAC: cat-5 residual +
+    shared 8x8 prediction/recon helpers (twin of decode_i8x8)."""
+    modes8, cmode, cbp_luma, cbp_chroma, lev8, cdcs, cacs = \
+        ps.parse_i8_mb(my, mx)
+    qp = ps.qp
+    qpc = int(CHROMA_QP[np.clip(qp + dec.pps.chroma_qp_index_offset,
+                                0, 51)])
+    for b, (by8, bx8) in enumerate(dec._Z8):
+        # keep the CAVLC-path mode map in sync for later i4 MBs
+        dec.modes4[4 * my + 2 * by8:4 * my + 2 * by8 + 2,
+                   4 * mx + 2 * bx8:4 * mx + 2 * bx8 + 2] = modes8[b]
+        deq = R.dequant8x8(R.dezigzag8(lev8[by8, bx8]), qp, intra=True)
+        pred = dec._i8_pred_block(mx, my, by8, bx8, int(modes8[b]))
+        py, px = 16 * my + 8 * by8, 16 * mx + 8 * bx8
+        dec.y[py:py + 8, px:px + 8] = R.idct8x8_add(pred, deq)
+    _recon_chroma_from(dec, ps, my, mx, cmode, cbp_chroma, cdcs, cacs,
+                       qpc, True)
+    # intra neighbours: AVAILABLE with mv 0 / ref -1 for MVP/P_SKIP
+    # (x264 cache -1 vs -2 outside, macroblock.c:28-46)
+    dec.dec4[4 * my:4 * my + 4, 4 * mx:4 * mx + 4] = True
+    dec.mv4[4 * my:4 * my + 4, 4 * mx:4 * mx + 4] = 0
+    dec.ref4[4 * my:4 * my + 4, 4 * mx:4 * mx + 4] = -1
+    dec.mb_intra[my, mx] = True
+    dec.mb_trans8[my, mx] = True
+    dec.mbs.append(MBInfo("I8x8", (0, 0), qp))
+
+
+def _recon_p_cabac(dec, ps, my, mx, part, qp, qpc):
+    ((mvds, subs, refs), cbp_luma, cbp_chroma, blk_lv, cdcs, cacs,
+     lev8) = ps.parse_p_mb(my, mx, part)
+    qp = ps.qp
+    qpc = int(CHROMA_QP[np.clip(qp + dec.pps.chroma_qp_index_offset,
+                                0, 51)])
+    geom = mb_units(part, subs)
+    ref_geom = UNIT_GEOM[part]
+    y4, x4 = 4 * my, 4 * mx
+    for k, (oy, ox, w4, h4) in enumerate(ref_geom):
+        dec.ref4[y4 + oy:y4 + oy + h4, x4 + ox:x4 + ox + w4] = refs[k]
+    unit_mvs = []
+    for u, (oy, ox, w4, h4) in enumerate(geom):
+        mvp = dec._unit_mvp(y4 + oy, x4 + ox, w4, part, u,
+                            ref=int(dec.ref4[y4 + oy, x4 + ox]))
+        mv = np.array([mvp[0] + mvds[u][0], mvp[1] + mvds[u][1]],
+                      np.int32)
+        dec.mv4[y4 + oy:y4 + oy + h4, x4 + ox:x4 + ox + w4] = mv
+        dec.dec4[y4 + oy:y4 + oy + h4, x4 + ox:x4 + ox + w4] = True
+        unit_mvs.append((int(mv[0]), int(mv[1])))
+    if lev8 is not None:
+        deq8 = np.stack([np.stack([
+            R.dequant8x8(R.dezigzag8(lev8[a, b2]), qp, intra=False)
+            for b2 in range(2)]) for a in range(2)])
+        dec._recon_inter_luma8(mx, my, deq8)
+        dec.mb_trans8[my, mx] = True
+        for b, (by8, bx8) in enumerate(dec._Z8):
+            dec.nnz8[2 * my + by8, 2 * mx + bx8] = int(
+                np.count_nonzero(lev8[by8, bx8]))
+    else:
+        blocks = np.zeros((4, 4, 4, 4), np.int64)
+        for by in range(4):
+            for bx in range(4):
+                if cbp_luma & (1 << ((by // 2) * 2 + bx // 2)):
+                    blocks[by, bx] = R.dequant4x4(
+                        _dez16(blk_lv[by, bx]), qp)
+        dec._recon_inter_luma(mx, my, blocks)
+    _recon_chroma_from(dec, ps, my, mx, 0, cbp_chroma, cdcs, cacs, qpc,
+                       False)
+    dec.decoded[my, mx] = True
+    kind = ("P16x16", "P16x8", "P8x16", "P8x8")[part]
+    dec.mbs.append(MBInfo(kind, unit_mvs[0], qp, unit_mvs=unit_mvs))

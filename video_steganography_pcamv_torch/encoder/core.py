@@ -1,14 +1,22 @@
-"""Encoder lifecycle + the pipelined stego serving loop (port of the
-IPP subset of encoder/core.py).
+"""Encoder lifecycle + the fused stego serving loop (port of the IPP
+subset of encoder/core.py).
 
 Per P frame: the lowres lookahead costs and the fused stage 1
 (`p_stage1_stego`) are enqueued on the device; the previous frame's
-entropy (native CAVLC) is written on the host meanwhile; then ONE
-`.cpu()` pull of the packed stage-1 tensor feeds the slice-type
+entropy (native CAVLC or CABAC) is written on the host meanwhile; then
+ONE `.cpu()` pull of the packed stage-1 tensor feeds the slice-type
 decision and the host STC; the flip re-encode, the lean level pack and
 the in-loop deblock (kernel B5) are enqueued, and the level buffer is
 pulled and entropy-coded during the next frame's call (`flush` drains
 the last one). Frame 0 and keyint/scenecut frames are IDR frames.
+
+That pipelining needs `pipeline`, the device deblock and metrics off,
+as in the reference. Otherwise (the reference's default Params: PSNR
+on, `deblock_device=False`) each P frame takes the same fused step
+unpipelined: its slice is written in its own call, and the PSNR/SSIM
+of the deblocked recon is accumulated on the device (`close()`
+reports it). The reference deblocks that branch on the host; the
+port's deblocker (B5) is bit-exact to it.
 
 The reference's two P-analysis branches differ, for this slice, in
 B1's MV predictor, a choice the reference ties to its backend. The port
@@ -29,11 +37,12 @@ With `partitions=False` (x264's `--partitions none`) every frame takes
 the reference's non-fused IPP branch instead, unpipelined: each call
 returns its own access unit. A P frame runs the 16x16 analysis
 (`analyse2`: kernels B6 and B7, the qpel tables), the pass-1 encode
-(kernels B8a/B8b), the native MVP/P_SKIP scan, the stego embedding with
-its batched probe encode and pass-2 re-encode (`StegoEngine.
-embed_frame`), the in-loop deblock (kernel B5) and the native CAVLC
-writer. The reference serves this path only with its host deblocker
-(`deblock_device=False`); the port's deblocker is bit-exact to it.
+(the fused luma-encode kernel), the native MVP/P_SKIP scan, the stego
+embedding with its batched probe encode and pass-2 re-encode
+(`StegoEngine.embed_frame`), the in-loop deblock (kernel B5) and the
+native CAVLC or CABAC writer. The reference serves this path only with
+its host deblocker (`deblock_device=False`); the port's deblocker is
+bit-exact to it.
 """
 
 from __future__ import annotations
@@ -47,6 +56,7 @@ import torch
 from .. import native
 from ..ops import mc
 from ..ops.deblock import deblock_frame
+from ..ops.pixel import psnr_from_ssd, ssim_wxh
 from ..ops.transform import chroma_qp
 from ..params import Params, SLICE_I, SLICE_P, param2string
 from ..stego.cost import cost_mv_table
@@ -76,12 +86,12 @@ _LEAN_WIDTH8 = 257
 
 def check_slice(p: Params) -> None:
     """Raise NotImplementedError for any option outside the ported
-    slice: IPPP, CQP, CAVLC, one reference, subpel 2, decimation,
-    incremental re-encode, stego on, pipelined serving loop, metrics
-    off, me_range <= PAD - MARGIN, and either partitions with the device
-    deblock (the serving path, optionally with the 8x8 transform and
-    rd 1) or partitions off with the host deblock (the 16x16-only
-    path)."""
+    slice: IPPP, CQP, CAVLC or CABAC, one reference, subpel 2,
+    decimation, incremental re-encode, stego on, me_range <= PAD -
+    MARGIN, and either partitions (the serving path, optionally with
+    the 8x8 transform and rd 1; pipelined or not, PSNR/SSIM on or off,
+    either deblocker) or partitions off with the host deblock (the
+    16x16-only path)."""
     if not p.partitions and p.deblock_device:
         raise NotImplementedError(
             "partitions off with deblock_device on: the reference drops "
@@ -90,7 +100,7 @@ def check_slice(p: Params) -> None:
             "; use deblock_device=False")
     bad = []
     for name, ok in (
-            ("cabac", not p.cabac), ("bframes", p.bframes == 0),
+            ("bframes", p.bframes == 0),
             ("ref_frames>1", p.ref_frames == 1), ("p4x4", not p.p4x4),
             ("transform_8x8 without partitions",
              p.partitions or not p.transform_8x8),
@@ -100,19 +110,16 @@ def check_slice(p: Params) -> None:
             ("noise_reduction", p.noise_reduction == 0),
             ("rc_mode!=0", p.rc_mode == 0),
             ("pipeline_deep", not p.pipeline_deep),
-            ("pipeline off", p.pipeline),
             ("i4x4 off", p.i4x4),
             ("subpel!=2", p.subpel == 2),
             ("dct_decimate off", p.dct_decimate),
             ("incremental off", p.incremental),
-            ("psnr", not p.psnr), ("ssim", not p.ssim),
             ("zones", not p.zones), ("qpfile", not p.qpfile),
             ("cqm", p.cqm == "flat" and p.cqm4i is None
              and p.cqm4p is None),
             ("deadzones", p.deadzone_inter == 21
              and p.deadzone_intra == 11),
             ("deblock off", p.deblock),
-            ("deblock_device off", p.deblock_device or not p.partitions),
             ("me_range>%d (a window of the qpel analysis would leave "
              "the padded planes, where the reference's CPU branch reads "
              "clamped gather indices and its TPU branch clamped strips)"
@@ -131,6 +138,10 @@ def check_slice(p: Params) -> None:
 class EncodeStats:
     frames: int = 0
     bits: int = 0
+    ssd_y: int = 0          # summed over the frames (Params.psnr)
+    ssd_u: int = 0
+    ssd_v: int = 0
+    ssim_sum: float = 0.0   # window SSIMs summed (Params.ssim)
     i_frames: int = 0
     p_frames: int = 0
     mv_covers: int = 0
@@ -294,6 +305,7 @@ class Encoder:
         self.idr_pic_id = 0
         self.stats = EncodeStats()
         self.prev_mv = None
+        self.recon_prev = None  # the last frame's deblocked planes
         self._stego = StegoEngine(params)
         self.rc = RateControl(params)
         self.lookahead = Lookahead(params)
@@ -333,7 +345,7 @@ class Encoder:
         y, u, v = self._pad(frame)
         if (self.p.partitions and self.ref is not None
                 and self.lookahead.prev_lr is not None):
-            return self._encode_frame_ipp_fast(y, u, v, t0)
+            return self._encode_frame_ipp_fast(frame, y, u, v, t0)
         out_pend = self._drain_pending()
         is_idr, satd = self.lookahead.decide(y)
         if self.ref is None:
@@ -348,6 +360,7 @@ class Encoder:
             out += nal_unit(NAL_SLICE, NAL_PRIORITY_HIGH,
                             self._encode_p16(y, u, v, qp))
             self.stats.p_frames += 1
+        self._accumulate_psnr(frame, y, u, v)
         self.frame_num += 1
         self.stats.frames += 1
         self.stats.bits += 8 * len(out)
@@ -363,8 +376,10 @@ class Encoder:
         self.stats.i_frames += 1
         return out + nal_unit(NAL_SLICE_IDR, NAL_PRIORITY_HIGHEST, nal)
 
-    def _encode_frame_ipp_fast(self, y, u, v, t0) -> bytes:
+    def _encode_frame_ipp_fast(self, frame, y, u, v, t0) -> bytes:
         p = self.p
+        pipelined = (p.pipeline and p.deblock_device
+                     and not (p.psnr or p.ssim))
         lr2 = self.lookahead.costs_device(y)
         qp = self.rc.start(SLICE_P, 1)
         qpc = chroma_qp(qp, p.chroma_qp_offset)
@@ -376,19 +391,25 @@ class Encoder:
         ci, cp = int(packed[24 * n]), int(packed[24 * n + 1])
         is_idr, satd = self.lookahead.decide_from_costs(ci, cp)
         out = self._aud(SLICE_I if is_idr else SLICE_P)
-        if not is_idr:
+        if is_idr:
+            qp = self.rc.start(SLICE_I, satd)
+            out += self._encode_idr(y, u, v, qp)
+        else:
             d["packed"] = packed
             pend = self._fused_complete(d)
-            pend.update(frame_num=self.frame_num, poc_lsb=self._poc_lsb,
-                        aud=out)
-            self._pending_p = pend
+            pend.update(frame_num=self.frame_num, poc_lsb=self._poc_lsb)
+            if pipelined:
+                pend["aud"] = out
+                self._pending_p = pend
+                self.stats.p_frames += 1
+                self.frame_num += 1
+                self.stats.frames += 1
+                self.stats.elapsed += time.time() - t0
+                return out_prev
+            # unpipelined: the slice is written in this call
+            out += self._p_nal(pend)
             self.stats.p_frames += 1
-            self.frame_num += 1
-            self.stats.frames += 1
-            self.stats.elapsed += time.time() - t0
-            return out_prev
-        qp = self.rc.start(SLICE_I, satd)
-        out += self._encode_idr(y, u, v, qp)
+        self._accumulate_psnr(frame, y, u, v)
         self.frame_num += 1
         self.stats.frames += 1
         self.stats.bits += 8 * len(out)
@@ -397,9 +418,61 @@ class Encoder:
         return out_prev + out
 
     def flush(self) -> bytes:
-        """Drain the deferred entropy of the last P frame (b"" on the
-        unpipelined 16x16-only path)."""
+        """Drain the deferred entropy of the last P frame (b"" when
+        every call returned its own access unit: unpipelined or the
+        16x16-only path)."""
         return self._drain_pending()
+
+    def close(self) -> dict:
+        """Final summary (x264_encoder_close, encoder.c:2795-2884), the
+        reference's dict, and the rate control's stat flush."""
+        self.rc.write_stats()
+        st, p = self.stats, self.p
+        n = max(1, st.frames)
+        npix_y = n * p.width * p.height
+        return {
+            "frames": st.frames,
+            "fps": st.frames / st.elapsed if st.elapsed > 0 else 0.0,
+            "kbps": st.bits * p.fps_num / p.fps_den / n / 1000.0,
+            "psnr_y": psnr_from_ssd(st.ssd_y, npix_y),
+            "psnr_u": psnr_from_ssd(st.ssd_u, npix_y // 4),
+            "psnr_v": psnr_from_ssd(st.ssd_v, npix_y // 4),
+            "ssim_y": (st.ssim_sum / n
+                       / max(1, ((p.width - 6) >> 2)
+                             * ((p.height - 6) >> 2))
+                       if p.ssim else 0.0),
+            "mv_covers": st.mv_covers,
+            "message_bits": st.message_bits,
+            "mv_flips": st.mv_flips,
+        }
+
+    def _accumulate_psnr(self, frame: Frame, y, u, v):
+        """Add the frame's SSDs (Params.psnr) and SSIM sum (Params.ssim)
+        of the deblocked recon against the source: int64 sums and the
+        SSIM on the device, one pull of the four scalars. y/u/v are the
+        padded source planes on the device (their top-left crop is the
+        frame)."""
+        p = self.p
+        if self.recon_prev is None or not (p.psnr or p.ssim):
+            return
+        h, w = frame.y.shape
+        ry, ru, rv = self.recon_prev
+        vals = []
+        if p.psnr:
+            for r, s, hh, ww in ((ry, y, h, w), (ru, u, h // 2, w // 2),
+                                 (rv, v, h // 2, w // 2)):
+                d = r[:hh, :ww].to(torch.int64) - s[:hh, :ww].to(torch.int64)
+                vals.append((d * d).sum().to(torch.float64))
+        if p.ssim:
+            vals.append(ssim_wxh(ry[2:h, 2:w], y[2:h, 2:w])
+                        .to(torch.float64))
+        got = torch.stack(vals).cpu().tolist()
+        if p.psnr:
+            self.stats.ssd_y += int(got[0])
+            self.stats.ssd_u += int(got[1])
+            self.stats.ssd_v += int(got[2])
+        if p.ssim:
+            self.stats.ssim_sum += got[-1]
 
     def _drain_pending(self) -> bytes:
         pd = self._pending_p
@@ -407,6 +480,16 @@ class Encoder:
             return b""
         self._pending_p = None
         t0 = time.time()
+        out = pd["aud"] + self._p_nal(pd)
+        self.stats.bits += 8 * len(out)
+        self.rc.end(8 * len(out))
+        self.stats.elapsed += time.time() - t0
+        return out
+
+    def _p_nal(self, pd: dict) -> bytes:
+        """The slice NAL of a completed fused P frame: its level buffer
+        pulled (the lean one, or the exact levels on its overflow) and
+        entropy-coded."""
         p = self.p
         mbh, mbw = p.mb_height, p.mb_width
         res_np = _unpack_frame_lean(pd["buf"].cpu().numpy(), mbh, mbw,
@@ -419,11 +502,7 @@ class Encoder:
         nal = self._finish_p_slice(res_np, pd["qp"], pd["part"], pd["mvd"],
                                    pd["skip"], pd["frame_num"],
                                    pd["poc_lsb"])
-        out = pd["aud"] + nal_unit(NAL_SLICE, NAL_PRIORITY_HIGH, nal)
-        self.stats.bits += 8 * len(out)
-        self.rc.end(8 * len(out))
-        self.stats.elapsed += time.time() - t0
-        return out
+        return nal_unit(NAL_SLICE, NAL_PRIORITY_HIGH, nal)
 
     # ------------------------------------------------------------------
     def _encode_p16(self, y, u, v, qp: int) -> bytes:
@@ -508,6 +587,21 @@ class Encoder:
                              poc_lsb=self._poc_lsb)
         self.idr_pic_id = (self.idr_pic_id + 1) % 65536
         hdr, nbits = bw.partial_bytes()
+        if p.cabac:
+            return native.write_slice_cabac(
+                hdr, nbits, H.SLICE_TYPE_I, mbw, mbh, qp,
+                mode=res["mode"].reshape(n), cmode=res["cmode"].reshape(n),
+                cbp_luma=res["cbp_luma"], cbp_chroma=res["cbp_chroma"],
+                luma_dc=res["luma_dc"].reshape(n, 16),
+                luma_blocks=res["luma_ac"].reshape(n, 16, 16),
+                chroma_dc=res["chroma_dc"].reshape(n, 2, 4),
+                chroma_ac=res["chroma_ac"].reshape(n, 2, 4, 16),
+                mb_i4=res["mb_i4"].reshape(n),
+                i4_modes=res["i4_modes"].reshape(n, 16),
+                mb_i8=res["mb_i8"].reshape(n) if t8 else None,
+                i8_modes=res["i8_modes"].reshape(n, 4) if t8 else None,
+                luma8_lev=res["luma8_lev"].reshape(n, 256) if t8 else None,
+                trans8_mode=t8)
         return native.write_slice(
             hdr, nbits, H.SLICE_TYPE_I, mbw, mbh,
             mode=res["mode"].reshape(n), cmode=res["cmode"].reshape(n),
@@ -610,6 +704,7 @@ class Encoder:
             chroma_qp(qp, p.chroma_qp_offset), p.mb_height, p.mb_width,
             qp_thresh=(15 - min(off_a, off_b) - max(0, p.chroma_qp_offset)),
             off_a=off_a, off_b=off_b, trans8=trans8)
+        self.recon_prev = (dy, du, dv)
         self._push_ref(mc.build_ref(dy, du, dv))
 
     def _push_ref(self, refdict: dict):
@@ -621,10 +716,12 @@ class Encoder:
 
     def _finish_p_slice(self, res_np, qp: int, part_np, mvd, skip,
                         frame_num: int, poc_lsb: int) -> bytes:
-        """P slice header + native CAVLC entropy of a completed frame."""
+        """P slice header + native CAVLC or CABAC entropy of a completed
+        frame (the 16x16-only path passes part 0 and mvd in slot 0)."""
         p = self.p
         mbh, mbw = p.mb_height, p.mb_width
         n = mbh * mbw
+        t8 = bool(p.transform_8x8)
         bw = BitWriter()
         H.write_slice_header(bw, self.sps, self.pps, H.SLICE_TYPE_P,
                              frame_num, qp, idr=False, disable_deblock=0,
@@ -632,6 +729,19 @@ class Encoder:
                              beta_div2=p.deblock_beta, poc_lsb=poc_lsb,
                              reorder_l0=None, p_l0_active=1)
         hdr, nbits = bw.partial_bytes()
+        if p.cabac:
+            return native.write_slice_cabac(
+                hdr, nbits, H.SLICE_TYPE_P, mbw, mbh, qp,
+                skip=skip.reshape(n).astype(np.uint8),
+                part=part_np.reshape(n), mvd4=mvd.reshape(n, 4, 2),
+                cbp_luma=res_np["cbp_luma"], cbp_chroma=res_np["cbp_chroma"],
+                luma_blocks=res_np["luma_lev"].reshape(n, 16, 16),
+                chroma_dc=res_np["chroma_dc"].reshape(n, 2, 4),
+                chroma_ac=res_np["chroma_ac"].reshape(n, 2, 4, 16),
+                luma8_lev=(res_np["luma8_lev"].reshape(n, 256) if t8
+                           else None),
+                trans8=res_np["trans8"].astype(np.int32) if t8 else None,
+                trans8_mode=t8)
         return native.write_slice(
             hdr, nbits, H.SLICE_TYPE_P, mbw, mbh,
             skip=skip.reshape(n).astype(np.uint8),
@@ -641,8 +751,7 @@ class Encoder:
             chroma_dc=res_np["chroma_dc"].reshape(n, 2, 4),
             chroma_ac=res_np["chroma_ac"].reshape(n, 2, 4, 16),
             trans8=res_np["trans8"].reshape(n) if "trans8" in res_np
-            else None, luma8_lev=res_np.get("luma8_lev"),
-            trans8_mode=bool(p.transform_8x8))
+            else None, luma8_lev=res_np.get("luma8_lev"), trans8_mode=t8)
 
     def load_state(self, d: dict) -> None:
         """Resume mid-stream from a state dict of numpy arrays (see

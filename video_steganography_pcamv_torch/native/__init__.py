@@ -1,7 +1,8 @@
 """ctypes loader for the port's native host back-end.
 
 `pcamv_native.cpp` (CAVLC slice writer, the partition and 16x16 MVP /
-P_SKIP scans, STC embedder) is the port's copy of the reference package's C++ source. It
+P_SKIP scans, STC embedder) and `cabac.cpp` (the CABAC I/P slice
+writer) are the port's copies of the reference package's C++ sources. It
 is compiled with g++ at first use into `build/torch_native/` at the
 repository root (git-ignored); the library name carries a hash of the
 sources and flags, so an edit rebuilds it. A failed build raises.
@@ -23,7 +24,7 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_DIR)), "build",
                          "torch_native")
 CXX_FLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17"]
-_SOURCES = ("pcamv_native.cpp",)
+_SOURCES = ("pcamv_native.cpp", "cabac.cpp")
 
 _lib = None
 build_seconds = None
@@ -78,6 +79,11 @@ def load() -> ctypes.CDLL:
         u8p, ctypes.c_long, u8p, ci, ci, ci, ci,
         vp, vp, vp, i32p, i32p, vp, i32p, i32p, i32p, vp, vp, vp, vp,
         vp, vp, vp, vp, ci]
+    lib.pcamv_write_slice_cabac.restype = ctypes.c_long
+    lib.pcamv_write_slice_cabac.argtypes = [
+        u8p, ctypes.c_long, u8p, ci, ci, ci, ci, ci, ci,
+        vp, vp, vp, vp, vp, i32p, i32p, vp, i32p, i32p, i32p,
+        vp, vp, vp, ci, vp, ci, vp, vp, vp, vp, ci]
     lib.pcamv_scan_p_parts_forced.restype = None
     lib.pcamv_scan_p_parts_forced.argtypes = [
         i32p, i32p, u8p, ci, ci, i32p, i32p, i32p]
@@ -159,6 +165,68 @@ def write_slice(header_bytes: bytes, header_nbits: int, slice_type: int,
         cap *= 4
         if cap > (1 << 28):
             raise RuntimeError("native slice writer overflow")
+
+
+def write_slice_cabac(header_bytes: bytes, header_nbits: int,
+                      slice_type: int, mbw: int, mbh: int, qp: int, *,
+                      model: int = 0, skip=None, part=None, mvd4=None,
+                      mode=None, cmode=None, cbp_luma, cbp_chroma,
+                      luma_dc=None, luma_blocks, chroma_dc, chroma_ac,
+                      mb_i4=None, i4_modes=None, refs=None,
+                      num_ref: int = 1, sub_type=None, mb_i8=None,
+                      i8_modes=None, luma8_lev=None, trans8=None,
+                      trans8_mode: bool = False) -> bytes:
+    """Native whole-slice CABAC entropy coding of an I or P slice (twin
+    of encoder/cabac.py's CabacSliceWriter, bit-identical). Shapes as
+    in `write_slice`, except: luma8_lev [N, 256] raster (the writer
+    scans it), refs [N, 4] per-ref-slot L0 refs (coded when num_ref >
+    1), sub_type [N, 4] with mvd4 then [N, 16, 2] per sub-unit."""
+    lib = load()
+    n = mbw * mbh
+    hdr = np.frombuffer(header_bytes + b"\0" * 8, np.uint8).copy()
+    skip_a = (np.ascontiguousarray(skip, np.uint8)
+              if skip is not None else None)
+    part_a = _as_i32(part).reshape(n) if part is not None else None
+    stride = 16 if sub_type is not None else 4
+    mvd4_a = (_as_i32(mvd4).reshape(n * 2 * stride)
+              if mvd4 is not None else None)
+    sub_a = _as_i32(sub_type).reshape(n * 4) if sub_type is not None \
+        else None
+    mode_a = _as_i32(mode).reshape(n) if mode is not None else None
+    cmode_a = _as_i32(cmode).reshape(n) if cmode is not None else None
+    dc_a = _as_i32(luma_dc).reshape(n * 16) if luma_dc is not None \
+        else None
+    i4_a = (np.ascontiguousarray(mb_i4, np.uint8)
+            if mb_i4 is not None else None)
+    i4m_a = (_as_i32(i4_modes).reshape(n * 16)
+             if i4_modes is not None else None)
+    refs_a = _as_i32(refs).reshape(n * 4) if refs is not None else None
+    i8_a = (np.ascontiguousarray(mb_i8, np.uint8)
+            if mb_i8 is not None else None)
+    i8m_a = _as_i32(i8_modes).reshape(n * 4) if i8_modes is not None \
+        else None
+    l8_a = _as_i32(luma8_lev).reshape(n * 256) if luma8_lev is not None \
+        else None
+    t8_a = _as_i32(trans8).reshape(n) if trans8 is not None else None
+    cap = 1 << 22
+    while True:
+        out = np.zeros(cap, np.uint8)
+        r = lib.pcamv_write_slice_cabac(
+            out, cap, hdr, header_nbits, slice_type, mbw, mbh, qp, model,
+            _ptr(skip_a), _ptr(part_a), _ptr(mvd4_a), _ptr(mode_a),
+            _ptr(cmode_a), _as_i32(cbp_luma).reshape(n),
+            _as_i32(cbp_chroma).reshape(n), _ptr(dc_a),
+            _as_i32(luma_blocks).reshape(n * 256),
+            _as_i32(chroma_dc).reshape(n * 8),
+            _as_i32(chroma_ac).reshape(n * 128),
+            _ptr(i4_a), _ptr(i4m_a), _ptr(refs_a), num_ref,
+            _ptr(sub_a), stride, _ptr(i8_a), _ptr(i8m_a), _ptr(l8_a),
+            _ptr(t8_a), 1 if trans8_mode else 0)
+        if r >= 0:
+            return bytes(out[:r])
+        cap *= 4
+        if cap > (1 << 28):
+            raise RuntimeError("native cabac writer overflow")
 
 
 def scan_p_parts_forced(part, mv8, skip):

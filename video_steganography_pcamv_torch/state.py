@@ -5,8 +5,9 @@ reads between frames as numpy arrays and plain Python values: the
 reference planes, the temporal MV predictor, the lookahead's previous
 lowres plane and keyframe counters, the rate-control state, the stego
 message PRNG and STC matrix LCG (and the messages sent so far),
-frame_num, the POC LSB, the IDR picture id, and the pending pipelined
-frame if there is one. `load_state(port_encoder, state)` installs it,
+frame_num, the POC LSB, the IDR picture id, the encode stats (frame and
+bit counts, the PSNR/SSIM sums `close()` reports, the stego counters),
+and the pending pipelined frame if there is one. `load_state(port_encoder, state)` installs it,
 so the port can resume mid-stream at a real P frame. This module imports no jax: it
 only reads attributes and converts arrays with `numpy.asarray`.
 """
@@ -14,6 +15,7 @@ only reads attributes and converts arrays with `numpy.asarray`.
 from __future__ import annotations
 
 import copy
+import dataclasses
 
 import numpy as np
 import torch
@@ -51,6 +53,7 @@ def from_reference(enc) -> dict:
         "frame_num": enc.frame_num,
         "poc_lsb": enc._poc_lsb,
         "idr_pic_id": enc.idr_pic_id,
+        "stats": dataclasses.asdict(enc.stats),
         "pending": pend,
     }
 
@@ -79,6 +82,9 @@ def load_state(enc, d: dict) -> None:
     enc.frame_num = d["frame_num"]
     enc._poc_lsb = d["poc_lsb"]
     enc.idr_pic_id = d["idr_pic_id"]
+    for f in dataclasses.fields(enc.stats):
+        if f.name in d["stats"]:
+            setattr(enc.stats, f.name, d["stats"][f.name])
     enc._pending_p = None
     if d["pending"] is not None:
         pd = {k: copy.deepcopy(d["pending"][k]) for k in _PEND_KEYS}
