@@ -82,11 +82,25 @@ Phases (any failure raises and the script exits non-zero):
  19. the main path at 1920x1088 under CABAC, IDR + 2 P: payload
      recovered by the port's CABAC decoder and extractor (the decode
      timed), the same launch counts, the host CABAC write per P slice
-     beside CAVLC's on the same syntax, fps printed.
-Phases 9 and 13 run right after phase 4, so that a new kernel that fails
-stops the run early; 17 runs after 14, and 18 and 19 after 6. Each phase logs its wall time. The line before the
-last two holds the per-kernel JSON record, then the card line; the last
-line is {"ok": true, "device": {...}}.
+     beside CAVLC's on the same syntax, fps printed;
+ 20. BASELINE config 4's P half (tools/bench_c4.py's Params with bframes
+     0: ref_frames 2, CABAC) at 1920x1088, IDR + 3 P: payload recovered
+     by the port's CABAC decoder and extractor, B1 launched twice per P
+     frame (once per reference), B9, B3 and B4 once, the fused luma
+     encode twice (pass 1 and the full pass 2), B5 once per frame; P
+     fps, bytes, IDR seconds and the share of 8x8 blocks on reference 1
+     printed;
+ 21. (only with --stages4) per-stage times of a 1080p config-4 P-half P
+     frame, pass 1 and pass 2 in rows of their own.
+Phase 3 also holds B5 with a fuzzed per-4x4 reference map (ref4), phase
+13 B9 on a stack of two references with a per-8x8 reference (ref8), and
+phase 17 the multi-reference streams at 112x80 (ref_frames 2 under
+CAVLC and CABAC, 3 with keyint_max 3 on the CPU branch, partitions
+off). Phases 9 and 13 run right after phase 4, so that a new kernel
+that fails stops the run early; 17 runs after 14, and 18, 19 and 20
+after 6. Each phase logs its wall time. The line before the last two
+holds the per-kernel JSON record, then the card line; the last line is
+{"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --ab PARENT_ROOT
 
@@ -256,9 +270,12 @@ def phase_b1(dev, int_rate):
                   "ops/pallas_kernels.py:435", worst, ms, plain_ms, bnd)
 
 
-def _deblock_case(dev, g, mbh, mbw, trans8: bool):
+def _deblock_case(dev, g, mbh, mbw, trans8: bool, ref4: bool = False):
     """Planes with MB-level steps and noise, fuzzed intra/skip/nnz/mv
-    maps (mv constant over 8x8 blocks) and, optionally, trans8."""
+    maps (mv constant over 8x8 blocks) and, optionally, trans8 and a
+    per-8x8 reference map ref4 (then a quarter of the 8x8 blocks keep
+    one MV and no residual, so that their edges differ only in the
+    reference)."""
     H, W = 16 * mbh, 16 * mbw
     base = g.integers(60, 180, (mbh, mbw))
     y = np.clip(np.repeat(np.repeat(base, 16, 0), 16, 1)
@@ -271,12 +288,21 @@ def _deblock_case(dev, g, mbh, mbw, trans8: bool):
     mv4 = g.integers(-20, 21, (4 * mbh, 4 * mbw, 2)).astype(np.int32)
     mv4 = np.repeat(np.repeat(mv4[::2, ::2], 2, 0), 2, 1)
     t8 = (g.random((mbh, mbw)) < 0.5).astype(np.int32) if trans8 else None
+    r4 = None
+    if ref4:
+        r8 = g.integers(0, 2, (2 * mbh, 2 * mbw))
+        r4 = np.repeat(np.repeat(r8, 2, 0), 2, 1).astype(np.int32)
+        calm = np.repeat(np.repeat(g.random((2 * mbh, 2 * mbw)) < 0.25, 2,
+                                   0), 2, 1)
+        nnz4[calm] = 0
+        mv4[calm] = 5
     planes = [torch.as_tensor(a.astype(np.uint8), device=dev)
               for a in (y, u, v)]
     maps = [torch.as_tensor(np.ascontiguousarray(a), device=dev)
             for a in (intra, skip, nnz4, mv4)]
     return planes, maps, (None if t8 is None
-                          else torch.as_tensor(t8, device=dev))
+                          else torch.as_tensor(t8, device=dev)), (
+        None if r4 is None else torch.as_tensor(r4, device=dev))
 
 
 def handoff_ms(dev, rounds: int = 20000) -> float:
@@ -302,16 +328,18 @@ def phase_b5(dev, int_rate):
     in and out) in one launch, against edge_params + the plain wave
     filter: qp 26 and 40, fuzzed trans8, slice offsets, a qp at or
     below qp_thresh (internal edges off) and a frame with more MB rows
-    than the card holds CTAs at once."""
+    than the card holds CTAs at once; and with a fuzzed per-4x4
+    reference map (the multi-reference path), timed too."""
     from video_steganography_pcamv_torch.ops import deblock as DB
     from video_steganography_pcamv_torch.ops.transform import chroma_qp
-    # name, MB rows and columns, qp, off_a, off_b, trans8
+    # name, MB rows and columns, qp, off_a, off_b, trans8 (, ref4)
     cases = [("qp 26", MBH, MBW, 26, 0, 0, False),
              ("qp 40", MBH, MBW, 40, 0, 0, False),
              ("qp 30, trans8 fuzzed", MBH, MBW, 30, 0, 0, True),
              ("qp 33, off_a +6, off_b -4, trans8", MBH, MBW, 33, 6, -4,
               True),
-             ("qp 14 <= qp_thresh 15", MBH, MBW, 14, 0, 0, False)]
+             ("qp 14 <= qp_thresh 15", MBH, MBW, 14, 0, 0, False),
+             ("qp 26, ref4 fuzzed", MBH, MBW, 26, 0, 0, False, True)]
     wide = 1024
     resident = DB.resident_ctas(wide)
     cases.append(("%d MB rows > %d resident CTAs (%dx%d)"
@@ -319,13 +347,14 @@ def phase_b5(dev, int_rate):
                      16 * (resident + 32)), resident + 32, wide, 28, 0, 0,
                   True))
     worst = 0
-    ms = plain_ms = None
-    for i, (name, mbh, mbw, qp, off_a, off_b, t8) in enumerate(cases):
+    ms = plain_ms = ref4_ms = None
+    for i, (name, mbh, mbw, qp, off_a, off_b, t8, *r4) in enumerate(cases):
         g = np.random.default_rng(100 + i)
-        planes, maps, trans8 = _deblock_case(dev, g, mbh, mbw, t8)
+        planes, maps, trans8, ref4 = _deblock_case(dev, g, mbh, mbw, t8,
+                                                   bool(r4))
         qpc = chroma_qp(qp)
         kw = dict(qp_thresh=15 - min(off_a, off_b), off_a=off_a,
-                  off_b=off_b, trans8=trans8)
+                  off_b=off_b, trans8=trans8, ref4=ref4)
         got = DB.deblock_frame(*planes, *maps, qp, qpc, mbh, mbw, **kw)
 
         def plain():
@@ -349,6 +378,18 @@ def phase_b5(dev, int_rate):
             log("B5 qp 26 time, the whole call (edge parameters + filter, "
                 "uint8 in and out, one launch): kernel %.4f ms, plain "
                 "%.3f ms (median, 1080p)" % (ms, plain_ms))
+        if ref4 is not None:
+            ref4_ms = cuda_ms(lambda: DB.deblock_frame(
+                *planes, *maps, qp, qpc, mbh, mbw, **kw), 20, 3)
+            flat = DB.deblock_frame(*planes, *maps, qp, qpc, mbh, mbw,
+                                    **dict(kw, ref4=None))
+            moved = int((flat[0] != got[0]).sum())
+            if moved == 0:
+                raise AssertionError("B5 with ref4: no sample depends on "
+                                     "the reference map")
+            log("B5 with ref4 time: kernel %.4f ms (median, 1080p); %d luma "
+                "samples differ from the same call without ref4"
+                % (ref4_ms, moved))
     # bytes: the three uint8 planes read and written once; the per-MB
     # intra/skip/trans8 and the per-4x4 nnz and mv maps (int32) and the
     # 456-entry table read once. ops: the edge parameters, ~40 int ops
@@ -370,7 +411,7 @@ def phase_b5(dev, int_rate):
     rec = record("deblock_frame", "deblock.cu", "ops/deblock_pallas.py:469",
                  worst, ms, plain_ms, bnd)
     rec.update(latency_bound_ms=steps * hop, handoff_ms=hop,
-               latency_steps=steps)
+               latency_steps=steps, ref4_ms=ref4_ms)
     return rec
 
 
@@ -554,6 +595,48 @@ def phase_b9b10(dev, int_rate):
                        "ops/pallas_kernels.py:259", err, ms, plain_ms,
                        bound(read + n8 * 4 * 256 + n8 * 8, 0, int_rate),
                        lib_ms))
+
+    # B9 with ref8 (the multi-reference analysis): a stack of the two
+    # entries, the per-8x8 reference and full-pel MVs of the merge of B1
+    # on each (ref_frames 2, both valid), and +-20 corner MVs with a
+    # random ref8
+    from video_steganography_pcamv_torch.ops import mc as MC
+    older = torch.as_tensor(synthetic_sequence(16 * MBW, 16 * MBH, 1,
+                                               seed=11)[0].y
+                            .astype(np.int32), device=dev)
+    stack = torch.stack([planes, MC.build_ref(older, c, c)["luma"]
+                         .to(torch.uint8)]).contiguous()
+    sts = [FP.fullpel_parts(cur, stack[r, 0], zero, 16, MBH, MBW, lam)
+           for r in range(2)]
+    mst = PT.merge_ref_states(sts, lam, PT.te_ref_bits(2), 2)
+    part2, mv2 = PT.decide_partition(mst, MBH, MBW, lam)
+    mv2 = mv2.contiguous()
+    ref8 = PT.ref8_from_partition(mst, part2, MBH, MBW)
+    mvc = g.randint(-20, 21, (2 * MBH, 2 * MBW, 2)).astype(np.int32)
+    for by, bx, v in ((0, 0, (-20, -20)), (0, -1, (20, -20)),
+                      (-1, 0, (-20, 20)), (-1, -1, (20, 20))):
+        mvc[by, bx] = v
+    rand8 = torch.as_tensor(g.randint(0, 2, (2 * MBH, 2 * MBW))
+                            .astype(np.int32), device=dev)
+    err8 = 0
+    for name, mv, r8 in (("merged MVs and ref8", mv2, ref8),
+                         ("+-20 corner MVs, random ref8",
+                          torch.as_tensor(mvc, device=dev), rand8)):
+        got = PT.gather_windows8(stack, mv, MBH, MBW, ref8=r8)
+        err8 = max(err8, _check_equal(
+            "B9 gather_windows8 with ref8 (%s)" % name, (got,),
+            (PT.gather_windows8_plain(stack, mv, MBH, MBW, ref8=r8),)))
+        log("B9 with ref8, %s: kernel == plain at %dx%d MBs (%.1f%% of "
+            "the blocks on reference 1)" % (name, MBH, MBW,
+                                            100.0 * float(r8.float().mean())))
+    ms8 = cuda_ms(lambda: PT.gather_windows8(stack, mv2, MBH, MBW,
+                                             ref8=ref8), 20, 3)
+    plain8 = cuda_ms(lambda: PT.gather_windows8_plain(stack, mv2, MBH, MBW,
+                                                      ref8=ref8), 5)
+    log("B9 with ref8 time: kernel %.4f ms, plain %.3f ms (median, 1080p, "
+        "2 references)" % (ms8, plain8))
+    recs[-1].update(max_abs_err=max(err, err8), ref8_ms=ms8,
+                    ref8_plain_ms=plain8)
 
     # B10 at the lowres shape (960x544: 68x120 8x8 blocks, 34x60 B1
     # tiles), rng 8 (the lookahead's), also 7 and 20. bytes: the lowres
@@ -963,13 +1046,19 @@ def phase_small_cabac(dev):
     dicts, the payload recovered by the port's decoder and extractor."""
     from video_steganography_pcamv_torch.utils.yuv import synthetic_sequence
     frames = synthetic_sequence(112, 80, 6, seed=7)
-    cases = (("cabac main path", dict(cabac=True)),
-             ("cabac config 3", dict(cabac=True, config3=True)),
-             ("cabac 16x16 path", dict(cabac=True, partitions=False)),
-             ("default Params", DEFAULTS))
-    for what, kw in cases:
-        enc_g, bs_g = _encode(_params(112, 80, True, **kw), frames, dev)
-        enc_c, bs_c = _encode(_params(112, 80, True, **kw), frames, "cpu")
+    cases = (("cabac main path", True, dict(cabac=True)),
+             ("cabac config 3", True, dict(cabac=True, config3=True)),
+             ("cabac 16x16 path", True, dict(cabac=True, partitions=False)),
+             ("default Params", True, DEFAULTS),
+             ("ref_frames 2", True, dict(ref_frames=2)),
+             ("ref_frames 2 cabac", True, dict(ref_frames=2, cabac=True)),
+             ("ref_frames 3 keyint_max 3, tail_kernel=False", False,
+              dict(ref_frames=3, keyint_max=3)),
+             ("ref_frames 2 partitions off", True,
+              dict(ref_frames=2, partitions=False)))
+    for what, tk, kw in cases:
+        enc_g, bs_g = _encode(_params(112, 80, tk, **kw), frames, dev)
+        enc_c, bs_c = _encode(_params(112, 80, tk, **kw), frames, "cpu")
         if bs_g != bs_c:
             raise AssertionError("112x80 %s: cuda (%d B) != cpu (%d B)"
                                  % (what, len(bs_g), len(bs_c)))
@@ -1071,6 +1160,35 @@ def phase_cabac(dev, card, bs6):
     return launches
 
 
+def phase_config4p(dev, card):
+    """BASELINE config 4's P half at 1080p (tools/bench_c4.py's Params
+    with bframes 0: ref_frames 2, CABAC, me_range 16, key 5), IDR + 3 P:
+    the payload through the port's CABAC decoder, the exact launch
+    counts, and the share of 8x8 blocks the analysis put on reference
+    1 (read after the run)."""
+    from video_steganography_pcamv_torch.encoder import partition as PT
+    from video_steganography_pcamv_torch.params import StegoParams
+    orig, ref8s = PT.analyse_p_frame_parts_mref, []
+
+    def analyse(*a, **kw):
+        out = orig(*a, **kw)
+        ref8s.append(out[2])
+        return out
+    PT.analyse_p_frame_parts_mref = analyse
+    try:
+        launches, bs, enc = phase_main(
+            dev, card, True, 4, label="1080p config 4 P half (ref_frames 2,"
+            " CABAC)", cabac=True, ref_frames=2,
+            stego=StegoParams(em_rate=64, key=5))
+    finally:
+        PT.analyse_p_frame_parts_mref = orig
+    share = [float((r == 1).float().mean()) for r in ref8s]
+    log("1080p config 4 P half: %d bytes per frame %s; 8x8 blocks on "
+        "reference 1 per P frame %s  [%s]"
+        % (len(bs), _frame_bytes(bs), ["%.4f" % x for x in share], card))
+    return launches
+
+
 def _counters():
     from video_steganography_pcamv_torch.encoder import partition as PT
     from video_steganography_pcamv_torch.encoder import slicetype as ST
@@ -1143,6 +1261,12 @@ def phase_main(dev, card, tail_kernel: bool, n_frames: int,
         if launches[k] > hi:
             raise AssertionError("%s launched %d times, want <= %d"
                                  % (k, launches[k], hi))
+    if kw.get("ref_frames", 1) > 1:
+        # the multi-reference path: B1 once per reference, pass 1 and,
+        # on every frame that embeds, the full pass 2
+        n_emb = sum(len(m) > 0 for m in enc._stego.sent_messages)
+        exact.update(fullpel_parts=kw["ref_frames"] * n_p,
+                     gather_windows8=n_p, luma_p_encode=n_p + n_emb)
     for k, n in exact.items():
         if launches[k] != n:
             raise AssertionError("%s launched %d times, want %d"
@@ -1175,12 +1299,14 @@ def phase_main(dev, card, tail_kernel: bool, n_frames: int,
 
 # the P encodes that serve both passes: pass 1 passes no force_zero,
 # pass 2 always does, so each pass gets a stage row of its own
-_BY_PASS = ("encode_p_frame_device8", "encode_p_frame_device")
+_BY_PASS = ("encode_p_frame_device8", "encode_p_frame_device",
+            "encode_p_frame_device8_mref")
 
 
-def _stage_targets(partitions: bool):
+def _stage_targets(partitions: bool, mref: bool = False):
     """(object, attribute) of every stage that phase_stages times, for
-    the partitioned path or the 16x16-only path."""
+    the partitioned path, the multi-reference path or the 16x16-only
+    path."""
     from video_steganography_pcamv_torch import native
     from video_steganography_pcamv_torch.encoder import analyse2 as A2
     from video_steganography_pcamv_torch.encoder import core as CORE
@@ -1190,6 +1316,15 @@ def _stage_targets(partitions: bool):
     from video_steganography_pcamv_torch.encoder import slicetype as ST
     from video_steganography_pcamv_torch.ops import probe as PR
     from video_steganography_pcamv_torch.stego import embed as EMB
+    if mref:
+        return [(ST.Lookahead, "decide"), (CORE.Encoder, "_dpb_stacked"),
+                (PT, "fullpel_parts"), (PT, "merge_ref_states"),
+                (PT, "decide_partition"), (PT, "gather_windows8"),
+                (PR, "subpel"), (PR, "probe_maps"),
+                (INTER, "encode_p_frame_device8_mref"),
+                (native, "scan_p_parts"), (PT, "probe_combine"),
+                (EMB.StegoEngine, "apply_costs"), (CORE, "deblock_frame"),
+                (native, "write_slice_cabac")]
     if partitions:
         return [(ST.Lookahead, "costs_device"), (PT, "fullpel_parts"),
                 (PT, "decide_partition"), (PT, "gather_windows8"),
@@ -1207,16 +1342,21 @@ def _stage_targets(partitions: bool):
 
 
 def phase_stages(dev, card, n_frames: int = 7, partitions: bool = True,
-                 config3: bool = False):
+                 config3: bool = False, config4p: bool = False):
     """Per-stage device time of a 1080p P frame on the tail_kernel=True
-    path (or the 16x16-only path, or a 720p P frame of config 3): every
+    path (or the 16x16-only path, or a 720p P frame of config 3, or a
+    1080p P frame of config 4's P half, phase 20's Params): every
     stage is wrapped with a device sync on each side (the syncs remove
     the pipelining, so the stages sum to more than a P frame of phase
     6). The median and the mean over the P frames after the first, per
     frame (a stage that did not run in a frame counts 0 there)."""
     from video_steganography_pcamv_torch import Encoder
     from video_steganography_pcamv_torch.utils.yuv import synthetic_sequence
-    targets = _stage_targets(partitions)
+    from video_steganography_pcamv_torch.params import StegoParams
+    targets = _stage_targets(partitions, mref=config4p)
+    kw = (dict(cabac=True, ref_frames=2, stego=StegoParams(em_rate=64,
+                                                           key=5))
+          if config4p else {})
     frame = {}
     state = {"on": False}
 
@@ -1247,7 +1387,7 @@ def phase_stages(dev, card, n_frames: int = 7, partitions: bool = True,
         for obj, name, fn in saved:
             setattr(obj, name, timed(name, fn))
         enc = Encoder(_params(w, h, True, partitions=partitions,
-                              config3=config3), device=dev)
+                              config3=config3, **kw), device=dev)
         enc.encode_frame(frames[0])
         enc.encode_frame(frames[1])
         torch.cuda.synchronize()
@@ -1271,8 +1411,9 @@ def phase_stages(dev, card, n_frames: int = 7, partitions: bool = True,
     rows["(frame, with the syncs)"] = [1e3 * wl for wl in walls]
     log("%s stage times, ms per P frame over %d P frames (median, mean), "
         "a device sync around each stage  [%s]"
-        % ("720p config 3" if config3 else "1080p tail_kernel=True"
-           if partitions else "1080p partitions=False", n, card))
+        % ("720p config 3" if config3 else "1080p config 4 P half"
+           if config4p else "1080p tail_kernel=True" if partitions
+           else "1080p partitions=False", n, card))
     for name, v in sorted(rows.items(), key=lambda kv: (
             kv[0].startswith("("), -float(np.mean(kv[1])))):
         log("  %-30s %9.3f %9.3f" % (name, float(np.median(v)),
@@ -1367,6 +1508,9 @@ def main() -> int:
                     help="also time the stages of the 16x16-only path")
     ap.add_argument("--stages8", action="store_true",
                     help="also time the stages of config 3 at 720p")
+    ap.add_argument("--stages4", action="store_true",
+                    help="also time the stages of config 4's P half at "
+                    "1080p")
     ap.add_argument("--ab", metavar="PARENT_ROOT",
                     help="compare the main path with another checkout")
     args = ap.parse_args()
@@ -1407,6 +1551,10 @@ def main() -> int:
                                 tail_kernel=True, n_frames=10)
     phase("18 1080p default Params", phase_defaults, dev, card, bs6, enc6)
     phase("19 1080p CABAC", phase_cabac, dev, card, bs6)
+    phase("20 1080p config 4 P half", phase_config4p, dev, card)
+    if args.stages4:
+        phase("21 config-4 P half stages", phase_stages, dev, card,
+              n_frames=6, config4p=True)
     phase("7 tail_kernel=False", phase_main, dev, card, tail_kernel=False,
           n_frames=4)
     phase("8 stages", phase_stages, dev, card)

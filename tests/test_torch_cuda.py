@@ -31,7 +31,17 @@ its own:  python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
   tail_kernel settings), on config 3 and on the 16x16-only path, and at
   the reference's default Params (PSNR and SSIM on, the host deblock's
   twin on the card, unpipelined), whose close() dicts agree too (PSNR
-  exactly, SSIM to rtol 1e-5: the float32 sums' order differs).
+  exactly, SSIM to rtol 1e-5: the float32 sums' order differs);
+- kernel B7 (a warp an MB) vs its plain version on odd MB grids, the
+  120x72 padded grid and +-20 corner MVs, and a window outside the
+  planes failing the launch;
+- B9 with a per-8x8 reference on a stack of 2 and 3 references vs its
+  plain version, and a reference index outside the stack failing the
+  launch; B5 with a per-4x4 reference map whose neighbours differ only
+  in their reference vs edge_params + its plain version;
+- at 112x80, cuda == cpu multi-reference streams: ref_frames 2 under
+  CAVLC and CABAC, ref_frames 3 with keyint_max 3 on the CPU branch,
+  and partitions off with the host deblock's twin.
 """
 
 import numpy as np
@@ -508,3 +518,151 @@ def test_cuda_stream_equals_cpu_stream_cabac_and_defaults(dev, kw):
             np.testing.assert_allclose(d_g[k], d_c[k], rtol=1e-5)
         elif k != "fps":
             assert d_g[k] == d_c[k], k
+
+
+def _corner(mv, ext):
+    """Outward +-ext MVs at the four corner blocks of an [h, w, 2] field:
+    the furthest windows the encoder admits."""
+    for by, bx, v in ((0, 0, (-ext, -ext)), (0, -1, (ext, -ext)),
+                      (-1, 0, (-ext, ext)), (-1, -1, (ext, ext))):
+        mv[by, bx] = v
+    return mv
+
+
+@pytest.mark.parametrize("mbh,mbw", [(5, 7), (5, 8), (3, 1)],
+                         ids=["7x5", "120x72-padded", "1x3"])
+def test_b7_kernel_matches_plain(dev, mbh, mbw):
+    """B7 on odd MB counts (the last CTA's idle warps), the 8x5 grid of a
+    120x72 frame, random MVs over every 16-byte phase and the +-20
+    corner MVs."""
+    g = np.random.RandomState(mbh * mbw)
+    planes = torch.as_tensor(g.randint(0, 256, (4, 16 * mbh + 48,
+                                                16 * mbw + 48))
+                             .astype(np.uint8), device=dev)
+    for mv in (g.randint(-20, 21, (mbh, mbw, 2)),
+               _corner(g.randint(-20, 21, (mbh, mbw, 2)), 20)):
+        mvt = torch.as_tensor(mv.astype(np.int32), device=dev)
+        got = QT.gather_windows(planes, mvt, mbh, mbw)
+        assert torch.equal(got, QT.gather_windows_plain(planes, mvt, mbh,
+                                                        mbw))
+    torch.cuda.synchronize()
+
+
+def _trap_subprocess(code):
+    """Run `code` in a subprocess (a trap ends the CUDA context): it must
+    fail with a CUDA error and not print RETURNED."""
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-c", code], cwd=root,
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode != 0 and "RETURNED" not in r.stdout, r.stdout
+    assert "CUDA" in r.stderr or "cuda" in r.stderr, r.stderr[-2000:]
+
+
+_B7_OUTSIDE = r"""
+import torch
+from video_steganography_pcamv_torch.encoder import qpel_table as QT
+mbh, mbw = 5, 7
+planes = torch.full((4, 16 * mbh + 48, 16 * mbw + 48), 7, dtype=torch.uint8,
+                    device="cuda")
+mv = torch.zeros((mbh, mbw, 2), dtype=torch.int32, device="cuda")
+mv[0, 0] = torch.tensor([-21, 0])       # one column left of the planes
+out = QT.gather_windows(planes, mv, mbh, mbw)
+torch.cuda.synchronize()
+print("RETURNED", int((out == 0).sum()))
+"""
+
+
+def test_b7_window_outside_the_planes_fails_the_launch(dev):
+    _trap_subprocess(_B7_OUTSIDE)
+
+
+@pytest.mark.parametrize("nref", [2, 3])
+def test_b9_kernel_with_ref8_matches_plain(dev, nref):
+    """B9 on a stack of references, each 8x8 block reading its own entry
+    (the multi-reference analysis), at real-sized random and +-20 corner
+    MVs on the 8x5 grid."""
+    mbh, mbw = 5, 8
+    g = np.random.RandomState(nref)
+    planes = torch.as_tensor(g.randint(0, 256, (nref, 4, 16 * mbh + 48,
+                                                16 * mbw + 48))
+                             .astype(np.uint8), device=dev)
+    ref8 = torch.as_tensor(g.randint(0, nref, (2 * mbh, 2 * mbw))
+                           .astype(np.int32), device=dev)
+    for mv in (g.randint(-20, 21, (2 * mbh, 2 * mbw, 2)),
+               _corner(g.randint(-20, 21, (2 * mbh, 2 * mbw, 2)), 20)):
+        mvt = torch.as_tensor(mv.astype(np.int32), device=dev)
+        got = PT.gather_windows8(planes, mvt, mbh, mbw, ref8=ref8)
+        assert torch.equal(got, PT.gather_windows8_plain(planes, mvt, mbh,
+                                                         mbw, ref8=ref8))
+    torch.cuda.synchronize()
+
+
+_B9_BAD_REF = r"""
+import torch
+from video_steganography_pcamv_torch.encoder import partition as PT
+mbh, mbw = 5, 7
+planes = torch.full((2, 4, 16 * mbh + 48, 16 * mbw + 48), 7,
+                    dtype=torch.uint8, device="cuda")
+mv = torch.zeros((2 * mbh, 2 * mbw, 2), dtype=torch.int32, device="cuda")
+ref8 = torch.zeros((2 * mbh, 2 * mbw), dtype=torch.int32, device="cuda")
+ref8[1, 2] = 2                          # one past the stack
+out = PT.gather_windows8(planes, mv, mbh, mbw, ref8=ref8)
+torch.cuda.synchronize()
+print("RETURNED", int((out == 0).sum()))
+"""
+
+
+def test_b9_reference_outside_the_stack_fails_the_launch(dev):
+    _trap_subprocess(_B9_BAD_REF)
+
+
+def test_b5_kernel_with_ref4_matches_plain(dev):
+    """B5 with the per-4x4 reference map: inter neighbours that differ
+    only in their reference get bS 1 (no residual, one MV field), next
+    to the usual random maps."""
+    mbh, mbw = 5, 9
+    g = np.random.default_rng(11)
+    H, W = 16 * mbh, 16 * mbw
+    planes = [np.clip(128 + g.integers(-24, 25, s), 0, 255)
+              for s in ((H, W), (H // 2, W // 2), (H // 2, W // 2))]
+    intra = g.random((mbh, mbw)) < 0.1
+    skip = (g.random((mbh, mbw)) < 0.2) & ~intra
+    nnz4 = g.random((4 * mbh, 4 * mbw)) < 0.3
+    mv4 = g.integers(-20, 21, (4 * mbh, 4 * mbw, 2))
+    nnz4[:, :2 * mbw] = False              # left half: one MV field,
+    mv4[:, :2 * mbw] = 3                   # no residual
+    ref4 = g.integers(0, 3, (4 * mbh, 4 * mbw))
+    t = [torch.as_tensor(np.ascontiguousarray(a, np.int32), device=dev)
+         for a in planes + [intra, skip, nnz4, mv4, ref4]]
+    y8 = [p.to(torch.uint8) for p in t[:3]]
+    got = DB.deblock_frame(*y8, *t[3:7], 26, chroma_qp(26), mbh, mbw,
+                           ref4=t[7])
+    par = DB.edge_params(*t[3:7], 26, chroma_qp(26), mbh, mbw, ref4=t[7])
+    want = DB.deblock_frame_plain(*t[:3], par, mbh, mbw)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.uint8 and torch.equal(a, b)
+    flat = DB.deblock_frame(*y8, *t[3:7], 26, chroma_qp(26), mbh, mbw)
+    assert not torch.equal(flat[0], got[0])
+
+
+@pytest.mark.parametrize("kw", [
+    dict(ref_frames=2), dict(ref_frames=2, cabac=True),
+    dict(ref_frames=3, keyint_max=3, tail_kernel=False),
+    dict(ref_frames=2, partitions=False, deblock_device=False)],
+    ids=["ref2", "ref2_cabac", "ref3_keyint3_cpu_branch",
+         "ref2_partitions_off"])
+def test_cuda_stream_equals_cpu_stream_multiref(dev, kw):
+    frames = synthetic_sequence(112, 80, 5, seed=7)
+
+    def run(device):
+        base = dict(width=112, height=80, qp=26, me_range=16,
+                    deblock_device=True, psnr=False)
+        base.update(kw)
+        enc = Encoder(Params(stego=StegoParams(em_rate=64, key=5), **base),
+                      device=device)
+        return b"".join(enc.encode_frame(f) for f in frames) + enc.flush()
+
+    assert run(dev) == run("cpu")

@@ -9,7 +9,9 @@ deblocker runs `deblock_jax.deblock_frame_device`, the bit-exact twin
 the reference's CPU branch already uses.
 
 The same branch also serves CABAC and the reference's default Params
-(PSNR on, host deblock: the fused P step unpipelined, `close()` equal).
+(PSNR on, host deblock: the fused P step unpipelined, `close()` equal),
+and BASELINE config 4's P half (ref_frames 2, CABAC: the multi-reference
+branch, B1 once per reference against a zero predictor).
 """
 
 import jax
@@ -30,6 +32,7 @@ from video_steganography_pcamv_tpu.utils.yuv import synthetic_sequence
 from video_steganography_pcamv_torch import Encoder as TEncoder
 from video_steganography_pcamv_torch import params as TP
 from video_steganography_pcamv_torch.decoder import decode_annexb
+from video_steganography_pcamv_torch.encoder import partition as T_PT
 from video_steganography_pcamv_torch.stego.extract import (
     extract_from_frames)
 
@@ -172,6 +175,42 @@ def test_accel_cabac_and_defaults_byte_equal_to_reference(reference_accel,
         for pl in ("y", "u", "v"):
             np.testing.assert_array_equal(getattr(a, pl), getattr(b, pl))
         assert [m.unit_mvs for m in a.mbs] == [m.unit_mvs for m in b.mbs]
+    sent = tenc._stego.sent_messages
+    assert sum(len(s) for s in sent) > 0
+    rec = extract_from_frames(dec, em_rate=EM_RATE)
+    assert len(rec) == len(sent)
+    for g, s in zip(rec, sent):
+        np.testing.assert_array_equal(g, s)
+
+
+def test_accel_multiref_cabac_byte_equal_to_reference(reference_accel,
+                                                      monkeypatch):
+    """BASELINE config 4's P half (tools/bench_c4.py's Params with
+    bframes 0: ref_frames 2, CABAC) on the accelerator branch: the
+    reference runs B1 through the patched Pallas entry once per DPB
+    entry; the streams are byte-equal, the port chooses reference 1
+    somewhere and the payload is recovered."""
+    ref8s = []
+    orig = T_PT.analyse_p_frame_parts_mref
+
+    def analyse(*a, **k):
+        out = orig(*a, **k)
+        ref8s.append(out[2].numpy().copy())
+        return out
+    monkeypatch.setattr(T_PT, "analyse_p_frame_parts_mref", analyse)
+    frames = synthetic_sequence(W, H, 4, seed=7)
+    kw = dict(_bench_kw(), ref_frames=2, cabac=True)
+    want = _run(JEncoder(Params(**kw, stego=StegoParams(em_rate=EM_RATE,
+                                                        key=KEY))), frames)
+    assert reference_accel["fullpel"] >= 2
+    tenc = TEncoder(TP.Params(**kw, stego=TP.StegoParams(em_rate=EM_RATE,
+                                                         key=KEY)),
+                    device="cpu")
+    got = _run(tenc, frames)
+    assert got == want
+    assert len(ref8s) == 3 and any((r == 1).any() for r in ref8s)
+    dec = decode_annexb(got)
+    assert len(dec) == len(frames)
     sent = tenc._stego.sent_messages
     assert sum(len(s) for s in sent) > 0
     rec = extract_from_frames(dec, em_rate=EM_RATE)

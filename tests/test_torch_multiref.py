@@ -1,0 +1,273 @@
+"""Multi-reference P (x264 --ref N, BASELINE config 4's P half) in the
+port vs the JAX reference on the CPU, on the reference's CPU branch
+(tail_kernel=False).
+
+Modules: `te_ref_bits`, `merge_ref_states` (ties keep the lower
+reference, slots past n_valid masked) and the per-8x8 reference under
+the chosen partition; B9's plain version with a per-8x8 reference
+against `gather_windows8_mref`; `encode_p_frame_device8_mref` with and
+without forced skips; B5's plain version with a per-4x4 reference map
+whose neighbours differ only in their reference, against the native
+deblocker.
+
+End to end, on the reference's flicker content (frame t matches t-2 far
+better than t-1, so reference 1 wins): ref_frames 2 under CAVLC and
+CABAC, ref_frames 3 with keyint_max 3 (fewer valid entries than
+ref_frames after every IDR, so the slice header overrides the active
+count), and partitions off with ref_frames 2 (every MB 16x16). Each
+stream is byte-equal to the JAX `Encoder`'s and the port's blind
+extractor recovers every payload bit; the CAVLC run also resumes the
+port mid-stream from the live reference encoder (`state.from_reference`,
+the whole DPB) and requires the rest of the stream to be equal."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from video_steganography_pcamv_tpu import native as j_native
+from video_steganography_pcamv_tpu.encoder import inter as J_INTER
+from video_steganography_pcamv_tpu.encoder import partition as J_PT
+from video_steganography_pcamv_tpu.encoder.core import Encoder as JEncoder
+from video_steganography_pcamv_tpu.params import Params, StegoParams
+from video_steganography_pcamv_tpu.utils.yuv import Frame
+
+from video_steganography_pcamv_torch import Encoder as TEncoder
+from video_steganography_pcamv_torch import params as TP
+from video_steganography_pcamv_torch.decoder import decode_annexb
+from video_steganography_pcamv_torch.encoder import inter as T_INTER
+from video_steganography_pcamv_torch.encoder import partition as T_PT
+from video_steganography_pcamv_torch.ops import deblock as DB
+from video_steganography_pcamv_torch.ops import mc
+from video_steganography_pcamv_torch.state import from_reference
+from video_steganography_pcamv_torch.stego.extract import (
+    extract_from_frames)
+
+W, H = 112, 80
+MBH, MBW = H // 16, W // 16
+EM_RATE, KEY = 64, 5
+
+
+def _flicker_frames(n, seed=3, w=W, h=H):
+    """The reference's multi-reference content (tests/test_multiref.py):
+    f0 = texture A; odd frames = an unrelated texture B; even frames = A
+    shifted a little. Even frames match the frame two back."""
+    rng = np.random.RandomState(seed)
+    pad = 16
+    a = rng.randint(30, 226, (h + 2 * pad, w + 2 * pad)).astype(np.uint8)
+    a = ((a.astype(np.int32) + np.roll(a, 1, 0) + np.roll(a, 1, 1)
+          + np.roll(np.roll(a, 1, 0), 1, 1)) // 4).astype(np.uint8)
+    b = rng.randint(0, 256, (h, w)).astype(np.uint8)
+    u = np.full((h // 2, w // 2), 128, np.uint8)
+    frames = []
+    for i in range(n):
+        if i % 2 == 1:
+            yp = b
+        else:
+            sh = i // 2
+            yp = a[pad + sh:pad + sh + h, pad + 2 * sh:pad + 2 * sh + w]
+        frames.append(Frame(np.ascontiguousarray(yp), u.copy(), u.copy()))
+    return frames
+
+
+def _kw(**kw):
+    """BASELINE config 4's P half at 112x80 (tools/bench_c4.py's Params
+    with bframes 0), on the reference's CPU branch."""
+    return dict(dict(width=W, height=H, qp=26, me_range=16, ref_frames=2,
+                     deblock_device=True, psnr=False, tail_kernel=False),
+                **kw)
+
+
+def _run(enc, frames):
+    return b"".join(enc.encode_frame(f) for f in frames) + enc.flush()
+
+
+def _random_state(g, r):
+    """A B1 output dict with costs from a small range (many ties)."""
+    c = lambda *s: torch.as_tensor(g.integers(100, 112, s).astype(np.int32))
+    m = lambda *s: torch.as_tensor(g.integers(-8, 9, s).astype(np.int32))
+    return dict(c16=c(MBH, MBW), mv16=m(MBH, MBW, 2),
+                c16x8=c(MBH, MBW, 2), mv16x8=m(MBH, MBW, 2, 2),
+                c8x16=c(MBH, MBW, 2), mv8x16=m(MBH, MBW, 2, 2),
+                c8=c(MBH, MBW, 4), mv8=m(MBH, MBW, 4, 2))
+
+
+@pytest.mark.parametrize("num_ref,n_valid", [(2, 2), (3, 1), (4, 3)])
+def test_merge_and_ref8_match_reference(num_ref, n_valid):
+    g = np.random.default_rng(10 * num_ref + n_valid)
+    sts = [_random_state(g, r) for r in range(num_ref)]
+    lam = 2
+    np.testing.assert_array_equal(T_PT.te_ref_bits(num_ref),
+                                  J_PT.te_ref_bits(num_ref))
+    bits = T_PT.te_ref_bits(num_ref)
+    got = T_PT.merge_ref_states(sts, lam, bits, n_valid)
+    want = J_PT.merge_ref_states(
+        [{k: jnp.asarray(v.numpy()) for k, v in st.items()} for st in sts],
+        lam, bits, jnp.asarray(n_valid))
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]),
+                                      err_msg=k)
+    assert int(got["r8"].max()) < n_valid
+    assert (n_valid == 1) == (int(got["r8"].max()) == 0)
+    for allow in (True, False):
+        part, mv = T_PT.decide_partition(got, MBH, MBW, lam, allow)
+        jpart, jmv = J_PT.decide_partition(want, MBH, MBW, lam, allow)
+        np.testing.assert_array_equal(part.numpy(), np.asarray(jpart))
+        np.testing.assert_array_equal(mv.numpy(), np.asarray(jmv))
+        np.testing.assert_array_equal(
+            T_PT.ref8_from_partition(got, part, MBH, MBW).numpy(),
+            np.asarray(J_PT.ref8_from_partition(want, jpart, MBH, MBW)))
+
+
+def _dpb(n, seed):
+    """n stacked random reference entries: luma [n,4,Hp,Wp], u, v."""
+    g = np.random.default_rng(seed)
+    refs = [mc.build_ref(*(torch.as_tensor(g.integers(0, 256, s)
+                                           .astype(np.int32))
+                           for s in ((H, W), (H // 2, W // 2),
+                                     (H // 2, W // 2))))
+            for _ in range(n)]
+    return [torch.stack([r[k] for r in refs]) for k in ("luma", "u", "v")]
+
+
+def test_plain_b9_with_ref8_matches_reference():
+    luma, _, _ = _dpb(3, 1)
+    planes = luma.to(torch.uint8)
+    g = np.random.default_rng(2)
+    mvfp = g.integers(-20, 21, (2 * MBH, 2 * MBW, 2)).astype(np.int32)
+    ref8 = g.integers(0, 3, (2 * MBH, 2 * MBW)).astype(np.int32)
+    got = T_PT.gather_windows8(planes, torch.as_tensor(mvfp), MBH, MBW,
+                               ref8=torch.as_tensor(ref8))
+    want = J_PT.gather_windows8_mref(jnp.asarray(planes.numpy()),
+                                     jnp.asarray(mvfp), jnp.asarray(ref8),
+                                     MBH, MBW)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    # one reference and no ref8: the single-reference call, unchanged
+    ones = torch.ones((2 * MBH, 2 * MBW), dtype=torch.int32)
+    np.testing.assert_array_equal(
+        T_PT.gather_windows8(planes[1], torch.as_tensor(mvfp), MBH,
+                             MBW).numpy(),
+        T_PT.gather_windows8(planes, torch.as_tensor(mvfp), MBH, MBW,
+                             ref8=ones).numpy())
+    with pytest.raises(ValueError):
+        T_PT.gather_windows8(planes, torch.as_tensor(mvfp), MBH, MBW)
+
+
+@pytest.mark.parametrize("force", [False, True])
+def test_encode_mref_matches_reference(force):
+    luma, u_r, v_r = _dpb(2, 3)
+    g = np.random.default_rng(4)
+    y = g.integers(0, 256, (H, W)).astype(np.int32)
+    u = g.integers(0, 256, (H // 2, W // 2)).astype(np.int32)
+    v = g.integers(0, 256, (H // 2, W // 2)).astype(np.int32)
+    mv8 = g.integers(-40, 41, (2 * MBH, 2 * MBW, 2)).astype(np.int32)
+    ref8 = g.integers(0, 2, (2 * MBH, 2 * MBW)).astype(np.int32)
+    fz = (g.random((MBH, MBW)) < 0.3) if force else None
+    t = torch.as_tensor
+    got = T_INTER.encode_p_frame_device8_mref(
+        t(y), t(u), t(v), luma, u_r, v_r, t(mv8), t(ref8), 26, 29, MBH, MBW,
+        force_zero=None if fz is None else t(fz))
+    want = J_INTER.encode_p_frame_device8_mref(
+        jnp.asarray(y), jnp.asarray(u), jnp.asarray(v),
+        jnp.asarray(luma.numpy()), jnp.asarray(u_r.numpy()),
+        jnp.asarray(v_r.numpy()), jnp.asarray(mv8), jnp.asarray(ref8), 26,
+        29, MBH, MBW, force_zero=None if fz is None else jnp.asarray(fz))
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]),
+                                      err_msg=k)
+    if force:
+        assert not got["cbp_luma"].numpy()[fz].any()
+
+
+def test_plain_b5_with_ref4_matches_native():
+    """Neighbours that differ only in their reference (no residual, one
+    MV field, no intra or skip MB) get bS 1 and are filtered."""
+    g = np.random.default_rng(6)
+    y = g.integers(90, 140, (H, W)).astype(np.int32)
+    u = g.integers(100, 130, (H // 2, W // 2)).astype(np.int32)
+    v = g.integers(100, 130, (H // 2, W // 2)).astype(np.int32)
+    zero = np.zeros((MBH, MBW), np.int32)
+    nnz4 = np.zeros((4 * MBH, 4 * MBW), np.int32)
+    mv4 = np.zeros((4 * MBH, 4 * MBW, 2), np.int32)
+    ref4 = g.integers(0, 3, (4 * MBH, 4 * MBW)).astype(np.int32)
+    t = torch.as_tensor
+    got = DB.deblock_frame(t(y), t(u), t(v), t(zero), t(zero), t(nnz4),
+                           t(mv4), 26, 26, MBH, MBW, ref4=t(ref4))
+    flat = DB.deblock_frame(t(y), t(u), t(v), t(zero), t(zero), t(nnz4),
+                            t(mv4), 26, 26, MBH, MBW)
+    planes = [np.ascontiguousarray(a, np.uint8) for a in (y, u, v)]
+    j_native.deblock_frame(*planes, zero.astype(np.uint8), nnz4, mv4,
+                           zero.astype(np.uint8), 26, 26, ref4=ref4)
+    for name, w_, g_ in zip("yuv", planes, got):
+        np.testing.assert_array_equal(w_, g_.numpy(), err_msg=name)
+    assert not torch.equal(got[0], flat[0])
+
+
+@pytest.fixture
+def ref8_log(monkeypatch):
+    """Records the per-8x8 reference map of every analysed P frame."""
+    log = []
+    orig = T_PT.analyse_p_frame_parts_mref
+
+    def wrap(*a, **kw):
+        out = orig(*a, **kw)
+        log.append(out[2].numpy().copy())
+        return out
+    monkeypatch.setattr(T_PT, "analyse_p_frame_parts_mref", wrap)
+    return log
+
+
+def _check_payload(stream, enc, n_frames):
+    dec = decode_annexb(stream)
+    assert len(dec) == n_frames
+    rec = extract_from_frames(dec, em_rate=EM_RATE)
+    sent = enc._stego.sent_messages
+    assert sum(len(s) for s in sent) > 0
+    assert len(rec) == len(sent)
+    for g_, s in zip(rec, sent):
+        np.testing.assert_array_equal(g_, s)
+
+
+@pytest.mark.parametrize("cabac", [False, True])
+def test_ref2_stream_byte_equal_payload_and_resume(cabac, ref8_log):
+    frames = _flicker_frames(5)
+    kw = _kw(cabac=cabac)
+    jenc = JEncoder(Params(**kw, stego=StegoParams(em_rate=EM_RATE,
+                                                   key=KEY)))
+    head = b"".join(jenc.encode_frame(f) for f in frames[:3])
+    state = from_reference(jenc)
+    want = head + _run(jenc, frames[3:])
+    tenc = TEncoder(TP.Params(**kw, stego=TP.StegoParams(em_rate=EM_RATE,
+                                                         key=KEY)),
+                    device="cpu")
+    got = _run(tenc, frames)
+    assert got == want
+    assert any((r == 1).any() for r in ref8_log)
+    _check_payload(got, tenc, len(frames))
+    if not cabac:
+        resumed = TEncoder(TP.Params(**kw, stego=TP.StegoParams(
+            em_rate=EM_RATE, key=KEY)), device="cpu")
+        resumed.load_state(state)
+        assert len(resumed._dpb_store) == 2
+        assert _run(resumed, frames[3:]) == want[len(head):]
+
+
+@pytest.mark.parametrize("kw,n", [
+    (dict(ref_frames=3, keyint_max=3), 5),
+    (dict(partitions=False), 4),
+], ids=["ref3_keyint3", "partitions_off"])
+def test_mref_stream_byte_equal_and_payload(kw, n, ref8_log):
+    frames = _flicker_frames(n)
+    kw = _kw(**kw)
+    want = _run(JEncoder(Params(**kw, stego=StegoParams(em_rate=EM_RATE,
+                                                        key=KEY))), frames)
+    tenc = TEncoder(TP.Params(**kw, stego=TP.StegoParams(em_rate=EM_RATE,
+                                                         key=KEY)),
+                    device="cpu")
+    got = _run(tenc, frames)
+    assert got == want
+    assert any((r == 1).any() for r in ref8_log)
+    _check_payload(got, tenc, n)

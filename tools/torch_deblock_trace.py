@@ -65,8 +65,8 @@ def traced_source() -> str:
          "  return t;\n}\n\n__device__ __forceinline__ int ld_acquire"),
         ("      static_cast<int*>(sync));",
          "      static_cast<int*>(sync), static_cast<long long*>(trace));"),
-        ("int mbh, int mbw, void* sync,\n    void* stream) {",
-         "int mbh, int mbw, void* sync,\n    void* stream, void* trace) {"),
+        ("int mbh, int mbw,\n    void* sync, void* stream) {",
+         "int mbh, int mbw,\n    void* sync, void* stream, void* trace) {"),
     ]
     for a, b in edits:
         if src.count(a) != 1:
@@ -92,7 +92,7 @@ def build() -> ctypes.CDLL:
     lib = ctypes.CDLL(so)
     fn = lib.pcamv_deblock_frame
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + \
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + \
         [ctypes.c_void_p] * 3
     return fn
 
@@ -114,7 +114,8 @@ def main() -> int:
 
     def run(_=None):
         kernels.check(fn(*(P(t) for t in planes + out), P(maps[0]),
-                         P(maps[1]), None, P(maps[2]), P(maps[3]), P(tabs),
+                         P(maps[1]), None, P(maps[2]), P(maps[3]), None,
+                         P(tabs),
                          26, 26, 15, 0, 0, MBH, MBW, P(sync),
                          kernels.stream(sync), P(trace)),
                       "traced pcamv_deblock_frame")

@@ -1,7 +1,9 @@
 // Probe kernels for tools/torch_kernel_probe.py (sm_90a, plain C entry
 // points): does a tensor-map TMA load run on this card, does a 1D bulk
-// copy, and how fast is B9's window fetch when each row is read as five
-// aligned 4-byte words instead of its two aligned 16-byte chunks.
+// copy, how fast is B9's window fetch when each row is read as five
+// aligned 4-byte words instead of its two aligned 16-byte chunks, and
+// B7's earlier design (a block of 192 threads an MB, one byte a thread
+// at a time) as the yardstick of its warp-an-MB redesign.
 
 #include <cuda.h>
 #include <cuda/barrier>
@@ -197,5 +199,36 @@ extern "C" int probe_windows8_words(const void* planes, int hp, int wp,
                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(planes), hp, wp,
       static_cast<const int*>(mv), n8, 2 * mbw, static_cast<uint8_t*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B7 as csrc/windows.cu had it before its redesign: one block per MB, each
+// thread copies bytes t, t + 192, ... of the 4 x 24 x 24 window.
+__global__ void windows_bytes(const uint8_t* __restrict__ planes, int hp,
+                              int wp, const int* __restrict__ mv, int mbw,
+                              uint8_t* __restrict__ out) {
+  const int n = blockIdx.x;
+  const int my = n / mbw;
+  const int mx = n - my * mbw;
+  const int ys = 16 * my + 20 + mv[2 * n + 1];
+  const int xs = 16 * mx + 20 + mv[2 * n];
+  if (ys < 0 || xs < 0 || ys + 24 > hp || xs + 24 > wp) __trap();
+  const size_t plane = static_cast<size_t>(hp) * wp;
+  uint8_t* dst = out + static_cast<size_t>(n) * 4 * 24 * 24;
+  for (int t = threadIdx.x; t < 4 * 24 * 24; t += blockDim.x) {
+    const int p = t / (24 * 24);
+    const int rc = t - p * 24 * 24;
+    const int r = rc / 24;
+    const int c = rc - r * 24;
+    dst[t] = planes[p * plane + static_cast<size_t>(ys + r) * wp + xs + c];
+  }
+}
+
+extern "C" int probe_windows_bytes(const void* planes, int hp, int wp,
+                                   const void* mv, int mbh, int mbw,
+                                   void* out, void* stream) {
+  windows_bytes<<<mbh * mbw, 192, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(planes), hp, wp,
+      static_cast<const int*>(mv), mbw, static_cast<uint8_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,9 @@
 """Probe the card for the PyTorch port's full-pel search (B1/B6/B10),
-per-8x8 window fetch (B9) and 4x4 luma encode (B8).
+window fetches (B9 per 8x8, B7 per MB) and 4x4 luma encode (B8).
 
-    python3 tools/torch_kernel_probe.py
+    python3 tools/torch_kernel_probe.py [SECTION ...]
+
+SECTION is any of sass, tma, b9, b7, search, luma (default: all).
 
 On a machine with one NVIDIA H100 and nvcc, from the repository root:
 1. the SASS opcode counts and registers of `csrc/fullpel.cu`,
@@ -18,9 +20,14 @@ On a machine with one NVIDIA H100 and nvcc, from the repository root:
    gather, both called through their C entry points into preallocated
    outputs and timed in turns as 50 back-to-back launches between CUDA
    events (median of 5, three rounds), so that the wrapper's host time
-   does not count;
-4. the same device-only time of B1, B6 and B10's B1 launch at 1080p;
-5. the same device-only time of the fused luma encode
+   does not count; then B9 on a stack of two references with a random
+   per-8x8 reference index (the multi-reference P analysis);
+4. B7 (`csrc/windows.cu`, a warp an MB) at 1080p on the 16x16 path's
+   full-pel MVs against its earlier design (a block of 192 threads an
+   MB, one byte a thread, kept in `tools/torch_kernel_probe.cu`), both
+   array-equal to the plain gather, timed the same way;
+5. the same device-only time of B1, B6 and B10's B1 launch at 1080p;
+6. the same device-only time of the fused luma encode
    (`csrc/luma_p.cu`) and of B8a and B8b (`csrc/dct_quant.cu`) at
    1080p, on the whole frame at qp 26 and 20 and on the stego probe's
    13-version batch.
@@ -132,24 +139,88 @@ def b9_variants() -> None:
     lib = ctypes.CDLL(LIB)
     hp, wp = planes.shape[1:]
     args = [VP, CI, CI, VP, CI, CI, VP, VP]
+    lib.probe_windows8_words.restype = CI
+    lib.probe_windows8_words.argtypes = args
+    b9 = kernels.entry("pcamv_gather_windows8",
+                       [VP, CI, CI, VP, VP, CI, CI, CI, VP, VP])
+    ptr = kernels.ptr
+    refs = torch.stack([planes, torch.roll(planes, 1, dims=2)]).contiguous()
+    ref8 = torch.as_tensor(np.random.RandomState(2).randint(
+        0, 2, (2 * mbh, 2 * mbw)).astype(np.int32), device=dev)
+    runs = {}
+    for label, p, r8, fn in (
+            ("two aligned 16-byte chunks a row (csrc/windows8.cu)", planes,
+             None, lambda p, r8, o: b9(ptr(p), hp, wp, ptr(mv),
+                                       ptr(r8) if r8 is not None else None,
+                                       1 if r8 is None else 2, mbh, mbw,
+                                       ptr(o), kernels.stream(p))),
+            ("five aligned 4-byte words a row", planes, None,
+             lambda p, r8, o: lib.probe_windows8_words(
+                 ptr(p), hp, wp, ptr(mv), mbh, mbw, ptr(o),
+                 kernels.stream(p))),
+            ("csrc/windows8.cu on 2 references, random ref8", refs, ref8,
+             lambda p, r8, o: b9(ptr(p), hp, wp, ptr(mv), ptr(r8), 2, mbh,
+                                 mbw, ptr(o), kernels.stream(p)))):
+        out = torch.empty_like(want)
+        ref_want = (want if r8 is None else
+                    PT.gather_windows8_plain(p, mv, mbh, mbw, ref8=r8))
+
+        def run(fn=fn, p=p, r8=r8, out=out):
+            kernels.check(fn(p, r8, out), "B9 variant")
+        run()
+        torch.cuda.synchronize()
+        print("B9 %s == plain: %s" % (label, torch.equal(out, ref_want)))
+        runs[label] = run
+    for _ in range(3):
+        print("B9 1080p, ms a launch (50 back-to-back launches, median of "
+              "5): " + "; ".join("%s %.4f" % (k, launch_ms(f))
+                                 for k, f in runs.items()))
+
+
+def b7_variants() -> None:
+    """B7 at 1080p on the 16x16 path's MVs (B6 against a zero predictor,
+    rng 16): the redesign against the earlier kernel, both through their
+    C entry points into preallocated outputs."""
+    from video_steganography_pcamv_torch.encoder import qpel_table as QT
+    from video_steganography_pcamv_torch.ops import fullpel as FP
+    from video_steganography_pcamv_torch.ops import mc
+    from video_steganography_pcamv_torch.utils.yuv import synthetic_sequence
+    from video_steganography_pcamv_torch import kernels
+    mbh, mbw = 68, 120
+    dev = torch.device("cuda", 0)
+    fr = synthetic_sequence(16 * mbw, 16 * mbh, 2, seed=3)
+    cur = torch.as_tensor(fr[1].y.astype(np.int32), device=dev)
+    c = torch.as_tensor(fr[0].u.astype(np.int32), device=dev)
+    planes = mc.build_ref(torch.as_tensor(fr[0].y.astype(np.int32),
+                                          device=dev), c, c)["luma"] \
+        .to(torch.uint8)
+    mv = FP.fullpel_search16(cur, planes[0], 16, mbh, mbw, 4)[0] \
+        .contiguous()
+    # (the plain gather returns a permuted view: compare into contiguous
+    # outputs, the kernels' layout)
+    want = QT.gather_windows_plain(planes, mv, mbh, mbw).contiguous()
+    lib = ctypes.CDLL(LIB)
+    hp, wp = planes.shape[1:]
+    args = [VP, CI, CI, VP, CI, CI, VP, VP]
     runs = {}
     for label, fn in (
-            ("two aligned 16-byte chunks a row (csrc/windows8.cu)",
-             kernels.entry("pcamv_gather_windows8", args)),
-            ("five aligned 4-byte words a row", lib.probe_windows8_words)):
+            ("a warp an MB, 16-byte chunks (csrc/windows.cu)",
+             kernels.entry("pcamv_gather_windows", args)),
+            ("a block an MB, a byte a thread (before the redesign)",
+             lib.probe_windows_bytes)):
         fn.restype, fn.argtypes = CI, args
         out = torch.empty_like(want)
 
         def run(fn=fn, out=out):
             kernels.check(fn(planes.data_ptr(), hp, wp, mv.data_ptr(), mbh,
                              mbw, out.data_ptr(), kernels.stream(planes)),
-                          "B9 variant")
+                          "B7 variant")
         run()
         torch.cuda.synchronize()
-        print("B9 %s == plain: %s" % (label, torch.equal(out, want)))
+        print("B7 %s == plain: %s" % (label, torch.equal(out, want)))
         runs[label] = run
     for _ in range(3):
-        print("B9 1080p, ms a launch (50 back-to-back launches, median of "
+        print("B7 1080p, ms a launch (50 back-to-back launches, median of "
               "5): " + "; ".join("%s %.4f" % (k, launch_ms(f))
                                  for k, f in runs.items()))
 
@@ -288,6 +359,7 @@ def main() -> int:
         print("torch_kernel_probe: no CUDA device", file=sys.stderr)
         return 2
     from video_steganography_pcamv_torch import kernels
+    sections = sys.argv[1:] or ["sass", "tma", "b9", "b7", "search", "luma"]
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,"
                         "driver_version", "--format=csv,noheader"],
                        capture_output=True, text=True, check=True)
@@ -298,20 +370,23 @@ def main() -> int:
     subprocess.run([nvcc, *kernels.NVCC_FLAGS, "-shared", "-o", LIB,
                     os.path.join(ROOT, "tools", "torch_kernel_probe.cu")],
                    check=True)
-    for name in ("fullpel", "windows8", "luma_p", "dct_quant"):
+    for name in ("fullpel", "windows8", "windows", "luma_p",
+                 "dct_quant") if "sass" in sections else ():
         sass_counts(nvcc, kernels.NVCC_FLAGS, name)
     for mode, what in ((0, "TMA tensor load, libcu++, map as parameter"),
                        (1, "TMA tensor load, PTX, map in global memory"),
-                       (2, "1D cp.async.bulk copy")):
+                       (2, "1D cp.async.bulk copy")
+                       ) if "tma" in sections else ():
         r = subprocess.run([sys.executable, os.path.abspath(__file__),
                             "--copy", str(mode)], capture_output=True,
                            text=True, timeout=300)
         err = [ln for ln in r.stderr.splitlines() if "rror" in ln]
         print("%s: exit %d; %s %s" % (what, r.returncode, r.stdout.strip(),
                                       err[-1:] if err else ""))
-    b9_variants()
-    search_device_ms()
-    luma_device_ms()
+    for name, fn in (("b9", b9_variants), ("b7", b7_variants),
+                     ("search", search_device_ms), ("luma", luma_device_ms)):
+        if name in sections:
+            fn()
     return 0
 
 

@@ -6,8 +6,9 @@
 // per-MB parameter precompute (edge_params, :61), the pads, the wave
 // loop (_run, :449, with the body from _make_kernel) and the uint8
 // slices. Inputs: u8 planes y [16mbh][16mbw], u/v [8mbh][8mbw], filtered
-// in place; per MB intra, skip, trans8 (null: none); per 4x4 nnz and mv
-// (int32); the spec tables (alpha[76] | beta[76] | tc0[76][4], parsed
+// in place; per MB intra, skip, trans8 (null: none); per 4x4 nnz, mv and
+// the L0 reference index ref4 (int32; ref4 null: all 0, one reference);
+// the spec tables (alpha[76] | beta[76] | tc0[76][4], parsed
 // from native/deblock_tables.inc by ops/deblock.py); the frame's qp,
 // qpc, qp_thresh and the slice's alpha/beta offsets. The result is
 // bit-equal to deblock_frame_plain(edge_params(...)).
@@ -152,6 +153,7 @@ struct Frame {
   const int* trans8;                // may be null
   const int* nnz4;
   const int* mv4;
+  const int* ref4;                  // may be null (all 0)
   int qp, qpc, qp_thresh, off_a, off_b, mbh, mbw;
 };
 
@@ -186,10 +188,13 @@ __device__ void edge_params_lane(uint8_t* prm, const Frame& f,
   const int pn = p_in ? f.nnz4[pi] : 0;
   const int pmx = p_in ? f.mv4[2 * pi] : 0;
   const int pmy = p_in ? f.mv4[2 * pi + 1] : 0;
+  const int qr = f.ref4 ? f.ref4[qi] : 0;
+  const int pr = f.ref4 && p_in ? f.ref4[pi] : 0;
   const bool cur_i = f.intra[mb] > 0;
   const bool nb_i = has_nb && f.intra[d == 0 ? mb - 1 : mb - f.mbw] > 0;
   int bs = (qn > 0 || pn > 0) ? 2 : 0;
-  if (bs == 0 && (abs(qmx - pmx) >= 4 || abs(qmy - pmy) >= 4)) bs = 1;
+  if (bs == 0 && (abs(qmx - pmx) >= 4 || abs(qmy - pmy) >= 4 || qr != pr))
+    bs = 1;
   if (e == 0 ? (cur_i || nb_i) : cur_i) bs = 3;
 
   // the MB edge averages the two MBs' qp (the neighbour's reads as 0
@@ -496,9 +501,9 @@ deblock_rows_kernel(uint8_t* __restrict__ yp, uint8_t* __restrict__ up,
 extern "C" int pcamv_deblock_frame(
     const void* y_in, const void* u_in, const void* v_in, void* y, void* u,
     void* v, const void* intra, const void* skip, const void* trans8,
-    const void* nnz4, const void* mv4, const void* tabs, int qp, int qpc,
-    int qp_thresh, int off_a, int off_b, int mbh, int mbw, void* sync,
-    void* stream) {
+    const void* nnz4, const void* mv4, const void* ref4, const void* tabs,
+    int qp, int qpc, int qp_thresh, int off_a, int off_b, int mbh, int mbw,
+    void* sync, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t ny = (size_t)256 * mbh * mbw, nc = ny / 4;
   const void* src[3] = {y_in, u_in, v_in};
@@ -521,8 +526,8 @@ extern "C" int pcamv_deblock_frame(
   }
   Frame f{static_cast<const int*>(intra), static_cast<const int*>(skip),
           static_cast<const int*>(trans8), static_cast<const int*>(nnz4),
-          static_cast<const int*>(mv4), qp, qpc, qp_thresh, off_a, off_b,
-          mbh, mbw};
+          static_cast<const int*>(mv4), static_cast<const int*>(ref4), qp,
+          qpc, qp_thresh, off_a, off_b, mbh, mbw};
   deblock_rows_kernel<<<mbh, kThreads, smem, st>>>(
       static_cast<uint8_t*>(y), static_cast<uint8_t*>(u),
       static_cast<uint8_t*>(v), f, static_cast<const int*>(tabs),

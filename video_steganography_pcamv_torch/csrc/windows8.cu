@@ -5,7 +5,11 @@
 // _window8_kernel :239): for 8x8 block b at (by, bx) of the
 // [2mbh, 2mbw] block grid with full-pel MV (mvx, mvy), copy
 // planes[:, ys:ys+16, xs:xs+16] to out[b], where ys = 8*by + PAD - MARGIN
-// + mvy and xs = 8*bx + PAD - MARGIN + mvx (PAD 24, MARGIN 4).
+// + mvy and xs = 8*bx + PAD - MARGIN + mvx (PAD 24, MARGIN 4). With
+// multiple references (the multi-reference P analysis, the reference's
+// gather_windows8_mref, video_steganography_pcamv_tpu/encoder/
+// partition.py:792) the planes are a stack [R][4][Hp][Wp] and block b
+// reads entry ref8[b] of it.
 //
 // The TPU kernel's eight pre-shifted plane banks are an alignment device
 // of its DMA engine and are not carried over. A warp copies one block's
@@ -31,7 +35,8 @@
 // A window that would leave the planes traps the launch instead of
 // reading outside them (the fault surfaces at the next synchronisation):
 // the encoder admits only search ranges that keep every window inside,
-// so a trap means a broken caller.
+// so a trap means a broken caller. A reference index outside [0, R)
+// traps the same way.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -46,7 +51,8 @@ constexpr int kWarps = 8;                  // blocks (warps) per CTA
 
 __global__ void __launch_bounds__(32 * kWarps) windows8_kernel(
     const uint8_t* __restrict__ planes, int hp, int wp,
-    const int* __restrict__ mv, int n8, int nbw, uint8_t* __restrict__ out) {
+    const int* __restrict__ mv, const int* __restrict__ ref8, int nref,
+    int n8, int nbw, uint8_t* __restrict__ out) {
   const int b = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (b >= n8) return;
   const int lane = threadIdx.x & 31;
@@ -54,17 +60,21 @@ __global__ void __launch_bounds__(32 * kWarps) windows8_kernel(
   const int bx = b - by * nbw;
   const int ys = 8 * by + kPad - kMargin + mv[2 * b + 1];
   const int xs = 8 * bx + kPad - kMargin + mv[2 * b];
-  if (ys < 0 || xs < 0 || ys + kWin > hp || xs + kWin > wp) __trap();
+  const int r = ref8 ? ref8[b] : 0;
+  if (ys < 0 || xs < 0 || ys + kWin > hp || xs + kWin > wp || r < 0 ||
+      r >= nref)
+    __trap();
   const int off = xs & 15;                 // window start in its chunk
   const int sh = 8 * (off & 3);
   const size_t plane = static_cast<size_t>(hp) * wp;
+  const uint8_t* base = planes + static_cast<size_t>(4 * r) * plane;
   uint4* dst = reinterpret_cast<uint4*>(out + static_cast<size_t>(b) *
                                         kRows * kWin);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int pr = lane + 32 * h;          // plane * 16 + row
     const uint4* src = reinterpret_cast<const uint4*>(
-        planes + (pr >> 4) * plane +
+        base + (pr >> 4) * plane +
         static_cast<size_t>(ys + (pr & 15)) * wp + (xs - off));
     const uint4 a = __ldg(src);
     const uint4 c = off ? __ldg(src + 1) : make_uint4(0, 0, 0, 0);
@@ -85,14 +95,16 @@ __global__ void __launch_bounds__(32 * kWarps) windows8_kernel(
 }  // namespace
 
 extern "C" int pcamv_gather_windows8(const void* planes, int hp, int wp,
-                                     const void* mv, int mbh, int mbw,
-                                     void* out, void* stream) {
+                                     const void* mv, const void* ref8,
+                                     int nref, int mbh, int mbw, void* out,
+                                     void* stream) {
   const int n8 = 4 * mbh * mbw;
   if (n8 <= 0) return 0;
   const int grid = (n8 + kWarps - 1) / kWarps;
   windows8_kernel<<<grid, 32 * kWarps, 0,
                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(planes), hp, wp,
-      static_cast<const int*>(mv), n8, 2 * mbw, static_cast<uint8_t*>(out));
+      static_cast<const int*>(mv), static_cast<const int*>(ref8), nref, n8,
+      2 * mbw, static_cast<uint8_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -43,6 +43,18 @@ embedding with its batched probe encode and pass-2 re-encode
 native CAVLC or CABAC writer. The reference serves this path only with
 its host deblocker (`deblock_device=False`); the port's deblocker is
 bit-exact to it.
+
+With `ref_frames` > 1 (x264's `--ref N`, BASELINE config 4's P half)
+every P frame takes the reference's multi-reference branch of
+`_encode_p_parts`, unpipelined, with or without partitions: B1 once per
+entry of the DPB (a sliding window of `ref_frames` deblocked frames,
+newest first), the per-unit reference merge, B9 with each 8x8 block's
+reference, B3' -> B4', the multi-reference pass-1 encode, the native
+MVP/P_SKIP scan with references, the host STC and a full pass-2
+re-encode (flips change MVs, never references), B5 with the per-4x4
+reference map and the native writer with ref_idx_l0. The slice header
+overrides num_ref_idx_l0_active while fewer than `ref_frames` entries
+are valid (after an IDR).
 """
 
 from __future__ import annotations
@@ -74,6 +86,7 @@ from . import qpel_table as QT
 from .analyse2 import analyse_p_frame
 from .inter_incr import changed_mbs, pad_subset, reencode_p_incremental
 from .intra import encode_i_frame
+from . import partition as PT
 from .partition import p_stage1_stego
 from .ratecontrol import RateControl
 from .slicetype import Lookahead
@@ -86,13 +99,14 @@ _LEAN_WIDTH8 = 257
 
 def check_slice(p: Params) -> None:
     """Raise NotImplementedError for any option outside the ported
-    slice: IPPP, CQP, CAVLC or CABAC, one reference, subpel 2,
-    decimation, incremental re-encode, stego on, me_range <= PAD -
-    MARGIN, and either partitions (the serving path, optionally with
-    the 8x8 transform and rd 1; pipelined or not, PSNR/SSIM on or off,
-    either deblocker) or partitions off with the host deblock (the
-    16x16-only path)."""
-    if not p.partitions and p.deblock_device:
+    slice: IPPP, CQP, CAVLC or CABAC, subpel 2, decimation, incremental
+    re-encode, stego on, me_range <= PAD - MARGIN, and either partitions
+    (the serving path, optionally with the 8x8 transform and rd 1;
+    pipelined or not, PSNR/SSIM on or off, either deblocker) or
+    partitions off with the host deblock (the 16x16-only path), at one
+    reference; or `ref_frames` > 1 (up to 8) with or without partitions,
+    either deblocker, without the 8x8 transform or rd."""
+    if not p.partitions and p.deblock_device and p.ref_frames == 1:
         raise NotImplementedError(
             "partitions off with deblock_device on: the reference drops "
             "the recon planes (need_recon is False, core.py:3475-3478) and "
@@ -100,8 +114,12 @@ def check_slice(p: Params) -> None:
             "; use deblock_device=False")
     bad = []
     for name, ok in (
-            ("bframes", p.bframes == 0),
-            ("ref_frames>1", p.ref_frames == 1), ("p4x4", not p.p4x4),
+            ("bframes (ROADMAP A14)", p.bframes == 0),
+            ("p4x4 (ROADMAP A16)", not p.p4x4),
+            ("ref_frames>1 with transform_8x8 (ROADMAP A15)",
+             p.ref_frames == 1 or not p.transform_8x8),
+            ("ref_frames>1 with rd (ROADMAP A15)",
+             p.ref_frames == 1 or not p.rd),
             ("transform_8x8 without partitions",
              p.partitions or not p.transform_8x8),
             ("trellis", not p.trellis), ("rd>=2", p.rd <= 1),
@@ -298,7 +316,7 @@ class Encoder:
             log(LOG_WARNING, msg)
         native.load()
         self._dpb_store = []   # reference dicts, newest first
-        self.ref = None        # the P slices' one reference (newest)
+        self.ref = None        # the newest reference
         self._poc_lsb = 0      # IPP only: every slice carries POC LSB 0
         self._pending_p = None
         self.frame_num = 0
@@ -343,22 +361,25 @@ class Encoder:
         pipelined loop emits frame N's slice during frame N+1's call)."""
         t0 = time.time()
         y, u, v = self._pad(frame)
-        if (self.p.partitions and self.ref is not None
+        if (self.p.partitions and self.p.ref_frames == 1
+                and self.ref is not None
                 and self.lookahead.prev_lr is not None):
             return self._encode_frame_ipp_fast(frame, y, u, v, t0)
         out_pend = self._drain_pending()
         is_idr, satd = self.lookahead.decide(y)
         if self.ref is None:
             is_idr = True
-        if not is_idr and self.p.partitions:
+        if not is_idr and self.p.partitions and self.p.ref_frames == 1:
             raise NotImplementedError("non-fused partitioned P frame")
         qp = self.rc.start(SLICE_I if is_idr else SLICE_P, satd)
         out = self._aud(SLICE_I if is_idr else SLICE_P)
         if is_idr:
             out += self._encode_idr(y, u, v, qp)
         else:
+            enc_p = (self._encode_p_mref if self.p.ref_frames > 1
+                     else self._encode_p16)
             out += nal_unit(NAL_SLICE, NAL_PRIORITY_HIGH,
-                            self._encode_p16(y, u, v, qp))
+                            enc_p(y, u, v, qp))
             self.stats.p_frames += 1
         self._accumulate_psnr(frame, y, u, v)
         self.frame_num += 1
@@ -544,6 +565,73 @@ class Encoder:
                                     mvd4, skip, self.frame_num,
                                     self._poc_lsb)
 
+    def _dpb_stacked(self):
+        """The P list as stacked tensors ([R, 4, Hp, Wp] luma, [R, Hp,
+        Wp] chroma) padded to R = ref_frames entries by repeating the
+        newest (the merge masks the padding out), and the count of valid
+        entries. With P frames only the P list is the store in decode
+        order, newest first."""
+        R = self.p.ref_frames
+        dpb = self._dpb_store[:R]
+        n_valid = len(dpb)
+        dpb = dpb + [dpb[0]] * (R - n_valid)
+        return (torch.stack([d["luma"] for d in dpb]),
+                torch.stack([d["u"] for d in dpb]),
+                torch.stack([d["v"] for d in dpb]), n_valid)
+
+    def _encode_p_mref(self, y, u, v, qp: int) -> bytes:
+        """A multi-reference P frame (the reference's `_encode_p_parts`
+        with ref_frames > 1; `partitions` False pins every MB to 16x16):
+        the analysis (B1 per entry, the merge, B9 with ref8, B3' -> B4'),
+        the pass-1 encode, one pull of part/mv8/cbp/ref8, the native scan
+        with references, the embedding (its pass 2 a full re-encode), B5
+        with ref4 and the slice."""
+        p = self.p
+        mbh, mbw = p.mb_height, p.mb_width
+        n = mbh * mbw
+        dev = self.device
+        qpc = chroma_qp(qp, p.chroma_qp_offset)
+        lam = ME.lambda_tab(qp)
+        refs_luma, refs_u, refs_v, n_valid = self._dpb_stacked()
+        part, mv8, ref8, SK, SP, sc8 = \
+            PT.analyse_p_frame_parts_mref(
+                y, refs_luma.to(torch.uint8), n_valid,
+                torch.as_tensor(self.prev_mv).to(dev), lam, qp, p.me_range,
+                mbh, mbw, p.ref_frames, allow_parts=bool(p.partitions),
+                tail_kernel=bool(p.tail_kernel))
+        res = P.encode_p_frame_device8_mref(
+            y, u, v, refs_luma, refs_u, refs_v, mv8, ref8, qp, qpc, mbh, mbw)
+        meta = torch.cat([part.reshape(-1), mv8.reshape(-1),
+                          res["cbp_luma"].reshape(-1).to(torch.int32),
+                          res["cbp_chroma"].reshape(-1).to(torch.int32),
+                          ref8.reshape(-1)]).cpu().numpy()
+        part_np = meta[:n].reshape(mbh, mbw)
+        mv8_np = meta[n:9 * n].reshape(2 * mbh, 2 * mbw, 2)
+        cbp_l = meta[9 * n:10 * n].reshape(mbh, mbw)
+        cbp_c = meta[10 * n:11 * n].reshape(mbh, mbw)
+        ref8_np = np.ascontiguousarray(meta[11 * n:]).reshape(2 * mbh,
+                                                              2 * mbw)
+        skip, mvd, mvp, final8 = native.scan_p_parts(
+            part_np, mv8_np, cbp_l, cbp_c, ref8=ref8_np)
+        replaced = self._stego.embed_frame_parts(
+            self, y, u, v, qp, part_np, mv8_np, skip, mvp, ref8_np,
+            (SK, SP, sc8, part, mv8), (refs_luma, refs_u, refs_v))
+        if replaced is not None:
+            final8, skip, mvd, res = replaced
+        final8_t = torch.as_tensor(np.ascontiguousarray(final8)).to(dev)
+        ref4 = ref8.repeat_interleave(2, 0).repeat_interleave(2, 1)
+        self._deblock_device(
+            res, torch.zeros((mbh, mbw), dtype=torch.int32, device=dev),
+            torch.as_tensor(skip.astype(np.int32)).to(dev),
+            final8_t.repeat_interleave(2, 0).repeat_interleave(2, 1), qp,
+            _nnz4(res["luma_lev"], mbh, mbw), ref4=ref4)
+        # stego on: no intra MBs in P, the predictor is the final field
+        self.prev_mv = np.ascontiguousarray(final8[::2, ::2], np.int32)
+        return self._finish_p_slice(_levels_exact(res, mbh, mbw), qp,
+                                    part_np, mvd, skip, self.frame_num,
+                                    self._poc_lsb, ref8=ref8_np,
+                                    num_ref=n_valid)
+
     def _encode_i(self, y, u, v, qp: int) -> bytes:
         p = self.p
         mbh, mbw = p.mb_height, p.mb_width
@@ -692,10 +780,11 @@ class Encoder:
                     skip=skip, final8=final8)
 
     def _deblock_device(self, res, intra, skip, mv4, qp: int, nnz4,
-                        trans8=None):
+                        trans8=None, ref4=None):
         """In-loop deblock (kernel B5 on CUDA, one launch on uint8 copies
         of the recon planes) into the new reference; trans8 [mbh, mbw]
-        marks the MBs coded with the 8x8 transform."""
+        marks the MBs coded with the 8x8 transform, ref4 [4mbh, 4mbw]
+        holds each 4x4 block's reference index (None: one reference)."""
         p = self.p
         off_a, off_b = 2 * p.deblock_alpha, 2 * p.deblock_beta
         dy, du, dv = deblock_frame(
@@ -703,21 +792,41 @@ class Encoder:
             nnz4, mv4, qp,
             chroma_qp(qp, p.chroma_qp_offset), p.mb_height, p.mb_width,
             qp_thresh=(15 - min(off_a, off_b) - max(0, p.chroma_qp_offset)),
-            off_a=off_a, off_b=off_b, trans8=trans8)
+            off_a=off_a, off_b=off_b, trans8=trans8, ref4=ref4)
         self.recon_prev = (dy, du, dv)
         self._push_ref(mc.build_ref(dy, du, dv))
 
     def _push_ref(self, refdict: dict):
-        """Sliding-window DPB update (newest first; spec 8.2.5.3). With
-        P frames only, decode order is the P list order."""
+        """Sliding-window DPB update (newest first; spec 8.2.5.3), at most
+        SPS num_ref_frames entries. With P frames only, decode order is
+        the P list order."""
         self._dpb_store.insert(0, refdict)
         del self._dpb_store[self.sps.num_ref_frames:]
         self.ref = self._dpb_store[0]
 
+    @staticmethod
+    def _refs4(part_np, ref8):
+        """[mbh, mbw, 4] L0 index of each ref slot for the native writers
+        (the reference's `_refs4`: slot k is partition k's first 8x8,
+        unused slots 0)."""
+        mbh, mbw = part_np.shape
+        r = np.zeros((mbh, mbw, 4), np.int32)
+        r[..., 0] = ref8[::2, ::2]
+        r[..., 1] = np.where(part_np == 1, ref8[1::2, ::2], ref8[::2, 1::2])
+        r[..., 2] = ref8[1::2, ::2]
+        r[..., 3] = ref8[1::2, 1::2]
+        return r
+
     def _finish_p_slice(self, res_np, qp: int, part_np, mvd, skip,
-                        frame_num: int, poc_lsb: int) -> bytes:
+                        frame_num: int, poc_lsb: int, ref8=None,
+                        num_ref: int = 1) -> bytes:
         """P slice header + native CAVLC or CABAC entropy of a completed
-        frame (the 16x16-only path passes part 0 and mvd in slot 0)."""
+        frame (the 16x16-only path passes part 0 and mvd in slot 0). On
+        the multi-reference path ref8 [2mbh, 2mbw] gives each 8x8 block's
+        reference and num_ref the active L0 count (the header overrides
+        the PPS's while it is smaller; ref_idx is coded when it is above
+        1). The port codes no intra MB in a P slice (stego is on), so the
+        native writers serve every slice."""
         p = self.p
         mbh, mbw = p.mb_height, p.mb_width
         n = mbh * mbw
@@ -727,8 +836,9 @@ class Encoder:
                              frame_num, qp, idr=False, disable_deblock=0,
                              alpha_div2=p.deblock_alpha,
                              beta_div2=p.deblock_beta, poc_lsb=poc_lsb,
-                             reorder_l0=None, p_l0_active=1)
+                             reorder_l0=None, p_l0_active=num_ref)
         hdr, nbits = bw.partial_bytes()
+        refs = None if ref8 is None else self._refs4(part_np, ref8)
         if p.cabac:
             return native.write_slice_cabac(
                 hdr, nbits, H.SLICE_TYPE_P, mbw, mbh, qp,
@@ -738,6 +848,7 @@ class Encoder:
                 luma_blocks=res_np["luma_lev"].reshape(n, 16, 16),
                 chroma_dc=res_np["chroma_dc"].reshape(n, 2, 4),
                 chroma_ac=res_np["chroma_ac"].reshape(n, 2, 4, 16),
+                refs=refs, num_ref=num_ref,
                 luma8_lev=(res_np["luma8_lev"].reshape(n, 256) if t8
                            else None),
                 trans8=res_np["trans8"].astype(np.int32) if t8 else None,
@@ -750,6 +861,7 @@ class Encoder:
             luma_blocks=res_np["luma_lev"].reshape(n, 16, 16),
             chroma_dc=res_np["chroma_dc"].reshape(n, 2, 4),
             chroma_ac=res_np["chroma_ac"].reshape(n, 2, 4, 16),
+            refs=refs, num_ref=num_ref,
             trans8=res_np["trans8"].reshape(n) if "trans8" in res_np
             else None, luma8_lev=res_np.get("luma8_lev"), trans8_mode=t8)
 

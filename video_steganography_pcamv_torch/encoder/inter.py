@@ -150,14 +150,19 @@ def pack_chroma(chroma, n: int):
     return dc.to(torch.int16), ac.to(torch.int16)
 
 
-def assemble_pred_luma(ref_luma, mv8, mbh: int, mbw: int):
+def assemble_pred_luma(ref_luma, mv8, mbh: int, mbw: int, ref8=None):
     """Per-8x8-block MC -> [n,16,16] MB predictions (mv8 [2mbh,2mbw,2]
-    qpel)."""
+    qpel); with `ref8` [2mbh,2mbw] each block from its own entry of the
+    stacked DPB ref_luma [R,4,Hp,Wp]."""
     n8 = 4 * mbh * mbw
     ar = torch.arange(n8, device=mv8.device, dtype=_I32)
     ys8 = torch.div(ar, 2 * mbw, rounding_mode="floor") * 8
     xs8 = (ar % (2 * mbw)) * 8
-    p8 = mc.mc_luma(ref_luma, ys8, xs8, mv8.reshape(n8, 2), 8, 8)
+    if ref8 is None:
+        p8 = mc.mc_luma(ref_luma, ys8, xs8, mv8.reshape(n8, 2), 8, 8)
+    else:
+        p8 = mc.mc_luma_multi(ref_luma, ref8.reshape(n8), ys8, xs8,
+                              mv8.reshape(n8, 2), 8, 8)
     pred = p8.reshape(2 * mbh, 2 * mbw, 8, 8).permute(0, 2, 1, 3) \
         .reshape(16 * mbh, 16 * mbw)
     return mb_tiles(pred, 16)
@@ -300,3 +305,33 @@ def encode_p_frame_device8(y, u, v, ref_luma, ref_u, ref_v, mv8,
         out["trans8"] = t8.reshape(mbh, mbw)
         out["luma8_lev"] = lev8.reshape(mbh, mbw, 256).to(torch.int16)
     return out
+
+
+def encode_p_frame_device8_mref(y, u, v, refs_luma, refs_u, refs_v, mv8,
+                                ref8, qp: int, qpc: int, mbh: int, mbw: int,
+                                force_zero=None) -> dict:
+    """Multi-reference partitioned P encode, the reference's
+    `encode_p_frame_device8_mref` (encoder/inter.py:642): refs_* the
+    stacked DPB ([R,4,Hp,Wp] luma, [R,Hp,Wp] chroma), ref8 [2mbh,2mbw]
+    each 8x8 block's L0 index, otherwise `encode_p_frame_device8` (the
+    4x4 luma encode is the fused kernel, fed each block's prediction from
+    its own reference)."""
+    n = mbh * mbw
+    dev = y.device
+    fz = _force_zero(force_zero, n, dev)
+    pred = assemble_pred_luma(refs_luma, mv8, mbh, mbw, ref8=ref8)
+    lev, rec, cbp_l = LP.luma_p_encode(y, pred, qp, fz=fz)
+    n8 = 4 * mbh * mbw
+    ar = torch.arange(n8, device=dev, dtype=_I32)
+    ysc = torch.div(ar, 2 * mbw, rounding_mode="floor") * 4
+    xsc = (ar % (2 * mbw)) * 4
+    mvf8 = mv8.reshape(n8, 2)
+    reff = ref8.reshape(n8)
+    chroma = []
+    for plane, refp in ((u, refs_u), (v, refs_v)):
+        pc4 = mc.mc_chroma_multi(refp, reff, ysc, xsc, mvf8, 4, 4)
+        predc = pc4.reshape(2 * mbh, 2 * mbw, 4, 4).permute(0, 2, 1, 3) \
+            .reshape(8 * mbh, 8 * mbw)
+        chroma.append(chroma_encode(mb_tiles(plane, 8), mb_tiles(predc, 8),
+                                    qpc, fz))
+    return _p_result(lev, rec, cbp_l, chroma, mbh, mbw)

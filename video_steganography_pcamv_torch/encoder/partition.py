@@ -55,9 +55,11 @@ BLOCK_UNIT = np.array([[0, 0, 0, 0], [0, 0, 1, 1], [0, 1, 0, 1],
                        [0, 1, 2, 3]], np.int32)
 
 
-def decide_partition(st: dict, mbh: int, mbw: int, lam: int = 1):
+def decide_partition(st: dict, mbh: int, mbw: int, lam: int = 1,
+                     allow_parts: bool = True):
     """4-way partition decision from the full-pel unit costs plus header
-    lambda terms. Returns (part [mbh,mbw] int32, mvfp8 [2mbh,2mbw,2])."""
+    lambda terms; `allow_parts` False pins every MB to 16x16. Returns
+    (part [mbh,mbw] int32, mvfp8 [2mbh,2mbw,2])."""
     hdr = _HDR_BITS
     tot = torch.stack([
         st["c16"] + lam * int(hdr[0]),
@@ -66,6 +68,8 @@ def decide_partition(st: dict, mbh: int, mbw: int, lam: int = 1):
         st["c8"].sum(-1, dtype=_I32) + lam * int(hdr[3]),
     ])
     part = torch.argmin(tot, dim=0)
+    if not allow_parts:
+        part = torch.zeros_like(part)
     mv_by_part = torch.stack([
         st["mv16"][:, :, None, :].expand(mbh, mbw, 4, 2),
         st["mv16x8"][:, :, [0, 0, 1, 1], :],
@@ -94,48 +98,65 @@ def window8_index(mvfp8, mbh: int, mbw: int):
     return yy, xx
 
 
-def gather_windows8_plain(planes, mvfp8, mbh: int, mbw: int):
-    """Plain version of B9 (the reference's `gather_windows8_jnp`): the
-    per-8x8-block [N8, 4, 16, 16] window at (block + mv - MARGIN), one
-    advanced-index gather."""
+def gather_windows8_plain(planes, mvfp8, mbh: int, mbw: int, ref8=None):
+    """Plain version of B9 (the reference's `gather_windows8_jnp`, and
+    with `ref8` its `gather_windows8_mref`): the per-8x8-block [N8, 4,
+    16, 16] window at (block + mv - MARGIN), one advanced-index gather;
+    with `ref8` [2mbh, 2mbw] from entry ref8[b] of the [R, 4, Hp, Wp]
+    stack."""
     yy, xx = window8_index(mvfp8, mbh, mbw)
-    return planes[:, yy[:, :, None], xx[:, None, :]].permute(1, 0, 2, 3) \
-        .contiguous()
+    if ref8 is None:
+        return planes[:, yy[:, :, None], xx[:, None, :]] \
+            .permute(1, 0, 2, 3).contiguous()
+    r = ref8.reshape(-1).long()[:, None, None, None]
+    pp = torch.arange(4, device=planes.device)[None, :, None, None]
+    return planes[r, pp, yy[:, None, :, None], xx[:, None, None, :]]
 
 
-def gather_windows8(planes, mvfp8, mbh: int, mbw: int):
+def gather_windows8(planes, mvfp8, mbh: int, mbw: int, ref8=None):
     """Kernel B9, replacing the TPU kernel `gather_windows8_banked`
     (video_steganography_pcamv_tpu/ops/pallas_kernels.py:259): every 8x8
     block's 16x16 window of the four hpel planes, a warp a block: aligned
     16-byte loads, funnel shifts, coalesced 16-byte stores
     (`csrc/windows8.cu`). Bound by device memory.
 
-    planes [4, Hp, Wp] uint8 (PAD-padded hpel planes); mvfp8 [2mbh, 2mbw,
-    2] int32 full-pel. |mv| <= PAD - MARGIN keeps every window inside the
-    planes (the furthest column is W + 47, the last of W + 2 * PAD); the
-    encoder refuses larger search ranges (`check_slice`), and the kernel
-    traps on a window outside the planes. Returns [N8, 4, 16, 16] uint8.
-    CPU tensors run `gather_windows8_plain`; CUDA tensors launch the
-    kernel (counted in `gather_windows8.launches`)."""
+    planes [4, Hp, Wp] uint8 (PAD-padded hpel planes), or with `ref8`
+    (the multi-reference analysis) a stack [R, 4, Hp, Wp] of them and
+    ref8 [2mbh, 2mbw] int32 the entry each 8x8 block reads; mvfp8 [2mbh,
+    2mbw, 2] int32 full-pel. |mv| <= PAD - MARGIN keeps every window
+    inside the planes (the furthest column is W + 47, the last of W + 2 *
+    PAD); the encoder refuses larger search ranges (`check_slice`), and
+    the kernel traps on a window outside the planes or a reference index
+    outside [0, R). Returns [N8, 4, 16, 16] uint8. CPU tensors run
+    `gather_windows8_plain`; CUDA tensors launch the kernel (counted in
+    `gather_windows8.launches`)."""
     if planes.dtype != torch.uint8:
         raise TypeError("gather_windows8: planes %s, expected uint8"
                         % planes.dtype)
+    if (planes.dim() == 4) != (ref8 is not None):
+        raise ValueError("gather_windows8: a [R, 4, Hp, Wp] stack goes with "
+                         "ref8, [4, Hp, Wp] planes without")
     if planes.device.type == "cpu":
-        return gather_windows8_plain(planes, mvfp8, mbh, mbw)
+        return gather_windows8_plain(planes, mvfp8, mbh, mbw, ref8=ref8)
     hp, wp = 16 * mbh + 2 * mc.PAD, 16 * mbw + 2 * mc.PAD
+    nref = 1 if ref8 is None else planes.shape[0]
     kernels.check_tensor("gather_windows8", "planes", planes, torch.uint8,
-                         (4, hp, wp))
+                         (4, hp, wp) if ref8 is None else (nref, 4, hp, wp))
     if planes.data_ptr() % 16:
         raise ValueError("gather_windows8: planes are not 16-byte aligned")
     kernels.check_tensor("gather_windows8", "mvfp8", mvfp8, _I32,
                          (2 * mbh, 2 * mbw, 2))
+    if ref8 is not None:
+        kernels.check_tensor("gather_windows8", "ref8", ref8, _I32,
+                             (2 * mbh, 2 * mbw))
     out = torch.empty((4 * mbh * mbw, 4, 16, 16), dtype=torch.uint8,
                       device=planes.device)
     VP, CI = kernels.VP, kernels.CI
     fn = kernels.entry("pcamv_gather_windows8",
-                       [VP, CI, CI, VP, CI, CI, VP, VP])
+                       [VP, CI, CI, VP, VP, CI, CI, CI, VP, VP])
     ptr = kernels.ptr
-    rc = fn(ptr(planes), hp, wp, ptr(mvfp8), mbh, mbw, ptr(out),
+    rc = fn(ptr(planes), hp, wp, ptr(mvfp8),
+            None if ref8 is None else ptr(ref8), nref, mbh, mbw, ptr(out),
             kernels.stream(planes))
     kernels.check(rc, "pcamv_gather_windows8")
     gather_windows8.launches += 1
@@ -143,6 +164,92 @@ def gather_windows8(planes, mvfp8, mbh: int, mbw: int):
 
 
 gather_windows8.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Multi-reference P analysis (the reference's partition.py:742-880; x264's
+# per-reference search loop, analyse.c:1122-1200, and its mixed-reference
+# P_8x8): B1 runs once per DPB entry, and each partition unit keeps the
+# (cost, mv, ref) of its cheapest entry with the te(v) ref_idx bits in the
+# cost. DPB slots past n_valid (the stack is padded by repeating the newest
+# entry) carry a 1 << 28 penalty.
+# ---------------------------------------------------------------------------
+
+def te_ref_bits(num_ref: int) -> np.ndarray:
+    """Bits of ref_idx te(v) per index (spec 9.1.1): one bit when the
+    range is 0..1, else the ue(v) size."""
+    if num_ref <= 1:
+        return np.zeros(num_ref, np.int32)
+    if num_ref == 2:
+        return np.ones(2, np.int32)
+    return np.array([2 * int(np.floor(np.log2(i + 1))) + 1
+                     for i in range(num_ref)], np.int32)
+
+
+def merge_ref_states(sts, lam: int, ref_bits, n_valid: int) -> dict:
+    """Per-unit (cost, mv, ref) over the per-reference B1 states `sts`
+    (ascending reference index): a strictly cheaper entry replaces the
+    kept one, so ties keep the lower reference. Returns the `st` dict of
+    `decide_partition` plus r16, r16x8, r8x16, r8 (int32 indices)."""
+    out = {}
+    for ck in ("c16", "c16x8", "c8x16", "c8"):
+        mk, rk = "mv" + ck[1:], "r" + ck[1:]
+        best_c = best_mv = best_r = None
+        for r, st in enumerate(sts):
+            pen = 0 if r < n_valid else 1 << 28
+            c = st[ck] + (lam * int(ref_bits[r]) + pen)
+            if best_c is None:
+                best_c, best_mv = c, st[mk]
+                best_r = torch.zeros_like(c)
+            else:
+                better = c < best_c
+                best_c = torch.where(better, c, best_c)
+                best_mv = torch.where(better[..., None], st[mk], best_mv)
+                best_r = torch.where(better, r, best_r)
+        out[ck], out[mk], out[rk] = best_c, best_mv, best_r.to(_I32)
+    return out
+
+
+def ref8_from_partition(st: dict, part, mbh: int, mbw: int):
+    """Each 8x8 block's reference under the chosen partition, [2mbh,
+    2mbw] int32 (the reference selection of `decide_partition`'s MVs)."""
+    ref_by_part = torch.stack([
+        st["r16"][:, :, None].expand(mbh, mbw, 4),
+        st["r16x8"][:, :, [0, 0, 1, 1]],
+        st["r8x16"][:, :, [0, 1, 0, 1]],
+        st["r8"],
+    ])
+    r8 = torch.gather(ref_by_part, 0,
+                      part.long()[None, :, :, None].expand(1, mbh, mbw, 4))[0]
+    return r8.reshape(mbh, mbw, 2, 2).permute(0, 2, 1, 3) \
+        .reshape(2 * mbh, 2 * mbw).contiguous()
+
+
+def analyse_p_frame_parts_mref(y, refs8, n_valid: int, prev_mv, lam: int,
+                               qp: int, rng: int, mbh: int, mbw: int,
+                               num_ref: int, allow_parts: bool = True,
+                               tail_kernel: bool = False):
+    """Multi-reference partition analysis, the reference's
+    `analyse_p_frame_parts_mref` (partition.py:812) with its analyse tail
+    on the windows: B1 on plane 0 of each stacked entry (`refs8` [R, 4,
+    Hp, Wp] uint8, newest first; predictor zero with `tail_kernel`, else
+    prev_mv >> 2), the merge, `decide_partition`, the per-8x8 reference,
+    B9 with it, then B3' -> B4' (`ops.probe.analyse_tail`). The probe
+    maps do not depend on the MV predictor, so they are computed here;
+    `probe_combine` runs once the host scan has given the predictors.
+    Returns (part, mv8 qpel, ref8 [2mbh, 2mbw] int32, SK, SP, sc8)."""
+    pred = (torch.zeros_like(prev_mv) if tail_kernel
+            else prev_mv >> 2).contiguous()
+    sts = [fullpel_parts(y, refs8[r, 0], pred, rng, mbh, mbw, lam)
+           for r in range(num_ref)]
+    st = merge_ref_states(sts, lam, te_ref_bits(num_ref), n_valid)
+    part, mvfp8 = decide_partition(st, mbh, mbw, lam, allow_parts)
+    mvfp8 = mvfp8.contiguous()
+    ref8 = ref8_from_partition(st, part, mbh, mbw)
+    windows = gather_windows8(refs8, mvfp8, mbh, mbw, ref8=ref8)
+    mv8, _r_idx8, SK, SP, sc8 = PR.analyse_tail(
+        y, windows, part, mvfp8, prev_mv.contiguous(), lam, qp, mbh, mbw)
+    return part, mv8, ref8, SK, SP, sc8
 
 
 def probe_combine(SK, SP, sc8, part, mv8, mvp_u, cost_mv, mbh: int,

@@ -57,8 +57,9 @@ def gather_windows_plain(planes, mv_fp, mbh: int, mbw: int):
 
 def gather_windows(planes, mv_fp, mbh: int, mbw: int):
     """Kernel B7, replacing the TPU kernel `gather_windows`
-    (video_steganography_pcamv_tpu/encoder/qpel_table.py:64): one block
-    per MB copies its [4, 24, 24] window. Bound by device memory.
+    (video_steganography_pcamv_tpu/encoder/qpel_table.py:64): a warp an
+    MB, aligned 16-byte loads, funnel shifts, coalesced 16-byte stores
+    (`csrc/windows.cu`). Bound by device memory.
 
     planes [4, Hp, Wp] uint8 (PAD-padded hpel planes); mv_fp [mbh, mbw,
     2] int32 full-pel. |mv| <= PAD - MARGIN keeps every window inside the
@@ -72,6 +73,8 @@ def gather_windows(planes, mv_fp, mbh: int, mbw: int):
     hp, wp = 16 * mbh + 2 * mc.PAD, 16 * mbw + 2 * mc.PAD
     kernels.check_tensor("gather_windows", "planes", planes, torch.uint8,
                          (4, hp, wp))
+    if planes.data_ptr() % 16:
+        raise ValueError("gather_windows: planes are not 16-byte aligned")
     kernels.check_tensor("gather_windows", "mv_fp", mv_fp, _I32,
                          (mbh, mbw, 2))
     n = mbh * mbw

@@ -1,7 +1,7 @@
 """ctypes loader for the port's native host back-end.
 
-`pcamv_native.cpp` (CAVLC slice writer, the partition and 16x16 MVP /
-P_SKIP scans, STC embedder) and `cabac.cpp` (the CABAC I/P slice
+`pcamv_native.cpp` (CAVLC slice writer, the partition MVP / P_SKIP scans
+with references and the 16x16 ones, STC embedder) and `cabac.cpp` (the CABAC I/P slice
 writer) are the port's copies of the reference package's C++ sources. It
 is compiled with g++ at first use into `build/torch_native/` at the
 repository root (git-ignored); the library name carries a hash of the
@@ -78,15 +78,18 @@ def load() -> ctypes.CDLL:
     lib.pcamv_write_slice.argtypes = [
         u8p, ctypes.c_long, u8p, ci, ci, ci, ci,
         vp, vp, vp, i32p, i32p, vp, i32p, i32p, i32p, vp, vp, vp, vp,
-        vp, vp, vp, vp, ci]
+        vp, ci, vp, vp, vp, vp, ci]
     lib.pcamv_write_slice_cabac.restype = ctypes.c_long
     lib.pcamv_write_slice_cabac.argtypes = [
         u8p, ctypes.c_long, u8p, ci, ci, ci, ci, ci, ci,
         vp, vp, vp, vp, vp, i32p, i32p, vp, i32p, i32p, i32p,
         vp, vp, vp, ci, vp, ci, vp, vp, vp, vp, ci]
+    lib.pcamv_scan_p_parts.restype = None
+    lib.pcamv_scan_p_parts.argtypes = [
+        i32p, i32p, i32p, i32p, ci, ci, vp, u8p, i32p, i32p, i32p, vp]
     lib.pcamv_scan_p_parts_forced.restype = None
     lib.pcamv_scan_p_parts_forced.argtypes = [
-        i32p, i32p, u8p, ci, ci, i32p, i32p, i32p]
+        i32p, i32p, u8p, ci, ci, i32p, i32p, i32p, vp]
     lib.pcamv_host_scan_p.restype = None
     lib.pcamv_host_scan_p.argtypes = [i32p, i32p, i32p, ci, ci, u8p, i32p,
                                       i32p]
@@ -113,12 +116,15 @@ def write_slice(header_bytes: bytes, header_nbits: int, slice_type: int,
                 mbw: int, mbh: int, *, skip=None, mode=None, cmode=None,
                 cbp_luma, cbp_chroma, luma_dc=None, luma_blocks, chroma_dc,
                 chroma_ac, mb_i4=None, i4_modes=None, part=None,
-                mvd4=None, mb_i8=None, i8_modes=None, luma8_lev=None,
-                trans8=None, trans8_mode: bool = False) -> bytes:
+                mvd4=None, refs=None, num_ref: int = 1, mb_i8=None,
+                i8_modes=None, luma8_lev=None, trans8=None,
+                trans8_mode: bool = False) -> bytes:
     """Native whole-slice CAVLC entropy coding (I slices, and P slices
-    with partitions and one reference). Shapes: luma_blocks [N,16,16],
-    luma_dc [N,16], chroma_dc [N,2,4], chroma_ac [N,2,4,16], mb_i4 [N]
-    u8, i4_modes [N,16], part [N], mvd4 [N,4,2]. High-profile 8x8
+    with partitions and one or more references). Shapes: luma_blocks
+    [N,16,16], luma_dc [N,16], chroma_dc [N,2,4], chroma_ac [N,2,4,16],
+    mb_i4 [N] u8, i4_modes [N,16], part [N], mvd4 [N,4,2], refs [N,4]
+    the L0 index of each ref slot (coded when num_ref > 1; None: all 0,
+    as `_refs4` in the encoder lays them out). High-profile 8x8
     transform (`trans8_mode`, the PPS flag): mb_i8 [N] u8, i8_modes
     [N,4], luma8_lev [N,2,2,8,8] raster (zigzag-scanned here), trans8
     [N] u8."""
@@ -136,6 +142,7 @@ def write_slice(header_bytes: bytes, header_nbits: int, slice_type: int,
              if i4_modes is not None else None)
     part_a = _as_i32(part).reshape(n) if part is not None else None
     mvd4_a = _as_i32(mvd4).reshape(n * 8) if mvd4 is not None else None
+    refs_a = _as_i32(refs).reshape(n * 4) if refs is not None else None
     i8_a = (np.ascontiguousarray(mb_i8, np.uint8).reshape(n)
             if mb_i8 is not None else None)
     i8m_a = _as_i32(i8_modes).reshape(n * 4) if i8_modes is not None \
@@ -158,8 +165,8 @@ def write_slice(header_bytes: bytes, header_nbits: int, slice_type: int,
             _as_i32(chroma_dc).reshape(n * 8),
             _as_i32(chroma_ac).reshape(n * 128),
             _ptr(i4_a), _ptr(i4m_a), _ptr(part_a), _ptr(mvd4_a),
-            _ptr(i8_a), _ptr(i8m_a), _ptr(l8_a), _ptr(t8_a),
-            1 if trans8_mode else 0)
+            _ptr(refs_a), num_ref, _ptr(i8_a), _ptr(i8m_a), _ptr(l8_a),
+            _ptr(t8_a), 1 if trans8_mode else 0)
         if r >= 0:
             return bytes(out[:r])
         cap *= 4
@@ -229,18 +236,44 @@ def write_slice_cabac(header_bytes: bytes, header_nbits: int,
             raise RuntimeError("native cabac writer overflow")
 
 
-def scan_p_parts_forced(part, mv8, skip):
+def scan_p_parts(part, mv8, cbp_luma, cbp_chroma, intra=None, ref8=None):
+    """Pass-1 MVP / P_SKIP scan of a partitioned P frame (twin of the
+    reference's scan.py scan_p_frame), with the same-reference MVP rules
+    when ref8 [2mbh, 2mbw] is given (None: every block on reference 0);
+    intra [mbh, mbw] MBs, if any, carry no MV. Returns (skip [mbh,mbw]
+    bool, mvd [mbh,mbw,4,2], mvp [mbh,mbw,4,2], final8 [2mbh,2mbw,2])."""
+    lib = load()
+    mbh, mbw = part.shape
+    skip = np.zeros(mbh * mbw, np.uint8)
+    mvd = np.zeros(mbh * mbw * 8, np.int32)
+    mvp = np.zeros(mbh * mbw * 8, np.int32)
+    final8 = np.zeros(2 * mbh * 2 * mbw * 2, np.int32)
+    intra_a = (None if intra is None
+               else np.ascontiguousarray(intra, np.uint8).reshape(-1))
+    ref8_a = None if ref8 is None else _as_i32(ref8).reshape(-1)
+    lib.pcamv_scan_p_parts(
+        _as_i32(part).reshape(-1), _as_i32(mv8).reshape(-1),
+        _as_i32(cbp_luma).reshape(-1), _as_i32(cbp_chroma).reshape(-1),
+        mbw, mbh, _ptr(intra_a), skip, mvd, mvp, final8, _ptr(ref8_a))
+    return (skip.reshape(mbh, mbw).astype(bool),
+            mvd.reshape(mbh, mbw, 4, 2), mvp.reshape(mbh, mbw, 4, 2),
+            final8.reshape(2 * mbh, 2 * mbw, 2))
+
+
+def scan_p_parts_forced(part, mv8, skip, ref8=None):
     """Forced partition scan (twin of the reference's scan.py
-    scan_p_frame_forced). Returns (final8, mvd, mvp)."""
+    scan_p_frame_forced), with references as in `scan_p_parts`. Returns
+    (final8, mvd, mvp)."""
     lib = load()
     mbh, mbw = part.shape
     final8 = np.zeros(2 * mbh * 2 * mbw * 2, np.int32)
     mvd = np.zeros(mbh * mbw * 8, np.int32)
     mvp = np.zeros(mbh * mbw * 8, np.int32)
+    ref8_a = None if ref8 is None else _as_i32(ref8).reshape(-1)
     lib.pcamv_scan_p_parts_forced(
         _as_i32(part).reshape(-1), _as_i32(mv8).reshape(-1),
         np.ascontiguousarray(skip, np.uint8).reshape(-1), mbw, mbh,
-        final8, mvd, mvp)
+        final8, mvd, mvp, _ptr(ref8_a))
     return (final8.reshape(2 * mbh, 2 * mbw, 2),
             mvd.reshape(mbh, mbw, 4, 2), mvp.reshape(mbh, mbw, 4, 2))
 

@@ -2,11 +2,12 @@
 // scans and the STC embedder.
 //
 // A copy of the reference package's native/pcamv_native.cpp cut to the
-// five entry points the port calls (pcamv_write_slice,
+// six entry points the port calls (pcamv_write_slice, pcamv_scan_p_parts,
 // pcamv_scan_p_parts_forced, pcamv_host_scan_p, pcamv_host_scan_p_forced,
 // pcamv_stc_embed) and to the port's slice: I slices (I16x16, I4x4 and,
 // with the 8x8 transform, I8x8) and P slices with or without partitions,
-// one reference, the 4x4 or the adaptive 8x8 transform. Twins of the
+// one or more references (ref_idx_l0 per partition, the MVP's same-ref
+// rules), the 4x4 or the adaptive 8x8 transform. Twins of the
 // reference's serial host paths:
 //   - encoder/cavlc.c:288-717 (MB + residual writers) and common/bs.h
 //   - common/macroblock.c:28-165 (median MVP / pskip derivation)
@@ -252,6 +253,9 @@ extern "C" long pcamv_write_slice(
     const int32_t* chroma_dc, const int32_t* chroma_ac,
     const uint8_t* mb_i4, const int32_t* i4_modes,
     const int32_t* part, const int32_t* mvd4,
+    // multiple references: refs [n][4] the L0 index of each ref slot
+    // (unused slots 0), coded as te(v) when num_ref > 1
+    const int32_t* refs, int num_ref,
     // High-profile 8x8 transform (PPS transform_8x8_mode_flag):
     // mb_i8 [n] I_NxN-8x8 flags; i8_modes [n][4] z-order pred modes;
     // luma8_scan [n][4][64] zigzag-ordered 8x8 levels; trans8 [n]
@@ -286,6 +290,14 @@ extern "C" long pcamv_write_slice(
       bw.put_ue(p);
       if (p == 3)
         for (int s = 0; s < 4; s++) bw.put_ue(0);
+      if (num_ref > 1) {  // ref_idx_l0 te(v), one per ref slot
+        int n_refs = p == 3 ? 4 : NU[p];
+        for (int k = 0; k < n_refs; k++) {
+          int r = refs ? refs[a * 4 + k] : 0;
+          if (num_ref == 2) bw.put(1, 1 - r);
+          else bw.put_ue((uint32_t)r);
+        }
+      }
       for (int u = 0; u < NU[p]; u++) {
         bw.put_se(mvd4[(a * 4 + u) * 2]);
         bw.put_se(mvd4[(a * 4 + u) * 2 + 1]);
@@ -642,9 +654,60 @@ void pskip_mv4(const Grid4& g, int y4, int x4, int32_t out[2]) {
 
 }  // namespace
 
+extern "C" void pcamv_scan_p_parts(
+    const int32_t* part, const int32_t* mv8, const int32_t* cbp_luma,
+    const int32_t* cbp_chroma, int mbw, int mbh, const uint8_t* intra,
+    uint8_t* skip, int32_t* mvd, int32_t* mvp_out, int32_t* final8,
+    const int32_t* ref8) {
+  // mv8/final8: [2mbh][2mbw][2]; mvd/mvp_out: [mbh][mbw][4][2]; ref8
+  // (nullable: all 0) [2mbh][2mbw]; intra (nullable): intra MBs carry no
+  // MVs, unavailable to neighbours
+  Grid4 g(mbw, mbh);
+  const int w8 = 2 * mbw;
+  memcpy(final8, mv8, sizeof(int32_t) * 2 * w8 * 2 * mbh);
+  for (int my = 0; my < mbh; my++)
+    for (int mx = 0; mx < mbw; mx++) {
+      int a = my * mbw + mx;
+      if (intra && intra[a]) {
+        // intra neighbours are AVAILABLE with mv 0 / ref -1 (x264
+        // cache -1 vs -2 outside, macroblock.c:28-46): they join the
+        // MVP median and do NOT trigger the C->D fallback, the
+        // lone-A rule, or the P_SKIP zero-forcing
+        static const int32_t z[2] = {0, 0};
+        g.commit(4 * my, 4 * mx, 4, 4, z, -1);
+        continue;
+      }
+      int y4 = 4 * my, x4 = 4 * mx;
+      int p = part[a];
+      if (p == 0) {
+        int32_t ps[2];
+        pskip_mv4(g, y4, x4, ps);
+        const int32_t* here = &mv8[((2 * my) * w8 + 2 * mx) * 2];
+        int r0 = ref8 ? ref8[(2 * my) * w8 + 2 * mx] : 0;
+        if (cbp_luma[a] == 0 && cbp_chroma[a] == 0 && r0 == 0
+            && here[0] == ps[0] && here[1] == ps[1])
+          skip[a] = 1;
+      }
+      for (int u = 0; u < NUNITS[p]; u++) {
+        const int* gg = UGEOM[p][u];
+        int g8 = (2 * my + gg[0] / 2) * w8 + 2 * mx + gg[1] / 2;
+        int r = ref8 ? ref8[g8] : 0;
+        int32_t mvp[2];
+        unit_mvp4(g, y4 + gg[0], x4 + gg[1], gg[2], p, u, mvp, r);
+        const int32_t* mv = &mv8[g8 * 2];
+        mvd[(a * 4 + u) * 2] = mv[0] - mvp[0];
+        mvd[(a * 4 + u) * 2 + 1] = mv[1] - mvp[1];
+        mvp_out[(a * 4 + u) * 2] = mvp[0];
+        mvp_out[(a * 4 + u) * 2 + 1] = mvp[1];
+        g.commit(y4 + gg[0], x4 + gg[1], gg[3], gg[2], mv, r);
+      }
+    }
+}
+
 extern "C" void pcamv_scan_p_parts_forced(
     const int32_t* part, const int32_t* mv8, const uint8_t* skip,
-    int mbw, int mbh, int32_t* final8, int32_t* mvd, int32_t* mvp_out) {
+    int mbw, int mbh, int32_t* final8, int32_t* mvd, int32_t* mvp_out,
+    const int32_t* ref8) {
   Grid4 g(mbw, mbh);
   const int w8 = 2 * mbw;
   memcpy(final8, mv8, sizeof(int32_t) * 2 * w8 * 2 * mbh);
@@ -667,14 +730,15 @@ extern "C" void pcamv_scan_p_parts_forced(
       for (int u = 0; u < NUNITS[p]; u++) {
         const int* gg = UGEOM[p][u];
         int g8 = (2 * my + gg[0] / 2) * w8 + 2 * mx + gg[1] / 2;
+        int r = ref8 ? ref8[g8] : 0;
         int32_t mvp[2];
-        unit_mvp4(g, y4 + gg[0], x4 + gg[1], gg[2], p, u, mvp);
+        unit_mvp4(g, y4 + gg[0], x4 + gg[1], gg[2], p, u, mvp, r);
         const int32_t* mv = &final8[g8 * 2];
         mvd[(a * 4 + u) * 2] = mv[0] - mvp[0];
         mvd[(a * 4 + u) * 2 + 1] = mv[1] - mvp[1];
         mvp_out[(a * 4 + u) * 2] = mvp[0];
         mvp_out[(a * 4 + u) * 2 + 1] = mvp[1];
-        g.commit(y4 + gg[0], x4 + gg[1], gg[3], gg[2], mv);
+        g.commit(y4 + gg[0], x4 + gg[1], gg[3], gg[2], mv, r);
       }
     }
 }

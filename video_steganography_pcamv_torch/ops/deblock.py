@@ -335,7 +335,8 @@ def _map(name, t, shape):
 
 def deblock_frame_cuda(y, u, v, intra, skip, nnz4, mv4, qp: int, qpc: int,
                        mbh: int, mbw: int, qp_thresh: int = 15,
-                       off_a: int = 0, off_b: int = 0, trans8=None):
+                       off_a: int = 0, off_b: int = 0, trans8=None,
+                       ref4=None):
     """One launch of the CUDA deblocker: edge parameters and filter, on
     uint8 copies of the planes (one device-to-device copy each, inside
     the launch call). Counted in `deblock_frame.launches`."""
@@ -353,13 +354,14 @@ def deblock_frame_cuda(y, u, v, intra, skip, nnz4, mv4, qp: int, qpc: int,
     maps = [_map("intra", intra, (mbh, mbw)), _map("skip", skip, (mbh, mbw)),
             None if trans8 is None else _map("trans8", trans8, (mbh, mbw)),
             _map("nnz4", nnz4, (4 * mbh, 4 * mbw)),
-            _map("mv4", mv4, (4 * mbh, 4 * mbw, 2))]
+            _map("mv4", mv4, (4 * mbh, 4 * mbw, 2)),
+            None if ref4 is None else _map("ref4", ref4, (4 * mbh, 4 * mbw))]
     dev = y.device
     out = [torch.empty_like(t) for t in src]
     # the row ticket, then the luma and the chroma progress counters
     sync = torch.empty((2 * mbh + 1,), dtype=_I32, device=dev)
     fn = kernels.entry("pcamv_deblock_frame",
-                       [kernels.VP] * 12 + [kernels.CI] * 7 + [kernels.VP] * 2)
+                       [kernels.VP] * 13 + [kernels.CI] * 7 + [kernels.VP] * 2)
     ptr = kernels.ptr
     rc = fn(*(ptr(t) for t in src + out),
             *(None if m is None else ptr(m) for m in maps),
@@ -383,7 +385,7 @@ def resident_ctas(mbw: int) -> int:
 
 def deblock_frame(y, u, v, intra, skip, nnz4, mv4, qp: int, qpc: int,
                   mbh: int, mbw: int, qp_thresh: int = 15, off_a: int = 0,
-                  off_b: int = 0, trans8=None):
+                  off_b: int = 0, trans8=None, ref4=None):
     """Kernel B5, replacing the TPU kernel `deblock_frame_pallas`
     (video_steganography_pcamv_tpu/ops/deblock_pallas.py:469). On the
     H100 it is one launch a frame, bound by the latency of its
@@ -391,17 +393,19 @@ def deblock_frame(y, u, v, intra, skip, nnz4, mv4, qp: int, qpc: int,
 
     The contract of the reference's deblock_frame_device: planes (uint8
     or int32, MB-aligned) + per-MB intra/skip (and trans8), per-4x4
-    nnz/mv -> new uint8 planes (the inputs are left as they are). CPU
+    nnz/mv (and ref4, the L0 reference index of each 4x4 block on the
+    multi-reference path: None is all 0) -> new uint8 planes (the inputs
+    are left as they are). CPU
     tensors run `edge_params` + the plain version; CUDA tensors launch
     the kernel; anything else raises."""
     if y.device.type == "cpu":
         par = edge_params(intra, skip, nnz4, mv4, qp, qpc, mbh, mbw,
                           qp_thresh=qp_thresh, off_a=off_a, off_b=off_b,
-                          trans8=trans8)
+                          ref4=ref4, trans8=trans8)
         return deblock_frame_plain(y, u, v, par, mbh, mbw)
     return deblock_frame_cuda(y, u, v, intra, skip, nnz4, mv4, qp, qpc, mbh,
                               mbw, qp_thresh=qp_thresh, off_a=off_a,
-                              off_b=off_b, trans8=trans8)
+                              off_b=off_b, trans8=trans8, ref4=ref4)
 
 
 deblock_frame.launches = 0

@@ -108,6 +108,54 @@ def mc_chroma(plane_padded, mb_y0, mb_x0, mv, bh: int = 8, bw: int = 8):
             + (8 - fx) * fy * c + fx * fy * d + 32) >> 6
 
 
+def mc_luma_multi(planes_r, ref_idx, mb_y0, mb_x0, mv, bh: int = 16,
+                  bw: int = 16):
+    """Multi-reference quarter-pel luma MC: planes_r [R, 4, Hp, Wp] the
+    stacked DPB, ref_idx [N] each block's L0 index; otherwise `mc_luma`."""
+    mvx, mvy = mv[:, 0], mv[:, 1]
+    ix = mb_x0 + PAD + (mvx >> 2)
+    iy = mb_y0 + PAD + (mvy >> 2)
+    p1, d1y, d1x, p2, d2y, d2x = qpel_phase_tables(mvx, mvy)
+    ar_h = torch.arange(bh, device=planes_r.device)
+    ar_w = torch.arange(bw, device=planes_r.device)
+    ys1 = (iy + d1y).long()[:, None] + ar_h
+    xs1 = (ix + d1x).long()[:, None] + ar_w
+    ys2 = (iy + d2y).long()[:, None] + ar_h
+    xs2 = (ix + d2x).long()[:, None] + ar_w
+    r = ref_idx.long()[:, None, None]
+    s1 = planes_r[r, p1.long()[:, None, None], ys1[:, :, None],
+                  xs1[:, None, :]]
+    s2 = planes_r[r, p2.long()[:, None, None], ys2[:, :, None],
+                  xs2[:, None, :]]
+    return (s1 + s2 + 1) >> 1
+
+
+def mc_chroma_multi(plane_r, ref_idx, mb_y0, mb_x0, mv, bh: int = 8,
+                    bw: int = 8):
+    """Multi-reference chroma MC: plane_r [R, Hp, Wp], ref_idx [N];
+    otherwise `mc_chroma`."""
+    mvx, mvy = mv[:, 0], mv[:, 1]
+    ix = mb_x0 + PAD + (mvx >> 3)
+    iy = mb_y0 + PAD + (mvy >> 3)
+    fx = (mvx & 7)[:, None, None]
+    fy = (mvy & 7)[:, None, None]
+    r = ref_idx.long()[:, None, None]
+    ar_h = torch.arange(bh, device=plane_r.device)
+    ar_w = torch.arange(bw, device=plane_r.device)
+
+    def gat(y0, x0):
+        ys = y0.long()[:, None] + ar_h
+        xs = x0.long()[:, None] + ar_w
+        return plane_r[r, ys[:, :, None], xs[:, None, :]]
+
+    a = gat(iy, ix)
+    b = gat(iy, ix + 1)
+    c = gat(iy + 1, ix)
+    d = gat(iy + 1, ix + 1)
+    return ((8 - fx) * (8 - fy) * a + fx * (8 - fy) * b
+            + (8 - fx) * fy * c + fx * fy * d + 32) >> 6
+
+
 def build_ref(recon_y, recon_u, recon_v) -> dict:
     """Reference planes of a reconstructed frame: padded luma + hpel
     pyramid stacked [4, Hp, Wp], padded chroma (all int32)."""

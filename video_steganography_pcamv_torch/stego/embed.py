@@ -1,12 +1,16 @@
 """Stego engine, serving subset (port of stego/embed.py: `StegoEngine`
-construction, `_next_message`, `embed_frame` and `apply_costs`).
+construction, `_next_message`, `embed_frame`, `embed_frame_parts` and
+`apply_costs`).
 
 `apply_costs` is the host half of the partition embedding: MVC cost
 adjustment, cover assembly in coding order, STC (native library), flip
-application and the forced rescan, all numpy. `embed_frame` is the
-16x16-only path's whole embedding: the RCA costs from the analysis
-tables on the device, then the same host steps and the pass-2
-re-encode.
+application and the forced rescan (with references on the
+multi-reference path), all numpy. `embed_frame` is the 16x16-only path's
+whole embedding: the RCA costs from the analysis tables on the device,
+then the same host steps and the pass-2 re-encode. `embed_frame_parts`
+is the multi-reference path's: `probe_combine` on the probe maps of the
+analysis with the host scan's predictors, `apply_costs`, then the full
+multi-reference pass-2 re-encode.
 """
 
 from __future__ import annotations
@@ -30,14 +34,17 @@ class StegoEngine:
     def _next_message(self, an: int) -> np.ndarray:
         return self._rng.randint(0, 2, an).astype(np.uint8)
 
-    def _cover_size(self, enc, n_cov: int) -> int:
+    def _message_len(self, n_cov: int) -> int:
+        """Payload bits for a cover of n_cov MVs: em_rate bits (or that
+        share of the cover), reduced to what the STC matrix can embed."""
         st = self.p.stego
         rate = st.em_rate
-        an = int(rate) if rate > 1 else int(rate * n_cov)
-        an = min(an, n_cov)
-        an = stc_feasible_k(n_cov, an, st.stc_h, self._stc_state)
+        an = min(int(rate) if rate > 1 else int(rate * n_cov), n_cov)
+        return stc_feasible_k(n_cov, an, st.stc_h, self._stc_state)
+
+    def _cover_size(self, enc, n_cov: int) -> int:
         enc.stats.mv_covers += n_cov
-        return an
+        return self._message_len(n_cov)
 
     def _embed(self, enc, cov, rho_cov, an: int) -> np.ndarray:
         """STC-embed the next message into the cover bits; returns the
@@ -97,9 +104,52 @@ class StegoEngine:
             force_zero=torch.as_tensor(skip1).to(dev))
         return final_mv, skip1, mvd2, res2
 
-    def apply_costs(self, enc, part, mv8, skip1, rho_u, alt_u):
-        """MVC adjustment, cover assembly, STC, flips, forced rescan.
-        Returns (final_mv8, skip, mvd4)."""
+    def embed_frame_parts(self, enc, y, u, v, qp: int, part, mv8, skip1,
+                          mvp_u, ref8, maps, refs):
+        """Partition embedding of a multi-reference P frame (the
+        reference's `embed_frame_parts`, stego/embed.py:242): the RCA
+        costs from the analysis' probe maps (`maps` = SK, SP, sc8 and the
+        device part/mv8) against the host scan's unit predictors mvp_u
+        [mbh,mbw,4,2], one pull of rho and alt, `apply_costs` with ref8,
+        and the pass-2 multi-reference re-encode at the final MVs with
+        pass 1's skips forced (`refs` the stacked DPB). part/mv8/skip1/
+        ref8 are host arrays. Returns (final_mv8, skip, mvd4, res2), or
+        None when nothing is embedded this frame."""
+        from ..encoder import inter as INTER
+        from ..encoder.me import lambda_tab
+        from ..encoder.partition import probe_combine
+        from ..ops.transform import chroma_qp
+        p = self.p
+        mbh, mbw = p.mb_height, p.mb_width
+        n_cov = int(((~skip1) * N_UNITS[part]).sum())
+        if self._message_len(n_cov) <= 0 or n_cov == 0:
+            enc.stats.mv_covers += n_cov
+            self.sent_messages.append(np.zeros(0, np.uint8))
+            return None
+        dev = enc.device
+        SK, SP, sc8, part_t, mv8_t = maps
+        rho, alt, _valid = probe_combine(
+            SK, SP, sc8, part_t, mv8_t, torch.as_tensor(mvp_u).to(dev),
+            enc._cost_mv_dev(qp, lambda_tab(qp)), mbh, mbw)
+        n = mbh * mbw
+        packed = torch.cat([rho.reshape(-1).to(torch.float32),
+                            alt.reshape(-1).to(torch.float32)]).cpu().numpy()
+        rho_np = packed[:4 * n].reshape(mbh, mbw, 4)
+        alt_np = packed[4 * n:].reshape(mbh, mbw, 4, 2).astype(np.int32)
+        final8, skip1, mvd2 = self.apply_costs(enc, part, mv8, skip1, rho_np,
+                                               alt_np, ref8=ref8)
+        res2 = INTER.encode_p_frame_device8_mref(
+            y, u, v, *refs, torch.as_tensor(np.ascontiguousarray(final8))
+            .to(dev), torch.as_tensor(ref8).to(dev), qp,
+            chroma_qp(qp, p.chroma_qp_offset), mbh, mbw,
+            force_zero=torch.as_tensor(skip1).to(dev))
+        return final8, skip1, mvd2, res2
+
+    def apply_costs(self, enc, part, mv8, skip1, rho_u, alt_u, ref8=None):
+        """MVC adjustment, cover assembly, STC, flips, forced rescan (with
+        the per-8x8 references ref8 [2mbh, 2mbw] on the multi-reference
+        path: flips change MVs, never references). Returns (final_mv8,
+        skip, mvd4)."""
         p, st = self.p, self.p.stego
         mbh, mbw = p.mb_height, p.mb_width
         nu = N_UNITS[part]
@@ -109,7 +159,8 @@ class StegoEngine:
         an = self._cover_size(enc, n_cov)
         if an <= 0 or n_cov == 0:
             self.sent_messages.append(np.zeros(0, np.uint8))
-            f8, md, _ = native.scan_p_parts_forced(part, mv8, skip1)
+            f8, md, _ = native.scan_p_parts_forced(part, mv8, skip1,
+                                                   ref8=ref8)
             return f8, skip1, md
 
         mvz = mv8.reshape(mbh, 2, mbw, 2, 2).transpose(0, 2, 1, 3, 4) \
@@ -151,5 +202,6 @@ class StegoEngine:
             mx, ui = divmod(rem, 4)
             for b in UNIT_BLOCKS[int(part[my, mx])][ui]:
                 mv8_2[2 * my + (b >> 1), 2 * mx + (b & 1)] = alt_u[my, mx, ui]
-        final8, mvd2, _mvp2 = native.scan_p_parts_forced(part, mv8_2, skip1)
+        final8, mvd2, _mvp2 = native.scan_p_parts_forced(part, mv8_2, skip1,
+                                                         ref8=ref8)
         return final8, skip1, mvd2
