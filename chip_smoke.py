@@ -91,15 +91,29 @@ Phases (any failure raises and the script exits non-zero):
      fps, bytes, IDR seconds and the share of 8x8 blocks on reference 1
      printed;
  21. (only with --stages4) per-stage times of a 1080p config-4 P-half P
-     frame, pass 1 and pass 2 in rows of their own.
+     frame, pass 1 and pass 2 in rows of their own;
+ 22. BASELINE config 4 whole (tools/bench_c4.py's Params and clip:
+     bframes 2, b_adapt 0, ref_frames 2, CABAC, spatial direct) at
+     1920x1088, IDR + 6 frames + flush, two GOPs of P B B: every kernel
+     call of the B frames (B1 against a zero predictor, B9 on the
+     L0 stack with each 8x8's reference and on L1, B3' on the B
+     windows, the fused luma encode on the bipred prediction) array-
+     equal to its plain version on the card; each B frame launches B1
+     ref_frames + 1 times, B9 twice, B3' twice, the fused luma encode
+     once and no other kernel (B5 none: B slices are not deblocked);
+     the payload recovered through the port's CABAC decoder, whose B
+     frames equal the encoder's recon; P and B fps, the IDR's seconds
+     and bytes per frame with its slice type printed;
+ 23. (only with --stagesB) per-stage times of phase 22's B frames.
 Phase 3 also holds B5 with a fuzzed per-4x4 reference map (ref4), phase
 13 B9 on a stack of two references with a per-8x8 reference (ref8), and
 phase 17 the multi-reference streams at 112x80 (ref_frames 2 under
 CAVLC and CABAC, 3 with keyint_max 3 on the CPU branch, partitions
-off). Phases 9 and 13 run right after phase 4, so that a new kernel
-that fails stops the run early; 17 runs after 14, and 18, 19 and 20
-after 6. Each phase logs its wall time. The line before the last two
-holds the per-kernel JSON record, then the card line; the last line is
+off) and the B streams (config 4, and bframes 1 at one reference).
+Phases 9 and 13 run right after phase 4, so that a new kernel that fails
+stops the run early; 17 runs after 14, and 18, 19, 20 and 22 after 6.
+Each phase logs its wall time. The line before the last two holds the
+per-kernel JSON record, then the card line; the last line is
 {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --ab PARENT_ROOT
@@ -114,6 +128,7 @@ package.
 """
 
 import argparse
+import collections
 import json
 import os
 import subprocess
@@ -1041,9 +1056,10 @@ def _close_equal(what, got, want):
 
 def phase_small_cabac(dev):
     """CABAC on the main path, on config 3 and on the 16x16-only path,
-    and the reference's default Params (PSNR, SSIM, the host deblock's
-    twin, unpipelined) at 112x80: cuda == cpu streams and close()
-    dicts, the payload recovered by the port's decoder and extractor."""
+    the reference's default Params (PSNR, SSIM, the host deblock's twin,
+    unpipelined), the multi-reference paths and the B streams (config 4
+    and bframes 1) at 112x80: cuda == cpu streams and close() dicts, the
+    payload recovered by the port's decoder and extractor."""
     from video_steganography_pcamv_torch.utils.yuv import synthetic_sequence
     frames = synthetic_sequence(112, 80, 6, seed=7)
     cases = (("cabac main path", True, dict(cabac=True)),
@@ -1055,7 +1071,11 @@ def phase_small_cabac(dev):
              ("ref_frames 3 keyint_max 3, tail_kernel=False", False,
               dict(ref_frames=3, keyint_max=3)),
              ("ref_frames 2 partitions off", True,
-              dict(ref_frames=2, partitions=False)))
+              dict(ref_frames=2, partitions=False)),
+             ("config 4 (bframes 2, ref_frames 2, cabac)", True,
+              dict(cabac=True, bframes=2, b_adapt=0, ref_frames=2)),
+             ("bframes 1, ref_frames 1, cabac", True,
+              dict(cabac=True, bframes=1, b_adapt=0)))
     for what, tk, kw in cases:
         enc_g, bs_g = _encode(_params(112, 80, tk, **kw), frames, dev)
         enc_c, bs_c = _encode(_params(112, 80, tk, **kw), frames, "cpu")
@@ -1186,6 +1206,195 @@ def phase_config4p(dev, card):
     log("1080p config 4 P half: %d bytes per frame %s; 8x8 blocks on "
         "reference 1 per P frame %s  [%s]"
         % (len(bs), _frame_bytes(bs), ["%.4f" % x for x in share], card))
+    return launches
+
+
+def _b_kernel_twins():
+    """The plain twin of every kernel wrapper a B frame calls, by its name
+    in `encoder/bslice.py`, called as the wrapper is."""
+    from video_steganography_pcamv_torch.encoder import partition as PT
+    from video_steganography_pcamv_torch.ops import fullpel as FP
+    from video_steganography_pcamv_torch.ops import lumap as LP
+    from video_steganography_pcamv_torch.ops import probe as PR
+    return {
+        "fullpel_parts": FP.fullpel_search_parts,
+        "gather_windows8": PT.gather_windows8_plain,
+        "subpel": lambda y, w, part, mv, pred, lam, mbh, mbw:
+            PR.subpel_parts(y, w, part, mv, pred, mbh, mbw, lam),
+        "luma_p_encode": LP.luma_p_encode_plain,
+    }
+
+
+def _equal_outputs(got, want) -> bool:
+    if isinstance(got, dict):
+        return got.keys() == want.keys() and all(
+            torch.equal(got[k], want[k]) for k in want)
+    if isinstance(got, (tuple, list)):
+        return all(_equal_outputs(a, b) for a, b in zip(got, want))
+    return torch.equal(got, want)
+
+
+def phase_config4(dev, card, n_frames: int = 7):
+    """BASELINE config 4 whole at 1080p: tools/bench_c4.py's Params
+    (bframes 2, b_adapt 0, ref_frames 2, CABAC, me_range 16, stego
+    em_rate 64 key 5) and clip (synthetic_sequence seed 9), IDR + 6
+    frames + flush, two GOPs of P B B. Every kernel call of the B frames
+    is held against its plain version on the card (array-equal);
+    each B frame launches B1 ref_frames + 1 times, B9 and B3' twice, the
+    fused luma encode once and no other kernel; the payload is recovered
+    through the port's CABAC decoder, whose B frames equal the encoder's
+    recon. P and B fps (the B frames' kernel checks excluded), the IDR's
+    seconds, bytes per frame with its slice type, the launches per B
+    frame and each B frame's MB types are printed."""
+    from video_steganography_pcamv_torch import Encoder
+    from video_steganography_pcamv_torch.encoder import bslice as BS
+    from video_steganography_pcamv_torch.params import StegoParams
+    from video_steganography_pcamv_torch.utils.yuv import synthetic_sequence
+    refs = 2
+    frames = synthetic_sequence(1920, 1088, n_frames, seed=9)
+    enc = Encoder(_params(1920, 1088, True, cabac=True, bframes=2,
+                          b_adapt=0, ref_frames=refs,
+                          stego=StegoParams(em_rate=64, key=5)), device=dev)
+    fns = _counters()
+    rows, per_b, recon = [], [], {}
+    state = {"check": False, "checked": {}, "check_s": 0.0}
+    twins = _b_kernel_twins()
+    saved = {name: getattr(BS, name) for name in twins}
+
+    def checked(name, fn):
+        def wrap(*a, **kw):
+            out = fn(*a, **kw)
+            if state["check"]:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                want = twins[name](*a, **kw)
+                if not _equal_outputs(out, want):
+                    raise AssertionError("B frame %d: %s kernel != plain"
+                                         % (len(per_b), name))
+                torch.cuda.synchronize()
+                state["check_s"] += time.perf_counter() - t0
+                state["checked"][name] = state["checked"].get(name, 0) + 1
+            return out
+        return wrap
+
+    enc_b = BS.encode_b_frame_device
+
+    def encode_b(*a, **kw):
+        out = enc_b(*a, **kw)
+        recon["last"] = tuple(out[k].cpu().numpy()
+                              for k in ("recon_y", "recon_u", "recon_v"))
+        return out
+
+    anchor, bframe = enc._encode_anchor, enc._encode_b_frame
+
+    def timed_anchor(f, y, u, v, is_idr, satd, disp):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = anchor(f, y, u, v, is_idr, satd, disp)
+        torch.cuda.synchronize()
+        rows.append(("I" if is_idr else "P", disp, len(out),
+                     time.perf_counter() - t0))
+        return out
+
+    def timed_b(f, y, u, v, l0_stack, ref_l1, satd, disp):
+        before = {k: fn.launches for k, fn in fns.items()}
+        state["check"], state["check_s"] = True, 0.0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = bframe(f, y, u, v, l0_stack, ref_l1, satd, disp)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0 - state["check_s"]
+        state["check"] = False
+        per_b.append({k: fn.launches - before[k] for k, fn in fns.items()})
+        rows.append(("B", disp, len(out), dt))
+        recon[disp] = recon.pop("last")
+        return out
+
+    enc._encode_anchor, enc._encode_b_frame = timed_anchor, timed_b
+    BS.encode_b_frame_device = encode_b
+    for name, fn in saved.items():
+        setattr(BS, name, checked(name, fn))
+    try:
+        for fn in fns.values():
+            fn.launches = 0
+        t0 = time.time()
+        bs = b""
+        for f in frames:
+            bs += enc.encode_frame(f)
+        bs += enc.flush()
+        torch.cuda.synchronize()
+        t_all = time.time() - t0
+        launches = {k: fn.launches for k, fn in fns.items()}
+    finally:
+        BS.encode_b_frame_device = enc_b
+        for name, fn in saved.items():
+            setattr(BS, name, fn)
+    n_b = enc.stats.b_frames
+    if state["checked"] != {"fullpel_parts": (refs + 1) * n_b,
+                            "gather_windows8": 2 * n_b, "subpel": 2 * n_b,
+                            "luma_p_encode": n_b}:
+        raise AssertionError("B frame kernel calls checked: %s"
+                             % state["checked"])
+    if n_b != 4 or enc.stats.p_frames != 2:
+        raise AssertionError("config 4: %d P, %d B frames, want 2 and 4"
+                             % (enc.stats.p_frames, n_b))
+    want_b = {k: 0 for k in fns}
+    want_b.update(fullpel_parts=refs + 1, gather_windows8=2, subpel=2,
+                  luma_p_encode=1)
+    for i, got in enumerate(per_b):
+        if got != want_b:
+            raise AssertionError("B frame %d launches %s, want %s"
+                                 % (i, got, want_b))
+    for k in ("fullpel_parts", "gather_windows8", "subpel", "probe_maps",
+              "luma_p_encode", "deblock_frame"):
+        if launches[k] < 1:
+            raise AssertionError("config 4: %s never launched" % k)
+    t1 = time.time()
+    from video_steganography_pcamv_torch.decoder import decode_annexb
+    from video_steganography_pcamv_torch.stego.extract import (
+        extract_from_frames)
+    dec = decode_annexb(bs)
+    if len(dec) != n_frames:
+        raise AssertionError("decoded %d frames of %d" % (len(dec), n_frames))
+    kinds = {}
+    for fr in dec:
+        if fr.slice_type != 1:
+            continue
+        kinds[fr.poc // 2] = dict(collections.Counter(m.mb_type
+                                                      for m in fr.mbs))
+        got = recon[fr.poc // 2]
+        if not all(np.array_equal(getattr(fr, pl), r[:fr.y.shape[0] // s,
+                                                     :fr.y.shape[1] // s])
+                   for pl, r, s in zip("yuv", got, (1, 2, 2))):
+            raise AssertionError("decoded B frame %d != encoder recon"
+                                 % (fr.poc // 2))
+    got = extract_from_frames(dec, em_rate=64)
+    sent = enc._stego.sent_messages
+    if len(got) != len(sent) or not all(
+            np.array_equal(a, b) for a, b in zip(got, sent)):
+        raise AssertionError("config 4: extracted payload != sent payload")
+    t_dec = time.time() - t1
+    sec = {t: [r[3] for r in rows if r[0] == t] for t in "IPB"}
+    log("1080p config 4 (bframes 2, ref_frames 2, CABAC): %d frames (%d I, "
+        "%d P, %d B), %d bytes, %d payload bits recovered (CABAC decode + "
+        "extraction %.1f s, every B frame == the encoder's recon); IDR %.3f "
+        "s; P frames %.4f fps, B frames %.4f fps (each call synced); all "
+        "%.4f fps incl. flush  [%s]"
+        % (len(frames), enc.stats.i_frames, enc.stats.p_frames, n_b,
+           len(bs), sum(len(s) for s in sent), t_dec, sec["I"][0],
+           len(sec["P"]) / sum(sec["P"]), len(sec["B"]) / sum(sec["B"]),
+           len(frames) / t_all, card))
+    log("1080p config 4 bytes per frame, decode order (type, display "
+        "index, bytes): %s; B bytes / P bytes %.4f"
+        % ([(t, d, b) for t, d, b, _ in rows],
+           np.mean([r[2] for r in rows if r[0] == "B"])
+           / np.mean([r[2] for r in rows if r[0] == "P"])))
+    log("1080p config 4 launches per B frame (each B frame alike): %s; "
+        "whole run: %s; B frame seconds %s; P frame seconds %s; MB types "
+        "per B frame (display index): %s"
+        % (json.dumps({k: v for k, v in per_b[0].items() if v}),
+           json.dumps(launches), ["%.3f" % x for x in sec["B"]],
+           ["%.3f" % x for x in sec["P"]], json.dumps(kinds)))
     return launches
 
 
@@ -1420,6 +1629,83 @@ def phase_stages(dev, card, n_frames: int = 7, partitions: bool = True,
                                       float(np.mean(v))))
 
 
+def phase_stages_b(dev, card, n_frames: int = 7):
+    """Per-stage times of phase 22's B frames (config 4 whole at 1080p,
+    IDR + 6 + flush: four B frames): every stage is wrapped with a
+    device sync on each side; the kernel wrappers (B1, B9, B3', the
+    luma encode) are timed inside the stages that call them, so their
+    rows are not added into the rest. Median and mean over the B
+    frames."""
+    from video_steganography_pcamv_torch import Encoder
+    from video_steganography_pcamv_torch.encoder import bslice as BS
+    from video_steganography_pcamv_torch.encoder import core as CORE
+    from video_steganography_pcamv_torch.params import StegoParams
+    from video_steganography_pcamv_torch.utils.yuv import synthetic_sequence
+    outer = [(BS, "analyse_b_parts_stage1"), (BS, "approx_direct_fields"),
+             (BS, "bipred_satd8_device"), (BS, "analyse_b_parts"),
+             (BS, "scan_b_parts"), (BS, "encode_b_frame_device"),
+             (CORE, "_levels_exact"), (CORE.Encoder, "_write_b_slice_cabac")]
+    inner = [(BS, "fullpel_parts"), (BS, "gather_windows8"), (BS, "subpel"),
+             (BS, "luma_p_encode")]
+    frame, state = {}, {"on": False}
+
+    def timed(name, fn):
+        def wrap(*a, **kw):
+            if not state["on"]:
+                return fn(*a, **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            frame[name] = frame.get(name, 0.0) + time.perf_counter() - t0
+            return out
+        return wrap
+
+    saved = [(obj, name, getattr(obj, name)) for obj, name in outer + inner]
+    enc = Encoder(_params(1920, 1088, True, cabac=True, bframes=2,
+                          b_adapt=0, ref_frames=2,
+                          stego=StegoParams(em_rate=64, key=5)), device=dev)
+    bframe, per_b, walls = enc._encode_b_frame, [], []
+
+    def timed_b(*a):
+        frame.clear()
+        state["on"] = True
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = bframe(*a)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        state["on"] = False
+        per_b.append(dict(frame))
+        return out
+
+    enc._encode_b_frame = timed_b
+    try:
+        for obj, name, fn in saved:
+            setattr(obj, name, timed(name, fn))
+        for f in synthetic_sequence(1920, 1088, n_frames, seed=9):
+            enc.encode_frame(f)
+        enc.flush()
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+    top = {name for _obj, name in outer}
+    rows = {k: [1e3 * d.get(k, 0.0) for d in per_b]
+            for k in sorted({k for d in per_b for k in d})}
+    rows["(rest of the B frame)"] = [
+        1e3 * (wl - sum(v for k, v in d.items() if k in top))
+        for wl, d in zip(walls, per_b)]
+    rows["(B frame, with the syncs)"] = [1e3 * wl for wl in walls]
+    log("1080p config 4 B-frame stage times, ms per B frame over %d B "
+        "frames (median, mean), a device sync around each stage; rows "
+        "marked * run inside another stage  [%s]" % (len(per_b), card))
+    for name, v in sorted(rows.items(), key=lambda kv: (
+            kv[0].startswith("("), -float(np.mean(kv[1])))):
+        mark = "*" if name not in top and not name.startswith("(") else " "
+        log("  %-30s%s %9.3f %9.3f" % (name, mark, float(np.median(v)),
+                                        float(np.mean(v))))
+
+
 # run from a checkout's root by `--ab`: the medians of kernels B1 and B9
 # at 1080p, of the checkout's luma encode at 1080p (the main path's
 # pass-1 encode on predictions at random per-8x8 MVs, and the 16x16
@@ -1508,6 +1794,9 @@ def main() -> int:
                     help="also time the stages of the 16x16-only path")
     ap.add_argument("--stages8", action="store_true",
                     help="also time the stages of config 3 at 720p")
+    ap.add_argument("--stagesB", action="store_true",
+                    help="also time the stages of config 4's B frames at "
+                    "1080p")
     ap.add_argument("--stages4", action="store_true",
                     help="also time the stages of config 4's P half at "
                     "1080p")
@@ -1552,6 +1841,9 @@ def main() -> int:
     phase("18 1080p default Params", phase_defaults, dev, card, bs6, enc6)
     phase("19 1080p CABAC", phase_cabac, dev, card, bs6)
     phase("20 1080p config 4 P half", phase_config4p, dev, card)
+    phase("22 1080p config 4", phase_config4, dev, card)
+    if args.stagesB:
+        phase("23 config-4 B-frame stages", phase_stages_b, dev, card)
     if args.stages4:
         phase("21 config-4 P half stages", phase_stages, dev, card,
               n_frames=6, config4p=True)

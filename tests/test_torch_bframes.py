@@ -1,0 +1,447 @@
+"""B slices (BASELINE config 4 whole: bframes 2, b_adapt 0, ref_frames 2,
+CABAC, spatial direct) in the port vs the JAX reference on the CPU, on
+the reference's CPU branch (tail_kernel=False).
+
+End to end, one JAX run each (module-scoped): config 4 at 112x80
+(me_range 8, stego em_rate 16 key 5), IDR + 7 frames + flush, so the
+run ends in a short GOP; and ref_frames 1 with bframes 1, PSNR and SSIM
+on. Each port stream is byte-equal to the JAX `Encoder`'s; both
+extractors recover `sent_messages`; the port's decoder gives the JAX
+decoder's planes and MB motion on every frame, B frames included; the
+close() dicts agree.
+
+Modules, on the same seeded numpy inputs: `spatial_direct` and
+`scan_b_parts` (one and two references, colocated intra / ref 0 / ref 1
+blocks), `approx_direct_fields`, the B analysis of one frame (stage 1
+with the L0 merge, the direct SATDs, stage 2), the CABAC B writer on
+seeded B syntax, `encode_b_frame_device`'s levels and recon at one
+reference and at two; and `check_slice`'s refusal of every B option
+outside the slice, each with its ROADMAP id."""
+
+import re
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from video_steganography_pcamv_tpu.decoder import decode_annexb as j_decode
+from video_steganography_pcamv_tpu.encoder import bslice as JB
+from video_steganography_pcamv_tpu.encoder import scan as JSCAN
+from video_steganography_pcamv_tpu.encoder.cabac import (
+    CabacSliceWriter as JWriter)
+from video_steganography_pcamv_tpu.encoder.core import Encoder as JEncoder
+from video_steganography_pcamv_tpu.ops import mc as JMC
+from video_steganography_pcamv_tpu.params import Params, StegoParams
+from video_steganography_pcamv_tpu.stego.extract import (
+    extract_from_stream as j_extract)
+from video_steganography_pcamv_tpu.utils.bitstream import (
+    BitWriter as JBitWriter)
+from video_steganography_pcamv_tpu.utils.yuv import synthetic_sequence
+
+from video_steganography_pcamv_torch import Encoder as TEncoder
+from video_steganography_pcamv_torch import params as TP
+from video_steganography_pcamv_torch.decoder import decode_annexb as t_decode
+from video_steganography_pcamv_torch.encoder import bslice as TB
+from video_steganography_pcamv_torch.encoder.cabac import (
+    CabacSliceWriter as TWriter)
+from video_steganography_pcamv_torch.encoder.core import check_slice
+from video_steganography_pcamv_torch.encoder.me import lambda_tab
+from video_steganography_pcamv_torch.ops import mc as TMC
+from video_steganography_pcamv_torch.stego.extract import (
+    extract_from_frames)
+from video_steganography_pcamv_torch.utils.bitstream import BitWriter
+
+W, H = 112, 80
+MBH, MBW = H // 16, W // 16
+EM_RATE, KEY = 16, 5
+RNG = 8
+
+
+def _kw(**kw):
+    """tools/bench_c4.py's Params at 112x80, me_range 8."""
+    return dict(dict(width=W, height=H, qp=26, me_range=RNG, cabac=True,
+                     bframes=2, b_adapt=0, ref_frames=2,
+                     deblock_device=True, psnr=False), **kw)
+
+
+def _encode_both(n_frames, **kw):
+    frames = synthetic_sequence(W, H, n_frames, seed=9)
+    jenc = JEncoder(Params(**_kw(**kw),
+                           stego=StegoParams(em_rate=EM_RATE, key=KEY)))
+    want = b"".join(jenc.encode_frame(f) for f in frames) + jenc.flush()
+    tenc = TEncoder(TP.Params(**_kw(**kw), tail_kernel=False,
+                              stego=TP.StegoParams(em_rate=EM_RATE,
+                                                   key=KEY)),
+                    device="cpu")
+    got = b"".join(tenc.encode_frame(f) for f in frames) + tenc.flush()
+    return dict(want=want, got=got, jenc=jenc, tenc=tenc, n=n_frames)
+
+
+@pytest.fixture(scope="module")
+def config4():
+    return _encode_both(8)
+
+
+@pytest.fixture(scope="module")
+def ref1_b1():
+    """bframes 1 at one reference, with PSNR and SSIM on (a B frame's
+    metrics read its own recon: it never enters the DPB)."""
+    return _encode_both(6, ref_frames=1, bframes=1, psnr=True, ssim=True)
+
+
+@pytest.mark.parametrize("case", ["config4", "ref1_b1"])
+def test_stream_byte_equal(case, request):
+    run = request.getfixturevalue(case)
+    assert run["got"] == run["want"]
+    st = run["tenc"].stats
+    assert st.b_frames == run["jenc"].stats.b_frames > 0
+    assert st.p_frames == run["jenc"].stats.p_frames
+    assert st.frames == run["n"]
+
+
+@pytest.mark.parametrize("case", ["config4", "ref1_b1"])
+def test_decoders_agree_on_every_frame(case, request):
+    run = request.getfixturevalue(case)
+    dec, jdec = t_decode(run["got"]), j_decode(run["got"])
+    assert len(dec) == len(jdec) == run["n"]
+    assert [f.poc for f in dec] == [2 * i for i in range(run["n"])]
+    types = [f.slice_type for f in dec]
+    assert types[0] == 2 and 1 in types and 0 in types
+    for a, b in zip(dec, jdec):
+        assert (a.slice_type, a.poc) == (b.slice_type, b.poc)
+        for pl in ("y", "u", "v"):
+            np.testing.assert_array_equal(getattr(a, pl), getattr(b, pl))
+        assert [m.mb_type for m in a.mbs] == [m.mb_type for m in b.mbs]
+        assert [m.unit_mvs for m in a.mbs] == [m.unit_mvs for m in b.mbs]
+
+
+@pytest.mark.parametrize("case", ["config4", "ref1_b1"])
+def test_both_extractors_recover_the_payload(case, request):
+    run = request.getfixturevalue(case)
+    sent = run["tenc"]._stego.sent_messages
+    assert len(sent) == run["tenc"].stats.p_frames
+    assert sum(len(s) for s in sent) > 0
+    for rec in (j_extract(run["got"], em_rate=EM_RATE, key=KEY),
+                extract_from_frames(t_decode(run["got"]), em_rate=EM_RATE)):
+        assert len(rec) == len(sent)
+        for g, s in zip(rec, sent):
+            np.testing.assert_array_equal(g, s)
+
+
+def test_close_with_b_frames_matches_reference(ref1_b1):
+    """close(): counts, bits and PSNR exact, SSIM to rtol 1e-5 (a float
+    sum in another order); fps is a rate of the wall clock."""
+    got, want = ref1_b1["tenc"].close(), ref1_b1["jenc"].close()
+    assert got.keys() == want.keys()
+    assert 20 < got["psnr_y"] < 99 and 0 < got["ssim_y"] <= 1
+    for k in want:
+        if k == "ssim_y":
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-5)
+        elif k != "fps":
+            assert got[k] == want[k], k
+
+
+def test_config4_b_frames_cover_the_b_syntax(config4):
+    """The config-4 stream's B slices hold skips, direct, 16x16 and
+    partition MBs."""
+    kinds = {m.mb_type for f in t_decode(config4["got"])
+             if f.slice_type == 1 for m in f.mbs}
+    assert {"BSKIP", "BDIRECT", "BL0", "BL1", "B16x8", "B8x16",
+            "B8x8"} <= kinds
+
+
+# ---------------------------------------------------------------------------
+# Host direct derivation and commit
+# ---------------------------------------------------------------------------
+
+def _col_field(g, num_ref):
+    """A colocated anchor field: per-8x8 refs in {-1 (intra), 0..}, MVs
+    in +-2 qpel (so colZeroFlag varies)."""
+    r8 = g.integers(-1, num_ref, (2 * MBH, 2 * MBW)).astype(np.int32)
+    m8 = g.integers(-2, 3, (2 * MBH, 2 * MBW, 2)).astype(np.int32)
+    return (np.repeat(np.repeat(m8, 2, 0), 2, 1),
+            np.repeat(np.repeat(r8, 2, 0), 2, 1))
+
+
+@pytest.mark.parametrize("num_ref", [1, 2])
+def test_scan_b_parts_matches_reference(num_ref):
+    g = np.random.default_rng(20 + num_ref)
+    part = g.integers(0, 4, (MBH, MBW)).astype(np.int32)
+    sel8 = g.integers(0, 3, (MBH, MBW, 4)).astype(np.int32)
+    sel8[part == 3] = g.integers(0, 4, (int((part == 3).sum()), 4))
+    sel8[part == 0] = sel8[part == 0][:, :1]
+    sel8[part == 1] = sel8[part == 1][:, [0, 0, 2, 2]]
+    sel8[part == 2] = sel8[part == 2][:, [0, 1, 0, 1]]
+    mv0z = g.integers(-12, 13, (MBH, MBW, 4, 2)).astype(np.int32)
+    mv1z = g.integers(-12, 13, (MBH, MBW, 4, 2)).astype(np.int32)
+    c_cfg = g.integers(100, 200, (MBH, MBW)).astype(np.int32)
+    c_dir = g.integers(60, 220, (MBH, MBW)).astype(np.int32)
+    col_mv4, col_ref4 = _col_field(g, num_ref)
+    ref0 = (g.integers(0, num_ref, (MBH, MBW)).astype(np.int32)
+            if num_ref > 1 else None)
+    lam = 4
+    got = TB.scan_b_parts(part, sel8, mv0z, mv1z, c_cfg, c_dir, col_mv4,
+                          col_ref4, lam, ref0=ref0)
+    want = JB.scan_b_parts(part, sel8, mv0z, mv1z, c_cfg, c_dir, col_mv4,
+                           col_ref4, lam, ref0=ref0)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    code = got[0]
+    assert (code == 0).any() and (code > 3).any() and (code == 22).any()
+    assert (got[1][code == 22] == 0).any()   # a direct 8x8 sub
+
+
+def test_spatial_direct_matches_reference():
+    """Every MB of a random half-coded grid pair: neighbours with refs
+    -1 / 0 / 1 and unavailable ones."""
+    g = np.random.default_rng(7)
+    grids = []
+    for cls in (TB._Grid, JSCAN._Grid):
+        gg = np.random.default_rng(8)
+        pair = (cls(MBH, MBW), cls(MBH, MBW))
+        for gr in pair:
+            gr.mv[:] = gg.integers(-20, 21, gr.mv.shape)
+            gr.ref[:] = gg.integers(-1, 2, gr.ref.shape)
+            gr.dec[:] = gg.random(gr.dec.shape) < 0.7
+        grids.append(pair)
+    col_mv4, col_ref4 = _col_field(g, 2)
+    for my in range(MBH):
+        for mx in range(MBW):
+            a = TB.spatial_direct(*grids[0], col_mv4, col_ref4, my, mx)
+            b = JB.spatial_direct(*grids[1], col_mv4, col_ref4, my, mx,
+                                  with_refs=True)
+            assert a[0] == b[0] and a[1] == b[1] and a[4:] == b[4:]
+            np.testing.assert_array_equal(a[2], b[2])
+            np.testing.assert_array_equal(a[3], b[3])
+
+
+def test_approx_direct_fields_match_reference():
+    g = np.random.default_rng(11)
+    mv0 = g.integers(-40, 41, (MBH, MBW, 2)).astype(np.int32)
+    mv1 = g.integers(-40, 41, (MBH, MBW, 2)).astype(np.int32)
+    col_mv4, col_ref4 = _col_field(g, 2)
+    for a, b in zip(TB.approx_direct_fields(mv0, mv1, col_mv4, col_ref4),
+                    JB.approx_direct_fields(mv0, mv1, col_mv4, col_ref4)):
+        np.testing.assert_array_equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# The B analysis of one frame and the B encode
+# ---------------------------------------------------------------------------
+
+def _refs(n, seed):
+    """n reference entries built from a smooth random texture, each
+    shifted a little, as port dicts and JAX dicts."""
+    g = np.random.default_rng(seed)
+    big = g.integers(30, 226, (H // 4 + 8, W // 4 + 8))
+    big = np.repeat(np.repeat(big, 4, 0), 4, 1)
+    out_t, out_j = [], []
+    for k in range(n):
+        y = big[3 * k:3 * k + H, 2 * k:2 * k + W].astype(np.int32)
+        u = g.integers(0, 256, (H // 2, W // 2)).astype(np.int32)
+        v = g.integers(0, 256, (H // 2, W // 2)).astype(np.int32)
+        out_t.append(TMC.build_ref(*(torch.as_tensor(a) for a in (y, u, v))))
+        out_j.append(JMC.build_ref(*(jnp.asarray(a) for a in (y, u, v))))
+    cur = big[5:5 + H, 4:4 + W].astype(np.int32)
+    return out_t, out_j, cur
+
+
+def _stack_t(es):
+    return {k: torch.stack([e[k] for e in es]) for k in ("luma", "u", "v")}
+
+
+def _stack_j(es):
+    return {k: jnp.stack([e[k] for e in es]) for k in ("luma", "u", "v")}
+
+
+def test_b_analysis_matches_reference_two_refs(config4):
+    """Stage 1 with the L0 merge (entry 1 past n_valid in one run),
+    the approximate direct SATDs and stage 2, port vs JAX, at the
+    config-4 shapes."""
+    (t0, t1, t2), (j0, j1, j2), cur = _refs(3, 5)
+    y = torch.as_tensor(cur)
+    yj = jnp.asarray(cur)
+    lam = lambda_tab(28)
+    rs_t, rs_j = _stack_t([t0, t1]), _stack_j([j0, j1])
+    g = np.random.default_rng(3)
+    col_mv4, col_ref4 = _col_field(g, 2)
+    for n_valid in (2, 1):
+        st0, st1, ref0 = TB.analyse_b_parts_stage1(
+            y, rs_t["luma"][:, 0].to(torch.uint8), n_valid,
+            t2["luma"][0].to(torch.uint8), RNG, MBH, MBW, lam)
+        jst0, jst1, jref0 = JB.analyse_b_parts_stage1_mref(
+            yj, rs_j["luma"], jnp.asarray(n_valid), j2["luma"], RNG, MBH,
+            MBW, lam, 2)
+        np.testing.assert_array_equal(ref0.numpy(), np.asarray(jref0))
+        for k in jst0:
+            np.testing.assert_array_equal(st0[k].numpy(),
+                                          np.asarray(jst0[k]), err_msg=k)
+            np.testing.assert_array_equal(st1[k].numpy(),
+                                          np.asarray(jst1[k]), err_msg=k)
+        assert (n_valid == 1) == (int(ref0.max()) == 0)
+        au = JB.approx_direct_fields(4 * np.asarray(jst0["mv16"]),
+                                     4 * np.asarray(jst1["mv16"]),
+                                     col_mv4, col_ref4)
+        c_dir8 = TB.bipred_satd8_device(
+            y, rs_t["luma"][0], t2["luma"], *(torch.as_tensor(a) for a in au),
+            MBH, MBW)
+        jc_dir8 = JB.bipred_satd8_device(
+            yj, j0["luma"], j2["luma"], *(jnp.asarray(a) for a in au),
+            MBH, MBW, w1=32)
+        np.testing.assert_array_equal(c_dir8.numpy(), np.asarray(jc_dir8))
+        got = TB.analyse_b_parts(y, rs_t["luma"], t2["luma"], st0, st1,
+                                 c_dir8, ref0, MBH, MBW, lam)
+        want = JB.analyse_b_parts(yj, rs_j["luma"], j2["luma"], jst0, jst1,
+                                  jc_dir8, MBH, MBW, lam, 2, w1=32,
+                                  ref0_map=jnp.asarray(ref0.numpy()))
+        for k in want:
+            np.testing.assert_array_equal(got[k].numpy(),
+                                          np.asarray(want[k]), err_msg=k)
+
+
+@pytest.mark.parametrize("num_ref", [1, 2])
+def test_encode_b_frame_device_matches_reference(num_ref):
+    """The port's one path (a stack of one L0 entry at one reference)
+    against the reference's single-reference encode and its
+    multi-reference one."""
+    (t0, t1, t2), (j0, j1, j2), cur = _refs(3, 9 + num_ref)
+    g = np.random.default_rng(num_ref)
+    y = cur
+    u = g.integers(0, 256, (H // 2, W // 2)).astype(np.int32)
+    v = g.integers(0, 256, (H // 2, W // 2)).astype(np.int32)
+    use0 = g.integers(0, 2, (2 * MBH, 2 * MBW)).astype(np.int32)
+    use1 = np.where(use0 == 0, 1,
+                    g.integers(0, 2, use0.shape)).astype(np.int32)
+    fmv0 = g.integers(-30, 31, (2 * MBH, 2 * MBW, 2)).astype(np.int32)
+    fmv1 = g.integers(-30, 31, (2 * MBH, 2 * MBW, 2)).astype(np.int32)
+    ref8 = np.where(use0 == 1, g.integers(0, num_ref, use0.shape),
+                    -1).astype(np.int32)
+    qp, qpc = 28, 28
+    t = torch.as_tensor
+    got = TB.encode_b_frame_device(
+        t(y), t(u), t(v), _stack_t([t0, t1][:num_ref]), t2, t(use0),
+        t(use1), t(fmv0), t(fmv1), t(ref8), qp, qpc, MBH, MBW)
+    if num_ref == 1:
+        want = JB.encode_b_frame_device(
+            jnp.asarray(y), jnp.asarray(u), jnp.asarray(v), j0["luma"],
+            j0["u"], j0["v"], j2["luma"], j2["u"], j2["v"],
+            jnp.asarray(use0), jnp.asarray(use1), jnp.asarray(fmv0),
+            jnp.asarray(fmv1), qp, qpc, MBH, MBW, decimate=True,
+            trellis=False, w1=32)
+    else:
+        rs_j = _stack_j([j0, j1])
+        want = JB.encode_b_frame_device(
+            jnp.asarray(y), jnp.asarray(u), jnp.asarray(v), rs_j["luma"],
+            rs_j["u"], rs_j["v"], j2["luma"], j2["u"], j2["v"],
+            jnp.asarray(use0), jnp.asarray(use1), jnp.asarray(fmv0),
+            jnp.asarray(fmv1), qp, qpc, MBH, MBW, decimate=True,
+            trellis=False, w1=32, ref8_0=jnp.asarray(ref8))
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]),
+                                      err_msg=k)
+    assert int(got["cbp_luma"].max()) > 0
+
+
+# ---------------------------------------------------------------------------
+# The CABAC B writer
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("num_ref", [1, 2])
+def test_cabac_b_writer_matches_reference(num_ref):
+    """Seeded B syntax: every mb_type code 0-22, B_8x8 subs, mvds, cbps,
+    levels and (num_ref 2) per-MB L0 references."""
+    g = np.random.default_rng(30 + num_ref)
+    n = MBH * MBW
+    code = g.integers(0, 23, (MBH, MBW)).astype(np.int32)
+    code.reshape(-1)[:23] = np.arange(23)
+    subs = g.integers(0, 4, (MBH, MBW, 4)).astype(np.int32)
+    mvd0 = g.integers(-40, 41, (MBH, MBW, 4, 2)).astype(np.int32)
+    mvd1 = g.integers(-40, 41, (MBH, MBW, 4, 2)).astype(np.int32)
+    cbp_l = g.integers(0, 16, (MBH, MBW)) * (g.random((MBH, MBW)) < 0.6)
+    cbp_c = g.integers(0, 3, (MBH, MBW)) * (g.random((MBH, MBW)) < 0.6)
+    lev = g.integers(-3, 4, (MBH, MBW, 4, 4, 4, 4)) \
+        * (g.random((MBH, MBW, 4, 4, 4, 4)) < 0.2)
+    for my in range(MBH):
+        for mx in range(MBW):
+            for b8 in range(4):
+                if not cbp_l[my, mx] & (1 << b8):
+                    lev[my, mx, 2 * (b8 >> 1):2 * (b8 >> 1) + 2,
+                        2 * (b8 & 1):2 * (b8 & 1) + 2] = 0
+    cdc = g.integers(-2, 3, (MBH, MBW, 2, 2, 2)) * (cbp_c > 0)[
+        ..., None, None, None]
+    cac = g.integers(-2, 3, (MBH, MBW, 2, 2, 2, 4, 4)) \
+        * (g.random((MBH, MBW, 2, 2, 2, 4, 4)) < 0.2) \
+        * (cbp_c == 2)[..., None, None, None, None, None]
+    cac[..., 0, 0] = 0
+    ref0 = g.integers(0, num_ref, (MBH, MBW)).astype(np.int32)
+    outs = []
+    for writer, bwc in ((TWriter, BitWriter), (JWriter, JBitWriter)):
+        bw = bwc()
+        bw.write(5, 0b10110)
+        while not bw.byte_aligned():
+            bw.write1(1)
+        w = writer(MBW, MBH, 28, slice_is_i=False, slice_is_b=True)
+        for a in range(n):
+            my, mx = a // MBW, a % MBW
+            m, cl, cc = int(code[my, mx]), int(cbp_l[my, mx]), \
+                int(cbp_c[my, mx])
+            args = (cl, cc, lev[my, mx], cdc[my, mx], cac[my, mx])
+            kw = dict(ref0=int(ref0[my, mx]), num_ref=num_ref)
+            if m == 0 and cl == 0 and cc == 0:
+                w.write_b_skip_mb(my, mx)
+            elif m <= 3:
+                w.write_b_mb(my, mx, m, mvd0[my, mx, 0], mvd1[my, mx, 0],
+                             *args, **kw)
+            else:
+                w.write_b_mb_ext(my, mx, m, subs[my, mx], mvd0[my, mx],
+                                 mvd1[my, mx], *args, **kw)
+            w.end_mb(a == n - 1)
+        w.end_slice(bw)
+        outs.append(bw.get_bytes())
+    assert outs[0] == outs[1] and len(outs[0]) > 100
+
+
+# ---------------------------------------------------------------------------
+# The slice's bounds
+# ---------------------------------------------------------------------------
+
+def test_check_slice_accepts_config4():
+    for refs in (1, 2, 8):
+        p = TP.Params(**_kw(width=1920, height=1088, me_range=16,
+                            ref_frames=refs),
+                      stego=TP.StegoParams(em_rate=64, key=5))
+        p.validate()
+        check_slice(p)
+
+
+@pytest.mark.parametrize("kw,name", [
+    (dict(partitions=False), "ROADMAP A14a"),
+    (dict(cabac=False), "ROADMAP A14b"),
+    (dict(b_adapt=1), "ROADMAP A14c"),
+    (dict(b_adapt=2), "ROADMAP A14c"),
+    (dict(b_pyramid=True), "ROADMAP A14d"),
+    (dict(weightb=True), "ROADMAP A14e"),
+    (dict(direct=0), "ROADMAP A14f"),
+    (dict(direct=2), "ROADMAP A14f"),
+    (dict(direct=3), "ROADMAP A14f"),
+    (dict(transform_8x8=True, ref_frames=1), "bframes with transform_8x8"),
+    (dict(rd=1, ref_frames=1), "bframes with rd"),
+    (dict(p4x4=True), "p4x4 (ROADMAP A16)"),
+    (dict(aq_mode=1), "aq_mode"),
+    (dict(trellis=1), "trellis"),
+    (dict(stego_off=True), "stego off"),
+], ids=["partitions_off", "cavlc", "b_adapt1", "b_adapt2", "b_pyramid",
+        "weightb", "direct_none", "direct_temporal", "direct_auto",
+        "transform_8x8", "rd", "p4x4", "aq", "trellis", "stego_off"])
+def test_check_slice_refuses_b_options_outside_the_slice(kw, name):
+    kw = dict(kw)
+    stego = (TP.StegoParams() if kw.pop("stego_off", False)
+             else TP.StegoParams(em_rate=EM_RATE, key=KEY))
+    p = TP.Params(**_kw(**kw), stego=stego)
+    p.validate()
+    assert p.bframes == 2
+    with pytest.raises(NotImplementedError, match=re.escape(name)):
+        check_slice(p)

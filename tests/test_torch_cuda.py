@@ -41,7 +41,13 @@ its own:  python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
   in their reference vs edge_params + its plain version;
 - at 112x80, cuda == cpu multi-reference streams: ref_frames 2 under
   CAVLC and CABAC, ref_frames 3 with keyint_max 3 on the CPU branch,
-  and partitions off with the host deblock's twin.
+  and partitions off with the host deblock's twin;
+- at 112x80, cuda == cpu B streams (BASELINE config 4: bframes 2,
+  ref_frames 2, CABAC; and bframes 1 at one reference), with every
+  kernel call of the B frames held array-equal to its plain version on
+  the same inputs: B1 against a zero predictor, B9 on the L0 stack with
+  the per-MB L0 map and on L1, B3' on the B windows and the fused luma
+  encode on the bipred predictions; the per-B-frame launch counts.
 """
 
 import numpy as np
@@ -666,3 +672,60 @@ def test_cuda_stream_equals_cpu_stream_multiref(dev, kw):
         return b"".join(enc.encode_frame(f) for f in frames) + enc.flush()
 
     assert run(dev) == run("cpu")
+
+
+def _cpu(x):
+    if isinstance(x, torch.Tensor):
+        return x.cpu()
+    if isinstance(x, dict):
+        return {k: _cpu(v) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return type(x)(_cpu(v) for v in x)
+    return x
+
+
+def _same(a, b):
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same(a[k], b[k]) for k in a)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    return torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(bframes=2, ref_frames=2), dict(bframes=1, ref_frames=1)],
+    ids=["config4", "bframes1_ref1"])
+def test_cuda_stream_equals_cpu_stream_bframes(dev, kw, monkeypatch):
+    """Each kernel wrapper a B frame calls (bslice's names) runs on the
+    card and again on CPU copies of its inputs, which takes its plain
+    version: the outputs must be equal; then cuda == cpu streams."""
+    from video_steganography_pcamv_torch.encoder import bslice as BS
+    frames = synthetic_sequence(112, 80, 6, seed=7)
+    calls = {}
+    for name in ("fullpel_parts", "gather_windows8", "subpel",
+                 "luma_p_encode"):
+        fn = getattr(BS, name)
+
+        def check(*a, _fn=fn, _name=name, **k):
+            out = _fn(*a, **k)
+            if a[0].is_cuda:
+                assert _same(out, _fn(*_cpu(a), **_cpu(k))), _name
+                calls[_name] = calls.get(_name, 0) + 1
+            return out
+        monkeypatch.setattr(BS, name, check)
+
+    def run(device):
+        enc = Encoder(Params(width=112, height=80, qp=26, me_range=16,
+                             cabac=True, b_adapt=0, psnr=False,
+                             deblock_device=True,
+                             stego=StegoParams(em_rate=64, key=5), **kw),
+                      device=device)
+        bs = b"".join(enc.encode_frame(f) for f in frames) + enc.flush()
+        return bs, enc.stats.b_frames
+
+    (got, n_b), (want, _) = run(dev), run("cpu")
+    assert got == want and n_b > 0
+    r = kw["ref_frames"]
+    assert calls == {"fullpel_parts": (r + 1) * n_b,
+                     "gather_windows8": 2 * n_b, "subpel": 2 * n_b,
+                     "luma_p_encode": n_b}

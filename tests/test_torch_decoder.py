@@ -74,8 +74,9 @@ def test_extractor_matches_reference(port_stream):
 
 @pytest.mark.parametrize("name", ["bframes2.264", "bpyramid.264"])
 def test_decoder_refuses_what_the_port_lacks(name):
-    """B slices (here under CABAC); the CABAC I/P streams are decoded,
-    tests/test_torch_cabac.py."""
+    """x264's B streams (CABAC): deblocked and reference B slices and
+    weighted bipred, which the port does not decode; its own B streams
+    are decoded, tests/test_torch_bframes.py."""
     with pytest.raises(NotImplementedError):
         decode_annexb(_stream(name, None))
 

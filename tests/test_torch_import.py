@@ -5,10 +5,9 @@ The import check runs in a subprocess whose meta-path finder refuses
 every `jax` and `video_steganography_pcamv_tpu` import and whose `open`
 refuses every path inside the JAX package; it imports every module of
 the port package and runs a tiny encode, decode and extraction, under
-CAVLC, under CABAC at the reference's default Params, and with two
-reference frames. A
-source scan refuses any import of the JAX package in the port or in
-chip_smoke.py."""
+CAVLC, under CABAC at the reference's default Params, with two
+reference frames, and with B frames (BASELINE config 4). A source scan
+refuses any import of the JAX package in the port or in chip_smoke.py."""
 
 import ast
 import glob
@@ -65,6 +64,9 @@ _BLOCKED_IMPORT = textwrap.dedent("""
               Params(width=32, height=32, cabac=True, ssim=True,
                      stego=StegoParams(em_rate=4, key=3)),
               Params(width=32, height=32, qp=26, me_range=16, ref_frames=2,
+                     stego=StegoParams(em_rate=4, key=3)),
+              Params(width=32, height=32, qp=26, me_range=8, cabac=True,
+                     bframes=2, b_adapt=0, ref_frames=2, psnr=False,
                      stego=StegoParams(em_rate=4, key=3))):
         enc = Encoder(p, device="cpu")
         bs = b"".join(enc.encode_frame(f) for f in frames) + enc.flush()
@@ -73,7 +75,7 @@ _BLOCKED_IMPORT = textwrap.dedent("""
         sent = enc._stego.sent_messages
         assert len(got) == len(sent) and all(
             np.array_equal(a, b) for a, b in zip(got, sent))
-        if p.cabac:
+        if p.ssim:
             closed = enc.close()
     assert closed["psnr_y"] < 99 and closed["ssim_y"] > 0
     assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)

@@ -1,6 +1,6 @@
-"""CABAC decoding engine + I/P slice parser (verification decoder; the
-port's copy of the reference's decoder/cabac_dec.py, without its B-slice
-parser).
+"""CABAC decoding engine + I/P/B slice parser (verification decoder;
+the port's copy of the reference's decoder/cabac_dec.py; B MBs without
+intra).
 
 Spec 9.3.3.2 arithmetic decoder (InitDecoding/DecodeDecision/
 DecodeBypass/DecodeTerminate) with the same normative tables as the
@@ -19,8 +19,14 @@ from ..encoder.cabac import (_SIG_OFF, _LAST_OFF, _ABS_OFF, _MAXC,
                              _LEVEL1_CTX, _LEVELGT1_CTX, _LEVEL_TRANS,
                              CAT_LUMA_DC, CAT_LUMA_AC, CAT_LUMA_4x4,
                              CAT_CHROMA_DC, CAT_CHROMA_AC, CAT_LUMA_8x8,
-                             SIG8_CTX, LAST8_CTX, LUMA_SCAN, CHROMA_SCAN)
+                             SIG8_CTX, LAST8_CTX, LUMA_SCAN, CHROMA_SCAN,
+                             B_TYPE_BINS, _B_GEOM)
+from ..encoder.vlc_tables import B_CODE_USES, B_SUB_USES
 from .decoder import mb_units
+
+# bins tuple -> B mb_type ue code (the writer's B_TYPE_BINS inverted; the
+# binarization is prefix-free)
+_B_TYPE_INV = {tuple(v): k for k, v in B_TYPE_BINS.items()}
 
 
 class CabacDecoder:
@@ -86,8 +92,9 @@ class CabacSliceParser:
     encoder/cabac.py's CabacSliceWriter."""
 
     def __init__(self, br, mbw, mbh, qp, slice_is_i, model=0,
-                 num_ref=1, trans8_mode=False):
+                 num_ref=1, slice_is_b=False, trans8_mode=False):
         self.cd = CabacDecoder(br, qp, slice_is_i, model)
+        self.slice_is_b = slice_is_b
         self.qp = qp                 # running luma QP (mb_qp_delta)
         self.last_dqp = 0
         self.prev_coded = 0
@@ -103,7 +110,9 @@ class CabacSliceParser:
         self.cbp = np.zeros((mbh, mbw), np.int32)
         self.modes4 = np.full((4 * mbh, 4 * mbw), 2, np.int32)
         self.mvd4 = np.zeros((4 * mbh, 4 * mbw, 2), np.int32)
+        self.mvd4_1 = np.zeros((4 * mbh, 4 * mbw, 2), np.int32)
         self.ref4 = np.zeros((4 * mbh, 4 * mbw), np.int32)
+        self.bdirect = np.zeros((mbh, mbw), bool)
         self.cmode_map = np.zeros((mbh, mbw), np.int32)
 
     # context helpers (identical derivations to the writer)
@@ -201,7 +210,7 @@ class CabacSliceParser:
         return flag
 
     def skip_flag(self, my, mx):
-        ctx = 11
+        ctx = 24 if self.slice_is_b else 11
         if mx > 0 and self.mb_kind[my, mx - 1] > 0:
             ctx += 1
         if my > 0 and self.mb_kind[my - 1, mx] > 0:
@@ -328,9 +337,9 @@ class CabacSliceParser:
         self.cmode_map[my, mx] = cmode
         return cmode
 
-    def mvd(self, gy4, gx4, h4, w4):
+    def mvd(self, gy4, gx4, h4, w4, lst: int = 0):
         cd = self.cd
-        cache = self.mvd4
+        cache = self.mvd4 if lst == 0 else self.mvd4_1
         out = []
         for comp in range(2):
             a = (abs(int(cache[gy4, gx4 - 1, comp]))
@@ -620,3 +629,180 @@ class CabacSliceParser:
         self.cbp[my, mx] = 0
         self.cmode_map[my, mx] = 0
         self.modes4[4 * my:4 * my + 4, 4 * mx:4 * mx + 4] = 2
+
+    # ------------------------------------------------------------------
+    # B slices (inverse of the writer's mb_type_b(_bins) / write_b_mb(_ext)
+    # / write_b_skip_mb)
+    # ------------------------------------------------------------------
+    def mb_type_b(self, my, mx) -> int:
+        """Returns the spec Table 7-14 ue code: 0 direct, 1-3 16x16
+        L0/L1/BI, 4-21 two-partition list combos, 22 B_8x8 (inverse of
+        the writer's mb_type_b/mb_type_b_bins; reference
+        encoder/cabac.c:123-192 i_mb_bits). Returns 23 on the
+        intra-in-B prefix 111101, which the port does not decode."""
+        cd = self.cd
+        ctx = 0
+        if mx > 0 and self.mb_kind[my, mx - 1] > 0 \
+                and not self.bdirect[my, mx - 1]:
+            ctx += 1
+        if my > 0 and self.mb_kind[my - 1, mx] > 0 \
+                and not self.bdirect[my - 1, mx]:
+            ctx += 1
+        if not cd.decision(27 + ctx):
+            return 0
+        b1 = cd.decision(30)
+        b2 = cd.decision(32 - b1)
+        bins = (1, b1, b2)
+        while bins not in _B_TYPE_INV:
+            if bins == (1, 1, 1, 1, 0, 1):   # intra-in-B prefix
+                return 23
+            assert len(bins) < 7, \
+                f"unsupported B mb_type bins {bins}"
+            bins = bins + (cd.decision(32),)
+        return _B_TYPE_INV[bins]
+
+    def sub_mb_type_b(self) -> int:
+        """B sub_mb_type, 8x8 subset (inverse of the writer's
+        sub_mb_type_b; reference x264_cabac_mb_sub_b_partition,
+        encoder/cabac.c:332-367): 0 direct / 1 L0 / 2 L1 / 3 BI.
+        Asserts on sub-8x8 splits (not emitted)."""
+        cd = self.cd
+        if not cd.decision(36):
+            return 0
+        if not cd.decision(37):
+            return 2 if cd.decision(39) else 1
+        assert not cd.decision(38), "B sub-8x8 splits unsupported"
+        bits = (cd.decision(39), cd.decision(39))
+        assert bits == (0, 0), \
+            f"B sub-8x8 splits unsupported (suffix {bits})"
+        return 3
+
+    def parse_b_mb_parts(self, my, mx, code):
+        """After a partition mb_type (codes 4-22): returns (subs,
+        mvds [2][n_units] of (x, y) or None, cbp_luma, cbp_chroma,
+        blocks, cdcs, cacs). Twin of the writer's write_b_mb_ext
+        (all-L0-then-all-L1 mvd order)."""
+        y4, x4 = 4 * my, 4 * mx
+        if code == 22:
+            subs = [self.sub_mb_type_b() for _ in range(4)]
+            geom = _B_GEOM[3]
+            uses = ([B_SUB_USES[s][0] for s in subs],
+                    [B_SUB_USES[s][1] for s in subs])
+            dirs = {b for b in range(4) if subs[b] == 0}
+        else:
+            _n, u0, u1 = B_CODE_USES[code]
+            geom = _B_GEOM[1 if code % 2 == 0 else 2]
+            uses = (list(u0), list(u1))
+            dirs = set()
+            subs = None
+        # ref_idx_l0 per L0-using non-direct unit (multi-ref B lists;
+        # refs before mvds, spec 7.3.5.1/7.3.5.2). The ref ctx cache
+        # stays 0 for direct/L1-only units (spec 9.3.3.1.1.6).
+        refs_u = [0] * len(geom)
+        for u, ((oy, ox), h4, w4) in enumerate(geom):
+            if uses[0][u] and u not in dirs and self.num_ref > 1:
+                refs_u[u] = self.ref_idx(y4 + oy, x4 + ox, h4, w4)
+            else:
+                self.ref4[y4 + oy:y4 + oy + h4,
+                          x4 + ox:x4 + ox + w4] = 0
+        mvds = [[None] * len(geom), [None] * len(geom)]
+        for li in (0, 1):
+            cache = self.mvd4 if li == 0 else self.mvd4_1
+            for u, ((oy, ox), h4, w4) in enumerate(geom):
+                if uses[li][u] and u not in dirs:
+                    mvds[li][u] = self.mvd(y4 + oy, x4 + ox, h4, w4,
+                                           lst=li)
+                else:
+                    cache[y4 + oy:y4 + oy + h4,
+                          x4 + ox:x4 + ox + w4] = 0
+        cbp_luma = self.cbp_luma(my, mx)
+        cbp_chroma = self.cbp_chroma(my, mx)
+        if self.trans8_mode and cbp_luma:
+            assert self.transform_size_flag(my, mx) == 0, \
+                "8x8 transform in B MBs unsupported"
+        self.mb_kind[my, mx] = 1
+        self.bdirect[my, mx] = False
+        self.cbp[my, mx] = (cbp_chroma << 4) | cbp_luma
+        self.cmode_map[my, mx] = 0
+        self.modes4[y4:y4 + 4, x4:x4 + 4] = 2
+        self.dc_nz_y[my, mx] = 0
+        self.dc_nz_c[:, my, mx] = 0
+        if cbp_luma or cbp_chroma:
+            self.qp_delta_zero()
+            blocks = self._luma_residual_4x4(my, mx, cbp_luma, False)
+            cdcs, cacs = self._chroma_residual(my, mx, cbp_chroma,
+                                               False)
+        else:
+            self.last_dqp = 0
+            blocks = np.zeros((4, 4, 16), np.int64)
+            cdcs = np.zeros((2, 4), np.int64)
+            cacs = np.zeros((2, 2, 2, 16), np.int64)
+            self.nnz_y[y4:y4 + 4, x4:x4 + 4] = 0
+            self.nnz_c[:, 2 * my:2 * my + 2, 2 * mx:2 * mx + 2] = 0
+        self.prev_coded = 1 if (cbp_luma or cbp_chroma) else 0
+        return (subs, mvds, cbp_luma, cbp_chroma, blocks, cdcs,
+                cacs, refs_u)
+
+    def parse_b_skip_mb(self, my, mx):
+        self._clear_mb_ctx(my, mx)
+        self.last_dqp = 0
+        self.prev_coded = 0
+        self.mvd4_1[4 * my:4 * my + 4, 4 * mx:4 * mx + 4] = 0
+        self.mb_kind[my, mx] = 0
+        self.bdirect[my, mx] = True
+        self.cbp[my, mx] = 0
+        self.cmode_map[my, mx] = 0
+        self.modes4[4 * my:4 * my + 4, 4 * mx:4 * mx + 4] = 2
+
+    def parse_b_mb(self, my, mx, btype):
+        """After mb_type: returns (mvd0, mvd1, cbp_luma, cbp_chroma,
+        blocks, cdcs, cacs, ref0). ref_idx_l0 parsed before the mvds
+        when the slice's L0 list has >1 entry (multi-ref B lists);
+        the ref ctx cache stays 0 for direct/L1-only MBs (spec
+        9.3.3.1.1.6)."""
+        y4, x4 = 4 * my, 4 * mx
+        mvd0 = [0, 0]
+        mvd1 = [0, 0]
+        ref0 = 0
+        if btype in (1, 3):
+            if self.num_ref > 1:
+                ref0 = self.ref_idx(y4, x4, 4, 4)
+            else:
+                self.ref4[y4:y4 + 4, x4:x4 + 4] = 0
+        else:
+            self.ref4[y4:y4 + 4, x4:x4 + 4] = 0
+        if btype in (1, 3):
+            mvd0 = self.mvd(y4, x4, 4, 4, lst=0)
+        else:
+            self.mvd4[y4:y4 + 4, x4:x4 + 4] = 0
+        if btype in (2, 3):
+            mvd1 = self.mvd(y4, x4, 4, 4, lst=1)
+        else:
+            self.mvd4_1[y4:y4 + 4, x4:x4 + 4] = 0
+        cbp_luma = self.cbp_luma(my, mx)
+        cbp_chroma = self.cbp_chroma(my, mx)
+        if self.trans8_mode and cbp_luma:
+            assert self.transform_size_flag(my, mx) == 0, \
+                "8x8 transform in B MBs unsupported"
+        self.mb_kind[my, mx] = 1
+        self.bdirect[my, mx] = btype == 0
+        self.cbp[my, mx] = (cbp_chroma << 4) | cbp_luma
+        self.cmode_map[my, mx] = 0
+        self.modes4[y4:y4 + 4, x4:x4 + 4] = 2
+        self.dc_nz_y[my, mx] = 0
+        self.dc_nz_c[:, my, mx] = 0
+        if cbp_luma or cbp_chroma:
+            self.qp_delta_zero()
+            blocks = self._luma_residual_4x4(my, mx, cbp_luma, False)
+            cdcs, cacs = self._chroma_residual(my, mx, cbp_chroma,
+                                               False)
+        else:
+            self.last_dqp = 0
+            blocks = np.zeros((4, 4, 16), np.int64)
+            cdcs = np.zeros((2, 4), np.int64)
+            cacs = np.zeros((2, 2, 2, 16), np.int64)
+            self.nnz_y[y4:y4 + 4, x4:x4 + 4] = 0
+            self.nnz_c[:, 2 * my:2 * my + 2, 2 * mx:2 * mx + 2] = 0
+        self.prev_coded = 1 if (cbp_luma or cbp_chroma) else 0
+        return (mvd0, mvd1, cbp_luma, cbp_chroma, blocks, cdcs, cacs,
+                ref0)

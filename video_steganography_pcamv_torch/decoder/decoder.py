@@ -6,13 +6,17 @@ matches a conforming decoder bit-exactly, and expose the motion-vector
 field for the blind stego extractor (the reference never shipped its
 extractor — stc_extract include commented out, analyse.c:43).
 
-The port's copy of the reference's decoder/decoder.py, cut to the I/P
-path that the port's streams take, under CAVLC or CABAC
+The port's copy of the reference's decoder/decoder.py, cut to the paths
+that the port's streams take: I/P slices under CAVLC or CABAC
 (I16x16/I4x4/I8x8, P partitions incl. sub-8x8, the adaptive 8x8
-transform, P_SKIP, sliding-window DPB; the CABAC parser is
-`cabac_dec.py`). Scaling matrices, B slices and per-MB QP changes in a
-deblocked slice raise NotImplementedError. The in-loop filter is the port's
-`ops.deblock`.
+transform, P_SKIP, sliding-window DPB) and non-reference CABAC B slices
+(B_Skip, B_Direct_16x16 with spatial direct, the 16x16 L0/L1/BI types,
+the 16x8/8x16 combos, B_8x8 with direct/L0/L1/BI subs, multi-reference
+L0 lists, the default B list order, POC output order); the CABAC parser
+is `cabac_dec.py`. Scaling matrices, per-MB QP changes in a deblocked
+slice, CAVLC B slices, temporal direct, weighted bipred, intra MBs in B
+and deblocked B slices raise NotImplementedError. The in-loop filter is
+the port's `ops.deblock`.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import torch
 
 from ..utils.bitstream import BitReader, nal_unescape
 from ..encoder import vlc_tables as VT
+from ..encoder.vlc_tables import B_CODE_USES, B_SUB_USES
 from ..ops import deblock as DB
 from . import recon as R
 
@@ -200,6 +205,7 @@ class DecPPS:
     deblocking_control_present: bool = True
     transform_8x8: bool = False
     cabac: bool = False
+    weighted_bipred_idc: int = 0
 
 
 @dataclass
@@ -347,7 +353,7 @@ def parse_pps(rbsp: bytes) -> DecPPS:
     pps.num_ref_idx_l0_active = br.read_ue() + 1
     br.read_ue()
     br.read1()
-    br.read(2)      # weighted_bipred_idc
+    pps.weighted_bipred_idc = br.read(2)
     pps.pic_init_qp = 26 + br.read_se()
     br.read_se()
     pps.chroma_qp_index_offset = br.read_se()
@@ -365,11 +371,13 @@ def parse_pps(rbsp: bytes) -> DecPPS:
 class SliceDecoder:
     """Decodes one frame (single slice)."""
 
-    def __init__(self, sps: DecSPS, pps: DecPPS, refs=None):
+    def __init__(self, sps: DecSPS, pps: DecPPS, refs=None, refs_l1=None):
         self.sps, self.pps = sps, pps
-        # DPB: refs[0] = most recent reference (the P slice's L0 list)
+        # the slice's L0 list (P: most recent reference first)
         self.refs = refs or []
+        self.refs_l1 = refs_l1 or []   # B-slice list 1 (future anchor)
         self.p_l0_active = None  # P-slice num_ref override (7.4.3)
+        self.b_l0_active = 1     # B-slice effective L0 size
         self.mbw = (sps.width + 15) // 16
         self.mbh = (sps.height + 15) // 16
         self.y = np.zeros((self.mbh * 16, self.mbw * 16), np.int64)
@@ -390,6 +398,9 @@ class SliceDecoder:
         # all partition shapes uniformly
         self.mv4 = np.zeros((4 * self.mbh, 4 * self.mbw, 2), np.int32)
         self.ref4 = np.full((4 * self.mbh, 4 * self.mbw), -1, np.int32)
+        # list-1 motion fields (B slices only)
+        self.mv4_1 = np.zeros((4 * self.mbh, 4 * self.mbw, 2), np.int32)
+        self.ref4_1 = np.full((4 * self.mbh, 4 * self.mbw), -1, np.int32)
         self.dec4 = np.zeros((4 * self.mbh, 4 * self.mbw), bool)
         self.decoded = np.zeros((self.mbh, self.mbw), bool)
         self.mbs: list[MBInfo] = []
@@ -714,18 +725,20 @@ class SliceDecoder:
         return out
 
     # ---- MVP at 4x4 granularity (spec 8.4.1.3 / 8.4.1.1) ----
-    def _nb4(self, y4, x4):
+    def _nb4(self, y4, x4, lst=0):
         if (0 <= y4 < 4 * self.mbh and 0 <= x4 < 4 * self.mbw
                 and self.dec4[y4, x4]):
-            return self.mv4[y4, x4], int(self.ref4[y4, x4]), True
+            mv = self.mv4 if lst == 0 else self.mv4_1
+            rf = self.ref4 if lst == 0 else self.ref4_1
+            return mv[y4, x4], int(rf[y4, x4]), True
         return np.zeros(2, np.int32), -1, False
 
-    def _unit_mvp(self, y4, x4, w4, part, unit, ref=0):
-        mva, ra, av_a = self._nb4(y4, x4 - 1)
-        mvb, rb, av_b = self._nb4(y4 - 1, x4)
-        mvc, rc, av_c = self._nb4(y4 - 1, x4 + w4)
+    def _unit_mvp(self, y4, x4, w4, part, unit, ref=0, lst=0):
+        mva, ra, av_a = self._nb4(y4, x4 - 1, lst)
+        mvb, rb, av_b = self._nb4(y4 - 1, x4, lst)
+        mvc, rc, av_c = self._nb4(y4 - 1, x4 + w4, lst)
         if not av_c:
-            mvc, rc, av_c = self._nb4(y4 - 1, x4 - 1)
+            mvc, rc, av_c = self._nb4(y4 - 1, x4 - 1, lst)
         if part == 1:      # D_16x8
             if unit == 0 and av_b and rb == ref:
                 return mvb.copy()
@@ -909,6 +922,191 @@ class SliceDecoder:
         self.mbs.append(MBInfo("SKIP", (int(mv[0]), int(mv[1])), qp,
                                unit_mvs=[(int(mv[0]), int(mv[1]))]))
 
+    # ------------------------------------------------------------------
+    # B slices: spatial direct per spec 8.4.1.2.2 with
+    # direct_8x8_inference, both lists' motion fields, bipred recon
+    # (twin of the encoder's bslice.scan_b_parts)
+    # ------------------------------------------------------------------
+    _COL_CORNERS = ((0, 0), (0, 3), (3, 0), (3, 3))
+
+    def _spatial_direct(self, my, mx):
+        """Spatial direct (use0, use1, mv0 [4,2], mv1 [4,2] per 8x8
+        z-order, refIdxL0, refIdxL1); the colocated field is L1[0]'s
+        own."""
+        y4, x4 = 4 * my, 4 * mx
+        col = self.refs_l1[0]
+        col_mv4, col_ref4 = col["mv4"], col["ref4"]
+        refs, mvps = [], []
+        for lst in (0, 1):
+            _, ra, _ = self._nb4(y4, x4 - 1, lst)
+            _, rb, _ = self._nb4(y4 - 1, x4, lst)
+            _, rc, av_c = self._nb4(y4 - 1, x4 + 4, lst)
+            if not av_c:
+                _, rc, _ = self._nb4(y4 - 1, x4 - 1, lst)
+            cand = [r for r in (ra, rb, rc) if r >= 0]
+            ref = min(cand) if cand else -1
+            refs.append(ref)
+            mvps.append(self._unit_mvp(y4, x4, 4, 0, 0, ref=ref, lst=lst)
+                        if ref >= 0 else np.zeros(2, np.int32))
+        mv0 = np.zeros((4, 2), np.int32)
+        mv1 = np.zeros((4, 2), np.int32)
+        if refs[0] < 0 and refs[1] < 0:
+            return True, True, mv0, mv1, 0, 0
+        use0, use1 = refs[0] >= 0, refs[1] >= 0
+        for b, (cy, cx) in enumerate(self._COL_CORNERS):
+            colr = int(col_ref4[y4 + cy, x4 + cx])
+            colm = col_mv4[y4 + cy, x4 + cx]
+            col_zero = (colr == 0 and abs(int(colm[0])) <= 1
+                        and abs(int(colm[1])) <= 1)
+            for use, ref, mvp, out in ((use0, refs[0], mvps[0], mv0),
+                                       (use1, refs[1], mvps[1], mv1)):
+                if use:
+                    out[b] = 0 if (ref == 0 and col_zero) else mvp
+        return (use0, use1, mv0, mv1, max(refs[0], 0), max(refs[1], 0))
+
+    def _commit_b(self, my, mx, use0, use1, mv0, mv1, r0=0):
+        """Write per-8x8 (mv, ref) of both lists into the neighbour
+        fields. mv0/mv1: [4,2] per 8x8 z-order; use0/use1: bool (whole
+        MB) or [4]; r0: the MB's L0 ref."""
+        y4, x4 = 4 * my, 4 * mx
+        u0 = np.broadcast_to(np.asarray(use0), (4,))
+        u1 = np.broadcast_to(np.asarray(use1), (4,))
+        r0a = np.broadcast_to(np.asarray(r0), (4,))
+        for b in range(4):
+            by, bx = y4 + 2 * (b >> 1), x4 + 2 * (b & 1)
+            self.mv4[by:by + 2, bx:bx + 2] = mv0[b] if u0[b] else 0
+            self.ref4[by:by + 2, bx:bx + 2] = int(r0a[b]) if u0[b] else -1
+            self.mv4_1[by:by + 2, bx:bx + 2] = mv1[b] if u1[b] else 0
+            self.ref4_1[by:by + 2, bx:bx + 2] = 0 if u1[b] else -1
+        self.dec4[y4:y4 + 4, x4:x4 + 4] = True
+
+    def _b_preds(self, mx, my, use0, use1, mv0, mv1, r0=0):
+        """Bipred luma [16,16] and chroma (2 x [8,8]) predictions of one
+        MB at per-8x8 (mv0, mv1) [4,2]; use0/use1/r0 per MB or per 8x8
+        ([4]). The bipred combine is the plain average (weighted bipred
+        is not decoded)."""
+        u0a = np.broadcast_to(np.asarray(use0), (4,))
+        u1a = np.broadcast_to(np.asarray(use1), (4,))
+        r0a = np.broadcast_to(np.asarray(r0), (4,))
+
+        def pred(b, mc, key, y0, x0, n):
+            p0 = p1 = None
+            if u0a[b]:
+                p0 = mc(self.refs[int(r0a[b])][key], y0, x0,
+                        int(mv0[b][0]), int(mv0[b][1]), bh=n, bw=n)
+            if u1a[b]:
+                p1 = mc(self.refs_l1[0][key], y0, x0, int(mv1[b][0]),
+                        int(mv1[b][1]), bh=n, bw=n)
+            if u0a[b] and u1a[b]:
+                return (p0 + p1 + 1) >> 1
+            return p0 if u0a[b] else p1
+
+        py = np.zeros((16, 16), np.int64)
+        pc = [np.zeros((8, 8), np.int64), np.zeros((8, 8), np.int64)]
+        for b in range(4):
+            oy, ox = (b >> 1), (b & 1)
+            py[8 * oy:8 * oy + 8, 8 * ox:8 * ox + 8] = pred(
+                b, R.np_mc_luma, "luma", 16 * my + 8 * oy,
+                16 * mx + 8 * ox, 8)
+            for ch, key in ((0, "u"), (1, "v")):
+                pc[ch][4 * oy:4 * oy + 4, 4 * ox:4 * ox + 4] = pred(
+                    b, R.np_mc_chroma, key, 8 * my + 4 * oy,
+                    8 * mx + 4 * ox, 4)
+        return py, pc
+
+    def decode_b_skip(self, mx: int, my: int, qp: int):
+        use0, use1, mv0, mv1, r0, _r1 = self._spatial_direct(my, mx)
+        self._commit_b(my, mx, use0, use1, mv0, mv1, r0=r0)
+        py, pc = self._b_preds(mx, my, use0, use1, mv0, mv1, r0=r0)
+        self.y[16 * my:16 * my + 16, 16 * mx:16 * mx + 16] = py
+        for ch, plane in ((0, self.u), (1, self.v)):
+            plane[8 * my:8 * my + 8, 8 * mx:8 * mx + 8] = pc[ch]
+        self.nnz_y[4 * my:4 * my + 4, 4 * mx:4 * mx + 4] = 0
+        self.nnz_c[:, 2 * my:2 * my + 2, 2 * mx:2 * mx + 2] = 0
+        self.decoded[my, mx] = True
+        self.mb_skip[my, mx] = True
+        m0 = (int(mv0[0, 0]), int(mv0[0, 1]))
+        self.mbs.append(MBInfo("BSKIP", m0, qp, unit_mvs=[m0]))
+
+    # B partition geometry per shape: (member blocks, oy4, ox4, h4, w4,
+    # mvp kind) (spec Table 7-14)
+    _B_UNIT_GEOM = {
+        1: [((0, 1), 0, 0, 2, 4, 1), ((2, 3), 2, 0, 2, 4, 1)],
+        2: [((0, 2), 0, 0, 4, 2, 2), ((1, 3), 0, 2, 4, 2, 2)],
+        3: [((0,), 0, 0, 2, 2, 3), ((1,), 0, 2, 2, 2, 3),
+            ((2,), 2, 0, 2, 2, 3), ((3,), 2, 2, 2, 2, 3)],
+    }
+
+    def _derive_b_parts_mvs(self, mx, my, mb_type, subs, mvds,
+                            refs_u=None):
+        """MV derivation + neighbour-field commit of a B partition MB
+        (twin of the encoder's scan_b_parts walk): spatial direct first
+        (before any commit of this MB), then all-L0-then-all-L1 unit
+        order; within a list a later unit's MVP sees this MB's earlier
+        units (spec 8.4.1.3). mvds: [2][n_units] of (x, y) or None;
+        refs_u: per-unit L0 refs. Returns (use0 [4], use1 [4], mv0 [4,2],
+        mv1 [4,2] per 8x8 z-order, r8 [4] per-8x8 L0 refs, unit_mvs)."""
+        y4, x4 = 4 * my, 4 * mx
+        du0, du1, dmv0, dmv1, dr0, _dr1 = self._spatial_direct(my, mx)
+        r8_out = np.zeros(4, np.int32)
+        if mb_type == 22:
+            geom = self._B_UNIT_GEOM[3]
+            uses = ([B_SUB_USES[int(s)][0] for s in subs],
+                    [B_SUB_USES[int(s)][1] for s in subs])
+            direct_units = {u for u, s in enumerate(subs) if s == 0}
+        else:
+            _n, u0t, u1t = B_CODE_USES[mb_type]
+            geom = self._B_UNIT_GEOM[1 if mb_type % 2 == 0 else 2]
+            uses = (list(u0t), list(u1t))
+            direct_units = set()
+        use_v = [np.zeros(4, np.int32), np.zeros(4, np.int32)]
+        mv_v = [np.zeros((4, 2), np.int32), np.zeros((4, 2), np.int32)]
+        unit_mvs = []
+        for li in (0, 1):
+            duse = (du0, du1)[li]
+            dmv = (dmv0, dmv1)[li]
+            mvf = self.mv4 if li == 0 else self.mv4_1
+            rff = self.ref4 if li == 0 else self.ref4_1
+            for u, (blocks, oy, ox, h4, w4, kind) in enumerate(geom):
+                ur = 0 if refs_u is None or li == 1 else int(refs_u[u])
+                if u in direct_units:
+                    ui = int(duse)
+                    for b in blocks:
+                        use_v[li][b] = ui
+                        if ui:
+                            mv_v[li][b] = dmv[b]
+                            if li == 0:
+                                r8_out[b] = dr0
+                        by, bx = y4 + 2 * (b >> 1), x4 + 2 * (b & 1)
+                        mvf[by:by + 2, bx:bx + 2] = dmv[b]
+                        rff[by:by + 2, bx:bx + 2] = \
+                            (dr0 if li == 0 else 0) if ui else -1
+                        self.dec4[by:by + 2, bx:bx + 2] = True
+                        if li == 0:
+                            unit_mvs.append((int(dmv[b][0]),
+                                             int(dmv[b][1])))
+                    continue
+                used = bool(uses[li][u])
+                mv = np.zeros(2, np.int32)
+                if used:
+                    mvp = self._unit_mvp(y4 + oy, x4 + ox, w4, kind, u,
+                                         ref=ur, lst=li)
+                    d = mvds[li][u]
+                    mv = np.array([mvp[0] + d[0], mvp[1] + d[1]], np.int32)
+                for b in blocks:
+                    use_v[li][b] = 1 if used else 0
+                    if used:
+                        mv_v[li][b] = mv
+                        if li == 0:
+                            r8_out[b] = ur
+                mvf[y4 + oy:y4 + oy + h4, x4 + ox:x4 + ox + w4] = mv
+                rff[y4 + oy:y4 + oy + h4, x4 + ox:x4 + ox + w4] = \
+                    ur if used else -1
+                self.dec4[y4 + oy:y4 + oy + h4, x4 + ox:x4 + ox + w4] = True
+                if li == 0:
+                    unit_mvs.append((int(mv[0]), int(mv[1])))
+        return use_v[0], use_v[1], mv_v[0], mv_v[1], r8_out, unit_mvs
+
     def decode_slice(self, br: BitReader, slice_type: int, qp: int):
         if slice_type in (2, 7):
             for my in range(self.mbh):
@@ -998,11 +1196,14 @@ def _deblock(dec: SliceDecoder, qp: int, alpha_off: int, beta_off: int,
 
 
 def decode_annexb(data: bytes) -> list[DecodedFrame]:
-    """Decode an Annex-B stream (IDR + P chain, sliding-window DPB of
-    sps.num_ref_frames references)."""
+    """Decode an Annex-B stream (IDR + P/B chain, sliding-window DPB of
+    sps.num_ref_frames references). With poc_type 0 (B streams) the
+    frames are returned in display (POC) order within each IDR period;
+    the P frames keep their decode order among themselves."""
     sps = pps = None
     frames = []
-    dpb = []   # [0] = most recent reference
+    dpb = []   # [0] = most recent reference; entries carry poc + motion
+    gop = 0
     prev_poc_lsb = prev_poc_msb = 0
     for nal_type, ref_idc, rbsp in parse_nals(data):
         if nal_type == 7:
@@ -1014,8 +1215,6 @@ def decode_annexb(data: bytes) -> list[DecodedFrame]:
             first_mb = br.read_ue()
             assert first_mb == 0, "multi-slice frames unsupported"
             slice_type = br.read_ue()
-            if slice_type in (1, 6):
-                raise NotImplementedError("B slices")
             br.read_ue()  # pps id
             frame_num = br.read(sps.log2_max_frame_num)
             if nal_type == 5:
@@ -1038,11 +1237,16 @@ def decode_annexb(data: bytes) -> list[DecodedFrame]:
                 poc = msb + lsb
                 if ref_idc != 0:
                     prev_poc_lsb, prev_poc_msb = lsb, msb
+            is_b = slice_type in (1, 6)
+            if is_b and not br.read1():   # direct_spatial_mv_pred_flag
+                raise NotImplementedError("temporal direct")
             reorder_l0 = None
             l0_override = None
-            if slice_type in (0, 5):
+            if slice_type in (0, 5) or is_b:
                 if br.read1():  # num_ref_idx_override
                     l0_override = br.read_ue() + 1
+                    if is_b and br.read_ue() != 0:
+                        raise NotImplementedError("more than one L1 ref")
                 if br.read1():  # ref_pic_list_reordering_flag_l0
                     # short-term reordering ops (spec 7.3.3.1)
                     reorder_l0 = []
@@ -1053,6 +1257,8 @@ def decode_annexb(data: bytes) -> list[DecodedFrame]:
                         assert idc in (0, 1), \
                             "long-term reordering unsupported"
                         reorder_l0.append((idc, br.read_ue()))
+                if is_b and br.read1():
+                    raise NotImplementedError("L1 reordering")
             if nal_type == 5:
                 br.read1()
                 br.read1()
@@ -1071,6 +1277,32 @@ def decode_annexb(data: bytes) -> list[DecodedFrame]:
                     beta_off = 2 * br.read_se()
             if nal_type == 5:
                 dpb = []   # IDR resets the DPB
+                gop += 1
+            if is_b:
+                if not pps.cabac:
+                    raise NotImplementedError("CAVLC B slices")
+                if pps.weighted_bipred_idc:
+                    raise NotImplementedError("weighted bipred")
+                if disable != 1 or ref_idc != 0:
+                    raise NotImplementedError("deblocked or reference B "
+                                              "slices")
+                # default B lists (spec 8.2.4.2.3): L0 past references
+                # POC-descending, L1 future ones POC-ascending
+                l0 = sorted((e for e in dpb if e["poc"] < poc),
+                            key=lambda e: -e["poc"])
+                l1 = sorted((e for e in dpb if e["poc"] > poc),
+                            key=lambda e: e["poc"])
+                assert l0 and l1, "B slice needs refs on both sides"
+                dec = SliceDecoder(sps, pps, refs=l0, refs_l1=l1)
+                # the signalled L0 size governs te(v) parsing (7.4.3)
+                dec.b_l0_active = (l0_override if l0_override is not None
+                                   else pps.num_ref_idx_l0_active)
+                assert dec.b_l0_active <= len(l0), \
+                    f"B slice signals {dec.b_l0_active} L0 refs, " \
+                    f"DPB has {len(l0)}"
+                _decode_slice_cabac_b(dec, br, qp, cabac_model)
+                _append_frame(frames, dec, sps, slice_type, poc, gop)
+                continue
             l0p = list(dpb)   # default P order: PicNum descending
             if reorder_l0:
                 # apply 8.2.4.3.1: move each addressed short-term
@@ -1098,19 +1330,31 @@ def decode_annexb(data: bytes) -> list[DecodedFrame]:
             if disable != 1:
                 dec.y, dec.u, dec.v = _deblock(dec, qp, alpha_off, beta_off,
                                                pps.chroma_qp_index_offset)
-            h, w = sps.height, sps.width
-            frames.append(DecodedFrame(
-                y=dec.y[:h, :w].astype(np.uint8),
-                u=dec.u[:h // 2, :w // 2].astype(np.uint8),
-                v=dec.v[:h // 2, :w // 2].astype(np.uint8),
-                slice_type=slice_type, mbs=dec.mbs, poc=poc))
+            _append_frame(frames, dec, sps, slice_type, poc, gop)
             if ref_idc != 0:
+                # the colocated field a later B's direct derivation reads
                 dpb.insert(0, {"luma": R.np_hpel_planes(R.np_pad(dec.y)),
                                "u": R.np_pad(dec.u),
                                "v": R.np_pad(dec.v),
-                               "frame_num": frame_num})
+                               "frame_num": frame_num, "poc": poc,
+                               "mv4": dec.mv4.copy(),
+                               "ref4": dec.ref4.copy()})
                 del dpb[max(1, sps.num_ref_frames):]
-    return frames
+    if sps is not None and sps.poc_type == 0:
+        # display (POC) order within each IDR period
+        order = sorted(range(len(frames)),
+                       key=lambda i: (frames[i][0], frames[i][1].poc))
+        return [frames[i][1] for i in order]
+    return [f for _, f in frames]
+
+
+def _append_frame(frames, dec, sps, slice_type: int, poc: int, gop: int):
+    h, w = sps.height, sps.width
+    frames.append((gop, DecodedFrame(
+        y=dec.y[:h, :w].astype(np.uint8),
+        u=dec.u[:h // 2, :w // 2].astype(np.uint8),
+        v=dec.v[:h // 2, :w // 2].astype(np.uint8),
+        slice_type=slice_type, mbs=dec.mbs, poc=poc)))
 
 
 # ---------------------------------------------------------------------------
@@ -1176,7 +1420,7 @@ def _decode_slice_cabac(dec: SliceDecoder, br, slice_type: int, qp: int,
 
 
 def _recon_chroma_from(dec, ps, my, mx, cmode, cbp_chroma, cdcs, cacs,
-                       qpc, intra):
+                       qpc, intra, preds=None):
     gx, gy = 8 * mx, 8 * my
     at, al = my > 0, mx > 0
     for ch, plane in ((0, dec.u), (1, dec.v)):
@@ -1192,7 +1436,9 @@ def _recon_chroma_from(dec, ps, my, mx, cmode, cbp_chroma, cdcs, cacs,
                     blocks[by, bx] = R.dequant4x4(
                         _dez16(cacs[ch, by, bx]), qpc, intra=intra)
         blocks[:, :, 0, 0] = dc
-        if intra:
+        if preds is not None:
+            pred = preds[ch]
+        elif intra:
             top = plane[gy - 1, gx:gx + 8] if at else np.zeros(8, np.int64)
             left = plane[gy:gy + 8, gx - 1] if al else np.zeros(8, np.int64)
             tl = plane[gy - 1, gx - 1] if (at and al) else 0
@@ -1344,3 +1590,77 @@ def _recon_p_cabac(dec, ps, my, mx, part, qp, qpc):
     dec.decoded[my, mx] = True
     kind = ("P16x16", "P16x8", "P8x16", "P8x8")[part]
     dec.mbs.append(MBInfo(kind, unit_mvs[0], qp, unit_mvs=unit_mvs))
+
+
+def _decode_slice_cabac_b(dec: SliceDecoder, br, qp: int, model: int = 0):
+    """CABAC B slice (twin of the encoder's B writer): B_Skip, direct,
+    16x16 and partition MBs; intra MBs raise NotImplementedError."""
+    from .cabac_dec import CabacSliceParser
+
+    while br.bit_position() % 8:
+        assert br.read1() == 1, "cabac_alignment_one_bit must be 1"
+    ps = CabacSliceParser(br, dec.mbw, dec.mbh, qp, False, model,
+                          num_ref=dec.b_l0_active, slice_is_b=True,
+                          trans8_mode=dec.pps.transform_8x8)
+    n = dec.mbh * dec.mbw
+    for a in range(n):
+        my, mx = a // dec.mbw, a % dec.mbw
+        if ps.skip_flag(my, mx):
+            ps.parse_b_skip_mb(my, mx)
+            dec.decode_b_skip(mx, my, ps.qp)
+        else:
+            btype = ps.mb_type_b(my, mx)
+            if btype > 22:
+                raise NotImplementedError("intra MBs in B slices")
+            _recon_b_cabac(dec, ps, my, mx, btype)
+        eos = ps.end_mb()
+        assert eos == (1 if a == n - 1 else 0), f"end_of_slice at MB {a}"
+    dec.nnz_y = ps.nnz_y
+
+
+def _recon_b_cabac(dec, ps, my, mx, code):
+    """One coded B MB: parse (16x16 codes 0-3 by `parse_b_mb`, partition
+    codes 4-22 by `parse_b_mb_parts`), derive and commit its MVs, then
+    the bipred recon with its residual."""
+    y4, x4 = 4 * my, 4 * mx
+    if code <= 3:
+        mvd0, mvd1, cbpl, cbpc, blk_lv, cdcs, cacs, r0 = \
+            ps.parse_b_mb(my, mx, code)
+        if code == 0:
+            use0, use1, mv0, mv1, r0, _r1 = dec._spatial_direct(my, mx)
+        else:
+            use0, use1 = code in (1, 3), code in (2, 3)
+            mv0 = np.zeros((4, 2), np.int32)
+            mv1 = np.zeros((4, 2), np.int32)
+            if use0:
+                mvp = dec._unit_mvp(y4, x4, 4, 0, 0, ref=r0, lst=0)
+                mv0[:] = (mvp[0] + mvd0[0], mvp[1] + mvd0[1])
+            if use1:
+                mvp = dec._unit_mvp(y4, x4, 4, 0, 0, ref=0, lst=1)
+                mv1[:] = (mvp[0] + mvd1[0], mvp[1] + mvd1[1])
+        dec._commit_b(my, mx, use0, use1, mv0, mv1, r0=r0)
+        kind = ("BDIRECT", "BL0", "BL1", "BBI")[code]
+        unit_mvs = None
+    else:
+        subs, mvds, cbpl, cbpc, blk_lv, cdcs, cacs, refs_u = \
+            ps.parse_b_mb_parts(my, mx, code)
+        use0, use1, mv0, mv1, r0, unit_mvs = dec._derive_b_parts_mvs(
+            mx, my, code, subs, mvds, refs_u)
+        kind = "B8x8" if code == 22 else \
+            ("B16x8" if code % 2 == 0 else "B8x16")
+    qp = ps.qp
+    qpc = int(CHROMA_QP[np.clip(qp + dec.pps.chroma_qp_index_offset,
+                                0, 51)])
+    py, pc = dec._b_preds(mx, my, use0, use1, mv0, mv1, r0=r0)
+    gy, gx = 16 * my, 16 * mx
+    for by in range(4):
+        for bx in range(4):
+            dec.y[gy + 4 * by:gy + 4 * by + 4,
+                  gx + 4 * bx:gx + 4 * bx + 4] = R.recon_block4x4(
+                py[4 * by:4 * by + 4, 4 * bx:4 * bx + 4],
+                R.dequant4x4(_dez16(blk_lv[by, bx]), qp))
+    _recon_chroma_from(dec, ps, my, mx, 0, cbpc, cdcs, cacs, qpc, False,
+                       preds=pc)
+    dec.decoded[my, mx] = True
+    m0 = (int(mv0[0, 0]), int(mv0[0, 1]))
+    dec.mbs.append(MBInfo(kind, m0, qp, unit_mvs=unit_mvs or [m0]))

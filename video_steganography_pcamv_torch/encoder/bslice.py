@@ -1,0 +1,585 @@
+"""B slices with partitions and spatial direct (port of the serving
+subset of encoder/bslice.py: BASELINE config 4's B frames).
+
+The analysis runs in two device stages around one host step, as in the
+reference:
+
+  stage 1  B1's all-shapes full-pel scan against a zero predictor
+           (`fullpel_parts`), once per L0 entry and once on L1; the L0
+           entries merged per MB at 16x16 with REF_COST (ties to the
+           lower index, padded entries carry a 1 << 28 penalty);
+  host     the approximate direct fields from the two 16x16 fields
+           (`approx_direct_fields`) and their per-8x8 SATD
+           (`bipred_satd8_device`);
+  stage 2  the exact full-pel BI SADs, the shape x list-combo decision,
+           per list the windows (B9, on L0 with each 8x8's entry) and
+           the subpel refine (B3', zero predictor), then the SATD-level
+           combo choice (`analyse_b_parts`).
+
+The L0 list is always a stack of entries (one at one reference): the
+reference's single-reference B functions compute what its
+multi-reference ones compute with one entry (no ref_idx bits, every MB
+on entry 0), so one path serves both. The bipred combine is the plain
+average (`weightb` is outside the slice).
+
+`scan_b_parts` is the host raster commit with the decoder's exact spatial
+direct derivation; `encode_b_frame_device` assembles the bipred
+prediction and encodes it, its 4x4 luma with the fused luma-encode kernel
+(`ops/lumap.luma_p_encode`).
+
+Every kernel wrapper runs its plain version on a CPU tensor and its
+kernel on a CUDA one. Block index convention per MB: 8x8 blocks b in
+{0: TL, 1: TR, 2: BL, 3: BR} (z-order).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..ops import const
+from ..ops import mc
+from ..ops.blocks import mb_tiles
+from ..ops.fullpel import fullpel_parts
+from ..ops.lumap import luma_p_encode
+from ..ops.probe import (_mb_blocks8, block_row8, satd_flat, sp_to_z,
+                         subpel, wht8_flat, z_to_sp)
+from .inter import _p_result, chroma_encode
+from .me import mv_bits_table
+from .partition import D_16x16, D_16x8, D_8x16, gather_windows8, te_ref_bits
+
+_I32 = torch.int32
+
+# ue(k) bit size
+_UE_BITS = np.array([2 * ((k + 1).bit_length() - 1) + 1
+                     for k in range(64)], np.int32)
+
+# mb_type ue codes of the two-partition shapes, [sel_a, sel_b] with sel in
+# {0: L0, 1: L1, 2: BI} (x264 mb_type_b_to_golomb, encoder/cavlc.c:44-49)
+B_CODE_16X8 = np.array([[4, 8, 12], [10, 6, 14], [16, 18, 20]], np.int32)
+B_CODE_8X16 = np.array([[5, 9, 13], [11, 7, 15], [17, 19, 21]], np.int32)
+# sub_mb_type ue codes: sel {0: L0, 1: L1, 2: BI, 3: direct} -> code
+_B_SUB_CODE = np.array([1, 2, 3, 0], np.int32)
+
+# the mb_type ue bits of each two-partition combo
+_UE_16X8 = _UE_BITS[B_CODE_16X8]
+_UE_8X16 = _UE_BITS[B_CODE_8X16]
+
+_MV_BITS = mv_bits_table(4 * 512)
+_BOFF = 4 * 512
+
+
+def _bi_avg(p0, p1):
+    """Bipred combine without weights (spec 8.4.2.3.1; the reference's
+    clip((p0 (64 - w1) + p1 w1 + 32) >> 6) at w1 = 32)."""
+    return (p0 + p1 + 1) >> 1
+
+
+def _mvc(mv, lam: int, scale: int = 1):
+    """lam * (bits(scale mv_x) + bits(scale mv_y)) against a zero
+    predictor, for a [..., 2] int32 tensor."""
+    bits = const(_MV_BITS, mv.device)
+    ix = torch.clamp(scale * mv[..., 0], -_BOFF, _BOFF) + _BOFF
+    iy = torch.clamp(scale * mv[..., 1], -_BOFF, _BOFF) + _BOFF
+    return (bits[ix.long()] + bits[iy.long()]) * lam
+
+
+def _block_origins(mbh: int, mbw: int, dev, step: int):
+    n8 = 4 * mbh * mbw
+    ar = torch.arange(n8, device=dev, dtype=_I32)
+    return (torch.div(ar, 2 * mbw, rounding_mode="floor") * step,
+            (ar % (2 * mbw)) * step)
+
+
+def _gather8_fp(plane, mv8sp, mbh: int, mbw: int, r8=None):
+    """Full-pel 8x8 windows at block origin + mv, [N8, 8, 8] (spatial
+    order). plane: the PAD-padded full-pel plane [Hp, Wp], or with r8
+    [N8] a stack [R, Hp, Wp] and each block's entry."""
+    ys, xs = _block_origins(mbh, mbw, plane.device, 8)
+    mvf = mv8sp.reshape(-1, 2).long()
+    ar8 = torch.arange(8, device=plane.device)
+    yy = (ys.long() + mc.PAD + mvf[:, 1])[:, None] + ar8
+    xx = (xs.long() + mc.PAD + mvf[:, 0])[:, None] + ar8
+    if r8 is None:
+        return plane[yy[:, :, None], xx[:, None, :]]
+    return plane[r8.long()[:, None, None], yy[:, :, None], xx[:, None, :]]
+
+
+def _shape_mv_fields(st):
+    """Per-shape per-8x8 (z-order) full-pel MV fields [4, mbh, mbw, 4, 2]
+    of a B1 state."""
+    mbh, mbw = st["c16"].shape
+    return torch.stack([
+        st["mv16"][:, :, None, :].expand(mbh, mbw, 4, 2),
+        st["mv16x8"][:, :, [0, 0, 1, 1], :],
+        st["mv8x16"][:, :, [0, 1, 0, 1], :],
+        st["mv8"],
+    ])
+
+
+def _unit_reduce(per_block, part_kind: int):
+    """[..., 4] per-block -> per-unit sums replicated back to blocks."""
+    if part_kind == D_16x16:
+        return per_block.sum(-1, keepdim=True, dtype=_I32) \
+            .expand(per_block.shape)
+    if part_kind == D_16x8:
+        return per_block[..., [0, 0, 2, 2]] + per_block[..., [1, 1, 3, 3]]
+    if part_kind == D_8x16:
+        return per_block[..., [0, 1, 0, 1]] + per_block[..., [2, 3, 2, 3]]
+    return per_block
+
+
+def _take(stacked, idx):
+    """stacked [K, mbh, mbw, *rest] at idx [mbh, mbw] -> [mbh, mbw,
+    *rest]."""
+    rest = stacked.shape[3:]
+    i = idx.long().reshape(1, *idx.shape, *([1] * len(rest)))
+    return torch.gather(stacked, 0,
+                        i.expand(1, *stacked.shape[1:]))[0]
+
+
+def analyse_b_parts_stage1(y, refs0_fp, n_valid: int, ref1_fp, rng: int,
+                           mbh: int, mbw: int, lam: int):
+    """Stage 1, the reference's `analyse_b_parts_stage1_mref`
+    (bslice.py:539; with one entry its `analyse_b_parts_stage1`, :523):
+    B1 per L0 entry (refs0_fp [R, Hp, Wp] uint8 full-pel planes, newest
+    first) and on L1 (ref1_fp), the per-MB L0 entry chosen at 16x16 with
+    REF_COST lam * te(ref) bits (first minimum: ties keep the lower
+    index; entries past n_valid carry a 1 << 28 penalty and still run
+    B1), every field of the L0 state taken at that entry, and its ref
+    bits added to the L0 unit costs. Returns (st0, st1, ref0 [mbh, mbw]
+    int32)."""
+    nrefs = refs0_fp.shape[0]
+    zero = torch.zeros((mbh, mbw, 2), dtype=_I32, device=y.device)
+    bits = te_ref_bits(nrefs)
+    sts = [fullpel_parts(y, refs0_fp[r], zero, rng, mbh, mbw, lam)
+           for r in range(nrefs)]
+    c16 = torch.stack([sts[r]["c16"] + lam * int(bits[r]) if r < n_valid
+                       else torch.full_like(sts[r]["c16"], 1 << 28)
+                       for r in range(nrefs)])
+    ref0 = torch.argmin(c16, dim=0).to(_I32)
+    st0 = {k: _take(torch.stack([st[k] for st in sts]), ref0)
+           for k in sts[0]}
+    rb = (lam * torch.as_tensor(bits, device=y.device)[ref0.long()]) \
+        .to(_I32)
+    st0["c16"] = st0["c16"] + rb
+    for k in ("c16x8", "c8x16", "c8"):
+        st0[k] = st0[k] + rb[..., None]
+    st1 = fullpel_parts(y, ref1_fp, zero, rng, mbh, mbw, lam)
+    return st0, st1, ref0
+
+
+def bipred_satd8_device(y, ref0_luma, ref1_luma, use0, use1, mv0_8, mv1_8,
+                        mbh: int, mbw: int):
+    """Per-8x8 SATD [mbh, mbw, 4] (z-order) of the (approximate) direct
+    prediction at per-8x8 qpel MVs, eager torch (the reference's
+    bslice.py:771)."""
+    dev = y.device
+    ys8, xs8 = _block_origins(mbh, mbw, dev, 8)
+    n8 = ys8.shape[0]
+    u0 = use0.reshape(n8)[:, None, None].to(torch.bool)
+    u1 = use1.reshape(n8)[:, None, None].to(torch.bool)
+    p0 = mc.mc_luma(ref0_luma, ys8, xs8, mv0_8.reshape(n8, 2), 8, 8)
+    p1 = mc.mc_luma(ref1_luma, ys8, xs8, mv1_8.reshape(n8, 2), 8, 8)
+    p8 = torch.where(u0 & u1, _bi_avg(p0, p1), torch.where(u0, p0, p1))
+    satd = satd_flat(wht8_flat(_mb_blocks8(y, mbh, mbw)),
+                        wht8_flat(p8))
+    return sp_to_z(satd.reshape(2 * mbh, 2 * mbw), mbh, mbw)
+
+
+def analyse_b_parts(y, refs0_luma, ref1_luma, st0, st1, c_dir8,
+                    ref0_map, mbh: int, mbw: int, lam: int):
+    """Stage 2 of the B partition analysis, the reference's
+    `analyse_b_parts` (bslice.py:580) at subpel 2.
+
+    refs0_luma: the stacked L0 list [R, 4, Hp, Wp] int32 hpel planes,
+    ref0_map [mbh, mbw] each MB's entry; ref1_luma [4, Hp, Wp]. st0/st1:
+    stage-1 states; c_dir8 [mbh, mbw, 4] the approximate direct SATDs.
+    The windows of each list come from B9 (on L0 with each 8x8's entry)
+    and the subpel refine is B3' against a zero predictor. Returns dict
+    part [mbh,mbw], sel8 [mbh,mbw,4] (0 L0 / 1 L1 / 2 BI / 3 direct-8x8),
+    mv0_8 / mv1_8 [2mbh,2mbw,2] qpel, c_cfg [mbh,mbw]."""
+    dev = y.device
+    n8 = 4 * mbh * mbw
+    cur8 = _mb_blocks8(y, mbh, mbw)
+    wcur8 = wht8_flat(cur8)
+    zero = torch.zeros((mbh, mbw, 2), dtype=_I32, device=dev)
+    r8_map = ref0_map.repeat_interleave(2, 0).repeat_interleave(2, 1) \
+        .contiguous()
+    ue = [int(b) for b in _UE_BITS]
+
+    f0 = _shape_mv_fields(st0)
+    f1 = _shape_mv_fields(st1)
+    # exact full-pel BI SAD per shape at the shape's unit MVs
+    bi_unit = []
+    for s in range(4):
+        w0 = _gather8_fp(refs0_luma[:, 0], z_to_sp(f0[s], mbh, mbw),
+                         mbh, mbw, r8=r8_map.reshape(n8))
+        w1 = _gather8_fp(ref1_luma[0], z_to_sp(f1[s], mbh, mbw), mbh, mbw)
+        sad = torch.abs(cur8 - _bi_avg(w0, w1)).sum((1, 2), dtype=_I32)
+        sadz = sp_to_z(sad.reshape(2 * mbh, 2 * mbw), mbh, mbw)
+        bi_unit.append(_unit_reduce(sadz, s) + _mvc(f0[s], lam, 4)
+                       + _mvc(f1[s], lam, 4))
+
+    # full-pel shape + combo decision (SAD level)
+    tot16 = torch.stack([st0["c16"] + lam * ue[1], st1["c16"] + lam * ue[2],
+                         bi_unit[0][..., 0] + lam * ue[3]]).min(0).values
+
+    def two_part(ca, cb, ue_tab):
+        combos = ca[:, None] + cb[None, :] \
+            + lam * const(ue_tab, dev)[:, :, None, None]
+        combos = combos.reshape(9, mbh, mbw)
+        return torch.argmin(combos, 0), combos.min(0).values
+
+    _, tot16x8 = two_part(
+        torch.stack([st0["c16x8"][..., 0], st1["c16x8"][..., 0],
+                     bi_unit[1][..., 0]]),
+        torch.stack([st0["c16x8"][..., 1], st1["c16x8"][..., 1],
+                     bi_unit[1][..., 2]]), _UE_16X8)
+    _, tot8x16 = two_part(
+        torch.stack([st0["c8x16"][..., 0], st1["c8x16"][..., 0],
+                     bi_unit[2][..., 0]]),
+        torch.stack([st0["c8x16"][..., 1], st1["c8x16"][..., 1],
+                     bi_unit[2][..., 1]]), _UE_8X16)
+    tot8 = torch.stack([st0["c8"] + lam * ue[1], st1["c8"] + lam * ue[2],
+                        bi_unit[3] + lam * ue[3]]).min(0).values \
+        .sum(-1, dtype=_I32) + lam * ue[22]
+    part = torch.argmin(torch.stack([tot16, tot16x8, tot8x16, tot8]),
+                        0).to(_I32)
+
+    # subpel refinement per list at the chosen shape
+    outs = []
+    for planes, f, ref8 in ((refs0_luma, f0, r8_map),
+                            (ref1_luma, f1, None)):
+        mvfp8 = z_to_sp(_take(f, part), mbh, mbw).contiguous()
+        win = gather_windows8(planes.to(torch.uint8), mvfp8, mbh, mbw,
+                              ref8=ref8)
+        mv8, r_idx8 = subpel(y, win, part, mvfp8, zero, lam, mbh, mbw)
+        roy = torch.div(r_idx8, 13, rounding_mode="floor") - 6
+        blk = block_row8(win, roy, r_idx8 % 13 - 6).to(_I32)
+        outs.append((mv8, blk))
+    (mv8_0, blk0), (mv8_1, blk1) = outs
+
+    def satd_z(blk):
+        s = satd_flat(wcur8, wht8_flat(blk))
+        return sp_to_z(s.reshape(2 * mbh, 2 * mbw), mbh, mbw)
+
+    s0z, s1z = satd_z(blk0), satd_z(blk1)
+    sbz = satd_z(_bi_avg(blk0, blk1))
+    mv0z = sp_to_z(mv8_0, mbh, mbw)
+    mv1z = sp_to_z(mv8_1, mbh, mbw)
+
+    def take_unit(sz):
+        return _take(torch.stack([_unit_reduce(sz, s) for s in range(4)]),
+                     part)
+
+    cu0 = take_unit(s0z) + _mvc(mv0z, lam)
+    cu1 = take_unit(s1z) + _mvc(mv1z, lam)
+    cub = take_unit(sbz) + _mvc(mv0z, lam) + _mvc(mv1z, lam)
+
+    # final combo choice at SATD level
+    c16f = torch.stack([cu0[..., 0] + lam * ue[1], cu1[..., 0] + lam * ue[2],
+                        cub[..., 0] + lam * ue[3]])
+    sel16f = torch.argmin(c16f, 0)
+    tot16f = c16f.min(0).values
+
+    def unit_costs(u):
+        return torch.stack([cu0[..., u], cu1[..., u], cub[..., u]])
+
+    sel_h, tot_h = two_part(unit_costs(0), unit_costs(2), _UE_16X8)
+    sel_v, tot_v = two_part(unit_costs(0), unit_costs(1), _UE_8X16)
+    c8f = torch.stack([cu0 + lam * ue[3], cu1 + lam * ue[3],
+                       cub + lam * ue[5], c_dir8 + lam * ue[1]])
+    sel8x8 = torch.argmin(c8f, 0)
+    tot8f = c8f.min(0).values.sum(-1, dtype=_I32) + lam * ue[22]
+    c_cfg = _take(torch.stack([tot16f, tot_h, tot_v, tot8f]), part)
+    sel8 = _take(torch.stack([
+        sel16f[..., None].expand(mbh, mbw, 4),
+        torch.stack([sel_h // 3, sel_h // 3, sel_h % 3, sel_h % 3], -1),
+        torch.stack([sel_v // 3, sel_v % 3, sel_v // 3, sel_v % 3], -1),
+        sel8x8]), part).to(_I32)
+    return dict(part=part, sel8=sel8, mv0_8=mv8_0, mv1_8=mv8_1, c_cfg=c_cfg)
+
+
+# ---------------------------------------------------------------------------
+# Host MVP grid, spatial direct derivation and raster commit (spec
+# 8.4.1.2.2 / 8.4.1.3; the reference's encoder/scan.py _Grid + unit_mvp)
+# ---------------------------------------------------------------------------
+
+class _Grid:
+    """4x4-granularity MV field + ref field + decoded mask of one list."""
+
+    def __init__(self, mbh, mbw):
+        self.h4, self.w4 = 4 * mbh, 4 * mbw
+        self.mv = np.zeros((self.h4, self.w4, 2), np.int32)
+        self.ref = np.full((self.h4, self.w4), -1, np.int32)
+        self.dec = np.zeros((self.h4, self.w4), bool)
+
+    def nb(self, y4, x4):
+        """(mv, ref, available); unavailable = outside or not yet coded."""
+        if 0 <= y4 < self.h4 and 0 <= x4 < self.w4 and self.dec[y4, x4]:
+            return self.mv[y4, x4], int(self.ref[y4, x4]), True
+        return np.zeros(2, np.int32), -1, False
+
+    def commit(self, y4, x4, h4, w4, mv, ref=0):
+        self.mv[y4:y4 + h4, x4:x4 + w4] = mv
+        self.ref[y4:y4 + h4, x4:x4 + w4] = ref
+        self.dec[y4:y4 + h4, x4:x4 + w4] = True
+
+
+def unit_mvp(g: _Grid, y4, x4, w4, part, unit, ref=0):
+    """MVP of one partition unit (spec 8.4.1.3; x264 macroblock.c:28-145)
+    with the same-reference rules."""
+    mva, ra, av_a = g.nb(y4, x4 - 1)
+    mvb, rb, av_b = g.nb(y4 - 1, x4)
+    mvc, rc, av_c = g.nb(y4 - 1, x4 + w4)
+    if not av_c:
+        mvc, rc, av_c = g.nb(y4 - 1, x4 - 1)
+    if part == D_16x8:
+        if unit == 0 and av_b and rb == ref:
+            return mvb.copy()
+        if unit == 1 and av_a and ra == ref:
+            return mva.copy()
+    elif part == D_8x16:
+        if unit == 0 and av_a and ra == ref:
+            return mva.copy()
+        if unit == 1 and av_c and rc == ref:
+            return mvc.copy()
+    match = [av_a and ra == ref, av_b and rb == ref, av_c and rc == ref]
+    if sum(match) == 1:
+        return (mva if match[0] else mvb if match[1] else mvc).copy()
+    if not av_b and not av_c and av_a:
+        return mva.copy()
+    return np.median(np.stack([mva, mvb, mvc]), axis=0).astype(np.int32)
+
+
+# per-8x8 colocated corner 4x4 (direct_8x8_inference_flag == 1)
+_COL_CORNERS = [(0, 0), (0, 3), (3, 0), (3, 3)]
+
+
+def _col_zero(col_mv4, col_ref4, y4, x4, cy, cx) -> bool:
+    """colZeroFlag: the colocated block's own reference is 0 and its MV
+    within +-1 in both components."""
+    colm = col_mv4[y4 + cy, x4 + cx]
+    return (int(col_ref4[y4 + cy, x4 + cx]) == 0 and abs(int(colm[0])) <= 1
+            and abs(int(colm[1])) <= 1)
+
+
+def spatial_direct(g0: _Grid, g1: _Grid, col_mv4, col_ref4, my: int,
+                   mx: int):
+    """Spatial direct MVs of one MB (spec 8.4.1.2.2: refIdxLX =
+    MinPositive over the A/B/C neighbours, ref-matched median MVP).
+    col_mv4/col_ref4: the L1[0] anchor's motion field. Returns (use0,
+    use1, mv0 [4,2], mv1 [4,2] per 8x8 z-order, refIdxL0, refIdxL1) with
+    the refs 0 under directZeroPrediction."""
+    y4, x4 = 4 * my, 4 * mx
+    refs, mvps = [], []
+    for g in (g0, g1):
+        _, ra, _ = g.nb(y4, x4 - 1)
+        _, rb, _ = g.nb(y4 - 1, x4)
+        _, rc, av_c = g.nb(y4 - 1, x4 + 4)
+        if not av_c:
+            _, rc, _ = g.nb(y4 - 1, x4 - 1)
+        cand = [r for r in (ra, rb, rc) if r >= 0]
+        ref = min(cand) if cand else -1
+        refs.append(ref)
+        mvps.append(unit_mvp(g, y4, x4, 4, D_16x16, 0, ref=ref)
+                    if ref >= 0 else np.zeros(2, np.int32))
+    mv0 = np.zeros((4, 2), np.int32)
+    mv1 = np.zeros((4, 2), np.int32)
+    if refs[0] < 0 and refs[1] < 0:
+        return True, True, mv0, mv1, 0, 0
+    use0, use1 = refs[0] >= 0, refs[1] >= 0
+    for b, (cy, cx) in enumerate(_COL_CORNERS):
+        cz = _col_zero(col_mv4, col_ref4, y4, x4, cy, cx)
+        for use, ref, mvp, out in ((use0, refs[0], mvps[0], mv0),
+                                   (use1, refs[1], mvps[1], mv1)):
+            if use:
+                out[b] = 0 if (ref == 0 and cz) else mvp
+    return use0, use1, mv0, mv1, max(refs[0], 0), max(refs[1], 0)
+
+
+def approx_direct_fields(mv0, mv1, col_mv4, col_ref4):
+    """Approximate direct fields for the device direct cost: every MB
+    taken as committed L0 at mv0 / L1 at mv1 (qpel [mbh, mbw, 2] numpy),
+    exact only where the neighbours keep those modes; the committed
+    direct MVs are re-derived exactly in `scan_b_parts`. Returns (use0,
+    use1, mv0_8, mv1_8) per 8x8 [2mbh, 2mbw(, 2)] int32."""
+    mbh, mbw = mv0.shape[:2]
+    outs = []
+    for mv in (mv0, mv1):
+        g = _Grid(mbh, mbw)
+        g.mv[:] = np.repeat(np.repeat(mv, 4, 0), 4, 1)
+        g.ref[:] = 0
+        g.dec[:] = True
+        dmv8 = np.zeros((2 * mbh, 2 * mbw, 2), np.int32)
+        for my in range(mbh):
+            for mx in range(mbw):
+                y4, x4 = 4 * my, 4 * mx
+                mvp = unit_mvp(g, y4, x4, 4, D_16x16, 0, ref=0)
+                for b, (cy, cx) in enumerate(_COL_CORNERS):
+                    dmv8[2 * my + (b >> 1), 2 * mx + (b & 1)] = \
+                        0 if _col_zero(col_mv4, col_ref4, y4, x4, cy, cx) \
+                        else mvp
+        outs.append(dmv8)
+    ones = np.ones((2 * mbh, 2 * mbw), np.int32)
+    return ones, ones.copy(), outs[0], outs[1]
+
+
+# unit geometry per B shape: (member blocks, oy4, ox4, h4, w4, mvp kind)
+_B_UNIT_GEOM = {
+    0: [((0, 1, 2, 3), 0, 0, 4, 4, D_16x16)],
+    1: [((0, 1), 0, 0, 2, 4, D_16x8), ((2, 3), 2, 0, 2, 4, D_16x8)],
+    2: [((0, 2), 0, 0, 4, 2, D_8x16), ((1, 3), 0, 2, 4, 2, D_8x16)],
+    3: [((0,), 0, 0, 2, 2, 3), ((1,), 0, 2, 2, 2, 3),
+        ((2,), 2, 0, 2, 2, 3), ((3,), 2, 2, 2, 2, 3)],
+}
+
+
+def scan_b_parts(part, sel8, mv0z, mv1z, c_cfg, c_dir, col_mv4, col_ref4,
+                 lam: int, ref0=None):
+    """Host raster commit of the B partition path (the reference's
+    bslice.py:975 without intra MBs and temporal direct): the exact
+    spatial direct derivation, direct-vs-config decision (direct wins at
+    c_dir + lam <= c_cfg), per-unit MVP/mvd for both lists in
+    all-L0-then-all-L1 order (a later unit's MVP sees this MB's earlier
+    units, spec 8.4.1.3).
+
+    part/sel8/c_cfg: `analyse_b_parts` outputs (numpy); mv0z/mv1z
+    [mbh,mbw,4,2] z-order qpel; c_dir [mbh,mbw] the 16x16-direct SATD;
+    ref0 [mbh,mbw] each MB's L0 entry under multi-reference (None: 0).
+    Returns (code [mbh,mbw] mb_type ue, subs [mbh,mbw,4] sub_mb_type ue
+    (code 22), use0/use1 [2mbh,2mbw], fmv0/fmv1 [2mbh,2mbw,2], mvd0/mvd1
+    [mbh,mbw,4,2] per unit in coding order, ref8_0 [2mbh,2mbw], -1 where
+    L0 is unused)."""
+    mbh, mbw = part.shape
+    g0, g1 = _Grid(mbh, mbw), _Grid(mbh, mbw)
+    code = np.zeros((mbh, mbw), np.int32)
+    subs = np.zeros((mbh, mbw, 4), np.int32)
+    use0 = np.zeros((2 * mbh, 2 * mbw), np.int32)
+    use1 = np.zeros((2 * mbh, 2 * mbw), np.int32)
+    fmv0 = np.zeros((2 * mbh, 2 * mbw, 2), np.int32)
+    fmv1 = np.zeros((2 * mbh, 2 * mbw, 2), np.int32)
+    mvd0 = np.zeros((mbh, mbw, 4, 2), np.int32)
+    mvd1 = np.zeros((mbh, mbw, 4, 2), np.int32)
+    ref8_0 = np.full((2 * mbh, 2 * mbw), -1, np.int32)
+    for my in range(mbh):
+        for mx in range(mbw):
+            y4, x4 = 4 * my, 4 * mx
+            du0, du1, dmv0, dmv1, dr0, _ = spatial_direct(
+                g0, g1, col_mv4, col_ref4, my, mx)
+            r0 = int(ref0[my, mx]) if ref0 is not None else 0
+            if du0 and c_dir[my, mx] + lam <= c_cfg[my, mx]:
+                # B_Direct_16x16 (code 0), committed per 8x8
+                for b in range(4):
+                    sy, sx = 2 * my + (b >> 1), 2 * mx + (b & 1)
+                    use0[sy, sx] = int(du0)
+                    use1[sy, sx] = int(du1)
+                    fmv0[sy, sx] = dmv0[b]
+                    ref8_0[sy, sx] = dr0
+                    if du1:
+                        fmv1[sy, sx] = dmv1[b]
+                    g0.commit(2 * sy, 2 * sx, 2, 2, dmv0[b], ref=dr0)
+                    g1.commit(2 * sy, 2 * sx, 2, 2, dmv1[b],
+                              ref=0 if du1 else -1)
+                continue
+            p = int(part[my, mx])
+            if p == 0:
+                code[my, mx] = 1 + int(sel8[my, mx, 0])
+            elif p == 1:
+                code[my, mx] = B_CODE_16X8[int(sel8[my, mx, 0]),
+                                           int(sel8[my, mx, 2])]
+            elif p == 2:
+                code[my, mx] = B_CODE_8X16[int(sel8[my, mx, 0]),
+                                           int(sel8[my, mx, 1])]
+            else:
+                code[my, mx] = 22
+                subs[my, mx] = _B_SUB_CODE[sel8[my, mx]]
+            for li, (g, mvz, duse, dmv, usearr, fmvarr, mvdarr) in \
+                    enumerate(((g0, mv0z, du0, dmv0, use0, fmv0, mvd0),
+                               (g1, mv1z, du1, dmv1, use1, fmv1, mvd1))):
+                for u, (blocks, oy, ox, h4, w4, kind) in \
+                        enumerate(_B_UNIT_GEOM[p]):
+                    s = int(sel8[my, mx, blocks[0]])
+                    if s == 3:    # direct 8x8 sub-mode (B_8x8 only)
+                        b = blocks[0]
+                        sy, sx = 2 * my + (b >> 1), 2 * mx + (b & 1)
+                        usearr[sy, sx] = int(duse)
+                        rd = dr0 if li == 0 else 0
+                        if duse:
+                            fmvarr[sy, sx] = dmv[b]
+                            if li == 0:
+                                ref8_0[sy, sx] = rd
+                        g.commit(2 * sy, 2 * sx, 2, 2, dmv[b],
+                                 ref=rd if duse else -1)
+                        continue
+                    uses = s == li or s == 2
+                    ur = r0 if li == 0 else 0
+                    mv = mvz[my, mx, blocks[0]].copy() if uses \
+                        else np.zeros(2, np.int32)
+                    if uses:
+                        mvdarr[my, mx, u] = mv - unit_mvp(
+                            g, y4 + oy, x4 + ox, w4, kind, u, ref=ur)
+                    for b in blocks:
+                        sy, sx = 2 * my + (b >> 1), 2 * mx + (b & 1)
+                        usearr[sy, sx] = int(uses)
+                        if uses:
+                            fmvarr[sy, sx] = mv
+                            if li == 0:
+                                ref8_0[sy, sx] = ur
+                    g.commit(y4 + oy, x4 + ox, h4, w4, mv,
+                             ref=ur if uses else -1)
+    return code, subs, use0, use1, fmv0, fmv1, mvd0, mvd1, ref8_0
+
+
+# ---------------------------------------------------------------------------
+# The B encode
+# ---------------------------------------------------------------------------
+
+def _assemble_pred_b(refs0, ref1, use0, use1, mv0_8, mv1_8, ref8_0,
+                     mbh: int, mbw: int):
+    """Bipred luma + chroma per 8x8 block (the reference's
+    bslice.py:257). refs0: the stacked L0 list, dict 'luma' [R,4,Hp,Wp],
+    'u', 'v' [R,Hp,Wp], and ref8_0 [2mbh,2mbw] each 8x8's entry (-1 where
+    L0 is unused); ref1: dict 'luma' [4,Hp,Wp], 'u', 'v'. Returns
+    (pred_y [n,16,16], pred_u [n,8,8], pred_v)."""
+    dev = use0.device
+    n8 = 4 * mbh * mbw
+    u0 = use0.reshape(n8)[:, None, None].to(torch.bool)
+    u1 = use1.reshape(n8)[:, None, None].to(torch.bool)
+    mv0f, mv1f = mv0_8.reshape(n8, 2), mv1_8.reshape(n8, 2)
+    r8 = torch.clamp(ref8_0.reshape(n8), min=0)
+
+    def combine(p0, p1, b):
+        p = torch.where(u0 & u1, _bi_avg(p0, p1), torch.where(u0, p0, p1))
+        return mb_tiles(p.reshape(2 * mbh, 2 * mbw, b, b).permute(0, 2, 1, 3)
+                        .reshape(2 * b * mbh, 2 * b * mbw), 2 * b)
+
+    ys8, xs8 = _block_origins(mbh, mbw, dev, 8)
+    pred_y = combine(mc.mc_luma_multi(refs0["luma"], r8, ys8, xs8, mv0f, 8, 8),
+                     mc.mc_luma(ref1["luma"], ys8, xs8, mv1f, 8, 8), 8)
+    ysc, xsc = _block_origins(mbh, mbw, dev, 4)
+    preds_c = []
+    for pl in ("u", "v"):
+        preds_c.append(combine(
+            mc.mc_chroma_multi(refs0[pl], r8, ysc, xsc, mv0f, 4, 4),
+            mc.mc_chroma(ref1[pl], ysc, xsc, mv1f, 4, 4), 4))
+    return pred_y, preds_c[0], preds_c[1]
+
+
+def encode_b_frame_device(y, u, v, refs0, ref1, use0, use1, mv0_8, mv1_8,
+                          ref8_0, qp: int, qpc: int, mbh: int,
+                          mbw: int) -> dict:
+    """The B encode at per-8x8 (use, mv) fields of both lists, the
+    reference's `encode_b_frame_device` (bslice.py:340) with decimation
+    on and trellis off: the bipred prediction (`_assemble_pred_b`), the
+    4x4 luma encode by the fused luma-encode kernel (one launch on CUDA,
+    decimation in the kernel), the chroma encode as on the P path.
+    Returns the P encode's result dict."""
+    pred_y, pred_u, pred_v = _assemble_pred_b(
+        refs0, ref1, use0, use1, mv0_8, mv1_8, ref8_0, mbh, mbw)
+    lev, rec, cbp_l = luma_p_encode(y, pred_y.contiguous(), qp)
+    fz = torch.zeros(mbh * mbw, dtype=torch.bool, device=y.device)
+    chroma = [chroma_encode(mb_tiles(plane, 8), predc, qpc, fz)
+              for plane, predc in ((u, pred_u), (v, pred_v))]
+    return _p_result(lev, rec, cbp_l, chroma, mbh, mbw)

@@ -1,5 +1,5 @@
-"""Host-side CABAC entropy coder for I and P slices (the port's copy of
-the reference's encoder/cabac.py, without its B-slice writers).
+"""Host-side CABAC entropy coder for I, P and B slices (the port's copy
+of the reference's encoder/cabac.py; B MBs without intra).
 
 After x264's encoder/cabac.c (x264_macroblock_write_cabac :781,
 binarizations + context increments) and common/cabac.c:787-927 (the
@@ -11,8 +11,12 @@ follow 9.3.3.1.
 
 Coverage: I slices (I_16x16, I_NxN with the 4x4 or 8x8 transform), P
 slices (P_SKIP, P_L0 16x16/16x8/8x16, P_8x8 with L0_8x8 subs, the 8x8
-transform, ref_idx, intra in P), 4:2:0. This is the Python twin of the
-native writer (`native.write_slice_cabac`), which the encoder calls.
+transform, ref_idx, intra in P), B slices (B_Skip, B_Direct_16x16,
+the 16x16 L0/L1/BI types, the 16x8/8x16 list combos and B_8x8 with
+direct/L0/L1/BI subs, ref_idx_l0), 4:2:0. The I/P part is the Python
+twin of the native writer (`native.write_slice_cabac`), which the
+encoder calls for I and P slices; B slices take this writer, as in the
+reference when its B MBs carry a reference index.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ import numpy as np
 from .cabac_tables import (init_states, RANGE_TAB_LPS, TRANS_IDX_MPS,
                            TRANS_IDX_LPS)
 from ..utils.bitstream import BitWriter
+from .vlc_tables import B_CODE_USES, B_SUB_USES
 from ..ops.transform import ZIGZAG_4x4
 
 # luma blkIdx -> (by, bx) and chroma blkIdx -> (by, bx) (spec 6.4.3)
@@ -160,14 +165,47 @@ class CabacEncoder:
             bw.write1(0)
 
 
+# B mb_type binarizations beyond the 16x16 subset, keyed by the spec
+# Table 7-14 ue code (reference i_mb_bits / mb_type_b_to_golomb tables,
+# encoder/cabac.c:157-181 + cavlc.c:44-49). Rows (selA*3+selB) order.
+_I_MB_BITS = (
+    ((1, 1, 0, 0, 0, 1), (1, 1, 0, 0, 1, 0)),       # L0 L0
+    ((1, 1, 0, 1, 0, 1), (1, 1, 0, 1, 1, 0)),       # L0 L1
+    ((1, 1, 1, 0, 0, 0, 0), (1, 1, 1, 0, 0, 0, 1)),  # L0 BI
+    ((1, 1, 0, 1, 1, 1), (1, 1, 1, 1, 1, 0)),       # L1 L0
+    ((1, 1, 0, 0, 1, 1), (1, 1, 0, 1, 0, 0)),       # L1 L1
+    ((1, 1, 1, 0, 0, 1, 0), (1, 1, 1, 0, 0, 1, 1)),  # L1 BI
+    ((1, 1, 1, 0, 1, 0, 0), (1, 1, 1, 0, 1, 0, 1)),  # BI L0
+    ((1, 1, 1, 0, 1, 1, 0), (1, 1, 1, 0, 1, 1, 1)),  # BI L1
+    ((1, 1, 1, 1, 0, 0, 0), (1, 1, 1, 1, 0, 0, 1)),  # BI BI
+)
+_GOLOMB_16X8 = (4, 8, 12, 10, 6, 14, 16, 18, 20)
+_GOLOMB_8X16 = (5, 9, 13, 11, 7, 15, 17, 19, 21)
+B_TYPE_BINS = {1: (1, 0, 0), 2: (1, 0, 1), 3: (1, 1, 0, 0, 0, 0),
+               22: (1, 1, 1, 1, 1, 1)}
+for _r in range(9):
+    B_TYPE_BINS[_GOLOMB_16X8[_r]] = _I_MB_BITS[_r][0]
+    B_TYPE_BINS[_GOLOMB_8X16[_r]] = _I_MB_BITS[_r][1]
+
+# unit geometry per B shape: ((oy4, ox4), h4, w4) per unit
+_B_GEOM = {
+    1: [((0, 0), 2, 4), ((2, 0), 2, 4)],
+    2: [((0, 0), 4, 2), ((0, 2), 4, 2)],
+    3: [((0, 0), 2, 2), ((0, 2), 2, 2), ((2, 0), 2, 2),
+        ((2, 2), 2, 2)],
+}
+
+
 class CabacSliceWriter:
     """Per-frame CABAC syntax writer (x264_macroblock_write_cabac)."""
 
     def __init__(self, mbw: int, mbh: int, qp: int, slice_is_i: bool,
-                 model: int = 0, trans8_mode: bool = False):
+                 model: int = 0, slice_is_b: bool = False,
+                 trans8_mode: bool = False):
         self.mbw, self.mbh = mbw, mbh
         self.cb = CabacEncoder(qp, slice_is_i, model)
         self.slice_is_i = slice_is_i
+        self.slice_is_b = slice_is_b
         self.trans8_mode = trans8_mode   # PPS transform_8x8_mode_flag
         self.trans8_map = np.zeros((mbh, mbw), np.int32)
         self.last_dqp = 0                # mb_qp_delta ctx chain state
@@ -182,7 +220,9 @@ class CabacSliceWriter:
         self.cbp = np.zeros((mbh, mbw), np.int32)           # (chroma<<4)|luma
         self.modes4 = np.full((4 * mbh, 4 * mbw), 2, np.int32)
         self.mvd4 = np.zeros((4 * mbh, 4 * mbw, 2), np.int32)
+        self.mvd4_1 = np.zeros((4 * mbh, 4 * mbw, 2), np.int32)  # B L1
         self.ref4 = np.zeros((4 * mbh, 4 * mbw), np.int32)  # L0 refs
+        self.bdirect = np.zeros((mbh, mbw), bool)   # B_Skip/B_Direct
         self.cmode_map = np.zeros((mbh, mbw), np.int32)
 
     # ------------------------------------------------------------------
@@ -298,8 +338,8 @@ class CabacSliceWriter:
 
     def skip_flag(self, my, mx, b_skip):
         """mb_skip_flag (x264_cabac_mb_skip, encoder/cabac.c:300-306):
-        ctx base 11 (P slices)."""
-        ctx = 11
+        ctx base 11 for P, 24 for B."""
+        ctx = 24 if self.slice_is_b else 11
         if mx > 0 and self.mb_kind[my, mx - 1] > 0:
             ctx += 1
         if my > 0 and self.mb_kind[my - 1, mx] > 0:
@@ -357,6 +397,76 @@ class CabacSliceWriter:
         self.cb.decision(14, 1)
         self._mb_type_intra(i4, mode16, cbpl, cbpc,
                             17, 18, 19, 19, 20, 20)
+
+    def mb_type_b(self, my, mx, btype: int):
+        """B mb_type, 16x16 subset (reference encoder/cabac.c:123-192
+        B branch, D_16x16 columns of i_mb_bits): 0 direct, 1 L0,
+        2 L1, 3 BI. bin0 ctx 27 + (neighbours coded non-direct)."""
+        cb = self.cb
+        ctx = 0
+        if mx > 0 and self.mb_kind[my, mx - 1] > 0 \
+                and not self.bdirect[my, mx - 1]:
+            ctx += 1
+        if my > 0 and self.mb_kind[my - 1, mx] > 0 \
+                and not self.bdirect[my - 1, mx]:
+            ctx += 1
+        if btype == 0:                      # B_Direct_16x16: "0"
+            cb.decision(27 + ctx, 0)
+        elif btype == 1:                    # B_L0_16x16: "100"
+            cb.decision(27 + ctx, 1)
+            cb.decision(30, 0)
+            cb.decision(32, 0)
+        elif btype == 2:                    # B_L1_16x16: "101"
+            cb.decision(27 + ctx, 1)
+            cb.decision(30, 0)
+            cb.decision(32, 1)
+        else:                               # B_Bi_16x16: "110000"
+            cb.decision(27 + ctx, 1)
+            cb.decision(30, 1)
+            cb.decision(31, 0)
+            cb.decision(32, 0)
+            cb.decision(32, 0)
+            cb.decision(32, 0)
+
+    def mb_type_b_bins(self, my, mx, bins) -> None:
+        """General B mb_type binarization (reference i_mb_bits table
+        emission, encoder/cabac.c:183-190): bin0 ctx 27+nbr, bin1 ctx
+        30, bin2 ctx 32-bin1, rest ctx 32."""
+        cb = self.cb
+        ctx = 0
+        if mx > 0 and self.mb_kind[my, mx - 1] > 0 \
+                and not self.bdirect[my, mx - 1]:
+            ctx += 1
+        if my > 0 and self.mb_kind[my - 1, mx] > 0 \
+                and not self.bdirect[my - 1, mx]:
+            ctx += 1
+        cb.decision(27 + ctx, bins[0])
+        cb.decision(30, bins[1])
+        cb.decision(32 - bins[1], bins[2])
+        for b in bins[3:]:
+            cb.decision(32, b)
+
+    def sub_mb_type_b(self, code: int) -> None:
+        """B sub_mb_type bins, 8x8 subset (reference
+        x264_cabac_mb_sub_b_partition, encoder/cabac.c:332-367).
+        code: spec ue value 0 direct / 1 L0 / 2 L1 / 3 BI."""
+        cb = self.cb
+        if code == 0:
+            cb.decision(36, 0)
+            return
+        cb.decision(36, 1)
+        if code == 1:                  # D_L0_8x8: 1,0,0
+            cb.decision(37, 0)
+            cb.decision(39, 0)
+        elif code == 2:                # D_L1_8x8: 1,0,1
+            cb.decision(37, 0)
+            cb.decision(39, 1)
+        else:                          # D_BI_8x8: 1,1,0,0,0
+            cb.decision(37, 1)
+            cb.decision(38, 0)
+            cb.decision(39, 0)
+            cb.decision(39, 0)
+
 
     def sub_mb_type_l0_8x8(self):
         """P sub_mb_type P_L0_8x8 (x264_cabac_mb_sub_p_partition,
@@ -418,11 +528,13 @@ class CabacSliceWriter:
         cb.decision(54 + ctx, 0)
         self.ref4[gy4:gy4 + h4, gx4:gx4 + w4] = ref
 
-    def mvd(self, gy4, gx4, h4, w4, mdx, mdy):
+    def mvd(self, gy4, gx4, h4, w4, mdx, mdy, lst: int = 0):
         """One partition's mvd; (gy4,gx4) top-left 4x4, fills the mvd
-        cache over the partition area (h4 x w4)."""
+        cache over the partition area (h4 x w4). lst selects the
+        per-list neighbour cache (x264 cache.mvd[i_list]); the ctx
+        block (40/47) is shared between lists."""
         cb = self.cb
-        cache = self.mvd4
+        cache = self.mvd4 if lst == 0 else self.mvd4_1
         for comp, val in ((0, mdx), (1, mdy)):
             a = (abs(int(cache[gy4, gx4 - 1, comp]))
                  if gx4 > 0 else 0)
@@ -763,6 +875,136 @@ class CabacSliceWriter:
         else:
             self.last_dqp = 0
             self.nnz_y[4 * my:4 * my + 4, 4 * mx:4 * mx + 4] = 0
+            self.nnz_c[:, 2 * my:2 * my + 2, 2 * mx:2 * mx + 2] = 0
+        self.prev_coded = 1 if cbp else 0
+
+    def write_b_skip_mb(self, my, mx):
+        self.skip_flag(my, mx, True)
+        self._clear_mb_ctx(my, mx)
+        self.last_dqp = 0
+        self.prev_coded = 0
+        self.mvd4_1[4 * my:4 * my + 4, 4 * mx:4 * mx + 4] = 0
+        self.mb_kind[my, mx] = 0
+        self.bdirect[my, mx] = True
+        self.cbp[my, mx] = 0
+        self.cmode_map[my, mx] = 0
+        self.modes4[4 * my:4 * my + 4, 4 * mx:4 * mx + 4] = 2
+
+    def write_b_mb(self, my, mx, btype, mvd0, mvd1, cbp_luma,
+                   cbp_chroma, luma_blocks, chroma_dc, chroma_ac,
+                   dqp: int = 0, ref0: int = 0, num_ref: int = 1):
+        """Coded B MB, 16x16 subset (direct/L0/L1/BI). Syntax order:
+        ref_idx_l0 (multi-ref B lists, L0/BI when num_ref > 1), then
+        all mvd_l0 then all mvd_l1 (spec 7.3.5.1). The ref ctx cache
+        stays 0 for direct/L1-only MBs (spec 9.3.3.1.1.6 condTermFlag
+        is 0 for direct/skip/not-predicted-from-L0 neighbours)."""
+        self.skip_flag(my, mx, False)
+        self.mb_type_b(my, mx, btype)
+        y4, x4 = 4 * my, 4 * mx
+        if btype in (1, 3):
+            if num_ref > 1:
+                self.ref_idx(y4, x4, 4, 4, int(ref0))
+            else:
+                self.ref4[y4:y4 + 4, x4:x4 + 4] = 0
+        else:
+            self.ref4[y4:y4 + 4, x4:x4 + 4] = 0
+        if btype in (1, 3):
+            self.mvd(y4, x4, 4, 4, int(mvd0[0]), int(mvd0[1]), lst=0)
+        else:
+            self.mvd4[y4:y4 + 4, x4:x4 + 4] = 0
+        if btype in (2, 3):
+            self.mvd(y4, x4, 4, 4, int(mvd1[0]), int(mvd1[1]), lst=1)
+        else:
+            self.mvd4_1[y4:y4 + 4, x4:x4 + 4] = 0
+        cbp = (cbp_chroma << 4) | cbp_luma
+        self.cbp_luma(my, mx, cbp_luma)
+        self.cbp_chroma(my, mx, cbp_chroma)
+        if self.trans8_mode and cbp_luma:
+            # B MBs never choose the 8x8 transform yet; the flag is
+            # still mandatory syntax under PPS transform mode
+            self.transform_size_flag(my, mx, 0)
+        self.mb_kind[my, mx] = 1
+        self.bdirect[my, mx] = btype == 0
+        self.cbp[my, mx] = cbp
+        self.cmode_map[my, mx] = 0
+        self.modes4[y4:y4 + 4, x4:x4 + 4] = 2
+        self.dc_nz_y[my, mx] = 0
+        self.dc_nz_c[:, my, mx] = 0
+        if cbp:
+            self.qp_delta(dqp, True)
+            self._luma_residual_4x4(my, mx, luma_blocks, cbp_luma,
+                                    False)
+            self._chroma_residual(my, mx, cbp_chroma, chroma_dc,
+                                  chroma_ac, False)
+        else:
+            self.last_dqp = 0
+            self.nnz_y[y4:y4 + 4, x4:x4 + 4] = 0
+            self.nnz_c[:, 2 * my:2 * my + 2, 2 * mx:2 * mx + 2] = 0
+        self.prev_coded = 1 if cbp else 0
+
+    def write_b_mb_ext(self, my, mx, code: int, subs, mvd0, mvd1,
+                       cbp_luma, cbp_chroma, luma_blocks, chroma_dc,
+                       chroma_ac, dqp: int = 0, ref0: int = 0,
+                       num_ref: int = 1):
+        """B partition MB (codes 4-22): mb_type bins, B_8x8 sub types,
+        ref_idx_l0 per L0-using non-direct unit (multi-ref B lists,
+        num_ref > 1 — refs before mvds per spec 7.3.5.1/7.3.5.2),
+        per-unit mvds all-L0-then-all-L1 (reference encoder/cabac.c
+        B_8x8 / 'All B mode' branches :894-975). mvd0/mvd1: [4,2]
+        per-unit in coding order."""
+        self.skip_flag(my, mx, False)
+        self.mb_type_b_bins(my, mx, B_TYPE_BINS[code])
+        y4, x4 = 4 * my, 4 * mx
+        if code == 22:
+            for b in range(4):
+                self.sub_mb_type_b(int(subs[b]))
+            geom = _B_GEOM[3]
+            uses = ([B_SUB_USES[int(subs[b])][0] for b in range(4)],
+                    [B_SUB_USES[int(subs[b])][1] for b in range(4)])
+            dirs = [b for b in range(4) if int(subs[b]) == 0]
+        else:
+            _, u0, u1 = B_CODE_USES[code]
+            geom = _B_GEOM[1 if code % 2 == 0 else 2]
+            uses = (list(u0), list(u1))
+            dirs = []
+        for u, ((oy, ox), h4, w4) in enumerate(geom):
+            if uses[0][u] and u not in dirs and num_ref > 1:
+                self.ref_idx(y4 + oy, x4 + ox, h4, w4, int(ref0))
+            else:
+                # spec 9.3.3.1.1.6: direct/L1-only neighbours
+                # contribute 0 to the ref ctx
+                self.ref4[y4 + oy:y4 + oy + h4,
+                          x4 + ox:x4 + ox + w4] = 0
+        for li, mvd in ((0, mvd0), (1, mvd1)):
+            cache = self.mvd4 if li == 0 else self.mvd4_1
+            for u, ((oy, ox), h4, w4) in enumerate(geom):
+                if uses[li][u] and u not in dirs:
+                    self.mvd(y4 + oy, x4 + ox, h4, w4,
+                             int(mvd[u][0]), int(mvd[u][1]), lst=li)
+                else:
+                    cache[y4 + oy:y4 + oy + h4,
+                          x4 + ox:x4 + ox + w4] = 0
+        cbp = (cbp_chroma << 4) | cbp_luma
+        self.cbp_luma(my, mx, cbp_luma)
+        self.cbp_chroma(my, mx, cbp_chroma)
+        if self.trans8_mode and cbp_luma:
+            self.transform_size_flag(my, mx, 0)
+        self.mb_kind[my, mx] = 1
+        self.bdirect[my, mx] = False
+        self.cbp[my, mx] = cbp
+        self.cmode_map[my, mx] = 0
+        self.modes4[y4:y4 + 4, x4:x4 + 4] = 2
+        self.dc_nz_y[my, mx] = 0
+        self.dc_nz_c[:, my, mx] = 0
+        if cbp:
+            self.qp_delta(dqp, True)
+            self._luma_residual_4x4(my, mx, luma_blocks, cbp_luma,
+                                    False)
+            self._chroma_residual(my, mx, cbp_chroma, chroma_dc,
+                                  chroma_ac, False)
+        else:
+            self.last_dqp = 0
+            self.nnz_y[y4:y4 + 4, x4:x4 + 4] = 0
             self.nnz_c[:, 2 * my:2 * my + 2, 2 * mx:2 * mx + 2] = 0
         self.prev_coded = 1 if cbp else 0
 

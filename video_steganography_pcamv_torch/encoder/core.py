@@ -55,6 +55,19 @@ re-encode (flips change MVs, never references), B5 with the per-4x4
 reference map and the native writer with ref_idx_l0. The slice header
 overrides num_ref_idx_l0_active while fewer than `ref_frames` entries
 are valid (after an IDR).
+
+With `bframes` > 0 (BASELINE config 4 whole: `b_adapt` 0, spatial
+direct, no pyramid, no `weightb`, CABAC, partitions) frames are buffered
+in display order and coded in decode order, as the reference's B pipe
+does: each GOP's last frame is a P anchor (the unpipelined P paths
+above), the frames before it non-reference B slices against the
+previous anchor (L0; under multi-reference the P list as it stood
+before the anchor) and the new one (L1). A B frame runs the two-stage
+partition analysis of `bslice.py` (B1 per list and L0 entry, B9, B3'),
+the host commit with the exact spatial direct derivation, the B encode
+(the fused luma-encode kernel) and the Python CABAC B writer; its slice
+is not deblocked and never enters the DPB. `flush()` ends a short GOP
+with the last buffered frame as its anchor.
 """
 
 from __future__ import annotations
@@ -67,23 +80,26 @@ import torch
 
 from .. import native
 from ..ops import mc
+from ..ops import probe as PR
 from ..ops.deblock import deblock_frame
 from ..ops.pixel import psnr_from_ssd, ssim_wxh
 from ..ops.transform import chroma_qp
-from ..params import Params, SLICE_I, SLICE_P, param2string
+from ..params import Params, SLICE_I, SLICE_P, SLICE_B, param2string
 from ..stego.cost import cost_mv_table
 from ..state import load_state
 from ..stego.embed import StegoEngine
 from ..utils.bitstream import (BitWriter, nal_unit, NAL_SLICE, NAL_SLICE_IDR,
                                NAL_SPS, NAL_PPS, NAL_PRIORITY_HIGHEST,
-                               NAL_PRIORITY_HIGH)
+                               NAL_PRIORITY_HIGH, NAL_PRIORITY_DISPOSABLE)
 from ..utils.log import log, LOG_WARNING
 from ..utils.yuv import Frame
 from . import headers as H
 from . import inter as P
 from . import me as ME
+from . import bslice as BS
 from . import qpel_table as QT
 from .analyse2 import analyse_p_frame
+from .cabac import CabacSliceWriter
 from .inter_incr import changed_mbs, pad_subset, reencode_p_incremental
 from .intra import encode_i_frame
 from . import partition as PT
@@ -105,16 +121,30 @@ def check_slice(p: Params) -> None:
     pipelined or not, PSNR/SSIM on or off, either deblocker) or
     partitions off with the host deblock (the 16x16-only path), at one
     reference; or `ref_frames` > 1 (up to 8) with or without partitions,
-    either deblocker, without the 8x8 transform or rd."""
+    either deblocker, without the 8x8 transform or rd; and `bframes` 1-16
+    with `b_adapt` 0, spatial direct, no pyramid, no `weightb`, CABAC and
+    partitions, at any of those `ref_frames`, without the 8x8 transform
+    or rd."""
     if not p.partitions and p.deblock_device and p.ref_frames == 1:
         raise NotImplementedError(
             "partitions off with deblock_device on: the reference drops "
             "the recon planes (need_recon is False, core.py:3475-3478) and "
             "its host deblock then raises KeyError 'recon_y' (core.py:3480)"
             "; use deblock_device=False")
+    b = p.bframes > 0
     bad = []
     for name, ok in (
-            ("bframes (ROADMAP A14)", p.bframes == 0),
+            ("bframes with partitions off (ROADMAP A14a)",
+             not b or p.partitions),
+            ("bframes with CAVLC (ROADMAP A14b)", not b or p.cabac),
+            ("b_adapt 1/2 (ROADMAP A14c)", not b or p.b_adapt == 0),
+            ("b_pyramid (ROADMAP A14d)", not b or not p.b_pyramid),
+            ("weightb (ROADMAP A14e)", not b or not p.weightb),
+            ("direct other than spatial (ROADMAP A14f)",
+             not b or p.direct == 1),
+            ("bframes with transform_8x8 (ROADMAP A15)",
+             not b or not p.transform_8x8),
+            ("bframes with rd (ROADMAP A15)", not b or not p.rd),
             ("p4x4 (ROADMAP A16)", not p.p4x4),
             ("ref_frames>1 with transform_8x8 (ROADMAP A15)",
              p.ref_frames == 1 or not p.transform_8x8),
@@ -162,6 +192,7 @@ class EncodeStats:
     ssim_sum: float = 0.0   # window SSIMs summed (Params.ssim)
     i_frames: int = 0
     p_frames: int = 0
+    b_frames: int = 0
     mv_covers: int = 0
     message_bits: int = 0
     mv_flips: int = 0
@@ -288,6 +319,15 @@ class Encoder:
                          chroma_qp_index_offset=params.chroma_qp_offset,
                          num_ref_idx_l0_active=params.ref_frames,
                          cabac=params.cabac, weighted_bipred_idc=0)
+        if params.bframes > 0:
+            # B streams: real POCs, main profile, and a DPB that holds
+            # both anchors (plus the ref_frames-deep past list under
+            # multi-reference: the future anchor takes a slot of its own)
+            self.sps.poc_type = 0
+            self.sps.profile = H.PROFILE_MAIN
+            self.sps.num_ref_frames = max(2, params.ref_frames)
+            if params.ref_frames > 1:
+                self.sps.num_ref_frames = params.ref_frames + 1
         if params.transform_8x8:
             self.sps.profile = H.PROFILE_HIGH
             self.pps.transform_8x8 = True
@@ -299,7 +339,8 @@ class Encoder:
             fullrange=params.fullrange, colorprim=params.colorprim,
             transfer=params.transfer, colmatrix=params.colmatrix,
             chromaloc=params.chromaloc, fps_num=params.fps_num,
-            fps_den=params.fps_den, num_reorder_frames=0,
+            fps_den=params.fps_den,
+            num_reorder_frames=1 if params.bframes else 0,
             max_dec_frame_buffering=self.sps.num_ref_frames,
             mv_range=params.me_range)
         if params.level_idc:
@@ -317,8 +358,13 @@ class Encoder:
         native.load()
         self._dpb_store = []   # reference dicts, newest first
         self.ref = None        # the newest reference
-        self._poc_lsb = 0      # IPP only: every slice carries POC LSB 0
+        self._poc_lsb = 0      # POC LSB of the P slice being coded
         self._pending_p = None
+        self._bbuf = []        # buffered display-order frames (B pipe)
+        self._disp_idx = 0     # display index of the next input frame
+        self._last_idr_disp = 0
+        self._col = None       # (mv4, ref4) of the newest anchor
+        self._anchor_motion = None  # (final8, ref8) of the last P anchor
         self.frame_num = 0
         self.idr_pic_id = 0
         self.stats = EncodeStats()
@@ -359,6 +405,8 @@ class Encoder:
     def encode_frame(self, frame: Frame) -> bytes:
         """Encode one input frame; returns the NALs ready so far (the
         pipelined loop emits frame N's slice during frame N+1's call)."""
+        if self.p.bframes > 0:
+            return self._encode_frame_bpipe(frame)
         t0 = time.time()
         y, u, v = self._pad(frame)
         if (self.p.partitions and self.p.ref_frames == 1
@@ -441,8 +489,12 @@ class Encoder:
     def flush(self) -> bytes:
         """Drain the deferred entropy of the last P frame (b"" when
         every call returned its own access unit: unpipelined or the
-        16x16-only path)."""
-        return self._drain_pending()
+        16x16-only path); with B frames, code the buffered frames as a
+        last, short GOP."""
+        out = self._drain_pending()
+        if self._bbuf:
+            out += self._flush_gop()
+        return out
 
     def close(self) -> dict:
         """Final summary (x264_encoder_close, encoder.c:2795-2884), the
@@ -467,17 +519,18 @@ class Encoder:
             "mv_flips": st.mv_flips,
         }
 
-    def _accumulate_psnr(self, frame: Frame, y, u, v):
+    def _accumulate_psnr(self, frame: Frame, y, u, v, recon=None):
         """Add the frame's SSDs (Params.psnr) and SSIM sum (Params.ssim)
-        of the deblocked recon against the source: int64 sums and the
-        SSIM on the device, one pull of the four scalars. y/u/v are the
-        padded source planes on the device (their top-left crop is the
-        frame)."""
+        of the deblocked recon (or `recon`, a B frame's planes) against
+        the source: int64 sums and the SSIM on the device, one pull of
+        the four scalars. y/u/v are the padded source planes on the
+        device (their top-left crop is the frame)."""
         p = self.p
-        if self.recon_prev is None or not (p.psnr or p.ssim):
+        recon = recon or self.recon_prev
+        if recon is None or not (p.psnr or p.ssim):
             return
         h, w = frame.y.shape
-        ry, ru, rv = self.recon_prev
+        ry, ru, rv = recon
         vals = []
         if p.psnr:
             for r, s, hh, ww in ((ry, y, h, w), (ru, u, h // 2, w // 2),
@@ -526,6 +579,213 @@ class Encoder:
         return nal_unit(NAL_SLICE, NAL_PRIORITY_HIGH, nal)
 
     # ------------------------------------------------------------------
+    # The B pipe (x264 frame reordering, encoder.c:2179-2228: display
+    # order in, decode order out; each anchor, then its B frames)
+    # ------------------------------------------------------------------
+    def _encode_frame_bpipe(self, frame: Frame) -> bytes:
+        y, u, v = self._pad(frame)
+        is_idr, satd = self.lookahead.decide(y)
+        if self.ref is None:
+            is_idr = True
+        disp = self._disp_idx
+        self._disp_idx += 1
+        if is_idr:
+            # frames before an IDR cannot be B frames against it: they
+            # are coded as a chain of P anchors first
+            out = self._flush_pending_as_p()
+            self._last_idr_disp = disp
+            return out + self._encode_anchor(frame, y, u, v, True, satd,
+                                             disp)
+        self._bbuf.append((frame, y, u, v, satd, disp))
+        if len(self._bbuf) <= self.p.bframes:
+            return b""
+        return self._flush_gop()
+
+    def _flush_pending_as_p(self) -> bytes:
+        out = b"".join(self._encode_anchor(f, y, u, v, False, satd, disp)
+                       for (f, y, u, v, satd, disp) in self._bbuf)
+        self._bbuf = []
+        return out
+
+    def _flush_gop(self) -> bytes:
+        """Code the newest buffered frame as the P anchor, then the
+        others as its B frames (decode order). The B frames' L0 list is
+        the P list as it stood before the anchor entered the DPB."""
+        items, self._bbuf = self._bbuf, []
+        f, y, u, v, satd, disp = items[-1]
+        l0_stack = self._dpb_stacked()
+        out = self._encode_anchor(f, y, u, v, False, satd, disp)
+        for (bf, by, bu, bv, bsatd, bdisp) in items[:-1]:
+            out += self._encode_b_frame(bf, by, bu, bv, l0_stack, self.ref,
+                                        bsatd, bdisp)
+        return out
+
+    def _encode_anchor(self, frame, y, u, v, is_idr: bool, satd,
+                       disp: int) -> bytes:
+        """An I or P anchor of the B pipe: the IPP encodes unpipelined
+        (the fused step at one reference, `_encode_p_mref` at more),
+        then the colocated field the B frames read."""
+        t0 = time.time()
+        qp = self.rc.start(SLICE_I if is_idr else SLICE_P, satd)
+        self._poc_lsb = 2 * (disp - self._last_idr_disp)
+        out = self._aud(SLICE_I if is_idr else SLICE_P)
+        if is_idr:
+            self.lookahead.last_keyframe = disp
+            out += self._encode_idr(y, u, v, qp)
+        elif self.p.ref_frames > 1:
+            out += nal_unit(NAL_SLICE, NAL_PRIORITY_HIGH,
+                            self._encode_p_mref(y, u, v, qp))
+            self.stats.p_frames += 1
+        else:
+            d = self._fused_dispatch(y, u, v, qp,
+                                     chroma_qp(qp, self.p.chroma_qp_offset))
+            d["packed"] = d["packed"].cpu().numpy()
+            pend = self._fused_complete(d)
+            pend.update(frame_num=self.frame_num, poc_lsb=self._poc_lsb)
+            self._anchor_motion = (pend["final8"], None)
+            out += self._p_nal(pend)
+            self.stats.p_frames += 1
+        self._save_col(is_idr)
+        self._accumulate_psnr(frame, y, u, v)
+        self.frame_num += 1
+        self.stats.frames += 1
+        self.stats.bits += 8 * len(out)
+        self.rc.end(8 * len(out))
+        self.stats.elapsed += time.time() - t0
+        return out
+
+    def _save_col(self, is_idr: bool):
+        """The anchor's per-4x4 motion field for spatial direct's
+        colZeroFlag (the decoder stores the same field at DPB insert):
+        an I anchor is all intra (ref -1); a P anchor has no intra MB
+        (stego is on) and carries its true per-8x8 references."""
+        p = self.p
+        h4, w4 = 4 * p.mb_height, 4 * p.mb_width
+        if is_idr:
+            self._col = (np.zeros((h4, w4, 2), np.int32),
+                         np.full((h4, w4), -1, np.int32))
+            return
+        final8, ref8 = self._anchor_motion
+        mv4 = np.repeat(np.repeat(final8, 2, 0), 2, 1)
+        ref4 = (np.zeros((h4, w4), np.int32) if ref8 is None
+                else np.repeat(np.repeat(ref8, 2, 0), 2, 1))
+        self._col = (np.ascontiguousarray(mv4, np.int32),
+                     np.ascontiguousarray(ref4, np.int32))
+
+    def _encode_b_frame(self, frame, y, u, v, l0_stack, ref_l1, satd,
+                        disp: int) -> bytes:
+        """A non-reference B frame between two anchors, the reference's
+        `_encode_b_frame` (core.py:2853) on its partition path with
+        spatial direct: stage 1 (B1 per L0 entry and on L1), the
+        approximate direct SATDs, stage 2 (B9, B3'), the host commit, the
+        B encode (the fused luma-encode kernel) and the CABAC B slice.
+        l0_stack: the stacked L0 list (luma, u, v, n_valid), entry 0 the
+        newest past anchor; ref_l1 the new anchor."""
+        t0 = time.time()
+        p = self.p
+        mbh, mbw = p.mb_height, p.mb_width
+        n = mbh * mbw
+        dev = self.device
+        qp = self.rc.start(SLICE_B, satd)
+        qpc = chroma_qp(qp, p.chroma_qp_offset)
+        lam = ME.lambda_tab(qp)
+        col_mv4, col_ref4 = self._col
+        refs_l, refs_u, refs_v, n_valid = l0_stack
+        refs0 = dict(luma=refs_l, u=refs_u, v=refs_v)
+        num_ref = n_valid   # the active L0 count the slice signals
+        st0, st1, ref0_d = BS.analyse_b_parts_stage1(
+            y, refs_l[:, 0].to(torch.uint8), n_valid,
+            ref_l1["luma"][0].to(torch.uint8), p.me_range, mbh, mbw, lam)
+        mv16 = torch.cat([st0["mv16"].reshape(-1), st1["mv16"].reshape(-1)]
+                         ).cpu().numpy().reshape(2, mbh, mbw, 2)
+        au0, au1, adv0, adv1 = BS.approx_direct_fields(
+            4 * mv16[0], 4 * mv16[1], col_mv4, col_ref4)
+
+        def t(a):
+            return torch.as_tensor(np.ascontiguousarray(a)).to(dev)
+
+        c_dir8 = BS.bipred_satd8_device(
+            y, refs_l[0], ref_l1["luma"], t(au0), t(au1), t(adv0), t(adv1),
+            mbh, mbw)
+        stres = BS.analyse_b_parts(y, refs_l, ref_l1["luma"], st0, st1,
+                                   c_dir8, ref0_d, mbh, mbw, lam)
+        # one pull of everything the host commit reads
+        pieces = [stres["part"], stres["sel8"], PR.sp_to_z(
+            stres["mv0_8"], mbh, mbw), PR.sp_to_z(stres["mv1_8"], mbh, mbw),
+            stres["c_cfg"], c_dir8.sum(-1), ref0_d]
+        meta = torch.cat([x.reshape(-1).to(torch.int32) for x in pieces]
+                         ).cpu().numpy()
+        part = meta[:n].reshape(mbh, mbw)
+        sel8 = meta[n:5 * n].reshape(mbh, mbw, 4)
+        mv0z = meta[5 * n:13 * n].reshape(mbh, mbw, 4, 2)
+        mv1z = meta[13 * n:21 * n].reshape(mbh, mbw, 4, 2)
+        c_cfg = meta[21 * n:22 * n].reshape(mbh, mbw)
+        c_dir = meta[22 * n:23 * n].reshape(mbh, mbw)
+        ref0_16 = meta[23 * n:].reshape(mbh, mbw)
+        (code, subs, use0, use1, fmv0, fmv1, mvd0, mvd1,
+         ref8_0) = BS.scan_b_parts(part, sel8, mv0z, mv1z, c_cfg, c_dir,
+                                   col_mv4, col_ref4, lam, ref0=ref0_16)
+        res = BS.encode_b_frame_device(
+            y, u, v, refs0, ref_l1, t(use0), t(use1), t(fmv0), t(fmv1),
+            t(ref8_0), qp, qpc, mbh, mbw)
+        res_np = _levels_exact(res, mbh, mbw)
+        # a B frame never enters the DPB: its metrics read its own recon
+        self._accumulate_psnr(frame, y, u, v, recon=(
+            res["recon_y"], res["recon_u"], res["recon_v"]))
+        bw = BitWriter()
+        H.write_slice_header(bw, self.sps, self.pps, H.SLICE_TYPE_B,
+                             self.frame_num, qp, idr=False,
+                             disable_deblock=1,
+                             poc_lsb=2 * (disp - self._last_idr_disp),
+                             is_ref=False, direct_spatial=True,
+                             b_l0_active=num_ref)
+        nal = self._write_b_slice_cabac(bw, res_np, qp, code, subs, mvd0,
+                                        mvd1, ref0_16, num_ref)
+        out = self._aud(SLICE_B) + nal_unit(NAL_SLICE,
+                                            NAL_PRIORITY_DISPOSABLE, nal)
+        self.stats.b_frames += 1
+        self.stats.frames += 1
+        self.stats.bits += 8 * len(out)
+        self.rc.end(8 * len(out))
+        self.stats.elapsed += time.time() - t0
+        return out
+
+    def _write_b_slice_cabac(self, bw, res, qp: int, code, subs, mvd0,
+                             mvd1, ref0, num_ref: int) -> bytes:
+        """CABAC B slice data (the reference's `_write_b_slice_cabac`,
+        core.py:3349, Python branch): B_Skip where a direct MB has no
+        residual, `write_b_mb` for codes 0-3, `write_b_mb_ext` for the
+        partition codes; ref0 [mbh, mbw] each MB's L0 entry, coded as
+        ref_idx_l0 when num_ref > 1."""
+        p = self.p
+        mbh, mbw = p.mb_height, p.mb_width
+        n = mbh * mbw
+        while not bw.byte_aligned():
+            bw.write1(1)
+        w = CabacSliceWriter(mbw, mbh, qp, slice_is_i=False,
+                             slice_is_b=True)
+        for a in range(n):
+            my, mx = a // mbw, a % mbw
+            m = int(code[my, mx])
+            cl = int(res["cbp_luma"][my, mx])
+            cc = int(res["cbp_chroma"][my, mx])
+            r0 = int(ref0[my, mx])
+            lev = (res["luma_lev"][my, mx], res["chroma_dc"][my, mx],
+                   res["chroma_ac"][my, mx])
+            if m == 0 and cl == 0 and cc == 0:
+                w.write_b_skip_mb(my, mx)
+            elif m <= 3:
+                w.write_b_mb(my, mx, m, mvd0[my, mx, 0], mvd1[my, mx, 0],
+                             cl, cc, *lev, ref0=r0, num_ref=num_ref)
+            else:
+                w.write_b_mb_ext(my, mx, m, subs[my, mx], mvd0[my, mx],
+                                 mvd1[my, mx], cl, cc, *lev, ref0=r0,
+                                 num_ref=num_ref)
+            w.end_mb(a == n - 1)
+        w.end_slice(bw)
+        return bw.get_bytes()
+
+    # ------------------------------------------------------------------
     def _encode_p16(self, y, u, v, qp: int) -> bytes:
         """The unpartitioned P frame (the reference's `_encode_p`
         16x16 branch with `analyse_p`): the 16x16 analysis (B6 -> B7 ->
@@ -569,8 +829,10 @@ class Encoder:
         """The P list as stacked tensors ([R, 4, Hp, Wp] luma, [R, Hp,
         Wp] chroma) padded to R = ref_frames entries by repeating the
         newest (the merge masks the padding out), and the count of valid
-        entries. With P frames only the P list is the store in decode
-        order, newest first."""
+        entries. The DPB holds anchors only (B frames never enter it), so
+        the P list is the store in decode order, newest first; before an
+        anchor enters it is also its B frames' L0 list (POC-descending
+        past references)."""
         R = self.p.ref_frames
         dpb = self._dpb_store[:R]
         n_valid = len(dpb)
@@ -627,6 +889,7 @@ class Encoder:
             _nnz4(res["luma_lev"], mbh, mbw), ref4=ref4)
         # stego on: no intra MBs in P, the predictor is the final field
         self.prev_mv = np.ascontiguousarray(final8[::2, ::2], np.int32)
+        self._anchor_motion = (final8, ref8_np)
         return self._finish_p_slice(_levels_exact(res, mbh, mbw), qp,
                                     part_np, mvd, skip, self.frame_num,
                                     self._poc_lsb, ref8=ref8_np,
