@@ -28,13 +28,13 @@ Phases (any failure raises and the script exits non-zero):
      settings: byte-equal streams that the port's decoder decodes and
      the port's extractor reads;
   6. the main path at 1920x1088, bench.py's Params (tail_kernel=True, the
-     reference's accelerator branch), ten frames plus flush: payload
+     reference's accelerator branch), five frames plus flush: payload
      recovered, B1, B9, B3 and B4 launched once per P frame, B5 once
      per frame, the fused luma encode once or twice per P frame (pass 1,
      and pass 2 unless no MB changed), B2's entry and B8a/B8b never,
      fps printed;
   7. the tail_kernel=False path (B1 against the predictor prev_mv >> 2)
-     at 1920x1088, IDR + 3 P frames plus flush: payload recovered, the
+     at 1920x1088, IDR + 2 P frames plus flush: payload recovered, the
      same launch counts;
   8. per-stage times of a 1080p P frame on the tail_kernel=True path,
      the pass-1 encode and a full pass 2 in rows of their own;
@@ -50,7 +50,7 @@ Phases (any failure raises and the script exits non-zero):
  10. the 16x16-only path (partitions=False, deblock_device=False) at
      112x80, six frames on cuda and on cpu: byte-equal streams that the
      port's decoder decodes and the port's extractor reads;
- 11. the 16x16-only path at 1920x1088, IDR + 3 P frames: payload
+ 11. the 16x16-only path at 1920x1088, IDR + 2 P frames: payload
      recovered by the extractor, B6, B7 and B5 launched, the fused luma
      encode three times per P frame (pass 1, the 13-version probe, pass
      2), B8a/B8b never, fps printed;
@@ -84,7 +84,7 @@ Phases (any failure raises and the script exits non-zero):
      timed), the same launch counts, the host CABAC write per P slice
      beside CAVLC's on the same syntax, fps printed;
  20. BASELINE config 4's P half (tools/bench_c4.py's Params with bframes
-     0: ref_frames 2, CABAC) at 1920x1088, IDR + 3 P: payload recovered
+     0: ref_frames 2, CABAC) at 1920x1088, IDR + 2 P: payload recovered
      by the port's CABAC decoder and extractor, B1 launched twice per P
      frame (once per reference), B9, B3 and B4 once, the fused luma
      encode twice (pass 1 and the full pass 2), B5 once per frame; P
@@ -104,14 +104,37 @@ Phases (any failure raises and the script exits non-zero):
      the payload recovered through the port's CABAC decoder, whose B
      frames equal the encoder's recon; P and B fps, the IDR's seconds
      and bytes per frame with its slice type printed;
- 23. (only with --stagesB) per-stage times of phase 22's B frames.
+ 23. (only with --stagesB) per-stage times of phase 22's B frames;
+ 24. the reference's default Params with bframes 2 (CAVLC, b_adapt 1,
+     partitions, one reference, the host deblock's twin B5, PSNR on,
+     me_range 16) at 1920x1088 on phase 22's clip, IDR + 6 frames +
+     flush, stego em_rate 64 key 5: every kernel call of the B frames
+     (B1 twice, B9 twice, B3' twice, the fused luma encode once)
+     array-equal to its plain version on the card, no other kernel
+     launched by a B frame; the payload recovered through the port's
+     CAVLC B decoder, whose B frames equal the encoder's recon; launches
+     per B frame, P and B fps, bytes by slice type, and the CAVLC B write
+     per B frame beside phase 22's CABAC one printed;
+ 25. the 16x16-only path with B frames (partitions=False,
+     deblock_device=False, bframes 2, b_adapt 2, rc_lookahead 4, CAVLC,
+     one reference; the B slices through the native write_slice_b) on
+     the same clip: every B6 and B7 call of the B frames (twice a B
+     frame) and the fused luma encode array-equal to its plain version,
+     no other kernel launched by a B frame, the payload recovered; the
+     frames the placement DP coded as B printed, and the pixels where
+     the decoded B frames differ from the encoder's recon (the
+     reference's stale colocated field on this path, ROADMAP F2).
 Phase 3 also holds B5 with a fuzzed per-4x4 reference map (ref4), phase
 13 B9 on a stack of two references with a per-8x8 reference (ref8), and
 phase 17 the multi-reference streams at 112x80 (ref_frames 2 under
 CAVLC and CABAC, 3 with keyint_max 3 on the CPU branch, partitions
-off) and the B streams (config 4, and bframes 1 at one reference).
+off) and the B streams (config 4, bframes 1 at one reference, CAVLC B
+at one reference (the default Params with bframes 2, b_adapt 1) and at
+two, b_adapt 2, the 16x16 path's B frames under CABAC at one reference,
+the native writer, and two, the Python one).
 Phases 9 and 13 run right after phase 4, so that a new kernel that fails
-stops the run early; 17 runs after 14, and 18, 19, 20 and 22 after 6.
+stops the run early; 17 runs after 14, and 18, 19, 20, 22, 24 and 25
+after 6.
 Each phase logs its wall time. The line before the last two holds the
 per-kernel JSON record, then the card line; the last line is
 {"ok": true, "device": {...}}.
@@ -1075,7 +1098,18 @@ def phase_small_cabac(dev):
              ("config 4 (bframes 2, ref_frames 2, cabac)", True,
               dict(cabac=True, bframes=2, b_adapt=0, ref_frames=2)),
              ("bframes 1, ref_frames 1, cabac", True,
-              dict(cabac=True, bframes=1, b_adapt=0)))
+              dict(cabac=True, bframes=1, b_adapt=0)),
+             ("CAVLC B, ref_frames 2", True,
+              dict(bframes=2, b_adapt=0, ref_frames=2)),
+             ("b_adapt 1 (default Params, bframes 2)", True,
+              dict(DEFAULTS, bframes=2, b_adapt=1)),
+             ("b_adapt 2, rc_lookahead 5", True,
+              dict(bframes=2, b_adapt=2, rc_lookahead=5)),
+             ("16x16 B, cabac, ref_frames 1", True,
+              dict(cabac=True, partitions=False, bframes=2, b_adapt=0)),
+             ("16x16 B, cabac, ref_frames 2", True,
+              dict(cabac=True, partitions=False, bframes=2, b_adapt=0,
+                   ref_frames=2)))
     for what, tk, kw in cases:
         enc_g, bs_g = _encode(_params(112, 80, tk, **kw), frames, dev)
         enc_c, bs_c = _encode(_params(112, 80, tk, **kw), frames, "cpu")
@@ -1182,7 +1216,7 @@ def phase_cabac(dev, card, bs6):
 
 def phase_config4p(dev, card):
     """BASELINE config 4's P half at 1080p (tools/bench_c4.py's Params
-    with bframes 0: ref_frames 2, CABAC, me_range 16, key 5), IDR + 3 P:
+    with bframes 0: ref_frames 2, CABAC, me_range 16, key 5), IDR + 2 P:
     the payload through the port's CABAC decoder, the exact launch
     counts, and the share of 8x8 blocks the analysis put on reference
     1 (read after the run)."""
@@ -1197,7 +1231,7 @@ def phase_config4p(dev, card):
     PT.analyse_p_frame_parts_mref = analyse
     try:
         launches, bs, enc = phase_main(
-            dev, card, True, 4, label="1080p config 4 P half (ref_frames 2,"
+            dev, card, True, 3, label="1080p config 4 P half (ref_frames 2,"
             " CABAC)", cabac=True, ref_frames=2,
             stego=StegoParams(em_rate=64, key=5))
     finally:
@@ -1212,16 +1246,24 @@ def phase_config4p(dev, card):
 def _b_kernel_twins():
     """The plain twin of every kernel wrapper a B frame calls, by its name
     in `encoder/bslice.py`, called as the wrapper is."""
+    from video_steganography_pcamv_torch.encoder import me as ME
     from video_steganography_pcamv_torch.encoder import partition as PT
+    from video_steganography_pcamv_torch.encoder import qpel_table as QT
     from video_steganography_pcamv_torch.ops import fullpel as FP
     from video_steganography_pcamv_torch.ops import lumap as LP
     from video_steganography_pcamv_torch.ops import probe as PR
+
+    def search16(y, ref, rng, mbh, mbw, lam=1):
+        zero = torch.zeros((mbh, mbw, 2), dtype=torch.int32, device=y.device)
+        return ME.fullpel_search(y, ref, zero, rng, mbh, mbw, lam)
     return {
         "fullpel_parts": FP.fullpel_search_parts,
         "gather_windows8": PT.gather_windows8_plain,
         "subpel": lambda y, w, part, mv, pred, lam, mbh, mbw:
             PR.subpel_parts(y, w, part, mv, pred, mbh, mbw, lam),
         "luma_p_encode": LP.luma_p_encode_plain,
+        "fullpel_search16": search16,
+        "gather_windows": QT.gather_windows_plain,
     }
 
 
@@ -1238,25 +1280,70 @@ def phase_config4(dev, card, n_frames: int = 7):
     """BASELINE config 4 whole at 1080p: tools/bench_c4.py's Params
     (bframes 2, b_adapt 0, ref_frames 2, CABAC, me_range 16, stego
     em_rate 64 key 5) and clip (synthetic_sequence seed 9), IDR + 6
-    frames + flush, two GOPs of P B B. Every kernel call of the B frames
-    is held against its plain version on the card (array-equal);
-    each B frame launches B1 ref_frames + 1 times, B9 and B3' twice, the
-    fused luma encode once and no other kernel; the payload is recovered
-    through the port's CABAC decoder, whose B frames equal the encoder's
-    recon. P and B fps (the B frames' kernel checks excluded), the IDR's
-    seconds, bytes per frame with its slice type, the launches per B
-    frame and each B frame's MB types are printed."""
+    frames + flush, two GOPs of P B B (`phase_bpath`). Returns the
+    launches and the CABAC B write's ms per B frame."""
+    from video_steganography_pcamv_torch.params import StegoParams
+    p = _params(1920, 1088, True, cabac=True, bframes=2, b_adapt=0,
+                ref_frames=2, stego=StegoParams(em_rate=64, key=5))
+    return phase_bpath(dev, card, "1080p config 4 (bframes 2, ref_frames 2, "
+                       "CABAC)", p, n_frames, want_pb=(2, 4))
+
+
+def phase_defaults_b(dev, card, cabac_write_ms, n_frames: int = 7):
+    """The reference's default Params with bframes 2 at 1080p (CAVLC,
+    b_adapt 1, partitions, one reference, PSNR on, the host deblock's
+    twin B5, me_range 16) on phase 22's clip and stego (`phase_bpath`),
+    the CAVLC B write per B frame beside phase 22's CABAC one."""
+    from video_steganography_pcamv_torch.params import Params, StegoParams
+    p = Params(width=1920, height=1088, bframes=2,
+               stego=StegoParams(em_rate=64, key=5))
+    _launches, write_ms = phase_bpath(
+        dev, card, "1080p default Params, bframes 2 (CAVLC, b_adapt 1)", p,
+        n_frames)
+    log("1080p B write ms per B frame: CAVLC (phase 24) %s, median %.3f; "
+        "CABAC (phase 22) %s, median %.3f  [%s]"
+        % (["%.3f" % x for x in write_ms], float(np.median(write_ms)),
+           ["%.3f" % x for x in cabac_write_ms],
+           float(np.median(cabac_write_ms)), card))
+
+
+def phase_b16(dev, card, n_frames: int = 7):
+    """The 16x16-only path with B frames at 1080p (partitions=False,
+    deblock_device=False, bframes 2, b_adapt 2, rc_lookahead 4, CAVLC,
+    one reference) on phase 22's clip and stego (`phase_bpath`): B6 and
+    B7 per list on every B frame, the B slices through the native
+    write_slice_b."""
+    from video_steganography_pcamv_torch.params import StegoParams
+    p = _params(1920, 1088, True, partitions=False, bframes=2, b_adapt=2,
+                rc_lookahead=4, stego=StegoParams(em_rate=64, key=5))
+    phase_bpath(dev, card, "1080p 16x16 path, bframes 2, b_adapt 2", p,
+                n_frames, recon_equal=False)
+
+
+def phase_bpath(dev, card, label, p, n_frames, want_pb=None,
+                recon_equal=True):
+    """One B-frame configuration at 1080p on bench_c4's clip
+    (synthetic_sequence seed 9), IDR + n_frames - 1 + flush. Every
+    kernel call of the B frames is held against its plain version on the
+    card (array-equal); each B frame launches, per list and L0 entry, B1
+    on the partition path (then B9 and B3' once per list) or B6 and B7
+    on the 16x16 path, the fused luma encode once and no other kernel;
+    the payload is recovered through the port's decoder, whose B frames
+    equal the encoder's recon (`recon_equal`; else the differing pixels
+    are counted and printed). want_pb: the (P, B) frame counts, checked
+    when given. P and B fps (the B frames' kernel checks excluded), the
+    IDR's seconds, bytes per frame with its slice type, the launches per
+    B frame, each B frame's MB types and the B writer's ms per B frame
+    are printed. Returns the launches and the writer's ms per B
+    frame."""
     from video_steganography_pcamv_torch import Encoder
     from video_steganography_pcamv_torch.encoder import bslice as BS
-    from video_steganography_pcamv_torch.params import StegoParams
     from video_steganography_pcamv_torch.utils.yuv import synthetic_sequence
-    refs = 2
+    refs = p.ref_frames
     frames = synthetic_sequence(1920, 1088, n_frames, seed=9)
-    enc = Encoder(_params(1920, 1088, True, cabac=True, bframes=2,
-                          b_adapt=0, ref_frames=refs,
-                          stego=StegoParams(em_rate=64, key=5)), device=dev)
+    enc = Encoder(p, device=dev)
     fns = _counters()
-    rows, per_b, recon = [], [], {}
+    rows, per_b, recon, write_ms = [], [], {}, []
     state = {"check": False, "checked": {}, "check_s": 0.0}
     twins = _b_kernel_twins()
     saved = {name: getattr(BS, name) for name in twins}
@@ -1269,8 +1356,8 @@ def phase_config4(dev, card, n_frames: int = 7):
                 t0 = time.perf_counter()
                 want = twins[name](*a, **kw)
                 if not _equal_outputs(out, want):
-                    raise AssertionError("B frame %d: %s kernel != plain"
-                                         % (len(per_b), name))
+                    raise AssertionError("%s: B frame %d: %s kernel != plain"
+                                         % (label, len(per_b), name))
                 torch.cuda.synchronize()
                 state["check_s"] += time.perf_counter() - t0
                 state["checked"][name] = state["checked"].get(name, 0) + 1
@@ -1310,7 +1397,17 @@ def phase_config4(dev, card, n_frames: int = 7):
         recon[disp] = recon.pop("last")
         return out
 
+    def timed_writer(fn):
+        def wrap(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            write_ms.append(1e3 * (time.perf_counter() - t0))
+            return out
+        return wrap
+
     enc._encode_anchor, enc._encode_b_frame = timed_anchor, timed_b
+    for name in ("_write_b_slice_cavlc", "_write_b_slice_cabac"):
+        setattr(enc, name, timed_writer(getattr(enc, name)))
     BS.encode_b_frame_device = encode_b
     for name, fn in saved.items():
         setattr(BS, name, checked(name, fn))
@@ -1329,73 +1426,87 @@ def phase_config4(dev, card, n_frames: int = 7):
         BS.encode_b_frame_device = enc_b
         for name, fn in saved.items():
             setattr(BS, name, fn)
-    n_b = enc.stats.b_frames
-    if state["checked"] != {"fullpel_parts": (refs + 1) * n_b,
-                            "gather_windows8": 2 * n_b, "subpel": 2 * n_b,
-                            "luma_p_encode": n_b}:
-        raise AssertionError("B frame kernel calls checked: %s"
-                             % state["checked"])
-    if n_b != 4 or enc.stats.p_frames != 2:
-        raise AssertionError("config 4: %d P, %d B frames, want 2 and 4"
-                             % (enc.stats.p_frames, n_b))
-    want_b = {k: 0 for k in fns}
-    want_b.update(fullpel_parts=refs + 1, gather_windows8=2, subpel=2,
-                  luma_p_encode=1)
+    n_b, n_p = enc.stats.b_frames, enc.stats.p_frames
+    if n_b < 1 or n_p < 1 or (want_pb and (n_p, n_b) != want_pb):
+        raise AssertionError("%s: %d P, %d B frames, want %s"
+                             % (label, n_p, n_b, want_pb or ">= 1 each"))
+    if p.partitions:
+        want_b = dict(fullpel_parts=refs + 1, gather_windows8=2, subpel=2,
+                      luma_p_encode=1)
+        whole = ("fullpel_parts", "gather_windows8", "subpel", "probe_maps",
+                 "luma_p_encode", "deblock_frame")
+    else:
+        want_b = dict(fullpel_search16=refs + 1, gather_windows=refs + 1,
+                      luma_p_encode=1)
+        whole = ("fullpel_search16", "gather_windows", "luma_p_encode",
+                 "deblock_frame")
+    if state["checked"] != {k: n * n_b for k, n in want_b.items()}:
+        raise AssertionError("%s: B frame kernel calls checked: %s"
+                             % (label, state["checked"]))
+    want_all = {k: 0 for k in fns}
+    want_all.update(want_b)
     for i, got in enumerate(per_b):
-        if got != want_b:
-            raise AssertionError("B frame %d launches %s, want %s"
-                                 % (i, got, want_b))
-    for k in ("fullpel_parts", "gather_windows8", "subpel", "probe_maps",
-              "luma_p_encode", "deblock_frame"):
+        if got != want_all:
+            raise AssertionError("%s: B frame %d launches %s, want %s"
+                                 % (label, i, got, want_all))
+    for k in whole:
         if launches[k] < 1:
-            raise AssertionError("config 4: %s never launched" % k)
+            raise AssertionError("%s: %s never launched" % (label, k))
+    if len(write_ms) != n_b:
+        raise AssertionError("%s: %d B writes for %d B frames"
+                             % (label, len(write_ms), n_b))
     t1 = time.time()
     from video_steganography_pcamv_torch.decoder import decode_annexb
     from video_steganography_pcamv_torch.stego.extract import (
         extract_from_frames)
     dec = decode_annexb(bs)
     if len(dec) != n_frames:
-        raise AssertionError("decoded %d frames of %d" % (len(dec), n_frames))
-    kinds = {}
+        raise AssertionError("%s: decoded %d frames of %d"
+                             % (label, len(dec), n_frames))
+    kinds, differ = {}, {}
     for fr in dec:
         if fr.slice_type != 1:
             continue
-        kinds[fr.poc // 2] = dict(collections.Counter(m.mb_type
-                                                      for m in fr.mbs))
-        got = recon[fr.poc // 2]
-        if not all(np.array_equal(getattr(fr, pl), r[:fr.y.shape[0] // s,
-                                                     :fr.y.shape[1] // s])
-                   for pl, r, s in zip("yuv", got, (1, 2, 2))):
-            raise AssertionError("decoded B frame %d != encoder recon"
-                                 % (fr.poc // 2))
+        d = fr.poc // 2
+        kinds[d] = dict(collections.Counter(m.mb_type for m in fr.mbs))
+        differ[d] = sum(int((getattr(fr, pl) != r[:fr.y.shape[0] // s,
+                                                  :fr.y.shape[1] // s]).sum())
+                        for pl, r, s in zip("yuv", recon[d], (1, 2, 2)))
+    if recon_equal and any(differ.values()):
+        raise AssertionError("%s: decoded B frames != encoder recon, "
+                             "pixels %s" % (label, differ))
     got = extract_from_frames(dec, em_rate=64)
     sent = enc._stego.sent_messages
     if len(got) != len(sent) or not all(
             np.array_equal(a, b) for a, b in zip(got, sent)):
-        raise AssertionError("config 4: extracted payload != sent payload")
+        raise AssertionError("%s: extracted payload != sent payload" % label)
     t_dec = time.time() - t1
     sec = {t: [r[3] for r in rows if r[0] == t] for t in "IPB"}
-    log("1080p config 4 (bframes 2, ref_frames 2, CABAC): %d frames (%d I, "
-        "%d P, %d B), %d bytes, %d payload bits recovered (CABAC decode + "
-        "extraction %.1f s, every B frame == the encoder's recon); IDR %.3f "
+    log("%s: %d frames (%d I, %d P, %d B), %d bytes, %d payload bits "
+        "recovered (decode + extraction %.1f s, decoded B frames vs the "
+        "encoder's recon: pixels differing per display index %s); IDR %.3f "
         "s; P frames %.4f fps, B frames %.4f fps (each call synced); all "
         "%.4f fps incl. flush  [%s]"
-        % (len(frames), enc.stats.i_frames, enc.stats.p_frames, n_b,
-           len(bs), sum(len(s) for s in sent), t_dec, sec["I"][0],
-           len(sec["P"]) / sum(sec["P"]), len(sec["B"]) / sum(sec["B"]),
-           len(frames) / t_all, card))
-    log("1080p config 4 bytes per frame, decode order (type, display "
-        "index, bytes): %s; B bytes / P bytes %.4f"
-        % ([(t, d, b) for t, d, b, _ in rows],
-           np.mean([r[2] for r in rows if r[0] == "B"])
-           / np.mean([r[2] for r in rows if r[0] == "P"])))
-    log("1080p config 4 launches per B frame (each B frame alike): %s; "
-        "whole run: %s; B frame seconds %s; P frame seconds %s; MB types "
+        % (label, len(frames), enc.stats.i_frames, n_p, n_b, len(bs),
+           sum(len(s) for s in sent), t_dec, json.dumps(differ),
+           sec["I"][0], len(sec["P"]) / sum(sec["P"]),
+           len(sec["B"]) / sum(sec["B"]), len(frames) / t_all, card))
+    by_type = {t: [r[2] for r in rows if r[0] == t] for t in "IPB"}
+    log("%s: bytes per frame, decode order (type, display index, bytes): "
+        "%s; by slice type %s; B bytes / P bytes %.4f; frames coded as B "
+        "(display index) %s"
+        % (label, [(t, d, b) for t, d, b, _ in rows],
+           json.dumps({t: sum(v) for t, v in by_type.items()}),
+           np.mean(by_type["B"]) / np.mean(by_type["P"]),
+           sorted(r[1] for r in rows if r[0] == "B")))
+    log("%s: launches per B frame (each B frame alike): %s; whole run: %s; "
+        "B frame seconds %s; P frame seconds %s; B write ms %s; MB types "
         "per B frame (display index): %s"
-        % (json.dumps({k: v for k, v in per_b[0].items() if v}),
+        % (label, json.dumps({k: v for k, v in per_b[0].items() if v}),
            json.dumps(launches), ["%.3f" % x for x in sec["B"]],
-           ["%.3f" % x for x in sec["P"]], json.dumps(kinds)))
-    return launches
+           ["%.3f" % x for x in sec["P"]], ["%.3f" % x for x in write_ms],
+           json.dumps(kinds)))
+    return launches, write_ms
 
 
 def _counters():
@@ -1837,22 +1948,26 @@ def main() -> int:
     phase("14 128x96 config 3", phase_small8, dev)
     phase("17 112x80 CABAC, default Params", phase_small_cabac, dev)
     launches, bs6, enc6 = phase("6 main path", phase_main, dev, card,
-                                tail_kernel=True, n_frames=10)
+                                tail_kernel=True, n_frames=5)
     phase("18 1080p default Params", phase_defaults, dev, card, bs6, enc6)
     phase("19 1080p CABAC", phase_cabac, dev, card, bs6)
     phase("20 1080p config 4 P half", phase_config4p, dev, card)
-    phase("22 1080p config 4", phase_config4, dev, card)
+    _l22, cabac_write_ms = phase("22 1080p config 4", phase_config4, dev,
+                                 card)
+    phase("24 1080p default Params, bframes 2", phase_defaults_b, dev, card,
+          cabac_write_ms)
+    phase("25 1080p 16x16 path with B frames", phase_b16, dev, card)
     if args.stagesB:
         phase("23 config-4 B-frame stages", phase_stages_b, dev, card)
     if args.stages4:
         phase("21 config-4 P half stages", phase_stages, dev, card,
               n_frames=6, config4p=True)
     phase("7 tail_kernel=False", phase_main, dev, card, tail_kernel=False,
-          n_frames=4)
+          n_frames=3)
     phase("8 stages", phase_stages, dev, card)
     phase("10 112x80 16x16", phase_small16, dev)
     launches16, _, _ = phase("11 16x16 path", phase_main, dev, card,
-                             tail_kernel=True, n_frames=4, partitions=False)
+                             tail_kernel=True, n_frames=3, partitions=False)
     if args.stages16:
         phase("12 16x16 stages", phase_stages, dev, card, n_frames=6,
               partitions=False)

@@ -46,6 +46,16 @@ from video_steganography_pcamv_torch.ops import tq4 as TQ
 from video_steganography_pcamv_torch.utils.yuv import synthetic_sequence
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch on one thread here: beside the other test workers, its
+    intra-op pool costs far more than it saves at these frame sizes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a):
     return torch.as_tensor(np.array(a))
 

@@ -4,19 +4,30 @@ the reference's CPU branch (tail_kernel=False).
 
 End to end, one JAX run each (module-scoped): config 4 at 112x80
 (me_range 8, stego em_rate 16 key 5), IDR + 7 frames + flush, so the
-run ends in a short GOP; and ref_frames 1 with bframes 1, PSNR and SSIM
-on. Each port stream is byte-equal to the JAX `Encoder`'s; both
-extractors recover `sent_messages`; the port's decoder gives the JAX
-decoder's planes and MB motion on every frame, B frames included; the
-close() dicts agree.
+run ends in a short GOP; ref_frames 1 with bframes 1, PSNR and SSIM on;
+config 4 with CAVLC and b_adapt 2 over a 5-frame window (rc_lookahead
+5, longer than bframes + 1), IDR + 9 frames + flush, so flush() runs the
+B-placement DP more than once; and the reference's default Params with
+`bframes=2` (x264's `--bframes 2`: CAVLC, b_adapt 1, partitions, PSNR,
+the host deblock; me_range 8 like the other runs, whose compiled
+programs these two share) on a clip with a noise frame at display index
+4, where b_adapt 1 closes the second GOP after one B frame.
+Each port stream is byte-equal to the JAX `Encoder`'s (the same frames
+placed as B); both extractors recover `sent_messages`; the port's decoder
+(CABAC and CAVLC B slices) gives the JAX decoder's planes and MB motion
+on every frame, B frames included; the close() dicts agree. The same JAX
+runs give `state.from_reference` snapshots at a GOP boundary and inside
+a GOP (under b_adapt 2: right after a GOP, frames still buffered), from
+which the port resumes byte-equal to the reference's continuation
+(ROADMAP F1).
 
 Modules, on the same seeded numpy inputs: `spatial_direct` and
 `scan_b_parts` (one and two references, colocated intra / ref 0 / ref 1
 blocks), `approx_direct_fields`, the B analysis of one frame (stage 1
 with the L0 merge, the direct SATDs, stage 2), the CABAC B writer on
 seeded B syntax, `encode_b_frame_device`'s levels and recon at one
-reference and at two; and `check_slice`'s refusal of every B option
-outside the slice, each with its ROADMAP id."""
+reference and at two; and `check_slice`: the B options of the slice
+accepted, every other one refused with its ROADMAP id."""
 
 import re
 
@@ -38,7 +49,7 @@ from video_steganography_pcamv_tpu.stego.extract import (
     extract_from_stream as j_extract)
 from video_steganography_pcamv_tpu.utils.bitstream import (
     BitWriter as JBitWriter)
-from video_steganography_pcamv_tpu.utils.yuv import synthetic_sequence
+from video_steganography_pcamv_tpu.utils.yuv import Frame, synthetic_sequence
 
 from video_steganography_pcamv_torch import Encoder as TEncoder
 from video_steganography_pcamv_torch import params as TP
@@ -49,9 +60,21 @@ from video_steganography_pcamv_torch.encoder.cabac import (
 from video_steganography_pcamv_torch.encoder.core import check_slice
 from video_steganography_pcamv_torch.encoder.me import lambda_tab
 from video_steganography_pcamv_torch.ops import mc as TMC
+from video_steganography_pcamv_torch.state import from_reference
 from video_steganography_pcamv_torch.stego.extract import (
     extract_from_frames)
 from video_steganography_pcamv_torch.utils.bitstream import BitWriter
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch on one thread here: beside the other test workers, its
+    intra-op pool costs far more than it saves at these frame sizes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 W, H = 112, 80
 MBH, MBW = H // 16, W // 16
@@ -66,17 +89,87 @@ def _kw(**kw):
                      deblock_device=True, psnr=False), **kw)
 
 
-def _encode_both(n_frames, **kw):
-    frames = synthetic_sequence(W, H, n_frames, seed=9)
-    jenc = JEncoder(Params(**_kw(**kw),
-                           stego=StegoParams(em_rate=EM_RATE, key=KEY)))
-    want = b"".join(jenc.encode_frame(f) for f in frames) + jenc.flush()
-    tenc = TEncoder(TP.Params(**_kw(**kw), tail_kernel=False,
-                              stego=TP.StegoParams(em_rate=EM_RATE,
-                                                   key=KEY)),
-                    device="cpu")
+def t_params(kw, tail_kernel=False):
+    return TP.Params(**kw, tail_kernel=tail_kernel,
+                     stego=TP.StegoParams(em_rate=EM_RATE, key=KEY))
+
+
+def encode_both(frames, kw):
+    """The JAX Encoder and the port's (its CPU branch, tail_kernel
+    False) on `frames` at Params `kw` with stego em_rate 16 key 5; the
+    JAX run also keeps a `from_reference` snapshot after every frame and
+    the bytes each call returned."""
+    jenc = JEncoder(Params(**kw, stego=StegoParams(em_rate=EM_RATE,
+                                                   key=KEY)))
+    chunks, snaps = [], []
+    for f in frames:
+        chunks.append(jenc.encode_frame(f))
+        snaps.append(from_reference(jenc))
+    chunks.append(jenc.flush())
+    tenc = TEncoder(t_params(kw), device="cpu")
     got = b"".join(tenc.encode_frame(f) for f in frames) + tenc.flush()
-    return dict(want=want, got=got, jenc=jenc, tenc=tenc, n=n_frames)
+    return dict(want=b"".join(chunks), got=got, jenc=jenc, tenc=tenc,
+                n=len(frames), kw=kw, frames=frames, chunks=chunks,
+                snaps=snaps)
+
+
+def _encode_both(n_frames, **kw):
+    return encode_both(synthetic_sequence(W, H, n_frames, seed=9), _kw(**kw))
+
+
+def resume_matches_reference(run, k: int) -> int:
+    """The port resumed from the reference's snapshot after frame k
+    gives the reference's continuation byte for byte; returns how many
+    frames the snapshot held buffered."""
+    snap = run["snaps"][k]
+    tenc = TEncoder(t_params(run["kw"]), device="cpu")
+    tenc.load_state(snap)
+    got = b"".join(tenc.encode_frame(f) for f in run["frames"][k + 1:]) \
+        + tenc.flush()
+    assert got == b"".join(run["chunks"][k + 1:])
+    return len(snap["bpipe"]["bbuf"])
+
+
+def stream_matches_reference(run):
+    assert run["got"] == run["want"]
+    st = run["tenc"].stats
+    assert st.b_frames == run["jenc"].stats.b_frames > 0
+    assert st.p_frames == run["jenc"].stats.p_frames
+    assert st.frames == run["n"]
+
+
+def port_decode(run):
+    """The port's decode of the port's stream, once a run."""
+    if "decoded" not in run:
+        run["decoded"] = t_decode(run["got"])
+    return run["decoded"]
+
+
+def decoders_agree(run):
+    """The port's decoder gives the JAX decoder's planes, slice types,
+    POCs and MB motion on every frame; returns the decoded frames."""
+    dec, jdec = port_decode(run), j_decode(run["got"])
+    assert len(dec) == len(jdec) == run["n"]
+    assert [f.poc for f in dec] == [2 * i for i in range(run["n"])]
+    for a, b in zip(dec, jdec):
+        assert (a.slice_type, a.poc) == (b.slice_type, b.poc)
+        for pl in ("y", "u", "v"):
+            np.testing.assert_array_equal(getattr(a, pl), getattr(b, pl))
+        assert [m.mb_type for m in a.mbs] == [m.mb_type for m in b.mbs]
+        assert [m.unit_mvs for m in a.mbs] == [m.unit_mvs for m in b.mbs]
+    return dec
+
+
+def extractors_recover(run):
+    """Both blind extractors recover the port's `sent_messages`."""
+    sent = run["tenc"]._stego.sent_messages
+    assert len(sent) == run["tenc"].stats.p_frames
+    assert sum(len(s) for s in sent) > 0
+    for rec in (j_extract(run["got"], em_rate=EM_RATE, key=KEY),
+                extract_from_frames(port_decode(run), em_rate=EM_RATE)):
+        assert len(rec) == len(sent)
+        for g, s in zip(rec, sent):
+            np.testing.assert_array_equal(g, s)
 
 
 @pytest.fixture(scope="module")
@@ -91,43 +184,77 @@ def ref1_b1():
     return _encode_both(6, ref_frames=1, bframes=1, psnr=True, ssim=True)
 
 
-@pytest.mark.parametrize("case", ["config4", "ref1_b1"])
+@pytest.fixture(scope="module")
+def badapt2():
+    return _encode_both(10, cabac=False, b_adapt=2, rc_lookahead=5)
+
+
+@pytest.fixture(scope="module")
+def defaults_b2():
+    frames = synthetic_sequence(W, H, 8, seed=9)
+    noise = np.random.default_rng(3).integers(0, 256, (H, W)).astype(
+        np.uint8)
+    frames[4] = Frame(noise, frames[4].u, frames[4].v)
+    return encode_both(frames, dict(width=W, height=H, bframes=2,
+                                    me_range=RNG))
+
+
+CASES = ["config4", "ref1_b1", "badapt2", "defaults_b2"]
+
+
+@pytest.mark.parametrize("case", CASES)
 def test_stream_byte_equal(case, request):
-    run = request.getfixturevalue(case)
-    assert run["got"] == run["want"]
-    st = run["tenc"].stats
-    assert st.b_frames == run["jenc"].stats.b_frames > 0
-    assert st.p_frames == run["jenc"].stats.p_frames
-    assert st.frames == run["n"]
+    stream_matches_reference(request.getfixturevalue(case))
 
 
-@pytest.mark.parametrize("case", ["config4", "ref1_b1"])
+@pytest.mark.parametrize("case", CASES)
 def test_decoders_agree_on_every_frame(case, request):
-    run = request.getfixturevalue(case)
-    dec, jdec = t_decode(run["got"]), j_decode(run["got"])
-    assert len(dec) == len(jdec) == run["n"]
-    assert [f.poc for f in dec] == [2 * i for i in range(run["n"])]
-    types = [f.slice_type for f in dec]
+    types = [f.slice_type
+             for f in decoders_agree(request.getfixturevalue(case))]
     assert types[0] == 2 and 1 in types and 0 in types
-    for a, b in zip(dec, jdec):
-        assert (a.slice_type, a.poc) == (b.slice_type, b.poc)
-        for pl in ("y", "u", "v"):
-            np.testing.assert_array_equal(getattr(a, pl), getattr(b, pl))
-        assert [m.mb_type for m in a.mbs] == [m.mb_type for m in b.mbs]
-        assert [m.unit_mvs for m in a.mbs] == [m.unit_mvs for m in b.mbs]
 
 
-@pytest.mark.parametrize("case", ["config4", "ref1_b1"])
+@pytest.mark.parametrize("case", CASES)
 def test_both_extractors_recover_the_payload(case, request):
-    run = request.getfixturevalue(case)
-    sent = run["tenc"]._stego.sent_messages
-    assert len(sent) == run["tenc"].stats.p_frames
-    assert sum(len(s) for s in sent) > 0
-    for rec in (j_extract(run["got"], em_rate=EM_RATE, key=KEY),
-                extract_from_frames(t_decode(run["got"]), em_rate=EM_RATE)):
-        assert len(rec) == len(sent)
-        for g, s in zip(rec, sent):
-            np.testing.assert_array_equal(g, s)
+    extractors_recover(request.getfixturevalue(case))
+
+
+@pytest.mark.parametrize("case,k,buffered", [
+    ("config4", 6, 0), ("config4", 5, 2), ("ref1_b1", 4, 0),
+    ("ref1_b1", 3, 1), ("badapt2", 7, 2), ("badapt2", 8, 3)],
+    ids=["ref2_gop_boundary", "ref2_mid_gop", "ref1_gop_boundary",
+         "ref1_mid_gop", "badapt2_after_a_gop", "badapt2_mid_gop"])
+def test_resume_from_reference_snapshot(case, k, buffered, request):
+    """F1: a snapshot of the reference's B pipe at a GOP boundary and
+    inside a GOP (frames buffered, waiting for their anchor) resumes into
+    the reference's continuation: b_adapt 0 at ref_frames 2 and 1, and
+    b_adapt 2 with its window, whose frames stay buffered across a
+    GOP's end."""
+    assert resume_matches_reference(request.getfixturevalue(case),
+                                    k) == buffered
+
+
+def test_badapt2_window_outgrows_a_gop_and_flush_runs_the_dp(badapt2):
+    """The buffer holds more than bframes + 1 frames, also when flush()
+    starts; the DP places single B frames on the pan."""
+    held = [len(s["bpipe"]["bbuf"]) for s in badapt2["snaps"]]
+    assert max(held) == held[-1] == 4
+    types = [f.slice_type for f in port_decode(badapt2)]
+    assert types == [2, 1, 0, 1, 1, 0, 1, 0, 1, 0]
+
+
+def test_default_params_b_adapt1_closes_the_gop_at_the_cut(defaults_b2):
+    """Display order I B B P | B P | B P: at b_adapt 0 the second GOP
+    would hold two B frames. CAVLC B slices throughout; close() equal."""
+    tenc = defaults_b2["tenc"]
+    assert (tenc.p.cabac, tenc.p.b_adapt, tenc.p.psnr) == (False, 1, True)
+    assert [f.slice_type for f in port_decode(defaults_b2)] == \
+        [2, 1, 1, 0, 1, 0, 1, 0]
+    got, want = tenc.close(), defaults_b2["jenc"].close()
+    assert got.keys() == want.keys() and 20 < got["psnr_y"] < 99
+    for k in want:
+        if k != "fps":
+            assert got[k] == want[k], k
 
 
 def test_close_with_b_frames_matches_reference(ref1_b1):
@@ -146,7 +273,7 @@ def test_close_with_b_frames_matches_reference(ref1_b1):
 def test_config4_b_frames_cover_the_b_syntax(config4):
     """The config-4 stream's B slices hold skips, direct, 16x16 and
     partition MBs."""
-    kinds = {m.mb_type for f in t_decode(config4["got"])
+    kinds = {m.mb_type for f in port_decode(config4)
              if f.slice_type == 1 for m in f.mbs}
     assert {"BSKIP", "BDIRECT", "BL0", "BL1", "B16x8", "B8x16",
             "B8x8"} <= kinds
@@ -417,11 +544,20 @@ def test_check_slice_accepts_config4():
         check_slice(p)
 
 
+@pytest.mark.parametrize("kw", [
+    dict(partitions=False), dict(cabac=False), dict(b_adapt=1),
+    dict(b_adapt=2)], ids=["partitions_off", "cavlc", "b_adapt1",
+                           "b_adapt2"])
+@pytest.mark.parametrize("refs", [1, 2])
+def test_check_slice_accepts_b_options_of_the_slice(kw, refs):
+    """Partitions off, CAVLC and b_adapt 1 and 2 with B frames (ROADMAP
+    A14a-c), at one reference and at two."""
+    p = t_params(_kw(**kw, ref_frames=refs, deblock_device=False))
+    p.validate()
+    check_slice(p)
+
+
 @pytest.mark.parametrize("kw,name", [
-    (dict(partitions=False), "ROADMAP A14a"),
-    (dict(cabac=False), "ROADMAP A14b"),
-    (dict(b_adapt=1), "ROADMAP A14c"),
-    (dict(b_adapt=2), "ROADMAP A14c"),
     (dict(b_pyramid=True), "ROADMAP A14d"),
     (dict(weightb=True), "ROADMAP A14e"),
     (dict(direct=0), "ROADMAP A14f"),
@@ -433,9 +569,9 @@ def test_check_slice_accepts_config4():
     (dict(aq_mode=1), "aq_mode"),
     (dict(trellis=1), "trellis"),
     (dict(stego_off=True), "stego off"),
-], ids=["partitions_off", "cavlc", "b_adapt1", "b_adapt2", "b_pyramid",
-        "weightb", "direct_none", "direct_temporal", "direct_auto",
-        "transform_8x8", "rd", "p4x4", "aq", "trellis", "stego_off"])
+], ids=["b_pyramid", "weightb", "direct_none", "direct_temporal",
+        "direct_auto", "transform_8x8", "rd", "p4x4", "aq", "trellis",
+        "stego_off"])
 def test_check_slice_refuses_b_options_outside_the_slice(kw, name):
     kw = dict(kw)
     stego = (TP.StegoParams() if kw.pop("stego_off", False)

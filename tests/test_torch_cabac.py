@@ -31,6 +31,17 @@ from video_steganography_pcamv_torch.ops import pixel as TPX
 from video_steganography_pcamv_torch.utils.bitstream import (
     BitWriter as TBitWriter)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch on one thread here: beside the other test workers, its
+    intra-op pool costs far more than it saves at these frame sizes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 REFSTREAMS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "fixtures", "refstreams")
 MBH, MBW = 3, 5

@@ -692,18 +692,14 @@ def _same(a, b):
     return torch.equal(a.cpu(), b)
 
 
-@pytest.mark.parametrize("kw", [
-    dict(bframes=2, ref_frames=2), dict(bframes=1, ref_frames=1)],
-    ids=["config4", "bframes1_ref1"])
-def test_cuda_stream_equals_cpu_stream_bframes(dev, kw, monkeypatch):
+def _check_b_kernels(monkeypatch, names):
     """Each kernel wrapper a B frame calls (bslice's names) runs on the
     card and again on CPU copies of its inputs, which takes its plain
-    version: the outputs must be equal; then cuda == cpu streams."""
+    version: the outputs must be equal. Returns the card calls counted
+    by name."""
     from video_steganography_pcamv_torch.encoder import bslice as BS
-    frames = synthetic_sequence(112, 80, 6, seed=7)
     calls = {}
-    for name in ("fullpel_parts", "gather_windows8", "subpel",
-                 "luma_p_encode"):
+    for name in names:
         fn = getattr(BS, name)
 
         def check(*a, _fn=fn, _name=name, **k):
@@ -713,19 +709,63 @@ def test_cuda_stream_equals_cpu_stream_bframes(dev, kw, monkeypatch):
                 calls[_name] = calls.get(_name, 0) + 1
             return out
         monkeypatch.setattr(BS, name, check)
+    return calls
+
+
+def _b_streams(dev, kw, n_frames=6):
+    """The 112x80 stream on the card and on the CPU, and the card's B
+    frame count."""
+    frames = synthetic_sequence(112, 80, n_frames, seed=7)
 
     def run(device):
-        enc = Encoder(Params(width=112, height=80, qp=26, me_range=16,
-                             cabac=True, b_adapt=0, psnr=False,
-                             deblock_device=True,
-                             stego=StegoParams(em_rate=64, key=5), **kw),
+        base = dict(width=112, height=80, qp=26, me_range=16, cabac=True,
+                    b_adapt=0, psnr=False, deblock_device=True)
+        base.update(kw)
+        enc = Encoder(Params(stego=StegoParams(em_rate=64, key=5), **base),
                       device=device)
         bs = b"".join(enc.encode_frame(f) for f in frames) + enc.flush()
         return bs, enc.stats.b_frames
 
     (got, n_b), (want, _) = run(dev), run("cpu")
     assert got == want and n_b > 0
+    return n_b
+
+
+@pytest.mark.parametrize("kw", [
+    dict(bframes=2, ref_frames=2), dict(bframes=1, ref_frames=1)],
+    ids=["config4", "bframes1_ref1"])
+def test_cuda_stream_equals_cpu_stream_bframes(dev, kw, monkeypatch):
+    """Every kernel call of the B frames equals its plain version; then
+    cuda == cpu streams."""
+    calls = _check_b_kernels(monkeypatch, ("fullpel_parts", "gather_windows8",
+                                           "subpel", "luma_p_encode"))
+    n_b = _b_streams(dev, kw)
     r = kw["ref_frames"]
     assert calls == {"fullpel_parts": (r + 1) * n_b,
                      "gather_windows8": 2 * n_b, "subpel": 2 * n_b,
                      "luma_p_encode": n_b}
+
+
+@pytest.mark.parametrize("kw", [
+    dict(bframes=2, cabac=False), dict(bframes=2, cabac=False, ref_frames=2),
+    dict(bframes=2, cabac=False, b_adapt=2, rc_lookahead=5),
+    dict(bframes=2, cabac=False, partitions=False, deblock_device=False,
+         b_adapt=2, rc_lookahead=4),
+    dict(bframes=2, partitions=False, deblock_device=False, ref_frames=2)],
+    ids=["cavlc_ref1", "cavlc_ref2", "cavlc_badapt2", "b16_cavlc_badapt2",
+         "b16_cabac_ref2"])
+def test_cuda_stream_equals_cpu_stream_b_options(dev, kw, monkeypatch):
+    """CAVLC B slices, b_adapt 2 and the 16x16 path's B frames: every
+    kernel call of the B frames (B1, B9, B3' and the luma encode with
+    partitions; B6, B7 and the luma encode without, per list and L0
+    entry) equals its plain version; then cuda == cpu streams."""
+    r = kw.get("ref_frames", 1)
+    if kw.get("partitions", True):
+        want = dict(fullpel_parts=r + 1, gather_windows8=2, subpel=2,
+                    luma_p_encode=1)
+    else:
+        want = dict(fullpel_search16=r + 1, gather_windows=r + 1,
+                    luma_p_encode=1)
+    calls = _check_b_kernels(monkeypatch, want)
+    n_b = _b_streams(dev, kw, n_frames=7)
+    assert calls == {k: n * n_b for k, n in want.items()}

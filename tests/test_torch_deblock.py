@@ -19,6 +19,16 @@ from video_steganography_pcamv_tpu.ops.transform import chroma_qp
 from video_steganography_pcamv_torch.ops import deblock as DB
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch on one thread here: beside the other test workers, its
+    intra-op pool costs far more than it saves at these frame sizes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _frame(seed, mbh, mbw):
     """Low-amplitude structure so nearly every edge filter fires, plus
     fuzzed intra/skip/nnz/mv maps (all edge types and bS values)."""

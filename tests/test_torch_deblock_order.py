@@ -22,6 +22,17 @@ import torch
 from video_steganography_pcamv_torch.ops import deblock as DB
 from video_steganography_pcamv_torch.ops.transform import chroma_qp
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch on one thread here: beside the other test workers, its
+    intra-op pool costs far more than it saves at these frame sizes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 MBH, MBW = 6, 8
 SEEDS = [0, 1, 2]
 

@@ -9,6 +9,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from video_steganography_pcamv_tpu import params as JP
 from video_steganography_pcamv_tpu.decoder import decode_annexb as j_decode
@@ -20,6 +21,17 @@ from video_steganography_pcamv_torch import params as TP
 from video_steganography_pcamv_torch.decoder import decode_annexb
 from video_steganography_pcamv_torch.stego.extract import extract_from_stream
 from video_steganography_pcamv_torch.utils.yuv import synthetic_sequence
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch on one thread here: beside the other test workers, its
+    intra-op pool costs far more than it saves at these frame sizes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 REFSTREAMS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "fixtures", "refstreams")

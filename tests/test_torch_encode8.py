@@ -19,6 +19,17 @@ from video_steganography_pcamv_torch.encoder import inter as TINTER
 from video_steganography_pcamv_torch.encoder import intra as TI
 from video_steganography_pcamv_torch.ops import mc as TMC
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch on one thread here: beside the other test workers, its
+    intra-op pool costs far more than it saves at these frame sizes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 MBH, MBW = 5, 7
 
 

@@ -19,6 +19,7 @@ unpipelined CABAC encoder ends with the reference's stream and stats."""
 
 import numpy as np
 import pytest
+import torch
 
 from video_steganography_pcamv_tpu.decoder import (
     decode_annexb as j_decode)
@@ -36,6 +37,17 @@ from video_steganography_pcamv_torch.encoder import core as TCORE
 from video_steganography_pcamv_torch.state import from_reference
 from video_steganography_pcamv_torch.stego.extract import (
     extract_from_frames, extract_from_stream as t_extract)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch on one thread here: beside the other test workers, its
+    intra-op pool costs far more than it saves at these frame sizes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 W, H = 112, 80
 EM_RATE, KEY = 64, 99

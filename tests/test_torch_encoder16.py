@@ -7,10 +7,15 @@ also snapshots its state after frame 2 (`state.from_reference`), from
 which the port resumes and must give the same tail. The reference
 itself fails with deblock_device=True on this path, so the port
 refuses that combination. Under CABAC, with PSNR and SSIM on, the
-stream and the `close()` dict equal the reference's too."""
+stream and the `close()` dict equal the reference's too. With B frames
+(CAVLC under b_adapt 2, CABAC under b_adapt 0) the stream is byte-equal,
+every B slice through the native writer as in the reference, decoded
+alike by both decoders (this file's JAX runs have already compiled the
+16x16 path's programs, so these runs cost little here)."""
 
 import numpy as np
 import pytest
+import torch
 
 from video_steganography_pcamv_tpu.decoder import decode_annexb
 from video_steganography_pcamv_tpu.encoder.core import Encoder as JEncoder
@@ -18,6 +23,7 @@ from video_steganography_pcamv_tpu.params import Params, StegoParams
 from video_steganography_pcamv_tpu.stego.extract import extract_from_stream
 
 from video_steganography_pcamv_torch import Encoder as TEncoder
+from video_steganography_pcamv_torch import native as T_NATIVE
 from video_steganography_pcamv_torch import params as TP
 from video_steganography_pcamv_torch.decoder import (
     decode_annexb as t_decode)
@@ -25,6 +31,17 @@ from video_steganography_pcamv_torch.state import from_reference
 from video_steganography_pcamv_torch.stego.extract import (
     extract_from_stream as t_extract)
 from video_steganography_pcamv_torch.utils.yuv import synthetic_sequence
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch on one thread here: beside the other test workers, its
+    intra-op pool costs far more than it saves at these frame sizes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 W, H = 112, 80
 EM_RATE, KEY = 64, 99
@@ -133,3 +150,74 @@ def test_cabac_with_metrics_stream_byte_equal_and_close():
             np.testing.assert_array_equal(getattr(a, pl), getattr(b, pl))
         assert [m.unit_mvs for m in a.mbs] == [m.unit_mvs for m in b.mbs]
     _check_payload(bs, tenc._stego.sent_messages)
+
+
+def assert_decoders_agree(bs, n_frames):
+    """The port's decoder gives the JAX decoder's planes, slice types and
+    MB motion on every frame."""
+    dec, jdec = t_decode(bs), decode_annexb(bs)
+    assert len(dec) == len(jdec) == n_frames
+    for a, b in zip(dec, jdec):
+        assert (a.slice_type, a.poc) == (b.slice_type, b.poc)
+        for pl in ("y", "u", "v"):
+            np.testing.assert_array_equal(getattr(a, pl), getattr(b, pl))
+        assert [m.mb_type for m in a.mbs] == [m.mb_type for m in b.mbs]
+        assert [m.unit_mvs for m in a.mbs] == [m.unit_mvs for m in b.mbs]
+    return dec
+
+
+@pytest.mark.parametrize("cabac,kw", [
+    (False, dict(b_adapt=2, rc_lookahead=4)), (True, dict(b_adapt=0))],
+    ids=["cavlc_badapt2", "cabac"])
+def test_b_frames_byte_equal_and_payload(cabac, kw, monkeypatch):
+    """B frames at one reference (B6 and B7 per list, `scan_b_frame`):
+    the stream is byte-equal to the JAX Encoder's, every B slice goes
+    through the native writer of its entropy coder (`write_slice_b`,
+    `write_slice_cabac_b`) as in the reference, both decoders agree on
+    every frame and both extractors recover the payload. The reference
+    leaves the B frames' colocated field stale on this path (ROADMAP
+    F2); the stream keeps it."""
+    frames = synthetic_sequence(W, H, 7, seed=7)
+    kw = dict(kw, bframes=2, cabac=cabac)
+    jenc = JEncoder(_params(**kw))
+    want = b"".join(jenc.encode_frame(f) for f in frames) + jenc.flush()
+    calls = []
+    for name in ("write_slice_b", "write_slice_cabac_b"):
+        def wrap(*a, _fn=getattr(T_NATIVE, name), _name=name, **k):
+            calls.append(_name)
+            return _fn(*a, **k)
+        monkeypatch.setattr(T_NATIVE, name, wrap)
+    tenc = TEncoder(_tparams(**kw), device="cpu")
+    got = b"".join(tenc.encode_frame(f) for f in frames) + tenc.flush()
+    assert got == want
+    n_b = tenc.stats.b_frames
+    assert n_b == jenc.stats.b_frames > 0
+    assert calls == ["write_slice_cabac_b" if cabac else "write_slice_b"] * n_b
+    dec = assert_decoders_agree(got, len(frames))
+    assert {m.mb_type for f in dec if f.slice_type == 1 for m in f.mbs} \
+        <= {"BSKIP", "BDIRECT", "BL0", "BL1", "BBI"}
+    _check_payload(got, tenc._stego.sent_messages)
+
+
+def test_analyse_b_frame_matches_reference():
+    """The 16x16 B analysis at one reference (B6, B7, the qpel tables,
+    the subpel refine against a zero predictor per list, BI at the
+    winners) on seeded planes against the reference's `analyse_b_frame`,
+    at this file's me_range, whose program the B runs above compiled."""
+    import jax.numpy as jnp
+    from video_steganography_pcamv_tpu.encoder import bslice as JB
+    from video_steganography_pcamv_torch.encoder import bslice as TB
+    from video_steganography_pcamv_torch.encoder.me import lambda_tab
+    from test_torch_bframes import _refs
+    (t0, _t1, t2), (j0, _j1, j2), cur = _refs(3, 62)
+    lam, rng, mbh, mbw = lambda_tab(28), 16, H // 16, W // 16
+    got = TB.analyse_b_frame(torch.as_tensor(cur), t0["luma"][None], 1,
+                             t2["luma"], rng, mbh, mbw, lam)
+    mv0, c0, mv1, c1, cbi = JB.analyse_b_frame(
+        jnp.asarray(cur), j0["luma"], j2["luma"], rng, mbh, mbw, lam, 2,
+        False, w1=32)
+    want = (mv0, c0, np.zeros((mbh, mbw), np.int32), mv1, c1, cbi)
+    for name, a, b in zip(("mv0", "c0", "ref0", "mv1", "c1", "cbi"), got,
+                          want):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b),
+                                      err_msg=name)

@@ -11,6 +11,7 @@ tests/test_torch_encoder_accel.py."""
 
 import numpy as np
 import pytest
+import torch
 
 from video_steganography_pcamv_tpu.decoder import decode_annexb as j_decode
 from video_steganography_pcamv_tpu.encoder.core import Encoder as JEncoder
@@ -24,6 +25,17 @@ from video_steganography_pcamv_torch import params as TP
 from video_steganography_pcamv_torch.decoder import decode_annexb
 from video_steganography_pcamv_torch.stego.extract import (
     extract_from_frames)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch on one thread here: beside the other test workers, its
+    intra-op pool costs far more than it saves at these frame sizes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 W, H = 128, 96
 EM_RATE, KEY = 64, 99

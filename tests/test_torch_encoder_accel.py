@@ -17,6 +17,7 @@ branch, B1 once per reference against a zero predictor).
 import jax
 import numpy as np
 import pytest
+import torch
 
 from video_steganography_pcamv_tpu.decoder import decode_annexb as j_decode
 from video_steganography_pcamv_tpu.encoder.core import Encoder as JEncoder
@@ -35,6 +36,17 @@ from video_steganography_pcamv_torch.decoder import decode_annexb
 from video_steganography_pcamv_torch.encoder import partition as T_PT
 from video_steganography_pcamv_torch.stego.extract import (
     extract_from_frames)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch on one thread here: beside the other test workers, its
+    intra-op pool costs far more than it saves at these frame sizes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 W, H = 112, 80
 EM_RATE, KEY = 64, 99

@@ -25,6 +25,17 @@ from video_steganography_pcamv_tpu.ops.pallas_kernels import (
 from video_steganography_pcamv_torch.ops import fullpel as FP
 from video_steganography_pcamv_torch.ops import mc as TMC
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch on one thread here: beside the other test workers, its
+    intra-op pool costs far more than it saves at these frame sizes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 KEYS = ("c16", "mv16", "c16x8", "mv16x8", "c8x16", "mv8x16", "c8", "mv8")
 
 

@@ -14,6 +14,16 @@ from video_steganography_pcamv_tpu.ops.transform import chroma_qp
 from video_steganography_pcamv_torch.encoder import intra as TI
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch on one thread here: beside the other test workers, its
+    intra-op pool costs far more than it saves at these frame sizes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _planes(seed, mbh, mbw):
     r = np.random.RandomState(seed)
     h, w = 16 * mbh, 16 * mbw

@@ -44,6 +44,17 @@ from video_steganography_pcamv_torch.state import from_reference
 from video_steganography_pcamv_torch.stego.extract import (
     extract_from_frames)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch on one thread here: beside the other test workers, its
+    intra-op pool costs far more than it saves at these frame sizes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 W, H = 112, 80
 MBH, MBW = H // 16, W // 16
 EM_RATE, KEY = 64, 5
@@ -271,3 +282,77 @@ def test_mref_stream_byte_equal_and_payload(kw, n, ref8_log):
     assert got == want
     assert any((r == 1).any() for r in ref8_log)
     _check_payload(got, tenc, n)
+
+
+@pytest.mark.parametrize("cabac", [False, True], ids=["cavlc", "cabac"])
+def test_b_frames_partitions_off_byte_equal(cabac, monkeypatch):
+    """B frames on the 16x16-only path at two references (the L0 merge of
+    `analyse_b_frame` at the SATD level, ref_idx_l0 per MB): the stream is
+    byte-equal to the JAX Encoder's, the B slices go through the Python
+    writers (the reference's route with an L0 map), both decoders agree
+    on every frame and the payload is recovered. This file's JAX runs
+    have already compiled the multi-reference 16x16 P programs."""
+    from video_steganography_pcamv_tpu.decoder import decode_annexb as jdec
+    from video_steganography_pcamv_torch import native as t_native
+    from video_steganography_pcamv_torch.encoder.cabac import (
+        CabacSliceWriter)
+    from video_steganography_pcamv_torch.encoder.cavlc import FrameCavlc
+    frames = _flicker_frames(6)
+    kw = _kw(partitions=False, bframes=2, b_adapt=0, cabac=cabac)
+    want = _run(JEncoder(Params(**kw, stego=StegoParams(em_rate=EM_RATE,
+                                                        key=KEY))), frames)
+    calls = {"python": 0, "native": 0}
+
+    def count(key, fn):
+        def wrap(*a, **k):
+            calls[key] += 1
+            return fn(*a, **k)
+        return wrap
+    writer = CabacSliceWriter if cabac else FrameCavlc
+    monkeypatch.setattr(writer, "write_b_mb",
+                        count("python", writer.write_b_mb))
+    for name in ("write_slice_b", "write_slice_cabac_b"):
+        monkeypatch.setattr(t_native, name,
+                            count("native", getattr(t_native, name)))
+    tenc = TEncoder(TP.Params(**kw, stego=TP.StegoParams(em_rate=EM_RATE,
+                                                         key=KEY)),
+                    device="cpu")
+    got = _run(tenc, frames)
+    assert got == want
+    assert tenc.stats.b_frames == 3
+    assert calls["python"] > 0 and calls["native"] == 0
+    dec, jd = decode_annexb(got), jdec(got)
+    assert [f.slice_type for f in dec] == [f.slice_type for f in jd]
+    for a, b in zip(dec, jd):
+        for pl in ("y", "u", "v"):
+            np.testing.assert_array_equal(getattr(a, pl), getattr(b, pl))
+        assert [m.unit_mvs for m in a.mbs] == [m.unit_mvs for m in b.mbs]
+    _check_payload(got, tenc, len(frames))
+
+
+@pytest.mark.parametrize("n_valid", [2, 1])
+def test_analyse_b_frame_mref_matches_reference(n_valid):
+    """The 16x16 B analysis at two references (per entry B6, B7, the
+    tables and the subpel refine; the L0 merge at the SATD level with
+    te(v) ref bits, an entry past n_valid penalised) on seeded planes
+    against the reference's `analyse_b_frame_mref` with the per-entry
+    weights its encoder passes (plain 32s without weightb), at this
+    file's me_range, whose program the B runs above compiled."""
+    from video_steganography_pcamv_tpu.encoder import bslice as JB
+    from video_steganography_pcamv_torch.encoder import bslice as TB
+    from video_steganography_pcamv_torch.encoder.me import lambda_tab
+    from test_torch_bframes import _refs, _stack_j, _stack_t
+    (t0, t1, t2), (j0, j1, j2), cur = _refs(3, 62 + n_valid)
+    lam, rng = lambda_tab(28), 16
+    got = TB.analyse_b_frame(torch.as_tensor(cur),
+                             _stack_t([t0, t1])["luma"], n_valid,
+                             t2["luma"], rng, MBH, MBW, lam)
+    want = JB.analyse_b_frame_mref(
+        jnp.asarray(cur), _stack_j([j0, j1])["luma"], jnp.asarray(n_valid),
+        j2["luma"], rng, MBH, MBW, lam, 2, False, 2,
+        w1=jnp.full((2,), 32, jnp.int32))
+    for name, a, b in zip(("mv0", "c0", "ref0", "mv1", "c1", "cbi"), got,
+                          want):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b),
+                                      err_msg=name)
+    assert bool((got[2].numpy() == 1).any()) == (n_valid == 2)

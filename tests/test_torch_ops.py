@@ -21,6 +21,16 @@ from video_steganography_pcamv_torch.ops import transform as TT
 from video_steganography_pcamv_torch.encoder import slicetype as TST
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch on one thread here: beside the other test workers, its
+    intra-op pool costs far more than it saves at these frame sizes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def eq(a, b):
     np.testing.assert_array_equal(np.asarray(a), b.cpu().numpy())
 

@@ -40,6 +40,17 @@ from video_steganography_pcamv_torch.params import Params as TParams
 from video_steganography_pcamv_torch.params import StegoParams as TStegoParams
 from video_steganography_pcamv_torch.state import from_reference
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch on one thread here: beside the other test workers, its
+    intra-op pool costs far more than it saves at these frame sizes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 W, H = 112, 80
 MBH, MBW = 5, 7
 RES_KEYS = ("luma_lev", "cbp_luma", "cbp_chroma", "chroma_dc", "chroma_ac",

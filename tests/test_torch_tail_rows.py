@@ -15,6 +15,17 @@ import torch
 
 from video_steganography_pcamv_torch.ops import probe as PR
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch on one thread here: beside the other test workers, its
+    intra-op pool costs far more than it saves at these frame sizes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 MBH, MBW = 2, 3
 N8 = 4 * MBH * MBW
 

@@ -9,14 +9,14 @@ extractor — stc_extract include commented out, analyse.c:43).
 The port's copy of the reference's decoder/decoder.py, cut to the paths
 that the port's streams take: I/P slices under CAVLC or CABAC
 (I16x16/I4x4/I8x8, P partitions incl. sub-8x8, the adaptive 8x8
-transform, P_SKIP, sliding-window DPB) and non-reference CABAC B slices
-(B_Skip, B_Direct_16x16 with spatial direct, the 16x16 L0/L1/BI types,
-the 16x8/8x16 combos, B_8x8 with direct/L0/L1/BI subs, multi-reference
-L0 lists, the default B list order, POC output order); the CABAC parser
-is `cabac_dec.py`. Scaling matrices, per-MB QP changes in a deblocked
-slice, CAVLC B slices, temporal direct, weighted bipred, intra MBs in B
-and deblocked B slices raise NotImplementedError. The in-loop filter is
-the port's `ops.deblock`.
+transform, P_SKIP, sliding-window DPB) and non-reference B slices under
+CAVLC or CABAC (B_Skip, B_Direct_16x16 with spatial direct, the 16x16
+L0/L1/BI types, the 16x8/8x16 combos, B_8x8 with direct/L0/L1/BI subs,
+multi-reference L0 lists, the default B list order, POC output order);
+the CABAC parser is `cabac_dec.py`. Scaling matrices, per-MB QP changes
+in a deblocked slice, temporal direct, weighted bipred, intra MBs in B
+and deblocked or reference B slices raise NotImplementedError. The
+in-loop filter is the port's `ops.deblock`.
 """
 
 from __future__ import annotations
@@ -1107,6 +1107,138 @@ class SliceDecoder:
                     unit_mvs.append((int(mv[0]), int(mv[1])))
         return use_v[0], use_v[1], mv_v[0], mv_v[1], r8_out, unit_mvs
 
+    # ---- CAVLC B macroblocks (the reference's decoder.py:1188-1443) ----
+    def _read_inter_residual(self, br: BitReader, mx: int, my: int,
+                             qp: int):
+        """coded_block_pattern, mb_qp_delta and the 4x4 luma levels of an
+        inter MB. Returns (qp, cbp_chroma, dequantized blocks
+        [4,4,4,4])."""
+        cbp = VT.CBP_INTER_TO_GOLOMB.index(br.read_ue())
+        cbp_luma, cbp_chroma = cbp & 15, cbp >> 4
+        if self.pps.transform_8x8 and cbp_luma and br.read1():
+            raise NotImplementedError("the 8x8 transform in B MBs")
+        if cbp:
+            qp = (qp + br.read_se() + 52) % 52
+        blocks = np.zeros((4, 4, 4, 4), np.int64)
+        for blk in range(16):
+            by, bx = LUMA_SCAN[blk]
+            yy, xx = 4 * my + by, 4 * mx + bx
+            if cbp_luma & (1 << (blk >> 2)):
+                lv = read_residual(br, 16, self._nc(self.nnz_y, yy, xx))
+                self.nnz_y[yy, xx] = sum(1 for x in lv if x)
+                blocks[by, bx] = R.dequant4x4(R.dezigzag(lv), qp)
+            else:
+                self.nnz_y[yy, xx] = 0
+        return qp, cbp_chroma, blocks
+
+    def _recon_b_cavlc(self, br, mx, my, use0, use1, mv0, mv1, r0, qp):
+        """The bipred prediction of a coded B MB plus its residual (the
+        chroma residual read here, after the luma)."""
+        qp, cbp_chroma, blocks = self._read_inter_residual(br, mx, my, qp)
+        qpc = int(CHROMA_QP[np.clip(qp + self.pps.chroma_qp_index_offset,
+                                    0, 51)])
+        py, pc = self._b_preds(mx, my, use0, use1, mv0, mv1, r0=r0)
+        gy, gx = 16 * my, 16 * mx
+        for by in range(4):
+            for bx in range(4):
+                self.y[gy + 4 * by:gy + 4 * by + 4,
+                       gx + 4 * bx:gx + 4 * bx + 4] = R.recon_block4x4(
+                    py[4 * by:4 * by + 4, 4 * bx:4 * bx + 4], blocks[by, bx])
+        self._decode_chroma(br, mx, my, 0, cbp_chroma, qpc, intra=False,
+                            preds=pc)
+        self.decoded[my, mx] = True
+        return qp
+
+    def decode_b_mb(self, br: BitReader, mx: int, my: int, mb_type: int,
+                    qp: int):
+        """B_Direct_16x16 (0) / B_L0_16x16 (1) / B_L1_16x16 (2) /
+        B_Bi_16x16 (3): ref_idx_l0 (multi-reference L0 lists), the L0
+        mvd, the L1 mvd, the residual."""
+        y4, x4 = 4 * my, 4 * mx
+        r0 = 0
+        if mb_type == 0:
+            use0, use1, mv0, mv1, r0, _r1 = self._spatial_direct(my, mx)
+        else:
+            use0, use1 = mb_type in (1, 3), mb_type in (2, 3)
+            mv0 = np.zeros((4, 2), np.int32)
+            mv1 = np.zeros((4, 2), np.int32)
+            if use0 and self.b_l0_active > 1:
+                r0 = br.read_te(self.b_l0_active - 1)
+            if use0:
+                mvd = (br.read_se(), br.read_se())
+                mvp = self._unit_mvp(y4, x4, 4, 0, 0, ref=r0, lst=0)
+                mv0[:] = (mvp[0] + mvd[0], mvp[1] + mvd[1])
+            if use1:
+                mvd = (br.read_se(), br.read_se())
+                mvp = self._unit_mvp(y4, x4, 4, 0, 0, ref=0, lst=1)
+                mv1[:] = (mvp[0] + mvd[0], mvp[1] + mvd[1])
+        self._commit_b(my, mx, use0, use1, mv0, mv1, r0=r0)
+        qp = self._recon_b_cavlc(br, mx, my, use0, use1, mv0, mv1, r0, qp)
+        m0 = (int(mv0[0, 0]), int(mv0[0, 1]))
+        self.mbs.append(MBInfo(("BDIRECT", "BL0", "BL1", "BBI")[mb_type], m0,
+                               qp, unit_mvs=[m0]))
+        return qp
+
+    def decode_b_mb_parts(self, br: BitReader, mx: int, my: int,
+                          mb_type: int, qp: int):
+        """B partition MBs: the two-partition list combos (codes 4-21)
+        and B_8x8 (22) with direct/L0/L1/BI sub_mb_types (spec Tables
+        7-14/7-18): sub types, the L0 refs (multi-reference), all L0
+        mvds, all L1 mvds (x264's cavlc.c:463-560), the residual."""
+        if mb_type == 22:
+            subs = [br.read_ue() for _ in range(4)]
+            if any(s > 3 for s in subs):
+                raise NotImplementedError("B sub-8x8 partitions %s" % subs)
+            geom = self._B_UNIT_GEOM[3]
+            uses = ([B_SUB_USES[s][0] for s in subs],
+                    [B_SUB_USES[s][1] for s in subs])
+            direct_units = [i for i, s in enumerate(subs) if s == 0]
+        else:
+            _n, u0t, u1t = B_CODE_USES[mb_type]
+            geom = self._B_UNIT_GEOM[1 if mb_type % 2 == 0 else 2]
+            uses = (list(u0t), list(u1t))
+            direct_units = []
+            subs = None
+        refs_u = [0] * len(geom)
+        if self.b_l0_active > 1:
+            for u in range(len(geom)):
+                if uses[0][u] and u not in direct_units:
+                    refs_u[u] = br.read_te(self.b_l0_active - 1)
+        mvds = [[None] * len(geom), [None] * len(geom)]
+        for li in (0, 1):
+            for u in range(len(geom)):
+                if uses[li][u] and u not in direct_units:
+                    mvds[li][u] = (br.read_se(), br.read_se())
+        use0, use1, mv0, mv1, r8, unit_mvs = self._derive_b_parts_mvs(
+            mx, my, mb_type, subs, mvds, refs_u)
+        qp = self._recon_b_cavlc(br, mx, my, use0, use1, mv0, mv1, r8, qp)
+        kind = "B8x8" if mb_type == 22 else \
+            ("B16x8" if mb_type % 2 == 0 else "B8x16")
+        m0 = (int(mv0[0, 0]), int(mv0[0, 1]))
+        self.mbs.append(MBInfo(kind, m0, qp, unit_mvs=unit_mvs or [m0]))
+        return qp
+
+    def decode_b_slice(self, br: BitReader, qp: int):
+        """A CAVLC B slice: mb_skip_run of B_Skip MBs, then the coded
+        MB; intra MBs raise NotImplementedError."""
+        n_mbs = self.mbh * self.mbw
+        addr = 0
+        while addr < n_mbs:
+            for _ in range(br.read_ue()):
+                self.decode_b_skip(addr % self.mbw, addr // self.mbw, qp)
+                addr += 1
+            if addr >= n_mbs:
+                break
+            my, mx = addr // self.mbw, addr % self.mbw
+            mb_type = br.read_ue()
+            if mb_type <= 3:
+                qp = self.decode_b_mb(br, mx, my, mb_type, qp)
+            elif mb_type <= 22:
+                qp = self.decode_b_mb_parts(br, mx, my, mb_type, qp)
+            else:
+                raise NotImplementedError("intra MBs in B slices")
+            addr += 1
+
     def decode_slice(self, br: BitReader, slice_type: int, qp: int):
         if slice_type in (2, 7):
             for my in range(self.mbh):
@@ -1279,8 +1411,6 @@ def decode_annexb(data: bytes) -> list[DecodedFrame]:
                 dpb = []   # IDR resets the DPB
                 gop += 1
             if is_b:
-                if not pps.cabac:
-                    raise NotImplementedError("CAVLC B slices")
                 if pps.weighted_bipred_idc:
                     raise NotImplementedError("weighted bipred")
                 if disable != 1 or ref_idc != 0:
@@ -1300,7 +1430,10 @@ def decode_annexb(data: bytes) -> list[DecodedFrame]:
                 assert dec.b_l0_active <= len(l0), \
                     f"B slice signals {dec.b_l0_active} L0 refs, " \
                     f"DPB has {len(l0)}"
-                _decode_slice_cabac_b(dec, br, qp, cabac_model)
+                if pps.cabac:
+                    _decode_slice_cabac_b(dec, br, qp, cabac_model)
+                else:
+                    dec.decode_b_slice(br, qp)
                 _append_frame(frames, dec, sps, slice_type, poc, gop)
                 continue
             l0p = list(dpb)   # default P order: PicNum descending

@@ -42,6 +42,15 @@ def subpel_from_table(cur_y, wht169, mv_fp, prev_mv, mbh: int, mbw: int,
     """The best qpel offset in [-3,3]^2 around 4*mv_fp by SATD +
     lam*bits(mv - prev_mv), first minimum in (oy, ox) order. Returns
     (mv [mbh,mbw,2] qpel, r_idx [N] table index of the chosen offset)."""
+    mv, r_idx, _cost = subpel_cost_from_table(cur_y, wht169, mv_fp, prev_mv,
+                                              mbh, mbw, lam)
+    return mv, r_idx
+
+
+def subpel_cost_from_table(cur_y, wht169, mv_fp, prev_mv, mbh: int,
+                           mbw: int, lam: int = 1):
+    """`subpel_from_table` that also returns the winning cost [mbh, mbw]
+    (the reference's bslice `_subpel_cost` at subpel 2)."""
     dev = cur_y.device
     n = mbh * mbw
     wcur = QT.wht16(mb_tiles(cur_y, 16))
@@ -55,12 +64,15 @@ def subpel_from_table(cur_y, wht169, mv_fp, prev_mv, mbh: int, mbw: int,
         ix = torch.clamp(4 * mvf[:, 0] + ox - pred[:, 0], -off, off) + off
         iy = torch.clamp(4 * mvf[:, 1] + oy - pred[:, 1], -off, off) + off
         costs.append(sat + (bits_t[ix.long()] + bits_t[iy.long()]) * lam)
-    sel = torch.argmin(torch.stack(costs), dim=0)
+    costs = torch.stack(costs)
+    sel = torch.argmin(costs, dim=0)
+    best = costs.min(0).values
     offs = const(_OFFSETS, dev)[sel]                       # [N, 2] (oy, ox)
     mv = torch.stack([4 * mvf[:, 0] + offs[:, 1],
                       4 * mvf[:, 1] + offs[:, 0]], dim=-1)
     r_idx = (offs[:, 0] + 6) * 13 + (offs[:, 1] + 6)
-    return mv.reshape(mbh, mbw, 2).to(_I32), r_idx.to(_I32)
+    return (mv.reshape(mbh, mbw, 2).to(_I32), r_idx.to(_I32),
+            best.reshape(mbh, mbw).to(_I32))
 
 
 def analyse_p_frame(y, ref_luma, prev_mv, rng: int, mbh: int, mbw: int,

@@ -27,6 +27,16 @@ direct derivation; `encode_b_frame_device` assembles the bipred
 prediction and encodes it, its 4x4 luma with the fused luma-encode kernel
 (`ops/lumap.luma_p_encode`).
 
+Without partitions (x264's `--partitions none`) a B frame takes the
+16x16 analysis instead (`analyse_b_frame`, the reference's
+`analyse_b_frame` and `analyse_b_frame_mref`): per list entry B6's
+full-pel search against a zero predictor (`fullpel_search16`), B7's
+windows (`gather_windows`), the qpel tables and the subpel refine against
+a zero predictor; the L0 entries merged per MB at the SATD level with
+REF_COST; BI at the two winners. `bipred_satd_device` costs the
+approximate direct prediction per MB and `scan_b_frame` is the host
+commit of the 16x16 modes.
+
 Every kernel wrapper runs its plain version on a CPU tensor and its
 kernel on a CUDA one. Block index convention per MB: 8x8 blocks b in
 {0: TL, 1: TR, 2: BL, 3: BR} (z-order).
@@ -40,13 +50,16 @@ import torch
 from ..ops import const
 from ..ops import mc
 from ..ops.blocks import mb_tiles
-from ..ops.fullpel import fullpel_parts
+from ..ops.fullpel import fullpel_parts, fullpel_search16
 from ..ops.lumap import luma_p_encode
 from ..ops.probe import (_mb_blocks8, block_row8, satd_flat, sp_to_z,
                          subpel, wht8_flat, z_to_sp)
+from . import qpel_table as QT
+from .analyse2 import subpel_cost_from_table
 from .inter import _p_result, chroma_encode
 from .me import mv_bits_table
 from .partition import D_16x16, D_16x8, D_8x16, gather_windows8, te_ref_bits
+from .qpel_table import gather_windows
 
 _I32 = torch.int32
 
@@ -60,6 +73,10 @@ B_CODE_16X8 = np.array([[4, 8, 12], [10, 6, 14], [16, 18, 20]], np.int32)
 B_CODE_8X16 = np.array([[5, 9, 13], [11, 7, 15], [17, 19, 21]], np.int32)
 # sub_mb_type ue codes: sel {0: L0, 1: L1, 2: BI, 3: direct} -> code
 _B_SUB_CODE = np.array([1, 2, 3, 0], np.int32)
+
+# ue bit sizes of the 16x16 mb_type codes direct / L0 / L1 / BI (the mvd
+# bits are in the MV cost)
+_B_HDR_BITS = np.array([1, 3, 3, 5], np.int64)
 
 # the mb_type ue bits of each two-partition combo
 _UE_16X8 = _UE_BITS[B_CODE_16X8]
@@ -169,22 +186,89 @@ def analyse_b_parts_stage1(y, refs0_fp, n_valid: int, ref1_fp, rng: int,
     return st0, st1, ref0
 
 
-def bipred_satd8_device(y, ref0_luma, ref1_luma, use0, use1, mv0_8, mv1_8,
-                        mbh: int, mbw: int):
-    """Per-8x8 SATD [mbh, mbw, 4] (z-order) of the (approximate) direct
-    prediction at per-8x8 qpel MVs, eager torch (the reference's
-    bslice.py:771)."""
-    dev = y.device
-    ys8, xs8 = _block_origins(mbh, mbw, dev, 8)
+def _direct_pred8(ref0_luma, ref1_luma, use0, use1, mv0_8, mv1_8, mbh: int,
+                  mbw: int):
+    """The (approximate) direct prediction per 8x8 block [N8, 8, 8]
+    (spatial order) at per-8x8 qpel MVs of both lists."""
+    ys8, xs8 = _block_origins(mbh, mbw, use0.device, 8)
     n8 = ys8.shape[0]
     u0 = use0.reshape(n8)[:, None, None].to(torch.bool)
     u1 = use1.reshape(n8)[:, None, None].to(torch.bool)
     p0 = mc.mc_luma(ref0_luma, ys8, xs8, mv0_8.reshape(n8, 2), 8, 8)
     p1 = mc.mc_luma(ref1_luma, ys8, xs8, mv1_8.reshape(n8, 2), 8, 8)
-    p8 = torch.where(u0 & u1, _bi_avg(p0, p1), torch.where(u0, p0, p1))
-    satd = satd_flat(wht8_flat(_mb_blocks8(y, mbh, mbw)),
-                        wht8_flat(p8))
+    return torch.where(u0 & u1, _bi_avg(p0, p1), torch.where(u0, p0, p1))
+
+
+def bipred_satd8_device(y, ref0_luma, ref1_luma, use0, use1, mv0_8, mv1_8,
+                        mbh: int, mbw: int):
+    """Per-8x8 SATD [mbh, mbw, 4] (z-order) of the (approximate) direct
+    prediction at per-8x8 qpel MVs, eager torch (the reference's
+    bslice.py:771)."""
+    p8 = _direct_pred8(ref0_luma, ref1_luma, use0, use1, mv0_8, mv1_8, mbh,
+                       mbw)
+    satd = satd_flat(wht8_flat(_mb_blocks8(y, mbh, mbw)), wht8_flat(p8))
     return sp_to_z(satd.reshape(2 * mbh, 2 * mbw), mbh, mbw)
+
+
+def bipred_satd_device(y, ref0_luma, ref1_luma, use0, use1, mv0_8, mv1_8,
+                       mbh: int, mbw: int):
+    """Per-MB SATD [mbh, mbw] of the (approximate) direct prediction
+    (the reference's bslice.py:314): the 8x8 predictions assembled into
+    16x16 MBs, SATD over the MB's 4x4 blocks."""
+    p8 = _direct_pred8(ref0_luma, ref1_luma, use0, use1, mv0_8, mv1_8, mbh,
+                       mbw)
+    pred = mb_tiles(p8.reshape(2 * mbh, 2 * mbw, 8, 8).permute(0, 2, 1, 3)
+                    .reshape(16 * mbh, 16 * mbw), 16)
+    return QT.satd_tables(QT.wht16(mb_tiles(y, 16)), QT.wht16(pred)) \
+        .reshape(mbh, mbw)
+
+
+def _search16(y, planes, rng: int, mbh: int, mbw: int, lam: int):
+    """One list entry of the 16x16 B analysis: B6 (zero predictor) on the
+    full-pel plane, B7's windows on the four hpel planes, the qpel
+    tables and the subpel refine against a zero predictor. planes [4,
+    Hp, Wp] int32. Returns (mv [mbh,mbw,2] qpel, cost [mbh,mbw], blk
+    [N,16,16] int16 the prediction at mv)."""
+    p8 = planes.to(torch.uint8)
+    mv_fp, _ = fullpel_search16(y, p8[0], rng, mbh, mbw, lam)
+    blocks = QT.block_table(gather_windows(p8, mv_fp, mbh, mbw))
+    zero = torch.zeros((mbh, mbw, 2), dtype=_I32, device=y.device)
+    mv, r_idx, cost = subpel_cost_from_table(
+        y, QT.wht_table(blocks), mv_fp, zero, mbh, mbw, lam)
+    return mv, cost, QT.select_rows(blocks, r_idx)
+
+
+def analyse_b_frame(y, refs0_luma, n_valid: int, ref1_luma, rng: int,
+                    mbh: int, mbw: int, lam: int):
+    """The 16x16 B analysis (the reference's `analyse_b_frame_mref`,
+    bslice.py:168; with one entry its `analyse_b_frame`, :121): per L0
+    entry (refs0_luma [R, 4, Hp, Wp] int32, newest first) and on L1
+    (ref1_luma [4, Hp, Wp]) `_search16`; the L0 entry chosen per MB by
+    cost + lam * te(ref) bits (first minimum: ties keep the lower index;
+    entries past n_valid carry a 1 << 28 penalty and still run); BI at
+    the two winners, SATD of the average plus both MVs' bits and the L0
+    ref bits. Returns (mv0, c0, ref0 [mbh,mbw] int32, mv1, c1, cbi)."""
+    nrefs = refs0_luma.shape[0]
+    n = mbh * mbw
+    bits = te_ref_bits(nrefs)
+    cs, mvs, blks = [], [], []
+    for r in range(nrefs):
+        mv, cost, blk = _search16(y, refs0_luma[r], rng, mbh, mbw, lam)
+        cs.append(cost + lam * int(bits[r]) if r < n_valid
+                  else torch.full_like(cost, 1 << 28))
+        mvs.append(mv)
+        blks.append(blk)
+    c_st = torch.stack(cs)
+    ref0 = torch.argmin(c_st, dim=0).to(_I32)
+    c0 = c_st.min(0).values
+    mv0 = _take(torch.stack(mvs), ref0)
+    blk0 = _take(torch.stack(blks).reshape(nrefs, mbh, mbw, 16, 16), ref0)
+    mv1, c1, blk1 = _search16(y, ref1_luma, rng, mbh, mbw, lam)
+    bi = _bi_avg(blk0.reshape(n, 16, 16).to(_I32), blk1.to(_I32))
+    satd_bi = QT.satd_tables(QT.wht16(mb_tiles(y, 16)), QT.wht16(bi))
+    rb = (lam * torch.as_tensor(bits, device=y.device)[ref0.long()]).to(_I32)
+    cbi = satd_bi.reshape(mbh, mbw) + _mvc(mv0, lam) + _mvc(mv1, lam) + rb
+    return mv0, c0, ref0, mv1, c1, cbi.to(_I32)
 
 
 def analyse_b_parts(y, refs0_luma, ref1_luma, st0, st1, c_dir8,
@@ -530,6 +614,79 @@ def scan_b_parts(part, sel8, mv0z, mv1z, c_cfg, c_dir, col_mv4, col_ref4,
                     g.commit(y4 + oy, x4 + ox, h4, w4, mv,
                              ref=ur if uses else -1)
     return code, subs, use0, use1, fmv0, fmv1, mvd0, mvd1, ref8_0
+
+
+def scan_b_frame(c_dir, c0, c1, cbi, mv0, mv1, col_mv4, col_ref4, lam: int,
+                 ref0=None):
+    """Host raster commit of the 16x16 B path (the reference's
+    bslice.py:1102 without intra MBs and temporal direct): per MB the
+    exact spatial direct derivation, the mode by the first minimum of
+    c + lam * mb_type bits over direct / L0 / L1 / BI (direct only where
+    it has a list), the MVP and mvd of the chosen lists.
+
+    c_dir/c0/c1/cbi [mbh,mbw] costs; mv0/mv1 [mbh,mbw,2] qpel; ref0
+    [mbh,mbw] each MB's L0 entry under multi-reference (None: 0).
+    Returns (mode [mbh,mbw] in {0 direct, 1 L0, 2 L1, 3 BI}, use0/use1
+    [2mbh,2mbw], fmv0/fmv1 [2mbh,2mbw,2], mvd0/mvd1 [mbh,mbw,2], ref8_0
+    [2mbh,2mbw], -1 where L0 is unused)."""
+    mbh, mbw = c0.shape
+    g0, g1 = _Grid(mbh, mbw), _Grid(mbh, mbw)
+    mode = np.zeros((mbh, mbw), np.int32)
+    use0 = np.zeros((2 * mbh, 2 * mbw), np.int32)
+    use1 = np.zeros((2 * mbh, 2 * mbw), np.int32)
+    fmv0 = np.zeros((2 * mbh, 2 * mbw, 2), np.int32)
+    fmv1 = np.zeros((2 * mbh, 2 * mbw, 2), np.int32)
+    mvd0 = np.zeros((mbh, mbw, 2), np.int32)
+    mvd1 = np.zeros((mbh, mbw, 2), np.int32)
+    ref8_0 = np.full((2 * mbh, 2 * mbw), -1, np.int32)
+    hdr = _B_HDR_BITS
+    for my in range(mbh):
+        for mx in range(mbw):
+            y4, x4 = 4 * my, 4 * mx
+            du0, du1, dmv0, dmv1, dr0, dr1 = spatial_direct(
+                g0, g1, col_mv4, col_ref4, my, mx)
+            cands = np.array([
+                (int(c_dir[my, mx]) if du0 or du1 else (1 << 60))
+                + lam * hdr[0],
+                int(c0[my, mx]) + lam * hdr[1],
+                int(c1[my, mx]) + lam * hdr[2],
+                int(cbi[my, mx]) + lam * hdr[3]], np.int64)
+            m = int(np.argmin(cands))
+            mode[my, mx] = m
+            sy, sx = slice(2 * my, 2 * my + 2), slice(2 * mx, 2 * mx + 2)
+            if m == 0:
+                use0[sy, sx] = int(du0)
+                use1[sy, sx] = int(du1)
+                fmv0[sy, sx] = dmv0.reshape(2, 2, 2)
+                fmv1[sy, sx] = dmv1.reshape(2, 2, 2)
+                if du0:
+                    ref8_0[sy, sx] = dr0
+                for b in range(4):
+                    by, bx = y4 + 2 * (b >> 1), x4 + 2 * (b & 1)
+                    g0.commit(by, bx, 2, 2, dmv0[b], ref=dr0 if du0 else -1)
+                    g1.commit(by, bx, 2, 2, dmv1[b], ref=dr1 if du1 else -1)
+                continue
+            r0 = int(ref0[my, mx]) if ref0 is not None else 0
+            u0i, u1i = int(m in (1, 3)), int(m in (2, 3))
+            if u0i:
+                mvd0[my, mx] = mv0[my, mx] - unit_mvp(g0, y4, x4, 4, D_16x16,
+                                                      0, ref=r0)
+            if u1i:
+                mvd1[my, mx] = mv1[my, mx] - unit_mvp(g1, y4, x4, 4, D_16x16,
+                                                      0, ref=0)
+            use0[sy, sx] = u0i
+            use1[sy, sx] = u1i
+            if u0i:
+                fmv0[sy, sx] = mv0[my, mx]
+                ref8_0[sy, sx] = r0
+            if u1i:
+                fmv1[sy, sx] = mv1[my, mx]
+            zero = np.zeros(2, np.int32)
+            g0.commit(y4, x4, 4, 4, mv0[my, mx] if u0i else zero,
+                      ref=r0 if u0i else -1)
+            g1.commit(y4, x4, 4, 4, mv1[my, mx] if u1i else zero,
+                      ref=0 if u1i else -1)
+    return mode, use0, use1, fmv0, fmv1, mvd0, mvd1, ref8_0
 
 
 # ---------------------------------------------------------------------------

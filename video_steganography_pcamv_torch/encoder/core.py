@@ -56,18 +56,23 @@ reference map and the native writer with ref_idx_l0. The slice header
 overrides num_ref_idx_l0_active while fewer than `ref_frames` entries
 are valid (after an IDR).
 
-With `bframes` > 0 (BASELINE config 4 whole: `b_adapt` 0, spatial
-direct, no pyramid, no `weightb`, CABAC, partitions) frames are buffered
-in display order and coded in decode order, as the reference's B pipe
-does: each GOP's last frame is a P anchor (the unpipelined P paths
-above), the frames before it non-reference B slices against the
-previous anchor (L0; under multi-reference the P list as it stood
-before the anchor) and the new one (L1). A B frame runs the two-stage
+With `bframes` > 0 (spatial direct, no pyramid, no `weightb`; CAVLC or
+CABAC, partitions on or off, any `ref_frames`) frames are buffered in
+display order and coded in decode order, as the reference's B pipe does:
+each GOP's last frame is a P anchor (the unpipelined P paths above), the
+frames before it non-reference B slices against the previous anchor (L0;
+under multi-reference the P list as it stood before the anchor) and the
+new one (L1). Where a GOP ends is the lookahead's choice: after
+`bframes` B frames (`b_adapt` 0), earlier when the newest frame predicts
+badly from its predecessor (`b_adapt` 1), or by the B-placement DP over
+a window of up to 12 frames (`b_adapt` 2). A B frame runs the two-stage
 partition analysis of `bslice.py` (B1 per list and L0 entry, B9, B3'),
-the host commit with the exact spatial direct derivation, the B encode
-(the fused luma-encode kernel) and the Python CABAC B writer; its slice
-is not deblocked and never enters the DPB. `flush()` ends a short GOP
-with the last buffered frame as its anchor.
+or without partitions the 16x16 one (B6, B7, the qpel tables, per list
+and L0 entry), the host commit with the exact spatial direct
+derivation, the B encode (the fused luma-encode kernel) and the CAVLC or
+CABAC B writer (native for 16x16 MBs at one reference, as in the
+reference); its slice is not deblocked and never enters the DPB.
+`flush()` codes the buffered frames as the last GOPs.
 """
 
 from __future__ import annotations
@@ -100,6 +105,7 @@ from . import bslice as BS
 from . import qpel_table as QT
 from .analyse2 import analyse_p_frame
 from .cabac import CabacSliceWriter
+from .cavlc import FrameCavlc
 from .inter_incr import changed_mbs, pad_subset, reencode_p_incremental
 from .intra import encode_i_frame
 from . import partition as PT
@@ -122,9 +128,9 @@ def check_slice(p: Params) -> None:
     partitions off with the host deblock (the 16x16-only path), at one
     reference; or `ref_frames` > 1 (up to 8) with or without partitions,
     either deblocker, without the 8x8 transform or rd; and `bframes` 1-16
-    with `b_adapt` 0, spatial direct, no pyramid, no `weightb`, CABAC and
-    partitions, at any of those `ref_frames`, without the 8x8 transform
-    or rd."""
+    with `b_adapt` 0, 1 or 2, spatial direct, no pyramid, no `weightb`,
+    CAVLC or CABAC, partitions on or off, at any of those `ref_frames`,
+    without the 8x8 transform or rd."""
     if not p.partitions and p.deblock_device and p.ref_frames == 1:
         raise NotImplementedError(
             "partitions off with deblock_device on: the reference drops "
@@ -134,10 +140,6 @@ def check_slice(p: Params) -> None:
     b = p.bframes > 0
     bad = []
     for name, ok in (
-            ("bframes with partitions off (ROADMAP A14a)",
-             not b or p.partitions),
-            ("bframes with CAVLC (ROADMAP A14b)", not b or p.cabac),
-            ("b_adapt 1/2 (ROADMAP A14c)", not b or p.b_adapt == 0),
             ("b_pyramid (ROADMAP A14d)", not b or not p.b_pyramid),
             ("weightb (ROADMAP A14e)", not b or not p.weightb),
             ("direct other than spatial (ROADMAP A14f)",
@@ -360,11 +362,17 @@ class Encoder:
         self.ref = None        # the newest reference
         self._poc_lsb = 0      # POC LSB of the P slice being coded
         self._pending_p = None
-        self._bbuf = []        # buffered display-order frames (B pipe)
+        # buffered display-order frames of the B pipe: (frame, y, u, v,
+        # satd, disp, lowres plane)
+        self._bbuf = []
         self._disp_idx = 0     # display index of the next input frame
         self._last_idr_disp = 0
         self._col = None       # (mv4, ref4) of the newest anchor
-        self._anchor_motion = None  # (final8, ref8) of the last P anchor
+        self._anchor_lr = None  # lowres plane of the newest anchor
+        # (final8, ref8) of the last P anchor that records its motion;
+        # None after an IDR (the 16x16 P path at one reference records
+        # none, as in the reference, so its B frames read an intra field)
+        self._anchor_motion = None
         self.frame_num = 0
         self.idr_pic_id = 0
         self.stats = EncodeStats()
@@ -489,9 +497,14 @@ class Encoder:
     def flush(self) -> bytes:
         """Drain the deferred entropy of the last P frame (b"" when
         every call returned its own access unit: unpipelined or the
-        16x16-only path); with B frames, code the buffered frames as a
-        last, short GOP."""
+        16x16-only path); with B frames, code the buffered frames as the
+        last GOPs (under `b_adapt` 2 the placement DP runs until one GOP
+        remains)."""
         out = self._drain_pending()
+        while len(self._bbuf) > self.p.bframes + 1:
+            out += self._flush_gop_k(self.lookahead.decide_b_placement(
+                self._anchor_lr, [b[6] for b in self._bbuf],
+                self.p.bframes))
         if self._bbuf:
             out += self._flush_gop()
         return out
@@ -583,6 +596,7 @@ class Encoder:
     # order in, decode order out; each anchor, then its B frames)
     # ------------------------------------------------------------------
     def _encode_frame_bpipe(self, frame: Frame) -> bytes:
+        p = self.p
         y, u, v = self._pad(frame)
         is_idr, satd = self.lookahead.decide(y)
         if self.ref is None:
@@ -594,28 +608,48 @@ class Encoder:
             # are coded as a chain of P anchors first
             out = self._flush_pending_as_p()
             self._last_idr_disp = disp
-            return out + self._encode_anchor(frame, y, u, v, True, satd,
-                                             disp)
-        self._bbuf.append((frame, y, u, v, satd, disp))
-        if len(self._bbuf) <= self.p.bframes:
+            out += self._encode_anchor(frame, y, u, v, True, satd, disp)
+            self._anchor_lr = self.lookahead.prev_lr
+            return out
+        self._bbuf.append((frame, y, u, v, satd, disp,
+                           self.lookahead.prev_lr))
+        if p.b_adapt == 2:
+            # the B-placement DP over the lookahead window (x264's
+            # B_ADAPT_TRELLIS; the window of encoder.c:713-726)
+            if len(self._bbuf) < max(p.bframes + 1, min(p.rc_lookahead, 12)):
+                return b""
+            return self._flush_gop_k(self.lookahead.decide_b_placement(
+                self._anchor_lr, [b[6] for b in self._bbuf], p.bframes))
+        # b_adapt 1 closes the GOP early at a frame that predicts badly
+        close = (p.b_adapt == 1 and len(self._bbuf) > 1
+                 and self.lookahead.bad_b_candidate)
+        if len(self._bbuf) <= p.bframes and not close:
             return b""
         return self._flush_gop()
 
     def _flush_pending_as_p(self) -> bytes:
-        out = b"".join(self._encode_anchor(f, y, u, v, False, satd, disp)
-                       for (f, y, u, v, satd, disp) in self._bbuf)
+        out = b""
+        for (f, y, u, v, satd, disp, lr) in self._bbuf:
+            out += self._encode_anchor(f, y, u, v, False, satd, disp)
+            self._anchor_lr = lr
         self._bbuf = []
         return out
 
     def _flush_gop(self) -> bytes:
-        """Code the newest buffered frame as the P anchor, then the
-        others as its B frames (decode order). The B frames' L0 list is
-        the P list as it stood before the anchor entered the DPB."""
-        items, self._bbuf = self._bbuf, []
-        f, y, u, v, satd, disp = items[-1]
+        return self._flush_gop_k(len(self._bbuf) - 1)
+
+    def _flush_gop_k(self, k: int) -> bytes:
+        """Code buffered frame k as the P anchor, then frames [0, k) as
+        its B frames (decode order); the frames after k stay buffered.
+        The B frames' L0 list is the P list as it stood before the anchor
+        entered the DPB."""
+        items = self._bbuf
+        self._bbuf = items[k + 1:]
+        f, y, u, v, satd, disp, lr = items[k]
         l0_stack = self._dpb_stacked()
         out = self._encode_anchor(f, y, u, v, False, satd, disp)
-        for (bf, by, bu, bv, bsatd, bdisp) in items[:-1]:
+        self._anchor_lr = lr
+        for (bf, by, bu, bv, bsatd, bdisp, _) in items[:k]:
             out += self._encode_b_frame(bf, by, bu, bv, l0_stack, self.ref,
                                         bsatd, bdisp)
         return out
@@ -632,9 +666,10 @@ class Encoder:
         if is_idr:
             self.lookahead.last_keyframe = disp
             out += self._encode_idr(y, u, v, qp)
-        elif self.p.ref_frames > 1:
-            out += nal_unit(NAL_SLICE, NAL_PRIORITY_HIGH,
-                            self._encode_p_mref(y, u, v, qp))
+        elif self.p.ref_frames > 1 or not self.p.partitions:
+            enc_p = (self._encode_p_mref if self.p.ref_frames > 1
+                     else self._encode_p16)
+            out += nal_unit(NAL_SLICE, NAL_PRIORITY_HIGH, enc_p(y, u, v, qp))
             self.stats.p_frames += 1
         else:
             d = self._fused_dispatch(y, u, v, qp,
@@ -645,7 +680,7 @@ class Encoder:
             self._anchor_motion = (pend["final8"], None)
             out += self._p_nal(pend)
             self.stats.p_frames += 1
-        self._save_col(is_idr)
+        self._save_col()
         self._accumulate_psnr(frame, y, u, v)
         self.frame_num += 1
         self.stats.frames += 1
@@ -654,14 +689,18 @@ class Encoder:
         self.stats.elapsed += time.time() - t0
         return out
 
-    def _save_col(self, is_idr: bool):
+    def _save_col(self):
         """The anchor's per-4x4 motion field for spatial direct's
-        colZeroFlag (the decoder stores the same field at DPB insert):
-        an I anchor is all intra (ref -1); a P anchor has no intra MB
-        (stego is on) and carries its true per-8x8 references."""
+        colZeroFlag (the reference's `_save_col`): an I anchor is all
+        intra (ref -1); a P anchor has no intra MB (stego is on) and
+        carries its true per-8x8 references. The reference reads the
+        motion of the newest frame that recorded any; its 16x16 P path
+        at one reference records none, so after an IDR such anchors give
+        the intra field too, though the decoder stores their true field:
+        the port keeps that, for the same stream."""
         p = self.p
         h4, w4 = 4 * p.mb_height, 4 * p.mb_width
-        if is_idr:
+        if self._anchor_motion is None:
             self._col = (np.zeros((h4, w4, 2), np.int32),
                          np.full((h4, w4), -1, np.int32))
             return
@@ -675,38 +714,73 @@ class Encoder:
     def _encode_b_frame(self, frame, y, u, v, l0_stack, ref_l1, satd,
                         disp: int) -> bytes:
         """A non-reference B frame between two anchors, the reference's
-        `_encode_b_frame` (core.py:2853) on its partition path with
-        spatial direct: stage 1 (B1 per L0 entry and on L1), the
-        approximate direct SATDs, stage 2 (B9, B3'), the host commit, the
-        B encode (the fused luma-encode kernel) and the CABAC B slice.
-        l0_stack: the stacked L0 list (luma, u, v, n_valid), entry 0 the
-        newest past anchor; ref_l1 the new anchor."""
+        `_encode_b_frame` (core.py:2853) with spatial direct: the B
+        analysis (`_analyse_b_parts`, or `_analyse_b16` without
+        partitions), the B encode (the fused luma-encode kernel) and the
+        CAVLC or CABAC B slice. l0_stack: the stacked L0 list (luma, u,
+        v, n_valid), entry 0 the newest past anchor; ref_l1 the new
+        anchor."""
         t0 = time.time()
         p = self.p
         mbh, mbw = p.mb_height, p.mb_width
-        n = mbh * mbw
-        dev = self.device
         qp = self.rc.start(SLICE_B, satd)
         qpc = chroma_qp(qp, p.chroma_qp_offset)
         lam = ME.lambda_tab(qp)
-        col_mv4, col_ref4 = self._col
         refs_l, refs_u, refs_v, n_valid = l0_stack
-        refs0 = dict(luma=refs_l, u=refs_u, v=refs_v)
         num_ref = n_valid   # the active L0 count the slice signals
+        analyse = self._analyse_b_parts if p.partitions else self._analyse_b16
+        (code, subs, use0, use1, fmv0, fmv1, mvd0, mvd1, ref8_0,
+         ref0_16) = analyse(y, refs_l, n_valid, ref_l1, lam)
+        t = self._dev
+        res = BS.encode_b_frame_device(
+            y, u, v, dict(luma=refs_l, u=refs_u, v=refs_v), ref_l1, t(use0),
+            t(use1), t(fmv0), t(fmv1), t(ref8_0), qp, qpc, mbh, mbw)
+        res_np = _levels_exact(res, mbh, mbw)
+        # a B frame never enters the DPB: its metrics read its own recon
+        self._accumulate_psnr(frame, y, u, v, recon=(
+            res["recon_y"], res["recon_u"], res["recon_v"]))
+        bw = BitWriter()
+        H.write_slice_header(bw, self.sps, self.pps, H.SLICE_TYPE_B,
+                             self.frame_num, qp, idr=False,
+                             disable_deblock=1,
+                             poc_lsb=2 * (disp - self._last_idr_disp),
+                             is_ref=False, direct_spatial=True,
+                             b_l0_active=num_ref)
+        # the reference codes no ref_idx_l0 at one reference (its
+        # single-reference B path passes no L0 map), and then writes a
+        # slice of 16x16 MBs natively
+        ref0_w = ref0_16 if p.ref_frames > 1 else None
+        write = (self._write_b_slice_cabac if p.cabac
+                 else self._write_b_slice_cavlc)
+        nal = write(bw, res_np, qp, code, subs, mvd0, mvd1, ref0_w, num_ref)
+        out = self._aud(SLICE_B) + nal_unit(NAL_SLICE,
+                                            NAL_PRIORITY_DISPOSABLE, nal)
+        self.stats.b_frames += 1
+        self.stats.frames += 1
+        self.stats.bits += 8 * len(out)
+        self.rc.end(8 * len(out))
+        self.stats.elapsed += time.time() - t0
+        return out
+
+    def _analyse_b_parts(self, y, refs_l, n_valid: int, ref_l1, lam: int):
+        """The partition path's B analysis (the reference's core.py:
+        2974-3038): stage 1 (B1 per L0 entry and on L1), the approximate
+        direct SATDs, stage 2 (B9, B3'), one pull, the host commit.
+        Returns `scan_b_parts`'s fields and the per-MB L0 entry."""
+        p = self.p
+        mbh, mbw = p.mb_height, p.mb_width
+        n = mbh * mbw
+        col_mv4, col_ref4 = self._col
         st0, st1, ref0_d = BS.analyse_b_parts_stage1(
             y, refs_l[:, 0].to(torch.uint8), n_valid,
             ref_l1["luma"][0].to(torch.uint8), p.me_range, mbh, mbw, lam)
         mv16 = torch.cat([st0["mv16"].reshape(-1), st1["mv16"].reshape(-1)]
                          ).cpu().numpy().reshape(2, mbh, mbw, 2)
-        au0, au1, adv0, adv1 = BS.approx_direct_fields(
-            4 * mv16[0], 4 * mv16[1], col_mv4, col_ref4)
-
-        def t(a):
-            return torch.as_tensor(np.ascontiguousarray(a)).to(dev)
-
+        au = BS.approx_direct_fields(4 * mv16[0], 4 * mv16[1], col_mv4,
+                                     col_ref4)
         c_dir8 = BS.bipred_satd8_device(
-            y, refs_l[0], ref_l1["luma"], t(au0), t(au1), t(adv0), t(adv1),
-            mbh, mbw)
+            y, refs_l[0], ref_l1["luma"], *(self._dev(a) for a in au), mbh,
+            mbw)
         stres = BS.analyse_b_parts(y, refs_l, ref_l1["luma"], st0, st1,
                                    c_dir8, ref0_d, mbh, mbw, lam)
         # one pull of everything the host commit reads
@@ -722,44 +796,117 @@ class Encoder:
         c_cfg = meta[21 * n:22 * n].reshape(mbh, mbw)
         c_dir = meta[22 * n:23 * n].reshape(mbh, mbw)
         ref0_16 = meta[23 * n:].reshape(mbh, mbw)
-        (code, subs, use0, use1, fmv0, fmv1, mvd0, mvd1,
-         ref8_0) = BS.scan_b_parts(part, sel8, mv0z, mv1z, c_cfg, c_dir,
-                                   col_mv4, col_ref4, lam, ref0=ref0_16)
-        res = BS.encode_b_frame_device(
-            y, u, v, refs0, ref_l1, t(use0), t(use1), t(fmv0), t(fmv1),
-            t(ref8_0), qp, qpc, mbh, mbw)
-        res_np = _levels_exact(res, mbh, mbw)
-        # a B frame never enters the DPB: its metrics read its own recon
-        self._accumulate_psnr(frame, y, u, v, recon=(
-            res["recon_y"], res["recon_u"], res["recon_v"]))
-        bw = BitWriter()
-        H.write_slice_header(bw, self.sps, self.pps, H.SLICE_TYPE_B,
-                             self.frame_num, qp, idr=False,
-                             disable_deblock=1,
-                             poc_lsb=2 * (disp - self._last_idr_disp),
-                             is_ref=False, direct_spatial=True,
-                             b_l0_active=num_ref)
-        nal = self._write_b_slice_cabac(bw, res_np, qp, code, subs, mvd0,
-                                        mvd1, ref0_16, num_ref)
-        out = self._aud(SLICE_B) + nal_unit(NAL_SLICE,
-                                            NAL_PRIORITY_DISPOSABLE, nal)
-        self.stats.b_frames += 1
-        self.stats.frames += 1
-        self.stats.bits += 8 * len(out)
-        self.rc.end(8 * len(out))
-        self.stats.elapsed += time.time() - t0
-        return out
+        return BS.scan_b_parts(part, sel8, mv0z, mv1z, c_cfg, c_dir,
+                               col_mv4, col_ref4, lam,
+                               ref0=ref0_16) + (ref0_16,)
+
+    def _analyse_b16(self, y, refs_l, n_valid: int, ref_l1, lam: int):
+        """The 16x16-only path's B analysis (the reference's core.py:
+        3039-3081): B6 -> B7 -> qpel tables -> subpel per list and L0
+        entry (`BS.analyse_b_frame`), one pull, the approximate direct
+        SATD per MB, one pull, the host commit (`scan_b_frame`). Returns
+        the fields of `_analyse_b_parts` (no sub_mb_types, mvds per
+        MB)."""
+        p = self.p
+        mbh, mbw = p.mb_height, p.mb_width
+        n = mbh * mbw
+        col_mv4, col_ref4 = self._col
+        mv0, c0, ref0_d, mv1, c1, cbi = BS.analyse_b_frame(
+            y, refs_l, n_valid, ref_l1["luma"], p.me_range, mbh, mbw, lam)
+        meta = torch.cat([x.reshape(-1).to(torch.int32) for x in (
+            mv0, mv1, c0, c1, cbi, ref0_d)]).cpu().numpy()
+        mv0_np = meta[:2 * n].reshape(mbh, mbw, 2)
+        mv1_np = meta[2 * n:4 * n].reshape(mbh, mbw, 2)
+        c0_np, c1_np, cbi_np, ref0_16 = (
+            meta[(4 + k) * n:(5 + k) * n].reshape(mbh, mbw)
+            for k in range(4))
+        au = BS.approx_direct_fields(mv0_np, mv1_np, col_mv4, col_ref4)
+        c_dir = BS.bipred_satd_device(
+            y, refs_l[0], ref_l1["luma"], *(self._dev(a) for a in au), mbh,
+            mbw).cpu().numpy()
+        (mode, use0, use1, fmv0, fmv1, mvd0, mvd1,
+         ref8_0) = BS.scan_b_frame(c_dir, c0_np, c1_np, cbi_np, mv0_np,
+                                   mv1_np, col_mv4, col_ref4, lam,
+                                   ref0=ref0_16)
+        return (mode, None, use0, use1, fmv0, fmv1, mvd0, mvd1, ref8_0,
+                ref0_16)
+
+    def _dev(self, a) -> torch.Tensor:
+        return torch.as_tensor(np.ascontiguousarray(a)).to(self.device)
+
+    def _write_b_slice_cavlc(self, bw, res, qp: int, code, subs, mvd0,
+                             mvd1, ref0, num_ref: int) -> bytes:
+        """CAVLC B slice data (the reference's `_write_b_slice_cavlc`,
+        core.py:3262): `mb_skip_run` over the direct MBs with no
+        residual, `FrameCavlc.write_b_mb` for the others; a slice of
+        16x16 codes (0-3) without an L0 map takes the native twin
+        `native.write_slice_b`, as in the reference. ref0 [mbh, mbw]
+        each MB's L0 entry (None: 0), coded as ref_idx_l0 when num_ref >
+        1."""
+        p = self.p
+        mbh, mbw = p.mb_height, p.mb_width
+        if ref0 is None and np.all(code <= 3):
+            return self._write_b_native(native.write_slice_b, bw, res,
+                                        code, mvd0, mvd1)
+        fc = FrameCavlc(mbw, mbh)
+        skip_run = 0
+        for my in range(mbh):
+            for mx in range(mbw):
+                m = int(code[my, mx])
+                cl = int(res["cbp_luma"][my, mx])
+                cc = int(res["cbp_chroma"][my, mx])
+                if m == 0 and cl == 0 and cc == 0:
+                    skip_run += 1
+                    fc.set_mb_nnz_zero(mx, my)
+                    continue
+                bw.write_ue(skip_run)
+                skip_run = 0
+                fc.write_b_mb(bw, mx, my, m, mvd0[my, mx], mvd1[my, mx], cl,
+                              cc, res["luma_lev"][my, mx],
+                              res["chroma_dc"][my, mx],
+                              res["chroma_ac"][my, mx],
+                              subs=None if subs is None else subs[my, mx],
+                              ref0=0 if ref0 is None else int(ref0[my, mx]),
+                              num_ref=num_ref)
+        if skip_run:
+            bw.write_ue(skip_run)
+        bw.rbsp_trailing()
+        return bw.get_bytes()
+
+    def _write_b_native(self, writer, bw, res, code, mvd0, mvd1,
+                        **kw) -> bytes:
+        """A B slice of 16x16 MBs through a native writer (mvds per MB,
+        or per unit with the MB's in slot 0)."""
+        mbh, mbw = self.p.mb_height, self.p.mb_width
+        n = mbh * mbw
+        hdr, nbits = bw.partial_bytes()
+        m0 = mvd0 if mvd0.ndim == 3 else mvd0[:, :, 0]
+        m1 = mvd1 if mvd1.ndim == 3 else mvd1[:, :, 0]
+        return writer(
+            hdr, nbits, mbw, mbh, **kw, mode=code.reshape(n),
+            mvd0=np.ascontiguousarray(m0).reshape(n, 2),
+            mvd1=np.ascontiguousarray(m1).reshape(n, 2),
+            cbp_luma=res["cbp_luma"], cbp_chroma=res["cbp_chroma"],
+            luma_blocks=res["luma_lev"].reshape(n, 16, 16),
+            chroma_dc=res["chroma_dc"].reshape(n, 2, 4),
+            chroma_ac=res["chroma_ac"].reshape(n, 2, 4, 16))
 
     def _write_b_slice_cabac(self, bw, res, qp: int, code, subs, mvd0,
                              mvd1, ref0, num_ref: int) -> bytes:
         """CABAC B slice data (the reference's `_write_b_slice_cabac`,
-        core.py:3349, Python branch): B_Skip where a direct MB has no
-        residual, `write_b_mb` for codes 0-3, `write_b_mb_ext` for the
-        partition codes; ref0 [mbh, mbw] each MB's L0 entry, coded as
-        ref_idx_l0 when num_ref > 1."""
+        core.py:3349): B_Skip where a direct MB has no residual,
+        `write_b_mb` for codes 0-3, `write_b_mb_ext` for the partition
+        codes; a slice of 16x16 codes without an L0 map takes the native
+        twin `native.write_slice_cabac_b`, as in the reference. ref0
+        [mbh, mbw] each MB's L0 entry (None: 0), coded as ref_idx_l0 when
+        num_ref > 1."""
         p = self.p
         mbh, mbw = p.mb_height, p.mb_width
         n = mbh * mbw
+        if ref0 is None and np.all(code <= 3):
+            return self._write_b_native(native.write_slice_cabac_b, bw, res,
+                                        code, mvd0, mvd1, qp=qp)
+        per_unit = mvd0.ndim == 4     # the partition path's [mbh,mbw,4,2]
         while not bw.byte_aligned():
             bw.write1(1)
         w = CabacSliceWriter(mbw, mbh, qp, slice_is_i=False,
@@ -769,13 +916,15 @@ class Encoder:
             m = int(code[my, mx])
             cl = int(res["cbp_luma"][my, mx])
             cc = int(res["cbp_chroma"][my, mx])
-            r0 = int(ref0[my, mx])
+            r0 = 0 if ref0 is None else int(ref0[my, mx])
             lev = (res["luma_lev"][my, mx], res["chroma_dc"][my, mx],
                    res["chroma_ac"][my, mx])
             if m == 0 and cl == 0 and cc == 0:
                 w.write_b_skip_mb(my, mx)
             elif m <= 3:
-                w.write_b_mb(my, mx, m, mvd0[my, mx, 0], mvd1[my, mx, 0],
+                w.write_b_mb(my, mx, m,
+                             mvd0[my, mx, 0] if per_unit else mvd0[my, mx],
+                             mvd1[my, mx, 0] if per_unit else mvd1[my, mx],
                              cl, cc, *lev, ref0=r0, num_ref=num_ref)
             else:
                 w.write_b_mb_ext(my, mx, m, subs[my, mx], mvd0[my, mx],
@@ -937,6 +1086,7 @@ class Encoder:
                              beta_div2=p.deblock_beta,
                              poc_lsb=self._poc_lsb)
         self.idr_pic_id = (self.idr_pic_id + 1) % 65536
+        self._anchor_motion = None
         hdr, nbits = bw.partial_bytes()
         if p.cabac:
             return native.write_slice_cabac(

@@ -1,6 +1,9 @@
-"""Lookahead slice-type decision (port of encoder/slicetype.py, the IPP
-subset: `lowres`, `lowres_costs`, `Lookahead.decide`, `costs_device`,
-`decide_from_costs`), and B10, `lowres_costs_kernel`.
+"""Lookahead slice-type decision (port of encoder/slicetype.py:
+`lowres`, `lowres_costs`, `Lookahead.decide`, `costs_device`,
+`decide_from_costs`, the adaptive-B signal `bad_b_candidate` of
+`b_adapt` 1, and `b_adapt` 2's placement: `lowres_costs_window`,
+`slicetype_path`, `Lookahead.decide_b_placement`), and B10,
+`lowres_costs_kernel`.
 
 The lookahead runs the plain `lowres_costs` on every device: B10's MV
 cost differs from it (the se(v) bits of B1 against a 4(|dx| + |dy|)
@@ -10,6 +13,7 @@ the kernel table and serves no path."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..ops import mc
@@ -53,6 +57,88 @@ def lowres_costs(cur_lr, ref_lr, bh: int, bw: int, rng: int = 8):
     cost_p = torch.minimum(best, intra).sum(dtype=_I32)
     cost_i = intra.sum(dtype=_I32)
     return torch.stack([cost_i, cost_p])
+
+
+def lowres_costs_window(stack, triples, bh: int, bw: int, rng: int):
+    """Lowres frame-cost estimates of (cur, fwd, bwd, has_b) triples over
+    a lookahead window, the reference's `lowres_costs_window`
+    (slicetype.py:106): per 8x8 block the minimum of the DC intra SAD,
+    the best +-rng forward SAD and, where has_b, the best backward SAD
+    and the best SAD against the average of the co-located forward and
+    backward windows (each SAD plus 4(|dy| + |dx|)), summed over the
+    frame. All triples run in one batch, step by step over the window
+    offsets: each step holds one [T, H, W] window per list, never one
+    plane per step.
+
+    stack [L, 8bh, 8bw] int32 lowres planes; triples a list of (cur,
+    fwd, bwd, has_b) stack indices (bwd ignored without has_b). Returns
+    an int64 [T] tensor. The reference sums the block minimums in int32
+    (JAX without x64); the totals stay below 2^31 at 1080p, so the int64
+    sums are the same numbers."""
+    dev = stack.device
+    h, w = 8 * bh, 8 * bw
+    tri = torch.as_tensor(np.asarray(triples, np.int64).reshape(-1, 4),
+                          device=dev)
+    pad = torch.stack([_edge_pad(s, rng) for s in stack])
+    cur = stack[tri[:, 0]]
+    reff = pad[tri[:, 1]]
+    isb = torch.nonzero(tri[:, 3]).reshape(-1)
+    curb, refb = cur[isb], pad[tri[isb, 2]]
+    reffb = reff[isb]
+    t, nb = tri.shape[0], isb.shape[0]
+
+    def block_sad(a, b):
+        return torch.abs(a - b).reshape(-1, bh, 8, bw, 8).sum(
+            (2, 4), dtype=_I32)
+
+    bf = torch.full((t, bh, bw), 1 << 30, dtype=_I32, device=dev)
+    bb = torch.full((nb, bh, bw), 1 << 30, dtype=_I32, device=dev)
+    bavg = torch.full((nb, bh, bw), 1 << 30, dtype=_I32, device=dev)
+    side = 2 * rng + 1
+    for i in range(side * side):
+        dy, dx = i // side - rng, i % side - rng
+        pen = 4 * (abs(dy) + abs(dx))
+        ys, xs = rng + dy, rng + dx
+        bf = torch.minimum(bf, block_sad(cur, reff[:, ys:ys + h, xs:xs + w])
+                           + pen)
+        if nb:
+            wf = reffb[:, ys:ys + h, xs:xs + w]
+            wb = refb[:, ys:ys + h, xs:xs + w]
+            bb = torch.minimum(bb, block_sad(curb, wb) + pen)
+            bavg = torch.minimum(bavg, block_sad(curb, (wf + wb + 1) >> 1)
+                                 + pen)
+    blocks = cur.reshape(t, bh, 8, bw, 8)
+    dc = torch.div(blocks.sum((2, 4), keepdim=True, dtype=_I32), 64,
+                   rounding_mode="floor")
+    intra = torch.abs(blocks - dc).sum((2, 4), dtype=_I32)
+    best = torch.minimum(intra, bf)
+    if nb:
+        best[isb] = torch.minimum(best[isb], torch.minimum(bb, bavg))
+    return best.sum((1, 2), dtype=torch.int64)
+
+
+def slicetype_path(costs, n: int, bframes: int):
+    """The B-placement DP over the window, the reference's
+    `slicetype_path` (slicetype.py:160, x264's B_ADAPT_TRELLIS
+    semantics): anchor positions minimising the summed float cost
+    estimates, a strict < keeping the first minimum. costs: dict[(kind,
+    i, a, b)] -> cost, kind in ('P', 'B'), window positions with the
+    previous anchor at -1; every path ends with an anchor at the last
+    frame. Returns the first anchor position k (buf[:k] become B
+    frames)."""
+    inf = float("inf")
+    dp = [inf] * n
+    first = [0] * n
+    for j in range(n):
+        for a in range(max(-1, j - 1 - bframes), j):
+            seg = costs[("P", j, a, -2)]
+            for i in range(a + 1, j):
+                seg += costs[("B", i, a, j)]
+            prev = 0.0 if a == -1 else dp[a]
+            if prev + seg < dp[j]:
+                dp[j] = prev + seg
+                first[j] = j if a == -1 else first[a]
+    return first[n - 1]
 
 
 def _dc_intra(cur_lr):
@@ -108,7 +194,8 @@ lowres_costs_kernel.launches = 0
 
 
 class Lookahead:
-    """IDR-vs-P decision: keyint expiry or scenecut (slicetype.c:437)."""
+    """IDR-vs-P decision: keyint expiry or scenecut (slicetype.c:437);
+    the adaptive-B signal and the b_adapt 2 placement."""
 
     def __init__(self, params):
         self.p = params
@@ -116,6 +203,9 @@ class Lookahead:
         self.last_keyframe = -(10 ** 9)
         self.frame_idx = -1
         self._pending_lr = None
+        # b_adapt 1: the newest decided frame predicts poorly from its
+        # predecessor (the B pipe closes the GOP with it as the anchor)
+        self.bad_b_candidate = False
 
     def costs_device(self, y: torch.Tensor) -> torch.Tensor:
         """Enqueue the lowres costs without a host pull; pair with
@@ -150,6 +240,31 @@ class Lookahead:
         self.prev_lr = cur_lr
         return self._decide_host(idx, ci, cp)
 
+    def decide_b_placement(self, anchor_lr, buf_lrs, bframes: int) -> int:
+        """b_adapt 2 over the lookahead window: the cost estimates of
+        every (p0, b, p1) triple the DP can touch in one batched device
+        call and one pull, then `slicetype_path`. anchor_lr: the previous
+        anchor's lowres plane; buf_lrs: those of the buffered
+        display-order frames. Returns the window position of the next
+        anchor (the frames before it become B frames)."""
+        p = self.p
+        n = len(buf_lrs)
+        if n == 1:
+            return 0
+        triples, keys = [], []
+        for j in range(n):
+            for a in range(max(-1, j - 1 - bframes), j):
+                triples.append((j + 1, a + 1, a + 1, 0))
+                keys.append(("P", j, a, -2))
+                for i in range(a + 1, j):
+                    triples.append((i + 1, a + 1, j + 1, 1))
+                    keys.append(("B", i, a, j))
+        vals = lowres_costs_window(
+            torch.stack([anchor_lr] + list(buf_lrs)), triples, p.mb_height,
+            p.mb_width, p.lookahead_me_range).cpu().tolist()
+        return slicetype_path({k: float(v) for k, v in zip(keys, vals)}, n,
+                              bframes)
+
     def _decide_host(self, idx: int, ci: int, cp: int):
         p = self.p
         since_key = idx - self.last_keyframe
@@ -161,6 +276,7 @@ class Lookahead:
                        thresh + thresh * (since_key / p.keyint_max))
             if cp >= (1.0 - bias) * ci:
                 is_idr = True
+        self.bad_b_candidate = cp * 10 > ci * 9
         if is_idr:
             self.last_keyframe = idx
             return True, ci

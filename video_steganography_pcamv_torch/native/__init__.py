@@ -1,8 +1,9 @@
 """ctypes loader for the port's native host back-end.
 
-`pcamv_native.cpp` (CAVLC slice writer, the partition MVP / P_SKIP scans
-with references and the 16x16 ones, STC embedder) and `cabac.cpp` (the CABAC I/P slice
-writer) are the port's copies of the reference package's C++ sources. It
+`pcamv_native.cpp` (the CAVLC I/P slice writer and the 16x16 B one, the
+partition MVP / P_SKIP scans with references and the 16x16 ones, the STC
+embedder) and `cabac.cpp` (the CABAC I/P slice writer and the 16x16 B
+one) are the port's copies of the reference package's C++ sources. It
 is compiled with g++ at first use into `build/torch_native/` at the
 repository root (git-ignored); the library name carries a hash of the
 sources and flags, so an edit rebuilds it. A failed build raises.
@@ -84,6 +85,12 @@ def load() -> ctypes.CDLL:
         u8p, ctypes.c_long, u8p, ci, ci, ci, ci, ci, ci,
         vp, vp, vp, vp, vp, i32p, i32p, vp, i32p, i32p, i32p,
         vp, vp, vp, ci, vp, ci, vp, vp, vp, vp, ci]
+    lib.pcamv_write_slice_b.restype = ctypes.c_long
+    lib.pcamv_write_slice_b.argtypes = [
+        u8p, ctypes.c_long, u8p, ci, ci, ci] + [i32p] * 8
+    lib.pcamv_write_slice_cabac_b.restype = ctypes.c_long
+    lib.pcamv_write_slice_cabac_b.argtypes = [
+        u8p, ctypes.c_long, u8p, ci, ci, ci, ci, ci] + [i32p] * 8
     lib.pcamv_scan_p_parts.restype = None
     lib.pcamv_scan_p_parts.argtypes = [
         i32p, i32p, i32p, i32p, ci, ci, vp, u8p, i32p, i32p, i32p, vp]
@@ -234,6 +241,52 @@ def write_slice_cabac(header_bytes: bytes, header_nbits: int,
         cap *= 4
         if cap > (1 << 28):
             raise RuntimeError("native cabac writer overflow")
+
+
+def _write_b(entry: str, args, mode, mvd0, mvd1, cbp_luma, cbp_chroma,
+             luma_blocks, chroma_dc, chroma_ac, n: int) -> bytes:
+    cap = 1 << 22
+    while True:
+        out = np.zeros(cap, np.uint8)
+        r = getattr(load(), entry)(
+            out, cap, *args, _as_i32(mode).reshape(n),
+            _as_i32(mvd0).reshape(n * 2), _as_i32(mvd1).reshape(n * 2),
+            _as_i32(cbp_luma).reshape(n), _as_i32(cbp_chroma).reshape(n),
+            _as_i32(luma_blocks).reshape(n * 256),
+            _as_i32(chroma_dc).reshape(n * 8),
+            _as_i32(chroma_ac).reshape(n * 128))
+        if r >= 0:
+            return bytes(out[:r])
+        cap *= 4
+        if cap > (1 << 28):
+            raise RuntimeError("native %s overflow" % entry)
+
+
+def write_slice_b(header_bytes: bytes, header_nbits: int, mbw: int,
+                  mbh: int, *, mode, mvd0, mvd1, cbp_luma, cbp_chroma,
+                  luma_blocks, chroma_dc, chroma_ac) -> bytes:
+    """Native CAVLC B slice of 16x16 MBs at one reference (twin of the
+    encoder's `_write_b_slice_cavlc` with `encoder/cavlc.py`): mode [N]
+    codes 0-3 (0 with no residual is a B_Skip in mb_skip_run), mvd0/mvd1
+    [N, 2]; the residual shapes as in `write_slice`."""
+    hdr = np.frombuffer(header_bytes + b"\0" * 8, np.uint8).copy()
+    return _write_b("pcamv_write_slice_b", (hdr, header_nbits, mbw, mbh),
+                    mode, mvd0, mvd1, cbp_luma, cbp_chroma, luma_blocks,
+                    chroma_dc, chroma_ac, mbw * mbh)
+
+
+def write_slice_cabac_b(header_bytes: bytes, header_nbits: int, mbw: int,
+                        mbh: int, qp: int, *, model: int = 0, mode, mvd0,
+                        mvd1, cbp_luma, cbp_chroma, luma_blocks, chroma_dc,
+                        chroma_ac) -> bytes:
+    """Native CABAC B slice of 16x16 MBs at one reference (twin of the
+    encoder's `_write_b_slice_cabac` with `encoder/cabac.py`); arguments
+    as in `write_slice_b`."""
+    hdr = np.frombuffer(header_bytes + b"\0" * 8, np.uint8).copy()
+    return _write_b("pcamv_write_slice_cabac_b",
+                    (hdr, header_nbits, mbw, mbh, qp, model), mode, mvd0,
+                    mvd1, cbp_luma, cbp_chroma, luma_blocks, chroma_dc,
+                    chroma_ac, mbw * mbh)
 
 
 def scan_p_parts(part, mv8, cbp_luma, cbp_chroma, intra=None, ref8=None):

@@ -1,5 +1,5 @@
-// Native CABAC entropy coder for I and P slices: the port's copy of the
-// reference package's native/cabac.cpp, without its B-slice writer. C++
+// Native CABAC entropy coder for I, P and 16x16 B slices: the port's copy
+// of the reference package's native/cabac.cpp. C++
 // twin of encoder/cabac.py's CabacSliceWriter (the tests hold them
 // bit-identical). After x264's encoder/cabac.c:781 and the
 // common/cabac.c engine; implements the spec 9.3 algorithms with the
@@ -756,6 +756,78 @@ extern "C" long pcamv_write_slice_cabac(
     S.cb.terminal(a == n - 1);
   }
   // pad the rbsp to a byte boundary
+  while (bits.nbits) bits.bit(0);
+  return bits.overflow ? -1 : bits.bytes;
+}
+
+
+extern "C" long pcamv_write_slice_cabac_b(
+    uint8_t* out, long out_cap, const uint8_t* header, int header_nbits,
+    int mbw, int mbh, int qp, int model, const int32_t* mode,
+    const int32_t* mvd0, const int32_t* mvd1, const int32_t* cbp_luma,
+    const int32_t* cbp_chroma, const int32_t* luma_blocks,
+    const int32_t* chroma_dc, const int32_t* chroma_ac) {
+  // CABAC B slice, 16x16 subset; Python twin:
+  // encoder/core.py _write_b_slice_cabac
+  CabacBits bits(out, out_cap);
+  for (int i = 0; i < header_nbits; i++)
+    bits.bit((header[i >> 3] >> (7 - (i & 7))) & 1);
+  while (bits.nbits) bits.bit(1);
+
+  CabacSlice S(mbw, mbh, qp, false, model);
+  S.is_b = true;
+  S.cb.out = &bits;
+  int n = mbw * mbh;
+  for (int a = 0; a < n; a++) {
+    int my = a / mbw, mx = a % mbw;
+    int btype = mode[a];
+    int cbpl = cbp_luma[a], cbpc = cbp_chroma[a];
+    if (btype == 0 && cbpl == 0 && cbpc == 0) {  // B_SKIP
+      S.skip_flag(my, mx, 1);
+      S.clear_nnz(my, mx, true);
+      S.clear_mvd(my, mx);
+      S.clear_mvd1(my, mx);
+      S.m.dc_nz_y[a] = 0;
+      S.m.dc_nz_c[my * mbw + mx] = 0;
+      S.m.dc_nz_c[(mbh + my) * mbw + mx] = 0;
+      S.m.mb_kind[a] = 0;
+      S.m.bdirect[a] = 1;
+      S.m.cbp[a] = 0;
+      S.m.cmode_map[a] = 0;
+      S.fill_m4(my, mx, 2);
+      S.cb.terminal(a == n - 1);
+      continue;
+    }
+    S.skip_flag(my, mx, 0);
+    S.mb_type_b(my, mx, btype);
+    if (btype == 1 || btype == 3)
+      S.mvd_one(4 * my, 4 * mx, 4, 4, mvd0[a * 2], mvd0[a * 2 + 1], 0);
+    else
+      S.clear_mvd(my, mx);
+    if (btype == 2 || btype == 3)
+      S.mvd_one(4 * my, 4 * mx, 4, 4, mvd1[a * 2], mvd1[a * 2 + 1], 1);
+    else
+      S.clear_mvd1(my, mx);
+    S.cbp_luma(my, mx, cbpl);
+    S.cbp_chroma(my, mx, cbpc);
+    S.m.mb_kind[a] = 1;
+    S.m.bdirect[a] = btype == 0;
+    S.m.cbp[a] = (cbpc << 4) | cbpl;
+    S.m.cmode_map[a] = 0;
+    S.fill_m4(my, mx, 2);
+    S.m.dc_nz_y[a] = 0;
+    S.m.dc_nz_c[my * mbw + mx] = 0;
+    S.m.dc_nz_c[(mbh + my) * mbw + mx] = 0;
+    if (cbpl || cbpc) {
+      S.cb.dec(60, 0);  // mb_qp_delta == 0
+      luma_res_4x4(S, my, mx, &luma_blocks[a * 256], cbpl, false);
+      chroma_res(S, my, mx, cbpc, &chroma_dc[a * 8],
+                 &chroma_ac[a * 128], false);
+    } else {
+      S.clear_nnz(my, mx, true);
+    }
+    S.cb.terminal(a == n - 1);
+  }
   while (bits.nbits) bits.bit(0);
   return bits.overflow ? -1 : bits.bytes;
 }

@@ -2,12 +2,13 @@
 // scans and the STC embedder.
 //
 // A copy of the reference package's native/pcamv_native.cpp cut to the
-// six entry points the port calls (pcamv_write_slice, pcamv_scan_p_parts,
-// pcamv_scan_p_parts_forced, pcamv_host_scan_p, pcamv_host_scan_p_forced,
-// pcamv_stc_embed) and to the port's slice: I slices (I16x16, I4x4 and,
-// with the 8x8 transform, I8x8) and P slices with or without partitions,
-// one or more references (ref_idx_l0 per partition, the MVP's same-ref
-// rules), the 4x4 or the adaptive 8x8 transform. Twins of the
+// seven entry points the port calls (pcamv_write_slice,
+// pcamv_write_slice_b, pcamv_scan_p_parts, pcamv_scan_p_parts_forced,
+// pcamv_host_scan_p, pcamv_host_scan_p_forced, pcamv_stc_embed) and to the
+// port's slice: I slices (I16x16, I4x4 and, with the 8x8 transform, I8x8),
+// P slices with or without partitions, one or more references (ref_idx_l0
+// per partition, the MVP's same-ref rules), the 4x4 or the adaptive 8x8
+// transform, and B slices of 16x16 MBs at one reference. Twins of the
 // reference's serial host paths:
 //   - encoder/cavlc.c:288-717 (MB + residual writers) and common/bs.h
 //   - common/macroblock.c:28-165 (median MVP / pskip derivation)
@@ -466,6 +467,77 @@ static int stc_get_matrix(int width, int height, uint32_t* hold,
   return 0;
 }
 }  // namespace
+
+// B slice, 16x16 subset (spec 7.4.5 B table: direct=0/L0=1/L1=2/BI=3;
+// B_SKIP = direct with empty cbp, coded in mb_skip_run). Python twin:
+// encoder/core.py _write_b_slice_cavlc with encoder/cavlc.py.
+extern "C" long pcamv_write_slice_b(
+    uint8_t* out, long out_cap, const uint8_t* header, int header_nbits,
+    int mbw, int mbh, const int32_t* mode, const int32_t* mvd0,
+    const int32_t* mvd1, const int32_t* cbp_luma,
+    const int32_t* cbp_chroma, const int32_t* luma_blocks,
+    const int32_t* chroma_dc, const int32_t* chroma_ac) {
+  BitWriter bw(out, out_cap);
+  for (int i = 0; i < header_nbits; i++)
+    bw.put(1, (header[i >> 3] >> (7 - (i & 7))) & 1);
+  FrameCtx fc(mbw, mbh);
+  int n = mbw * mbh;
+  int skip_run = 0;
+  for (int a = 0; a < n; a++) {
+    int my = a / mbw, mx = a % mbw;
+    int m = mode[a];
+    int cbpl = cbp_luma[a], cbpc = cbp_chroma[a];
+    if (m == 0 && cbpl == 0 && cbpc == 0) {  // B_SKIP
+      skip_run++;
+      for (int b = 0; b < 4; b++)
+        for (int c = 0; c < 4; c++) fc.set_ny(4 * my + b, 4 * mx + c, 0);
+      for (int ch = 0; ch < 2; ch++)
+        for (int b = 0; b < 2; b++)
+          for (int c = 0; c < 2; c++)
+            fc.set_nc(ch, 2 * my + b, 2 * mx + c, 0);
+      continue;
+    }
+    bw.put_ue(skip_run);
+    skip_run = 0;
+    bw.put_ue((uint32_t)m);
+    if (m == 1 || m == 3) {
+      bw.put_se(mvd0[a * 2]);
+      bw.put_se(mvd0[a * 2 + 1]);
+    }
+    if (m == 2 || m == 3) {
+      bw.put_se(mvd1[a * 2]);
+      bw.put_se(mvd1[a * 2 + 1]);
+    }
+    int cbp = (cbpc << 4) | cbpl;
+    bw.put_ue(CBP_INTER_TO_GOLOMB[cbp]);
+    if (cbp) bw.put_se(0);  // qp_delta (CQP)
+    for (int blk = 0; blk < 16; blk++) {
+      int braster = LSCAN[blk];
+      int by = braster >> 2, bx = braster & 3;
+      int yy = 4 * my + by, xx = 4 * mx + bx;
+      if (cbpl & (1 << (blk >> 2))) {
+        int z[16];
+        zigzag16(&luma_blocks[(a * 16 + braster) * 16], z);
+        int nc = fc.ctx(true, 0, yy, xx);
+        fc.set_ny(yy, xx, write_residual(bw, z, 16, nc));
+      } else {
+        fc.set_ny(yy, xx, 0);
+      }
+    }
+    if (cbp) {
+      write_chroma(bw, fc, mx, my, cbpc, &chroma_dc[a * 8],
+                   &chroma_ac[a * 128]);
+    } else {
+      for (int ch = 0; ch < 2; ch++)
+        for (int b = 0; b < 2; b++)
+          for (int c = 0; c < 2; c++)
+            fc.set_nc(ch, 2 * my + b, 2 * mx + c, 0);
+    }
+  }
+  if (skip_run) bw.put_ue(skip_run);
+  bw.trailing();
+  return bw.overflow ? -1 : bw.bytes;
+}
 
 extern "C" int pcamv_stc_embed(const uint8_t* cover, long n,
                                const uint8_t* msg, long k,

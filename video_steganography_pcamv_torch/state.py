@@ -7,9 +7,14 @@ lowres plane and keyframe counters, the rate-control state, the stego
 message PRNG and STC matrix LCG (and the messages sent so far),
 frame_num, the POC LSB, the IDR picture id, the encode stats (frame and
 bit counts, the PSNR/SSIM sums `close()` reports, the stego counters),
-and the pending pipelined frame if there is one. `load_state(port_encoder, state)` installs it,
-so the port can resume mid-stream at a real P frame. This module imports no jax: it
-only reads attributes and converts arrays with `numpy.asarray`.
+the pending pipelined frame if there is one, and the B pipe: the
+buffered display-order frames (source planes, padded planes, lookahead
+SATD, display index, lowres plane), the display counters, the newest
+anchor's lowres plane and colocated motion field, the motion the next
+anchor's field would fall back to, and the lookahead's adaptive-B flag.
+`load_state(port_encoder, state)` installs it, so the port can resume
+mid-stream, at a GOP boundary or inside a GOP. This module imports no
+jax: it only reads attributes and converts arrays with `numpy.asarray`.
 """
 
 from __future__ import annotations
@@ -19,6 +24,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from .utils.yuv import Frame
 
 _REF_KEYS = ("luma", "u", "v")
 _RES_KEYS = ("luma_lev", "chroma_dc", "chroma_ac", "cbp_luma",
@@ -38,6 +45,26 @@ def from_reference(enc) -> dict:
                         if k in pd["res"]},
                 **{k: copy.deepcopy(pd[k]) for k in _PEND_KEYS}}
     st = enc._stego
+
+    def arr(a):
+        return None if a is None else np.asarray(a)
+
+    info = getattr(enc, "last_frame_info", None) or {}
+    motion = (None if info.get("mv8") is None
+              else (np.asarray(info["mv8"]), arr(info.get("ref8"))))
+    bpipe = {
+        "bbuf": [{"frame": tuple(np.asarray(x) for x in (f.y, f.u, f.v)),
+                  "planes": tuple(np.asarray(x) for x in (y, u, v)),
+                  "satd": int(satd), "disp": int(disp), "lr": arr(lr)}
+                 for (f, y, u, v, satd, disp, lr) in enc._bbuf],
+        "disp_idx": enc._disp_idx,
+        "last_idr_disp": enc._last_idr_disp,
+        "col": (None if enc._col is None
+                else tuple(np.asarray(x) for x in enc._col)),
+        "anchor_lr": arr(enc._anchor_lr),
+        "anchor_motion": motion,
+        "bad_b_candidate": bool(la.bad_b_candidate),
+    }
     return {
         "dpb": [{k: np.asarray(e[k]) for k in _REF_KEYS}
                 for e in enc._dpb_store],
@@ -55,6 +82,7 @@ def from_reference(enc) -> dict:
         "idr_pic_id": enc.idr_pic_id,
         "stats": dataclasses.asdict(enc.stats),
         "pending": pend,
+        "bpipe": bpipe,
     }
 
 
@@ -85,9 +113,29 @@ def load_state(enc, d: dict) -> None:
     for f in dataclasses.fields(enc.stats):
         if f.name in d["stats"]:
             setattr(enc.stats, f.name, d["stats"][f.name])
+    _load_bpipe(enc, d["bpipe"], t)
     enc._pending_p = None
     if d["pending"] is not None:
         pd = {k: copy.deepcopy(d["pending"][k]) for k in _PEND_KEYS}
         pd["buf"] = t(d["pending"]["buf"])
         pd["res"] = {k: t(v) for k, v in d["pending"]["res"].items()}
         enc._pending_p = pd
+
+
+def _load_bpipe(enc, b: dict, t) -> None:
+    def t_or_none(a):
+        return None if a is None else t(a).to(torch.int32)
+
+    enc._bbuf = [(Frame(*(np.array(x) for x in e["frame"])),
+                  *(t(x).to(torch.int32) for x in e["planes"]), e["satd"],
+                  e["disp"], t_or_none(e["lr"])) for e in b["bbuf"]]
+    enc._disp_idx = b["disp_idx"]
+    enc._last_idr_disp = b["last_idr_disp"]
+    enc._col = (None if b["col"] is None
+                else tuple(np.array(x, np.int32) for x in b["col"]))
+    enc._anchor_lr = t_or_none(b["anchor_lr"])
+    m = b["anchor_motion"]
+    enc._anchor_motion = (None if m is None else (
+        np.array(m[0], np.int32), None if m[1] is None
+        else np.array(m[1], np.int32)))
+    enc.lookahead.bad_b_candidate = b["bad_b_candidate"]
