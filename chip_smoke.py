@@ -104,7 +104,8 @@ Phases (any failure raises and the script exits non-zero):
      the payload recovered through the port's CABAC decoder, whose B
      frames equal the encoder's recon; P and B fps, the IDR's seconds
      and bytes per frame with its slice type printed;
- 23. (only with --stagesB) per-stage times of phase 22's B frames;
+ 23. (only with --stagesB) per-stage times of phase 22's B frames
+     (IDR + 6 frames + flush) and of phase 26's;
  24. the reference's default Params with bframes 2 (CAVLC, b_adapt 1,
      partitions, one reference, the host deblock's twin B5, PSNR on,
      me_range 16) at 1920x1088 on phase 22's clip, IDR + 6 frames +
@@ -123,7 +124,25 @@ Phases (any failure raises and the script exits non-zero):
      no other kernel launched by a B frame, the payload recovered; the
      frames the placement DP coded as B printed, and the pixels where
      the decoded B frames differ from the encoder's recon (the
-     reference's stale colocated field on this path, ROADMAP F2).
+     reference's stale colocated field on this path, ROADMAP F2);
+ 26. config 4 with bframes 3, b_pyramid, weightb and direct auto
+     (tools/bench_c4.py's Params and clip otherwise: CABAC, ref_frames
+     2, b_adapt 0) at 1920x1088, IDR + 5 frames + flush, decode order I
+     P4 Bref2 B1 B3 P5 (the middle B a reference picture, P5 with the
+     L0 reordering op): every kernel call of the B frames, the reference
+     B's included, array-equal to its plain version, each B frame
+     launching B1 three times, B9 and B3' twice, the fused luma encode
+     once and no other kernel; the payload recovered through the port's
+     CABAC decoder, whose frames, the reference B among them, equal the
+     encoder's recon; the reference B frames, the direct mode per B
+     slice and the ms of the direct-auto score's extra dispatch
+     printed;
+ 27. the same pyramid at temporal direct without weightb under CAVLC
+     (direct 2, bframes 3, ref_frames 2) at 1920x1088, IDR + 4 frames +
+     flush, decode order I P4 Bref2 B1 B3: every B slice temporal, so
+     that B1 (L1[0] the reference B) reads the reference B's L0-only
+     colocated field and B3 takes two valid unweighted L0 entries; the
+     same kernel, launch, recon and payload checks as phase 26.
 Phase 3 also holds B5 with a fuzzed per-4x4 reference map (ref4), phase
 13 B9 on a stack of two references with a per-8x8 reference (ref8), and
 phase 17 the multi-reference streams at 112x80 (ref_frames 2 under
@@ -131,10 +150,18 @@ CAVLC and CABAC, 3 with keyint_max 3 on the CPU branch, partitions
 off) and the B streams (config 4, bframes 1 at one reference, CAVLC B
 at one reference (the default Params with bframes 2, b_adapt 1) and at
 two, b_adapt 2, the 16x16 path's B frames under CABAC at one reference,
-the native writer, and two, the Python one).
+the native writer, and two, the Python one; b_pyramid with weightb and
+direct auto at two references, temporal direct with weightb under
+CAVLC, direct none, and the 16x16 path's pyramid with temporal direct
+at two references).
 Phases 9 and 13 run right after phase 4, so that a new kernel that fails
 stops the run early; 17 runs after 14, and 18, 19, 20, 22, 24 and 25
-after 6.
+after 6, 26 and 27 after 25.
+The decode checks of the full-width phases (6, 7, 11, 15, 19, 20, 22
+and 24-27: the port's CPU decoder, seconds a 1080p frame, and its
+extractor) run in three spawned worker processes while the later
+phases use the card; phase 28 waits for them, prints each one's result
+and fails if any failed.
 Each phase logs its wall time. The line before the last two holds the
 per-kernel JSON record, then the card line; the last line is
 {"ok": true, "device": {...}}.
@@ -984,22 +1011,85 @@ def _encode(p, frames, device):
     return enc, bs
 
 
-def _check_payload(bs, enc, n_frames):
+def _decode_job(bs, n_frames, sent, recon=None):
     """The port's decoder reconstructs every frame (a CPU deblock,
     seconds a frame at 1080p) and the port's blind extractor recovers
-    the payload from the decoded frames."""
+    the payload `sent` from the decoded frames. With `recon` (display
+    index -> the encoder's planes of each B frame) each decoded B frame
+    is held against them. Returns (payload bits, decode + extraction s,
+    the differing pixels and the MB types of each B frame by display
+    index)."""
     from video_steganography_pcamv_torch.decoder import decode_annexb
     from video_steganography_pcamv_torch.stego.extract import (
         extract_from_frames)
+    t0 = time.time()
     dec = decode_annexb(bs)
     if len(dec) != n_frames:
         raise AssertionError("decoded %d frames of %d" % (len(dec), n_frames))
+    kinds, differ = {}, {}
+    for fr in dec:
+        if recon is None or fr.slice_type != 1:
+            continue
+        d = fr.poc // 2
+        kinds[d] = dict(collections.Counter(m.mb_type for m in fr.mbs))
+        differ[d] = sum(int((getattr(fr, pl) != r[:fr.y.shape[0] // s,
+                                                  :fr.y.shape[1] // s]).sum())
+                        for pl, r, s in zip("yuv", recon[d], (1, 2, 2)))
     got = extract_from_frames(dec, em_rate=64)
-    sent = enc._stego.sent_messages
     if len(got) != len(sent) or not all(
             np.array_equal(a, b) for a, b in zip(got, sent)):
         raise AssertionError("extracted payload != sent payload")
-    return sum(len(s) for s in sent)
+    return sum(len(s) for s in sent), time.time() - t0, differ, kinds
+
+
+def _check_payload(bs, enc, n_frames):
+    """`_decode_job` here, for the small streams; returns the payload
+    bits."""
+    return _decode_job(bs, n_frames, enc._stego.sent_messages)[0]
+
+
+# the 1080p decode checks run in worker processes while the next phases
+# use the card; `_join_checks` collects them before the result is printed
+_POOL, _DEFERRED = None, []
+
+
+def _worker_init():
+    torch.set_num_threads(2)
+
+
+def _defer(report, bs, n_frames, sent, recon=None):
+    """Submit `_decode_job` to a worker process (spawned: the parent has
+    a CUDA context) and keep `report`, which `_join_checks` calls here
+    with its result, in the order submitted."""
+    global _POOL
+    if _POOL is None:
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+        _POOL = ProcessPoolExecutor(
+            3, mp_context=multiprocessing.get_context("spawn"),
+            initializer=_worker_init)
+    _DEFERRED.append((_POOL.submit(_decode_job, bs, n_frames, list(sent),
+                                   recon), report))
+
+
+def _join_checks():
+    """Wait for every deferred decode check and report it; the first
+    that failed raises. The worker processes are stopped either way."""
+    try:
+        while _DEFERRED:
+            fut, report = _DEFERRED.pop(0)
+            report(fut.result())
+    finally:
+        _stop_pool()
+
+
+def _stop_pool():
+    """Drop the checks not yet started and stop the worker processes."""
+    global _POOL
+    _DEFERRED.clear()
+    if _POOL is not None:
+        _POOL.shutdown(wait=True, cancel_futures=True)
+        _POOL = None
 
 
 def phase_small(dev):
@@ -1109,7 +1199,18 @@ def phase_small_cabac(dev):
               dict(cabac=True, partitions=False, bframes=2, b_adapt=0)),
              ("16x16 B, cabac, ref_frames 2", True,
               dict(cabac=True, partitions=False, bframes=2, b_adapt=0,
-                   ref_frames=2)))
+                   ref_frames=2)),
+             ("b_pyramid, weightb, direct auto (bframes 3, ref_frames 2, "
+              "cabac)", True,
+              dict(cabac=True, bframes=3, b_adapt=0, ref_frames=2,
+                   b_pyramid=True, weightb=True, direct=3)),
+             ("temporal direct, weightb, CAVLC, b_adapt 1", True,
+              dict(bframes=2, b_adapt=1, direct=2, weightb=True)),
+             ("direct none, cabac", True,
+              dict(cabac=True, bframes=2, b_adapt=0, direct=0)),
+             ("16x16 B, b_pyramid, temporal direct, ref_frames 2", True,
+              dict(partitions=False, bframes=3, b_adapt=0, b_pyramid=True,
+                   direct=2, ref_frames=2)))
     for what, tk, kw in cases:
         enc_g, bs_g = _encode(_params(112, 80, tk, **kw), frames, dev)
         enc_c, bs_c = _encode(_params(112, 80, tk, **kw), frames, "cpu")
@@ -1186,7 +1287,8 @@ def phase_cabac(dev, card, bs6):
                                         cabac=True)
     finally:
         native.write_slice_cabac = orig
-    cab, cav = _frame_bytes(bs), _frame_bytes(bs6)[:3]
+    cab = _frame_bytes(bs)
+    cav = _frame_bytes(bs6)[:len(cab)]
     log("1080p bytes per frame, CABAC %s against CAVLC (phase 6) %s: "
         "%+.2f%% in all, %+.2f%% over the P frames"
         % (cab, cav, 100.0 * (sum(cab) / sum(cav) - 1),
@@ -1219,7 +1321,8 @@ def phase_config4p(dev, card):
     with bframes 0: ref_frames 2, CABAC, me_range 16, key 5), IDR + 2 P:
     the payload through the port's CABAC decoder, the exact launch
     counts, and the share of 8x8 blocks the analysis put on reference
-    1 (read after the run)."""
+    1 (read after the run), which must not be 0 on the P frame whose
+    list holds two valid references."""
     from video_steganography_pcamv_torch.encoder import partition as PT
     from video_steganography_pcamv_torch.params import StegoParams
     orig, ref8s = PT.analyse_p_frame_parts_mref, []
@@ -1240,6 +1343,9 @@ def phase_config4p(dev, card):
     log("1080p config 4 P half: %d bytes per frame %s; 8x8 blocks on "
         "reference 1 per P frame %s  [%s]"
         % (len(bs), _frame_bytes(bs), ["%.4f" % x for x in share], card))
+    if len(share) != 2 or share[1] <= 0:
+        raise AssertionError("1080p config 4 P half: no 8x8 block on "
+                             "reference 1 in the second P frame: %s" % share)
     return launches
 
 
@@ -1307,6 +1413,45 @@ def phase_defaults_b(dev, card, cabac_write_ms, n_frames: int = 7):
            float(np.median(cabac_write_ms)), card))
 
 
+# phase 26's B options over config 4's Params (tools/bench_c4.py's
+# bframes 2 raised to 3, so that a GOP holds a reference B)
+PYRAMID = dict(bframes=3, b_pyramid=True, weightb=True, direct=3)
+
+
+def phase_pyramid(dev, card, n_frames: int = 6):
+    """Phase 26: tools/bench_c4.py's Params (CABAC, ref_frames 2,
+    partitions, me_range 16, stego em_rate 64 key 5) and clip with
+    bframes 3, b_pyramid, weightb and direct auto at b_adapt 0, IDR + 5
+    + flush: decode order I P4 Bref2 B1 B3 P5 (`phase_bpath`). The
+    reference B is coded as a reference picture, the outer B frames
+    take it as L1[0] and as L0[0], P5 carries the L0 reordering op;
+    temporal direct on the first slices (the auto score starts at [0,
+    0]), implicit weights on every BI combine."""
+    from video_steganography_pcamv_torch.params import StegoParams
+    p = _params(1920, 1088, True, cabac=True, b_adapt=0, ref_frames=2,
+                stego=StegoParams(em_rate=64, key=5), **PYRAMID)
+    phase_bpath(dev, card, "1080p b_pyramid, weightb, direct auto "
+                "(bframes 3, ref_frames 2, CABAC)", p, n_frames,
+                want_pb=(2, 3), want_brefs=[2])
+
+
+def phase_pyramid_temporal(dev, card, n_frames: int = 5):
+    """Phase 27: phase 26's pyramid at temporal direct without weightb,
+    under CAVLC (direct 2, bframes 3, ref_frames 2, b_adapt 0), IDR + 4
+    + flush: decode order I P4 Bref2 B1 B3 (`phase_bpath`). Every B slice
+    is temporal: B1 (L1[0] the reference B) reads the reference B's
+    L0-only colocated field, -2 on its L1-only blocks, through
+    map_col_to_list0; B3 (L0[0] the reference B) takes two valid
+    unweighted L0 entries."""
+    from video_steganography_pcamv_torch.params import StegoParams
+    p = _params(1920, 1088, True, cabac=False, b_adapt=0, ref_frames=2,
+                stego=StegoParams(em_rate=64, key=5), bframes=3,
+                b_pyramid=True, direct=2)
+    phase_bpath(dev, card, "1080p b_pyramid, temporal direct (bframes 3, "
+                "ref_frames 2, CAVLC)", p, n_frames, want_pb=(1, 3),
+                want_brefs=[2], want_direct=["temporal"] * 3)
+
+
 def phase_b16(dev, card, n_frames: int = 7):
     """The 16x16-only path with B frames at 1080p (partitions=False,
     deblock_device=False, bframes 2, b_adapt 2, rc_lookahead 4, CAVLC,
@@ -1321,7 +1466,7 @@ def phase_b16(dev, card, n_frames: int = 7):
 
 
 def phase_bpath(dev, card, label, p, n_frames, want_pb=None,
-                recon_equal=True):
+                recon_equal=True, want_brefs=None, want_direct=None):
     """One B-frame configuration at 1080p on bench_c4's clip
     (synthetic_sequence seed 9), IDR + n_frames - 1 + flush. Every
     kernel call of the B frames is held against its plain version on the
@@ -1330,7 +1475,9 @@ def phase_bpath(dev, card, label, p, n_frames, want_pb=None,
     on the 16x16 path, the fused luma encode once and no other kernel;
     the payload is recovered through the port's decoder, whose B frames
     equal the encoder's recon (`recon_equal`; else the differing pixels
-    are counted and printed). want_pb: the (P, B) frame counts, checked
+    are counted and printed), in a worker process (`_defer`). want_pb: the (P, B) frame counts, and
+    want_brefs the display indices of the reference B frames and
+    want_direct the direct mode of each B slice in decode order, checked
     when given. P and B fps (the B frames' kernel checks excluded), the
     IDR's seconds, bytes per frame with its slice type, the launches per
     B frame, each B frame's MB types and the B writer's ms per B frame
@@ -1383,18 +1530,35 @@ def phase_bpath(dev, card, label, p, n_frames, want_pb=None,
                      time.perf_counter() - t0))
         return out
 
-    def timed_b(f, y, u, v, l0_stack, ref_l1, satd, disp):
+    def timed_b(f, y, u, v, l0, ref_l1, col, satd, disp, *a, **kw):
         before = {k: fn.launches for k, fn in fns.items()}
         state["check"], state["check_s"] = True, 0.0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = bframe(f, y, u, v, l0_stack, ref_l1, satd, disp)
+        out = bframe(f, y, u, v, l0, ref_l1, col, satd, disp, *a, **kw)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0 - state["check_s"]
         state["check"] = False
         per_b.append({k: fn.launches - before[k] for k, fn in fns.items()})
-        rows.append(("B", disp, len(out), dt))
+        nal, ref = out   # ref: a reference B's planes and fields, or None
+        if ref is not None:
+            brefs.append(disp)
+        rows.append(("B", disp, len(nal), dt))
         recon[disp] = recon.pop("last")
+        return out
+
+    def direct_mode(*a, **kw):
+        out = dmode(*a, **kw)
+        direct.append("spatial" if out[0] else
+                      "none" if p.direct == 0 else "temporal")
+        return out
+
+    def auto_score(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = auto(*a, **kw)
+        torch.cuda.synchronize()
+        auto_ms.append(1e3 * (time.perf_counter() - t0))
         return out
 
     def timed_writer(fn):
@@ -1405,6 +1569,9 @@ def phase_bpath(dev, card, label, p, n_frames, want_pb=None,
             return out
         return wrap
 
+    direct, auto_ms, brefs = [], [], []
+    dmode, auto = enc._direct_mode, enc._direct_auto_score
+    enc._direct_mode, enc._direct_auto_score = direct_mode, auto_score
     enc._encode_anchor, enc._encode_b_frame = timed_anchor, timed_b
     for name in ("_write_b_slice_cavlc", "_write_b_slice_cabac"):
         setattr(enc, name, timed_writer(getattr(enc, name)))
@@ -1430,6 +1597,12 @@ def phase_bpath(dev, card, label, p, n_frames, want_pb=None,
     if n_b < 1 or n_p < 1 or (want_pb and (n_p, n_b) != want_pb):
         raise AssertionError("%s: %d P, %d B frames, want %s"
                              % (label, n_p, n_b, want_pb or ">= 1 each"))
+    if want_brefs is not None and brefs != want_brefs:
+        raise AssertionError("%s: reference B frames %s, want %s"
+                             % (label, brefs, want_brefs))
+    if want_direct is not None and direct != want_direct:
+        raise AssertionError("%s: direct modes %s, want %s"
+                             % (label, direct, want_direct))
     if p.partitions:
         want_b = dict(fullpel_parts=refs + 1, gather_windows8=2, subpel=2,
                       luma_p_encode=1)
@@ -1455,40 +1628,25 @@ def phase_bpath(dev, card, label, p, n_frames, want_pb=None,
     if len(write_ms) != n_b:
         raise AssertionError("%s: %d B writes for %d B frames"
                              % (label, len(write_ms), n_b))
-    t1 = time.time()
-    from video_steganography_pcamv_torch.decoder import decode_annexb
-    from video_steganography_pcamv_torch.stego.extract import (
-        extract_from_frames)
-    dec = decode_annexb(bs)
-    if len(dec) != n_frames:
-        raise AssertionError("%s: decoded %d frames of %d"
-                             % (label, len(dec), n_frames))
-    kinds, differ = {}, {}
-    for fr in dec:
-        if fr.slice_type != 1:
-            continue
-        d = fr.poc // 2
-        kinds[d] = dict(collections.Counter(m.mb_type for m in fr.mbs))
-        differ[d] = sum(int((getattr(fr, pl) != r[:fr.y.shape[0] // s,
-                                                  :fr.y.shape[1] // s]).sum())
-                        for pl, r, s in zip("yuv", recon[d], (1, 2, 2)))
-    if recon_equal and any(differ.values()):
-        raise AssertionError("%s: decoded B frames != encoder recon, "
-                             "pixels %s" % (label, differ))
-    got = extract_from_frames(dec, em_rate=64)
-    sent = enc._stego.sent_messages
-    if len(got) != len(sent) or not all(
-            np.array_equal(a, b) for a, b in zip(got, sent)):
-        raise AssertionError("%s: extracted payload != sent payload" % label)
-    t_dec = time.time() - t1
+    def report(res):
+        bits, t_dec, differ, kinds = res
+        if sorted(differ) != sorted(recon):
+            raise AssertionError("%s: decoded B frames %s, coded %s"
+                                 % (label, sorted(differ), sorted(recon)))
+        if recon_equal and any(differ.values()):
+            raise AssertionError("%s: decoded B frames != encoder recon, "
+                                 "pixels %s" % (label, differ))
+        log("%s: %d payload bits recovered (decode + extraction %.1f s, in "
+            "a worker); decoded B frames vs the encoder's recon: pixels "
+            "differing per display index %s; MB types per B frame (display "
+            "index): %s" % (label, bits, t_dec, json.dumps(differ),
+                            json.dumps(kinds)))
+    _defer(report, bs, n_frames, enc._stego.sent_messages, recon)
     sec = {t: [r[3] for r in rows if r[0] == t] for t in "IPB"}
-    log("%s: %d frames (%d I, %d P, %d B), %d bytes, %d payload bits "
-        "recovered (decode + extraction %.1f s, decoded B frames vs the "
-        "encoder's recon: pixels differing per display index %s); IDR %.3f "
-        "s; P frames %.4f fps, B frames %.4f fps (each call synced); all "
-        "%.4f fps incl. flush  [%s]"
+    log("%s: %d frames (%d I, %d P, %d B), %d bytes, decoded in a worker; "
+        "IDR %.3f s; P frames %.4f fps, B frames %.4f fps (each call "
+        "synced); all %.4f fps incl. flush  [%s]"
         % (label, len(frames), enc.stats.i_frames, n_p, n_b, len(bs),
-           sum(len(s) for s in sent), t_dec, json.dumps(differ),
            sec["I"][0], len(sec["P"]) / sum(sec["P"]),
            len(sec["B"]) / sum(sec["B"]), len(frames) / t_all, card))
     by_type = {t: [r[2] for r in rows if r[0] == t] for t in "IPB"}
@@ -1500,12 +1658,16 @@ def phase_bpath(dev, card, label, p, n_frames, want_pb=None,
            np.mean(by_type["B"]) / np.mean(by_type["P"]),
            sorted(r[1] for r in rows if r[0] == "B")))
     log("%s: launches per B frame (each B frame alike): %s; whole run: %s; "
-        "B frame seconds %s; P frame seconds %s; B write ms %s; MB types "
-        "per B frame (display index): %s"
+        "B frame seconds %s; P frame seconds %s; B write ms %s"
         % (label, json.dumps({k: v for k, v in per_b[0].items() if v}),
            json.dumps(launches), ["%.3f" % x for x in sec["B"]],
-           ["%.3f" % x for x in sec["P"]], ["%.3f" % x for x in write_ms],
-           json.dumps(kinds)))
+           ["%.3f" % x for x in sec["P"]], ["%.3f" % x for x in write_ms]))
+    if brefs or p.direct != 1:
+        log("%s: reference B frames (display index) %s; direct mode per B "
+            "slice, decode order %s; the direct-auto score's extra dispatch "
+            "ms per B frame %s; final score (temporal, spatial) %s"
+            % (label, brefs, direct, ["%.3f" % x for x in auto_ms],
+               enc._direct_score))
     return launches, write_ms
 
 
@@ -1534,8 +1696,9 @@ def phase_main(dev, card, tail_kernel: bool, n_frames: int,
                label: str = None, payload: bool = True, **kw):
     """One path end to end at full width: 1920x1088, or 1280x720 for
     config 3; `kw` overrides bench.py's Params (cabac, DEFAULTS).
-    Returns the launch counts, the stream and the encoder. Without
-    `payload` the stream is not decoded (the caller checks it)."""
+    Returns the launch counts, the stream and the encoder. The payload
+    check runs in a worker process (`_defer`); without `payload` the
+    stream is not decoded (the caller checks it)."""
     from video_steganography_pcamv_torch import Encoder
     from video_steganography_pcamv_torch.utils.yuv import synthetic_sequence
     w, h = (1280, 720) if config3 else (1920, 1088)
@@ -1594,18 +1757,19 @@ def phase_main(dev, card, tail_kernel: bool, n_frames: int,
     if config3 and min(enc.stats.i8x8_mbs, enc.stats.trans8_mbs) < 1:
         raise AssertionError("config 3: %d I8x8 MBs, %d trans8 P MBs"
                              % (enc.stats.i8x8_mbs, enc.stats.trans8_mbs))
-    t3 = time.time()
-    bits = _check_payload(bs, enc, len(frames)) if payload else 0
-    t_dec = time.time() - t3
     fps_p = (len(frames) - 1) / (t2 - t1)
     label = label or ("720p config 3 (transform_8x8, rd 1)" if config3
                       else "1080p tail_kernel=%s" % tail_kernel
                       if partitions else "1080p partitions=False")
+    if payload:
+        _defer(lambda r: log("%s: %d payload bits recovered (decode + "
+                             "extraction %.1f s, in a worker)"
+                             % (label, r[0], r[1])),
+               bs, len(frames), enc._stego.sent_messages)
     log("%s: %d frames (%d I, %d P), %d bytes, %s; IDR %.3f s; P frames "
         "%.4f fps incl. flush; all %.4f fps; launches %s  [%s]"
         % (label, len(frames), enc.stats.i_frames, n_p, len(bs),
-           "%d payload bits recovered (decode + extraction %.1f s)"
-           % (bits, t_dec) if payload else "not decoded here",
+           "decoded in a worker" if payload else "not decoded here",
            t1 - t0, fps_p, len(frames) / (t2 - t0), json.dumps(launches),
            card))
     if config3:
@@ -1637,7 +1801,7 @@ def _stage_targets(partitions: bool, mref: bool = False):
     from video_steganography_pcamv_torch.ops import probe as PR
     from video_steganography_pcamv_torch.stego import embed as EMB
     if mref:
-        return [(ST.Lookahead, "decide"), (CORE.Encoder, "_dpb_stacked"),
+        return [(ST.Lookahead, "decide"), (CORE.Encoder, "_stack_l0"),
                 (PT, "fullpel_parts"), (PT, "merge_ref_states"),
                 (PT, "decide_partition"), (PT, "gather_windows8"),
                 (PR, "subpel"), (PR, "probe_maps"),
@@ -1740,13 +1904,14 @@ def phase_stages(dev, card, n_frames: int = 7, partitions: bool = True,
                                       float(np.mean(v))))
 
 
-def phase_stages_b(dev, card, n_frames: int = 7):
+def phase_stages_b(dev, card, n_frames: int = 7, pyramid: bool = False):
     """Per-stage times of phase 22's B frames (config 4 whole at 1080p,
-    IDR + 6 + flush: four B frames): every stage is wrapped with a
-    device sync on each side; the kernel wrappers (B1, B9, B3', the
-    luma encode) are timed inside the stages that call them, so their
-    rows are not added into the rest. Median and mean over the B
-    frames."""
+    IDR + 6 + flush: four B frames), or with `pyramid` of phase 26's
+    (IDR + 5 + flush: three B frames, the reference B first): every
+    stage is wrapped with a device sync on each side; the kernel
+    wrappers (B1, B9, B3', the luma encode) are timed inside the stages
+    that call them, so their rows are not added into the rest. Median
+    and mean over the B frames."""
     from video_steganography_pcamv_torch import Encoder
     from video_steganography_pcamv_torch.encoder import bslice as BS
     from video_steganography_pcamv_torch.encoder import core as CORE
@@ -1755,35 +1920,45 @@ def phase_stages_b(dev, card, n_frames: int = 7):
     outer = [(BS, "analyse_b_parts_stage1"), (BS, "approx_direct_fields"),
              (BS, "bipred_satd8_device"), (BS, "analyse_b_parts"),
              (BS, "scan_b_parts"), (BS, "encode_b_frame_device"),
-             (CORE, "_levels_exact"), (CORE.Encoder, "_write_b_slice_cabac")]
+             (CORE, "_levels_exact"), (CORE.Encoder, "_write_b_slice_cabac"),
+             (BS, "temporal_direct_fields"),
+             (CORE.Encoder, "_direct_auto_score")]
     inner = [(BS, "fullpel_parts"), (BS, "gather_windows8"), (BS, "subpel"),
              (BS, "luma_p_encode")]
-    frame, state = {}, {"on": False}
+    frame, state = {}, {"on": False, "in_stage": False}
+    top = {name for _obj, name in outer}
 
     def timed(name, fn):
         def wrap(*a, **kw):
-            if not state["on"]:
+            # a stage called inside another (the direct-auto score's
+            # dispatch) counts in the outer one
+            if not state["on"] or (name in top and state["in_stage"]):
                 return fn(*a, **kw)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = fn(*a, **kw)
+            state["in_stage"] |= name in top
+            try:
+                out = fn(*a, **kw)
+            finally:
+                state["in_stage"] &= name not in top
             torch.cuda.synchronize()
             frame[name] = frame.get(name, 0.0) + time.perf_counter() - t0
             return out
         return wrap
 
     saved = [(obj, name, getattr(obj, name)) for obj, name in outer + inner]
-    enc = Encoder(_params(1920, 1088, True, cabac=True, bframes=2,
-                          b_adapt=0, ref_frames=2,
-                          stego=StegoParams(em_rate=64, key=5)), device=dev)
+    kw = PYRAMID if pyramid else dict(bframes=2)
+    enc = Encoder(_params(1920, 1088, True, cabac=True, b_adapt=0,
+                          ref_frames=2, stego=StegoParams(em_rate=64, key=5),
+                          **kw), device=dev)
     bframe, per_b, walls = enc._encode_b_frame, [], []
 
-    def timed_b(*a):
+    def timed_b(*a, **k):
         frame.clear()
         state["on"] = True
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = bframe(*a)
+        out = bframe(*a, **k)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         state["on"] = False
@@ -1800,16 +1975,17 @@ def phase_stages_b(dev, card, n_frames: int = 7):
     finally:
         for obj, name, fn in saved:
             setattr(obj, name, fn)
-    top = {name for _obj, name in outer}
     rows = {k: [1e3 * d.get(k, 0.0) for d in per_b]
             for k in sorted({k for d in per_b for k in d})}
     rows["(rest of the B frame)"] = [
         1e3 * (wl - sum(v for k, v in d.items() if k in top))
         for wl, d in zip(walls, per_b)]
     rows["(B frame, with the syncs)"] = [1e3 * wl for wl in walls]
-    log("1080p config 4 B-frame stage times, ms per B frame over %d B "
-        "frames (median, mean), a device sync around each stage; rows "
-        "marked * run inside another stage  [%s]" % (len(per_b), card))
+    log("1080p %s B-frame stage times, ms per B frame over %d B frames "
+        "(median, mean), a device sync around each stage; rows marked * "
+        "run inside another stage  [%s]"
+        % ("phase 26 (b_pyramid, weightb, direct auto)" if pyramid
+           else "config 4", len(per_b), card))
     for name, v in sorted(rows.items(), key=lambda kv: (
             kv[0].startswith("("), -float(np.mean(kv[1])))):
         mark = "*" if name not in top and not name.startswith("(") else " "
@@ -1906,8 +2082,8 @@ def main() -> int:
     ap.add_argument("--stages8", action="store_true",
                     help="also time the stages of config 3 at 720p")
     ap.add_argument("--stagesB", action="store_true",
-                    help="also time the stages of config 4's B frames at "
-                    "1080p")
+                    help="also time the stages of config 4's and phase "
+                    "26's B frames at 1080p")
     ap.add_argument("--stages4", action="store_true",
                     help="also time the stages of config 4's P half at "
                     "1080p")
@@ -1957,8 +2133,14 @@ def main() -> int:
     phase("24 1080p default Params, bframes 2", phase_defaults_b, dev, card,
           cabac_write_ms)
     phase("25 1080p 16x16 path with B frames", phase_b16, dev, card)
+    phase("26 1080p b_pyramid, weightb, direct auto", phase_pyramid, dev,
+          card)
+    phase("27 1080p b_pyramid, temporal direct", phase_pyramid_temporal,
+          dev, card)
     if args.stagesB:
         phase("23 config-4 B-frame stages", phase_stages_b, dev, card)
+        phase("23 phase-26 B-frame stages", phase_stages_b, dev, card,
+              n_frames=6, pyramid=True)
     if args.stages4:
         phase("21 config-4 P half stages", phase_stages, dev, card,
               n_frames=6, config4p=True)
@@ -1985,6 +2167,7 @@ def main() -> int:
         # luma encode), else the 16x16 path's (B6, B7)
         r["launches"] = launches[r["name"]] or launches16[r["name"]]
     recs += recs16 + recs9
+    phase("28 the decode checks in the workers", _join_checks)
     log("total %.1f s" % (time.time() - t_start))
     print(json.dumps({"kernels": recs}))
     print(card)
@@ -1995,4 +2178,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        _stop_pool()
+    sys.exit(rc)

@@ -1,13 +1,13 @@
 """The 16x16-only path's B-frame host and device helpers
 (`partitions=False`, x264's `--partitions none`) against the JAX
 reference on seeded inputs: `bipred_satd_device`, and `scan_b_frame` at
-one reference and at two. The end-to-end runs and the 16x16 B analysis
-(`analyse_b_frame` against the reference's `analyse_b_frame` and
-`analyse_b_frame_mref`) are where their JAX programs are already
-compiled: one reference in `tests/test_torch_encoder16.py` (CAVLC and
-CABAC, the native B writers), two in `tests/test_torch_multiref.py` (the
-Python writers with ref_idx_l0, the L0 merge with an entry past
-n_valid)."""
+one reference and at two, on spatial and on temporal direct. The
+end-to-end runs and the 16x16 B analysis (`analyse_b_frame` against the
+reference's `analyse_b_frame` and `analyse_b_frame_mref`) are where
+their JAX programs are already compiled: one reference in
+`tests/test_torch_encoder16.py` (CAVLC and CABAC, the native B writers),
+two in `tests/test_torch_multiref.py` (the Python writers with
+ref_idx_l0, the L0 merge with an entry past n_valid)."""
 
 import numpy as np
 import pytest
@@ -68,3 +68,30 @@ def test_scan_b_frame_matches_reference(num_ref):
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a, b)
     assert set(np.unique(got[0])) == {0, 1, 2, 3}
+
+
+@pytest.mark.parametrize("num_ref", [1, 2])
+def test_scan_b_frame_temporal_matches_reference(num_ref):
+    """The 16x16 commit on a temporal direct field (per-8x8 L0 refs from
+    the colocated ones, each block its entry's DistScaleFactor) where
+    every MB is direct-available; where one is not, the reference raises
+    (ROADMAP F3, tests/test_torch_encoder16.py)."""
+    g = np.random.default_rng(90 + num_ref)
+    c0, c1, cbi, c_dir = (g.integers(100, 200, (MBH, MBW)).astype(np.int32)
+                          for _ in range(4))
+    mv0 = g.integers(-12, 13, (MBH, MBW, 2)).astype(np.int32)
+    mv1 = g.integers(-12, 13, (MBH, MBW, 2)).astype(np.int32)
+    col_mv4, col_ref4 = _col_field(g, num_ref)
+    ref0 = (g.integers(0, num_ref, (MBH, MBW)).astype(np.int32)
+            if num_ref > 1 else None)
+    tdir = TB.temporal_direct_fields(
+        col_mv4, col_ref4, np.array([180, 70][:num_ref], np.int64),
+        col_map=np.arange(num_ref))
+    assert tdir[0].all()
+    got = TB.scan_b_frame(c_dir, c0, c1, cbi, mv0, mv1, col_mv4, col_ref4, 4,
+                          ref0=ref0, tdir=tdir)
+    want = JB.scan_b_frame(c_dir, c0, c1, cbi, mv0, mv1, col_mv4, col_ref4,
+                           4, ref0=ref0, tdir=tdir)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    assert (got[0] == 0).any()

@@ -1,33 +1,40 @@
 """B slices (BASELINE config 4 whole: bframes 2, b_adapt 0, ref_frames 2,
-CABAC, spatial direct) in the port vs the JAX reference on the CPU, on
-the reference's CPU branch (tail_kernel=False).
+CABAC, spatial direct, and the other B options: b_pyramid, weightb, the
+direct modes) in the port vs the JAX reference on the CPU, on the
+reference's CPU branch (tail_kernel=False).
 
 End to end, one JAX run each (module-scoped): config 4 at 112x80
 (me_range 8, stego em_rate 16 key 5), IDR + 7 frames + flush, so the
 run ends in a short GOP; ref_frames 1 with bframes 1, PSNR and SSIM on;
 config 4 with CAVLC and b_adapt 2 over a 5-frame window (rc_lookahead
 5, longer than bframes + 1), IDR + 9 frames + flush, so flush() runs the
-B-placement DP more than once; and the reference's default Params with
+B-placement DP more than once; the reference's default Params with
 `bframes=2` (x264's `--bframes 2`: CAVLC, b_adapt 1, partitions, PSNR,
 the host deblock; me_range 8 like the other runs, whose compiled
-programs these two share) on a clip with a noise frame at display index
-4, where b_adapt 1 closes the second GOP after one B frame.
+programs these share) on a clip with a noise frame at display index 4,
+where b_adapt 1 closes the second GOP after one B frame; config 4 with
+bframes 3, b_pyramid, weightb and direct auto (two pyramid GOPs, the
+reference B of each and the next P's L0 reordering op); temporal direct
+with weightb at one reference under CAVLC and b_adapt 1; and direct 0.
 Each port stream is byte-equal to the JAX `Encoder`'s (the same frames
 placed as B); both extractors recover `sent_messages`; the port's decoder
 (CABAC and CAVLC B slices) gives the JAX decoder's planes and MB motion
 on every frame, B frames included; the close() dicts agree. The same JAX
 runs give `state.from_reference` snapshots at a GOP boundary and inside
-a GOP (under b_adapt 2: right after a GOP, frames still buffered), from
-which the port resumes byte-equal to the reference's continuation
-(ROADMAP F1).
+a GOP (under b_adapt 2: right after a GOP, frames still buffered; under
+the pyramid with the reordering op pending), from which the port resumes
+byte-equal to the reference's continuation (ROADMAP F1).
 
 Modules, on the same seeded numpy inputs: `spatial_direct` and
 `scan_b_parts` (one and two references, colocated intra / ref 0 / ref 1
-blocks), `approx_direct_fields`, the B analysis of one frame (stage 1
-with the L0 merge, the direct SATDs, stage 2), the CABAC B writer on
-seeded B syntax, `encode_b_frame_device`'s levels and recon at one
-reference and at two; and `check_slice`: the B options of the slice
-accepted, every other one refused with its ROADMAP id."""
+blocks; on temporal and disabled direct fields), `approx_direct_fields`,
+`bipred_weight`, `dist_scale_factor`, `temporal_direct_fields`, the
+direct-auto score with its decay, the B analysis of one frame (stage 1
+with the L0 merge, the direct SATDs, stage 2, unweighted and weighted),
+the CABAC B writer on seeded B syntax, `encode_b_frame_device`'s levels
+and recon at one reference and at two (there also at per-8x8 weights);
+and `check_slice`: the B options of the slice accepted, every other one
+refused with its ROADMAP id."""
 
 import re
 
@@ -190,6 +197,32 @@ def badapt2():
 
 
 @pytest.fixture(scope="module")
+def pyramid():
+    """Config 4 with bframes 3, b_pyramid, weightb and direct auto: GOPs
+    of B B B P and B B P, each with its middle B a reference picture
+    (the next P reorders L0), twice, then B P, too short for one (the
+    reference codes its B on one L0 entry, whatever ref_frames); implicit
+    weights on every BI combine, the first slices temporal (the auto
+    score starts at [0, 0])."""
+    return _encode_both(11, bframes=3, b_pyramid=True, weightb=True,
+                        direct=3)
+
+
+@pytest.fixture(scope="module")
+def temporal_cavlc():
+    """Temporal direct with weightb at one reference, CAVLC, b_adapt 1."""
+    return _encode_both(8, ref_frames=1, cabac=False, b_adapt=1, direct=2,
+                        weightb=True)
+
+
+@pytest.fixture(scope="module")
+def direct_none():
+    """direct 0 (x264 --direct none) at one reference: no direct MB, no
+    B_Skip."""
+    return _encode_both(7, ref_frames=1, direct=0)
+
+
+@pytest.fixture(scope="module")
 def defaults_b2():
     frames = synthetic_sequence(W, H, 8, seed=9)
     noise = np.random.default_rng(3).integers(0, 256, (H, W)).astype(
@@ -199,7 +232,8 @@ def defaults_b2():
                                     me_range=RNG))
 
 
-CASES = ["config4", "ref1_b1", "badapt2", "defaults_b2"]
+CASES = ["config4", "ref1_b1", "badapt2", "defaults_b2", "pyramid",
+         "temporal_cavlc", "direct_none"]
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -221,17 +255,69 @@ def test_both_extractors_recover_the_payload(case, request):
 
 @pytest.mark.parametrize("case,k,buffered", [
     ("config4", 6, 0), ("config4", 5, 2), ("ref1_b1", 4, 0),
-    ("ref1_b1", 3, 1), ("badapt2", 7, 2), ("badapt2", 8, 3)],
+    ("ref1_b1", 3, 1), ("badapt2", 7, 2), ("badapt2", 8, 3),
+    ("pyramid", 2, 2), ("pyramid", 4, 0), ("pyramid", 5, 1)],
     ids=["ref2_gop_boundary", "ref2_mid_gop", "ref1_gop_boundary",
-         "ref1_mid_gop", "badapt2_after_a_gop", "badapt2_mid_gop"])
+         "ref1_mid_gop", "badapt2_after_a_gop", "badapt2_mid_gop",
+         "pyramid_mid_gop", "pyramid_reorder_pending",
+         "pyramid_mid_gop_reorder_pending"])
 def test_resume_from_reference_snapshot(case, k, buffered, request):
     """F1: a snapshot of the reference's B pipe at a GOP boundary and
     inside a GOP (frames buffered, waiting for their anchor) resumes into
     the reference's continuation: b_adapt 0 at ref_frames 2 and 1, and
     b_adapt 2 with its window, whose frames stay buffered across a
-    GOP's end."""
-    assert resume_matches_reference(request.getfixturevalue(case),
-                                    k) == buffered
+    GOP's end; under the pyramid inside the first GOP, and after it
+    while the next P slice's L0 reordering op is still pending (the DPB
+    then holds the reference B)."""
+    run = request.getfixturevalue(case)
+    assert resume_matches_reference(run, k) == buffered
+    if case == "pyramid":
+        bp = run["snaps"][k]["bpipe"]
+        assert bp["reorder_next_p"] == (k >= 4)
+        assert [e["_anchor"] for e in run["snaps"][k]["dpb"]] == \
+            ([False, True, True] if k >= 4 else [True])
+
+
+def test_pyramid_structure_weights_and_direct_modes(pyramid):
+    """Decode order I P4 B2 B1 B3 P8 B6 B5 B7 P10 B9 with the middle B of
+    each pyramid GOP a reference (nal_ref_idc > 0), a frame_num step after
+    it, the P after each pyramid GOP carrying one L0 reordering op, the
+    last B on one L0 entry, weighted bipred in the PPS, and slices under
+    both direct modes (auto)."""
+    from video_steganography_pcamv_torch.decoder.decoder import parse_nals
+    from video_steganography_pcamv_torch.utils.bitstream import BitReader
+    sps = pyramid["tenc"].sps
+    info = []
+    for nal_type, ref_idc, rbsp in parse_nals(pyramid["got"]):
+        if nal_type not in (1, 5):
+            continue
+        br = BitReader(rbsp)
+        br.read_ue()
+        st = br.read_ue()
+        br.read_ue()
+        fn = br.read(sps.log2_max_frame_num)
+        if nal_type == 5:
+            br.read_ue()
+        poc = br.read(sps.log2_max_poc_lsb)
+        ds = br.read1() if st == 1 else None
+        l0 = 2   # the PPS's num_ref_idx_l0_active
+        if st in (0, 1) and br.read1():
+            l0 = br.read_ue() + 1
+            if st == 1:
+                br.read_ue()
+        reorder = bool(br.read1()) if st in (0, 1) else None
+        info.append((st, poc // 2, ref_idc > 0, fn, ds, reorder, l0))
+    assert [(t, d, r) for t, d, r, *_ in info] == [
+        (2, 0, True), (0, 4, True), (1, 2, True), (1, 1, False),
+        (1, 3, False), (0, 8, True), (1, 6, True), (1, 5, False),
+        (1, 7, False), (0, 10, True), (1, 9, False)]
+    assert [i[3] for i in info] == [0, 1, 2, 3, 3, 3, 4, 5, 5, 5, 6]
+    assert [i[5] for i in info if i[0] == 0] == [False, True, True]
+    assert [i[6] for i in info if i[0] == 1] == [1, 1, 2, 2, 2, 2, 1]
+    assert {i[4] for i in info if i[0] == 1} == {0, 1}
+    assert pyramid["tenc"].pps.weighted_bipred_idc == 2
+    assert pyramid["tenc"].sps.num_ref_frames == 4
+    assert pyramid["tenc"]._direct_score == pyramid["jenc"]._direct_score
 
 
 def test_badapt2_window_outgrows_a_gop_and_flush_runs_the_dp(badapt2):
@@ -354,6 +440,120 @@ def test_approx_direct_fields_match_reference():
         np.testing.assert_array_equal(a, b)
 
 
+_POCS = [-300, -200, -130, -64, -20, -7, -2, 0, 1, 2, 3, 5, 8, 20, 64, 127,
+         128, 130, 200, 300]
+
+
+def test_bipred_weight_matches_reference():
+    """Every (poc_b, poc0, poc1) of a grid that reaches the td and tb
+    clamps, td = 0, td < 0 and weights outside [-64, 128] (which fall
+    back to 32), with and without weightb."""
+    got, seen = [], set()
+    for b in _POCS:
+        for p0 in _POCS:
+            for p1 in _POCS:
+                for wb in (True, False):
+                    w = TB.bipred_weight(b, p0, p1, wb)
+                    assert w == JB.bipred_weight(b, p0, p1, wb), (b, p0, p1)
+                    got.append(w)
+                    if wb and p1 == p0:
+                        seen.add("td0")
+                    if wb and p1 < p0 and w != 32:
+                        seen.add("td<0")
+    assert seen == {"td0", "td<0"}
+    assert min(got) == -64 and max(got) == 128 and len(set(got)) > 50
+
+
+def test_dist_scale_factor_matches_reference():
+    got = [TB.dist_scale_factor(b, p0, p1) for b in _POCS for p0 in _POCS
+           for p1 in _POCS]
+    want = [JB.dist_scale_factor(b, p0, p1) for b in _POCS for p0 in _POCS
+            for p1 in _POCS]
+    assert got == want
+    assert min(got) == -1024 and max(got) == 1023 and 256 in got
+
+
+@pytest.mark.parametrize("mode", ["col_map", "mref", "single"])
+def test_temporal_direct_fields_match_reference(mode):
+    """Colocated intra (-1), L1-only (-2) and references 0-2; dsf a
+    scalar or per L0 entry; map_col_to_list0 with -1 entries."""
+    g = np.random.default_rng({"col_map": 40, "mref": 41, "single": 42}[mode])
+    r8 = g.choice([-2, -1, 0, 0, 1, 2], (2 * MBH, 2 * MBW)).astype(np.int32)
+    m8 = g.integers(-40, 41, (2 * MBH, 2 * MBW, 2)).astype(np.int32)
+    col_mv4 = np.repeat(np.repeat(m8, 2, 0), 2, 1)
+    col_ref4 = np.repeat(np.repeat(r8, 2, 0), 2, 1)
+    dsf = (np.array([128, -200, 700], np.int64) if mode != "single"
+           else 300)
+    cmap = np.array([1, -1, 0], np.int32) if mode == "col_map" else None
+    got = TB.temporal_direct_fields(col_mv4, col_ref4, dsf, col_map=cmap)
+    want = JB.temporal_direct_fields(col_mv4, col_ref4, dsf, col_map=cmap)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    assert got[0].any() and not got[0].all()
+
+
+@pytest.mark.parametrize("num_ref", [1, 2])
+def test_scan_b_parts_temporal_matches_reference(num_ref):
+    """The partition commit on a temporal field (per-8x8 L0 refs, MBs
+    direct-unavailable) and on direct 0's field."""
+    g = np.random.default_rng(50 + num_ref)
+    part = g.integers(0, 4, (MBH, MBW)).astype(np.int32)
+    sel8 = g.integers(0, 3, (MBH, MBW, 4)).astype(np.int32)
+    sel8[part == 3] = g.integers(0, 4, (int((part == 3).sum()), 4))
+    sel8[part == 0] = sel8[part == 0][:, :1]
+    sel8[part == 1] = sel8[part == 1][:, [0, 0, 2, 2]]
+    sel8[part == 2] = sel8[part == 2][:, [0, 1, 0, 1]]
+    mv0z = g.integers(-12, 13, (MBH, MBW, 4, 2)).astype(np.int32)
+    mv1z = g.integers(-12, 13, (MBH, MBW, 4, 2)).astype(np.int32)
+    c_cfg = g.integers(100, 200, (MBH, MBW)).astype(np.int32)
+    c_dir = g.integers(60, 220, (MBH, MBW)).astype(np.int32)
+    col_mv4, col_ref4 = _col_field(g, num_ref)
+    col_ref4[:4, :8] = -2
+    ref0 = (g.integers(0, num_ref, (MBH, MBW)).astype(np.int32)
+            if num_ref > 1 else None)
+    dsf = np.array([200, 90][:num_ref], np.int64)
+    tdir = JB.temporal_direct_fields(col_mv4, col_ref4, dsf,
+                                     col_map=np.arange(num_ref))
+    for field in (tdir, TB.no_direct_fields(MBH, MBW)):
+        got = TB.scan_b_parts(part, sel8, mv0z, mv1z, c_cfg, c_dir, col_mv4,
+                              col_ref4, 4, ref0=ref0, tdir=field)
+        want = JB.scan_b_parts(part, sel8, mv0z, mv1z, c_cfg, c_dir,
+                               col_mv4, col_ref4, 4, ref0=ref0, tdir=field)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+    assert not tdir[0].all() and tdir[0].any()
+
+
+def test_direct_auto_score_and_decay_match_reference():
+    """`direct` 3's score against the reference's `_direct_auto_score`
+    over rounds that alternate the active mode and the partition and
+    16x16 forms, past the 9/10 decay."""
+    (t0, _t1, t2), (j0, _j1, j2), cur = _refs(3, 14)
+    tenc = TEncoder(t_params(_kw(direct=3)), device="cpu")
+    jenc = JEncoder(Params(**_kw(direct=3),
+                           stego=StegoParams(em_rate=EM_RATE, key=KEY)))
+    g = np.random.default_rng(15)
+    col = _col_field(g, 1)
+    tf = JB.temporal_direct_fields(*col, np.array([150, 150], np.int64),
+                                   col_map=np.array([0], np.int32))
+    mvs = tuple(g.integers(-30, 31, (MBH, MBW, 2)).astype(np.int32)
+                for _ in range(2))
+    decayed = False
+    for rnd in range(8):
+        spatial, parts = rnd % 3 == 1, rnd % 2 == 0
+        c_act = g.integers(0, 400, (MBH, MBW)).astype(np.int64)
+        c_best = g.integers(0, 1200, (MBH, MBW)).astype(np.int64)
+        before = sum(tenc._direct_score)
+        tenc._direct_auto_score(torch.as_tensor(cur), t0["luma"], t2["luma"],
+                                spatial, tf, mvs, col, c_act, c_best, 6, 40,
+                                parts)
+        jenc._direct_auto_score(jnp.asarray(cur), j0, j2, spatial, tf, mvs,
+                                *col, c_act, c_best, 6, 40, parts)
+        assert tenc._direct_score == jenc._direct_score
+        decayed |= before > MBH * MBW
+    assert decayed
+
+
 # ---------------------------------------------------------------------------
 # The B analysis of one frame and the B encode
 # ---------------------------------------------------------------------------
@@ -386,7 +586,8 @@ def _stack_j(es):
 def test_b_analysis_matches_reference_two_refs(config4):
     """Stage 1 with the L0 merge (entry 1 past n_valid in one run),
     the approximate direct SATDs and stage 2, port vs JAX, at the
-    config-4 shapes."""
+    config-4 shapes; the BI combines unweighted, then at an implicit
+    weight."""
     (t0, t1, t2), (j0, j1, j2), cur = _refs(3, 5)
     y = torch.as_tensor(cur)
     yj = jnp.asarray(cur)
@@ -394,7 +595,7 @@ def test_b_analysis_matches_reference_two_refs(config4):
     rs_t, rs_j = _stack_t([t0, t1]), _stack_j([j0, j1])
     g = np.random.default_rng(3)
     col_mv4, col_ref4 = _col_field(g, 2)
-    for n_valid in (2, 1):
+    for n_valid, w1 in ((2, 32), (1, 44)):
         st0, st1, ref0 = TB.analyse_b_parts_stage1(
             y, rs_t["luma"][:, 0].to(torch.uint8), n_valid,
             t2["luma"][0].to(torch.uint8), RNG, MBH, MBW, lam)
@@ -413,26 +614,29 @@ def test_b_analysis_matches_reference_two_refs(config4):
                                      col_mv4, col_ref4)
         c_dir8 = TB.bipred_satd8_device(
             y, rs_t["luma"][0], t2["luma"], *(torch.as_tensor(a) for a in au),
-            MBH, MBW)
+            MBH, MBW, w1=w1)
         jc_dir8 = JB.bipred_satd8_device(
             yj, j0["luma"], j2["luma"], *(jnp.asarray(a) for a in au),
-            MBH, MBW, w1=32)
+            MBH, MBW, w1=w1)
         np.testing.assert_array_equal(c_dir8.numpy(), np.asarray(jc_dir8))
         got = TB.analyse_b_parts(y, rs_t["luma"], t2["luma"], st0, st1,
-                                 c_dir8, ref0, MBH, MBW, lam)
+                                 c_dir8, ref0, MBH, MBW, lam, w1=w1)
         want = JB.analyse_b_parts(yj, rs_j["luma"], j2["luma"], jst0, jst1,
-                                  jc_dir8, MBH, MBW, lam, 2, w1=32,
+                                  jc_dir8, MBH, MBW, lam, 2, w1=w1,
                                   ref0_map=jnp.asarray(ref0.numpy()))
         for k in want:
             np.testing.assert_array_equal(got[k].numpy(),
                                           np.asarray(want[k]), err_msg=k)
 
 
-@pytest.mark.parametrize("num_ref", [1, 2])
-def test_encode_b_frame_device_matches_reference(num_ref):
+@pytest.mark.parametrize("num_ref,weighted", [(1, False), (2, False),
+                                              (2, True)],
+                         ids=["1", "2", "2_weighted"])
+def test_encode_b_frame_device_matches_reference(num_ref, weighted):
     """The port's one path (a stack of one L0 entry at one reference)
     against the reference's single-reference encode and its
-    multi-reference one."""
+    multi-reference one, there also at per-8x8 implicit weights (each
+    block its L0 entry's)."""
     (t0, t1, t2), (j0, j1, j2), cur = _refs(3, 9 + num_ref)
     g = np.random.default_rng(num_ref)
     y = cur
@@ -447,9 +651,12 @@ def test_encode_b_frame_device_matches_reference(num_ref):
                     -1).astype(np.int32)
     qp, qpc = 28, 28
     t = torch.as_tensor
+    w8 = np.array([40, -10], np.int32)[np.maximum(ref8, 0)] if weighted \
+        else None
     got = TB.encode_b_frame_device(
         t(y), t(u), t(v), _stack_t([t0, t1][:num_ref]), t2, t(use0),
-        t(use1), t(fmv0), t(fmv1), t(ref8), qp, qpc, MBH, MBW)
+        t(use1), t(fmv0), t(fmv1), t(ref8), qp, qpc, MBH, MBW,
+        w1=32 if w8 is None else TB.weight_arg(w8, "cpu"))
     if num_ref == 1:
         want = JB.encode_b_frame_device(
             jnp.asarray(y), jnp.asarray(u), jnp.asarray(v), j0["luma"],
@@ -464,7 +671,8 @@ def test_encode_b_frame_device_matches_reference(num_ref):
             rs_j["u"], rs_j["v"], j2["luma"], j2["u"], j2["v"],
             jnp.asarray(use0), jnp.asarray(use1), jnp.asarray(fmv0),
             jnp.asarray(fmv1), qp, qpc, MBH, MBW, decimate=True,
-            trellis=False, w1=32, ref8_0=jnp.asarray(ref8))
+            trellis=False, w1=32 if w8 is None else jnp.asarray(w8),
+            ref8_0=jnp.asarray(ref8))
     assert set(got) == set(want)
     for k in want:
         np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]),
@@ -557,27 +765,41 @@ def test_check_slice_accepts_b_options_of_the_slice(kw, refs):
     check_slice(p)
 
 
+@pytest.mark.parametrize("b_adapt", [0, 1, 2])
+@pytest.mark.parametrize("cabac", [False, True], ids=["cavlc", "cabac"])
+@pytest.mark.parametrize("partitions", [True, False],
+                         ids=["partitions", "16x16"])
+def test_check_slice_accepts_pyramid_weightb_and_every_direct_mode(
+        partitions, cabac, b_adapt):
+    """b_pyramid, weightb and direct none / spatial / temporal / auto
+    (ROADMAP A14d-f) on both B paths, at ref_frames 1, 2 and 8."""
+    for refs in (1, 2, 8):
+        for direct in range(4):
+            p = t_params(_kw(partitions=partitions, cabac=cabac,
+                             b_adapt=b_adapt, ref_frames=refs, bframes=3,
+                             b_pyramid=True, weightb=True, direct=direct,
+                             deblock_device=False))
+            p.validate()
+            assert p.b_pyramid
+            check_slice(p)
+
+
 @pytest.mark.parametrize("kw,name", [
-    (dict(b_pyramid=True), "ROADMAP A14d"),
-    (dict(weightb=True), "ROADMAP A14e"),
-    (dict(direct=0), "ROADMAP A14f"),
-    (dict(direct=2), "ROADMAP A14f"),
-    (dict(direct=3), "ROADMAP A14f"),
     (dict(transform_8x8=True, ref_frames=1), "bframes with transform_8x8"),
     (dict(rd=1, ref_frames=1), "bframes with rd"),
     (dict(p4x4=True), "p4x4 (ROADMAP A16)"),
     (dict(aq_mode=1), "aq_mode"),
     (dict(trellis=1), "trellis"),
     (dict(stego_off=True), "stego off"),
-], ids=["b_pyramid", "weightb", "direct_none", "direct_temporal",
-        "direct_auto", "transform_8x8", "rd", "p4x4", "aq", "trellis",
-        "stego_off"])
+], ids=["transform_8x8", "rd", "p4x4", "aq", "trellis", "stego_off"])
 def test_check_slice_refuses_b_options_outside_the_slice(kw, name):
-    kw = dict(kw)
+    """The A15 and A16 options stay refused with B frames, also beside a
+    pyramid, weightb and temporal direct."""
+    kw = dict(kw, b_pyramid=True, bframes=3, weightb=True, direct=2)
     stego = (TP.StegoParams() if kw.pop("stego_off", False)
              else TP.StegoParams(em_rate=EM_RATE, key=KEY))
     p = TP.Params(**_kw(**kw), stego=stego)
     p.validate()
-    assert p.bframes == 2
+    assert p.bframes == 3
     with pytest.raises(NotImplementedError, match=re.escape(name)):
         check_slice(p)

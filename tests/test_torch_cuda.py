@@ -47,7 +47,9 @@ its own:  python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
   kernel call of the B frames held array-equal to its plain version on
   the same inputs: B1 against a zero predictor, B9 on the L0 stack with
   the per-MB L0 map and on L1, B3' on the B windows and the fused luma
-  encode on the bipred predictions; the per-B-frame launch counts.
+  encode on the bipred predictions; the per-B-frame launch counts; and
+  pyramid streams (b_pyramid, weightb) under every direct mode, the
+  reference B's kernel calls included.
 """
 
 import numpy as np
@@ -768,4 +770,29 @@ def test_cuda_stream_equals_cpu_stream_b_options(dev, kw, monkeypatch):
                     luma_p_encode=1)
     calls = _check_b_kernels(monkeypatch, want)
     n_b = _b_streams(dev, kw, n_frames=7)
+    assert calls == {k: n * n_b for k, n in want.items()}
+
+
+@pytest.mark.parametrize("kw", [
+    dict(cabac=True, ref_frames=2, direct=3),
+    dict(cabac=False, b_adapt=1, direct=2),
+    dict(cabac=True, direct=0),
+    dict(partitions=False, deblock_device=False, ref_frames=2, direct=2)],
+    ids=["config4_auto", "cavlc_temporal", "direct_none",
+         "b16_ref2_temporal"])
+def test_cuda_stream_equals_cpu_stream_pyramid(dev, kw, monkeypatch):
+    """b_pyramid (bframes 3: one pyramid GOP, its middle B a reference)
+    with weightb under every direct mode: every kernel call of the B
+    frames, the reference B's included, equals its plain version; then
+    cuda == cpu streams."""
+    kw = dict(kw, bframes=3, b_pyramid=True, weightb=True)
+    r = kw.get("ref_frames", 1)
+    if kw.get("partitions", True):
+        want = dict(fullpel_parts=r + 1, gather_windows8=2, subpel=2,
+                    luma_p_encode=1)
+    else:
+        want = dict(fullpel_search16=r + 1, gather_windows=r + 1,
+                    luma_p_encode=1)
+    calls = _check_b_kernels(monkeypatch, want)
+    n_b = _b_streams(dev, kw, n_frames=6)
     assert calls == {k: n * n_b for k, n in want.items()}

@@ -1,8 +1,10 @@
-"""The port's own copies of the reference's jax-free modules: its CAVLC
-I/P decoder against the reference decoder (slice types, MB types, unit
-MVs and recon planes) on reference streams and on a port-encoded
-stream, its blind extractor against the reference's, and its Params
-against the reference's Params."""
+"""The port's own copies of the reference's jax-free modules: its
+decoder against the reference decoder (slice types, MB types, unit MVs
+and recon planes) on x264's streams (CAVLC I/P, deblocking off, three
+references, and the CABAC B streams of `--bframes 2` and of `--b-pyramid
+--weightb`, whose B slices are deblocked and implicitly weighted) and on
+a port-encoded stream, its blind extractor against the reference's, and
+its Params against the reference's Params."""
 
 import dataclasses
 import os
@@ -59,7 +61,8 @@ def _stream(name, port_stream):
 
 
 @pytest.mark.parametrize("name", ["cavlc_q26.264", "deblock_off.264",
-                                  "mref3.264", "port_112x80"])
+                                  "mref3.264", "bframes2.264",
+                                  "bpyramid.264", "port_112x80"])
 def test_decoder_matches_reference(name, port_stream):
     data = _stream(name, port_stream)
     got, want = decode_annexb(data), j_decode(data)
@@ -82,15 +85,6 @@ def test_extractor_matches_reference(port_stream):
     for g, w, s in zip(got, want, sent):
         np.testing.assert_array_equal(g, w)
         np.testing.assert_array_equal(g, s)
-
-
-@pytest.mark.parametrize("name", ["bframes2.264", "bpyramid.264"])
-def test_decoder_refuses_what_the_port_lacks(name):
-    """x264's B streams (CABAC): deblocked and reference B slices and
-    weighted bipred, which the port does not decode; its own B streams
-    are decoded, tests/test_torch_bframes.py."""
-    with pytest.raises(NotImplementedError):
-        decode_annexb(_stream(name, None))
 
 
 @pytest.mark.parametrize("cls", ["Params", "StegoParams"])

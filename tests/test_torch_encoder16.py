@@ -199,6 +199,31 @@ def test_b_frames_byte_equal_and_payload(cabac, kw, monkeypatch):
     _check_payload(got, tenc._stego.sent_messages)
 
 
+def test_pyramid_temporal_direct_under_f2():
+    """A pyramid GOP (B B B P, its middle B a reference) under weightb
+    and direct auto at one reference, whose first B slice (the reference
+    B) takes temporal direct: the stream is byte-equal to the JAX
+    Encoder's. ROADMAP F2 reaches it: the encoder reads the IDR's intra
+    field as every anchor's colocated field, so the later B frames (L0[0]
+    the reference B) code temporal direct MBs that the decoders, which
+    hold the anchor's true field (references outside the B's one-entry
+    L0), find direct-unavailable: neither decoder decodes the stream."""
+    frames = synthetic_sequence(W, H, 7, seed=7)
+    kw = dict(bframes=3, b_adapt=0, b_pyramid=True, weightb=True, direct=3,
+              cabac=False)
+    jenc = JEncoder(_params(**kw))
+    want = b"".join(jenc.encode_frame(f) for f in frames) + jenc.flush()
+    tenc = TEncoder(_tparams(**kw), device="cpu")
+    got = b"".join(tenc.encode_frame(f) for f in frames) + tenc.flush()
+    assert got == want
+    assert tenc.stats.b_frames == jenc.stats.b_frames == 4
+    assert tenc._direct_score == jenc._direct_score
+    with pytest.raises(ValueError, match="temporal direct is unavailable"):
+        t_decode(got)
+    with pytest.raises(TypeError):
+        decode_annexb(got)
+
+
 def test_analyse_b_frame_matches_reference():
     """The 16x16 B analysis at one reference (B6, B7, the qpel tables,
     the subpel refine against a zero predictor per list, BI at the

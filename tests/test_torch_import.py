@@ -195,7 +195,7 @@ def test_encoder_defaults_to_cuda():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(bframes=2, b_pyramid=True), dict(p4x4=True),
+    dict(bframes=2, transform_8x8=True), dict(p4x4=True),
     dict(ref_frames=2, p4x4=True),
     dict(ref_frames=2, transform_8x8=True), dict(ref_frames=2, rd=1),
     dict(rd=2), dict(transform_8x8=True, partitions=False,
@@ -207,7 +207,7 @@ def test_encoder_defaults_to_cuda():
     dict(stego=StegoParams(em_rate=64, key=99, alpha_com=0.5)),
     dict(subpel=1), dict(dct_decimate=False),
     dict(incremental=False), dict(partitions=False, deblock_device=True),
-    dict(cabac=True, bframes=2, direct=2),
+    dict(cabac=True, bframes=2, rd=1),
 ], ids=lambda kw: ",".join(kw))
 def test_encoder_rejects_options_outside_the_slice(kw):
     from video_steganography_pcamv_torch import Encoder
@@ -224,13 +224,14 @@ def test_encoder_rejects_options_outside_the_slice(kw):
     dict(ref_frames=8, partitions=False), dict(bframes=2),
     dict(cabac=True, bframes=2),
     dict(bframes=2, partitions=False, deblock_device=False),
+    dict(bframes=2, b_pyramid=True), dict(cabac=True, bframes=2, direct=2),
 ], ids=lambda kw: ",".join(kw))
 def test_encoder_accepts_the_reference_defaults_and_cabac(kw):
     """Options the port serves since it took the reference's default
     Params (PSNR on, host deblock, unpipelined) and CABAC, multiple
     reference frames (with or without partitions, either deblocker) and
     B frames at the reference's default b_adapt 1 (CAVLC or CABAC, with
-    or without partitions)."""
+    or without partitions, a pyramid, temporal direct)."""
     from video_steganography_pcamv_torch import Encoder
     enc = Encoder(_slice_params(**kw), device="cpu")
     assert enc.p.cabac == kw.get("cabac", False)

@@ -330,6 +330,76 @@ def test_b_frames_partitions_off_byte_equal(cabac, monkeypatch):
     _check_payload(got, tenc, len(frames))
 
 
+@pytest.mark.parametrize("direct", [3, 2], ids=["auto", "temporal"])
+def test_b_pyramid_partitions_off(direct, monkeypatch):
+    """The 16x16-only path at two references with bframes 3, b_pyramid
+    and weightb: a pyramid GOP (B B B P, its middle B a reference, the
+    next P's L0 reordering op), then B P, whose B the reference codes on
+    one L0 entry. Direct auto (temporal first): byte-equal to the JAX
+    Encoder's, both decoders agree, the payload is recovered. Temporal
+    direct: ROADMAP F3, the reference's 16x16 commit raises OverflowError
+    on the first direct-unavailable MB (a Python int of 1 << 60 added to
+    a numpy int32); the port's stream decodes equal in both decoders and
+    carries the payload. Either way every decoded frame, the reference B
+    among them, equals the encoder's recon (the anchors' deblocked
+    planes, the B frames' undeblocked ones)."""
+    from video_steganography_pcamv_torch.encoder import bslice as TB
+    from video_steganography_pcamv_torch.ops import mc as tmc
+    from video_steganography_pcamv_tpu.decoder import decode_annexb as jdec
+    frames = _flicker_frames(7)
+    kw = _kw(partitions=False, bframes=3, b_adapt=0, b_pyramid=True,
+             weightb=True, direct=direct)
+    jenc = JEncoder(Params(**kw, stego=StegoParams(em_rate=EM_RATE,
+                                                   key=KEY)))
+    tenc = TEncoder(TP.Params(**kw, stego=TP.StegoParams(em_rate=EM_RATE,
+                                                         key=KEY)),
+                    device="cpu")
+    recon, last = {}, {}
+    build, enc_b = tmc.build_ref, TB.encode_b_frame_device
+    push, bframe = tenc._push_ref, tenc._encode_b_frame
+
+    def build_ref(y, u, v, *a, **k):
+        last["ref"] = tuple(t.numpy().copy() for t in (y, u, v))
+        return build(y, u, v, *a, **k)
+
+    def push_ref(refdict):
+        recon[tenc._ref_meta[0]] = last.pop("ref")
+        return push(refdict)
+
+    def encode_b(*a, **k):
+        out = enc_b(*a, **k)
+        last["b"] = tuple(out[n].numpy().copy()
+                          for n in ("recon_y", "recon_u", "recon_v"))
+        return out
+
+    def b_frame(*a, **k):
+        out = bframe(*a, **k)
+        recon[a[8]] = last.pop("b")
+        return out
+    monkeypatch.setattr(tmc, "build_ref", build_ref)
+    monkeypatch.setattr(TB, "encode_b_frame_device", encode_b)
+    tenc._push_ref, tenc._encode_b_frame = push_ref, b_frame
+    got = _run(tenc, frames)
+    if direct == 3:
+        assert got == _run(jenc, frames)
+        assert tenc._direct_score == jenc._direct_score
+    else:
+        with pytest.raises(OverflowError):
+            _run(jenc, frames)
+    assert tenc.stats.b_frames == 4
+    dec, jd = decode_annexb(got), jdec(got)
+    assert [f.slice_type for f in dec] == [f.slice_type for f in jd]
+    assert sorted(recon) == sorted(f.poc // 2 for f in dec)
+    for a, b in zip(dec, jd):
+        for pl, r, s in zip(("y", "u", "v"), recon[a.poc // 2], (1, 2, 2)):
+            np.testing.assert_array_equal(getattr(a, pl), getattr(b, pl))
+            np.testing.assert_array_equal(
+                getattr(a, pl), r[:H // s, :W // s],
+                err_msg="display %d plane %s" % (a.poc // 2, pl))
+        assert [m.unit_mvs for m in a.mbs] == [m.unit_mvs for m in b.mbs]
+    _check_payload(got, tenc, len(frames))
+
+
 @pytest.mark.parametrize("n_valid", [2, 1])
 def test_analyse_b_frame_mref_matches_reference(n_valid):
     """The 16x16 B analysis at two references (per entry B6, B7, the

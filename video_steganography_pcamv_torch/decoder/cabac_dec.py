@@ -1,6 +1,5 @@
 """CABAC decoding engine + I/P/B slice parser (verification decoder;
-the port's copy of the reference's decoder/cabac_dec.py; B MBs without
-intra).
+the port's copy of the reference's decoder/cabac_dec.py).
 
 Spec 9.3.3.2 arithmetic decoder (InitDecoding/DecodeDecision/
 DecodeBypass/DecodeTerminate) with the same normative tables as the
@@ -475,6 +474,8 @@ class CabacSliceParser:
         """After mb_type + transform flag 1: returns (modes8, cmode,
         cbp_luma, cbp_chroma, lev8, cdcs, cacs)."""
         self.mvd4[4 * my:4 * my + 4, 4 * mx:4 * mx + 4] = 0
+        if self.slice_is_b:
+            self.mvd4_1[4 * my:4 * my + 4, 4 * mx:4 * mx + 4] = 0
         modes8 = self.intra8_modes(my, mx)
         cmode = self.chroma_pred_mode(my, mx)
         cbp_luma = self.cbp_luma(my, mx)
@@ -532,6 +533,8 @@ class CabacSliceParser:
     def parse_i16_mb(self, my, mx, mode16, cbpl_flag, cbp_chroma):
         """After mb_type: returns (cmode, dc, acs, cdcs, cacs)."""
         self.mvd4[4 * my:4 * my + 4, 4 * mx:4 * mx + 4] = 0
+        if self.slice_is_b:
+            self.mvd4_1[4 * my:4 * my + 4, 4 * mx:4 * mx + 4] = 0
         cmode = self.chroma_pred_mode(my, mx)
         self.qp_delta_zero()
         dc, acs = self._luma_residual_i16(my, mx, cbpl_flag)
@@ -546,6 +549,8 @@ class CabacSliceParser:
         """After mb_type bin: returns (modes, cmode, cbp_luma,
         cbp_chroma, blocks, cdcs, cacs)."""
         self.mvd4[4 * my:4 * my + 4, 4 * mx:4 * mx + 4] = 0
+        if self.slice_is_b:
+            self.mvd4_1[4 * my:4 * my + 4, 4 * mx:4 * mx + 4] = 0
         modes = self.intra4x4_modes(my, mx)
         cmode = self.chroma_pred_mode(my, mx)
         cbp_luma = self.cbp_luma(my, mx)
@@ -639,7 +644,8 @@ class CabacSliceParser:
         L0/L1/BI, 4-21 two-partition list combos, 22 B_8x8 (inverse of
         the writer's mb_type_b/mb_type_b_bins; reference
         encoder/cabac.c:123-192 i_mb_bits). Returns 23 on the
-        intra-in-B prefix 111101, which the port does not decode."""
+        intra-in-B prefix 111101 (the caller parses the intra suffix with
+        `mb_type_b_intra_suffix`)."""
         cd = self.cd
         ctx = 0
         if mx > 0 and self.mb_kind[my, mx - 1] > 0 \
@@ -660,6 +666,12 @@ class CabacSliceParser:
                 f"unsupported B mb_type bins {bins}"
             bins = bins + (cd.decision(32),)
         return _B_TYPE_INV[bins]
+
+    def mb_type_b_intra_suffix(self):
+        """The intra suffix after the B intra prefix (inverse of the
+        writer's mb_type_b_intra): the I slice's binarization on ctx 32 +
+        0/1/2/2/3/3. Returns (i4, mode16, cbpl_flag, cbp_chroma)."""
+        return self._mb_type_intra(32, 33, 34, 34, 35, 35)
 
     def sub_mb_type_b(self) -> int:
         """B sub_mb_type, 8x8 subset (inverse of the writer's

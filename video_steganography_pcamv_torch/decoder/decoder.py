@@ -9,14 +9,17 @@ extractor — stc_extract include commented out, analyse.c:43).
 The port's copy of the reference's decoder/decoder.py, cut to the paths
 that the port's streams take: I/P slices under CAVLC or CABAC
 (I16x16/I4x4/I8x8, P partitions incl. sub-8x8, the adaptive 8x8
-transform, P_SKIP, sliding-window DPB) and non-reference B slices under
-CAVLC or CABAC (B_Skip, B_Direct_16x16 with spatial direct, the 16x16
-L0/L1/BI types, the 16x8/8x16 combos, B_8x8 with direct/L0/L1/BI subs,
-multi-reference L0 lists, the default B list order, POC output order);
-the CABAC parser is `cabac_dec.py`. Scaling matrices, per-MB QP changes
-in a deblocked slice, temporal direct, weighted bipred, intra MBs in B
-and deblocked or reference B slices raise NotImplementedError. The
-in-loop filter is the port's `ops.deblock`.
+transform, P_SKIP, sliding-window DPB, L0 reordering) and B slices
+under CAVLC or CABAC (B_Skip, B_Direct_16x16 and direct 8x8 subs under
+spatial or temporal direct, the 16x16 L0/L1/BI types, the 16x8/8x16
+combos, B_8x8 with direct/L0/L1/BI subs, intra MBs, multi-reference L0
+lists, the default B list order, implicit weighted bipred, reference B
+slices entering the DPB, deblocked B slices with the two-list bS, POC
+output order); the CABAC parser is `cabac_dec.py`. Scaling matrices,
+per-MB QP changes in a deblocked slice, explicit weighted bipred
+(weighted_bipred_idc 1), the 8x8 transform in B MBs, B sub-8x8
+partitions, L1 reordering and more than one L1 reference raise
+NotImplementedError. The in-loop filter is the port's `ops.deblock`.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import torch
 
 from ..utils.bitstream import BitReader, nal_unescape
 from ..encoder import vlc_tables as VT
+from ..encoder.bslice import bipred_weight, dist_scale_factor
 from ..encoder.vlc_tables import B_CODE_USES, B_SUB_USES
 from ..ops import deblock as DB
 from . import recon as R
@@ -371,13 +375,31 @@ def parse_pps(rbsp: bytes) -> DecPPS:
 class SliceDecoder:
     """Decodes one frame (single slice)."""
 
-    def __init__(self, sps: DecSPS, pps: DecPPS, refs=None, refs_l1=None):
+    def __init__(self, sps: DecSPS, pps: DecPPS, refs=None, refs_l1=None,
+                 poc: int = 0, direct_spatial: bool = True):
         self.sps, self.pps = sps, pps
         # the slice's L0 list (P: most recent reference first)
         self.refs = refs or []
         self.refs_l1 = refs_l1 or []   # B-slice list 1 (future anchor)
         self.p_l0_active = None  # P-slice num_ref override (7.4.3)
         self.b_l0_active = 1     # B-slice effective L0 size
+        self.direct_spatial = direct_spatial
+        # per L0 entry: the implicit bipred weight of the L1 prediction
+        # (weighted_bipred_idc 2, spec 8.4.2.3.2; x264's
+        # bipred_weight[i_ref0][0]) and temporal direct's DistScaleFactor
+        # (spec 8.4.1.2.3), from the POC distances of the actual entries
+        n0 = max(1, len(self.refs))
+        self.bipred_w1_tab = [32] * n0
+        self._dsf_tab = [256] * n0
+        if self.refs and self.refs_l1:
+            poc1 = self.refs_l1[0]["poc"]
+            if pps.weighted_bipred_idc == 2:
+                self.bipred_w1_tab = [
+                    bipred_weight(poc, e["poc"], poc1, True)
+                    for e in self.refs]
+            if not direct_spatial:
+                self._dsf_tab = [dist_scale_factor(poc, e["poc"], poc1)
+                                 for e in self.refs]
         self.mbw = (sps.width + 15) // 16
         self.mbh = (sps.height + 15) // 16
         self.y = np.zeros((self.mbh * 16, self.mbw * 16), np.int64)
@@ -923,11 +945,73 @@ class SliceDecoder:
                                unit_mvs=[(int(mv[0]), int(mv[1]))]))
 
     # ------------------------------------------------------------------
-    # B slices: spatial direct per spec 8.4.1.2.2 with
-    # direct_8x8_inference, both lists' motion fields, bipred recon
-    # (twin of the encoder's bslice.scan_b_parts)
+    # B slices: spatial (spec 8.4.1.2.2) or temporal (8.4.1.2.3) direct
+    # with direct_8x8_inference, both lists' motion fields, bipred recon
+    # at the implicit weights (twin of the encoder's bslice.scan_b_parts)
     # ------------------------------------------------------------------
     _COL_CORNERS = ((0, 0), (0, 3), (3, 0), (3, 3))
+
+    def _direct(self, my, mx):
+        """The direct derivation of the slice's mode: (use0, use1, mv0
+        [4,2], mv1 [4,2], refIdxL0 (an int, or [4] per 8x8 under
+        temporal direct), refIdxL1)."""
+        if self.direct_spatial:
+            return self._spatial_direct(my, mx)
+        return self._temporal_direct(my, mx)
+
+    def _direct_coded(self, my, mx):
+        """`_direct` of an MB the slice codes as B_Skip or B_Direct_16x16
+        (or with a direct 8x8 sub): raises ValueError where the derivation
+        has no prediction (temporal direct unavailable), which a conformant
+        stream never codes."""
+        out = self._direct(my, mx)
+        if not (out[0] or out[1]):
+            raise ValueError("direct MB (%d, %d) where temporal direct is "
+                             "unavailable: not a conformant stream"
+                             % (mx, my))
+        return out
+
+    def _temporal_direct(self, my, mx):
+        """Temporal direct (spec 8.4.1.2.3; twin of the encoder's
+        bslice.temporal_direct_fields): each 8x8's colocated corner MV,
+        from L1[0]'s L0-only field, scaled by its mapped L0 entry's
+        DistScaleFactor; refIdxL0 = map_col_to_list0 of the colocated
+        reference, by POC within the active L0 (x264's
+        macroblock.c:830-841); colocated intra gives zeros and refs 0. A
+        colocated reference outside the active L0, or a reference B's
+        L1-only block, makes the MB direct-unavailable (macroblock.c:199):
+        a conformant stream codes no direct MB there."""
+        y4, x4 = 4 * my, 4 * mx
+        col = self.refs_l1[0]
+        col_mv4 = col.get("mv4_l0", col["mv4"])
+        col_ref4 = col.get("ref4_l0", col["ref4"])
+        cmap = None
+        rp0 = col.get("ref_poc0")
+        if rp0:
+            n_act = min(self.b_l0_active, len(self.refs))
+            pocs = [self.refs[j]["poc"] for j in range(n_act)]
+            cmap = [pocs.index(q) if q in pocs else -1 for q in rp0]
+        mv0 = np.zeros((4, 2), np.int32)
+        mv1 = np.zeros((4, 2), np.int32)
+        r8 = np.zeros(4, np.int32)
+        for b, (cy, cx) in enumerate(self._COL_CORNERS):
+            colr = int(col_ref4[y4 + cy, x4 + cx])
+            if colr == -1:
+                continue
+            if colr <= -2:
+                return False, False, mv0 * 0, mv1 * 0, r8 * 0, 0
+            if cmap is not None:
+                r = cmap[min(colr, len(cmap) - 1)]
+                if r < 0:
+                    return False, False, mv0 * 0, mv1 * 0, r8 * 0, 0
+            else:
+                r = min(colr, len(self._dsf_tab) - 1)
+            r8[b] = r
+            colm = col_mv4[y4 + cy, x4 + cx].astype(np.int64)
+            l0 = (self._dsf_tab[r] * colm + 128) >> 8
+            mv0[b] = l0
+            mv1[b] = l0 - colm
+        return True, True, mv0, mv1, r8, 0
 
     def _spatial_direct(self, my, mx):
         """Spatial direct (use0, use1, mv0 [4,2], mv1 [4,2] per 8x8
@@ -983,8 +1067,8 @@ class SliceDecoder:
     def _b_preds(self, mx, my, use0, use1, mv0, mv1, r0=0):
         """Bipred luma [16,16] and chroma (2 x [8,8]) predictions of one
         MB at per-8x8 (mv0, mv1) [4,2]; use0/use1/r0 per MB or per 8x8
-        ([4]). The bipred combine is the plain average (weighted bipred
-        is not decoded)."""
+        ([4]). The bipred combine takes the implicit weight of the L0
+        entry a block uses (32 is the plain average)."""
         u0a = np.broadcast_to(np.asarray(use0), (4,))
         u1a = np.broadcast_to(np.asarray(use1), (4,))
         r0a = np.broadcast_to(np.asarray(r0), (4,))
@@ -998,7 +1082,11 @@ class SliceDecoder:
                 p1 = mc(self.refs_l1[0][key], y0, x0, int(mv1[b][0]),
                         int(mv1[b][1]), bh=n, bw=n)
             if u0a[b] and u1a[b]:
-                return (p0 + p1 + 1) >> 1
+                w1 = self.bipred_w1_tab[min(int(r0a[b]),
+                                            len(self.bipred_w1_tab) - 1)]
+                if w1 == 32:
+                    return (p0 + p1 + 1) >> 1
+                return np.clip((p0 * (64 - w1) + p1 * w1 + 32) >> 6, 0, 255)
             return p0 if u0a[b] else p1
 
         py = np.zeros((16, 16), np.int64)
@@ -1015,7 +1103,7 @@ class SliceDecoder:
         return py, pc
 
     def decode_b_skip(self, mx: int, my: int, qp: int):
-        use0, use1, mv0, mv1, r0, _r1 = self._spatial_direct(my, mx)
+        use0, use1, mv0, mv1, r0, _r1 = self._direct_coded(my, mx)
         self._commit_b(my, mx, use0, use1, mv0, mv1, r0=r0)
         py, pc = self._b_preds(mx, my, use0, use1, mv0, mv1, r0=r0)
         self.y[16 * my:16 * my + 16, 16 * mx:16 * mx + 16] = py
@@ -1047,7 +1135,8 @@ class SliceDecoder:
         refs_u: per-unit L0 refs. Returns (use0 [4], use1 [4], mv0 [4,2],
         mv1 [4,2] per 8x8 z-order, r8 [4] per-8x8 L0 refs, unit_mvs)."""
         y4, x4 = 4 * my, 4 * mx
-        du0, du1, dmv0, dmv1, dr0, _dr1 = self._spatial_direct(my, mx)
+        du0, du1, dmv0, dmv1, dr0, _dr1 = self._direct(my, mx)
+        dr8 = np.broadcast_to(np.asarray(dr0), (4,))
         r8_out = np.zeros(4, np.int32)
         if mb_type == 22:
             geom = self._B_UNIT_GEOM[3]
@@ -1070,17 +1159,19 @@ class SliceDecoder:
             for u, (blocks, oy, ox, h4, w4, kind) in enumerate(geom):
                 ur = 0 if refs_u is None or li == 1 else int(refs_u[u])
                 if u in direct_units:
+                    if not (du0 or du1):
+                        self._direct_coded(my, mx)   # raises
                     ui = int(duse)
                     for b in blocks:
                         use_v[li][b] = ui
                         if ui:
                             mv_v[li][b] = dmv[b]
                             if li == 0:
-                                r8_out[b] = dr0
+                                r8_out[b] = int(dr8[b])
                         by, bx = y4 + 2 * (b >> 1), x4 + 2 * (b & 1)
                         mvf[by:by + 2, bx:bx + 2] = dmv[b]
                         rff[by:by + 2, bx:bx + 2] = \
-                            (dr0 if li == 0 else 0) if ui else -1
+                            (int(dr8[b]) if li == 0 else 0) if ui else -1
                         self.dec4[by:by + 2, bx:bx + 2] = True
                         if li == 0:
                             unit_mvs.append((int(dmv[b][0]),
@@ -1157,7 +1248,7 @@ class SliceDecoder:
         y4, x4 = 4 * my, 4 * mx
         r0 = 0
         if mb_type == 0:
-            use0, use1, mv0, mv1, r0, _r1 = self._spatial_direct(my, mx)
+            use0, use1, mv0, mv1, r0, _r1 = self._direct_coded(my, mx)
         else:
             use0, use1 = mb_type in (1, 3), mb_type in (2, 3)
             mv0 = np.zeros((4, 2), np.int32)
@@ -1219,8 +1310,8 @@ class SliceDecoder:
         return qp
 
     def decode_b_slice(self, br: BitReader, qp: int):
-        """A CAVLC B slice: mb_skip_run of B_Skip MBs, then the coded
-        MB; intra MBs raise NotImplementedError."""
+        """A CAVLC B slice: mb_skip_run of B_Skip MBs, then the coded MB:
+        inter (0-22), I_NxN (23) or I_16x16 (24-47)."""
         n_mbs = self.mbh * self.mbw
         addr = 0
         while addr < n_mbs:
@@ -1235,8 +1326,23 @@ class SliceDecoder:
                 qp = self.decode_b_mb(br, mx, my, mb_type, qp)
             elif mb_type <= 22:
                 qp = self.decode_b_mb_parts(br, mx, my, mb_type, qp)
+            elif mb_type == 23:
+                self.mb_intra[my, mx] = True
+                if self.pps.transform_8x8 and br.read1():
+                    qp = self.decode_i8x8(br, mx, my, qp)
+                    kind = "I8x8"
+                else:
+                    qp = self.decode_i4x4(br, mx, my, qp)
+                    kind = "I4x4"
+                self.decoded[my, mx] = True
+                self.mbs.append(MBInfo(kind, (0, 0), qp))
+            elif mb_type <= 47:
+                self.mb_intra[my, mx] = True
+                qp = self.decode_i16x16(br, mx, my, mb_type - 23, qp)
+                self.decoded[my, mx] = True
+                self.mbs.append(MBInfo("I16x16", (0, 0), qp))
             else:
-                raise NotImplementedError("intra MBs in B slices")
+                raise AssertionError(f"unsupported B mb_type {mb_type}")
             addr += 1
 
     def decode_slice(self, br: BitReader, slice_type: int, qp: int):
@@ -1300,10 +1406,12 @@ class SliceDecoder:
 
 
 def _deblock(dec: SliceDecoder, qp: int, alpha_off: int, beta_off: int,
-             cqo: int):
+             cqo: int, is_b: bool = False):
     """The in-loop filter of a decoded slice, with the port's deblocker
     (`ops.deblock`, its plain version on the CPU). It serves one QP per
-    slice; per-MB QP changes raise NotImplementedError."""
+    slice; per-MB QP changes raise NotImplementedError. In a B slice the
+    boundary strength compares both lists' motion (spec 8.7.2.1, x264's
+    frame.c:735-741), where an unused list is ref -1 / mv 0."""
     qp_map = np.array([m.qp for m in dec.mbs], np.int32)
     if (qp_map != qp).any():
         raise NotImplementedError("deblocking with per-MB QP changes")
@@ -1320,8 +1428,11 @@ def _deblock(dec: SliceDecoder, qp: int, alpha_off: int, beta_off: int,
                          t(dec.mv4), qp, qpc, dec.mbh, dec.mbw,
                          qp_thresh=15 - min(alpha_off, beta_off)
                          - max(cqo, 0), off_a=alpha_off, off_b=beta_off,
-                         ref4=t(np.maximum(dec.ref4, 0)),
-                         trans8=t(dec.mb_trans8))
+                         ref4=t(dec.ref4 if is_b
+                                else np.maximum(dec.ref4, 0)),
+                         trans8=t(dec.mb_trans8),
+                         mv4_l1=t(dec.mv4_1) if is_b else None,
+                         ref4_l1=t(dec.ref4_1) if is_b else None)
     planes = DB.deblock_frame_plain(t(dec.y), t(dec.u), t(dec.v), par,
                                     dec.mbh, dec.mbw)
     return tuple(p.numpy().astype(np.int64) for p in planes)
@@ -1370,8 +1481,7 @@ def decode_annexb(data: bytes) -> list[DecodedFrame]:
                 if ref_idc != 0:
                     prev_poc_lsb, prev_poc_msb = lsb, msb
             is_b = slice_type in (1, 6)
-            if is_b and not br.read1():   # direct_spatial_mv_pred_flag
-                raise NotImplementedError("temporal direct")
+            direct_spatial = bool(br.read1()) if is_b else True
             reorder_l0 = None
             l0_override = None
             if slice_type in (0, 5) or is_b:
@@ -1411,11 +1521,8 @@ def decode_annexb(data: bytes) -> list[DecodedFrame]:
                 dpb = []   # IDR resets the DPB
                 gop += 1
             if is_b:
-                if pps.weighted_bipred_idc:
-                    raise NotImplementedError("weighted bipred")
-                if disable != 1 or ref_idc != 0:
-                    raise NotImplementedError("deblocked or reference B "
-                                              "slices")
+                if pps.weighted_bipred_idc == 1:
+                    raise NotImplementedError("explicit weighted bipred")
                 # default B lists (spec 8.2.4.2.3): L0 past references
                 # POC-descending, L1 future ones POC-ascending
                 l0 = sorted((e for e in dpb if e["poc"] < poc),
@@ -1423,7 +1530,8 @@ def decode_annexb(data: bytes) -> list[DecodedFrame]:
                 l1 = sorted((e for e in dpb if e["poc"] > poc),
                             key=lambda e: e["poc"])
                 assert l0 and l1, "B slice needs refs on both sides"
-                dec = SliceDecoder(sps, pps, refs=l0, refs_l1=l1)
+                dec = SliceDecoder(sps, pps, refs=l0, refs_l1=l1, poc=poc,
+                                   direct_spatial=direct_spatial)
                 # the signalled L0 size governs te(v) parsing (7.4.3)
                 dec.b_l0_active = (l0_override if l0_override is not None
                                    else pps.num_ref_idx_l0_active)
@@ -1434,44 +1542,18 @@ def decode_annexb(data: bytes) -> list[DecodedFrame]:
                     _decode_slice_cabac_b(dec, br, qp, cabac_model)
                 else:
                     dec.decode_b_slice(br, qp)
-                _append_frame(frames, dec, sps, slice_type, poc, gop)
-                continue
-            l0p = list(dpb)   # default P order: PicNum descending
-            if reorder_l0:
-                # apply 8.2.4.3.1: move each addressed short-term
-                # ref to the next list position
-                max_fn = 1 << sps.log2_max_frame_num
-                pred = frame_num
-                for idx, (idc, arg) in enumerate(reorder_l0):
-                    if idc == 0:
-                        pred -= arg + 1
-                        if pred < 0:
-                            pred += max_fn
-                    else:
-                        pred += arg + 1
-                        if pred >= max_fn:
-                            pred -= max_fn
-                    j = next(i for i, e in enumerate(l0p)
-                             if e["frame_num"] % max_fn == pred)
-                    l0p.insert(idx, l0p.pop(j))
-            dec = SliceDecoder(sps, pps, refs=l0p)
-            dec.p_l0_active = l0_override
-            if pps.cabac:
-                _decode_slice_cabac(dec, br, slice_type, qp, cabac_model)
             else:
-                dec.decode_slice(br, slice_type, qp)
+                dec = _decode_p_or_i(sps, pps, br, dpb, slice_type, qp,
+                                     frame_num, reorder_l0, l0_override,
+                                     cabac_model)
             if disable != 1:
                 dec.y, dec.u, dec.v = _deblock(dec, qp, alpha_off, beta_off,
-                                               pps.chroma_qp_index_offset)
+                                               pps.chroma_qp_index_offset,
+                                               is_b)
             _append_frame(frames, dec, sps, slice_type, poc, gop)
             if ref_idc != 0:
-                # the colocated field a later B's direct derivation reads
-                dpb.insert(0, {"luma": R.np_hpel_planes(R.np_pad(dec.y)),
-                               "u": R.np_pad(dec.u),
-                               "v": R.np_pad(dec.v),
-                               "frame_num": frame_num, "poc": poc,
-                               "mv4": dec.mv4.copy(),
-                               "ref4": dec.ref4.copy()})
+                dpb.insert(0, _dpb_entry(dec, pps, nal_type, slice_type,
+                                         frame_num, poc, is_b))
                 del dpb[max(1, sps.num_ref_frames):]
     if sps is not None and sps.poc_type == 0:
         # display (POC) order within each IDR period
@@ -1479,6 +1561,70 @@ def decode_annexb(data: bytes) -> list[DecodedFrame]:
                        key=lambda i: (frames[i][0], frames[i][1].poc))
         return [frames[i][1] for i in order]
     return [f for _, f in frames]
+
+
+def _decode_p_or_i(sps, pps, br, dpb, slice_type: int, qp: int,
+                   frame_num: int, reorder_l0, l0_override, cabac_model):
+    """An I or P slice: the default P list (PicNum descending) with the
+    slice's reordering ops applied, then the slice data."""
+    l0p = list(dpb)   # default P order: PicNum descending
+    if reorder_l0:
+        # apply 8.2.4.3.1: move each addressed short-term
+        # ref to the next list position
+        max_fn = 1 << sps.log2_max_frame_num
+        pred = frame_num
+        for idx, (idc, arg) in enumerate(reorder_l0):
+            if idc == 0:
+                pred -= arg + 1
+                if pred < 0:
+                    pred += max_fn
+            else:
+                pred += arg + 1
+                if pred >= max_fn:
+                    pred -= max_fn
+            j = next(i for i, e in enumerate(l0p)
+                     if e["frame_num"] % max_fn == pred)
+            l0p.insert(idx, l0p.pop(j))
+    dec = SliceDecoder(sps, pps, refs=l0p)
+    dec.p_l0_active = l0_override
+    if pps.cabac:
+        _decode_slice_cabac(dec, br, slice_type, qp, cabac_model)
+    else:
+        dec.decode_slice(br, slice_type, qp)
+    return dec
+
+
+def _dpb_entry(dec, pps, nal_type: int, slice_type: int, frame_num: int,
+               poc: int, is_b: bool) -> dict:
+    """A decoded reference picture as a DPB entry: padded planes, POC,
+    frame_num, the colocated fields a later B reads and its own active L0
+    POCs (map_col_to_list0, spec 8.4.1.2.3). For a reference B the
+    spatial field takes L1's motion where L0 is unused (spec 8.4.1.2.2)
+    and temporal reads the L0-only field, as x264's cache does
+    (macroblock.c:187): intra stays -1, an L1-only block is -2 (the
+    macroblock.c:199 direct-unavailable case)."""
+    col_mv, col_ref = dec.mv4, dec.ref4
+    col_mv0, col_ref0 = dec.mv4, dec.ref4
+    if is_b:
+        m0 = dec.ref4 >= 0
+        col_mv = np.where(m0[..., None], dec.mv4, dec.mv4_1)
+        col_ref = np.where(m0, dec.ref4, dec.ref4_1)
+        col_mv0 = np.where(m0[..., None], dec.mv4, 0)
+        col_ref0 = np.where(m0, dec.ref4,
+                            np.where(dec.ref4_1 >= 0, -2, -1))
+        rp0 = [e["poc"] for e in dec.refs[:dec.b_l0_active]]
+    elif slice_type in (2, 7) or nal_type == 5:
+        rp0 = []
+    else:
+        n_act = (dec.p_l0_active if dec.p_l0_active is not None
+                 else pps.num_ref_idx_l0_active)
+        rp0 = [e["poc"] for e in dec.refs[:n_act]]
+    return {"luma": R.np_hpel_planes(R.np_pad(dec.y)),
+            "u": R.np_pad(dec.u), "v": R.np_pad(dec.v),
+            "frame_num": frame_num, "poc": poc,
+            "mv4": col_mv.copy(), "ref4": col_ref.copy(),
+            "mv4_l0": col_mv0.copy(), "ref4_l0": col_ref0.copy(),
+            "ref_poc0": rp0}
 
 
 def _append_frame(frames, dec, sps, slice_type: int, poc: int, gop: int):
@@ -1727,7 +1873,8 @@ def _recon_p_cabac(dec, ps, my, mx, part, qp, qpc):
 
 def _decode_slice_cabac_b(dec: SliceDecoder, br, qp: int, model: int = 0):
     """CABAC B slice (twin of the encoder's B writer): B_Skip, direct,
-    16x16 and partition MBs; intra MBs raise NotImplementedError."""
+    16x16 and partition MBs, and intra MBs (the B prefix, then the I
+    slice's intra binarization)."""
     from .cabac_dec import CabacSliceParser
 
     while br.bit_position() % 8:
@@ -1743,9 +1890,21 @@ def _decode_slice_cabac_b(dec: SliceDecoder, br, qp: int, model: int = 0):
             dec.decode_b_skip(mx, my, ps.qp)
         else:
             btype = ps.mb_type_b(my, mx)
-            if btype > 22:
-                raise NotImplementedError("intra MBs in B slices")
-            _recon_b_cabac(dec, ps, my, mx, btype)
+            if btype <= 22:
+                _recon_b_cabac(dec, ps, my, mx, btype)
+            else:
+                i4, mode16, cbpl, cbpc = ps.mb_type_b_intra_suffix()
+                dec.mb_intra[my, mx] = True
+                qpc = int(CHROMA_QP[np.clip(
+                    qp + dec.pps.chroma_qp_index_offset, 0, 51)])
+                if not i4:
+                    _recon_i16_cabac(dec, ps, my, mx, mode16, cbpl, cbpc, qp,
+                                     qpc)
+                elif ps.trans8_mode and ps.transform_size_flag(my, mx):
+                    _recon_i8_cabac(dec, ps, my, mx, qp, qpc)
+                else:
+                    _recon_i4_cabac(dec, ps, my, mx, qp, qpc)
+                dec.decoded[my, mx] = True
         eos = ps.end_mb()
         assert eos == (1 if a == n - 1 else 0), f"end_of_slice at MB {a}"
     dec.nnz_y = ps.nnz_y
@@ -1760,7 +1919,7 @@ def _recon_b_cabac(dec, ps, my, mx, code):
         mvd0, mvd1, cbpl, cbpc, blk_lv, cdcs, cacs, r0 = \
             ps.parse_b_mb(my, mx, code)
         if code == 0:
-            use0, use1, mv0, mv1, r0, _r1 = dec._spatial_direct(my, mx)
+            use0, use1, mv0, mv1, r0, _r1 = dec._direct_coded(my, mx)
         else:
             use0, use1 = code in (1, 3), code in (2, 3)
             mv0 = np.zeros((4, 2), np.int32)

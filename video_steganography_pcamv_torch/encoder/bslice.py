@@ -1,5 +1,6 @@
-"""B slices with partitions and spatial direct (port of the serving
-subset of encoder/bslice.py: BASELINE config 4's B frames).
+"""B slices (port of the stego subset of encoder/bslice.py: BASELINE
+config 4's B frames and every direct mode, implicit weights and the
+reference B of a pyramid).
 
 The analysis runs in two device stages around one host step, as in the
 reference:
@@ -19,11 +20,17 @@ reference:
 The L0 list is always a stack of entries (one at one reference): the
 reference's single-reference B functions compute what its
 multi-reference ones compute with one entry (no ref_idx bits, every MB
-on entry 0), so one path serves both. The bipred combine is the plain
-average (`weightb` is outside the slice).
+on entry 0), so one path serves both. The bipred combine takes the
+implicit weight of `bipred_weight` (`weightb`; 32, the plain average,
+without it): a scalar in the analysis, per L0 entry in the 16x16 BI
+cost, per 8x8 in the encode.
 
-`scan_b_parts` is the host raster commit with the decoder's exact spatial
-direct derivation; `encode_b_frame_device` assembles the bipred
+Direct MVs come from spatial direct, derived in the host commit on the
+committed neighbours, or from a field computed once a frame
+(`temporal_direct_fields`, with `dist_scale_factor` per L0 entry and the
+colocated picture's references mapped into L0 by POC; `no_direct_fields`
+for `direct` 0). `scan_b_parts` is the host raster commit with the
+decoder's exact derivation; `encode_b_frame_device` assembles the bipred
 prediction and encodes it, its 4x4 luma with the fused luma-encode kernel
 (`ops/lumap.luma_p_encode`).
 
@@ -86,10 +93,40 @@ _MV_BITS = mv_bits_table(4 * 512)
 _BOFF = 4 * 512
 
 
-def _bi_avg(p0, p1):
-    """Bipred combine without weights (spec 8.4.2.3.1; the reference's
-    clip((p0 (64 - w1) + p1 w1 + 32) >> 6) at w1 = 32)."""
-    return (p0 + p1 + 1) >> 1
+def _bi_avg(p0, p1, w1=32):
+    """Bipred combine (the reference's `_bi_avg`): the implicit weighted
+    clip((p0 (64 - w1) + p1 w1 + 32) >> 6) (spec 8.4.2.3.2, log2WD 5);
+    w1 an int, or a tensor that broadcasts against p0 (per MB or per 8x8
+    block). At w1 = 32 it is the plain average (p0 + p1 + 1) >> 1, which
+    the default (no `weightb`) takes directly."""
+    if isinstance(w1, int) and w1 == 32:
+        return (p0 + p1 + 1) >> 1
+    return torch.clamp((p0 * (64 - w1) + p1 * w1 + 32) >> 6, 0, 255)
+
+
+def bipred_weight(poc_b: int, poc0: int, poc1: int, weightb: bool) -> int:
+    """Implicit bipred weight of the L1 prediction (w0 = 64 - w1), the
+    reference's `bipred_weight` (x264_macroblock_bipred_init): 32 without
+    `weightb`, when td = 0 or outside [-64, 128]; C's division, which
+    truncates toward zero, also where td < 0."""
+    if not weightb:
+        return 32
+    td = min(127, max(-128, poc1 - poc0))
+    if td == 0:
+        return 32
+    tb = min(127, max(-128, poc_b - poc0))
+    tx = (16384 + (abs(td) >> 1)) // abs(td) * (1 if td > 0 else -1)
+    dsf = min(1023, max(-1024, (tb * tx + 32) >> 6)) >> 2
+    return dsf if -64 <= dsf <= 128 else 32
+
+
+def weight_arg(w, dev):
+    """A weight table (numpy, any shape) as `_bi_avg`'s argument: the int
+    when every entry is the same, else an int32 tensor of it on dev."""
+    w = np.asarray(w)
+    if (w == w.reshape(-1)[0]).all():
+        return int(w.reshape(-1)[0])
+    return torch.as_tensor(np.ascontiguousarray(w, np.int32)).to(dev)
 
 
 def _mvc(mv, lam: int, scale: int = 1):
@@ -187,36 +224,37 @@ def analyse_b_parts_stage1(y, refs0_fp, n_valid: int, ref1_fp, rng: int,
 
 
 def _direct_pred8(ref0_luma, ref1_luma, use0, use1, mv0_8, mv1_8, mbh: int,
-                  mbw: int):
+                  mbw: int, w1=32):
     """The (approximate) direct prediction per 8x8 block [N8, 8, 8]
-    (spatial order) at per-8x8 qpel MVs of both lists."""
+    (spatial order) at per-8x8 qpel MVs of both lists, BI blocks combined
+    at the scalar weight w1."""
     ys8, xs8 = _block_origins(mbh, mbw, use0.device, 8)
     n8 = ys8.shape[0]
     u0 = use0.reshape(n8)[:, None, None].to(torch.bool)
     u1 = use1.reshape(n8)[:, None, None].to(torch.bool)
     p0 = mc.mc_luma(ref0_luma, ys8, xs8, mv0_8.reshape(n8, 2), 8, 8)
     p1 = mc.mc_luma(ref1_luma, ys8, xs8, mv1_8.reshape(n8, 2), 8, 8)
-    return torch.where(u0 & u1, _bi_avg(p0, p1), torch.where(u0, p0, p1))
+    return torch.where(u0 & u1, _bi_avg(p0, p1, w1), torch.where(u0, p0, p1))
 
 
 def bipred_satd8_device(y, ref0_luma, ref1_luma, use0, use1, mv0_8, mv1_8,
-                        mbh: int, mbw: int):
+                        mbh: int, mbw: int, w1: int = 32):
     """Per-8x8 SATD [mbh, mbw, 4] (z-order) of the (approximate) direct
     prediction at per-8x8 qpel MVs, eager torch (the reference's
     bslice.py:771)."""
     p8 = _direct_pred8(ref0_luma, ref1_luma, use0, use1, mv0_8, mv1_8, mbh,
-                       mbw)
+                       mbw, w1)
     satd = satd_flat(wht8_flat(_mb_blocks8(y, mbh, mbw)), wht8_flat(p8))
     return sp_to_z(satd.reshape(2 * mbh, 2 * mbw), mbh, mbw)
 
 
 def bipred_satd_device(y, ref0_luma, ref1_luma, use0, use1, mv0_8, mv1_8,
-                       mbh: int, mbw: int):
+                       mbh: int, mbw: int, w1: int = 32):
     """Per-MB SATD [mbh, mbw] of the (approximate) direct prediction
     (the reference's bslice.py:314): the 8x8 predictions assembled into
     16x16 MBs, SATD over the MB's 4x4 blocks."""
     p8 = _direct_pred8(ref0_luma, ref1_luma, use0, use1, mv0_8, mv1_8, mbh,
-                       mbw)
+                       mbw, w1)
     pred = mb_tiles(p8.reshape(2 * mbh, 2 * mbw, 8, 8).permute(0, 2, 1, 3)
                     .reshape(16 * mbh, 16 * mbw), 16)
     return QT.satd_tables(QT.wht16(mb_tiles(y, 16)), QT.wht16(pred)) \
@@ -239,15 +277,17 @@ def _search16(y, planes, rng: int, mbh: int, mbw: int, lam: int):
 
 
 def analyse_b_frame(y, refs0_luma, n_valid: int, ref1_luma, rng: int,
-                    mbh: int, mbw: int, lam: int):
+                    mbh: int, mbw: int, lam: int, w1=32):
     """The 16x16 B analysis (the reference's `analyse_b_frame_mref`,
     bslice.py:168; with one entry its `analyse_b_frame`, :121): per L0
     entry (refs0_luma [R, 4, Hp, Wp] int32, newest first) and on L1
     (ref1_luma [4, Hp, Wp]) `_search16`; the L0 entry chosen per MB by
     cost + lam * te(ref) bits (first minimum: ties keep the lower index;
     entries past n_valid carry a 1 << 28 penalty and still run); BI at
-    the two winners, SATD of the average plus both MVs' bits and the L0
-    ref bits. Returns (mv0, c0, ref0 [mbh,mbw] int32, mv1, c1, cbi)."""
+    the two winners, SATD of the weighted average (w1: an int, or an
+    int32 tensor [R] of each L0 entry's implicit weight) plus both MVs'
+    bits and the L0 ref bits. Returns (mv0, c0, ref0 [mbh,mbw] int32, mv1,
+    c1, cbi)."""
     nrefs = refs0_luma.shape[0]
     n = mbh * mbw
     bits = te_ref_bits(nrefs)
@@ -264,7 +304,9 @@ def analyse_b_frame(y, refs0_luma, n_valid: int, ref1_luma, rng: int,
     mv0 = _take(torch.stack(mvs), ref0)
     blk0 = _take(torch.stack(blks).reshape(nrefs, mbh, mbw, 16, 16), ref0)
     mv1, c1, blk1 = _search16(y, ref1_luma, rng, mbh, mbw, lam)
-    bi = _bi_avg(blk0.reshape(n, 16, 16).to(_I32), blk1.to(_I32))
+    if not isinstance(w1, int):     # each MB's L0 entry's weight
+        w1 = w1[ref0.reshape(n).long()][:, None, None]
+    bi = _bi_avg(blk0.reshape(n, 16, 16).to(_I32), blk1.to(_I32), w1)
     satd_bi = QT.satd_tables(QT.wht16(mb_tiles(y, 16)), QT.wht16(bi))
     rb = (lam * torch.as_tensor(bits, device=y.device)[ref0.long()]).to(_I32)
     cbi = satd_bi.reshape(mbh, mbw) + _mvc(mv0, lam) + _mvc(mv1, lam) + rb
@@ -272,7 +314,7 @@ def analyse_b_frame(y, refs0_luma, n_valid: int, ref1_luma, rng: int,
 
 
 def analyse_b_parts(y, refs0_luma, ref1_luma, st0, st1, c_dir8,
-                    ref0_map, mbh: int, mbw: int, lam: int):
+                    ref0_map, mbh: int, mbw: int, lam: int, w1: int = 32):
     """Stage 2 of the B partition analysis, the reference's
     `analyse_b_parts` (bslice.py:580) at subpel 2.
 
@@ -280,7 +322,9 @@ def analyse_b_parts(y, refs0_luma, ref1_luma, st0, st1, c_dir8,
     ref0_map [mbh, mbw] each MB's entry; ref1_luma [4, Hp, Wp]. st0/st1:
     stage-1 states; c_dir8 [mbh, mbw, 4] the approximate direct SATDs.
     The windows of each list come from B9 (on L0 with each 8x8's entry)
-    and the subpel refine is B3' against a zero predictor. Returns dict
+    and the subpel refine is B3' against a zero predictor; every BI
+    combine takes the scalar weight w1 (L0[0]'s, as in the reference,
+    whatever entry an MB uses). Returns dict
     part [mbh,mbw], sel8 [mbh,mbw,4] (0 L0 / 1 L1 / 2 BI / 3 direct-8x8),
     mv0_8 / mv1_8 [2mbh,2mbw,2] qpel, c_cfg [mbh,mbw]."""
     dev = y.device
@@ -299,8 +343,10 @@ def analyse_b_parts(y, refs0_luma, ref1_luma, st0, st1, c_dir8,
     for s in range(4):
         w0 = _gather8_fp(refs0_luma[:, 0], z_to_sp(f0[s], mbh, mbw),
                          mbh, mbw, r8=r8_map.reshape(n8))
-        w1 = _gather8_fp(ref1_luma[0], z_to_sp(f1[s], mbh, mbw), mbh, mbw)
-        sad = torch.abs(cur8 - _bi_avg(w0, w1)).sum((1, 2), dtype=_I32)
+        wl1 = _gather8_fp(ref1_luma[0], z_to_sp(f1[s], mbh, mbw), mbh,
+                          mbw)
+        sad = torch.abs(cur8 - _bi_avg(w0, wl1, w1)).sum((1, 2),
+                                                          dtype=_I32)
         sadz = sp_to_z(sad.reshape(2 * mbh, 2 * mbw), mbh, mbw)
         bi_unit.append(_unit_reduce(sadz, s) + _mvc(f0[s], lam, 4)
                        + _mvc(f1[s], lam, 4))
@@ -349,7 +395,7 @@ def analyse_b_parts(y, refs0_luma, ref1_luma, st0, st1, c_dir8,
         return sp_to_z(s.reshape(2 * mbh, 2 * mbw), mbh, mbw)
 
     s0z, s1z = satd_z(blk0), satd_z(blk1)
-    sbz = satd_z(_bi_avg(blk0, blk1))
+    sbz = satd_z(_bi_avg(blk0, blk1, w1))
     mv0z = sp_to_z(mv8_0, mbh, mbw)
     mv1z = sp_to_z(mv8_1, mbh, mbw)
 
@@ -510,6 +556,94 @@ def approx_direct_fields(mv0, mv1, col_mv4, col_ref4):
     return ones, ones.copy(), outs[0], outs[1]
 
 
+def dist_scale_factor(poc_b: int, poc0: int, poc1: int) -> int:
+    """DistScaleFactor of temporal direct (spec 8.4.1.2.3; the reference's
+    `dist_scale_factor`): poc0 the L0 entry's POC, poc1 L1[0]'s; 256 at
+    td = 0; C's division, which truncates toward zero."""
+    td = int(np.clip(poc1 - poc0, -128, 127))
+    tb = int(np.clip(poc_b - poc0, -128, 127))
+    if td == 0:
+        return 256
+    tx = (16384 + abs(td) // 2) // abs(td) * (1 if td > 0 else -1)
+    return int(np.clip((tb * tx + 32) >> 6, -1024, 1023))
+
+
+def temporal_direct_fields(col_mv4, col_ref4, dsf, col_map=None):
+    """Temporal direct of a whole frame (spec 8.4.1.2.3; the reference's
+    `temporal_direct_fields`, x264_mb_predict_mv_direct16x16_temporal).
+    Per 8x8 (direct_8x8_inference) the colocated corner 4x4 of L1[0]'s
+    field scales: mvL0 = (DSF mvCol + 128) >> 8, mvL1 = mvL0 - mvCol.
+    col_ref4 -1 is colocated intra (zeros, ref 0); <= -2 a block with no
+    L0 motion (a reference B's L1-only block), which makes the whole MB
+    direct-unavailable. dsf: a scalar, or [R] per L0 entry, each block
+    scaling by its mapped entry's. col_map [Rcol]: map_col_to_list0 by
+    POC, -1 where the colocated reference is not in the active L0 (the MB
+    is then direct-unavailable); None keeps the identity. Unlike spatial
+    direct nothing depends on the neighbours' commits, so the field is
+    computed once a frame, on the host. Returns (avail [mbh,mbw] bool,
+    mv0_8 [2mbh,2mbw,2], mv1_8, ref8_0 [2mbh,2mbw])."""
+    h4, w4 = col_ref4.shape
+    mbh, mbw = h4 // 4, w4 // 4
+    iy = np.arange(2 * mbh)
+    ix = np.arange(2 * mbw)
+    cy = (iy // 2) * 4 + (iy % 2) * 3   # the corner 4x4 of each 8x8
+    cx = (ix // 2) * 4 + (ix % 2) * 3
+    colm = col_mv4[np.ix_(cy, cx)].astype(np.int64)
+    colr = col_ref4[np.ix_(cy, cx)]
+    intra = colr == -1
+    unused = colr <= -2
+    mref = isinstance(dsf, np.ndarray) and dsf.ndim == 1
+    if col_map is not None:
+        cm = np.asarray(col_map, np.int32)
+        mapped = np.where(colr < 0, 0, cm[np.clip(colr, 0, len(cm) - 1)])
+        ok8 = intra | (~unused & (mapped >= 0))
+        ref8 = np.maximum(mapped, 0).astype(np.int32)
+    elif mref:
+        ref8 = np.where(colr < 0, 0, colr).astype(np.int32)
+        ok8 = intra | ~unused
+    else:
+        ref8 = np.zeros_like(colr, np.int32)
+        ok8 = intra | (colr == 0)
+    avail = ok8.reshape(mbh, 2, mbw, 2).all(axis=(1, 3))
+    zero = colr < 0    # zeros for every block without L0 motion
+    dsf_b = dsf[np.clip(ref8, 0, len(dsf) - 1)][..., None] if mref else dsf
+    mv0 = (dsf_b * colm + 128) >> 8     # arithmetic shift, as in C
+    mv1 = mv0 - colm
+    mv0 = np.where(zero[..., None], 0, mv0).astype(np.int32)
+    mv1 = np.where(zero[..., None], 0, mv1).astype(np.int32)
+    return avail, mv0, mv1, ref8
+
+
+def _tdir_mb(tdir, my: int, mx: int):
+    """One MB of a precomputed temporal (or disabled) direct field:
+    (use0, use1, mv0 [4,2], mv1 [4,2], ref8 [4] per 8x8 z-order)."""
+    avail, tmv0, tmv1, tref = tdir
+    ok = bool(avail[my, mx])
+    sy, sx = slice(2 * my, 2 * my + 2), slice(2 * mx, 2 * mx + 2)
+    return (ok, ok, tmv0[sy, sx].reshape(4, 2), tmv1[sy, sx].reshape(4, 2),
+            tref[sy, sx].reshape(4))
+
+
+def no_direct_fields(mbh: int, mbw: int):
+    """`direct` 0 (x264 --direct none): every MB direct-unavailable, in
+    `temporal_direct_fields`' layout."""
+    return (np.zeros((mbh, mbw), bool),
+            np.zeros((2 * mbh, 2 * mbw, 2), np.int32),
+            np.zeros((2 * mbh, 2 * mbw, 2), np.int32),
+            np.zeros((2 * mbh, 2 * mbw), np.int32))
+
+
+def _direct_mb(g0, g1, col_mv4, col_ref4, tdir, my: int, mx: int):
+    """The direct derivation of one MB: spatial from the committed grids
+    (tdir None), else the precomputed field. Returns (use0, use1, mv0,
+    mv1, ref8 [4] L0 refs, refIdxL1)."""
+    if tdir is None:
+        du0, du1, dmv0, dmv1, dr0, dr1 = spatial_direct(
+            g0, g1, col_mv4, col_ref4, my, mx)
+        return du0, du1, dmv0, dmv1, np.full(4, dr0, np.int32), dr1
+    return _tdir_mb(tdir, my, mx) + (0,)
+
+
 # unit geometry per B shape: (member blocks, oy4, ox4, h4, w4, mvp kind)
 _B_UNIT_GEOM = {
     0: [((0, 1, 2, 3), 0, 0, 4, 4, D_16x16)],
@@ -521,10 +655,11 @@ _B_UNIT_GEOM = {
 
 
 def scan_b_parts(part, sel8, mv0z, mv1z, c_cfg, c_dir, col_mv4, col_ref4,
-                 lam: int, ref0=None):
+                 lam: int, ref0=None, tdir=None):
     """Host raster commit of the B partition path (the reference's
-    bslice.py:975 without intra MBs and temporal direct): the exact
-    spatial direct derivation, direct-vs-config decision (direct wins at
+    bslice.py:975 without intra MBs): the exact direct derivation (spatial
+    on the committed grids, or tdir, a precomputed temporal or disabled
+    field), direct-vs-config decision (direct wins where available at
     c_dir + lam <= c_cfg), per-unit MVP/mvd for both lists in
     all-L0-then-all-L1 order (a later unit's MVP sees this MB's earlier
     units, spec 8.4.1.3).
@@ -550,8 +685,8 @@ def scan_b_parts(part, sel8, mv0z, mv1z, c_cfg, c_dir, col_mv4, col_ref4,
     for my in range(mbh):
         for mx in range(mbw):
             y4, x4 = 4 * my, 4 * mx
-            du0, du1, dmv0, dmv1, dr0, _ = spatial_direct(
-                g0, g1, col_mv4, col_ref4, my, mx)
+            du0, du1, dmv0, dmv1, dr8, _ = _direct_mb(
+                g0, g1, col_mv4, col_ref4, tdir, my, mx)
             r0 = int(ref0[my, mx]) if ref0 is not None else 0
             if du0 and c_dir[my, mx] + lam <= c_cfg[my, mx]:
                 # B_Direct_16x16 (code 0), committed per 8x8
@@ -560,10 +695,11 @@ def scan_b_parts(part, sel8, mv0z, mv1z, c_cfg, c_dir, col_mv4, col_ref4,
                     use0[sy, sx] = int(du0)
                     use1[sy, sx] = int(du1)
                     fmv0[sy, sx] = dmv0[b]
-                    ref8_0[sy, sx] = dr0
+                    ref8_0[sy, sx] = dr8[b]
                     if du1:
                         fmv1[sy, sx] = dmv1[b]
-                    g0.commit(2 * sy, 2 * sx, 2, 2, dmv0[b], ref=dr0)
+                    g0.commit(2 * sy, 2 * sx, 2, 2, dmv0[b],
+                              ref=int(dr8[b]))
                     g1.commit(2 * sy, 2 * sx, 2, 2, dmv1[b],
                               ref=0 if du1 else -1)
                 continue
@@ -589,7 +725,7 @@ def scan_b_parts(part, sel8, mv0z, mv1z, c_cfg, c_dir, col_mv4, col_ref4,
                         b = blocks[0]
                         sy, sx = 2 * my + (b >> 1), 2 * mx + (b & 1)
                         usearr[sy, sx] = int(duse)
-                        rd = dr0 if li == 0 else 0
+                        rd = int(dr8[b]) if li == 0 else 0
                         if duse:
                             fmvarr[sy, sx] = dmv[b]
                             if li == 0:
@@ -617,10 +753,11 @@ def scan_b_parts(part, sel8, mv0z, mv1z, c_cfg, c_dir, col_mv4, col_ref4,
 
 
 def scan_b_frame(c_dir, c0, c1, cbi, mv0, mv1, col_mv4, col_ref4, lam: int,
-                 ref0=None):
+                 ref0=None, tdir=None):
     """Host raster commit of the 16x16 B path (the reference's
-    bslice.py:1102 without intra MBs and temporal direct): per MB the
-    exact spatial direct derivation, the mode by the first minimum of
+    bslice.py:1102 without intra MBs): per MB the exact direct derivation
+    (spatial, or tdir as in `scan_b_parts`), the mode by the first
+    minimum of
     c + lam * mb_type bits over direct / L0 / L1 / BI (direct only where
     it has a list), the MVP and mvd of the chosen lists.
 
@@ -643,8 +780,8 @@ def scan_b_frame(c_dir, c0, c1, cbi, mv0, mv1, col_mv4, col_ref4, lam: int,
     for my in range(mbh):
         for mx in range(mbw):
             y4, x4 = 4 * my, 4 * mx
-            du0, du1, dmv0, dmv1, dr0, dr1 = spatial_direct(
-                g0, g1, col_mv4, col_ref4, my, mx)
+            du0, du1, dmv0, dmv1, dr8, dr1 = _direct_mb(
+                g0, g1, col_mv4, col_ref4, tdir, my, mx)
             cands = np.array([
                 (int(c_dir[my, mx]) if du0 or du1 else (1 << 60))
                 + lam * hdr[0],
@@ -660,10 +797,11 @@ def scan_b_frame(c_dir, c0, c1, cbi, mv0, mv1, col_mv4, col_ref4, lam: int,
                 fmv0[sy, sx] = dmv0.reshape(2, 2, 2)
                 fmv1[sy, sx] = dmv1.reshape(2, 2, 2)
                 if du0:
-                    ref8_0[sy, sx] = dr0
+                    ref8_0[sy, sx] = dr8.reshape(2, 2)
                 for b in range(4):
                     by, bx = y4 + 2 * (b >> 1), x4 + 2 * (b & 1)
-                    g0.commit(by, bx, 2, 2, dmv0[b], ref=dr0 if du0 else -1)
+                    g0.commit(by, bx, 2, 2, dmv0[b],
+                              ref=int(dr8[b]) if du0 else -1)
                     g1.commit(by, bx, 2, 2, dmv1[b], ref=dr1 if du1 else -1)
                 continue
             r0 = int(ref0[my, mx]) if ref0 is not None else 0
@@ -694,11 +832,12 @@ def scan_b_frame(c_dir, c0, c1, cbi, mv0, mv1, col_mv4, col_ref4, lam: int,
 # ---------------------------------------------------------------------------
 
 def _assemble_pred_b(refs0, ref1, use0, use1, mv0_8, mv1_8, ref8_0,
-                     mbh: int, mbw: int):
+                     mbh: int, mbw: int, w1=32):
     """Bipred luma + chroma per 8x8 block (the reference's
     bslice.py:257). refs0: the stacked L0 list, dict 'luma' [R,4,Hp,Wp],
     'u', 'v' [R,Hp,Wp], and ref8_0 [2mbh,2mbw] each 8x8's entry (-1 where
-    L0 is unused); ref1: dict 'luma' [4,Hp,Wp], 'u', 'v'. Returns
+    L0 is unused); ref1: dict 'luma' [4,Hp,Wp], 'u', 'v'; w1 the implicit
+    weight, an int or an int32 tensor [2mbh,2mbw] per 8x8 block. Returns
     (pred_y [n,16,16], pred_u [n,8,8], pred_v)."""
     dev = use0.device
     n8 = 4 * mbh * mbw
@@ -706,9 +845,11 @@ def _assemble_pred_b(refs0, ref1, use0, use1, mv0_8, mv1_8, ref8_0,
     u1 = use1.reshape(n8)[:, None, None].to(torch.bool)
     mv0f, mv1f = mv0_8.reshape(n8, 2), mv1_8.reshape(n8, 2)
     r8 = torch.clamp(ref8_0.reshape(n8), min=0)
+    w8 = w1 if isinstance(w1, int) else w1.reshape(n8)[:, None, None]
 
     def combine(p0, p1, b):
-        p = torch.where(u0 & u1, _bi_avg(p0, p1), torch.where(u0, p0, p1))
+        p = torch.where(u0 & u1, _bi_avg(p0, p1, w8),
+                        torch.where(u0, p0, p1))
         return mb_tiles(p.reshape(2 * mbh, 2 * mbw, b, b).permute(0, 2, 1, 3)
                         .reshape(2 * b * mbh, 2 * b * mbw), 2 * b)
 
@@ -726,15 +867,16 @@ def _assemble_pred_b(refs0, ref1, use0, use1, mv0_8, mv1_8, ref8_0,
 
 def encode_b_frame_device(y, u, v, refs0, ref1, use0, use1, mv0_8, mv1_8,
                           ref8_0, qp: int, qpc: int, mbh: int,
-                          mbw: int) -> dict:
+                          mbw: int, w1=32) -> dict:
     """The B encode at per-8x8 (use, mv) fields of both lists, the
     reference's `encode_b_frame_device` (bslice.py:340) with decimation
-    on and trellis off: the bipred prediction (`_assemble_pred_b`), the
+    on and trellis off: the bipred prediction at the implicit weight w1
+    (`_assemble_pred_b`), the
     4x4 luma encode by the fused luma-encode kernel (one launch on CUDA,
     decimation in the kernel), the chroma encode as on the P path.
     Returns the P encode's result dict."""
     pred_y, pred_u, pred_v = _assemble_pred_b(
-        refs0, ref1, use0, use1, mv0_8, mv1_8, ref8_0, mbh, mbw)
+        refs0, ref1, use0, use1, mv0_8, mv1_8, ref8_0, mbh, mbw, w1)
     lev, rec, cbp_l = luma_p_encode(y, pred_y.contiguous(), qp)
     fz = torch.zeros(mbh * mbw, dtype=torch.bool, device=y.device)
     chroma = [chroma_encode(mb_tiles(plane, 8), predc, qpc, fz)

@@ -56,13 +56,21 @@ reference map and the native writer with ref_idx_l0. The slice header
 overrides num_ref_idx_l0_active while fewer than `ref_frames` entries
 are valid (after an IDR).
 
-With `bframes` > 0 (spatial direct, no pyramid, no `weightb`; CAVLC or
-CABAC, partitions on or off, any `ref_frames`) frames are buffered in
-display order and coded in decode order, as the reference's B pipe does:
-each GOP's last frame is a P anchor (the unpipelined P paths above), the
-frames before it non-reference B slices against the previous anchor (L0;
-under multi-reference the P list as it stood before the anchor) and the
-new one (L1). Where a GOP ends is the lookahead's choice: after
+With `bframes` > 0 (CAVLC or CABAC, partitions on or off, any
+`ref_frames`) frames are buffered in display order and coded in decode
+order, as the reference's B pipe does: each GOP's last frame is a P
+anchor (the unpipelined P paths above), the frames before it B slices
+against the previous anchor (L0; under multi-reference the P list as it
+stood before the anchor) and the new one (L1). With `b_pyramid` the
+middle B of a GOP of two or more is a reference picture, coded right
+after the anchor: the earlier B frames take it as L1[0], the later ones
+as L0[0], and the next P slice reorders L0 to lead with the anchor (the
+DPB keeps a P list view apart from its store). Direct MVs follow
+`direct`: spatial, temporal (scaled from the colocated field, mapped into
+L0 by POC), none, or auto (each slice takes the mode whose running score
+of would-be-direct MBs leads). `weightb` makes every bipred combine
+implicitly weighted by POC distance. Where a GOP ends is the lookahead's
+choice: after
 `bframes` B frames (`b_adapt` 0), earlier when the newest frame predicts
 badly from its predecessor (`b_adapt` 1), or by the B-placement DP over
 a window of up to 12 frames (`b_adapt` 2). A B frame runs the two-stage
@@ -71,7 +79,8 @@ or without partitions the 16x16 one (B6, B7, the qpel tables, per list
 and L0 entry), the host commit with the exact spatial direct
 derivation, the B encode (the fused luma-encode kernel) and the CAVLC or
 CABAC B writer (native for 16x16 MBs at one reference, as in the
-reference); its slice is not deblocked and never enters the DPB.
+reference); its slice is not deblocked, and only a pyramid's reference B
+enters the DPB.
 `flush()` codes the buffered frames as the last GOPs.
 """
 
@@ -128,9 +137,10 @@ def check_slice(p: Params) -> None:
     partitions off with the host deblock (the 16x16-only path), at one
     reference; or `ref_frames` > 1 (up to 8) with or without partitions,
     either deblocker, without the 8x8 transform or rd; and `bframes` 1-16
-    with `b_adapt` 0, 1 or 2, spatial direct, no pyramid, no `weightb`,
-    CAVLC or CABAC, partitions on or off, at any of those `ref_frames`,
-    without the 8x8 transform or rd."""
+    with `b_adapt` 0, 1 or 2, any `direct` mode (none, spatial, temporal,
+    auto), with or without `b_pyramid` and `weightb`, CAVLC or CABAC,
+    partitions on or off, at any of those `ref_frames`, without the 8x8
+    transform or rd."""
     if not p.partitions and p.deblock_device and p.ref_frames == 1:
         raise NotImplementedError(
             "partitions off with deblock_device on: the reference drops "
@@ -140,10 +150,6 @@ def check_slice(p: Params) -> None:
     b = p.bframes > 0
     bad = []
     for name, ok in (
-            ("b_pyramid (ROADMAP A14d)", not b or not p.b_pyramid),
-            ("weightb (ROADMAP A14e)", not b or not p.weightb),
-            ("direct other than spatial (ROADMAP A14f)",
-             not b or p.direct == 1),
             ("bframes with transform_8x8 (ROADMAP A15)",
              not b or not p.transform_8x8),
             ("bframes with rd (ROADMAP A15)", not b or not p.rd),
@@ -320,16 +326,21 @@ class Encoder:
         self.pps = H.PPS(pic_init_qp=params.qp,
                          chroma_qp_index_offset=params.chroma_qp_offset,
                          num_ref_idx_l0_active=params.ref_frames,
-                         cabac=params.cabac, weighted_bipred_idc=0)
+                         cabac=params.cabac,
+                         weighted_bipred_idc=2 if params.weightb else 0)
         if params.bframes > 0:
             # B streams: real POCs, main profile, and a DPB that holds
             # both anchors (plus the ref_frames-deep past list under
-            # multi-reference: the future anchor takes a slot of its own)
+            # multi-reference: the future anchor takes a slot of its own;
+            # a pyramid's reference B one more, set.c:198-201)
+            pyr = params.b_pyramid
             self.sps.poc_type = 0
             self.sps.profile = H.PROFILE_MAIN
-            self.sps.num_ref_frames = max(2, params.ref_frames)
+            self.sps.num_ref_frames = max(4 if pyr else 2, params.ref_frames)
             if params.ref_frames > 1:
-                self.sps.num_ref_frames = params.ref_frames + 1
+                self.sps.num_ref_frames = max(
+                    self.sps.num_ref_frames,
+                    params.ref_frames + (2 if pyr else 1))
         if params.transform_8x8:
             self.sps.profile = H.PROFILE_HIGH
             self.pps.transform_8x8 = True
@@ -342,7 +353,8 @@ class Encoder:
             transfer=params.transfer, colmatrix=params.colmatrix,
             chromaloc=params.chromaloc, fps_num=params.fps_num,
             fps_den=params.fps_den,
-            num_reorder_frames=1 if params.bframes else 0,
+            num_reorder_frames=(2 if params.b_pyramid else
+                                1 if params.bframes else 0),
             max_dec_frame_buffering=self.sps.num_ref_frames,
             mv_range=params.me_range)
         if params.level_idc:
@@ -359,7 +371,10 @@ class Encoder:
             log(LOG_WARNING, msg)
         native.load()
         self._dpb_store = []   # reference dicts, newest first
-        self.ref = None        # the newest reference
+        self.dpb = []          # the P list view over the store
+        self._dpb_disps = []   # display index of each P list entry
+        self._ref_meta = None  # staged (disp, frame_num, anchor, L0 disps)
+        self.ref = None        # the newest anchor
         self._poc_lsb = 0      # POC LSB of the P slice being coded
         self._pending_p = None
         # buffered display-order frames of the B pipe: (frame, y, u, v,
@@ -369,6 +384,10 @@ class Encoder:
         self._last_idr_disp = 0
         self._col = None       # (mv4, ref4) of the newest anchor
         self._anchor_lr = None  # lowres plane of the newest anchor
+        self._anchor_disp = 0  # display index of the newest anchor
+        self._last_anchor_fn = 0   # frame_num of the newest anchor
+        self._reorder_next_p = False   # the next P slice reorders L0
+        self._direct_score = [0, 0]    # `direct` 3: temporal, spatial
         # (final8, ref8) of the last P anchor that records its motion;
         # None after an IDR (the 16x16 P path at one reference records
         # none, as in the reference, so its B frames read an intra field)
@@ -447,7 +466,8 @@ class Encoder:
 
     def _encode_idr(self, y, u, v, qp: int) -> bytes:
         self.frame_num = 0
-        self._dpb_store = []
+        self._dpb_store, self.dpb, self._dpb_disps = [], [], []
+        self._reorder_next_p = False
         out = self.headers()
         nal = self._encode_i(y, u, v, qp)
         self.stats.i_frames += 1
@@ -642,17 +662,77 @@ class Encoder:
         """Code buffered frame k as the P anchor, then frames [0, k) as
         its B frames (decode order); the frames after k stay buffered.
         The B frames' L0 list is the P list as it stood before the anchor
-        entered the DPB."""
+        entered the DPB. Under `b_pyramid` (k >= 2) the middle B is coded
+        right after the anchor as a reference picture (x264's
+        encoder.c:2207): the earlier B frames take it as L1[0], the later
+        ones as L0[0], and the next P slice carries the one L0 reordering
+        op that puts the anchor back at the head of its list."""
         items = self._bbuf
         self._bbuf = items[k + 1:]
         f, y, u, v, satd, disp, lr = items[k]
-        l0_stack = self._dpb_stacked()
+        l0_disp = self._anchor_disp
+        # under b_pyramid a GOP too short for a reference B keeps the
+        # reference's single-reference B path (core.py:614-616): L0 is
+        # the newest anchor alone, whatever ref_frames
+        single = self.p.b_pyramid and self.p.ref_frames > 1
+        l0_stack = (self._stack_l0(self.dpb[:1], 1) if single
+                    else self._stack_l0(self.dpb))
         out = self._encode_anchor(f, y, u, v, False, satd, disp)
         self._anchor_lr = lr
-        for (bf, by, bu, bv, bsatd, bdisp, _) in items[:k]:
-            out += self._encode_b_frame(bf, by, bu, bv, l0_stack, self.ref,
-                                        bsatd, bdisp)
+        ref_l1, col = self.ref, self._col
+        # the anchor's own L0 display indices (map_col_to_list0 of the B
+        # frames whose colocated picture it is)
+        anchor_poc0 = self._dpb_store[0]["_ref_poc0"]
+        if not (self.p.b_pyramid and k >= 2):
+            for (bf, by, bu, bv, bsatd, bdisp, _) in items[:k]:
+                out += self._encode_b_frame(
+                    bf, by, bu, bv, l0_stack, ref_l1, col, bsatd, bdisp,
+                    (2 * bdisp, 2 * l0_disp, 2 * disp), anchor_poc0,
+                    l0_map=not single)[0]
+            return out
+        mid = k // 2
+        bf, by, bu, bv, bsatd, mdisp, _ = items[mid]
+        stack0 = self._stack_l0(self._b_l0_view(mdisp))
+        disps0 = stack0[4]
+        nal, (bref_ref, bref_col, bref_col_l0) = self._encode_b_frame(
+            bf, by, bu, bv, stack0, ref_l1, col, bsatd, mdisp,
+            (2 * mdisp, 2 * l0_disp, 2 * disp), anchor_poc0, is_ref=True)
+        out += nal
+        # the reference B enters the sliding window: the later B frames
+        # lead L0 with it, the next P sees it after the reordering op
+        self._ref_meta = (mdisp, self.frame_num - 1, False, disps0)
+        self._push_ref(bref_ref)
+        stack1 = self._stack_l0(self._b_l0_view(disp))
+        for i, (bf, by, bu, bv, bsatd, bdisp, _) in enumerate(items[:k]):
+            if i == mid:
+                continue
+            if bdisp < mdisp:
+                # L1[0] is the reference B: temporal direct reads its
+                # L0-only field, spatial its L0-else-L1 one
+                out += self._encode_b_frame(
+                    bf, by, bu, bv, stack0, bref_ref, bref_col, bsatd, bdisp,
+                    (2 * bdisp, 2 * l0_disp, 2 * mdisp), disps0,
+                    col_t=bref_col_l0)[0]
+            else:
+                out += self._encode_b_frame(
+                    bf, by, bu, bv, stack1, ref_l1, col, bsatd, bdisp,
+                    (2 * bdisp, 2 * mdisp, 2 * disp), anchor_poc0)[0]
+        self._reorder_next_p = True
         return out
+
+    def _take_reorder_l0(self, frame_num: int):
+        """The one-shot L0 reordering op of the P slice coded as
+        frame_num (the reference's `_take_reorder_l0`): after a pyramid
+        GOP the default PicNum-descending list leads with the reference
+        B, and one op puts the previous anchor first (x264's
+        encoder.c:138-150 emits the same)."""
+        if not self._reorder_next_p:
+            return None
+        self._reorder_next_p = False
+        diff = self._last_anchor_fn - frame_num
+        if diff == 0:
+            return None
+        return [(0 if diff < 0 else 1, abs(diff) - 1)]
 
     def _encode_anchor(self, frame, y, u, v, is_idr: bool, satd,
                        disp: int) -> bytes:
@@ -665,21 +745,27 @@ class Encoder:
         out = self._aud(SLICE_I if is_idr else SLICE_P)
         if is_idr:
             self.lookahead.last_keyframe = disp
+            self._ref_meta = (disp, 0, True, [])
             out += self._encode_idr(y, u, v, qp)
-        elif self.p.ref_frames > 1 or not self.p.partitions:
-            enc_p = (self._encode_p_mref if self.p.ref_frames > 1
-                     else self._encode_p16)
-            out += nal_unit(NAL_SLICE, NAL_PRIORITY_HIGH, enc_p(y, u, v, qp))
-            self.stats.p_frames += 1
         else:
-            d = self._fused_dispatch(y, u, v, qp,
-                                     chroma_qp(qp, self.p.chroma_qp_offset))
-            d["packed"] = d["packed"].cpu().numpy()
-            pend = self._fused_complete(d)
-            pend.update(frame_num=self.frame_num, poc_lsb=self._poc_lsb)
-            self._anchor_motion = (pend["final8"], None)
-            out += self._p_nal(pend)
+            self._ref_meta = (disp, self.frame_num, True,
+                              list(self._dpb_disps))
+            if self.p.ref_frames > 1 or not self.p.partitions:
+                enc_p = (self._encode_p_mref if self.p.ref_frames > 1
+                         else self._encode_p16)
+                out += nal_unit(NAL_SLICE, NAL_PRIORITY_HIGH,
+                                enc_p(y, u, v, qp))
+            else:
+                d = self._fused_dispatch(y, u, v, qp, chroma_qp(
+                    qp, self.p.chroma_qp_offset))
+                d["packed"] = d["packed"].cpu().numpy()
+                pend = self._fused_complete(d)
+                pend.update(frame_num=self.frame_num, poc_lsb=self._poc_lsb)
+                self._anchor_motion = (pend["final8"], None)
+                out += self._p_nal(pend)
             self.stats.p_frames += 1
+        self._last_anchor_fn = self.frame_num
+        self._anchor_disp = disp
         self._save_col()
         self._accumulate_psnr(frame, y, u, v)
         self.frame_num += 1
@@ -711,32 +797,82 @@ class Encoder:
         self._col = (np.ascontiguousarray(mv4, np.int32),
                      np.ascontiguousarray(ref4, np.int32))
 
-    def _encode_b_frame(self, frame, y, u, v, l0_stack, ref_l1, satd,
-                        disp: int) -> bytes:
-        """A non-reference B frame between two anchors, the reference's
-        `_encode_b_frame` (core.py:2853) with spatial direct: the B
-        analysis (`_analyse_b_parts`, or `_analyse_b16` without
-        partitions), the B encode (the fused luma-encode kernel) and the
-        CAVLC or CABAC B slice. l0_stack: the stacked L0 list (luma, u,
-        v, n_valid), entry 0 the newest past anchor; ref_l1 the new
-        anchor."""
+    def _direct_mode(self, disp: int, pocs, ent, l0_disps, col, col_t,
+                     col_poc0):
+        """The slice's direct mode (the reference's core.py:2893-2948):
+        spatial (`direct` 1, or 3 while the auto score favours it), else
+        the temporal field (2, 3) or none (0). The temporal field scales
+        by each L0 entry's DistScaleFactor (ent: the display index of
+        each of the ref_frames L0 slots) and maps the colocated
+        picture's references (col_poc0, its L0 display indices) into the
+        active L0 by POC; col_t is the colocated reference B's L0-only
+        field. Returns (spatial, tdir, tfields): tdir the field the
+        commit uses (None: spatial), tfields the temporal one computed
+        (None unless `direct` is 2 or 3)."""
+        p = self.p
+        dmode = p.direct
+        spatial = (self._direct_score[1] > self._direct_score[0]
+                   if dmode == 3 else dmode == 1)
+        tdir = tfields = None
+        if dmode in (2, 3):
+            dsf = np.array([BS.dist_scale_factor(2 * disp, 2 * d, pocs[2])
+                            for d in ent], np.int64)
+            act = l0_disps[:max(1, min(len(l0_disps), p.ref_frames))]
+            cmap = np.array([act.index(d) if d in act else -1
+                             for d in col_poc0] or [-1], np.int32)
+            tmv4, tref4 = col_t if col_t is not None else col
+            tfields = BS.temporal_direct_fields(tmv4, tref4, dsf,
+                                                col_map=cmap)
+            if not spatial:
+                tdir = tfields
+        if dmode == 0:
+            tdir = BS.no_direct_fields(p.mb_height, p.mb_width)
+        return spatial, tdir, tfields
+
+    def _encode_b_frame(self, frame, y, u, v, l0, ref_l1, col, satd,
+                        disp: int, pocs, col_poc0, col_t=None,
+                        is_ref: bool = False, l0_map: bool = True):
+        """A B frame between two pictures, the reference's
+        `_encode_b_frame` (core.py:2853): the direct mode of the slice,
+        the B analysis (`_analyse_b_parts`, or `_analyse_b16` without
+        partitions), the B encode (the fused luma-encode kernel) at the
+        implicit weights and the CAVLC or CABAC B slice. l0: the stacked
+        L0 list (luma, u, v, n_valid, the display index of each valid
+        entry), entry 0 the nearest past reference; ref_l1 the L1[0]
+        picture and col its colocated field; pocs (B, L0[0], L1[0]).
+        l0_map False takes the reference's single-reference B path at
+        ref_frames > 1 (no L0 map to the writers, as at one reference).
+        Returns (bytes, ref): a non-reference B is never deblocked nor
+        stored, and ref is None; with is_ref (the middle B of a pyramid
+        GOP) it is still coded undeblocked, and ref is (its reference
+        planes, its colocated field, its L0-only colocated field)."""
         t0 = time.time()
         p = self.p
         mbh, mbw = p.mb_height, p.mb_width
         qp = self.rc.start(SLICE_B, satd)
         qpc = chroma_qp(qp, p.chroma_qp_offset)
         lam = ME.lambda_tab(qp)
-        refs_l, refs_u, refs_v, n_valid = l0_stack
+        refs_l, refs_u, refs_v, n_valid, l0_disps = l0
         num_ref = n_valid   # the active L0 count the slice signals
+        # each L0 slot's display index (padded slots repeat the last) and
+        # implicit weight (x264's bipred_weight[i_ref0][0])
+        ent = [l0_disps[min(r, len(l0_disps) - 1)]
+               for r in range(refs_l.shape[0])]
+        w_tab = np.array([BS.bipred_weight(2 * disp, 2 * d, pocs[2],
+                                           p.weightb) for d in ent],
+                         np.int32)
+        dm = self._direct_mode(disp, pocs, ent, l0_disps, col, col_t,
+                               col_poc0)
         analyse = self._analyse_b_parts if p.partitions else self._analyse_b16
         (code, subs, use0, use1, fmv0, fmv1, mvd0, mvd1, ref8_0,
-         ref0_16) = analyse(y, refs_l, n_valid, ref_l1, lam)
+         ref0_16) = analyse(y, refs_l, n_valid, ref_l1, lam, w_tab, col, dm)
         t = self._dev
         res = BS.encode_b_frame_device(
             y, u, v, dict(luma=refs_l, u=refs_u, v=refs_v), ref_l1, t(use0),
-            t(use1), t(fmv0), t(fmv1), t(ref8_0), qp, qpc, mbh, mbw)
+            t(use1), t(fmv0), t(fmv1), t(ref8_0), qp, qpc, mbh, mbw,
+            w1=BS.weight_arg(w_tab[np.maximum(ref8_0, 0)], self.device))
         res_np = _levels_exact(res, mbh, mbw)
-        # a B frame never enters the DPB: its metrics read its own recon
+        # a B frame's metrics read its own recon (it is never deblocked)
         self._accumulate_psnr(frame, y, u, v, recon=(
             res["recon_y"], res["recon_u"], res["recon_v"]))
         bw = BitWriter()
@@ -744,45 +880,123 @@ class Encoder:
                              self.frame_num, qp, idr=False,
                              disable_deblock=1,
                              poc_lsb=2 * (disp - self._last_idr_disp),
-                             is_ref=False, direct_spatial=True,
+                             is_ref=is_ref, direct_spatial=bool(dm[0]),
                              b_l0_active=num_ref)
         # the reference codes no ref_idx_l0 at one reference (its
         # single-reference B path passes no L0 map), and then writes a
         # slice of 16x16 MBs natively
-        ref0_w = ref0_16 if p.ref_frames > 1 else None
+        ref0_w = ref0_16 if p.ref_frames > 1 and l0_map else None
         write = (self._write_b_slice_cabac if p.cabac
                  else self._write_b_slice_cavlc)
         nal = write(bw, res_np, qp, code, subs, mvd0, mvd1, ref0_w, num_ref)
-        out = self._aud(SLICE_B) + nal_unit(NAL_SLICE,
-                                            NAL_PRIORITY_DISPOSABLE, nal)
+        prio = NAL_PRIORITY_HIGH if is_ref else NAL_PRIORITY_DISPOSABLE
+        out = self._aud(SLICE_B) + nal_unit(NAL_SLICE, prio, nal)
+        if is_ref:
+            self.frame_num += 1   # a reference picture advances frame_num
         self.stats.b_frames += 1
         self.stats.frames += 1
         self.stats.bits += 8 * len(out)
         self.rc.end(8 * len(out))
         self.stats.elapsed += time.time() - t0
-        return out
+        if not is_ref:
+            return out, None
+        bref = mc.build_ref(res["recon_y"], res["recon_u"], res["recon_v"])
+        return out, (bref,) + self._bref_cols(use0, use1, fmv0, fmv1, ref8_0)
 
-    def _analyse_b_parts(self, y, refs_l, n_valid: int, ref_l1, lam: int):
+    @staticmethod
+    def _bref_cols(use0, use1, fmv0, fmv1, ref8_0):
+        """The two colocated fields of a reference B (the reference's
+        core.py:3183-3220; the decoder stores the same): spatial direct
+        reads L0's motion, else L1's (spec 8.4.1.2.2, refIdxL0Col < 0),
+        with the true L0 references; temporal reads the L0-only field
+        (x264's fref1 cache, macroblock.c:187), where a block that uses
+        L1 only is -2, direct-unavailable (macroblock.c:199). Blocks that
+        use neither list (none: stego keeps intra out of B) are -1."""
+        def r4(a):
+            return np.repeat(np.repeat(np.asarray(a), 2, 0), 2, 1)
+
+        u0r, u1r = r4(use0).astype(bool), r4(use1).astype(bool)
+        f0r, f1r, r0_4 = r4(fmv0), r4(fmv1), r4(ref8_0).astype(np.int32)
+        dead = ~(u0r | u1r)
+        col_mv = np.where(dead[..., None], 0,
+                          np.where(u0r[..., None], f0r, f1r))
+        col_ref = np.where(dead, -1, np.where(u0r, r0_4, 0))
+        col_mv0 = np.where((dead | ~u0r)[..., None], 0, f0r)
+        col_ref0 = np.where(dead, -1, np.where(u0r, r0_4, -2))
+        return ((col_mv.astype(np.int32), col_ref.astype(np.int32)),
+                (col_mv0.astype(np.int32), col_ref0.astype(np.int32)))
+
+    def _direct_auto_score(self, y, ref0_luma, ref1_luma, spatial: bool,
+                           tfields, approx_mvs, col, c_act, c_best,
+                           lam: int, w1: int, parts: bool):
+        """`direct` 3 (auto): add each mode's would-be-direct count to its
+        running score (the reference's core.py:2814; x264's per-MB bskip
+        probe under both modes, analyse.c:3185-3199, with its 9/10 decay,
+        encoder.c:2569-2580). The active mode's direct cost is c_act; the
+        other mode's field costs one more device dispatch and one pull."""
+        p = self.p
+        mbh, mbw = p.mb_height, p.mb_width
+        ones = np.ones((mbh, mbw), bool)
+        if spatial:
+            av8 = np.repeat(np.repeat(tfields[0].astype(np.int32), 2, 0),
+                            2, 1)
+            au, alt_avail = (av8, av8, tfields[1], tfields[2]), tfields[0]
+        else:
+            au = BS.approx_direct_fields(approx_mvs[0], approx_mvs[1], *col)
+            alt_avail = ones
+        fn = BS.bipred_satd8_device if parts else BS.bipred_satd_device
+        c_alt = fn(y, ref0_luma, ref1_luma, *(self._dev(a) for a in au),
+                   mbh, mbw, w1=w1)
+        if parts:
+            c_alt = c_alt.sum(-1)
+        c_alt = c_alt.cpu().numpy().astype(np.int64)
+        act_avail = ones if spatial else tfields[0]
+        s_act = int(((c_act + lam <= c_best) & act_avail).sum())
+        s_alt = int(((c_alt + lam <= c_best) & alt_avail).sum())
+        sc = self._direct_score   # [temporal, spatial]
+        if sc[0] + sc[1] > mbh * mbw:
+            sc[0] = sc[0] * 9 // 10
+            sc[1] = sc[1] * 9 // 10
+        sc[int(spatial)] += s_act
+        sc[1 - int(spatial)] += s_alt
+
+    def _analyse_b_parts(self, y, refs_l, n_valid: int, ref_l1, lam: int,
+                         w_tab, col, dm):
         """The partition path's B analysis (the reference's core.py:
-        2974-3038): stage 1 (B1 per L0 entry and on L1), the approximate
-        direct SATDs, stage 2 (B9, B3'), one pull, the host commit.
-        Returns `scan_b_parts`'s fields and the per-MB L0 entry."""
+        2974-3038): stage 1 (B1 per L0 entry and on L1), the direct
+        SATDs of the slice's direct field (the approximate spatial one,
+        or the temporal or disabled one, whose unavailable MBs are priced
+        out), stage 2 (B9, B3'), one pull, the direct-auto score, the
+        host commit. Every BI combine takes L0[0]'s weight. Returns
+        `scan_b_parts`'s fields and the per-MB L0 entry."""
         p = self.p
         mbh, mbw = p.mb_height, p.mb_width
         n = mbh * mbw
-        col_mv4, col_ref4 = self._col
+        spatial, tdir, tfields = dm
+        col_mv4, col_ref4 = col
+        w1 = int(w_tab[0])
         st0, st1, ref0_d = BS.analyse_b_parts_stage1(
             y, refs_l[:, 0].to(torch.uint8), n_valid,
             ref_l1["luma"][0].to(torch.uint8), p.me_range, mbh, mbw, lam)
-        mv16 = torch.cat([st0["mv16"].reshape(-1), st1["mv16"].reshape(-1)]
-                         ).cpu().numpy().reshape(2, mbh, mbw, 2)
-        au = BS.approx_direct_fields(4 * mv16[0], 4 * mv16[1], col_mv4,
-                                     col_ref4)
+        mv16 = None
+        if tdir is None or p.direct == 3:
+            mv16 = 4 * torch.cat([st0["mv16"].reshape(-1),
+                                  st1["mv16"].reshape(-1)]
+                                 ).cpu().numpy().reshape(2, mbh, mbw, 2)
+        if tdir is not None:
+            av8 = np.repeat(np.repeat(tdir[0].astype(np.int32), 2, 0), 2, 1)
+            au = (av8, av8, tdir[1], tdir[2])
+        else:
+            au = BS.approx_direct_fields(mv16[0], mv16[1], col_mv4, col_ref4)
         c_dir8 = BS.bipred_satd8_device(
             y, refs_l[0], ref_l1["luma"], *(self._dev(a) for a in au), mbh,
-            mbw)
+            mbw, w1=w1)
+        if tdir is not None:
+            # a direct-unavailable MB never wins (16x16 or 8x8 direct)
+            c_dir8 = torch.where(self._dev(tdir[0])[:, :, None], c_dir8,
+                                 1 << 20)
         stres = BS.analyse_b_parts(y, refs_l, ref_l1["luma"], st0, st1,
-                                   c_dir8, ref0_d, mbh, mbw, lam)
+                                   c_dir8, ref0_d, mbh, mbw, lam, w1=w1)
         # one pull of everything the host commit reads
         pieces = [stres["part"], stres["sel8"], PR.sp_to_z(
             stres["mv0_8"], mbh, mbw), PR.sp_to_z(stres["mv1_8"], mbh, mbw),
@@ -796,23 +1010,33 @@ class Encoder:
         c_cfg = meta[21 * n:22 * n].reshape(mbh, mbw)
         c_dir = meta[22 * n:23 * n].reshape(mbh, mbw)
         ref0_16 = meta[23 * n:].reshape(mbh, mbw)
+        if p.direct == 3:
+            self._direct_auto_score(
+                y, refs_l[0], ref_l1["luma"], spatial, tfields, mv16, col,
+                c_dir.astype(np.int64), c_cfg.astype(np.int64), lam, w1,
+                parts=True)
         return BS.scan_b_parts(part, sel8, mv0z, mv1z, c_cfg, c_dir,
-                               col_mv4, col_ref4, lam,
-                               ref0=ref0_16) + (ref0_16,)
+                               col_mv4, col_ref4, lam, ref0=ref0_16,
+                               tdir=tdir) + (ref0_16,)
 
-    def _analyse_b16(self, y, refs_l, n_valid: int, ref_l1, lam: int):
+    def _analyse_b16(self, y, refs_l, n_valid: int, ref_l1, lam: int, w_tab,
+                     col, dm):
         """The 16x16-only path's B analysis (the reference's core.py:
         3039-3081): B6 -> B7 -> qpel tables -> subpel per list and L0
-        entry (`BS.analyse_b_frame`), one pull, the approximate direct
-        SATD per MB, one pull, the host commit (`scan_b_frame`). Returns
-        the fields of `_analyse_b_parts` (no sub_mb_types, mvds per
-        MB)."""
+        entry (`BS.analyse_b_frame`, BI at each L0 entry's weight), one
+        pull, the direct SATD per MB of the slice's direct field, one
+        pull, the direct-auto score, the host commit (`scan_b_frame`).
+        Returns the fields of `_analyse_b_parts` (no sub_mb_types, mvds
+        per MB)."""
         p = self.p
         mbh, mbw = p.mb_height, p.mb_width
         n = mbh * mbw
-        col_mv4, col_ref4 = self._col
+        spatial, tdir, tfields = dm
+        col_mv4, col_ref4 = col
+        w1 = int(w_tab[0])
         mv0, c0, ref0_d, mv1, c1, cbi = BS.analyse_b_frame(
-            y, refs_l, n_valid, ref_l1["luma"], p.me_range, mbh, mbw, lam)
+            y, refs_l, n_valid, ref_l1["luma"], p.me_range, mbh, mbw, lam,
+            w1=BS.weight_arg(w_tab, self.device))
         meta = torch.cat([x.reshape(-1).to(torch.int32) for x in (
             mv0, mv1, c0, c1, cbi, ref0_d)]).cpu().numpy()
         mv0_np = meta[:2 * n].reshape(mbh, mbw, 2)
@@ -820,14 +1044,27 @@ class Encoder:
         c0_np, c1_np, cbi_np, ref0_16 = (
             meta[(4 + k) * n:(5 + k) * n].reshape(mbh, mbw)
             for k in range(4))
-        au = BS.approx_direct_fields(mv0_np, mv1_np, col_mv4, col_ref4)
+        if tdir is not None:
+            av8 = np.repeat(np.repeat(tdir[0].astype(np.int32), 2, 0), 2, 1)
+            au = (av8, av8, tdir[1], tdir[2])
+        else:
+            au = BS.approx_direct_fields(mv0_np, mv1_np, col_mv4, col_ref4)
         c_dir = BS.bipred_satd_device(
             y, refs_l[0], ref_l1["luma"], *(self._dev(a) for a in au), mbh,
-            mbw).cpu().numpy()
+            mbw, w1=w1).cpu().numpy()
+        if p.direct == 3:
+            hdr = BS._B_HDR_BITS
+            best = np.minimum(np.minimum(c0_np + lam * hdr[1],
+                                         c1_np + lam * hdr[2]),
+                              cbi_np + lam * hdr[3])
+            self._direct_auto_score(
+                y, refs_l[0], ref_l1["luma"], spatial, tfields,
+                (mv0_np, mv1_np), col, c_dir + lam * hdr[0], best, lam, w1,
+                parts=False)
         (mode, use0, use1, fmv0, fmv1, mvd0, mvd1,
          ref8_0) = BS.scan_b_frame(c_dir, c0_np, c1_np, cbi_np, mv0_np,
                                    mv1_np, col_mv4, col_ref4, lam,
-                                   ref0=ref0_16)
+                                   ref0=ref0_16, tdir=tdir)
         return (mode, None, use0, use1, fmv0, fmv1, mvd0, mvd1, ref8_0,
                 ref0_16)
 
@@ -974,21 +1211,17 @@ class Encoder:
                                     mvd4, skip, self.frame_num,
                                     self._poc_lsb)
 
-    def _dpb_stacked(self):
-        """The P list as stacked tensors ([R, 4, Hp, Wp] luma, [R, Hp,
-        Wp] chroma) padded to R = ref_frames entries by repeating the
-        newest (the merge masks the padding out), and the count of valid
-        entries. The DPB holds anchors only (B frames never enter it), so
-        the P list is the store in decode order, newest first; before an
-        anchor enters it is also its B frames' L0 list (POC-descending
-        past references)."""
-        R = self.p.ref_frames
-        dpb = self._dpb_store[:R]
-        n_valid = len(dpb)
-        dpb = dpb + [dpb[0]] * (R - n_valid)
-        return (torch.stack([d["luma"] for d in dpb]),
-                torch.stack([d["u"] for d in dpb]),
-                torch.stack([d["v"] for d in dpb]), n_valid)
+    def _stack_l0(self, entries, R: int = 0):
+        """A list of DPB entries as stacked tensors ([R, 4, Hp, Wp] luma,
+        [R, Hp, Wp] chroma) padded to R (default ref_frames) entries by
+        repeating the first (the merges mask the padding out), the count
+        of valid entries and their display indices."""
+        R = R or self.p.ref_frames
+        es = list(entries) + [entries[0]] * (R - len(entries))
+        return (torch.stack([d["luma"] for d in es]),
+                torch.stack([d["u"] for d in es]),
+                torch.stack([d["v"] for d in es]), len(entries),
+                [e["_disp"] for e in entries])
 
     def _encode_p_mref(self, y, u, v, qp: int) -> bytes:
         """A multi-reference P frame (the reference's `_encode_p_parts`
@@ -1003,7 +1236,7 @@ class Encoder:
         dev = self.device
         qpc = chroma_qp(qp, p.chroma_qp_offset)
         lam = ME.lambda_tab(qp)
-        refs_luma, refs_u, refs_v, n_valid = self._dpb_stacked()
+        refs_luma, refs_u, refs_v, n_valid = self._stack_l0(self.dpb)[:4]
         part, mv8, ref8, SK, SP, sc8 = \
             PT.analyse_p_frame_parts_mref(
                 y, refs_luma.to(torch.uint8), n_valid,
@@ -1211,11 +1444,42 @@ class Encoder:
 
     def _push_ref(self, refdict: dict):
         """Sliding-window DPB update (newest first; spec 8.2.5.3), at most
-        SPS num_ref_frames entries. With P frames only, decode order is
-        the P list order."""
-        self._dpb_store.insert(0, refdict)
+        SPS num_ref_frames entries. The entry takes the metadata the
+        coding picture staged in `_ref_meta` (display index, frame_num,
+        anchor or reference B, its own L0 display indices for
+        map_col_to_list0; an IPP stream stages none), then the P list
+        view is derived again."""
+        e = dict(refdict)
+        disp, fn, anchor, ref_poc0 = self._ref_meta or (0, 0, True, [])
+        self._ref_meta = None
+        e.update(_disp=disp, _fn=fn, _anchor=anchor,
+                 _ref_poc0=list(ref_poc0))
+        self._dpb_store.insert(0, e)
         del self._dpb_store[self.sps.num_ref_frames:]
-        self.ref = self._dpb_store[0]
+        self._refresh_dpb_view()
+
+    def _refresh_dpb_view(self):
+        """The P list over the store (the reference's `_refresh_dpb_view`):
+        the newest anchor, then the rest PicNum-descending, cut to
+        ref_frames; after a pyramid GOP this is the decoder's default list
+        after the one reordering op, otherwise decode order."""
+        st = self._dpb_store
+        if not st:
+            self.dpb, self._dpb_disps, self.ref = [], [], None
+            return
+        head = next((e for e in st if e["_anchor"]), st[0])
+        rest = sorted((e for e in st if e is not head),
+                      key=lambda e: -e["_fn"])
+        self.dpb = ([head] + rest)[:self.p.ref_frames]
+        self._dpb_disps = [e["_disp"] for e in self.dpb]
+        self.ref = self.dpb[0]
+
+    def _b_l0_view(self, bdisp: int):
+        """A B frame's L0 list over the store: the references before it
+        in display order, POC-descending (spec 8.2.4.2.3), cut to
+        ref_frames."""
+        return sorted((e for e in self._dpb_store if e["_disp"] < bdisp),
+                      key=lambda e: -e["_disp"])[:self.p.ref_frames]
 
     @staticmethod
     def _refs4(part_np, ref8):
@@ -1249,7 +1513,8 @@ class Encoder:
                              frame_num, qp, idr=False, disable_deblock=0,
                              alpha_div2=p.deblock_alpha,
                              beta_div2=p.deblock_beta, poc_lsb=poc_lsb,
-                             reorder_l0=None, p_l0_active=num_ref)
+                             reorder_l0=self._take_reorder_l0(frame_num),
+                             p_l0_active=num_ref)
         hdr, nbits = bw.partial_bytes()
         refs = None if ref8 is None else self._refs4(part_np, ref8)
         if p.cabac:

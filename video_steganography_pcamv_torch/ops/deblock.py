@@ -83,10 +83,14 @@ def _shift_down(x):
 
 def edge_params(intra, skip, nnz4, mv4, qp: int, qpc: int, mbh: int,
                 mbw: int, qp_thresh: int = 15, off_a: int = 0,
-                off_b: int = 0, ref4=None, trans8=None) -> torch.Tensor:
+                off_b: int = 0, ref4=None, trans8=None, mv4_l1=None,
+                ref4_l1=None) -> torch.Tensor:
     """Per-MB deblock parameters [mbh*mbw, 128] int32 (layout above).
     ref4 [4mbh, 4mbw] holds the L0 reference index of each 4x4 block
     (None: all 0, one reference); blocks that differ in it get bS 1.
+    mv4_l1/ref4_l1 (a decoded B slice; the encoder deblocks no B slice)
+    give the L1 motion, compared the same way, list by list (x264's
+    frame.c:735-741).
     trans8 [mbh, mbw] marks the MBs coded with the 8x8 transform (None:
     none), whose inner luma edges 1 and 3 are no transform edges and
     stay off (the rule lives in these rows; the filter is unchanged)."""
@@ -105,6 +109,9 @@ def edge_params(intra, skip, nnz4, mv4, qp: int, qpc: int, mbh: int,
     mvx4, mvy4 = mv4[..., 0].to(_I32), mv4[..., 1].to(_I32)
     ref4 = torch.zeros_like(nnz4) if ref4 is None else ref4.to(_I32)
     maps = (nnz4, mvx4, mvy4, ref4)
+    if mv4_l1 is not None:
+        maps += (mv4_l1[..., 0].to(_I32), mv4_l1[..., 1].to(_I32),
+                 ref4_l1.to(_I32))
     cur = [grid4(t) for t in maps]
     left = [grid4(_shift_right(t)) for t in maps]
     top = [grid4(_shift_down(t)) for t in maps]
@@ -133,16 +140,19 @@ def edge_params(intra, skip, nnz4, mv4, qp: int, qpc: int, mbh: int,
             src = (left if d == 0 else top) if e == 0 else cur
             k = 0 if e == 0 else e - 1
             if d == 0:
-                qn, qx, qy, qr = (t[..., e] for t in cur)
-                pn, px, py, pr = (t[..., k] for t in src)
+                q = [t[..., e] for t in cur]
+                pp = [t[..., k] for t in src]
                 nb_i = left_i
             else:
-                qn, qx, qy, qr = (t[..., e, :] for t in cur)
-                pn, px, py, pr = (t[..., k, :] for t in src)
+                q = [t[..., e, :] for t in cur]
+                pp = [t[..., k, :] for t in src]
                 nb_i = top_i
-            bs = torch.where((qn > 0) | (pn > 0), 2, 0)
-            mvd = (((qx - px).abs() >= 4) | ((qy - py).abs() >= 4)
-                   | (qr != pr))
+            bs = torch.where((q[0] > 0) | (pp[0] > 0), 2, 0)
+            mvd = torch.zeros_like(bs, dtype=torch.bool)
+            for j in range(1, len(maps), 3):   # L0, then L1 if given
+                mvd |= (((q[j] - pp[j]).abs() >= 4)
+                        | ((q[j + 1] - pp[j + 1]).abs() >= 4)
+                        | (q[j + 2] != pp[j + 2]))
             bs = torch.where((bs == 0) & mvd, 1, bs)
             promote = cur_i | nb_i if e == 0 else cur_i
             bs = torch.where(promote[..., None], 3, bs).to(_I32)

@@ -10,8 +10,12 @@ bit counts, the PSNR/SSIM sums `close()` reports, the stego counters),
 the pending pipelined frame if there is one, and the B pipe: the
 buffered display-order frames (source planes, padded planes, lookahead
 SATD, display index, lowres plane), the display counters, the newest
-anchor's lowres plane and colocated motion field, the motion the next
-anchor's field would fall back to, and the lookahead's adaptive-B flag.
+anchor's lowres plane, display index, frame_num and colocated motion
+field, the motion the next anchor's field would fall back to, the
+lookahead's adaptive-B flag, the pending L0 reordering op of the P slice
+after a pyramid GOP and the `direct` auto score. Each DPB entry keeps its
+display index, frame_num, kind (anchor or reference B) and its own L0
+display indices, from which the P list view is derived again.
 `load_state(port_encoder, state)` installs it, so the port can resume
 mid-stream, at a GOP boundary or inside a GOP. This module imports no
 jax: it only reads attributes and converts arrays with `numpy.asarray`.
@@ -32,6 +36,7 @@ _RES_KEYS = ("luma_lev", "chroma_dc", "chroma_ac", "cbp_luma",
              "cbp_chroma", "luma8_lev", "trans8")
 _PEND_KEYS = ("qp", "part", "mvd", "skip", "final8", "frame_num",
               "poc_lsb", "aud")
+_META_KEYS = ("_disp", "_fn", "_anchor", "_ref_poc0")
 
 
 def from_reference(enc) -> dict:
@@ -64,9 +69,14 @@ def from_reference(enc) -> dict:
         "anchor_lr": arr(enc._anchor_lr),
         "anchor_motion": motion,
         "bad_b_candidate": bool(la.bad_b_candidate),
+        "anchor_disp": int(enc._anchor_disp),
+        "last_anchor_fn": int(enc._last_anchor_fn),
+        "reorder_next_p": bool(enc._reorder_next_p),
+        "direct_score": [int(x) for x in enc._direct_score],
     }
     return {
-        "dpb": [{k: np.asarray(e[k]) for k in _REF_KEYS}
+        "dpb": [{**{k: np.asarray(e[k]) for k in _REF_KEYS},
+                 **{k: copy.deepcopy(e[k]) for k in _META_KEYS}}
                 for e in enc._dpb_store],
         "prev_mv": None if enc.prev_mv is None else np.asarray(enc.prev_mv),
         "lookahead": {
@@ -93,9 +103,10 @@ def load_state(enc, d: dict) -> None:
     def t(a):
         return torch.as_tensor(np.array(a)).to(dev)
 
-    enc._dpb_store = [{k: t(e[k]).to(torch.int32) for k in _REF_KEYS}
+    enc._dpb_store = [{**{k: t(e[k]).to(torch.int32) for k in _REF_KEYS},
+                       **{k: copy.deepcopy(e[k]) for k in _META_KEYS}}
                       for e in d["dpb"]]
-    enc.ref = enc._dpb_store[0] if enc._dpb_store else None
+    enc._refresh_dpb_view()
     enc.prev_mv = (None if d["prev_mv"] is None
                    else np.array(d["prev_mv"], np.int32))
     la = d["lookahead"]
@@ -139,3 +150,7 @@ def _load_bpipe(enc, b: dict, t) -> None:
         np.array(m[0], np.int32), None if m[1] is None
         else np.array(m[1], np.int32)))
     enc.lookahead.bad_b_candidate = b["bad_b_candidate"]
+    enc._anchor_disp = b["anchor_disp"]
+    enc._last_anchor_fn = b["last_anchor_fn"]
+    enc._reorder_next_p = b["reorder_next_p"]
+    enc._direct_score = list(b["direct_score"])
