@@ -45,8 +45,11 @@ Phases (any failure raises and the script exits non-zero):
      versions at 1080p shapes on a real frame pair, the luma encodes at
      qp 26 and 20 and on the 13-version probe batch (the fused one also
      with force-zero and on an MB subset, and timed beside the earlier
-     B8a -> decimation -> B8b chain on the same inputs): array-equal,
-     timed, beside their bounds;
+     B8a -> decimation -> B8b chain on the same inputs), and the fused
+     luma encode's levels-in entry (the trellis path's) on the trellis's
+     levels of the same inputs at qp 26 and 20, also with force-zero:
+     array-equal, timed, beside their bounds (the levels-in entry also
+     beside the trellis that makes its levels);
  10. the 16x16-only path (partitions=False, deblock_device=False) at
      112x80, six frames on cuda and on cpu: byte-equal streams that the
      port's decoder decodes and the port's extractor reads;
@@ -142,7 +145,20 @@ Phases (any failure raises and the script exits non-zero):
      flush, decode order I P4 Bref2 B1 B3: every B slice temporal, so
      that B1 (L1[0] the reference B) reads the reference B's L0-only
      colocated field and B3 takes two valid unweighted L0 entries; the
-     same kernel, launch, recon and payload checks as phase 26.
+     same kernel, launch, recon and payload checks as phase 26;
+ 29. tools/bench_c4.py's Params and clip at ref_frames 1 with
+     transform_8x8, rd 1 and trellis 1 (x264's --8x8dct --subme 7
+     --trellis 1 --bframes 2) at 1920x1088, IDR + 6 frames + flush, I P
+     B B P B B: every kernel call of the B frames and every call of the
+     fused luma encode in the P anchors (its levels-in entry, fed by the
+     trellis) array-equal to its plain version; exact launches per frame
+     type (each P anchor B1, B9, B3, B4, B5 once and the levels-in entry
+     twice, each B frame B1 twice, B9 and B3' twice and the levels-in
+     entry once); the decoded frames, anchors included, equal the
+     encoder's recon and the payload is recovered (in a worker); P and B
+     fps, the IDR's seconds, bytes by slice type, the I8x8 and trans8 MB
+     counts (each must be above 0) and the trellis's ms per frame
+     printed.
 Phase 3 also holds B5 with a fuzzed per-4x4 reference map (ref4), phase
 13 B9 on a stack of two references with a per-8x8 reference (ref8), and
 phase 17 the multi-reference streams at 112x80 (ref_frames 2 under
@@ -153,12 +169,15 @@ two, b_adapt 2, the 16x16 path's B frames under CABAC at one reference,
 the native writer, and two, the Python one; b_pyramid with weightb and
 direct auto at two references, temporal direct with weightb under
 CAVLC, direct none, and the 16x16 path's pyramid with temporal direct
-at two references).
+at two references), and trellis: ref_frames 2 with transform_8x8, rd 1
+and trellis 1, b_pyramid with weightb and trellis, the 16x16 path with
+transform_8x8 and trellis, the main path with trellis 1 and with rd
+2).
 Phases 9 and 13 run right after phase 4, so that a new kernel that fails
 stops the run early; 17 runs after 14, and 18, 19, 20, 22, 24 and 25
-after 6, 26 and 27 after 25.
-The decode checks of the full-width phases (6, 7, 11, 15, 19, 20, 22
-and 24-27: the port's CPU decoder, seconds a 1080p frame, and its
+after 6, 26, 27 and 29 after 25.
+The decode checks of the full-width phases (6, 7, 11, 15, 19, 20, 22,
+24-27 and 29: the port's CPU decoder, seconds a 1080p frame, and its
 extractor) run in three spawned worker processes while the later
 phases use the card; phase 28 waits for them, prints each one's result
 and fails if any failed.
@@ -839,6 +858,7 @@ def phase_b678(dev, int_rate):
     blk = torch.cat([QT.select_rows(blocks, r_idx + A2._didx(*cc))
                      for cc in A2._CENTERS]).to(torch.int32)
     recs.append(phase_luma_p(dev, int_rate, cur, pred, blk))
+    recs.append(phase_luma_levels(dev, int_rate, cur, pred))
 
     # B8a/B8b, standalone check entries, on the same inputs with
     # zero_dc / use_dc
@@ -982,6 +1002,52 @@ def phase_luma_p(dev, int_rate, cur, pred, blk):
                   err, t[0], t[1], bnd(n, True))
 
 
+# integer operations of the levels-in entry per 4x4 block: the fused
+# encode's without the residual, the forward transform and the quant
+LUMA_LEVELS_OPS_PER_BLOCK = 64 + 32 + 80 + 64
+
+
+def phase_luma_levels(dev, int_rate, cur, pred):
+    """The fused luma encode's levels-in entry (the trellis path's)
+    against its plain version at 1080p: the trellis's levels of the
+    pass-1 inputs at qp 26 and 20 (`inter.trellis_luma_levels`, plain
+    torch on the card), also with a force-zero mask; timed beside the
+    plain version and beside the trellis that makes its levels."""
+    from video_steganography_pcamv_torch.encoder import inter as INTER
+    from video_steganography_pcamv_torch.ops import lumap as LP
+    n = pred.shape[0]
+    fz = torch.as_tensor(np.random.default_rng(9).random(n) < 0.3,
+                         device=dev)
+    err, times = 0, {}
+    for q in (26, 20):
+        levels = INTER.trellis_luma_levels(cur, pred, q)
+        for tag, kw in (("qp %d" % q, {}), ("qp %d force-zero" % q,
+                                            {"fz": fz})):
+            got = LP.luma_p_encode(cur, pred, q, levels=levels, **kw)
+            want = LP.luma_p_encode_plain(cur, pred, q, levels=levels, **kw)
+            err = max(err, _check_equal("luma_p_encode levels-in " + tag,
+                                        got, want))
+            log("luma_p_encode levels-in %s (%d MBs): kernel == plain"
+                % (tag, n))
+        times[q] = (
+            cuda_ms(lambda: LP.luma_p_encode(cur, pred, q, levels=levels),
+                    20, 3),
+            cuda_ms(lambda: LP.luma_p_encode_plain(cur, pred, q,
+                                                   levels=levels), 5),
+            cuda_ms(lambda: INTER.trellis_luma_levels(cur, pred, q), 3))
+    # pred and the levels read, the levels, rec and cbp written, the
+    # dequant table
+    bnd = bound(n * (1024 + 1024 + 1024 + 1024 + 4) + 64,
+                n * 16 * LUMA_LEVELS_OPS_PER_BLOCK, int_rate)
+    for q, t in times.items():
+        log("luma_p_encode levels-in qp %d: kernel %.4f ms, plain %.3f ms, "
+            "the trellis of its levels (4x4 luma, %d blocks) %.2f ms, bound "
+            "%.4f ms (%s) (median)" % (q, t[0], t[1], 16 * n, t[2], *bnd))
+    t = times[26]
+    return record("luma_p_encode_levels", "luma_p.cu",
+                  "ops/pallas_kernels.py:204", err, t[0], t[1], bnd)
+
+
 # the reference's default Params where bench.py's Params differ from
 # them, plus SSIM: PSNR/SSIM on and the host deblock put the fused P step
 # on its unpipelined branch
@@ -1015,10 +1081,11 @@ def _decode_job(bs, n_frames, sent, recon=None):
     """The port's decoder reconstructs every frame (a CPU deblock,
     seconds a frame at 1080p) and the port's blind extractor recovers
     the payload `sent` from the decoded frames. With `recon` (display
-    index -> the encoder's planes of each B frame) each decoded B frame
-    is held against them. Returns (payload bits, decode + extraction s,
-    the differing pixels and the MB types of each B frame by display
-    index)."""
+    index -> the encoder's planes of a frame: each B frame's, and the
+    anchors' where given) each of those decoded frames is held against
+    them. Returns (payload bits, decode + extraction s, the differing
+    pixels of each frame in `recon` and the MB types of each B frame, by
+    display index)."""
     from video_steganography_pcamv_torch.decoder import decode_annexb
     from video_steganography_pcamv_torch.stego.extract import (
         extract_from_frames)
@@ -1028,10 +1095,11 @@ def _decode_job(bs, n_frames, sent, recon=None):
         raise AssertionError("decoded %d frames of %d" % (len(dec), n_frames))
     kinds, differ = {}, {}
     for fr in dec:
-        if recon is None or fr.slice_type != 1:
-            continue
         d = fr.poc // 2
-        kinds[d] = dict(collections.Counter(m.mb_type for m in fr.mbs))
+        if recon is None or d not in recon:
+            continue
+        if fr.slice_type == 1:
+            kinds[d] = dict(collections.Counter(m.mb_type for m in fr.mbs))
         differ[d] = sum(int((getattr(fr, pl) != r[:fr.y.shape[0] // s,
                                                   :fr.y.shape[1] // s]).sum())
                         for pl, r, s in zip("yuv", recon[d], (1, 2, 2)))
@@ -1210,7 +1278,20 @@ def phase_small_cabac(dev):
               dict(cabac=True, bframes=2, b_adapt=0, direct=0)),
              ("16x16 B, b_pyramid, temporal direct, ref_frames 2", True,
               dict(partitions=False, bframes=3, b_adapt=0, b_pyramid=True,
-                   direct=2, ref_frames=2)))
+                   direct=2, ref_frames=2)),
+             ("ref_frames 2, transform_8x8, rd 1, trellis 1, cabac", True,
+              dict(cabac=True, ref_frames=2, transform_8x8=True, rd=1,
+                   trellis=1)),
+             ("b_pyramid, weightb, trellis 1 (bframes 3, ref_frames 2, "
+              "cabac)", True,
+              dict(cabac=True, bframes=3, b_adapt=0, ref_frames=2,
+                   b_pyramid=True, weightb=True, trellis=1)),
+             ("16x16 path, transform_8x8, trellis 1, cabac", True,
+              dict(cabac=True, partitions=False, transform_8x8=True,
+                   trellis=1)),
+             ("main path, trellis 1, cabac", True,
+              dict(cabac=True, trellis=1)),
+             ("main path, rd 2", True, dict(rd=2)))
     for what, tk, kw in cases:
         enc_g, bs_g = _encode(_params(112, 80, tk, **kw), frames, dev)
         enc_c, bs_c = _encode(_params(112, 80, tk, **kw), frames, "cpu")
@@ -1452,6 +1533,26 @@ def phase_pyramid_temporal(dev, card, n_frames: int = 5):
                 want_brefs=[2], want_direct=["temporal"] * 3)
 
 
+def phase_trellis(dev, card, n_frames: int = 7):
+    """Phase 29: tools/bench_c4.py's clip (seed 9) and Params (CABAC,
+    bframes 2, b_adapt 0, me_range 16, the device deblock, stego em_rate
+    64 key 5) at ref_frames 1 with transform_8x8, rd 1 and trellis 1
+    (x264's --8x8dct --subme 7 --trellis 1 --bframes 2), IDR + 6 + flush:
+    I P B B P B B (`phase_bpath` with its anchor checks). The P anchors
+    take the fused step unpipelined: the 8x8 candidate with its cat-5
+    trellis and the RD choice, the 4x4 luma through the levels-in entry
+    of the fused luma kernel in pass 1 and the full pass 2; the IDR
+    trellises every candidate before its RD choice; the B frames'
+    luma encode is the levels-in entry too. Returns the launches."""
+    from video_steganography_pcamv_torch.params import StegoParams
+    p = _params(1920, 1088, True, cabac=True, bframes=2, b_adapt=0,
+                ref_frames=1, transform_8x8=True, rd=1, trellis=1,
+                stego=StegoParams(em_rate=64, key=5))
+    return phase_bpath(dev, card, "1080p transform_8x8, rd 1, trellis 1 "
+                       "(bframes 2, ref_frames 1, CABAC)", p, n_frames,
+                       want_pb=(2, 4), anchors=True)[0]
+
+
 def phase_b16(dev, card, n_frames: int = 7):
     """The 16x16-only path with B frames at 1080p (partitions=False,
     deblock_device=False, bframes 2, b_adapt 2, rc_lookahead 4, CAVLC,
@@ -1466,7 +1567,8 @@ def phase_b16(dev, card, n_frames: int = 7):
 
 
 def phase_bpath(dev, card, label, p, n_frames, want_pb=None,
-                recon_equal=True, want_brefs=None, want_direct=None):
+                recon_equal=True, want_brefs=None, want_direct=None,
+                anchors=False):
     """One B-frame configuration at 1080p on bench_c4's clip
     (synthetic_sequence seed 9), IDR + n_frames - 1 + flush. Every
     kernel call of the B frames is held against its plain version on the
@@ -1481,8 +1583,15 @@ def phase_bpath(dev, card, label, p, n_frames, want_pb=None,
     when given. P and B fps (the B frames' kernel checks excluded), the
     IDR's seconds, bytes per frame with its slice type, the launches per
     B frame, each B frame's MB types and the B writer's ms per B frame
-    are printed. Returns the launches and the writer's ms per B
-    frame."""
+    are printed. With `anchors` (one reference, partitions, trellis or
+    the 8x8 transform) the anchors are held too: every call of the fused
+    luma encode in a P anchor against its plain version, each P anchor's
+    launches (B1, B9, B3, B4 once, the luma encode twice: pass 1 and the
+    full pass 2, B5 once), their decoded frames against the encoder's
+    recon; the trellis's ms per frame (CUDA events around each
+    `trellis_quant` call, no sync) and the launches per frame type are
+    printed, and under the 8x8 transform the run must code I8x8 and
+    trans8 MBs. Returns the launches and the writer's ms per B frame."""
     from video_steganography_pcamv_torch import Encoder
     from video_steganography_pcamv_torch.encoder import bslice as BS
     from video_steganography_pcamv_torch.utils.yuv import synthetic_sequence
@@ -1494,6 +1603,10 @@ def phase_bpath(dev, card, label, p, n_frames, want_pb=None,
     state = {"check": False, "checked": {}, "check_s": 0.0}
     twins = _b_kernel_twins()
     saved = {name: getattr(BS, name) for name in twins}
+    # the fused luma encode's entry on this path: levels in under trellis
+    lp = "luma_p_encode_levels" if p.trellis else "luma_p_encode"
+    state.update(anchor=False, frame=None, checked_anchor={})
+    per_a, tr_events = [], []
 
     def checked(name, fn):
         def wrap(*a, **kw):
@@ -1522,16 +1635,51 @@ def phase_bpath(dev, card, label, p, n_frames, want_pb=None,
     anchor, bframe = enc._encode_anchor, enc._encode_b_frame
 
     def timed_anchor(f, y, u, v, is_idr, satd, disp):
+        before = {k: fn.launches for k, fn in fns.items()}
+        state["frame"] = ("I" if is_idr else "P", disp)
+        state["anchor"], state["check_s"] = anchors, 0.0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = anchor(f, y, u, v, is_idr, satd, disp)
         torch.cuda.synchronize()
-        rows.append(("I" if is_idr else "P", disp, len(out),
-                     time.perf_counter() - t0))
+        dt = time.perf_counter() - t0 - state["check_s"]
+        state["anchor"] = False
+        per_a.append((state["frame"][0], {k: fn.launches - before[k]
+                                          for k, fn in fns.items()}))
+        rows.append(("I" if is_idr else "P", disp, len(out), dt))
+        if anchors:
+            recon[disp] = tuple(t.cpu().numpy() for t in enc.recon_prev)
+        return out
+
+    def anchor_luma(*a, **kw):
+        out = LP.luma_p_encode(*a, **kw)
+        if state["anchor"]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = LP.luma_p_encode_plain(*a, **kw)
+            if not _equal_outputs([t for t in out if t is not None],
+                                  [t for t in want if t is not None]):
+                raise AssertionError("%s: anchor %s: luma_p_encode kernel "
+                                     "!= plain" % (label, state["frame"]))
+            torch.cuda.synchronize()
+            state["check_s"] += time.perf_counter() - t0
+            key = lp if kw.get("levels") is not None else "luma_p_encode"
+            ca = state["checked_anchor"]
+            ca[key] = ca.get(key, 0) + 1
+        return out
+
+    def timed_trellis(*a, **kw):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = trellis_quant(*a, **kw)
+        e1.record()
+        tr_events.append((state["frame"], e0, e1))
         return out
 
     def timed_b(f, y, u, v, l0, ref_l1, col, satd, disp, *a, **kw):
         before = {k: fn.launches for k, fn in fns.items()}
+        state["frame"] = ("B", disp)
         state["check"], state["check_s"] = True, 0.0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1578,6 +1726,17 @@ def phase_bpath(dev, card, label, p, n_frames, want_pb=None,
     BS.encode_b_frame_device = encode_b
     for name, fn in saved.items():
         setattr(BS, name, checked(name, fn))
+    from video_steganography_pcamv_torch.encoder import inter as INTER
+    from video_steganography_pcamv_torch.ops import lumap as LP
+    from video_steganography_pcamv_torch.ops import trellis as TR
+    lp_mod, trellis_quant = INTER.LP, TR.trellis_quant
+    if anchors:
+        # the P encodes reach the luma kernel through `inter.LP`; the
+        # kernel wrapper keeps its own name (it counts on it)
+        import types
+        INTER.LP = types.SimpleNamespace(**dict(vars(LP),
+                                                luma_p_encode=anchor_luma))
+        TR.trellis_quant = timed_trellis
     try:
         for fn in fns.values():
             fn.launches = 0
@@ -1593,6 +1752,7 @@ def phase_bpath(dev, card, label, p, n_frames, want_pb=None,
         BS.encode_b_frame_device = enc_b
         for name, fn in saved.items():
             setattr(BS, name, fn)
+        INTER.LP, TR.trellis_quant = lp_mod, trellis_quant
     n_b, n_p = enc.stats.b_frames, enc.stats.p_frames
     if n_b < 1 or n_p < 1 or (want_pb and (n_p, n_b) != want_pb):
         raise AssertionError("%s: %d P, %d B frames, want %s"
@@ -1604,16 +1764,17 @@ def phase_bpath(dev, card, label, p, n_frames, want_pb=None,
         raise AssertionError("%s: direct modes %s, want %s"
                              % (label, direct, want_direct))
     if p.partitions:
-        want_b = dict(fullpel_parts=refs + 1, gather_windows8=2, subpel=2,
-                      luma_p_encode=1)
+        want_b = {"fullpel_parts": refs + 1, "gather_windows8": 2,
+                  "subpel": 2, lp: 1}
         whole = ("fullpel_parts", "gather_windows8", "subpel", "probe_maps",
-                 "luma_p_encode", "deblock_frame")
+                 lp, "deblock_frame")
     else:
-        want_b = dict(fullpel_search16=refs + 1, gather_windows=refs + 1,
-                      luma_p_encode=1)
-        whole = ("fullpel_search16", "gather_windows", "luma_p_encode",
-                 "deblock_frame")
-    if state["checked"] != {k: n * n_b for k, n in want_b.items()}:
+        want_b = {"fullpel_search16": refs + 1, "gather_windows": refs + 1,
+                  lp: 1}
+        whole = ("fullpel_search16", "gather_windows", lp, "deblock_frame")
+    want_checked = {("luma_p_encode" if k == lp else k): n * n_b
+                    for k, n in want_b.items()}
+    if state["checked"] != want_checked:
         raise AssertionError("%s: B frame kernel calls checked: %s"
                              % (label, state["checked"]))
     want_all = {k: 0 for k in fns}
@@ -1628,19 +1789,23 @@ def phase_bpath(dev, card, label, p, n_frames, want_pb=None,
     if len(write_ms) != n_b:
         raise AssertionError("%s: %d B writes for %d B frames"
                              % (label, len(write_ms), n_b))
+    if anchors:
+        _check_anchors(label, p, fns, lp, per_a, state["checked_anchor"],
+                       n_p, enc)
     def report(res):
         bits, t_dec, differ, kinds = res
         if sorted(differ) != sorted(recon):
-            raise AssertionError("%s: decoded B frames %s, coded %s"
+            raise AssertionError("%s: decoded frames %s, coded %s"
                                  % (label, sorted(differ), sorted(recon)))
         if recon_equal and any(differ.values()):
-            raise AssertionError("%s: decoded B frames != encoder recon, "
+            raise AssertionError("%s: decoded frames != encoder recon, "
                                  "pixels %s" % (label, differ))
         log("%s: %d payload bits recovered (decode + extraction %.1f s, in "
-            "a worker); decoded B frames vs the encoder's recon: pixels "
+            "a worker); decoded %s vs the encoder's recon: pixels "
             "differing per display index %s; MB types per B frame (display "
-            "index): %s" % (label, bits, t_dec, json.dumps(differ),
-                            json.dumps(kinds)))
+            "index): %s" % (label, bits, t_dec,
+                            "frames" if anchors else "B frames",
+                            json.dumps(differ), json.dumps(kinds)))
     _defer(report, bs, n_frames, enc._stego.sent_messages, recon)
     sec = {t: [r[3] for r in rows if r[0] == t] for t in "IPB"}
     log("%s: %d frames (%d I, %d P, %d B), %d bytes, decoded in a worker; "
@@ -1662,6 +1827,27 @@ def phase_bpath(dev, card, label, p, n_frames, want_pb=None,
         % (label, json.dumps({k: v for k, v in per_b[0].items() if v}),
            json.dumps(launches), ["%.3f" % x for x in sec["B"]],
            ["%.3f" % x for x in sec["P"]], ["%.3f" % x for x in write_ms]))
+    if anchors:
+        torch.cuda.synchronize()
+        tr_ms = collections.defaultdict(float)
+        for fk, e0, e1 in tr_events:
+            tr_ms[fk] += e0.elapsed_time(e1)
+        by = {t: [tr_ms[k] for k in sorted(tr_ms, key=lambda k: k[1])
+                  if k[0] == t] for t in "IPB"}
+        log("%s: trellis ms per frame (CUDA events around each "
+            "trellis_quant call, %d calls), I %s, P %s (median %.2f), B %s "
+            "(median %.2f)  [%s]"
+            % (label, len(tr_events), ["%.2f" % x for x in by["I"]],
+               ["%.2f" % x for x in by["P"]], float(np.median(by["P"])),
+               ["%.2f" % x for x in by["B"]], float(np.median(by["B"])),
+               card))
+        log("%s: launches per frame type: I %s, P %s, B %s; I8x8 MBs %d, "
+            "trans8 P MBs %d"
+            % (label, json.dumps({k: v for k, v in per_a[0][1].items()
+                                  if v}),
+               json.dumps({k: v for k, v in per_a[1][1].items() if v}),
+               json.dumps({k: v for k, v in per_b[0].items() if v}),
+               enc.stats.i8x8_mbs, enc.stats.trans8_mbs))
     if brefs or p.direct != 1:
         log("%s: reference B frames (display index) %s; direct mode per B "
             "slice, decode order %s; the direct-auto score's extra dispatch "
@@ -1669,6 +1855,51 @@ def phase_bpath(dev, card, label, p, n_frames, want_pb=None,
             % (label, brefs, direct, ["%.3f" % x for x in auto_ms],
                enc._direct_score))
     return launches, write_ms
+
+
+class _LevelsLaunches:
+    """The fused luma encode's levels-in entry (under trellis) as a
+    counter like the wrappers: `luma_p_encode.levels_launches`."""
+
+    @property
+    def launches(self):
+        from video_steganography_pcamv_torch.ops import lumap as LP
+        return LP.luma_p_encode.levels_launches
+
+    @launches.setter
+    def launches(self, n):
+        from video_steganography_pcamv_torch.ops import lumap as LP
+        LP.luma_p_encode.levels_launches = n
+
+
+def _check_anchors(label, p, fns, lp, per_a, checked, n_p, enc):
+    """`phase_bpath`'s anchor checks (one reference, partitions, trellis
+    or the 8x8 transform: pass 2 is always a full re-encode): the IDR
+    launches B5 alone, each P anchor B1, B9, B3, B4 and B5 once and the
+    fused luma encode twice, every luma call of the P anchors was held
+    against its plain version, and under the 8x8 transform I8x8 and
+    trans8 MBs were coded."""
+    if not (p.ref_frames == 1 and p.partitions
+            and (p.trellis or p.transform_8x8)):
+        raise ValueError("%s: the anchor checks need one reference, "
+                         "partitions and trellis or transform_8x8" % label)
+    want = {"I": {k: 0 for k in fns}, "P": {k: 0 for k in fns}}
+    want["I"]["deblock_frame"] = 1
+    want["P"].update({"fullpel_parts": 1, "gather_windows8": 1,
+                      "subpel": 1, "probe_maps": 1, lp: 2,
+                      "deblock_frame": 1})
+    for i, (t, got) in enumerate(per_a):
+        if got != want[t]:
+            raise AssertionError("%s: anchor %d (%s) launches %s, want %s"
+                                 % (label, i, t, got, want[t]))
+    if checked != {lp: 2 * n_p}:
+        raise AssertionError("%s: anchor luma calls checked %s, want %s"
+                             % (label, checked, {lp: 2 * n_p}))
+    if p.transform_8x8 and min(enc.stats.i8x8_mbs,
+                               enc.stats.trans8_mbs) < 1:
+        raise AssertionError("%s: %d I8x8 MBs, %d trans8 P MBs"
+                             % (label, enc.stats.i8x8_mbs,
+                                enc.stats.trans8_mbs))
 
 
 def _counters():
@@ -1687,6 +1918,7 @@ def _counters():
             "gather_windows": QT.gather_windows,
             "dct_quant": TQ.dct_quant, "deq_idct": TQ.deq_idct,
             "luma_p_encode": LP.luma_p_encode,
+            "luma_p_encode_levels": _LevelsLaunches(),
             "gather_windows8": PT.gather_windows8,
             "lowres_costs_kernel": ST.lowres_costs_kernel}
 
@@ -2137,6 +2369,8 @@ def main() -> int:
           card)
     phase("27 1080p b_pyramid, temporal direct", phase_pyramid_temporal,
           dev, card)
+    launches29 = phase("29 1080p transform_8x8, rd 1, trellis 1",
+                       phase_trellis, dev, card)
     if args.stagesB:
         phase("23 config-4 B-frame stages", phase_stages_b, dev, card)
         phase("23 phase-26 B-frame stages", phase_stages_b, dev, card,
@@ -2164,8 +2398,10 @@ def main() -> int:
         r["launches"] = launches[r["name"]]
     for r in recs16:
         # the main path's count where the kernel runs there (the fused
-        # luma encode), else the 16x16 path's (B6, B7)
-        r["launches"] = launches[r["name"]] or launches16[r["name"]]
+        # luma encode), else the 16x16 path's (B6, B7), and phase 29's
+        # for the luma encode's levels-in entry (the trellis path)
+        r["launches"] = (launches[r["name"]] or launches16[r["name"]]
+                         or launches29[r["name"]])
     recs += recs16 + recs9
     phase("28 the decode checks in the workers", _join_checks)
     log("total %.1f s" % (time.time() - t_start))

@@ -114,10 +114,21 @@ def encode_both(frames, kw):
         snaps.append(from_reference(jenc))
     chunks.append(jenc.flush())
     tenc = TEncoder(t_params(kw), device="cpu")
+    # every frame's recon as the encoder meters it: an anchor's
+    # deblocked planes, a B frame's own undeblocked ones
+    recon, meter = {}, tenc._accumulate_psnr
+
+    def keep_recon(frame, y, u, v, recon_planes=None):
+        disp = next(i for i, f in enumerate(frames) if f is frame)
+        recon[disp] = tuple(np.asarray(t.cpu()) for t in
+                            (recon_planes or tenc.recon_prev))
+        return meter(frame, y, u, v, recon_planes)
+    tenc._accumulate_psnr = lambda frame, y, u, v, recon=None: keep_recon(
+        frame, y, u, v, recon)
     got = b"".join(tenc.encode_frame(f) for f in frames) + tenc.flush()
     return dict(want=b"".join(chunks), got=got, jenc=jenc, tenc=tenc,
                 n=len(frames), kw=kw, frames=frames, chunks=chunks,
-                snaps=snaps)
+                snaps=snaps, recon=recon)
 
 
 def _encode_both(n_frames, **kw):
@@ -157,7 +168,10 @@ def decoders_agree(run):
     POCs and MB motion on every frame; returns the decoded frames."""
     dec, jdec = port_decode(run), j_decode(run["got"])
     assert len(dec) == len(jdec) == run["n"]
-    assert [f.poc for f in dec] == [2 * i for i in range(run["n"])]
+    # display order; POCs count from each IDR
+    idr = [i for i, f in enumerate(dec) if f.slice_type == 2]
+    assert [f.poc for f in dec] == [
+        2 * (i - max(k for k in idr if k <= i)) for i in range(run["n"])]
     for a, b in zip(dec, jdec):
         assert (a.slice_type, a.poc) == (b.slice_type, b.poc)
         for pl in ("y", "u", "v"):
@@ -232,8 +246,38 @@ def defaults_b2():
                                     me_range=RNG))
 
 
+@pytest.fixture(scope="module")
+def bmref_trellis():
+    """The reference's own cross-feature case `bmref+weightb+trellis`
+    (tests/test_feature_matrix.py), without its NR: ref_frames 3,
+    bframes 2, b_adapt 0, weightb, trellis 1, CABAC, keyint_max 6 (an
+    IDR inside the B pipe). Every final encode is trellised: the IDRs,
+    the multi-reference anchors' pass 1 and pass 2, the B encodes."""
+    return _encode_both(9, ref_frames=3, weightb=True, trellis=1,
+                        keyint_max=6)
+
+
+@pytest.fixture(scope="module")
+def trans8_rd():
+    """bframes 2 with transform_8x8 and rd 1 at one reference (x264's
+    --bframes 2 --8x8dct --subme 7), CABAC: the IDR codes Intra_8x8, the
+    P anchors (the unpipelined fused step) take the 8x8 candidate by its
+    RD choice, every B MB with luma residual carries
+    transform_size_8x8_flag 0."""
+    return _encode_both(7, ref_frames=1, transform_8x8=True, rd=1)
+
+
+@pytest.fixture(scope="module")
+def trans8_rd_cavlc():
+    """The same under CAVLC (the Python B writer: the native one does
+    not code the flag)."""
+    return _encode_both(7, ref_frames=1, transform_8x8=True, rd=1,
+                        cabac=False)
+
+
 CASES = ["config4", "ref1_b1", "badapt2", "defaults_b2", "pyramid",
-         "temporal_cavlc", "direct_none"]
+         "temporal_cavlc", "direct_none", "bmref_trellis", "trans8_rd",
+         "trans8_rd_cavlc"]
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -251,6 +295,33 @@ def test_decoders_agree_on_every_frame(case, request):
 @pytest.mark.parametrize("case", CASES)
 def test_both_extractors_recover_the_payload(case, request):
     extractors_recover(request.getfixturevalue(case))
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_decoded_frames_equal_the_encoders_recon(case, request):
+    """The port's decode of every frame, B frames and reference Bs
+    included, equals the recon the port's encoder metered for it."""
+    run = request.getfixturevalue(case)
+    dec = port_decode(run)     # in display order
+    assert sorted(run["recon"]) == list(range(len(dec)))
+    for d, f in enumerate(dec):
+        for pl, r, s in zip(("y", "u", "v"), run["recon"][d], (1, 2, 2)):
+            np.testing.assert_array_equal(
+                getattr(f, pl), r[:H // s, :W // s],
+                err_msg="display %d plane %s" % (d, pl))
+
+
+@pytest.mark.parametrize("case", ["trans8_rd", "trans8_rd_cavlc"])
+def test_trans8_b_streams_code_8x8_in_the_anchors(case, request):
+    """Under the PPS's 8x8 flag the IDR codes Intra_8x8 and the P anchors
+    8x8-transform MBs; the B slices code B MBs with luma residual (each
+    with its transform_size_8x8_flag 0)."""
+    run = request.getfixturevalue(case)
+    st = run["tenc"].stats
+    assert st.i8x8_mbs > 0 and st.trans8_mbs > 0
+    kinds = {m.mb_type for f in port_decode(run) if f.slice_type == 1
+             for m in f.mbs}
+    assert kinds - {"BSKIP", "BDIRECT"}
 
 
 @pytest.mark.parametrize("case,k,buffered", [
@@ -784,18 +855,38 @@ def test_check_slice_accepts_pyramid_weightb_and_every_direct_mode(
             check_slice(p)
 
 
+@pytest.mark.parametrize("partitions", [True, False],
+                         ids=["partitions", "16x16"])
+@pytest.mark.parametrize("refs", [1, 2, 8])
+def test_check_slice_accepts_trans8_rd_and_trellis_with_b_frames(
+        refs, partitions):
+    """The 8x8 transform, rd 1 and 2 and trellis 1 and 2 (ROADMAP A15
+    but cqm) with B frames, CAVLC (trellis off: it needs CABAC) and
+    CABAC, on both B paths."""
+    for cabac in (False, True):
+        for rd, trellis in ((1, 1), (2, 2)):
+            p = t_params(_kw(partitions=partitions, cabac=cabac,
+                             ref_frames=refs, transform_8x8=True, rd=rd,
+                             trellis=trellis, deblock_device=False))
+            p.validate()
+            assert p.trellis == (trellis if cabac else 0)
+            check_slice(p)
+
+
 @pytest.mark.parametrize("kw,name", [
-    (dict(transform_8x8=True, ref_frames=1), "bframes with transform_8x8"),
-    (dict(rd=1, ref_frames=1), "bframes with rd"),
+    (dict(cqm="jvt"), "cqm (ROADMAP A15)"),
+    (dict(noise_reduction=100), "noise_reduction (ROADMAP A16)"),
     (dict(p4x4=True), "p4x4 (ROADMAP A16)"),
-    (dict(aq_mode=1), "aq_mode"),
-    (dict(trellis=1), "trellis"),
+    (dict(aq_mode=1), "aq_mode (ROADMAP A16)"),
+    (dict(deadzone_inter=20), "deadzones (ROADMAP A16)"),
     (dict(stego_off=True), "stego off"),
-], ids=["transform_8x8", "rd", "p4x4", "aq", "trellis", "stego_off"])
+], ids=["cqm", "nr", "p4x4", "aq", "deadzones", "stego_off"])
 def test_check_slice_refuses_b_options_outside_the_slice(kw, name):
-    """The A15 and A16 options stay refused with B frames, also beside a
-    pyramid, weightb and temporal direct."""
-    kw = dict(kw, b_pyramid=True, bframes=3, weightb=True, direct=2)
+    """cqm (A15) and the A16 options stay refused with B frames, also
+    beside a pyramid, weightb, temporal direct, the 8x8 transform, rd 2
+    and trellis."""
+    kw = dict(kw, b_pyramid=True, bframes=3, weightb=True, direct=2,
+              transform_8x8=True, rd=2, trellis=1)
     stego = (TP.StegoParams() if kw.pop("stego_off", False)
              else TP.StegoParams(em_rate=EM_RATE, key=KEY))
     p = TP.Params(**_kw(**kw), stego=stego)

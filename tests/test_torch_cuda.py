@@ -49,7 +49,14 @@ its own:  python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
   the per-MB L0 map and on L1, B3' on the B windows and the fused luma
   encode on the bipred predictions; the per-B-frame launch counts; and
   pyramid streams (b_pyramid, weightb) under every direct mode, the
-  reference B's kernel calls included.
+  reference B's kernel calls included;
+- the fused luma encode's levels-in entry vs its plain version on the
+  trellis's levels at qp 0-51; `trellis_quant` on the card equal to the
+  CPU for every cat; at 112x80, cuda == cpu streams with trellis, the
+  8x8 transform and rd 2 on the multi-reference, 16x16 and main paths,
+  and on B streams (a pyramid with weightb and trellis, the 8x8
+  transform with rd under CABAC and CAVLC), the B frames' kernel calls
+  held against their plain versions.
 """
 
 import numpy as np
@@ -793,6 +800,82 @@ def test_cuda_stream_equals_cpu_stream_pyramid(dev, kw, monkeypatch):
     else:
         want = dict(fullpel_search16=r + 1, gather_windows=r + 1,
                     luma_p_encode=1)
+    calls = _check_b_kernels(monkeypatch, want)
+    n_b = _b_streams(dev, kw, n_frames=6)
+    assert calls == {k: n * n_b for k, n in want.items()}
+
+
+@pytest.mark.parametrize("qp", [0, 20, 26, 40, 51])
+def test_luma_p_levels_entry_matches_plain(dev, qp):
+    """The fused luma encode's levels-in entry (the trellis path's) on
+    35 MBs, fed the inter trellis's levels (plain torch, on the card),
+    with and without force-zero, levels kept and omitted."""
+    y, pred = _luma_p_inputs(dev, 5, 7, 3)
+    levels = INTER.trellis_luma_levels(y, pred, qp)
+    fz = torch.as_tensor(np.random.default_rng(4).random(35) < 0.3,
+                         device=dev)
+    n0 = LP.luma_p_encode.levels_launches
+    for f in (None, fz):
+        for lev in (True, False):
+            got = LP.luma_p_encode(y, pred, qp, fz=f, lev=lev, levels=levels)
+            _luma_p_equal(got, LP.luma_p_encode_plain(
+                y, pred, qp, fz=f, lev=lev, levels=levels))
+    torch.cuda.synchronize()
+    assert LP.luma_p_encode.levels_launches == n0 + 4
+
+
+def test_trellis_on_the_card_matches_the_cpu(dev):
+    """`trellis_quant` (plain torch) on the card gives the CPU's levels:
+    the float32 scores decide alike, every cat, intra and inter."""
+    from video_steganography_pcamv_torch.ops import trellis as TR
+    g = np.random.default_rng(11)
+    for cat, n in TR._N.items():
+        zz = np.round(g.laplace(0, 40, (300, n))).astype(np.int32)
+        qp = g.integers(0, 52, 300).astype(np.int32)
+        for intra in (False, True):
+            want = TR.trellis_quant(torch.as_tensor(zz), torch.as_tensor(qp),
+                                    cat, intra)
+            got = TR.trellis_quant(torch.as_tensor(zz, device=dev),
+                                   torch.as_tensor(qp, device=dev), cat,
+                                   intra)
+            assert torch.equal(got.cpu(), want), (cat, intra)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(cabac=True, ref_frames=2, transform_8x8=True, rd=1, trellis=1),
+    dict(cabac=True, partitions=False, deblock_device=False,
+         transform_8x8=True, trellis=1),
+    dict(cabac=True, trellis=1), dict(rd=2)],
+    ids=["ref2_trans8_rd_trellis", "p16_trans8_trellis", "trellis", "rd2"])
+def test_cuda_stream_equals_cpu_stream_trellis(dev, kw):
+    """Trellis, the 8x8 transform and rd 2 on the P paths at 112x80:
+    cuda == cpu streams."""
+    frames = synthetic_sequence(112, 80, 4, seed=7)
+
+    def run(device):
+        base = dict(width=112, height=80, qp=26, me_range=16,
+                    deblock_device=True, psnr=False)
+        base.update(kw)
+        enc = Encoder(Params(stego=StegoParams(em_rate=16, key=5), **base),
+                      device=device)
+        return b"".join(enc.encode_frame(f) for f in frames) + enc.flush()
+
+    assert run(dev) == run("cpu")
+
+
+@pytest.mark.parametrize("kw", [
+    dict(bframes=3, b_pyramid=True, weightb=True, ref_frames=2, trellis=1),
+    dict(bframes=2, transform_8x8=True, rd=1),
+    dict(bframes=2, transform_8x8=True, rd=1, cabac=False)],
+    ids=["pyramid_weightb_trellis", "trans8_rd", "trans8_rd_cavlc"])
+def test_cuda_stream_equals_cpu_stream_b_trellis_trans8(dev, kw,
+                                                        monkeypatch):
+    """B frames with trellis (the B encode's luma through the levels-in
+    entry) and with the 8x8 transform and rd: every kernel call of the B
+    frames equals its plain version; then cuda == cpu streams."""
+    r = kw.get("ref_frames", 1)
+    want = dict(fullpel_parts=r + 1, gather_windows8=2, subpel=2,
+                luma_p_encode=1)
     calls = _check_b_kernels(monkeypatch, want)
     n_b = _b_streams(dev, kw, n_frames=6)
     assert calls == {k: n * n_b for k, n in want.items()}

@@ -285,3 +285,28 @@ def test_resume_unpipelined_cabac_from_reference():
     assert tenc.stats.frames == 5 and tenc.stats.ssd_y > 0
     check_decoders_and_payload(head + got_tail, len(frames),
                                tenc._stego.sent_messages)
+
+
+def test_trellis_stream_byte_equal_and_payload():
+    """Trellis 1 on the pipelined serving path under CABAC: the IDR's
+    levels, pass 1 (its cbp maps) and the full pass 2 (the incremental
+    re-encode is off under trellis, as in the reference) all trellised;
+    the 4x4 luma levels reach the fused kernel's levels-in entry.
+    Trellis 2 codes as trellis 1 while embedding."""
+    frames = _seq(4, seed=5)
+    want = _run(JEncoder(_params(cabac=True, trellis=1)), frames)
+    tenc = TEncoder(_tparams(cabac=True, trellis=1), device="cpu")
+    got = _run(tenc, frames)
+    assert got == want
+    check_decoders_and_payload(got, len(frames), tenc._stego.sent_messages)
+    # trellis 2: the same slices (only the SEI's option string differs)
+    got2 = _run(TEncoder(_tparams(cabac=True, trellis=2), device="cpu"),
+                frames)
+    assert got2 != want and non_sei_nals(got2) == non_sei_nals(want)
+    assert non_sei_nals(_run(TEncoder(_tparams(cabac=True), device="cpu"),
+                             frames)) != non_sei_nals(want)
+
+
+def non_sei_nals(bs: bytes) -> list:
+    """The stream's NAL units but the SEI (x264's option string)."""
+    return [n for n in bs.split(b"\x00\x00\x01") if n and n[0] & 31 != 6]

@@ -246,3 +246,46 @@ def test_analyse_b_frame_matches_reference():
                           want):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b),
                                       err_msg=name)
+
+
+def test_trans8_trellis_byte_equal_to_reference_with_f4_keys(monkeypatch):
+    """The 16x16-only path with transform_8x8 and trellis 1 under CABAC
+    (x264's --partitions none --8x8dct --trellis 1): the IDR codes
+    Intra_8x8 on trellised levels, the P frames (no 8x8 transform on
+    this path) trellis pass 1 and pass 2 and carry
+    transform_size_8x8_flag 0. The reference raises KeyError on its first
+    such P frame (ROADMAP F4: its writers read the `trans8`/`luma8_lev`
+    that its 16x16 encode never makes); with those keys added as all-4x4
+    the streams are byte-equal. Both decoders give the encoder's recon;
+    both extractors recover the payload."""
+    import jax.numpy as jnp
+    from video_steganography_pcamv_tpu.encoder import inter as J_INTER
+    orig = J_INTER.encode_p_frame_device
+
+    def with_keys(*a, **kw):
+        res = dict(orig(*a, **kw))
+        cbp = res["cbp_luma"]
+        res.setdefault("trans8", jnp.zeros(cbp.shape, bool))
+        res.setdefault("luma8_lev", jnp.zeros(cbp.shape + (256,), jnp.int16))
+        return res
+    monkeypatch.setattr(J_INTER, "encode_p_frame_device", with_keys)
+    frames = synthetic_sequence(W, H, 4, seed=7)
+    kw = dict(cabac=True, transform_8x8=True, trellis=1)
+    jenc = JEncoder(_params(**kw))
+    want = [jenc.encode_frame(f) for f in frames]
+    tenc = TEncoder(_tparams(**kw), device="cpu")
+    got, recons = [], []
+    for f in frames:
+        got.append(tenc.encode_frame(f))
+        recons.append([np.asarray(t) for t in tenc.recon_prev])
+    assert got == want
+    assert tenc.stats.i8x8_mbs > 0 and tenc.stats.trans8_mbs == 0
+    bs = b"".join(got)
+    dec, jdec = t_decode(bs), decode_annexb(bs)
+    assert len(dec) == len(jdec) == len(frames)
+    for a, b, r in zip(dec, jdec, recons):
+        for pl, rp, s in zip(("y", "u", "v"), r, (1, 2, 2)):
+            np.testing.assert_array_equal(getattr(a, pl), getattr(b, pl))
+            np.testing.assert_array_equal(getattr(a, pl),
+                                          rp[:H // s, :W // s])
+    _check_payload(bs, tenc._stego.sent_messages)

@@ -135,3 +135,60 @@ def test_config3_cabac_stream_byte_equal_cpu_branch():
     dec = check_decode_and_payload(got, len(frames),
                                    tenc._stego.sent_messages)
     assert "I8x8" in {m.mb_type for m in dec[0].mbs}
+
+
+def _cpu_branch_pair(rd=1, **kw):
+    """The JAX and the port's Params of config 3 (rd as given) + kw on
+    the CPU branch."""
+    jp = Params(**config3_kw(rd=rd), **kw,
+                stego=StegoParams(em_rate=EM_RATE, key=KEY))
+    tp = TP.Params(**config3_kw(rd=rd), **kw,
+                   stego=TP.StegoParams(em_rate=EM_RATE, key=KEY))
+    jp.tail_kernel = tp.tail_kernel = False
+    return jp, tp
+
+
+def test_config3_trellis_stream_byte_equal_cpu_branch():
+    """Config 3 under CABAC with trellis 1 (x264's --8x8dct --subme 7
+    --trellis 1): the IDR's i16/i4/i8 levels, the P encodes' 4x4 levels
+    (through the fused kernel's levels-in entry), the 8x8 candidate's
+    cat-5 levels before the RD choice, and the chroma levels, in pass 1
+    and the full pass 2. Trellis 2 codes as trellis 1 while embedding
+    (its other uses are in the reference's stego-off branches)."""
+    frames = config3_frames(5)
+    jp, tp = _cpu_branch_pair(cabac=True, trellis=1)
+    want = _run(JEncoder(jp), frames)
+    tenc = TEncoder(tp, device="cpu")
+    got = _run(tenc, frames)
+    assert got == want
+    assert tenc.stats.i8x8_mbs > 0 and tenc.stats.trans8_mbs > 0
+    check_decode_and_payload(got, len(frames), tenc._stego.sent_messages)
+    tp2 = _cpu_branch_pair(cabac=True, trellis=2)[1]
+    assert tp2.trellis == 2
+    got2 = _run(TEncoder(tp2, device="cpu"), frames)
+    assert got2 != want and non_sei_nals(got2) == non_sei_nals(want)
+    # the trellis changed the slices
+    _, tp0 = _cpu_branch_pair(cabac=True)
+    assert non_sei_nals(_run(TEncoder(tp0, device="cpu"), frames)) \
+        != non_sei_nals(want)
+
+
+def test_rd2_codes_as_rd1_while_embedding():
+    """rd 2's uses in the reference (the partition re-rank, the skip
+    force, the qpel refine) are all in its stego-off branches, so with
+    stego on its stream is rd 1's; the port's rd 2 stream is that
+    stream too."""
+    frames = config3_frames(4)
+    streams = [_run(JEncoder(_cpu_branch_pair(rd=rd)[0]), frames)
+               for rd in (1, 2)]
+    # the same slices: only the SEI's option string differs
+    assert streams[0] != streams[1]
+    assert non_sei_nals(streams[0]) == non_sei_nals(streams[1])
+    tenc = TEncoder(_cpu_branch_pair(rd=2)[1], device="cpu")
+    assert _run(tenc, frames) == streams[1]
+    assert tenc.stats.trans8_mbs > 0
+
+
+def non_sei_nals(bs: bytes) -> list:
+    """The stream's NAL units but the SEI (x264's option string)."""
+    return [n for n in bs.split(b"\x00\x00\x01") if n and n[0] & 31 != 6]

@@ -8,8 +8,9 @@ the analyse tail run their Pallas kernels in interpret mode; the
 deblocker runs `deblock_jax.deblock_frame_device`, the bit-exact twin
 the reference's CPU branch already uses.
 
-The same branch also serves CABAC and the reference's default Params
-(PSNR on, host deblock: the fused P step unpipelined, `close()` equal),
+The same branch also serves CABAC (with and without trellis) and the
+reference's default Params (PSNR on, host deblock: the fused P step
+unpipelined, `close()` equal),
 and BASELINE config 4's P half (ref_frames 2, CABAC: the multi-reference
 branch, B1 once per reference against a zero predictor).
 """
@@ -152,14 +153,15 @@ def test_accel_config3_stream_byte_equal_to_reference(reference_accel):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(_bench_kw(), cabac=True), dict(width=W, height=H)],
-    ids=["cabac", "defaults"])
+    dict(_bench_kw(), cabac=True), dict(width=W, height=H),
+    dict(_bench_kw(), cabac=True, trellis=1)],
+    ids=["cabac", "defaults", "cabac_trellis"])
 def test_accel_cabac_and_defaults_byte_equal_to_reference(reference_accel,
                                                           kw):
-    """CABAC on the pipelined main path; Params(width, height, stego) at
-    its defaults: byte-equal streams, equal close() dicts (PSNR exactly,
-    SSIM to rtol 1e-5), the same frames and MV fields from both
-    decoders, the payload recovered."""
+    """CABAC on the pipelined main path, also with trellis 1;
+    Params(width, height, stego) at its defaults: byte-equal streams,
+    equal close() dicts (PSNR exactly, SSIM to rtol 1e-5), the same
+    frames and MV fields from both decoders, the payload recovered."""
     frames = synthetic_sequence(W, H, 4, seed=7)
     jenc = JEncoder(Params(**kw, stego=StegoParams(em_rate=EM_RATE,
                                                    key=KEY)))

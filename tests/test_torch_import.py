@@ -67,6 +67,7 @@ _BLOCKED_IMPORT = textwrap.dedent("""
                      stego=StegoParams(em_rate=4, key=3)),
               Params(width=32, height=32, qp=26, me_range=8, cabac=True,
                      bframes=2, b_adapt=0, ref_frames=2, psnr=False,
+                     transform_8x8=True, rd=1, trellis=1,
                      stego=StegoParams(em_rate=4, key=3))):
         enc = Encoder(p, device="cpu")
         bs = b"".join(enc.encode_frame(f) for f in frames) + enc.flush()
@@ -195,11 +196,11 @@ def test_encoder_defaults_to_cuda():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(bframes=2, transform_8x8=True), dict(p4x4=True),
+    dict(bframes=2, cqm="jvt"), dict(p4x4=True),
     dict(ref_frames=2, p4x4=True),
-    dict(ref_frames=2, transform_8x8=True), dict(ref_frames=2, rd=1),
-    dict(rd=2), dict(transform_8x8=True, partitions=False,
-                     deblock_device=False), dict(me_range=24),
+    dict(ref_frames=2, noise_reduction=100), dict(ref_frames=2, aq_mode=1),
+    dict(deadzone_inter=20), dict(cqm="jvt", partitions=False,
+                                  deblock_device=False), dict(me_range=24),
     dict(aq_mode=1),
     dict(noise_reduction=100), dict(crf=23.0), dict(pipeline_deep=True),
     dict(zones="0,5,q=30"),
@@ -207,7 +208,7 @@ def test_encoder_defaults_to_cuda():
     dict(stego=StegoParams(em_rate=64, key=99, alpha_com=0.5)),
     dict(subpel=1), dict(dct_decimate=False),
     dict(incremental=False), dict(partitions=False, deblock_device=True),
-    dict(cabac=True, bframes=2, rd=1),
+    dict(cabac=True, bframes=2, trellis=1, deadzone_intra=10),
 ], ids=lambda kw: ",".join(kw))
 def test_encoder_rejects_options_outside_the_slice(kw):
     from video_steganography_pcamv_torch import Encoder
@@ -225,13 +226,20 @@ def test_encoder_rejects_options_outside_the_slice(kw):
     dict(cabac=True, bframes=2),
     dict(bframes=2, partitions=False, deblock_device=False),
     dict(bframes=2, b_pyramid=True), dict(cabac=True, bframes=2, direct=2),
+    dict(bframes=2, transform_8x8=True),
+    dict(ref_frames=2, transform_8x8=True), dict(ref_frames=2, rd=1),
+    dict(rd=2), dict(transform_8x8=True, partitions=False,
+                     deblock_device=False),
+    dict(cabac=True, bframes=2, rd=1), dict(cabac=True, trellis=1),
+    dict(cabac=True, trellis=2, ref_frames=3, bframes=2, weightb=True),
 ], ids=lambda kw: ",".join(kw))
 def test_encoder_accepts_the_reference_defaults_and_cabac(kw):
     """Options the port serves since it took the reference's default
     Params (PSNR on, host deblock, unpipelined) and CABAC, multiple
-    reference frames (with or without partitions, either deblocker) and
+    reference frames (with or without partitions, either deblocker),
     B frames at the reference's default b_adapt 1 (CAVLC or CABAC, with
-    or without partitions, a pyramid, temporal direct)."""
+    or without partitions, a pyramid, temporal direct), and the 8x8
+    transform, rd 1-2 and trellis 1-2 with each of those."""
     from video_steganography_pcamv_torch import Encoder
     enc = Encoder(_slice_params(**kw), device="cpu")
     assert enc.p.cabac == kw.get("cabac", False)

@@ -27,6 +27,7 @@ import torch
 import jax.numpy as jnp
 
 from video_steganography_pcamv_tpu import native as j_native
+from video_steganography_pcamv_tpu.decoder import decode_annexb as j_decode
 from video_steganography_pcamv_tpu.encoder import inter as J_INTER
 from video_steganography_pcamv_tpu.encoder import partition as J_PT
 from video_steganography_pcamv_tpu.encoder.core import Encoder as JEncoder
@@ -282,6 +283,76 @@ def test_mref_stream_byte_equal_and_payload(kw, n, ref8_log):
     assert got == want
     assert any((r == 1).any() for r in ref8_log)
     _check_payload(got, tenc, n)
+
+
+def reference_with_trans8_keys(monkeypatch):
+    """ROADMAP F4: the reference's P writers read `trans8`/`luma8_lev`
+    of every P encode whenever transform_8x8 is on, and its
+    multi-reference and 16x16 encodes, which take no 8x8 transform, have
+    neither, so it raises KeyError on their first P frame. This patch
+    adds the keys those encodes leave out (all MBs 4x4-transformed);
+    nothing else changes. The port writes that stream:
+    transform_size_8x8_flag 0 in every MB with luma residual."""
+    for name in ("encode_p_frame_device8_mref", "encode_p_frame_device"):
+        orig = getattr(J_INTER, name)
+
+        def with_keys(*a, _orig=orig, **kw):
+            res = dict(_orig(*a, **kw))
+            cbp = res["cbp_luma"]
+            res.setdefault("trans8", jnp.zeros(cbp.shape, bool))
+            res.setdefault("luma8_lev",
+                           jnp.zeros(cbp.shape + (256,), jnp.int16))
+            return res
+        monkeypatch.setattr(J_INTER, name, with_keys)
+
+
+def run_with_recon(enc, frames):
+    """Encode + flush of an encoder that returns each frame's access
+    unit in its own call, with the deblocked recon after each frame."""
+    out, recons = [], []
+    for f in frames:
+        out.append(enc.encode_frame(f))
+        recons.append(tuple(np.asarray(p.cpu()) for p in enc.recon_prev))
+    return b"".join(out) + enc.flush(), recons
+
+
+def check_decoders_equal_recon(stream, recons):
+    """The port's decoder equals the JAX decoder and the encoder's recon
+    on every frame."""
+    dec, jdec = decode_annexb(stream), j_decode(stream)
+    assert len(dec) == len(jdec) == len(recons)
+    for a, b, r in zip(dec, jdec, recons):
+        h, w = a.y.shape
+        for pl, rp, (hh, ww) in zip(("y", "u", "v"), r,
+                                    ((h, w), (h // 2, w // 2),
+                                     (h // 2, w // 2))):
+            np.testing.assert_array_equal(getattr(a, pl), getattr(b, pl))
+            np.testing.assert_array_equal(getattr(a, pl), rp[:hh, :ww])
+    return dec
+
+
+def test_ref2_trans8_rd_trellis_byte_equal(ref8_log, monkeypatch):
+    """ref_frames 2 with transform_8x8, rd 1 and trellis 1 under CABAC
+    (x264's --ref 2 --8x8dct --subme 7 --trellis 1): the IDR codes
+    Intra_8x8 by the RD choice on trellised levels, the P frames take
+    the multi-reference encode (no 8x8 transform, trellis in pass 1 and
+    pass 2) and carry transform_size_8x8_flag 0. Byte-equal to the
+    reference with F4's keys added; both decoders give the encoder's
+    recon; the payload is recovered."""
+    reference_with_trans8_keys(monkeypatch)
+    frames = _flicker_frames(5)
+    kw = _kw(cabac=True, transform_8x8=True, rd=1, trellis=1)
+    want = _run(JEncoder(Params(**kw, stego=StegoParams(em_rate=EM_RATE,
+                                                        key=KEY))), frames)
+    tenc = TEncoder(TP.Params(**kw, stego=TP.StegoParams(em_rate=EM_RATE,
+                                                         key=KEY)),
+                    device="cpu")
+    got, recons = run_with_recon(tenc, frames)
+    assert got == want
+    assert any((r == 1).any() for r in ref8_log)
+    assert tenc.stats.i8x8_mbs > 0 and tenc.stats.trans8_mbs == 0
+    check_decoders_equal_recon(got, recons)
+    _check_payload(got, tenc, len(frames))
 
 
 @pytest.mark.parametrize("cabac", [False, True], ids=["cavlc", "cabac"])

@@ -26,6 +26,15 @@
 // 4(by), 4(bx)]). Bound by device memory: 1 KB of cur and of pred read
 // and 1 KB of levels and of recon written per MB (4 KB), against ~400
 // integer operations per 4x4 block (6.4 K per MB).
+//
+// pcamv_luma_p_recon is the same kernel entered with the levels given
+// (the trellis quantizer's, computed before the launch): it reads pred
+// and the [N, 4(r), 4(c), 4(by), 4(bx)] levels instead of cur, skips
+// the transform and the quant, and runs the decimation, force-zero,
+// dequant, inverse transform, recon and cbp as above. It serves the
+// reference's luma_p_encode(..., trellis=True) (encoder/inter.py:225,
+// :252-253). Bound by device memory: 1 KB of pred and of levels read,
+// 1 KB of levels and of recon written per MB.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -35,12 +44,14 @@ namespace {
 constexpr int kThreads = 256;  // 16 MBs a block
 constexpr unsigned kFull = 0xffffffffu;
 
+template <bool kLevelsIn>
 __global__ void __launch_bounds__(kThreads)
     luma_p_kernel(const int* __restrict__ y, const int* __restrict__ pred,
                   int width, int n_plane, const int* __restrict__ idx,
                   const unsigned char* __restrict__ fz, int n,
                   const int* __restrict__ mf, const int* __restrict__ bias,
-                  const int* __restrict__ dmf, int qb, int* __restrict__ lev,
+                  const int* __restrict__ dmf, int qb,
+                  const int* __restrict__ lev_in, int* __restrict__ lev,
                   int* __restrict__ rec, int* __restrict__ cbp) {
   const int mb_raw = (blockIdx.x * kThreads + threadIdx.x) >> 4;
   const bool active = mb_raw < n;
@@ -51,50 +62,65 @@ __global__ void __launch_bounds__(kThreads)
   const int b8 = k >> 2, sub = k & 3;
   const int by = (b8 & 2) | (sub >> 1);
   const int bx = ((b8 & 1) << 1) | (sub & 1);
-  const int m = idx ? __ldg(&idx[mb]) : mb % n_plane;
-  if (m < 0 || m >= n_plane) __trap();
-  const int mbw = width >> 4;
-  const int mby = m / mbw, mbx = m - mby * mbw;
-  const int* cur_p =
-      y + (static_cast<size_t>(16 * mby + 4 * by) * width + 16 * mbx + 4 * bx);
   const int* pred_p = pred + (static_cast<size_t>(mb) * 256 + 64 * by + 4 * bx);
 
-  int p[16], x[16];
+  int p[16], t[16], lv[16];
+  if (kLevelsIn) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int4 c = __ldg(reinterpret_cast<const int4*>(cur_p + i * width));
-    const int4 q = __ldg(reinterpret_cast<const int4*>(pred_p + 16 * i));
-    p[4 * i] = q.x, p[4 * i + 1] = q.y, p[4 * i + 2] = q.z,
-    p[4 * i + 3] = q.w;
-    x[4 * i] = c.x - q.x, x[4 * i + 1] = c.y - q.y, x[4 * i + 2] = c.z - q.z,
-    x[4 * i + 3] = c.w - q.w;
-  }
+    for (int i = 0; i < 4; ++i) {
+      const int4 q = __ldg(reinterpret_cast<const int4*>(pred_p + 16 * i));
+      p[4 * i] = q.x, p[4 * i + 1] = q.y, p[4 * i + 2] = q.z,
+      p[4 * i + 3] = q.w;
+    }
+    const int* in_p = lev_in + (static_cast<size_t>(mb) * 256 + 4 * by + bx);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) lv[i] = __ldg(&in_p[16 * i]);
+  } else {
+    const int m = idx ? __ldg(&idx[mb]) : mb % n_plane;
+    if (m < 0 || m >= n_plane) __trap();
+    const int mbw = width >> 4;
+    const int mby = m / mbw, mbx = m - mby * mbw;
+    const int* cur_p =
+        y + (static_cast<size_t>(16 * mby + 4 * by) * width + 16 * mbx +
+             4 * bx);
 
-  int t[16];
+    int x[16];
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {  // horizontal pass over c within row r
-    const int s03 = x[4 * r] + x[4 * r + 3], s12 = x[4 * r + 1] + x[4 * r + 2];
-    const int d03 = x[4 * r] - x[4 * r + 3], d12 = x[4 * r + 1] - x[4 * r + 2];
-    t[4 * r + 0] = s03 + s12;
-    t[4 * r + 1] = 2 * d03 + d12;
-    t[4 * r + 2] = s03 - s12;
-    t[4 * r + 3] = d03 - 2 * d12;
-  }
-  int lv[16];
+    for (int i = 0; i < 4; ++i) {
+      const int4 c = __ldg(reinterpret_cast<const int4*>(cur_p + i * width));
+      const int4 q = __ldg(reinterpret_cast<const int4*>(pred_p + 16 * i));
+      p[4 * i] = q.x, p[4 * i + 1] = q.y, p[4 * i + 2] = q.z,
+      p[4 * i + 3] = q.w;
+      x[4 * i] = c.x - q.x, x[4 * i + 1] = c.y - q.y, x[4 * i + 2] = c.z - q.z,
+      x[4 * i + 3] = c.w - q.w;
+    }
+
 #pragma unroll
-  for (int c = 0; c < 4; ++c) {  // vertical pass over r within column c
-    const int s03 = t[c] + t[12 + c], s12 = t[4 + c] + t[8 + c];
-    const int d03 = t[c] - t[12 + c], d12 = t[4 + c] - t[8 + c];
-    lv[c] = s03 + s12;
-    lv[4 + c] = 2 * d03 + d12;
-    lv[8 + c] = s03 - s12;
-    lv[12 + c] = d03 - 2 * d12;
-  }
+    for (int r = 0; r < 4; ++r) {  // horizontal pass over c within row r
+      const int s03 = x[4 * r] + x[4 * r + 3];
+      const int s12 = x[4 * r + 1] + x[4 * r + 2];
+      const int d03 = x[4 * r] - x[4 * r + 3];
+      const int d12 = x[4 * r + 1] - x[4 * r + 2];
+      t[4 * r + 0] = s03 + s12;
+      t[4 * r + 1] = 2 * d03 + d12;
+      t[4 * r + 2] = s03 - s12;
+      t[4 * r + 3] = d03 - 2 * d12;
+    }
 #pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    const int cc = lv[i];
-    const int mag = ((__ldg(&bias[i]) + abs(cc)) * __ldg(&mf[i])) >> 16;
-    lv[i] = cc > 0 ? mag : (cc < 0 ? -mag : 0);
+    for (int c = 0; c < 4; ++c) {  // vertical pass over r within column c
+      const int s03 = t[c] + t[12 + c], s12 = t[4 + c] + t[8 + c];
+      const int d03 = t[c] - t[12 + c], d12 = t[4 + c] - t[8 + c];
+      lv[c] = s03 + s12;
+      lv[4 + c] = 2 * d03 + d12;
+      lv[8 + c] = s03 - s12;
+      lv[12 + c] = d03 - 2 * d12;
+    }
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int cc = lv[i];
+      const int mag = ((__ldg(&bias[i]) + abs(cc)) * __ldg(&mf[i])) >> 16;
+      lv[i] = cc > 0 ? mag : (cc < 0 ? -mag : 0);
+    }
   }
 
   // decimate score over the zigzag scan (positions as 4r + c): each
@@ -193,11 +219,29 @@ extern "C" int pcamv_luma_p_encode(const void* y, const void* pred, int width,
                                    void* stream) {
   if (n <= 0) return 0;
   const int blocks = (n + kThreads / 16 - 1) / (kThreads / 16);
-  luma_p_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(y), static_cast<const int*>(pred), width,
-      n_plane, static_cast<const int*>(idx),
-      static_cast<const unsigned char*>(fz), n, static_cast<const int*>(mf),
-      static_cast<const int*>(bias), static_cast<const int*>(dmf), qb,
-      static_cast<int*>(lev), static_cast<int*>(rec), static_cast<int*>(cbp));
+  luma_p_kernel<false>
+      <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const int*>(y), static_cast<const int*>(pred), width,
+          n_plane, static_cast<const int*>(idx),
+          static_cast<const unsigned char*>(fz), n,
+          static_cast<const int*>(mf), static_cast<const int*>(bias),
+          static_cast<const int*>(dmf), qb, nullptr, static_cast<int*>(lev),
+          static_cast<int*>(rec), static_cast<int*>(cbp));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int pcamv_luma_p_recon(const void* pred, const void* lev_in,
+                                  const void* fz, int n, const void* dmf,
+                                  int qb, void* lev, void* rec, void* cbp,
+                                  void* stream) {
+  if (n <= 0) return 0;
+  const int blocks = (n + kThreads / 16 - 1) / (kThreads / 16);
+  luma_p_kernel<true>
+      <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          nullptr, static_cast<const int*>(pred), 16, 1, nullptr,
+          static_cast<const unsigned char*>(fz), n, nullptr, nullptr,
+          static_cast<const int*>(dmf), qb,
+          static_cast<const int*>(lev_in), static_cast<int*>(lev),
+          static_cast<int*>(rec), static_cast<int*>(cbp));
   return static_cast<int>(cudaGetLastError());
 }

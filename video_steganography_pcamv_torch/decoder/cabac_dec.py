@@ -91,8 +91,13 @@ class CabacSliceParser:
     encoder/cabac.py's CabacSliceWriter."""
 
     def __init__(self, br, mbw, mbh, qp, slice_is_i, model=0,
-                 num_ref=1, slice_is_b=False, trans8_mode=False):
+                 num_ref=1, slice_is_b=False, trans8_mode=False,
+                 b_t8_present=None):
+        """b_t8_present(mb_type, subs): whether a coded B MB with luma
+        residual carries transform_size_8x8_flag (the decoder's
+        `b_t8_present`)."""
         self.cd = CabacDecoder(br, qp, slice_is_i, model)
+        self.b_t8_present = b_t8_present
         self.slice_is_b = slice_is_b
         self.qp = qp                 # running luma QP (mb_qp_delta)
         self.last_dqp = 0
@@ -729,9 +734,7 @@ class CabacSliceParser:
                           x4 + ox:x4 + ox + w4] = 0
         cbp_luma = self.cbp_luma(my, mx)
         cbp_chroma = self.cbp_chroma(my, mx)
-        if self.trans8_mode and cbp_luma:
-            assert self.transform_size_flag(my, mx) == 0, \
-                "8x8 transform in B MBs unsupported"
+        self._b_transform_flag(my, mx, code, subs, cbp_luma)
         self.mb_kind[my, mx] = 1
         self.bdirect[my, mx] = False
         self.cbp[my, mx] = (cbp_chroma << 4) | cbp_luma
@@ -766,6 +769,15 @@ class CabacSliceParser:
         self.cmode_map[my, mx] = 0
         self.modes4[4 * my:4 * my + 4, 4 * mx:4 * mx + 4] = 2
 
+    def _b_transform_flag(self, my, mx, mb_type, subs, cbp_luma):
+        """A coded B MB's transform_size_8x8_flag, where the spec puts
+        one; the 8x8 transform itself is refused (neither encoder codes
+        it in a B MB)."""
+        if self.trans8_mode and cbp_luma \
+                and self.b_t8_present(mb_type, subs) \
+                and self.transform_size_flag(my, mx):
+            raise NotImplementedError("the 8x8 transform in B MBs")
+
     def parse_b_mb(self, my, mx, btype):
         """After mb_type: returns (mvd0, mvd1, cbp_luma, cbp_chroma,
         blocks, cdcs, cacs, ref0). ref_idx_l0 parsed before the mvds
@@ -793,9 +805,7 @@ class CabacSliceParser:
             self.mvd4_1[y4:y4 + 4, x4:x4 + 4] = 0
         cbp_luma = self.cbp_luma(my, mx)
         cbp_chroma = self.cbp_chroma(my, mx)
-        if self.trans8_mode and cbp_luma:
-            assert self.transform_size_flag(my, mx) == 0, \
-                "8x8 transform in B MBs unsupported"
+        self._b_transform_flag(my, mx, btype, None, cbp_luma)
         self.mb_kind[my, mx] = 1
         self.bdirect[my, mx] = btype == 0
         self.cbp[my, mx] = (cbp_chroma << 4) | cbp_luma

@@ -194,6 +194,7 @@ class DecSPS:
     num_ref_frames: int = 1
     poc_type: int = 2
     log2_max_poc_lsb: int = 10
+    direct_8x8_inference: bool = True
     crop = (0, 0, 0, 0)
     level_idc: int = 0
     sps_id: int = 0
@@ -287,7 +288,7 @@ def parse_sps(rbsp: bytes) -> DecSPS:
     mbh = br.read_ue() + 1
     frame_mbs_only = br.read1()
     assert frame_mbs_only == 1
-    br.read1()  # direct_8x8
+    sps.direct_8x8_inference = bool(br.read1())
     crop = br.read1()
     cl = cr = ct = cb = 0
     if crop:
@@ -1199,15 +1200,26 @@ class SliceDecoder:
         return use_v[0], use_v[1], mv_v[0], mv_v[1], r8_out, unit_mvs
 
     # ---- CAVLC B macroblocks (the reference's decoder.py:1188-1443) ----
+    def b_t8_present(self, mb_type: int, subs) -> bool:
+        """Whether a coded B MB with luma residual carries
+        transform_size_8x8_flag under the PPS's 8x8 mode (spec 7.3.5):
+        not where direct prediction (B_Direct_16x16, a direct sub-MB)
+        meets an SPS without direct_8x8_inference_flag. Sub-8x8 B
+        partitions, which also drop it, are refused before."""
+        direct = mb_type == 0 or (subs is not None and 0 in subs)
+        return not direct or self.sps.direct_8x8_inference
+
     def _read_inter_residual(self, br: BitReader, mx: int, my: int,
-                             qp: int):
-        """coded_block_pattern, mb_qp_delta and the 4x4 luma levels of an
-        inter MB. Returns (qp, cbp_chroma, dequantized blocks
-        [4,4,4,4])."""
+                             qp: int, t8_present: bool = True):
+        """coded_block_pattern, transform_size_8x8_flag (read where
+        `t8_present`), mb_qp_delta and the 4x4 luma levels of an inter
+        MB. Returns (qp, cbp_chroma, dequantized blocks [4,4,4,4])."""
         cbp = VT.CBP_INTER_TO_GOLOMB.index(br.read_ue())
         cbp_luma, cbp_chroma = cbp & 15, cbp >> 4
-        if self.pps.transform_8x8 and cbp_luma and br.read1():
-            raise NotImplementedError("the 8x8 transform in B MBs")
+        if self.pps.transform_8x8 and cbp_luma and t8_present \
+                and br.read1():
+            raise NotImplementedError(
+                "the 8x8 transform in B MBs (neither encoder codes one)")
         if cbp:
             qp = (qp + br.read_se() + 52) % 52
         blocks = np.zeros((4, 4, 4, 4), np.int64)
@@ -1222,10 +1234,12 @@ class SliceDecoder:
                 self.nnz_y[yy, xx] = 0
         return qp, cbp_chroma, blocks
 
-    def _recon_b_cavlc(self, br, mx, my, use0, use1, mv0, mv1, r0, qp):
+    def _recon_b_cavlc(self, br, mx, my, use0, use1, mv0, mv1, r0, qp,
+                       t8_present: bool = True):
         """The bipred prediction of a coded B MB plus its residual (the
         chroma residual read here, after the luma)."""
-        qp, cbp_chroma, blocks = self._read_inter_residual(br, mx, my, qp)
+        qp, cbp_chroma, blocks = self._read_inter_residual(br, mx, my, qp,
+                                                           t8_present)
         qpc = int(CHROMA_QP[np.clip(qp + self.pps.chroma_qp_index_offset,
                                     0, 51)])
         py, pc = self._b_preds(mx, my, use0, use1, mv0, mv1, r0=r0)
@@ -1264,7 +1278,8 @@ class SliceDecoder:
                 mvp = self._unit_mvp(y4, x4, 4, 0, 0, ref=0, lst=1)
                 mv1[:] = (mvp[0] + mvd[0], mvp[1] + mvd[1])
         self._commit_b(my, mx, use0, use1, mv0, mv1, r0=r0)
-        qp = self._recon_b_cavlc(br, mx, my, use0, use1, mv0, mv1, r0, qp)
+        qp = self._recon_b_cavlc(br, mx, my, use0, use1, mv0, mv1, r0, qp,
+                                 self.b_t8_present(mb_type, None))
         m0 = (int(mv0[0, 0]), int(mv0[0, 1]))
         self.mbs.append(MBInfo(("BDIRECT", "BL0", "BL1", "BBI")[mb_type], m0,
                                qp, unit_mvs=[m0]))
@@ -1302,7 +1317,8 @@ class SliceDecoder:
                     mvds[li][u] = (br.read_se(), br.read_se())
         use0, use1, mv0, mv1, r8, unit_mvs = self._derive_b_parts_mvs(
             mx, my, mb_type, subs, mvds, refs_u)
-        qp = self._recon_b_cavlc(br, mx, my, use0, use1, mv0, mv1, r8, qp)
+        qp = self._recon_b_cavlc(br, mx, my, use0, use1, mv0, mv1, r8, qp,
+                                 self.b_t8_present(mb_type, subs))
         kind = "B8x8" if mb_type == 22 else \
             ("B16x8" if mb_type % 2 == 0 else "B8x16")
         m0 = (int(mv0[0, 0]), int(mv0[0, 1]))
@@ -1881,7 +1897,8 @@ def _decode_slice_cabac_b(dec: SliceDecoder, br, qp: int, model: int = 0):
         assert br.read1() == 1, "cabac_alignment_one_bit must be 1"
     ps = CabacSliceParser(br, dec.mbw, dec.mbh, qp, False, model,
                           num_ref=dec.b_l0_active, slice_is_b=True,
-                          trans8_mode=dec.pps.transform_8x8)
+                          trans8_mode=dec.pps.transform_8x8,
+                          b_t8_present=dec.b_t8_present)
     n = dec.mbh * dec.mbw
     for a in range(n):
         my, mx = a // dec.mbw, a % dec.mbw

@@ -63,7 +63,7 @@ from ..ops.probe import (_mb_blocks8, block_row8, satd_flat, sp_to_z,
                          subpel, wht8_flat, z_to_sp)
 from . import qpel_table as QT
 from .analyse2 import subpel_cost_from_table
-from .inter import _p_result, chroma_encode
+from .inter import _p_result, chroma_encode, trellis_luma_levels
 from .me import mv_bits_table
 from .partition import D_16x16, D_16x8, D_8x16, gather_windows8, te_ref_bits
 from .qpel_table import gather_windows
@@ -867,18 +867,20 @@ def _assemble_pred_b(refs0, ref1, use0, use1, mv0_8, mv1_8, ref8_0,
 
 def encode_b_frame_device(y, u, v, refs0, ref1, use0, use1, mv0_8, mv1_8,
                           ref8_0, qp: int, qpc: int, mbh: int,
-                          mbw: int, w1=32) -> dict:
+                          mbw: int, w1=32, trellis: bool = False) -> dict:
     """The B encode at per-8x8 (use, mv) fields of both lists, the
     reference's `encode_b_frame_device` (bslice.py:340) with decimation
-    on and trellis off: the bipred prediction at the implicit weight w1
-    (`_assemble_pred_b`), the
-    4x4 luma encode by the fused luma-encode kernel (one launch on CUDA,
-    decimation in the kernel), the chroma encode as on the P path.
+    on: the bipred prediction at the implicit weight w1
+    (`_assemble_pred_b`), the 4x4 luma encode by the fused luma-encode
+    kernel (one launch on CUDA, decimation in the kernel; with `trellis`
+    from the inter trellis's levels), the chroma encode as on the P path.
     Returns the P encode's result dict."""
     pred_y, pred_u, pred_v = _assemble_pred_b(
         refs0, ref1, use0, use1, mv0_8, mv1_8, ref8_0, mbh, mbw, w1)
-    lev, rec, cbp_l = luma_p_encode(y, pred_y.contiguous(), qp)
+    pred_y = pred_y.contiguous()
+    levels = trellis_luma_levels(y, pred_y, qp) if trellis else None
+    lev, rec, cbp_l = luma_p_encode(y, pred_y, qp, levels=levels)
     fz = torch.zeros(mbh * mbw, dtype=torch.bool, device=y.device)
-    chroma = [chroma_encode(mb_tiles(plane, 8), predc, qpc, fz)
+    chroma = [chroma_encode(mb_tiles(plane, 8), predc, qpc, fz, trellis)
               for plane, predc in ((u, pred_u), (v, pred_v))]
     return _p_result(lev, rec, cbp_l, chroma, mbh, mbw)

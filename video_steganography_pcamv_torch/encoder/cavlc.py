@@ -125,10 +125,12 @@ def _write_level(bw: BitWriter, code: int, suffix_len: int) -> None:
 
 
 class FrameCavlc:
-    """Per-slice CAVLC state: the nC context maps of luma and chroma."""
+    """Per-slice CAVLC state: the nC context maps of luma and chroma, and
+    the PPS's transform_8x8_mode_flag (`trans8_mode`)."""
 
-    def __init__(self, mbw: int, mbh: int):
+    def __init__(self, mbw: int, mbh: int, trans8_mode: bool = False):
         self.mbw, self.mbh = mbw, mbh
+        self.trans8_mode = trans8_mode
         self.nnz_y = np.zeros((4 * mbh, 4 * mbw), np.int32)
         self.nnz_c = np.zeros((2, 2 * mbh, 2 * mbw), np.int32)
 
@@ -162,8 +164,10 @@ class FrameCavlc:
         encoder/cavlc.c:463-560). mvd0/mvd1: per-unit (x, y) in coding
         order, [2] or [U, 2]. Syntax order: ref_idx_l0 of every L0-using
         non-direct unit (num_ref > 1), all L0 mvds, all L1 mvds, cbp,
-        qp_delta, the residual. luma_lev [4,4,4,4] (by,bx,r,c);
-        chroma_dc [2,2,2]; chroma_ac [2,2,2,4,4]."""
+        transform_size_8x8_flag (0: under `trans8_mode` wherever cbp_luma
+        is nonzero, as the reference writes it), qp_delta, the residual.
+        luma_lev [4,4,4,4] (by,bx,r,c); chroma_dc [2,2,2]; chroma_ac
+        [2,2,2,4,4]."""
         bw.write_ue(btype)
         mvd0 = np.asarray(mvd0).reshape(-1, 2)
         mvd1 = np.asarray(mvd1).reshape(-1, 2)
@@ -194,6 +198,8 @@ class FrameCavlc:
                         bw.write_se(int(mvd[u, 1]))
         cbp = (cbp_chroma << 4) | cbp_luma
         bw.write_ue(VT.CBP_INTER_TO_GOLOMB[cbp])
+        if self.trans8_mode and cbp_luma:
+            bw.write1(0)
         if cbp:
             bw.write_se(qp_delta)
         gy, gx = 4 * my, 4 * mx

@@ -130,59 +130,53 @@ _LEAN_WIDTH8 = 257
 
 def check_slice(p: Params) -> None:
     """Raise NotImplementedError for any option outside the ported
-    slice: IPPP, CQP, CAVLC or CABAC, subpel 2, decimation, incremental
-    re-encode, stego on, me_range <= PAD - MARGIN, and either partitions
-    (the serving path, optionally with the 8x8 transform and rd 1;
+    slice: CQP, CAVLC or CABAC, subpel 2, decimation, incremental
+    re-encode (turned off by trellis, as in the reference), stego on,
+    me_range <= PAD - MARGIN, the flat quant tables and the default
+    deadzones, and every combination of: partitions (the serving path;
     pipelined or not, PSNR/SSIM on or off, either deblocker) or
-    partitions off with the host deblock (the 16x16-only path), at one
-    reference; or `ref_frames` > 1 (up to 8) with or without partitions,
-    either deblocker, without the 8x8 transform or rd; and `bframes` 1-16
-    with `b_adapt` 0, 1 or 2, any `direct` mode (none, spatial, temporal,
-    auto), with or without `b_pyramid` and `weightb`, CAVLC or CABAC,
-    partitions on or off, at any of those `ref_frames`, without the 8x8
-    transform or rd."""
+    partitions off with the host deblock at one reference (the 16x16-only
+    path); `ref_frames` 1-8; `bframes` 0-16 with `b_adapt` 0, 1 or 2, any
+    `direct` mode (none, spatial, temporal, auto), with or without
+    `b_pyramid` and `weightb`; the 8x8 transform, `rd` 0-2 and, under
+    CABAC, `trellis` 0-2. While embedding, the reference codes `rd` 2 as
+    `rd` 1 and `trellis` 2 as `trellis` 1 (their other uses are in its
+    stego-off branches), and takes the 8x8 transform only in the IDR and
+    the one-reference partitioned P frames: elsewhere it only signals
+    the PPS flag, and every MB that may carry transform_size_8x8_flag
+    carries 0."""
     if not p.partitions and p.deblock_device and p.ref_frames == 1:
         raise NotImplementedError(
             "partitions off with deblock_device on: the reference drops "
             "the recon planes (need_recon is False, core.py:3475-3478) and "
             "its host deblock then raises KeyError 'recon_y' (core.py:3480)"
             "; use deblock_device=False")
-    b = p.bframes > 0
     bad = []
     for name, ok in (
-            ("bframes with transform_8x8 (ROADMAP A15)",
-             not b or not p.transform_8x8),
-            ("bframes with rd (ROADMAP A15)", not b or not p.rd),
             ("p4x4 (ROADMAP A16)", not p.p4x4),
-            ("ref_frames>1 with transform_8x8 (ROADMAP A15)",
-             p.ref_frames == 1 or not p.transform_8x8),
-            ("ref_frames>1 with rd (ROADMAP A15)",
-             p.ref_frames == 1 or not p.rd),
-            ("transform_8x8 without partitions",
-             p.partitions or not p.transform_8x8),
-            ("trellis", not p.trellis), ("rd>=2", p.rd <= 1),
-            ("rd without partitions", p.partitions or not p.rd),
-            ("aq_mode", not p.aq_mode),
-            ("noise_reduction", p.noise_reduction == 0),
-            ("rc_mode!=0", p.rc_mode == 0),
-            ("pipeline_deep", not p.pipeline_deep),
-            ("i4x4 off", p.i4x4),
-            ("subpel!=2", p.subpel == 2),
-            ("dct_decimate off", p.dct_decimate),
-            ("incremental off", p.incremental),
-            ("zones", not p.zones), ("qpfile", not p.qpfile),
-            ("cqm", p.cqm == "flat" and p.cqm4i is None
+            ("aq_mode (ROADMAP A16)", not p.aq_mode),
+            ("noise_reduction (ROADMAP A16)", p.noise_reduction == 0),
+            ("rc_mode!=0 (ROADMAP A16)", p.rc_mode == 0),
+            ("pipeline_deep (ROADMAP A19)", not p.pipeline_deep),
+            ("i4x4 off (ROADMAP A16)", p.i4x4),
+            ("subpel!=2 (ROADMAP A16)", p.subpel == 2),
+            ("dct_decimate off (ROADMAP A16)", p.dct_decimate),
+            ("incremental off (ROADMAP A16)", p.incremental),
+            ("zones (ROADMAP A16)", not p.zones),
+            ("qpfile (ROADMAP A16)", not p.qpfile),
+            ("cqm (ROADMAP A15)", p.cqm == "flat" and p.cqm4i is None
              and p.cqm4p is None),
-            ("deadzones", p.deadzone_inter == 21
+            ("deadzones (ROADMAP A16)", p.deadzone_inter == 21
              and p.deadzone_intra == 11),
-            ("deblock off", p.deblock),
-            ("me_range>%d (a window of the qpel analysis would leave "
-             "the padded planes, where the reference's CPU branch reads "
-             "clamped gather indices and its TPU branch clamped strips)"
+            ("deblock off (ROADMAP A16)", p.deblock),
+            ("me_range>%d (ROADMAP A16: a window of the qpel analysis "
+             "would leave the padded planes, where the reference's CPU "
+             "branch reads clamped gather indices and its TPU branch "
+             "clamped strips)"
              % (mc.PAD - QT.MARGIN), p.me_range <= mc.PAD - QT.MARGIN),
-            ("stego off", p.stego.enabled),
-            ("stego em_file", not p.stego.em_file),
-            ("stego alpha_com", p.stego.alpha_com == 0.0)):
+            ("stego off (ROADMAP A16)", p.stego.enabled),
+            ("stego em_file (ROADMAP A16)", not p.stego.em_file),
+            ("stego alpha_com (ROADMAP A16)", p.stego.alpha_com == 0.0)):
         if not ok:
             bad.append(name)
     if bad:
@@ -870,7 +864,8 @@ class Encoder:
         res = BS.encode_b_frame_device(
             y, u, v, dict(luma=refs_l, u=refs_u, v=refs_v), ref_l1, t(use0),
             t(use1), t(fmv0), t(fmv1), t(ref8_0), qp, qpc, mbh, mbw,
-            w1=BS.weight_arg(w_tab[np.maximum(ref8_0, 0)], self.device))
+            w1=BS.weight_arg(w_tab[np.maximum(ref8_0, 0)], self.device),
+            trellis=bool(p.trellis))
         res_np = _levels_exact(res, mbh, mbw)
         # a B frame's metrics read its own recon (it is never deblocked)
         self._accumulate_psnr(frame, y, u, v, recon=(
@@ -1077,15 +1072,17 @@ class Encoder:
         core.py:3262): `mb_skip_run` over the direct MBs with no
         residual, `FrameCavlc.write_b_mb` for the others; a slice of
         16x16 codes (0-3) without an L0 map takes the native twin
-        `native.write_slice_b`, as in the reference. ref0 [mbh, mbw]
-        each MB's L0 entry (None: 0), coded as ref_idx_l0 when num_ref >
-        1."""
+        `native.write_slice_b`, as in the reference (not under the PPS's
+        8x8-transform flag, which only the Python writer codes). ref0
+        [mbh, mbw] each MB's L0 entry (None: 0), coded as ref_idx_l0 when
+        num_ref > 1."""
         p = self.p
         mbh, mbw = p.mb_height, p.mb_width
-        if ref0 is None and np.all(code <= 3):
+        t8 = bool(p.transform_8x8)
+        if ref0 is None and np.all(code <= 3) and not t8:
             return self._write_b_native(native.write_slice_b, bw, res,
                                         code, mvd0, mvd1)
-        fc = FrameCavlc(mbw, mbh)
+        fc = FrameCavlc(mbw, mbh, trans8_mode=t8)
         skip_run = 0
         for my in range(mbh):
             for mx in range(mbw):
@@ -1134,20 +1131,21 @@ class Encoder:
         core.py:3349): B_Skip where a direct MB has no residual,
         `write_b_mb` for codes 0-3, `write_b_mb_ext` for the partition
         codes; a slice of 16x16 codes without an L0 map takes the native
-        twin `native.write_slice_cabac_b`, as in the reference. ref0
-        [mbh, mbw] each MB's L0 entry (None: 0), coded as ref_idx_l0 when
-        num_ref > 1."""
+        twin `native.write_slice_cabac_b`, as in the reference (not
+        under the PPS's 8x8-transform flag). ref0 [mbh, mbw] each MB's L0
+        entry (None: 0), coded as ref_idx_l0 when num_ref > 1."""
         p = self.p
         mbh, mbw = p.mb_height, p.mb_width
         n = mbh * mbw
-        if ref0 is None and np.all(code <= 3):
+        t8 = bool(p.transform_8x8)
+        if ref0 is None and np.all(code <= 3) and not t8:
             return self._write_b_native(native.write_slice_cabac_b, bw, res,
                                         code, mvd0, mvd1, qp=qp)
         per_unit = mvd0.ndim == 4     # the partition path's [mbh,mbw,4,2]
         while not bw.byte_aligned():
             bw.write1(1)
         w = CabacSliceWriter(mbw, mbh, qp, slice_is_i=False,
-                             slice_is_b=True)
+                             slice_is_b=True, trans8_mode=t8)
         for a in range(n):
             my, mx = a // mbw, a % mbw
             m = int(code[my, mx])
@@ -1187,7 +1185,7 @@ class Encoder:
         mv_np = mv_q.cpu().numpy()
         res = P.encode_p_frame_device(
             y, u, v, self.ref["luma"], self.ref["u"], self.ref["v"], mv_q,
-            qp, qpc, mbh, mbw)
+            qp, qpc, mbh, mbw, trellis=bool(p.trellis))
         skip, mvd, mvp = native.host_scan_p(
             mv_np, res["cbp_luma"].cpu().numpy(),
             res["cbp_chroma"].cpu().numpy())
@@ -1244,7 +1242,8 @@ class Encoder:
                 mbh, mbw, p.ref_frames, allow_parts=bool(p.partitions),
                 tail_kernel=bool(p.tail_kernel))
         res = P.encode_p_frame_device8_mref(
-            y, u, v, refs_luma, refs_u, refs_v, mv8, ref8, qp, qpc, mbh, mbw)
+            y, u, v, refs_luma, refs_u, refs_v, mv8, ref8, qp, qpc, mbh, mbw,
+            trellis=bool(p.trellis))
         meta = torch.cat([part.reshape(-1), mv8.reshape(-1),
                           res["cbp_luma"].reshape(-1).to(torch.int32),
                           res["cbp_chroma"].reshape(-1).to(torch.int32),
@@ -1285,7 +1284,7 @@ class Encoder:
         t8 = bool(p.transform_8x8)
         res_dev = encode_i_frame(y, u, v, qp, qpc, mbw, mbh,
                                  lam=ME.lambda_tab(qp), i8x8=t8,
-                                 rd=bool(p.rd))
+                                 rd=bool(p.rd), trellis=bool(p.trellis))
         dev = self.device
         i32 = torch.int32
         if t8:
@@ -1366,14 +1365,16 @@ class Encoder:
             y, u, v, self.ref["luma"], self.ref["u"], self.ref["v"],
             prev_mv, qp, qpc, lam, self._cost_mv_dev(qp, lam), p.me_range,
             mbh, mbw, extra=extra, tail_kernel=bool(p.tail_kernel),
-            trans8=bool(p.transform_8x8), rd=bool(p.rd))
+            trans8=bool(p.transform_8x8), rd=bool(p.rd),
+            trellis=bool(p.trellis))
         return dict(packed=packed, res=res, y=y, u=u, v=v, qp=qp, qpc=qpc)
 
     def _fused_complete(self, d) -> dict:
         """Host STC + flips, then enqueue the re-encode (incremental
-        where few MBs changed, always full under the 8x8 transform, as
-        in the reference), the lean level pack and the deblock. Returns
-        the pending record the next frame's call drains."""
+        where few MBs changed, always full under the 8x8 transform or
+        trellis, as in the reference), the lean level pack and the
+        deblock. Returns the pending record the next frame's call
+        drains."""
         p = self.p
         mbh, mbw = p.mb_height, p.mb_width
         n = mbh * mbw
@@ -1392,7 +1393,7 @@ class Encoder:
         final8_t = torch.as_tensor(np.ascontiguousarray(final8)).to(dev)
         idx, fzs = changed_mbs(mv8_np, final8, skip1, skip, mbh, mbw)
         t8 = bool(p.transform_8x8)
-        if not t8 and len(idx) <= n // 4:
+        if not t8 and not p.trellis and len(idx) <= n // 4:
             idx_p, fz_p, _cap = pad_subset(idx, fzs, n)
             res2 = reencode_p_incremental(
                 d["res"], y, u, v, self.ref["luma"], self.ref["u"],
@@ -1403,7 +1404,7 @@ class Encoder:
                 y, u, v, self.ref["luma"], self.ref["u"], self.ref["v"],
                 final8_t, qp, qpc, mbh, mbw,
                 force_zero=torch.as_tensor(skip).to(dev), trans8=t8,
-                rd=bool(p.rd))
+                rd=bool(p.rd), trellis=bool(p.trellis))
         if t8:
             # the effective flag: the decision AND cbp_luma != 0 (with no
             # luma residual the flag is not sent and reads as 0)
@@ -1527,9 +1528,10 @@ class Encoder:
                 chroma_dc=res_np["chroma_dc"].reshape(n, 2, 4),
                 chroma_ac=res_np["chroma_ac"].reshape(n, 2, 4, 16),
                 refs=refs, num_ref=num_ref,
-                luma8_lev=(res_np["luma8_lev"].reshape(n, 256) if t8
-                           else None),
-                trans8=res_np["trans8"].astype(np.int32) if t8 else None,
+                luma8_lev=(res_np["luma8_lev"].reshape(n, 256)
+                           if "luma8_lev" in res_np else None),
+                trans8=(res_np["trans8"].astype(np.int32)
+                        if "trans8" in res_np else None),
                 trans8_mode=t8)
         return native.write_slice(
             hdr, nbits, H.SLICE_TYPE_P, mbw, mbh,

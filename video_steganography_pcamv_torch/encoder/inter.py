@@ -1,6 +1,7 @@
 """P-frame transform/quant/recon at given MVs (port of the serving
 subset of encoder/inter.py): decimation on; the High-profile adaptive
-8x8 transform and its RD decision as options; trellis and noise
+8x8 transform and its RD decision, and trellis quantization of the luma
+(4x4 and the 8x8 candidate) and chroma levels, as options; noise
 reduction off; gather MC only.
 
 Two encodes: `encode_p_frame_device8` at per-8x8 MVs (the partitioned
@@ -21,6 +22,7 @@ from ..ops import const
 from ..ops import mc
 from ..ops import transform as T
 from ..ops import transform8 as T8
+from ..ops import trellis as TR
 from ..ops import tq4 as TQ
 from ..ops import lumap as LP
 from ..ops.blocks import mb_tiles, to_blocks
@@ -111,16 +113,107 @@ def luma_p_encode_fast(cur, pred, qp: int, decimate: bool = True):
     return _coef16_to_lev(lev16, n), _coef16_to_mb(rec16, n)
 
 
-def chroma_encode(curc, predc, qpc: int, fz):
-    """Inter chroma encode of one plane's [N,8,8] MBs. Returns (dc_lev
-    [N,2,2], ac_lev [N,4,4,2,2], recon [N,8,8])."""
+# zigzag scan position -> raster (r, c) of a 4x4 block, and its inverse
+_IZIG4 = np.zeros((4, 4), np.int64)
+_IZIG4[T.ZIGZAG_4x4[:, 0], T.ZIGZAG_4x4[:, 1]] = np.arange(16)
+
+
+def _from_zig_planes(lev, n: int, by: int, bx: int):
+    """[n * by * bx, 16] zigzag levels -> [n, 4, 4, by, bx] planes."""
+    lev = lev.reshape(n, by, bx, 16).permute(0, 3, 1, 2)    # [n,16,by,bx]
+    return lev[:, const(_IZIG4, lev.device)]
+
+
+def trellis_quant4x4_planes(coef, qp: int, intra: bool):
+    """Trellis-quantize [N,4,4,BY,BX] coefficient planes (the luma 4x4
+    cat); levels in the same layout."""
+    n, _, _, by, bx = coef.shape
+    v = zigzag_gather(coef).permute(0, 2, 3, 1).reshape(n * by * bx, 16)
+    lev = TR.trellis_quant(v, qp, TR.CAT_LUMA_4x4, intra)
+    return _from_zig_planes(lev, n, by, bx)
+
+
+def trellis_quant8x8(coef8, qp: int, intra: bool):
+    """Trellis-quantize [..., 8, 8] coefficient blocks (the cat-5 8x8
+    luma trellis: x264's quant_8x8_trellis); levels in the same
+    layout."""
+    zz8 = const(T8.ZIGZAG_8x8_FLAT, coef8.device)
+    flat = coef8.reshape(-1, 64)
+    lv = TR.trellis_quant(flat[:, zz8], qp, TR.CAT_LUMA_8x8, intra)
+    lev = torch.zeros_like(lv)
+    lev[:, zz8] = lv
+    return lev.reshape(coef8.shape)
+
+
+def trellis_quant_chroma_dc(dch, qpc, intra: bool = False):
+    """Chroma-DC trellis (2x2 Hadamard domain, raster scan; rdo.c
+    x264_quant_dc_trellis DCT_CHROMA_DC). dch: [N,2,2]."""
+    n = dch.shape[0]
+    lev = TR.trellis_quant(dch.reshape(n, 4), qpc, TR.CAT_CHROMA_DC, intra)
+    return lev.reshape(n, 2, 2)
+
+
+def trellis_quant_luma_dc(dct, qp):
+    """i16x16 luma-DC trellis (4x4 Hadamard domain, zigzag scan; rdo.c
+    x264_quant_dc_trellis DCT_LUMA_DC, intra only). dct: [N,4,4]."""
+    zz = const(T.ZIGZAG_4x4, dct.device).long()
+    lev = TR.trellis_quant(dct[:, zz[:, 0], zz[:, 1]], qp, TR.CAT_LUMA_DC,
+                           True)
+    return lev[:, const(_IZIG4, dct.device)]
+
+
+def _trellis_ac_planes(ac, qp, cat: int, intra: bool):
+    n, _, _, by, bx = ac.shape
+    v = zigzag_gather(ac)[:, 1:].permute(0, 2, 3, 1).reshape(n * by * bx, 15)
+    lev = TR.trellis_quant(v, qp, cat, intra)
+    lev = torch.cat([torch.zeros_like(lev[:, :1]), lev], dim=1)
+    return _from_zig_planes(lev, n, by, bx)
+
+
+def trellis_quant_luma_ac(ac, qp, intra: bool = True):
+    """i16x16 luma-AC trellis (DCT_LUMA_AC cat, 15 coefs). ac:
+    [N,4,4,BY,BX] coefficient planes with DC already zeroed."""
+    return _trellis_ac_planes(ac, qp, TR.CAT_LUMA_AC, intra)
+
+
+def trellis_quant_chroma_ac(ac, qpc, intra: bool = False):
+    """Chroma-AC trellis (DCT_CHROMA_AC cat, 15 coefs). ac:
+    [N,4,4,BY,BX] coefficient planes with DC already zeroed."""
+    return _trellis_ac_planes(ac, qpc, TR.CAT_CHROMA_AC, intra)
+
+
+def trellis_luma_levels(y, pred, qp: int):
+    """The inter trellis's 4x4 levels [N, 4, 4, 4, 4] of a frame's MBs
+    (y the plane, pred [N,16,16] of its MBs in raster order): the fused
+    luma kernel's `levels` under trellis."""
+    return trellis_quant4x4_planes(
+        T.dct4x4(to_blocks(mb_tiles(y, 16) - pred, 4)), qp,
+        intra=False).contiguous()
+
+
+def luma_encode(y, pred, qp: int, fz=None, trellis: bool = False):
+    """The 4x4 luma encode of a frame's MBs: the fused kernel, which with
+    `trellis` starts from `trellis_luma_levels` (the reference's
+    `luma_p_encode(..., trellis=True)`)."""
+    levels = trellis_luma_levels(y, pred, qp) if trellis else None
+    return LP.luma_p_encode(y, pred, qp, fz=fz, levels=levels)
+
+
+def chroma_encode(curc, predc, qpc: int, fz, trellis: bool = False):
+    """Inter chroma encode of one plane's [N,8,8] MBs (`trellis`: the
+    DC and AC levels by the inter trellis). Returns (dc_lev [N,2,2],
+    ac_lev [N,4,4,2,2], recon [N,8,8])."""
     n = curc.shape[0]
     coef = T.dct4x4(to_blocks(curc - predc, 4))
     dch = T.hadamard2x2(coef[:, 0, 0][..., None, None])[..., 0, 0]
     ac = coef.clone()
     ac[:, 0, 0] = 0
-    dc_lev = T.quant_dc(dch, qpc, intra=False)
-    ac_lev = T.quant4x4(ac, qpc, intra=False)
+    if trellis:
+        dc_lev = trellis_quant_chroma_dc(dch, qpc)
+        ac_lev = trellis_quant_chroma_ac(ac, qpc)
+    else:
+        dc_lev = T.quant_dc(dch, qpc, intra=False)
+        ac_lev = T.quant4x4(ac, qpc, intra=False)
     scc = decimate_score(zigzag_gather(ac_lev)).sum((1, 2), dtype=_I32)
     ac_lev = ac_lev * (scc >= 7)[:, None, None, None, None]
     dc_lev = dc_lev * ~fz[:, None, None]
@@ -193,10 +286,10 @@ def _p_result(lev, rec, cbp_luma, chroma, mbh: int, mbw: int) -> dict:
 
 def encode_p_frame_device(y, u, v, ref_luma, ref_u, ref_v, mv, qp: int,
                           qpc: int, mbh: int, mbw: int,
-                          force_zero=None) -> dict:
+                          force_zero=None, trellis: bool = False) -> dict:
     """16x16 P encode at one qpel MV per MB (mv [mbh,mbw,2]); MBs in
     force_zero [mbh,mbw] drop their residual (the stego pass 2's forced
-    P_SKIPs)."""
+    P_SKIPs); `trellis` quantizes luma and chroma by the trellis."""
     n = mbh * mbw
     dev = y.device
     fz = _force_zero(force_zero, n, dev)
@@ -205,22 +298,24 @@ def encode_p_frame_device(y, u, v, ref_luma, ref_u, ref_v, mv, qp: int,
     xs = (ar % mbw) * 16
     mvf = mv.reshape(n, 2)
     pred = mc.mc_luma(ref_luma, ys, xs, mvf)
-    lev, rec, cbp_l = LP.luma_p_encode(y, pred, qp, fz=fz)
+    lev, rec, cbp_l = luma_encode(y, pred, qp, fz, trellis)
     chroma = [chroma_encode(mb_tiles(plane, 8),
                             mc.mc_chroma(refp, ys // 2, xs // 2, mvf),
-                            qpc, fz)
+                            qpc, fz, trellis)
               for plane, refp in ((u, ref_u), (v, ref_v))]
     return _p_result(lev, rec, cbp_l, chroma, mbh, mbw)
 
 
-def _luma8_select(cur, pred, lev, rec, cbp_luma, fz, qp: int, rd: bool):
+def _luma8_select(cur, pred, lev, rec, cbp_luma, fz, qp: int, rd: bool,
+                  trellis: bool = False):
     """The 8x8-transform candidate of every MB and the per-MB choice
     between it and the 4x4 encode (lev, rec, cbp_luma, after `fz`):
     x264's sa8d < satd rule (x264_mb_analyse_transform), or with `rd`
     SSD + lambda2 * CAVLC bits at nC 0 with strict < (the first minimum
-    wins ties). The 8x8 levels keep x264's decimation (per 8x8 >= 4, per
-    MB >= 6 over the coded 8x8s). Returns (lev, rec, cbp_luma, t8 [n]
-    bool, lev8 [n,2,2,8,8])."""
+    wins ties). The 8x8 levels are the deadzone quant's, or with
+    `trellis` the cat-5 inter trellis's (x264's quant_8x8_trellis), and
+    keep x264's decimation (per 8x8 >= 4, per MB >= 6 over the coded
+    8x8s). Returns (lev, rec, cbp_luma, t8 [n] bool, lev8 [n,2,2,8,8])."""
     n = cur.shape[0]
     dev = cur.device
     d4 = to_blocks(cur - pred, 4)
@@ -230,7 +325,9 @@ def _luma8_select(cur, pred, lev, rec, cbp_luma, fz, qp: int, rd: bool):
 
     blk8 = (cur - pred).reshape(n, 2, 8, 2, 8).transpose(2, 3)
     pred8 = pred.reshape(n, 2, 8, 2, 8).transpose(2, 3)
-    lev8 = T8.quant8x8(T8.dct8x8(blk8), qp, intra=False)
+    coef8 = T8.dct8x8(blk8)
+    lev8 = (trellis_quant8x8(coef8, qp, intra=False) if trellis
+            else T8.quant8x8(coef8, qp, intra=False))
     nz8 = (lev8 != 0).any(4).any(3)                              # [n,2,2]
     sc8 = T8.decimate_score64(lev8)
     tot = torch.where(nz8, sc8, 0).sum((1, 2), dtype=_I32)
@@ -266,22 +363,24 @@ def _luma8_select(cur, pred, lev, rec, cbp_luma, fz, qp: int, rd: bool):
 def encode_p_frame_device8(y, u, v, ref_luma, ref_u, ref_v, mv8,
                            qp: int, qpc: int, mbh: int, mbw: int,
                            force_zero=None, trans8: bool = False,
-                           rd: bool = False, cbp_only: bool = False
-                           ) -> dict:
+                           rd: bool = False, cbp_only: bool = False,
+                           trellis: bool = False) -> dict:
     """Partitioned P encode at per-8x8 MVs ([2mbh,2mbw,2] qpel). With
     `trans8` each MB also tries the 8x8 transform (`rd`: by RD cost) and
     the result carries `trans8` [mbh,mbw] bool and `luma8_lev` [mbh,mbw,
     256] int16 ((by8, bx8, r, c) order). `cbp_only` returns just the
-    cbp maps (the stego pass 1 when the pass 2 is a full re-encode)."""
+    cbp maps (the stego pass 1 when the pass 2 is a full re-encode).
+    `trellis` quantizes every luma candidate and the chroma by the
+    trellis."""
     n = mbh * mbw
     dev = y.device
     fz = _force_zero(force_zero, n, dev)
 
     pred = assemble_pred_luma(ref_luma, mv8, mbh, mbw)
-    lev, rec, cbp_l = LP.luma_p_encode(y, pred, qp, fz=fz)
+    lev, rec, cbp_l = luma_encode(y, pred, qp, fz, trellis)
     if trans8:
         lev, rec, cbp_l, t8, lev8 = _luma8_select(
-            mb_tiles(y, 16), pred, lev, rec, cbp_l, fz, qp, rd)
+            mb_tiles(y, 16), pred, lev, rec, cbp_l, fz, qp, rd, trellis)
 
     n8 = 4 * mbh * mbw
     ar = torch.arange(n8, device=dev, dtype=_I32)
@@ -294,7 +393,7 @@ def encode_p_frame_device8(y, u, v, ref_luma, ref_u, ref_v, mv8,
         predc = pc4.reshape(2 * mbh, 2 * mbw, 4, 4).permute(0, 2, 1, 3) \
             .reshape(8 * mbh, 8 * mbw)
         chroma.append(chroma_encode(mb_tiles(plane, 8), mb_tiles(predc, 8),
-                                    qpc, fz))
+                                    qpc, fz, trellis))
     if cbp_only:
         return dict(
             cbp_luma=cbp_l.reshape(mbh, mbw).to(torch.uint8),
@@ -309,18 +408,19 @@ def encode_p_frame_device8(y, u, v, ref_luma, ref_u, ref_v, mv8,
 
 def encode_p_frame_device8_mref(y, u, v, refs_luma, refs_u, refs_v, mv8,
                                 ref8, qp: int, qpc: int, mbh: int, mbw: int,
-                                force_zero=None) -> dict:
+                                force_zero=None, trellis: bool = False
+                                ) -> dict:
     """Multi-reference partitioned P encode, the reference's
     `encode_p_frame_device8_mref` (encoder/inter.py:642): refs_* the
     stacked DPB ([R,4,Hp,Wp] luma, [R,Hp,Wp] chroma), ref8 [2mbh,2mbw]
-    each 8x8 block's L0 index, otherwise `encode_p_frame_device8` (the
-    4x4 luma encode is the fused kernel, fed each block's prediction from
-    its own reference)."""
+    each 8x8 block's L0 index, otherwise `encode_p_frame_device8`
+    without the 8x8 transform (the 4x4 luma encode is the fused kernel,
+    fed each block's prediction from its own reference)."""
     n = mbh * mbw
     dev = y.device
     fz = _force_zero(force_zero, n, dev)
     pred = assemble_pred_luma(refs_luma, mv8, mbh, mbw, ref8=ref8)
-    lev, rec, cbp_l = LP.luma_p_encode(y, pred, qp, fz=fz)
+    lev, rec, cbp_l = luma_encode(y, pred, qp, fz, trellis)
     n8 = 4 * mbh * mbw
     ar = torch.arange(n8, device=dev, dtype=_I32)
     ysc = torch.div(ar, 2 * mbw, rounding_mode="floor") * 4
@@ -333,5 +433,5 @@ def encode_p_frame_device8_mref(y, u, v, refs_luma, refs_u, refs_v, mv8,
         predc = pc4.reshape(2 * mbh, 2 * mbw, 4, 4).permute(0, 2, 1, 3) \
             .reshape(8 * mbh, 8 * mbw)
         chroma.append(chroma_encode(mb_tiles(plane, 8), mb_tiles(predc, 8),
-                                    qpc, fz))
+                                    qpc, fz, trellis))
     return _p_result(lev, rec, cbp_l, chroma, mbh, mbw)

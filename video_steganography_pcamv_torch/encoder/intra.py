@@ -4,9 +4,11 @@ Every MB of wave d = mx + 2*my only depends on MBs of earlier waves
 (left, top, top-left and the i4x4 top-right), so a wave is one batch.
 The reference pads each wave to a fixed width and drops inactive lanes;
 here a wave is exactly its active MBs, which gives the same values.
-Scope of the port: i16x16 + i4x4 + chroma, with the High-profile i8x8
-and the RD choice between the three as options (`i8x8`, `rd`); no
-trellis.
+Scope of the port: i16x16 + i4x4 + chroma, with the High-profile i8x8,
+the RD choice between the three and trellis quantization of the chosen
+modes' levels (luma DC/AC, 4x4, 8x8 and chroma) as options (`i8x8`,
+`rd`, `trellis`); the mode choices stay SATD (or RD) as in the
+reference.
 """
 
 from __future__ import annotations
@@ -82,7 +84,8 @@ def _take_mode(preds, mode):
     return preds[torch.arange(preds.shape[0], device=preds.device), mode]
 
 
-def _i16_mb(enc, top, left, topleft, at, al, qp: int, lam: int):
+def _i16_mb(enc, top, left, topleft, at, al, qp: int, lam: int,
+            trellis: bool = False):
     preds = P.predict_i16x16_all(top, left, topleft, at, al)
     satd = _satd_modes(enc, preds) + lam * const(_UE_SIZE4,
                                                  enc.device)[None, :]
@@ -97,8 +100,13 @@ def _i16_mb(enc, top, left, topleft, at, al, qp: int, lam: int):
     dc_t = T.hadamard4x4(dc[..., None, None], final_shift=True)[..., 0, 0]
     ac = coef.clone()
     ac[:, 0, 0] = 0
-    dc_lev = T.quant_dc(dc_t, qp, intra=True)
-    ac_lev = T.quant4x4(ac, qp, intra=True)
+    if trellis:
+        from .inter import trellis_quant_luma_dc, trellis_quant_luma_ac
+        dc_lev = trellis_quant_luma_dc(dc_t, qp)
+        ac_lev = trellis_quant_luma_ac(ac, qp, intra=True)
+    else:
+        dc_lev = T.quant_dc(dc_t, qp, intra=True)
+        ac_lev = T.quant4x4(ac, qp, intra=True)
     cbp_luma = (ac_lev != 0).any(4).any(3).any(2).any(1)
 
     deq = T.dequant4x4(ac_lev, qp)
@@ -116,7 +124,7 @@ def _satd4(a, b):
 
 
 def _i4_mb(enc, top20, left, topleft, at, al, atr, qp: int, lam: int,
-           nb_left_modes, nb_top_modes):
+           nb_left_modes, nb_top_modes, trellis: bool = False):
     """Batched i4x4 encode: the 16-block z-scan chain per MB."""
     dev = enc.device
     W = enc.shape[0]
@@ -183,7 +191,11 @@ def _i4_mb(enc, top20, left, topleft, at, al, atr, qp: int, lam: int,
         pred = _take_mode(preds, mode)
 
         coef = T.dct4x4((eblk - pred)[..., None, None])
-        lev = T.quant4x4(coef, qp, intra=True)
+        if trellis:
+            from .inter import trellis_quant4x4_planes
+            lev = trellis_quant4x4_planes(coef, qp, intra=True)
+        else:
+            lev = T.quant4x4(coef, qp, intra=True)
         deq = T.dequant4x4(lev, qp)
         rec = T.idct4x4_add(pred[..., None, None], deq)[..., 0, 0]
         wt[:, 4 * by:4 * by + 4, 4 * bx:4 * bx + 4] = rec
@@ -211,7 +223,7 @@ _Z8 = ((0, 0), (0, 1), (1, 0), (1, 1))
 
 
 def _i8_mb(enc, top24, left, topleft, at, al, atr, qp: int, lam: int,
-           nb_left_modes, nb_top_modes):
+           nb_left_modes, nb_top_modes, trellis: bool = False):
     """Batched Intra_8x8 encode: the MB's four 8x8 blocks in z-order,
     each one's borders from the blocks before it (x264's i8x8 sweep +
     x264_mb_encode_i8x8). top24 [W, 24]: the above MB's row 15 and the
@@ -286,7 +298,12 @@ def _i8_mb(enc, top24, left, topleft, at, al, atr, qp: int, lam: int,
         modebits = modebits + torch.where(mode == pm, 1, 4).to(_I32)
         pred = _take_mode(preds, mode)
 
-        lev = T8.quant8x8(T8.dct8x8(eblk - pred), qp, intra=True)
+        coef = T8.dct8x8(eblk - pred)
+        if trellis:
+            from .inter import trellis_quant8x8
+            lev = trellis_quant8x8(coef, qp, intra=True)
+        else:
+            lev = T8.quant8x8(coef, qp, intra=True)
         rec = T8.idct8x8_add(pred, T8.dequant8x8(lev, qp, intra=True))
         wt[:, y0:y0 + 8, x0:x0 + 8] = rec
         ctx4[:, cy:cy + 2, cx:cx + 2] = mode.to(_I32)[:, None, None]
@@ -339,7 +356,7 @@ def _rd_costs(enc, qp: int, mode16, dc_lev, ac_lev, cbpl16, rec16, lev4,
 
 
 def _chroma_mb(enc_u, enc_v, tops, lefts, tl_u, tl_v, at, al, qpc: int,
-               lam: int):
+               lam: int, trellis: bool = False):
     """Batched chroma encode with a joint U+V mode decision."""
     (top_u, top_v), (left_u, left_v) = tops, lefts
     pu = P.predict_chroma_all(top_u, left_u, tl_u, at, al)
@@ -359,8 +376,14 @@ def _chroma_mb(enc_u, enc_v, tops, lefts, tl_u, tl_v, at, al, qpc: int,
         dc_t = T.hadamard2x2(coef[:, 0, 0][..., None, None])[..., 0, 0]
         ac = coef.clone()
         ac[:, 0, 0] = 0
-        dc_lev = T.quant_dc(dc_t, qpc, intra=True)            # [W,2,2]
-        ac_lev = T.quant4x4(ac, qpc, intra=True)
+        if trellis:
+            from .inter import (trellis_quant_chroma_dc,
+                                trellis_quant_chroma_ac)
+            dc_lev = trellis_quant_chroma_dc(dc_t, qpc, intra=True)
+            ac_lev = trellis_quant_chroma_ac(ac, qpc, intra=True)
+        else:
+            dc_lev = T.quant_dc(dc_t, qpc, intra=True)        # [W,2,2]
+            ac_lev = T.quant4x4(ac, qpc, intra=True)
         deq = T.dequant4x4(ac_lev, qpc)
         dc_rec = T.hadamard2x2(dc_lev[..., None, None])[..., 0, 0]
         deq[:, 0, 0] = T.dequant_dc_chroma(dc_rec, qpc)
@@ -387,12 +410,13 @@ def _z_to_grid(m4_z):
 
 
 def encode_i_frame(y, u, v, qp: int, qpc: int, mbw: int, mbh: int,
-                   lam: int = 0, i8x8: bool = False, rd: bool = False
-                   ) -> dict:
+                   lam: int = 0, i8x8: bool = False, rd: bool = False,
+                   trellis: bool = False) -> dict:
     """Encode one I frame. y: [16mbh, 16mbw] int32; u, v half size.
     Returns the reference's dict of per-MB decisions, levels and recon
     planes (i4x4 on; `i8x8` adds the Intra_8x8 candidate, `rd` chooses
-    between the candidates by RD cost instead of SATD)."""
+    between the candidates by RD cost instead of SATD, `trellis`
+    quantizes every candidate's levels by the intra trellis)."""
     dev = y.device
     ty, tu, tv = _tile(y, 16), _tile(u, 8), _tile(v, 8)
 
@@ -421,19 +445,21 @@ def encode_i_frame(y, u, v, qp: int, qpc: int, mbw: int, mbh: int,
         left = st["ry"][my, mxc, :, 15]
         tl = st["ry"][myc, mxc, 15, 15]
         mode16, dc_lev, ac_lev, cbpl16, rec16, cost16 = _i16_mb(
-            enc, top, left, tl, at, al, qp, lam)
+            enc, top, left, tl, at, al, qp, lam, trellis)
 
         nb_lm = st["modes4"][my, mxc, :, 3]
         nb_tm = st["modes4"][myc, mx, 3, :]
         top20 = torch.cat([top, st["ry"][myc, mxr, 15, 0:4]], dim=1)
         m4, lev4, cbpl4, rec4, cost4, mb4bits = _i4_mb(
-            enc, top20, left, tl, at, al, atr, qp, lam, nb_lm, nb_tm)
+            enc, top20, left, tl, at, al, atr, qp, lam, nb_lm, nb_tm,
+            trellis)
         use4 = cost4 < cost16
         W = enc.shape[0]
         if i8x8:
             top24 = torch.cat([top, st["ry"][myc, mxr, 15, 0:8]], dim=1)
             m8, lev8, cbpl8, rec8, cost8, ctx8, mb8bits = _i8_mb(
-                enc, top24, left, tl, at, al, atr, qp, lam, nb_lm, nb_tm)
+                enc, top24, left, tl, at, al, atr, qp, lam, nb_lm, nb_tm,
+                trellis)
             use8 = (cost8 < cost16) & (cost8 <= cost4)
             use4 = use4 & ~use8
         else:
@@ -469,7 +495,7 @@ def encode_i_frame(y, u, v, qp: int, qpc: int, mbw: int, mbh: int,
             (st["ru"][myc, mx, 7, :], st["rv"][myc, mx, 7, :]),
             (st["ru"][my, mxc, :, 7], st["rv"][my, mxc, :, 7]),
             st["ru"][myc, mxc, 7, 7], st["rv"][myc, mxc, 7, 7], at, al,
-            qpc, lam)
+            qpc, lam, trellis)
 
         st["ry"][my, mx] = rec
         st["ru"][my, mx] = ruu

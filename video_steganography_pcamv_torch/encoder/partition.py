@@ -322,14 +322,15 @@ def probe_combine(SK, SP, sc8, part, mv8, mvp_u, cost_mv, mbh: int,
 def p_stage1_stego(y, u, v, ref_luma, ref_u, ref_v, prev_mv, qp: int,
                    qpc: int, lam: int, cost_mv, rng: int, mbh: int,
                    mbw: int, extra=None, tail_kernel: bool = False,
-                   trans8: bool = False, rd: bool = False):
+                   trans8: bool = False, rd: bool = False,
+                   trellis: bool = False):
     """Fused P stage 1: analyse -> pass-1 encode -> device scan -> RCA
     stego costs. `tail_kernel` picks B1's MV predictor: zero (True, the
     reference's accelerator branch) or prev_mv >> 2 (False, its CPU
-    branch); see the module docstring. `trans8`/`rd` go to the pass-1
-    encode, which then returns only its cbp maps (the reference's pass 2
-    is a full re-encode under the 8x8 transform). Returns (packed f32,
-    res) with the reference's layout
+    branch); see the module docstring. `trans8`/`rd`/`trellis` go to the
+    pass-1 encode, which then returns only its cbp maps (the reference's
+    pass 2 is a full re-encode under the 8x8 transform or trellis).
+    Returns (packed f32, res) with the reference's layout
       [part n | mv8 8n | cbp_l n | cbp_c n | skip n | alt 8n | rho 4n
        | extra]."""
     pred = torch.zeros_like(prev_mv) if tail_kernel else prev_mv >> 2
@@ -342,7 +343,7 @@ def p_stage1_stego(y, u, v, ref_luma, ref_u, ref_v, prev_mv, qp: int,
         y, windows, part, mvfp8, prev_mv.contiguous(), lam, qp, mbh, mbw)
     res = INTER.encode_p_frame_device8(
         y, u, v, ref_luma, ref_u, ref_v, mv8, qp, qpc, mbh, mbw,
-        trans8=trans8, rd=rd, cbp_only=trans8)
+        trans8=trans8, rd=rd, cbp_only=trans8 or trellis, trellis=trellis)
     cbp_l = res["cbp_luma"].to(_I32)
     cbp_c = res["cbp_chroma"].to(_I32)
     skip, _mvd, mvp_u, _ = scan_p_device(part, mv8, cbp_l, cbp_c, mbh, mbw)

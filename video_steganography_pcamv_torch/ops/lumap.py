@@ -17,8 +17,15 @@ MB index: the whole frame (no index, N = the plane's MB count), a
 subset (`idx`), or the stego probe's 13 versions of every MB (no index,
 N = 13 x the MB count: MB i reads the plane's MB i % count).
 
+Under trellis quantization the levels come from the trellis
+(`ops/trellis.py`, run on the DCT of the residual before the call) and
+the wrapper takes them as `levels`: the kernel's second entry skips the
+transform and the quant and runs the rest as above, the reference's
+`luma_p_encode(..., trellis=True)`.
+
 On a CPU tensor the wrapper runs its plain version; on a CUDA tensor it
-launches its kernel, counted in `luma_p_encode.launches`, or raises.
+launches its kernel, counted in `luma_p_encode.launches` (the levels-in
+entry in `luma_p_encode.levels_launches`), or raises.
 """
 
 from __future__ import annotations
@@ -80,13 +87,16 @@ def _cur_tiles(y, n: int, idx):
 
 
 def luma_p_encode_plain(y, pred, qp: int, idx=None, fz=None,
-                        lev: bool = True):
-    """Residual -> 4x4 DCT -> inter quant -> decimation (per 8x8 score
-    >= 4, per MB sum of the kept 8x8 scores >= 6) -> force-zero ->
-    dequant -> IDCT -> recon, and the luma cbp of the kept levels."""
+                        lev: bool = True, levels=None):
+    """Residual -> 4x4 DCT -> inter quant (or the given `levels`) ->
+    decimation (per 8x8 score >= 4, per MB sum of the kept 8x8 scores >=
+    6) -> force-zero -> dequant -> IDCT -> recon, and the luma cbp of the
+    kept levels."""
     n = pred.shape[0]
-    cur = _cur_tiles(y, n, idx)
-    levels = T.quant4x4(T.dct4x4(to_blocks(cur - pred, 4)), qp, intra=False)
+    if levels is None:
+        cur = _cur_tiles(y, n, idx)
+        levels = T.quant4x4(T.dct4x4(to_blocks(cur - pred, 4)), qp,
+                            intra=False)
     sc = decimate_score(zigzag_gather(levels))               # [N,4,4]
     sc8 = sc.reshape(n, 2, 2, 2, 2).sum((2, 4), dtype=_I32)
     keep8 = sc8 >= 4
@@ -109,11 +119,12 @@ DMF16 = [T.DEQUANT4_MF[q].reshape(16).copy() for q in range(6)]
 _VP, _CI = kernels.VP, kernels.CI
 
 
-def _check(y, pred, idx, fz) -> None:
+def _check(y, pred, idx, fz, levels=None) -> None:
     """The input contract on every device: an int32 plane of 16x16 MBs,
     int32 [N, 16, 16] predictions, int32 [N] MB numbers inside the
-    plane, bool [N] force-zero flags, all on y's device; on the card
-    also contiguous and, for y and pred, 16-byte aligned."""
+    plane, bool [N] force-zero flags, int32 [N, 4, 4, 4, 4] levels, all
+    on y's device; on the card also contiguous and, for y and pred,
+    16-byte aligned."""
     fn = "luma_p_encode"
     if y.dim() != 2 or y.shape[0] % 16 or y.shape[1] % 16:
         raise ValueError("%s: y shape %s is not a plane of 16x16 MBs"
@@ -122,7 +133,9 @@ def _check(y, pred, idx, fz) -> None:
     for name, t, dtype, shape in (("y", y, _I32, tuple(y.shape)),
                                   ("pred", pred, _I32, (n, 16, 16)),
                                   ("idx", idx, _I32, (n,)),
-                                  ("fz", fz, torch.bool, (n,))):
+                                  ("fz", fz, torch.bool, (n,)),
+                                  ("levels", levels, _I32,
+                                   (n, 4, 4, 4, 4))):
         if t is None:
             continue
         if y.is_cuda:
@@ -149,7 +162,8 @@ def _check(y, pred, idx, fz) -> None:
                          % (fn, y.numel() // 256))
 
 
-def luma_p_encode(y, pred, qp: int, idx=None, fz=None, lev: bool = True):
+def luma_p_encode(y, pred, qp: int, idx=None, fz=None, lev: bool = True,
+                  levels=None):
     """Kernel B8 fused, replacing `dct_quant_pallas`
     (video_steganography_pcamv_tpu/ops/pallas_kernels.py:175), the
     decimation of `luma_p_encode_fast` and `deq_idct_pallas`
@@ -158,34 +172,46 @@ def luma_p_encode(y, pred, qp: int, idx=None, fz=None, lev: bool = True):
     y [16 mbh, 16 mbw] int32 luma plane; pred [N, 16, 16] int32; idx
     [N] int32 raster MB numbers of the current MBs, or None for MB
     i % (mbh mbw); fz [N] bool, MBs that keep no residual, or None; lev
-    False skips the levels. Returns (lev [N, 4(r), 4(c), 4(by), 4(bx)]
-    int32 or None, rec [N, 16, 16] int32, cbp_luma [N] int32)."""
+    False skips the levels; levels [N, 4(r), 4(c), 4(by), 4(bx)] int32,
+    the quantized levels to start from (the trellis's; y and idx are
+    then not read), or None. Returns (lev [N, 4, 4, 4, 4] int32 or None,
+    rec [N, 16, 16] int32, cbp_luma [N] int32)."""
     if not 0 <= qp <= 51:
         raise ValueError("luma_p_encode: qp %d outside [0, 51]" % qp)
-    _check(y, pred, idx, fz)
+    _check(y, pred, idx, fz, levels)
     if not y.is_cuda:
-        return luma_p_encode_plain(y, pred, qp, idx, fz, lev)
+        return luma_p_encode_plain(y, pred, qp, idx, fz, lev, levels)
     n = pred.shape[0]
     dev = y.device
     rec = torch.empty((n, 16, 16), dtype=_I32, device=dev)
     cbp = torch.empty((n,), dtype=_I32, device=dev)
-    levels = (torch.empty((n, 4, 4, 4, 4), dtype=_I32, device=dev)
-              if lev else None)
+    out = (torch.empty((n, 4, 4, 4, 4), dtype=_I32, device=dev)
+           if lev else None)
     if n == 0:
-        return levels, rec, cbp
+        return out, rec, cbp
+    ptr = kernels.ptr
+    dmf = ptr(const(DMF16[qp % 6], dev))
+    fzp = None if fz is None else ptr(fz)
+    outp = None if out is None else ptr(out)
+    if levels is not None:
+        fn = kernels.entry("pcamv_luma_p_recon",
+                           [_VP] * 3 + [_CI, _VP, _CI] + [_VP] * 4)
+        rc = fn(ptr(pred), ptr(levels), fzp, n, dmf, qp // 6 - 4, outp,
+                ptr(rec), ptr(cbp), kernels.stream(y))
+        kernels.check(rc, "pcamv_luma_p_recon")
+        luma_p_encode.levels_launches += 1
+        return out, rec, cbp
     fn = kernels.entry("pcamv_luma_p_encode",
                        [_VP] * 2 + [_CI] * 2 + [_VP] * 2 + [_CI]
                        + [_VP] * 3 + [_CI] + [_VP] * 4)
-    ptr = kernels.ptr
     rc = fn(ptr(y), ptr(pred), y.shape[1], y.numel() // 256,
-            None if idx is None else ptr(idx),
-            None if fz is None else ptr(fz), n, ptr(const(MF16[qp], dev)),
-            ptr(const(BIAS16[qp], dev)), ptr(const(DMF16[qp % 6], dev)),
-            qp // 6 - 4, None if levels is None else ptr(levels), ptr(rec),
-            ptr(cbp), kernels.stream(y))
+            None if idx is None else ptr(idx), fzp, n,
+            ptr(const(MF16[qp], dev)), ptr(const(BIAS16[qp], dev)), dmf,
+            qp // 6 - 4, outp, ptr(rec), ptr(cbp), kernels.stream(y))
     kernels.check(rc, "pcamv_luma_p_encode")
     luma_p_encode.launches += 1
-    return levels, rec, cbp
+    return out, rec, cbp
 
 
 luma_p_encode.launches = 0
+luma_p_encode.levels_launches = 0

@@ -7,7 +7,8 @@ adjustment, cover assembly in coding order, STC (native library), flip
 application and the forced rescan (with references on the
 multi-reference path), all numpy. `embed_frame` is the 16x16-only path's
 whole embedding: the RCA costs from the analysis tables on the device,
-then the same host steps and the pass-2 re-encode. `embed_frame_parts`
+then the same host steps and the pass-2 re-encode (trellised when pass 1
+was: the pass 2 mirrors pass 1's configuration, as in the reference). `embed_frame_parts`
 is the multi-reference path's: `probe_combine` on the probe maps of the
 analysis with the host scan's predictors, `apply_costs`, then the full
 multi-reference pass-2 re-encode.
@@ -101,7 +102,8 @@ class StegoEngine:
             y, u, v, enc.ref["luma"], enc.ref["u"], enc.ref["v"],
             torch.as_tensor(final_mv).to(dev), qp,
             chroma_qp(qp, p.chroma_qp_offset), mbh, mbw,
-            force_zero=torch.as_tensor(skip1).to(dev))
+            force_zero=torch.as_tensor(skip1).to(dev),
+            trellis=bool(p.trellis))
         return final_mv, skip1, mvd2, res2
 
     def embed_frame_parts(self, enc, y, u, v, qp: int, part, mv8, skip1,
@@ -142,7 +144,8 @@ class StegoEngine:
             y, u, v, *refs, torch.as_tensor(np.ascontiguousarray(final8))
             .to(dev), torch.as_tensor(ref8).to(dev), qp,
             chroma_qp(qp, p.chroma_qp_offset), mbh, mbw,
-            force_zero=torch.as_tensor(skip1).to(dev))
+            force_zero=torch.as_tensor(skip1).to(dev),
+            trellis=bool(p.trellis))
         return final8, skip1, mvd2, res2
 
     def apply_costs(self, enc, part, mv8, skip1, rho_u, alt_u, ref8=None):
