@@ -158,7 +158,27 @@ Phases (any failure raises and the script exits non-zero):
      encoder's recon and the payload is recovered (in a worker); P and B
      fps, the IDR's seconds, bytes by slice type, the I8x8 and trans8 MB
      counts (each must be above 0) and the trellis's ms per frame
-     printed.
+     printed;
+ 30. the quantizer's options on the main path: bench.py's Params
+     (pipelined, tail_kernel=True, CAVLC) with cqm jvt, deadzone_inter
+     16, deadzone_intra 8 and noise_reduction 400 at 1920x1088, IDR + 3
+     P on phase 6's clip: the SPS carries the jvt lists (High profile);
+     every call of the fused luma encode (pass 1 and the full pass 2,
+     both its noise-reduction instance) equal to its plain version on
+     the CPU, sums included, reading the offsets of a host model of the
+     reference's NR arithmetic; every B4 call equal to its plain version
+     on the card; the encoder's NR state equal to the model's after each
+     P frame; exact launches; the decoded frames equal the encoder's
+     recon and the payload is recovered (in a worker); P fps, the IDR's
+     seconds and bytes per frame beside phase 6's printed.
+Phase 4 also holds B4 under the jvt inter list and deadzone 16 (timed
+beside the flat tables), phase 9 the fused luma encode's noise-reduction
+instance (qp 26 and 20, with force-zero, timed beside the plain DCT
+entry through the wrapper and alone) and a wrap case (qp 0 under jvt,
+residuals up to +-40000: the quant product leaves int32), and phase 17
+cqm jvt with the incremental re-encode, cqm jvt with transform_8x8, rd
+1, trellis 1 and CABAC, noise_reduction at ref_frames 2, and
+noise_reduction with B frames and the deadzones 16/8.
 Phase 3 also holds B5 with a fuzzed per-4x4 reference map (ref4), phase
 13 B9 on a stack of two references with a per-8x8 reference (ref8), and
 phase 17 the multi-reference streams at 112x80 (ref_frames 2 under
@@ -175,9 +195,9 @@ transform_8x8 and trellis, the main path with trellis 1 and with rd
 2).
 Phases 9 and 13 run right after phase 4, so that a new kernel that fails
 stops the run early; 17 runs after 14, and 18, 19, 20, 22, 24 and 25
-after 6, 26, 27 and 29 after 25.
+after 6, 26, 27, 29 and 30 after 25.
 The decode checks of the full-width phases (6, 7, 11, 15, 19, 20, 22,
-24-27 and 29: the port's CPU decoder, seconds a 1080p frame, and its
+24-27, 29 and 30: the port's CPU decoder, seconds a 1080p frame, and its
 extractor) run in three spawned worker processes while the later
 phases use the card; phase 28 waits for them, prints each one's result
 and fails if any failed.
@@ -607,6 +627,18 @@ def phase_tail(dev, int_rate):
     bnd = bound(nbytes, ops, int_rate)
     recs.append(record("probe_maps", "probe_maps.cu",
                        "ops/probe_pallas.py:481", err, ms, plain_ms, bnd))
+    # B4 with the jvt inter list and the deadzones of phase 30 (the same
+    # work on other tables)
+    from video_steganography_pcamv_torch.ops import cqm as CQ
+    qt = CQ.QuantTables(CQ.JVT4I, CQ.JVT4P, CQ.JVT8I, CQ.JVT8P,
+                        dz_intra=24, dz_inter=16)
+    got = PR.probe_maps(cur, windows, r_idx8, qp, MBH, MBW, True, qt)
+    check("B4 probe_maps under jvt, deadzone 16", got,
+          PR.probe_maps_plain(cur, windows, r_idx8, qp, MBH, MBW, True, qt))
+    ms_j = cuda_ms(lambda: PR.probe_maps(cur, windows, r_idx8, qp, MBH, MBW,
+                                         True, qt), 20, 3)
+    log("B4 probe_maps under jvt: kernel %.3f ms (flat tables %.3f ms), "
+        "bound %.4f ms (%s) (median, 1080p)" % (ms_j, ms, *bnd))
     for r in recs:
         log("%s time: kernel %.3f ms, plain %.3f ms, bound %.4f ms (%s) "
             "(median, 1080p)" % (r["name"], r["ms"], r["plain_ms"],
@@ -859,6 +891,7 @@ def phase_b678(dev, int_rate):
                      for cc in A2._CENTERS]).to(torch.int32)
     recs.append(phase_luma_p(dev, int_rate, cur, pred, blk))
     recs.append(phase_luma_levels(dev, int_rate, cur, pred))
+    recs.append(phase_luma_nr(dev, int_rate, cur, pred))
 
     # B8a/B8b, standalone check entries, on the same inputs with
     # zero_dc / use_dc
@@ -1055,14 +1088,15 @@ DEFAULTS = dict(deblock_device=False, psnr=True, ssim=True)
 
 
 def _params(w, h, tail_kernel, me_range=16, partitions=True,
-            config3=False, **kw):
-    """bench.py's Params; `config3` adds BASELINE config 3's
-    transform_8x8 and rd 1; `kw` overrides the rest (cabac, DEFAULTS)."""
+            config3=False, em_rate=64, **kw):
+    """bench.py's Params (`em_rate` payload bits a frame); `config3` adds
+    BASELINE config 3's transform_8x8 and rd 1; `kw` overrides the rest
+    (cabac, DEFAULTS)."""
     from video_steganography_pcamv_torch.params import Params, StegoParams
     base = dict(width=w, height=h, qp=26, me_range=me_range,
                 deblock_device=partitions, psnr=False, partitions=partitions,
                 transform_8x8=config3, rd=int(config3),
-                stego=StegoParams(em_rate=64, key=99))
+                stego=StegoParams(em_rate=em_rate, key=99))
     base.update(kw)
     p = Params(**base)
     p.tail_kernel = tail_kernel
@@ -1077,7 +1111,7 @@ def _encode(p, frames, device):
     return enc, bs
 
 
-def _decode_job(bs, n_frames, sent, recon=None):
+def _decode_job(bs, n_frames, sent, recon=None, em_rate=64):
     """The port's decoder reconstructs every frame (a CPU deblock,
     seconds a frame at 1080p) and the port's blind extractor recovers
     the payload `sent` from the decoded frames. With `recon` (display
@@ -1094,8 +1128,12 @@ def _decode_job(bs, n_frames, sent, recon=None):
     if len(dec) != n_frames:
         raise AssertionError("decoded %d frames of %d" % (len(dec), n_frames))
     kinds, differ = {}, {}
-    for fr in dec:
-        d = fr.poc // 2
+    # display index: POC / 2, or the decode order where every POC is 0
+    # (an IPP stream's poc_type 2)
+    disp = [fr.poc // 2 for fr in dec]
+    if len(set(disp)) < len(disp):
+        disp = list(range(len(dec)))
+    for d, fr in zip(disp, dec):
         if recon is None or d not in recon:
             continue
         if fr.slice_type == 1:
@@ -1103,7 +1141,7 @@ def _decode_job(bs, n_frames, sent, recon=None):
         differ[d] = sum(int((getattr(fr, pl) != r[:fr.y.shape[0] // s,
                                                   :fr.y.shape[1] // s]).sum())
                         for pl, r, s in zip("yuv", recon[d], (1, 2, 2)))
-    got = extract_from_frames(dec, em_rate=64)
+    got = extract_from_frames(dec, em_rate=em_rate)
     if len(got) != len(sent) or not all(
             np.array_equal(a, b) for a, b in zip(got, sent)):
         raise AssertionError("extracted payload != sent payload")
@@ -1113,7 +1151,144 @@ def _decode_job(bs, n_frames, sent, recon=None):
 def _check_payload(bs, enc, n_frames):
     """`_decode_job` here, for the small streams; returns the payload
     bits."""
-    return _decode_job(bs, n_frames, enc._stego.sent_messages)[0]
+    return _decode_job(bs, n_frames, enc._stego.sent_messages,
+                       em_rate=enc.p.stego.em_rate)[0]
+
+
+# the reference's NR offsets arithmetic (core.py:3540-3562), for the
+# host-side model of phases 9 and 30
+NR_W2 = np.array([[800, 320, 800, 320], [320, 128, 320, 128],
+                  [800, 320, 800, 320], [320, 128, 320, 128]], np.float64)
+
+
+def nr_offset_of(strength: int, nr_sum, nr_count: int) -> np.ndarray:
+    num = float(strength) * nr_count + nr_sum / 2
+    return (num / (nr_sum * NR_W2 / 256.0 + 1.0)).astype(np.int32)
+
+
+def _luma_entry_ms(cur, pred, q, qt, nr_off=None, launches=50,
+                   reps=5) -> float:
+    """Device ms a launch of the fused luma encode's C entry alone,
+    outputs preallocated, without the wrapper's checks and allocations:
+    CUDA events around `launches` back-to-back launches, the median of
+    `reps` (as tools/torch_kernel_probe.py times a launch); with nr_off
+    its noise-reduction instance (the sums left to accumulate)."""
+    from video_steganography_pcamv_torch import kernels
+    n = pred.shape[0]
+    dev = cur.device
+    lev = torch.empty((n, 4, 4, 4, 4), dtype=torch.int32, device=dev)
+    rec = torch.empty((n, 16, 16), dtype=torch.int32, device=dev)
+    cbp = torch.empty((n,), dtype=torch.int32, device=dev)
+    nr_sum = torch.zeros(16, dtype=torch.int32, device=dev)
+    qtab = qt.qtab(q, dev)
+    ptr = kernels.ptr
+    VP, CI = kernels.VP, kernels.CI
+    fn = kernels.entry("pcamv_luma_p_encode", [VP] * 2 + [CI] * 2
+                       + [VP] * 2 + [CI] + [VP] * 3 + [CI] + [VP] * 6)
+    off = None if nr_off is None else nr_off.contiguous()
+    # the arguments made once, so that the loop below issues launches
+    # as fast as the host can
+    args = (ptr(cur), ptr(pred), cur.shape[1], cur.numel() // 256, None,
+            None, n, ptr(qtab[:16]), ptr(qtab[16:32]), ptr(qtab[32:]),
+            q // 6 - 4, None if off is None else ptr(off),
+            None if off is None else ptr(nr_sum), ptr(lev), ptr(rec),
+            ptr(cbp), kernels.stream(cur))
+
+    def run():
+        kernels.check(fn(*args), "pcamv_luma_p_encode")
+    run()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(launches):
+            run()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / launches)
+    return float(np.median(times))
+
+
+def phase_luma_nr(dev, int_rate, cur, pred):
+    """The fused luma encode's noise-reduction instance (the reference's
+    luma_p_encode(..., nr_offset=)) against its plain version at 1080p on
+    the pass-1 inputs under jvt with phase 30's deadzones, at qp 26 and
+    20 with offsets from the reference's arithmetic (after one frame of
+    sums), also with force-zero; then a wrap case: qp 0 under jvt on
+    int32 planes whose residuals reach +-40000 (the quant product leaves
+    int32), both instances on 64 MBs. Timed beside the plain DCT entry
+    (the instance without NR) on the same inputs, through the wrapper
+    and the C entry alone."""
+    from video_steganography_pcamv_torch.ops import cqm as CQ
+    from video_steganography_pcamv_torch.ops import lumap as LP
+    n = pred.shape[0]
+    qt = CQ.QuantTables(CQ.JVT4I, CQ.JVT4P, CQ.JVT8I, CQ.JVT8P,
+                        dz_intra=24, dz_inter=16)
+    fz = torch.as_tensor(np.random.default_rng(9).random(n) < 0.3,
+                         device=dev)
+    err, times = 0, {}
+    for q in (26, 20):
+        # the offsets after one frame's sums, as the encoder derives them
+        s1 = LP.luma_p_encode_plain(cur, pred, q, tables=qt,
+                                    nr_offset=torch.zeros(
+                                        (4, 4), dtype=torch.int32,
+                                        device=dev))[3]
+        off = torch.as_tensor(nr_offset_of(400, s1.cpu().numpy().astype(
+            np.float64), 16 * n), device=dev)
+        for tag, kw in (("qp %d" % q, {}), ("qp %d force-zero" % q,
+                                            {"fz": fz})):
+            got = LP.luma_p_encode(cur, pred, q, tables=qt, nr_offset=off,
+                                   **kw)
+            want = LP.luma_p_encode_plain(cur, pred, q, tables=qt,
+                                          nr_offset=off, **kw)
+            err = max(err, _check_equal("luma_p_encode NR " + tag, got,
+                                        want))
+            log("luma_p_encode NR instance %s (%d MBs, offsets %s): kernel "
+                "== plain, sums included" % (tag, n,
+                                             off.reshape(-1).tolist()))
+        times[q] = (
+            cuda_ms(lambda: LP.luma_p_encode(cur, pred, q, tables=qt,
+                                             nr_offset=off), 20, 3),
+            cuda_ms(lambda: LP.luma_p_encode_plain(cur, pred, q, tables=qt,
+                                                   nr_offset=off), 5),
+            cuda_ms(lambda: LP.luma_p_encode(cur, pred, q, tables=qt), 20, 3),
+            _luma_entry_ms(cur, pred, q, qt, off),
+            _luma_entry_ms(cur, pred, q, qt))
+    # the wrap case
+    g = np.random.default_rng(13)
+    big = torch.as_tensor(g.integers(-20000, 20001, cur.shape)
+                          .astype(np.int32), device=dev)
+    idx = torch.arange(64, dtype=torch.int32, device=dev)
+    pbig = torch.as_tensor(g.integers(-20000, 20001, (64, 16, 16))
+                           .astype(np.int32), device=dev)
+    zero_off = torch.zeros((4, 4), dtype=torch.int32, device=dev)
+    for kw in ({}, {"nr_offset": zero_off + 7}):
+        got = LP.luma_p_encode(big, pbig, 0, idx=idx, tables=qt, **kw)
+        want = LP.luma_p_encode_plain(big, pbig, 0, idx=idx, tables=qt, **kw)
+        err = max(err, _check_equal("luma_p_encode wrap case %s" % kw,
+                                    got, want))
+    coef_max = int(LP.luma_p_encode_plain(big, pbig, 0, idx=idx, tables=qt,
+                                          nr_offset=zero_off)[3].max())
+    log("luma_p_encode wrap case (qp 0, jvt, residuals to +-40000, 64 MBs):"
+        " kernel == plain for both instances (sum of |coef| at a position "
+        "up to %d; mf up to %d)" % (coef_max, int(qt.mf4[1, 0].max())))
+    # bytes as the plain DCT entry's plus the offsets read and the sums
+    # written (once a CTA: 16 atomics of 4 B), ops plus the |coef|, the
+    # 5 reduction rounds and the denoise (3 ops) per coefficient
+    n_cta = -(-n // 16)
+    bnd = bound(n * 1024 + n * (1024 + 1024 + 4) + n * 1024 + 3 * 64 + 64
+                + n_cta * 64,
+                n * 16 * (LUMA_P_OPS_PER_BLOCK + 16 * (1 + 3) + 15 + 1),
+                int_rate)
+    for q, t in times.items():
+        log("luma_p_encode NR instance qp %d: kernel %.4f ms (the plain DCT "
+            "entry %.4f ms), alone %.4f ms (plain DCT entry alone %.4f ms), "
+            "plain %.3f ms, bound %.4f ms (%s) (median, 1080p)"
+            % (q, t[0], t[2], t[3], t[4], t[1], *bnd))
+    t = times[26]
+    return record("luma_p_encode_nr", "luma_p.cu",
+                  "ops/pallas_kernels.py:175", err, t[0], t[1], bnd)
 
 
 # the 1080p decode checks run in worker processes while the next phases
@@ -1291,10 +1466,35 @@ def phase_small_cabac(dev):
                    trellis=1)),
              ("main path, trellis 1, cabac", True,
               dict(cabac=True, trellis=1)),
-             ("main path, rd 2", True, dict(rd=2)))
+             ("main path, rd 2", True, dict(rd=2)),
+             # the quantizer's options (cqm, deadzones, nr); 8 payload bits
+             # a frame touch few MBs, so pass 2 is incremental
+             ("main path, cqm jvt, incremental", True,
+              dict(cqm="jvt", em_rate=8)),
+             ("cqm jvt, transform_8x8, rd 1, trellis 1, cabac", True,
+              dict(cqm="jvt", cabac=True, transform_8x8=True, rd=1,
+                   trellis=1)),
+             ("nr 400, ref_frames 2", True,
+              dict(noise_reduction=400, ref_frames=2)),
+             ("nr 400, bframes 2, deadzones 16/8", True,
+              dict(noise_reduction=400, bframes=2, b_adapt=0,
+                   deadzone_inter=16, deadzone_intra=8)))
+    from video_steganography_pcamv_torch.encoder import core as CORE
+    incr = CORE.reencode_p_incremental
     for what, tk, kw in cases:
-        enc_g, bs_g = _encode(_params(112, 80, tk, **kw), frames, dev)
-        enc_c, bs_c = _encode(_params(112, 80, tk, **kw), frames, "cpu")
+        n_incr = [0]
+
+        def counted(*a, _n=n_incr, **k):
+            _n[0] += 1
+            return incr(*a, **k)
+        CORE.reencode_p_incremental = counted
+        try:
+            enc_g, bs_g = _encode(_params(112, 80, tk, **kw), frames, dev)
+            enc_c, bs_c = _encode(_params(112, 80, tk, **kw), frames, "cpu")
+        finally:
+            CORE.reencode_p_incremental = incr
+        if "incremental" in what and n_incr[0] == 0:
+            raise AssertionError("112x80 %s: no incremental re-encode" % what)
         if bs_g != bs_c:
             raise AssertionError("112x80 %s: cuda (%d B) != cpu (%d B)"
                                  % (what, len(bs_g), len(bs_c)))
@@ -1551,6 +1751,162 @@ def phase_trellis(dev, card, n_frames: int = 7):
     return phase_bpath(dev, card, "1080p transform_8x8, rd 1, trellis 1 "
                        "(bframes 2, ref_frames 1, CABAC)", p, n_frames,
                        want_pb=(2, 4), anchors=True)[0]
+
+
+def phase_quant(dev, card, bs6, n_frames: int = 4, w: int = 1920,
+                h: int = 1088):
+    """Phase 30: the quantizer's options on the main path at 1080p:
+    bench.py's Params (pipelined, tail_kernel=True, CAVLC) with cqm jvt,
+    deadzone_inter 16, deadzone_intra 8 and noise_reduction 400, IDR + 3
+    P on phase 6's clip. The SPS carries the jvt lists (High profile);
+    every call of the fused luma encode (pass 1 and the full pass 2, both
+    the noise-reduction instance) equals its plain version on the CPU,
+    its sums included, and reads the offsets of a host model of the
+    reference's NR arithmetic fed by those CPU sums; every B4 call equals
+    its plain version on the card; after each P frame the encoder's NR
+    state equals the model's; exact launches per P frame (B1, B9, B3, B4
+    once, the luma encode's NR instance twice, B5 once a frame); the
+    decoded frames equal the encoder's recon and the payload is recovered
+    (in a worker). P fps (the checks excluded), the IDR's seconds and
+    the bytes per frame beside phase 6's are printed. Returns the
+    launches."""
+    from video_steganography_pcamv_torch import Encoder
+    from video_steganography_pcamv_torch.decoder.decoder import (parse_nals,
+                                                                 parse_sps)
+    from video_steganography_pcamv_torch.ops import lumap as LP
+    from video_steganography_pcamv_torch.ops import probe as PR
+    from video_steganography_pcamv_torch.utils.yuv import synthetic_sequence
+    label = "%dx%d cqm jvt, deadzones 16/8, nr 400" % (w, h)
+    nr = 400
+    p = _params(w, h, True, cqm="jvt", deadzone_inter=16,
+                deadzone_intra=8, noise_reduction=nr)
+    frames = synthetic_sequence(w, h, n_frames, seed=7)
+    enc = Encoder(p, device=dev)
+    qt = enc.qt
+    sps = next(parse_sps(r) for t, _, r in parse_nals(enc.headers())
+               if t == 7)
+    if sps.profile != 100 or sps.scaling is None or not all(
+            np.array_equal(a, b) for a, b in zip(sps.scaling, qt.lists)):
+        raise AssertionError("%s: the SPS does not carry the jvt lists"
+                             % label)
+    n = p.mb_height * p.mb_width
+    model = {"sum": np.zeros((4, 4), np.float64), "count": 0}
+    st = {"check_s": 0.0, "luma": 0, "probe": 0}
+    orig_lp, orig_tail = LP.luma_p_encode, PR.analyse_tail
+
+    def cpu(x):
+        return x.cpu() if isinstance(x, torch.Tensor) else x
+
+    def luma(*a, **kw):
+        out = orig_lp(*a, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        off = kw.get("nr_offset")
+        want_off = nr_offset_of(nr, model["sum"], model["count"])
+        if off is None or not np.array_equal(off.cpu().numpy(), want_off):
+            raise AssertionError("%s: luma call %d read offsets %s, the "
+                                 "model's are %s" % (label, st["luma"],
+                                                     off, want_off))
+        want = LP.luma_p_encode_plain(*map(cpu, a),
+                                      **{k: cpu(v) for k, v in kw.items()})
+        if not _equal_outputs([cpu(t) for t in out if t is not None],
+                              [t for t in want if t is not None]):
+            raise AssertionError("%s: luma call %d kernel != plain (cpu)"
+                                 % (label, st["luma"]))
+        if st["luma"] % 2 == 0:   # pass 1 (then pass 2): the NR update
+            model["sum"] += want[3].numpy().astype(np.float64)
+            model["count"] += 16 * n
+            if model["count"] > (1 << 18):
+                model["sum"] /= 2
+                model["count"] >>= 1
+        st["luma"] += 1
+        st["check_s"] += time.perf_counter() - t0
+        return out
+
+    def tail(cur_y, windows, part, mvfp8, prev_mv, lam, qp, mbh, mbw,
+             decimate=True, tables=None):
+        out = orig_tail(cur_y, windows, part, mvfp8, prev_mv, lam, qp, mbh,
+                        mbw, decimate, tables)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = PR.probe_maps_plain(cur_y, windows, out[1], qp, mbh, mbw,
+                                   decimate, tables)
+        if tables is not qt or not _equal_outputs(out[2:], want):
+            raise AssertionError("%s: B4 call %d kernel != plain"
+                                 % (label, st["probe"]))
+        torch.cuda.synchronize()
+        st["probe"] += 1
+        st["check_s"] += time.perf_counter() - t0
+        return out
+
+    fns = _counters()
+    for fn in fns.values():
+        fn.launches = 0
+    recon, per_frame = {}, []
+    # the P encodes reach the luma kernel through `inter.LP`, stage 1 the
+    # analyse tail (B3 -> B4) through `partition.PR`; the kernel wrappers
+    # keep their own names (they count on them)
+    import types
+    from video_steganography_pcamv_torch.encoder import inter as INTER
+    from video_steganography_pcamv_torch.encoder import partition as PT
+    INTER.LP = types.SimpleNamespace(**dict(vars(LP), luma_p_encode=luma))
+    PT.PR = types.SimpleNamespace(**dict(vars(PR), analyse_tail=tail))
+    try:
+        bs = b""
+        for i, f in enumerate(frames):
+            st["check_s"] = 0.0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bs += enc.encode_frame(f)
+            if i == len(frames) - 1:
+                bs += enc.flush()
+            torch.cuda.synchronize()
+            per_frame.append(time.perf_counter() - t0 - st["check_s"])
+            recon[i] = tuple(t.cpu().numpy() for t in enc.recon_prev)
+            if i and not (np.array_equal(enc._nr_sum, model["sum"])
+                          and enc._nr_count == model["count"]):
+                raise AssertionError(
+                    "%s: NR state after frame %d: %s / %d, the cpu "
+                    "model's %s / %d" % (label, i, enc._nr_sum.tolist(),
+                                         enc._nr_count,
+                                         model["sum"].tolist(),
+                                         model["count"]))
+    finally:
+        INTER.LP, PT.PR = LP, PR
+    launches = {k: fn.launches for k, fn in fns.items()}
+    n_p = enc.stats.p_frames
+    want = {k: 0 for k in fns}
+    want.update(fullpel_parts=n_p, gather_windows8=n_p, subpel=n_p,
+                probe_maps=n_p, luma_p_encode=2 * n_p,
+                luma_p_encode_nr=2 * n_p, deblock_frame=len(frames))
+    if n_p != len(frames) - 1 or launches != want:
+        raise AssertionError("%s: %d P frames, launches %s, want %s"
+                             % (label, n_p, launches, want))
+    if st["luma"] != 2 * n_p or st["probe"] != n_p:
+        raise AssertionError("%s: checked %d luma and %d B4 calls"
+                             % (label, st["luma"], st["probe"]))
+
+    def report(r):
+        bits, secs, differ, _kinds = r
+        if any(differ.values()):
+            raise AssertionError("%s: decoded frames differ from the recon:"
+                                 " %s" % (label, differ))
+        log("%s: %d payload bits recovered, every decoded frame == the "
+            "encoder's recon (decode + extraction %.1f s, in a worker)"
+            % (label, bits, secs))
+    _defer(report, bs, len(frames), enc._stego.sent_messages, recon)
+    sizes, sizes6 = _frame_bytes(bs), _frame_bytes(bs6)[:len(frames)]
+    log("%s: SPS profile %d with the jvt lists; every luma call (%d, the "
+        "NR instance) == its plain version on the cpu, sums and offsets "
+        "included, every B4 call (%d) == plain; NR state == the model "
+        "after each P frame (sums %s, count %d, offsets %s); launches %s; "
+        "IDR %.3f s; P frames %.4f fps (checks excluded); bytes %s, phase "
+        "6's %s  [%s]"
+        % (label, sps.profile, st["luma"], st["probe"],
+           model["sum"].reshape(-1).tolist(), model["count"],
+           enc._nr_offset().reshape(-1).tolist(), json.dumps(launches),
+           per_frame[0], n_p / sum(per_frame[1:]), sizes, sizes6, card))
+    return launches
 
 
 def phase_b16(dev, card, n_frames: int = 7):
@@ -1857,19 +2213,24 @@ def phase_bpath(dev, card, label, p, n_frames, want_pb=None,
     return launches, write_ms
 
 
-class _LevelsLaunches:
-    """The fused luma encode's levels-in entry (under trellis) as a
-    counter like the wrappers: `luma_p_encode.levels_launches`."""
+class _LumaLaunches:
+    """One of the fused luma encode's other counters as a counter like
+    the wrappers: `luma_p_encode.levels_launches` (the levels-in entry,
+    under trellis) or `luma_p_encode.nr_launches` (the noise-reduction
+    instance, each launch also one of `luma_p_encode.launches`)."""
+
+    def __init__(self, attr: str):
+        self.attr = attr
 
     @property
     def launches(self):
         from video_steganography_pcamv_torch.ops import lumap as LP
-        return LP.luma_p_encode.levels_launches
+        return getattr(LP.luma_p_encode, self.attr)
 
     @launches.setter
     def launches(self, n):
         from video_steganography_pcamv_torch.ops import lumap as LP
-        LP.luma_p_encode.levels_launches = n
+        setattr(LP.luma_p_encode, self.attr, n)
 
 
 def _check_anchors(label, p, fns, lp, per_a, checked, n_p, enc):
@@ -1918,7 +2279,8 @@ def _counters():
             "gather_windows": QT.gather_windows,
             "dct_quant": TQ.dct_quant, "deq_idct": TQ.deq_idct,
             "luma_p_encode": LP.luma_p_encode,
-            "luma_p_encode_levels": _LevelsLaunches(),
+            "luma_p_encode_levels": _LumaLaunches("levels_launches"),
+            "luma_p_encode_nr": _LumaLaunches("nr_launches"),
             "gather_windows8": PT.gather_windows8,
             "lowres_costs_kernel": ST.lowres_costs_kernel}
 
@@ -2371,6 +2733,8 @@ def main() -> int:
           dev, card)
     launches29 = phase("29 1080p transform_8x8, rd 1, trellis 1",
                        phase_trellis, dev, card)
+    launches30 = phase("30 1080p cqm jvt, deadzones, nr", phase_quant, dev,
+                       card, bs6)
     if args.stagesB:
         phase("23 config-4 B-frame stages", phase_stages_b, dev, card)
         phase("23 phase-26 B-frame stages", phase_stages_b, dev, card,
@@ -2398,10 +2762,11 @@ def main() -> int:
         r["launches"] = launches[r["name"]]
     for r in recs16:
         # the main path's count where the kernel runs there (the fused
-        # luma encode), else the 16x16 path's (B6, B7), and phase 29's
-        # for the luma encode's levels-in entry (the trellis path)
+        # luma encode), else the 16x16 path's (B6, B7), phase 29's for the
+        # luma encode's levels-in entry (the trellis path) and phase 30's
+        # for its noise-reduction instance
         r["launches"] = (launches[r["name"]] or launches16[r["name"]]
-                         or launches29[r["name"]])
+                         or launches29[r["name"]] or launches30[r["name"]])
     recs += recs16 + recs9
     phase("28 the decode checks in the workers", _join_checks)
     log("total %.1f s" % (time.time() - t_start))

@@ -855,6 +855,22 @@ def test_check_slice_accepts_pyramid_weightb_and_every_direct_mode(
             check_slice(p)
 
 
+@pytest.mark.parametrize("kw", [
+    dict(cqm="jvt"), dict(noise_reduction=100), dict(deadzone_inter=20)],
+    ids=["cqm", "nr", "deadzones"])
+def test_check_slice_accepts_the_quant_options_with_b_frames(kw):
+    """cqm, noise_reduction and the deadzones (refused before they were
+    served) with B frames, beside a pyramid, weightb, temporal direct,
+    the 8x8 transform, rd 2 and trellis."""
+    kw = dict(kw, b_pyramid=True, bframes=3, weightb=True, direct=2,
+              transform_8x8=True, rd=2, trellis=1)
+    p = TP.Params(**_kw(**kw), stego=TP.StegoParams(em_rate=EM_RATE,
+                                                    key=KEY))
+    p.validate()
+    assert p.bframes == 3
+    check_slice(p)
+
+
 @pytest.mark.parametrize("partitions", [True, False],
                          ids=["partitions", "16x16"])
 @pytest.mark.parametrize("refs", [1, 2, 8])
@@ -874,17 +890,14 @@ def test_check_slice_accepts_trans8_rd_and_trellis_with_b_frames(
 
 
 @pytest.mark.parametrize("kw,name", [
-    (dict(cqm="jvt"), "cqm (ROADMAP A15)"),
-    (dict(noise_reduction=100), "noise_reduction (ROADMAP A16)"),
     (dict(p4x4=True), "p4x4 (ROADMAP A16)"),
     (dict(aq_mode=1), "aq_mode (ROADMAP A16)"),
-    (dict(deadzone_inter=20), "deadzones (ROADMAP A16)"),
     (dict(stego_off=True), "stego off"),
-], ids=["cqm", "nr", "p4x4", "aq", "deadzones", "stego_off"])
+], ids=["p4x4", "aq", "stego_off"])
 def test_check_slice_refuses_b_options_outside_the_slice(kw, name):
-    """cqm (A15) and the A16 options stay refused with B frames, also
-    beside a pyramid, weightb, temporal direct, the 8x8 transform, rd 2
-    and trellis."""
+    """The A16 options stay refused with B frames, also beside a
+    pyramid, weightb, temporal direct, the 8x8 transform, rd 2 and
+    trellis."""
     kw = dict(kw, b_pyramid=True, bframes=3, weightb=True, direct=2,
               transform_8x8=True, rd=2, trellis=1)
     stego = (TP.StegoParams() if kw.pop("stego_off", False)

@@ -56,7 +56,12 @@ its own:  python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
   8x8 transform and rd 2 on the multi-reference, 16x16 and main paths,
   and on B streams (a pyramid with weightb and trellis, the 8x8
   transform with rd under CABAC and CAVLC), the B frames' kernel calls
-  held against their plain versions.
+  held against their plain versions;
+- the fused luma encode's noise-reduction instance vs its plain version
+  under the jvt tables at qp 0-51 (sums included), both instances on
+  residuals whose quant products wrap, B4 under jvt, and cuda == cpu
+  streams with cqm jvt, the deadzones, custom 8x8 lists and noise
+  reduction on the main, 16x16 and B paths.
 """
 
 import numpy as np
@@ -879,3 +884,102 @@ def test_cuda_stream_equals_cpu_stream_b_trellis_trans8(dev, kw,
     calls = _check_b_kernels(monkeypatch, want)
     n_b = _b_streams(dev, kw, n_frames=6)
     assert calls == {k: n * n_b for k, n in want.items()}
+
+
+def _jvt_tables():
+    from video_steganography_pcamv_torch.ops import cqm as CQ
+    return CQ.QuantTables(CQ.JVT4I, CQ.JVT4P, CQ.JVT8I, CQ.JVT8P,
+                          dz_intra=24, dz_inter=16)
+
+
+@pytest.mark.parametrize("qp", [0, 20, 26, 40, 51])
+def test_luma_p_nr_instance_matches_plain(dev, qp):
+    """The fused luma encode's noise-reduction instance on 35 MBs (an
+    odd count: the idle half-warp adds nothing to the sums) under the
+    jvt tables, with and without force-zero, levels kept and omitted:
+    levels, recon, cbp and the per-position sums equal the plain
+    version's."""
+    y, pred = _luma_p_inputs(dev, 5, 7, 3)
+    qt = _jvt_tables()
+    off = torch.as_tensor(np.random.default_rng(qp).integers(
+        0, 30, (4, 4)).astype(np.int32), device=dev)
+    fz = torch.as_tensor(np.random.default_rng(4).random(35) < 0.3,
+                         device=dev)
+    n0 = LP.luma_p_encode.nr_launches
+    for f in (None, fz):
+        for lev in (True, False):
+            got = LP.luma_p_encode(y, pred, qp, fz=f, lev=lev, tables=qt,
+                                   nr_offset=off)
+            _luma_p_equal(got, LP.luma_p_encode_plain(
+                y, pred, qp, fz=f, lev=lev, tables=qt, nr_offset=off))
+    torch.cuda.synchronize()
+    assert LP.luma_p_encode.nr_launches == n0 + 4
+
+
+def test_quant_products_wrap_as_the_plain_versions(dev):
+    """Residuals up to +-40000 at qp 0 under jvt: the quant product
+    leaves int32 and wraps alike in the fused luma encode (both
+    instances) and its plain version."""
+    g = np.random.default_rng(13)
+    y = torch.as_tensor(g.integers(-20000, 20001, (80, 112))
+                        .astype(np.int32), device=dev)
+    pred = torch.as_tensor(g.integers(-20000, 20001, (35, 16, 16))
+                           .astype(np.int32), device=dev)
+    qt = _jvt_tables()
+    for kw in ({}, {"nr_offset": torch.full((4, 4), 7, dtype=torch.int32,
+                                            device=dev)}):
+        _luma_p_equal(LP.luma_p_encode(y, pred, 0, tables=qt, **kw),
+                      LP.luma_p_encode_plain(y, pred, 0, tables=qt, **kw))
+
+
+@pytest.mark.parametrize("qp", [0, 20, 26])
+def test_b4_kernel_under_jvt_matches_plain(dev, qp):
+    """B4 with the jvt inter list and deadzone 16 vs its plain version
+    on the 112x80 inputs of the B2-B4 test."""
+    from video_steganography_pcamv_torch.encoder import me as ME
+    w, h = 112, 80
+    mbh, mbw = h // 16, w // 16
+    fr = synthetic_sequence(w, h, 2, seed=3)
+    cur = torch.as_tensor(fr[1].y.astype(np.int32), device=dev)
+    c = torch.as_tensor(fr[0].u.astype(np.int32), device=dev)
+    ref = TMC.build_ref(torch.as_tensor(fr[0].y.astype(np.int32),
+                                        device=dev), c, c)
+    lam = ME.lambda_tab(qp)
+    planes = ref["luma"].to(torch.uint8)
+    zero = torch.zeros((mbh, mbw, 2), dtype=torch.int32, device=dev)
+    st = FP.fullpel_parts(cur, planes[0], zero, 16, mbh, mbw, lam)
+    part, mvfp8 = PT.decide_partition(st, mbh, mbw, lam)
+    windows = PT.gather_windows8(planes, mvfp8.contiguous(), mbh, mbw)
+    _mv8, r_idx8 = PR.subpel(cur, windows, part, mvfp8.contiguous(), zero,
+                             lam, mbh, mbw)
+    qt = _jvt_tables()
+    got = PR.probe_maps(cur, windows, r_idx8, qp, mbh, mbw, True, qt)
+    want = PR.probe_maps_plain(cur, windows, r_idx8, qp, mbh, mbw, True, qt)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(cqm="jvt"), dict(cqm="jvt", noise_reduction=400,
+                          deadzone_inter=16, deadzone_intra=8),
+    dict(cqm8i=tuple(range(8, 72)), transform_8x8=True, rd=1),
+    dict(noise_reduction=400, partitions=False, deblock_device=False),
+    dict(noise_reduction=400, bframes=2, cabac=True, trellis=1)],
+    ids=["jvt", "jvt_nr_deadzones", "cqm8i_trans8", "nr_16x16",
+         "nr_b_trellis_cabac"])
+def test_cuda_stream_equals_cpu_stream_quant_options(dev, kw):
+    """The quantizer's options (cqm, deadzones, noise reduction) at
+    112x80: cuda == cpu streams, the NR state too."""
+    frames = synthetic_sequence(112, 80, 5, seed=7)
+
+    def run(device):
+        base = dict(width=112, height=80, qp=26, me_range=16,
+                    deblock_device=True, psnr=False)
+        base.update(kw)
+        enc = Encoder(Params(stego=StegoParams(em_rate=16, key=5), **base),
+                      device=device)
+        bs = b"".join(enc.encode_frame(f) for f in frames) + enc.flush()
+        return bs, enc._nr_sum.copy(), enc._nr_count
+
+    got, want = run(dev), run("cpu")
+    assert got[0] == want[0]
+    assert np.array_equal(got[1], want[1]) and got[2] == want[2]

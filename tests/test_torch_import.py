@@ -196,19 +196,17 @@ def test_encoder_defaults_to_cuda():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(bframes=2, cqm="jvt"), dict(p4x4=True),
+    dict(p4x4=True),
     dict(ref_frames=2, p4x4=True),
-    dict(ref_frames=2, noise_reduction=100), dict(ref_frames=2, aq_mode=1),
-    dict(deadzone_inter=20), dict(cqm="jvt", partitions=False,
-                                  deblock_device=False), dict(me_range=24),
+    dict(ref_frames=2, aq_mode=1),
+    dict(me_range=24),
     dict(aq_mode=1),
-    dict(noise_reduction=100), dict(crf=23.0), dict(pipeline_deep=True),
+    dict(crf=23.0), dict(pipeline_deep=True),
     dict(zones="0,5,q=30"),
     dict(stego=StegoParams(em_rate=0)),
     dict(stego=StegoParams(em_rate=64, key=99, alpha_com=0.5)),
     dict(subpel=1), dict(dct_decimate=False),
     dict(incremental=False), dict(partitions=False, deblock_device=True),
-    dict(cabac=True, bframes=2, trellis=1, deadzone_intra=10),
 ], ids=lambda kw: ",".join(kw))
 def test_encoder_rejects_options_outside_the_slice(kw):
     from video_steganography_pcamv_torch import Encoder
@@ -243,6 +241,30 @@ def test_encoder_accepts_the_reference_defaults_and_cabac(kw):
     from video_steganography_pcamv_torch import Encoder
     enc = Encoder(_slice_params(**kw), device="cpu")
     assert enc.p.cabac == kw.get("cabac", False)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(bframes=2, cqm="jvt"),
+    dict(ref_frames=2, noise_reduction=100),
+    dict(deadzone_inter=20), dict(cqm="jvt", partitions=False,
+                                  deblock_device=False),
+    dict(noise_reduction=100),
+    dict(cabac=True, bframes=2, trellis=1, deadzone_intra=10),
+    dict(cqm8i=tuple(range(8, 72)), cqm4p=tuple(range(8, 24))),
+], ids=lambda kw: ",".join(kw))
+def test_encoder_accepts_the_quant_options(kw):
+    """The quantizer's options (refused before they were served: cqm,
+    the deadzones, noise_reduction) on the main path, the 16x16 path,
+    multiple references and B frames: the encoder builds its own
+    tables, and the SPS carries any list that is not flat."""
+    from video_steganography_pcamv_torch import Encoder
+    enc = Encoder(_slice_params(**kw), device="cpu")
+    assert enc.qt.is_flat == (not any(k.startswith("cqm") for k in kw))
+    sps = enc.sps
+    assert all(x is None for x in (sps.scaling4_intra, sps.scaling4_inter,
+                                   sps.scaling8_intra, sps.scaling8_inter)
+               ) == enc.qt.is_flat
+    assert enc.qt.dz_inter == 32 - enc.p.deadzone_inter
 
 
 def test_encoder_accepts_params_at_their_defaults():

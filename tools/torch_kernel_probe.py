@@ -300,7 +300,7 @@ def luma_device_ms() -> None:
     ptr = kernels.ptr
     fused = kernels.entry("pcamv_luma_p_encode",
                           [VP] * 2 + [CI] * 2 + [VP] * 2 + [CI] + [VP] * 3
-                          + [CI] + [VP] * 4)
+                          + [CI] + [VP] * 6)
     dq = kernels.entry("pcamv_dct_quant", [VP] * 4 + [CI] * 2 + [VP] * 2)
     di = kernels.entry("pcamv_deq_idct", [VP] * 3 + [CI, VP] + [CI] * 2
                        + [VP] * 2)
@@ -320,7 +320,8 @@ def luma_device_ms() -> None:
                 n=n, mf=mf, bias=bias, dmf=dmf):
             kernels.check(fused(ptr(y), ptr(p), 16 * mbw, mbh * mbw, None,
                                 None, n, ptr(mf), ptr(bias), ptr(dmf),
-                                qp // 6 - 4, ptr(lev) if with_lev else None,
+                                qp // 6 - 4, None, None,
+                                ptr(lev) if with_lev else None,
                                 ptr(rec), ptr(cbp), kernels.stream(y)),
                           "fused luma encode")
         run()

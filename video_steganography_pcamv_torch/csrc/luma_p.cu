@@ -35,6 +35,24 @@
 // reference's luma_p_encode(..., trellis=True) (encoder/inter.py:225,
 // :252-253). Bound by device memory: 1 KB of pred and of levels read,
 // 1 KB of levels and of recon written per MB.
+//
+// With nr_off given, pcamv_luma_p_encode runs its noise-reduction
+// instance (the reference's luma_p_encode(..., nr_offset=),
+// encoder/inter.py:241-253, x264_denoise_dct): after the transform each
+// lane takes |coef| of its 4x4, the 16 lanes of an MB reduce them to
+// one sum per position by a reduce-scatter of four __shfl_xor_sync
+// rounds (lane k ends with position k), a fifth joins the warp's two
+// MBs, the CTA's warps add theirs in shared memory and 16 atomicAdd a
+// CTA put them into nr_sum (int32 [16], zeroed by the caller; integer
+// atomics, so the sums are exact in any order); then every AC
+// coefficient becomes sign(c) * max(|c| - nr_off[pos], 0) before the
+// quant (nr_off's DC entry is not read).
+//
+// The quant product (bias + |c|) * mf and the dequant product lev * dmf
+// (and its left shift) are computed as uint32_t and reinterpreted, so
+// that they wrap as the reference's int32 arithmetic does: under a
+// custom scaling list at low qp mf reaches ~70000 and the product can
+// leave int32.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -44,15 +62,22 @@ namespace {
 constexpr int kThreads = 256;  // 16 MBs a block
 constexpr unsigned kFull = 0xffffffffu;
 
-template <bool kLevelsIn>
+// a * b with int32 wrap-around (no signed overflow)
+__device__ __forceinline__ int mul_wrap(int a, int b) {
+  return static_cast<int>(static_cast<uint32_t>(a) * static_cast<uint32_t>(b));
+}
+
+template <bool kLevelsIn, bool kNr>
 __global__ void __launch_bounds__(kThreads)
     luma_p_kernel(const int* __restrict__ y, const int* __restrict__ pred,
                   int width, int n_plane, const int* __restrict__ idx,
                   const unsigned char* __restrict__ fz, int n,
                   const int* __restrict__ mf, const int* __restrict__ bias,
                   const int* __restrict__ dmf, int qb,
-                  const int* __restrict__ lev_in, int* __restrict__ lev,
-                  int* __restrict__ rec, int* __restrict__ cbp) {
+                  const int* __restrict__ lev_in,
+                  const int* __restrict__ nr_off, int* __restrict__ nr_sum,
+                  int* __restrict__ lev, int* __restrict__ rec,
+                  int* __restrict__ cbp) {
   const int mb_raw = (blockIdx.x * kThreads + threadIdx.x) >> 4;
   const bool active = mb_raw < n;
   // the idle half-warp of an odd N repeats the last MB, so that every
@@ -115,10 +140,40 @@ __global__ void __launch_bounds__(kThreads)
       lv[8 + c] = s03 - s12;
       lv[12 + c] = d03 - 2 * d12;
     }
+    if constexpr (kNr) {
+      // the MB's |coef| sums per position, before the denoise
+      int a[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) a[i] = active ? abs(lv[i]) : 0;
+#pragma unroll
+      for (int s = 3; s >= 0; --s) {
+        const int half = 1 << s;
+        const bool up = (k & half) != 0;
+#pragma unroll
+        for (int i = 0; i < half; ++i) {
+          const int send = up ? a[i] : a[i + half];
+          const int keep = up ? a[i + half] : a[i];
+          a[i] = keep + __shfl_xor_sync(kFull, send, half);
+        }
+      }
+      const int sum = a[0] + __shfl_xor_sync(kFull, a[0], 16);
+      __shared__ int s_nr[16];
+      if (threadIdx.x < 16) s_nr[threadIdx.x] = 0;
+      __syncthreads();
+      if ((threadIdx.x & 31) < 16) atomicAdd(&s_nr[k], sum);
+      __syncthreads();
+      if (threadIdx.x < 16) atomicAdd(&nr_sum[threadIdx.x], s_nr[threadIdx.x]);
+#pragma unroll
+      for (int i = 1; i < 16; ++i) {
+        const int cc = lv[i];
+        const int mg = max(abs(cc) - __ldg(&nr_off[i]), 0);
+        lv[i] = cc > 0 ? mg : (cc < 0 ? -mg : 0);
+      }
+    }
 #pragma unroll
     for (int i = 0; i < 16; ++i) {
       const int cc = lv[i];
-      const int mag = ((__ldg(&bias[i]) + abs(cc)) * __ldg(&mf[i])) >> 16;
+      const int mag = mul_wrap(__ldg(&bias[i]) + abs(cc), __ldg(&mf[i])) >> 16;
       lv[i] = cc > 0 ? mag : (cc < 0 ? -mag : 0);
     }
   }
@@ -172,9 +227,11 @@ __global__ void __launch_bounds__(kThreads)
   int d[16];
 #pragma unroll
   for (int i = 0; i < 16; ++i) {
-    const int v = lv[i] * __ldg(&dmf[i]);
+    const int v = mul_wrap(lv[i], __ldg(&dmf[i]));
     // a left shift as a product: defined for negative levels
-    d[i] = qb >= 0 ? v * (1 << shl) : (v + f) >> shr;
+    d[i] = qb >= 0 ? mul_wrap(v, 1 << shl)
+                   : static_cast<int>(static_cast<uint32_t>(v) +
+                                      static_cast<uint32_t>(f)) >> shr;
   }
 #pragma unroll
   for (int r = 0; r < 4; ++r) {  // horizontal pass
@@ -209,24 +266,43 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+template <bool kNr>
+void launch_encode(const void* y, const void* pred, int width, int n_plane,
+                   const void* idx, const void* fz, int n, const void* mf,
+                   const void* bias, const void* dmf, int qb,
+                   const void* nr_off, void* nr_sum, void* lev, void* rec,
+                   void* cbp, cudaStream_t stream) {
+  const int blocks = (n + kThreads / 16 - 1) / (kThreads / 16);
+  luma_p_kernel<false, kNr><<<blocks, kThreads, 0, stream>>>(
+      static_cast<const int*>(y), static_cast<const int*>(pred), width,
+      n_plane, static_cast<const int*>(idx),
+      static_cast<const unsigned char*>(fz), n, static_cast<const int*>(mf),
+      static_cast<const int*>(bias), static_cast<const int*>(dmf), qb,
+      nullptr, static_cast<const int*>(nr_off), static_cast<int*>(nr_sum),
+      static_cast<int*>(lev), static_cast<int*>(rec), static_cast<int*>(cbp));
+}
+
 }  // namespace
 
+// nr_off (int32 [16], 4r + c order) and nr_sum (int32 [16], zeroed) select
+// the noise-reduction instance; both null, the plain one.
 extern "C" int pcamv_luma_p_encode(const void* y, const void* pred, int width,
                                    int n_plane, const void* idx,
                                    const void* fz, int n, const void* mf,
                                    const void* bias, const void* dmf, int qb,
+                                   const void* nr_off, void* nr_sum,
                                    void* lev, void* rec, void* cbp,
                                    void* stream) {
   if (n <= 0) return 0;
-  const int blocks = (n + kThreads / 16 - 1) / (kThreads / 16);
-  luma_p_kernel<false>
-      <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const int*>(y), static_cast<const int*>(pred), width,
-          n_plane, static_cast<const int*>(idx),
-          static_cast<const unsigned char*>(fz), n,
-          static_cast<const int*>(mf), static_cast<const int*>(bias),
-          static_cast<const int*>(dmf), qb, nullptr, static_cast<int*>(lev),
-          static_cast<int*>(rec), static_cast<int*>(cbp));
+  if ((nr_off == nullptr) != (nr_sum == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (nr_off != nullptr)
+    launch_encode<true>(y, pred, width, n_plane, idx, fz, n, mf, bias, dmf,
+                        qb, nr_off, nr_sum, lev, rec, cbp, st);
+  else
+    launch_encode<false>(y, pred, width, n_plane, idx, fz, n, mf, bias, dmf,
+                         qb, nullptr, nullptr, lev, rec, cbp, st);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -236,12 +312,13 @@ extern "C" int pcamv_luma_p_recon(const void* pred, const void* lev_in,
                                   void* stream) {
   if (n <= 0) return 0;
   const int blocks = (n + kThreads / 16 - 1) / (kThreads / 16);
-  luma_p_kernel<true>
+  luma_p_kernel<true, false>
       <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
           nullptr, static_cast<const int*>(pred), 16, 1, nullptr,
           static_cast<const unsigned char*>(fz), n, nullptr, nullptr,
           static_cast<const int*>(dmf), qb,
-          static_cast<const int*>(lev_in), static_cast<int*>(lev),
-          static_cast<int*>(rec), static_cast<int*>(cbp));
+          static_cast<const int*>(lev_in), nullptr, nullptr,
+          static_cast<int*>(lev), static_cast<int*>(rec),
+          static_cast<int*>(cbp));
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,7 +9,8 @@
 // versions v (the centre, then the 12 D_MV deltas; centre (cy, cx)), on
 // each 4x4 sub-block:
 //   pred  = the row of offset r + (cy, cx)
-//   lev   = quant4x4(dct4x4(cur - pred)) (inter tables at qp)
+//   lev   = quant4x4(dct4x4(cur - pred)) (the encoder's inter tables at
+//           qp, qtab: its CQM list and inter deadzone)
 //   score = x264 decimate score of lev in zigzag order (9 if |lev| > 1)
 //   rec   = clip(pred + (idct4x4(dequant4x4(lev)) + 32) >> 6, 0, 255)
 // then over the 9 D_NB neighbours (ny, nx) of the version, with
@@ -209,7 +210,11 @@ probe_maps_kernel(const int* __restrict__ cur,
 #pragma unroll
   for (int i = 0; i < 16; ++i) {
     const int x = c[i >> 2][i & 3];
-    const int mag = ((qtab[16 + i] + abs(x)) * qtab[i]) >> 16;
+    // the products wrap as the reference's int32 ones (a custom list's
+    // mf can reach ~70000 at low qp)
+    const int mag =
+        static_cast<int>(static_cast<uint32_t>(qtab[16 + i] + abs(x)) *
+                         static_cast<uint32_t>(qtab[i])) >> 16;
     lev[i] = x > 0 ? mag : (x < 0 ? -mag : 0);
   }
   int score = 0;
@@ -231,9 +236,11 @@ probe_maps_kernel(const int* __restrict__ cur,
   }
 #pragma unroll
   for (int i = 0; i < 16; ++i) {
-    const int d = lev[i] * qtab[32 + i];
-    c[i >> 2][i & 3] = qbits >= 0 ? (d << qbits)
-                                  : ((d + (1 << (-qbits - 1))) >> -qbits);
+    const uint32_t d = static_cast<uint32_t>(lev[i]) *
+                       static_cast<uint32_t>(qtab[32 + i]);
+    c[i >> 2][i & 3] =
+        qbits >= 0 ? static_cast<int>(d << qbits)
+                   : static_cast<int>(d + (1u << (-qbits - 1))) >> -qbits;
   }
   // inverse DCT: along c, then along r; recon
 #pragma unroll

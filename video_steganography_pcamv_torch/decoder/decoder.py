@@ -15,9 +15,11 @@ spatial or temporal direct, the 16x16 L0/L1/BI types, the 16x8/8x16
 combos, B_8x8 with direct/L0/L1/BI subs, intra MBs, multi-reference L0
 lists, the default B list order, implicit weighted bipred, reference B
 slices entering the DPB, deblocked B slices with the two-list bS, POC
-output order); the CABAC parser is `cabac_dec.py`. Scaling matrices,
-per-MB QP changes in a deblocked slice, explicit weighted bipred
-(weighted_bipred_idc 1), the 8x8 transform in B MBs, B sub-8x8
+output order), with the SPS's scaling lists (held per decode in each
+slice's `recon.Dequant`); the CABAC parser is `cabac_dec.py`. Picture
+scaling matrices, per-plane chroma scaling lists, per-MB QP changes in
+a deblocked slice, explicit weighted bipred (weighted_bipred_idc 1),
+the 8x8 transform in B MBs, B sub-8x8
 partitions, L1 reordering and more than one L1 reference raise
 NotImplementedError. The in-loop filter is the port's `ops.deblock`.
 """
@@ -200,6 +202,8 @@ class DecSPS:
     sps_id: int = 0
     # VUI (None when absent): dict with sar/fps/etc.
     vui: dict = None
+    # seq scaling lists (None = flat): (intra4, inter4, intra8, inter8)
+    scaling: tuple = None
 
 
 @dataclass
@@ -260,6 +264,50 @@ def parse_nals(data: bytes):
     return out
 
 
+def _parse_scaling_lists(br):
+    """seq scaling lists (spec 7.3.2.1.1 scaling_list() + Table 7-2
+    fall-back rule A), as the reference reads them. Returns (intra4,
+    inter4, intra8, inter8) raster lists. Absent lists 0/3/6/7 fall to
+    the spec defaults (= the JVT matrices); lists 1,2 / 4,5 must be
+    absent (copies of 0 / 3: per-plane chroma lists are refused)."""
+    from ..ops import cqm as Q
+    from ..ops.transform import ZIGZAG_4x4
+    from ..ops.transform8 import ZIGZAG_8x8
+
+    def one(n, zz, default):
+        if not br.read1():       # not present
+            return None          # the caller applies the fall-back
+        out = np.zeros(n, np.int64)
+        last, nxt = 8, 8
+        vals = np.zeros(n, np.int64)
+        for j in range(n):
+            if nxt != 0:
+                delta = br.read_se()
+                nxt = (last + delta + 256) % 256
+                if j == 0 and nxt == 0:
+                    return np.asarray(default, np.int64)  # use default
+            last = last if nxt == 0 else nxt
+            vals[j] = last
+        out[zz[:, 0] * (4 if n == 16 else 8) + zz[:, 1]] = vals
+        return out
+
+    zz4 = np.asarray(ZIGZAG_4x4).reshape(-1, 2)
+    zz8 = np.asarray(ZIGZAG_8x8).reshape(-1, 2)
+    i4 = one(16, zz4, Q.JVT4I)
+    for _ in range(2):          # lists 1,2 (intra Cb/Cr)
+        if one(16, zz4, i4) is not None:
+            raise NotImplementedError("per-plane chroma scaling lists")
+    p4 = one(16, zz4, Q.JVT4P)
+    for _ in range(2):          # lists 4,5 (inter Cb/Cr)
+        if one(16, zz4, p4) is not None:
+            raise NotImplementedError("per-plane chroma scaling lists")
+    i8 = one(64, zz8, Q.JVT8I)
+    p8 = one(64, zz8, Q.JVT8P)
+    return tuple(np.asarray(d, np.int64) if v is None else v
+                 for v, d in ((i4, Q.JVT4I), (p4, Q.JVT4P), (i8, Q.JVT8I),
+                              (p8, Q.JVT8P)))
+
+
 def parse_sps(rbsp: bytes) -> DecSPS:
     br = BitReader(rbsp)
     profile = br.read(8)
@@ -275,7 +323,7 @@ def parse_sps(rbsp: bytes) -> DecSPS:
         assert br.read_ue() == 0 and br.read_ue() == 0, "8-bit only"
         br.read1()  # qpprime_y_zero_transform_bypass
         if br.read1():   # seq_scaling_matrix_present
-            raise NotImplementedError("scaling matrices")
+            sps.scaling = _parse_scaling_lists(br)
     sps.log2_max_frame_num = br.read_ue() + 4
     sps.poc_type = br.read_ue()
     assert sps.poc_type in (0, 2), \
@@ -379,6 +427,8 @@ class SliceDecoder:
     def __init__(self, sps: DecSPS, pps: DecPPS, refs=None, refs_l1=None,
                  poc: int = 0, direct_spatial: bool = True):
         self.sps, self.pps = sps, pps
+        # the dequant with the stream's scaling lists
+        self.Q = R.Dequant(sps.scaling)
         # the slice's L0 list (P: most recent reference first)
         self.refs = refs or []
         self.refs_l1 = refs_l1 or []   # B-slice list 1 (future anchor)
@@ -460,7 +510,7 @@ class SliceDecoder:
         nc = self._nc(self.nnz_y, 4 * my, 4 * mx)
         dc_lev = R.dezigzag(read_residual(br, 16, nc))
         dc = R.ihadamard4x4(dc_lev)
-        dc = R.dequant_dc_luma(dc, qp)
+        dc = self.Q.dequant_dc_luma(dc, qp)
 
         blocks = np.zeros((4, 4, 4, 4), np.int64)  # [by,bx,r,c] dequant AC
         for blk in range(16):
@@ -470,8 +520,8 @@ class SliceDecoder:
                 lv = read_residual(br, 15, nc)
                 self.nnz_y[4 * my + by, 4 * mx + bx] = \
                     sum(1 for x in lv if x)
-                blocks[by, bx] = R.dequant4x4(R.dezigzag([0] + lv), qp,
-                                              intra=True)
+                blocks[by, bx] = self.Q.dequant4x4(R.dezigzag([0] + lv), qp,
+                                                   intra=True)
             else:
                 self.nnz_y[4 * my + by, 4 * mx + bx] = 0
         blocks[:, :, 0, 0] = dc
@@ -524,8 +574,8 @@ class SliceDecoder:
                 lv = read_residual(br, 16, nc)
                 self.nnz_y[4 * my + by, 4 * mx + bx] = \
                     sum(1 for x in lv if x)
-                blocks[by, bx] = R.dequant4x4(R.dezigzag(lv), qp,
-                                              intra=True)
+                blocks[by, bx] = self.Q.dequant4x4(R.dezigzag(lv), qp,
+                                                   intra=True)
             else:
                 self.nnz_y[4 * my + by, 4 * mx + bx] = 0
         for blk in range(16):
@@ -589,7 +639,8 @@ class SliceDecoder:
                                     0, 51)])
         lev8 = self._read_lev8(br, mx, my, cbp_luma)
         for b, (by8, bx8) in enumerate(self._Z8):
-            deq = R.dequant8x8(R.dezigzag8(lev8[by8, bx8]), qp, intra=True)
+            deq = self.Q.dequant8x8(R.dezigzag8(lev8[by8, bx8]), qp,
+                                    intra=True)
             pred = self._i8_pred_block(mx, my, by8, bx8, int(modes[b]))
             py, px = 16 * my + 8 * by8, 16 * mx + 8 * bx8
             self.y[py:py + 8, px:px + 8] = R.idct8x8_add(pred, deq)
@@ -685,8 +736,8 @@ class SliceDecoder:
             if cbp_chroma:
                 lv = read_residual(br, 4, -1)  # raster scan over the 2x2
                 dc2 = np.array([[lv[0], lv[1]], [lv[2], lv[3]]], np.int64)
-                dc = R.dequant_dc_chroma(R.ihadamard2x2(dc2), qpc,
-                                         intra=intra)
+                dc = self.Q.dequant_dc_chroma(R.ihadamard2x2(dc2), qpc,
+                                              intra=intra)
             else:
                 dc = np.zeros((2, 2), np.int64)
             dcs.append(dc)
@@ -699,7 +750,7 @@ class SliceDecoder:
                     lv = read_residual(br, 15, nc)
                     self.nnz_c[ch, 2 * my + by, 2 * mx + bx] = \
                         sum(1 for x in lv if x)
-                    blocks[by, bx] = R.dequant4x4(
+                    blocks[by, bx] = self.Q.dequant4x4(
                         R.dezigzag([0] + lv), qpc, intra=intra)
             else:
                 self.nnz_c[ch, 2 * my:2 * my + 2, 2 * mx:2 * mx + 2] = 0
@@ -900,7 +951,7 @@ class SliceDecoder:
         if trans8:
             lev8 = self._read_lev8(br, mx, my, cbp_luma)
             deq8 = np.stack([np.stack([
-                R.dequant8x8(R.dezigzag8(lev8[a, b2]), qp, intra=False)
+                self.Q.dequant8x8(R.dezigzag8(lev8[a, b2]), qp, intra=False)
                 for b2 in range(2)]) for a in range(2)])
             self._recon_inter_luma8(mx, my, deq8)
             self.mb_trans8[my, mx] = True
@@ -916,7 +967,7 @@ class SliceDecoder:
                     lv = read_residual(br, 16, nc)
                     self.nnz_y[4 * my + by, 4 * mx + bx] = \
                         sum(1 for x in lv if x)
-                    blocks[by, bx] = R.dequant4x4(R.dezigzag(lv), qp)
+                    blocks[by, bx] = self.Q.dequant4x4(R.dezigzag(lv), qp)
                 else:
                     self.nnz_y[4 * my + by, 4 * mx + bx] = 0
             self._recon_inter_luma(mx, my, blocks)
@@ -1229,7 +1280,7 @@ class SliceDecoder:
             if cbp_luma & (1 << (blk >> 2)):
                 lv = read_residual(br, 16, self._nc(self.nnz_y, yy, xx))
                 self.nnz_y[yy, xx] = sum(1 for x in lv if x)
-                blocks[by, bx] = R.dequant4x4(R.dezigzag(lv), qp)
+                blocks[by, bx] = self.Q.dequant4x4(R.dezigzag(lv), qp)
             else:
                 self.nnz_y[yy, xx] = 0
         return qp, cbp_chroma, blocks
@@ -1721,14 +1772,14 @@ def _recon_chroma_from(dec, ps, my, mx, cmode, cbp_chroma, cdcs, cacs,
     for ch, plane in ((0, dec.u), (1, dec.v)):
         dc2 = np.array([[cdcs[ch][0], cdcs[ch][1]],
                         [cdcs[ch][2], cdcs[ch][3]]], np.int64)
-        dc = (R.dequant_dc_chroma(R.ihadamard2x2(dc2), qpc,
-                                  intra=intra)
+        dc = (dec.Q.dequant_dc_chroma(R.ihadamard2x2(dc2), qpc,
+                                      intra=intra)
               if cbp_chroma else np.zeros((2, 2), np.int64))
         blocks = np.zeros((2, 2, 4, 4), np.int64)
         if cbp_chroma == 2:
             for by in range(2):
                 for bx in range(2):
-                    blocks[by, bx] = R.dequant4x4(
+                    blocks[by, bx] = dec.Q.dequant4x4(
                         _dez16(cacs[ch, by, bx]), qpc, intra=intra)
         blocks[:, :, 0, 0] = dc
         if preds is not None:
@@ -1760,13 +1811,13 @@ def _recon_i16_cabac(dec, ps, my, mx, mode16, cbpl, cbpc, qp, qpc):
     left = dec.y[gy:gy + 16, gx - 1] if al else np.zeros(16, np.int64)
     tl = dec.y[gy - 1, gx - 1] if (at and al) else 0
     pred = R.pred_16x16(mode16, top, left, tl, at, al)
-    dc = R.dequant_dc_luma(R.ihadamard4x4(_dez16(dc_lv)), qp)
+    dc = dec.Q.dequant_dc_luma(R.ihadamard4x4(_dez16(dc_lv)), qp)
     blocks = np.zeros((4, 4, 4, 4), np.int64)
     for by in range(4):
         for bx in range(4):
             if cbpl:
-                blocks[by, bx] = R.dequant4x4(_dez16(acs[by, bx]), qp,
-                                              intra=True)
+                blocks[by, bx] = dec.Q.dequant4x4(_dez16(acs[by, bx]), qp,
+                                                  intra=True)
     blocks[:, :, 0, 0] = dc
     for by in range(4):
         for bx in range(4):
@@ -1794,8 +1845,8 @@ def _recon_i4_cabac(dec, ps, my, mx, qp, qpc):
     blocks = np.zeros((4, 4, 4, 4), np.int64)
     for by in range(4):
         for bx in range(4):
-            blocks[by, bx] = R.dequant4x4(_dez16(blk_lv[by, bx]), qp,
-                                          intra=True)
+            blocks[by, bx] = dec.Q.dequant4x4(_dez16(blk_lv[by, bx]), qp,
+                                              intra=True)
     for blk in range(16):
         by, bx = LUMA_SCAN[blk]
         # keep the CAVLC-path mode map in sync for any later MBs
@@ -1827,7 +1878,7 @@ def _recon_i8_cabac(dec, ps, my, mx, qp, qpc):
         # keep the CAVLC-path mode map in sync for later i4 MBs
         dec.modes4[4 * my + 2 * by8:4 * my + 2 * by8 + 2,
                    4 * mx + 2 * bx8:4 * mx + 2 * bx8 + 2] = modes8[b]
-        deq = R.dequant8x8(R.dezigzag8(lev8[by8, bx8]), qp, intra=True)
+        deq = dec.Q.dequant8x8(R.dezigzag8(lev8[by8, bx8]), qp, intra=True)
         pred = dec._i8_pred_block(mx, my, by8, bx8, int(modes8[b]))
         py, px = 16 * my + 8 * by8, 16 * mx + 8 * bx8
         dec.y[py:py + 8, px:px + 8] = R.idct8x8_add(pred, deq)
@@ -1865,7 +1916,7 @@ def _recon_p_cabac(dec, ps, my, mx, part, qp, qpc):
         unit_mvs.append((int(mv[0]), int(mv[1])))
     if lev8 is not None:
         deq8 = np.stack([np.stack([
-            R.dequant8x8(R.dezigzag8(lev8[a, b2]), qp, intra=False)
+            dec.Q.dequant8x8(R.dezigzag8(lev8[a, b2]), qp, intra=False)
             for b2 in range(2)]) for a in range(2)])
         dec._recon_inter_luma8(mx, my, deq8)
         dec.mb_trans8[my, mx] = True
@@ -1877,7 +1928,7 @@ def _recon_p_cabac(dec, ps, my, mx, part, qp, qpc):
         for by in range(4):
             for bx in range(4):
                 if cbp_luma & (1 << ((by // 2) * 2 + bx // 2)):
-                    blocks[by, bx] = R.dequant4x4(
+                    blocks[by, bx] = dec.Q.dequant4x4(
                         _dez16(blk_lv[by, bx]), qp)
         dec._recon_inter_luma(mx, my, blocks)
     _recon_chroma_from(dec, ps, my, mx, 0, cbp_chroma, cdcs, cacs, qpc,
@@ -1967,7 +2018,7 @@ def _recon_b_cabac(dec, ps, my, mx, code):
             dec.y[gy + 4 * by:gy + 4 * by + 4,
                   gx + 4 * bx:gx + 4 * bx + 4] = R.recon_block4x4(
                 py[4 * by:4 * by + 4, 4 * bx:4 * bx + 4],
-                R.dequant4x4(_dez16(blk_lv[by, bx]), qp))
+                dec.Q.dequant4x4(_dez16(blk_lv[by, bx]), qp))
     _recon_chroma_from(dec, ps, my, mx, 0, cbpc, cdcs, cacs, qpc, False,
                        preds=pc)
     dec.decoded[my, mx] = True

@@ -1,6 +1,8 @@
 """Decoder-side reconstruction math (numpy, scalar per MB): the port's
-copy of the reference's decoder/recon.py for the 4x4 and 8x8 transforms
-with flat scaling lists (CQM is outside the port).
+copy of the reference's decoder/recon.py for the 4x4 and 8x8 transforms.
+The dequant reads the stream's scaling lists through a `Dequant` made
+per decode from its SPS (the reference installs them in module state;
+the module-level functions here are the flat lists' `Dequant`).
 
 Deliberately an *independent* implementation of the normative H.264
 inverse transforms / prediction (spec 8.3, 8.5) — not a reuse of the
@@ -31,14 +33,64 @@ def dezigzag(levels) -> np.ndarray:
     return out
 
 
-def dequant4x4(block: np.ndarray, qp: int,
-               intra: bool = False) -> np.ndarray:
-    v = _V[qp % 6][_POS] * 16
-    qbits = qp // 6 - 4
-    if qbits >= 0:
-        return (block * v) << qbits
-    f = 1 << (-qbits - 1)
-    return (block * v + f) >> (-qbits)
+def _list(v, n: int) -> np.ndarray:
+    return (np.full((n, n), 16, np.int64) if v is None
+            else np.asarray(v, np.int64).reshape(n, n))
+
+
+class Dequant:
+    """The dequant of one stream (spec 8.5.9: LevelScale = V * the
+    scaling list of the block's class): lists = (intra4, inter4, intra8,
+    inter8) raster, None = flat. Chroma takes the 4x4 list of its class
+    (the SPS's lists 1, 2 and 4, 5 fall back to 0 and 3)."""
+
+    def __init__(self, lists=None):
+        i4, p4, i8, p8 = lists if lists is not None else (None,) * 4
+        self.sc4 = {True: _list(i4, 4), False: _list(p4, 4)}
+        self.sc8 = {True: _list(i8, 8), False: _list(p8, 8)}
+
+    def dequant4x4(self, block: np.ndarray, qp: int,
+                   intra: bool = False) -> np.ndarray:
+        v = _V[qp % 6][_POS] * self.sc4[intra]
+        qbits = qp // 6 - 4
+        if qbits >= 0:
+            return (block * v) << qbits
+        f = 1 << (-qbits - 1)
+        return (block * v + f) >> (-qbits)
+
+    def dequant_dc_luma(self, dc: np.ndarray, qp: int) -> np.ndarray:
+        dmf = int(_V[qp % 6][0]) * int(self.sc4[True][0, 0])  # i16: intra
+        qbits = qp // 6 - 6
+        if qbits >= 0:
+            return dc * (dmf << qbits)
+        f = 1 << (-qbits - 1)
+        return (dc * dmf + f) >> (-qbits)
+
+    def dequant_dc_chroma(self, dc: np.ndarray, qp: int,
+                          intra: bool = False) -> np.ndarray:
+        dmf = int(_V[qp % 6][0]) * int(self.sc4[intra][0, 0])
+        qbits = qp // 6 - 5
+        if qbits > 0:
+            return dc * (dmf << qbits)
+        return (dc * dmf) >> (-qbits)
+
+    def dequant8x8(self, block: np.ndarray, qp: int,
+                   intra: bool) -> np.ndarray:
+        from ..ops.transform8 import _DEQUANT8_SCALE, pos_class8
+        dmf = _DEQUANT8_SCALE[qp % 6][pos_class8()] * self.sc8[intra]
+        qbits = qp // 6 - 6
+        v = block.astype(np.int64) * dmf
+        if qbits >= 0:
+            return v << qbits
+        f = 1 << (-qbits - 1)
+        return (v + f) >> (-qbits)
+
+
+FLAT = Dequant()
+dequant4x4 = FLAT.dequant4x4
+dequant_dc_luma = FLAT.dequant_dc_luma
+dequant_dc_chroma = FLAT.dequant_dc_chroma
+dequant8x8 = FLAT.dequant8x8
 
 
 def idct4x4(c: np.ndarray) -> np.ndarray:
@@ -69,27 +121,9 @@ def ihadamard4x4(c: np.ndarray) -> np.ndarray:
     return h @ c @ h.T
 
 
-def dequant_dc_luma(dc: np.ndarray, qp: int) -> np.ndarray:
-    dmf = int(_V[qp % 6][0]) * 16
-    qbits = qp // 6 - 6
-    if qbits >= 0:
-        return dc * (dmf << qbits)
-    f = 1 << (-qbits - 1)
-    return (dc * dmf + f) >> (-qbits)
-
-
 def ihadamard2x2(c: np.ndarray) -> np.ndarray:
     h = np.array([[1, 1], [1, -1]], dtype=np.int64)
     return h @ c @ h.T
-
-
-def dequant_dc_chroma(dc: np.ndarray, qp: int,
-                      intra: bool = False) -> np.ndarray:
-    dmf = int(_V[qp % 6][0]) * 16
-    qbits = qp // 6 - 5
-    if qbits > 0:
-        return dc * (dmf << qbits)
-    return (dc * dmf) >> (-qbits)
 
 
 def recon_block4x4(pred: np.ndarray, coef: np.ndarray) -> np.ndarray:
@@ -321,17 +355,6 @@ def pred_chroma(mode: int, top, left, topleft, at: bool, al: bool):
 # High-profile 8x8 decode path (spec 8.3.2 Intra_8x8 + 8.5.12.2; x264's
 # IDCT8_1D and dequant_8x8), scalar numpy. Only the spec's constant
 # tables come from the port's ops.
-
-def dequant8x8(block: np.ndarray, qp: int, intra: bool) -> np.ndarray:
-    from ..ops.transform8 import _DEQUANT8_SCALE, pos_class8
-    dmf = _DEQUANT8_SCALE[qp % 6][pos_class8()] * 16
-    qbits = qp // 6 - 6
-    v = block.astype(np.int64) * dmf
-    if qbits >= 0:
-        return v << qbits
-    f = 1 << (-qbits - 1)
-    return (v + f) >> (-qbits)
-
 
 def dezigzag8(levels) -> np.ndarray:
     from ..ops.transform8 import ZIGZAG_8x8

@@ -91,11 +91,14 @@ def analyse_p_frame(y, ref_luma, prev_mv, rng: int, mbh: int, mbw: int,
 
 
 def stego_costs_from_table(cur_y, blocks169, wht169, r_idx, mv, mvp,
-                           cost_mv, qp: int, mbh: int, mbw: int):
+                           cost_mv, qp: int, mbh: int, mbw: int,
+                           tables=None):
     """Table-based x264_ih_get_mv_cost: each MB is encoded at its chosen
     offset and at the 12 D_MV candidates (one fused luma encode launch
     for all 13 versions, the current MBs read from the plane), and each
-    recon is probed against its 9 lattice neighbours. r_idx [N]; mv
+    recon is probed against its 9 lattice neighbours (quantized with
+    the inter class of `tables`; no noise reduction, as in the
+    reference). r_idx [N]; mv
     [mbh,mbw,2] qpel; mvp [mbh,mbw,2] the probe mv-cost predictor.
     Returns (rho [mbh,mbw] f32, alt_mv [mbh,mbw,2], flags [mbh,mbw,3])."""
     n = mbh * mbw
@@ -113,7 +116,7 @@ def stego_costs_from_table(cur_y, blocks169, wht169, r_idx, mv, mvp,
 
     blk = torch.cat([QT.select_rows(blocks169, r_idx + _didx(*c))
                      for c in _CENTERS]).to(_I32)          # [13N,16,16]
-    _, rec, _ = LP.luma_p_encode(cur_y, blk, qp, lev=False)
+    _, rec, _ = LP.luma_p_encode(cur_y, blk, qp, lev=False, tables=tables)
     wrec = QT.wht16(rec).reshape(len(_CENTERS), n, 4, 4, 4, 4)
     nbs = []
     for v, (cy, cx) in enumerate(_CENTERS):

@@ -867,20 +867,25 @@ def _assemble_pred_b(refs0, ref1, use0, use1, mv0_8, mv1_8, ref8_0,
 
 def encode_b_frame_device(y, u, v, refs0, ref1, use0, use1, mv0_8, mv1_8,
                           ref8_0, qp: int, qpc: int, mbh: int,
-                          mbw: int, w1=32, trellis: bool = False) -> dict:
+                          mbw: int, w1=32, trellis: bool = False,
+                          tables=None) -> dict:
     """The B encode at per-8x8 (use, mv) fields of both lists, the
     reference's `encode_b_frame_device` (bslice.py:340) with decimation
     on: the bipred prediction at the implicit weight w1
     (`_assemble_pred_b`), the 4x4 luma encode by the fused luma-encode
     kernel (one launch on CUDA, decimation in the kernel; with `trellis`
-    from the inter trellis's levels), the chroma encode as on the P path.
-    Returns the P encode's result dict."""
+    from the inter trellis's levels), the chroma encode as on the P path,
+    all with the inter class of `tables` (None: flat; never noise
+    reduction, as in the reference). Returns the P encode's result
+    dict."""
     pred_y, pred_u, pred_v = _assemble_pred_b(
         refs0, ref1, use0, use1, mv0_8, mv1_8, ref8_0, mbh, mbw, w1)
     pred_y = pred_y.contiguous()
-    levels = trellis_luma_levels(y, pred_y, qp) if trellis else None
-    lev, rec, cbp_l = luma_p_encode(y, pred_y, qp, levels=levels)
+    levels = trellis_luma_levels(y, pred_y, qp, tables) if trellis else None
+    lev, rec, cbp_l = luma_p_encode(y, pred_y, qp, levels=levels,
+                                    tables=tables)
     fz = torch.zeros(mbh * mbw, dtype=torch.bool, device=y.device)
-    chroma = [chroma_encode(mb_tiles(plane, 8), predc, qpc, fz, trellis)
+    chroma = [chroma_encode(mb_tiles(plane, 8), predc, qpc, fz, trellis,
+                            tables)
               for plane, predc in ((u, pred_u), (v, pred_v))]
     return _p_result(lev, rec, cbp_l, chroma, mbh, mbw)

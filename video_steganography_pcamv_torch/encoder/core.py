@@ -82,6 +82,14 @@ CABAC B writer (native for 16x16 MBs at one reference, as in the
 reference); its slice is not deblocked, and only a pyramid's reference B
 enters the DPB.
 `flush()` codes the buffered frames as the last GOPs.
+
+Every path quantizes with the encoder's own `ops.cqm.QuantTables`
+(`self.qt`, from `cqm`, the custom lists and the deadzones; the SPS
+carries any list that is not flat), never with process state. Under
+`noise_reduction` every P encode's 4x4 luma is denoised by the running
+offsets (`_nr_offset`), which each P frame's pass-1 sums update
+(`_nr_update`) before its pass 2, as in the reference; the pass 2 is
+then a full re-encode.
 """
 
 from __future__ import annotations
@@ -93,6 +101,7 @@ import numpy as np
 import torch
 
 from .. import native
+from ..ops import cqm as CQ
 from ..ops import mc
 from ..ops import probe as PR
 from ..ops.deblock import deblock_frame
@@ -131,20 +140,23 @@ _LEAN_WIDTH8 = 257
 def check_slice(p: Params) -> None:
     """Raise NotImplementedError for any option outside the ported
     slice: CQP, CAVLC or CABAC, subpel 2, decimation, incremental
-    re-encode (turned off by trellis, as in the reference), stego on,
-    me_range <= PAD - MARGIN, the flat quant tables and the default
-    deadzones, and every combination of: partitions (the serving path;
-    pipelined or not, PSNR/SSIM on or off, either deblocker) or
-    partitions off with the host deblock at one reference (the 16x16-only
-    path); `ref_frames` 1-8; `bframes` 0-16 with `b_adapt` 0, 1 or 2, any
-    `direct` mode (none, spatial, temporal, auto), with or without
-    `b_pyramid` and `weightb`; the 8x8 transform, `rd` 0-2 and, under
-    CABAC, `trellis` 0-2. While embedding, the reference codes `rd` 2 as
-    `rd` 1 and `trellis` 2 as `trellis` 1 (their other uses are in its
-    stego-off branches), and takes the 8x8 transform only in the IDR and
-    the one-reference partitioned P frames: elsewhere it only signals
-    the PPS flag, and every MB that may carry transform_size_8x8_flag
-    carries 0."""
+    re-encode (turned off by trellis and noise reduction, as in the
+    reference), stego on, me_range <= PAD - MARGIN, and every combination
+    of: the quant options (`cqm` flat or jvt, any custom 4x4/8x8 list,
+    `deadzone_inter`/`deadzone_intra` 0-32, `noise_reduction`);
+    partitions (the serving path; pipelined or not, PSNR/SSIM on or off,
+    either deblocker) or partitions off with the host deblock at one
+    reference (the 16x16-only path); `ref_frames` 1-8; `bframes` 0-16
+    with `b_adapt` 0, 1 or 2, any `direct` mode (none, spatial, temporal,
+    auto), with or without `b_pyramid` and `weightb`; the 8x8 transform,
+    `rd` 0-2 and, under CABAC, `trellis` 0-2. While embedding, the
+    reference codes `rd` 2 as `rd` 1 and `trellis` 2 as `trellis` 1
+    (their other uses are in its stego-off branches), and takes the 8x8
+    transform only in the IDR and the one-reference partitioned P
+    frames: elsewhere it only signals the PPS flag, and every MB that may
+    carry transform_size_8x8_flag carries 0. Noise reduction reaches the
+    P frames' 4x4 luma encodes (pass 1 and pass 2), never the IDR, the
+    B encode or the stego probes."""
     if not p.partitions and p.deblock_device and p.ref_frames == 1:
         raise NotImplementedError(
             "partitions off with deblock_device on: the reference drops "
@@ -155,7 +167,6 @@ def check_slice(p: Params) -> None:
     for name, ok in (
             ("p4x4 (ROADMAP A16)", not p.p4x4),
             ("aq_mode (ROADMAP A16)", not p.aq_mode),
-            ("noise_reduction (ROADMAP A16)", p.noise_reduction == 0),
             ("rc_mode!=0 (ROADMAP A16)", p.rc_mode == 0),
             ("pipeline_deep (ROADMAP A19)", not p.pipeline_deep),
             ("i4x4 off (ROADMAP A16)", p.i4x4),
@@ -164,10 +175,6 @@ def check_slice(p: Params) -> None:
             ("incremental off (ROADMAP A16)", p.incremental),
             ("zones (ROADMAP A16)", not p.zones),
             ("qpfile (ROADMAP A16)", not p.qpfile),
-            ("cqm (ROADMAP A15)", p.cqm == "flat" and p.cqm4i is None
-             and p.cqm4p is None),
-            ("deadzones (ROADMAP A16)", p.deadzone_inter == 21
-             and p.deadzone_intra == 11),
             ("deblock off (ROADMAP A16)", p.deblock),
             ("me_range>%d (ROADMAP A16: a window of the qpel analysis "
              "would leave the padded planes, where the reference's CPU "
@@ -335,6 +342,14 @@ class Encoder:
                 self.sps.num_ref_frames = max(
                     self.sps.num_ref_frames,
                     params.ref_frames + (2 if pyr else 1))
+        # the quantizer (x264 --cqm, --deadzone-*): this encoder's own
+        # tables, never process state; any list that is not flat goes
+        # into the SPS, which then uses High profile (core.py:298-319)
+        self.qt = CQ.from_params(params)
+        if not self.qt.is_flat:
+            (self.sps.scaling4_intra, self.sps.scaling4_inter,
+             self.sps.scaling8_intra, self.sps.scaling8_inter) = self.qt.lists
+            self.sps.profile = H.PROFILE_HIGH
         if params.transform_8x8:
             self.sps.profile = H.PROFILE_HIGH
             self.pps.transform_8x8 = True
@@ -395,6 +410,44 @@ class Encoder:
         self.rc = RateControl(params)
         self.lookahead = Lookahead(params)
         self._cmv_cache = {}
+        # noise reduction's running state (x264 nr_residual_sum /
+        # nr_count), float64 on the host as in the reference
+        self._nr_sum = np.zeros((4, 4), np.float64)
+        self._nr_count = 0
+
+    # ------------------------------------------------------------------
+    # noise reduction (x264_noise_reduction_update, macroblock.c:902-922;
+    # the reference's core.py:3540-3562: the offsets are updated once a
+    # frame from its pass-1 sums)
+    _NR_W2 = np.array([[800, 320, 800, 320], [320, 128, 320, 128],
+                       [800, 320, 800, 320], [320, 128, 320, 128]],
+                      np.float64)   # FIX8(3.125/1.25/0.5), dct.h:55-64
+
+    def _nr_offset(self):
+        """The current offsets, int32 [4, 4] (truncated as the
+        reference's astype), or None without noise reduction."""
+        if not self.p.noise_reduction:
+            return None
+        num = (float(self.p.noise_reduction) * self._nr_count
+               + self._nr_sum / 2)
+        den = self._nr_sum * self._NR_W2 / 256.0 + 1.0
+        return (num / den).astype(np.int32)
+
+    def nr_offset(self):
+        """`_nr_offset` as a tensor on the encoder's device, or None."""
+        off = self._nr_offset()
+        return None if off is None else torch.as_tensor(off).to(self.device)
+
+    def _nr_update(self, res: dict) -> None:
+        """Add a P frame's pass-1 sums (one pull of 16 ints) and its
+        block count; halve both past 2^18 blocks."""
+        if "nr_sum" not in res:
+            return
+        self._nr_sum += res["nr_sum"].cpu().numpy().astype(np.float64)
+        self._nr_count += 16 * self.p.mb_height * self.p.mb_width
+        if self._nr_count > (1 << 18):
+            self._nr_sum /= 2
+            self._nr_count >>= 1
 
     # ------------------------------------------------------------------
     def headers(self) -> bytes:
@@ -865,7 +918,7 @@ class Encoder:
             y, u, v, dict(luma=refs_l, u=refs_u, v=refs_v), ref_l1, t(use0),
             t(use1), t(fmv0), t(fmv1), t(ref8_0), qp, qpc, mbh, mbw,
             w1=BS.weight_arg(w_tab[np.maximum(ref8_0, 0)], self.device),
-            trellis=bool(p.trellis))
+            trellis=bool(p.trellis), tables=self.qt)
         res_np = _levels_exact(res, mbh, mbw)
         # a B frame's metrics read its own recon (it is never deblocked)
         self._accumulate_psnr(frame, y, u, v, recon=(
@@ -1185,7 +1238,9 @@ class Encoder:
         mv_np = mv_q.cpu().numpy()
         res = P.encode_p_frame_device(
             y, u, v, self.ref["luma"], self.ref["u"], self.ref["v"], mv_q,
-            qp, qpc, mbh, mbw, trellis=bool(p.trellis))
+            qp, qpc, mbh, mbw, trellis=bool(p.trellis), tables=self.qt,
+            nr_offset=self.nr_offset())
+        self._nr_update(res)
         skip, mvd, mvp = native.host_scan_p(
             mv_np, res["cbp_luma"].cpu().numpy(),
             res["cbp_chroma"].cpu().numpy())
@@ -1240,10 +1295,11 @@ class Encoder:
                 y, refs_luma.to(torch.uint8), n_valid,
                 torch.as_tensor(self.prev_mv).to(dev), lam, qp, p.me_range,
                 mbh, mbw, p.ref_frames, allow_parts=bool(p.partitions),
-                tail_kernel=bool(p.tail_kernel))
+                tail_kernel=bool(p.tail_kernel), tables=self.qt)
         res = P.encode_p_frame_device8_mref(
             y, u, v, refs_luma, refs_u, refs_v, mv8, ref8, qp, qpc, mbh, mbw,
-            trellis=bool(p.trellis))
+            trellis=bool(p.trellis), tables=self.qt,
+            nr_offset=self.nr_offset())
         meta = torch.cat([part.reshape(-1), mv8.reshape(-1),
                           res["cbp_luma"].reshape(-1).to(torch.int32),
                           res["cbp_chroma"].reshape(-1).to(torch.int32),
@@ -1254,6 +1310,7 @@ class Encoder:
         cbp_c = meta[10 * n:11 * n].reshape(mbh, mbw)
         ref8_np = np.ascontiguousarray(meta[11 * n:]).reshape(2 * mbh,
                                                               2 * mbw)
+        self._nr_update(res)
         skip, mvd, mvp, final8 = native.scan_p_parts(
             part_np, mv8_np, cbp_l, cbp_c, ref8=ref8_np)
         replaced = self._stego.embed_frame_parts(
@@ -1284,7 +1341,8 @@ class Encoder:
         t8 = bool(p.transform_8x8)
         res_dev = encode_i_frame(y, u, v, qp, qpc, mbw, mbh,
                                  lam=ME.lambda_tab(qp), i8x8=t8,
-                                 rd=bool(p.rd), trellis=bool(p.trellis))
+                                 rd=bool(p.rd), trellis=bool(p.trellis),
+                                 tables=self.qt)
         dev = self.device
         i32 = torch.int32
         if t8:
@@ -1366,20 +1424,22 @@ class Encoder:
             prev_mv, qp, qpc, lam, self._cost_mv_dev(qp, lam), p.me_range,
             mbh, mbw, extra=extra, tail_kernel=bool(p.tail_kernel),
             trans8=bool(p.transform_8x8), rd=bool(p.rd),
-            trellis=bool(p.trellis))
+            trellis=bool(p.trellis), tables=self.qt,
+            nr_offset=self.nr_offset())
         return dict(packed=packed, res=res, y=y, u=u, v=v, qp=qp, qpc=qpc)
 
     def _fused_complete(self, d) -> dict:
-        """Host STC + flips, then enqueue the re-encode (incremental
-        where few MBs changed, always full under the 8x8 transform or
-        trellis, as in the reference), the lean level pack and the
-        deblock. Returns the pending record the next frame's call
-        drains."""
+        """The noise reduction's update from pass 1, host STC + flips,
+        then enqueue the re-encode (incremental where few MBs changed,
+        always full under the 8x8 transform, trellis or noise reduction,
+        as in the reference), the lean level pack and the deblock.
+        Returns the pending record the next frame's call drains."""
         p = self.p
         mbh, mbw = p.mb_height, p.mb_width
         n = mbh * mbw
         qp, qpc, y, u, v = d["qp"], d["qpc"], d["y"], d["u"], d["v"]
         packed = d["packed"]
+        self._nr_update(d["res"])
         part_np = packed[:n].astype(np.int32).reshape(mbh, mbw)
         mv8_np = packed[n:9 * n].astype(np.int32).reshape(2 * mbh, 2 * mbw, 2)
         skip1 = packed[11 * n:12 * n].astype(bool).reshape(mbh, mbw)
@@ -1393,18 +1453,21 @@ class Encoder:
         final8_t = torch.as_tensor(np.ascontiguousarray(final8)).to(dev)
         idx, fzs = changed_mbs(mv8_np, final8, skip1, skip, mbh, mbw)
         t8 = bool(p.transform_8x8)
-        if not t8 and not p.trellis and len(idx) <= n // 4:
+        incr_ok = not (t8 or p.trellis or p.noise_reduction)
+        if incr_ok and len(idx) <= n // 4:
             idx_p, fz_p, _cap = pad_subset(idx, fzs, n)
             res2 = reencode_p_incremental(
                 d["res"], y, u, v, self.ref["luma"], self.ref["u"],
                 self.ref["v"], final8_t, torch.as_tensor(idx_p).to(dev),
-                torch.as_tensor(fz_p).to(dev), qp, qpc, mbh, mbw)
+                torch.as_tensor(fz_p).to(dev), qp, qpc, mbh, mbw,
+                tables=self.qt)
         else:
             res2 = P.encode_p_frame_device8(
                 y, u, v, self.ref["luma"], self.ref["u"], self.ref["v"],
                 final8_t, qp, qpc, mbh, mbw,
                 force_zero=torch.as_tensor(skip).to(dev), trans8=t8,
-                rd=bool(p.rd), trellis=bool(p.trellis))
+                rd=bool(p.rd), trellis=bool(p.trellis), tables=self.qt,
+                nr_offset=self.nr_offset())
         if t8:
             # the effective flag: the decision AND cbp_luma != 0 (with no
             # luma residual the flag is not sent and reads as 0)

@@ -3,8 +3,10 @@
 Reference: upstream encoder/set.c (x264_sps_init:77, sps_write:215,
 pps_init:368, pps_write:429) and the slice-header writer in
 encoder/encoder.c (x264_slice_header_init / x264_slice_header_write).
-Baseline-profile subset: CAVLC, frame_mbs_only, poc_type 2 (decode order
-== display order, valid for IPPP), single slice per frame.
+Baseline, Main and High profile as the encoder picks them: CAVLC or
+CABAC, the 8x8-transform flag, the seq scaling lists of a custom
+quantizer (4x4 and 8x8), frame_mbs_only, poc_type 2 for IPP streams and
+0 with B frames, one slice per frame.
 """
 
 from __future__ import annotations
@@ -191,12 +193,14 @@ def _write_one_scaling_list(bw: BitWriter, vals, zz) -> None:
 def _write_scaling_lists(bw: BitWriter, s4i, s4p, s8i, s8p) -> None:
     """8 seq_scaling_list_present flags + explicit lists for 0 (intra
     4x4 Y), 3 (inter 4x4 Y), 6/7 (8x8); 1,2 and 4,5 fall back to the
-    previous list (spec Table 7-2 fall-back rule A). The port has no
-    8x8 transform, so the 8x8 lists raise NotImplementedError."""
+    previous list (spec Table 7-2 fall-back rule A)."""
     from ..ops.transform import ZIGZAG_4x4
+    from ..ops.transform8 import ZIGZAG_8x8
     import numpy as np
     zz4 = [tuple(x) for x in np.asarray(ZIGZAG_4x4).reshape(-1, 2)]
+    zz8 = [tuple(x) for x in np.asarray(ZIGZAG_8x8).reshape(-1, 2)]
     flat4 = [[16] * 4] * 4
+    flat8 = [[16] * 8] * 8
     for li, vals, zz, flat in ((0, s4i, zz4, flat4),
                                (3, s4p, zz4, flat4)):
         bw.write1(1)
@@ -205,8 +209,11 @@ def _write_scaling_lists(bw: BitWriter, s4i, s4p, s8i, s8p) -> None:
             else np.asarray(vals).reshape(4, 4), zz)
         bw.write1(0)   # list li+1 falls back to list li
         bw.write1(0)   # list li+2 likewise
-    raise NotImplementedError("8x8 scaling lists (the port has no 8x8 "
-                              "transform)")
+    for vals in (s8i, s8p):
+        bw.write1(1)
+        _write_one_scaling_list(
+            bw, flat8 if vals is None
+            else np.asarray(vals).reshape(8, 8), zz8)
 
 
 @dataclass

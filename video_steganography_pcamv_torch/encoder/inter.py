@@ -1,8 +1,10 @@
 """P-frame transform/quant/recon at given MVs (port of the serving
 subset of encoder/inter.py): decimation on; the High-profile adaptive
-8x8 transform and its RD decision, and trellis quantization of the luma
-(4x4 and the 8x8 candidate) and chroma levels, as options; noise
-reduction off; gather MC only.
+8x8 transform and its RD decision, trellis quantization of the luma
+(4x4 and the 8x8 candidate) and chroma levels, and noise reduction of
+the 4x4 luma (`nr_offset`), as options; gather MC only. Every quant
+takes the encoder's `ops.cqm.QuantTables` (`tables`, its inter class;
+None: flat).
 
 Two encodes: `encode_p_frame_device8` at per-8x8 MVs (the partitioned
 path, with `trans8`/`rd` the 8x8-transform candidate and its choice per
@@ -124,103 +126,131 @@ def _from_zig_planes(lev, n: int, by: int, bx: int):
     return lev[:, const(_IZIG4, lev.device)]
 
 
-def trellis_quant4x4_planes(coef, qp: int, intra: bool):
+def trellis_quant4x4_planes(coef, qp: int, intra: bool, tables=None):
     """Trellis-quantize [N,4,4,BY,BX] coefficient planes (the luma 4x4
     cat); levels in the same layout."""
     n, _, _, by, bx = coef.shape
     v = zigzag_gather(coef).permute(0, 2, 3, 1).reshape(n * by * bx, 16)
-    lev = TR.trellis_quant(v, qp, TR.CAT_LUMA_4x4, intra)
+    lev = TR.trellis_quant(v, qp, TR.CAT_LUMA_4x4, intra, tables)
     return _from_zig_planes(lev, n, by, bx)
 
 
-def trellis_quant8x8(coef8, qp: int, intra: bool):
+def trellis_quant8x8(coef8, qp: int, intra: bool, tables=None):
     """Trellis-quantize [..., 8, 8] coefficient blocks (the cat-5 8x8
     luma trellis: x264's quant_8x8_trellis); levels in the same
     layout."""
     zz8 = const(T8.ZIGZAG_8x8_FLAT, coef8.device)
     flat = coef8.reshape(-1, 64)
-    lv = TR.trellis_quant(flat[:, zz8], qp, TR.CAT_LUMA_8x8, intra)
+    lv = TR.trellis_quant(flat[:, zz8], qp, TR.CAT_LUMA_8x8, intra, tables)
     lev = torch.zeros_like(lv)
     lev[:, zz8] = lv
     return lev.reshape(coef8.shape)
 
 
-def trellis_quant_chroma_dc(dch, qpc, intra: bool = False):
+def trellis_quant_chroma_dc(dch, qpc, intra: bool = False, tables=None):
     """Chroma-DC trellis (2x2 Hadamard domain, raster scan; rdo.c
     x264_quant_dc_trellis DCT_CHROMA_DC). dch: [N,2,2]."""
     n = dch.shape[0]
-    lev = TR.trellis_quant(dch.reshape(n, 4), qpc, TR.CAT_CHROMA_DC, intra)
+    lev = TR.trellis_quant(dch.reshape(n, 4), qpc, TR.CAT_CHROMA_DC, intra,
+                           tables)
     return lev.reshape(n, 2, 2)
 
 
-def trellis_quant_luma_dc(dct, qp):
+def trellis_quant_luma_dc(dct, qp, tables=None):
     """i16x16 luma-DC trellis (4x4 Hadamard domain, zigzag scan; rdo.c
     x264_quant_dc_trellis DCT_LUMA_DC, intra only). dct: [N,4,4]."""
     zz = const(T.ZIGZAG_4x4, dct.device).long()
     lev = TR.trellis_quant(dct[:, zz[:, 0], zz[:, 1]], qp, TR.CAT_LUMA_DC,
-                           True)
+                           True, tables)
     return lev[:, const(_IZIG4, dct.device)]
 
 
-def _trellis_ac_planes(ac, qp, cat: int, intra: bool):
+def _trellis_ac_planes(ac, qp, cat: int, intra: bool, tables=None):
     n, _, _, by, bx = ac.shape
     v = zigzag_gather(ac)[:, 1:].permute(0, 2, 3, 1).reshape(n * by * bx, 15)
-    lev = TR.trellis_quant(v, qp, cat, intra)
+    lev = TR.trellis_quant(v, qp, cat, intra, tables)
     lev = torch.cat([torch.zeros_like(lev[:, :1]), lev], dim=1)
     return _from_zig_planes(lev, n, by, bx)
 
 
-def trellis_quant_luma_ac(ac, qp, intra: bool = True):
+def trellis_quant_luma_ac(ac, qp, intra: bool = True, tables=None):
     """i16x16 luma-AC trellis (DCT_LUMA_AC cat, 15 coefs). ac:
     [N,4,4,BY,BX] coefficient planes with DC already zeroed."""
-    return _trellis_ac_planes(ac, qp, TR.CAT_LUMA_AC, intra)
+    return _trellis_ac_planes(ac, qp, TR.CAT_LUMA_AC, intra, tables)
 
 
-def trellis_quant_chroma_ac(ac, qpc, intra: bool = False):
+def trellis_quant_chroma_ac(ac, qpc, intra: bool = False, tables=None):
     """Chroma-AC trellis (DCT_CHROMA_AC cat, 15 coefs). ac:
     [N,4,4,BY,BX] coefficient planes with DC already zeroed."""
-    return _trellis_ac_planes(ac, qpc, TR.CAT_CHROMA_AC, intra)
+    return _trellis_ac_planes(ac, qpc, TR.CAT_CHROMA_AC, intra, tables)
 
 
-def trellis_luma_levels(y, pred, qp: int):
+def trellis_luma_levels(y, pred, qp: int, tables=None, nr_offset=None):
     """The inter trellis's 4x4 levels [N, 4, 4, 4, 4] of a frame's MBs
     (y the plane, pred [N,16,16] of its MBs in raster order): the fused
-    luma kernel's `levels` under trellis."""
-    return trellis_quant4x4_planes(
-        T.dct4x4(to_blocks(mb_tiles(y, 16) - pred, 4)), qp,
-        intra=False).contiguous()
+    luma kernel's `levels` under trellis. With `nr_offset` the DCT
+    coefficients are denoised before the trellis, where the reference
+    puts it (encoder/inter.py:242-253), and the result is (levels, the
+    denoise's [4, 4] sums)."""
+    coef = T.dct4x4(to_blocks(mb_tiles(y, 16) - pred, 4))
+    if nr_offset is None:
+        return trellis_quant4x4_planes(coef, qp, intra=False,
+                                       tables=tables).contiguous()
+    nr_sum, coef = LP.denoise(coef, nr_offset)
+    return trellis_quant4x4_planes(coef, qp, intra=False,
+                                   tables=tables).contiguous(), nr_sum
 
 
-def luma_encode(y, pred, qp: int, fz=None, trellis: bool = False):
-    """The 4x4 luma encode of a frame's MBs: the fused kernel, which with
-    `trellis` starts from `trellis_luma_levels` (the reference's
-    `luma_p_encode(..., trellis=True)`)."""
-    levels = trellis_luma_levels(y, pred, qp) if trellis else None
-    return LP.luma_p_encode(y, pred, qp, fz=fz, levels=levels)
+def luma_encode(y, pred, qp: int, fz=None, trellis: bool = False,
+                tables=None, nr_offset=None):
+    """The 4x4 luma encode of a frame's MBs: the fused kernel (its
+    noise-reduction instance with `nr_offset`), which with `trellis`
+    starts from `trellis_luma_levels` (the reference's
+    `luma_p_encode(..., trellis=True)`). Returns (lev, rec, cbp_luma),
+    and with `nr_offset` also the denoise's [4, 4] sums."""
+    if not trellis:
+        return LP.luma_p_encode(y, pred, qp, fz=fz, tables=tables,
+                                nr_offset=nr_offset)
+    if nr_offset is None:
+        levels = trellis_luma_levels(y, pred, qp, tables)
+        return LP.luma_p_encode(y, pred, qp, fz=fz, levels=levels,
+                                tables=tables)
+    levels, nr_sum = trellis_luma_levels(y, pred, qp, tables, nr_offset)
+    return LP.luma_p_encode(y, pred, qp, fz=fz, levels=levels,
+                            tables=tables) + (nr_sum,)
 
 
-def chroma_encode(curc, predc, qpc: int, fz, trellis: bool = False):
+def _luma_encode_nr(y, pred, qp: int, fz, trellis: bool, tables,
+                    nr_offset):
+    """`luma_encode` as (lev, rec, cbp_luma, nr_sum or None)."""
+    out = luma_encode(y, pred, qp, fz, trellis, tables, nr_offset)
+    return out if nr_offset is not None else out + (None,)
+
+
+def chroma_encode(curc, predc, qpc: int, fz, trellis: bool = False,
+                  tables=None):
     """Inter chroma encode of one plane's [N,8,8] MBs (`trellis`: the
-    DC and AC levels by the inter trellis). Returns (dc_lev [N,2,2],
-    ac_lev [N,4,4,2,2], recon [N,8,8])."""
+    DC and AC levels by the inter trellis) with the inter class of
+    `tables`. Returns (dc_lev [N,2,2], ac_lev [N,4,4,2,2], recon
+    [N,8,8])."""
     n = curc.shape[0]
     coef = T.dct4x4(to_blocks(curc - predc, 4))
     dch = T.hadamard2x2(coef[:, 0, 0][..., None, None])[..., 0, 0]
     ac = coef.clone()
     ac[:, 0, 0] = 0
     if trellis:
-        dc_lev = trellis_quant_chroma_dc(dch, qpc)
-        ac_lev = trellis_quant_chroma_ac(ac, qpc)
+        dc_lev = trellis_quant_chroma_dc(dch, qpc, tables=tables)
+        ac_lev = trellis_quant_chroma_ac(ac, qpc, tables=tables)
     else:
-        dc_lev = T.quant_dc(dch, qpc, intra=False)
-        ac_lev = T.quant4x4(ac, qpc, intra=False)
+        dc_lev = T.quant_dc(dch, qpc, intra=False, tables=tables)
+        ac_lev = T.quant4x4(ac, qpc, intra=False, tables=tables)
     scc = decimate_score(zigzag_gather(ac_lev)).sum((1, 2), dtype=_I32)
     ac_lev = ac_lev * (scc >= 7)[:, None, None, None, None]
     dc_lev = dc_lev * ~fz[:, None, None]
     ac_lev = ac_lev * ~fz[:, None, None, None, None]
-    deqc = T.dequant4x4(ac_lev, qpc)
+    deqc = T.dequant4x4(ac_lev, qpc, tables=tables)
     dc_rec = T.hadamard2x2(dc_lev[..., None, None])[..., 0, 0]
-    deqc[:, 0, 0] = T.dequant_dc_chroma(dc_rec, qpc)
+    deqc[:, 0, 0] = T.dequant_dc_chroma(dc_rec, qpc, tables=tables)
     rc = T.idct4x4_add(to_blocks(predc, 4), deqc)
     return dc_lev, ac_lev, rc.permute(0, 3, 1, 4, 2).reshape(n, 8, 8)
 
@@ -267,12 +297,15 @@ def _force_zero(force_zero, n: int, dev):
     return force_zero.reshape(n).to(torch.bool)
 
 
-def _p_result(lev, rec, cbp_luma, chroma, mbh: int, mbw: int) -> dict:
+def _p_result(lev, rec, cbp_luma, chroma, mbh: int, mbw: int,
+              nr_sum=None) -> dict:
     """The per-frame result dict of a P encode from its luma levels,
-    recon and cbp (force-zero already applied) and its chroma."""
+    recon and cbp (force-zero already applied) and its chroma (and the
+    noise reduction's sums, as `nr_sum`)."""
     n = mbh * mbw
     cdc, cac = pack_chroma(chroma, n)
-    return dict(
+    extra = {} if nr_sum is None else {"nr_sum": nr_sum}
+    return dict(extra,
         cbp_luma=cbp_luma.reshape(mbh, mbw).to(torch.uint8),
         cbp_chroma=cbp_chroma_of(chroma).reshape(mbh, mbw).to(torch.uint8),
         luma_lev=lev.movedim((1, 2), (3, 4)).reshape(mbh, mbw, 256)
@@ -286,10 +319,13 @@ def _p_result(lev, rec, cbp_luma, chroma, mbh: int, mbw: int) -> dict:
 
 def encode_p_frame_device(y, u, v, ref_luma, ref_u, ref_v, mv, qp: int,
                           qpc: int, mbh: int, mbw: int,
-                          force_zero=None, trellis: bool = False) -> dict:
+                          force_zero=None, trellis: bool = False,
+                          tables=None, nr_offset=None) -> dict:
     """16x16 P encode at one qpel MV per MB (mv [mbh,mbw,2]); MBs in
     force_zero [mbh,mbw] drop their residual (the stego pass 2's forced
-    P_SKIPs); `trellis` quantizes luma and chroma by the trellis."""
+    P_SKIPs); `trellis` quantizes luma and chroma by the trellis;
+    `nr_offset` denoises the 4x4 luma (the result then carries
+    `nr_sum`)."""
     n = mbh * mbw
     dev = y.device
     fz = _force_zero(force_zero, n, dev)
@@ -298,16 +334,17 @@ def encode_p_frame_device(y, u, v, ref_luma, ref_u, ref_v, mv, qp: int,
     xs = (ar % mbw) * 16
     mvf = mv.reshape(n, 2)
     pred = mc.mc_luma(ref_luma, ys, xs, mvf)
-    lev, rec, cbp_l = luma_encode(y, pred, qp, fz, trellis)
+    lev, rec, cbp_l, nr_sum = _luma_encode_nr(y, pred, qp, fz, trellis,
+                                              tables, nr_offset)
     chroma = [chroma_encode(mb_tiles(plane, 8),
                             mc.mc_chroma(refp, ys // 2, xs // 2, mvf),
-                            qpc, fz, trellis)
+                            qpc, fz, trellis, tables)
               for plane, refp in ((u, ref_u), (v, ref_v))]
-    return _p_result(lev, rec, cbp_l, chroma, mbh, mbw)
+    return _p_result(lev, rec, cbp_l, chroma, mbh, mbw, nr_sum)
 
 
 def _luma8_select(cur, pred, lev, rec, cbp_luma, fz, qp: int, rd: bool,
-                  trellis: bool = False):
+                  trellis: bool = False, tables=None):
     """The 8x8-transform candidate of every MB and the per-MB choice
     between it and the 4x4 encode (lev, rec, cbp_luma, after `fz`):
     x264's sa8d < satd rule (x264_mb_analyse_transform), or with `rd`
@@ -326,14 +363,16 @@ def _luma8_select(cur, pred, lev, rec, cbp_luma, fz, qp: int, rd: bool,
     blk8 = (cur - pred).reshape(n, 2, 8, 2, 8).transpose(2, 3)
     pred8 = pred.reshape(n, 2, 8, 2, 8).transpose(2, 3)
     coef8 = T8.dct8x8(blk8)
-    lev8 = (trellis_quant8x8(coef8, qp, intra=False) if trellis
-            else T8.quant8x8(coef8, qp, intra=False))
+    lev8 = (trellis_quant8x8(coef8, qp, intra=False, tables=tables)
+            if trellis else T8.quant8x8(coef8, qp, intra=False,
+                                        tables=tables))
     nz8 = (lev8 != 0).any(4).any(3)                              # [n,2,2]
     sc8 = T8.decimate_score64(lev8)
     tot = torch.where(nz8, sc8, 0).sum((1, 2), dtype=_I32)
     keep8 = nz8 & (sc8 >= 4) & (tot >= 6)[:, None, None]
     lev8 = lev8 * keep8[:, :, :, None, None]
-    rec8 = T8.idct8x8_add(pred8, T8.dequant8x8(lev8, qp, intra=False)) \
+    rec8 = T8.idct8x8_add(pred8, T8.dequant8x8(lev8, qp, intra=False,
+                                               tables=tables)) \
         .transpose(2, 3).reshape(n, 16, 16)
     k = keep8.to(_I32)
     cbp8 = k[:, 0, 0] + 2 * k[:, 0, 1] + 4 * k[:, 1, 0] + 8 * k[:, 1, 1]
@@ -364,23 +403,27 @@ def encode_p_frame_device8(y, u, v, ref_luma, ref_u, ref_v, mv8,
                            qp: int, qpc: int, mbh: int, mbw: int,
                            force_zero=None, trans8: bool = False,
                            rd: bool = False, cbp_only: bool = False,
-                           trellis: bool = False) -> dict:
+                           trellis: bool = False, tables=None,
+                           nr_offset=None) -> dict:
     """Partitioned P encode at per-8x8 MVs ([2mbh,2mbw,2] qpel). With
     `trans8` each MB also tries the 8x8 transform (`rd`: by RD cost) and
     the result carries `trans8` [mbh,mbw] bool and `luma8_lev` [mbh,mbw,
     256] int16 ((by8, bx8, r, c) order). `cbp_only` returns just the
     cbp maps (the stego pass 1 when the pass 2 is a full re-encode).
     `trellis` quantizes every luma candidate and the chroma by the
-    trellis."""
+    trellis; `nr_offset` denoises the 4x4 luma (the result, cbp_only's
+    too, then carries `nr_sum`)."""
     n = mbh * mbw
     dev = y.device
     fz = _force_zero(force_zero, n, dev)
 
     pred = assemble_pred_luma(ref_luma, mv8, mbh, mbw)
-    lev, rec, cbp_l = luma_encode(y, pred, qp, fz, trellis)
+    lev, rec, cbp_l, nr_sum = _luma_encode_nr(y, pred, qp, fz, trellis,
+                                              tables, nr_offset)
     if trans8:
         lev, rec, cbp_l, t8, lev8 = _luma8_select(
-            mb_tiles(y, 16), pred, lev, rec, cbp_l, fz, qp, rd, trellis)
+            mb_tiles(y, 16), pred, lev, rec, cbp_l, fz, qp, rd, trellis,
+            tables)
 
     n8 = 4 * mbh * mbw
     ar = torch.arange(n8, device=dev, dtype=_I32)
@@ -393,13 +436,14 @@ def encode_p_frame_device8(y, u, v, ref_luma, ref_u, ref_v, mv8,
         predc = pc4.reshape(2 * mbh, 2 * mbw, 4, 4).permute(0, 2, 1, 3) \
             .reshape(8 * mbh, 8 * mbw)
         chroma.append(chroma_encode(mb_tiles(plane, 8), mb_tiles(predc, 8),
-                                    qpc, fz, trellis))
+                                    qpc, fz, trellis, tables))
     if cbp_only:
         return dict(
+            {} if nr_sum is None else {"nr_sum": nr_sum},
             cbp_luma=cbp_l.reshape(mbh, mbw).to(torch.uint8),
             cbp_chroma=cbp_chroma_of(chroma).reshape(mbh, mbw)
             .to(torch.uint8))
-    out = _p_result(lev, rec, cbp_l, chroma, mbh, mbw)
+    out = _p_result(lev, rec, cbp_l, chroma, mbh, mbw, nr_sum)
     if trans8:
         out["trans8"] = t8.reshape(mbh, mbw)
         out["luma8_lev"] = lev8.reshape(mbh, mbw, 256).to(torch.int16)
@@ -408,8 +452,8 @@ def encode_p_frame_device8(y, u, v, ref_luma, ref_u, ref_v, mv8,
 
 def encode_p_frame_device8_mref(y, u, v, refs_luma, refs_u, refs_v, mv8,
                                 ref8, qp: int, qpc: int, mbh: int, mbw: int,
-                                force_zero=None, trellis: bool = False
-                                ) -> dict:
+                                force_zero=None, trellis: bool = False,
+                                tables=None, nr_offset=None) -> dict:
     """Multi-reference partitioned P encode, the reference's
     `encode_p_frame_device8_mref` (encoder/inter.py:642): refs_* the
     stacked DPB ([R,4,Hp,Wp] luma, [R,Hp,Wp] chroma), ref8 [2mbh,2mbw]
@@ -420,7 +464,8 @@ def encode_p_frame_device8_mref(y, u, v, refs_luma, refs_u, refs_v, mv8,
     dev = y.device
     fz = _force_zero(force_zero, n, dev)
     pred = assemble_pred_luma(refs_luma, mv8, mbh, mbw, ref8=ref8)
-    lev, rec, cbp_l = luma_encode(y, pred, qp, fz, trellis)
+    lev, rec, cbp_l, nr_sum = _luma_encode_nr(y, pred, qp, fz, trellis,
+                                              tables, nr_offset)
     n8 = 4 * mbh * mbw
     ar = torch.arange(n8, device=dev, dtype=_I32)
     ysc = torch.div(ar, 2 * mbw, rounding_mode="floor") * 4
@@ -433,5 +478,5 @@ def encode_p_frame_device8_mref(y, u, v, refs_luma, refs_u, refs_v, mv8,
         predc = pc4.reshape(2 * mbh, 2 * mbw, 4, 4).permute(0, 2, 1, 3) \
             .reshape(8 * mbh, 8 * mbw)
         chroma.append(chroma_encode(mb_tiles(plane, 8), mb_tiles(predc, 8),
-                                    qpc, fz, trellis))
-    return _p_result(lev, rec, cbp_l, chroma, mbh, mbw)
+                                    qpc, fz, trellis, tables))
+    return _p_result(lev, rec, cbp_l, chroma, mbh, mbw, nr_sum)

@@ -22,10 +22,12 @@ from .inter import chroma_encode, cbp_chroma_of, pack_chroma, mb_tiles
 
 def reencode_p_incremental(res: dict, y, u, v, ref_luma, ref_u, ref_v,
                            mv8, idx, fz, qp: int, qpc: int, mbh: int,
-                           mbw: int) -> dict:
+                           mbw: int, tables=None) -> dict:
     """Re-encode the MB subset `idx` with the final MV field and write it
-    into a copy of the pass-1 dict. idx/fz may carry `pad_subset`'s
-    padding (index n); those rows are dropped here."""
+    into a copy of the pass-1 dict, with the inter class of `tables`
+    (None: flat). idx/fz may carry `pad_subset`'s padding (index n);
+    those rows are dropped here. Never under noise reduction: the
+    reference re-encodes every MB there."""
     n = mbh * mbw
     keep = idx < n
     idx32 = idx[keep].to(torch.int32)
@@ -48,7 +50,8 @@ def reencode_p_incremental(res: dict, y, u, v, ref_luma, ref_u, ref_v,
     p8 = mc.mc_luma(ref_luma, ys8, xs8, mvu, 8, 8)
     pred = p8.reshape(cap, 2, 2, 8, 8).permute(0, 1, 3, 2, 4) \
         .reshape(cap, 16, 16)
-    lev, rec, cbp_luma = LP.luma_p_encode(y, pred, qp, idx=idx32, fz=fz)
+    lev, rec, cbp_luma = LP.luma_p_encode(y, pred, qp, idx=idx32, fz=fz,
+                                          tables=tables)
 
     ysc = (8 * my[:, None] + 4 * dy[None, :]).reshape(-1)
     xsc = (8 * mx[:, None] + 4 * dx[None, :]).reshape(-1)
@@ -58,7 +61,7 @@ def reencode_p_incremental(res: dict, y, u, v, ref_luma, ref_u, ref_v,
         predc = pc4.reshape(cap, 2, 2, 4, 4).permute(0, 1, 3, 2, 4) \
             .reshape(cap, 8, 8)
         chroma.append(chroma_encode(mb_tiles(plane, 8)[idx], predc, qpc,
-                                    fz))
+                                    fz, tables=tables))
     cbp_chroma = cbp_chroma_of(chroma)
     cdc, cac = pack_chroma(chroma, cap)
 

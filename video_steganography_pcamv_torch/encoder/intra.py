@@ -8,7 +8,8 @@ Scope of the port: i16x16 + i4x4 + chroma, with the High-profile i8x8,
 the RD choice between the three and trellis quantization of the chosen
 modes' levels (luma DC/AC, 4x4, 8x8 and chroma) as options (`i8x8`,
 `rd`, `trellis`); the mode choices stay SATD (or RD) as in the
-reference.
+reference. Every quant and dequant takes the intra class of the
+encoder's `ops.cqm.QuantTables` (its intra lists and deadzone).
 """
 
 from __future__ import annotations
@@ -85,7 +86,7 @@ def _take_mode(preds, mode):
 
 
 def _i16_mb(enc, top, left, topleft, at, al, qp: int, lam: int,
-            trellis: bool = False):
+            trellis: bool = False, tables=None):
     preds = P.predict_i16x16_all(top, left, topleft, at, al)
     satd = _satd_modes(enc, preds) + lam * const(_UE_SIZE4,
                                                  enc.device)[None, :]
@@ -102,16 +103,16 @@ def _i16_mb(enc, top, left, topleft, at, al, qp: int, lam: int,
     ac[:, 0, 0] = 0
     if trellis:
         from .inter import trellis_quant_luma_dc, trellis_quant_luma_ac
-        dc_lev = trellis_quant_luma_dc(dc_t, qp)
-        ac_lev = trellis_quant_luma_ac(ac, qp, intra=True)
+        dc_lev = trellis_quant_luma_dc(dc_t, qp, tables)
+        ac_lev = trellis_quant_luma_ac(ac, qp, intra=True, tables=tables)
     else:
-        dc_lev = T.quant_dc(dc_t, qp, intra=True)
-        ac_lev = T.quant4x4(ac, qp, intra=True)
+        dc_lev = T.quant_dc(dc_t, qp, intra=True, tables=tables)
+        ac_lev = T.quant4x4(ac, qp, intra=True, tables=tables)
     cbp_luma = (ac_lev != 0).any(4).any(3).any(2).any(1)
 
-    deq = T.dequant4x4(ac_lev, qp)
+    deq = T.dequant4x4(ac_lev, qp, intra=True, tables=tables)
     dc_rec = T.hadamard4x4(dc_lev[..., None, None])[..., 0, 0]
-    deq[:, 0, 0] = T.dequant_dc_luma(dc_rec, qp)
+    deq[:, 0, 0] = T.dequant_dc_luma(dc_rec, qp, tables)
     recon = T.idct4x4_add(to_blocks(pred, 4), deq)
     recon = recon.permute(0, 3, 1, 4, 2).reshape(-1, 16, 16)
     return mode.to(_I32), dc_lev, ac_lev, cbp_luma, recon, best_cost
@@ -124,7 +125,8 @@ def _satd4(a, b):
 
 
 def _i4_mb(enc, top20, left, topleft, at, al, atr, qp: int, lam: int,
-           nb_left_modes, nb_top_modes, trellis: bool = False):
+           nb_left_modes, nb_top_modes, trellis: bool = False,
+           tables=None):
     """Batched i4x4 encode: the 16-block z-scan chain per MB."""
     dev = enc.device
     W = enc.shape[0]
@@ -193,10 +195,11 @@ def _i4_mb(enc, top20, left, topleft, at, al, atr, qp: int, lam: int,
         coef = T.dct4x4((eblk - pred)[..., None, None])
         if trellis:
             from .inter import trellis_quant4x4_planes
-            lev = trellis_quant4x4_planes(coef, qp, intra=True)
+            lev = trellis_quant4x4_planes(coef, qp, intra=True,
+                                          tables=tables)
         else:
-            lev = T.quant4x4(coef, qp, intra=True)
-        deq = T.dequant4x4(lev, qp)
+            lev = T.quant4x4(coef, qp, intra=True, tables=tables)
+        deq = T.dequant4x4(lev, qp, intra=True, tables=tables)
         rec = T.idct4x4_add(pred[..., None, None], deq)[..., 0, 0]
         wt[:, 4 * by:4 * by + 4, 4 * bx:4 * bx + 4] = rec
         m4[:, by, bx] = mode.to(_I32)
@@ -223,7 +226,8 @@ _Z8 = ((0, 0), (0, 1), (1, 0), (1, 1))
 
 
 def _i8_mb(enc, top24, left, topleft, at, al, atr, qp: int, lam: int,
-           nb_left_modes, nb_top_modes, trellis: bool = False):
+           nb_left_modes, nb_top_modes, trellis: bool = False,
+           tables=None):
     """Batched Intra_8x8 encode: the MB's four 8x8 blocks in z-order,
     each one's borders from the blocks before it (x264's i8x8 sweep +
     x264_mb_encode_i8x8). top24 [W, 24]: the above MB's row 15 and the
@@ -301,10 +305,11 @@ def _i8_mb(enc, top24, left, topleft, at, al, atr, qp: int, lam: int,
         coef = T8.dct8x8(eblk - pred)
         if trellis:
             from .inter import trellis_quant8x8
-            lev = trellis_quant8x8(coef, qp, intra=True)
+            lev = trellis_quant8x8(coef, qp, intra=True, tables=tables)
         else:
-            lev = T8.quant8x8(coef, qp, intra=True)
-        rec = T8.idct8x8_add(pred, T8.dequant8x8(lev, qp, intra=True))
+            lev = T8.quant8x8(coef, qp, intra=True, tables=tables)
+        rec = T8.idct8x8_add(pred, T8.dequant8x8(lev, qp, intra=True,
+                                                 tables=tables))
         wt[:, y0:y0 + 8, x0:x0 + 8] = rec
         ctx4[:, cy:cy + 2, cx:cx + 2] = mode.to(_I32)[:, None, None]
         lev_out[:, by8, bx8] = lev
@@ -356,7 +361,7 @@ def _rd_costs(enc, qp: int, mode16, dc_lev, ac_lev, cbpl16, rec16, lev4,
 
 
 def _chroma_mb(enc_u, enc_v, tops, lefts, tl_u, tl_v, at, al, qpc: int,
-               lam: int, trellis: bool = False):
+               lam: int, trellis: bool = False, tables=None):
     """Batched chroma encode with a joint U+V mode decision."""
     (top_u, top_v), (left_u, left_v) = tops, lefts
     pu = P.predict_chroma_all(top_u, left_u, tl_u, at, al)
@@ -379,14 +384,18 @@ def _chroma_mb(enc_u, enc_v, tops, lefts, tl_u, tl_v, at, al, qpc: int,
         if trellis:
             from .inter import (trellis_quant_chroma_dc,
                                 trellis_quant_chroma_ac)
-            dc_lev = trellis_quant_chroma_dc(dc_t, qpc, intra=True)
-            ac_lev = trellis_quant_chroma_ac(ac, qpc, intra=True)
+            dc_lev = trellis_quant_chroma_dc(dc_t, qpc, intra=True,
+                                             tables=tables)
+            ac_lev = trellis_quant_chroma_ac(ac, qpc, intra=True,
+                                             tables=tables)
         else:
-            dc_lev = T.quant_dc(dc_t, qpc, intra=True)        # [W,2,2]
-            ac_lev = T.quant4x4(ac, qpc, intra=True)
-        deq = T.dequant4x4(ac_lev, qpc)
+            dc_lev = T.quant_dc(dc_t, qpc, intra=True,
+                                tables=tables)                 # [W,2,2]
+            ac_lev = T.quant4x4(ac, qpc, intra=True, tables=tables)
+        deq = T.dequant4x4(ac_lev, qpc, intra=True, tables=tables)
         dc_rec = T.hadamard2x2(dc_lev[..., None, None])[..., 0, 0]
-        deq[:, 0, 0] = T.dequant_dc_chroma(dc_rec, qpc)
+        deq[:, 0, 0] = T.dequant_dc_chroma(dc_rec, qpc, intra=True,
+                                           tables=tables)
         recon = T.idct4x4_add(to_blocks(pred, 4), deq)
         recon = recon.permute(0, 3, 1, 4, 2).reshape(-1, 8, 8)
         return dc_lev, ac_lev, recon
@@ -411,12 +420,13 @@ def _z_to_grid(m4_z):
 
 def encode_i_frame(y, u, v, qp: int, qpc: int, mbw: int, mbh: int,
                    lam: int = 0, i8x8: bool = False, rd: bool = False,
-                   trellis: bool = False) -> dict:
+                   trellis: bool = False, tables=None) -> dict:
     """Encode one I frame. y: [16mbh, 16mbw] int32; u, v half size.
     Returns the reference's dict of per-MB decisions, levels and recon
     planes (i4x4 on; `i8x8` adds the Intra_8x8 candidate, `rd` chooses
     between the candidates by RD cost instead of SATD, `trellis`
-    quantizes every candidate's levels by the intra trellis)."""
+    quantizes every candidate's levels by the intra trellis; every
+    quant takes the intra class of `tables`, None: flat)."""
     dev = y.device
     ty, tu, tv = _tile(y, 16), _tile(u, 8), _tile(v, 8)
 
@@ -445,21 +455,21 @@ def encode_i_frame(y, u, v, qp: int, qpc: int, mbw: int, mbh: int,
         left = st["ry"][my, mxc, :, 15]
         tl = st["ry"][myc, mxc, 15, 15]
         mode16, dc_lev, ac_lev, cbpl16, rec16, cost16 = _i16_mb(
-            enc, top, left, tl, at, al, qp, lam, trellis)
+            enc, top, left, tl, at, al, qp, lam, trellis, tables)
 
         nb_lm = st["modes4"][my, mxc, :, 3]
         nb_tm = st["modes4"][myc, mx, 3, :]
         top20 = torch.cat([top, st["ry"][myc, mxr, 15, 0:4]], dim=1)
         m4, lev4, cbpl4, rec4, cost4, mb4bits = _i4_mb(
             enc, top20, left, tl, at, al, atr, qp, lam, nb_lm, nb_tm,
-            trellis)
+            trellis, tables)
         use4 = cost4 < cost16
         W = enc.shape[0]
         if i8x8:
             top24 = torch.cat([top, st["ry"][myc, mxr, 15, 0:8]], dim=1)
             m8, lev8, cbpl8, rec8, cost8, ctx8, mb8bits = _i8_mb(
                 enc, top24, left, tl, at, al, atr, qp, lam, nb_lm, nb_tm,
-                trellis)
+                trellis, tables)
             use8 = (cost8 < cost16) & (cost8 <= cost4)
             use4 = use4 & ~use8
         else:
@@ -495,7 +505,7 @@ def encode_i_frame(y, u, v, qp: int, qpc: int, mbw: int, mbh: int,
             (st["ru"][myc, mx, 7, :], st["rv"][myc, mx, 7, :]),
             (st["ru"][my, mxc, :, 7], st["rv"][my, mxc, :, 7]),
             st["ru"][myc, mxc, 7, 7], st["rv"][myc, mxc, 7, 7], at, al,
-            qpc, lam, trellis)
+            qpc, lam, trellis, tables)
 
         st["ry"][my, mx] = rec
         st["ru"][my, mx] = ruu

@@ -228,7 +228,7 @@ def ref8_from_partition(st: dict, part, mbh: int, mbw: int):
 def analyse_p_frame_parts_mref(y, refs8, n_valid: int, prev_mv, lam: int,
                                qp: int, rng: int, mbh: int, mbw: int,
                                num_ref: int, allow_parts: bool = True,
-                               tail_kernel: bool = False):
+                               tail_kernel: bool = False, tables=None):
     """Multi-reference partition analysis, the reference's
     `analyse_p_frame_parts_mref` (partition.py:812) with its analyse tail
     on the windows: B1 on plane 0 of each stacked entry (`refs8` [R, 4,
@@ -237,6 +237,7 @@ def analyse_p_frame_parts_mref(y, refs8, n_valid: int, prev_mv, lam: int,
     B9 with it, then B3' -> B4' (`ops.probe.analyse_tail`). The probe
     maps do not depend on the MV predictor, so they are computed here;
     `probe_combine` runs once the host scan has given the predictors.
+    B4' quantizes with the inter class of `tables` (None: flat).
     Returns (part, mv8 qpel, ref8 [2mbh, 2mbw] int32, SK, SP, sc8)."""
     pred = (torch.zeros_like(prev_mv) if tail_kernel
             else prev_mv >> 2).contiguous()
@@ -248,7 +249,8 @@ def analyse_p_frame_parts_mref(y, refs8, n_valid: int, prev_mv, lam: int,
     ref8 = ref8_from_partition(st, part, mbh, mbw)
     windows = gather_windows8(refs8, mvfp8, mbh, mbw, ref8=ref8)
     mv8, _r_idx8, SK, SP, sc8 = PR.analyse_tail(
-        y, windows, part, mvfp8, prev_mv.contiguous(), lam, qp, mbh, mbw)
+        y, windows, part, mvfp8, prev_mv.contiguous(), lam, qp, mbh, mbw,
+        tables=tables)
     return part, mv8, ref8, SK, SP, sc8
 
 
@@ -323,13 +325,17 @@ def p_stage1_stego(y, u, v, ref_luma, ref_u, ref_v, prev_mv, qp: int,
                    qpc: int, lam: int, cost_mv, rng: int, mbh: int,
                    mbw: int, extra=None, tail_kernel: bool = False,
                    trans8: bool = False, rd: bool = False,
-                   trellis: bool = False):
+                   trellis: bool = False, tables=None, nr_offset=None):
     """Fused P stage 1: analyse -> pass-1 encode -> device scan -> RCA
     stego costs. `tail_kernel` picks B1's MV predictor: zero (True, the
     reference's accelerator branch) or prev_mv >> 2 (False, its CPU
-    branch); see the module docstring. `trans8`/`rd`/`trellis` go to the
-    pass-1 encode, which then returns only its cbp maps (the reference's
-    pass 2 is a full re-encode under the 8x8 transform or trellis).
+    branch); see the module docstring. `trans8`/`rd`/`trellis`/
+    `nr_offset` go to the pass-1 encode, which then returns only its cbp
+    maps (the reference's pass 2 is a full re-encode under the 8x8
+    transform, trellis or noise reduction) and, with `nr_offset`, the
+    pass-1 noise-reduction sums as res["nr_sum"]. B4 and both encodes
+    quantize with the inter class of `tables` (None: flat); noise
+    reduction reaches the encode, never B4's probe.
     Returns (packed f32, res) with the reference's layout
       [part n | mv8 8n | cbp_l n | cbp_c n | skip n | alt 8n | rho 4n
        | extra]."""
@@ -340,10 +346,13 @@ def p_stage1_stego(y, u, v, ref_luma, ref_u, ref_v, prev_mv, qp: int,
     mvfp8 = mvfp8.contiguous()
     windows = gather_windows8(ref8, mvfp8, mbh, mbw)
     mv8, _r_idx8, SK, SP, sc8 = PR.analyse_tail(
-        y, windows, part, mvfp8, prev_mv.contiguous(), lam, qp, mbh, mbw)
+        y, windows, part, mvfp8, prev_mv.contiguous(), lam, qp, mbh, mbw,
+        tables=tables)
     res = INTER.encode_p_frame_device8(
         y, u, v, ref_luma, ref_u, ref_v, mv8, qp, qpc, mbh, mbw,
-        trans8=trans8, rd=rd, cbp_only=trans8 or trellis, trellis=trellis)
+        trans8=trans8, rd=rd,
+        cbp_only=trans8 or trellis or nr_offset is not None,
+        trellis=trellis, tables=tables, nr_offset=nr_offset)
     cbp_l = res["cbp_luma"].to(_I32)
     cbp_c = res["cbp_chroma"].to(_I32)
     skip, _mvd, mvp_u, _ = scan_p_device(part, mv8, cbp_l, cbp_c, mbh, mbw)

@@ -23,18 +23,30 @@ the wrapper takes them as `levels`: the kernel's second entry skips the
 transform and the quant and runs the rest as above, the reference's
 `luma_p_encode(..., trellis=True)`.
 
+The quant tables are the caller's (`tables`, an `ops.cqm.QuantTables`:
+its inter class; None: flat). With `nr_offset` (int32 [4, 4], the
+encoder's running noise-reduction offsets) the DCT entry takes its
+noise-reduction instance, the reference's `luma_p_encode(...,
+nr_offset=)`: the per-position sums of |coef| over every block of the
+call, before the denoise, come back as a fourth result, and each AC
+coefficient is pulled toward zero by its offset before the quant.
+
 On a CPU tensor the wrapper runs its plain version; on a CUDA tensor it
 launches its kernel, counted in `luma_p_encode.launches` (the levels-in
-entry in `luma_p_encode.levels_launches`), or raises.
+entry in `luma_p_encode.levels_launches`, the noise-reduction instance
+also in `luma_p_encode.nr_launches`), or raises.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
 
 from . import const
 from . import transform as T
+from .cqm import FLAT
 from .. import kernels
 from .blocks import mb_tiles, to_blocks
 
@@ -86,17 +98,34 @@ def _cur_tiles(y, n: int, idx):
     return tiles[torch.arange(n, device=y.device) % tiles.shape[0]]
 
 
+def denoise(coef, nr_offset):
+    """x264_denoise_dct (common/quant.c:180) on [N, 4, 4, BY, BX]
+    coefficient planes: (the per-position sums of |coef| [4, 4] int32,
+    before the denoise; the planes with every AC coefficient set to
+    sign(c) * max(|c| - offset, 0))."""
+    absx = torch.abs(coef)
+    nr_sum = absx.sum((0, 3, 4), dtype=_I32)
+    off = nr_offset.reshape(4, 4).to(_I32).clone()
+    off[0, 0] = 0
+    newabs = torch.clamp(absx - off[None, :, :, None, None], min=0)
+    return nr_sum, torch.sign(coef) * newabs
+
+
 def luma_p_encode_plain(y, pred, qp: int, idx=None, fz=None,
-                        lev: bool = True, levels=None):
-    """Residual -> 4x4 DCT -> inter quant (or the given `levels`) ->
-    decimation (per 8x8 score >= 4, per MB sum of the kept 8x8 scores >=
-    6) -> force-zero -> dequant -> IDCT -> recon, and the luma cbp of the
-    kept levels."""
+                        lev: bool = True, levels=None, tables=None,
+                        nr_offset=None):
+    """Residual -> 4x4 DCT -> (denoise) -> inter quant (or the given
+    `levels`) -> decimation (per 8x8 score >= 4, per MB sum of the kept
+    8x8 scores >= 6) -> force-zero -> dequant -> IDCT -> recon, and the
+    luma cbp of the kept levels (and the denoise's sums)."""
     n = pred.shape[0]
+    nr_sum = None
     if levels is None:
         cur = _cur_tiles(y, n, idx)
-        levels = T.quant4x4(T.dct4x4(to_blocks(cur - pred, 4)), qp,
-                            intra=False)
+        coef = T.dct4x4(to_blocks(cur - pred, 4))
+        if nr_offset is not None:
+            nr_sum, coef = denoise(coef, nr_offset)
+        levels = T.quant4x4(coef, qp, intra=False, tables=tables)
     sc = decimate_score(zigzag_gather(levels))               # [N,4,4]
     sc8 = sc.reshape(n, 2, 2, 2, 2).sum((2, 4), dtype=_I32)
     keep8 = sc8 >= 4
@@ -106,12 +135,15 @@ def luma_p_encode_plain(y, pred, qp: int, idx=None, fz=None,
         keep = keep & ~fz.reshape(n, 1, 1).to(torch.bool)
     keep_blk = keep.repeat_interleave(2, 1).repeat_interleave(2, 2)
     levels = levels * keep_blk[:, None, None, :, :]
-    rec = T.idct4x4_add(to_blocks(pred, 4), T.dequant4x4(levels, qp))
+    rec = T.idct4x4_add(to_blocks(pred, 4),
+                        T.dequant4x4(levels, qp, tables=tables))
     rec = rec.permute(0, 3, 1, 4, 2).reshape(n, 16, 16)
-    return (levels if lev else None), rec, cbp_luma_of(levels)
+    out = (levels if lev else None), rec, cbp_luma_of(levels)
+    return out if nr_offset is None else out + (nr_sum,)
 
 
-# per-qp [16] tables in (4r + c) order: quant mf, inter bias, dequant mf
+# the flat per-qp [16] tables in (4r + c) order: quant mf, inter bias,
+# dequant mf (the check entries' constants)
 MF16 = [T.QUANT4_MF[q].reshape(16).copy() for q in range(52)]
 BIAS16 = [T.QUANT4_BIAS_INTER[q].reshape(16).copy() for q in range(52)]
 DMF16 = [T.DEQUANT4_MF[q].reshape(16).copy() for q in range(6)]
@@ -119,23 +151,28 @@ DMF16 = [T.DEQUANT4_MF[q].reshape(16).copy() for q in range(6)]
 _VP, _CI = kernels.VP, kernels.CI
 
 
-def _check(y, pred, idx, fz, levels=None) -> None:
+def _check(y, pred, idx, fz, levels=None, nr_offset=None) -> None:
     """The input contract on every device: an int32 plane of 16x16 MBs,
     int32 [N, 16, 16] predictions, int32 [N] MB numbers inside the
-    plane, bool [N] force-zero flags, int32 [N, 4, 4, 4, 4] levels, all
-    on y's device; on the card also contiguous and, for y and pred,
-    16-byte aligned."""
+    plane, bool [N] force-zero flags, int32 [N, 4, 4, 4, 4] levels,
+    int32 [4, 4] noise-reduction offsets (not with levels), all on y's
+    device; on the card also contiguous and, for y and pred, 16-byte
+    aligned."""
     fn = "luma_p_encode"
     if y.dim() != 2 or y.shape[0] % 16 or y.shape[1] % 16:
         raise ValueError("%s: y shape %s is not a plane of 16x16 MBs"
                          % (fn, tuple(y.shape)))
     n = pred.shape[0]
+    if levels is not None and nr_offset is not None:
+        raise ValueError("%s: nr_offset with levels (the trellis path "
+                         "denoises before the trellis)" % fn)
     for name, t, dtype, shape in (("y", y, _I32, tuple(y.shape)),
                                   ("pred", pred, _I32, (n, 16, 16)),
                                   ("idx", idx, _I32, (n,)),
                                   ("fz", fz, torch.bool, (n,)),
                                   ("levels", levels, _I32,
-                                   (n, 4, 4, 4, 4))):
+                                   (n, 4, 4, 4, 4)),
+                                  ("nr_offset", nr_offset, _I32, (4, 4))):
         if t is None:
             continue
         if y.is_cuda:
@@ -163,7 +200,7 @@ def _check(y, pred, idx, fz, levels=None) -> None:
 
 
 def luma_p_encode(y, pred, qp: int, idx=None, fz=None, lev: bool = True,
-                  levels=None):
+                  levels=None, tables=None, nr_offset=None):
     """Kernel B8 fused, replacing `dct_quant_pallas`
     (video_steganography_pcamv_tpu/ops/pallas_kernels.py:175), the
     decimation of `luma_p_encode_fast` and `deq_idct_pallas`
@@ -174,23 +211,32 @@ def luma_p_encode(y, pred, qp: int, idx=None, fz=None, lev: bool = True,
     i % (mbh mbw); fz [N] bool, MBs that keep no residual, or None; lev
     False skips the levels; levels [N, 4(r), 4(c), 4(by), 4(bx)] int32,
     the quantized levels to start from (the trellis's; y and idx are
-    then not read), or None. Returns (lev [N, 4, 4, 4, 4] int32 or None,
-    rec [N, 16, 16] int32, cbp_luma [N] int32)."""
+    then not read), or None; tables the `ops.cqm.QuantTables` whose inter
+    class quantizes (None: flat); nr_offset [4, 4] int32 noise-reduction
+    offsets, or None. Returns (lev [N, 4, 4, 4, 4] int32 or None, rec [N,
+    16, 16] int32, cbp_luma [N] int32), and with nr_offset also nr_sum
+    [4, 4] int32."""
     if not 0 <= qp <= 51:
         raise ValueError("luma_p_encode: qp %d outside [0, 51]" % qp)
-    _check(y, pred, idx, fz, levels)
+    _check(y, pred, idx, fz, levels, nr_offset)
     if not y.is_cuda:
-        return luma_p_encode_plain(y, pred, qp, idx, fz, lev, levels)
+        return luma_p_encode_plain(y, pred, qp, idx, fz, lev, levels,
+                                   tables, nr_offset)
     n = pred.shape[0]
     dev = y.device
     rec = torch.empty((n, 16, 16), dtype=_I32, device=dev)
     cbp = torch.empty((n,), dtype=_I32, device=dev)
     out = (torch.empty((n, 4, 4, 4, 4), dtype=_I32, device=dev)
            if lev else None)
+    # zeroed on the launch's stream; the kernel adds into it
+    nr_sum = (None if nr_offset is None
+              else torch.zeros((4, 4), dtype=_I32, device=dev))
     if n == 0:
-        return out, rec, cbp
+        return (out, rec, cbp) + (() if nr_sum is None else (nr_sum,))
     ptr = kernels.ptr
-    dmf = ptr(const(DMF16[qp % 6], dev))
+    # the inter tables' three [16] rows, each 64 bytes into the last
+    base = (FLAT if tables is None else tables).qtab(qp, dev).data_ptr()
+    mf, bias, dmf = (ctypes.c_void_p(base + 64 * i) for i in range(3))
     fzp = None if fz is None else ptr(fz)
     outp = None if out is None else ptr(out)
     if levels is not None:
@@ -203,15 +249,20 @@ def luma_p_encode(y, pred, qp: int, idx=None, fz=None, lev: bool = True,
         return out, rec, cbp
     fn = kernels.entry("pcamv_luma_p_encode",
                        [_VP] * 2 + [_CI] * 2 + [_VP] * 2 + [_CI]
-                       + [_VP] * 3 + [_CI] + [_VP] * 4)
+                       + [_VP] * 3 + [_CI] + [_VP] * 6)
     rc = fn(ptr(y), ptr(pred), y.shape[1], y.numel() // 256,
-            None if idx is None else ptr(idx), fzp, n,
-            ptr(const(MF16[qp], dev)), ptr(const(BIAS16[qp], dev)), dmf,
-            qp // 6 - 4, outp, ptr(rec), ptr(cbp), kernels.stream(y))
+            None if idx is None else ptr(idx), fzp, n, mf, bias, dmf,
+            qp // 6 - 4, None if nr_sum is None else ptr(nr_offset),
+            None if nr_sum is None else ptr(nr_sum), outp, ptr(rec),
+            ptr(cbp), kernels.stream(y))
     kernels.check(rc, "pcamv_luma_p_encode")
     luma_p_encode.launches += 1
-    return out, rec, cbp
+    if nr_sum is None:
+        return out, rec, cbp
+    luma_p_encode.nr_launches += 1
+    return out, rec, cbp, nr_sum
 
 
 luma_p_encode.launches = 0
 luma_p_encode.levels_launches = 0
+luma_p_encode.nr_launches = 0

@@ -43,6 +43,7 @@ import torch
 from . import const
 from . import lumap as LP
 from . import transform as T
+from .cqm import FLAT
 from .blocks import from_blocks, to_blocks
 from .. import kernels
 from ..encoder import inter as INTER
@@ -229,12 +230,13 @@ _LATTICE = sorted({(cy + ny, cx + nx) for cy, cx in _CENTERS
 
 
 def probe_maps_plain(cur_y, windows, r_idx8, qp: int, mbh: int, mbw: int,
-                     decimate: bool = True):
+                     decimate: bool = True, tables=None):
     """Per-version probe SATD maps and decimate scores (the heavy half
     of the RCA probe stage), from the 13 pred rows and 45 WHT rows
-    around each 8x8's chosen row r_idx8, built from the windows.
-    Returns (SK [13,9,n,4], SP [13,9,n,4], sc8 [13,n,4]); with decimate
-    off, SP = SK and sc8 = 0."""
+    around each 8x8's chosen row r_idx8, built from the windows,
+    quantized with the inter class of `tables` (None: flat). Returns (SK
+    [13,9,n,4], SP [13,9,n,4], sc8 [13,n,4]); with decimate off, SP = SK
+    and sc8 = 0."""
     n = mbh * mbw
     roy = torch.div(r_idx8, 13, rounding_mode="floor") - 6
     rox = r_idx8 % 13 - 6
@@ -257,8 +259,10 @@ def probe_maps_plain(cur_y, windows, r_idx8, qp: int, mbh: int, mbw: int,
         b8 = pred_row(roy + cen[0], rox + cen[1]).to(_I32)
         pv = sp_to_z(b8.reshape(2 * mbh, 2 * mbw, 8, 8), mbh, mbw) \
             .reshape(n * 4, 8, 8)
-        lev = T.quant4x4(T.dct4x4(to_blocks(curz - pv, 4)), qp, intra=False)
-        rec = T.idct4x4_add(to_blocks(pv, 4), T.dequant4x4(lev, qp))
+        lev = T.quant4x4(T.dct4x4(to_blocks(curz - pv, 4)), qp, intra=False,
+                         tables=tables)
+        rec = T.idct4x4_add(to_blocks(pv, 4),
+                            T.dequant4x4(lev, qp, tables=tables))
         wk = wht8_flat(from_blocks(rec)).reshape(n, 4, 64)
         sels = torch.stack([sel_whtz[(cen[0] + d0, cen[1] + d1)]
                             for d0, d1 in _NB])               # [9,n,4,64]
@@ -360,20 +364,16 @@ def subpel(cur_y, windows, part, mvfp8, prev_mv, lam: int, mbh: int,
 subpel.launches = 0
 
 
-def quant_params(qp: int) -> np.ndarray:
-    """The inter quant tables at qp in (vr, vh) order: mf [16] | bias
-    [16] | dequant mf [16], int32 (B4's per-qp constants)."""
-    return np.concatenate([T.QUANT4_MF[qp].reshape(16),
-                           T.QUANT4_BIAS_INTER[qp].reshape(16),
-                           T.DEQUANT4_MF[qp % 6].reshape(16)]) \
-        .astype(np.int32)
-
-
-_QPARAMS = [quant_params(q) for q in range(52)]
+def quant_params(qp: int, tables=None, device="cpu") -> torch.Tensor:
+    """The inter quant tables of `tables` (None: flat) at qp in (vr, vh)
+    order: mf [16] | bias [16] | dequant mf [16], int32 on `device`
+    (B4's per-qp constants, the reference's QUANT4_MF_P,
+    QUANT4_BIAS_INTER and DEQUANT4_MF_P, probe_pallas.py:493-497)."""
+    return (FLAT if tables is None else tables).qtab(qp, device)
 
 
 def probe_maps(cur_y, windows, r_idx8, qp: int, mbh: int, mbw: int,
-               decimate: bool = True):
+               decimate: bool = True, tables=None):
     """Kernel B4, replacing `probe_maps_pallas`
     (video_steganography_pcamv_tpu/ops/probe_pallas.py:481), with the
     rows it reads of `qpel_tables_pallas` (probe_pallas.py:221) built
@@ -385,12 +385,13 @@ def probe_maps(cur_y, windows, r_idx8, qp: int, mbh: int, mbw: int,
     rows it builds per 8x8).
 
     cur_y [16mbh,16mbw] int32, windows [N8,4,16,16] uint8, r_idx8 [N8]
-    int32 (B3's chosen rows, in the +-3 box) -> (SK [13,9,n,4], SP
-    [13,9,n,4], sc8 [13,n,4]) int32; with decimate off, SP = SK and
-    sc8 = 0."""
+    int32 (B3's chosen rows, in the +-3 box); tables the encoder's
+    `ops.cqm.QuantTables` (its inter class and deadzone; None: flat) ->
+    (SK [13,9,n,4], SP [13,9,n,4], sc8 [13,n,4]) int32; with decimate
+    off, SP = SK and sc8 = 0."""
     if cur_y.device.type == "cpu":
         return probe_maps_plain(cur_y, windows, r_idx8, qp, mbh, mbw,
-                                decimate)
+                                decimate, tables)
     n = mbh * mbw
     n8 = 4 * n
     chk = kernels.check_tensor
@@ -400,7 +401,7 @@ def probe_maps(cur_y, windows, r_idx8, qp: int, mbh: int, mbw: int,
     if not 0 <= qp <= 51:
         raise ValueError("probe_maps: qp %d outside [0, 51]" % qp)
     dev = cur_y.device
-    qtab = const(_QPARAMS[qp], dev)
+    qtab = quant_params(qp, tables, dev)
     SK = torch.empty((13, 9, n, 4), dtype=_I32, device=dev)
     SP = torch.empty((13, 9, n, 4), dtype=_I32, device=dev)
     sc8 = torch.empty((13, n, 4), dtype=_I32, device=dev)
@@ -418,18 +419,18 @@ probe_maps.launches = 0
 
 
 def analyse_tail(cur_y, windows, part, mvfp8, prev_mv, lam: int, qp: int,
-                 mbh: int, mbw: int, decimate: bool = True):
+                 mbh: int, mbw: int, decimate: bool = True, tables=None):
     """B3 -> B4 on the windows (B2 fused into both), the contract of
     `analyse_tail_pallas`
     (video_steganography_pcamv_tpu/ops/probe_pallas.py:574).
 
     cur_y [16mbh,16mbw] int32; windows [N8,4,16,16] uint8 (spatial
     order, `gather_windows8` layout); part [mbh,mbw]; mvfp8 [2mbh,2mbw,2]
-    full-pel; prev_mv [mbh,mbw,2] qpel predictor. Returns (mv8
-    [2mbh,2mbw,2] qpel, r_idx8 [N8] spatial, SK [13,9,n,4], SP, sc8
-    [13,n,4])."""
+    full-pel; prev_mv [mbh,mbw,2] qpel predictor; tables B4's quant
+    tables (None: flat). Returns (mv8 [2mbh,2mbw,2] qpel, r_idx8 [N8]
+    spatial, SK [13,9,n,4], SP, sc8 [13,n,4])."""
     mv8, r_idx8 = subpel(cur_y, windows, part, mvfp8, prev_mv, lam, mbh,
                          mbw)
     SK, SP, sc8 = probe_maps(cur_y, windows, r_idx8, qp, mbh, mbw,
-                             decimate)
+                             decimate, tables)
     return mv8, r_idx8, SK, SP, sc8

@@ -1,7 +1,10 @@
 """H.264 integer transforms + quantization (port of ops/transform.py).
 
-Flat scaling lists only (the serving configuration). All arithmetic is
-int32 so that wrap-around, where it can occur, matches the reference.
+The quant and dequant functions take the encoder's `ops.cqm.QuantTables`
+(`tables`; None: the flat lists and default deadzones) and pick the
+intra or inter class. All arithmetic is int32 so that wrap-around
+matches the reference: under a custom list the quant product (bias +
+|c|) * mf and the dequant product level * dmf can leave int32 and wrap.
 Tensors use the coefficient-plane layout [..., 4(r), 4(c), BY, BX].
 """
 
@@ -10,7 +13,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import const
 
 _DEQUANT4_SCALE = np.array([
     [10, 13, 16], [11, 14, 18], [13, 16, 20],
@@ -21,13 +23,20 @@ _QUANT4_SCALE = np.array([
     dtype=np.int64)
 
 
-def _build_tables(deadzone_intra: int = 21, deadzone_inter: int = 11):
-    """x264_cqm_init with flat (16) scaling lists (common/set.c:68-151)."""
+def _build_tables(scaling=None, deadzone_intra: int = 21,
+                  deadzone_inter: int = 11):
+    """4x4 quant/dequant tables for one scaling list (x264_cqm_init,
+    common/set.c:68-151: quant_mf = SHIFT(DIV(def * 16, scale), q / 6 -
+    1), dequant_mf = def * scale, bias = min(DIV(deadzone << 10, mf),
+    (1 << 15) / mf)). scaling: [16] raster list, None = flat 16.
+    Returns (quant_mf [52,4,4], bias_intra, bias_inter, dequant_mf
+    [6,4,4]) int32."""
     i = np.arange(16)
     cls = ((i & 1) + ((i >> 2) & 1)).reshape(4, 4)
     def_quant = _QUANT4_SCALE[:, cls]
     def_dequant = _DEQUANT4_SCALE[:, cls]
-    sc = np.full((4, 4), 16, np.int64)
+    sc = (np.full((4, 4), 16, np.int64) if scaling is None
+          else np.asarray(scaling, np.int64).reshape(4, 4))
     quant_mf = np.zeros((52, 4, 4), np.int64)
     bias_intra = np.zeros((52, 4, 4), np.int64)
     bias_inter = np.zeros((52, 4, 4), np.int64)
@@ -123,47 +132,63 @@ def hadamard2x2(x: torch.Tensor) -> torch.Tensor:
                         torch.stack([o10, o11], dim=-3)], dim=-4)
 
 
-def _plane_table(table: np.ndarray, qp: int, device) -> torch.Tensor:
-    return const(table, device)[qp][:, :, None, None]
+def _tables(tables):
+    """The encoder's `ops.cqm.QuantTables`, or the flat one for None."""
+    if tables is None:
+        from .cqm import FLAT
+        return FLAT
+    return tables
 
 
-def quant4x4(coef: torch.Tensor, qp: int, intra: bool) -> torch.Tensor:
-    """sign(c) * ((bias + |c|) * mf >> 16)."""
-    mf = _plane_table(QUANT4_MF, qp, coef.device)
-    bias = _plane_table(QUANT4_BIAS_INTRA if intra else QUANT4_BIAS_INTER,
-                        qp, coef.device)
+def quant4x4(coef: torch.Tensor, qp: int, intra: bool,
+             tables=None) -> torch.Tensor:
+    """sign(c) * ((bias + |c|) * mf >> 16) with the class's tables."""
+    qt, li = _tables(tables), 0 if intra else 1
+    mf = qt.dev("mf4", coef.device)[li, qp][:, :, None, None]
+    bias = qt.dev("bias4", coef.device)[li, qp][:, :, None, None]
     mag = (bias + torch.abs(coef)) * mf >> 16
     return torch.sign(coef) * mag
 
 
-def dequant4x4(level: torch.Tensor, qp: int) -> torch.Tensor:
-    """Normative AC dequant; qbits = qp/6 - 4 (flat lists: intra and
-    inter share one table)."""
-    dmf = _plane_table(DEQUANT4_MF, qp % 6, level.device)
+def dequant4x4(level: torch.Tensor, qp: int, intra: bool = False,
+               tables=None) -> torch.Tensor:
+    """Normative AC dequant with the class's list: level * dmf <<
+    qbits, or (level * dmf + 2^(-qbits-1)) >> -qbits below qp 24
+    (qbits = qp/6 - 4; flat lists round nothing there, custom ones
+    do)."""
+    qt, li = _tables(tables), 0 if intra else 1
+    dmf = qt.dev("dmf4", level.device)[li, qp % 6][:, :, None, None]
     qbits = qp // 6 - 4
     if qbits >= 0:
         return (level * dmf) << qbits
     return (level * dmf + (1 << (-qbits - 1))) >> (-qbits)
 
 
-def quant_dc(coef: torch.Tensor, qp: int, intra: bool) -> torch.Tensor:
-    mf = int(QUANT4_MF[qp, 0, 0]) >> 1
-    bias_t = QUANT4_BIAS_INTRA if intra else QUANT4_BIAS_INTER
-    bias = int(bias_t[qp, 0, 0]) << 1
+def quant_dc(coef: torch.Tensor, qp: int, intra: bool,
+             tables=None) -> torch.Tensor:
+    """DC quant: mf[0] >> 1, bias[0] << 1 (encoder/macroblock.c:252)."""
+    qt, li = _tables(tables), 0 if intra else 1
+    mf = int(qt.mf4[li, qp, 0, 0]) >> 1
+    bias = int(qt.bias4[li, qp, 0, 0]) << 1
     mag = (bias + torch.abs(coef)) * mf >> 16
     return torch.sign(coef) * mag
 
 
-def dequant_dc_luma(dc: torch.Tensor, qp: int) -> torch.Tensor:
-    dmf = int(DEQUANT4_MF[qp % 6, 0, 0])
+def dequant_dc_luma(dc: torch.Tensor, qp: int, tables=None) -> torch.Tensor:
+    """Intra 16x16 DC dequant (always the intra list), qbits = qp/6 -
+    6, after the inverse Hadamard."""
+    dmf = int(_tables(tables).dmf4[0, qp % 6, 0, 0])
     qbits = qp // 6 - 6
     if qbits >= 0:
         return (dc * dmf) << qbits
     return (dc * dmf + (1 << (-qbits - 1))) >> (-qbits)
 
 
-def dequant_dc_chroma(dc: torch.Tensor, qp: int) -> torch.Tensor:
-    dmf = int(DEQUANT4_MF[qp % 6, 0, 0])
+def dequant_dc_chroma(dc: torch.Tensor, qp: int, intra: bool = False,
+                      tables=None) -> torch.Tensor:
+    """Chroma DC dequant with the class's list, qbits = qp/6 - 5, no
+    rounding term."""
+    dmf = int(_tables(tables).dmf4[0 if intra else 1, qp % 6, 0, 0])
     qbits = qp // 6 - 5
     if qbits > 0:
         return (dc * dmf) << qbits

@@ -1,10 +1,11 @@
 """High-profile 8x8 transform (port of ops/transform8.py): the integer
-DCT8/IDCT8, quant/dequant with the flat 8x8 tables, the 8x8 zigzag and
+DCT8/IDCT8, quant/dequant with the 8x8 tables, the 8x8 zigzag and
 x264's 64-coefficient decimation score.
 
-Flat scaling lists only: `build_tables8` reproduces x264_cqm_init for the
-default list (a CQM is outside the port). Arithmetic is int32, as the
-reference computes it with 64-bit types off.
+`build_tables8` reproduces x264_cqm_init for any pair of 8x8 lists; the
+quant and dequant take the encoder's `ops.cqm.QuantTables` (None: flat
+lists, default deadzones). Arithmetic is int32, as the reference
+computes it with 64-bit types off: the quant and dequant products wrap.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import numpy as np
 import torch
 
 from . import const
+from .transform import _tables
 
 _I32 = torch.int32
 
@@ -43,17 +45,21 @@ def pos_class8() -> np.ndarray:
     return _QUANT8_SCAN[((i >> 1) & 12) | (i & 3)].reshape(8, 8)
 
 
-def build_tables8(dz_intra: int = 21, dz_inter: int = 11):
+def build_tables8(scaling_intra=None, scaling_inter=None,
+                  dz_intra: int = 21, dz_inter: int = 11):
     """(quant_mf [2,52,8,8], bias [2,52,8,8], dequant_mf [2,6,8,8])
-    int32, list 0 intra and 1 inter, for the flat scaling list (16):
-    quant8_mf = SHIFT(DIV(def * 16, 16), q / 6), dequant8_mf = def * 16,
-    bias = min(DIV(deadzone << 10, mf), (1 << 15) / mf)."""
+    int32, list 0 intra and 1 inter, for the given [64] raster lists
+    (None: flat 16): quant8_mf = SHIFT(DIV(def * 16, scale), q / 6),
+    dequant8_mf = def * scale, bias = min(DIV(deadzone << 10, mf),
+    (1 << 15) / mf)."""
     cls = pos_class8()
-    sc = 16
     out_q = np.zeros((2, 52, 8, 8), np.int64)
     out_bi = np.zeros((2, 52, 8, 8), np.int64)
     out_dq = np.zeros((2, 6, 8, 8), np.int64)
-    for li, dz in enumerate((dz_intra, dz_inter)):
+    for li, (lst, dz) in enumerate(((scaling_intra, dz_intra),
+                                    (scaling_inter, dz_inter))):
+        sc = (np.full((8, 8), 16, np.int64) if lst is None
+              else np.asarray(lst, np.int64).reshape(8, 8))
         for q in range(52):
             base = (_QUANT8_SCALE[q % 6][cls] * 16 + sc // 2) // sc
             s = q // 6
@@ -133,22 +139,23 @@ def idct8x8_add(pred: torch.Tensor, coef: torch.Tensor) -> torch.Tensor:
     return torch.clamp(pred.to(_I32) + (r >> 6), 0, 255)
 
 
-def quant8x8(coef: torch.Tensor, qp: int, intra: bool) -> torch.Tensor:
+def quant8x8(coef: torch.Tensor, qp: int, intra: bool,
+             tables=None) -> torch.Tensor:
     """sign(c) * (((bias + |c|) * mf) >> 16) over [..., 8, 8], int32."""
-    li = 0 if intra else 1
-    mf = const(QUANT8_MF, coef.device)[li, qp]
-    bias = const(QUANT8_BIAS, coef.device)[li, qp]
+    qt, li = _tables(tables), 0 if intra else 1
+    mf = qt.dev("mf8", coef.device)[li, qp]
+    bias = qt.dev("bias8", coef.device)[li, qp]
     c = coef.to(_I32)
     mag = ((bias + torch.abs(c)) * mf) >> 16
     return torch.sign(c) * mag
 
 
-def dequant8x8(level: torch.Tensor, qp: int, intra: bool = False
-               ) -> torch.Tensor:
+def dequant8x8(level: torch.Tensor, qp: int, intra: bool = False,
+               tables=None) -> torch.Tensor:
     """x264 dequant_8x8: qbits = qp / 6 - 6; a left shift, or a rounded
     right shift below qp 36."""
-    li = 0 if intra else 1
-    dmf = const(DEQUANT8_MF, level.device)[li, qp % 6]
+    qt, li = _tables(tables), 0 if intra else 1
+    dmf = qt.dev("dmf8", level.device)[li, qp % 6]
     lvl = level.to(_I32) * dmf
     qbits = qp // 6 - 6
     if qbits >= 0:

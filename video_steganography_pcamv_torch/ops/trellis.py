@@ -21,10 +21,12 @@ reference's decisions to the bit:
    off);
  - contexts start from the slice-initial P/B model-0 states
    (`init_states(qp, False, 0)`) for every slice type, and the quant
-   tables are the flat ones (no CQM).
+   tables are the encoder's (`ops.cqm.QuantTables`: its CQM lists, as
+   the reference's `_mf_unq_zig(cqm_version)` reads the active ones).
 
-Plain PyTorch on every device; the tables are module constants copied
-to the caller's device once (`ops.const`).
+Plain PyTorch on every device; the DP's tables are module constants
+copied to the caller's device once (`ops.const`), the quant tables are
+kept on their `QuantTables`.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ import numpy as np
 import torch
 
 from . import const
+from . import cqm as CQ
 from . import transform as T
 from . import transform8 as T8
 
@@ -158,28 +161,20 @@ def _lambda2_tab():
     return np.stack([inter, intra]).astype(np.float32)
 
 
-@functools.lru_cache(maxsize=None)
-def _mf_unq_zig():
+def _mf_unq_zig(tables=None):
     """4x4 quant MF and direct-inverse unquant in zigzag order, [2, 52,
-    16] int32 each (list 0 intra, 1 inter: one flat table for both).
-    unq = round(2^24 / mf), so (lvl * unq + 128) >> 8 inverts lvl =
-    coef * mf >> 16 (rdo.c:405-410)."""
-    zz = T.ZIGZAG_4x4
-    mf1 = np.asarray(T.QUANT4_MF)[:, zz[:, 0], zz[:, 1]].astype(np.int64)
-    mf = np.stack([mf1, mf1])
-    unq = np.round((1 << 24) / np.maximum(mf, 1)).astype(np.int64)
-    return mf.astype(np.int32), unq.astype(np.int32)
+    16] int32 each (list 0 intra, 1 inter), of the given
+    `ops.cqm.QuantTables` (None: flat): the quantizer the encode uses,
+    kept on that object. unq = round(2^24 / mf), so (lvl * unq + 128)
+    >> 8 inverts lvl = coef * mf >> 16 (rdo.c:405-410)."""
+    return CQ.FLAT.zig4() if tables is None else tables.zig4()
 
 
-@functools.lru_cache(maxsize=None)
-def _mf_unq_zig8():
+def _mf_unq_zig8(tables=None):
     """8x8 quant MF + direct-inverse unquant in zigzag8 order, per list:
     [2, 52, 64] int32 each (the rdo.c unquant8_mf semantics with the
-    q/6 shift baked in)."""
-    zz = T8.ZIGZAG_8x8
-    mf = np.asarray(T8.QUANT8_MF)[:, :, zz[:, 0], zz[:, 1]].astype(np.int64)
-    unq = np.round((1 << 24) / np.maximum(mf, 1)).astype(np.int64)
-    return mf.astype(np.int32), unq.astype(np.int32)
+    q/6 shift baked in), of the given tables (None: flat)."""
+    return CQ.FLAT.zig8() if tables is None else tables.zig8()
 
 
 @functools.lru_cache(maxsize=None)
@@ -242,14 +237,16 @@ def _ue_big_bits(v: torch.Tensor) -> torch.Tensor:
 # The DP
 # ---------------------------------------------------------------------------
 
-def trellis_quant(zz: torch.Tensor, qp, cat: int, intra: bool
-                  ) -> torch.Tensor:
+def trellis_quant(zz: torch.Tensor, qp, cat: int, intra: bool,
+                  tables=None) -> torch.Tensor:
     """Trellis-quantize zigzag-ordered coefficient vectors.
 
     zz: [M, n] int32 transform coefficients in scan order (n = 16 for
     LUMA_DC/LUMA_4x4, 15 for *_AC (scan positions 1..15), 4 for
     CHROMA_DC, 64 for LUMA_8x8). qp: an int, or an [M] tensor of
-    per-row qps. Returns [M, n] int32 signed levels on zz's device.
+    per-row qps. tables: the encoder's `ops.cqm.QuantTables` (None:
+    flat), whose class's quantizer the DP rates against. Returns [M, n]
+    int32 signed levels on zz's device.
 
     Everything that depends on the position alone (the candidate levels,
     their SSD, the flag and Exp-Golomb bits, the contexts they lead to,
@@ -276,15 +273,14 @@ def trellis_quant(zz: torch.Tensor, qp, cat: int, intra: bool
         qp_b = torch.full((m,), int(qp), dtype=i64, device=dev)
     lam16 = const(tab["lam16"], dev)[1 if intra else 0][qp_b]     # [M] f32
     li = 0 if intra else 1
+    qt = CQ.FLAT if tables is None else tables
     if cat == CAT_LUMA_8x8:
-        mf8, unq8 = _mf_unq_zig8()
-        mf = const(mf8, dev)[li][qp_b].to(i64)                  # [M, 64]
-        unq = const(unq8, dev)[li][qp_b].to(i64)
+        mf = qt.dev("zig8mf", dev)[li][qp_b].to(i64)            # [M, 64]
+        unq = qt.dev("zig8unq", dev)[li][qp_b].to(i64)
         w = const(_weight2_zig8(), dev)
     else:
-        mf4, unq4 = _mf_unq_zig()
-        mf = const(mf4, dev)[li][qp_b].to(i64)                  # [M, 16]
-        unq = const(unq4, dev)[li][qp_b].to(i64)
+        mf = qt.dev("zig4mf", dev)[li][qp_b].to(i64)            # [M, 16]
+        unq = qt.dev("zig4unq", dev)[li][qp_b].to(i64)
         if dc:
             mf = (mf[:, :1] >> 1).expand(m, n)
             unq = (unq[:, :1] << 1).expand(m, n)

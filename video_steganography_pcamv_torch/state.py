@@ -13,7 +13,10 @@ SATD, display index, lowres plane), the display counters, the newest
 anchor's lowres plane, display index, frame_num and colocated motion
 field, the motion the next anchor's field would fall back to, the
 lookahead's adaptive-B flag, the pending L0 reordering op of the P slice
-after a pyramid GOP and the `direct` auto score. Each DPB entry keeps its
+after a pyramid GOP and the `direct` auto score, and the noise
+reduction's running sums and block count (a resumed `--nr` stream
+diverges without them; the quant lists come from Params, as in the
+reference, where each Encoder installs its own). Each DPB entry keeps its
 display index, frame_num, kind (anchor or reference B) and its own L0
 display indices, from which the P list view is derived again.
 `load_state(port_encoder, state)` installs it, so the port can resume
@@ -93,6 +96,8 @@ def from_reference(enc) -> dict:
         "stats": dataclasses.asdict(enc.stats),
         "pending": pend,
         "bpipe": bpipe,
+        "nr_sum": np.array(enc._nr_sum, np.float64),
+        "nr_count": int(enc._nr_count),
     }
 
 
@@ -121,6 +126,8 @@ def load_state(enc, d: dict) -> None:
     enc.frame_num = d["frame_num"]
     enc._poc_lsb = d["poc_lsb"]
     enc.idr_pic_id = d["idr_pic_id"]
+    enc._nr_sum = np.array(d["nr_sum"], np.float64)
+    enc._nr_count = int(d["nr_count"])
     for f in dataclasses.fields(enc.stats):
         if f.name in d["stats"]:
             setattr(enc.stats, f.name, d["stats"][f.name])

@@ -65,9 +65,10 @@ class StegoEngine:
         raster order, RCA costs from the analysis tables (`blocks`,
         `wht`, `r_idx` on the device), STC, flipped MBs take their
         alternative MV, the forced rescan and the pass-2 re-encode with
-        pass 1's skips forced. mv/skip1/mvp1 are host arrays from pass 1.
-        Returns (final_mv, skip, mvd, res2), or None when nothing is
-        embedded this frame."""
+        pass 1's skips forced (at the encoder's quant tables and its
+        noise-reduction offsets as they stand after pass 1's update).
+        mv/skip1/mvp1 are host arrays from pass 1. Returns (final_mv,
+        skip, mvd, res2), or None when nothing is embedded this frame."""
         from ..encoder import inter as INTER
         from ..encoder.analyse2 import stego_costs_from_table
         from ..encoder.me import lambda_tab
@@ -86,7 +87,8 @@ class StegoEngine:
         rho, alt_mv, _flags = stego_costs_from_table(
             y, tables["blocks"], tables["wht"], tables["r_idx"],
             torch.as_tensor(mv).to(dev), torch.as_tensor(mvp1).to(dev),
-            enc._cost_mv_dev(qp, lambda_tab(qp)), qp, mbh, mbw)
+            enc._cost_mv_dev(qp, lambda_tab(qp)), qp, mbh, mbw,
+            tables=enc.qt)
         rho = rho.cpu().numpy()
         alt_mv = alt_mv.cpu().numpy()
         cov = ((mv[..., 0] + mv[..., 1]) & 1).astype(np.uint8)[cover_mask]
@@ -103,7 +105,8 @@ class StegoEngine:
             torch.as_tensor(final_mv).to(dev), qp,
             chroma_qp(qp, p.chroma_qp_offset), mbh, mbw,
             force_zero=torch.as_tensor(skip1).to(dev),
-            trellis=bool(p.trellis))
+            trellis=bool(p.trellis), tables=enc.qt,
+            nr_offset=enc.nr_offset())
         return final_mv, skip1, mvd2, res2
 
     def embed_frame_parts(self, enc, y, u, v, qp: int, part, mv8, skip1,
@@ -114,7 +117,8 @@ class StegoEngine:
         device part/mv8) against the host scan's unit predictors mvp_u
         [mbh,mbw,4,2], one pull of rho and alt, `apply_costs` with ref8,
         and the pass-2 multi-reference re-encode at the final MVs with
-        pass 1's skips forced (`refs` the stacked DPB). part/mv8/skip1/
+        pass 1's skips forced (`refs` the stacked DPB; the quant tables
+        and noise-reduction offsets as for `embed_frame`). part/mv8/skip1/
         ref8 are host arrays. Returns (final_mv8, skip, mvd4, res2), or
         None when nothing is embedded this frame."""
         from ..encoder import inter as INTER
@@ -145,7 +149,8 @@ class StegoEngine:
             .to(dev), torch.as_tensor(ref8).to(dev), qp,
             chroma_qp(qp, p.chroma_qp_offset), mbh, mbw,
             force_zero=torch.as_tensor(skip1).to(dev),
-            trellis=bool(p.trellis))
+            trellis=bool(p.trellis), tables=enc.qt,
+            nr_offset=enc.nr_offset())
         return final8, skip1, mvd2, res2
 
     def apply_costs(self, enc, part, mv8, skip1, rho_u, alt_u, ref8=None):
