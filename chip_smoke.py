@@ -504,6 +504,8 @@ def phase_b5(dev, int_rate):
     nbytes = 2 * pix + n * 4 * 3 + 16 * n * 4 * 3 + 456 * 4
     ops = n * (32 * 40 + (8 * 16 + 2 * 4 * 8) * 30)
     bnd = bound(nbytes, ops, int_rate)
+    maps_t = _b5_qp_maps(dev, int_rate, nbytes, ops)
+    worst = max(worst, maps_t["err"])
     # latency: the reference's knight-wave chain, mbw + 2(mbh-1) MB steps
     # (254 at 1080p), each priced at one cross-SM handoff of a progress
     # counter. The kernel's half-MB order has mbh-1 handoffs on its
@@ -515,8 +517,103 @@ def phase_b5(dev, int_rate):
     rec = record("deblock_frame", "deblock.cu", "ops/deblock_pallas.py:469",
                  worst, ms, plain_ms, bnd)
     rec.update(latency_bound_ms=steps * hop, handoff_ms=hop,
-               latency_steps=steps, ref4_ms=ref4_ms)
+               latency_steps=steps, ref4_ms=ref4_ms,
+               qp_maps_ms=maps_t["ms"], qp_maps_alone_ms=maps_t["alone_ms"],
+               qp_maps_plain_ms=maps_t["plain_ms"],
+               qp_maps_bound_ms=maps_t["bound"][0],
+               scalar_alone_ms=maps_t["scalar_alone_ms"])
     return rec
+
+
+def _deblock_entry_ms(planes, maps, qp, qpc, mbh, mbw, trans8=None,
+                      launches=20, reps=5) -> float:
+    """Device ms a call of B5's C entry alone (the three plane copies,
+    the counters' reset and the launch), outputs and arguments made
+    once, without the wrapper's checks: CUDA events around `launches`
+    back-to-back calls, the median of `reps`; qp/qpc ints or int32 maps."""
+    from video_steganography_pcamv_torch import kernels
+    from video_steganography_pcamv_torch.ops import deblock as DB
+    dev = planes[0].device
+    out = [torch.empty_like(t) for t in planes]
+    sync = torch.empty((2 * mbh + 1,), dtype=torch.int32, device=dev)
+    tabs = torch.as_tensor(DB._TABS, device=dev)
+    use_maps = isinstance(qp, torch.Tensor)
+    ptr = kernels.ptr
+    fn = kernels.entry("pcamv_deblock_frame",
+                       [kernels.VP] * 15 + [kernels.CI] * 7 + [kernels.VP] * 2)
+    args = (*(ptr(t) for t in list(planes) + out), ptr(maps[0]),
+            ptr(maps[1]), None if trans8 is None else ptr(trans8),
+            ptr(maps[2]), ptr(maps[3]), None,
+            ptr(qp) if use_maps else None, ptr(qpc) if use_maps else None,
+            ptr(tabs), 0 if use_maps else qp, 0 if use_maps else qpc, 15, 0,
+            0, mbh, mbw, ptr(sync), kernels.stream(sync))
+
+    def run():
+        kernels.check(fn(*args), "pcamv_deblock_frame")
+    run()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(launches):
+            run()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / launches)
+    return float(np.median(times))
+
+
+def _b5_qp_maps(dev, int_rate, nbytes, ops):
+    """B5 under per-MB qp maps (adaptive quantization's decoder-visible
+    chain) at 1080p: random luma qps 10-51 and their chroma qps, trans8
+    fuzzed, against edge_params + the plain filter; the samples that
+    differ from the same call at the constant qp 26; timed through the
+    wrapper and the C entry alone beside the scalar call's entry, with
+    the bound of the scalar call plus the two int32 maps."""
+    from video_steganography_pcamv_torch.ops import deblock as DB
+    from video_steganography_pcamv_torch.ops.transform import (
+        CHROMA_QP_TABLE)
+    g = np.random.default_rng(131)
+    planes, maps, trans8, _ = _deblock_case(dev, g, MBH, MBW, True)
+    q = g.integers(10, 52, (MBH, MBW)).astype(np.int32)
+    qmap = torch.as_tensor(q, device=dev)
+    cmap = torch.as_tensor(CHROMA_QP_TABLE[q].astype(np.int32), device=dev)
+    kw = dict(qp_thresh=15, trans8=trans8)
+    n_maps = DB.deblock_frame.map_launches
+    got = DB.deblock_frame(*planes, *maps, qmap, cmap, MBH, MBW, **kw)
+    if DB.deblock_frame.map_launches != n_maps + 1:
+        raise AssertionError("B5 with qp maps: map_launches not counted")
+
+    def plain():
+        par = DB.edge_params(*maps, qmap, cmap, MBH, MBW, **kw)
+        return DB.deblock_frame_plain(*planes, par, MBH, MBW)
+    want = plain()
+    torch.cuda.synchronize()
+    err = max_abs(got, want)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("B5 kernel != plain under qp maps, max abs "
+                             "err %d" % err)
+    flat = DB.deblock_frame(*planes, *maps, 26, 26, MBH, MBW, **kw)
+    moved = sum(int((a != b).sum()) for a, b in zip(got, flat))
+    if moved == 0:
+        raise AssertionError("B5 with qp maps: no sample depends on them")
+    out = {"err": err}
+    out["ms"] = cuda_ms(lambda: DB.deblock_frame(*planes, *maps, qmap, cmap,
+                                                 MBH, MBW, **kw), 20, 3)
+    out["plain_ms"] = cuda_ms(plain, 1, warmup=0)
+    out["alone_ms"] = _deblock_entry_ms(planes, maps, qmap, cmap, MBH, MBW,
+                                        trans8)
+    out["scalar_alone_ms"] = _deblock_entry_ms(planes, maps, 26, 26, MBH,
+                                               MBW, trans8)
+    out["bound"] = bound(nbytes + 2 * 4 * MBH * MBW, ops, int_rate)
+    log("B5 qp maps (luma qp 10-51, trans8 fuzzed): kernel == plain at "
+        "%dx%d MBs, %d samples differ from the qp-26 call; through the "
+        "wrapper %.4f ms, C entry alone %.4f ms (the scalar call's entry "
+        "%.4f ms), plain %.3f ms, bound %.4f ms (%s) (median, 1080p)"
+        % (MBH, MBW, moved, out["ms"], out["alone_ms"],
+           out["scalar_alone_ms"], out["plain_ms"], *out["bound"]))
+    return out
 
 
 def _tail_inputs(dev):
@@ -892,6 +989,7 @@ def phase_b678(dev, int_rate):
     recs.append(phase_luma_p(dev, int_rate, cur, pred, blk))
     recs.append(phase_luma_levels(dev, int_rate, cur, pred))
     recs.append(phase_luma_nr(dev, int_rate, cur, pred))
+    recs.append(phase_luma_aq(dev, int_rate, cur, pred))
 
     # B8a/B8b, standalone check entries, on the same inputs with
     # zero_dc / use_dc
@@ -1172,7 +1270,8 @@ def _luma_entry_ms(cur, pred, q, qt, nr_off=None, launches=50,
     outputs preallocated, without the wrapper's checks and allocations:
     CUDA events around `launches` back-to-back launches, the median of
     `reps` (as tools/torch_kernel_probe.py times a launch); with nr_off
-    its noise-reduction instance (the sums left to accumulate)."""
+    its noise-reduction instance (the sums left to accumulate); with q
+    an int32 [N] tensor its per-MB qp entry."""
     from video_steganography_pcamv_torch import kernels
     n = pred.shape[0]
     dev = cur.device
@@ -1180,7 +1279,7 @@ def _luma_entry_ms(cur, pred, q, qt, nr_off=None, launches=50,
     rec = torch.empty((n, 16, 16), dtype=torch.int32, device=dev)
     cbp = torch.empty((n,), dtype=torch.int32, device=dev)
     nr_sum = torch.zeros(16, dtype=torch.int32, device=dev)
-    qtab = qt.qtab(q, dev)
+    qtab = None if isinstance(q, torch.Tensor) else qt.qtab(q, dev)
     ptr = kernels.ptr
     VP, CI = kernels.VP, kernels.CI
     fn = kernels.entry("pcamv_luma_p_encode", [VP] * 2 + [CI] * 2
@@ -1188,14 +1287,23 @@ def _luma_entry_ms(cur, pred, q, qt, nr_off=None, launches=50,
     off = None if nr_off is None else nr_off.contiguous()
     # the arguments made once, so that the loop below issues launches
     # as fast as the host can
-    args = (ptr(cur), ptr(pred), cur.shape[1], cur.numel() // 256, None,
-            None, n, ptr(qtab[:16]), ptr(qtab[16:32]), ptr(qtab[32:]),
-            q // 6 - 4, None if off is None else ptr(off),
+    tail = (None if off is None else ptr(off),
             None if off is None else ptr(nr_sum), ptr(lev), ptr(rec),
             ptr(cbp), kernels.stream(cur))
+    if isinstance(q, torch.Tensor):
+        name = "pcamv_luma_p_encode_grid"
+        fn = kernels.entry(name, [VP] * 2 + [CI] * 2 + [VP] * 2 + [CI]
+                           + [VP] * 8)
+        args = (ptr(cur), ptr(pred), cur.shape[1], cur.numel() // 256,
+                None, None, n, ptr(q), ptr(qt.qtab_all(dev))) + tail
+    else:
+        name = "pcamv_luma_p_encode"
+        args = (ptr(cur), ptr(pred), cur.shape[1], cur.numel() // 256,
+                None, None, n, ptr(qtab[:16]), ptr(qtab[16:32]),
+                ptr(qtab[32:]), q // 6 - 4) + tail
 
     def run():
-        kernels.check(fn(*args), "pcamv_luma_p_encode")
+        kernels.check(fn(*args), name)
     run()
     times = []
     for _ in range(reps):
@@ -1289,6 +1397,70 @@ def phase_luma_nr(dev, int_rate, cur, pred):
     t = times[26]
     return record("luma_p_encode_nr", "luma_p.cu",
                   "ops/pallas_kernels.py:175", err, t[0], t[1], bnd)
+
+
+def phase_luma_aq(dev, int_rate, cur, pred):
+    """The fused luma encode's per-MB qp instances (adaptive
+    quantization, the reference's luma_p_encode(cur, pred, qp[N], ...))
+    at 1080p on the pass-1 inputs under jvt with phase 30's deadzones and
+    a random grid of qps 10-51: the DCT entry (also with force-zero), its
+    noise-reduction instance and the levels-in entry on the trellis's
+    levels at the same grid (also with force-zero), each against its
+    plain version; a grid of 26 everywhere gives the scalar qp-26 call.
+    The grid DCT entry is timed beside the scalar one through the wrapper
+    and as the C entry alone."""
+    from video_steganography_pcamv_torch.encoder import inter as INTER
+    from video_steganography_pcamv_torch.ops import cqm as CQ
+    from video_steganography_pcamv_torch.ops import lumap as LP
+    n = pred.shape[0]
+    qt = CQ.QuantTables(CQ.JVT4I, CQ.JVT4P, CQ.JVT8I, CQ.JVT8P,
+                        dz_intra=24, dz_inter=16)
+    g = np.random.default_rng(31)
+    grid = torch.as_tensor(g.integers(10, 52, n).astype(np.int32),
+                           device=dev)
+    fz = torch.as_tensor(g.random(n) < 0.3, device=dev)
+    off = torch.as_tensor(g.integers(0, 40, (4, 4)).astype(np.int32),
+                          device=dev)
+    levels = INTER.trellis_luma_levels(cur, pred, grid, qt)
+    cases = (("DCT entry", {}), ("DCT entry force-zero", {"fz": fz}),
+             ("NR instance", {"nr_offset": off}),
+             ("levels-in entry", {"levels": levels}),
+             ("levels-in entry force-zero", {"levels": levels, "fz": fz}))
+    err = 0
+    n0 = LP.luma_p_encode.grid_launches
+    for tag, kw in cases:
+        got = LP.luma_p_encode(cur, pred, grid, tables=qt, **kw)
+        want = LP.luma_p_encode_plain(cur, pred, grid, tables=qt, **kw)
+        err = max(err, _check_equal("luma_p_encode per-MB qp " + tag, got,
+                                    want))
+        log("luma_p_encode per-MB qp %s (%d MBs, qp 10-51, jvt): kernel == "
+            "plain" % (tag, n))
+    if LP.luma_p_encode.grid_launches != n0 + len(cases):
+        raise AssertionError("luma_p_encode per-MB qp: grid_launches not "
+                             "counted")
+    flat = torch.full((n,), 26, dtype=torch.int32, device=dev)
+    _check_equal("luma_p_encode grid of 26 vs qp 26",
+                 LP.luma_p_encode(cur, pred, flat, tables=qt),
+                 LP.luma_p_encode(cur, pred, 26, tables=qt))
+    t = (cuda_ms(lambda: LP.luma_p_encode(cur, pred, grid, tables=qt), 20,
+                 3),
+         cuda_ms(lambda: LP.luma_p_encode_plain(cur, pred, grid, tables=qt),
+                 5),
+         cuda_ms(lambda: LP.luma_p_encode(cur, pred, 26, tables=qt), 20, 3),
+         _luma_entry_ms(cur, pred, grid, qt),
+         _luma_entry_ms(cur, pred, 26, qt))
+    # the DCT entry's bytes plus the grid read (4 B an MB) and the 52 x 48
+    # slab (read once); ops plus the MB's table offset and shift
+    bnd = bound(n * 1024 + n * (1024 + 1024 + 4) + n * 1024 + n * 4
+                + 52 * 48 * 4, n * (16 * LUMA_P_OPS_PER_BLOCK + 4), int_rate)
+    log("luma_p_encode per-MB qp DCT entry: kernel %.4f ms (the scalar qp-26"
+        " call %.4f ms), alone %.4f ms (scalar alone %.4f ms), plain %.3f "
+        "ms, bound %.4f ms (%s) (median, 1080p)"
+        % (t[0], t[2], t[3], t[4], t[1], *bnd))
+    rec = record("luma_p_encode_aq", "luma_p.cu", "ops/pallas_kernels.py:175",
+                 err, t[0], t[1], bnd)
+    rec.update(alone_ms=t[3], scalar_ms=t[2], scalar_alone_ms=t[4])
+    return rec
 
 
 # the 1080p decode checks run in worker processes while the next phases
@@ -1478,7 +1650,13 @@ def phase_small_cabac(dev):
               dict(noise_reduction=400, ref_frames=2)),
              ("nr 400, bframes 2, deadzones 16/8", True,
               dict(noise_reduction=400, bframes=2, b_adapt=0,
-                   deadzone_inter=16, deadzone_intra=8)))
+                   deadzone_inter=16, deadzone_intra=8)),
+             # adaptive quantization: the unfused one-reference P path,
+             # per-MB qps in the luma kernel and B5, the writers' deltas
+             ("aq_mode 1, one reference, CAVLC", True, dict(aq_mode=1)),
+             ("aq_mode 1, config 4 (bframes 2, ref_frames 2, cabac)", True,
+              dict(aq_mode=1, cabac=True, bframes=2, b_adapt=0,
+                   ref_frames=2)))
     from video_steganography_pcamv_torch.encoder import core as CORE
     incr = CORE.reencode_p_incremental
     for what, tk, kw in cases:
@@ -1909,6 +2087,80 @@ def phase_quant(dev, card, bs6, n_frames: int = 4, w: int = 1920,
     return launches
 
 
+def phase_aq(dev, card, bs6, n_frames: int = 4, w: int = 1920,
+             h: int = 1088):
+    """Phase 31: adaptive quantization at 1080p: bench.py's Params
+    (tail_kernel=True, CAVLC, one reference) with aq_mode 1, IDR + 3 P on
+    phase 6's clip. AQ leaves the fused step: every P frame takes the
+    unfused one-reference path. Exact launches per P frame (B1, B9, B3,
+    B4 once; the luma encode twice, pass 1 and the full pass 2, both the
+    per-MB qp instance; B5 once a frame, with qp maps); every grid lies
+    in [qp_min, qp_max] and varies; the decoded frames equal the
+    encoder's recon and the payload is recovered (in a worker). Prints
+    the P fps (the checks excluded: there are none in the loop), the
+    IDR's seconds, the bytes per frame beside phase 6's and the qp
+    histogram of each frame's grid. Returns the launches."""
+    from video_steganography_pcamv_torch import Encoder
+    from video_steganography_pcamv_torch.ops.deblock import deblock_frame
+    from video_steganography_pcamv_torch.utils.yuv import synthetic_sequence
+    label = "%dx%d aq_mode 1" % (w, h)
+    p = _params(w, h, True, aq_mode=1)
+    frames = synthetic_sequence(w, h, n_frames, seed=7)
+    enc = Encoder(p, device=dev)
+    fns = _counters()
+    for fn in fns.values():
+        fn.launches = 0
+    maps0 = deblock_frame.map_launches
+    recon, per_frame, hists = {}, [], []
+    bs = b""
+    for i, f in enumerate(frames):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bs += enc.encode_frame(f)
+        if i == len(frames) - 1:
+            bs += enc.flush()
+        torch.cuda.synchronize()
+        per_frame.append(time.perf_counter() - t0)
+        recon[i] = tuple(t.cpu().numpy() for t in enc.recon_prev)
+        grid = enc.aq_grids[0]
+        if grid.min() < p.qp_min or grid.max() > p.qp_max or \
+                grid.min() == grid.max():
+            raise AssertionError("%s: frame %d grid spans qp %d-%d"
+                                 % (label, i, grid.min(), grid.max()))
+        hists.append({int(q): int(c) for q, c in
+                      zip(*np.unique(grid, return_counts=True))})
+    launches = {k: fn.launches for k, fn in fns.items()}
+    n_p = enc.stats.p_frames
+    n_emb = sum(len(m) > 0 for m in enc._stego.sent_messages)
+    want = {k: 0 for k in fns}
+    want.update(fullpel_parts=n_p, gather_windows8=n_p, subpel=n_p,
+                probe_maps=n_p, luma_p_encode=n_p + n_emb,
+                luma_p_encode_aq=n_p + n_emb, deblock_frame=len(frames))
+    if (n_p != len(frames) - 1 or n_emb != n_p or launches != want
+            or deblock_frame.map_launches - maps0 != len(frames)):
+        raise AssertionError("%s: %d P frames (%d embedding), launches %s, "
+                             "want %s; B5 with qp maps %d"
+                             % (label, n_p, n_emb, launches, want,
+                                deblock_frame.map_launches - maps0))
+
+    def report(r):
+        bits, secs, differ, _kinds = r
+        if any(differ.values()):
+            raise AssertionError("%s: decoded frames differ from the recon:"
+                                 " %s" % (label, differ))
+        log("%s: %d payload bits recovered, every decoded frame == the "
+            "encoder's recon (decode + extraction %.1f s, in a worker)"
+            % (label, bits, secs))
+    _defer(report, bs, len(frames), enc._stego.sent_messages, recon)
+    log("%s: launches %s (per P frame: B1, B9, B3, B4 1, the luma encode 2 "
+        "at per-MB qps, B5 1 with qp maps); IDR %.3f s; P frames %.4f fps; "
+        "bytes %s, phase 6's %s; qp histogram per frame %s  [%s]"
+        % (label, json.dumps(launches), per_frame[0],
+           n_p / sum(per_frame[1:]), _frame_bytes(bs),
+           _frame_bytes(bs6)[:len(frames)], json.dumps(hists), card))
+    return launches
+
+
 def phase_b16(dev, card, n_frames: int = 7):
     """The 16x16-only path with B frames at 1080p (partitions=False,
     deblock_device=False, bframes 2, b_adapt 2, rc_lookahead 4, CAVLC,
@@ -2216,8 +2468,10 @@ def phase_bpath(dev, card, label, p, n_frames, want_pb=None,
 class _LumaLaunches:
     """One of the fused luma encode's other counters as a counter like
     the wrappers: `luma_p_encode.levels_launches` (the levels-in entry,
-    under trellis) or `luma_p_encode.nr_launches` (the noise-reduction
-    instance, each launch also one of `luma_p_encode.launches`)."""
+    under trellis), `luma_p_encode.nr_launches` (the noise-reduction
+    instance, each launch also one of `luma_p_encode.launches`) or
+    `luma_p_encode.grid_launches` (the per-MB qp instances of either
+    entry, adaptive quantization)."""
 
     def __init__(self, attr: str):
         self.attr = attr
@@ -2281,6 +2535,7 @@ def _counters():
             "luma_p_encode": LP.luma_p_encode,
             "luma_p_encode_levels": _LumaLaunches("levels_launches"),
             "luma_p_encode_nr": _LumaLaunches("nr_launches"),
+            "luma_p_encode_aq": _LumaLaunches("grid_launches"),
             "gather_windows8": PT.gather_windows8,
             "lowres_costs_kernel": ST.lowres_costs_kernel}
 
@@ -2735,6 +2990,7 @@ def main() -> int:
                        phase_trellis, dev, card)
     launches30 = phase("30 1080p cqm jvt, deadzones, nr", phase_quant, dev,
                        card, bs6)
+    launches31 = phase("31 1080p aq_mode 1", phase_aq, dev, card, bs6)
     if args.stagesB:
         phase("23 config-4 B-frame stages", phase_stages_b, dev, card)
         phase("23 phase-26 B-frame stages", phase_stages_b, dev, card,
@@ -2763,10 +3019,12 @@ def main() -> int:
     for r in recs16:
         # the main path's count where the kernel runs there (the fused
         # luma encode), else the 16x16 path's (B6, B7), phase 29's for the
-        # luma encode's levels-in entry (the trellis path) and phase 30's
-        # for its noise-reduction instance
+        # luma encode's levels-in entry (the trellis path), phase 30's
+        # for its noise-reduction instance and phase 31's for its per-MB
+        # qp instance (adaptive quantization)
         r["launches"] = (launches[r["name"]] or launches16[r["name"]]
-                         or launches29[r["name"]] or launches30[r["name"]])
+                         or launches29[r["name"]] or launches30[r["name"]]
+                         or launches31[r["name"]])
     recs += recs16 + recs9
     phase("28 the decode checks in the workers", _join_checks)
     log("total %.1f s" % (time.time() - t_start))

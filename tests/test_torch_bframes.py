@@ -23,7 +23,11 @@ on every frame, B frames included; the close() dicts agree. The same JAX
 runs give `state.from_reference` snapshots at a GOP boundary and inside
 a GOP (under b_adapt 2: right after a GOP, frames still buffered; under
 the pyramid with the reordering op pending), from which the port resumes
-byte-equal to the reference's continuation (ROADMAP F1).
+byte-equal to the reference's continuation (ROADMAP F1). Adaptive
+quantization (aq_mode 1) on config 4 and on the pyramid with temporal
+direct under CAVLC: per-MB qps in every encode and mb_qp_delta in the
+Python B writers; a snapshot inside a GOP resumes with no AQ state (the
+grids are rebuilt every frame).
 
 Modules, on the same seeded numpy inputs: `spatial_direct` and
 `scan_b_parts` (one and two references, colocated intra / ref 0 / ref 1
@@ -275,9 +279,26 @@ def trans8_rd_cavlc():
                         cabac=False)
 
 
+@pytest.fixture(scope="module")
+def aq_config4():
+    """Config 4 with adaptive quantization (aq_mode 1): per-MB qps in
+    the IDR, the multi-reference anchors and the B encodes, mb_qp_delta
+    in the CABAC B writer (Python, as the reference's under AQ)."""
+    return _encode_both(8, aq_mode=1)
+
+
+@pytest.fixture(scope="module")
+def aq_pyramid_temporal():
+    """The pyramid with temporal direct under CAVLC with adaptive
+    quantization: the reference B's per-MB qps and the Python CAVLC B
+    writer's mb_qp_delta."""
+    return _encode_both(8, aq_mode=1, bframes=3, b_pyramid=True, direct=2,
+                        cabac=False)
+
+
 CASES = ["config4", "ref1_b1", "badapt2", "defaults_b2", "pyramid",
          "temporal_cavlc", "direct_none", "bmref_trellis", "trans8_rd",
-         "trans8_rd_cavlc"]
+         "trans8_rd_cavlc", "aq_config4", "aq_pyramid_temporal"]
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -327,11 +348,12 @@ def test_trans8_b_streams_code_8x8_in_the_anchors(case, request):
 @pytest.mark.parametrize("case,k,buffered", [
     ("config4", 6, 0), ("config4", 5, 2), ("ref1_b1", 4, 0),
     ("ref1_b1", 3, 1), ("badapt2", 7, 2), ("badapt2", 8, 3),
-    ("pyramid", 2, 2), ("pyramid", 4, 0), ("pyramid", 5, 1)],
+    ("pyramid", 2, 2), ("pyramid", 4, 0), ("pyramid", 5, 1),
+    ("aq_config4", 5, 2)],
     ids=["ref2_gop_boundary", "ref2_mid_gop", "ref1_gop_boundary",
          "ref1_mid_gop", "badapt2_after_a_gop", "badapt2_mid_gop",
          "pyramid_mid_gop", "pyramid_reorder_pending",
-         "pyramid_mid_gop_reorder_pending"])
+         "pyramid_mid_gop_reorder_pending", "aq_mid_gop"])
 def test_resume_from_reference_snapshot(case, k, buffered, request):
     """F1: a snapshot of the reference's B pipe at a GOP boundary and
     inside a GOP (frames buffered, waiting for their anchor) resumes into
@@ -891,7 +913,9 @@ def test_check_slice_accepts_trans8_rd_and_trellis_with_b_frames(
 
 @pytest.mark.parametrize("kw,name", [
     (dict(p4x4=True), "p4x4 (ROADMAP A16)"),
-    (dict(aq_mode=1), "aq_mode (ROADMAP A16)"),
+    # adaptive quantization is served with B frames: zones, its A16
+    # neighbour, stays refused beside it
+    (dict(aq_mode=1, zones="0,9,q=30"), "zones (ROADMAP A16)"),
     (dict(stego_off=True), "stego off"),
 ], ids=["p4x4", "aq", "stego_off"])
 def test_check_slice_refuses_b_options_outside_the_slice(kw, name):

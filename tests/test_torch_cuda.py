@@ -61,7 +61,13 @@ its own:  python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
   under the jvt tables at qp 0-51 (sums included), both instances on
   residuals whose quant products wrap, B4 under jvt, and cuda == cpu
   streams with cqm jvt, the deadzones, custom 8x8 lists and noise
-  reduction on the main, 16x16 and B paths.
+  reduction on the main, 16x16 and B paths;
+- adaptive quantization: the fused luma encode's per-MB qp instances
+  (the DCT entry, the NR instance and the levels-in entry) under random
+  grids of qps 10-51 vs their plain versions, B5 under random qp maps
+  vs edge_params + its plain version, and cuda == cpu streams with
+  aq_mode 1 at one reference (CAVLC) and on config 4 (bframes 2,
+  ref_frames 2, CABAC).
 """
 
 import numpy as np
@@ -983,3 +989,83 @@ def test_cuda_stream_equals_cpu_stream_quant_options(dev, kw):
     got, want = run(dev), run("cpu")
     assert got[0] == want[0]
     assert np.array_equal(got[1], want[1]) and got[2] == want[2]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_luma_p_per_mb_qp_instances_match_plain(dev, seed):
+    """The fused luma encode at a per-MB qp grid (10-51) on 35 MBs (an
+    odd count) under the jvt tables: the DCT entry with and without
+    force-zero and the levels, its NR instance (sums included) and the
+    levels-in entry on the trellis's levels at the same grid."""
+    y, pred = _luma_p_inputs(dev, 5, 7, 3 + seed)
+    g = np.random.default_rng(seed)
+    grid = torch.as_tensor(g.integers(10, 52, 35).astype(np.int32),
+                           device=dev)
+    qt = _jvt_tables()
+    fz = torch.as_tensor(g.random(35) < 0.3, device=dev)
+    off = torch.as_tensor(g.integers(0, 30, (4, 4)).astype(np.int32),
+                          device=dev)
+    levels = INTER.trellis_luma_levels(y, pred, grid, qt)
+    n0 = LP.luma_p_encode.grid_launches
+    calls = 0
+    for f in (None, fz):
+        for kw in ({}, {"lev": False}, {"nr_offset": off},
+                   {"levels": levels}):
+            got = LP.luma_p_encode(y, pred, grid, fz=f, tables=qt, **kw)
+            _luma_p_equal(got, LP.luma_p_encode_plain(y, pred, grid, fz=f,
+                                                      tables=qt, **kw))
+            calls += 1
+    torch.cuda.synchronize()
+    assert LP.luma_p_encode.grid_launches == n0 + calls
+
+
+def test_b5_kernel_under_qp_maps_matches_plain(dev):
+    """B5 with per-MB qp and chroma qp maps (qps 0-51: some MBs at or
+    below qp_thresh), trans8 and slice offsets, vs edge_params + its
+    plain version."""
+    mbh, mbw = 5, 9
+    g = np.random.default_rng(17)
+    H, W = 16 * mbh, 16 * mbw
+    planes = [np.clip(128 + g.integers(-24, 25, s), 0, 255)
+              for s in ((H, W), (H // 2, W // 2), (H // 2, W // 2))]
+    intra = (g.random((mbh, mbw)) < 0.15)
+    skip = (g.random((mbh, mbw)) < 0.2) & ~intra
+    nnz4 = g.random((4 * mbh, 4 * mbw)) < 0.5
+    mv4 = g.integers(-20, 21, (4 * mbh, 4 * mbw, 2))
+    q = g.integers(0, 52, (mbh, mbw))
+    qc = np.array([chroma_qp(int(x), 2) for x in q.reshape(-1)]).reshape(
+        mbh, mbw)
+    t8 = g.random((mbh, mbw)) < 0.5
+    t = [torch.as_tensor(np.ascontiguousarray(a, np.int32), device=dev)
+         for a in planes + [intra, skip, nnz4, mv4, q, qc, t8]]
+    kw = dict(qp_thresh=13, off_a=4, off_b=-2, trans8=t[9])
+    got = DB.deblock_frame(*(p.to(torch.uint8) for p in t[:3]), *t[3:7],
+                           t[7], t[8], mbh, mbw, **kw)
+    par = DB.edge_params(*t[3:7], t[7], t[8], mbh, mbw, **kw)
+    want = DB.deblock_frame_plain(*t[:3], par, mbh, mbw)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(aq_mode=1),
+    dict(aq_mode=1, cabac=True, bframes=2, b_adapt=0, ref_frames=2)],
+    ids=["one_ref_cavlc", "config4"])
+def test_cuda_stream_equals_cpu_stream_aq(dev, kw):
+    """Adaptive quantization at 112x80: cuda == cpu streams (the per-MB
+    qp instances of the luma kernel and B5 with qp maps on the card)."""
+    frames = synthetic_sequence(112, 80, 5, seed=7)
+
+    def run(device):
+        base = dict(width=112, height=80, qp=26, me_range=16,
+                    deblock_device=True, psnr=False)
+        base.update(kw)
+        enc = Encoder(Params(stego=StegoParams(em_rate=16, key=5), **base),
+                      device=device)
+        return b"".join(enc.encode_frame(f) for f in frames) + enc.flush()
+
+    n0, m0 = LP.luma_p_encode.grid_launches, DB.deblock_frame.map_launches
+    got = run(dev)
+    assert LP.luma_p_encode.grid_launches > n0
+    assert DB.deblock_frame.map_launches > m0
+    assert got == run("cpu")

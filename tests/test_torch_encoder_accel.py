@@ -4,7 +4,9 @@ end to end vs the JAX `Encoder` on its own accelerator branch.
 The reference takes that branch only on a TPU. A fixture puts it there
 on the CPU without changing the JAX package, through `monkeypatch`
 alone: `jax.default_backend` answers "tpu"; the full-pel kernel B1 and
-the analyse tail run their Pallas kernels in interpret mode; the
+the analyse tail run their Pallas kernels in interpret mode, as host
+callbacks of the encoder's programs, so that each kernel is compiled
+once a shape rather than inside every program that calls it; the
 deblocker runs `deblock_jax.deblock_frame_device`, the bit-exact twin
 the reference's CPU branch already uses.
 
@@ -63,23 +65,58 @@ def _run(enc, frames):
     return b"".join(enc.encode_frame(f) for f in frames) + enc.flush()
 
 
+def _on_host(fn, out, *arrays):
+    """fn(*arrays) as a host callback with the result structure `out`:
+    inside a traced encoder program an interpret-mode kernel then runs as
+    its own jitted programs, traced, lowered and compiled once a shape and
+    kept in the JAX caches (memory and disk), instead of again inside
+    every program that calls it (the analyse tail's interpret-mode body
+    takes ~40 s to lower and ~45 s to compile). The kernel, its arguments
+    and its integer results are the same."""
+    def host(*a):
+        # scalars back to Python numbers, as the direct callers pass them
+        # (the same programs then serve both)
+        a = [x.item() if np.ndim(x) == 0 else x for x in a]
+        return jax.tree.map(np.asarray, fn(*a))
+    return jax.pure_callback(host, out, *arrays)
+
+
+def _i32(*shape):
+    return jax.ShapeDtypeStruct(shape, np.int32)
+
+
 @pytest.fixture
 def reference_accel(monkeypatch):
     """Puts the JAX Encoder on its accelerator branch; counts the calls
-    of the patched kernel entries."""
+    of the patched kernel entries (B1 and the analyse tail in interpret
+    mode, each traced as a host callback: `_on_host`)."""
     calls = {"fullpel": 0, "tail": 0}
     orig_fp = pallas_kernels.fullpel_parts_pallas
     orig_tail = probe_pallas.analyse_tail_pallas
+
+    def fullpel(y, ref, rng, mbh, mbw, lam=1):
+        # fullpel_search_parts' st dict (the kernel's docstring)
+        out = {"c16": _i32(mbh, mbw), "mv16": _i32(mbh, mbw, 2),
+               "c16x8": _i32(mbh, mbw, 2), "mv16x8": _i32(mbh, mbw, 2, 2),
+               "c8x16": _i32(mbh, mbw, 2), "mv8x16": _i32(mbh, mbw, 2, 2),
+               "c8": _i32(mbh, mbw, 4), "mv8": _i32(mbh, mbw, 4, 2)}
+        return _on_host(lambda yy, rr, ll: orig_fp(
+            yy, rr, rng, mbh, mbw, ll, interpret=True), out, y, ref, lam)
 
     class _Fullpel:
         @staticmethod
         def __wrapped__(*args, **kw):
             calls["fullpel"] += 1
-            return orig_fp.__wrapped__(*args, interpret=True, **kw)
+            return fullpel(*args, **kw)
 
-    def tail(*args, **kw):
+    def tail(y, windows, part, mvfp8, prev_mv, lam, qp, mbh, mbw, **kw):
         calls["tail"] += 1
-        return orig_tail(*args, interpret=True, **kw)
+        n = mbh * mbw
+        out = (_i32(2 * mbh, 2 * mbw, 2), _i32(4 * n), _i32(13, 9, n, 4),
+               _i32(13, 9, n, 4), _i32(13, n, 4))
+        return _on_host(lambda *a: orig_tail(*a, mbh, mbw, interpret=True,
+                                             **kw),
+                        out, y, windows, part, mvfp8, prev_mv, lam, qp)
 
     monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
     monkeypatch.setattr(pallas_kernels, "fullpel_parts_pallas", _Fullpel())

@@ -45,6 +45,10 @@ _BLOCKED_IMPORT = textwrap.dedent("""
     sys.meta_path.insert(0, _Blocker())
     builtins.open = io.open = _guarded_open
     import numpy as np
+    import torch
+    # one intra-op thread, as the port's test modules run torch beside
+    # the other test workers
+    torch.set_num_threads(1)
     import video_steganography_pcamv_torch as pkg
     names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
                                                    pkg.__name__ + ".")]
@@ -195,19 +199,26 @@ def test_encoder_defaults_to_cuda():
         Encoder(_slice_params())
 
 
-@pytest.mark.parametrize("kw", [
+# adaptive quantization is served (the "aq_mode" rows check that zones,
+# its A16 neighbour, stays refused beside it)
+_REFUSED = [
     dict(p4x4=True),
     dict(ref_frames=2, p4x4=True),
-    dict(ref_frames=2, aq_mode=1),
+    dict(ref_frames=2, aq_mode=1, zones="0,5,q=30"),
     dict(me_range=24),
-    dict(aq_mode=1),
+    dict(aq_mode=1, zones="0,5,q=30"),
     dict(crf=23.0), dict(pipeline_deep=True),
     dict(zones="0,5,q=30"),
     dict(stego=StegoParams(em_rate=0)),
     dict(stego=StegoParams(em_rate=64, key=99, alpha_com=0.5)),
     dict(subpel=1), dict(dct_decimate=False),
     dict(incremental=False), dict(partitions=False, deblock_device=True),
-], ids=lambda kw: ",".join(kw))
+]
+
+
+@pytest.mark.parametrize("kw", _REFUSED, ids=[
+    ",".join(k for k in kw if k != "zones" or "aq_mode" not in kw)
+    for kw in _REFUSED])
 def test_encoder_rejects_options_outside_the_slice(kw):
     from video_steganography_pcamv_torch import Encoder
     with pytest.raises(NotImplementedError):
@@ -230,6 +241,8 @@ def test_encoder_rejects_options_outside_the_slice(kw):
                      deblock_device=False),
     dict(cabac=True, bframes=2, rd=1), dict(cabac=True, trellis=1),
     dict(cabac=True, trellis=2, ref_frames=3, bframes=2, weightb=True),
+    dict(aq_mode=1), dict(aq_mode=1, ref_frames=2),
+    dict(aq_mode=1, cabac=True, bframes=2, transform_8x8=True, trellis=1),
 ], ids=lambda kw: ",".join(kw))
 def test_encoder_accepts_the_reference_defaults_and_cabac(kw):
     """Options the port serves since it took the reference's default
@@ -237,7 +250,8 @@ def test_encoder_accepts_the_reference_defaults_and_cabac(kw):
     reference frames (with or without partitions, either deblocker),
     B frames at the reference's default b_adapt 1 (CAVLC or CABAC, with
     or without partitions, a pyramid, temporal direct), and the 8x8
-    transform, rd 1-2 and trellis 1-2 with each of those."""
+    transform, rd 1-2 and trellis 1-2 with each of those; adaptive
+    quantization on the partition paths."""
     from video_steganography_pcamv_torch import Encoder
     enc = Encoder(_slice_params(**kw), device="cpu")
     assert enc.p.cabac == kw.get("cabac", False)

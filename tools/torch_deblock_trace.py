@@ -92,7 +92,7 @@ def build() -> ctypes.CDLL:
     lib = ctypes.CDLL(so)
     fn = lib.pcamv_deblock_frame
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + \
+    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7 + \
         [ctypes.c_void_p] * 3
     return fn
 
@@ -115,7 +115,7 @@ def main() -> int:
     def run(_=None):
         kernels.check(fn(*(P(t) for t in planes + out), P(maps[0]),
                          P(maps[1]), None, P(maps[2]), P(maps[3]), None,
-                         P(tabs),
+                         None, None, P(tabs),
                          26, 26, 15, 0, 0, MBH, MBW, P(sync),
                          kernels.stream(sync), P(trace)),
                       "traced pcamv_deblock_frame")

@@ -9,8 +9,11 @@
 // in place; per MB intra, skip, trans8 (null: none); per 4x4 nnz, mv and
 // the L0 reference index ref4 (int32; ref4 null: all 0, one reference);
 // the spec tables (alpha[76] | beta[76] | tc0[76][4], parsed
-// from native/deblock_tables.inc by ops/deblock.py); the frame's qp,
-// qpc, qp_thresh and the slice's alpha/beta offsets. The result is
+// from native/deblock_tables.inc by ops/deblock.py); the frame's qp and
+// qpc, or under adaptive quantization per-MB qp and qpc maps (int32
+// [mbh][mbw], the decoder-visible chain; null: the frame's), qp_thresh
+// and the slice's alpha/beta offsets. An MB edge takes (qp[p] + qp[q] +
+// 1) >> 1, and the inner edges' low-qp gate reads the MB's own qp. The result is
 // bit-equal to deblock_frame_plain(edge_params(...)).
 //
 // Order. The reference filters MBs in raster order, each MB's vertical
@@ -154,8 +157,19 @@ struct Frame {
   const int* nnz4;
   const int* mv4;
   const int* ref4;                  // may be null (all 0)
+  const int* qp_map;                // per-MB qp, or null: qp everywhere
+  const int* qpc_map;               // per-MB chroma qp, or null: qpc
   int qp, qpc, qp_thresh, off_a, off_b, mbh, mbw;
 };
+
+// An MB's qp from its map (adaptive quantization) or the frame's; a value
+// outside the spec's tables traps.
+__device__ __forceinline__ int mb_qp(const int* map, int q, int mb) {
+  if (map == nullptr) return q;
+  const int v = map[mb];
+  if (v < 0 || v > 51) __trap();
+  return v;
+}
 
 // One lane's share of edge_params' row for MB (mx, my): lane = dir*16 +
 // e*4 + g (dir 0 = vertical edges, e the edge, g the 4-line group).
@@ -198,13 +212,17 @@ __device__ void edge_params_lane(uint8_t* prm, const Frame& f,
   if (e == 0 ? (cur_i || nb_i) : cur_i) bs = 3;
 
   // the MB edge averages the two MBs' qp (the neighbour's reads as 0
-  // where it does not exist, as the reference's shifted grids do)
-  const int eq = e == 0 ? ((has_nb ? f.qp : 0) + f.qp + 1) >> 1 : f.qp;
+  // where it does not exist, as the reference's shifted grids do); under
+  // per-MB maps each MB brings its own
+  const int nbm = d == 0 ? mb - 1 : mb - f.mbw;
+  const int qp_q = mb_qp(f.qp_map, f.qp, mb);
+  const int qp_p = has_nb ? mb_qp(f.qp_map, f.qp, nbm) : 0;
+  const int eq = e == 0 ? (qp_p + qp_q + 1) >> 1 : qp_q;
   const int ia = eq + f.off_a + 12;
   const int a_e = tab[ia];
   const int b_e = tab[76 + eq + f.off_b + 12];
   const bool gate = e == 0 ? has_nb
-                           : (f.skip[mb] <= 0 && f.qp > f.qp_thresh);
+                           : (f.skip[mb] <= 0 && qp_q > f.qp_thresh);
   const bool act = gate && a_e > 0 && b_e > 0;
   const bool t8 = f.trans8 != nullptr && f.trans8[mb] > 0;
   const int bsc = min(bs, 3);
@@ -218,8 +236,9 @@ __device__ void edge_params_lane(uint8_t* prm, const Frame& f,
   }
   if ((e & 1) == 0) {
     const int ei = e >> 1;
-    const int eqc = e == 0 ? ((has_nb ? f.qpc : 0) + f.qpc + 1) >> 1
-                           : f.qpc;
+    const int qpc_q = mb_qp(f.qpc_map, f.qpc, mb);
+    const int qpc_p = has_nb ? mb_qp(f.qpc_map, f.qpc, nbm) : 0;
+    const int eqc = e == 0 ? (qpc_p + qpc_q + 1) >> 1 : qpc_q;
     const int iac = eqc + f.off_a + 12;
     prm[108 + d * 8 + ei * 4 + g] = (uint8_t)tab[152 + 4 * iac + bsc];
     if (g == 0) {
@@ -501,8 +520,8 @@ deblock_rows_kernel(uint8_t* __restrict__ yp, uint8_t* __restrict__ up,
 extern "C" int pcamv_deblock_frame(
     const void* y_in, const void* u_in, const void* v_in, void* y, void* u,
     void* v, const void* intra, const void* skip, const void* trans8,
-    const void* nnz4, const void* mv4, const void* ref4, const void* tabs,
-    int qp, int qpc, int qp_thresh, int off_a, int off_b, int mbh, int mbw,
+    const void* nnz4, const void* mv4, const void* ref4, const void* qp_map,
+    const void* qpc_map, const void* tabs, int qp, int qpc, int qp_thresh, int off_a, int off_b, int mbh, int mbw,
     void* sync, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t ny = (size_t)256 * mbh * mbw, nc = ny / 4;
@@ -526,8 +545,9 @@ extern "C" int pcamv_deblock_frame(
   }
   Frame f{static_cast<const int*>(intra), static_cast<const int*>(skip),
           static_cast<const int*>(trans8), static_cast<const int*>(nnz4),
-          static_cast<const int*>(mv4), static_cast<const int*>(ref4), qp,
-          qpc, qp_thresh, off_a, off_b, mbh, mbw};
+          static_cast<const int*>(mv4), static_cast<const int*>(ref4),
+          static_cast<const int*>(qp_map), static_cast<const int*>(qpc_map),
+          qp, qpc, qp_thresh, off_a, off_b, mbh, mbw};
   deblock_rows_kernel<<<mbh, kThreads, smem, st>>>(
       static_cast<uint8_t*>(y), static_cast<uint8_t*>(u),
       static_cast<uint8_t*>(v), f, static_cast<const int*>(tabs),

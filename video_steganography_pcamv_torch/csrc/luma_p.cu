@@ -48,6 +48,15 @@
 // coefficient becomes sign(c) * max(|c| - nr_off[pos], 0) before the
 // quant (nr_off's DC entry is not read).
 //
+// pcamv_luma_p_encode_grid and pcamv_luma_p_recon_grid are the same two
+// entries under a per-MB qp (adaptive quantization, the reference's
+// luma_p_encode(cur, pred, qp[N], ...), encoder/inter.py:233-238): each
+// MB reads its qp from qp_mb [N] and its mf, bias and dmf rows from one
+// [52][48] int32 slab (the qtab of every qp), and takes the dequant shift
+// qp / 6 - 4; everything else is as above. Still one launch a call; the
+// slab stays in L1/L2, so the bytes per MB grow by the 4-byte qp and the
+// 192 bytes of its rows.
+//
 // The quant product (bias + |c|) * mf and the dequant product lev * dmf
 // (and its left shift) are computed as uint32_t and reinterpreted, so
 // that they wrap as the reference's int32 arithmetic does: under a
@@ -67,7 +76,7 @@ __device__ __forceinline__ int mul_wrap(int a, int b) {
   return static_cast<int>(static_cast<uint32_t>(a) * static_cast<uint32_t>(b));
 }
 
-template <bool kLevelsIn, bool kNr>
+template <bool kLevelsIn, bool kNr, bool kGrid = false>
 __global__ void __launch_bounds__(kThreads)
     luma_p_kernel(const int* __restrict__ y, const int* __restrict__ pred,
                   int width, int n_plane, const int* __restrict__ idx,
@@ -77,12 +86,22 @@ __global__ void __launch_bounds__(kThreads)
                   const int* __restrict__ lev_in,
                   const int* __restrict__ nr_off, int* __restrict__ nr_sum,
                   int* __restrict__ lev, int* __restrict__ rec,
-                  int* __restrict__ cbp) {
+                  int* __restrict__ cbp, const int* __restrict__ qp_mb,
+                  const int* __restrict__ qtab_all) {
   const int mb_raw = (blockIdx.x * kThreads + threadIdx.x) >> 4;
   const bool active = mb_raw < n;
   // the idle half-warp of an odd N repeats the last MB, so that every
   // lane of the warp takes part in the shuffles and the ballot
   const int mb = active ? mb_raw : n - 1;
+  if constexpr (kGrid) {
+    // the MB's own qp: its rows of the [52][48] slab (mf | bias | dmf)
+    const int q = __ldg(&qp_mb[mb]);
+    if (q < 0 || q > 51) __trap();
+    mf = qtab_all + 48 * q;
+    bias = mf + 16;
+    dmf = mf + 32;
+    qb = q / 6 - 4;
+  }
   const int k = threadIdx.x & 15;
   const int b8 = k >> 2, sub = k & 3;
   const int by = (b8 & 2) | (sub >> 1);
@@ -266,20 +285,37 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <bool kNr>
+template <bool kNr, bool kGrid>
 void launch_encode(const void* y, const void* pred, int width, int n_plane,
                    const void* idx, const void* fz, int n, const void* mf,
                    const void* bias, const void* dmf, int qb,
                    const void* nr_off, void* nr_sum, void* lev, void* rec,
-                   void* cbp, cudaStream_t stream) {
+                   void* cbp, const void* qp_mb, const void* qtab_all,
+                   cudaStream_t stream) {
   const int blocks = (n + kThreads / 16 - 1) / (kThreads / 16);
-  luma_p_kernel<false, kNr><<<blocks, kThreads, 0, stream>>>(
+  luma_p_kernel<false, kNr, kGrid><<<blocks, kThreads, 0, stream>>>(
       static_cast<const int*>(y), static_cast<const int*>(pred), width,
       n_plane, static_cast<const int*>(idx),
       static_cast<const unsigned char*>(fz), n, static_cast<const int*>(mf),
       static_cast<const int*>(bias), static_cast<const int*>(dmf), qb,
       nullptr, static_cast<const int*>(nr_off), static_cast<int*>(nr_sum),
-      static_cast<int*>(lev), static_cast<int*>(rec), static_cast<int*>(cbp));
+      static_cast<int*>(lev), static_cast<int*>(rec), static_cast<int*>(cbp),
+      static_cast<const int*>(qp_mb), static_cast<const int*>(qtab_all));
+}
+
+template <bool kGrid>
+void launch_recon(const void* pred, const void* lev_in, const void* fz, int n,
+                  const void* dmf, int qb, void* lev, void* rec, void* cbp,
+                  const void* qp_mb, const void* qtab_all,
+                  cudaStream_t stream) {
+  const int blocks = (n + kThreads / 16 - 1) / (kThreads / 16);
+  luma_p_kernel<true, false, kGrid><<<blocks, kThreads, 0, stream>>>(
+      nullptr, static_cast<const int*>(pred), 16, 1, nullptr,
+      static_cast<const unsigned char*>(fz), n, nullptr, nullptr,
+      static_cast<const int*>(dmf), qb, static_cast<const int*>(lev_in),
+      nullptr, nullptr, static_cast<int*>(lev), static_cast<int*>(rec),
+      static_cast<int*>(cbp), static_cast<const int*>(qp_mb),
+      static_cast<const int*>(qtab_all));
 }
 
 }  // namespace
@@ -298,11 +334,38 @@ extern "C" int pcamv_luma_p_encode(const void* y, const void* pred, int width,
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (nr_off != nullptr)
-    launch_encode<true>(y, pred, width, n_plane, idx, fz, n, mf, bias, dmf,
-                        qb, nr_off, nr_sum, lev, rec, cbp, st);
+    launch_encode<true, false>(y, pred, width, n_plane, idx, fz, n, mf, bias,
+                               dmf, qb, nr_off, nr_sum, lev, rec, cbp,
+                               nullptr, nullptr, st);
   else
-    launch_encode<false>(y, pred, width, n_plane, idx, fz, n, mf, bias, dmf,
-                         qb, nullptr, nullptr, lev, rec, cbp, st);
+    launch_encode<false, false>(y, pred, width, n_plane, idx, fz, n, mf, bias,
+                                dmf, qb, nullptr, nullptr, lev, rec, cbp,
+                                nullptr, nullptr, st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The per-MB qp instance (adaptive quantization): qp_mb int32 [n] in
+// [0, 51] (a value outside traps), qtab_all int32 [52][48] the qtab rows
+// of every qp; the kernel reads its MB's rows and computes the shift
+// qp / 6 - 4 itself.
+extern "C" int pcamv_luma_p_encode_grid(
+    const void* y, const void* pred, int width, int n_plane, const void* idx,
+    const void* fz, int n, const void* qp_mb, const void* qtab_all,
+    const void* nr_off, void* nr_sum, void* lev, void* rec, void* cbp,
+    void* stream) {
+  if (n <= 0) return 0;
+  if ((nr_off == nullptr) != (nr_sum == nullptr) || qp_mb == nullptr ||
+      qtab_all == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (nr_off != nullptr)
+    launch_encode<true, true>(y, pred, width, n_plane, idx, fz, n, nullptr,
+                              nullptr, nullptr, 0, nr_off, nr_sum, lev, rec,
+                              cbp, qp_mb, qtab_all, st);
+  else
+    launch_encode<false, true>(y, pred, width, n_plane, idx, fz, n, nullptr,
+                               nullptr, nullptr, 0, nullptr, nullptr, lev,
+                               rec, cbp, qp_mb, qtab_all, st);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -311,14 +374,20 @@ extern "C" int pcamv_luma_p_recon(const void* pred, const void* lev_in,
                                   int qb, void* lev, void* rec, void* cbp,
                                   void* stream) {
   if (n <= 0) return 0;
-  const int blocks = (n + kThreads / 16 - 1) / (kThreads / 16);
-  luma_p_kernel<true, false>
-      <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-          nullptr, static_cast<const int*>(pred), 16, 1, nullptr,
-          static_cast<const unsigned char*>(fz), n, nullptr, nullptr,
-          static_cast<const int*>(dmf), qb,
-          static_cast<const int*>(lev_in), nullptr, nullptr,
-          static_cast<int*>(lev), static_cast<int*>(rec),
-          static_cast<int*>(cbp));
+  launch_recon<false>(pred, lev_in, fz, n, dmf, qb, lev, rec, cbp, nullptr,
+                      nullptr, static_cast<cudaStream_t>(stream));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int pcamv_luma_p_recon_grid(const void* pred, const void* lev_in,
+                                       const void* fz, int n,
+                                       const void* qp_mb,
+                                       const void* qtab_all, void* lev,
+                                       void* rec, void* cbp, void* stream) {
+  if (n <= 0) return 0;
+  if (qp_mb == nullptr || qtab_all == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  launch_recon<true>(pred, lev_in, fz, n, nullptr, 0, lev, rec, cbp, qp_mb,
+                     qtab_all, static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }

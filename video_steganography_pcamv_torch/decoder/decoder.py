@@ -17,11 +17,13 @@ lists, the default B list order, implicit weighted bipred, reference B
 slices entering the DPB, deblocked B slices with the two-list bS, POC
 output order), with the SPS's scaling lists (held per decode in each
 slice's `recon.Dequant`); the CABAC parser is `cabac_dec.py`. Picture
-scaling matrices, per-plane chroma scaling lists, per-MB QP changes in
-a deblocked slice, explicit weighted bipred (weighted_bipred_idc 1),
+scaling matrices, per-plane chroma scaling lists, explicit weighted
+bipred (weighted_bipred_idc 1),
 the 8x8 transform in B MBs, B sub-8x8
 partitions, L1 reordering and more than one L1 reference raise
-NotImplementedError. The in-loop filter is the port's `ops.deblock`.
+NotImplementedError. Per-MB QP changes (mb_qp_delta, adaptive
+quantization) reach the dequant and the deblocker. The in-loop filter is
+the port's `ops.deblock`.
 """
 
 from __future__ import annotations
@@ -1475,17 +1477,20 @@ class SliceDecoder:
 def _deblock(dec: SliceDecoder, qp: int, alpha_off: int, beta_off: int,
              cqo: int, is_b: bool = False):
     """The in-loop filter of a decoded slice, with the port's deblocker
-    (`ops.deblock`, its plain version on the CPU). It serves one QP per
-    slice; per-MB QP changes raise NotImplementedError. In a B slice the
-    boundary strength compares both lists' motion (spec 8.7.2.1, x264's
-    frame.c:735-741), where an unused list is ref -1 / mv 0."""
-    qp_map = np.array([m.qp for m in dec.mbs], np.int32)
-    if (qp_map != qp).any():
-        raise NotImplementedError("deblocking with per-MB QP changes")
-    qpc = int(CHROMA_QP[np.clip(qp + cqo, 0, 51)])
-
+    (`ops.deblock`, its plain version on the CPU), at each MB's QP (the
+    mb_qp_delta chain, adaptive quantization's per-MB QPs included: an MB
+    edge averages the two MBs' QPs). In a B slice the boundary strength
+    compares both lists' motion (spec 8.7.2.1, x264's frame.c:735-741),
+    where an unused list is ref -1 / mv 0."""
     def t(a):
         return torch.as_tensor(np.ascontiguousarray(a, np.int32))
+
+    qp_map = np.array([m.qp for m in dec.mbs], np.int32).reshape(dec.mbh,
+                                                                 dec.mbw)
+    if (qp_map == qp).all():
+        qpc = int(CHROMA_QP[np.clip(qp + cqo, 0, 51)])
+    else:
+        qp, qpc = t(qp_map), t(CHROMA_QP[np.clip(qp_map + cqo, 0, 51)])
 
     # a trans8 MB's 4x4 cells carry their 8x8 block's coefficient count
     t8r = np.repeat(np.repeat(dec.mb_trans8, 4, 0), 4, 1)

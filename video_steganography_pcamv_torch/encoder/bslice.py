@@ -63,7 +63,7 @@ from ..ops.probe import (_mb_blocks8, block_row8, satd_flat, sp_to_z,
                          subpel, wht8_flat, z_to_sp)
 from . import qpel_table as QT
 from .analyse2 import subpel_cost_from_table
-from .inter import _p_result, chroma_encode, trellis_luma_levels
+from .inter import _p_result, chroma_encode, mb_qps, trellis_luma_levels
 from .me import mv_bits_table
 from .partition import D_16x16, D_16x8, D_8x16, gather_windows8, te_ref_bits
 from .qpel_table import gather_windows
@@ -866,7 +866,7 @@ def _assemble_pred_b(refs0, ref1, use0, use1, mv0_8, mv1_8, ref8_0,
 
 
 def encode_b_frame_device(y, u, v, refs0, ref1, use0, use1, mv0_8, mv1_8,
-                          ref8_0, qp: int, qpc: int, mbh: int,
+                          ref8_0, qp, qpc, mbh: int,
                           mbw: int, w1=32, trellis: bool = False,
                           tables=None) -> dict:
     """The B encode at per-8x8 (use, mv) fields of both lists, the
@@ -876,8 +876,10 @@ def encode_b_frame_device(y, u, v, refs0, ref1, use0, use1, mv0_8, mv1_8,
     kernel (one launch on CUDA, decimation in the kernel; with `trellis`
     from the inter trellis's levels), the chroma encode as on the P path,
     all with the inter class of `tables` (None: flat; never noise
-    reduction, as in the reference). Returns the P encode's result
-    dict."""
+    reduction, as in the reference). qp/qpc are ints, or per-MB [mbh,
+    mbw] grids under adaptive quantization (the reference's bslice.py:
+    352-355). Returns the P encode's result dict."""
+    qp, qpc = mb_qps(qp, qpc, mbh * mbw, y.device)
     pred_y, pred_u, pred_v = _assemble_pred_b(
         refs0, ref1, use0, use1, mv0_8, mv1_8, ref8_0, mbh, mbw, w1)
     pred_y = pred_y.contiguous()

@@ -90,6 +90,17 @@ carries any list that is not flat), never with process state. Under
 offsets (`_nr_offset`), which each P frame's pass-1 sums update
 (`_nr_update`) before its pass 2, as in the reference; the pass 2 is
 then a full re-encode.
+
+Under adaptive quantization (`aq_mode` 1) every frame gets a per-MB qp
+grid from its source planes (`ops.aq`: the offsets on the device, the
+hysteresis on the host, `self.aq_grids`): the IDR, the P frames' pass 1
+and pass 2 and the B encode quantize each MB at its qp, the writers code
+the folded mb_qp_delta wherever an MB codes one, and B5 deblocks with the
+decoder-visible chain of qps. The analysis, B4's probes and rho stay at
+the frame qp. A one-reference P frame then takes the reference's unfused
+path (`_encode_p_parts1`: the stage-1 analysis, the pass-1 encode, one
+pull, the native scan, the embedding with a full pass 2), unpipelined,
+and the incremental re-encode is off.
 """
 
 from __future__ import annotations
@@ -101,6 +112,7 @@ import numpy as np
 import torch
 
 from .. import native
+from ..ops import aq as AQ
 from ..ops import cqm as CQ
 from ..ops import mc
 from ..ops import probe as PR
@@ -156,7 +168,14 @@ def check_slice(p: Params) -> None:
     frames: elsewhere it only signals the PPS flag, and every MB that may
     carry transform_size_8x8_flag carries 0. Noise reduction reaches the
     P frames' 4x4 luma encodes (pass 1 and pass 2), never the IDR, the
-    B encode or the stego probes."""
+    B encode or the stego probes. Adaptive quantization (`aq_mode` 1, any
+    `aq_strength` 0-3) reaches every final encode of every frame type: the
+    IDR (its quants, trellis and RD lambda2 per MB), the P frames' pass 1
+    and pass 2 (one reference then leaves the fused step for the unfused
+    path), the B encode, their mb_qp_delta and the deblocker's qp maps;
+    never the analysis, B4's probes or rho (all at the frame qp). With
+    stego on the reference asserts partitions under AQ, so the 16x16-only
+    path refuses it."""
     if not p.partitions and p.deblock_device and p.ref_frames == 1:
         raise NotImplementedError(
             "partitions off with deblock_device on: the reference drops "
@@ -166,7 +185,9 @@ def check_slice(p: Params) -> None:
     bad = []
     for name, ok in (
             ("p4x4 (ROADMAP A16)", not p.p4x4),
-            ("aq_mode (ROADMAP A16)", not p.aq_mode),
+            ("aq_mode with partitions off (the reference's Params.validate "
+             "asserts the partition path while embedding)",
+             not (p.aq_mode and not p.partitions)),
             ("rc_mode!=0 (ROADMAP A16)", p.rc_mode == 0),
             ("pipeline_deep (ROADMAP A19)", not p.pipeline_deep),
             ("i4x4 off (ROADMAP A16)", p.i4x4),
@@ -414,6 +435,10 @@ class Encoder:
         # nr_count), float64 on the host as in the reference
         self._nr_sum = np.zeros((4, 4), np.float64)
         self._nr_count = 0
+        # adaptive quantization: the current frame's (qp, chroma qp)
+        # grids int32 [mbh, mbw] on the host, None without AQ; rebuilt
+        # every frame, so no state crosses frames
+        self.aq_grids = None
 
     # ------------------------------------------------------------------
     # noise reduction (x264_noise_reduction_update, macroblock.c:902-922;
@@ -484,6 +509,7 @@ class Encoder:
         t0 = time.time()
         y, u, v = self._pad(frame)
         if (self.p.partitions and self.p.ref_frames == 1
+                and not self.p.aq_mode    # AQ rides the unfused path
                 and self.ref is not None
                 and self.lookahead.prev_lr is not None):
             return self._encode_frame_ipp_fast(frame, y, u, v, t0)
@@ -491,17 +517,16 @@ class Encoder:
         is_idr, satd = self.lookahead.decide(y)
         if self.ref is None:
             is_idr = True
-        if not is_idr and self.p.partitions and self.p.ref_frames == 1:
+        if (not is_idr and self.p.partitions and self.p.ref_frames == 1
+                and not self.p.aq_mode):
             raise NotImplementedError("non-fused partitioned P frame")
         qp = self.rc.start(SLICE_I if is_idr else SLICE_P, satd)
         out = self._aud(SLICE_I if is_idr else SLICE_P)
         if is_idr:
             out += self._encode_idr(y, u, v, qp)
         else:
-            enc_p = (self._encode_p_mref if self.p.ref_frames > 1
-                     else self._encode_p16)
             out += nal_unit(NAL_SLICE, NAL_PRIORITY_HIGH,
-                            enc_p(y, u, v, qp))
+                            self._encode_p_unfused()(y, u, v, qp))
             self.stats.p_frames += 1
         self._accumulate_psnr(frame, y, u, v)
         self.frame_num += 1
@@ -797,11 +822,10 @@ class Encoder:
         else:
             self._ref_meta = (disp, self.frame_num, True,
                               list(self._dpb_disps))
-            if self.p.ref_frames > 1 or not self.p.partitions:
-                enc_p = (self._encode_p_mref if self.p.ref_frames > 1
-                         else self._encode_p16)
+            if (self.p.ref_frames > 1 or not self.p.partitions
+                    or self.p.aq_mode):
                 out += nal_unit(NAL_SLICE, NAL_PRIORITY_HIGH,
-                                enc_p(y, u, v, qp))
+                                self._encode_p_unfused()(y, u, v, qp))
             else:
                 d = self._fused_dispatch(y, u, v, qp, chroma_qp(
                     qp, self.p.chroma_qp_offset))
@@ -897,7 +921,6 @@ class Encoder:
         p = self.p
         mbh, mbw = p.mb_height, p.mb_width
         qp = self.rc.start(SLICE_B, satd)
-        qpc = chroma_qp(qp, p.chroma_qp_offset)
         lam = ME.lambda_tab(qp)
         refs_l, refs_u, refs_v, n_valid, l0_disps = l0
         num_ref = n_valid   # the active L0 count the slice signals
@@ -914,9 +937,10 @@ class Encoder:
         (code, subs, use0, use1, fmv0, fmv1, mvd0, mvd1, ref8_0,
          ref0_16) = analyse(y, refs_l, n_valid, ref_l1, lam, w_tab, col, dm)
         t = self._dev
+        qp_enc, qpc_enc = self._aq_frame(y, u, v, qp)
         res = BS.encode_b_frame_device(
             y, u, v, dict(luma=refs_l, u=refs_u, v=refs_v), ref_l1, t(use0),
-            t(use1), t(fmv0), t(fmv1), t(ref8_0), qp, qpc, mbh, mbw,
+            t(use1), t(fmv0), t(fmv1), t(ref8_0), qp_enc, qpc_enc, mbh, mbw,
             w1=BS.weight_arg(w_tab[np.maximum(ref8_0, 0)], self.device),
             trellis=bool(p.trellis), tables=self.qt)
         res_np = _levels_exact(res, mbh, mbw)
@@ -936,7 +960,8 @@ class Encoder:
         ref0_w = ref0_16 if p.ref_frames > 1 and l0_map else None
         write = (self._write_b_slice_cabac if p.cabac
                  else self._write_b_slice_cavlc)
-        nal = write(bw, res_np, qp, code, subs, mvd0, mvd1, ref0_w, num_ref)
+        nal = write(bw, res_np, qp, code, subs, mvd0, mvd1, ref0_w, num_ref,
+                    self._qp_grid_arg())
         prio = NAL_PRIORITY_HIGH if is_ref else NAL_PRIORITY_DISPOSABLE
         out = self._aud(SLICE_B) + nal_unit(NAL_SLICE, prio, nal)
         if is_ref:
@@ -1119,8 +1144,18 @@ class Encoder:
     def _dev(self, a) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(a)).to(self.device)
 
+    @staticmethod
+    def _b_qp_delta(aqg, last_qp: int, my: int, mx: int):
+        """A coded B MB's mb_qp_delta under adaptive quantization (the
+        spec 7.4.5 fold against the last coded qp) and the new last qp;
+        (0, last_qp) without a grid."""
+        if aqg is None:
+            return 0, last_qp
+        q = int(aqg[my, mx])
+        return ((q - last_qp + 26) % 52) - 26, q
+
     def _write_b_slice_cavlc(self, bw, res, qp: int, code, subs, mvd0,
-                             mvd1, ref0, num_ref: int) -> bytes:
+                             mvd1, ref0, num_ref: int, aqg=None) -> bytes:
         """CAVLC B slice data (the reference's `_write_b_slice_cavlc`,
         core.py:3262): `mb_skip_run` over the direct MBs with no
         residual, `FrameCavlc.write_b_mb` for the others; a slice of
@@ -1128,11 +1163,13 @@ class Encoder:
         `native.write_slice_b`, as in the reference (not under the PPS's
         8x8-transform flag, which only the Python writer codes). ref0
         [mbh, mbw] each MB's L0 entry (None: 0), coded as ref_idx_l0 when
-        num_ref > 1."""
+        num_ref > 1; aqg the frame's AQ qp grid (mb_qp_delta; the
+        reference then writes in Python)."""
         p = self.p
         mbh, mbw = p.mb_height, p.mb_width
         t8 = bool(p.transform_8x8)
-        if ref0 is None and np.all(code <= 3) and not t8:
+        last_qp = qp
+        if ref0 is None and np.all(code <= 3) and not t8 and aqg is None:
             return self._write_b_native(native.write_slice_b, bw, res,
                                         code, mvd0, mvd1)
         fc = FrameCavlc(mbw, mbh, trans8_mode=t8)
@@ -1148,10 +1185,13 @@ class Encoder:
                     continue
                 bw.write_ue(skip_run)
                 skip_run = 0
+                dq = 0
+                if cl or cc:
+                    dq, last_qp = self._b_qp_delta(aqg, last_qp, my, mx)
                 fc.write_b_mb(bw, mx, my, m, mvd0[my, mx], mvd1[my, mx], cl,
                               cc, res["luma_lev"][my, mx],
                               res["chroma_dc"][my, mx],
-                              res["chroma_ac"][my, mx],
+                              res["chroma_ac"][my, mx], qp_delta=dq,
                               subs=None if subs is None else subs[my, mx],
                               ref0=0 if ref0 is None else int(ref0[my, mx]),
                               num_ref=num_ref)
@@ -1179,19 +1219,21 @@ class Encoder:
             chroma_ac=res["chroma_ac"].reshape(n, 2, 4, 16))
 
     def _write_b_slice_cabac(self, bw, res, qp: int, code, subs, mvd0,
-                             mvd1, ref0, num_ref: int) -> bytes:
+                             mvd1, ref0, num_ref: int, aqg=None) -> bytes:
         """CABAC B slice data (the reference's `_write_b_slice_cabac`,
         core.py:3349): B_Skip where a direct MB has no residual,
         `write_b_mb` for codes 0-3, `write_b_mb_ext` for the partition
         codes; a slice of 16x16 codes without an L0 map takes the native
         twin `native.write_slice_cabac_b`, as in the reference (not
         under the PPS's 8x8-transform flag). ref0 [mbh, mbw] each MB's L0
-        entry (None: 0), coded as ref_idx_l0 when num_ref > 1."""
+        entry (None: 0), coded as ref_idx_l0 when num_ref > 1; aqg as for
+        the CAVLC writer."""
         p = self.p
         mbh, mbw = p.mb_height, p.mb_width
         n = mbh * mbw
         t8 = bool(p.transform_8x8)
-        if ref0 is None and np.all(code <= 3) and not t8:
+        last_qp = qp
+        if ref0 is None and np.all(code <= 3) and not t8 and aqg is None:
             return self._write_b_native(native.write_slice_cabac_b, bw, res,
                                         code, mvd0, mvd1, qp=qp)
         per_unit = mvd0.ndim == 4     # the partition path's [mbh,mbw,4,2]
@@ -1209,14 +1251,19 @@ class Encoder:
                    res["chroma_ac"][my, mx])
             if m == 0 and cl == 0 and cc == 0:
                 w.write_b_skip_mb(my, mx)
-            elif m <= 3:
+                w.end_mb(a == n - 1)
+                continue
+            dq = 0
+            if cl or cc:
+                dq, last_qp = self._b_qp_delta(aqg, last_qp, my, mx)
+            if m <= 3:
                 w.write_b_mb(my, mx, m,
                              mvd0[my, mx, 0] if per_unit else mvd0[my, mx],
                              mvd1[my, mx, 0] if per_unit else mvd1[my, mx],
-                             cl, cc, *lev, ref0=r0, num_ref=num_ref)
+                             cl, cc, *lev, dqp=dq, ref0=r0, num_ref=num_ref)
             else:
                 w.write_b_mb_ext(my, mx, m, subs[my, mx], mvd0[my, mx],
-                                 mvd1[my, mx], cl, cc, *lev, ref0=r0,
+                                 mvd1[my, mx], cl, cc, *lev, dqp=dq, ref0=r0,
                                  num_ref=num_ref)
             w.end_mb(a == n - 1)
         w.end_slice(bw)
@@ -1287,7 +1334,6 @@ class Encoder:
         mbh, mbw = p.mb_height, p.mb_width
         n = mbh * mbw
         dev = self.device
-        qpc = chroma_qp(qp, p.chroma_qp_offset)
         lam = ME.lambda_tab(qp)
         refs_luma, refs_u, refs_v, n_valid = self._stack_l0(self.dpb)[:4]
         part, mv8, ref8, SK, SP, sc8 = \
@@ -1296,9 +1342,10 @@ class Encoder:
                 torch.as_tensor(self.prev_mv).to(dev), lam, qp, p.me_range,
                 mbh, mbw, p.ref_frames, allow_parts=bool(p.partitions),
                 tail_kernel=bool(p.tail_kernel), tables=self.qt)
+        qp_enc, qpc_enc = self._aq_frame(y, u, v, qp)
         res = P.encode_p_frame_device8_mref(
-            y, u, v, refs_luma, refs_u, refs_v, mv8, ref8, qp, qpc, mbh, mbw,
-            trellis=bool(p.trellis), tables=self.qt,
+            y, u, v, refs_luma, refs_u, refs_v, mv8, ref8, qp_enc, qpc_enc,
+            mbh, mbw, trellis=bool(p.trellis), tables=self.qt,
             nr_offset=self.nr_offset())
         meta = torch.cat([part.reshape(-1), mv8.reshape(-1),
                           res["cbp_luma"].reshape(-1).to(torch.int32),
@@ -1315,31 +1362,148 @@ class Encoder:
             part_np, mv8_np, cbp_l, cbp_c, ref8=ref8_np)
         replaced = self._stego.embed_frame_parts(
             self, y, u, v, qp, part_np, mv8_np, skip, mvp, ref8_np,
-            (SK, SP, sc8, part, mv8), (refs_luma, refs_u, refs_v))
+            (SK, SP, sc8, part, mv8), (refs_luma, refs_u, refs_v),
+            grids=(qp_enc, qpc_enc))
         if replaced is not None:
             final8, skip, mvd, res = replaced
+        res_np = _levels_exact(res, mbh, mbw)
         final8_t = torch.as_tensor(np.ascontiguousarray(final8)).to(dev)
         ref4 = ref8.repeat_interleave(2, 0).repeat_interleave(2, 1)
         self._deblock_device(
             res, torch.zeros((mbh, mbw), dtype=torch.int32, device=dev),
             torch.as_tensor(skip.astype(np.int32)).to(dev),
             final8_t.repeat_interleave(2, 0).repeat_interleave(2, 1), qp,
-            _nnz4(res["luma_lev"], mbh, mbw), ref4=ref4)
+            _nnz4(res["luma_lev"], mbh, mbw), ref4=ref4,
+            qp_maps=self._qp_maps_p(res_np, skip, qp))
         # stego on: no intra MBs in P, the predictor is the final field
         self.prev_mv = np.ascontiguousarray(final8[::2, ::2], np.int32)
         self._anchor_motion = (final8, ref8_np)
-        return self._finish_p_slice(_levels_exact(res, mbh, mbw), qp,
-                                    part_np, mvd, skip, self.frame_num,
-                                    self._poc_lsb, ref8=ref8_np,
-                                    num_ref=n_valid)
+        return self._finish_p_slice(res_np, qp, part_np, mvd, skip,
+                                    self.frame_num, self._poc_lsb,
+                                    ref8=ref8_np, num_ref=n_valid)
+
+    def _encode_p_unfused(self):
+        """The unpipelined P path of this encoder's Params: the
+        multi-reference one, the one-reference partitioned one (adaptive
+        quantization) or the 16x16-only one."""
+        if self.p.ref_frames > 1:
+            return self._encode_p_mref
+        return self._encode_p_parts1 if self.p.partitions else self._encode_p16
+
+    def _encode_p_parts1(self, y, u, v, qp: int) -> bytes:
+        """The one-reference partitioned P frame unfused, the reference's
+        `_encode_p_parts` at ref_frames 1 with stego on (core.py:
+        1846-1998), the path adaptive quantization takes: the analysis
+        (B1 -> partition decision -> B9 -> B2-B4, `analyse_p_frame_parts`,
+        at the frame qp), the AQ grids, the pass-1 encode at them (the
+        8x8 transform, rd, trellis and noise reduction as the Params say),
+        one pull of part/mv8/cbp, the native scan, the embedding (rho at
+        the frame qp from the probe maps, a full pass-2 re-encode at the
+        grids), B5 with the decoder-visible qp maps and the slice with its
+        mb_qp_delta."""
+        p = self.p
+        mbh, mbw = p.mb_height, p.mb_width
+        n = mbh * mbw
+        dev = self.device
+        lam = ME.lambda_tab(qp)
+        t8 = bool(p.transform_8x8)
+        part, mv8, SK, SP, sc8 = PT.analyse_p_frame_parts(
+            y, self.ref["luma"].to(torch.uint8),
+            torch.as_tensor(self.prev_mv).to(dev), lam, qp, p.me_range, mbh,
+            mbw, tail_kernel=bool(p.tail_kernel), tables=self.qt)
+        qp_enc, qpc_enc = self._aq_frame(y, u, v, qp)
+        res = P.encode_p_frame_device8(
+            y, u, v, self.ref["luma"], self.ref["u"], self.ref["v"], mv8,
+            qp_enc, qpc_enc, mbh, mbw, trans8=t8, rd=bool(p.rd),
+            trellis=bool(p.trellis), tables=self.qt,
+            nr_offset=self.nr_offset())
+        meta = torch.cat([part.reshape(-1), mv8.reshape(-1),
+                          res["cbp_luma"].reshape(-1).to(torch.int32),
+                          res["cbp_chroma"].reshape(-1).to(torch.int32)]
+                         ).cpu().numpy()
+        part_np = meta[:n].reshape(mbh, mbw)
+        mv8_np = np.ascontiguousarray(meta[n:9 * n]).reshape(2 * mbh,
+                                                             2 * mbw, 2)
+        cbp_l = meta[9 * n:10 * n].reshape(mbh, mbw)
+        cbp_c = meta[10 * n:].reshape(mbh, mbw)
+        self._nr_update(res)
+        skip, mvd, mvp, final8 = native.scan_p_parts(part_np, mv8_np, cbp_l,
+                                                     cbp_c)
+        replaced = self._stego.embed_frame_parts(
+            self, y, u, v, qp, part_np, mv8_np, skip, mvp, None,
+            (SK, SP, sc8, part, mv8), None,
+            grids=(qp_enc, qpc_enc))
+        if replaced is not None:
+            final8, skip, mvd, res = replaced
+        res_np = _levels_exact(res, mbh, mbw)
+        if t8:
+            # the effective flag: the decision AND cbp_luma != 0
+            t8_eff = res["trans8"] & (res["cbp_luma"] != 0)
+            nnz = _nnz4_t8(res["luma_lev"], res["luma8_lev"], t8_eff, mbh,
+                           mbw)
+            self.stats.trans8_mbs += int(
+                (res_np["trans8"] & (res_np["cbp_luma"] != 0)).sum())
+        else:
+            t8_eff = None
+            nnz = _nnz4(res["luma_lev"], mbh, mbw)
+        final8_t = torch.as_tensor(np.ascontiguousarray(final8)).to(dev)
+        self._deblock_device(
+            res, torch.zeros((mbh, mbw), dtype=torch.int32, device=dev),
+            torch.as_tensor(skip.astype(np.int32)).to(dev),
+            final8_t.repeat_interleave(2, 0).repeat_interleave(2, 1), qp,
+            nnz, trans8=t8_eff, qp_maps=self._qp_maps_p(res_np, skip, qp))
+        # stego on: no intra MBs in P, the predictor is the final field
+        self.prev_mv = np.ascontiguousarray(final8[::2, ::2], np.int32)
+        self._anchor_motion = (final8, None)
+        return self._finish_p_slice(res_np, qp, part_np, mvd, skip,
+                                    self.frame_num, self._poc_lsb)
+
+    # ------------------------------------------------------------------
+    # adaptive quantization (x264_adaptive_quant_frame; the reference's
+    # core.py:1143-1175, :1898-1911, :2373-2385, :2878-2890)
+    def _aq_frame(self, y, u, v, qp: int):
+        """The frame's (qp, chroma qp) for the encodes: under adaptive
+        quantization its per-MB grids (`ops.aq.frame_grids`, kept on the
+        host as `self.aq_grids` for the writers and the deblocker) as int32
+        device tensors; otherwise the frame's ints, and `aq_grids` None."""
+        p = self.p
+        if not p.aq_mode:
+            self.aq_grids = None
+            return qp, chroma_qp(qp, p.chroma_qp_offset)
+        self.aq_grids = AQ.frame_grids(y, u, v, qp, p)
+        return tuple(self._dev(g) for g in self.aq_grids)
+
+    def _qp_maps(self, coded, qp: int):
+        """The deblocker's (qp, chroma qp) maps under adaptive
+        quantization, or None: the decoder-visible chain of the frame's
+        grid over the MBs that code mb_qp_delta (`coded`, host bool
+        [mbh, mbw]; the others keep the previous MB's qp)."""
+        if self.aq_grids is None:
+            return None
+        eff = AQ.effective_qp_grid(self.aq_grids[0], coded, qp)
+        return (self._dev(eff),
+                self._dev(AQ.chroma_grid(eff, self.p.chroma_qp_offset)))
+
+    def _qp_maps_p(self, res_np, skip, qp: int):
+        """`_qp_maps` of a P frame: an MB codes mb_qp_delta when it is
+        not skipped and has a cbp."""
+        if self.aq_grids is None:
+            return None
+        coded = (((res_np["cbp_luma"] | res_np["cbp_chroma"]) != 0)
+                  & ~np.asarray(skip, bool))
+        return self._qp_maps(coded, qp)
+
+    def _qp_grid_arg(self):
+        """The writers' per-MB qp grid, or None."""
+        return None if self.aq_grids is None else self.aq_grids[0]
 
     def _encode_i(self, y, u, v, qp: int) -> bytes:
         p = self.p
         mbh, mbw = p.mb_height, p.mb_width
         n = mbh * mbw
-        qpc = chroma_qp(qp, p.chroma_qp_offset)
         t8 = bool(p.transform_8x8)
-        res_dev = encode_i_frame(y, u, v, qp, qpc, mbw, mbh,
+        qp_enc, qpc_enc = self._aq_frame(y, u, v, qp)
+        res_dev = encode_i_frame(y, u, v, qp_enc, qpc_enc, mbw, mbh,
                                  lam=ME.lambda_tab(qp), i8x8=t8,
                                  rd=bool(p.rd), trellis=bool(p.trellis),
                                  tables=self.qt)
@@ -1354,16 +1518,24 @@ class Encoder:
         else:
             t8_i = None
             nnz = _nnz4(res_dev["luma_ac"], mbh, mbw)
-        self._deblock_device(
-            res_dev, torch.ones((mbh, mbw), dtype=i32, device=dev),
-            torch.zeros((mbh, mbw), dtype=i32, device=dev),
-            torch.zeros((4 * mbh, 4 * mbw, 2), dtype=i32, device=dev), qp,
-            nnz, trans8=t8_i)
         keys = ("mode", "cmode", "cbp_luma", "cbp_chroma", "luma_dc",
                 "luma_ac", "chroma_dc", "chroma_ac", "mb_i4", "i4_modes")
         if t8:
             keys += ("mb_i8", "i8_modes", "luma8_lev")
         res = {k: res_dev[k].cpu().numpy() for k in keys}
+        qp_maps = None
+        if self.aq_grids is not None:
+            # I_16x16 always codes mb_qp_delta, I_NxN only with residual
+            i16 = ~res["mb_i4"].astype(bool)
+            if t8:
+                i16 &= ~res["mb_i8"].astype(bool)
+            qp_maps = self._qp_maps(
+                i16 | ((res["cbp_luma"] | res["cbp_chroma"]) != 0), qp)
+        self._deblock_device(
+            res_dev, torch.ones((mbh, mbw), dtype=i32, device=dev),
+            torch.zeros((mbh, mbw), dtype=i32, device=dev),
+            torch.zeros((4 * mbh, 4 * mbw, 2), dtype=i32, device=dev), qp,
+            nnz, trans8=t8_i, qp_maps=qp_maps)
         if t8:
             self.stats.i8x8_mbs += int(res["mb_i8"].sum())
         self.prev_mv = np.zeros((mbh, mbw, 2), np.int32)
@@ -1392,7 +1564,7 @@ class Encoder:
                 mb_i8=res["mb_i8"].reshape(n) if t8 else None,
                 i8_modes=res["i8_modes"].reshape(n, 4) if t8 else None,
                 luma8_lev=res["luma8_lev"].reshape(n, 256) if t8 else None,
-                trans8_mode=t8)
+                trans8_mode=t8, qp_grid=self._qp_grid_arg())
         return native.write_slice(
             hdr, nbits, H.SLICE_TYPE_I, mbw, mbh,
             mode=res["mode"].reshape(n), cmode=res["cmode"].reshape(n),
@@ -1405,7 +1577,8 @@ class Encoder:
             i4_modes=res["i4_modes"].reshape(n, 16),
             mb_i8=res["mb_i8"].reshape(n) if t8 else None,
             i8_modes=res["i8_modes"].reshape(n, 4) if t8 else None,
-            luma8_lev=res["luma8_lev"] if t8 else None, trans8_mode=t8)
+            luma8_lev=res["luma8_lev"] if t8 else None, trans8_mode=t8,
+            qp_grid=self._qp_grid_arg(), slice_qp=qp)
 
     def _cost_mv_dev(self, qp: int, lam: int) -> torch.Tensor:
         if qp not in self._cmv_cache:
@@ -1490,17 +1663,19 @@ class Encoder:
                     skip=skip, final8=final8)
 
     def _deblock_device(self, res, intra, skip, mv4, qp: int, nnz4,
-                        trans8=None, ref4=None):
+                        trans8=None, ref4=None, qp_maps=None):
         """In-loop deblock (kernel B5 on CUDA, one launch on uint8 copies
         of the recon planes) into the new reference; trans8 [mbh, mbw]
         marks the MBs coded with the 8x8 transform, ref4 [4mbh, 4mbw]
-        holds each 4x4 block's reference index (None: one reference)."""
+        holds each 4x4 block's reference index (None: one reference),
+        qp_maps the per-MB (qp, chroma qp) maps under adaptive
+        quantization (`_qp_maps`; None: the frame's qp)."""
         p = self.p
         off_a, off_b = 2 * p.deblock_alpha, 2 * p.deblock_beta
+        qps = qp_maps or (qp, chroma_qp(qp, p.chroma_qp_offset))
         dy, du, dv = deblock_frame(
             res["recon_y"], res["recon_u"], res["recon_v"], intra, skip,
-            nnz4, mv4, qp,
-            chroma_qp(qp, p.chroma_qp_offset), p.mb_height, p.mb_width,
+            nnz4, mv4, qps[0], qps[1], p.mb_height, p.mb_width,
             qp_thresh=(15 - min(off_a, off_b) - max(0, p.chroma_qp_offset)),
             off_a=off_a, off_b=off_b, trans8=trans8, ref4=ref4)
         self.recon_prev = (dy, du, dv)
@@ -1567,7 +1742,8 @@ class Encoder:
         reference and num_ref the active L0 count (the header overrides
         the PPS's while it is smaller; ref_idx is coded when it is above
         1). The port codes no intra MB in a P slice (stego is on), so the
-        native writers serve every slice."""
+        native writers serve every slice, under adaptive quantization
+        with the frame's grid (`aq_grids`) as mb_qp_delta."""
         p = self.p
         mbh, mbw = p.mb_height, p.mb_width
         n = mbh * mbw
@@ -1595,7 +1771,7 @@ class Encoder:
                            if "luma8_lev" in res_np else None),
                 trans8=(res_np["trans8"].astype(np.int32)
                         if "trans8" in res_np else None),
-                trans8_mode=t8)
+                trans8_mode=t8, qp_grid=self._qp_grid_arg())
         return native.write_slice(
             hdr, nbits, H.SLICE_TYPE_P, mbw, mbh,
             skip=skip.reshape(n).astype(np.uint8),
@@ -1606,7 +1782,8 @@ class Encoder:
             chroma_ac=res_np["chroma_ac"].reshape(n, 2, 4, 16),
             refs=refs, num_ref=num_ref,
             trans8=res_np["trans8"].reshape(n) if "trans8" in res_np
-            else None, luma8_lev=res_np.get("luma8_lev"), trans8_mode=t8)
+            else None, luma8_lev=res_np.get("luma8_lev"), trans8_mode=t8,
+            qp_grid=self._qp_grid_arg(), slice_qp=qp)
 
     def load_state(self, d: dict) -> None:
         """Resume mid-stream from a state dict of numpy arrays (see

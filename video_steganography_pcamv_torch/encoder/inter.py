@@ -126,22 +126,33 @@ def _from_zig_planes(lev, n: int, by: int, bx: int):
     return lev[:, const(_IZIG4, lev.device)]
 
 
-def trellis_quant4x4_planes(coef, qp: int, intra: bool, tables=None):
+def rows_qp(qp, rows: int):
+    """The trellis's per-row qp: an int as it is, a per-MB [N] tensor
+    repeated over each MB's rows (rows / N of them, MB-major)."""
+    if not isinstance(qp, torch.Tensor):
+        return qp
+    q = qp.reshape(-1)
+    return q.repeat_interleave(rows // max(1, q.numel()))
+
+
+def trellis_quant4x4_planes(coef, qp, intra: bool, tables=None):
     """Trellis-quantize [N,4,4,BY,BX] coefficient planes (the luma 4x4
-    cat); levels in the same layout."""
+    cat); levels in the same layout. qp an int or a per-MB [N] tensor."""
     n, _, _, by, bx = coef.shape
     v = zigzag_gather(coef).permute(0, 2, 3, 1).reshape(n * by * bx, 16)
-    lev = TR.trellis_quant(v, qp, TR.CAT_LUMA_4x4, intra, tables)
+    lev = TR.trellis_quant(v, rows_qp(qp, v.shape[0]), TR.CAT_LUMA_4x4,
+                           intra, tables)
     return _from_zig_planes(lev, n, by, bx)
 
 
-def trellis_quant8x8(coef8, qp: int, intra: bool, tables=None):
+def trellis_quant8x8(coef8, qp, intra: bool, tables=None):
     """Trellis-quantize [..., 8, 8] coefficient blocks (the cat-5 8x8
     luma trellis: x264's quant_8x8_trellis); levels in the same
     layout."""
     zz8 = const(T8.ZIGZAG_8x8_FLAT, coef8.device)
     flat = coef8.reshape(-1, 64)
-    lv = TR.trellis_quant(flat[:, zz8], qp, TR.CAT_LUMA_8x8, intra, tables)
+    lv = TR.trellis_quant(flat[:, zz8], rows_qp(qp, flat.shape[0]),
+                          TR.CAT_LUMA_8x8, intra, tables)
     lev = torch.zeros_like(lv)
     lev[:, zz8] = lv
     return lev.reshape(coef8.shape)
@@ -168,7 +179,7 @@ def trellis_quant_luma_dc(dct, qp, tables=None):
 def _trellis_ac_planes(ac, qp, cat: int, intra: bool, tables=None):
     n, _, _, by, bx = ac.shape
     v = zigzag_gather(ac)[:, 1:].permute(0, 2, 3, 1).reshape(n * by * bx, 15)
-    lev = TR.trellis_quant(v, qp, cat, intra, tables)
+    lev = TR.trellis_quant(v, rows_qp(qp, v.shape[0]), cat, intra, tables)
     lev = torch.cat([torch.zeros_like(lev[:, :1]), lev], dim=1)
     return _from_zig_planes(lev, n, by, bx)
 
@@ -185,7 +196,7 @@ def trellis_quant_chroma_ac(ac, qpc, intra: bool = False, tables=None):
     return _trellis_ac_planes(ac, qpc, TR.CAT_CHROMA_AC, intra, tables)
 
 
-def trellis_luma_levels(y, pred, qp: int, tables=None, nr_offset=None):
+def trellis_luma_levels(y, pred, qp, tables=None, nr_offset=None):
     """The inter trellis's 4x4 levels [N, 4, 4, 4, 4] of a frame's MBs
     (y the plane, pred [N,16,16] of its MBs in raster order): the fused
     luma kernel's `levels` under trellis. With `nr_offset` the DCT
@@ -201,7 +212,7 @@ def trellis_luma_levels(y, pred, qp: int, tables=None, nr_offset=None):
                                    tables=tables).contiguous(), nr_sum
 
 
-def luma_encode(y, pred, qp: int, fz=None, trellis: bool = False,
+def luma_encode(y, pred, qp, fz=None, trellis: bool = False,
                 tables=None, nr_offset=None):
     """The 4x4 luma encode of a frame's MBs: the fused kernel (its
     noise-reduction instance with `nr_offset`), which with `trellis`
@@ -220,14 +231,14 @@ def luma_encode(y, pred, qp: int, fz=None, trellis: bool = False,
                             tables=tables) + (nr_sum,)
 
 
-def _luma_encode_nr(y, pred, qp: int, fz, trellis: bool, tables,
+def _luma_encode_nr(y, pred, qp, fz, trellis: bool, tables,
                     nr_offset):
     """`luma_encode` as (lev, rec, cbp_luma, nr_sum or None)."""
     out = luma_encode(y, pred, qp, fz, trellis, tables, nr_offset)
     return out if nr_offset is not None else out + (None,)
 
 
-def chroma_encode(curc, predc, qpc: int, fz, trellis: bool = False,
+def chroma_encode(curc, predc, qpc, fz, trellis: bool = False,
                   tables=None):
     """Inter chroma encode of one plane's [N,8,8] MBs (`trellis`: the
     DC and AC levels by the inter trellis) with the inter class of
@@ -291,6 +302,15 @@ def assemble_pred_luma(ref_luma, mv8, mbh: int, mbw: int, ref8=None):
     return mb_tiles(pred, 16)
 
 
+def mb_qps(qp, qpc, n: int, dev):
+    """The encodes' qp/qpc: ints as they are, per-MB grid tensors
+    (adaptive quantization, [mbh, mbw] or [n]) as int32 [n] on `dev` (the
+    reference reshapes them the same way, encoder/inter.py:441-445)."""
+    if not isinstance(qp, torch.Tensor):
+        return qp, qpc
+    return tuple(q.to(dev, _I32).reshape(n).contiguous() for q in (qp, qpc))
+
+
 def _force_zero(force_zero, n: int, dev):
     if force_zero is None:
         return torch.zeros(n, dtype=torch.bool, device=dev)
@@ -317,8 +337,8 @@ def _p_result(lev, rec, cbp_luma, chroma, mbh: int, mbw: int,
         recon_v=untile(chroma[1][2], mbh, mbw).to(torch.uint8))
 
 
-def encode_p_frame_device(y, u, v, ref_luma, ref_u, ref_v, mv, qp: int,
-                          qpc: int, mbh: int, mbw: int,
+def encode_p_frame_device(y, u, v, ref_luma, ref_u, ref_v, mv, qp,
+                          qpc, mbh: int, mbw: int,
                           force_zero=None, trellis: bool = False,
                           tables=None, nr_offset=None) -> dict:
     """16x16 P encode at one qpel MV per MB (mv [mbh,mbw,2]); MBs in
@@ -329,6 +349,7 @@ def encode_p_frame_device(y, u, v, ref_luma, ref_u, ref_v, mv, qp: int,
     n = mbh * mbw
     dev = y.device
     fz = _force_zero(force_zero, n, dev)
+    qp, qpc = mb_qps(qp, qpc, n, dev)
     ar = torch.arange(n, device=dev, dtype=_I32)
     ys = torch.div(ar, mbw, rounding_mode="floor") * 16
     xs = (ar % mbw) * 16
@@ -343,7 +364,7 @@ def encode_p_frame_device(y, u, v, ref_luma, ref_u, ref_v, mv, qp: int,
     return _p_result(lev, rec, cbp_l, chroma, mbh, mbw, nr_sum)
 
 
-def _luma8_select(cur, pred, lev, rec, cbp_luma, fz, qp: int, rd: bool,
+def _luma8_select(cur, pred, lev, rec, cbp_luma, fz, qp, rd: bool,
                   trellis: bool = False, tables=None):
     """The 8x8-transform candidate of every MB and the per-MB choice
     between it and the 4x4 encode (lev, rec, cbp_luma, after `fz`):
@@ -378,7 +399,8 @@ def _luma8_select(cur, pred, lev, rec, cbp_luma, fz, qp: int, rd: bool,
     cbp8 = k[:, 0, 0] + 2 * k[:, 0, 1] + 4 * k[:, 1, 0] + 8 * k[:, 1, 1]
 
     if rd:
-        lam2 = int(LAMBDA2_TAB[qp])
+        lam2 = (const(LAMBDA2_TAB, dev)[qp.long()]
+                if isinstance(qp, torch.Tensor) else int(LAMBDA2_TAB[qp]))
         nc0 = torch.zeros(n * 16, dtype=_I32, device=dev)
         v4 = zigzag_gather(lev).permute(0, 2, 3, 1).reshape(n * 16, 16)
         bits4 = cavlc_block_bits(v4, nc0).reshape(n, 16).sum(1, dtype=_I32)
@@ -400,7 +422,7 @@ def _luma8_select(cur, pred, lev, rec, cbp_luma, fz, qp: int, rd: bool,
 
 
 def encode_p_frame_device8(y, u, v, ref_luma, ref_u, ref_v, mv8,
-                           qp: int, qpc: int, mbh: int, mbw: int,
+                           qp, qpc, mbh: int, mbw: int,
                            force_zero=None, trans8: bool = False,
                            rd: bool = False, cbp_only: bool = False,
                            trellis: bool = False, tables=None,
@@ -412,10 +434,12 @@ def encode_p_frame_device8(y, u, v, ref_luma, ref_u, ref_v, mv8,
     cbp maps (the stego pass 1 when the pass 2 is a full re-encode).
     `trellis` quantizes every luma candidate and the chroma by the
     trellis; `nr_offset` denoises the 4x4 luma (the result, cbp_only's
-    too, then carries `nr_sum`)."""
+    too, then carries `nr_sum`). qp/qpc are ints, or per-MB [mbh, mbw]
+    grids under adaptive quantization (every encode here takes either)."""
     n = mbh * mbw
     dev = y.device
     fz = _force_zero(force_zero, n, dev)
+    qp, qpc = mb_qps(qp, qpc, n, dev)
 
     pred = assemble_pred_luma(ref_luma, mv8, mbh, mbw)
     lev, rec, cbp_l, nr_sum = _luma_encode_nr(y, pred, qp, fz, trellis,
@@ -451,7 +475,7 @@ def encode_p_frame_device8(y, u, v, ref_luma, ref_u, ref_v, mv8,
 
 
 def encode_p_frame_device8_mref(y, u, v, refs_luma, refs_u, refs_v, mv8,
-                                ref8, qp: int, qpc: int, mbh: int, mbw: int,
+                                ref8, qp, qpc, mbh: int, mbw: int,
                                 force_zero=None, trellis: bool = False,
                                 tables=None, nr_offset=None) -> dict:
     """Multi-reference partitioned P encode, the reference's
@@ -463,6 +487,7 @@ def encode_p_frame_device8_mref(y, u, v, refs_luma, refs_u, refs_v, mv8,
     n = mbh * mbw
     dev = y.device
     fz = _force_zero(force_zero, n, dev)
+    qp, qpc = mb_qps(qp, qpc, n, dev)
     pred = assemble_pred_luma(refs_luma, mv8, mbh, mbw, ref8=ref8)
     lev, rec, cbp_l, nr_sum = _luma_encode_nr(y, pred, qp, fz, trellis,
                                               tables, nr_offset)

@@ -331,7 +331,8 @@ def _rd_costs(enc, qp: int, mode16, dc_lev, ac_lev, cbpl16, rec16, lev4,
     from ..ops.lumap import zigzag_gather
     dev = enc.device
     W = enc.shape[0]
-    lam2 = int(LAMBDA2_TAB[qp])
+    lam2 = (const(LAMBDA2_TAB, dev)[qp.long()]
+            if isinstance(qp, torch.Tensor) else int(LAMBDA2_TAB[qp]))
 
     def rdc(rec, bits):
         d = rec - enc
@@ -418,7 +419,7 @@ def _z_to_grid(m4_z):
     return g
 
 
-def encode_i_frame(y, u, v, qp: int, qpc: int, mbw: int, mbh: int,
+def encode_i_frame(y, u, v, qp, qpc, mbw: int, mbh: int,
                    lam: int = 0, i8x8: bool = False, rd: bool = False,
                    trellis: bool = False, tables=None) -> dict:
     """Encode one I frame. y: [16mbh, 16mbw] int32; u, v half size.
@@ -426,7 +427,11 @@ def encode_i_frame(y, u, v, qp: int, qpc: int, mbw: int, mbh: int,
     planes (i4x4 on; `i8x8` adds the Intra_8x8 candidate, `rd` chooses
     between the candidates by RD cost instead of SATD, `trellis`
     quantizes every candidate's levels by the intra trellis; every
-    quant takes the intra class of `tables`, None: flat)."""
+    quant takes the intra class of `tables`, None: flat). qp/qpc are
+    ints, or under adaptive quantization int32 [mbh, mbw] grids of
+    per-MB qps (every quant, trellis and RD lambda2 of an MB at its own
+    qp; the mode decisions' lambda stays `lam`)."""
+    grid = isinstance(qp, torch.Tensor)
     dev = y.device
     ty, tu, tv = _tile(y, 16), _tile(u, 8), _tile(v, 8)
 
@@ -451,24 +456,25 @@ def encode_i_frame(y, u, v, qp: int, qpc: int, mbw: int, mbh: int,
         mxr = torch.clamp(mx + 1, max=mbw - 1)
 
         enc = ty[my, mx]
+        qpw, qpcw = (qp[my, mx], qpc[my, mx]) if grid else (qp, qpc)
         top = st["ry"][myc, mx, 15, :]
         left = st["ry"][my, mxc, :, 15]
         tl = st["ry"][myc, mxc, 15, 15]
         mode16, dc_lev, ac_lev, cbpl16, rec16, cost16 = _i16_mb(
-            enc, top, left, tl, at, al, qp, lam, trellis, tables)
+            enc, top, left, tl, at, al, qpw, lam, trellis, tables)
 
         nb_lm = st["modes4"][my, mxc, :, 3]
         nb_tm = st["modes4"][myc, mx, 3, :]
         top20 = torch.cat([top, st["ry"][myc, mxr, 15, 0:4]], dim=1)
         m4, lev4, cbpl4, rec4, cost4, mb4bits = _i4_mb(
-            enc, top20, left, tl, at, al, atr, qp, lam, nb_lm, nb_tm,
+            enc, top20, left, tl, at, al, atr, qpw, lam, nb_lm, nb_tm,
             trellis, tables)
         use4 = cost4 < cost16
         W = enc.shape[0]
         if i8x8:
             top24 = torch.cat([top, st["ry"][myc, mxr, 15, 0:8]], dim=1)
             m8, lev8, cbpl8, rec8, cost8, ctx8, mb8bits = _i8_mb(
-                enc, top24, left, tl, at, al, atr, qp, lam, nb_lm, nb_tm,
+                enc, top24, left, tl, at, al, atr, qpw, lam, nb_lm, nb_tm,
                 trellis, tables)
             use8 = (cost8 < cost16) & (cost8 <= cost4)
             use4 = use4 & ~use8
@@ -482,7 +488,7 @@ def encode_i_frame(y, u, v, qp: int, qpc: int, mbw: int, mbh: int,
             mb8bits = torch.zeros(W, dtype=_I32, device=dev)
         if rd:
             c16r, c4r, c8r = _rd_costs(
-                enc, qp, mode16, dc_lev, ac_lev, cbpl16, rec16, lev4,
+                enc, qpw, mode16, dc_lev, ac_lev, cbpl16, rec16, lev4,
                 mb4bits, rec4, cost4, lev8, mb8bits, rec8)
             if not i8x8:
                 c8r = torch.full_like(c16r, BIG)
@@ -505,7 +511,7 @@ def encode_i_frame(y, u, v, qp: int, qpc: int, mbw: int, mbh: int,
             (st["ru"][myc, mx, 7, :], st["rv"][myc, mx, 7, :]),
             (st["ru"][my, mxc, :, 7], st["rv"][my, mxc, :, 7]),
             st["ru"][myc, mxc, 7, 7], st["rv"][myc, mxc, 7, 7], at, al,
-            qpc, lam, trellis, tables)
+            qpcw, lam, trellis, tables)
 
         st["ry"][my, mx] = rec
         st["ru"][my, mx] = ruu

@@ -254,6 +254,29 @@ def analyse_p_frame_parts_mref(y, refs8, n_valid: int, prev_mv, lam: int,
     return part, mv8, ref8, SK, SP, sc8
 
 
+def analyse_p_frame_parts(y, ref8, prev_mv, lam: int, qp: int, rng: int,
+                          mbh: int, mbw: int, tail_kernel: bool = False,
+                          tables=None):
+    """One-reference partition analysis, the reference's
+    `analyse_p_frame_parts` (partition.py:1364, both `use_pallas`
+    branches mapped on `tail_kernel`) with its analyse tail on the
+    windows: B1 on plane 0 of `ref8` ([4, Hp, Wp] uint8 hpel planes;
+    predictor zero with `tail_kernel`, else prev_mv >> 2), the partition
+    decision, B9, then B2 -> B3 -> B4 (`ops.probe.analyse_tail`, B4's
+    probe at qp with the inter class of `tables`). Returns (part, mv8
+    qpel, SK, SP, sc8); `probe_combine` turns the maps into the RCA costs
+    once the MV predictors are known."""
+    pred = torch.zeros_like(prev_mv) if tail_kernel else prev_mv >> 2
+    st = fullpel_parts(y, ref8[0], pred.contiguous(), rng, mbh, mbw, lam)
+    part, mvfp8 = decide_partition(st, mbh, mbw, lam)
+    mvfp8 = mvfp8.contiguous()
+    windows = gather_windows8(ref8, mvfp8, mbh, mbw)
+    mv8, _r_idx8, SK, SP, sc8 = PR.analyse_tail(
+        y, windows, part, mvfp8, prev_mv.contiguous(), lam, qp, mbh, mbw,
+        tables=tables)
+    return part, mv8, SK, SP, sc8
+
+
 def probe_combine(SK, SP, sc8, part, mv8, mvp_u, cost_mv, mbh: int,
                   mbw: int):
     """Per-unit RCA selection from the probe maps (analyse.c:2391-2550).
@@ -339,15 +362,10 @@ def p_stage1_stego(y, u, v, ref_luma, ref_u, ref_v, prev_mv, qp: int,
     Returns (packed f32, res) with the reference's layout
       [part n | mv8 8n | cbp_l n | cbp_c n | skip n | alt 8n | rho 4n
        | extra]."""
-    pred = torch.zeros_like(prev_mv) if tail_kernel else prev_mv >> 2
-    ref8 = ref_luma.to(torch.uint8)          # B1 reads plane 0, B9 all 4
-    st = fullpel_parts(y, ref8[0], pred.contiguous(), rng, mbh, mbw, lam)
-    part, mvfp8 = decide_partition(st, mbh, mbw, lam)
-    mvfp8 = mvfp8.contiguous()
-    windows = gather_windows8(ref8, mvfp8, mbh, mbw)
-    mv8, _r_idx8, SK, SP, sc8 = PR.analyse_tail(
-        y, windows, part, mvfp8, prev_mv.contiguous(), lam, qp, mbh, mbw,
-        tables=tables)
+    # B1 reads plane 0 of the uint8 hpel planes, B9 all 4
+    part, mv8, SK, SP, sc8 = analyse_p_frame_parts(
+        y, ref_luma.to(torch.uint8), prev_mv, lam, qp, rng, mbh, mbw,
+        tail_kernel=tail_kernel, tables=tables)
     res = INTER.encode_p_frame_device8(
         y, u, v, ref_luma, ref_u, ref_v, mv8, qp, qpc, mbh, mbw,
         trans8=trans8, rd=rd,

@@ -79,12 +79,12 @@ def load() -> ctypes.CDLL:
     lib.pcamv_write_slice.argtypes = [
         u8p, ctypes.c_long, u8p, ci, ci, ci, ci,
         vp, vp, vp, i32p, i32p, vp, i32p, i32p, i32p, vp, vp, vp, vp,
-        vp, ci, vp, vp, vp, vp, ci]
+        vp, ci, vp, vp, vp, vp, ci, vp, ci]
     lib.pcamv_write_slice_cabac.restype = ctypes.c_long
     lib.pcamv_write_slice_cabac.argtypes = [
         u8p, ctypes.c_long, u8p, ci, ci, ci, ci, ci, ci,
         vp, vp, vp, vp, vp, i32p, i32p, vp, i32p, i32p, i32p,
-        vp, vp, vp, ci, vp, ci, vp, vp, vp, vp, ci]
+        vp, vp, vp, ci, vp, ci, vp, vp, vp, vp, ci, vp]
     lib.pcamv_write_slice_b.restype = ctypes.c_long
     lib.pcamv_write_slice_b.argtypes = [
         u8p, ctypes.c_long, u8p, ci, ci, ci] + [i32p] * 8
@@ -119,13 +119,19 @@ def _ptr(a):
     return None if a is None else a.ctypes.data_as(ctypes.c_void_p)
 
 
+def _grid(qp_grid, n: int):
+    """A per-MB qp grid as a contiguous int32 [n] array, or None."""
+    return None if qp_grid is None else _as_i32(qp_grid).reshape(n)
+
+
 def write_slice(header_bytes: bytes, header_nbits: int, slice_type: int,
                 mbw: int, mbh: int, *, skip=None, mode=None, cmode=None,
                 cbp_luma, cbp_chroma, luma_dc=None, luma_blocks, chroma_dc,
                 chroma_ac, mb_i4=None, i4_modes=None, part=None,
                 mvd4=None, refs=None, num_ref: int = 1, mb_i8=None,
                 i8_modes=None, luma8_lev=None, trans8=None,
-                trans8_mode: bool = False) -> bytes:
+                trans8_mode: bool = False, qp_grid=None,
+                slice_qp: int = 0) -> bytes:
     """Native whole-slice CAVLC entropy coding (I slices, and P slices
     with partitions and one or more references). Shapes: luma_blocks
     [N,16,16], luma_dc [N,16], chroma_dc [N,2,4], chroma_ac [N,2,4,16],
@@ -134,7 +140,9 @@ def write_slice(header_bytes: bytes, header_nbits: int, slice_type: int,
     as `_refs4` in the encoder lays them out). High-profile 8x8
     transform (`trans8_mode`, the PPS flag): mb_i8 [N] u8, i8_modes
     [N,4], luma8_lev [N,2,2,8,8] raster (zigzag-scanned here), trans8
-    [N] u8."""
+    [N] u8. Adaptive quantization: qp_grid [N] each MB's qp, written as
+    the folded mb_qp_delta against the last coded qp (from slice_qp, the
+    header's) wherever an MB codes one (None: every delta 0)."""
     lib = load()
     n = mbw * mbh
     hdr = np.frombuffer(header_bytes + b"\0" * 8, np.uint8).copy()
@@ -161,6 +169,7 @@ def write_slice(header_bytes: bytes, header_nbits: int, slice_type: int,
                                     [:, :, ZIGZAG_8x8_FLAT].reshape(n * 256))
     t8_a = (np.ascontiguousarray(trans8, np.uint8).reshape(n)
             if trans8 is not None else None)
+    grid_a = _grid(qp_grid, n)
     cap = 1 << 22
     while True:
         out = np.zeros(cap, np.uint8)
@@ -173,7 +182,7 @@ def write_slice(header_bytes: bytes, header_nbits: int, slice_type: int,
             _as_i32(chroma_ac).reshape(n * 128),
             _ptr(i4_a), _ptr(i4m_a), _ptr(part_a), _ptr(mvd4_a),
             _ptr(refs_a), num_ref, _ptr(i8_a), _ptr(i8m_a), _ptr(l8_a),
-            _ptr(t8_a), 1 if trans8_mode else 0)
+            _ptr(t8_a), 1 if trans8_mode else 0, _ptr(grid_a), slice_qp)
         if r >= 0:
             return bytes(out[:r])
         cap *= 4
@@ -189,12 +198,14 @@ def write_slice_cabac(header_bytes: bytes, header_nbits: int,
                       mb_i4=None, i4_modes=None, refs=None,
                       num_ref: int = 1, sub_type=None, mb_i8=None,
                       i8_modes=None, luma8_lev=None, trans8=None,
-                      trans8_mode: bool = False) -> bytes:
+                      trans8_mode: bool = False, qp_grid=None) -> bytes:
     """Native whole-slice CABAC entropy coding of an I or P slice (twin
     of encoder/cabac.py's CabacSliceWriter, bit-identical). Shapes as
     in `write_slice`, except: luma8_lev [N, 256] raster (the writer
     scans it), refs [N, 4] per-ref-slot L0 refs (coded when num_ref >
-    1), sub_type [N, 4] with mvd4 then [N, 16, 2] per sub-unit."""
+    1), sub_type [N, 4] with mvd4 then [N, 16, 2] per sub-unit; qp_grid
+    [N] as in `write_slice` (the chain starts at qp), its mb_qp_delta
+    contexts following the previous MB's delta."""
     lib = load()
     n = mbw * mbh
     hdr = np.frombuffer(header_bytes + b"\0" * 8, np.uint8).copy()
@@ -222,6 +233,7 @@ def write_slice_cabac(header_bytes: bytes, header_nbits: int,
     l8_a = _as_i32(luma8_lev).reshape(n * 256) if luma8_lev is not None \
         else None
     t8_a = _as_i32(trans8).reshape(n) if trans8 is not None else None
+    grid_a = _grid(qp_grid, n)
     cap = 1 << 22
     while True:
         out = np.zeros(cap, np.uint8)
@@ -235,7 +247,7 @@ def write_slice_cabac(header_bytes: bytes, header_nbits: int,
             _as_i32(chroma_ac).reshape(n * 128),
             _ptr(i4_a), _ptr(i4m_a), _ptr(refs_a), num_ref,
             _ptr(sub_a), stride, _ptr(i8_a), _ptr(i8m_a), _ptr(l8_a),
-            _ptr(t8_a), 1 if trans8_mode else 0)
+            _ptr(t8_a), 1 if trans8_mode else 0, _ptr(grid_a))
         if r >= 0:
             return bytes(out[:r])
         cap *= 4

@@ -168,9 +168,39 @@ struct CabacSlice {
   bool is_b = false;
   bool trans8_mode = false;
   std::vector<int> t8map;   // per-MB transform_size flag as coded
+  // adaptive quantization: each MB's qp (null: every delta 0), the last
+  // coded qp and the previous MB's coded delta (0 where it coded none)
+  const int32_t* qp_grid = nullptr;
+  int last_qp = 0;
+  int last_dqp = 0;
   CabacSlice(int w, int h, int qp, bool slice_is_i, int model)
-      : m(w, h), is_i(slice_is_i), t8map(w * h, 0) {
+      : m(w, h), is_i(slice_is_i), t8map(w * h, 0), last_qp(qp) {
     cb.init(qp, slice_is_i, model);
+  }
+
+  // mb_qp_delta of MB a (x264_cabac_mb_qp_delta, encoder/cabac.c:265):
+  // the delta to the last coded qp folded into [-26, 25] (spec 7.4.5),
+  // unary of its se mapping on ctx 60 + (previous MB coded a nonzero
+  // delta), then 62, then 63; the Python twin is encoder/cabac.py's
+  // qp_delta
+  void qp_delta(int a) {
+    int dqp = 0;
+    if (qp_grid != nullptr) {
+      const int q = qp_grid[a];
+      dqp = ((q - last_qp + 26) % 52 + 52) % 52 - 26;
+      last_qp = q;
+    }
+    int ctx = last_dqp ? 1 : 0;
+    if (dqp != 0) {
+      int val = dqp <= 0 ? -2 * dqp : 2 * dqp - 1;
+      if (val >= 51 && val != 52) val = 103 - val;  // cabac.c:288
+      for (; val > 0; --val) {
+        cb.dec(60 + ctx, 1);
+        ctx = 2 + (ctx >> 1);
+      }
+    }
+    cb.dec(60 + ctx, 0);
+    last_dqp = dqp;
   }
 
   // transform_size_8x8_flag: ctx 399 + available-neighbour flags
@@ -574,7 +604,7 @@ extern "C" long pcamv_write_slice_cabac(
     const int32_t* sub_type, int mvd_stride,
     const uint8_t* mb_i8, const int32_t* i8_modes,
     const int32_t* luma8_lev, const int32_t* trans8,
-    int trans8_mode) {
+    int trans8_mode, const int32_t* qp_grid) {
   CabacBits bits(out, out_cap);
   for (int i = 0; i < header_nbits; i++)
     bits.bit((header[i >> 3] >> (7 - (i & 7))) & 1);
@@ -583,6 +613,7 @@ extern "C" long pcamv_write_slice_cabac(
   bool is_i = slice_type != 0;
   CabacSlice S(mbw, mbh, qp, is_i, model);
   S.trans8_mode = trans8_mode != 0;
+  S.qp_grid = qp_grid;
   S.cb.out = &bits;
   int n = mbw * mbh;
   for (int a = 0; a < n; a++) {
@@ -598,6 +629,7 @@ extern "C" long pcamv_write_slice_cabac(
       S.m.cbp[a] = 0;
       S.m.cmode_map[a] = 0;
       S.fill_m4(my, mx, 2);
+      S.last_dqp = 0;
       S.cb.terminal(a == n - 1);
       continue;
     }
@@ -627,12 +659,13 @@ extern "C" long pcamv_write_slice_cabac(
         S.m.dc_nz_c[my * mbw + mx] = 0;
         S.m.dc_nz_c[(mbh + my) * mbw + mx] = 0;
         if (cbpl || cbpc) {
-          S.cb.dec(60, 0);  // mb_qp_delta == 0
+          S.qp_delta(a);
           luma_res_8x8(S, my, mx, &luma8_lev[a * 256], cbpl, true);
           chroma_res(S, my, mx, cbpc, &chroma_dc[a * 8],
                      &chroma_ac[a * 128], true);
         } else {
           S.clear_nnz(my, mx, true);
+          S.last_dqp = 0;
         }
         S.cb.terminal(a == n - 1);
         continue;
@@ -650,16 +683,17 @@ extern "C" long pcamv_write_slice_cabac(
         S.m.dc_nz_c[my * mbw + mx] = 0;
         S.m.dc_nz_c[(mbh + my) * mbw + mx] = 0;
         if (cbpl || cbpc) {
-          S.cb.dec(60, 0);  // mb_qp_delta == 0
+          S.qp_delta(a);
           luma_res_4x4(S, my, mx, &luma_blocks[a * 256], cbpl, true);
           chroma_res(S, my, mx, cbpc, &chroma_dc[a * 8],
                      &chroma_ac[a * 128], true);
         } else {
           S.clear_nnz(my, mx, true);
+          S.last_dqp = 0;
         }
       } else {
         S.chroma_pred_mode(my, mx, cmode[a]);
-        S.cb.dec(60, 0);  // mb_qp_delta (I16 always)
+        S.qp_delta(a);  // I16 always
         luma_res_i16(S, my, mx, &luma_dc[a * 16], &luma_blocks[a * 256],
                      cbpl);
         chroma_res(S, my, mx, cbpc, &chroma_dc[a * 8],
@@ -742,7 +776,7 @@ extern "C" long pcamv_write_slice_cabac(
       S.m.dc_nz_c[my * mbw + mx] = 0;
       S.m.dc_nz_c[(mbh + my) * mbw + mx] = 0;
       if (cbpl || cbpc) {
-        S.cb.dec(60, 0);  // mb_qp_delta == 0
+        S.qp_delta(a);
         if (t8 && cbpl)
           luma_res_8x8(S, my, mx, &luma8_lev[a * 256], cbpl, false);
         else
@@ -751,6 +785,7 @@ extern "C" long pcamv_write_slice_cabac(
                    &chroma_ac[a * 128], false);
       } else {
         S.clear_nnz(my, mx, true);
+        S.last_dqp = 0;
       }
     }
     S.cb.terminal(a == n - 1);

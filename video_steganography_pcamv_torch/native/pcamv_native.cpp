@@ -244,6 +244,26 @@ static void write_luma8(BitWriter& bw, FrameCtx& fc, int mx, int my,
 
 }  // namespace
 
+// The mb_qp_delta chain of adaptive quantization (spec 7.4.5): each MB
+// that codes the syntax element sends its qp minus the last coded one,
+// folded into [-26, 25] ((d + 26) mod 52 - 26), and becomes the last; MBs
+// that code none leave the chain where it is. Without a grid every delta
+// is 0.
+namespace {
+struct QpDelta {
+  const int32_t* grid;
+  int last;
+  QpDelta(const int32_t* g, int slice_qp) : grid(g), last(slice_qp) {}
+  int next(int a) {
+    if (grid == nullptr) return 0;
+    const int q = grid[a];
+    const int d = ((q - last + 26) % 52 + 52) % 52 - 26;
+    last = q;
+    return d;
+  }
+};
+}  // namespace
+
 // ------------------------------------------------------------ slice API ---
 extern "C" long pcamv_write_slice(
     uint8_t* out, long out_cap, const uint8_t* header, int header_nbits,
@@ -262,12 +282,16 @@ extern "C" long pcamv_write_slice(
     // luma8_scan [n][4][64] zigzag-ordered 8x8 levels; trans8 [n]
     // per-MB inter transform flags; trans8_mode = PPS flag
     const uint8_t* mb_i8, const int32_t* i8_modes,
-    const int32_t* luma8_scan, const uint8_t* trans8, int trans8_mode) {
+    const int32_t* luma8_scan, const uint8_t* trans8, int trans8_mode,
+    // adaptive quantization: qp_grid [n] each MB's qp (null: every
+    // mb_qp_delta is 0), slice_qp the slice header's QP
+    const int32_t* qp_grid, int slice_qp) {
   BitWriter bw(out, out_cap);
   for (int i = 0; i < header_nbits; i++)
     bw.put(1, (header[i >> 3] >> (7 - (i & 7))) & 1);
 
   FrameCtx fc(mbw, mbh);
+  QpDelta dq(qp_grid, slice_qp);
   int n = mbw * mbh;
   int skip_run = 0;
   for (int a = 0; a < n; a++) {
@@ -309,7 +333,7 @@ extern "C" long pcamv_write_slice(
       // when luma residual exists
       int t8 = (trans8 && trans8[a]) ? 1 : 0;
       if (trans8_mode && cbp_luma[a]) bw.put(1, t8);
-      if (cbp) bw.put_se(0);  // qp_delta (CQP)
+      if (cbp) bw.put_se(dq.next(a));  // mb_qp_delta
       if (t8 && cbp_luma[a]) {
         write_luma8(bw, fc, mx, my, cbp_luma[a], &luma8_scan[a * 256]);
       } else {
@@ -358,7 +382,7 @@ extern "C" long pcamv_write_slice(
       bw.put_ue(cmode[a]);
       int cbp = (cbp_chroma[a] << 4) | cbp_luma[a];
       bw.put_ue(CBP_INTRA_TO_GOLOMB[cbp]);
-      if (cbp) bw.put_se(0);  // qp_delta
+      if (cbp) bw.put_se(dq.next(a));  // mb_qp_delta
       write_luma8(bw, fc, mx, my, cbp_luma[a], &luma8_scan[a * 256]);
       write_chroma(bw, fc, mx, my, cbp_chroma[a], &chroma_dc[a * 8],
                    &chroma_ac[a * 128]);
@@ -382,7 +406,7 @@ extern "C" long pcamv_write_slice(
       bw.put_ue(cmode[a]);
       int cbp = (cbp_chroma[a] << 4) | cbp_luma[a];
       bw.put_ue(CBP_INTRA_TO_GOLOMB[cbp]);
-      if (cbp) bw.put_se(0);  // qp_delta
+      if (cbp) bw.put_se(dq.next(a));  // mb_qp_delta
       for (int blk = 0; blk < 16; blk++) {
         int braster = LSCAN[blk];
         int by = braster >> 2, bx = braster & 3;
@@ -403,7 +427,7 @@ extern "C" long pcamv_write_slice(
       int mb_type = 1 + mode[a] + 4 * cbp_chroma[a] + 12 * cbp01;
       bw.put_ue(mb_type);
       bw.put_ue(cmode[a]);
-      bw.put_se(0);  // qp_delta
+      bw.put_se(dq.next(a));  // mb_qp_delta (I16 always)
       int z[16];
       zigzag16(&luma_dc[a * 16], z);
       int nc = fc.ctx(true, 0, 4 * my, 4 * mx);

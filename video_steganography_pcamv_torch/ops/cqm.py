@@ -176,6 +176,16 @@ class QuantTables:
                                                 device=torch.device(device))
         return t
 
+    def qtab_all(self, device) -> torch.Tensor:
+        """`qtab` of every qp as one int32 [52, 48] slab on `device` (the
+        fused luma kernel's tables under a per-MB qp grid)."""
+        k = ("qtab_all", device)
+        t = self._memo.get(k)
+        if t is None:
+            t = self._memo[k] = torch.stack(
+                [self.qtab(q, device) for q in range(52)]).contiguous()
+        return t
+
 
 FLAT = QuantTables()
 

@@ -81,7 +81,14 @@ def _shift_down(x):
     return torch.cat([torch.zeros_like(x[:1]), x[:-1]], dim=0)
 
 
-def edge_params(intra, skip, nnz4, mv4, qp: int, qpc: int, mbh: int,
+def _qp_grid(q, mbh: int, mbw: int, dev) -> torch.Tensor:
+    """A frame qp (int) or a per-MB map as an int32 [mbh, mbw] grid."""
+    if isinstance(q, torch.Tensor):
+        return q.to(dev, _I32).reshape(mbh, mbw)
+    return torch.full((mbh, mbw), q, dtype=_I32, device=dev)
+
+
+def edge_params(intra, skip, nnz4, mv4, qp, qpc, mbh: int,
                 mbw: int, qp_thresh: int = 15, off_a: int = 0,
                 off_b: int = 0, ref4=None, trans8=None, mv4_l1=None,
                 ref4_l1=None) -> torch.Tensor:
@@ -93,13 +100,17 @@ def edge_params(intra, skip, nnz4, mv4, qp: int, qpc: int, mbh: int,
     frame.c:735-741).
     trans8 [mbh, mbw] marks the MBs coded with the 8x8 transform (None:
     none), whose inner luma edges 1 and 3 are no transform edges and
-    stay off (the rule lives in these rows; the filter is unchanged)."""
+    stay off (the rule lives in these rows; the filter is unchanged).
+    qp/qpc are the frame's, or under adaptive quantization int32 [mbh,
+    mbw] maps (the decoder-visible chain): an MB edge averages the two
+    MBs' qps, a missing neighbour reading 0, and the inner edges' low-qp
+    gate reads the MB's own (the reference's deblock_pallas.py:77-120)."""
     dev = nnz4.device
     ALPHA = const(ALPHA_TAB, dev)
     BETA = const(BETA_TAB, dev)
     TC0 = const(TC0_TAB, dev)
-    qp_g = torch.full((mbh, mbw), qp, dtype=_I32, device=dev)
-    qpc_g = torch.full((mbh, mbw), qpc, dtype=_I32, device=dev)
+    qp_g = _qp_grid(qp, mbh, mbw, dev)
+    qpc_g = _qp_grid(qpc, mbh, mbw, dev)
     intra_g = intra.to(_I32) > 0
 
     def grid4(x):
@@ -343,18 +354,25 @@ def _map(name, t, shape):
     return t
 
 
-def deblock_frame_cuda(y, u, v, intra, skip, nnz4, mv4, qp: int, qpc: int,
+def deblock_frame_cuda(y, u, v, intra, skip, nnz4, mv4, qp, qpc,
                        mbh: int, mbw: int, qp_thresh: int = 15,
                        off_a: int = 0, off_b: int = 0, trans8=None,
                        ref4=None):
     """One launch of the CUDA deblocker: edge parameters and filter, on
     uint8 copies of the planes (one device-to-device copy each, inside
-    the launch call). Counted in `deblock_frame.launches`."""
+    the launch call). qp/qpc ints, or int32 [mbh, mbw] maps (the kernel
+    traps on a value outside [0, 51]). Counted in
+    `deblock_frame.launches` (with maps also `deblock_frame.map_launches`)."""
     H, W = 16 * mbh, 16 * mbw
-    if not (0 <= qp <= 51 and 0 <= qpc <= 51 and -12 <= off_a <= 12
+    maps_in = isinstance(qp, torch.Tensor)
+    if isinstance(qpc, torch.Tensor) != maps_in:
+        raise TypeError("deblock_frame: qp and qpc must both be maps or "
+                        "both ints")
+    qs = (0, 0) if maps_in else (qp, qpc)
+    if not (0 <= qs[0] <= 51 and 0 <= qs[1] <= 51 and -12 <= off_a <= 12
             and -12 <= off_b <= 12):
         raise ValueError("deblock_frame: qp %d / qpc %d / offsets %d, %d "
-                         "outside the spec tables" % (qp, qpc, off_a, off_b))
+                         "outside the spec tables" % (qs + (off_a, off_b)))
     src = []
     for name, t, shape in (("y", y, (H, W)), ("u", u, (H // 2, W // 2)),
                            ("v", v, (H // 2, W // 2))):
@@ -365,20 +383,23 @@ def deblock_frame_cuda(y, u, v, intra, skip, nnz4, mv4, qp: int, qpc: int,
             None if trans8 is None else _map("trans8", trans8, (mbh, mbw)),
             _map("nnz4", nnz4, (4 * mbh, 4 * mbw)),
             _map("mv4", mv4, (4 * mbh, 4 * mbw, 2)),
-            None if ref4 is None else _map("ref4", ref4, (4 * mbh, 4 * mbw))]
+            None if ref4 is None else _map("ref4", ref4, (4 * mbh, 4 * mbw)),
+            _map("qp", qp, (mbh, mbw)) if maps_in else None,
+            _map("qpc", qpc, (mbh, mbw)) if maps_in else None]
     dev = y.device
     out = [torch.empty_like(t) for t in src]
     # the row ticket, then the luma and the chroma progress counters
     sync = torch.empty((2 * mbh + 1,), dtype=_I32, device=dev)
     fn = kernels.entry("pcamv_deblock_frame",
-                       [kernels.VP] * 13 + [kernels.CI] * 7 + [kernels.VP] * 2)
+                       [kernels.VP] * 15 + [kernels.CI] * 7 + [kernels.VP] * 2)
     ptr = kernels.ptr
     rc = fn(*(ptr(t) for t in src + out),
             *(None if m is None else ptr(m) for m in maps),
-            ptr(const(_TABS, dev)), qp, qpc, qp_thresh, off_a, off_b, mbh,
-            mbw, ptr(sync), kernels.stream(y))
+            ptr(const(_TABS, dev)), qs[0], qs[1], qp_thresh, off_a, off_b,
+            mbh, mbw, ptr(sync), kernels.stream(y))
     kernels.check(rc, "pcamv_deblock_frame")
     deblock_frame.launches += 1
+    deblock_frame.map_launches += int(maps_in)
     return tuple(out)
 
 
@@ -393,7 +414,7 @@ def resident_ctas(mbw: int) -> int:
     return n
 
 
-def deblock_frame(y, u, v, intra, skip, nnz4, mv4, qp: int, qpc: int,
+def deblock_frame(y, u, v, intra, skip, nnz4, mv4, qp, qpc,
                   mbh: int, mbw: int, qp_thresh: int = 15, off_a: int = 0,
                   off_b: int = 0, trans8=None, ref4=None):
     """Kernel B5, replacing the TPU kernel `deblock_frame_pallas`
@@ -404,8 +425,9 @@ def deblock_frame(y, u, v, intra, skip, nnz4, mv4, qp: int, qpc: int,
     The contract of the reference's deblock_frame_device: planes (uint8
     or int32, MB-aligned) + per-MB intra/skip (and trans8), per-4x4
     nnz/mv (and ref4, the L0 reference index of each 4x4 block on the
-    multi-reference path: None is all 0) -> new uint8 planes (the inputs
-    are left as they are). CPU
+    multi-reference path: None is all 0), the frame's qp/qpc or per-MB
+    int32 [mbh, mbw] maps (adaptive quantization) -> new uint8 planes
+    (the inputs are left as they are). CPU
     tensors run `edge_params` + the plain version; CUDA tensors launch
     the kernel; anything else raises."""
     if y.device.type == "cpu":
@@ -419,3 +441,4 @@ def deblock_frame(y, u, v, intra, skip, nnz4, mv4, qp: int, qpc: int,
 
 
 deblock_frame.launches = 0
+deblock_frame.map_launches = 0

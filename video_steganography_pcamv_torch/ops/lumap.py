@@ -24,10 +24,14 @@ transform and the quant and runs the rest as above, the reference's
 `luma_p_encode(..., trellis=True)`.
 
 The quant tables are the caller's (`tables`, an `ops.cqm.QuantTables`:
-its inter class; None: flat). With `nr_offset` (int32 [4, 4], the
-encoder's running noise-reduction offsets) the DCT entry takes its
-noise-reduction instance, the reference's `luma_p_encode(...,
-nr_offset=)`: the per-position sums of |coef| over every block of the
+its inter class; None: flat). `qp` is an int, or under adaptive
+quantization an int32 [N] tensor of per-MB qps (the reference's
+`luma_p_encode(cur, pred, qp[N], ...)`); the kernel then takes each MB's
+rows of the tables' [52, 48] slab (`QuantTables.qtab_all`) in the same
+single launch (`luma_p_encode.grid_launches` counts those calls). With
+`nr_offset` (int32 [4, 4], the encoder's running noise-reduction
+offsets) the DCT entry takes its noise-reduction instance, the
+reference's `luma_p_encode(..., nr_offset=)`: the per-position sums of |coef| over every block of the
 call, before the denoise, come back as a fourth result, and each AC
 coefficient is pulled toward zero by its offset before the quant.
 
@@ -111,7 +115,7 @@ def denoise(coef, nr_offset):
     return nr_sum, torch.sign(coef) * newabs
 
 
-def luma_p_encode_plain(y, pred, qp: int, idx=None, fz=None,
+def luma_p_encode_plain(y, pred, qp, idx=None, fz=None,
                         lev: bool = True, levels=None, tables=None,
                         nr_offset=None):
     """Residual -> 4x4 DCT -> (denoise) -> inter quant (or the given
@@ -151,12 +155,14 @@ DMF16 = [T.DEQUANT4_MF[q].reshape(16).copy() for q in range(6)]
 _VP, _CI = kernels.VP, kernels.CI
 
 
-def _check(y, pred, idx, fz, levels=None, nr_offset=None) -> None:
+def _check(y, pred, idx, fz, levels=None, nr_offset=None,
+           qp_mb=None) -> None:
     """The input contract on every device: an int32 plane of 16x16 MBs,
     int32 [N, 16, 16] predictions, int32 [N] MB numbers inside the
     plane, bool [N] force-zero flags, int32 [N, 4, 4, 4, 4] levels,
-    int32 [4, 4] noise-reduction offsets (not with levels), all on y's
-    device; on the card also contiguous and, for y and pred, 16-byte
+    int32 [4, 4] noise-reduction offsets (not with levels), int32 [N]
+    per-MB qps in [0, 51] (on the card a value outside traps), all on
+    y's device; on the card also contiguous and, for y and pred, 16-byte
     aligned."""
     fn = "luma_p_encode"
     if y.dim() != 2 or y.shape[0] % 16 or y.shape[1] % 16:
@@ -172,7 +178,8 @@ def _check(y, pred, idx, fz, levels=None, nr_offset=None) -> None:
                                   ("fz", fz, torch.bool, (n,)),
                                   ("levels", levels, _I32,
                                    (n, 4, 4, 4, 4)),
-                                  ("nr_offset", nr_offset, _I32, (4, 4))):
+                                  ("nr_offset", nr_offset, _I32, (4, 4)),
+                                  ("qp", qp_mb, _I32, (n,))):
         if t is None:
             continue
         if y.is_cuda:
@@ -197,9 +204,12 @@ def _check(y, pred, idx, fz, levels=None, nr_offset=None) -> None:
         # on the card an MB number outside the plane traps the launch
         raise IndexError("%s: idx outside the plane's %d MBs"
                          % (fn, y.numel() // 256))
+    if qp_mb is not None and not y.is_cuda and n and (
+            int(qp_mb.min()) < 0 or int(qp_mb.max()) > 51):
+        raise ValueError("%s: a per-MB qp outside [0, 51]" % fn)
 
 
-def luma_p_encode(y, pred, qp: int, idx=None, fz=None, lev: bool = True,
+def luma_p_encode(y, pred, qp, idx=None, fz=None, lev: bool = True,
                   levels=None, tables=None, nr_offset=None):
     """Kernel B8 fused, replacing `dct_quant_pallas`
     (video_steganography_pcamv_tpu/ops/pallas_kernels.py:175), the
@@ -213,12 +223,14 @@ def luma_p_encode(y, pred, qp: int, idx=None, fz=None, lev: bool = True,
     the quantized levels to start from (the trellis's; y and idx are
     then not read), or None; tables the `ops.cqm.QuantTables` whose inter
     class quantizes (None: flat); nr_offset [4, 4] int32 noise-reduction
-    offsets, or None. Returns (lev [N, 4, 4, 4, 4] int32 or None, rec [N,
+    offsets, or None; qp an int or an int32 [N] tensor of per-MB qps.
+    Returns (lev [N, 4, 4, 4, 4] int32 or None, rec [N,
     16, 16] int32, cbp_luma [N] int32), and with nr_offset also nr_sum
     [4, 4] int32."""
-    if not 0 <= qp <= 51:
+    grid = isinstance(qp, torch.Tensor)
+    if not grid and not 0 <= qp <= 51:
         raise ValueError("luma_p_encode: qp %d outside [0, 51]" % qp)
-    _check(y, pred, idx, fz, levels, nr_offset)
+    _check(y, pred, idx, fz, levels, nr_offset, qp if grid else None)
     if not y.is_cuda:
         return luma_p_encode_plain(y, pred, qp, idx, fz, lev, levels,
                                    tables, nr_offset)
@@ -234,11 +246,15 @@ def luma_p_encode(y, pred, qp: int, idx=None, fz=None, lev: bool = True,
     if n == 0:
         return (out, rec, cbp) + (() if nr_sum is None else (nr_sum,))
     ptr = kernels.ptr
+    fzp = None if fz is None else ptr(fz)
+    outp = None if out is None else ptr(out)
+    if grid:
+        return _launch_grid(y, pred, qp, idx, fzp, outp, levels,
+                            FLAT if tables is None else tables, nr_offset,
+                            nr_sum, out, rec, cbp)
     # the inter tables' three [16] rows, each 64 bytes into the last
     base = (FLAT if tables is None else tables).qtab(qp, dev).data_ptr()
     mf, bias, dmf = (ctypes.c_void_p(base + 64 * i) for i in range(3))
-    fzp = None if fz is None else ptr(fz)
-    outp = None if out is None else ptr(out)
     if levels is not None:
         fn = kernels.entry("pcamv_luma_p_recon",
                            [_VP] * 3 + [_CI, _VP, _CI] + [_VP] * 4)
@@ -263,6 +279,40 @@ def luma_p_encode(y, pred, qp: int, idx=None, fz=None, lev: bool = True,
     return out, rec, cbp, nr_sum
 
 
+def _launch_grid(y, pred, qp, idx, fzp, outp, levels, tables, nr_offset,
+                 nr_sum, out, rec, cbp):
+    """The per-MB qp instance of either entry (qp int32 [N] on the
+    card)."""
+    ptr = kernels.ptr
+    n = pred.shape[0]
+    slab = ptr(tables.qtab_all(y.device))
+    if levels is not None:
+        fn = kernels.entry("pcamv_luma_p_recon_grid",
+                           [_VP] * 3 + [_CI] + [_VP] * 6)
+        rc = fn(ptr(pred), ptr(levels), fzp, n, ptr(qp), slab, outp,
+                ptr(rec), ptr(cbp), kernels.stream(y))
+        kernels.check(rc, "pcamv_luma_p_recon_grid")
+        luma_p_encode.levels_launches += 1
+        luma_p_encode.grid_launches += 1
+        return out, rec, cbp
+    fn = kernels.entry("pcamv_luma_p_encode_grid",
+                       [_VP] * 2 + [_CI] * 2 + [_VP] * 2 + [_CI]
+                       + [_VP] * 8)
+    rc = fn(ptr(y), ptr(pred), y.shape[1], y.numel() // 256,
+            None if idx is None else ptr(idx), fzp, n, ptr(qp), slab,
+            None if nr_sum is None else ptr(nr_offset),
+            None if nr_sum is None else ptr(nr_sum), outp, ptr(rec),
+            ptr(cbp), kernels.stream(y))
+    kernels.check(rc, "pcamv_luma_p_encode_grid")
+    luma_p_encode.launches += 1
+    luma_p_encode.grid_launches += 1
+    if nr_sum is None:
+        return out, rec, cbp
+    luma_p_encode.nr_launches += 1
+    return out, rec, cbp, nr_sum
+
+
 luma_p_encode.launches = 0
 luma_p_encode.levels_launches = 0
 luma_p_encode.nr_launches = 0
+luma_p_encode.grid_launches = 0

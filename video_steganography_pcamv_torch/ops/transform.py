@@ -140,23 +140,64 @@ def _tables(tables):
     return tables
 
 
-def quant4x4(coef: torch.Tensor, qp: int, intra: bool,
+def _per_mb(t: torch.Tensor, ndim: int) -> torch.Tensor:
+    """A per-MB [N] tensor shaped to broadcast over dim 0 of an ndim-D
+    operand."""
+    return t.reshape(t.shape[:1] + (1,) * (ndim - 1))
+
+
+def _per_mb_tab(tab: torch.Tensor, qp: torch.Tensor, ndim: int):
+    """tab[qp] [N, 4, 4] of a per-MB qp [N], shaped to broadcast over an
+    ndim-D [N, 4, 4, ...] operand."""
+    t = tab[qp.reshape(-1).long()]
+    return t.reshape(t.shape + (1,) * (ndim - 3))
+
+
+def _shift_both(x: torch.Tensor, qbits: torch.Tensor) -> torch.Tensor:
+    """x << qbits where qbits >= 0, else (x + 2^(-qbits-1)) >> -qbits,
+    per element of a qbits tensor."""
+    shl = x << torch.clamp(qbits, min=0)
+    f = 1 << torch.clamp(-qbits - 1, min=0)
+    shr = (x + f) >> torch.clamp(-qbits, min=0)
+    return torch.where(qbits >= 0, shl, shr)
+
+
+def _dc_factor(tab: np.ndarray, qp, x: torch.Tensor):
+    """tab[qp] as an int, or for a per-MB qp as a tensor broadcasting
+    over dim 0 of x."""
+    if isinstance(qp, torch.Tensor):
+        t = torch.as_tensor(np.ascontiguousarray(tab), device=x.device)
+        return _per_mb(t[qp.reshape(-1).long()], x.dim())
+    return int(tab[qp])
+
+
+def quant4x4(coef: torch.Tensor, qp, intra: bool,
              tables=None) -> torch.Tensor:
-    """sign(c) * ((bias + |c|) * mf >> 16) with the class's tables."""
+    """sign(c) * ((bias + |c|) * mf >> 16) with the class's tables. coef
+    [N, 4, 4, ...]; qp an int, or a per-MB int32 [N] tensor (adaptive
+    quantization) that broadcasts over the block coordinates."""
     qt, li = _tables(tables), 0 if intra else 1
-    mf = qt.dev("mf4", coef.device)[li, qp][:, :, None, None]
-    bias = qt.dev("bias4", coef.device)[li, qp][:, :, None, None]
+    if isinstance(qp, torch.Tensor):
+        mf = _per_mb_tab(qt.dev("mf4", coef.device)[li], qp, coef.dim())
+        bias = _per_mb_tab(qt.dev("bias4", coef.device)[li], qp, coef.dim())
+    else:
+        mf = qt.dev("mf4", coef.device)[li, qp][:, :, None, None]
+        bias = qt.dev("bias4", coef.device)[li, qp][:, :, None, None]
     mag = (bias + torch.abs(coef)) * mf >> 16
     return torch.sign(coef) * mag
 
 
-def dequant4x4(level: torch.Tensor, qp: int, intra: bool = False,
+def dequant4x4(level: torch.Tensor, qp, intra: bool = False,
                tables=None) -> torch.Tensor:
     """Normative AC dequant with the class's list: level * dmf <<
     qbits, or (level * dmf + 2^(-qbits-1)) >> -qbits below qp 24
     (qbits = qp/6 - 4; flat lists round nothing there, custom ones
-    do)."""
+    do). qp an int or a per-MB [N] tensor, as for `quant4x4`."""
     qt, li = _tables(tables), 0 if intra else 1
+    if isinstance(qp, torch.Tensor):
+        dmf = _per_mb_tab(qt.dev("dmf4", level.device)[li], qp % 6,
+                          level.dim())
+        return _shift_both(level * dmf, _per_mb(qp // 6 - 4, level.dim()))
     dmf = qt.dev("dmf4", level.device)[li, qp % 6][:, :, None, None]
     qbits = qp // 6 - 4
     if qbits >= 0:
@@ -164,31 +205,40 @@ def dequant4x4(level: torch.Tensor, qp: int, intra: bool = False,
     return (level * dmf + (1 << (-qbits - 1))) >> (-qbits)
 
 
-def quant_dc(coef: torch.Tensor, qp: int, intra: bool,
+def quant_dc(coef: torch.Tensor, qp, intra: bool,
              tables=None) -> torch.Tensor:
-    """DC quant: mf[0] >> 1, bias[0] << 1 (encoder/macroblock.c:252)."""
+    """DC quant: mf[0] >> 1, bias[0] << 1 (encoder/macroblock.c:252).
+    qp an int or a per-MB [N] tensor over dim 0 of coef."""
     qt, li = _tables(tables), 0 if intra else 1
-    mf = int(qt.mf4[li, qp, 0, 0]) >> 1
-    bias = int(qt.bias4[li, qp, 0, 0]) << 1
+    mf = _dc_factor(qt.mf4[li, :, 0, 0] >> 1, qp, coef)
+    bias = _dc_factor(qt.bias4[li, :, 0, 0] << 1, qp, coef)
     mag = (bias + torch.abs(coef)) * mf >> 16
     return torch.sign(coef) * mag
 
 
-def dequant_dc_luma(dc: torch.Tensor, qp: int, tables=None) -> torch.Tensor:
+def dequant_dc_luma(dc: torch.Tensor, qp, tables=None) -> torch.Tensor:
     """Intra 16x16 DC dequant (always the intra list), qbits = qp/6 -
-    6, after the inverse Hadamard."""
-    dmf = int(_tables(tables).dmf4[0, qp % 6, 0, 0])
+    6, after the inverse Hadamard. qp an int or a per-MB [N] tensor."""
+    dmf = _dc_factor(_tables(tables).dmf4[0, :, 0, 0], qp % 6, dc)
+    if isinstance(qp, torch.Tensor):
+        return _shift_both(dc * dmf, _per_mb(qp // 6 - 6, dc.dim()))
     qbits = qp // 6 - 6
     if qbits >= 0:
         return (dc * dmf) << qbits
     return (dc * dmf + (1 << (-qbits - 1))) >> (-qbits)
 
 
-def dequant_dc_chroma(dc: torch.Tensor, qp: int, intra: bool = False,
+def dequant_dc_chroma(dc: torch.Tensor, qp, intra: bool = False,
                       tables=None) -> torch.Tensor:
     """Chroma DC dequant with the class's list, qbits = qp/6 - 5, no
-    rounding term."""
-    dmf = int(_tables(tables).dmf4[0 if intra else 1, qp % 6, 0, 0])
+    rounding term. qp an int or a per-MB [N] tensor."""
+    dmf = _dc_factor(_tables(tables).dmf4[0 if intra else 1, :, 0, 0],
+                     qp % 6, dc)
+    if isinstance(qp, torch.Tensor):
+        qbits = _per_mb(qp // 6 - 5, dc.dim())
+        return torch.where(qbits > 0,
+                           (dc * dmf) << torch.clamp(qbits, min=0),
+                           (dc * dmf) >> torch.clamp(-qbits, min=0))
     qbits = qp // 6 - 5
     if qbits > 0:
         return (dc * dmf) << qbits

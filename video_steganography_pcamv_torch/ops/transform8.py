@@ -139,22 +139,45 @@ def idct8x8_add(pred: torch.Tensor, coef: torch.Tensor) -> torch.Tensor:
     return torch.clamp(pred.to(_I32) + (r >> 6), 0, 255)
 
 
-def quant8x8(coef: torch.Tensor, qp: int, intra: bool,
+def _per_mb8(tab: torch.Tensor, qp: torch.Tensor, ndim: int):
+    """tab[qp] [N, 8, 8] of a per-MB qp [N], shaped [N, 1.., 8, 8] to
+    broadcast over an ndim-D [N, ..., 8, 8] operand."""
+    t = tab[qp.reshape(-1).long()]
+    return t.reshape(t.shape[:1] + (1,) * (ndim - 3) + t.shape[1:])
+
+
+def quant8x8(coef: torch.Tensor, qp, intra: bool,
              tables=None) -> torch.Tensor:
-    """sign(c) * (((bias + |c|) * mf) >> 16) over [..., 8, 8], int32."""
+    """sign(c) * (((bias + |c|) * mf) >> 16) over [..., 8, 8], int32. qp
+    an int, or a per-MB [N] tensor over dim 0 of coef ([N, 8, 8] or
+    [N, 2, 2, 8, 8])."""
     qt, li = _tables(tables), 0 if intra else 1
-    mf = qt.dev("mf8", coef.device)[li, qp]
-    bias = qt.dev("bias8", coef.device)[li, qp]
+    if isinstance(qp, torch.Tensor):
+        mf = _per_mb8(qt.dev("mf8", coef.device)[li], qp, coef.dim())
+        bias = _per_mb8(qt.dev("bias8", coef.device)[li], qp, coef.dim())
+    else:
+        mf = qt.dev("mf8", coef.device)[li, qp]
+        bias = qt.dev("bias8", coef.device)[li, qp]
     c = coef.to(_I32)
     mag = ((bias + torch.abs(c)) * mf) >> 16
     return torch.sign(c) * mag
 
 
-def dequant8x8(level: torch.Tensor, qp: int, intra: bool = False,
+def dequant8x8(level: torch.Tensor, qp, intra: bool = False,
                tables=None) -> torch.Tensor:
     """x264 dequant_8x8: qbits = qp / 6 - 6; a left shift, or a rounded
-    right shift below qp 36."""
+    right shift below qp 36. qp an int or a per-MB [N] tensor, as for
+    `quant8x8`."""
     qt, li = _tables(tables), 0 if intra else 1
+    if isinstance(qp, torch.Tensor):
+        dmf = _per_mb8(qt.dev("dmf8", level.device)[li], qp % 6,
+                       level.dim())
+        qbits = (qp // 6 - 6).reshape((-1,) + (1,) * (level.dim() - 1))
+        lvl = level.to(_I32) * dmf
+        shl = lvl << torch.clamp(qbits, min=0)
+        f = 1 << torch.clamp(-qbits - 1, min=0)
+        shr = (lvl + f) >> torch.clamp(-qbits, min=0)
+        return torch.where(qbits >= 0, shl, shr)
     dmf = qt.dev("dmf8", level.device)[li, qp % 6]
     lvl = level.to(_I32) * dmf
     qbits = qp // 6 - 6

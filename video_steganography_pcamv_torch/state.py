@@ -19,7 +19,9 @@ diverges without them; the quant lists come from Params, as in the
 reference, where each Encoder installs its own). Each DPB entry keeps its
 display index, frame_num, kind (anchor or reference B) and its own L0
 display indices, from which the P list view is derived again.
-`load_state(port_encoder, state)` installs it, so the port can resume
+Adaptive quantization needs no field: the reference rebuilds its
+`_aq_grids` from each frame's source planes, and so does the port
+(`Encoder.aq_grids`). `load_state(port_encoder, state)` installs it, so the port can resume
 mid-stream, at a GOP boundary or inside a GOP. This module imports no
 jax: it only reads attributes and converts arrays with `numpy.asarray`.
 """

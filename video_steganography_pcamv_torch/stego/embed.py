@@ -110,17 +110,23 @@ class StegoEngine:
         return final_mv, skip1, mvd2, res2
 
     def embed_frame_parts(self, enc, y, u, v, qp: int, part, mv8, skip1,
-                          mvp_u, ref8, maps, refs):
-        """Partition embedding of a multi-reference P frame (the
-        reference's `embed_frame_parts`, stego/embed.py:242): the RCA
-        costs from the analysis' probe maps (`maps` = SK, SP, sc8 and the
-        device part/mv8) against the host scan's unit predictors mvp_u
-        [mbh,mbw,4,2], one pull of rho and alt, `apply_costs` with ref8,
-        and the pass-2 multi-reference re-encode at the final MVs with
-        pass 1's skips forced (`refs` the stacked DPB; the quant tables
-        and noise-reduction offsets as for `embed_frame`). part/mv8/skip1/
-        ref8 are host arrays. Returns (final_mv8, skip, mvd4, res2), or
-        None when nothing is embedded this frame."""
+                          mvp_u, ref8, maps, refs, grids=None):
+        """Partition embedding of an unfused P frame (the reference's
+        `embed_frame_parts`, stego/embed.py:242): the RCA costs from the
+        analysis' probe maps (`maps` = SK, SP, sc8 and the device
+        part/mv8) against the host scan's unit predictors mvp_u
+        [mbh,mbw,4,2], one pull of rho and alt, `apply_costs` (with ref8
+        on the multi-reference path), and the pass-2 re-encode at the
+        final MVs with pass 1's skips forced: multi-reference at `refs`
+        (the stacked DPB) and ref8, or with both None at one reference
+        (`enc.ref`, the 8x8 transform and `rd` as the Params say); the
+        quant tables and noise-reduction offsets as for `embed_frame`.
+        `grids` is the (qp, chroma qp) pass 1 quantized with, the frame's
+        or under adaptive quantization its per-MB grids (None: the
+        frame's), and pass 2 quantizes with it too; rho stays at the
+        frame qp's lambda (the reference's embed.py:294-313).
+        part/mv8/skip1/ref8 are host arrays. Returns (final_mv8, skip,
+        mvd4, res2), or None when nothing is embedded this frame."""
         from ..encoder import inter as INTER
         from ..encoder.me import lambda_tab
         from ..encoder.partition import probe_combine
@@ -144,13 +150,23 @@ class StegoEngine:
         alt_np = packed[4 * n:].reshape(mbh, mbw, 4, 2).astype(np.int32)
         final8, skip1, mvd2 = self.apply_costs(enc, part, mv8, skip1, rho_np,
                                                alt_np, ref8=ref8)
-        res2 = INTER.encode_p_frame_device8_mref(
-            y, u, v, *refs, torch.as_tensor(np.ascontiguousarray(final8))
-            .to(dev), torch.as_tensor(ref8).to(dev), qp,
-            chroma_qp(qp, p.chroma_qp_offset), mbh, mbw,
-            force_zero=torch.as_tensor(skip1).to(dev),
-            trellis=bool(p.trellis), tables=enc.qt,
-            nr_offset=enc.nr_offset())
+        qp_enc, qpc_enc = grids if grids is not None else (
+            qp, chroma_qp(qp, p.chroma_qp_offset))
+        final8_t = torch.as_tensor(np.ascontiguousarray(final8)).to(dev)
+        fz = torch.as_tensor(skip1).to(dev)
+        if refs is None:
+            res2 = INTER.encode_p_frame_device8(
+                y, u, v, enc.ref["luma"], enc.ref["u"], enc.ref["v"],
+                final8_t, qp_enc, qpc_enc, mbh, mbw, force_zero=fz,
+                trans8=bool(p.transform_8x8), rd=bool(p.rd),
+                trellis=bool(p.trellis), tables=enc.qt,
+                nr_offset=enc.nr_offset())
+        else:
+            res2 = INTER.encode_p_frame_device8_mref(
+                y, u, v, *refs, final8_t, torch.as_tensor(ref8).to(dev),
+                qp_enc, qpc_enc, mbh, mbw, force_zero=fz,
+                trellis=bool(p.trellis), tables=enc.qt,
+                nr_offset=enc.nr_offset())
         return final8, skip1, mvd2, res2
 
     def apply_costs(self, enc, part, mv8, skip1, rho_u, alt_u, ref8=None):
