@@ -171,6 +171,26 @@ Phases (any failure raises and the script exits non-zero):
      P frame; exact launches; the decoded frames equal the encoder's
      recon and the payload is recovered (in a worker); P fps, the IDR's
      seconds and bytes per frame beside phase 6's printed.
+ 31. the main path's Params with aq_mode 1 at 1920x1088, IDR + 3 P (the
+     unfused one-reference path): exact launches, the per-MB qp grids,
+     decoded == recon and the payload (in a worker);
+ 32. BASELINE config 5: 8 concurrent 1920x1088 streams through
+     MultiEncoder (tools/bench_streams.py's Params, tail_kernel=True,
+     seeds 40 + s), IDR + 2 P steps: exact launches of each P step (B1,
+     B9, B3, B4 and B5 once a stream, the fused luma encode twice a
+     stream), every stream's payload recovered and streams 0 and 7
+     decoded == recon (in the workers); the IDR step's seconds and the
+     aggregate and per-stream P fps printed;
+ 33. PipelinedMultiEncoder, 2 streams at 1920x1088, IDR + 3 P: payloads
+     recovered (in the workers), the aggregate P fps beside phase 6's;
+ 34. models/pipeline.py and parallel/tile.py at 1920x1088: p_frame_step
+     and p_frame_step_parts with their exact launches, and the tiled
+     step over 4 tiles on cuda:0 equal to the untiled step, with 6 halo
+     transfers of mc.PAD rows;
+ 35. the multi-stream and tile layers at 128x96 (the tiled step at
+     96x192), cuda == cpu: MultiEncoder on both tail_kernel settings and
+     PipelinedMultiEncoder (streams), p_frame_step, p_frame_step_parts
+     and the tiled step on [cuda:0] * 4 (outputs).
 Phase 4 also holds B4 under the jvt inter list and deadzone 16 (timed
 beside the flat tables), phase 9 the fused luma encode's noise-reduction
 instance (qp 26 and 20, with force-zero, timed beside the plain DCT
@@ -194,13 +214,17 @@ and trellis 1, b_pyramid with weightb and trellis, the 16x16 path with
 transform_8x8 and trellis, the main path with trellis 1 and with rd
 2).
 Phases 9 and 13 run right after phase 4, so that a new kernel that fails
-stops the run early; 17 runs after 14, and 18, 19, 20, 22, 24 and 25
-after 6, 26, 27, 29 and 30 after 25.
+stops the run early; 17 runs after 14, 35, 32, 33 and 34 right after 6
+(so that their decode checks start early), then 18, 19, 20, 22, 24 and
+25, and 26, 27, 29, 30 and 31 after 25.
 The decode checks of the full-width phases (6, 7, 11, 15, 19, 20, 22,
-24-27, 29 and 30: the port's CPU decoder, seconds a 1080p frame, and its
-extractor) run in three spawned worker processes while the later
+24-27, 29-33: the port's CPU decoder, seconds a 1080p frame, and its
+extractor) run in four spawned worker processes while the later
 phases use the card; phase 28 waits for them, prints each one's result
-and fails if any failed.
+and fails if any failed. The same workers run the cpu halves of phases
+5, 14, 17 and 35 while the main process runs their cuda halves, the
+payload checks of these phases and of phase 10, and phase 3's plain
+twins of five 1080p cases.
 Each phase logs its wall time. The line before the last two holds the
 per-kernel JSON record, then the card line; the last line is
 {"ok": true, "device": {...}}.
@@ -450,7 +474,7 @@ def phase_b5(dev, int_rate):
                   % (resident + 32, resident, 16 * wide,
                      16 * (resident + 32)), resident + 32, wide, 28, 0, 0,
                   True))
-    worst = 0
+    errs = [0]     # the largest error of every case, here and deferred
     ms = plain_ms = ref4_ms = None
     for i, (name, mbh, mbw, qp, off_a, off_b, t8, *r4) in enumerate(cases):
         g = np.random.default_rng(100 + i)
@@ -464,16 +488,30 @@ def phase_b5(dev, int_rate):
         def plain():
             par = DB.edge_params(*maps, qp, qpc, mbh, mbw, **kw)
             return DB.deblock_frame_plain(*planes, par, mbh, mbw)
-        want = plain()
-        torch.cuda.synchronize()
-        err = max_abs(got, want)
-        worst = max(worst, err)
-        if not all(torch.equal(a, b) for a, b in zip(got, want)):
-            raise AssertionError("B5 kernel != plain (%s), max abs err %d"
-                                 % (name, err))
-        changed = sum(int((a != b).sum()) for a, b in zip(got, planes))
-        log("B5 %s: kernel == plain at %dx%d MBs (%d samples filtered)"
-            % (name, mbh, mbw, changed))
+
+        def check(want, name=name, got=got, planes=planes, mbh=mbh, mbw=mbw):
+            got = [a.cpu() for a in got]
+            want = [torch.as_tensor(a).cpu() for a in want]
+            err = max_abs(got, want)
+            errs[0] = max(errs[0], err)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError("B5 kernel != plain (%s), max abs err "
+                                     "%d" % (name, err))
+            changed = sum(int((a != b.cpu()).sum())
+                          for a, b in zip(got, planes))
+            log("B5 %s: kernel == plain at %dx%d MBs (%d samples filtered)"
+                % (name, mbh, mbw, changed))
+        if 0 < i < len(cases) - 1:
+            # the plain twin of a 1080p case on the cpu of a worker
+            # process meanwhile; phase 28 compares
+            cpu = [t if t is None else t.cpu() for t in
+                   (*planes, *maps, trans8, ref4)]
+            _DEFERRED.append((_submit(_b5_plain_job, cpu, qp, qpc, mbh, mbw,
+                                      {k: v for k, v in kw.items()
+                                       if k not in ("trans8", "ref4")}),
+                              check))
+        else:
+            check(plain())
         if i == 0:
             ms = cuda_ms(lambda: DB.deblock_frame(
                 *planes, *maps, qp, qpc, mbh, mbw, **kw), 20, 3)
@@ -505,7 +543,9 @@ def phase_b5(dev, int_rate):
     ops = n * (32 * 40 + (8 * 16 + 2 * 4 * 8) * 30)
     bnd = bound(nbytes, ops, int_rate)
     maps_t = _b5_qp_maps(dev, int_rate, nbytes, ops)
-    worst = max(worst, maps_t["err"])
+    # the cases whose twins run in the workers are held in phase 28; a
+    # mismatch there fails the run before the record is printed
+    worst = max(errs[0], maps_t["err"])
     # latency: the reference's knight-wave chain, mbw + 2(mbh-1) MB steps
     # (254 at 1080p), each priced at one cross-SM handoff of a progress
     # counter. The kernel's half-MB order has mbh-1 handoffs on its
@@ -523,6 +563,16 @@ def phase_b5(dev, int_rate):
                qp_maps_bound_ms=maps_t["bound"][0],
                scalar_alone_ms=maps_t["scalar_alone_ms"])
     return rec
+
+
+def _b5_plain_job(t, qp, qpc, mbh, mbw, kw):
+    """B5's plain version (edge_params + the wave filter) on the cpu, in
+    a worker: t = the three uint8 planes, intra, skip, nnz4, mv4, trans8
+    and ref4 (None or tensors)."""
+    from video_steganography_pcamv_torch.ops import deblock as DB
+    par = DB.edge_params(*t[3:7], qp, qpc, mbh, mbw, trans8=t[7], ref4=t[8],
+                         **kw)
+    return [a.numpy() for a in DB.deblock_frame_plain(*t[:3], par, mbh, mbw)]
 
 
 def _deblock_entry_ms(planes, maps, qp, qpc, mbh, mbw, trans8=None,
@@ -1246,13 +1296,6 @@ def _decode_job(bs, n_frames, sent, recon=None, em_rate=64):
     return sum(len(s) for s in sent), time.time() - t0, differ, kinds
 
 
-def _check_payload(bs, enc, n_frames):
-    """`_decode_job` here, for the small streams; returns the payload
-    bits."""
-    return _decode_job(bs, n_frames, enc._stego.sent_messages,
-                       em_rate=enc.p.stego.em_rate)[0]
-
-
 # the reference's NR offsets arithmetic (core.py:3540-3562), for the
 # host-side model of phases 9 and 30
 NR_W2 = np.array([[800, 320, 800, 320], [320, 128, 320, 128],
@@ -1472,19 +1515,44 @@ def _worker_init():
     torch.set_num_threads(2)
 
 
-def _defer(report, bs, n_frames, sent, recon=None):
-    """Submit `_decode_job` to a worker process (spawned: the parent has
-    a CUDA context) and keep `report`, which `_join_checks` calls here
-    with its result, in the order submitted."""
+def _submit(fn, *args):
+    """Run fn(*args) in a worker process (spawned: the parent has a CUDA
+    context); returns its future."""
     global _POOL
     if _POOL is None:
         import multiprocessing
         from concurrent.futures import ProcessPoolExecutor
         _POOL = ProcessPoolExecutor(
-            3, mp_context=multiprocessing.get_context("spawn"),
+            4, mp_context=multiprocessing.get_context("spawn"),
             initializer=_worker_init)
-    _DEFERRED.append((_POOL.submit(_decode_job, bs, n_frames, list(sent),
-                                   recon), report))
+    return _POOL.submit(fn, *args)
+
+
+def _defer(report, bs, n_frames, sent, recon=None, em_rate=64):
+    """Submit `_decode_job` to a worker process and keep `report`, which
+    `_join_checks` calls here with its result, in the order submitted."""
+    _DEFERRED.append((_submit(_decode_job, bs, n_frames, list(sent), recon,
+                              em_rate), report))
+
+
+def _defer_payload(label, bs, enc, n_frames):
+    """The payload check of a small stream (`_decode_job`) in a worker;
+    phase 28 logs its bits."""
+    _defer(lambda r: log("%s: %d payload bits recovered (in a worker)"
+                         % (label, r[0])),
+           bs, n_frames, enc._stego.sent_messages,
+           em_rate=enc.p.stego.em_rate)
+
+
+def _cpu_encode_job(w, h, n_frames, tail_kernel, kw):
+    """The CPU half of a cuda == cpu check, in a worker: the stream, the
+    close() dict and the (I8x8, trans8) MB counts of `_params(w, h,
+    tail_kernel, **kw)` over synthetic_sequence(w, h, n_frames, seed=7)
+    on the cpu."""
+    from video_steganography_pcamv_torch.utils.yuv import synthetic_sequence
+    enc, bs = _encode(_params(w, h, tail_kernel, **kw),
+                      synthetic_sequence(w, h, n_frames, seed=7), "cpu")
+    return bs, enc.close(), (enc.stats.i8x8_mbs, enc.stats.trans8_mbs)
 
 
 def _join_checks():
@@ -1511,19 +1579,20 @@ def phase_small(dev):
     from video_steganography_pcamv_torch.utils.yuv import synthetic_sequence
     frames = synthetic_sequence(112, 80, 6, seed=7)
     streams = {}
+    # the cpu halves and the payload checks run in the worker processes
+    jobs = {tk: _submit(_cpu_encode_job, 112, 80, len(frames), tk, {})
+            for tk in (True, False)}
     for tail_kernel in (True, False):
-        p = _params(112, 80, tail_kernel)
-        enc_g, bs_g = _encode(p, frames, dev)
-        _enc_c, bs_c = _encode(_params(112, 80, tail_kernel), frames, "cpu")
+        enc_g, bs_g = _encode(_params(112, 80, tail_kernel), frames, dev)
+        bs_c = jobs[tail_kernel].result()[0]
         if bs_g != bs_c:
             raise AssertionError("112x80 stream, tail_kernel=%s: cuda (%d B)"
                                  " != cpu (%d B)" % (tail_kernel, len(bs_g),
                                                      len(bs_c)))
-        bits = _check_payload(bs_g, enc_g, len(frames))
+        label = "112x80 x6, tail_kernel=%s" % tail_kernel
+        _defer_payload(label, bs_g, enc_g, len(frames))
         streams[tail_kernel] = bs_g
-        log("112x80 x6, tail_kernel=%s: cuda stream == cpu stream (%d "
-            "bytes), %d payload bits recovered" % (tail_kernel, len(bs_g),
-                                                   bits))
+        log("%s: cuda stream == cpu stream (%d bytes)" % (label, len(bs_g)))
     log("112x80: the two branches' streams %s"
         % ("differ" if streams[True] != streams[False] else "are equal"))
 
@@ -1533,37 +1602,36 @@ def phase_small16(dev):
     frames = synthetic_sequence(112, 80, 6, seed=7)
     enc_g, bs_g = _encode(_params(112, 80, True, partitions=False), frames,
                           dev)
+    # here, not in a worker: late in the run they hold the decode checks
     _enc_c, bs_c = _encode(_params(112, 80, True, partitions=False), frames,
                            "cpu")
     if bs_g != bs_c:
         raise AssertionError("112x80 16x16-only stream: cuda (%d B) != cpu "
                              "(%d B)" % (len(bs_g), len(bs_c)))
-    bits = _check_payload(bs_g, enc_g, len(frames))
-    log("112x80 x6, partitions=False: cuda stream == cpu stream (%d bytes),"
-        " %d payload bits recovered" % (len(bs_g), bits))
+    _defer_payload("112x80 x6, partitions=False", bs_g, enc_g, len(frames))
+    log("112x80 x6, partitions=False: cuda stream == cpu stream (%d bytes)"
+        % len(bs_g))
 
 
 def phase_small8(dev):
     """Config 3 at 128x96: the cuda stream equals the cpu stream."""
     from video_steganography_pcamv_torch.utils.yuv import synthetic_sequence
     frames = synthetic_sequence(128, 96, 6, seed=7)
+    job = _submit(_cpu_encode_job, 128, 96, len(frames), True,
+                  dict(config3=True))
     enc_g, bs_g = _encode(_params(128, 96, True, config3=True), frames, dev)
-    enc_c, bs_c = _encode(_params(128, 96, True, config3=True), frames,
-                          "cpu")
+    bs_c, _d, counts_c = job.result()
     if bs_g != bs_c:
         raise AssertionError("128x96 config-3 stream: cuda (%d B) != cpu "
                              "(%d B)" % (len(bs_g), len(bs_c)))
     counts = (enc_g.stats.i8x8_mbs, enc_g.stats.trans8_mbs)
-    if min(counts) < 1 or counts != (enc_c.stats.i8x8_mbs,
-                                     enc_c.stats.trans8_mbs):
+    if min(counts) < 1 or counts != counts_c:
         raise AssertionError("128x96 config 3: I8x8 / trans8 MBs %s on "
-                             "cuda, %s on cpu" % (counts, (
-                                 enc_c.stats.i8x8_mbs,
-                                 enc_c.stats.trans8_mbs)))
-    bits = _check_payload(bs_g, enc_g, len(frames))
+                             "cuda, %s on cpu" % (counts, counts_c))
+    _defer_payload("128x96 x6, config 3", bs_g, enc_g, len(frames))
     log("128x96 x6, config 3 (transform_8x8, rd 1): cuda stream == cpu "
-        "stream (%d bytes), %d I8x8 MBs, %d trans8 P MBs, %d payload bits "
-        "recovered" % (len(bs_g), counts[0], counts[1], bits))
+        "stream (%d bytes), %d I8x8 MBs, %d trans8 P MBs"
+        % (len(bs_g), counts[0], counts[1]))
 
 
 def _close_equal(what, got, want):
@@ -1659,7 +1727,10 @@ def phase_small_cabac(dev):
                    ref_frames=2)))
     from video_steganography_pcamv_torch.encoder import core as CORE
     incr = CORE.reencode_p_incremental
-    for what, tk, kw in cases:
+    # the cpu encodes run in the worker processes meanwhile
+    cpu_jobs = [_submit(_cpu_encode_job, 112, 80, len(frames), tk, kw)
+                for _what, tk, kw in cases]
+    for (what, tk, kw), job in zip(cases, cpu_jobs):
         n_incr = [0]
 
         def counted(*a, _n=n_incr, **k):
@@ -1668,21 +1739,20 @@ def phase_small_cabac(dev):
         CORE.reencode_p_incremental = counted
         try:
             enc_g, bs_g = _encode(_params(112, 80, tk, **kw), frames, dev)
-            enc_c, bs_c = _encode(_params(112, 80, tk, **kw), frames, "cpu")
         finally:
             CORE.reencode_p_incremental = incr
         if "incremental" in what and n_incr[0] == 0:
             raise AssertionError("112x80 %s: no incremental re-encode" % what)
+        bs_c, d_c, _counts = job.result()
         if bs_g != bs_c:
             raise AssertionError("112x80 %s: cuda (%d B) != cpu (%d B)"
                                  % (what, len(bs_g), len(bs_c)))
-        d_g, d_c = enc_g.close(), enc_c.close()
+        d_g = enc_g.close()
         _close_equal("112x80 " + what, d_g, d_c)
-        bits = _check_payload(bs_g, enc_g, len(frames))
+        _defer_payload("112x80 x6, " + what, bs_g, enc_g, len(frames))
         log("112x80 x6, %s: cuda stream == cpu stream (%d bytes), close() "
-            "equal (PSNR-Y %.4f, SSIM-Y %.6f / %.6f), %d payload bits "
-            "recovered" % (what, len(bs_g), d_g["psnr_y"], d_g["ssim_y"],
-                           d_c["ssim_y"], bits))
+            "equal (PSNR-Y %.4f, SSIM-Y %.6f / %.6f)"
+            % (what, len(bs_g), d_g["psnr_y"], d_g["ssim_y"], d_c["ssim_y"]))
 
 
 def phase_defaults(dev, card, bs6, enc6):
@@ -2161,6 +2231,277 @@ def phase_aq(dev, card, bs6, n_frames: int = 4, w: int = 1920,
     return launches
 
 
+# tools/bench_streams.py's Params (BASELINE config 5's serving setup)
+STREAMS_KW = dict(qp=26, me_range=16, keyint_max=250, scenecut_threshold=0,
+                  psnr=False, deblock_device=True)
+
+
+def _streams_params(w, h, tail_kernel=True):
+    from video_steganography_pcamv_torch.params import Params, StegoParams
+    p = Params(width=w, height=h, stego=StegoParams(em_rate=64, key=3),
+               **STREAMS_KW)
+    p.tail_kernel = tail_kernel
+    return p
+
+
+def _multi_run(me, seqs, n_steps):
+    """Drive a multi-stream encoder `n_steps` steps (plus `flush` where
+    it has one); returns (the streams, each step's synced seconds)."""
+    streams, secs = [b""] * me.S, []
+    # a worker process runs the cpu half and never touches the card
+    on_card = me.encs[0].device.type == "cuda"
+    for t in range(n_steps):
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chunks = me.encode_step([sq[t] for sq in seqs])
+        if t == n_steps - 1 and hasattr(me, "flush"):
+            chunks = [a + b for a, b in zip(chunks, me.flush())]
+        if on_card:
+            torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        streams = [a + b for a, b in zip(streams, chunks)]
+    return streams, secs
+
+
+def _pipeline_inputs(w, h, dev, seed=7):
+    """A frame pair as the steps take it: the current planes, the
+    previous frame's planes as the reference's recon, `mc.build_ref`."""
+    from video_steganography_pcamv_torch.ops import mc as TMC
+    from video_steganography_pcamv_torch.utils.yuv import synthetic_sequence
+    f0, f1 = synthetic_sequence(w, h, 2, seed=seed)
+    planes = [torch.as_tensor(np.asarray(a, np.int32), device=dev)
+              for a in (f1.y, f1.u, f1.v, f0.y, f0.u, f0.v)]
+    ref = TMC.build_ref(*planes[3:])
+    return planes, ref
+
+
+def _outputs_equal(label, got, want):
+    if sorted(got) != sorted(want):
+        raise AssertionError("%s: keys %s != %s" % (label, sorted(got),
+                                                    sorted(want)))
+    for k in want:
+        a, b = got[k].cpu(), want[k].cpu()
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError("%s: %s differs" % (label, k))
+
+
+def _small_multi_job(cls_name, tail_kernel, dev, keep=False):
+    """Phase 35's run of the multi-stream encoder `cls_name` (two 128x96
+    streams, IDR + 3 P, seeds 20 + s) on `dev`: its streams (and with
+    `keep` the encoder)."""
+    from video_steganography_pcamv_torch.encoder import multistream as MS
+    from video_steganography_pcamv_torch.utils.yuv import synthetic_sequence
+    seqs = [synthetic_sequence(128, 96, 4, seed=20 + s) for s in range(2)]
+    me = getattr(MS, cls_name)(_streams_params(128, 96, tail_kernel), 2,
+                               devices=[dev])
+    streams, _ = _multi_run(me, seqs, 4)
+    return (streams, me) if keep else streams
+
+
+def phase_small_multi(dev):
+    """Phase 35: the multi-stream and tile layers at 128x96 (the tiled
+    step at 96x192, 12 MB rows), cuda == cpu: MultiEncoder's two streams
+    on both tail_kernel settings and PipelinedMultiEncoder's, byte-equal
+    and read by the port's decoder and extractor; p_frame_step and
+    p_frame_step_parts (with stego) and the tiled step on [cuda:0] * 4
+    tiles, equal outputs."""
+    from video_steganography_pcamv_torch.models import pipeline as TPL
+    from video_steganography_pcamv_torch.parallel import tile as TTL
+    runs = [(cls, tail_kernel) for cls, tks in (
+        ("MultiEncoder", (True, False)), ("PipelinedMultiEncoder", (True,)))
+        for tail_kernel in tks]
+    # the cpu runs in the worker processes meanwhile
+    cpu_jobs = [_submit(_small_multi_job, cls, tk, "cpu")
+                for cls, tk in runs]
+    for (name, tail_kernel), job in zip(runs, cpu_jobs):
+        got, me = _small_multi_job(name, tail_kernel, dev, keep=True)
+        want = job.result()
+        if got != want:
+            raise AssertionError("128x96 %s, tail_kernel=%s: cuda streams "
+                                 "!= cpu streams" % (name, tail_kernel))
+        label = "128x96 %s x2, tail_kernel=%s" % (name, tail_kernel)
+        for s, (bs, e) in enumerate(zip(got, me.encs)):
+            _defer_payload("%s stream %d" % (label, s), bs, e, 4)
+        log("%s: cuda streams == cpu streams (%s bytes)"
+            % (label, [len(b) for b in got]))
+    for step in ("p_frame_step", "p_frame_step_parts"):
+        res = []
+        for d in (dev, torch.device("cpu")):
+            planes, ref = _pipeline_inputs(128, 96, d)
+            prev = torch.zeros((6, 8, 2), dtype=torch.int32, device=d)
+            res.append(getattr(TPL, step)(
+                *planes[:3], ref["luma"], ref["u"], ref["v"], prev, qp=26,
+                qpc=26, mbh=6, mbw=8, rng=16, lam=4))
+        _outputs_equal("128x96 " + step, *res)
+    res = []
+    for devs in ([dev] * 4, [torch.device("cpu")] * 4):
+        planes, _ref = _pipeline_inputs(96, 192, devs[0], seed=3)
+        TTL.halo_log.clear()
+        res.append(TTL.p_frame_step_tiled(
+            devs, *planes, torch.zeros((12, 6, 2), dtype=torch.int32),
+            qp=28, qpc=28, mbh=12, mbw=6, rng=8, lam=4))
+        if len(TTL.halo_log) != 6:
+            raise AssertionError("96x192 tiled step: %d halo transfers"
+                                 % len(TTL.halo_log))
+    _outputs_equal("96x192 tiled step", *res)
+    log("128x96 p_frame_step, p_frame_step_parts and the 96x192 tiled step "
+        "over 4 tiles (6 halo transfers): cuda outputs == cpu outputs")
+
+
+def phase_config5(dev, card, n_streams: int = 8, n_steps: int = 3):
+    """Phase 32: BASELINE config 5, `n_streams` concurrent 1920x1088
+    streams through MultiEncoder (tools/bench_streams.py's Params,
+    tail_kernel=True, synthetic_sequence seeds 40 + s), IDR + 2 P steps.
+    Exact launches of each P step: B1, B9, B3, B4 and B5 once a stream,
+    the fused luma encode twice a stream (pass 1 and the full pass 2),
+    no other kernel; every stream's payload recovered by the port's
+    extractor and, for streams 0 and the last, every decoded frame equal
+    to the encoder's recon (in the workers). Prints the IDR step's
+    seconds and the aggregate and per-stream P fps."""
+    from video_steganography_pcamv_torch.encoder.multistream import (
+        MultiEncoder)
+    from video_steganography_pcamv_torch.utils.yuv import synthetic_sequence
+    S = n_streams
+    label = "config 5 (%d x 1920x1088, MultiEncoder)" % S
+    seqs = [synthetic_sequence(1920, 1088, n_steps, seed=40 + s)
+            for s in range(S)]
+    me = MultiEncoder(_streams_params(1920, 1088), S, devices=[dev])
+    fns = _counters()
+    per_step, secs = [], []
+    streams = [b""] * S
+    recons = {0: {}, S - 1: {}}
+    for t in range(n_steps):
+        for fn in fns.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chunks = me.encode_step([sq[t] for sq in seqs])
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        per_step.append({k: fn.launches for k, fn in fns.items()})
+        streams = [a + b for a, b in zip(streams, chunks)]
+        for s, rec in recons.items():
+            rec[t] = tuple(x.cpu().numpy() for x in me.encs[s].recon_prev)
+    want_p = {k: 0 for k in fns}
+    want_p.update(fullpel_parts=S, gather_windows8=S, subpel=S,
+                  probe_maps=S, deblock_frame=S, luma_p_encode=2 * S)
+    for t, got in enumerate(per_step[1:], 1):
+        if got != want_p:
+            raise AssertionError("%s: P step %d launches %s, want %s"
+                                 % (label, t, got, want_p))
+    if per_step[0]["deblock_frame"] != S:
+        raise AssertionError("%s: the IDR step deblocked %d frames"
+                             % (label, per_step[0]["deblock_frame"]))
+    for s, (bs, e) in enumerate(zip(streams, me.encs)):
+        rec = recons.get(s)
+
+        def report(r, s=s, rec=rec):
+            bits, secs_, differ, _kinds = r
+            if rec is not None and any(differ.values()):
+                raise AssertionError("%s stream %d: decoded frames differ "
+                                     "from the recon: %s" % (label, s,
+                                                             differ))
+            log("%s stream %d: %d payload bits recovered%s (decode + "
+                "extraction %.1f s, in a worker)"
+                % (label, s, bits, ", every decoded frame == the encoder's "
+                   "recon" if rec is not None else "", secs_))
+        _defer(report, bs, n_steps, e._stego.sent_messages, rec)
+    n_p = n_steps - 1
+    fps = S * n_p / sum(secs[1:])
+    log("%s: IDR step %.3f s (%.3f s a stream); P steps %s s; aggregate P "
+        "%.4f fps, per stream %.4f fps; bytes per stream %s; launches per "
+        "P step %s  [%s]"
+        % (label, secs[0], secs[0] / S, ["%.4f" % x for x in secs[1:]], fps,
+           fps / S, [len(b) for b in streams], json.dumps(per_step[-1]),
+           card))
+    return fps
+
+
+def phase_pipelined_multi(dev, card, n_frames: int = 4):
+    """Phase 33: PipelinedMultiEncoder, 2 streams at 1920x1088, IDR + 3 P
+    (tools/bench_streams.py's Params and seeds): every payload recovered
+    (in the workers); the aggregate P fps beside phase 6's single-stream
+    P fps of this run."""
+    from video_steganography_pcamv_torch.encoder.multistream import (
+        PipelinedMultiEncoder)
+    from video_steganography_pcamv_torch.utils.yuv import synthetic_sequence
+    S = 2
+    label = "PipelinedMultiEncoder (%d x 1920x1088)" % S
+    seqs = [synthetic_sequence(1920, 1088, n_frames, seed=40 + s)
+            for s in range(S)]
+    me = PipelinedMultiEncoder(_streams_params(1920, 1088), S, devices=[dev])
+    streams, secs = _multi_run(me, seqs, n_frames)
+    for s, (bs, e) in enumerate(zip(streams, me.encs)):
+        _defer(lambda r, s=s: log("%s stream %d: %d payload bits recovered "
+                                  "(decode + extraction %.1f s, in a "
+                                  "worker)" % (label, s, r[0], r[1])),
+               bs, n_frames, e._stego.sent_messages)
+    fps = S * (n_frames - 1) / sum(secs[1:])
+    log("%s: IDR step %.3f s; aggregate P %.4f fps incl. flush (per stream "
+        "%.4f); phase 6's single-stream P %.4f fps  [%s]"
+        % (label, secs[0], fps, fps / S, P_FPS.get("6", float("nan")),
+           card))
+    return fps
+
+
+def phase_pipeline_tile(dev, card):
+    """Phase 34: models/pipeline.py and parallel/tile.py at 1920x1088 on
+    a real frame pair: p_frame_step (B6 and B7 once, the fused luma encode
+    twice: the encode and the stego costs' 13-version probe batch) and
+    p_frame_step_parts (B1, B9, B3, B4 and the luma encode once), each
+    timed; the tiled step over 4 tiles on cuda:0 (17 MB rows a tile)
+    equal key by key to the untiled p_frame_step_parts on the same
+    inputs with the zero predictor, its halo log 2 * 3 packed transfers
+    of mc.PAD luma and mc.PAD chroma rows, and B1 launched once a tile."""
+    from video_steganography_pcamv_torch.models import pipeline as TPL
+    from video_steganography_pcamv_torch.ops import mc as TMC
+    from video_steganography_pcamv_torch.parallel import tile as TTL
+    planes, ref = _pipeline_inputs(1920, 1088, dev)
+    prev = torch.zeros((MBH, MBW, 2), dtype=torch.int32, device=dev)
+    kw = dict(qp=26, qpc=26, mbh=MBH, mbw=MBW, rng=16, lam=4)
+    fns = _counters()
+    want = {"p_frame_step": dict(fullpel_search16=1, gather_windows=1,
+                                 luma_p_encode=2),
+            "p_frame_step_parts": dict(fullpel_parts=1, gather_windows8=1,
+                                       subpel=1, probe_maps=1,
+                                       luma_p_encode=1)}
+    outs, ms = {}, {}
+    for step, w in want.items():
+        fn = getattr(TPL, step)
+        for c in fns.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[step] = fn(*planes[:3], ref["luma"], ref["u"], ref["v"], prev,
+                        **kw)
+        torch.cuda.synchronize()
+        ms[step] = 1e3 * (time.perf_counter() - t0)
+        got = {k: c.launches for k, c in fns.items() if c.launches}
+        if got != w:
+            raise AssertionError("1080p %s: launches %s, want %s"
+                                 % (step, got, w))
+    for c in fns.values():
+        c.launches = 0
+    TTL.halo_log.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tiled = TTL.p_frame_step_tiled([dev] * 4, *planes, prev, **kw)
+    torch.cuda.synchronize()
+    ms["tiled x4"] = 1e3 * (time.perf_counter() - t0)
+    _outputs_equal("1080p tiled step", tiled, outs["p_frame_step_parts"])
+    want_log = sorted([(i, i + 1, TMC.PAD, TMC.PAD) for i in range(3)]
+                      + [(i + 1, i, TMC.PAD, TMC.PAD) for i in range(3)])
+    if sorted(TTL.halo_log) != want_log or fns["fullpel_parts"].launches != 4:
+        raise AssertionError("1080p tiled step: halo log %s, B1 launched %d"
+                             % (TTL.halo_log, fns["fullpel_parts"].launches))
+    log("1080p p_frame_step, p_frame_step_parts, tiled step over 4 tiles "
+        "on cuda:0 (== untiled, %d halo transfers of %d luma + %d chroma "
+        "rows): ms %s (one synced call each, first call)  [%s]"
+        % (len(TTL.halo_log), TMC.PAD, TMC.PAD,
+           json.dumps({k: round(v, 3) for k, v in ms.items()}), card))
+
+
 def phase_b16(dev, card, n_frames: int = 7):
     """The 16x16-only path with B frames at 1080p (partitions=False,
     deblock_device=False, bframes 2, b_adapt 2, rc_lookahead 4, CAVLC,
@@ -2540,9 +2881,14 @@ def _counters():
             "lowres_costs_kernel": ST.lowres_costs_kernel}
 
 
+# P fps of phase_main's runs by phase, for the later phases to print
+P_FPS = {}
+
+
 def phase_main(dev, card, tail_kernel: bool, n_frames: int,
                partitions: bool = True, config3: bool = False,
-               label: str = None, payload: bool = True, **kw):
+               label: str = None, payload: bool = True, phase_id=None,
+               **kw):
     """One path end to end at full width: 1920x1088, or 1280x720 for
     config 3; `kw` overrides bench.py's Params (cabac, DEFAULTS).
     Returns the launch counts, the stream and the encoder. The payload
@@ -2607,6 +2953,7 @@ def phase_main(dev, card, tail_kernel: bool, n_frames: int,
         raise AssertionError("config 3: %d I8x8 MBs, %d trans8 P MBs"
                              % (enc.stats.i8x8_mbs, enc.stats.trans8_mbs))
     fps_p = (len(frames) - 1) / (t2 - t1)
+    P_FPS[phase_id] = fps_p
     label = label or ("720p config 3 (transform_8x8, rd 1)" if config3
                       else "1080p tail_kernel=%s" % tail_kernel
                       if partitions else "1080p partitions=False")
@@ -2973,7 +3320,13 @@ def main() -> int:
     phase("14 128x96 config 3", phase_small8, dev)
     phase("17 112x80 CABAC, default Params", phase_small_cabac, dev)
     launches, bs6, enc6 = phase("6 main path", phase_main, dev, card,
-                                tail_kernel=True, n_frames=5)
+                                tail_kernel=True, n_frames=5, phase_id="6")
+    phase("35 128x96 multi-stream and tile layers", phase_small_multi, dev)
+    phase("32 config 5: 8 x 1080p MultiEncoder", phase_config5, dev, card)
+    phase("33 2 x 1080p PipelinedMultiEncoder", phase_pipelined_multi, dev,
+          card)
+    phase("34 1080p pipeline and tile steps", phase_pipeline_tile, dev,
+          card)
     phase("18 1080p default Params", phase_defaults, dev, card, bs6, enc6)
     phase("19 1080p CABAC", phase_cabac, dev, card, bs6)
     phase("20 1080p config 4 P half", phase_config4p, dev, card)

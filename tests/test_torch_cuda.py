@@ -67,7 +67,11 @@ its own:  python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
   grids of qps 10-51 vs their plain versions, B5 under random qp maps
   vs edge_params + its plain version, and cuda == cpu streams with
   aq_mode 1 at one reference (CAVLC) and on config 4 (bframes 2,
-  ref_frames 2, CABAC).
+  ref_frames 2, CABAC);
+- the multi-stream layer: MultiEncoder's two streams at 128x96 on cuda
+  equal to the cpu streams on both tail_kernel settings, with the
+  kernels' launches per P step; the tiled step over 4 tiles on cuda:0
+  equal to the untiled step there.
 """
 
 import numpy as np
@@ -1069,3 +1073,51 @@ def test_cuda_stream_equals_cpu_stream_aq(dev, kw):
     assert LP.luma_p_encode.grid_launches > n0
     assert DB.deblock_frame.map_launches > m0
     assert got == run("cpu")
+
+
+@pytest.mark.parametrize("tail_kernel", [True, False])
+def test_multistream_cuda_equals_cpu(dev, tail_kernel):
+    """MultiEncoder at 128x96, two streams, IDR + 3 P steps: the streams
+    on cuda:0 equal the streams on the cpu, and each P step launched B1,
+    B9, B3, B4 and B5 once and the fused luma encode twice a stream."""
+    from video_steganography_pcamv_torch.encoder.multistream import (
+        MultiEncoder)
+    seqs = [synthetic_sequence(128, 96, 4, seed=20 + s) for s in range(2)]
+
+    def run(device):
+        p = Params(width=128, height=96, qp=27, me_range=8,
+                   stego=StegoParams(em_rate=12, key=5))
+        p.tail_kernel = tail_kernel
+        me = MultiEncoder(p, 2, devices=[device])
+        return [me.encode_step([sq[t] for sq in seqs]) for t in range(4)]
+
+    fns = (FP.fullpel_parts, PT.gather_windows8, PR.subpel, PR.probe_maps,
+           DB.deblock_frame, LP.luma_p_encode)
+    n0 = [f.launches for f in fns]
+    got = run(dev)
+    n = [f.launches - a for f, a in zip(fns, n0)]
+    # 3 P steps x 2 streams; B5 also deblocks the 2 IDRs
+    assert n == [6, 6, 6, 6, 8, 12]
+    assert got == run("cpu")
+
+
+def test_tiled_step_on_the_card_equals_untiled(dev):
+    """The tiled step over 4 tiles on cuda:0 equals the untiled
+    p_frame_step_parts on cuda:0 key by key (zero predictor), and 6
+    packed halos moved."""
+    from video_steganography_pcamv_torch.models import pipeline as TPL
+    from video_steganography_pcamv_torch.parallel import tile as TTL
+    f0, f1 = synthetic_sequence(96, 192, 2, seed=3)
+    planes = [torch.as_tensor(np.asarray(a, np.int32), device=dev)
+              for a in (f1.y, f1.u, f1.v, f0.y, f0.u, f0.v)]
+    prev = torch.zeros((12, 6, 2), dtype=torch.int32, device=dev)
+    kw = dict(qp=28, qpc=28, mbh=12, mbw=6, rng=8, lam=4)
+    TTL.halo_log.clear()
+    got = TTL.p_frame_step_tiled([dev] * 4, *planes, prev, **kw)
+    assert len(TTL.halo_log) == 6
+    ref = TMC.build_ref(*planes[3:])
+    want = TPL.p_frame_step_parts(*planes[:3], ref["luma"], ref["u"],
+                                  ref["v"], prev, **kw)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k

@@ -72,13 +72,14 @@ def _on_host(fn, out, *arrays):
     kept in the JAX caches (memory and disk), instead of again inside
     every program that calls it (the analyse tail's interpret-mode body
     takes ~40 s to lower and ~45 s to compile). The kernel, its arguments
-    and its integer results are the same."""
+    and its integer results are the same. Under `vmap` (the reference's
+    MultiEncoder) the callback runs once per stream."""
     def host(*a):
         # scalars back to Python numbers, as the direct callers pass them
         # (the same programs then serve both)
         a = [x.item() if np.ndim(x) == 0 else x for x in a]
         return jax.tree.map(np.asarray, fn(*a))
-    return jax.pure_callback(host, out, *arrays)
+    return jax.pure_callback(host, out, *arrays, vmap_method="sequential")
 
 
 def _i32(*shape):

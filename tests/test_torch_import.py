@@ -6,7 +6,9 @@ every `jax` and `video_steganography_pcamv_tpu` import and whose `open`
 refuses every path inside the JAX package; it imports every module of
 the port package and runs a tiny encode, decode and extraction, under
 CAVLC, under CABAC at the reference's default Params, with two
-reference frames, and with B frames (BASELINE config 4). A source scan
+reference frames, and with B frames (BASELINE config 4), then an IDR and
+a P step of a two-stream `MultiEncoder` and a tiled P step over two CPU
+tiles (`parallel.tile`). A source scan
 refuses any import of the JAX package in the port or in chip_smoke.py."""
 
 import ast
@@ -83,6 +85,29 @@ _BLOCKED_IMPORT = textwrap.dedent("""
         if p.ssim:
             closed = enc.close()
     assert closed["psnr_y"] < 99 and closed["ssim_y"] > 0
+
+    # the multi-stream and tile layers: an IDR and a P step of two
+    # streams, and a tiled P step over two CPU tiles
+    from video_steganography_pcamv_torch.encoder.multistream import (
+        MultiEncoder)
+    from video_steganography_pcamv_torch.parallel import tile
+    me = MultiEncoder(Params(width=32, height=32, qp=26, me_range=8,
+                             stego=StegoParams(em_rate=4, key=3)), 2,
+                      devices=["cpu"])
+    seqs = [synthetic_sequence(32, 32, 2, seed=s) for s in (1, 2)]
+    steps = [me.encode_step([sq[t] for sq in seqs]) for t in range(2)]
+    for s in range(2):
+        bs = steps[0][s] + steps[1][s]
+        assert len(decode_annexb(bs)) == 2
+        got = extract_from_stream(bs, em_rate=4, key=3)
+        sent = me.encs[s]._stego.sent_messages
+        assert len(got) == len(sent) == 1
+        assert np.array_equal(got[0], sent[0])
+    f0, f1 = synthetic_sequence(32, 96, 2, seed=4)
+    out = tile.p_frame_step_tiled(
+        ["cpu", "cpu"], f1.y, f1.u, f1.v, f0.y, f0.u, f0.v,
+        np.zeros((6, 2, 2), np.int32), qp=26, qpc=26, mbh=6, mbw=2)
+    assert len(tile.halo_log) == 2 and out["mv8"].shape == (12, 4, 2)
     assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
     print(len(names))
 """)

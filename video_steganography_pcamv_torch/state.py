@@ -22,7 +22,9 @@ display indices, from which the P list view is derived again.
 Adaptive quantization needs no field: the reference rebuilds its
 `_aq_grids` from each frame's source planes, and so does the port
 (`Encoder.aq_grids`). `load_state(port_encoder, state)` installs it, so the port can resume
-mid-stream, at a GOP boundary or inside a GOP. This module imports no
+mid-stream, at a GOP boundary or inside a GOP. `multi_from_reference` /
+`load_multi_state` do the same for a `MultiEncoder` between steps: each
+stream's state and the stacked references. This module imports no
 jax: it only reads attributes and converts arrays with `numpy.asarray`.
 """
 
@@ -163,3 +165,27 @@ def _load_bpipe(enc, b: dict, t) -> None:
     enc._last_anchor_fn = b["last_anchor_fn"]
     enc._reorder_next_p = b["reorder_next_p"]
     enc._direct_score = list(b["direct_score"])
+
+
+def multi_from_reference(me) -> dict:
+    """Snapshot of a reference `MultiEncoder` between steps: each
+    stream's `from_reference` and the stacked references [S, ...] (None
+    before the first step)."""
+    refs = None if me._refs is None else {
+        k: np.asarray(me._refs[k]) for k in _REF_KEYS}
+    return {"streams": [from_reference(e) for e in me.encs], "refs": refs}
+
+
+def load_multi_state(me, d: dict) -> None:
+    """Install a `multi_from_reference` snapshot into a port
+    `MultiEncoder`: each stream's state, then each stream's reference
+    rebuilt from its slice of the stacked ones."""
+    if len(d["streams"]) != me.S:
+        raise ValueError("a snapshot of %d streams for %d"
+                         % (len(d["streams"]), me.S))
+    for e, st in zip(me.encs, d["streams"]):
+        load_state(e, st)
+    me._refs = None if d["refs"] is None else [
+        {k: torch.as_tensor(np.array(d["refs"][k][s])).to(e.device,
+                                                           torch.int32)
+         for k in _REF_KEYS} for s, e in enumerate(me.encs)]
