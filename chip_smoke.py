@@ -190,7 +190,28 @@ Phases (any failure raises and the script exits non-zero):
  35. the multi-stream and tile layers at 128x96 (the tiled step at
      96x192), cuda == cpu: MultiEncoder on both tail_kernel settings and
      PipelinedMultiEncoder (streams), p_frame_step, p_frame_step_parts
-     and the tiled step on [cuda:0] * 4 (outputs).
+     and the tiled step on [cuda:0] * 4 (outputs);
+ 36. sub-8x8 partitions at full width: bench.py's Params with p4x4 at
+     1920x1088 on bench.py's clip with a 256x256 patch in its middle
+     whose 4x4 blocks move on their own (made with numpy from a seed),
+     IDR + 3 P (the unfused sub path; the third P frame with a device
+     sync around each stage, its stage times printed): exact
+     launches per P frame (B1's sub-unit instance once, the fused luma
+     encode for pass 1, the chosen offsets' probe, one probe batch per
+     slot that holds a unit and pass 2, B5 once a frame, no other
+     kernel), B5 on the second P frame's per-4x4 field array-equal to
+     its plain twin (in a worker), the share of P_8x8 MBs, the
+     sub_mb_type histogram and the internal 4x4 edges whose MVs differ,
+     decoded == recon and the payload (in a worker); P fps and the IDR's
+     seconds printed;
+ 37. sub-8x8 partitions at 128x96 on the same kind of clip, cuda == cpu
+     (the cpu halves in the workers): CABAC with trellis 1, ref_frames 2
+     (on the host deblock: the device deblock at more than one reference
+     is refused there, ROADMAP F10), and transform_8x8 with aq_mode 1.
+Phase 2 also holds B1's sub-unit instance (`pcamv_fullpel_sub`, the
+sub-8x8 analysis' search) against its plain version at 1080p shapes, rng
+16 with random and zero predictors, rng 20 and 7 with random ones,
+timed at rng 16.
 Phase 4 also holds B4 under the jvt inter list and deadzone 16 (timed
 beside the flat tables), phase 9 the fused luma encode's noise-reduction
 instance (qp 26 and 20, with force-zero, timed beside the plain DCT
@@ -199,7 +220,10 @@ residuals up to +-40000: the quant product leaves int32), and phase 17
 cqm jvt with the incremental re-encode, cqm jvt with transform_8x8, rd
 1, trellis 1 and CABAC, noise_reduction at ref_frames 2, and
 noise_reduction with B frames and the deadzones 16/8.
-Phase 3 also holds B5 with a fuzzed per-4x4 reference map (ref4), phase
+Phase 3 also holds B5 with a fuzzed per-4x4 reference map (ref4), and
+on per-4x4 motion fields that move inside 8x8 blocks (the sub-8x8
+path's), once with trans8 on the MBs without a sub split and once with
+a per-8x8 reference map, phase
 13 B9 on a stack of two references with a per-8x8 reference (ref8), and
 phase 17 the multi-reference streams at 112x80 (ref_frames 2 under
 CAVLC and CABAC, 3 with keyint_max 3 on the CPU branch, partitions
@@ -216,15 +240,16 @@ transform_8x8 and trellis, the main path with trellis 1 and with rd
 Phases 9 and 13 run right after phase 4, so that a new kernel that fails
 stops the run early; 17 runs after 14, 35, 32, 33 and 34 right after 6
 (so that their decode checks start early), then 18, 19, 20, 22, 24 and
-25, and 26, 27, 29, 30 and 31 after 25.
+25, and 26, 27, 29, 30, 31, 36 and 37 after 25.
 The decode checks of the full-width phases (6, 7, 11, 15, 19, 20, 22,
-24-27, 29-33: the port's CPU decoder, seconds a 1080p frame, and its
-extractor) run in four spawned worker processes while the later
+24-27, 29-33, 36: the port's CPU decoder, seconds a 1080p frame, and
+its extractor) run in four spawned worker processes while the later
 phases use the card; phase 28 waits for them, prints each one's result
 and fails if any failed. The same workers run the cpu halves of phases
-5, 14, 17 and 35 while the main process runs their cuda halves, the
-payload checks of these phases and of phase 10, and phase 3's plain
-twins of five 1080p cases.
+5, 14, 17, 35 and 37 (submitted beside 17's) while the main process
+runs their cuda halves,
+the payload checks of these phases and of phase 10, phase 3's plain
+twins of five 1080p cases and phase 36's plain B5 twin.
 Each phase logs its wall time. The line before the last two holds the
 per-kernel JSON record, then the card line; the last line is
 {"ok": true, "device": {...}}.
@@ -398,12 +423,123 @@ def phase_b1(dev, int_rate):
                   "ops/pallas_kernels.py:435", worst, ms, plain_ms, bnd)
 
 
-def _deblock_case(dev, g, mbh, mbw, trans8: bool, ref4: bool = False):
+# per MB and displacement beyond the SAD work: each of the 41 units'
+# cost, formed from the sixteen 4x4 sums and the MV cost, and its
+# running minimum
+SUB_UNIT_OPS = 41 * 2
+
+
+def phase_b1_sub(dev, int_rate):
+    """B1's sub-unit instance at 1080p shapes against its plain version:
+    rng 16 with random and zero predictors, rng 20 and 7 with random
+    ones; timed at rng 16 (the sub path's predictor is prev_mv >> 2, so
+    a random one)."""
+    from video_steganography_pcamv_torch.ops import fullpel as FP
+    from video_steganography_pcamv_torch.ops import mc
+    y0, y1 = sub_motion_clip(16 * MBW, 16 * MBH, 2, seed=3)
+    cur = torch.as_tensor(y1.y.astype(np.int32), device=dev)
+    ref = mc.pad_plane(torch.as_tensor(y0.y, device=dev))
+    rs = np.random.RandomState(12)
+    lam = 4
+    cases = [("random", 16, rs.randint(-12, 13, (MBH, MBW, 2))),
+             ("zero", 16, np.zeros((MBH, MBW, 2))),
+             ("random", 20, rs.randint(-24, 25, (MBH, MBW, 2))),
+             ("random", 7, rs.randint(-12, 13, (MBH, MBW, 2)))]
+    for name, rng, pr in cases:
+        pred = torch.as_tensor(pr.astype(np.int32), device=dev)
+        got = FP.fullpel_sub(cur, ref, pred, rng, MBH, MBW, lam)
+        want = FP.fullpel_search_sub(cur, ref, pred, rng, MBH, MBW, lam)
+        torch.cuda.synchronize()
+        if sorted(got) != sorted(want) or any(
+                not torch.equal(got[k], want[k]) for k in want):
+            raise AssertionError("B1 sub-unit instance != plain (%s "
+                                 "predictor, rng %d), max abs err %d"
+                                 % (name, rng, max_abs(
+                                     [got[k] for k in want], want.values())))
+        log("B1 sub-unit instance, %s predictor: kernel == plain at %dx%d "
+            "MBs, rng %d (41 units)" % (name, MBH, MBW, rng))
+    pred = torch.as_tensor(cases[0][2].astype(np.int32), device=dev)
+    rng = 16
+    ms = cuda_ms(lambda: FP.fullpel_sub(cur, ref, pred, rng, MBH, MBW, lam),
+                 reps=20, warmup=3)
+    plain_ms = cuda_ms(lambda: FP.fullpel_search_sub(
+        cur, ref, pred, rng, MBH, MBW, lam), reps=3)
+    b1_ms = cuda_ms(lambda: FP.fullpel_parts(cur, ref, pred, rng, MBH, MBW,
+                                             lam), reps=20, warmup=3)
+    # bytes: cur (int32) and the padded uint8 plane read once, the
+    # predictor read, 41 (cost, index) pairs written per MB. ops: the SAD
+    # work of search_ops plus SUB_UNIT_OPS per MB and displacement
+    n = MBH * MBW
+    nbytes = cur.numel() * 4 + ref.numel() + (2 * n + 82 * n) * 4
+    ops = search_ops(n, rng) + n * (2 * rng + 1) ** 2 * SUB_UNIT_OPS
+    bnd = bound(nbytes, ops, int_rate)
+    log("B1 sub-unit instance time: kernel %.4f ms, plain %.3f ms, bound "
+        "%.4f ms (%s); B1 (9 units) on the same inputs %.4f ms (median, "
+        "1080p, rng 16)" % (ms, plain_ms, *bnd, b1_ms))
+    rec = record("fullpel_sub", "fullpel.cu", "encoder/partition.py:896",
+                 0, ms, plain_ms, bnd)
+    rec["b1_same_inputs_ms"] = b1_ms
+    return rec
+
+
+def sub_motion_clip(w, h, n, seed):
+    """n frames whose 4x4 blocks move on their own (the moves cycle with
+    the block and the frame, the odd frames 10 brighter), over a smoothed
+    random texture with chroma noise: sub-8x8 splits win there; in the
+    right third each MB moves as a whole."""
+    from video_steganography_pcamv_torch.utils.yuv import Frame
+    rs = np.random.RandomState(seed)
+    big = rs.randint(30, 226, (h + 32, w + 32)).astype(np.int32)
+    big = (big + np.roll(big, 1, 0) + np.roll(big, 1, 1)) // 3
+    moves = np.array([(0, 1), (1, -1), (-1, 0), (2, 1), (0, -2), (-1, 2)])
+    jj, ii = np.meshgrid(np.arange(h // 4), np.arange(w // 4),
+                         indexing="ij")
+    r4 = np.arange(4)
+    frames = []
+    for k in range(n):
+        blk = np.where(ii >= w // 6, (jj // 4) * w + ii // 4,
+                       jj * (w // 4) + ii)
+        mv = moves[(blk + k) % len(moves)]
+        ys = (16 + 4 * jj + mv[..., 0])[:, :, None, None] + r4[:, None]
+        xs = (16 + 4 * ii + mv[..., 1])[:, :, None, None] + r4[None, :]
+        y = big[ys, xs].transpose(0, 2, 1, 3).reshape(h, w)
+        y = np.clip(y + 10 * (k % 2), 0, 255).astype(np.uint8)
+        frames.append(Frame(y, rs.randint(100, 156, (h // 2, w // 2))
+                            .astype(np.uint8),
+                            rs.randint(100, 156, (h // 2, w // 2))
+                            .astype(np.uint8)))
+    return frames
+
+
+def sub_patch_clip(w, h, n, seed, size=256):
+    """bench.py's clip (synthetic_sequence, seed 7) with a size x size
+    luma patch of `sub_motion_clip` in its middle (MB-aligned): sub-8x8
+    splits win there, while the frame's cover stays within what the STC
+    embeds 64 bits into (at most 2^(h-2) = 256 cover MVs a payload bit;
+    a frame split everywhere has ~15 a MB, and its frames then carry no
+    message, as in the reference)."""
+    from video_steganography_pcamv_torch.utils.yuv import (Frame,
+                                                           synthetic_sequence)
+    y0, x0 = (h // 2 - size // 2) // 16 * 16, (w // 2 - size // 2) // 16 * 16
+    out = []
+    for f, p in zip(synthetic_sequence(w, h, n, seed=7),
+                    sub_motion_clip(size, size, n, seed)):
+        y = f.y.copy()
+        y[y0:y0 + size, x0:x0 + size] = p.y
+        out.append(Frame(y, f.u, f.v))
+    return out
+
+
+def _deblock_case(dev, g, mbh, mbw, trans8: bool, ref4: bool = False,
+                  sub: bool = False):
     """Planes with MB-level steps and noise, fuzzed intra/skip/nnz/mv
     maps (mv constant over 8x8 blocks) and, optionally, trans8 and a
     per-8x8 reference map ref4 (then a quarter of the 8x8 blocks keep
     one MV and no residual, so that their edges differ only in the
-    reference)."""
+    reference). `sub`: half of the MBs are split below 8x8, their MVs
+    move per 4x4 by -5..5 quarter pels around their 8x8's (so that the
+    MV steps of edges inside an 8x8 straddle the bS threshold of 4),
+    and trans8 falls only on the MBs without a split."""
     H, W = 16 * mbh, 16 * mbw
     base = g.integers(60, 180, (mbh, mbw))
     y = np.clip(np.repeat(np.repeat(base, 16, 0), 16, 1)
@@ -424,6 +560,14 @@ def _deblock_case(dev, g, mbh, mbw, trans8: bool, ref4: bool = False):
                                    0), 2, 1)
         nnz4[calm] = 0
         mv4[calm] = 5
+    if sub:
+        split = g.random((mbh, mbw)) < 0.5
+        split4 = np.repeat(np.repeat(split, 4, 0), 4, 1)
+        mv4 = (mv4 + np.where(split4[..., None],
+                              g.integers(-5, 6, mv4.shape), 0)) \
+            .astype(np.int32)
+        if t8 is not None:
+            t8[split] = 0
     planes = [torch.as_tensor(a.astype(np.uint8), device=dev)
               for a in (y, u, v)]
     maps = [torch.as_tensor(np.ascontiguousarray(a), device=dev)
@@ -460,14 +604,18 @@ def phase_b5(dev, int_rate):
     reference map (the multi-reference path), timed too."""
     from video_steganography_pcamv_torch.ops import deblock as DB
     from video_steganography_pcamv_torch.ops.transform import chroma_qp
-    # name, MB rows and columns, qp, off_a, off_b, trans8 (, ref4)
+    # name, MB rows and columns, qp, off_a, off_b, trans8 (, ref4, sub)
     cases = [("qp 26", MBH, MBW, 26, 0, 0, False),
              ("qp 40", MBH, MBW, 40, 0, 0, False),
              ("qp 30, trans8 fuzzed", MBH, MBW, 30, 0, 0, True),
              ("qp 33, off_a +6, off_b -4, trans8", MBH, MBW, 33, 6, -4,
               True),
              ("qp 14 <= qp_thresh 15", MBH, MBW, 14, 0, 0, False),
-             ("qp 26, ref4 fuzzed", MBH, MBW, 26, 0, 0, False, True)]
+             ("qp 26, ref4 fuzzed", MBH, MBW, 26, 0, 0, False, True),
+             ("qp 26, per-4x4 mv, trans8 on the MBs without a split", MBH,
+              MBW, 26, 0, 0, True, False, True),
+             ("qp 30, per-4x4 mv, ref4 fuzzed", MBH, MBW, 30, 0, 0, False,
+              True, True)]
     wide = 1024
     resident = DB.resident_ctas(wide)
     cases.append(("%d MB rows > %d resident CTAs (%dx%d)"
@@ -476,10 +624,11 @@ def phase_b5(dev, int_rate):
                   True))
     errs = [0]     # the largest error of every case, here and deferred
     ms = plain_ms = ref4_ms = None
-    for i, (name, mbh, mbw, qp, off_a, off_b, t8, *r4) in enumerate(cases):
+    for i, (name, mbh, mbw, qp, off_a, off_b, t8, *extra) in enumerate(
+            cases):
         g = np.random.default_rng(100 + i)
         planes, maps, trans8, ref4 = _deblock_case(dev, g, mbh, mbw, t8,
-                                                   bool(r4))
+                                                   *extra)
         qpc = chroma_qp(qp)
         kw = dict(qp_thresh=15 - min(off_a, off_b), off_a=off_a,
                   off_b=off_b, trans8=trans8, ref4=ref4)
@@ -521,17 +670,18 @@ def phase_b5(dev, int_rate):
                 "uint8 in and out, one launch): kernel %.4f ms, plain "
                 "%.3f ms (median, 1080p)" % (ms, plain_ms))
         if ref4 is not None:
-            ref4_ms = cuda_ms(lambda: DB.deblock_frame(
-                *planes, *maps, qp, qpc, mbh, mbw, **kw), 20, 3)
+            if ref4_ms is None:
+                ref4_ms = cuda_ms(lambda: DB.deblock_frame(
+                    *planes, *maps, qp, qpc, mbh, mbw, **kw), 20, 3)
             flat = DB.deblock_frame(*planes, *maps, qp, qpc, mbh, mbw,
                                     **dict(kw, ref4=None))
             moved = int((flat[0] != got[0]).sum())
             if moved == 0:
                 raise AssertionError("B5 with ref4: no sample depends on "
                                      "the reference map")
-            log("B5 with ref4 time: kernel %.4f ms (median, 1080p); %d luma "
-                "samples differ from the same call without ref4"
-                % (ref4_ms, moved))
+            log("B5 with ref4 (%s) time: kernel %.4f ms (median, 1080p, "
+                "the first such case); %d luma samples differ from the same "
+                "call without ref4" % (name, ref4_ms, moved))
     # bytes: the three uint8 planes read and written once; the per-MB
     # intra/skip/trans8 and the per-4x4 nnz and mv maps (int32) and the
     # 456-entry table read once. ops: the edge parameters, ~40 int ops
@@ -2231,6 +2381,204 @@ def phase_aq(dev, card, bs6, n_frames: int = 4, w: int = 1920,
     return launches
 
 
+def _unit_slots(part, sub):
+    """The slots (of 16) that hold a unit in some MB of a sub-8x8 frame:
+    the probe batches `stego_costs_sub` launches."""
+    from video_steganography_pcamv_torch.encoder import partition as PT
+    uid = PT.unit_id_map(torch.as_tensor(part), torch.as_tensor(sub)) \
+        .numpy().reshape(-1, 16)
+    return int(sum((uid[:, s] == s).any() for s in range(16)))
+
+
+def _sub_stage_targets():
+    """(object, attribute) of every stage of a sub-8x8 P frame."""
+    from video_steganography_pcamv_torch import native
+    from video_steganography_pcamv_torch.encoder import core as CORE
+    from video_steganography_pcamv_torch.encoder import inter as INTER
+    from video_steganography_pcamv_torch.encoder import partition as PT
+    from video_steganography_pcamv_torch.encoder import scan as SCAN
+    from video_steganography_pcamv_torch.encoder import slicetype as ST
+    return [(ST.Lookahead, "decide"), (PT, "fullpel_sub"),
+            (PT, "decide_partition_sub"), (PT, "gather_windows4"),
+            (PT, "block_table4"), (PT, "wht4_table"), (PT, "subpel_sub"),
+            (INTER, "encode_p_frame_device4"), (SCAN, "scan_p_frame_sub"),
+            (PT, "stego_costs_sub"), (native, "stc_embed"),
+            (SCAN, "scan_p_frame_sub_forced"), (CORE, "deblock_frame"),
+            (native, "write_slice")]
+
+
+def phase_sub(dev, card, n_frames: int = 4, w: int = 1920, h: int = 1088):
+    """Phase 36: sub-8x8 partitions at full width (bench.py's Params with
+    p4x4) on `sub_patch_clip`, IDR + 3 P: the first two P frames timed
+    whole (P fps), the third with a device sync around each stage of
+    `_sub_stage_targets`. Exact launches per P frame; B5's call of the
+    last P frame held against its plain twin in a worker; decoded ==
+    recon and the payload in a worker. Returns the launches."""
+    from video_steganography_pcamv_torch import Encoder
+    from video_steganography_pcamv_torch.encoder import core
+    label = "%dx%d p4x4" % (w, h)
+    p = _params(w, h, True, p4x4=True)
+    frames = sub_patch_clip(w, h, n_frames, seed=21)
+    enc = Encoder(p, device=dev)
+    fns = _counters()
+    for fn in fns.values():
+        fn.launches = 0
+    # every patched attribute is restored from its value before any patch
+    saved = [(obj, name, getattr(obj, name))
+             for obj, name in _sub_stage_targets()]
+    calls = []
+    real = core.deblock_frame
+
+    def keep(*a, **kw):
+        calls.append((a, kw))
+        return real(*a, **kw)
+    stages, state = {}, {"on": False}
+    recon, per_frame, per_p, subs = {}, [], [], []
+    bs = b""
+    try:
+        for obj, name, fn in saved:
+            inner = keep if (obj, name) == (core, "deblock_frame") else fn
+            setattr(obj, name, _stage_wrapper(name, inner, stages, state))
+        for i, f in enumerate(frames):
+            state["on"] = i == len(frames) - 1
+            before = {k: fn.launches for k, fn in fns.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bs += enc.encode_frame(f)
+            torch.cuda.synchronize()
+            per_frame.append(time.perf_counter() - t0)
+            recon[i] = tuple(t.cpu().numpy() for t in enc.recon_prev)
+            if i:
+                per_p.append({k: fn.launches - before[k]
+                              for k, fn in fns.items()})
+                subs.append(enc.last_sub)
+        state["on"] = False
+        bs += enc.flush()
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+    n_p = enc.stats.p_frames
+    emb = [len(m) > 0 for m in enc._stego.sent_messages]
+    for i, (got, (part, sub)) in enumerate(zip(per_p, subs)):
+        want = {k: 0 for k in fns}
+        # pass 1, then on a frame that embeds the chosen offsets' probe,
+        # a probe batch per slot that holds a unit, and pass 2
+        want.update(fullpel_sub=1, deblock_frame=1, luma_p_encode=1 + (
+            2 + _unit_slots(part, sub) if emb[i] else 0))
+        if got != want:
+            raise AssertionError("%s: P frame %d launches %s, want %s"
+                                 % (label, i + 1, got, want))
+    if n_p != n_frames - 1 or not all(emb):
+        raise AssertionError("%s: %d P frames, embedding %s"
+                             % (label, n_p, emb))
+    part, sub = subs[-1]
+    p8 = part == 3
+    hist = np.bincount(sub[p8].reshape(-1), minlength=4)
+    # B5 of the last P frame: its per-4x4 field moves inside 8x8 blocks
+    a, kw = calls[-1]
+    mv4 = a[6].cpu().numpy().astype(np.int64)
+    # edges between 4x4 columns (rows) 0|1 and 2|3 of an MB: inside 8x8s
+    inner = (np.abs(np.diff(mv4, axis=1))[:, 0::2].max(-1) >= 4).sum() \
+        + (np.abs(np.diff(mv4, axis=0))[0::2].max(-1) >= 4).sum()
+    if inner == 0 or hist[1:].sum() == 0:
+        raise AssertionError("%s: no sub-8x8 split (%s) or no internal "
+                             "4x4 edge with a MV step (%d)"
+                             % (label, hist, inner))
+    got = [t.cpu() for t in real(*a, **kw)]
+    cpu = [t if not isinstance(t, torch.Tensor) else t.cpu() for t in a]
+    qps = cpu[7:9]
+    t8 = kw.get("trans8")
+    r4 = kw.get("ref4")
+
+    def check_b5(want):
+        want = [torch.as_tensor(x) for x in want]
+        if not all(torch.equal(x, y) for x, y in zip(got, want)):
+            raise AssertionError("%s: B5 kernel != plain on the sub field, "
+                                 "max abs err %d" % (label, max_abs(got,
+                                                                    want)))
+        log("%s: B5 kernel == plain on the last P frame's per-4x4 field "
+            "(%d internal 4x4 edges with a MV step of a pel or more; in a "
+            "worker)" % (label, inner))
+    _DEFERRED.append((_submit(
+        _b5_plain_job, cpu[:7] + [None if t8 is None else t8.cpu(),
+                                  None if r4 is None else r4.cpu()],
+        qps[0], qps[1], cpu[9], cpu[10],
+        {k: v for k, v in kw.items() if k not in ("trans8", "ref4")}),
+        check_b5))
+
+    def report(r):
+        bits, secs, differ, _kinds = r
+        if any(differ.values()):
+            raise AssertionError("%s: decoded frames differ from the recon:"
+                                 " %s" % (label, differ))
+        log("%s: %d payload bits recovered, every decoded frame == the "
+            "encoder's recon (decode + extraction %.1f s, in a worker)"
+            % (label, bits, secs))
+    _defer(report, bs, len(frames), enc._stego.sent_messages, recon)
+    log("%s: launches per P frame %s (B1's sub-unit instance 1, the luma "
+        "encode 2 + one probe batch per slot holding a unit + 1, B5 1); "
+        "IDR %.3f s; P frames %.4f fps (%s s); bytes %s; cover MVs %d, "
+        "payload bits %d; P_8x8 MBs %.1f%% of the last P frame, "
+        "sub_mb_type histogram (8x8, 8x4, 4x8, 4x4) %s  [%s]"
+        % (label, json.dumps([{k: v for k, v in d.items() if v}
+                              for d in per_p]),
+           per_frame[0], 2 / sum(per_frame[1:3]),
+           ", ".join("%.3f" % t for t in per_frame[1:3]), _frame_bytes(bs),
+           enc.stats.mv_covers, enc.stats.message_bits, 100.0 * p8.mean(),
+           hist.tolist(), card))
+    log("%s stage times of the last P frame, ms, a device sync around "
+        "each stage (the frame %.3f s with the syncs): %s  [%s]"
+        % (label, per_frame[-1], json.dumps({k: round(1e3 * v, 3) for k, v in
+                                             sorted(stages.items(),
+                                                    key=lambda kv: -kv[1])}),
+           card))
+    return {k: sum(d[k] for d in per_p) for k in fns}
+
+
+_SUB_SMALL = {"cabac_trellis": dict(cabac=True, trellis=1),
+              "ref2": dict(ref_frames=2, deblock_device=False),
+              "trans8_aq": dict(transform_8x8=True, aq_mode=1)}
+
+
+def _sub_params(w, h, kw):
+    return _params(w, h, True, me_range=4, p4x4=True, em_rate=24, **kw)
+
+
+def _cpu_sub_job(w, h, n_frames, kw):
+    """The cpu half of a phase-37 case, in a worker."""
+    return _encode(_sub_params(w, h, kw),
+                   sub_motion_clip(w, h, n_frames, seed=31), "cpu")[1]
+
+
+SUB_SMALL_SHAPE = (128, 96, 5)
+
+
+def submit_small_sub():
+    """The cpu halves of phase 37, submitted to the workers early in the
+    run (beside the other small phases'), so that phase 37 does not wait
+    behind the full-width phases' decode checks."""
+    return {k: _submit(_cpu_sub_job, *SUB_SMALL_SHAPE, kw)
+            for k, kw in _SUB_SMALL.items()}
+
+
+def phase_small_sub(dev, jobs):
+    """Phase 37: sub-8x8 partitions at 128x96 on `sub_motion_clip`, cuda ==
+    cpu (`jobs`: the cpu halves from `submit_small_sub`)."""
+    w, h, n_frames = SUB_SMALL_SHAPE
+    frames = sub_motion_clip(w, h, n_frames, seed=31)
+    for k, kw in _SUB_SMALL.items():
+        enc_g, bs_g = _encode(_sub_params(w, h, kw), frames, dev)
+        bs_c = jobs[k].result()
+        if bs_g != bs_c:
+            raise AssertionError("%dx%d p4x4 %s: cuda (%d B) != cpu (%d B)"
+                                 % (w, h, k, len(bs_g), len(bs_c)))
+        part, sub = enc_g.last_sub
+        log("%dx%d x%d p4x4 %s: cuda stream == cpu stream (%d bytes; the "
+            "last P frame %d P_8x8 MBs, %d sub-8x8 blocks)"
+            % (w, h, n_frames, k, len(bs_g), int((part == 3).sum()),
+               int((sub > 0).sum())))
+
+
 # tools/bench_streams.py's Params (BASELINE config 5's serving setup)
 STREAMS_KW = dict(qp=26, me_range=16, keyint_max=250, scenecut_threshold=0,
                   psnr=False, deblock_device=True)
@@ -2867,7 +3215,8 @@ def _counters():
     from video_steganography_pcamv_torch.ops import lumap as LP
     from video_steganography_pcamv_torch.ops import probe as PR
     from video_steganography_pcamv_torch.ops import tq4 as TQ
-    return {"fullpel_parts": FP.fullpel_parts, "qpel_tables": PR.qpel_tables,
+    return {"fullpel_parts": FP.fullpel_parts, "fullpel_sub": FP.fullpel_sub,
+            "qpel_tables": PR.qpel_tables,
             "subpel": PR.subpel, "probe_maps": PR.probe_maps,
             "deblock_frame": deblock_frame,
             "fullpel_search16": FP.fullpel_search16,
@@ -2980,7 +3329,28 @@ def phase_main(dev, card, tail_kernel: bool, n_frames: int,
 # the P encodes that serve both passes: pass 1 passes no force_zero,
 # pass 2 always does, so each pass gets a stage row of its own
 _BY_PASS = ("encode_p_frame_device8", "encode_p_frame_device",
-            "encode_p_frame_device8_mref")
+            "encode_p_frame_device8_mref", "encode_p_frame_device4")
+
+
+def _stage_wrapper(name, fn, frame, state):
+    """fn timed while state["on"]: a device sync on each side, the
+    seconds added to frame[name] (the encodes of `_BY_PASS` by pass)."""
+    def wrap(*a, **kw):
+        if not state["on"]:
+            return fn(*a, **kw)
+        key = name
+        if name in _BY_PASS:
+            key += " pass %d" % (1 if kw.get("force_zero") is None else 2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        frame[key] = frame.get(key, 0.0) + time.perf_counter() - t0
+        return out
+    # a kernel wrapper counts its launches on the name it is called by,
+    # which is now this one
+    wrap.launches = 0
+    return wrap
 
 
 def _stage_targets(partitions: bool, mref: bool = False):
@@ -3041,23 +3411,7 @@ def phase_stages(dev, card, n_frames: int = 7, partitions: bool = True,
     state = {"on": False}
 
     def timed(name, fn):
-        def wrap(*a, **kw):
-            if not state["on"]:
-                return fn(*a, **kw)
-            key = name
-            if name in _BY_PASS:
-                key += " pass %d" % (1 if kw.get("force_zero") is None
-                                     else 2)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*a, **kw)
-            torch.cuda.synchronize()
-            frame[key] = frame.get(key, 0.0) + time.perf_counter() - t0
-            return out
-        # a kernel wrapper counts its launches on the name it is called
-        # by, which is now this one
-        wrap.launches = 0
-        return wrap
+        return _stage_wrapper(name, fn, frame, state)
 
     saved = [(obj, name, getattr(obj, name)) for obj, name in targets]
     w, h = (1280, 720) if config3 else (1920, 1088)
@@ -3312,12 +3666,14 @@ def main() -> int:
     log("int32 peak %.3e ops/s (132 SMs x 64 lanes x max SM clock)"
         % int_rate)
     recs = [phase("2 B1", phase_b1, dev, int_rate),
+            phase("2 B1 sub-unit instance", phase_b1_sub, dev, int_rate),
             phase("3 B5", phase_b5, dev, int_rate)]
     recs += phase("4 B2-B4", phase_tail, dev, int_rate)
     recs9 = phase("13 B9-B10", phase_b9b10, dev, int_rate)
     recs16 = phase("9 B6-B8", phase_b678, dev, int_rate)
     phase("5 112x80", phase_small, dev)
     phase("14 128x96 config 3", phase_small8, dev)
+    sub_jobs = submit_small_sub()
     phase("17 112x80 CABAC, default Params", phase_small_cabac, dev)
     launches, bs6, enc6 = phase("6 main path", phase_main, dev, card,
                                 tail_kernel=True, n_frames=5, phase_id="6")
@@ -3344,6 +3700,8 @@ def main() -> int:
     launches30 = phase("30 1080p cqm jvt, deadzones, nr", phase_quant, dev,
                        card, bs6)
     launches31 = phase("31 1080p aq_mode 1", phase_aq, dev, card, bs6)
+    launches36 = phase("36 1080p p4x4", phase_sub, dev, card)
+    phase("37 128x96 p4x4", phase_small_sub, dev, sub_jobs)
     if args.stagesB:
         phase("23 config-4 B-frame stages", phase_stages_b, dev, card)
         phase("23 phase-26 B-frame stages", phase_stages_b, dev, card,
@@ -3368,7 +3726,8 @@ def main() -> int:
     if launches8["gather_windows8"] < 1:
         raise AssertionError("config 3 did not launch B9")
     for r in recs + recs9:
-        r["launches"] = launches[r["name"]]
+        # the sub-unit instance runs on phase 36's path only
+        r["launches"] = launches[r["name"]] or launches36[r["name"]]
     for r in recs16:
         # the main path's count where the kernel runs there (the fused
         # luma encode), else the 16x16 path's (B6, B7), phase 29's for the

@@ -912,7 +912,9 @@ def test_check_slice_accepts_trans8_rd_and_trellis_with_b_frames(
 
 
 @pytest.mark.parametrize("kw,name", [
-    (dict(p4x4=True), "p4x4 (ROADMAP A16)"),
+    # sub-8x8 partitions are served with B frames, but not at more than
+    # one reference under the device deblock (ROADMAP F10)
+    (dict(p4x4=True), "ROADMAP F10"),
     # adaptive quantization is served with B frames: zones, its A16
     # neighbour, stays refused beside it
     (dict(aq_mode=1, zones="0,9,q=30"), "zones (ROADMAP A16)"),

@@ -71,7 +71,15 @@ its own:  python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
 - the multi-stream layer: MultiEncoder's two streams at 128x96 on cuda
   equal to the cpu streams on both tail_kernel settings, with the
   kernels' launches per P step; the tiled step over 4 tiles on cuda:0
-  equal to the untiled step there.
+  equal to the untiled step there;
+- sub-8x8 partitions: B1's sub-unit instance (`pcamv_fullpel_sub`) vs
+  its plain version on an odd MB grid at rng 4, 16 and 20 (random
+  predictors, predictors at the window's corners, flat content, the
+  largest lam), and cuda == cpu streams with p4x4 at 96x64 on 4x4-moving
+  content (CAVLC; CABAC with trellis; ref_frames 2; ref_frames 3 with CABAC,
+  both on the host deblock (ROADMAP F10); transform_8x8 with
+  aq_mode 1; bframes 2), with the sub instance, the fused luma encode and
+  B5 launched on the path.
 """
 
 import numpy as np
@@ -1121,3 +1129,81 @@ def test_tiled_step_on_the_card_equals_untiled(dev):
     assert sorted(got) == sorted(want)
     for k in want:
         assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("rng", [4, 16, 20])
+@pytest.mark.parametrize("case", ["random", "corner", "flat", "max_lam"])
+def test_fullpel_sub_kernel_matches_plain(dev, case, rng):
+    """B1's sub-unit instance on an odd 5x7 MB grid: random predictors,
+    predictors at the corners of the window (every unit's MV cost
+    extreme), flat content (every displacement ties) and the largest lam
+    its 32-bit keys admit."""
+    mbh, mbw = 5, 7
+    cur, ref = _search_inputs(dev, mbh, mbw, case == "flat", rng + 3)
+    rs = np.random.RandomState(rng)
+    if case == "corner":
+        pr = rs.choice([-rng, rng], (mbh, mbw, 2))
+    else:
+        pr = rs.randint(-rng - 4, rng + 5, (mbh, mbw, 2))
+    pred = torch.as_tensor(pr.astype(np.int32), device=dev)
+    lam = FP.max_lam(rng) if case == "max_lam" else 4
+    n0 = FP.fullpel_sub.launches
+    got = FP.fullpel_sub(cur, ref, pred, rng, mbh, mbw, lam)
+    assert FP.fullpel_sub.launches == n0 + 1
+    want = FP.fullpel_search_sub(cur, ref, pred, rng, mbh, mbw, lam)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+def _sub_frames(n, seed):
+    """96x64 frames whose 4x4 blocks move on their own (sub splits win;
+    in the right third whole MBs move), the odd ones 10 brighter."""
+    W, H = 96, 64
+    r = np.random.RandomState(seed)
+    big = r.randint(30, 226, (H + 32, W + 32)).astype(np.int32)
+    big = (big + np.roll(big, 1, 0) + np.roll(big, 1, 1)) // 3
+    moves = [(0, 1), (1, -1), (-1, 0), (2, 1), (0, -2), (-1, 2)]
+    frames = []
+    for k in range(n):
+        y = np.zeros((H, W), np.int32)
+        for j in range(H // 4):
+            for i in range(W // 4):
+                b = ((j // 4) * W + i // 4 if i >= W // 6
+                     else j * (W // 4) + i)
+                dy, dx = moves[(b + k) % 6]
+                y[4 * j:4 * j + 4, 4 * i:4 * i + 4] = \
+                    big[16 + 4 * j + dy:20 + 4 * j + dy,
+                        16 + 4 * i + dx:20 + 4 * i + dx]
+        y = np.clip(y + 10 * (k % 2), 0, 255).astype(np.uint8)
+        frames.append(Frame(y, r.randint(100, 156, (H // 2, W // 2))
+                            .astype(np.uint8),
+                            r.randint(100, 156, (H // 2, W // 2))
+                            .astype(np.uint8)))
+    return frames
+
+
+@pytest.mark.parametrize("kw", [
+    dict(), dict(cabac=True, trellis=1), dict(ref_frames=2),
+    dict(ref_frames=3, cabac=True),
+    dict(transform_8x8=True, aq_mode=1), dict(bframes=2, b_adapt=0)],
+    ids=["cavlc", "cabac_trellis", "ref2", "ref3_cabac",
+         "trans8_aq", "bframes2"])
+def test_cuda_stream_equals_cpu_stream_p4x4(dev, kw):
+    """Sub-8x8 partitions at 96x64, me_range 4: cuda == cpu streams, with
+    the sub instance, the fused luma encode and B5 on the card."""
+    frames = _sub_frames(5, 11)
+
+    def run(device):
+        enc = Encoder(Params(width=96, height=64, qp=26, me_range=4,
+                             p4x4=True, stego=StegoParams(em_rate=24, key=77),
+                             **kw), device=device)
+        return b"".join(enc.encode_frame(f) for f in frames) + enc.flush()
+
+    n0, l0, d0 = (FP.fullpel_sub.launches, LP.luma_p_encode.launches,
+                  DB.deblock_frame.launches)
+    got = run(dev)
+    assert FP.fullpel_sub.launches > n0
+    assert LP.luma_p_encode.launches > l0
+    assert DB.deblock_frame.launches > d0
+    assert got == run("cpu")

@@ -24,6 +24,7 @@ import torch
 
 from video_steganography_pcamv_tpu.decoder import decode_annexb as j_decode
 from video_steganography_pcamv_tpu.encoder.core import Encoder as JEncoder
+from video_steganography_pcamv_tpu.ops import cqm
 from video_steganography_pcamv_tpu.ops import deblock_jax
 from video_steganography_pcamv_tpu.ops import deblock_pallas
 from video_steganography_pcamv_tpu.ops import pallas_kernels
@@ -86,14 +87,75 @@ def _i32(*shape):
     return jax.ShapeDtypeStruct(shape, np.int32)
 
 
+# the reference's interpret-mode kernels, taken before any test patches
+# them
+_FULLPEL = pallas_kernels.fullpel_parts_pallas
+_TAIL = probe_pallas.analyse_tail_pallas
+_COMPILED = {}
+
+
+def _sig(a):
+    return type(a) if isinstance(a, (bool, int, float)) else (
+        tuple(np.shape(a)), str(a.dtype))
+
+
+def _cqm_key():
+    """The reference's process-wide quant tables (a trace bakes them in:
+    `ops/cqm.set_cqm` clears the caches when they change)."""
+    return tuple((k, v if v is None or isinstance(v, int) else
+                  np.asarray(v).tobytes())
+                 for k, v in sorted(cqm._active.items()))
+
+
+def compiled(fn, args, **static):
+    """fn(*args, **static) through an executable lowered and compiled once
+    per (fn, static values, argument shapes and dtypes, the reference's
+    quant tables) in this process. The conftest's `jax.clear_caches()`
+    after each module drops the jit caches but not these executables, so
+    the test modules of one process that run an interpret-mode kernel at
+    one shape and one set of tables share one trace, lowering and compile
+    of it (the analyse tail's take ~90 s). The kernels are integer, so
+    the results are the eager call's."""
+    key = (fn, tuple(sorted(static.items())), tuple(_sig(a) for a in args),
+           _cqm_key())
+    exe = _COMPILED.get(key)
+    if exe is None:
+        exe = _COMPILED[key] = jax.jit(
+            fn, static_argnames=tuple(static)).lower(*args, **static).compile()
+    return exe(*args)
+
+
+def _fullpel_interpret(y, ref, lam, rng, mbh, mbw):
+    return _FULLPEL(y, ref, rng, mbh, mbw, lam, interpret=True)
+
+
+def _tail_interpret(y, windows, part, mvfp8, prev_mv, lam, qp, mbh, mbw,
+                    **kw):
+    return _TAIL(y, windows, part, mvfp8, prev_mv, lam, qp, mbh, mbw,
+                 interpret=True, **kw)
+
+
+def fullpel_interpret(y, ref, rng, mbh, mbw, lam=1):
+    """The reference's B1 (`fullpel_parts_pallas`) in interpret mode,
+    compiled once a shape in this process (`compiled`)."""
+    return compiled(_fullpel_interpret, (y, ref, lam), rng=rng, mbh=mbh,
+                    mbw=mbw)
+
+
+def tail_interpret(y, windows, part, mvfp8, prev_mv, lam, qp, mbh, mbw,
+                   **kw):
+    """The reference's analyse tail (`analyse_tail_pallas`) in interpret
+    mode, compiled once a shape in this process (`compiled`)."""
+    return compiled(_tail_interpret, (y, windows, part, mvfp8, prev_mv, lam,
+                                      qp), mbh=mbh, mbw=mbw, **kw)
+
+
 @pytest.fixture
 def reference_accel(monkeypatch):
     """Puts the JAX Encoder on its accelerator branch; counts the calls
     of the patched kernel entries (B1 and the analyse tail in interpret
     mode, each traced as a host callback: `_on_host`)."""
     calls = {"fullpel": 0, "tail": 0}
-    orig_fp = pallas_kernels.fullpel_parts_pallas
-    orig_tail = probe_pallas.analyse_tail_pallas
 
     def fullpel(y, ref, rng, mbh, mbw, lam=1):
         # fullpel_search_parts' st dict (the kernel's docstring)
@@ -101,8 +163,8 @@ def reference_accel(monkeypatch):
                "c16x8": _i32(mbh, mbw, 2), "mv16x8": _i32(mbh, mbw, 2, 2),
                "c8x16": _i32(mbh, mbw, 2), "mv8x16": _i32(mbh, mbw, 2, 2),
                "c8": _i32(mbh, mbw, 4), "mv8": _i32(mbh, mbw, 4, 2)}
-        return _on_host(lambda yy, rr, ll: orig_fp(
-            yy, rr, rng, mbh, mbw, ll, interpret=True), out, y, ref, lam)
+        return _on_host(lambda yy, rr, ll: fullpel_interpret(
+            yy, rr, rng, mbh, mbw, ll), out, y, ref, lam)
 
     class _Fullpel:
         @staticmethod
@@ -115,8 +177,7 @@ def reference_accel(monkeypatch):
         n = mbh * mbw
         out = (_i32(2 * mbh, 2 * mbw, 2), _i32(4 * n), _i32(13, 9, n, 4),
                _i32(13, 9, n, 4), _i32(13, n, 4))
-        return _on_host(lambda *a: orig_tail(*a, mbh, mbw, interpret=True,
-                                             **kw),
+        return _on_host(lambda *a: tail_interpret(*a, mbh, mbw, **kw),
                         out, y, windows, part, mvfp8, prev_mv, lam, qp)
 
     monkeypatch.setattr(jax, "default_backend", lambda: "tpu")

@@ -225,10 +225,13 @@ def test_encoder_defaults_to_cuda():
 
 
 # adaptive quantization is served (the "aq_mode" rows check that zones,
-# its A16 neighbour, stays refused beside it)
+# its A16 neighbour, stays refused beside it); so are sub-8x8 partitions,
+# but not with more than one reference under the device deblock (the
+# "p4x4" rows: ROADMAP F10)
 _REFUSED = [
-    dict(p4x4=True),
-    dict(ref_frames=2, p4x4=True),
+    pytest.param(dict(p4x4=True, ref_frames=2), id="p4x4"),
+    pytest.param(dict(ref_frames=8, p4x4=True, cabac=True, bframes=2,
+                      b_adapt=0), id="ref_frames,p4x4"),
     dict(ref_frames=2, aq_mode=1, zones="0,5,q=30"),
     dict(me_range=24),
     dict(aq_mode=1, zones="0,5,q=30"),
@@ -241,9 +244,8 @@ _REFUSED = [
 ]
 
 
-@pytest.mark.parametrize("kw", _REFUSED, ids=[
-    ",".join(k for k in kw if k != "zones" or "aq_mode" not in kw)
-    for kw in _REFUSED])
+@pytest.mark.parametrize("kw", _REFUSED, ids=lambda kw: ",".join(
+    k for k in kw if k != "zones" or "aq_mode" not in kw))
 def test_encoder_rejects_options_outside_the_slice(kw):
     from video_steganography_pcamv_torch import Encoder
     with pytest.raises(NotImplementedError):

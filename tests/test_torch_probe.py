@@ -1,8 +1,11 @@
 """The port's analyse tail (ops/probe.py) vs the JAX reference's TPU
 kernels run in interpret mode: the plain B2 tables against
 `qpel_tables_pallas`, the plain `analyse_tail` (B2 -> B3 -> B4) against
-`analyse_tail_pallas`, and `probe_combine` on the port's maps against
-the reference's `stego_costs_parts`. Every comparison is exact."""
+`analyse_tail_pallas` (at 112x80, the size whose interpret-mode
+compile tests/test_torch_encoder_accel.py's `tail_interpret` shares
+across the modules of a process), and `probe_combine` on the port's
+maps against the reference's `stego_costs_parts`. Every comparison is
+exact."""
 
 import numpy as np
 import pytest
@@ -14,11 +17,13 @@ from video_steganography_pcamv_tpu.encoder import me as JME
 from video_steganography_pcamv_tpu.encoder import partition as JPT
 from video_steganography_pcamv_tpu.ops import mc as JMC
 from video_steganography_pcamv_tpu.ops.probe_pallas import (
-    analyse_tail_pallas, qpel_tables_pallas)
+    qpel_tables_pallas)
 from video_steganography_pcamv_tpu.stego.cost import cost_mv_table
 
 from video_steganography_pcamv_torch.encoder import partition as TPT
 from video_steganography_pcamv_torch.ops import probe as TPR
+
+from test_torch_encoder_accel import tail_interpret
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -89,17 +94,16 @@ def _setup(seed, mbh, mbw, flat=False):
     (1, 38, True, False), (2, 26, False, False), (3, 26, True, True)],
     ids=["s0-q26", "s1-q26", "s0-q38", "s1-q38", "nodecimate", "flat"])
 def test_analyse_tail_plain_matches_pallas(seed, qp, decimate, flat):
-    mbh, mbw = 2, 3
+    mbh, mbw = 5, 7
     cur, windows, part, mvfp8, prev_mv = _setup(seed, mbh, mbw, flat)
     lam = JME.lambda_tab(qp)
     # `decimate` is static in the reference, so each setting is a trace
     # of its own; with it off, the reference's probe kernel writes the
     # same SK, SP = SK and sc8 = 0 (probe_pallas.py:470-476), so the
     # decimate-off result is held against the decimate-on trace
-    want = analyse_tail_pallas(
+    want = tail_interpret(
         jnp.asarray(cur), windows, jnp.asarray(part), jnp.asarray(mvfp8),
-        jnp.asarray(prev_mv), lam, qp, mbh, mbw, decimate=True,
-        interpret=True)
+        jnp.asarray(prev_mv), lam, qp, mbh, mbw, decimate=True)
     if not decimate:
         mv8, r_idx8, SK, _SP, sc8 = want
         want = (mv8, r_idx8, SK, SK, jnp.zeros_like(sc8))

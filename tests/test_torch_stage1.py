@@ -22,10 +22,6 @@ from video_steganography_pcamv_tpu.encoder import slicetype as JST
 from video_steganography_pcamv_tpu.encoder.core import Encoder as JEncoder
 from video_steganography_pcamv_tpu.encoder.me import lambda_tab
 from video_steganography_pcamv_tpu.encoder.scan_device import _scan_p_device
-from video_steganography_pcamv_tpu.ops.pallas_kernels import (
-    fullpel_parts_pallas)
-from video_steganography_pcamv_tpu.ops.probe_pallas import (
-    analyse_tail_pallas)
 from video_steganography_pcamv_tpu.ops.transform import chroma_qp
 from video_steganography_pcamv_tpu.params import Params, StegoParams
 from video_steganography_pcamv_tpu.stego.cost import cost_mv_table
@@ -39,6 +35,8 @@ from video_steganography_pcamv_torch.encoder import slicetype as TST
 from video_steganography_pcamv_torch.params import Params as TParams
 from video_steganography_pcamv_torch.params import StegoParams as TStegoParams
 from video_steganography_pcamv_torch.state import from_reference
+
+from test_torch_encoder_accel import fullpel_interpret, tail_interpret
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -191,17 +189,17 @@ def test_lean_pack_equal(stage1):
 def _accel_reference(y, u, v, ref, prev_mv, qp, qpc, lam, cost_mv, extra):
     """The reference's TPU branch of p_stage1_stego
     (encoder/partition.py:1448-1504), composed with the Pallas kernels
-    in interpret mode; the pass-1 encode keeps its levels
-    (cbp_only=False) as the serving path's full_pass1 does."""
+    in interpret mode (each compiled once a shape in this process:
+    tests/test_torch_encoder_accel.py's `compiled`); the pass-1 encode
+    keeps its levels (cbp_only=False) as the serving path's full_pass1
+    does."""
     rng = 16
-    st = fullpel_parts_pallas(y, ref["luma"][0], rng, MBH, MBW, lam,
-                              interpret=True)
+    st = fullpel_interpret(y, ref["luma"][0], rng, MBH, MBW, lam)
     part, mvfp8 = JPT.decide_partition.__wrapped__(st, MBH, MBW, lam)
     windows = JPT.gather_windows8_mm(ref["luma"].astype(jnp.uint8), mvfp8,
                                      MBH, MBW, rng).astype(jnp.uint8)
-    mv8, _r, SK, SP, sc8 = analyse_tail_pallas(
-        y, windows, part, mvfp8, prev_mv, lam, qp, MBH, MBW, decimate=True,
-        interpret=True)
+    mv8, _r, SK, SP, sc8 = tail_interpret(
+        y, windows, part, mvfp8, prev_mv, lam, qp, MBH, MBW, decimate=True)
     res = JINTER.encode_p_frame_device8.__wrapped__(
         y, u, v, ref["luma"], ref["u"], ref["v"], mv8, qp, qpc, MBH, MBW,
         True, None, False, None, cbp_only=False, mv_bound=rng + 2)

@@ -1,5 +1,7 @@
-// Full-pel motion search (Hopper, sm_90a): two entry points over one
-// kernel template, as packed-byte SAD.
+// Full-pel motion search (Hopper, sm_90a), as packed-byte SAD: two
+// entry points over one kernel template and a third, sub-8x8 kernel;
+// the two kernels share their staging of the MB and the window and
+// their two-level minimum (the device helpers below).
 //
 // pcamv_fullpel_parts replaces the TPU kernel fullpel_parts_pallas
 // (video_steganography_pcamv_tpu/ops/pallas_kernels.py:435, kernels
@@ -9,6 +11,16 @@
 // (16x16; 16x8 top/bottom; 8x16 left/right; 8x8 x4 in z-order),
 //   cost = unit SAD + lam * (bits(4dx - 4pmx) + bits(4dy - 4pmy))
 // against the MB's full-pel predictor (pmx, pmy).
+//
+// pcamv_fullpel_sub serves the sub-8x8 analysis' search
+// (video_steganography_pcamv_tpu/encoder/partition.py:896,
+// fullpel_search_sub, plain jnp in the reference: no TPU kernel). It
+// keeps the sixteen 4x4 SADs of every displacement and forms 41 units:
+// B1's 9, then per 8x8 block (z-order) its two 8x4 (top, bottom), its
+// two 4x8 (left, right) and its four 4x4 (z-order), each against the
+// MB's predictor as above. Its CTA walks its (dx group, dy) items in a
+// loop (one dy an item, at most 256 threads), so that the 64 sums of an
+// item and the 41 running minima stay in registers.
 //
 // pcamv_fullpel_search16 replaces the TPU kernel fullpel_search_pallas
 // (pallas_kernels.py:549, kernel _fullpel_kernel :42): the 16x16 unit
@@ -67,6 +79,75 @@ __device__ __forceinline__ unsigned sad4(unsigned a, unsigned b,
   return d;
 }
 
+// The MB (my, mx) of cur packed to bytes: s_cur[r] holds its row r as
+// four words of four pixels.
+__device__ __forceinline__ void stage_cur(const int* __restrict__ cur,
+                                          int cur_w, int my, int mx,
+                                          uint4* s_cur) {
+  for (int t = threadIdx.x; t < 64; t += blockDim.x) {
+    const int4 v = *reinterpret_cast<const int4*>(
+        cur + (16 * my + (t >> 2)) * cur_w + 16 * mx + 4 * (t & 3));
+    reinterpret_cast<unsigned*>(s_cur)[t] =
+        static_cast<unsigned>(v.x) | static_cast<unsigned>(v.y) << 8 |
+        static_cast<unsigned>(v.z) << 16 | static_cast<unsigned>(v.w) << 24;
+  }
+}
+
+// The search window of the MB, rows x nw words: word k of row r holds
+// columns 4k..4k+3 of the window at (wy0, wx0). Rows past ws - 1 and
+// words past column ws - 1 only feed dy or dx >= side, whose results
+// are dropped, and are written as 0. Aligned 32-bit loads (rows start
+// 4-aligned): the word after is read only when one of its bytes is a
+// used column, and then it lies inside the row.
+__device__ __forceinline__ void stage_window(const uint8_t* __restrict__ ref,
+                                             int ref_w, int wy0, int wx0,
+                                             int ws, int rows, int nw,
+                                             unsigned* s_win) {
+  for (int t = threadIdx.x; t < rows * nw; t += blockDim.x) {
+    const int r = t / nw;
+    const int k = t - r * nw;
+    unsigned word = 0;
+    if (4 * k < ws && r < ws) {
+      const uint8_t* p = ref + static_cast<size_t>(wy0 + r) * ref_w + wx0 +
+                         4 * k;
+      const int sh = static_cast<int>(reinterpret_cast<uintptr_t>(p) & 3);
+      const unsigned* a = reinterpret_cast<const unsigned*>(p - sh);
+      const unsigned lo = __ldg(a);
+      const unsigned hi = (sh != 0 && 4 * k + 4 - sh < ws) ? __ldg(a + 1)
+                                                           : 0u;
+      word = __funnelshift_r(lo, hi, 8 * sh);
+    }
+    s_win[t] = word;
+  }
+}
+
+// First level of the CTA's minimum of every unit's key: each warp's
+// minimum by shuffles into s_red[warp * kU + u], then a barrier.
+template <int kU>
+__device__ __forceinline__ void warp_mins(const unsigned (&best)[kU],
+                                          unsigned* s_red) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int u = 0; u < kU; ++u) {
+    unsigned v = best[u];
+    for (int o = 16; o > 0; o >>= 1) {
+      v = min(v, __shfl_down_sync(0xffffffffu, v, o));
+    }
+    if (lane == 0) s_red[warp * kU + u] = v;
+  }
+  __syncthreads();
+}
+
+// Second level: the CTA's minimum key of unit u over the warps' minima.
+template <int kU>
+__device__ __forceinline__ unsigned cta_min(const unsigned* s_red, int u) {
+  unsigned v = ~0u;
+  const int n_warps = blockDim.x >> 5;
+  for (int w = 0; w < n_warps; ++w) v = min(v, s_red[w * kU + u]);
+  return v;
+}
+
 // kUnits 9: all partition units, out_a = cost [n, 9], out_b = scan
 // index [n, 9]. kUnits 1: the 16x16 unit, out_a = mv [n, 2] (x, y),
 // out_b = cost [n]. pred == nullptr is the zero predictor.
@@ -93,36 +174,9 @@ __global__ void fullpel_kernel(
   const int mx = mb - my * mbw;
   const int tid = threadIdx.x;
 
-  for (int t = tid; t < 64; t += blockDim.x) {
-    const int4 v = *reinterpret_cast<const int4*>(
-        cur + (16 * my + (t >> 2)) * cur_w + 16 * mx + 4 * (t & 3));
-    reinterpret_cast<unsigned*>(s_cur)[t] =
-        static_cast<unsigned>(v.x) | static_cast<unsigned>(v.y) << 8 |
-        static_cast<unsigned>(v.z) << 16 | static_cast<unsigned>(v.w) << 24;
-  }
-  // window word k of row r holds columns 4k..4k+3 of the window at
-  // (wy0, wx0); rows past ws - 1 and words past column ws - 1 only feed
-  // dy or dx >= side, whose results are dropped. Aligned 32-bit loads
-  // (rows start 4-aligned): the word after is read only when one of its
-  // bytes is a used column, and then it lies inside the row.
-  const int wy0 = kPad + 16 * my - rng;
-  const int wx0 = kPad + 16 * mx - rng;
-  for (int t = tid; t < rows * nw; t += blockDim.x) {
-    const int r = t / nw;
-    const int k = t - r * nw;
-    unsigned word = 0;
-    if (4 * k < ws && r < ws) {
-      const uint8_t* p = ref + static_cast<size_t>(wy0 + r) * ref_w + wx0 +
-                         4 * k;
-      const int sh = static_cast<int>(reinterpret_cast<uintptr_t>(p) & 3);
-      const unsigned* a = reinterpret_cast<const unsigned*>(p - sh);
-      const unsigned lo = __ldg(a);
-      const unsigned hi = (sh != 0 && 4 * k + 4 - sh < ws) ? __ldg(a + 1)
-                                                           : 0u;
-      word = __funnelshift_r(lo, hi, 8 * sh);
-    }
-    s_win[t] = word;
-  }
+  stage_cur(cur, cur_w, my, mx, s_cur);
+  stage_window(ref, ref_w, kPad + 16 * my - rng, kPad + 16 * mx - rng, ws,
+               rows, nw, s_win);
   __syncthreads();
 
   // a thread owns dx group grp (4 dx) of kDy consecutive dy from dyo0
@@ -215,21 +269,9 @@ __global__ void fullpel_kernel(
     }
   }
 
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-#pragma unroll
-  for (int u = 0; u < kUnits; ++u) {
-    unsigned v = best[u];
-    for (int o = 16; o > 0; o >>= 1) {
-      v = min(v, __shfl_down_sync(0xffffffffu, v, o));
-    }
-    if (lane == 0) s_red[warp * kUnits + u] = v;
-  }
-  __syncthreads();
+  warp_mins<kUnits>(best, s_red);
   if (tid < kUnits) {
-    unsigned v = ~0u;
-    const int n_warps = blockDim.x >> 5;
-    for (int w = 0; w < n_warps; ++w) v = min(v, s_red[w * kUnits + tid]);
+    const unsigned v = cta_min<kUnits>(s_red, tid);
     const int cost = static_cast<int>(v >> kIdxBits);
     const int idx = static_cast<int>(v & ((1u << kIdxBits) - 1));
     if constexpr (kUnits == 1) {
@@ -241,6 +283,139 @@ __global__ void fullpel_kernel(
       out_a[mb * kUnits + tid] = cost;
       out_b[mb * kUnits + tid] = idx;
     }
+  }
+}
+
+// The sub-8x8 kernel: out_cost / out_idx [n, 41], unit order as in the
+// header. It shares the 9-unit kernel's staging and two-level minimum;
+// an item is one dx group of one dy: its 16 MB rows accumulate the four
+// 4x4 column sums of each of its four dx, banked every four rows into
+// s[dx][4 x band + column].
+constexpr int kSubUnits = 41;
+constexpr int kSubThreads = 256;
+
+__global__ void __launch_bounds__(kSubThreads) fullpel_sub_kernel(
+    const int* __restrict__ cur, int cur_w,
+    const uint8_t* __restrict__ ref, int ref_w,
+    const int* __restrict__ pred, const int* __restrict__ bits,
+    int bits_len, int rng, int lam, int mbw,
+    int* __restrict__ out_cost, int* __restrict__ out_idx) {
+  extern __shared__ uint4 smem[];
+  const int side = 2 * rng + 1;
+  const int ws = 16 + 2 * rng;
+  const int groups = (side + 3) >> 2;
+  const int nw = groups + 4;
+  uint4* s_cur = smem;
+  unsigned* s_win = reinterpret_cast<unsigned*>(smem + 16);
+  unsigned* s_red = s_win + ws * nw;
+
+  const int mb = blockIdx.x;
+  const int my = mb / mbw;
+  const int mx = mb - my * mbw;
+  const int tid = threadIdx.x;
+
+  stage_cur(cur, cur_w, my, mx, s_cur);
+  stage_window(ref, ref_w, kPad + 16 * my - rng, kPad + 16 * mx - rng, ws,
+               ws, nw, s_win);
+  __syncthreads();
+
+  const int pmx = pred[2 * mb];
+  const int pmy = pred[2 * mb + 1];
+  const int off = (bits_len - 1) / 2;
+  unsigned best[kSubUnits];
+#pragma unroll
+  for (int u = 0; u < kSubUnits; ++u) best[u] = ~0u;
+  for (int it = tid; it < groups * side; it += blockDim.x) {
+    const int grp = it % groups;
+    const int dyo = it / groups;        // dy + rng
+    const unsigned* w = s_win + dyo * nw + grp;
+    unsigned a[4][4], s[4][16];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) a[k][c] = 0;
+    }
+#pragma unroll
+    for (int r = 0; r < 16; ++r) {
+      const unsigned* wr = w + r * nw;
+      const unsigned w0 = wr[0], w1 = wr[1], w2 = wr[2], w3 = wr[3],
+                     w4 = wr[4];
+      const uint4 c = s_cur[r];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        a[k][0] = sad4(c.x, k ? __funnelshift_r(w0, w1, 8 * k) : w0, a[k][0]);
+        a[k][1] = sad4(c.y, k ? __funnelshift_r(w1, w2, 8 * k) : w1, a[k][1]);
+        a[k][2] = sad4(c.z, k ? __funnelshift_r(w2, w3, 8 * k) : w2, a[k][2]);
+        a[k][3] = sad4(c.w, k ? __funnelshift_r(w3, w4, 8 * k) : w3, a[k][3]);
+      }
+      if ((r & 3) == 3) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+#pragma unroll
+          for (int cc = 0; cc < 4; ++cc) {
+            s[k][4 * (r >> 2) + cc] = a[k][cc];
+            a[k][cc] = 0;
+          }
+        }
+      }
+    }
+    const int iy = min(max(4 * (dyo - rng) - 4 * pmy + off, 0),
+                       bits_len - 1);
+    const int by = __ldg(bits + iy);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int dxo = 4 * grp + k;      // dx + rng
+      if (dxo >= side) continue;
+      const int ix = min(max(4 * (dxo - rng) - 4 * pmx + off, 0),
+                         bits_len - 1);
+      const int mvc = (__ldg(bits + ix) + by) * lam;
+      // q[b][j]: the 4x4 SAD of 8x8 block b, sub-block j (both z-order)
+      int q[4][4];
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int band = 2 * (b >> 1) + (j >> 1);
+          const int col = 2 * (b & 1) + (j & 1);
+          q[b][j] = static_cast<int>(s[k][4 * band + col]);
+        }
+      }
+      int q8[4];
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        q8[b] = q[b][0] + q[b][1] + q[b][2] + q[b][3];
+      }
+      int cost[kSubUnits];
+      cost[0] = q8[0] + q8[1] + q8[2] + q8[3] + mvc;
+      cost[1] = q8[0] + q8[1] + mvc;
+      cost[2] = q8[2] + q8[3] + mvc;
+      cost[3] = q8[0] + q8[2] + mvc;
+      cost[4] = q8[1] + q8[3] + mvc;
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        cost[5 + b] = q8[b] + mvc;
+        cost[9 + 2 * b] = q[b][0] + q[b][1] + mvc;        // 8x4 top
+        cost[10 + 2 * b] = q[b][2] + q[b][3] + mvc;       // 8x4 bottom
+        cost[17 + 2 * b] = q[b][0] + q[b][2] + mvc;       // 4x8 left
+        cost[18 + 2 * b] = q[b][1] + q[b][3] + mvc;       // 4x8 right
+#pragma unroll
+        for (int j = 0; j < 4; ++j) cost[25 + 4 * b + j] = q[b][j] + mvc;
+      }
+      const unsigned i = static_cast<unsigned>(dyo * side + dxo);
+#pragma unroll
+      for (int u = 0; u < kSubUnits; ++u) {
+        best[u] = min(best[u], static_cast<unsigned>(cost[u]) << kIdxBits |
+                                   i);
+      }
+    }
+  }
+
+  warp_mins<kSubUnits>(best, s_red);
+  // a single warp (small rng) has fewer threads than units
+  for (int u = tid; u < kSubUnits; u += blockDim.x) {
+    const unsigned v = cta_min<kSubUnits>(s_red, u);
+    out_cost[mb * kSubUnits + u] = static_cast<int>(v >> kIdxBits);
+    out_idx[mb * kSubUnits + u] = static_cast<int>(v & ((1u << kIdxBits) - 1));
   }
 }
 
@@ -281,4 +456,25 @@ extern "C" int pcamv_fullpel_search16(
     void* out_mv, void* out_cost, void* stream) {
   return launch<1>(cur, cur_w, ref, ref_w, nullptr, bits, bits_len, rng,
                    lam, mbh, mbw, out_mv, out_cost, stream);
+}
+
+extern "C" int pcamv_fullpel_sub(
+    const void* cur, int cur_w, const void* ref, int ref_w,
+    const void* pred, const void* bits, int bits_len, int rng, int lam,
+    int mbh, int mbw, void* out_cost, void* out_idx, void* stream) {
+  const int side = 2 * rng + 1;
+  const int items = ((side + 3) / 4) * side;
+  // as few passes as 256 threads allow, the items spread evenly
+  const int passes = (items + kSubThreads - 1) / kSubThreads;
+  const int threads = ((items + passes - 1) / passes + 31) / 32 * 32;
+  const size_t smem = 16 * sizeof(uint4)
+      + ((16 + 2 * rng) * ((side + 3) / 4 + 4) + (threads / 32) * kSubUnits)
+      * sizeof(unsigned);
+  fullpel_sub_kernel<<<mbh * mbw, threads, smem,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(cur), cur_w, static_cast<const uint8_t*>(ref),
+      ref_w, static_cast<const int*>(pred), static_cast<const int*>(bits),
+      bits_len, rng, lam, mbw, static_cast<int*>(out_cost),
+      static_cast<int*>(out_idx));
+  return static_cast<int>(cudaGetLastError());
 }

@@ -139,6 +139,7 @@ from .cavlc import FrameCavlc
 from .inter_incr import changed_mbs, pad_subset, reencode_p_incremental
 from .intra import encode_i_frame
 from . import partition as PT
+from . import scan as SCAN
 from .partition import p_stage1_stego
 from .ratecontrol import RateControl
 from .slicetype import Lookahead
@@ -175,7 +176,13 @@ def check_slice(p: Params) -> None:
     path), the B encode, their mb_qp_delta and the deblocker's qp maps;
     never the analysis, B4's probes or rho (all at the frame qp). With
     stego on the reference asserts partitions under AQ, so the 16x16-only
-    path refuses it."""
+    path refuses it. Sub-8x8 partitions (`p4x4`, with partitions on;
+    without, the reference ignores the flag) take the unfused sub path
+    on every P frame and anchor, with every option above: at more than
+    one reference that path stays 4x4-only (the PPS flag alone), and its
+    noise-reduction offsets stay zero (F11). With more than one reference
+    it takes the host deblock only: under `deblock_device` the
+    reference's deblock there reads no references (ROADMAP F10)."""
     if not p.partitions and p.deblock_device and p.ref_frames == 1:
         raise NotImplementedError(
             "partitions off with deblock_device on: the reference drops "
@@ -184,7 +191,6 @@ def check_slice(p: Params) -> None:
             "; use deblock_device=False")
     bad = []
     for name, ok in (
-            ("p4x4 (ROADMAP A16)", not p.p4x4),
             ("aq_mode with partitions off (the reference's Params.validate "
              "asserts the partition path while embedding)",
              not (p.aq_mode and not p.partitions)),
@@ -204,7 +210,13 @@ def check_slice(p: Params) -> None:
              % (mc.PAD - QT.MARGIN), p.me_range <= mc.PAD - QT.MARGIN),
             ("stego off (ROADMAP A16)", p.stego.enabled),
             ("stego em_file (ROADMAP A16)", not p.stego.em_file),
-            ("stego alpha_com (ROADMAP A16)", p.stego.alpha_com == 0.0)):
+            ("stego alpha_com (ROADMAP A16)", p.stego.alpha_com == 0.0),
+            ("p4x4 with ref_frames>1 and deblock_device (ROADMAP F10: the "
+             "reference's sub path deblocks without the reference map, so "
+             "the decoder's recon drifts from the encoder's; use "
+             "deblock_device=False)",
+             not (p.p4x4 and p.partitions and p.ref_frames > 1
+                  and p.deblock_device))):
         if not ok:
             bad.append(name)
     if bad:
@@ -439,6 +451,8 @@ class Encoder:
         # grids int32 [mbh, mbw] on the host, None without AQ; rebuilt
         # every frame, so no state crosses frames
         self.aq_grids = None
+        # (part, sub_type) host arrays of the last sub-8x8 P frame
+        self.last_sub = None
 
     # ------------------------------------------------------------------
     # noise reduction (x264_noise_reduction_update, macroblock.c:902-922;
@@ -508,17 +522,14 @@ class Encoder:
             return self._encode_frame_bpipe(frame)
         t0 = time.time()
         y, u, v = self._pad(frame)
-        if (self.p.partitions and self.p.ref_frames == 1
-                and not self.p.aq_mode    # AQ rides the unfused path
-                and self.ref is not None
+        if (self._fused_p() and self.ref is not None
                 and self.lookahead.prev_lr is not None):
             return self._encode_frame_ipp_fast(frame, y, u, v, t0)
         out_pend = self._drain_pending()
         is_idr, satd = self.lookahead.decide(y)
         if self.ref is None:
             is_idr = True
-        if (not is_idr and self.p.partitions and self.p.ref_frames == 1
-                and not self.p.aq_mode):
+        if not is_idr and self._fused_p():
             raise NotImplementedError("non-fused partitioned P frame")
         qp = self.rc.start(SLICE_I if is_idr else SLICE_P, satd)
         out = self._aud(SLICE_I if is_idr else SLICE_P)
@@ -822,8 +833,7 @@ class Encoder:
         else:
             self._ref_meta = (disp, self.frame_num, True,
                               list(self._dpb_disps))
-            if (self.p.ref_frames > 1 or not self.p.partitions
-                    or self.p.aq_mode):
+            if not self._fused_p():
                 out += nal_unit(NAL_SLICE, NAL_PRIORITY_HIGH,
                                 self._encode_p_unfused()(y, u, v, qp))
             else:
@@ -861,8 +871,10 @@ class Encoder:
             self._col = (np.zeros((h4, w4, 2), np.int32),
                          np.full((h4, w4), -1, np.int32))
             return
-        final8, ref8 = self._anchor_motion
-        mv4 = np.repeat(np.repeat(final8, 2, 0), 2, 1)
+        final, ref8 = self._anchor_motion
+        # a sub-8x8 anchor records its per-4x4 field, the others per 8x8
+        mv4 = (final if final.shape[0] == h4
+               else np.repeat(np.repeat(final, 2, 0), 2, 1))
         ref4 = (np.zeros((h4, w4), np.int32) if ref8 is None
                 else np.repeat(np.repeat(ref8, 2, 0), 2, 1))
         self._col = (np.ascontiguousarray(mv4, np.int32),
@@ -1382,10 +1394,20 @@ class Encoder:
                                     self.frame_num, self._poc_lsb,
                                     ref8=ref8_np, num_ref=n_valid)
 
+    def _fused_p(self) -> bool:
+        """The P frames take the fused step (the reference's condition,
+        core.py:794-799, under the Params served): one reference,
+        partitions, no adaptive quantization, no sub-8x8 partitions."""
+        p = self.p
+        return (p.partitions and p.ref_frames == 1 and not p.aq_mode
+                and not p.p4x4)
+
     def _encode_p_unfused(self):
-        """The unpipelined P path of this encoder's Params: the
-        multi-reference one, the one-reference partitioned one (adaptive
-        quantization) or the 16x16-only one."""
+        """The unpipelined P path of this encoder's Params: the sub-8x8
+        one, the multi-reference one, the one-reference partitioned one
+        (adaptive quantization) or the 16x16-only one."""
+        if self.p.p4x4 and self.p.partitions:
+            return self._encode_p_sub
         if self.p.ref_frames > 1:
             return self._encode_p_mref
         return self._encode_p_parts1 if self.p.partitions else self._encode_p16
@@ -1457,6 +1479,107 @@ class Encoder:
         self._anchor_motion = (final8, None)
         return self._finish_p_slice(res_np, qp, part_np, mvd, skip,
                                     self.frame_num, self._poc_lsb)
+
+    def trans8_elig(self, part, sub_type):
+        """The MBs that may take the 8x8 transform on the one-reference
+        sub-8x8 path (x264_mb_transform_8x8_allowed: every partition at
+        least 8x8), a bool device tensor, or None without the transform
+        or with no such MB. part/sub_type are host arrays."""
+        if not self.p.transform_8x8:
+            return None
+        elig = (part != 3) | np.all(sub_type == 0, axis=-1)
+        return self._dev(elig) if elig.any() else None
+
+    def _encode_p_sub(self, y, u, v, qp: int) -> bytes:
+        """A sub-8x8-partitioned P frame, the reference's `_encode_p_sub`
+        (core.py:2518) with stego on: the analysis (B1's sub-unit
+        instance once per reference against prev_mv >> 2 on both of the
+        reference's branches, the two-level decision, the per-4x4 qpel
+        tables and subpel, `partition.analyse_p_frame_sub(_mref)`), the
+        AQ grids, the pass-1 encode (`inter.encode_p_frame_sub`, the
+        fused luma kernel; at more than one reference
+        `encode_p_frame_device4` on the stacked DPB, 4x4-only), one pull
+        of part/sub_type/mv4(/ref8) and one of the cbps, the sub scan,
+        `StegoEngine.embed_frame_sub` (its pass 2 a full re-encode), B5
+        on the per-4x4 field with the reference map (`check_slice` refuses
+        the reference's deblock without it, F10) and the slice with its
+        sub_mb_types. The
+        reference updates no noise-reduction state on this path (F11)."""
+        p = self.p
+        mbh, mbw = p.mb_height, p.mb_width
+        n = mbh * mbw
+        dev = self.device
+        lam = ME.lambda_tab(qp)
+        prev = torch.as_tensor(self.prev_mv).to(dev)
+        refs, ref8, num_ref = None, None, 1
+        if p.ref_frames > 1:
+            refs_luma, refs_u, refs_v, num_ref = self._stack_l0(self.dpb)[:4]
+            refs = (refs_luma, refs_u, refs_v)
+            part, sub, mv4, ref8, r_idx4, blocks4, wht4 = \
+                PT.analyse_p_frame_sub_mref(
+                    y, refs_luma.to(torch.uint8), num_ref, prev, p.me_range,
+                    mbh, mbw, lam, p.ref_frames)
+        else:
+            part, sub, mv4, r_idx4, blocks4, wht4 = PT.analyse_p_frame_sub(
+                y, self.ref["luma"].to(torch.uint8), prev, p.me_range, mbh,
+                mbw, lam)
+        meta = torch.cat([part.reshape(-1), sub.reshape(-1),
+                          mv4.reshape(-1)]
+                         + ([] if ref8 is None else [ref8.reshape(-1)])
+                         ).cpu().numpy()
+        part_np = meta[:n].reshape(mbh, mbw)
+        sub_np = meta[n:5 * n].reshape(mbh, mbw, 4)
+        mv4_np = np.ascontiguousarray(meta[5 * n:37 * n]).reshape(
+            4 * mbh, 4 * mbw, 2)
+        ref8_np = (None if ref8 is None else np.ascontiguousarray(
+            meta[37 * n:]).reshape(2 * mbh, 2 * mbw))
+        qp_enc, qpc_enc = self._aq_frame(y, u, v, qp)
+        ref4 = (None if ref8 is None else
+                ref8.repeat_interleave(2, 0).repeat_interleave(2, 1))
+        if refs is not None:
+            res = P.encode_p_frame_device4(
+                y, u, v, *refs, mv4, qp_enc, qpc_enc, mbh, mbw, ref4=ref4,
+                trellis=bool(p.trellis), tables=self.qt,
+                nr_offset=self.nr_offset())
+        else:
+            res = P.encode_p_frame_sub(
+                y, u, v, self.ref, mv4, qp_enc, qpc_enc, mbh, mbw,
+                elig=self.trans8_elig(part_np, sub_np), rd=bool(p.rd),
+                trellis=bool(p.trellis), tables=self.qt,
+                nr_offset=self.nr_offset())
+        cbp = torch.stack([res["cbp_luma"], res["cbp_chroma"]]).cpu().numpy()
+        skip, mvd, mvp, final4 = SCAN.scan_p_frame_sub(
+            part_np, sub_np, mv4_np, cbp[0], cbp[1], ref8=ref8_np)
+        replaced = self._stego.embed_frame_sub(
+            self, y, u, v, qp, part_np, sub_np, mv4_np, skip, mvp,
+            {"blocks": blocks4, "wht": wht4, "r_idx": r_idx4},
+            ref8=ref8_np, refs=refs, grids=(qp_enc, qpc_enc))
+        if replaced is not None:
+            final4, skip, mvd, res = replaced
+        res_np = _levels_exact(res, mbh, mbw)
+        if "trans8" in res:
+            t8_eff = res["trans8"] & (res["cbp_luma"] != 0)
+            nnz = _nnz4_t8(res["luma_lev"], res["luma8_lev"], t8_eff, mbh,
+                           mbw)
+            self.stats.trans8_mbs += int(
+                (res_np["trans8"] & (res_np["cbp_luma"] != 0)).sum())
+        else:
+            t8_eff = None
+            nnz = _nnz4(res["luma_lev"], mbh, mbw)
+        self._deblock_device(
+            res, torch.zeros((mbh, mbw), dtype=torch.int32, device=dev),
+            torch.as_tensor(skip.astype(np.int32)).to(dev),
+            torch.as_tensor(np.ascontiguousarray(final4)).to(dev), qp, nnz,
+            trans8=t8_eff, ref4=ref4,
+            qp_maps=self._qp_maps_p(res_np, skip, qp))
+        # stego on: no intra MBs in P, the predictor is the final field
+        self.prev_mv = np.ascontiguousarray(final4[::4, ::4], np.int32)
+        self._anchor_motion = (np.ascontiguousarray(final4), ref8_np)
+        self.last_sub = (part_np, sub_np)
+        return self._finish_p_slice(res_np, qp, part_np, mvd, skip,
+                                    self.frame_num, self._poc_lsb,
+                                    ref8=ref8_np, num_ref=num_ref,
+                                    sub_type=sub_np)
 
     # ------------------------------------------------------------------
     # adaptive quantization (x264_adaptive_quant_frame; the reference's
@@ -1735,15 +1858,17 @@ class Encoder:
 
     def _finish_p_slice(self, res_np, qp: int, part_np, mvd, skip,
                         frame_num: int, poc_lsb: int, ref8=None,
-                        num_ref: int = 1) -> bytes:
+                        num_ref: int = 1, sub_type=None) -> bytes:
         """P slice header + native CAVLC or CABAC entropy of a completed
         frame (the 16x16-only path passes part 0 and mvd in slot 0). On
         the multi-reference path ref8 [2mbh, 2mbw] gives each 8x8 block's
         reference and num_ref the active L0 count (the header overrides
         the PPS's while it is smaller; ref_idx is coded when it is above
-        1). The port codes no intra MB in a P slice (stego is on), so the
-        native writers serve every slice, under adaptive quantization
-        with the frame's grid (`aq_grids`) as mb_qp_delta."""
+        1). On the sub-8x8 path sub_type [mbh,mbw,4] gives each P_8x8
+        block's sub_mb_type and mvd [mbh,mbw,16,2] the units' mvds in
+        coding order. The port codes no intra MB in a P slice (stego is
+        on), so the native writers serve every slice, under adaptive
+        quantization with the frame's grid (`aq_grids`) as mb_qp_delta."""
         p = self.p
         mbh, mbw = p.mb_height, p.mb_width
         n = mbh * mbw
@@ -1757,11 +1882,13 @@ class Encoder:
                              p_l0_active=num_ref)
         hdr, nbits = bw.partial_bytes()
         refs = None if ref8 is None else self._refs4(part_np, ref8)
+        mvd4 = mvd.reshape(n, -1, 2)
+        sub = None if sub_type is None else sub_type.reshape(n, 4)
         if p.cabac:
             return native.write_slice_cabac(
                 hdr, nbits, H.SLICE_TYPE_P, mbw, mbh, qp,
                 skip=skip.reshape(n).astype(np.uint8),
-                part=part_np.reshape(n), mvd4=mvd.reshape(n, 4, 2),
+                part=part_np.reshape(n), mvd4=mvd4, sub_type=sub,
                 cbp_luma=res_np["cbp_luma"], cbp_chroma=res_np["cbp_chroma"],
                 luma_blocks=res_np["luma_lev"].reshape(n, 16, 16),
                 chroma_dc=res_np["chroma_dc"].reshape(n, 2, 4),
@@ -1775,7 +1902,7 @@ class Encoder:
         return native.write_slice(
             hdr, nbits, H.SLICE_TYPE_P, mbw, mbh,
             skip=skip.reshape(n).astype(np.uint8),
-            part=part_np.reshape(n), mvd4=mvd.reshape(n, 4, 2),
+            part=part_np.reshape(n), mvd4=mvd4, sub_type=sub,
             cbp_luma=res_np["cbp_luma"], cbp_chroma=res_np["cbp_chroma"],
             luma_blocks=res_np["luma_lev"].reshape(n, 16, 16),
             chroma_dc=res_np["chroma_dc"].reshape(n, 2, 4),

@@ -284,20 +284,30 @@ def pack_chroma(chroma, n: int):
     return dc.to(torch.int16), ac.to(torch.int16)
 
 
-def assemble_pred_luma(ref_luma, mv8, mbh: int, mbw: int, ref8=None):
-    """Per-8x8-block MC -> [n,16,16] MB predictions (mv8 [2mbh,2mbw,2]
-    qpel); with `ref8` [2mbh,2mbw] each block from its own entry of the
-    stacked DPB ref_luma [R,4,Hp,Wp]."""
-    n8 = 4 * mbh * mbw
-    ar = torch.arange(n8, device=mv8.device, dtype=_I32)
-    ys8 = torch.div(ar, 2 * mbw, rounding_mode="floor") * 8
-    xs8 = (ar % (2 * mbw)) * 8
+def _grain_origins(mbh: int, mbw: int, g: int, dev):
+    """Top-left (y, x) [N] of every g x g block of a 16mbh x 16mbw plane,
+    raster order."""
+    k = 16 // g
+    ar = torch.arange(k * k * mbh * mbw, device=dev, dtype=_I32)
+    return (torch.div(ar, k * mbw, rounding_mode="floor") * g,
+            (ar % (k * mbw)) * g)
+
+
+def assemble_pred_luma(ref_luma, mv8, mbh: int, mbw: int, ref8=None,
+                       g: int = 8):
+    """Per-block MC -> [n,16,16] MB predictions: g 8 (mv8 [2mbh,2mbw,2]
+    qpel) or 4 (the sub-8x8 path's per-4x4 [4mbh,4mbw,2]); with `ref8` (a
+    map of the same grain) each block from its own entry of the stacked
+    DPB ref_luma [R,4,Hp,Wp]."""
+    ys, xs = _grain_origins(mbh, mbw, g, mv8.device)
+    nb = ys.shape[0]
     if ref8 is None:
-        p8 = mc.mc_luma(ref_luma, ys8, xs8, mv8.reshape(n8, 2), 8, 8)
+        pb = mc.mc_luma(ref_luma, ys, xs, mv8.reshape(nb, 2), g, g)
     else:
-        p8 = mc.mc_luma_multi(ref_luma, ref8.reshape(n8), ys8, xs8,
-                              mv8.reshape(n8, 2), 8, 8)
-    pred = p8.reshape(2 * mbh, 2 * mbw, 8, 8).permute(0, 2, 1, 3) \
+        pb = mc.mc_luma_multi(ref_luma, ref8.reshape(nb), ys, xs,
+                              mv8.reshape(nb, 2), g, g)
+    k = 16 // g
+    pred = pb.reshape(k * mbh, k * mbw, g, g).permute(0, 2, 1, 3) \
         .reshape(16 * mbh, 16 * mbw)
     return mb_tiles(pred, 16)
 
@@ -505,3 +515,80 @@ def encode_p_frame_device8_mref(y, u, v, refs_luma, refs_u, refs_v, mv8,
         chroma.append(chroma_encode(mb_tiles(plane, 8), mb_tiles(predc, 8),
                                     qpc, fz, trellis, tables))
     return _p_result(lev, rec, cbp_l, chroma, mbh, mbw, nr_sum)
+
+
+def encode_p_frame_device4(y, u, v, ref_luma, ref_u, ref_v, mv4, qp, qpc,
+                           mbh: int, mbw: int, ref4=None, force_zero=None,
+                           trellis: bool = False, tables=None,
+                           nr_offset=None) -> dict:
+    """The sub-8x8 P encode, the reference's `encode_p_frame_device4`
+    (encoder/inter.py:905) and, with ref4 [4mbh,4mbw] and the stacked DPB
+    in ref_*, its `encode_p_frame_device4_mref` (:834): per-4x4 luma MC
+    (mv4 [4mbh,4mbw,2] qpel) into the fused luma kernel, chroma MC at
+    2x2 grain, no 8x8 transform; otherwise `encode_p_frame_device8`."""
+    n = mbh * mbw
+    dev = y.device
+    fz = _force_zero(force_zero, n, dev)
+    qp, qpc = mb_qps(qp, qpc, n, dev)
+    pred = assemble_pred_luma(ref_luma, mv4, mbh, mbw, ref8=ref4, g=4)
+    lev, rec, cbp_l, nr_sum = _luma_encode_nr(y, pred, qp, fz, trellis,
+                                              tables, nr_offset)
+    ysc, xsc = _grain_origins(mbh, mbw, 4, dev)
+    ysc, xsc = ysc // 2, xsc // 2
+    n4 = ysc.shape[0]
+    mvf4 = mv4.reshape(n4, 2)
+    chroma = []
+    for plane, refp in ((u, ref_u), (v, ref_v)):
+        if ref4 is None:
+            pc2 = mc.mc_chroma(refp, ysc, xsc, mvf4, 2, 2)
+        else:
+            pc2 = mc.mc_chroma_multi(refp, ref4.reshape(n4), ysc, xsc, mvf4,
+                                     2, 2)
+        predc = pc2.reshape(4 * mbh, 4 * mbw, 2, 2).permute(0, 2, 1, 3) \
+            .reshape(8 * mbh, 8 * mbw)
+        chroma.append(chroma_encode(mb_tiles(plane, 8), mb_tiles(predc, 8),
+                                    qpc, fz, trellis, tables))
+    return _p_result(lev, rec, cbp_l, chroma, mbh, mbw, nr_sum)
+
+
+def merge_res_trans8(res4, res8, elig, mbh: int, mbw: int) -> dict:
+    """The reference's `_merge_res_trans8` (encoder/core.py:200): on the
+    MBs of `elig` [mbh,mbw] bool (every partition at least 8x8) the
+    8x8-capable encode res8 whole, elsewhere the sub-8x8 encode res4
+    (whose `nr_sum` the result keeps); trans8 and luma8_lev only on
+    eligible MBs."""
+    out = dict(res4)
+    for k in ("luma_lev", "cbp_luma", "cbp_chroma", "chroma_dc",
+              "chroma_ac"):
+        mm = elig.reshape(mbh, mbw, *([1] * (res4[k].dim() - 2)))
+        out[k] = torch.where(mm, res8[k], res4[k])
+    for k, b in (("recon_y", 16), ("recon_u", 8), ("recon_v", 8)):
+        mm = elig.repeat_interleave(b, 0).repeat_interleave(b, 1)
+        out[k] = torch.where(mm, res8[k], res4[k])
+    out["luma8_lev"] = res8["luma8_lev"] * elig[:, :, None]
+    out["trans8"] = res8["trans8"] & elig
+    return out
+
+
+def encode_p_frame_sub(y, u, v, ref, mv4, qp, qpc, mbh: int, mbw: int,
+                       elig=None, force_zero=None, rd: bool = False,
+                       trellis: bool = False, tables=None,
+                       nr_offset=None) -> dict:
+    """A final sub-8x8 P encode at one reference (`ref` the reference
+    dict): `encode_p_frame_device4`, and with `elig` [mbh,mbw] bool
+    device (the 8x8 transform: the MBs with no partition under 8x8) the
+    8x8-capable `encode_p_frame_device8` at their per-8x8 MVs merged in
+    on them (`merge_res_trans8`), as the reference's `_encode_p_sub`
+    (core.py:2592-2612) and its stego pass 2 do."""
+    res = encode_p_frame_device4(y, u, v, ref["luma"], ref["u"], ref["v"],
+                                 mv4, qp, qpc, mbh, mbw,
+                                 force_zero=force_zero, trellis=trellis,
+                                 tables=tables, nr_offset=nr_offset)
+    if elig is None:
+        return res
+    res8 = encode_p_frame_device8(
+        y, u, v, ref["luma"], ref["u"], ref["v"],
+        mv4[::2, ::2].contiguous(), qp, qpc, mbh, mbw,
+        force_zero=force_zero, trans8=True, rd=rd, trellis=trellis,
+        tables=tables, nr_offset=nr_offset)
+    return merge_res_trans8(res, res8, elig, mbh, mbw)

@@ -72,7 +72,8 @@ def check_multistream(p: Params) -> None:
          p.deblock_alpha or p.deblock_beta),
         ("aud (it writes no access-unit delimiter)", p.aud),
         ("partitions off (its P steps always run the partitioned "
-         "analysis)", not p.partitions)) if on]
+         "analysis)", not p.partitions),
+        ("p4x4 (its P steps never split an 8x8)", p.p4x4)) if on]
     if bad:
         raise NotImplementedError("MultiEncoder: " + ", ".join(bad))
 

@@ -34,10 +34,12 @@ from .. import kernels
 from ..ops import const
 from ..ops import mc
 from ..ops import probe as PR
-from ..ops.fullpel import fullpel_parts
+from ..ops.fullpel import fullpel_parts, fullpel_sub
+from ..ops import lumap as LP
 from ..stego.cost import D_MV, D_NB, rca_decide
 from . import inter as INTER
 from . import qpel_table as QT
+from .me import mv_bits_table
 from .scan_device import scan_p_device
 
 _I32 = torch.int32
@@ -382,3 +384,397 @@ def p_stage1_stego(y, u, v, ref_luma, ref_u, ref_v, prev_mv, qp: int,
         pieces.append(extra)
     packed = torch.cat([p.reshape(-1).to(f32) for p in pieces])
     return packed, res
+
+
+# ---------------------------------------------------------------------------
+# Sub-8x8 partitions (P_8x8 sub_mb_types 8x4 / 4x8 / 4x4), the reference's
+# partition.py:852-1360 (x264's p8x4/p4x8/p4x4 analysis, analyse.c:
+# 1569-1693, and the D_L0_8x4/4x8/4x4 stego capture, analyse.c:3518-3689).
+# The full-pel search of every unit of every shape is B1's sub-unit
+# instance (`ops.fullpel.fullpel_sub`); the sub_mb_type decision is a
+# 4-way argmin per 8x8 block with ue() header-bit terms, and the MB
+# decision takes the sub-optimized 8x8 cost. The per-4x4 windows, qpel
+# tables, subpel refinement and RCA costs are plain torch on every device.
+# Slots: a unit's slot is the z index (8x8 block major, 4x4 minor) of its
+# first 4x4 block, up to 16 an MB.
+# ---------------------------------------------------------------------------
+
+# sub_mb_type header bits: ue(0)=1, ue(1)=3, ue(2)=3, ue(3)=5
+_SUB_HDR_BITS = np.array([1, 3, 3, 5], np.int32)
+# mb_type header bits with the P_8x8 sub bits counted separately
+_HDR_BITS_SUB = np.array([1, 3, 3, 5], np.int32)
+# per-4x4-block (z order) slot of MB partitions 0..2
+_UNIT_ID_PART = np.array([[0] * 16, [0] * 8 + [8] * 8,
+                          [0, 0, 0, 0, 4, 4, 4, 4] * 2], np.int32)
+# slot within an 8x8 block per sub_mb_type
+_SUB_UNIT_ID = np.array([[0, 0, 0, 0], [0, 0, 2, 2], [0, 1, 0, 1],
+                         [0, 1, 2, 3]], np.int32)
+_SUBPEL4_OFFSETS = np.array([(oy, ox) for oy in range(-3, 4)
+                             for ox in range(-3, 4)], np.int32)
+# subpel_sub's MV-bits table, clipped at +-2048
+_SUBPEL4_BITS = mv_bits_table(4 * 512)
+# z index -> (by, bx) of the 4x4 block inside its MB, and raster -> z
+_Z = np.arange(16)
+_Z_BY = 2 * (_Z >> 3) + ((_Z >> 1) & 1)
+_Z_BX = 2 * ((_Z >> 2) & 1) + (_Z & 1)
+_Z_RASTER = 4 * _Z_BY + _Z_BX
+_R2Z = np.argsort(_Z_RASTER)
+
+
+def unit_id_map(part, sub_type):
+    """[mbh,mbw] part + [mbh,mbw,4] sub_type -> [mbh,mbw,16] slot of
+    every 4x4 block (z order); slot s exists iff unit_id[..., s] == s."""
+    dev = part.device
+    mbh, mbw = part.shape
+    base = const(_UNIT_ID_PART, dev)[torch.clamp(part, 0, 2).long()]
+    rel = const(_SUB_UNIT_ID, dev)[sub_type.long()]          # [., ., 4, 4]
+    blk = 4 * torch.arange(4, device=dev, dtype=_I32)[:, None]
+    sub_ids = (rel + blk).reshape(mbh, mbw, 16)
+    return torch.where((part == 3)[..., None], sub_ids, base)
+
+
+def decide_partition_sub(st: dict, mbh: int, mbw: int, lam: int = 1,
+                         allow_parts: bool = True):
+    """The per-8x8 sub_mb_type argmin, then the 4-way MB decision on the
+    sub-optimized 8x8 cost (first minimum on ties, both levels). Returns
+    (part [mbh,mbw], sub_type [mbh,mbw,4] (0 outside P_8x8), mv4fp
+    [4mbh,4mbw,2] full-pel)."""
+    shdr = _SUB_HDR_BITS
+    sub_tot = torch.stack([
+        st["c8"] + lam * int(shdr[0]),
+        st["c84"].sum(-1, dtype=_I32) + lam * int(shdr[1]),
+        st["c48"].sum(-1, dtype=_I32) + lam * int(shdr[2]),
+        st["c44"].sum(-1, dtype=_I32) + lam * int(shdr[3])])
+    sub_type = torch.argmin(sub_tot, dim=0).to(_I32)
+    c8best = sub_tot.min(0).values
+    hdr = _HDR_BITS_SUB
+    tot = torch.stack([
+        st["c16"] + lam * int(hdr[0]),
+        st["c16x8"].sum(-1, dtype=_I32) + lam * int(hdr[1]),
+        st["c8x16"].sum(-1, dtype=_I32) + lam * int(hdr[2]),
+        c8best.sum(-1, dtype=_I32) + lam * int(hdr[3])])
+    part = (torch.argmin(tot, dim=0).to(_I32) if allow_parts
+            else torch.zeros((mbh, mbw), dtype=_I32, device=tot.device))
+    sub_type = torch.where((part == 3)[..., None], sub_type, 0)
+
+    full = (mbh, mbw, 4, 4, 2)
+    mv44_by_sub = torch.stack([
+        st["mv8"][:, :, :, None, :].expand(full),
+        st["mv84"][:, :, :, [0, 0, 1, 1], :],
+        st["mv48"][:, :, :, [0, 1, 0, 1], :],
+        st["mv44"]])
+    mv44_p3 = torch.gather(mv44_by_sub, 0, sub_type.long()[
+        None, :, :, :, None, None].expand((1,) + full))[0]
+    mv44_by_part = torch.stack([
+        st["mv16"][:, :, None, None, :].expand(full),
+        st["mv16x8"][:, :, [0, 0, 1, 1], None, :].expand(full),
+        st["mv8x16"][:, :, [0, 1, 0, 1], None, :].expand(full),
+        mv44_p3])
+    mv44 = torch.gather(mv44_by_part, 0, part.long()[
+        None, :, :, None, None, None].expand((1,) + full))[0]
+    mv4 = mv44.reshape(mbh, mbw, 2, 2, 2, 2, 2) \
+        .permute(0, 2, 4, 1, 3, 5, 6).reshape(4 * mbh, 4 * mbw, 2)
+    return part, sub_type, mv4.contiguous()
+
+
+def gather_windows4(planes, mv4fp, mbh: int, mbw: int, ref4=None):
+    """Every 4x4 block's [4, 12, 12] window of the hpel planes at (block
+    + mv - MARGIN), the reference's `gather_windows4_jnp` (planes [4, Hp,
+    Wp]) or with `ref4` [4mbh,4mbw] its `gather_windows4_mref` (planes
+    the [R, 4, Hp, Wp] stack): one gather, [N4, 4, 12, 12]."""
+    n4 = 16 * mbh * mbw
+    dev = mv4fp.device
+    ar = torch.arange(n4, device=dev)
+    bys = torch.div(ar, 4 * mbw, rounding_mode="floor") * 4
+    bxs = (ar % (4 * mbw)) * 4
+    mvf = mv4fp.reshape(n4, 2).long()
+    w12 = torch.arange(4 + 2 * QT.MARGIN, device=dev)
+    yy = (bys + mc.PAD - QT.MARGIN + mvf[:, 1])[:, None] + w12
+    xx = (bxs + mc.PAD - QT.MARGIN + mvf[:, 0])[:, None] + w12
+    if ref4 is None:
+        return planes[:, yy[:, :, None], xx[:, None, :]].permute(1, 0, 2, 3)
+    r = ref4.reshape(n4).long()[:, None, None, None]
+    pp = torch.arange(4, device=dev)[None, :, None, None]
+    return planes[r, pp, yy[:, None, :, None], xx[:, None, None, :]]
+
+
+def block_table4(windows):
+    """[N4, 4, 12, 12] uint8 windows -> [169, N4, 4, 4] uint8: every qpel
+    offset in [-6, 6]^2 as a static slice-average."""
+    w16 = windows.to(torch.int16)
+    outs = []
+    for oy in range(-6, 7):
+        for ox in range(-6, 7):
+            (p1, y1, x1), (p2, y2, x2) = QT._phase_slices(oy, ox)
+            a = w16[:, p1, y1:y1 + 4, x1:x1 + 4]
+            b = w16[:, p2, y2:y2 + 4, x2:x2 + 4]
+            outs.append(((a + b + 1) >> 1).to(torch.uint8))
+    return torch.stack(outs)
+
+
+def wht4_flat(blocks):
+    """Per-4x4-block WHT, flat: [..., 4, 4] -> [..., 16] int32."""
+    return QT.wht16(blocks.to(_I32)).reshape(*blocks.shape[:-2], 16)
+
+
+def wht4_table(blocks4):
+    """wht4_flat of the [169, N4, 4, 4] table as int16 [169, N4, 16], in
+    chunks of 13 offsets (bounds the int32 intermediates)."""
+    return torch.cat([wht4_flat(blocks4[k:k + 13]).to(torch.int16)
+                      for k in range(0, blocks4.shape[0], 13)])
+
+
+def satd_flat4(wa, wb):
+    """SATD between flat 4x4 WHTs [..., 16]."""
+    return torch.abs(wa.to(_I32) - wb.to(_I32)).sum(-1, dtype=_I32) >> 1
+
+
+def blocks4(y, mbh: int, mbw: int):
+    """[16mbh, 16mbw] -> [N4, 4, 4] 4x4 blocks in frame raster order."""
+    return y.reshape(4 * mbh, 4, 4 * mbw, 4).permute(0, 2, 1, 3) \
+        .reshape(16 * mbh * mbw, 4, 4)
+
+
+def sp4_to_z(a, mbh: int, mbw: int):
+    """[4mbh, 4mbw, ...] -> [mbh, mbw, 16, ...] with the block axis in z
+    order (8x8 block major, 4x4 minor)."""
+    rest = tuple(a.shape[2:])
+    k = len(rest)
+    return a.reshape(mbh, 2, 2, mbw, 2, 2, *rest).permute(
+        0, 3, 1, 4, 2, 5, *range(6, 6 + k)).reshape(mbh, mbw, 16, *rest)
+
+
+def z_to_sp4(a, mbh: int, mbw: int):
+    """[mbh, mbw, 16, ...] -> [4mbh, 4mbw, ...]."""
+    rest = tuple(a.shape[3:])
+    k = len(rest)
+    return a.reshape(mbh, mbw, 2, 2, 2, 2, *rest).permute(
+        0, 2, 4, 1, 3, 5, *range(6, 6 + k)).reshape(4 * mbh, 4 * mbw, *rest)
+
+
+def subpel_sub(cur_y, wht4, part, sub_type, mv4fp, prev_mv, mbh: int,
+               mbw: int, lam: int = 1):
+    """Quarter-pel refinement of every unit at 4x4 grain from the 4x4
+    qpel tables (subpel 2: the 49 offsets of [-3, 3]^2, oy outer): the
+    unit's summed SATD + lam * MV bits against its MB's prev_mv (the
+    table clipped at +-2048), the first minimum. wht4 [169, N4, 16];
+    mv4fp [4mbh,4mbw,2] full-pel. Returns (mv4 qpel [4mbh,4mbw,2], r_idx4
+    [N4] int32)."""
+    dev = cur_y.device
+    n4 = 16 * mbh * mbw
+    wcur = wht4_flat(blocks4(cur_y, mbh, mbw))               # [N4, 16]
+    mvf = mv4fp.reshape(n4, 2)
+    bits_t = const(_SUBPEL4_BITS, dev)
+    off = 4 * 512
+    pred4 = prev_mv.repeat_interleave(4, 0).repeat_interleave(4, 1) \
+        .reshape(n4, 2)
+    satds, mvcs = [], []
+    for oy, ox in _SUBPEL4_OFFSETS.tolist():
+        satds.append(satd_flat4(wcur, wht4[QT.off_index(oy, ox)]))
+        ix = torch.clamp(4 * mvf[:, 0] + ox - pred4[:, 0], -off, off) + off
+        iy = torch.clamp(4 * mvf[:, 1] + oy - pred4[:, 1], -off, off) + off
+        mvcs.append((bits_t[ix.long()] + bits_t[iy.long()]) * lam)
+    k = len(satds)
+    satz = sp4_to_z(torch.stack(satds, 1).reshape(4 * mbh, 4 * mbw, k),
+                    mbh, mbw).movedim(-1, 0)             # [K,mbh,mbw,16]
+    mvcz = sp4_to_z(torch.stack(mvcs, 1).reshape(4 * mbh, 4 * mbw, k),
+                    mbh, mbw).movedim(-1, 0)
+    uid = unit_id_map(part, sub_type)                    # [mbh,mbw,16]
+    unit_satd = torch.zeros_like(satz).scatter_add_(
+        3, uid.long()[None].expand_as(satz), satz)
+    cost = unit_satd + mvcz
+    sel_slot = torch.argmin(cost, dim=0)                 # [mbh,mbw,16]
+    sel_blk = torch.gather(sel_slot, 2, uid.long())
+    offs = const(_SUBPEL4_OFFSETS, dev)[sel_blk]         # [., ., 16, 2]
+    mvz = sp4_to_z(mv4fp, mbh, mbw)
+    mvq = torch.stack([4 * mvz[..., 0] + offs[..., 1],
+                       4 * mvz[..., 1] + offs[..., 0]], dim=-1)
+    r_idx = (offs[..., 0] + 6) * 13 + (offs[..., 1] + 6)
+    return (z_to_sp4(mvq, mbh, mbw).to(_I32).contiguous(),
+            z_to_sp4(r_idx, mbh, mbw).reshape(n4).to(_I32))
+
+
+
+def _sub_tail(y, planes, part, sub_type, mv4fp, prev_mv, mbh: int,
+              mbw: int, lam: int, ref4=None):
+    """The sub analysis after the decision: the 4x4 windows (with ref4
+    [4mbh,4mbw] from the stacked entries), the qpel tables and the subpel
+    refinement. Returns (mv4, r_idx4, blocks4, wht4)."""
+    tab = block_table4(gather_windows4(planes, mv4fp, mbh, mbw, ref4=ref4))
+    wht = wht4_table(tab)
+    mv4, r_idx4 = subpel_sub(y, wht, part, sub_type, mv4fp, prev_mv, mbh,
+                             mbw, lam)
+    return mv4, r_idx4, tab, wht
+
+
+def analyse_p_frame_sub(y, ref8, prev_mv, rng: int, mbh: int, mbw: int,
+                        lam: int, allow_parts: bool = True):
+    """The sub-8x8 P analysis at one reference, the reference's
+    `analyse_p_frame_sub` (partition.py:1341): B1's sub-unit instance
+    against prev_mv >> 2 on both of the reference's branches (it has no
+    accelerator form), the two-level decision, the per-4x4 windows and
+    qpel tables, the subpel refinement. ref8 [4, Hp, Wp] uint8 hpel
+    planes. Returns (part, sub_type, mv4 qpel, r_idx4, blocks4 [169, N4,
+    4, 4] uint8, wht4 [169, N4, 16] int16)."""
+    st = fullpel_sub(y, ref8[0], (prev_mv >> 2).contiguous(), rng, mbh,
+                     mbw, lam)
+    part, sub_type, mv4fp = decide_partition_sub(st, mbh, mbw, lam,
+                                                 allow_parts)
+    return (part, sub_type) + _sub_tail(y, ref8, part, sub_type, mv4fp,
+                                        prev_mv, mbh, mbw, lam)
+
+
+def analyse_p_frame_sub_mref(y, refs8, n_valid: int, prev_mv, rng: int,
+                             mbh: int, mbw: int, lam: int, num_ref: int,
+                             allow_parts: bool = True):
+    """The multi-reference sub-8x8 analysis, the reference's
+    `analyse_p_frame_sub_mref` (partition.py:1297): B1's sub-unit
+    instance once per stacked entry (refs8 [R, 4, Hp, Wp] uint8), the MB
+    shapes merged across entries as on the partition path, each 8x8's
+    reference its own masked argmin, and the sub splits inside an 8x8
+    costed on that reference (with its te(v) bits). Returns (part,
+    sub_type, mv4, ref8 [2mbh, 2mbw], r_idx4, blocks4, wht4)."""
+    ref_bits = te_ref_bits(num_ref)
+    pred = (prev_mv >> 2).contiguous()
+    sts = [fullpel_sub(y, refs8[r, 0], pred, rng, mbh, mbw, lam)
+           for r in range(num_ref)]
+    stm = merge_ref_states(sts, lam, ref_bits, n_valid)
+    r8 = stm["r8"]                                       # [mbh,mbw,4] z
+    rb = torch.as_tensor(ref_bits).to(y.device)[r8.long()] * lam
+    for ck in ("c84", "c48", "c44"):
+        mk = "mv" + ck[1:]
+        nsub = sts[0][ck].shape[-1]
+        sel = r8.long()[None, :, :, :, None].expand(1, mbh, mbw, 4, nsub)
+        stm[ck] = torch.gather(torch.stack([st[ck] for st in sts]), 0,
+                               sel)[0] + rb[..., None]
+        stm[mk] = torch.gather(
+            torch.stack([st[mk] for st in sts]), 0,
+            sel[..., None].expand(1, mbh, mbw, 4, nsub, 2))[0]
+    part, sub_type, mv4fp = decide_partition_sub(stm, mbh, mbw, lam,
+                                                 allow_parts)
+    ref8 = ref8_from_partition(stm, part, mbh, mbw)
+    mv4, r_idx4, tab, wht = _sub_tail(
+        y, refs8, part, sub_type, mv4fp, prev_mv, mbh, mbw, lam,
+        ref4=ref8.repeat_interleave(2, 0).repeat_interleave(2, 1))
+    return part, sub_type, mv4, ref8, r_idx4, tab, wht
+
+
+def _mb_pred_z(blkz):
+    """[m, 16 (z), 4, 4] blocks -> [m, 16, 16] MB predictions."""
+    m = blkz.shape[0]
+    return blkz[:, const(_R2Z, blkz.device).long()].reshape(m, 4, 4, 4, 4) \
+        .permute(0, 1, 3, 2, 4).reshape(m, 16, 16).contiguous()
+
+
+def _wht_blocks_z(rec):
+    """[m, 16, 16] MB recon -> [m, 16 (z), 16] flat per-4x4 WHTs."""
+    m = rec.shape[0]
+    r44 = rec.reshape(m, 4, 4, 4, 4).permute(0, 1, 3, 2, 4) \
+        .reshape(m, 16, 4, 4)
+    return wht4_flat(r44[:, const(_Z_RASTER, rec.device).long()])
+
+
+def stego_costs_sub(cur_y, blocks4, wht4, r_idx4, part, sub_type, mv4,
+                    mvp_s, cost_mv, qp: int, mbh: int, mbw: int,
+                    tables=None):
+    """The RCA cost of every unit slot with the sub-8x8 shapes, the
+    reference's `stego_costs_sub` (partition.py:1159; x264's
+    x264_ih_get_mv_cost, analyse.c:2391-2550, with the D_L0_8x4/4x8/4x4
+    cases): each slot's unit encoded at its chosen offset and at the 12
+    D_MV candidates (the rest of its MB at the chosen offsets) and
+    probed against its 9 lattice neighbours; rho by `rca_decide` in
+    float32. Every one of the 16 slots of every MB is computed, as in the
+    reference, whose slots that do not exist are masked later; a slot's
+    SATD terms are zero outside its unit, so the candidate encodes run
+    only on the MBs where the slot exists: one fused luma-encode launch
+    for the MBs' chosen offsets, then one a slot for its 12 candidates
+    (the current MBs read from the plane by MB number). part/sub_type are
+    host arrays; blocks4/wht4/r_idx4 the analysis tables; mv4
+    [4mbh,4mbw,2] and mvp_s [mbh,mbw,16,2] (each slot's predictor) on the
+    device; cost_mv the probe MV-cost table; quantized at qp with the
+    inter class of `tables`. Returns (rho [mbh,mbw,16] f32, alt
+    [mbh,mbw,16,2], valid [mbh,mbw,16])."""
+    dev = cur_y.device
+    n = mbh * mbw
+    ncm = cost_mv.shape[0]
+    uid_np = unit_id_map(torch.as_tensor(np.asarray(part, np.int32)),
+                         torch.as_tensor(np.asarray(sub_type, np.int32))
+                         ).numpy().reshape(n, 16)
+    uid = torch.as_tensor(uid_np).to(dev)
+    mvz = sp4_to_z(mv4, mbh, mbw).reshape(n, 16, 2)
+    mvps = mvp_s.reshape(n, 16, 2)
+
+    def z_rows(t):
+        return sp4_to_z(t.reshape(4 * mbh, 4 * mbw, *t.shape[1:]), mbh,
+                        mbw).reshape(n, 16, *t.shape[1:])
+
+    sel_whtz = {(dy, dx): z_rows(QT.select_rows(wht4, r_idx4 + 13 * dy + dx))
+                for dy in range(-3, 4) for dx in range(-3, 4)}
+
+    def blocks_at(dy, dx):
+        return z_rows(QT.select_rows(blocks4, r_idx4 + 13 * dy + dx)) \
+            .to(_I32)
+
+    blk0z = blocks_at(0, 0)                              # [n,16,4,4]
+    centers = [(int(D_MV[c][1]), int(D_MV[c][0])) for c in range(12)]
+    cand_blkz = [blocks_at(*d) for d in centers]
+    nb_d = [(int(D_NB[k][1]), int(D_NB[k][0])) for k in range(9)]
+    _, rec0, _ = LP.luma_p_encode(cur_y, _mb_pred_z(blk0z), qp, lev=False,
+                                  tables=tables)
+    w0 = _wht_blocks_z(rec0)                             # [n,16,16]
+
+    out_rho, out_alt, out_valid = [], [], []
+    for s in range(16):
+        mvu, mvpu = mvz[:, s], mvps[:, s]
+
+        def mvcost(dq):
+            ix = torch.abs(mvu[:, 0] + dq[1] - mvpu[:, 0])
+            iy = torch.abs(mvu[:, 1] + dq[0] - mvpu[:, 1])
+            return (cost_mv[torch.clamp(ix, max=ncm - 1).long()]
+                    + cost_mv[torch.clamp(iy, max=ncm - 1).long()])
+
+        vidx = np.nonzero(uid_np[:, s] == s)[0]
+        m = len(vidx)
+        vi = torch.as_tensor(vidx).to(dev)
+        mem = (uid[vi] == s)                             # [m, 16]
+        sel = {d: t[vi] for d, t in sel_whtz.items()}
+        wvers = [w0[vi]]
+        if m:
+            m4 = mem[:, :, None, None]
+            preds = torch.cat([_mb_pred_z(torch.where(m4, cand_blkz[c][vi],
+                                                      blk0z[vi]))
+                               for c in range(12)])
+            _, rec, _ = LP.luma_p_encode(
+                cur_y, preds, qp, idx=vi.to(_I32).repeat(12), lev=False,
+                tables=tables)
+            wvers += list(_wht_blocks_z(rec).reshape(12, m, 16, 16))
+        else:
+            wvers += [w0[vi]] * 12
+
+        def probes(wrec, center):
+            outp = []
+            for d0, d1 in nb_d:
+                d = (center[0] + d0, center[1] + d1)
+                sat = (satd_flat4(wrec, sel[d]) * mem).sum(1, dtype=_I32)
+                full = torch.zeros(n, dtype=_I32, device=dev)
+                full[vi] = sat
+                outp.append(full + mvcost(d))
+            return torch.stack(outp, dim=1)               # [n, 9]
+
+        nb0 = probes(wvers[0], (0, 0))
+        orig_cost = nb0[:, 8]
+        orig_opt = nb0.min(1).values >= orig_cost
+        cand_cost, cand_opt = [], []
+        for c in range(12):
+            nbc = probes(wvers[c + 1], centers[c])
+            cand_cost.append(nbc[:, 8])
+            cand_opt.append(nbc.min(1).values >= nbc[:, 8])
+        rho, sel_delta, _flags = rca_decide(
+            nb0, orig_cost, orig_opt, torch.stack(cand_cost, 1),
+            torch.stack(cand_opt, 1))
+        out_rho.append(rho)
+        out_alt.append(mvu + sel_delta)
+        out_valid.append(uid[:, s] == s)
+    return (torch.stack(out_rho, 1).reshape(mbh, mbw, 16),
+            torch.stack(out_alt, 1).reshape(mbh, mbw, 16, 2).to(_I32),
+            torch.stack(out_valid, 1).reshape(mbh, mbw, 16))

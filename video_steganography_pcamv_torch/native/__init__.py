@@ -79,7 +79,7 @@ def load() -> ctypes.CDLL:
     lib.pcamv_write_slice.argtypes = [
         u8p, ctypes.c_long, u8p, ci, ci, ci, ci,
         vp, vp, vp, i32p, i32p, vp, i32p, i32p, i32p, vp, vp, vp, vp,
-        vp, ci, vp, vp, vp, vp, ci, vp, ci]
+        vp, ci, vp, ci, vp, vp, vp, vp, ci, vp, ci]
     lib.pcamv_write_slice_cabac.restype = ctypes.c_long
     lib.pcamv_write_slice_cabac.argtypes = [
         u8p, ctypes.c_long, u8p, ci, ci, ci, ci, ci, ci,
@@ -128,7 +128,8 @@ def write_slice(header_bytes: bytes, header_nbits: int, slice_type: int,
                 mbw: int, mbh: int, *, skip=None, mode=None, cmode=None,
                 cbp_luma, cbp_chroma, luma_dc=None, luma_blocks, chroma_dc,
                 chroma_ac, mb_i4=None, i4_modes=None, part=None,
-                mvd4=None, refs=None, num_ref: int = 1, mb_i8=None,
+                mvd4=None, refs=None, num_ref: int = 1, sub_type=None,
+                mb_i8=None,
                 i8_modes=None, luma8_lev=None, trans8=None,
                 trans8_mode: bool = False, qp_grid=None,
                 slice_qp: int = 0) -> bytes:
@@ -137,7 +138,10 @@ def write_slice(header_bytes: bytes, header_nbits: int, slice_type: int,
     [N,16,16], luma_dc [N,16], chroma_dc [N,2,4], chroma_ac [N,2,4,16],
     mb_i4 [N] u8, i4_modes [N,16], part [N], mvd4 [N,4,2], refs [N,4]
     the L0 index of each ref slot (coded when num_ref > 1; None: all 0,
-    as `_refs4` in the encoder lays them out). High-profile 8x8
+    as `_refs4` in the encoder lays them out); sub_type [N,4] each P_8x8
+    block's sub_mb_type, mvd4 then [N,16,2] the units in coding order
+    (an MB with a sub-partition under 8x8 codes no
+    transform_size_8x8_flag). High-profile 8x8
     transform (`trans8_mode`, the PPS flag): mb_i8 [N] u8, i8_modes
     [N,4], luma8_lev [N,2,2,8,8] raster (zigzag-scanned here), trans8
     [N] u8. Adaptive quantization: qp_grid [N] each MB's qp, written as
@@ -156,7 +160,11 @@ def write_slice(header_bytes: bytes, header_nbits: int, slice_type: int,
     i4m_a = (_as_i32(i4_modes).reshape(n * 16)
              if i4_modes is not None else None)
     part_a = _as_i32(part).reshape(n) if part is not None else None
-    mvd4_a = _as_i32(mvd4).reshape(n * 8) if mvd4 is not None else None
+    stride = 16 if sub_type is not None else 4
+    mvd4_a = (_as_i32(mvd4).reshape(n * 2 * stride)
+              if mvd4 is not None else None)
+    sub_a = _as_i32(sub_type).reshape(n * 4) if sub_type is not None \
+        else None
     refs_a = _as_i32(refs).reshape(n * 4) if refs is not None else None
     i8_a = (np.ascontiguousarray(mb_i8, np.uint8).reshape(n)
             if mb_i8 is not None else None)
@@ -181,8 +189,9 @@ def write_slice(header_bytes: bytes, header_nbits: int, slice_type: int,
             _as_i32(chroma_dc).reshape(n * 8),
             _as_i32(chroma_ac).reshape(n * 128),
             _ptr(i4_a), _ptr(i4m_a), _ptr(part_a), _ptr(mvd4_a),
-            _ptr(refs_a), num_ref, _ptr(i8_a), _ptr(i8m_a), _ptr(l8_a),
-            _ptr(t8_a), 1 if trans8_mode else 0, _ptr(grid_a), slice_qp)
+            _ptr(refs_a), num_ref, _ptr(sub_a), stride, _ptr(i8_a),
+            _ptr(i8m_a), _ptr(l8_a), _ptr(t8_a), 1 if trans8_mode else 0,
+            _ptr(grid_a), slice_qp)
         if r >= 0:
             return bytes(out[:r])
         cap *= 4

@@ -766,7 +766,13 @@ extern "C" long pcamv_write_slice_cabac(
       S.cbp_luma(my, mx, cbpl);
       S.cbp_chroma(my, mx, cbpc);
       int t8 = trans8 ? trans8[a] : 0;
-      if (trans8_mode && cbpl)
+      // noSubMbPartSizeLessThan8x8Flag (spec 7.3.5): no flag on an MB
+      // with a sub-partition under 8x8
+      bool t8_allowed = true;
+      if (p == 3 && sub_type)
+        for (int s = 0; s < 4; s++)
+          if (sub_type[a * 4 + s] != 0) t8_allowed = false;
+      if (trans8_mode && cbpl && t8_allowed)
         S.transform_size_flag(my, mx, t8);
       S.m.mb_kind[a] = 1;
       S.m.cbp[a] = (cbpc << 4) | cbpl;

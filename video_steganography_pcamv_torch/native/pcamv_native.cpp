@@ -277,6 +277,10 @@ extern "C" long pcamv_write_slice(
     // multiple references: refs [n][4] the L0 index of each ref slot
     // (unused slots 0), coded as te(v) when num_ref > 1
     const int32_t* refs, int num_ref,
+    // sub-8x8 partitions: sub_type [n][4] each P_8x8 block's
+    // sub_mb_type (null: all P_L0_8x8); mvd4 then holds mvd_stride units
+    // an MB, in coding order
+    const int32_t* sub_type, int mvd_stride,
     // High-profile 8x8 transform (PPS transform_8x8_mode_flag):
     // mb_i8 [n] I_NxN-8x8 flags; i8_modes [n][4] z-order pred modes;
     // luma8_scan [n][4][64] zigzag-ordered 8x8 levels; trans8 [n]
@@ -309,12 +313,24 @@ extern "C" long pcamv_write_slice(
       bw.put_ue(skip_run);
       skip_run = 0;
       // mb_type 0..3 (16x16/16x8/8x16/8x8, spec 7.3.5.2); P_8x8 codes
-      // four sub_mb_type P_L0_8x8
+      // its four sub_mb_type (spec Table 7-17)
       int p = part[a];
       static const int NU[4] = {1, 2, 2, 4};
+      static const int NUS[4] = {1, 2, 2, 4};  // units per sub_mb_type
       bw.put_ue(p);
-      if (p == 3)
-        for (int s = 0; s < 4; s++) bw.put_ue(0);
+      int n_units = NU[p];
+      // noSubMbPartSizeLessThan8x8Flag (spec 7.3.5): no
+      // transform_size_8x8_flag on an MB with a sub-partition under 8x8
+      bool t8_allowed = true;
+      if (p == 3) {
+        n_units = 0;
+        for (int s = 0; s < 4; s++) {
+          int sv = sub_type ? sub_type[a * 4 + s] : 0;
+          bw.put_ue((uint32_t)sv);
+          n_units += NUS[sv];
+          if (sv != 0) t8_allowed = false;
+        }
+      }
       if (num_ref > 1) {  // ref_idx_l0 te(v), one per ref slot
         int n_refs = p == 3 ? 4 : NU[p];
         for (int k = 0; k < n_refs; k++) {
@@ -323,16 +339,17 @@ extern "C" long pcamv_write_slice(
           else bw.put_ue((uint32_t)r);
         }
       }
-      for (int u = 0; u < NU[p]; u++) {
-        bw.put_se(mvd4[(a * 4 + u) * 2]);
-        bw.put_se(mvd4[(a * 4 + u) * 2 + 1]);
+      const int st = mvd_stride > 0 ? mvd_stride : 4;
+      for (int u = 0; u < n_units; u++) {
+        bw.put_se(mvd4[(a * st + u) * 2]);
+        bw.put_se(mvd4[(a * st + u) * 2 + 1]);
       }
       int cbp = (cbp_chroma[a] << 4) | cbp_luma[a];
       bw.put_ue(CBP_INTER_TO_GOLOMB[cbp]);
       // transform_size_8x8_flag between cbp and dqp (spec 7.3.5), only
-      // when luma residual exists
+      // when luma residual exists and no sub-partition is under 8x8
       int t8 = (trans8 && trans8[a]) ? 1 : 0;
-      if (trans8_mode && cbp_luma[a]) bw.put(1, t8);
+      if (trans8_mode && cbp_luma[a] && t8_allowed) bw.put(1, t8);
       if (cbp) bw.put_se(dq.next(a));  // mb_qp_delta
       if (t8 && cbp_luma[a]) {
         write_luma8(bw, fc, mx, my, cbp_luma[a], &luma8_scan[a * 256]);

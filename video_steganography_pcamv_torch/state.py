@@ -62,8 +62,10 @@ def from_reference(enc) -> dict:
         return None if a is None else np.asarray(a)
 
     info = getattr(enc, "last_frame_info", None) or {}
-    motion = (None if info.get("mv8") is None
-              else (np.asarray(info["mv8"]), arr(info.get("ref8"))))
+    # a sub-8x8 anchor's per-4x4 field, the others' per-8x8 one
+    motion = (None if info.get("mv8") is None else (
+        np.asarray(info["mv4"] if info.get("mv4") is not None
+                   else info["mv8"]), arr(info.get("ref8"))))
     bpipe = {
         "bbuf": [{"frame": tuple(np.asarray(x) for x in (f.y, f.u, f.v)),
                   "planes": tuple(np.asarray(x) for x in (y, u, v)),
