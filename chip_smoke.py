@@ -207,12 +207,32 @@ Phases (any failure raises and the script exits non-zero):
  37. sub-8x8 partitions at 128x96 on the same kind of clip, cuda == cpu
      (the cpu halves in the workers): CABAC with trellis 1, ref_frames 2
      (on the host deblock: the device deblock at more than one reference
-     is refused there, ROADMAP F10), and transform_8x8 with aq_mode 1.
+     is refused there, ROADMAP F10), and transform_8x8 with aq_mode 1;
+ 38. the plain encoder (stego off) at full width: bench.py's Params with
+     em_rate 0 (CAVLC, intra_in_p on) at 1920x1088 on bench.py's clip
+     with an occlusion reveal in every P frame (`reveal_clip`), IDR + 2
+     P at rd 0, then IDR + 1 P at rd 2: exact launches per P frame (rd
+     0: B1, B9, B3's mb_cost instance, the fused luma encode and B5
+     once, B4 never; rd 2: B1 once, B9 and B3 four times, the luma
+     encode 5-11 times, B5 once, B4 never), intra MBs in every P frame,
+     `refine_p_intra`'s CUDA-event ms and its share of the frame, P fps,
+     decoded == recon and the same intra MBs in the decoder (in a
+     worker);
+ 39. the plain encoder at 112x80 on the reveal clip, IDR + 2 frames,
+     cuda == cpu (the cpu
+     halves in the workers) for each served option set: CAVLC (both
+     tail_kernel settings), CABAC, rd 1, rd 2 with trellis 2, CABAC and
+     transform_8x8, ref_frames 2, aq_mode 1, the 16x16-only path,
+     bframes 2 with intra_in_p off, and a 2-stream MultiEncoder at
+     128x96.
 Phase 2 also holds B1's sub-unit instance (`pcamv_fullpel_sub`, the
 sub-8x8 analysis' search) against its plain version at 1080p shapes, rng
 16 with random and zero predictors, rng 20 and 7 with random ones,
 timed at rng 16.
-Phase 4 also holds B4 under the jvt inter list and deadzone 16 (timed
+Phase 4 also holds B3's mb_cost instance (the plain encoder's per-MB
+inter cost) against its plain twin for a random and a zero predictor
+(timed through the wrapper and alone, beside the instance without it),
+B4 under the jvt inter list and deadzone 16 (timed
 beside the flat tables), phase 9 the fused luma encode's noise-reduction
 instance (qp 26 and 20, with force-zero, timed beside the plain DCT
 entry through the wrapper and alone) and a wrap case (qp 0 under jvt,
@@ -220,7 +240,9 @@ residuals up to +-40000: the quant product leaves int32), and phase 17
 cqm jvt with the incremental re-encode, cqm jvt with transform_8x8, rd
 1, trellis 1 and CABAC, noise_reduction at ref_frames 2, and
 noise_reduction with B frames and the deadzones 16/8.
-Phase 3 also holds B5 with a fuzzed per-4x4 reference map (ref4), and
+Phase 3 also holds B5 on a plain P frame whose intra MBs lie in three
+patches (trans8 on the inter MBs), with a fuzzed per-4x4 reference map
+(ref4), and
 on per-4x4 motion fields that move inside 8x8 blocks (the sub-8x8
 path's), once with trans8 on the MBs without a sub split and once with
 a per-8x8 reference map, phase
@@ -238,18 +260,23 @@ and trellis 1, b_pyramid with weightb and trellis, the 16x16 path with
 transform_8x8 and trellis, the main path with trellis 1 and with rd
 2).
 Phases 9 and 13 run right after phase 4, so that a new kernel that fails
-stops the run early; 17 runs after 14, 35, 32, 33 and 34 right after 6
-(so that their decode checks start early), then 18, 19, 20, 22, 24 and
-25, and 26, 27, 29, 30, 31, 36 and 37 after 25.
+stops the run early. Phases 29, 32 and 17 (the trellis IDR's minutes
+of host-bound eager work, eight 1080p IDRs in a row, and 17's 24 small
+cases) then run in a second process of this script on the same card
+(`--side`, its own two workers), beside the rest, and "29, 32 and 17"
+near the end joins it and logs its lines; 35, 33 and 34 run right after
+6 (so that their decode checks start early), then 18, 19, 20, 22, 24
+and 25, and 26, 27, 30, 31, 36, 37, 38 and 39 after 25.
 The decode checks of the full-width phases (6, 7, 11, 15, 19, 20, 22,
-24-27, 29-33, 36: the port's CPU decoder, seconds a 1080p frame, and
-its extractor) run in four spawned worker processes while the later
-phases use the card; phase 28 waits for them, prints each one's result
-and fails if any failed. The same workers run the cpu halves of phases
-5, 14, 17, 35 and 37 (submitted beside 17's) while the main process
-runs their cuda halves,
-the payload checks of these phases and of phase 10, phase 3's plain
-twins of five 1080p cases and phase 36's plain B5 twin.
+24-27, 30, 31, 33, 36, 38: the port's CPU decoder, seconds a 1080p
+frame, and its extractor) run in four spawned worker processes while
+the later phases use the card; phase 28 waits for them, prints each
+one's result and fails if any failed. The same workers run the cpu
+halves of phases 5, 14, 35, 37 and 39 (submitted early) while the main
+process runs their cuda halves, the payload checks of these phases and
+of phase 10, phase 3's plain twins of six 1080p cases and phase 36's
+plain B5 twin. The second process's two workers do the same for phases
+29, 32 and 17.
 Each phase logs its wall time. The line before the last two holds the
 per-kernel JSON record, then the card line; the last line is
 {"ok": true, "device": {...}}.
@@ -531,7 +558,7 @@ def sub_patch_clip(w, h, n, seed, size=256):
 
 
 def _deblock_case(dev, g, mbh, mbw, trans8: bool, ref4: bool = False,
-                  sub: bool = False):
+                  sub: bool = False, patches: bool = False):
     """Planes with MB-level steps and noise, fuzzed intra/skip/nnz/mv
     maps (mv constant over 8x8 blocks) and, optionally, trans8 and a
     per-8x8 reference map ref4 (then a quarter of the 8x8 blocks keep
@@ -539,7 +566,10 @@ def _deblock_case(dev, g, mbh, mbw, trans8: bool, ref4: bool = False,
     reference). `sub`: half of the MBs are split below 8x8, their MVs
     move per 4x4 by -5..5 quarter pels around their 8x8's (so that the
     MV steps of edges inside an 8x8 straddle the bS threshold of 4),
-    and trans8 falls only on the MBs without a split."""
+    and trans8 falls only on the MBs without a split. `patches`: a P
+    frame of the plain encoder, its intra MBs in three rectangles of
+    new content (the rest inter, a fifth skipped), trans8 only on inter
+    MBs."""
     H, W = 16 * mbh, 16 * mbw
     base = g.integers(60, 180, (mbh, mbw))
     y = np.clip(np.repeat(np.repeat(base, 16, 0), 16, 1)
@@ -547,6 +577,11 @@ def _deblock_case(dev, g, mbh, mbw, trans8: bool, ref4: bool = False,
     u = np.clip(128 + g.integers(-24, 25, (H // 2, W // 2)), 0, 255)
     v = np.clip(128 + g.integers(-24, 25, (H // 2, W // 2)), 0, 255)
     intra = (g.random((mbh, mbw)) < 0.15).astype(np.int32)
+    if patches:
+        intra[:] = 0
+        for _ in range(3):
+            y0, x0 = g.integers(0, mbh - 12), g.integers(0, mbw - 20)
+            intra[y0:y0 + 12, x0:x0 + 20] = 1
     skip = ((g.random((mbh, mbw)) < 0.2) & (intra == 0)).astype(np.int32)
     nnz4 = (g.random((4 * mbh, 4 * mbw)) < 0.5).astype(np.int32)
     mv4 = g.integers(-20, 21, (4 * mbh, 4 * mbw, 2)).astype(np.int32)
@@ -568,6 +603,8 @@ def _deblock_case(dev, g, mbh, mbw, trans8: bool, ref4: bool = False,
             .astype(np.int32)
         if t8 is not None:
             t8[split] = 0
+    if patches and t8 is not None:
+        t8[intra == 1] = 0
     planes = [torch.as_tensor(a.astype(np.uint8), device=dev)
               for a in (y, u, v)]
     maps = [torch.as_tensor(np.ascontiguousarray(a), device=dev)
@@ -615,7 +652,10 @@ def phase_b5(dev, int_rate):
              ("qp 26, per-4x4 mv, trans8 on the MBs without a split", MBH,
               MBW, 26, 0, 0, True, False, True),
              ("qp 30, per-4x4 mv, ref4 fuzzed", MBH, MBW, 30, 0, 0, False,
-              True, True)]
+              True, True),
+             ("qp 26, a plain P frame with intra MBs in patches, trans8 on "
+              "the inter MBs", MBH, MBW, 26, 0, 0, True, False, False,
+              True)]
     wide = 1024
     resident = DB.resident_ctas(wide)
     cases.append(("%d MB rows > %d resident CTAs (%dx%d)"
@@ -659,13 +699,16 @@ def phase_b5(dev, int_rate):
                                       {k: v for k, v in kw.items()
                                        if k not in ("trans8", "ref4")}),
                               check))
-        else:
+        elif i > 0:
             check(plain())
-        if i == 0:
+        else:
+            # the plain wave loop takes seconds a call: one timed call,
+            # whose output is the twin
+            want = []
+            plain_ms = cuda_ms(lambda: want.append(plain()), 1, warmup=0)
+            check(want[0])
             ms = cuda_ms(lambda: DB.deblock_frame(
                 *planes, *maps, qp, qpc, mbh, mbw, **kw), 20, 3)
-            # the plain wave loop takes seconds a call: one timed call
-            plain_ms = cuda_ms(plain, 1, warmup=0)
             log("B5 qp 26 time, the whole call (edge parameters + filter, "
                 "uint8 in and out, one launch): kernel %.4f ms, plain "
                 "%.3f ms (median, 1080p)" % (ms, plain_ms))
@@ -842,6 +885,30 @@ def _tail_inputs(dev):
     return cur, windows, part, mvfp8, prev_mv, lam, qp
 
 
+def _subpel_alone_ms(cur, windows, part, mvfp8, prev_mv, lam, cost: bool,
+                     launches: int = 20, reps: int = 5) -> float:
+    """Device ms a launch of B3's C entry alone (`pcamv_subpel`, with or
+    without its mb_cost output): `launches` back-to-back launches between
+    two CUDA events, the median of `reps`."""
+    from video_steganography_pcamv_torch import kernels
+    mv8 = torch.empty((2 * MBH, 2 * MBW, 2), dtype=torch.int32,
+                      device=cur.device)
+    r_idx8 = torch.empty((4 * MBH * MBW,), dtype=torch.int32,
+                         device=cur.device)
+    out = torch.empty((MBH, MBW), dtype=torch.int32, device=cur.device)
+    VP, CI = kernels.VP, kernels.CI
+    fn = kernels.entry("pcamv_subpel", [VP] * 5 + [CI] * 3 + [VP] * 4)
+    p = kernels.ptr
+    args = (p(cur), p(windows), p(part), p(mvfp8), p(prev_mv), int(lam), MBH,
+            MBW, p(mv8), p(r_idx8), p(out) if cost else None,
+            kernels.stream(cur))
+
+    def run():
+        for _ in range(launches):
+            kernels.check(fn(*args), "pcamv_subpel")
+    return cuda_ms(run, reps) / launches
+
+
 def phase_tail(dev, int_rate):
     from video_steganography_pcamv_torch.ops import probe as PR
     cur, windows, part, mvfp8, prev_mv, lam, qp = _tail_inputs(dev)
@@ -895,6 +962,35 @@ def phase_tail(dev, int_rate):
                 n8 * 49 * (4 * build + 64 * 3), int_rate)
     recs.append(record("subpel", "subpel.cu", "ops/probe_pallas.py:301",
                        err, ms, plain_ms, bnd))
+    # B3's mb_cost instance (the stego-off analysis): the same work and
+    # one int32 more written per MB, for a random and a zero predictor
+    errs = []
+    zero = torch.zeros_like(prev_mv)
+    for pred, pname in ((prev_mv, "random"), (zero, "zero")):
+        got = PR.subpel(cur, windows, part, mvfp8, pred, lam, MBH, MBW,
+                        mb_cost=True)
+        want = PR.subpel_parts(cur, windows, part, mvfp8, pred, MBH, MBW,
+                               lam, mb_cost=True)
+        errs.append(check("B3 subpel with mb_cost (%s predictor)" % pname,
+                          got, want))
+        if not torch.equal(got[0], PR.subpel(cur, windows, part, mvfp8,
+                                             pred, lam, MBH, MBW)[0]):
+            raise AssertionError("B3: mb_cost moved mv8")
+    ms_c = cuda_ms(lambda: PR.subpel(cur, windows, part, mvfp8, prev_mv, lam,
+                                     MBH, MBW, mb_cost=True), 20, 3)
+    alone_c = _subpel_alone_ms(cur, windows, part, mvfp8, prev_mv, lam, True)
+    alone = _subpel_alone_ms(cur, windows, part, mvfp8, prev_mv, lam, False)
+    plain_c = cuda_ms(lambda: PR.subpel_parts(
+        cur, windows, part, mvfp8, prev_mv, MBH, MBW, lam, mb_cost=True), 3)
+    bnd_c = bound(n8 * (64 * 4 + 1024 + 8 + 12) + n * 16,
+                  n8 * 49 * (4 * build + 64 * 3) + n * 8, int_rate)
+    rec = record("subpel_mb_cost", "subpel.cu", "ops/probe_pallas.py:301",
+                 max(errs), ms_c, plain_c, bnd_c)
+    rec.update(alone_ms=alone_c, stego_instance_alone_ms=alone)
+    recs.append(rec)
+    log("B3 mb_cost instance: %.4f ms through the wrapper, %.4f ms alone "
+        "(the stego instance alone %.4f ms), plain %.3f ms, bound %.4f ms "
+        "(%s) (median, 1080p)" % (ms_c, alone_c, alone, plain_c, *bnd_c))
 
     # B4 with B2's rows fused in: reads cur, the windows and r_idx8;
     # writes SK, SP, sc8. ops per 8x8: the 45 distinct lattice rows
@@ -1659,6 +1755,8 @@ def phase_luma_aq(dev, int_rate, cur, pred):
 # the 1080p decode checks run in worker processes while the next phases
 # use the card; `_join_checks` collects them before the result is printed
 _POOL, _DEFERRED = None, []
+# worker processes of the pool (phase 29's own process runs with one)
+POOL_WORKERS = 4
 
 
 def _worker_init():
@@ -1673,7 +1771,7 @@ def _submit(fn, *args):
         import multiprocessing
         from concurrent.futures import ProcessPoolExecutor
         _POOL = ProcessPoolExecutor(
-            4, mp_context=multiprocessing.get_context("spawn"),
+            POOL_WORKERS, mp_context=multiprocessing.get_context("spawn"),
             initializer=_worker_init)
     return _POOL.submit(fn, *args)
 
@@ -2579,6 +2677,194 @@ def phase_small_sub(dev, jobs):
                int((sub > 0).sum())))
 
 
+def reveal_clip(w, h, n, seed=7):
+    """bench.py's clip (`synthetic_sequence(w, h, n, seed)`) with an
+    occlusion reveal in every P frame, as `tests/test_intra_in_p.py`'s:
+    a (h/4 x w/4) patch of new content, 4x4-pixel cells of uniform
+    random luma (numpy, from `seed`), at a place that moves each frame,
+    so that the plain encoder's intra compare switches MBs to intra."""
+    from video_steganography_pcamv_torch.utils.yuv import synthetic_sequence
+    frames = synthetic_sequence(w, h, n, seed=seed)
+    g = np.random.default_rng(seed)
+    ph, pw = (h // 4) & ~15, (w // 4) & ~15
+    for i, f in enumerate(frames[1:], 1):
+        y0 = int(g.integers(0, (h - ph) // 16 + 1)) * 16
+        x0 = int(g.integers(0, (w - pw) // 16 + 1)) * 16
+        f.y[y0:y0 + ph, x0:x0 + pw] = np.repeat(np.repeat(
+            g.integers(0, 256, (ph // 4, pw // 4)), 4, 0), 4, 1)
+    return frames
+
+
+def _plain_decode_job(bs, n_frames, recon):
+    """A plain stream (stego off) in a worker: the port's decoder
+    reconstructs every frame; each is held against the encoder's planes
+    `recon` (decode order). Returns (decode s, the differing pixels and
+    the intra MBs (I16x16 + I4x4) of each frame)."""
+    from video_steganography_pcamv_torch.decoder import decode_annexb
+    t0 = time.time()
+    dec = decode_annexb(bs)
+    if len(dec) != n_frames:
+        raise AssertionError("decoded %d frames of %d" % (len(dec), n_frames))
+    differ = [sum(int((getattr(fr, pl) != r[:fr.y.shape[0] // s,
+                                            :fr.y.shape[1] // s]).sum())
+                  for pl, r, s in zip("yuv", recon[i], (1, 2, 2)))
+              for i, fr in enumerate(dec)]
+    intra = [sum(m.mb_type in ("I16x16", "I4x4") for m in fr.mbs)
+             for fr in dec]
+    return time.time() - t0, differ, intra
+
+
+def _plain_run(dev, card, label, p, frames):
+    """One plain (stego-off) encode of `frames` at full width, each frame
+    synced and timed: per P frame its seconds, launches, intra MBs and
+    `refine_p_intra`'s CUDA-event ms; decoded == recon in a worker.
+    Returns (launches per P frame, the IDR's s, P seconds, refine ms)."""
+    from video_steganography_pcamv_torch import Encoder
+    from video_steganography_pcamv_torch.encoder import core as TC
+    enc = Encoder(p, device=dev)
+    fns = _counters()
+    refine, seen = TC.refine_p_intra, []
+
+    def timed_refine(*a, **kw):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = refine(*a, **kw)
+        ev[1].record()
+        torch.cuda.synchronize()
+        kind = out["intra_kind"]
+        seen.append((ev[0].elapsed_time(ev[1]), int((kind == 1).sum()),
+                     int((kind == 2).sum())))
+        return out
+    TC.refine_p_intra = timed_refine
+    per, secs, recon, bs = [], [], [], b""
+    try:
+        for f in frames:
+            for fn in fns.values():
+                fn.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bs += enc.encode_frame(f)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            per.append({k: fn.launches for k, fn in fns.items()})
+            recon.append(tuple(t.cpu().numpy() for t in enc.recon_prev))
+    finally:
+        TC.refine_p_intra = refine
+    if enc._stego is not None or enc.stats.p_frames != len(frames) - 1:
+        raise AssertionError("%s: not a plain IPP run" % label)
+    if len(seen) != len(frames) - 1 or not all(i16 + i4 for _ms, i16, i4
+                                                in seen):
+        raise AssertionError("%s: refine_p_intra calls %s: every P frame "
+                             "should switch MBs to intra" % (label, seen))
+
+    def report(r):
+        secs_d, differ, intra = r
+        if any(differ):
+            raise AssertionError("%s: decoded frames differ from the recon:"
+                                 " %s" % (label, differ))
+        if intra[1:] != [i16 + i4 for _ms, i16, i4 in seen]:
+            raise AssertionError("%s: decoded intra MBs %s, encoded %s"
+                                 % (label, intra[1:], seen))
+        log("%s: every decoded frame == the encoder's recon, intra MBs a P "
+            "frame %s (decode %.1f s, in a worker)" % (label, intra[1:],
+                                                       secs_d))
+    _DEFERRED.append((_submit(_plain_decode_job, bs, len(frames), recon),
+                      report))
+    for i, (t, l, (ms, i16, i4)) in enumerate(zip(secs[1:], per[1:], seen)):
+        log("%s: P frame %d %.3f s (%.4f fps), %d I16x16 + %d I4x4 MBs, "
+            "refine_p_intra %.1f ms (%.1f%% of the frame); launches %s  [%s]"
+            % (label, i + 1, t, 1 / t, i16, i4, ms, ms / 10 / t,
+               json.dumps({k: v for k, v in l.items() if v}), card))
+    log("%s: IDR %.3f s; P frames %.4f fps; bytes %s"
+        % (label, secs[0], (len(frames) - 1) / sum(secs[1:]),
+           _frame_bytes(bs)))
+    return per[1:], secs[0], secs[1:], [x[0] for x in seen]
+
+
+def phase_plain(dev, card, w: int = 1920, h: int = 1088):
+    """Phase 38: the plain encoder at full width: bench.py's Params with
+    stego off (em_rate 0), CAVLC, intra_in_p on, on `reveal_clip`: rd 0
+    over IDR + 2 P, then rd 2 over IDR + 1 P. Exact launches a P frame:
+    at rd 0 B1, B9, B3 (its mb_cost instance), the fused luma encode and
+    B5 once, B4 never; at rd 2 B1 once (the RD re-rank), B9 and B3 four
+    times (one a shape), B5 once, B4 never, the luma encode once a shape,
+    once for the final encode and once a re-encode of the rd 2 probes.
+    Every P frame holds intra MBs; decoded == recon (in a worker).
+    Returns the rd 0 run's launches summed over its P frames."""
+    frames = reveal_clip(w, h, 3)
+    label = "%dx%d plain (stego off), rd 0" % (w, h)
+    per, _idr, _secs, _ms = _plain_run(dev, card, label,
+                                       _params(w, h, True, em_rate=0), frames)
+    one = {"fullpel_parts": 1, "gather_windows8": 1, "subpel": 1,
+           "subpel_mb_cost": 1, "luma_p_encode": 1, "deblock_frame": 1}
+    for i, l in enumerate(per):
+        if l != dict({k: 0 for k in l}, **one):
+            raise AssertionError("%s: P frame %d launches %s, want %s"
+                                 % (label, i + 1, l, one))
+    label2 = "%dx%d plain (stego off), rd 2" % (w, h)
+    per2, _idr, _secs, _ms = _plain_run(
+        dev, card, label2, _params(w, h, True, em_rate=0, rd=2), frames[:2])
+    l2 = per2[0]
+    lo = dict({k: 0 for k in l2}, fullpel_parts=1, gather_windows8=4,
+              subpel=4, subpel_mb_cost=4, luma_p_encode=l2["luma_p_encode"],
+              deblock_frame=1)
+    if l2 != lo or not 5 <= l2["luma_p_encode"] <= 11:
+        raise AssertionError("%s: launches %s, want %s with the luma encode "
+                             "5-11 times" % (label2, l2, lo))
+    return {k: sum(l[k] for l in per) for k in per[0]}
+
+
+# phase 39's option sets: the plain encoder at 112x80 (128x96 for the
+# MultiEncoder's streams), each on cuda and on cpu
+PLAIN_SMALL = {
+    "CAVLC": {}, "CAVLC, tail_kernel=False": dict(tail_kernel=False),
+    "CABAC": dict(cabac=True), "rd 1": dict(rd=1),
+    "rd 2, trellis 2, CABAC, transform_8x8": dict(rd=2, trellis=2,
+                                                 cabac=True,
+                                                 transform_8x8=True),
+    "ref_frames 2": dict(ref_frames=2), "aq_mode 1": dict(aq_mode=1),
+    "16x16 path": dict(partitions=False, deblock_device=False),
+    "bframes 2, intra_in_p off": dict(bframes=2, intra_in_p=False)}
+PLAIN_SMALL_SHAPE = (112, 80, 3)
+
+
+def _plain_small_job(name, dev):
+    """A phase-39 run on `dev` ("cpu" in a worker): the stream, or for
+    "MultiEncoder" the two streams, and the recon of the last frame."""
+    if name == "MultiEncoder":
+        from video_steganography_pcamv_torch.encoder import multistream as MS
+        seqs = [reveal_clip(128, 96, 3, seed=20 + s) for s in range(2)]
+        me = MS.MultiEncoder(_params(128, 96, True, me_range=8, em_rate=0),
+                             2, devices=[dev])
+        return _multi_run(me, seqs, 3)[0]
+    w, h, n = PLAIN_SMALL_SHAPE
+    kw = dict(PLAIN_SMALL[name])
+    tk = kw.pop("tail_kernel", True)
+    enc, bs = _encode(_params(w, h, tk, em_rate=0, **kw),
+                      reveal_clip(w, h, n, seed=11), dev)
+    return bs
+
+
+def submit_plain_small():
+    """The cpu halves of phase 39, submitted to the workers early."""
+    return {k: _submit(_plain_small_job, k, "cpu")
+            for k in list(PLAIN_SMALL) + ["MultiEncoder"]}
+
+
+def phase_plain_small(dev, jobs):
+    """Phase 39: the plain encoder (stego off) at 112x80 on `reveal_clip`
+    for each served option set, and a 2-stream MultiEncoder at 128x96:
+    cuda == cpu (`jobs`: the cpu halves from `submit_plain_small`)."""
+    for k in list(PLAIN_SMALL) + ["MultiEncoder"]:
+        got = _plain_small_job(k, dev)
+        want = jobs[k].result()
+        if got != want:
+            raise AssertionError("plain %s: cuda stream != cpu stream" % k)
+        log("plain %s: cuda stream == cpu stream (%s bytes)"
+            % (k, [len(b) for b in got] if isinstance(got, list)
+               else len(got)))
+
+
 # tools/bench_streams.py's Params (BASELINE config 5's serving setup)
 STREAMS_KW = dict(qp=26, me_range=16, keyint_max=250, scenecut_threshold=0,
                   psnr=False, deblock_device=True)
@@ -3154,26 +3440,31 @@ def phase_bpath(dev, card, label, p, n_frames, want_pb=None,
     return launches, write_ms
 
 
-class _LumaLaunches:
-    """One of the fused luma encode's other counters as a counter like
-    the wrappers: `luma_p_encode.levels_launches` (the levels-in entry,
-    under trellis), `luma_p_encode.nr_launches` (the noise-reduction
-    instance, each launch also one of `luma_p_encode.launches`) or
-    `luma_p_encode.grid_launches` (the per-MB qp instances of either
-    entry, adaptive quantization)."""
+class _InstanceLaunches:
+    """One of a wrapper's other counters as a counter like the wrappers:
+    the fused luma encode's `levels_launches` (the levels-in entry, under
+    trellis), `nr_launches` (the noise-reduction instance, each launch
+    also one of `luma_p_encode.launches`) or `grid_launches` (the per-MB
+    qp instances of either entry, adaptive quantization), or B3's
+    `subpel.cost_launches` (its mb_cost instance, stego off; each launch
+    also one of `subpel.launches`)."""
 
-    def __init__(self, attr: str):
+    def __init__(self, attr: str, owner: str = "luma"):
         self.attr = attr
+        self.owner = owner
+
+    def _fn(self):
+        from video_steganography_pcamv_torch.ops import lumap as LP
+        from video_steganography_pcamv_torch.ops import probe as PR
+        return LP.luma_p_encode if self.owner == "luma" else PR.subpel
 
     @property
     def launches(self):
-        from video_steganography_pcamv_torch.ops import lumap as LP
-        return getattr(LP.luma_p_encode, self.attr)
+        return getattr(self._fn(), self.attr)
 
     @launches.setter
     def launches(self, n):
-        from video_steganography_pcamv_torch.ops import lumap as LP
-        setattr(LP.luma_p_encode, self.attr, n)
+        setattr(self._fn(), self.attr, n)
 
 
 def _check_anchors(label, p, fns, lp, per_a, checked, n_p, enc):
@@ -3223,9 +3514,10 @@ def _counters():
             "gather_windows": QT.gather_windows,
             "dct_quant": TQ.dct_quant, "deq_idct": TQ.deq_idct,
             "luma_p_encode": LP.luma_p_encode,
-            "luma_p_encode_levels": _LumaLaunches("levels_launches"),
-            "luma_p_encode_nr": _LumaLaunches("nr_launches"),
-            "luma_p_encode_aq": _LumaLaunches("grid_launches"),
+            "luma_p_encode_levels": _InstanceLaunches("levels_launches"),
+            "luma_p_encode_nr": _InstanceLaunches("nr_launches"),
+            "luma_p_encode_aq": _InstanceLaunches("grid_launches"),
+            "subpel_mb_cost": _InstanceLaunches("cost_launches", "subpel"),
             "gather_windows8": PT.gather_windows8,
             "lowres_costs_kernel": ST.lowres_costs_kernel}
 
@@ -3612,6 +3904,77 @@ C.phase_stages(dev, card)
 """
 
 
+class SideProcess:
+    """Phases in a second process of this script on the same card
+    (`--side OUT`), started early so that it runs while the main
+    process works through the other phases: its output lines are kept by
+    a reader thread and logged when `join` collects it, with its result
+    (a JSON file) and its own wall time. `stop` ends it if the run fails
+    first."""
+
+    def __init__(self, flag: str):
+        here = os.path.dirname(os.path.abspath(__file__))
+        os.makedirs(os.path.join(here, "build"), exist_ok=True)
+        self.out = os.path.join(here, "build", "chip_smoke%s.json" % flag[1:])
+        self.t0 = time.time()
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), flag, self.out],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        self.lines = []
+        self.reader = threading.Thread(target=self._read, daemon=True)
+        self.reader.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.lines.append(line.rstrip("\n"))
+
+    def join(self) -> dict:
+        rc = self.proc.wait()
+        self.reader.join()
+        for line in self.lines:
+            log("  | " + line)
+        log("(its process: %.1f s from its start, rc %d)"
+            % (time.time() - self.t0, rc))
+        try:
+            if rc != 0:
+                raise AssertionError("the second process failed (rc %d)" % rc)
+            with open(self.out) as f:
+                return json.load(f)
+        finally:
+            os.remove(self.out)
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def side_child(out: str) -> int:
+    """`--side OUT`: phases 29, 32 and 17 in a second process (their cpu
+    halves and decode checks in two workers of its own), phase 29's
+    launches written to OUT."""
+    global POOL_WORKERS
+    POOL_WORKERS = 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    dev = torch.device("cuda", 0)
+    card = card_query("name,power.limit")
+    t0 = time.time()
+    launches = phase_trellis(dev, card)
+    log("[phase 29 (second process): %.1f s]" % (time.time() - t0))
+    t1 = time.time()
+    phase_config5(dev, card)
+    log("[phase 32 (second process): %.1f s]" % (time.time() - t1))
+    t1 = time.time()
+    phase_small_cabac(dev)
+    log("[phase 17 (second process): %.1f s]" % (time.time() - t1))
+    t1 = time.time()
+    _join_checks()
+    log("[its decode checks: %.1f s]" % (time.time() - t1))
+    with open(out, "w") as f:
+        json.dump({"launches": launches}, f)
+    return 0
+
+
 def ab(parent_root: str) -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     parent_root = os.path.abspath(parent_root)
@@ -3639,6 +4002,7 @@ def main() -> int:
                     "1080p")
     ap.add_argument("--ab", metavar="PARENT_ROOT",
                     help="compare the main path with another checkout")
+    ap.add_argument("--side", metavar="OUT", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -3646,6 +4010,8 @@ def main() -> int:
         return 2
     if args.ab:
         return ab(args.ab)
+    if args.side:
+        return side_child(args.side)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     t_start = time.time()
     dev = torch.device("cuda", 0)
@@ -3671,14 +4037,19 @@ def main() -> int:
     recs += phase("4 B2-B4", phase_tail, dev, int_rate)
     recs9 = phase("13 B9-B10", phase_b9b10, dev, int_rate)
     recs16 = phase("9 B6-B8", phase_b678, dev, int_rate)
+    # phases 29 (a trellis IDR: minutes of host-bound eager work), 32
+    # (eight 1080p IDRs in a row) and 17 (24 small cuda == cpu cases) run
+    # in a second process on the card beside the phases below, once the
+    # kernels' timings are taken
+    global _SIDE
+    _SIDE = SideProcess("--side")
     phase("5 112x80", phase_small, dev)
     phase("14 128x96 config 3", phase_small8, dev)
     sub_jobs = submit_small_sub()
-    phase("17 112x80 CABAC, default Params", phase_small_cabac, dev)
+    plain_jobs = submit_plain_small()
     launches, bs6, enc6 = phase("6 main path", phase_main, dev, card,
                                 tail_kernel=True, n_frames=5, phase_id="6")
     phase("35 128x96 multi-stream and tile layers", phase_small_multi, dev)
-    phase("32 config 5: 8 x 1080p MultiEncoder", phase_config5, dev, card)
     phase("33 2 x 1080p PipelinedMultiEncoder", phase_pipelined_multi, dev,
           card)
     phase("34 1080p pipeline and tile steps", phase_pipeline_tile, dev,
@@ -3695,13 +4066,13 @@ def main() -> int:
           card)
     phase("27 1080p b_pyramid, temporal direct", phase_pyramid_temporal,
           dev, card)
-    launches29 = phase("29 1080p transform_8x8, rd 1, trellis 1",
-                       phase_trellis, dev, card)
     launches30 = phase("30 1080p cqm jvt, deadzones, nr", phase_quant, dev,
                        card, bs6)
     launches31 = phase("31 1080p aq_mode 1", phase_aq, dev, card, bs6)
     launches36 = phase("36 1080p p4x4", phase_sub, dev, card)
     phase("37 128x96 p4x4", phase_small_sub, dev, sub_jobs)
+    launches38 = phase("38 1080p plain encoder", phase_plain, dev, card)
+    phase("39 112x80 plain encoder", phase_plain_small, dev, plain_jobs)
     if args.stagesB:
         phase("23 config-4 B-frame stages", phase_stages_b, dev, card)
         phase("23 phase-26 B-frame stages", phase_stages_b, dev, card,
@@ -3723,11 +4094,15 @@ def main() -> int:
     if args.stages8:
         phase("16 config-3 stages", phase_stages, dev, card, n_frames=6,
               config3=True)
+    launches29 = phase("29, 32 and 17 (the second process, joined)",
+                       _SIDE.join)["launches"]
     if launches8["gather_windows8"] < 1:
         raise AssertionError("config 3 did not launch B9")
     for r in recs + recs9:
-        # the sub-unit instance runs on phase 36's path only
-        r["launches"] = launches[r["name"]] or launches36[r["name"]]
+        # the sub-unit instance runs on phase 36's path only, B3's mb_cost
+        # instance on phase 38's (stego off)
+        r["launches"] = (launches[r["name"]] or launches36[r["name"]]
+                         or launches38[r["name"]])
     for r in recs16:
         # the main path's count where the kernel runs there (the fused
         # luma encode), else the 16x16 path's (B6, B7), phase 29's for the
@@ -3748,9 +4123,13 @@ def main() -> int:
     return 0
 
 
+_SIDE = None
+
 if __name__ == "__main__":
     try:
         rc = main()
     finally:
+        if _SIDE is not None:
+            _SIDE.stop()
         _stop_pool()
     sys.exit(rc)

@@ -79,7 +79,13 @@ its own:  python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
   content (CAVLC; CABAC with trellis; ref_frames 2; ref_frames 3 with CABAC,
   both on the host deblock (ROADMAP F10); transform_8x8 with
   aq_mode 1; bframes 2), with the sub instance, the fused luma encode and
-  B5 launched on the path.
+  B5 launched on the path;
+- the plain encoder (stego off): B3's mb_cost output vs its plain twin
+  at 1080p shapes (random and zero predictors), with the stego
+  instance's outputs unmoved; B5 on a plain P frame with intra MBs in
+  patches vs edge_params + its plain version; and cuda == cpu streams
+  at 112x80 on a clip with occlusion reveals (CAVLC, CABAC, rd 2,
+  ref_frames 2), with B3's mb_cost instance launched and B4 never.
 """
 
 import numpy as np
@@ -1206,4 +1212,92 @@ def test_cuda_stream_equals_cpu_stream_p4x4(dev, kw):
     assert FP.fullpel_sub.launches > n0
     assert LP.luma_p_encode.launches > l0
     assert DB.deblock_frame.launches > d0
+    assert got == run("cpu")
+
+
+@pytest.mark.parametrize("zero_pred", [False, True], ids=["random", "zero"])
+def test_b3_mb_cost_output_matches_plain_1080p(dev, zero_pred):
+    """B3's per-MB inter cost (the stego-off analysis) at 1080p shapes:
+    equal to its plain twin, and the mv8/r_idx8 of the instance without
+    it unmoved."""
+    cur, windows, part, mvfp8, prev_mv, mbh, mbw = _tail_inputs(
+        dev, 1920, 1088, 26)
+    if zero_pred:
+        prev_mv = torch.zeros_like(prev_mv)
+    got = PR.subpel(cur, windows, part, mvfp8, prev_mv, 4, mbh, mbw,
+                    mb_cost=True)
+    want = PR.subpel_parts(cur, windows, part, mvfp8, prev_mv, mbh, mbw, 4,
+                           mb_cost=True)
+    for g, x in zip(got, want):
+        assert torch.equal(g, x)
+    plain = PR.subpel(cur, windows, part, mvfp8, prev_mv, 4, mbh, mbw)
+    assert torch.equal(plain[0], got[0]) and torch.equal(plain[1], got[1])
+
+
+def test_b5_on_a_plain_p_frame_with_intra_mbs_matches_plain(dev):
+    """B5 on a P frame of the plain encoder: intra MBs in patches, the
+    inter MBs with trans8 and skips, vs edge_params + its plain
+    version."""
+    mbh, mbw, qp = 9, 11, 28
+    g = np.random.default_rng(5)
+    H, W = 16 * mbh, 16 * mbw
+    planes = [np.clip(np.repeat(np.repeat(g.integers(60, 190, (s[0] // 8,
+                                                               s[1] // 8)),
+                                          8, 0), 8, 1)
+                      + g.integers(-20, 21, s), 0, 255)
+              for s in ((H, W), (H // 2, W // 2), (H // 2, W // 2))]
+    intra = np.zeros((mbh, mbw), bool)
+    intra[2:6, 3:8] = True
+    intra[7:, :2] = True
+    skip = (g.random((mbh, mbw)) < 0.25) & ~intra
+    nnz4 = g.random((4 * mbh, 4 * mbw)) < 0.5
+    mv4 = np.repeat(np.repeat(g.integers(-20, 21, (2 * mbh, 2 * mbw, 2)), 2,
+                              0), 2, 1)
+    t8 = (g.random((mbh, mbw)) < 0.5) & ~intra
+    t = [torch.as_tensor(np.ascontiguousarray(a, np.int32), device=dev)
+         for a in planes + [intra, skip, nnz4, mv4, t8]]
+    y8 = [p.to(torch.uint8) for p in t[:3]]
+    got = DB.deblock_frame(*y8, *t[3:7], qp, chroma_qp(qp), mbh, mbw,
+                           trans8=t[7])
+    par = DB.edge_params(*t[3:7], qp, chroma_qp(qp), mbh, mbw, trans8=t[7])
+    want = DB.deblock_frame_plain(*t[:3], par, mbh, mbw)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def _reveal_frames(n, W=112, H=80, seed=3):
+    """Global motion with a new-content patch in every P frame."""
+    r = np.random.RandomState(seed)
+    big = np.repeat(np.repeat(r.randint(40, 216, (H // 4 + 8, W // 4 + 8)),
+                              4, 0), 4, 1).astype(np.uint8)
+    out = []
+    for i in range(n):
+        y = big[i:H + i, 2 * i:W + 2 * i].copy()
+        if i:
+            y0, x0 = r.randint(0, H - 32), r.randint(0, W - 48)
+            y[y0:y0 + 32, x0:x0 + 48] = np.repeat(np.repeat(
+                r.randint(0, 256, (8, 12)), 4, 0), 4, 1)
+        c = np.full((H // 2, W // 2), 128, np.uint8)
+        out.append(Frame(y, c, c.copy()))
+    return out
+
+
+@pytest.mark.parametrize("kw", [
+    dict(), dict(cabac=True), dict(rd=2), dict(ref_frames=2)],
+    ids=["cavlc", "cabac", "rd2", "ref2"])
+def test_cuda_stream_equals_cpu_stream_plain(dev, kw):
+    """The plain encoder (stego off) at 112x80 on reveal content: cuda
+    == cpu streams, with B3's mb_cost instance launched and B4 never."""
+    frames = _reveal_frames(4)
+
+    def run(device):
+        enc = Encoder(Params(width=112, height=80, qp=26, me_range=16,
+                             deblock_device=True, psnr=False, **kw),
+                      device=device)
+        return b"".join(enc.encode_frame(f) for f in frames) + enc.flush()
+
+    c0, b4 = PR.subpel.cost_launches, PR.probe_maps.launches
+    got = run(dev)
+    assert PR.subpel.cost_launches > c0
+    assert PR.probe_maps.launches == b4
     assert got == run("cpu")

@@ -13,6 +13,8 @@
 - `PipelinedMultiEncoder` at 96x64, S=2, T=5, byte-equal to the JAX one.
 - CABAC, a chroma qp offset and an IDR step inside the streams, which
   the reference's `MultiEncoder` honours, byte-equal.
+- Stego off: the plain `MultiEncoder` byte-equal to the JAX one, and its
+  streams equal to the port's single-stream encoders'.
 - Every option the reference's `MultiEncoder` ignores or breaks is
   refused, and the reference's faults under three of them (ROADMAP F7,
   F8, F9) are shown on the reference itself; both raise when the
@@ -31,6 +33,7 @@ from video_steganography_pcamv_tpu.stego.extract import (
     extract_from_stream as j_extract)
 from video_steganography_pcamv_tpu.utils.yuv import synthetic_sequence
 
+from video_steganography_pcamv_torch import Encoder as TEncoder
 from video_steganography_pcamv_torch import params as TP
 from video_steganography_pcamv_torch import state as TS
 from video_steganography_pcamv_torch.encoder.multistream import (
@@ -65,6 +68,13 @@ def _tparams(tail_kernel=False, **kw):
     p = TP.Params(**_kw(**kw), stego=TP.StegoParams(em_rate=EM_RATE,
                                                     key=KEY))
     p.tail_kernel = tail_kernel
+    return p
+
+
+def _tparams_off():
+    """The port's Params with stego off, on the reference's CPU branch."""
+    p = TP.Params(**_kw())
+    p.tail_kernel = False
     return p
 
 
@@ -216,9 +226,36 @@ def test_multistream_refuses_what_the_reference_does_not_serve(kw, name):
 
 
 def test_multistream_stego_off_waits_for_a16b():
-    p = TP.Params(**_kw())
-    with pytest.raises(NotImplementedError, match="A16b"):
-        MultiEncoder(p, S, devices=["cpu"])
+    """Stego off no longer waits (A16b's P half): the plain
+    MultiEncoder's streams are each the plain single-stream port
+    Encoder's (the contract of the reference's
+    `test_multistream_matches_single_stream`; the MultiEncoder turns the
+    intra compare off, as the reference's does), with no B4 launch."""
+    seqs = _seqs(3)
+    me = MultiEncoder(TP.Params(**_kw()), S, devices=["cpu"])
+    assert all(e._stego is None for e in me.encs)
+    multi = _streams(_steps(me, seqs, range(3))[0])
+    for s in range(S):
+        enc = TEncoder(TP.Params(**_kw()), device="cpu")
+        single = b"".join(enc.encode_frame(f) for f in seqs[s])
+        assert multi[s] == single, s
+        assert len(j_decode(multi[s])) == 3
+
+
+def test_multistream_stego_off_byte_equal():
+    """The plain MultiEncoder (stego off) against the JAX MultiEncoder
+    on its CPU branch: each stream byte-equal (the reference's
+    `test_multistream_matches_single_stream` holds its streams equal to
+    its single-stream Encoder's, `test_multistream_stego_off_waits_for_
+    a16b` the port's). Its analysis is the stego-on one's without B4,
+    whose accelerator branch `test_multistream_byte_equal_accel_branch`
+    holds."""
+    seqs = _seqs(3)
+    want, _ = _steps(JMultiEncoder(Params(**_kw()), S), seqs, range(3))
+    got, _ = _steps(MultiEncoder(_tparams_off(), S, devices=["cpu"]), seqs,
+                    range(3))
+    assert got == want
+    assert all(len(j_decode(bs)) == 3 for bs in _streams(got))
 
 
 def _reference_streams(n_frames, **kw):

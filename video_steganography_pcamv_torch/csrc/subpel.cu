@@ -16,7 +16,10 @@
 //           dx = clamp(4*mvx + ox - pred_x, -2048, 2048), likewise dy,
 //           pred the MB's qpel predictor;
 // and keeps the FIRST strict-< minimum. Outputs r_idx8 (the table index
-// (oy+6)*13 + (ox+6)) and mv8 = 4*mv + (ox, oy), N8 in spatial order.
+// (oy+6)*13 + (ox+6)) and mv8 = 4*mv + (ox, oy), N8 in spatial order,
+// and, where mb_cost is not null (the stego-off analysis), each MB's
+// inter cost: every unit's minimum cost counted once, at the unit's
+// first 8x8 (the reference's subpel_parts, partition.py:354-362).
 // The TPU's bf16 MXU WHT is integer adds here and its lane rolls for the
 // partition coupling are a shared-memory exchange.
 //
@@ -52,7 +55,8 @@ __global__ void __launch_bounds__(128)
 subpel_kernel(const int* __restrict__ cur, const uint8_t* __restrict__ windows,
               const int* __restrict__ part, const int* __restrict__ mvf,
               const int* __restrict__ pred, int lam, int mbh, int mbw,
-              int* __restrict__ mv8, int* __restrict__ r_idx8) {
+              int* __restrict__ mv8, int* __restrict__ r_idx8,
+              int* __restrict__ mb_cost) {
   __shared__ __align__(16) uint8_t s_win[4][qpel::kWinStride];
   __shared__ int s_wc[4][4][16];            // [block][sub-block][coef]
   __shared__ int s_sub[4][kOffsets][4];     // [block][offset][sub-block]
@@ -136,6 +140,17 @@ subpel_kernel(const int* __restrict__ cur, const uint8_t* __restrict__ windows,
     r_idx8[bn] = (oy + 6) * 13 + (ox + 6);
     mv8[2 * bn] = 4 * mvx + ox;
     mv8[2 * bn + 1] = 4 * mvy + oy;
+    if (mb_cost != nullptr) {
+      // a unit's first 8x8: 16x16 block 0, 16x8 blocks 0 and 2, 8x16
+      // blocks 0 and 1, 8x8 every block; lanes 0-3 sum their shares
+      const bool first = pt == 0 ? bb == 0
+                       : pt == 1 ? (bb & 1) == 0
+                       : pt == 2 ? bb < 2 : true;
+      int c = first ? best : 0;
+      c += __shfl_xor_sync(0xFu, c, 1);
+      c += __shfl_xor_sync(0xFu, c, 2);
+      if (bb == 0) mb_cost[mb] = c;
+    }
   }
 }
 
@@ -144,12 +159,13 @@ subpel_kernel(const int* __restrict__ cur, const uint8_t* __restrict__ windows,
 extern "C" int pcamv_subpel(const void* cur, const void* windows,
                             const void* part, const void* mvf,
                             const void* pred, int lam, int mbh, int mbw,
-                            void* mv8, void* r_idx8, void* stream) {
+                            void* mv8, void* r_idx8, void* mb_cost,
+                            void* stream) {
   subpel_kernel<<<mbh * mbw, 128, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(cur),
       static_cast<const uint8_t*>(windows),
       static_cast<const int*>(part), static_cast<const int*>(mvf),
       static_cast<const int*>(pred), lam, mbh, mbw, static_cast<int*>(mv8),
-      static_cast<int*>(r_idx8));
+      static_cast<int*>(r_idx8), static_cast<int*>(mb_cost));
   return static_cast<int>(cudaGetLastError());
 }

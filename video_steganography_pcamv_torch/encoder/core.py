@@ -98,9 +98,24 @@ and pass 2 and the B encode quantize each MB at its qp, the writers code
 the folded mb_qp_delta wherever an MB codes one, and B5 deblocks with the
 decoder-visible chain of qps. The analysis, B4's probes and rho stay at
 the frame qp. A one-reference P frame then takes the reference's unfused
-path (`_encode_p_parts1`: the stage-1 analysis, the pass-1 encode, one
+path (`_encode_p_parts`: the stage-1 analysis, the pass-1 encode, one
 pull, the native scan, the embedding with a full pass 2), unpipelined,
 and the incremental re-encode is off.
+
+With stego off (`StegoParams.em_rate` 0, the reference's default: the
+plain encoder) no P frame takes the fused step: each takes the
+reference's unfused `_encode_p_parts` (the port's too), unpipelined, at
+one reference or more. The analysis runs B1 -> B9 -> B3 with B3's
+per-MB inter cost and no B4 (at `rd` >= 1 without AQ the four-shape RD
+re-rank, `partition.rd_rerank_parts`, instead), then the final encode,
+the intra compare (`intra.refine_p_intra`: MBs become I16x16 or I4x4
+where their intra cost beats the inter one; off under AQ), the native
+scan with the intra MBs, at `rd` 2 and one reference the P_SKIP and
+qpel RD probes (`_rd_skip_force`, `_rd_qpel_refine`), B5 with the intra
+map, and the native writers with the intra MBs in the P slice. The
+16x16-only path runs as with stego on, without the embedding. B frames
+are the stego-on ones; `check_slice` refuses what waits (sub-8x8
+partitions, and intra MBs in B slices).
 """
 
 from __future__ import annotations
@@ -137,7 +152,7 @@ from .analyse2 import analyse_p_frame
 from .cabac import CabacSliceWriter
 from .cavlc import FrameCavlc
 from .inter_incr import changed_mbs, pad_subset, reencode_p_incremental
-from .intra import encode_i_frame
+from .intra import encode_i_frame, refine_p_intra
 from . import partition as PT
 from . import scan as SCAN
 from .partition import p_stage1_stego
@@ -154,8 +169,11 @@ def check_slice(p: Params) -> None:
     """Raise NotImplementedError for any option outside the ported
     slice: CQP, CAVLC or CABAC, subpel 2, decimation, incremental
     re-encode (turned off by trellis and noise reduction, as in the
-    reference), stego on, me_range <= PAD - MARGIN, and every combination
-    of: the quant options (`cqm` flat or jvt, any custom 4x4/8x8 list,
+    reference), me_range <= PAD - MARGIN, stego on or off (the plain
+    encoder: intra MBs in P frames, the rd 1/2 re-ranks and trellis 2's
+    probe trellis on every P path but the sub-8x8 one, whose stego-off
+    re-rank and intra compare wait), and every combination of: the
+    quant options (`cqm` flat or jvt, any custom 4x4/8x8 list,
     `deadzone_inter`/`deadzone_intra` 0-32, `noise_reduction`);
     partitions (the serving path; pipelined or not, PSNR/SSIM on or off,
     either deblocker) or partitions off with the host deblock at one
@@ -182,7 +200,10 @@ def check_slice(p: Params) -> None:
     one reference that path stays 4x4-only (the PPS flag alone), and its
     noise-reduction offsets stay zero (F11). With more than one reference
     it takes the host deblock only: under `deblock_device` the
-    reference's deblock there reads no references (ROADMAP F10)."""
+    reference's deblock there reads no references (ROADMAP F10). With
+    stego off, B frames are served with `intra_in_p` off (or under AQ,
+    which turns the intra compare off): the reference's intra MBs in B
+    slices (ROADMAP A14g) wait."""
     if not p.partitions and p.deblock_device and p.ref_frames == 1:
         raise NotImplementedError(
             "partitions off with deblock_device on: the reference drops "
@@ -208,7 +229,13 @@ def check_slice(p: Params) -> None:
              "branch reads clamped gather indices and its TPU branch "
              "clamped strips)"
              % (mc.PAD - QT.MARGIN), p.me_range <= mc.PAD - QT.MARGIN),
-            ("stego off (ROADMAP A16)", p.stego.enabled),
+            ("stego off with p4x4 (ROADMAP A16b: the sub-8x8 path's "
+             "stego-off RD re-rank and intra compare)",
+             p.stego.enabled or not (p.p4x4 and p.partitions)),
+            ("stego off with bframes and intra_in_p (ROADMAP A14g: intra "
+             "MBs in B slices)",
+             p.stego.enabled or not (p.bframes > 0 and p.intra_in_p
+                                     and not p.aq_mode)),
             ("stego em_file (ROADMAP A16)", not p.stego.em_file),
             ("stego alpha_com (ROADMAP A16)", p.stego.alpha_com == 0.0),
             ("p4x4 with ref_frames>1 and deblock_device (ROADMAP F10: the "
@@ -338,6 +365,23 @@ def _levels_exact(res: dict, mbh: int, mbw: int) -> dict:
     return _split_levels(packed, mbh, mbw)
 
 
+# the host arrays of an intra-in-P result the writers read
+_INTRA_KEYS = ("mode", "cmode", "cbp_luma", "cbp_chroma", "luma_dc",
+               "luma_ac", "chroma_dc", "chroma_ac", "i4_modes")
+
+
+def _intra_deps(intra: np.ndarray) -> np.ndarray:
+    """The MBs an intra MB of `intra` [mbh, mbw] predicts from (its left,
+    top, top-right and top-left neighbours): the rd 2 probes keep their
+    recon."""
+    dep = np.zeros_like(intra)
+    dep[:, :-1] |= intra[:, 1:]
+    dep[:-1, :] |= intra[1:, :]
+    dep[:-1, 1:] |= intra[1:, :-1]
+    dep[:-1, :-1] |= intra[1:, 1:]
+    return dep
+
+
 class Encoder:
     """Construct -> encode_frame per frame -> flush. `device` is where
     every tensor of the encode lives ("cuda[:k]", the default, or
@@ -439,7 +483,8 @@ class Encoder:
         self.stats = EncodeStats()
         self.prev_mv = None
         self.recon_prev = None  # the last frame's deblocked planes
-        self._stego = StegoEngine(params)
+        # None with stego off: the plain encoder
+        self._stego = StegoEngine(params) if params.stego.enabled else None
         self.rc = RateControl(params)
         self.lookahead = Lookahead(params)
         self._cmv_cache = {}
@@ -820,7 +865,7 @@ class Encoder:
     def _encode_anchor(self, frame, y, u, v, is_idr: bool, satd,
                        disp: int) -> bytes:
         """An I or P anchor of the B pipe: the IPP encodes unpipelined
-        (the fused step at one reference, `_encode_p_mref` at more),
+        (the fused step at one reference, `_encode_p_parts` at more),
         then the colocated field the B frames read."""
         t0 = time.time()
         qp = self.rc.start(SLICE_I if is_idr else SLICE_P, satd)
@@ -859,8 +904,8 @@ class Encoder:
     def _save_col(self):
         """The anchor's per-4x4 motion field for spatial direct's
         colZeroFlag (the reference's `_save_col`): an I anchor is all
-        intra (ref -1); a P anchor has no intra MB (stego is on) and
-        carries its true per-8x8 references. The reference reads the
+        intra (ref -1); a P anchor carries its true per-8x8 references,
+        and ref -1 on its intra MBs (stego off). The reference reads the
         motion of the newest frame that recorded any; its 16x16 P path
         at one reference records none, so after an IDR such anchors give
         the intra field too, though the decoder stores their true field:
@@ -871,12 +916,16 @@ class Encoder:
             self._col = (np.zeros((h4, w4, 2), np.int32),
                          np.full((h4, w4), -1, np.int32))
             return
-        final, ref8 = self._anchor_motion
+        # (final, ref8[, intra mask]): the mask only with stego off
+        final, ref8, *intra = self._anchor_motion
         # a sub-8x8 anchor records its per-4x4 field, the others per 8x8
         mv4 = (final if final.shape[0] == h4
                else np.repeat(np.repeat(final, 2, 0), 2, 1))
         ref4 = (np.zeros((h4, w4), np.int32) if ref8 is None
                 else np.repeat(np.repeat(ref8, 2, 0), 2, 1))
+        if intra and intra[0] is not None:
+            ref4 = np.where(np.repeat(np.repeat(intra[0], 4, 0), 4, 1), -1,
+                            ref4)
         self._col = (np.ascontiguousarray(mv4, np.int32),
                      np.ascontiguousarray(ref4, np.int32))
 
@@ -1285,8 +1334,8 @@ class Encoder:
     def _encode_p16(self, y, u, v, qp: int) -> bytes:
         """The unpartitioned P frame (the reference's `_encode_p`
         16x16 branch with `analyse_p`): the 16x16 analysis (B6 -> B7 ->
-        qpel tables -> subpel), pass-1 encode, scan, embed (pass 2),
-        deblock, entropy."""
+        qpel tables -> subpel), pass-1 encode, scan, embed (pass 2; none
+        with stego off), deblock, entropy."""
         p = self.p
         mbh, mbw = p.mb_height, p.mb_width
         qpc = chroma_qp(qp, p.chroma_qp_offset)
@@ -1303,11 +1352,12 @@ class Encoder:
         skip, mvd, mvp = native.host_scan_p(
             mv_np, res["cbp_luma"].cpu().numpy(),
             res["cbp_chroma"].cpu().numpy())
-        replaced = self._stego.embed_frame(
-            self, y, u, v, qp, mv_np, skip, mvp,
-            {"blocks": blocks, "wht": wht, "r_idx": r_idx})
-        if replaced is not None:
-            mv_np, skip, mvd, res = replaced
+        if self._stego is not None:
+            replaced = self._stego.embed_frame(
+                self, y, u, v, qp, mv_np, skip, mvp,
+                {"blocks": blocks, "wht": wht, "r_idx": r_idx})
+            if replaced is not None:
+                mv_np, skip, mvd, res = replaced
         mv4 = torch.as_tensor(mv_np).to(dev) \
             .repeat_interleave(4, 0).repeat_interleave(4, 1)
         self._deblock_device(
@@ -1335,150 +1385,264 @@ class Encoder:
                 torch.stack([d["v"] for d in es]), len(entries),
                 [e["_disp"] for e in entries])
 
-    def _encode_p_mref(self, y, u, v, qp: int) -> bytes:
-        """A multi-reference P frame (the reference's `_encode_p_parts`
-        with ref_frames > 1; `partitions` False pins every MB to 16x16):
-        the analysis (B1 per entry, the merge, B9 with ref8, B3' -> B4'),
-        the pass-1 encode, one pull of part/mv8/cbp/ref8, the native scan
-        with references, the embedding (its pass 2 a full re-encode), B5
-        with ref4 and the slice."""
-        p = self.p
-        mbh, mbw = p.mb_height, p.mb_width
-        n = mbh * mbw
-        dev = self.device
-        lam = ME.lambda_tab(qp)
-        refs_luma, refs_u, refs_v, n_valid = self._stack_l0(self.dpb)[:4]
-        part, mv8, ref8, SK, SP, sc8 = \
-            PT.analyse_p_frame_parts_mref(
-                y, refs_luma.to(torch.uint8), n_valid,
-                torch.as_tensor(self.prev_mv).to(dev), lam, qp, p.me_range,
-                mbh, mbw, p.ref_frames, allow_parts=bool(p.partitions),
-                tail_kernel=bool(p.tail_kernel), tables=self.qt)
-        qp_enc, qpc_enc = self._aq_frame(y, u, v, qp)
-        res = P.encode_p_frame_device8_mref(
-            y, u, v, refs_luma, refs_u, refs_v, mv8, ref8, qp_enc, qpc_enc,
-            mbh, mbw, trellis=bool(p.trellis), tables=self.qt,
-            nr_offset=self.nr_offset())
-        meta = torch.cat([part.reshape(-1), mv8.reshape(-1),
-                          res["cbp_luma"].reshape(-1).to(torch.int32),
-                          res["cbp_chroma"].reshape(-1).to(torch.int32),
-                          ref8.reshape(-1)]).cpu().numpy()
-        part_np = meta[:n].reshape(mbh, mbw)
-        mv8_np = meta[n:9 * n].reshape(2 * mbh, 2 * mbw, 2)
-        cbp_l = meta[9 * n:10 * n].reshape(mbh, mbw)
-        cbp_c = meta[10 * n:11 * n].reshape(mbh, mbw)
-        ref8_np = np.ascontiguousarray(meta[11 * n:]).reshape(2 * mbh,
-                                                              2 * mbw)
-        self._nr_update(res)
-        skip, mvd, mvp, final8 = native.scan_p_parts(
-            part_np, mv8_np, cbp_l, cbp_c, ref8=ref8_np)
-        replaced = self._stego.embed_frame_parts(
-            self, y, u, v, qp, part_np, mv8_np, skip, mvp, ref8_np,
-            (SK, SP, sc8, part, mv8), (refs_luma, refs_u, refs_v),
-            grids=(qp_enc, qpc_enc))
-        if replaced is not None:
-            final8, skip, mvd, res = replaced
-        res_np = _levels_exact(res, mbh, mbw)
-        final8_t = torch.as_tensor(np.ascontiguousarray(final8)).to(dev)
-        ref4 = ref8.repeat_interleave(2, 0).repeat_interleave(2, 1)
-        self._deblock_device(
-            res, torch.zeros((mbh, mbw), dtype=torch.int32, device=dev),
-            torch.as_tensor(skip.astype(np.int32)).to(dev),
-            final8_t.repeat_interleave(2, 0).repeat_interleave(2, 1), qp,
-            _nnz4(res["luma_lev"], mbh, mbw), ref4=ref4,
-            qp_maps=self._qp_maps_p(res_np, skip, qp))
-        # stego on: no intra MBs in P, the predictor is the final field
-        self.prev_mv = np.ascontiguousarray(final8[::2, ::2], np.int32)
-        self._anchor_motion = (final8, ref8_np)
-        return self._finish_p_slice(res_np, qp, part_np, mvd, skip,
-                                    self.frame_num, self._poc_lsb,
-                                    ref8=ref8_np, num_ref=n_valid)
-
     def _fused_p(self) -> bool:
         """The P frames take the fused step (the reference's condition,
-        core.py:794-799, under the Params served): one reference,
-        partitions, no adaptive quantization, no sub-8x8 partitions."""
+        core.py:794-799, under the Params served): stego on, one
+        reference, partitions, no adaptive quantization, no sub-8x8
+        partitions."""
         p = self.p
-        return (p.partitions and p.ref_frames == 1 and not p.aq_mode
-                and not p.p4x4)
+        return (self._stego is not None and p.partitions
+                and p.ref_frames == 1 and not p.aq_mode and not p.p4x4)
 
     def _encode_p_unfused(self):
         """The unpipelined P path of this encoder's Params: the sub-8x8
-        one, the multi-reference one, the one-reference partitioned one
-        (adaptive quantization) or the 16x16-only one."""
+        one, the partitioned one (`partitions`, or more than one
+        reference, where partitions off pins every MB to 16x16) or the
+        16x16-only one."""
         if self.p.p4x4 and self.p.partitions:
             return self._encode_p_sub
-        if self.p.ref_frames > 1:
-            return self._encode_p_mref
-        return self._encode_p_parts1 if self.p.partitions else self._encode_p16
+        if self.p.partitions or self.p.ref_frames > 1:
+            return self._encode_p_parts
+        return self._encode_p16
 
-    def _encode_p_parts1(self, y, u, v, qp: int) -> bytes:
-        """The one-reference partitioned P frame unfused, the reference's
-        `_encode_p_parts` at ref_frames 1 with stego on (core.py:
-        1846-1998), the path adaptive quantization takes: the analysis
-        (B1 -> partition decision -> B9 -> B2-B4, `analyse_p_frame_parts`,
-        at the frame qp), the AQ grids, the pass-1 encode at them (the
-        8x8 transform, rd, trellis and noise reduction as the Params say),
-        one pull of part/mv8/cbp, the native scan, the embedding (rho at
+    def _encode_p_parts(self, y, u, v, qp: int) -> bytes:
+        """A partitioned P frame unfused, the reference's `_encode_p_parts`
+        (core.py:1846-1998) at one reference or more (`partitions` False
+        pins every MB to 16x16 at more than one), unpipelined. With stego
+        on it serves adaptive quantization at one reference and every
+        multi-reference P frame; with stego off every such P frame (the
+        plain encoder).
+
+        The analysis at the frame qp: B1 (per DPB entry at more than one
+        reference, then the merge), the partition decision, B9, then B3 ->
+        B4 with stego on (the probe maps) or B3 alone with its per-MB
+        inter cost with stego off; at one reference with stego off, `rd`
+        >= 1 and no AQ the RD re-rank `partition.rd_rerank_parts`
+        instead. Then the AQ grids, the encode at them (the 8x8
+        transform, rd, trellis and noise reduction as the Params say),
+        with stego off the intra compare (`intra.refine_p_intra`, off
+        under AQ), one pull of part/mv8/cbp(/ref8), the native scan (with
+        the intra MBs), with stego off at `rd` 2 (one reference, no AQ)
+        the P_SKIP and qpel RD probes, with stego on the embedding (rho at
         the frame qp from the probe maps, a full pass-2 re-encode at the
-        grids), B5 with the decoder-visible qp maps and the slice with its
+        grids), B5 with the intra map, the reference map and the
+        decoder-visible qp maps, and the slice with its intra MBs and
         mb_qp_delta."""
         p = self.p
         mbh, mbw = p.mb_height, p.mb_width
         n = mbh * mbw
         dev = self.device
         lam = ME.lambda_tab(qp)
+        qpc = chroma_qp(qp, p.chroma_qp_offset)
         t8 = bool(p.transform_8x8)
-        part, mv8, SK, SP, sc8 = PT.analyse_p_frame_parts(
-            y, self.ref["luma"].to(torch.uint8),
-            torch.as_tensor(self.prev_mv).to(dev), lam, qp, p.me_range, mbh,
-            mbw, tail_kernel=bool(p.tail_kernel), tables=self.qt)
+        stego = self._stego is not None
+        multiref = p.ref_frames > 1
+        prev = torch.as_tensor(self.prev_mv).to(dev)
+        ref8, refs, num_ref = None, None, 1
+        if multiref:
+            refs_luma, refs_u, refs_v, num_ref = self._stack_l0(self.dpb)[:4]
+            refs = (refs_luma, refs_u, refs_v)
+            part, mv8, ref8, *tail = PT.analyse_p_frame_parts_mref(
+                y, refs_luma.to(torch.uint8), num_ref, prev, lam, qp,
+                p.me_range, mbh, mbw, p.ref_frames,
+                allow_parts=bool(p.partitions),
+                tail_kernel=bool(p.tail_kernel), tables=self.qt, probe=stego)
+        elif not stego and p.rd >= 1 and not p.aq_mode:
+            # the probes quantize by the trellis only at trellis 2
+            # (analyse.c:248), the final encode at any trellis
+            part, mv8, *tail = PT.rd_rerank_parts(
+                y, u, v, self.ref, prev, qp, qpc, lam, p.me_range, mbh, mbw,
+                trellis=p.trellis > 1, nr_offset=self.nr_offset(),
+                trans8=t8, tail_kernel=bool(p.tail_kernel), tables=self.qt)
+        else:
+            part, mv8, *tail = PT.analyse_p_frame_parts(
+                y, self.ref["luma"].to(torch.uint8), prev, lam, qp,
+                p.me_range, mbh, mbw, tail_kernel=bool(p.tail_kernel),
+                tables=self.qt, probe=stego)
         qp_enc, qpc_enc = self._aq_frame(y, u, v, qp)
-        res = P.encode_p_frame_device8(
-            y, u, v, self.ref["luma"], self.ref["u"], self.ref["v"], mv8,
-            qp_enc, qpc_enc, mbh, mbw, trans8=t8, rd=bool(p.rd),
-            trellis=bool(p.trellis), tables=self.qt,
-            nr_offset=self.nr_offset())
-        meta = torch.cat([part.reshape(-1), mv8.reshape(-1),
-                          res["cbp_luma"].reshape(-1).to(torch.int32),
-                          res["cbp_chroma"].reshape(-1).to(torch.int32)]
-                         ).cpu().numpy()
+        if multiref:
+            res = P.encode_p_frame_device8_mref(
+                y, u, v, *refs, mv8, ref8, qp_enc, qpc_enc, mbh, mbw,
+                trellis=bool(p.trellis), tables=self.qt,
+                nr_offset=self.nr_offset())
+        else:
+            res = P.encode_p_frame_device8(
+                y, u, v, self.ref["luma"], self.ref["u"], self.ref["v"], mv8,
+                qp_enc, qpc_enc, mbh, mbw, trans8=t8, rd=bool(p.rd),
+                trellis=bool(p.trellis), tables=self.qt,
+                nr_offset=self.nr_offset())
+        self._nr_update(res)
+        intra_kind = np.zeros((mbh, mbw), np.int32)
+        ir = None
+        if not stego and p.intra_in_p and not p.aq_mode:
+            ir = refine_p_intra(y, u, v, res["recon_y"], res["recon_u"],
+                                res["recon_v"], tail[0], qp, qpc, mbw, mbh,
+                                lam=lam, trellis=bool(p.trellis),
+                                tables=self.qt)
+            intra_kind = ir["intra_kind"].cpu().numpy()
+            if intra_kind.any():
+                res = dict(res, recon_y=ir["recon_y"], recon_u=ir["recon_u"],
+                           recon_v=ir["recon_v"])
+            else:
+                ir = None
+        intra = intra_kind > 0
+        metas = [part.reshape(-1), mv8.reshape(-1),
+                 res["cbp_luma"].reshape(-1).to(torch.int32),
+                 res["cbp_chroma"].reshape(-1).to(torch.int32)]
+        if multiref:
+            metas.append(ref8.reshape(-1))
+        meta = torch.cat(metas).cpu().numpy()
         part_np = meta[:n].reshape(mbh, mbw)
         mv8_np = np.ascontiguousarray(meta[n:9 * n]).reshape(2 * mbh,
                                                              2 * mbw, 2)
         cbp_l = meta[9 * n:10 * n].reshape(mbh, mbw)
-        cbp_c = meta[10 * n:].reshape(mbh, mbw)
-        self._nr_update(res)
-        skip, mvd, mvp, final8 = native.scan_p_parts(part_np, mv8_np, cbp_l,
-                                                     cbp_c)
-        replaced = self._stego.embed_frame_parts(
-            self, y, u, v, qp, part_np, mv8_np, skip, mvp, None,
-            (SK, SP, sc8, part, mv8), None,
-            grids=(qp_enc, qpc_enc))
-        if replaced is not None:
-            final8, skip, mvd, res = replaced
+        cbp_c = meta[10 * n:11 * n].reshape(mbh, mbw)
+        ref8_np = (np.ascontiguousarray(meta[11 * n:]).reshape(2 * mbh,
+                                                               2 * mbw)
+                   if multiref else None)
+        skip, mvd, mvp, final8 = native.scan_p_parts(
+            part_np, mv8_np, cbp_l, cbp_c, intra=intra if ir else None,
+            ref8=ref8_np)
+        skip &= ~intra
+        if not stego and p.rd >= 2 and not multiref and not p.aq_mode:
+            for probe in (self._rd_skip_force, self._rd_qpel_refine):
+                out = probe(y, u, v, qp, qpc, part_np, final8, skip, mvd,
+                            res, intra)
+                if out is not None:
+                    final8, skip, mvd, res = out
+        if stego:
+            replaced = self._stego.embed_frame_parts(
+                self, y, u, v, qp, part_np, mv8_np, skip, mvp, ref8_np,
+                (*tail, part, mv8), refs, grids=(qp_enc, qpc_enc))
+            if replaced is not None:
+                final8, skip, mvd, res = replaced
         res_np = _levels_exact(res, mbh, mbw)
-        if t8:
-            # the effective flag: the decision AND cbp_luma != 0
-            t8_eff = res["trans8"] & (res["cbp_luma"] != 0)
+        intra_t = self._dev(intra.astype(np.int32))
+        if "trans8" in res:
+            # the effective flag: the decision AND cbp_luma != 0 AND inter
+            t8_eff = res["trans8"] & (res["cbp_luma"] != 0) & (intra_t == 0)
             nnz = _nnz4_t8(res["luma_lev"], res["luma8_lev"], t8_eff, mbh,
                            mbw)
             self.stats.trans8_mbs += int(
-                (res_np["trans8"] & (res_np["cbp_luma"] != 0)).sum())
+                (res_np["trans8"] & (res_np["cbp_luma"] != 0) & ~intra).sum())
         else:
             t8_eff = None
             nnz = _nnz4(res["luma_lev"], mbh, mbw)
-        final8_t = torch.as_tensor(np.ascontiguousarray(final8)).to(dev)
+        intra_res = None
+        if ir is not None:
+            # an intra MB's deblock nnz comes from its own levels
+            m4 = intra_t.repeat_interleave(4, 0).repeat_interleave(4, 1)
+            nnz = torch.where(m4 != 0, _nnz4(ir["luma_ac"], mbh, mbw), nnz)
+            intra_res = {k: ir[k].cpu().numpy() for k in _INTRA_KEYS}
+        final8_t = self._dev(final8)
         self._deblock_device(
-            res, torch.zeros((mbh, mbw), dtype=torch.int32, device=dev),
-            torch.as_tensor(skip.astype(np.int32)).to(dev),
-            final8_t.repeat_interleave(2, 0).repeat_interleave(2, 1), qp,
-            nnz, trans8=t8_eff, qp_maps=self._qp_maps_p(res_np, skip, qp))
-        # stego on: no intra MBs in P, the predictor is the final field
-        self.prev_mv = np.ascontiguousarray(final8[::2, ::2], np.int32)
-        self._anchor_motion = (final8, None)
-        return self._finish_p_slice(res_np, qp, part_np, mvd, skip,
-                                    self.frame_num, self._poc_lsb)
+            res, intra_t, self._dev(skip.astype(np.int32)),
+            final8_t.repeat_interleave(2, 0).repeat_interleave(2, 1), qp, nnz,
+            trans8=t8_eff,
+            ref4=(None if ref8 is None else
+                  ref8.repeat_interleave(2, 0).repeat_interleave(2, 1)),
+            qp_maps=self._qp_maps_p(res_np, skip, qp))
+        # an intra MB carries no motion: its predictor slot is zero
+        self.prev_mv = np.where(intra[..., None], 0,
+                                final8[::2, ::2]).astype(np.int32)
+        self._anchor_motion = (final8, ref8_np, intra)
+        return self._finish_p_slice(
+            res_np, qp, part_np, mvd, skip, self.frame_num, self._poc_lsb,
+            ref8=ref8_np, num_ref=num_ref,
+            intra=None if intra_res is None else (intra_kind, intra_res))
+
+    def _encode_final8(self, y, u, v, qp: int, qpc: int, final8, skip):
+        """The rd 2 probes' full re-encode at the field final8 with the
+        P_SKIPs in `skip` forced (host arrays)."""
+        p = self.p
+        return P.encode_p_frame_device8(
+            y, u, v, self.ref["luma"], self.ref["u"], self.ref["v"],
+            self._dev(final8), qp, qpc, p.mb_height, p.mb_width,
+            force_zero=self._dev(skip), trans8=bool(p.transform_8x8),
+            rd=bool(p.rd), trellis=bool(p.trellis), tables=self.qt,
+            nr_offset=self.nr_offset())
+
+    def _graft_intra(self, res2, res, intra):
+        """res2 with the recon of the intra MBs (host mask `intra`) taken
+        from res: a rd 2 re-encode keeps the committed intra patches (the
+        MBs they predict from keep their recon, `_intra_deps`)."""
+        if not intra.any():
+            return res2
+        m = self._dev(intra)
+        out = dict(res2)
+        for k, b in (("recon_y", 16), ("recon_u", 8), ("recon_v", 8)):
+            mm = m.repeat_interleave(b, 0).repeat_interleave(b, 1)
+            out[k] = torch.where(mm, res[k], res2[k])
+        return out
+
+    def _rd_skip_force(self, y, u, v, qp: int, qpc: int, part_np, final8,
+                       skip, mvd, res, intra):
+        """rd 2's P_SKIP RD probe, the reference's `_rd_skip_force`
+        (core.py:2084-2140): each coded inter MB whose P_SKIP cost at the
+        committed field's pskip MV (`scan.pskip_field`) is below its coded
+        cost (`inter.rd_skip_eval`) is forced to skip, unless an intra MB
+        predicts from it; then the forced rescan and a re-encode. Returns
+        (final8, skip, mvd, res) or None when nothing flips."""
+        p = self.p
+        mbh, mbw = p.mb_height, p.mb_width
+        pskip = SCAN.pskip_field(part_np, final8, skip)
+        cost_c, cost_s = P.rd_skip_eval(
+            y, u, v, self.ref["luma"], self.ref["u"], self.ref["v"], pskip,
+            res["luma_lev"], res["chroma_dc"], res["chroma_ac"],
+            res["recon_y"], res["recon_u"], res["recon_v"], mvd, part_np, qp,
+            mbh, mbw)
+        cs = torch.stack([cost_c, cost_s]).cpu().numpy()
+        force = (cs[1] < cs[0]) & ~skip & ~intra & ~_intra_deps(intra)
+        if not force.any():
+            return None
+        skip2 = skip | force
+        final2, mvd2, _ = SCAN.scan_p_frame_forced(
+            part_np, final8, skip2, intra=intra if intra.any() else None)
+        res2 = self._encode_final8(y, u, v, qp, qpc, final2, skip2)
+        return final2, skip2, mvd2, self._graft_intra(res2, res, intra)
+
+    def _rd_qpel_refine(self, y, u, v, qp: int, qpc: int, part_np, final8,
+                        skip, mvd, res, intra):
+        """rd 2's qpel RD refine, the reference's `_rd_qpel_refine`
+        (core.py:2000-2083): the frame re-encoded at each of the four
+        +-1-qpel shifts of the committed field, `inter.rd_coded_cost` of
+        each (the mvds shifted alike), and every coded 16x16 inter MB that
+        no intra MB predicts from keeps its first cheaper shift; then the
+        forced rescan and a re-encode. Returns (final8, skip, mvd, res) or
+        None when no MB moves."""
+        p = self.p
+        mbh, mbw = p.mb_height, p.mb_width
+
+        def cost(r, mvd_r):
+            return P.rd_coded_cost(
+                y, u, v, r["luma_lev"], r["chroma_dc"], r["chroma_ac"],
+                r["recon_y"], r["recon_u"], r["recon_v"], mvd_r, part_np, qp,
+                mbh, mbw)
+
+        elig = (part_np == 0) & ~skip & ~intra & ~_intra_deps(intra)
+        if not elig.any():
+            return None
+        shifts = [np.array(d, np.int32)
+                  for d in ((1, 0), (-1, 0), (0, 1), (0, -1))]
+        costs = [cost(res, mvd)]
+        for off in shifts:
+            res_d = self._encode_final8(y, u, v, qp, qpc, final8 + off, skip)
+            costs.append(cost(res_d, mvd + off))
+        costs = torch.stack(costs).cpu().numpy()
+        best = costs[0]
+        best_off = np.zeros((mbh, mbw, 2), np.int32)
+        for off, cost_d in zip(shifts, costs[1:]):
+            upd = (cost_d < best) & elig
+            best_off = np.where(upd[..., None], off, best_off)
+            best = np.where(upd, cost_d, best)
+        if not best_off.any():
+            return None
+        off8 = np.repeat(np.repeat(best_off, 2, 0), 2, 1)
+        final2, mvd2, _ = SCAN.scan_p_frame_forced(
+            part_np, (final8 + off8).astype(np.int32), skip,
+            intra=intra if intra.any() else None)
+        res2 = self._encode_final8(y, u, v, qp, qpc, final2, skip)
+        return final2, skip, mvd2, self._graft_intra(res2, res, intra)
 
     def trans8_elig(self, part, sub_type):
         """The MBs that may take the 8x8 transform on the one-reference
@@ -1858,7 +2022,8 @@ class Encoder:
 
     def _finish_p_slice(self, res_np, qp: int, part_np, mvd, skip,
                         frame_num: int, poc_lsb: int, ref8=None,
-                        num_ref: int = 1, sub_type=None) -> bytes:
+                        num_ref: int = 1, sub_type=None,
+                        intra=None) -> bytes:
         """P slice header + native CAVLC or CABAC entropy of a completed
         frame (the 16x16-only path passes part 0 and mvd in slot 0). On
         the multi-reference path ref8 [2mbh, 2mbw] gives each 8x8 block's
@@ -1866,13 +2031,40 @@ class Encoder:
         the PPS's while it is smaller; ref_idx is coded when it is above
         1). On the sub-8x8 path sub_type [mbh,mbw,4] gives each P_8x8
         block's sub_mb_type and mvd [mbh,mbw,16,2] the units' mvds in
-        coding order. The port codes no intra MB in a P slice (stego is
-        on), so the native writers serve every slice, under adaptive
+        coding order. With stego off, `intra` is (intra_kind [mbh,mbw],
+        the host arrays of `intra.refine_p_intra`) when the slice holds
+        intra MBs: they take its levels and modes, I_16x16 or I_NxN with the
+        P slice's mb_type offset (their mb_qp_delta 0, and under the 8x8
+        transform an I_NxN MB's transform_size_8x8_flag 0, as in the
+        reference). The native writers serve every slice, under adaptive
         quantization with the frame's grid (`aq_grids`) as mb_qp_delta."""
         p = self.p
         mbh, mbw = p.mb_height, p.mb_width
         n = mbh * mbw
         t8 = bool(p.transform_8x8)
+        cbp_l, cbp_c = res_np["cbp_luma"], res_np["cbp_chroma"]
+        luma = res_np["luma_lev"].reshape(n, 16, 16)
+        cdc = res_np["chroma_dc"].reshape(n, 2, 4)
+        cac = res_np["chroma_ac"].reshape(n, 2, 4, 16)
+        kw = {}
+        if intra is not None:
+            kind, ir = intra
+            m = kind.reshape(n) > 0
+
+            def pick(a, b):
+                return np.where(m.reshape((n,) + (1,) * (b.ndim - 1)),
+                                a.reshape(b.shape), b)
+
+            cbp_l = pick(ir["cbp_luma"], cbp_l.reshape(n).astype(np.int32))
+            cbp_c = pick(ir["cbp_chroma"], cbp_c.reshape(n).astype(np.int32))
+            luma = pick(ir["luma_ac"], luma)
+            cdc = pick(ir["chroma_dc"], cdc)
+            cac = pick(ir["chroma_ac"], cac)
+            kw = dict(p_intra=m, mode=ir["mode"].reshape(n),
+                      cmode=ir["cmode"].reshape(n),
+                      luma_dc=ir["luma_dc"].reshape(n, 16),
+                      mb_i4=(kind.reshape(n) == 2).astype(np.uint8),
+                      i4_modes=ir["i4_modes"].reshape(n, 16))
         bw = BitWriter()
         H.write_slice_header(bw, self.sps, self.pps, H.SLICE_TYPE_P,
                              frame_num, qp, idr=False, disable_deblock=0,
@@ -1889,28 +2081,22 @@ class Encoder:
                 hdr, nbits, H.SLICE_TYPE_P, mbw, mbh, qp,
                 skip=skip.reshape(n).astype(np.uint8),
                 part=part_np.reshape(n), mvd4=mvd4, sub_type=sub,
-                cbp_luma=res_np["cbp_luma"], cbp_chroma=res_np["cbp_chroma"],
-                luma_blocks=res_np["luma_lev"].reshape(n, 16, 16),
-                chroma_dc=res_np["chroma_dc"].reshape(n, 2, 4),
-                chroma_ac=res_np["chroma_ac"].reshape(n, 2, 4, 16),
-                refs=refs, num_ref=num_ref,
+                cbp_luma=cbp_l, cbp_chroma=cbp_c, luma_blocks=luma,
+                chroma_dc=cdc, chroma_ac=cac, refs=refs, num_ref=num_ref,
                 luma8_lev=(res_np["luma8_lev"].reshape(n, 256)
                            if "luma8_lev" in res_np else None),
                 trans8=(res_np["trans8"].astype(np.int32)
                         if "trans8" in res_np else None),
-                trans8_mode=t8, qp_grid=self._qp_grid_arg())
+                trans8_mode=t8, qp_grid=self._qp_grid_arg(), **kw)
         return native.write_slice(
             hdr, nbits, H.SLICE_TYPE_P, mbw, mbh,
             skip=skip.reshape(n).astype(np.uint8),
             part=part_np.reshape(n), mvd4=mvd4, sub_type=sub,
-            cbp_luma=res_np["cbp_luma"], cbp_chroma=res_np["cbp_chroma"],
-            luma_blocks=res_np["luma_lev"].reshape(n, 16, 16),
-            chroma_dc=res_np["chroma_dc"].reshape(n, 2, 4),
-            chroma_ac=res_np["chroma_ac"].reshape(n, 2, 4, 16),
-            refs=refs, num_ref=num_ref,
+            cbp_luma=cbp_l, cbp_chroma=cbp_c, luma_blocks=luma,
+            chroma_dc=cdc, chroma_ac=cac, refs=refs, num_ref=num_ref,
             trans8=res_np["trans8"].reshape(n) if "trans8" in res_np
             else None, luma8_lev=res_np.get("luma8_lev"), trans8_mode=t8,
-            qp_grid=self._qp_grid_arg(), slice_qp=qp)
+            qp_grid=self._qp_grid_arg(), slice_qp=qp, **kw)
 
     def load_state(self, d: dict) -> None:
         """Resume mid-stream from a state dict of numpy arrays (see

@@ -30,7 +30,7 @@ from ..ops import lumap as LP
 from ..ops.blocks import mb_tiles, to_blocks
 from ..ops.lumap import decimate_score, zigzag_gather
 from ..ops.pixel import sa8d_16x16
-from ..ops.rdcost import cavlc_block_bits
+from ..ops.rdcost import cavlc_block_bits, se_len, ue_len
 
 _I32 = torch.int32
 
@@ -592,3 +592,100 @@ def encode_p_frame_sub(y, u, v, ref, mv4, qp, qpc, mbh: int, mbw: int,
         force_zero=force_zero, trans8=True, rd=rd, trellis=trellis,
         tables=tables, nr_offset=nr_offset)
     return merge_res_trans8(res, res8, elig, mbh, mbw)
+
+
+# ---------------------------------------------------------------------------
+# The exact RD costs of the stego-off re-ranks (the reference's
+# encoder/inter.py:1081-1173). The reference computes them in int32 (its
+# int64 casts are int32 while x64 is off), so every product and sum here
+# wraps at 32 bits as its do.
+# ---------------------------------------------------------------------------
+
+# partition units of each mb_type (16x16, 16x8, 8x16, 8x8)
+_N_UNITS = np.array([1, 2, 2, 4], np.int32)
+
+
+def _wrap32(x: torch.Tensor) -> torch.Tensor:
+    """int64 -> the int32 two's-complement value of its low 32 bits."""
+    return ((x + (1 << 31)) % (1 << 32) - (1 << 31)).to(_I32)
+
+
+def _rd_total(ssd, bits, qp: int):
+    """ssd + ((lambda2 * bits + 128) >> 8), each step wrapping at 32
+    bits (x264_rd_cost_mb's form)."""
+    lam2 = int(LAMBDA2_TAB[qp])
+    scaled = _wrap32(_wrap32(lam2 * bits.to(torch.int64)).to(torch.int64)
+                     + 128) >> 8
+    return _wrap32(ssd.to(torch.int64) + scaled.to(torch.int64))
+
+
+def _ssd_mb(y, u, v, recon_y, recon_u, recon_v, mbh: int, mbw: int):
+    """Per-MB SSD [n] int32 of the luma 16x16 and both chroma 8x8."""
+    tot = 0
+    for a, b, k in ((recon_y, y, 16), (recon_u, u, 8), (recon_v, v, 8)):
+        d = mb_tiles(a.to(_I32), k) - mb_tiles(b.to(_I32), k)
+        tot = tot + (d * d).sum((1, 2), dtype=_I32)
+    return tot
+
+
+def rd_coded_cost(y, u, v, luma_lev, chroma_dc, chroma_ac, recon_y,
+                  recon_u, recon_v, mvd, part, qp: int, mbh: int, mbw: int):
+    """RD cost of a coded P configuration per MB [mbh, mbw] int32, the
+    reference's `rd_coded_cost` (encoder/inter.py:1081-1135): SSD(recon,
+    source) + lambda2 * (the exact CAVLC residual bits at nC 0 + the
+    mb_type ue + every unit's mvd se bits). luma_lev [mbh,mbw,256]
+    ((by, bx, r, c) order), chroma_dc [mbh,mbw,8], chroma_ac
+    [mbh,mbw,128] as the encodes return them; mvd [mbh,mbw,4,2] and part
+    [mbh,mbw] tensors (or host arrays) on any device."""
+    n = mbh * mbw
+    dev = y.device
+    ssd = _ssd_mb(y, u, v, recon_y, recon_u, recon_v, mbh, mbw)
+    zz = const(T.ZIGZAG_4x4, dev).long()
+    blk = luma_lev.reshape(n * 16, 4, 4).to(_I32)
+    nc0 = torch.zeros(n * 16, dtype=_I32, device=dev)
+    bits = cavlc_block_bits(blk[:, zz[:, 0], zz[:, 1]], nc0) \
+        .reshape(n, 16).sum(1, dtype=_I32)
+    cdc = chroma_dc.reshape(n * 2, 4).to(_I32)
+    bits = bits + cavlc_block_bits(
+        cdc, torch.full((n * 2,), -1, dtype=_I32, device=dev),
+        max_coeff=4).reshape(n, 2).sum(1, dtype=_I32)
+    cac = chroma_ac.reshape(n * 8, 4, 4).to(_I32)
+    caz = cac[:, zz[:, 0], zz[:, 1]][:, 1:]
+    bits = bits + cavlc_block_bits(
+        caz, torch.zeros(n * 8, dtype=_I32, device=dev),
+        max_coeff=15).reshape(n, 8).sum(1, dtype=_I32)
+    pt = torch.as_tensor(part).to(dev, _I32).reshape(n)
+    nu = const(_N_UNITS, dev)[pt.long()]
+    used = torch.arange(4, device=dev)[None, :] < nu[:, None]
+    md = torch.as_tensor(mvd).to(dev, _I32).reshape(n, 4, 2)
+    mvd_bits = torch.where(used, se_len(md[..., 0]) + se_len(md[..., 1]),
+                           0).sum(1, dtype=_I32)
+    cost = _rd_total(ssd, bits + ue_len(pt) + mvd_bits, qp)
+    return cost.reshape(mbh, mbw)
+
+
+def rd_skip_eval(y, u, v, ref_luma, ref_u, ref_v, pskip_mv, luma_lev,
+                 chroma_dc, chroma_ac, recon_y, recon_u, recon_v, mvd, part,
+                 qp: int, mbh: int, mbw: int):
+    """The P_SKIP RD probe of `rd` 2, the reference's `rd_skip_eval`
+    (encoder/inter.py:1137-1173): per MB the coded configuration's
+    `rd_coded_cost` and the cost of coding it as P_SKIP at pskip_mv
+    [mbh,mbw,2] (its MC SSD + lambda2 * 1 bit). Returns (cost_coded,
+    cost_skip) [mbh, mbw] int32."""
+    n = mbh * mbw
+    dev = y.device
+    cost_coded = rd_coded_cost(y, u, v, luma_lev, chroma_dc, chroma_ac,
+                               recon_y, recon_u, recon_v, mvd, part, qp,
+                               mbh, mbw)
+    ar = torch.arange(n, device=dev, dtype=_I32)
+    ys = torch.div(ar, mbw, rounding_mode="floor") * 16
+    xs = (ar % mbw) * 16
+    mvf = torch.as_tensor(pskip_mv).to(dev, _I32).reshape(n, 2)
+    d = mc.mc_luma(ref_luma, ys, xs, mvf, 16, 16) - mb_tiles(y, 16)
+    ssd = (d * d).sum((1, 2), dtype=_I32)
+    for plane, refp in ((u, ref_u), (v, ref_v)):
+        d = mc.mc_chroma(refp, ys // 2, xs // 2, mvf, 8, 8) \
+            - mb_tiles(plane, 8)
+        ssd = ssd + (d * d).sum((1, 2), dtype=_I32)
+    cost_skip = _rd_total(ssd, torch.ones_like(ssd), qp)
+    return cost_coded, cost_skip.reshape(mbh, mbw)

@@ -10,6 +10,8 @@ modes' levels (luma DC/AC, 4x4, 8x8 and chroma) as options (`i8x8`,
 `rd`, `trellis`); the mode choices stay SATD (or RD) as in the
 reference. Every quant and dequant takes the intra class of the
 encoder's `ops.cqm.QuantTables` (its intra lists and deadzone).
+`refine_p_intra` runs the same wavefront over an encoded P frame (the
+intra compare of the stego-off P paths).
 """
 
 from __future__ import annotations
@@ -536,4 +538,97 @@ def encode_i_frame(y, u, v, qp, qpc, mbw: int, mbh: int,
     out["recon_y"] = _untile(out.pop("ry"))
     out["recon_u"] = _untile(out.pop("ru"))
     out["recon_v"] = _untile(out.pop("rv"))
+    return out
+
+
+def refine_p_intra(y, u, v, recon_y, recon_u, recon_v, inter_cost, qp: int,
+                   qpc: int, mbw: int, mbh: int, lam: int = 0,
+                   trellis: bool = False, tables=None) -> dict:
+    """The intra-vs-inter compare of a P frame with stego off, the
+    reference's `refine_p_intra` (encoder/intra.py:637-779; x264's final
+    intra compare, analyse.c:2812-2825): the knight wavefront over the
+    encoded inter frame, each wave's MBs evaluating i16x16, i4x4 and
+    chroma against the true neighbour recon (inter recon, or the intra
+    recon of an earlier switched MB). An MB becomes intra where its intra
+    SATD cost is below `inter_cost` [mbh, mbw] (B3's per-MB cost), and
+    its recon is committed. recon_* are the inter recon planes. Returns
+    intra_kind [mbh, mbw] (0 inter, 1 i16x16, 2 i4x4), the decisions and
+    levels of `encode_i_frame`'s dict (valid where intra_kind > 0, no
+    i8x8) and the merged recon planes as uint8."""
+    dev = y.device
+    ty, tu, tv = _tile(y, 16), _tile(u, 8), _tile(v, 8)
+
+    def z(*shape, fill=0):
+        return torch.full((mbh, mbw) + shape, fill, dtype=_I32, device=dev)
+
+    st = dict(
+        ry=_tile(recon_y.to(_I32), 16).clone(),
+        ru=_tile(recon_u.to(_I32), 8).clone(),
+        rv=_tile(recon_v.to(_I32), 8).clone(),
+        kind=z(), mode=z(), cmode=z(), i4_modes=z(16, fill=2),
+        modes4=z(4, 4, fill=2), cbp_luma=z(), cbp_chroma=z(),
+        luma_dc=z(4, 4), luma_ac=z(4, 4, 4, 4), chroma_dc=z(2, 2, 2),
+        chroma_ac=z(2, 2, 2, 4, 4))
+
+    for my, mx in waves(mbw, mbh, dev):
+        at = my > 0
+        al = mx > 0
+        atr = at & (mx < mbw - 1)
+        mxc = torch.clamp(mx - 1, min=0)
+        myc = torch.clamp(my - 1, min=0)
+        mxr = torch.clamp(mx + 1, max=mbw - 1)
+
+        enc = ty[my, mx]
+        inter_rec = st["ry"][my, mx]
+        top = st["ry"][myc, mx, 15, :]
+        left = st["ry"][my, mxc, :, 15]
+        tl = st["ry"][myc, mxc, 15, 15]
+        mode16, dc_lev, ac_lev, cbpl16, rec16, cost16 = _i16_mb(
+            enc, top, left, tl, at, al, qp, lam, trellis, tables)
+        top20 = torch.cat([top, st["ry"][myc, mxr, 15, 0:4]], dim=1)
+        m4, lev4, cbpl4, rec4, cost4, _bits = _i4_mb(
+            enc, top20, left, tl, at, al, atr, qp, lam,
+            st["modes4"][my, mxc, :, 3], st["modes4"][myc, mx, 3, :],
+            trellis, tables)
+        use4 = cost4 < cost16
+        use_intra = torch.minimum(cost4, cost16) < inter_cost[my, mx]
+
+        rec_i = torch.where(use4[:, None, None], rec4, rec16)
+        rec = torch.where(use_intra[:, None, None], rec_i, inter_rec)
+        luma_ac = torch.where(use4[:, None, None, None, None], lev4,
+                              ac_lev.movedim((1, 2), (3, 4)))
+        cbp_luma = torch.where(use4, cbpl4, cbpl16.to(_I32) * 15)
+        dc_out = torch.where(use4[:, None, None], torch.zeros_like(dc_lev),
+                             dc_lev)
+        ctx4 = torch.where((use_intra & use4)[:, None, None],
+                           _z_to_grid(m4), 2)
+
+        cmode, cdc, cac, cbpc, ruu, rvv = _chroma_mb(
+            tu[my, mx], tv[my, mx],
+            (st["ru"][myc, mx, 7, :], st["rv"][myc, mx, 7, :]),
+            (st["ru"][my, mxc, :, 7], st["rv"][my, mxc, :, 7]),
+            st["ru"][myc, mxc, 7, 7], st["rv"][myc, mxc, 7, 7], at, al,
+            qpc, lam, trellis, tables)
+        ui = use_intra[:, None, None]
+        st["ru"][my, mx] = torch.where(ui, ruu, st["ru"][my, mx])
+        st["rv"][my, mx] = torch.where(ui, rvv, st["rv"][my, mx])
+        st["ry"][my, mx] = rec
+        st["kind"][my, mx] = torch.where(
+            use_intra, torch.where(use4, 2, 1), 0).to(_I32)
+        st["mode"][my, mx] = mode16
+        st["cmode"][my, mx] = cmode
+        st["i4_modes"][my, mx] = m4
+        st["modes4"][my, mx] = ctx4.to(_I32)
+        st["cbp_luma"][my, mx] = cbp_luma
+        st["cbp_chroma"][my, mx] = cbpc
+        st["luma_dc"][my, mx] = dc_out
+        st["luma_ac"][my, mx] = luma_ac
+        st["chroma_dc"][my, mx] = cdc
+        st["chroma_ac"][my, mx] = cac.movedim((2, 3), (4, 5))
+
+    out = dict(st)
+    out.pop("modes4")
+    out["intra_kind"] = out.pop("kind")
+    for k, key in (("recon_y", "ry"), ("recon_u", "ru"), ("recon_v", "rv")):
+        out[k] = _untile(out.pop(key)).to(torch.uint8)
     return out

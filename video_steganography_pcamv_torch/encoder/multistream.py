@@ -21,7 +21,11 @@ kernel), the native MVP/P_SKIP scan, rho from B4's probe maps and
 (`StegoEngine.apply_costs`), a full pass-2 re-encode (never the
 incremental one), the in-loop deblock (kernel B5, bit-exact to the
 reference's host deblocker) with the new reference built from it, and
-the slice through the encoder's native CAVLC or CABAC writer.
+the slice through the encoder's native CAVLC or CABAC writer. With
+stego off (the reference's `self._stego is None` branch, multistream.py:
+204-207) no B4 runs and B3 gives the per-MB cost instead, the pass-1
+encode is the final one, and the slice codes the scan's field, skips and
+mvds (the reference's MultiEncoder turns intra in P off).
 
 The reference's `MultiEncoder` reads few Params: its P encodes take no
 option but the quant tables (process state there, each encoder's own
@@ -52,10 +56,8 @@ def check_multistream(p: Params) -> None:
     `MultiEncoder` ignores or breaks (ROADMAP F7-F9): its P steps run
     the one-reference partitioned analysis and encodes at the frame qp
     whatever the Params say, and its P slice header carries neither the
-    deblock offsets nor a POC LSB nor a reference-count override."""
-    if not p.stego.enabled:
-        raise NotImplementedError(
-            "MultiEncoder with stego off (ROADMAP A16b)")
+    deblock offsets nor a POC LSB nor a reference-count override. Stego
+    on or off is served."""
     bad = [name for name, on in (
         ("ref_frames>1 (its P steps search the newest frame only, and "
          "its CAVLC P slices code no ref_idx: ROADMAP F7)",
@@ -148,33 +150,39 @@ class MultiEncoder:
         encs = self.encs
         # the analysis and pass 1 of every stream, enqueued before any
         # host sync (the reference's `_analyse_encode_s`)
-        stage1, metas = [], []
+        stego = encs[0]._stego is not None
+        stage1, metas, res2 = [], [], []
         for s, e in enumerate(encs):
             y, u, v = padded[s]
             qp = qps[s]
             ref = self._refs[s]
-            part, mv8, SK, SP, sc8 = PT.analyse_p_frame_parts(
+            part, mv8, *tail = PT.analyse_p_frame_parts(
                 y, ref["luma"].to(torch.uint8),
                 torch.as_tensor(e.prev_mv).to(e.device), ME.lambda_tab(qp),
                 qp, p.me_range, mbh, mbw, tail_kernel=bool(p.tail_kernel),
-                tables=e.qt)
+                tables=e.qt, probe=stego)
+            # with stego off the pass-1 encode is the final one
             res1 = P.encode_p_frame_device8(
                 y, u, v, ref["luma"], ref["u"], ref["v"], mv8, qp,
-                chroma_qp(qp, p.chroma_qp_offset), mbh, mbw, cbp_only=True,
-                tables=e.qt)
-            stage1.append((part, mv8, SK, SP, sc8))
+                chroma_qp(qp, p.chroma_qp_offset), mbh, mbw,
+                cbp_only=stego, tables=e.qt)
+            stage1.append((part, mv8, *tail))
+            if not stego:
+                res2.append(res1)
             metas.append(torch.cat([
                 part.reshape(-1), mv8.reshape(-1),
                 res1["cbp_luma"].reshape(-1).to(torch.int32),
                 res1["cbp_chroma"].reshape(-1).to(torch.int32)]))
         metas = _pull(metas)
 
-        # per stream: the native scan, rho (the reference's
-        # `stego_costs_parts` is `probe_maps_xla` + `probe_combine`: B4's
-        # maps are the first half here), the STC, then the full pass 2.
+        # per stream: the native scan (with stego off, all), rho (the
+        # reference's
+        # `stego_costs_parts` is `probe_maps_xla` + `probe_combine`:
+        # B4's maps are the first half here), the STC, then the full
+        # pass 2.
         # The reference's batched `_stego_costs_s` is never called, so it
         # has no counterpart.
-        hosts, res2 = [], []
+        hosts = []
         for s, e in enumerate(encs):
             y, u, v = padded[s]
             qp = qps[s]
@@ -182,9 +190,12 @@ class MultiEncoder:
             part_np = meta[:n].reshape(mbh, mbw)
             mv8_np = np.ascontiguousarray(meta[n:9 * n]).reshape(
                 2 * mbh, 2 * mbw, 2)
-            skip1, _mvd, mvp, _f8 = native.scan_p_parts(
+            skip1, mvd1, mvp, final1 = native.scan_p_parts(
                 part_np, mv8_np, meta[9 * n:10 * n].reshape(mbh, mbw),
                 meta[10 * n:].reshape(mbh, mbw))
+            if not stego:
+                hosts.append((part_np, final1, skip1, mvd1))
+                continue
             part, mv8, SK, SP, sc8 = stage1[s]
             rho, alt, _valid = PT.probe_combine(
                 SK, SP, sc8, part, mv8, torch.as_tensor(mvp).to(e.device),

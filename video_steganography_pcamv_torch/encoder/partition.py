@@ -227,10 +227,25 @@ def ref8_from_partition(st: dict, part, mbh: int, mbw: int):
         .reshape(2 * mbh, 2 * mbw).contiguous()
 
 
+def _tail(y, windows, part, mvfp8, prev_mv, lam: int, qp: int, mbh: int,
+          mbw: int, tables, probe: bool):
+    """The analyse tail on the windows: B3 -> B4 with `probe`
+    (`ops.probe.analyse_tail`: mv8, SK, SP, sc8), else B3 alone with its
+    per-MB inter cost (the stego-off analysis: mv8, mb_cost)."""
+    if not probe:
+        mv8, _r_idx8, mb_cost = PR.subpel(y, windows, part, mvfp8, prev_mv,
+                                          lam, mbh, mbw, mb_cost=True)
+        return mv8, mb_cost
+    mv8, _r_idx8, SK, SP, sc8 = PR.analyse_tail(
+        y, windows, part, mvfp8, prev_mv, lam, qp, mbh, mbw, tables=tables)
+    return mv8, SK, SP, sc8
+
+
 def analyse_p_frame_parts_mref(y, refs8, n_valid: int, prev_mv, lam: int,
                                qp: int, rng: int, mbh: int, mbw: int,
                                num_ref: int, allow_parts: bool = True,
-                               tail_kernel: bool = False, tables=None):
+                               tail_kernel: bool = False, tables=None,
+                               probe: bool = True):
     """Multi-reference partition analysis, the reference's
     `analyse_p_frame_parts_mref` (partition.py:812) with its analyse tail
     on the windows: B1 on plane 0 of each stacked entry (`refs8` [R, 4,
@@ -240,7 +255,9 @@ def analyse_p_frame_parts_mref(y, refs8, n_valid: int, prev_mv, lam: int,
     maps do not depend on the MV predictor, so they are computed here;
     `probe_combine` runs once the host scan has given the predictors.
     B4' quantizes with the inter class of `tables` (None: flat).
-    Returns (part, mv8 qpel, ref8 [2mbh, 2mbw] int32, SK, SP, sc8)."""
+    Returns (part, mv8 qpel, ref8 [2mbh, 2mbw] int32, SK, SP, sc8); with
+    `probe` False (stego off) no B4 runs, and the tail is (mb_cost,) the
+    per-MB inter cost from B3: (part, mv8, ref8, mb_cost)."""
     pred = (torch.zeros_like(prev_mv) if tail_kernel
             else prev_mv >> 2).contiguous()
     sts = [fullpel_parts(y, refs8[r, 0], pred, rng, mbh, mbw, lam)
@@ -250,15 +267,14 @@ def analyse_p_frame_parts_mref(y, refs8, n_valid: int, prev_mv, lam: int,
     mvfp8 = mvfp8.contiguous()
     ref8 = ref8_from_partition(st, part, mbh, mbw)
     windows = gather_windows8(refs8, mvfp8, mbh, mbw, ref8=ref8)
-    mv8, _r_idx8, SK, SP, sc8 = PR.analyse_tail(
-        y, windows, part, mvfp8, prev_mv.contiguous(), lam, qp, mbh, mbw,
-        tables=tables)
-    return part, mv8, ref8, SK, SP, sc8
+    mv8, *tail = _tail(y, windows, part, mvfp8, prev_mv.contiguous(), lam,
+                       qp, mbh, mbw, tables, probe)
+    return (part, mv8, ref8, *tail)
 
 
 def analyse_p_frame_parts(y, ref8, prev_mv, lam: int, qp: int, rng: int,
                           mbh: int, mbw: int, tail_kernel: bool = False,
-                          tables=None):
+                          tables=None, probe: bool = True):
     """One-reference partition analysis, the reference's
     `analyse_p_frame_parts` (partition.py:1364, both `use_pallas`
     branches mapped on `tail_kernel`) with its analyse tail on the
@@ -267,16 +283,84 @@ def analyse_p_frame_parts(y, ref8, prev_mv, lam: int, qp: int, rng: int,
     decision, B9, then B2 -> B3 -> B4 (`ops.probe.analyse_tail`, B4's
     probe at qp with the inter class of `tables`). Returns (part, mv8
     qpel, SK, SP, sc8); `probe_combine` turns the maps into the RCA costs
-    once the MV predictors are known."""
+    once the MV predictors are known. With `probe` False (stego off) no
+    B4 runs: (part, mv8, mb_cost), mb_cost [mbh, mbw] the per-MB inter
+    cost from B3, which the intra-in-P compare reads."""
     pred = torch.zeros_like(prev_mv) if tail_kernel else prev_mv >> 2
     st = fullpel_parts(y, ref8[0], pred.contiguous(), rng, mbh, mbw, lam)
     part, mvfp8 = decide_partition(st, mbh, mbw, lam)
     mvfp8 = mvfp8.contiguous()
     windows = gather_windows8(ref8, mvfp8, mbh, mbw)
-    mv8, _r_idx8, SK, SP, sc8 = PR.analyse_tail(
-        y, windows, part, mvfp8, prev_mv.contiguous(), lam, qp, mbh, mbw,
-        tables=tables)
-    return part, mv8, SK, SP, sc8
+    mv8, *tail = _tail(y, windows, part, mvfp8, prev_mv.contiguous(), lam,
+                       qp, mbh, mbw, tables, probe)
+    return (part, mv8, *tail)
+
+
+def rd_rerank_parts(y, u, v, ref, prev_mv, qp: int, qpc: int, lam: int,
+                    rng: int, mbh: int, mbw: int, trellis: bool = False,
+                    nr_offset=None, trans8: bool = False,
+                    tail_kernel: bool = False, tables=None):
+    """The partition-shape RD re-rank of `rd` >= 1 with stego off, the
+    reference's `rd_rerank_parts` (partition.py:1616-1724; x264's
+    x264_mb_analyse_p_rd, analyse.c:2117): B1 once (its predictor per
+    `tail_kernel`, as in `analyse_p_frame_parts`), then for each of the
+    four uniform shapes the windows (B9), B3 with its per-MB cost, a full
+    encode with the RD 8x8-transform choice (`trellis` the probe trellis:
+    the reference's trellis > 1), the device scan for the exact mvds and
+    `inter.rd_coded_cost`; a shape whose SATD total is above 5/4 of the
+    best is gated out with 1 << 30, and each MB takes the first cheapest
+    shape, its units' MVs and its B3 cost. `ref` is the reference dict.
+    Returns (part [mbh,mbw] int32, mv8 [2mbh,2mbw,2] qpel, mb_cost
+    [mbh,mbw] int32)."""
+    dev = y.device
+    planes = ref["luma"].to(torch.uint8)
+    pred = torch.zeros_like(prev_mv) if tail_kernel else prev_mv >> 2
+    st = fullpel_parts(y, planes[0], pred.contiguous(), rng, mbh, mbw, lam)
+    hdr = _HDR_BITS
+    tot = torch.stack([
+        st["c16"] + lam * int(hdr[0]),
+        st["c16x8"].sum(-1, dtype=_I32) + lam * int(hdr[1]),
+        st["c8x16"].sum(-1, dtype=_I32) + lam * int(hdr[2]),
+        st["c8"].sum(-1, dtype=_I32) + lam * int(hdr[3]),
+    ])
+    # analyse.c:2119 thresh = i_satd * 5/4 (the candidate gate)
+    thresh = torch.div(tot.min(0).values * 5, 4, rounding_mode="floor")
+    mv_by_part = torch.stack([
+        st["mv16"][:, :, None, :].expand(mbh, mbw, 4, 2),
+        st["mv16x8"][:, :, [0, 0, 1, 1], :],
+        st["mv8x16"][:, :, [0, 1, 0, 1], :],
+        st["mv8"],
+    ])
+    prev = prev_mv.contiguous()
+    costs, mv8s, mb_costs = [], [], []
+    for s in range(4):
+        part_s = torch.full((mbh, mbw), s, dtype=_I32, device=dev)
+        mvsp = mv_by_part[s].reshape(mbh, mbw, 2, 2, 2) \
+            .permute(0, 2, 1, 3, 4).reshape(2 * mbh, 2 * mbw, 2).contiguous()
+        windows = gather_windows8(planes, mvsp, mbh, mbw)
+        mv8_s, _r_idx, cost_s = PR.subpel(y, windows, part_s, mvsp, prev,
+                                          lam, mbh, mbw, mb_cost=True)
+        res = INTER.encode_p_frame_device8(
+            y, u, v, ref["luma"], ref["u"], ref["v"], mv8_s, qp, qpc, mbh,
+            mbw, trans8=trans8, rd=True, trellis=trellis, tables=tables,
+            nr_offset=nr_offset)
+        _, mvd_s, _, _ = scan_p_device(part_s, mv8_s,
+                                       res["cbp_luma"].to(_I32),
+                                       res["cbp_chroma"].to(_I32), mbh, mbw)
+        rd = INTER.rd_coded_cost(
+            y, u, v, res["luma_lev"], res["chroma_dc"], res["chroma_ac"],
+            res["recon_y"], res["recon_u"], res["recon_v"], mvd_s, part_s,
+            qp, mbh, mbw)
+        costs.append(torch.where(tot[s] <= thresh, rd, 1 << 30))
+        mv8s.append(mv8_s)
+        mb_costs.append(cost_s)
+    part = torch.argmin(torch.stack(costs), dim=0).to(_I32)
+    sel8 = part.repeat_interleave(2, 0).repeat_interleave(2, 1).long()
+    mv8 = torch.gather(torch.stack(mv8s), 0,
+                       sel8[None, :, :, None].expand(1, 2 * mbh, 2 * mbw, 2)
+                       )[0]
+    mb_cost = torch.gather(torch.stack(mb_costs), 0, part.long()[None])[0]
+    return part, mv8.contiguous(), mb_cost
 
 
 def probe_combine(SK, SP, sc8, part, mv8, mvp_u, cost_mv, mbh: int,

@@ -79,12 +79,12 @@ def load() -> ctypes.CDLL:
     lib.pcamv_write_slice.argtypes = [
         u8p, ctypes.c_long, u8p, ci, ci, ci, ci,
         vp, vp, vp, i32p, i32p, vp, i32p, i32p, i32p, vp, vp, vp, vp,
-        vp, ci, vp, ci, vp, vp, vp, vp, ci, vp, ci]
+        vp, ci, vp, ci, vp, vp, vp, vp, ci, vp, ci, vp]
     lib.pcamv_write_slice_cabac.restype = ctypes.c_long
     lib.pcamv_write_slice_cabac.argtypes = [
         u8p, ctypes.c_long, u8p, ci, ci, ci, ci, ci, ci,
         vp, vp, vp, vp, vp, i32p, i32p, vp, i32p, i32p, i32p,
-        vp, vp, vp, ci, vp, ci, vp, vp, vp, vp, ci, vp]
+        vp, vp, vp, ci, vp, ci, vp, vp, vp, vp, ci, vp, vp]
     lib.pcamv_write_slice_b.restype = ctypes.c_long
     lib.pcamv_write_slice_b.argtypes = [
         u8p, ctypes.c_long, u8p, ci, ci, ci] + [i32p] * 8
@@ -119,6 +119,11 @@ def _ptr(a):
     return None if a is None else a.ctypes.data_as(ctypes.c_void_p)
 
 
+def _as_u8(a, n: int):
+    """A per-MB flag array as a contiguous uint8 [n] array, or None."""
+    return None if a is None else np.ascontiguousarray(a, np.uint8).reshape(n)
+
+
 def _grid(qp_grid, n: int):
     """A per-MB qp grid as a contiguous int32 [n] array, or None."""
     return None if qp_grid is None else _as_i32(qp_grid).reshape(n)
@@ -132,7 +137,7 @@ def write_slice(header_bytes: bytes, header_nbits: int, slice_type: int,
                 mb_i8=None,
                 i8_modes=None, luma8_lev=None, trans8=None,
                 trans8_mode: bool = False, qp_grid=None,
-                slice_qp: int = 0) -> bytes:
+                slice_qp: int = 0, p_intra=None) -> bytes:
     """Native whole-slice CAVLC entropy coding (I slices, and P slices
     with partitions and one or more references). Shapes: luma_blocks
     [N,16,16], luma_dc [N,16], chroma_dc [N,2,4], chroma_ac [N,2,4,16],
@@ -146,7 +151,10 @@ def write_slice(header_bytes: bytes, header_nbits: int, slice_type: int,
     [N,4], luma8_lev [N,2,2,8,8] raster (zigzag-scanned here), trans8
     [N] u8. Adaptive quantization: qp_grid [N] each MB's qp, written as
     the folded mb_qp_delta against the last coded qp (from slice_qp, the
-    header's) wherever an MB codes one (None: every delta 0)."""
+    header's) wherever an MB codes one (None: every delta 0). Intra MBs
+    in a P slice (stego off): p_intra [N] u8 marks them, and they take
+    mode, cmode, luma_dc, mb_i4 and i4_modes and the residual arrays at
+    their index, as an I slice's MBs do."""
     lib = load()
     n = mbw * mbh
     hdr = np.frombuffer(header_bytes + b"\0" * 8, np.uint8).copy()
@@ -191,7 +199,7 @@ def write_slice(header_bytes: bytes, header_nbits: int, slice_type: int,
             _ptr(i4_a), _ptr(i4m_a), _ptr(part_a), _ptr(mvd4_a),
             _ptr(refs_a), num_ref, _ptr(sub_a), stride, _ptr(i8_a),
             _ptr(i8m_a), _ptr(l8_a), _ptr(t8_a), 1 if trans8_mode else 0,
-            _ptr(grid_a), slice_qp)
+            _ptr(grid_a), slice_qp, _ptr(_as_u8(p_intra, n)))
         if r >= 0:
             return bytes(out[:r])
         cap *= 4
@@ -207,14 +215,16 @@ def write_slice_cabac(header_bytes: bytes, header_nbits: int,
                       mb_i4=None, i4_modes=None, refs=None,
                       num_ref: int = 1, sub_type=None, mb_i8=None,
                       i8_modes=None, luma8_lev=None, trans8=None,
-                      trans8_mode: bool = False, qp_grid=None) -> bytes:
+                      trans8_mode: bool = False, qp_grid=None,
+                      p_intra=None) -> bytes:
     """Native whole-slice CABAC entropy coding of an I or P slice (twin
     of encoder/cabac.py's CabacSliceWriter, bit-identical). Shapes as
     in `write_slice`, except: luma8_lev [N, 256] raster (the writer
     scans it), refs [N, 4] per-ref-slot L0 refs (coded when num_ref >
     1), sub_type [N, 4] with mvd4 then [N, 16, 2] per sub-unit; qp_grid
     [N] as in `write_slice` (the chain starts at qp), its mb_qp_delta
-    contexts following the previous MB's delta."""
+    contexts following the previous MB's delta; p_intra as in
+    `write_slice`."""
     lib = load()
     n = mbw * mbh
     hdr = np.frombuffer(header_bytes + b"\0" * 8, np.uint8).copy()
@@ -256,7 +266,8 @@ def write_slice_cabac(header_bytes: bytes, header_nbits: int,
             _as_i32(chroma_ac).reshape(n * 128),
             _ptr(i4_a), _ptr(i4m_a), _ptr(refs_a), num_ref,
             _ptr(sub_a), stride, _ptr(i8_a), _ptr(i8m_a), _ptr(l8_a),
-            _ptr(t8_a), 1 if trans8_mode else 0, _ptr(grid_a))
+            _ptr(t8_a), 1 if trans8_mode else 0, _ptr(grid_a),
+            _ptr(_as_u8(p_intra, n)))
         if r >= 0:
             return bytes(out[:r])
         cap *= 4

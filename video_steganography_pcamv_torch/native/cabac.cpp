@@ -604,7 +604,11 @@ extern "C" long pcamv_write_slice_cabac(
     const int32_t* sub_type, int mvd_stride,
     const uint8_t* mb_i8, const int32_t* i8_modes,
     const int32_t* luma8_lev, const int32_t* trans8,
-    int trans8_mode, const int32_t* qp_grid) {
+    int trans8_mode, const int32_t* qp_grid,
+    // intra MBs in a P slice (stego off): p_intra [n] marks them (null:
+    // none); they take the I-slice arrays at their index, after the P
+    // slice's skip flag and intra prefix (encoder/cabac.c:123-140)
+    const uint8_t* p_intra) {
   CabacBits bits(out, out_cap);
   for (int i = 0; i < header_nbits; i++)
     bits.bit((header[i >> 3] >> (7 - (i & 7))) & 1);
@@ -635,16 +639,28 @@ extern "C" long pcamv_write_slice_cabac(
     }
     bool i8 = mb_i8 && mb_i8[a];
     bool i4 = (mb_i4 && mb_i4[a]) || i8;   // I_NxN covers both
-    if (is_i) {
-      // mb_type ctx from neighbours
-      int ctx = 0;
-      if (mx > 0 && S.m.kind(my, mx - 1) >= 0 && S.m.kind(my, mx - 1) != 2)
-        ctx++;
-      if (my > 0 && S.m.kind(my - 1, mx) >= 0 && S.m.kind(my - 1, mx) != 2)
-        ctx++;
+    const bool intra_p = !is_i && p_intra && p_intra[a];
+    if (is_i || intra_p) {
       int cbpl = cbp_luma[a], cbpc = cbp_chroma[a];
-      S.mb_type_intra(i4, mode ? mode[a] : 0, cbpl, cbpc, 3 + ctx, 6, 7,
-                      8, 9, 10);
+      if (intra_p) {
+        // the P slice's mb_skip_flag 0, then the intra prefix bin and
+        // the I binarization on ctx 17-20
+        S.skip_flag(my, mx, 0);
+        S.cb.dec(14, 1);
+        S.mb_type_intra(i4, mode ? mode[a] : 0, cbpl, cbpc, 17, 18, 19, 19,
+                        20, 20);
+      } else {
+        // mb_type ctx from neighbours
+        int ctx = 0;
+        if (mx > 0 && S.m.kind(my, mx - 1) >= 0 &&
+            S.m.kind(my, mx - 1) != 2)
+          ctx++;
+        if (my > 0 && S.m.kind(my - 1, mx) >= 0 &&
+            S.m.kind(my - 1, mx) != 2)
+          ctx++;
+        S.mb_type_intra(i4, mode ? mode[a] : 0, cbpl, cbpc, 3 + ctx, 6, 7,
+                        8, 9, 10);
+      }
       S.clear_mvd(my, mx);
       if (i8) {
         // I_NxN with transform flag 1: i8 modes + cat-5 residual

@@ -289,7 +289,12 @@ extern "C" long pcamv_write_slice(
     const int32_t* luma8_scan, const uint8_t* trans8, int trans8_mode,
     // adaptive quantization: qp_grid [n] each MB's qp (null: every
     // mb_qp_delta is 0), slice_qp the slice header's QP
-    const int32_t* qp_grid, int slice_qp) {
+    const int32_t* qp_grid, int slice_qp,
+    // intra MBs in a P slice (stego off): p_intra [n] marks them (null:
+    // none); they take the I-slice arrays (mode, cmode, luma_dc, mb_i4,
+    // i4_modes and the residual arrays at their index), with the P
+    // slice's mb_type offset 5 (spec 7.4.5, Table 7-13)
+    const uint8_t* p_intra) {
   BitWriter bw(out, out_cap);
   for (int i = 0; i < header_nbits; i++)
     bw.put(1, (header[i >> 3] >> (7 - (i & 7))) & 1);
@@ -309,9 +314,13 @@ extern "C" long pcamv_write_slice(
           for (int c = 0; c < 2; c++) fc.set_nc(ch, 2 * my + b, 2 * mx + c, 0);
       continue;
     }
+    const bool intra_p = slice_type == 0 && p_intra && p_intra[a];
+    const int intra_off = slice_type == 0 ? 5 : 0;
     if (slice_type == 0) {
       bw.put_ue(skip_run);
       skip_run = 0;
+    }
+    if (slice_type == 0 && !intra_p) {
       // mb_type 0..3 (16x16/16x8/8x16/8x8, spec 7.3.5.2); P_8x8 codes
       // its four sub_mb_type (spec Table 7-17)
       int p = part[a];
@@ -404,7 +413,7 @@ extern "C" long pcamv_write_slice(
       write_chroma(bw, fc, mx, my, cbp_chroma[a], &chroma_dc[a * 8],
                    &chroma_ac[a * 128]);
     } else if (mb_i4 && mb_i4[a]) {  // I_NxN (Intra_4x4), spec 7.3.5.1
-      bw.put_ue(0);  // mb_type (I slice)
+      bw.put_ue(intra_off);  // mb_type I_NxN: 0 in an I slice, 5 in a P
       if (trans8_mode) bw.put(1, 0);  // transform_size_8x8_flag
       for (int blk = 0; blk < 16; blk++) {
         int braster = LSCAN[blk];
@@ -441,7 +450,7 @@ extern "C" long pcamv_write_slice(
                    &chroma_ac[a * 128]);
     } else {  // I16x16
       int cbp01 = cbp_luma[a] ? 1 : 0;
-      int mb_type = 1 + mode[a] + 4 * cbp_chroma[a] + 12 * cbp01;
+      int mb_type = intra_off + 1 + mode[a] + 4 * cbp_chroma[a] + 12 * cbp01;
       bw.put_ue(mb_type);
       bw.put_ue(cmode[a]);
       bw.put_se(dq.next(a));  // mb_qp_delta (I16 always)

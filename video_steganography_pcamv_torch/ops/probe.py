@@ -171,11 +171,20 @@ def z_to_sp(a, mbh: int, mbw: int):
         .reshape(2 * mbh, 2 * mbw, *rest)
 
 
+# per partition (16x16, 16x8, 8x16, 8x8): the z-order 8x8 blocks that
+# are the first of their unit
+_FIRST = np.array([[1, 0, 0, 0], [1, 0, 1, 0], [1, 1, 0, 0], [1, 1, 1, 1]],
+                  np.int32)
+
+
 def subpel_parts(cur_y, windows, part, mvfp8, prev_mv, mbh: int,
-                 mbw: int, lam: int = 1):
+                 mbw: int, lam: int = 1, mb_cost: bool = False):
     """Subpel refinement (subpel=2) per partition unit from the 49 WHT
     rows of the [-3, 3]^2 box, built from the windows. Returns (mv8
-    [2mbh,2mbw,2] qpel, r_idx8 [N8] chosen table index)."""
+    [2mbh,2mbw,2] qpel, r_idx8 [N8] chosen table index) and, with
+    `mb_cost`, each MB's inter cost [mbh,mbw] int32: every unit's
+    minimum cost counted once, at its first 8x8 (the reference's
+    partition.py:354-362)."""
     dev = cur_y.device
     n8 = 4 * mbh * mbw
     wcur = wht8_flat(_mb_blocks8(cur_y, mbh, mbw))
@@ -220,7 +229,11 @@ def subpel_parts(cur_y, windows, part, mvfp8, prev_mv, mbh: int,
     r_idx = (oy_sel + 6) * 13 + (ox_sel + 6)
     mv8 = z_to_sp(mvq, mbh, mbw)
     r_idx8 = z_to_sp(r_idx[..., None], mbh, mbw)[..., 0].reshape(n8)
-    return mv8.to(_I32), r_idx8.to(_I32)
+    if not mb_cost:
+        return mv8.to(_I32), r_idx8.to(_I32)
+    first = const(_FIRST, dev)[part.long()]
+    cost_mb = (cost.min(dim=0).values * first).sum(-1, dtype=_I32)
+    return mv8.to(_I32), r_idx8.to(_I32), cost_mb
 
 
 # the distinct lattice deltas (cy + ny, cx + nx) around the chosen row:
@@ -326,7 +339,7 @@ qpel_tables.launches = 0
 
 
 def subpel(cur_y, windows, part, mvfp8, prev_mv, lam: int, mbh: int,
-           mbw: int):
+           mbw: int, mb_cost: bool = False):
     """Kernel B3, replacing `subpel_pallas`
     (video_steganography_pcamv_tpu/ops/probe_pallas.py:301), with the 49
     rows it reads of `qpel_tables_pallas` (probe_pallas.py:221) built
@@ -338,10 +351,13 @@ def subpel(cur_y, windows, part, mvfp8, prev_mv, lam: int, mbh: int,
     cur_y [16mbh,16mbw] int32, windows [N8,4,16,16] uint8, part
     [mbh,mbw] int32, mvfp8 [2mbh,2mbw,2] int32 full-pel, prev_mv
     [mbh,mbw,2] int32 qpel predictor -> (mv8 [2mbh,2mbw,2] int32 qpel,
-    r_idx8 [N8] int32 in spatial order)."""
+    r_idx8 [N8] int32 in spatial order) and, with `mb_cost` (the stego-off
+    analysis), each MB's inter cost [mbh,mbw] int32 (`subpel_parts`),
+    written by the threads that hold the units' minima (counted in
+    `subpel.cost_launches` too)."""
     if cur_y.device.type == "cpu":
         return subpel_parts(cur_y, windows, part, mvfp8, prev_mv, mbh, mbw,
-                            lam)
+                            lam, mb_cost)
     n8 = 4 * mbh * mbw
     chk = kernels.check_tensor
     chk("subpel", "cur_y", cur_y, _I32, (16 * mbh, 16 * mbw))
@@ -352,16 +368,23 @@ def subpel(cur_y, windows, part, mvfp8, prev_mv, lam: int, mbh: int,
     dev = cur_y.device
     mv8 = torch.empty((2 * mbh, 2 * mbw, 2), dtype=_I32, device=dev)
     r_idx8 = torch.empty((n8,), dtype=_I32, device=dev)
-    fn = kernels.entry("pcamv_subpel", [_VP] * 5 + [_CI] * 3 + [_VP] * 3)
+    cost = (torch.empty((mbh, mbw), dtype=_I32, device=dev) if mb_cost
+            else None)
+    fn = kernels.entry("pcamv_subpel", [_VP] * 5 + [_CI] * 3 + [_VP] * 4)
     ptr = kernels.ptr
     rc = fn(ptr(cur_y), ptr(windows), ptr(part), ptr(mvfp8), ptr(prev_mv),
-            int(lam), mbh, mbw, ptr(mv8), ptr(r_idx8), kernels.stream(cur_y))
+            int(lam), mbh, mbw, ptr(mv8), ptr(r_idx8),
+            None if cost is None else ptr(cost), kernels.stream(cur_y))
     kernels.check(rc, "pcamv_subpel")
     subpel.launches += 1
-    return mv8, r_idx8
+    if cost is None:
+        return mv8, r_idx8
+    subpel.cost_launches += 1
+    return mv8, r_idx8, cost
 
 
 subpel.launches = 0
+subpel.cost_launches = 0
 
 
 def quant_params(qp: int, tables=None, device="cpu") -> torch.Tensor:

@@ -4,14 +4,16 @@
 reads between frames as numpy arrays and plain Python values: the
 reference planes, the temporal MV predictor, the lookahead's previous
 lowres plane and keyframe counters, the rate-control state, the stego
-message PRNG and STC matrix LCG (and the messages sent so far),
+message PRNG and STC matrix LCG (and the messages sent so far; none
+with stego off),
 frame_num, the POC LSB, the IDR picture id, the encode stats (frame and
 bit counts, the PSNR/SSIM sums `close()` reports, the stego counters),
 the pending pipelined frame if there is one, and the B pipe: the
 buffered display-order frames (source planes, padded planes, lookahead
 SATD, display index, lowres plane), the display counters, the newest
 anchor's lowres plane, display index, frame_num and colocated motion
-field, the motion the next anchor's field would fall back to, the
+field, the motion the next anchor's field would fall back to (with its
+intra MBs, which a stego-off P frame may hold), the
 lookahead's adaptive-B flag, the pending L0 reordering op of the P slice
 after a pyramid GOP and the `direct` auto score, and the noise
 reduction's running sums and block count (a resumed `--nr` stream
@@ -65,7 +67,8 @@ def from_reference(enc) -> dict:
     # a sub-8x8 anchor's per-4x4 field, the others' per-8x8 one
     motion = (None if info.get("mv8") is None else (
         np.asarray(info["mv4"] if info.get("mv4") is not None
-                   else info["mv8"]), arr(info.get("ref8"))))
+                   else info["mv8"]), arr(info.get("ref8")),
+        np.asarray(info["kind"]) >= 2))
     bpipe = {
         "bbuf": [{"frame": tuple(np.asarray(x) for x in (f.y, f.u, f.v)),
                   "planes": tuple(np.asarray(x) for x in (y, u, v)),
@@ -93,9 +96,10 @@ def from_reference(enc) -> dict:
             "last_keyframe": la.last_keyframe,
             "frame_idx": la.frame_idx},
         "rc": copy.deepcopy(enc.rc.__dict__),
-        "stego_rng": st._rng.get_state(),
-        "stc_holdrand": st._stc_state.holdrand,
-        "sent_messages": [np.asarray(m) for m in st.sent_messages],
+        "stego_rng": None if st is None else st._rng.get_state(),
+        "stc_holdrand": None if st is None else st._stc_state.holdrand,
+        "sent_messages": ([] if st is None
+                          else [np.asarray(m) for m in st.sent_messages]),
         "frame_num": enc.frame_num,
         "poc_lsb": enc._poc_lsb,
         "idr_pic_id": enc.idr_pic_id,
@@ -126,9 +130,13 @@ def load_state(enc, d: dict) -> None:
     enc.lookahead.last_keyframe = la["last_keyframe"]
     enc.lookahead.frame_idx = la["frame_idx"]
     enc.rc.__dict__.update(copy.deepcopy(d["rc"]))
-    enc._stego._rng.set_state(d["stego_rng"])
-    enc._stego._stc_state.holdrand = d["stc_holdrand"]
-    enc._stego.sent_messages = [np.array(m) for m in d["sent_messages"]]
+    if (enc._stego is None) != (d["stego_rng"] is None):
+        raise ValueError("load_state: stego on in one encoder, off in the "
+                         "other")
+    if enc._stego is not None:
+        enc._stego._rng.set_state(d["stego_rng"])
+        enc._stego._stc_state.holdrand = d["stc_holdrand"]
+        enc._stego.sent_messages = [np.array(m) for m in d["sent_messages"]]
     enc.frame_num = d["frame_num"]
     enc._poc_lsb = d["poc_lsb"]
     enc.idr_pic_id = d["idr_pic_id"]
@@ -161,7 +169,7 @@ def _load_bpipe(enc, b: dict, t) -> None:
     m = b["anchor_motion"]
     enc._anchor_motion = (None if m is None else (
         np.array(m[0], np.int32), None if m[1] is None
-        else np.array(m[1], np.int32)))
+        else np.array(m[1], np.int32), np.array(m[2], bool)))
     enc.lookahead.bad_b_candidate = b["bad_b_candidate"]
     enc._anchor_disp = b["anchor_disp"]
     enc._last_anchor_fn = b["last_anchor_fn"]
