@@ -224,7 +224,29 @@ Phases (any failure raises and the script exits non-zero):
      tail_kernel settings), CABAC, rd 1, rd 2 with trellis 2, CABAC and
      transform_8x8, ref_frames 2, aq_mode 1, the 16x16-only path,
      bframes 2 with intra_in_p off, and a 2-stream MultiEncoder at
-     128x96.
+     128x96;
+ 40. the plain encoder's sub-8x8 path at full width: bench.py's Params
+     with p4x4, em_rate 0 and rd 1 (CAVLC, the intra compare on) at
+     1920x1088 on `plain_sub_clip` (phase 36's moving 4x4 blocks with
+     `reveal_clip`'s new content), IDR + 2 P: exact launches per P frame
+     (B1's sub-unit instance once, the fused luma encode 9 times: the
+     RD re-rank's seven probes and recomposed frame, then the final
+     encode; B5 once; B3, B4 and B9 never), intra MBs, the P_8x8 share
+     and the sub_mb_type histogram, `rd_rerank_sub`'s and
+     `refine_p_intra`'s CUDA-event ms, P fps, decoded == recon with the
+     same intra MBs (in a worker);
+ 41. intra MBs in B slices at full width: bench.py's Params with em_rate
+     0, bframes 2 and b_adapt 0 (CAVLC, partitions) on `reveal_clip`, I
+     B B P: per B frame exact launches (B1, B9 and B3 twice, the luma
+     encode once, B4 and B5 never), the intra MBs, the direct MBs and the
+     MBs the dependant rule kept inter, `_b_intra`'s CUDA-event ms and B
+     fps; decoded == recon on every frame (in a worker);
+ 42. stego off at 112x80 over 5 frames, cuda == cpu (the cpu halves in
+     the workers): p4x4 at rd 0, rd 1, rd 2 with trellis 2, CABAC and
+     transform_8x8, ref_frames 2 on the host deblock and aq_mode 1; intra
+     in B on the partition path under CAVLC and CABAC, the 16x16 path,
+     temporal direct, b_pyramid, ref_frames 2, transform_8x8 and p4x4
+     anchors; intra MBs decoded wherever the intra compare runs.
 Phase 2 also holds B1's sub-unit instance (`pcamv_fullpel_sub`, the
 sub-8x8 analysis' search) against its plain version at 1080p shapes, rng
 16 with random and zero predictors, rng 20 and 7 with random ones,
@@ -241,7 +263,9 @@ cqm jvt with the incremental re-encode, cqm jvt with transform_8x8, rd
 1, trellis 1 and CABAC, noise_reduction at ref_frames 2, and
 noise_reduction with B frames and the deadzones 16/8.
 Phase 3 also holds B5 on a plain P frame whose intra MBs lie in three
-patches (trans8 on the inter MBs), with a fuzzed per-4x4 reference map
+patches (trans8 on the inter MBs), on a plain sub-8x8 P frame (per-4x4
+motion, intra patches, trans8 on the inter MBs without a split), with a
+fuzzed per-4x4 reference map
 (ref4), and
 on per-4x4 motion fields that move inside 8x8 blocks (the sub-8x8
 path's), once with trans8 on the MBs without a sub split and once with
@@ -262,21 +286,21 @@ transform_8x8 and trellis, the main path with trellis 1 and with rd
 Phases 9 and 13 run right after phase 4, so that a new kernel that fails
 stops the run early. Phases 29, 32 and 17 (the trellis IDR's minutes
 of host-bound eager work, eight 1080p IDRs in a row, and 17's 24 small
-cases) then run in a second process of this script on the same card
-(`--side`, its own two workers), beside the rest, and "29, 32 and 17"
-near the end joins it and logs its lines; 35, 33 and 34 run right after
-6 (so that their decode checks start early), then 18, 19, 20, 22, 24
-and 25, and 26, 27, 30, 31, 36, 37, 38 and 39 after 25.
+cases) and 41 then run in a second process of this script on the same
+card (`--side`, its own two workers), beside the rest, and "29, 32, 17
+and 41" near the end joins it and logs its lines; 35, 33 and 34 run
+right after 6 (so that their decode checks start early), then 18, 19,
+20, 22, 24 and 25, and 26, 27, 30, 31, 36-40 and 42 after 25.
 The decode checks of the full-width phases (6, 7, 11, 15, 19, 20, 22,
-24-27, 30, 31, 33, 36, 38: the port's CPU decoder, seconds a 1080p
+24-27, 30, 31, 33, 36, 38, 40: the port's CPU decoder, seconds a 1080p
 frame, and its extractor) run in four spawned worker processes while
 the later phases use the card; phase 28 waits for them, prints each
 one's result and fails if any failed. The same workers run the cpu
-halves of phases 5, 14, 35, 37 and 39 (submitted early) while the main
-process runs their cuda halves, the payload checks of these phases and
-of phase 10, phase 3's plain twins of six 1080p cases and phase 36's
-plain B5 twin. The second process's two workers do the same for phases
-29, 32 and 17.
+halves of phases 5, 14, 35, 37, 39 and 42 (submitted early) while the
+main process runs their cuda halves, the payload checks of these phases
+and of phase 10, phase 3's plain twins of its 1080p cases but the first
+and phase 36's plain B5 twin. The second process's two workers do the same for phases
+29, 32, 17 and 41.
 Each phase logs its wall time. The line before the last two holds the
 per-kernel JSON record, then the card line; the last line is
 {"ok": true, "device": {...}}.
@@ -655,7 +679,10 @@ def phase_b5(dev, int_rate):
               True, True),
              ("qp 26, a plain P frame with intra MBs in patches, trans8 on "
               "the inter MBs", MBH, MBW, 26, 0, 0, True, False, False,
-              True)]
+              True),
+             ("qp 28, a plain sub-8x8 P frame: per-4x4 mv, intra MBs in "
+              "patches, trans8 on the inter MBs without a split", MBH, MBW,
+              28, 0, 0, True, False, True, True)]
     wide = 1024
     resident = DB.resident_ctas(wide)
     cases.append(("%d MB rows > %d resident CTAs (%dx%d)"
@@ -2684,15 +2711,8 @@ def reveal_clip(w, h, n, seed=7):
     random luma (numpy, from `seed`), at a place that moves each frame,
     so that the plain encoder's intra compare switches MBs to intra."""
     from video_steganography_pcamv_torch.utils.yuv import synthetic_sequence
-    frames = synthetic_sequence(w, h, n, seed=seed)
-    g = np.random.default_rng(seed)
-    ph, pw = (h // 4) & ~15, (w // 4) & ~15
-    for i, f in enumerate(frames[1:], 1):
-        y0 = int(g.integers(0, (h - ph) // 16 + 1)) * 16
-        x0 = int(g.integers(0, (w - pw) // 16 + 1)) * 16
-        f.y[y0:y0 + ph, x0:x0 + pw] = np.repeat(np.repeat(
-            g.integers(0, 256, (ph // 4, pw // 4)), 4, 0), 4, 1)
-    return frames
+    return _paste_reveals(synthetic_sequence(w, h, n, seed=seed), w, h,
+                          np.random.default_rng(seed))
 
 
 def _plain_decode_job(bs, n_frames, recon):
@@ -2863,6 +2883,292 @@ def phase_plain_small(dev, jobs):
         log("plain %s: cuda stream == cpu stream (%s bytes)"
             % (k, [len(b) for b in got] if isinstance(got, list)
                else len(got)))
+
+
+def _paste_reveals(frames, w, h, g):
+    """`reveal_clip`'s occlusion reveal in every frame but the first: a
+    (h/4 x w/4) patch of 4x4-pixel cells of uniform random luma (from
+    the numpy generator `g`) at a place that moves each frame."""
+    ph, pw = (h // 4) & ~15, (w // 4) & ~15
+    for f in frames[1:]:
+        y0 = int(g.integers(0, (h - ph) // 16 + 1)) * 16
+        x0 = int(g.integers(0, (w - pw) // 16 + 1)) * 16
+        f.y[y0:y0 + ph, x0:x0 + pw] = np.repeat(np.repeat(
+            g.integers(0, 256, (ph // 4, pw // 4)), 4, 0), 4, 1)
+    return frames
+
+
+def plain_sub_clip(w, h, n, seed=21):
+    """Phase 36's `sub_motion_clip` (4x4 blocks that move on their own)
+    with `reveal_clip`'s patch of new content in every P frame: both the
+    sub-8x8 splits and the plain encoder's intra compare have work."""
+    return _paste_reveals(sub_motion_clip(w, h, n, seed), w, h,
+                          np.random.default_rng(seed))
+
+
+def _timed_calls(patches, timed):
+    """Wrap each (module, attribute) of `patches` so that every call is
+    timed with CUDA events (a sync after it) into timed[attribute] as
+    (ms, output); returns the originals to restore."""
+    saved = [(obj, name, getattr(obj, name)) for obj, name in patches]
+    for obj, name, real in saved:
+        def run(*a, real=real, name=name, **kw):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = real(*a, **kw)
+            ev[1].record()
+            torch.cuda.synchronize()
+            timed.setdefault(name, []).append((ev[0].elapsed_time(ev[1]),
+                                               out))
+            return out
+        setattr(obj, name, run)
+    return saved
+
+
+def _restore(saved):
+    for obj, name, real in saved:
+        setattr(obj, name, real)
+
+
+def phase_plain_sub(dev, card, w: int = 1920, h: int = 1088):
+    """Phase 40: the plain encoder's sub-8x8 path at full width: bench.py's
+    Params with p4x4, em_rate 0 and rd 1 (CAVLC, the intra compare on) on
+    `plain_sub_clip`, IDR + 2 P. Per P frame: its seconds (P fps), the
+    intra MBs, the P_8x8 share and the sub_mb_type histogram, the
+    launches (exactly: B1's sub-unit instance once, the fused luma encode
+    9 times: the seven probes of `rd_rerank_sub`, the recomposed P_8x8
+    frame and the final encode; B5 once; B3, B4 and B9 never) and the
+    CUDA-event ms of `partition.rd_rerank_sub` and `intra.refine_p_intra`;
+    decoded == recon, with the same intra MBs, in a worker."""
+    from video_steganography_pcamv_torch import Encoder
+    from video_steganography_pcamv_torch.encoder import core as TC
+    from video_steganography_pcamv_torch.encoder import partition as PT
+    label = "%dx%d plain p4x4, rd 1" % (w, h)
+    frames = plain_sub_clip(w, h, 3)
+    enc = Encoder(_params(w, h, True, em_rate=0, p4x4=True, rd=1),
+                  device=dev)
+    fns = _counters()
+    timed = {}
+    saved = _timed_calls([(PT, "rd_rerank_sub"), (TC, "refine_p_intra")],
+                         timed)
+    per, secs, recon, subs, bs = [], [], [], [], b""
+    try:
+        for f in frames:
+            for fn in fns.values():
+                fn.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bs += enc.encode_frame(f)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            per.append({k: fn.launches for k, fn in fns.items()})
+            recon.append(tuple(t.cpu().numpy() for t in enc.recon_prev))
+            subs.append(enc.last_sub)
+    finally:
+        _restore(saved)
+    rr, ri = timed.get("rd_rerank_sub", []), timed.get("refine_p_intra", [])
+    if len(rr) != 2 or len(ri) != 2:
+        raise AssertionError("%s: rd_rerank_sub %d, refine_p_intra %d calls,"
+                             " want 2 each" % (label, len(rr), len(ri)))
+    want = dict({k: 0 for k in per[1]}, fullpel_sub=1, luma_p_encode=9,
+                deblock_frame=1)
+    intra = []
+    for i, (l, (part, sub), (ms_r, _), (ms_i, ir)) in enumerate(
+            zip(per[1:], subs[1:], rr, ri)):
+        if l != want:
+            raise AssertionError("%s: P frame %d launches %s, want %s"
+                                 % (label, i + 1, l, want))
+        kind = ir["intra_kind"].cpu().numpy()
+        intra.append(int((kind > 0).sum()))
+        if not intra[-1] or not (sub[part == 3] > 0).any():
+            raise AssertionError("%s: P frame %d: %d intra MBs, sub types "
+                                 "%s" % (label, i + 1, intra[-1],
+                                         np.unique(sub[part == 3])))
+        t = secs[i + 1]
+        log("%s: P frame %d %.3f s (%.4f fps), %d I16x16 + %d I4x4 MBs, "
+            "P_8x8 %.1f%% of the MBs, sub_mb_type histogram (8x8, 8x4, "
+            "4x8, 4x4) %s; rd_rerank_sub %.1f ms, refine_p_intra %.1f ms "
+            "(%.1f%% of the frame); launches %s  [%s]"
+            % (label, i + 1, t, 1 / t, int((kind == 1).sum()),
+               int((kind == 2).sum()), 100.0 * (part == 3).mean(),
+               np.bincount(sub[part == 3].ravel(), minlength=4).tolist(),
+               ms_r, ms_i, ms_i / 10 / t,
+               json.dumps({k: v for k, v in l.items() if v}), card))
+    log("%s: IDR %.3f s; P frames %.4f fps; bytes %s"
+        % (label, secs[0], 2 / sum(secs[1:]), _frame_bytes(bs)))
+
+    def report(r):
+        secs_d, differ, dec_intra = r
+        if any(differ) or dec_intra[1:] != intra:
+            raise AssertionError("%s: decoded frames differ from the recon "
+                                 "%s, decoded intra MBs %s, encoded %s"
+                                 % (label, differ, dec_intra[1:], intra))
+        log("%s: every decoded frame == the encoder's recon, intra MBs a P "
+            "frame %s (decode %.1f s, in a worker)" % (label, intra, secs_d))
+    _DEFERRED.append((_submit(_plain_decode_job, bs, len(frames), recon),
+                      report))
+
+
+def phase_plain_b(dev, card, w: int = 1920, h: int = 1088):
+    """Phase 41: intra MBs in B slices at full width: bench.py's Params
+    with em_rate 0, bframes 2, b_adapt 0, partitions and CAVLC on
+    `reveal_clip` (its patch is new in every frame, so the B frames hold
+    content neither anchor has), frames I B B P. Per B frame: its
+    seconds (B fps), the intra MBs, the MBs that the dependant rule kept
+    inter (under spatial direct, the neighbours A-D of a direct MB), the
+    launches (B1 twice: L0 and L1, B9 and B3 twice, the fused luma encode
+    once, B4 and B5 never) and the CUDA-event ms of `Encoder._b_intra`
+    (`refine_p_intra` and the dependant mask); decoded == recon for
+    every frame, B frames included, in a worker."""
+    from video_steganography_pcamv_torch import Encoder
+    from video_steganography_pcamv_torch.encoder import core as TC
+    label = "%dx%d plain B frames" % (w, h)
+    frames = reveal_clip(w, h, 4, seed=13)
+    enc = Encoder(_params(w, h, True, em_rate=0, bframes=2, b_adapt=0),
+                  device=dev)
+    fns = _counters()
+    recon, rows, bs = {}, [], b""
+    real_psnr, real_b, real_intra = (enc._accumulate_psnr,
+                                     enc._encode_b_frame, enc._b_intra)
+
+    def keep(frame, y, u, v, recon_=None):
+        r = recon_ or enc.recon_prev
+        recon[id(frame)] = tuple(t.cpu().numpy() for t in r)
+        return real_psnr(frame, y, u, v, recon_)
+
+    def b_intra(y, u, v, res, code, subs, inter_cost, spatial, qp, lam):
+        direct = code == 0
+        if subs is not None:
+            direct |= (code == 22) & (subs == 0).any(-1)
+        dep = TC._neighbour_deps(direct) if spatial else direct & False
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = real_intra(y, u, v, res, code, subs, inter_cost, spatial, qp,
+                         lam)
+        ev[1].record()
+        torch.cuda.synchronize()
+        kind = out[1]
+        rows[-1].update(intra_ms=ev[0].elapsed_time(ev[1]),
+                        i16=int((kind == 1).sum()), i4=int((kind == 2).sum()),
+                        kept=int(dep.sum()), direct=int(direct.sum()))
+        return out
+
+    def encode_b(*a, **kw):
+        for fn in fns.values():
+            fn.launches = 0
+        rows.append({})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_b(*a, **kw)
+        torch.cuda.synchronize()
+        rows[-1].update(s=time.perf_counter() - t0,
+                        launches={k: fn.launches for k, fn in fns.items()})
+        return out
+    enc._accumulate_psnr = lambda frame, y, u, v, recon=None: keep(
+        frame, y, u, v, recon)
+    enc._encode_b_frame, enc._b_intra = encode_b, b_intra
+    t0 = time.perf_counter()
+    for f in frames:
+        bs += enc.encode_frame(f)
+    bs += enc.flush()
+    wall = time.perf_counter() - t0
+    if enc.stats.b_frames != 2 or len(rows) != 2:
+        raise AssertionError("%s: %d B frames" % (label, enc.stats.b_frames))
+    want = dict({k: 0 for k in fns}, fullpel_parts=2, gather_windows8=2,
+                subpel=2, luma_p_encode=1)
+    for i, r in enumerate(rows):
+        if r["launches"] != want or not r["i16"] + r["i4"]:
+            raise AssertionError("%s: B frame %d launches %s (want %s), "
+                                 "%d intra MBs" % (label, i, r["launches"],
+                                                   want, r["i16"] + r["i4"]))
+        log("%s: B frame %d %.3f s (%.4f fps), %d I16x16 + %d I4x4 MBs, %d "
+            "direct MBs, %d MBs kept inter as their dependants; _b_intra "
+            "%.1f ms (%.1f%% of the frame); launches %s  [%s]"
+            % (label, i + 1, r["s"], 1 / r["s"], r["i16"], r["i4"],
+               r["direct"], r["kept"], r["intra_ms"],
+               r["intra_ms"] / 10 / r["s"],
+               json.dumps({k: v for k, v in r["launches"].items() if v}),
+               card))
+    log("%s: 4 frames %.3f s; B frames %.4f fps; bytes %s"
+        % (label, wall, 2 / sum(r["s"] for r in rows), _frame_bytes(bs)))
+    want_intra = [rows[0]["i16"] + rows[0]["i4"],
+                  rows[1]["i16"] + rows[1]["i4"]]
+
+    def report(r):
+        secs_d, differ, dec_intra = r
+        if any(differ) or dec_intra[1:3] != want_intra:
+            raise AssertionError("%s: decoded frames differ from the recon "
+                                 "%s; decoded intra MBs %s, the B frames' "
+                                 "%s" % (label, differ, dec_intra,
+                                         want_intra))
+        log("%s: every decoded frame (B frames included) == the encoder's "
+            "recon, intra MBs a frame in display order %s (decode %.1f s, "
+            "in a worker)" % (label, dec_intra, secs_d))
+    _DEFERRED.append((_submit(_plain_decode_job, bs, len(frames),
+                              [recon[id(f)] for f in frames]), report))
+
+
+# phase 42's option sets: stego off with p4x4 and with intra MBs in B
+# slices at 112x80, each on cuda and on cpu
+PLAIN_SB_SMALL = {
+    "p4x4, rd 0, CAVLC": dict(p4x4=True),
+    "p4x4, rd 1": dict(p4x4=True, rd=1),
+    "p4x4, rd 2, trellis 2, CABAC, transform_8x8": dict(
+        p4x4=True, rd=2, trellis=2, cabac=True, transform_8x8=True),
+    "p4x4, ref_frames 2, host deblock": dict(p4x4=True, ref_frames=2,
+                                             deblock_device=False),
+    "p4x4, aq_mode 1": dict(p4x4=True, aq_mode=1),
+    "B, partitions, CAVLC": dict(bframes=2, b_adapt=0),
+    "B, partitions, CABAC": dict(bframes=2, b_adapt=0, cabac=True),
+    "B, 16x16 path": dict(bframes=2, b_adapt=0, partitions=False,
+                          deblock_device=False),
+    "B, temporal direct": dict(bframes=2, b_adapt=0, direct=2),
+    "B, b_pyramid": dict(bframes=3, b_adapt=0, b_pyramid=True),
+    "B, ref_frames 2": dict(bframes=2, b_adapt=0, ref_frames=2),
+    "B, transform_8x8": dict(bframes=2, b_adapt=0, transform_8x8=True),
+    "B, p4x4 anchors": dict(bframes=2, b_adapt=0, p4x4=True)}
+PLAIN_SB_SHAPE = (112, 80, 5)
+
+
+def _plain_sb_job(name, dev):
+    """A phase-42 run on `dev` ("cpu" in a worker): the stream and the
+    intra MBs its decoder reads in each frame."""
+    from video_steganography_pcamv_torch.decoder import decode_annexb
+    w, h, n = PLAIN_SB_SHAPE
+    kw = PLAIN_SB_SMALL[name]
+    frames = (plain_sub_clip(w, h, n, seed=23) if kw.get("p4x4")
+              else reveal_clip(w, h, n, seed=17))
+    _enc, bs = _encode(_params(w, h, True, em_rate=0, **kw), frames, dev)
+    if dev != "cpu":
+        return bs, None
+    return bs, [sum(m.mb_type in ("I16x16", "I4x4") for m in fr.mbs)
+                for fr in decode_annexb(bs)]
+
+
+def submit_plain_sb_small():
+    """The cpu halves of phase 42, submitted to the workers early."""
+    return {k: _submit(_plain_sb_job, k, "cpu") for k in PLAIN_SB_SMALL}
+
+
+def phase_plain_sb_small(dev, jobs):
+    """Phase 42: stego off with sub-8x8 partitions (rd 0 CAVLC, rd 1, rd 2
+    with trellis 2, CABAC and transform_8x8, ref_frames 2 on the host
+    deblock, aq_mode 1) on `plain_sub_clip` and with intra MBs in B
+    slices (the partition path under CAVLC and CABAC, the 16x16 path,
+    temporal direct, b_pyramid, ref_frames 2, transform_8x8, p4x4
+    anchors) on `reveal_clip`, at 112x80 over 5 frames: cuda == cpu
+    (`jobs`: the cpu halves from `submit_plain_sb_small`), and intra MBs
+    in the decoded frames wherever the intra compare runs (not under
+    AQ)."""
+    for k in PLAIN_SB_SMALL:
+        got, _ = _plain_sb_job(k, dev)
+        want, intra = jobs[k].result()
+        if got != want:
+            raise AssertionError("plain %s: cuda stream != cpu stream" % k)
+        if ("aq_mode" in PLAIN_SB_SMALL[k]) == any(intra[1:]):
+            raise AssertionError("plain %s: intra MBs a frame %s" % (k, intra))
+        log("plain %s: cuda stream == cpu stream (%d bytes; intra MBs a "
+            "frame in display order %s)" % (k, len(got), intra))
 
 
 # tools/bench_streams.py's Params (BASELINE config 5's serving setup)
@@ -3950,8 +4256,8 @@ class SideProcess:
 
 
 def side_child(out: str) -> int:
-    """`--side OUT`: phases 29, 32 and 17 in a second process (their cpu
-    halves and decode checks in two workers of its own), phase 29's
+    """`--side OUT`: phases 29, 32, 17 and 41 in a second process (their
+    cpu halves and decode checks in two workers of its own), phase 29's
     launches written to OUT."""
     global POOL_WORKERS
     POOL_WORKERS = 2
@@ -3967,6 +4273,9 @@ def side_child(out: str) -> int:
     t1 = time.time()
     phase_small_cabac(dev)
     log("[phase 17 (second process): %.1f s]" % (time.time() - t1))
+    t1 = time.time()
+    phase_plain_b(dev, card)
+    log("[phase 41 (second process): %.1f s]" % (time.time() - t1))
     t1 = time.time()
     _join_checks()
     log("[its decode checks: %.1f s]" % (time.time() - t1))
@@ -4047,6 +4356,7 @@ def main() -> int:
     phase("14 128x96 config 3", phase_small8, dev)
     sub_jobs = submit_small_sub()
     plain_jobs = submit_plain_small()
+    plain_sb_jobs = submit_plain_sb_small()
     launches, bs6, enc6 = phase("6 main path", phase_main, dev, card,
                                 tail_kernel=True, n_frames=5, phase_id="6")
     phase("35 128x96 multi-stream and tile layers", phase_small_multi, dev)
@@ -4073,6 +4383,9 @@ def main() -> int:
     phase("37 128x96 p4x4", phase_small_sub, dev, sub_jobs)
     launches38 = phase("38 1080p plain encoder", phase_plain, dev, card)
     phase("39 112x80 plain encoder", phase_plain_small, dev, plain_jobs)
+    phase("40 1080p plain p4x4, rd 1", phase_plain_sub, dev, card)
+    phase("42 112x80 plain p4x4 and intra in B", phase_plain_sb_small, dev,
+          plain_sb_jobs)
     if args.stagesB:
         phase("23 config-4 B-frame stages", phase_stages_b, dev, card)
         phase("23 phase-26 B-frame stages", phase_stages_b, dev, card,
@@ -4094,7 +4407,7 @@ def main() -> int:
     if args.stages8:
         phase("16 config-3 stages", phase_stages, dev, card, n_frames=6,
               config3=True)
-    launches29 = phase("29, 32 and 17 (the second process, joined)",
+    launches29 = phase("29, 32, 17 and 41 (the second process, joined)",
                        _SIDE.join)["launches"]
     if launches8["gather_windows8"] < 1:
         raise AssertionError("config 3 did not launch B9")

@@ -918,9 +918,9 @@ def test_check_slice_accepts_trans8_rd_and_trellis_with_b_frames(
     # adaptive quantization is served with B frames: zones, its A16
     # neighbour, stays refused beside it
     (dict(aq_mode=1, zones="0,9,q=30"), "zones (ROADMAP A16)"),
-    # stego off is served with B frames but with the intra compare on
-    # (intra MBs in B slices, ROADMAP A14g)
-    (dict(stego_off=True), "stego off with bframes and intra_in_p"),
+    # stego off is served with B frames and the intra compare: zones
+    # stay refused beside it
+    (dict(stego_off=True, zones="0,9,q=30"), "zones (ROADMAP A16)"),
 ], ids=["p4x4", "aq", "stego_off"])
 def test_check_slice_refuses_b_options_outside_the_slice(kw, name):
     """The A16 options stay refused with B frames, also beside a

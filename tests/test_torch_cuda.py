@@ -85,7 +85,12 @@ its own:  python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
   instance's outputs unmoved; B5 on a plain P frame with intra MBs in
   patches vs edge_params + its plain version; and cuda == cpu streams
   at 112x80 on a clip with occlusion reveals (CAVLC, CABAC, rd 2,
-  ref_frames 2), with B3's mb_cost instance launched and B4 never.
+  ref_frames 2), with B3's mb_cost instance launched and B4 never;
+- the plain encoder's sub-8x8 path and intra MBs in B slices: B5 on a
+  plain sub P frame (per-4x4 motion, intra patches) vs edge_params +
+  its plain version; cuda == cpu streams with p4x4 at 96x64 (rd 1
+  under CAVLC; rd 2 with trellis 2, CABAC and transform_8x8) and with
+  bframes 2 under CABAC at 112x80, B4 never launched.
 """
 
 import numpy as np
@@ -1299,5 +1304,100 @@ def test_cuda_stream_equals_cpu_stream_plain(dev, kw):
     c0, b4 = PR.subpel.cost_launches, PR.probe_maps.launches
     got = run(dev)
     assert PR.subpel.cost_launches > c0
+    assert PR.probe_maps.launches == b4
+    assert got == run("cpu")
+
+
+def test_b5_on_a_plain_sub_p_frame_with_intra_mbs_matches_plain(dev):
+    """B5 on a sub-8x8 P frame of the plain encoder: per-4x4 MVs that
+    move inside the 8x8 blocks of half the MBs, intra MBs in patches,
+    trans8 on the inter MBs without a split, vs edge_params + its plain
+    version."""
+    mbh, mbw, qp = 9, 11, 28
+    g = np.random.default_rng(6)
+    H, W = 16 * mbh, 16 * mbw
+    planes = [np.clip(np.repeat(np.repeat(g.integers(60, 190, (s[0] // 8,
+                                                               s[1] // 8)),
+                                          8, 0), 8, 1)
+                      + g.integers(-20, 21, s), 0, 255)
+              for s in ((H, W), (H // 2, W // 2), (H // 2, W // 2))]
+    intra = np.zeros((mbh, mbw), bool)
+    intra[1:4, 2:6] = True
+    intra[6:, 7:] = True
+    skip = (g.random((mbh, mbw)) < 0.2) & ~intra
+    nnz4 = g.random((4 * mbh, 4 * mbw)) < 0.5
+    split = g.random((mbh, mbw)) < 0.5
+    mv4 = np.repeat(np.repeat(g.integers(-20, 21, (2 * mbh, 2 * mbw, 2)), 2,
+                              0), 2, 1)
+    mv4 = mv4 + np.where(np.repeat(np.repeat(split, 4, 0), 4, 1)[..., None],
+                         g.integers(-5, 6, mv4.shape), 0)
+    t8 = (g.random((mbh, mbw)) < 0.5) & ~intra & ~split
+    t = [torch.as_tensor(np.ascontiguousarray(a, np.int32), device=dev)
+         for a in planes + [intra, skip, nnz4, mv4, t8]]
+    y8 = [p.to(torch.uint8) for p in t[:3]]
+    got = DB.deblock_frame(*y8, *t[3:7], qp, chroma_qp(qp), mbh, mbw,
+                           trans8=t[7])
+    par = DB.edge_params(*t[3:7], qp, chroma_qp(qp), mbh, mbw, trans8=t[7])
+    want = DB.deblock_frame_plain(*t[:3], par, mbh, mbw)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def _plain_sub_frames(n):
+    """`_sub_frames` with new smooth content in two corners of every P
+    frame, so that the plain encoder's intra compare has work."""
+    out = []
+    gy, gx = np.mgrid[0:16, 0:32]
+    for i, f in enumerate(_sub_frames(n, 11)):
+        y = f.y.copy()
+        if i:
+            y[0:16, 64:96] = (40 * i + 3 * gx + 5 * gy).astype(np.uint8)
+            y[48:64, 0:32] = (200 - 20 * i - 4 * gy).astype(np.uint8)
+        out.append(Frame(y, f.u, f.v))
+    return out
+
+
+@pytest.mark.parametrize("kw", [
+    dict(rd=1), dict(rd=2, trellis=2, cabac=True, transform_8x8=True)],
+    ids=["rd1_cavlc", "rd2_trellis2_cabac"])
+def test_cuda_stream_equals_cpu_stream_plain_sub(dev, kw):
+    """The plain encoder's sub-8x8 path (stego off, the RD re-rank and
+    the intra compare) at 96x64: cuda == cpu streams, with the sub
+    instance, the fused luma encode and B5 on the card and B4 never."""
+    frames = _plain_sub_frames(3)
+
+    def run(device):
+        enc = Encoder(Params(width=96, height=64, qp=26, me_range=8,
+                             p4x4=True, deblock_device=True, psnr=False,
+                             **kw), device=device)
+        return b"".join(enc.encode_frame(f) for f in frames) + enc.flush()
+
+    def luma():
+        # under trellis the luma encodes take the levels-in entry
+        return LP.luma_p_encode.launches + LP.luma_p_encode.levels_launches
+
+    n0, l0, d0, b4 = (FP.fullpel_sub.launches, luma(),
+                      DB.deblock_frame.launches, PR.probe_maps.launches)
+    got = run(dev)
+    assert FP.fullpel_sub.launches > n0
+    assert luma() >= l0 + 2 * 9
+    assert DB.deblock_frame.launches > d0
+    assert PR.probe_maps.launches == b4
+    assert got == run("cpu")
+
+
+def test_cuda_stream_equals_cpu_stream_intra_in_b(dev):
+    """Intra MBs in B slices (stego off, the partition path, CABAC) at
+    112x80 on reveal content: cuda == cpu streams, B4 never launched."""
+    frames = _reveal_frames(5)
+
+    def run(device):
+        enc = Encoder(Params(width=112, height=80, qp=26, me_range=16,
+                             deblock_device=True, psnr=False, bframes=2,
+                             b_adapt=0, cabac=True), device=device)
+        return b"".join(enc.encode_frame(f) for f in frames) + enc.flush()
+
+    b4 = PR.probe_maps.launches
+    got = run(dev)
     assert PR.probe_maps.launches == b4
     assert got == run("cpu")

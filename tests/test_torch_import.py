@@ -237,10 +237,13 @@ _REFUSED = [
     dict(aq_mode=1, zones="0,5,q=30"),
     dict(crf=23.0), dict(pipeline_deep=True),
     dict(zones="0,5,q=30"),
-    # stego off is served but for sub-8x8 partitions (A16b)
-    pytest.param(dict(stego=StegoParams(em_rate=0), p4x4=True), id="stego"),
-    pytest.param(dict(stego=StegoParams(em_rate=0), bframes=2),
-                 id="stego,bframes"),
+    # stego off is served with every option stego on is (sub-8x8
+    # partitions and intra MBs in B slices too): rate control (A16c) and
+    # zones stay refused beside it
+    pytest.param(dict(stego=StegoParams(em_rate=0), p4x4=True, crf=23.0),
+                 id="stego"),
+    pytest.param(dict(stego=StegoParams(em_rate=0), bframes=2,
+                      zones="0,5,q=30"), id="stego,bframes"),
     dict(stego=StegoParams(em_rate=64, key=99, alpha_com=0.5)),
     dict(subpel=1), dict(dct_decimate=False),
     dict(incremental=False), dict(partitions=False, deblock_device=True),
@@ -275,6 +278,8 @@ def test_encoder_rejects_options_outside_the_slice(kw):
     dict(stego=StegoParams(em_rate=0)),
     dict(stego=StegoParams(em_rate=0), cabac=True, ref_frames=2, rd=2,
          trellis=2, bframes=2, intra_in_p=False),
+    dict(stego=StegoParams(em_rate=0), p4x4=True, rd=1),
+    dict(stego=StegoParams(em_rate=0), bframes=2, b_pyramid=True),
     dict(aq_mode=1, cabac=True, bframes=2, transform_8x8=True, trellis=1),
 ], ids=lambda kw: ",".join(kw))
 def test_encoder_accepts_the_reference_defaults_and_cabac(kw):

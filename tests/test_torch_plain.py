@@ -27,9 +27,10 @@ stream). The modules: B3's per-MB inter cost (`ops.probe.subpel_parts`
 with `mb_cost`) against the reference's `subpel_parts`,
 `intra.refine_p_intra`, `inter.rd_coded_cost` / `rd_skip_eval` and
 `partition.rd_rerank_parts` (both branches) against the reference's, on
-every output. `check_slice` refuses, by name, what waits: sub-8x8
-partitions with stego off, and B frames with intra_in_p (intra MBs in B
-slices). All equalities are exact (integer codec).
+every output. `check_slice` serves stego off with sub-8x8 partitions
+and with B frames and the intra compare (tests/test_torch_plain_sub_b.py
+holds those streams), and refuses by name what it refuses with stego on.
+All equalities are exact (integer codec).
 """
 
 import numpy as np
@@ -437,11 +438,15 @@ def test_pskip_field_and_forced_scan_with_intra_are_the_references():
 
 
 @pytest.mark.parametrize("kw,name", [
-    (dict(p4x4=True), "stego off with p4x4"),
-    (dict(bframes=2), "stego off with bframes and intra_in_p"),
-    (dict(bframes=2, cabac=True, ref_frames=2), "ROADMAP A14g"),
+    (dict(p4x4=True, crf=23.0), "rc_mode!=0"),
+    (dict(bframes=2, zones="0,5,q=30"), "zones"),
+    (dict(bframes=2, cabac=True, ref_frames=2, p4x4=True,
+          deblock_device=True), "ROADMAP F10"),
 ])
 def test_check_slice_refuses_what_the_plain_encoder_waits_for(kw, name):
+    """Stego off is served with every option stego on is; what stays
+    refused with it is what stays refused with stego on (rate control,
+    zones, F10)."""
     p = TP.Params(**dict(_kw("cavlc"), **kw))
     p.validate()
     with pytest.raises(NotImplementedError, match=name):
@@ -451,10 +456,13 @@ def test_check_slice_refuses_what_the_plain_encoder_waits_for(kw, name):
 @pytest.mark.parametrize("kw", [
     dict(), dict(bframes=2, intra_in_p=False), dict(bframes=2, aq_mode=1),
     dict(p4x4=True, partitions=False), dict(ref_frames=3, rd=2, cabac=True,
-                                            trellis=2)])
+                                            trellis=2),
+    dict(p4x4=True, rd=2, trellis=2, cabac=True, transform_8x8=True),
+    dict(bframes=2), dict(bframes=2, cabac=True, ref_frames=2)])
 def test_check_slice_serves_the_plain_encoder(kw):
-    """B frames with the intra compare off (by intra_in_p, or by AQ, as
-    in the reference), and p4x4 where the reference ignores it."""
+    """B frames with the intra compare on or off (by intra_in_p, or by
+    AQ, as in the reference), sub-8x8 partitions (with the RD re-rank and
+    the intra compare), and p4x4 where the reference ignores it."""
     p = TP.Params(**dict(_kw("cavlc"), **kw))
     p.validate()
     TC.check_slice(p)

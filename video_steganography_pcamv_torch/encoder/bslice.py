@@ -644,6 +644,12 @@ def _direct_mb(g0, g1, col_mv4, col_ref4, tdir, my: int, mx: int):
     return _tdir_mb(tdir, my, mx) + (0,)
 
 
+def _commit_intra(g0, g1, y4: int, x4: int) -> None:
+    """An intra MB in both lists' grids: available, mv 0, ref -1."""
+    g0.commit(y4, x4, 4, 4, 0, ref=-1)
+    g1.commit(y4, x4, 4, 4, 0, ref=-1)
+
+
 # unit geometry per B shape: (member blocks, oy4, ox4, h4, w4, mvp kind)
 _B_UNIT_GEOM = {
     0: [((0, 1, 2, 3), 0, 0, 4, 4, D_16x16)],
@@ -655,9 +661,9 @@ _B_UNIT_GEOM = {
 
 
 def scan_b_parts(part, sel8, mv0z, mv1z, c_cfg, c_dir, col_mv4, col_ref4,
-                 lam: int, ref0=None, tdir=None):
+                 lam: int, ref0=None, tdir=None, intra=None):
     """Host raster commit of the B partition path (the reference's
-    bslice.py:975 without intra MBs): the exact direct derivation (spatial
+    bslice.py:975): the exact direct derivation (spatial
     on the committed grids, or tdir, a precomputed temporal or disabled
     field), direct-vs-config decision (direct wins where available at
     c_dir + lam <= c_cfg), per-unit MVP/mvd for both lists in
@@ -666,7 +672,11 @@ def scan_b_parts(part, sel8, mv0z, mv1z, c_cfg, c_dir, col_mv4, col_ref4,
 
     part/sel8/c_cfg: `analyse_b_parts` outputs (numpy); mv0z/mv1z
     [mbh,mbw,4,2] z-order qpel; c_dir [mbh,mbw] the 16x16-direct SATD;
-    ref0 [mbh,mbw] each MB's L0 entry under multi-reference (None: 0).
+    ref0 [mbh,mbw] each MB's L0 entry under multi-reference (None: 0);
+    intra [mbh,mbw] bool the MBs the intra compare switched (None: none):
+    they carry no motion and are committed as available neighbours with
+    mv 0 and ref -1 in both lists (x264's cache, macroblock.c:28-46), as
+    the decoder holds them.
     Returns (code [mbh,mbw] mb_type ue, subs [mbh,mbw,4] sub_mb_type ue
     (code 22), use0/use1 [2mbh,2mbw], fmv0/fmv1 [2mbh,2mbw,2], mvd0/mvd1
     [mbh,mbw,4,2] per unit in coding order, ref8_0 [2mbh,2mbw], -1 where
@@ -685,6 +695,9 @@ def scan_b_parts(part, sel8, mv0z, mv1z, c_cfg, c_dir, col_mv4, col_ref4,
     for my in range(mbh):
         for mx in range(mbw):
             y4, x4 = 4 * my, 4 * mx
+            if intra is not None and intra[my, mx]:
+                _commit_intra(g0, g1, y4, x4)
+                continue
             du0, du1, dmv0, dmv1, dr8, _ = _direct_mb(
                 g0, g1, col_mv4, col_ref4, tdir, my, mx)
             r0 = int(ref0[my, mx]) if ref0 is not None else 0
@@ -753,16 +766,17 @@ def scan_b_parts(part, sel8, mv0z, mv1z, c_cfg, c_dir, col_mv4, col_ref4,
 
 
 def scan_b_frame(c_dir, c0, c1, cbi, mv0, mv1, col_mv4, col_ref4, lam: int,
-                 ref0=None, tdir=None):
+                 ref0=None, tdir=None, intra=None):
     """Host raster commit of the 16x16 B path (the reference's
-    bslice.py:1102 without intra MBs): per MB the exact direct derivation
+    bslice.py:1102): per MB the exact direct derivation
     (spatial, or tdir as in `scan_b_parts`), the mode by the first
     minimum of
     c + lam * mb_type bits over direct / L0 / L1 / BI (direct only where
     it has a list), the MVP and mvd of the chosen lists.
 
     c_dir/c0/c1/cbi [mbh,mbw] costs; mv0/mv1 [mbh,mbw,2] qpel; ref0
-    [mbh,mbw] each MB's L0 entry under multi-reference (None: 0).
+    [mbh,mbw] each MB's L0 entry under multi-reference (None: 0); intra
+    as in `scan_b_parts`.
     Returns (mode [mbh,mbw] in {0 direct, 1 L0, 2 L1, 3 BI}, use0/use1
     [2mbh,2mbw], fmv0/fmv1 [2mbh,2mbw,2], mvd0/mvd1 [mbh,mbw,2], ref8_0
     [2mbh,2mbw], -1 where L0 is unused)."""
@@ -780,6 +794,9 @@ def scan_b_frame(c_dir, c0, c1, cbi, mv0, mv1, col_mv4, col_ref4, lam: int,
     for my in range(mbh):
         for mx in range(mbw):
             y4, x4 = 4 * my, 4 * mx
+            if intra is not None and intra[my, mx]:
+                _commit_intra(g0, g1, y4, x4)
+                continue
             du0, du1, dmv0, dmv1, dr8, dr1 = _direct_mb(
                 g0, g1, col_mv4, col_ref4, tdir, my, mx)
             cands = np.array([

@@ -1,5 +1,5 @@
 """Host-side CABAC entropy coder for I, P and B slices (the port's copy
-of the reference's encoder/cabac.py; B MBs without intra).
+of the reference's encoder/cabac.py).
 
 After x264's encoder/cabac.c (x264_macroblock_write_cabac :781,
 binarizations + context increments) and common/cabac.c:787-927 (the
@@ -13,7 +13,7 @@ Coverage: I slices (I_16x16, I_NxN with the 4x4 or 8x8 transform), P
 slices (P_SKIP, P_L0 16x16/16x8/8x16, P_8x8 with L0_8x8 subs, the 8x8
 transform, ref_idx, intra in P), B slices (B_Skip, B_Direct_16x16,
 the 16x16 L0/L1/BI types, the 16x8/8x16 list combos and B_8x8 with
-direct/L0/L1/BI subs, ref_idx_l0), 4:2:0. The I/P part is the Python
+direct/L0/L1/BI subs, ref_idx_l0, intra MBs), 4:2:0. The I/P part is the Python
 twin of the native writer (`native.write_slice_cabac`), which the
 encoder calls for I and P slices; B slices take this writer, as in the
 reference when its B MBs carry a reference index.
@@ -428,6 +428,34 @@ class CabacSliceWriter:
             cb.decision(32, 0)
             cb.decision(32, 0)
 
+    def mb_type_b_intra(self, my, mx, i4, mode16, cbpl, cbpc):
+        """Intra mb_type in a B slice (x264's encoder/cabac.c:146-156):
+        the prefix bins 111101 on the B mb_type contexts, then the I
+        slice's binarization on ctx 32 + 0/1/2/2/3/3."""
+        cb = self.cb
+        ctx = 0
+        if mx > 0 and self.mb_kind[my, mx - 1] > 0 \
+                and not self.bdirect[my, mx - 1]:
+            ctx += 1
+        if my > 0 and self.mb_kind[my - 1, mx] > 0 \
+                and not self.bdirect[my - 1, mx]:
+            ctx += 1
+        cb.decision(27 + ctx, 1)
+        cb.decision(30, 1)
+        cb.decision(31, 1)
+        cb.decision(32, 1)
+        cb.decision(32, 0)
+        cb.decision(32, 1)
+        self._mb_type_intra(i4, mode16, cbpl, cbpc, 32, 33, 34, 34, 35, 35)
+
+    def _b_intra_prefix(self, my, mx, i4, mode16, cbpl, cbpc):
+        """An intra MB's skip flag and mb_type in a B slice; it carries no
+        L1 mvd and is not direct."""
+        self.skip_flag(my, mx, False)
+        self.mb_type_b_intra(my, mx, i4, mode16, cbpl, cbpc)
+        self.mvd4_1[4 * my:4 * my + 4, 4 * mx:4 * mx + 4] = 0
+        self.bdirect[my, mx] = False
+
     def mb_type_b_bins(self, my, mx, bins) -> None:
         """General B mb_type binarization (reference i_mb_bits table
         emission, encoder/cabac.c:183-190): bin0 ctx 27+nbr, bin1 ctx
@@ -705,8 +733,10 @@ class CabacSliceWriter:
 
     def write_i16_mb(self, my, mx, mode16, cmode, cbp_luma, cbp_chroma,
                      luma_dc, luma_ac, chroma_dc, chroma_ac,
-                     in_p: bool = False, dqp: int = 0):
-        if in_p:
+                     in_p: bool = False, dqp: int = 0, in_b: bool = False):
+        if in_b:
+            self._b_intra_prefix(my, mx, False, mode16, cbp_luma, cbp_chroma)
+        elif in_p:
             self.skip_flag(my, mx, False)
             self.mb_type_p_intra(False, mode16, cbp_luma, cbp_chroma)
         else:
@@ -725,8 +755,10 @@ class CabacSliceWriter:
 
     def write_i4_mb(self, my, mx, modes, cmode, cbp_luma, cbp_chroma,
                     luma_blocks, chroma_dc, chroma_ac,
-                    in_p: bool = False, dqp: int = 0):
-        if in_p:
+                    in_p: bool = False, dqp: int = 0, in_b: bool = False):
+        if in_b:
+            self._b_intra_prefix(my, mx, True, 0, cbp_luma, cbp_chroma)
+        elif in_p:
             self.skip_flag(my, mx, False)
             self.mb_type_p_intra(True, 0, cbp_luma, cbp_chroma)
         else:

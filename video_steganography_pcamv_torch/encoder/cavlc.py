@@ -1,12 +1,14 @@
-"""The Python CAVLC B-macroblock writer (port of the B parts of the
+"""The Python CAVLC B-slice writer (port of the B parts of the
 reference's encoder/cavlc.py: `write_residual`, `_write_level`, and
-`FrameCavlc` with `write_b_mb`, `set_mb_nnz_zero` and the chroma
+`FrameCavlc` with `write_b_mb`, the intra MBs of a B slice
+(`write_i16x16_mb`, `write_i4x4_mb`), `set_mb_nnz_zero` and the chroma
 residual).
 
 The port writes its I and P slices natively (`native.write_slice`); a B
-slice whose MBs are all 16x16 (codes 0-3) at one reference is written by
-the native twin `native.write_slice_b`, every other B slice (the
-partition codes 4-22, or a ref_idx_l0 at more than one reference) here.
+slice whose MBs are all inter 16x16 (codes 0-3) at one reference is
+written by the native twin `native.write_slice_b`, every other B slice
+(the partition codes 4-22, a ref_idx_l0 at more than one reference, or
+intra MBs) here.
 `FrameCavlc` tracks the per-4x4 total_coeff maps that give each block's
 nC context (spec 9.2.1), as the reference's does.
 """
@@ -125,14 +127,16 @@ def _write_level(bw: BitWriter, code: int, suffix_len: int) -> None:
 
 
 class FrameCavlc:
-    """Per-slice CAVLC state: the nC context maps of luma and chroma, and
-    the PPS's transform_8x8_mode_flag (`trans8_mode`)."""
+    """Per-slice CAVLC state: the nC context maps of luma and chroma, the
+    Intra_4x4 mode map (2 wherever no I_NxN MB set it), and the PPS's
+    transform_8x8_mode_flag (`trans8_mode`)."""
 
     def __init__(self, mbw: int, mbh: int, trans8_mode: bool = False):
         self.mbw, self.mbh = mbw, mbh
         self.trans8_mode = trans8_mode
         self.nnz_y = np.zeros((4 * mbh, 4 * mbw), np.int32)
         self.nnz_c = np.zeros((2, 2 * mbh, 2 * mbw), np.int32)
+        self.modes4 = np.full((4 * mbh, 4 * mbw), 2, np.int32)
 
     def _nc(self, arr, by, bx) -> int:
         """nC (spec 9.2.1): the mean of the available left / top
@@ -216,6 +220,76 @@ class FrameCavlc:
             self._write_chroma(bw, mx, my, cbp_chroma, chroma_dc, chroma_ac)
         else:
             self.set_mb_nnz_zero(mx, my, luma_too=False)
+
+    def write_i16x16_mb(self, bw: BitWriter, mx: int, my: int, mode: int,
+                        cmode: int, cbp_luma: int, cbp_chroma: int,
+                        luma_dc: np.ndarray, luma_ac: np.ndarray,
+                        chroma_dc: np.ndarray, chroma_ac: np.ndarray,
+                        qp_delta: int = 0) -> None:
+        """One I_16x16 MB of a B slice (the reference's cavlc.py:189-227
+        with in_b_slice): mb_type 23 + the I-slice type, the chroma pred
+        mode, mb_qp_delta, the DC block at blk 0's nC, the AC blocks
+        where cbp_luma. luma_dc [4,4]; luma_ac [4,4,4,4] (by,bx,r,c);
+        chroma_dc [2,2,2]; chroma_ac [2,2,2,4,4]."""
+        cbp01 = 1 if cbp_luma else 0
+        bw.write_ue(23 + 1 + mode + 4 * cbp_chroma + 12 * cbp01)
+        bw.write_ue(cmode)
+        bw.write_se(qp_delta)
+        gy, gx = 4 * my, 4 * mx
+        write_residual(bw, zigzag(luma_dc), 16, self._nc(self.nnz_y, gy, gx))
+        for blk in range(16):
+            by, bx = LUMA_SCAN[blk]
+            yy, xx = gy + by, gx + bx
+            if cbp_luma:
+                nc = self._nc(self.nnz_y, yy, xx)
+                self.nnz_y[yy, xx] = write_residual(
+                    bw, zigzag(luma_ac[by, bx])[1:], 15, nc)
+            else:
+                self.nnz_y[yy, xx] = 0
+        self._write_chroma(bw, mx, my, cbp_chroma, chroma_dc, chroma_ac)
+
+    def write_i4x4_mb(self, bw: BitWriter, mx: int, my: int, modes,
+                      cmode: int, cbp_luma: int, cbp_chroma: int,
+                      luma_blocks: np.ndarray, chroma_dc: np.ndarray,
+                      chroma_ac: np.ndarray, qp_delta: int = 0) -> None:
+        """One I_NxN (Intra_4x4) MB of a B slice (the reference's
+        cavlc.py:229-275 with in_b_slice): mb_type 23, under `trans8_mode`
+        transform_size_8x8_flag 0, the sixteen modes against their
+        predictor (the lesser of the left and top modes, 2 at the frame
+        edge or next to an MB that is not I_NxN), the chroma pred mode,
+        the intra cbp, mb_qp_delta where it is nonzero, the residual.
+        modes [16] in blkIdx order; luma_blocks [4,4,4,4] (by,bx,r,c)."""
+        bw.write_ue(23)
+        if self.trans8_mode:
+            bw.write1(0)
+        for blk in range(16):
+            by, bx = LUMA_SCAN[blk]
+            gy4, gx4 = 4 * my + by, 4 * mx + bx
+            mode = int(modes[blk])
+            pm = 2 if gx4 == 0 or gy4 == 0 else int(min(
+                self.modes4[gy4, gx4 - 1], self.modes4[gy4 - 1, gx4]))
+            if mode == pm:
+                bw.write1(1)
+            else:
+                bw.write1(0)
+                bw.write(3, mode - (1 if mode > pm else 0))
+            self.modes4[gy4, gx4] = mode
+        bw.write_ue(cmode)
+        cbp = (cbp_chroma << 4) | cbp_luma
+        bw.write_ue(VT.CBP_INTRA_TO_GOLOMB[cbp])
+        if cbp:
+            bw.write_se(qp_delta)
+        gy, gx = 4 * my, 4 * mx
+        for blk in range(16):
+            by, bx = LUMA_SCAN[blk]
+            yy, xx = gy + by, gx + bx
+            if cbp_luma & (1 << (blk >> 2)):
+                nc = self._nc(self.nnz_y, yy, xx)
+                self.nnz_y[yy, xx] = write_residual(
+                    bw, zigzag(luma_blocks[by, bx]), 16, nc)
+            else:
+                self.nnz_y[yy, xx] = 0
+        self._write_chroma(bw, mx, my, cbp_chroma, chroma_dc, chroma_ac)
 
     def set_mb_nnz_zero(self, mx: int, my: int, luma_too: bool = True):
         """Clear the nC maps of a skipped (or residual-free) MB."""

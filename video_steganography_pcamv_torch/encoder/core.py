@@ -113,9 +113,14 @@ where their intra cost beats the inter one; off under AQ), the native
 scan with the intra MBs, at `rd` 2 and one reference the P_SKIP and
 qpel RD probes (`_rd_skip_force`, `_rd_qpel_refine`), B5 with the intra
 map, and the native writers with the intra MBs in the P slice. The
-16x16-only path runs as with stego on, without the embedding. B frames
-are the stego-on ones; `check_slice` refuses what waits (sub-8x8
-partitions, and intra MBs in B slices).
+16x16-only path runs as with stego on, without the embedding. A sub-8x8
+P frame (`_encode_p_sub`) takes its own analysis (at `rd` >= 1, one
+reference and no AQ the seven-probe RD re-rank `partition.rd_rerank_sub`)
+and the same intra compare, scan, B5 and writers. A B frame runs the
+stego-on B path, then the intra compare over its recon (an MB that a
+later spatial-direct MB reads as a neighbour stays inter), the rescan
+around the intra MBs (no re-encode, as in the reference) and the Python
+B writers with the intra MBs.
 """
 
 from __future__ import annotations
@@ -170,9 +175,10 @@ def check_slice(p: Params) -> None:
     slice: CQP, CAVLC or CABAC, subpel 2, decimation, incremental
     re-encode (turned off by trellis and noise reduction, as in the
     reference), me_range <= PAD - MARGIN, stego on or off (the plain
-    encoder: intra MBs in P frames, the rd 1/2 re-ranks and trellis 2's
-    probe trellis on every P path but the sub-8x8 one, whose stego-off
-    re-rank and intra compare wait), and every combination of: the
+    encoder, with every option it serves while embedding: intra MBs in
+    P and B frames, the rd 1/2 re-ranks and trellis 2's probe trellis on
+    every P path, the sub-8x8 one's RD re-rank at one reference), and
+    every combination of: the
     quant options (`cqm` flat or jvt, any custom 4x4/8x8 list,
     `deadzone_inter`/`deadzone_intra` 0-32, `noise_reduction`);
     partitions (the serving path; pipelined or not, PSNR/SSIM on or off,
@@ -201,9 +207,10 @@ def check_slice(p: Params) -> None:
     noise-reduction offsets stay zero (F11). With more than one reference
     it takes the host deblock only: under `deblock_device` the
     reference's deblock there reads no references (ROADMAP F10). With
-    stego off, B frames are served with `intra_in_p` off (or under AQ,
-    which turns the intra compare off): the reference's intra MBs in B
-    slices (ROADMAP A14g) wait."""
+    stego off the sub-8x8 path re-ranks its shapes by RD at `rd` >= 1
+    (one reference, no AQ; `rd` 2 codes as `rd` 1 there, as in the
+    reference) and runs the intra compare, and B frames run it too (both
+    B paths, every direct mode; off under AQ, as in the reference)."""
     if not p.partitions and p.deblock_device and p.ref_frames == 1:
         raise NotImplementedError(
             "partitions off with deblock_device on: the reference drops "
@@ -229,13 +236,6 @@ def check_slice(p: Params) -> None:
              "branch reads clamped gather indices and its TPU branch "
              "clamped strips)"
              % (mc.PAD - QT.MARGIN), p.me_range <= mc.PAD - QT.MARGIN),
-            ("stego off with p4x4 (ROADMAP A16b: the sub-8x8 path's "
-             "stego-off RD re-rank and intra compare)",
-             p.stego.enabled or not (p.p4x4 and p.partitions)),
-            ("stego off with bframes and intra_in_p (ROADMAP A14g: intra "
-             "MBs in B slices)",
-             p.stego.enabled or not (p.bframes > 0 and p.intra_in_p
-                                     and not p.aq_mode)),
             ("stego em_file (ROADMAP A16)", not p.stego.em_file),
             ("stego alpha_com (ROADMAP A16)", p.stego.alpha_com == 0.0),
             ("p4x4 with ref_frames>1 and deblock_device (ROADMAP F10: the "
@@ -370,15 +370,23 @@ _INTRA_KEYS = ("mode", "cmode", "cbp_luma", "cbp_chroma", "luma_dc",
                "luma_ac", "chroma_dc", "chroma_ac", "i4_modes")
 
 
-def _intra_deps(intra: np.ndarray) -> np.ndarray:
-    """The MBs an intra MB of `intra` [mbh, mbw] predicts from (its left,
-    top, top-right and top-left neighbours): the rd 2 probes keep their
-    recon."""
-    dep = np.zeros_like(intra)
-    dep[:, :-1] |= intra[:, 1:]
-    dep[:-1, :] |= intra[1:, :]
-    dep[:-1, 1:] |= intra[1:, :-1]
-    dep[:-1, :-1] |= intra[1:, 1:]
+def _intra_mb(ir: dict, my: int, mx: int, *keys) -> list:
+    """One MB's entries of `refine_p_intra`'s host arrays, ints for the
+    scalar ones."""
+    return [int(ir[k][my, mx]) if ir[k].ndim == 2 else ir[k][my, mx]
+            for k in keys]
+
+
+def _neighbour_deps(mask: np.ndarray) -> np.ndarray:
+    """The MBs that an MB of `mask` [mbh, mbw] reads as its neighbour A,
+    B, C or D (left, top, top-right, top-left): the MBs an intra MB
+    predicts from (the rd 2 probes keep their recon), or those a spatial
+    direct MB derives its motion from (they stay inter in a B slice)."""
+    dep = np.zeros_like(mask)
+    dep[:, :-1] |= mask[:, 1:]
+    dep[:-1, :] |= mask[1:, :]
+    dep[:-1, 1:] |= mask[1:, :-1]
+    dep[:-1, :-1] |= mask[1:, 1:]
     return dep
 
 
@@ -968,7 +976,9 @@ class Encoder:
         `_encode_b_frame` (core.py:2853): the direct mode of the slice,
         the B analysis (`_analyse_b_parts`, or `_analyse_b16` without
         partitions), the B encode (the fused luma-encode kernel) at the
-        implicit weights and the CAVLC or CABAC B slice. l0: the stacked
+        implicit weights, with stego off the intra compare (`_b_intra`,
+        off under AQ) and the rescan around its intra MBs, and the CAVLC
+        or CABAC B slice. l0: the stacked
         L0 list (luma, u, v, n_valid, the display index of each valid
         entry), entry 0 the nearest past reference; ref_l1 the L1[0]
         picture and col its colocated field; pocs (B, L0[0], L1[0]).
@@ -995,8 +1005,9 @@ class Encoder:
         dm = self._direct_mode(disp, pocs, ent, l0_disps, col, col_t,
                                col_poc0)
         analyse = self._analyse_b_parts if p.partitions else self._analyse_b16
-        (code, subs, use0, use1, fmv0, fmv1, mvd0, mvd1, ref8_0,
-         ref0_16) = analyse(y, refs_l, n_valid, ref_l1, lam, w_tab, col, dm)
+        rescan, ref0_16, inter_cost = analyse(y, refs_l, n_valid, ref_l1,
+                                              lam, w_tab, col, dm)
+        code, subs, use0, use1, fmv0, fmv1, mvd0, mvd1, ref8_0 = rescan()
         t = self._dev
         qp_enc, qpc_enc = self._aq_frame(y, u, v, qp)
         res = BS.encode_b_frame_device(
@@ -1004,6 +1015,15 @@ class Encoder:
             t(use1), t(fmv0), t(fmv1), t(ref8_0), qp_enc, qpc_enc, mbh, mbw,
             w1=BS.weight_arg(w_tab[np.maximum(ref8_0, 0)], self.device),
             trellis=bool(p.trellis), tables=self.qt)
+        res, kind, ir = self._b_intra(y, u, v, res, code, subs, inter_cost,
+                                      dm[1] is None, qp, lam)
+        intra = None
+        if ir is not None:
+            intra = (kind, {k: ir[k].cpu().numpy() for k in _INTRA_KEYS})
+            # no re-encode: the rescan only re-derives the mvds and the
+            # motion fields around the intra MBs
+            code, subs, use0, use1, fmv0, fmv1, mvd0, mvd1, ref8_0 = \
+                rescan(kind > 0)
         res_np = _levels_exact(res, mbh, mbw)
         # a B frame's metrics read its own recon (it is never deblocked)
         self._accumulate_psnr(frame, y, u, v, recon=(
@@ -1022,7 +1042,7 @@ class Encoder:
         write = (self._write_b_slice_cabac if p.cabac
                  else self._write_b_slice_cavlc)
         nal = write(bw, res_np, qp, code, subs, mvd0, mvd1, ref0_w, num_ref,
-                    self._qp_grid_arg())
+                    self._qp_grid_arg(), intra=intra)
         prio = NAL_PRIORITY_HIGH if is_ref else NAL_PRIORITY_DISPOSABLE
         out = self._aud(SLICE_B) + nal_unit(NAL_SLICE, prio, nal)
         if is_ref:
@@ -1037,6 +1057,21 @@ class Encoder:
         bref = mc.build_ref(res["recon_y"], res["recon_u"], res["recon_v"])
         return out, (bref,) + self._bref_cols(use0, use1, fmv0, fmv1, ref8_0)
 
+    def _b_intra(self, y, u, v, res, code, subs, inter_cost, spatial: bool,
+                 qp: int, lam: int):
+        """The intra compare of a B frame (`_intra_compare`; the
+        reference's core.py:3110-3153, analyse.c:3110+) against each MB's
+        inter cost (host [mbh, mbw]). Under spatial direct an MB that a
+        later direct MB (code 0, or B_8x8 with a direct sub) reads as its
+        neighbour A, B, C or D keeps its inter coding (cost -1):
+        switching it would change that MB's derived motion."""
+        direct = code == 0
+        if subs is not None:
+            direct |= (code == 22) & (subs == 0).any(-1)
+        dep = _neighbour_deps(direct) if spatial else np.zeros_like(direct)
+        cost = np.where(dep, -1, inter_cost).astype(np.int32)
+        return self._intra_compare(y, u, v, res, self._dev(cost), qp, lam)
+
     @staticmethod
     def _bref_cols(use0, use1, fmv0, fmv1, ref8_0):
         """The two colocated fields of a reference B (the reference's
@@ -1045,7 +1080,8 @@ class Encoder:
         with the true L0 references; temporal reads the L0-only field
         (x264's fref1 cache, macroblock.c:187), where a block that uses
         L1 only is -2, direct-unavailable (macroblock.c:199). Blocks that
-        use neither list (none: stego keeps intra out of B) are -1."""
+        use neither list, the intra MBs (the rescan leaves them no list),
+        are -1."""
         def r4(a):
             return np.repeat(np.repeat(np.asarray(a), 2, 0), 2, 1)
 
@@ -1102,7 +1138,10 @@ class Encoder:
         or the temporal or disabled one, whose unavailable MBs are priced
         out), stage 2 (B9, B3'), one pull, the direct-auto score, the
         host commit. Every BI combine takes L0[0]'s weight. Returns
-        `scan_b_parts`'s fields and the per-MB L0 entry."""
+        (rescan, the per-MB L0 entry, the per-MB inter cost of the intra
+        compare: the lesser of the direct cost + lam and the chosen
+        configuration's); rescan(intra=None) gives `scan_b_parts`'s
+        fields, the MBs of the mask `intra` committed as intra."""
         p = self.p
         mbh, mbw = p.mb_height, p.mb_width
         n = mbh * mbw
@@ -1149,9 +1188,13 @@ class Encoder:
                 y, refs_l[0], ref_l1["luma"], spatial, tfields, mv16, col,
                 c_dir.astype(np.int64), c_cfg.astype(np.int64), lam, w1,
                 parts=True)
-        return BS.scan_b_parts(part, sel8, mv0z, mv1z, c_cfg, c_dir,
-                               col_mv4, col_ref4, lam, ref0=ref0_16,
-                               tdir=tdir) + (ref0_16,)
+
+        def rescan(intra=None):
+            return BS.scan_b_parts(part, sel8, mv0z, mv1z, c_cfg, c_dir,
+                                   col_mv4, col_ref4, lam, ref0=ref0_16,
+                                   tdir=tdir, intra=intra)
+        return (rescan, ref0_16,
+                np.minimum(c_dir.astype(np.int64) + lam, c_cfg))
 
     def _analyse_b16(self, y, refs_l, n_valid: int, ref_l1, lam: int, w_tab,
                      col, dm):
@@ -1160,8 +1203,9 @@ class Encoder:
         entry (`BS.analyse_b_frame`, BI at each L0 entry's weight), one
         pull, the direct SATD per MB of the slice's direct field, one
         pull, the direct-auto score, the host commit (`scan_b_frame`).
-        Returns the fields of `_analyse_b_parts` (no sub_mb_types, mvds
-        per MB)."""
+        Returns what `_analyse_b_parts` does (the rescan's fields without
+        sub_mb_types, mvds per MB; the inter cost the least of the four
+        candidates, each with its mb_type bits)."""
         p = self.p
         mbh, mbw = p.mb_height, p.mb_width
         n = mbh * mbw
@@ -1195,12 +1239,17 @@ class Encoder:
                 y, refs_l[0], ref_l1["luma"], spatial, tfields,
                 (mv0_np, mv1_np), col, c_dir + lam * hdr[0], best, lam, w1,
                 parts=False)
-        (mode, use0, use1, fmv0, fmv1, mvd0, mvd1,
-         ref8_0) = BS.scan_b_frame(c_dir, c0_np, c1_np, cbi_np, mv0_np,
-                                   mv1_np, col_mv4, col_ref4, lam,
-                                   ref0=ref0_16, tdir=tdir)
-        return (mode, None, use0, use1, fmv0, fmv1, mvd0, mvd1, ref8_0,
-                ref0_16)
+
+        def rescan(intra=None):
+            mode, *rest = BS.scan_b_frame(c_dir, c0_np, c1_np, cbi_np, mv0_np,
+                                          mv1_np, col_mv4, col_ref4, lam,
+                                          ref0=ref0_16, tdir=tdir,
+                                          intra=intra)
+            return (mode, None, *rest)
+        hdr = np.asarray(BS._B_HDR_BITS, np.int64)
+        inter_cost = np.stack([c.astype(np.int64) + lam * h for c, h in zip(
+            (c_dir, c0_np, c1_np, cbi_np), hdr)]).min(0)
+        return rescan, ref0_16, inter_cost
 
     def _dev(self, a) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(a)).to(self.device)
@@ -1216,7 +1265,8 @@ class Encoder:
         return ((q - last_qp + 26) % 52) - 26, q
 
     def _write_b_slice_cavlc(self, bw, res, qp: int, code, subs, mvd0,
-                             mvd1, ref0, num_ref: int, aqg=None) -> bytes:
+                             mvd1, ref0, num_ref: int, aqg=None,
+                             intra=None) -> bytes:
         """CAVLC B slice data (the reference's `_write_b_slice_cavlc`,
         core.py:3262): `mb_skip_run` over the direct MBs with no
         residual, `FrameCavlc.write_b_mb` for the others; a slice of
@@ -1225,18 +1275,40 @@ class Encoder:
         8x8-transform flag, which only the Python writer codes). ref0
         [mbh, mbw] each MB's L0 entry (None: 0), coded as ref_idx_l0 when
         num_ref > 1; aqg the frame's AQ qp grid (mb_qp_delta; the
-        reference then writes in Python)."""
+        reference then writes in Python); intra (intra_kind [mbh, mbw],
+        `refine_p_intra`'s host arrays) when the slice holds intra MBs,
+        written as I_16x16 or I_NxN with the B slice's mb_type offset and
+        mb_qp_delta 0 (the reference then writes in Python too)."""
         p = self.p
         mbh, mbw = p.mb_height, p.mb_width
         t8 = bool(p.transform_8x8)
         last_qp = qp
-        if ref0 is None and np.all(code <= 3) and not t8 and aqg is None:
+        if (ref0 is None and np.all(code <= 3) and not t8 and aqg is None
+                and intra is None):
             return self._write_b_native(native.write_slice_b, bw, res,
                                         code, mvd0, mvd1)
         fc = FrameCavlc(mbw, mbh, trans8_mode=t8)
         skip_run = 0
         for my in range(mbh):
             for mx in range(mbw):
+                k = 0 if intra is None else int(intra[0][my, mx])
+                if k:
+                    bw.write_ue(skip_run)
+                    skip_run = 0
+                    ir = intra[1]
+                    if k == 2:
+                        fc.write_i4x4_mb(
+                            bw, mx, my, ir["i4_modes"][my, mx],
+                            *_intra_mb(ir, my, mx, "cmode", "cbp_luma",
+                                       "cbp_chroma", "luma_ac", "chroma_dc",
+                                       "chroma_ac"))
+                    else:
+                        fc.write_i16x16_mb(
+                            bw, mx, my, *_intra_mb(
+                                ir, my, mx, "mode", "cmode", "cbp_luma",
+                                "cbp_chroma", "luma_dc", "luma_ac",
+                                "chroma_dc", "chroma_ac"))
+                    continue
                 m = int(code[my, mx])
                 cl = int(res["cbp_luma"][my, mx])
                 cc = int(res["cbp_chroma"][my, mx])
@@ -1280,21 +1352,24 @@ class Encoder:
             chroma_ac=res["chroma_ac"].reshape(n, 2, 4, 16))
 
     def _write_b_slice_cabac(self, bw, res, qp: int, code, subs, mvd0,
-                             mvd1, ref0, num_ref: int, aqg=None) -> bytes:
+                             mvd1, ref0, num_ref: int, aqg=None,
+                             intra=None) -> bytes:
         """CABAC B slice data (the reference's `_write_b_slice_cabac`,
         core.py:3349): B_Skip where a direct MB has no residual,
         `write_b_mb` for codes 0-3, `write_b_mb_ext` for the partition
         codes; a slice of 16x16 codes without an L0 map takes the native
         twin `native.write_slice_cabac_b`, as in the reference (not
         under the PPS's 8x8-transform flag). ref0 [mbh, mbw] each MB's L0
-        entry (None: 0), coded as ref_idx_l0 when num_ref > 1; aqg as for
-        the CAVLC writer."""
+        entry (None: 0), coded as ref_idx_l0 when num_ref > 1; aqg and
+        intra as for the CAVLC writer (`write_i4_mb` / `write_i16_mb` with
+        in_b: the B prefix, then the I slice's suffix)."""
         p = self.p
         mbh, mbw = p.mb_height, p.mb_width
         n = mbh * mbw
         t8 = bool(p.transform_8x8)
         last_qp = qp
-        if ref0 is None and np.all(code <= 3) and not t8 and aqg is None:
+        if (ref0 is None and np.all(code <= 3) and not t8 and aqg is None
+                and intra is None):
             return self._write_b_native(native.write_slice_cabac_b, bw, res,
                                         code, mvd0, mvd1, qp=qp)
         per_unit = mvd0.ndim == 4     # the partition path's [mbh,mbw,4,2]
@@ -1310,6 +1385,21 @@ class Encoder:
             r0 = 0 if ref0 is None else int(ref0[my, mx])
             lev = (res["luma_lev"][my, mx], res["chroma_dc"][my, mx],
                    res["chroma_ac"][my, mx])
+            k = 0 if intra is None else int(intra[0][my, mx])
+            if k == 2:
+                w.write_i4_mb(my, mx, intra[1]["i4_modes"][my, mx],
+                              *_intra_mb(intra[1], my, mx, "cmode",
+                                         "cbp_luma", "cbp_chroma", "luma_ac",
+                                         "chroma_dc", "chroma_ac"),
+                              in_b=True)
+            elif k == 1:
+                w.write_i16_mb(my, mx, *_intra_mb(
+                    intra[1], my, mx, "mode", "cmode", "cbp_luma",
+                    "cbp_chroma", "luma_dc", "luma_ac", "chroma_dc",
+                    "chroma_ac"), in_b=True)
+            if k:
+                w.end_mb(a == n - 1)
+                continue
             if m == 0 and cl == 0 and cc == 0:
                 w.write_b_skip_mb(my, mx)
                 w.end_mb(a == n - 1)
@@ -1472,19 +1562,8 @@ class Encoder:
                 trellis=bool(p.trellis), tables=self.qt,
                 nr_offset=self.nr_offset())
         self._nr_update(res)
-        intra_kind = np.zeros((mbh, mbw), np.int32)
-        ir = None
-        if not stego and p.intra_in_p and not p.aq_mode:
-            ir = refine_p_intra(y, u, v, res["recon_y"], res["recon_u"],
-                                res["recon_v"], tail[0], qp, qpc, mbw, mbh,
-                                lam=lam, trellis=bool(p.trellis),
-                                tables=self.qt)
-            intra_kind = ir["intra_kind"].cpu().numpy()
-            if intra_kind.any():
-                res = dict(res, recon_y=ir["recon_y"], recon_u=ir["recon_u"],
-                           recon_v=ir["recon_v"])
-            else:
-                ir = None
+        res, intra_kind, ir = self._intra_compare(y, u, v, res, tail[0], qp,
+                                                  lam)
         intra = intra_kind > 0
         metas = [part.reshape(-1), mv8.reshape(-1),
                  res["cbp_luma"].reshape(-1).to(torch.int32),
@@ -1517,23 +1596,8 @@ class Encoder:
             if replaced is not None:
                 final8, skip, mvd, res = replaced
         res_np = _levels_exact(res, mbh, mbw)
-        intra_t = self._dev(intra.astype(np.int32))
-        if "trans8" in res:
-            # the effective flag: the decision AND cbp_luma != 0 AND inter
-            t8_eff = res["trans8"] & (res["cbp_luma"] != 0) & (intra_t == 0)
-            nnz = _nnz4_t8(res["luma_lev"], res["luma8_lev"], t8_eff, mbh,
-                           mbw)
-            self.stats.trans8_mbs += int(
-                (res_np["trans8"] & (res_np["cbp_luma"] != 0) & ~intra).sum())
-        else:
-            t8_eff = None
-            nnz = _nnz4(res["luma_lev"], mbh, mbw)
-        intra_res = None
-        if ir is not None:
-            # an intra MB's deblock nnz comes from its own levels
-            m4 = intra_t.repeat_interleave(4, 0).repeat_interleave(4, 1)
-            nnz = torch.where(m4 != 0, _nnz4(ir["luma_ac"], mbh, mbw), nnz)
-            intra_res = {k: ir[k].cpu().numpy() for k in _INTRA_KEYS}
+        intra_t, t8_eff, nnz, intra_res = self._p_deblock_maps(res, res_np,
+                                                               intra, ir)
         final8_t = self._dev(final8)
         self._deblock_device(
             res, intra_t, self._dev(skip.astype(np.int32)),
@@ -1551,6 +1615,54 @@ class Encoder:
             ref8=ref8_np, num_ref=num_ref,
             intra=None if intra_res is None else (intra_kind, intra_res))
 
+    def _intra_compare(self, y, u, v, res, inter_cost, qp: int, lam: int):
+        """The plain encoder's intra compare over an encoded frame (the
+        reference's core.py:1931, :2616, :3120): with stego off and
+        `intra_in_p` on (off under AQ, as in the reference)
+        `intra.refine_p_intra` against `inter_cost` [mbh, mbw] (device),
+        the switched MBs' recon in res. Returns (res, intra_kind [mbh,
+        mbw] host int32, refine_p_intra's dict or None when no MB
+        switched)."""
+        p = self.p
+        kind = np.zeros((p.mb_height, p.mb_width), np.int32)
+        if self._stego is not None or not p.intra_in_p or p.aq_mode:
+            return res, kind, None
+        ir = refine_p_intra(y, u, v, res["recon_y"], res["recon_u"],
+                            res["recon_v"], inter_cost, qp,
+                            chroma_qp(qp, p.chroma_qp_offset), p.mb_width,
+                            p.mb_height, lam=lam, trellis=bool(p.trellis),
+                            tables=self.qt)
+        kind = ir["intra_kind"].cpu().numpy()
+        if not kind.any():
+            return res, kind, None
+        return dict(res, recon_y=ir["recon_y"], recon_u=ir["recon_u"],
+                    recon_v=ir["recon_v"]), kind, ir
+
+    def _p_deblock_maps(self, res, res_np, intra, ir):
+        """A P frame's per-MB intra map (device int32), effective trans8
+        (the decision AND cbp_luma != 0 AND inter; None without the 8x8
+        transform) and per-4x4 nnz (an intra MB's from its own levels)
+        for B5, counting the trans8 MBs; and the host arrays of the intra
+        MBs for the writers (None without). intra is the host mask, ir
+        `_intra_compare`'s dict."""
+        mbh, mbw = self.p.mb_height, self.p.mb_width
+        intra_t = self._dev(intra.astype(np.int32))
+        if "trans8" in res:
+            t8_eff = res["trans8"] & (res["cbp_luma"] != 0) & (intra_t == 0)
+            nnz = _nnz4_t8(res["luma_lev"], res["luma8_lev"], t8_eff, mbh,
+                           mbw)
+            self.stats.trans8_mbs += int(
+                (res_np["trans8"] & (res_np["cbp_luma"] != 0) & ~intra).sum())
+        else:
+            t8_eff = None
+            nnz = _nnz4(res["luma_lev"], mbh, mbw)
+        if ir is None:
+            return intra_t, t8_eff, nnz, None
+        m4 = intra_t.repeat_interleave(4, 0).repeat_interleave(4, 1)
+        nnz = torch.where(m4 != 0, _nnz4(ir["luma_ac"], mbh, mbw), nnz)
+        return intra_t, t8_eff, nnz, {k: ir[k].cpu().numpy()
+                                      for k in _INTRA_KEYS}
+
     def _encode_final8(self, y, u, v, qp: int, qpc: int, final8, skip):
         """The rd 2 probes' full re-encode at the field final8 with the
         P_SKIPs in `skip` forced (host arrays)."""
@@ -1565,7 +1677,7 @@ class Encoder:
     def _graft_intra(self, res2, res, intra):
         """res2 with the recon of the intra MBs (host mask `intra`) taken
         from res: a rd 2 re-encode keeps the committed intra patches (the
-        MBs they predict from keep their recon, `_intra_deps`)."""
+        MBs they predict from keep their recon, `_neighbour_deps`)."""
         if not intra.any():
             return res2
         m = self._dev(intra)
@@ -1592,7 +1704,7 @@ class Encoder:
             res["recon_y"], res["recon_u"], res["recon_v"], mvd, part_np, qp,
             mbh, mbw)
         cs = torch.stack([cost_c, cost_s]).cpu().numpy()
-        force = (cs[1] < cs[0]) & ~skip & ~intra & ~_intra_deps(intra)
+        force = (cs[1] < cs[0]) & ~skip & ~intra & ~_neighbour_deps(intra)
         if not force.any():
             return None
         skip2 = skip | force
@@ -1619,7 +1731,7 @@ class Encoder:
                 r["recon_y"], r["recon_u"], r["recon_v"], mvd_r, part_np, qp,
                 mbh, mbw)
 
-        elig = (part_np == 0) & ~skip & ~intra & ~_intra_deps(intra)
+        elig = (part_np == 0) & ~skip & ~intra & ~_neighbour_deps(intra)
         if not elig.any():
             return None
         shifts = [np.array(d, np.int32)
@@ -1656,37 +1768,53 @@ class Encoder:
 
     def _encode_p_sub(self, y, u, v, qp: int) -> bytes:
         """A sub-8x8-partitioned P frame, the reference's `_encode_p_sub`
-        (core.py:2518) with stego on: the analysis (B1's sub-unit
-        instance once per reference against prev_mv >> 2 on both of the
-        reference's branches, the two-level decision, the per-4x4 qpel
-        tables and subpel, `partition.analyse_p_frame_sub(_mref)`), the
-        AQ grids, the pass-1 encode (`inter.encode_p_frame_sub`, the
-        fused luma kernel; at more than one reference
-        `encode_p_frame_device4` on the stacked DPB, 4x4-only), one pull
-        of part/sub_type/mv4(/ref8) and one of the cbps, the sub scan,
+        (core.py:2518-2812): the analysis (B1's sub-unit instance once
+        per reference against prev_mv >> 2 on both of the reference's
+        branches, the two-level decision, the per-4x4 qpel tables and
+        subpel, `partition.analyse_p_frame_sub(_mref)`; with stego off at
+        one reference, `rd` >= 1 and no AQ the sub RD re-rank
+        `partition.rd_rerank_sub` instead), the AQ grids, the encode
+        (`inter.encode_p_frame_sub`, the fused luma kernel; at more than
+        one reference `encode_p_frame_device4` on the stacked DPB,
+        4x4-only), with stego off the intra compare
+        (`intra.refine_p_intra` against the analysis's per-MB cost, off
+        under AQ), one pull of part/sub_type/mv4(/ref8) and one of the
+        cbps, the sub scan with the intra MBs, with stego on
         `StegoEngine.embed_frame_sub` (its pass 2 a full re-encode), B5
-        on the per-4x4 field with the reference map (`check_slice` refuses
-        the reference's deblock without it, F10) and the slice with its
-        sub_mb_types. The
-        reference updates no noise-reduction state on this path (F11)."""
+        on the per-4x4 field with the intra map and the reference map
+        (`check_slice` refuses the reference's deblock without it, F10)
+        and the slice with its sub_mb_types and intra MBs. The reference
+        updates no noise-reduction state on this path (F11)."""
         p = self.p
         mbh, mbw = p.mb_height, p.mb_width
         n = mbh * mbw
         dev = self.device
         lam = ME.lambda_tab(qp)
+        qpc = chroma_qp(qp, p.chroma_qp_offset)
+        stego = self._stego is not None
         prev = torch.as_tensor(self.prev_mv).to(dev)
         refs, ref8, num_ref = None, None, 1
+        tables4 = None
         if p.ref_frames > 1:
             refs_luma, refs_u, refs_v, num_ref = self._stack_l0(self.dpb)[:4]
             refs = (refs_luma, refs_u, refs_v)
-            part, sub, mv4, ref8, r_idx4, blocks4, wht4 = \
+            part, sub, mv4, ref8, r_idx4, blocks4, wht4, mb_cost = \
                 PT.analyse_p_frame_sub_mref(
                     y, refs_luma.to(torch.uint8), num_ref, prev, p.me_range,
                     mbh, mbw, lam, p.ref_frames)
+            tables4 = {"blocks": blocks4, "wht": wht4, "r_idx": r_idx4}
+        elif not stego and p.rd >= 1 and not p.aq_mode:
+            # the probes quantize by the trellis only at trellis 2
+            # (analyse.c:248); no rd 2 probes on this path
+            part, sub, mv4, _r_idx4, mb_cost = PT.rd_rerank_sub(
+                y, u, v, self.ref, prev, qp, qpc, lam, p.me_range, mbh, mbw,
+                trellis=p.trellis > 1, nr_offset=self.nr_offset(),
+                tables=self.qt)
         else:
-            part, sub, mv4, r_idx4, blocks4, wht4 = PT.analyse_p_frame_sub(
-                y, self.ref["luma"].to(torch.uint8), prev, p.me_range, mbh,
-                mbw, lam)
+            part, sub, mv4, r_idx4, blocks4, wht4, mb_cost = \
+                PT.analyse_p_frame_sub(y, self.ref["luma"].to(torch.uint8),
+                                       prev, p.me_range, mbh, mbw, lam)
+            tables4 = {"blocks": blocks4, "wht": wht4, "r_idx": r_idx4}
         meta = torch.cat([part.reshape(-1), sub.reshape(-1),
                           mv4.reshape(-1)]
                          + ([] if ref8 is None else [ref8.reshape(-1)])
@@ -1711,39 +1839,36 @@ class Encoder:
                 elig=self.trans8_elig(part_np, sub_np), rd=bool(p.rd),
                 trellis=bool(p.trellis), tables=self.qt,
                 nr_offset=self.nr_offset())
+        res, intra_kind, ir = self._intra_compare(y, u, v, res, mb_cost, qp,
+                                                  lam)
+        intra = intra_kind > 0
         cbp = torch.stack([res["cbp_luma"], res["cbp_chroma"]]).cpu().numpy()
         skip, mvd, mvp, final4 = SCAN.scan_p_frame_sub(
-            part_np, sub_np, mv4_np, cbp[0], cbp[1], ref8=ref8_np)
-        replaced = self._stego.embed_frame_sub(
-            self, y, u, v, qp, part_np, sub_np, mv4_np, skip, mvp,
-            {"blocks": blocks4, "wht": wht4, "r_idx": r_idx4},
-            ref8=ref8_np, refs=refs, grids=(qp_enc, qpc_enc))
-        if replaced is not None:
-            final4, skip, mvd, res = replaced
+            part_np, sub_np, mv4_np, cbp[0], cbp[1],
+            intra=intra if ir else None, ref8=ref8_np)
+        skip &= ~intra
+        if stego:
+            replaced = self._stego.embed_frame_sub(
+                self, y, u, v, qp, part_np, sub_np, mv4_np, skip, mvp,
+                tables4, ref8=ref8_np, refs=refs, grids=(qp_enc, qpc_enc))
+            if replaced is not None:
+                final4, skip, mvd, res = replaced
         res_np = _levels_exact(res, mbh, mbw)
-        if "trans8" in res:
-            t8_eff = res["trans8"] & (res["cbp_luma"] != 0)
-            nnz = _nnz4_t8(res["luma_lev"], res["luma8_lev"], t8_eff, mbh,
-                           mbw)
-            self.stats.trans8_mbs += int(
-                (res_np["trans8"] & (res_np["cbp_luma"] != 0)).sum())
-        else:
-            t8_eff = None
-            nnz = _nnz4(res["luma_lev"], mbh, mbw)
+        intra_t, t8_eff, nnz, intra_res = self._p_deblock_maps(res, res_np,
+                                                               intra, ir)
         self._deblock_device(
-            res, torch.zeros((mbh, mbw), dtype=torch.int32, device=dev),
-            torch.as_tensor(skip.astype(np.int32)).to(dev),
-            torch.as_tensor(np.ascontiguousarray(final4)).to(dev), qp, nnz,
-            trans8=t8_eff, ref4=ref4,
+            res, intra_t, self._dev(skip.astype(np.int32)),
+            self._dev(final4), qp, nnz, trans8=t8_eff, ref4=ref4,
             qp_maps=self._qp_maps_p(res_np, skip, qp))
-        # stego on: no intra MBs in P, the predictor is the final field
-        self.prev_mv = np.ascontiguousarray(final4[::4, ::4], np.int32)
-        self._anchor_motion = (np.ascontiguousarray(final4), ref8_np)
+        # an intra MB carries no motion: its predictor slot is zero
+        self.prev_mv = np.where(intra[..., None], 0,
+                                final4[::4, ::4]).astype(np.int32)
+        self._anchor_motion = (np.ascontiguousarray(final4), ref8_np, intra)
         self.last_sub = (part_np, sub_np)
-        return self._finish_p_slice(res_np, qp, part_np, mvd, skip,
-                                    self.frame_num, self._poc_lsb,
-                                    ref8=ref8_np, num_ref=num_ref,
-                                    sub_type=sub_np)
+        return self._finish_p_slice(
+            res_np, qp, part_np, mvd, skip, self.frame_num, self._poc_lsb,
+            ref8=ref8_np, num_ref=num_ref, sub_type=sub_np,
+            intra=None if intra_res is None else (intra_kind, intra_res))
 
     # ------------------------------------------------------------------
     # adaptive quantization (x264_adaptive_quant_frame; the reference's

@@ -610,7 +610,7 @@ def _wrap32(x: torch.Tensor) -> torch.Tensor:
     return ((x + (1 << 31)) % (1 << 32) - (1 << 31)).to(_I32)
 
 
-def _rd_total(ssd, bits, qp: int):
+def rd_total(ssd, bits, qp: int):
     """ssd + ((lambda2 * bits + 128) >> 8), each step wrapping at 32
     bits (x264_rd_cost_mb's form)."""
     lam2 = int(LAMBDA2_TAB[qp])
@@ -660,7 +660,7 @@ def rd_coded_cost(y, u, v, luma_lev, chroma_dc, chroma_ac, recon_y,
     md = torch.as_tensor(mvd).to(dev, _I32).reshape(n, 4, 2)
     mvd_bits = torch.where(used, se_len(md[..., 0]) + se_len(md[..., 1]),
                            0).sum(1, dtype=_I32)
-    cost = _rd_total(ssd, bits + ue_len(pt) + mvd_bits, qp)
+    cost = rd_total(ssd, bits + ue_len(pt) + mvd_bits, qp)
     return cost.reshape(mbh, mbw)
 
 
@@ -687,5 +687,5 @@ def rd_skip_eval(y, u, v, ref_luma, ref_u, ref_v, pskip_mv, luma_lev,
         d = mc.mc_chroma(refp, ys // 2, xs // 2, mvf, 8, 8) \
             - mb_tiles(plane, 8)
         ssd = ssd + (d * d).sum((1, 2), dtype=_I32)
-    cost_skip = _rd_total(ssd, torch.ones_like(ssd), qp)
+    cost_skip = rd_total(ssd, torch.ones_like(ssd), qp)
     return cost_coded, cost_skip.reshape(mbh, mbw)

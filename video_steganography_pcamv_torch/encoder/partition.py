@@ -36,6 +36,8 @@ from ..ops import mc
 from ..ops import probe as PR
 from ..ops.fullpel import fullpel_parts, fullpel_sub
 from ..ops import lumap as LP
+from ..ops import transform as T
+from ..ops.rdcost import cavlc_block_bits, se_len
 from ..stego.cost import D_MV, D_NB, rca_decide
 from . import inter as INTER
 from . import qpel_table as QT
@@ -556,9 +558,7 @@ def decide_partition_sub(st: dict, mbh: int, mbw: int, lam: int = 1,
         mv44_p3])
     mv44 = torch.gather(mv44_by_part, 0, part.long()[
         None, :, :, None, None, None].expand((1,) + full))[0]
-    mv4 = mv44.reshape(mbh, mbw, 2, 2, 2, 2, 2) \
-        .permute(0, 2, 4, 1, 3, 5, 6).reshape(4 * mbh, 4 * mbw, 2)
-    return part, sub_type, mv4.contiguous()
+    return part, sub_type, _z44_to_sp(mv44, mbh, mbw).contiguous()
 
 
 def gather_windows4(planes, mv4fp, mbh: int, mbw: int, ref4=None):
@@ -643,7 +643,9 @@ def subpel_sub(cur_y, wht4, part, sub_type, mv4fp, prev_mv, mbh: int,
     unit's summed SATD + lam * MV bits against its MB's prev_mv (the
     table clipped at +-2048), the first minimum. wht4 [169, N4, 16];
     mv4fp [4mbh,4mbw,2] full-pel. Returns (mv4 qpel [4mbh,4mbw,2], r_idx4
-    [N4] int32)."""
+    [N4] int32, mb_cost [mbh,mbw] int32: the sum of each unit's minimum
+    cost over the slots that hold a unit, the plain encoder's inter cost
+    for the intra compare)."""
     dev = cur_y.device
     n4 = 16 * mbh * mbw
     wcur = wht4_flat(blocks4(cur_y, mbh, mbw))               # [N4, 16]
@@ -667,28 +669,29 @@ def subpel_sub(cur_y, wht4, part, sub_type, mv4fp, prev_mv, mbh: int,
     unit_satd = torch.zeros_like(satz).scatter_add_(
         3, uid.long()[None].expand_as(satz), satz)
     cost = unit_satd + mvcz
-    sel_slot = torch.argmin(cost, dim=0)                 # [mbh,mbw,16]
+    best, sel_slot = cost.min(0)                         # [mbh,mbw,16]
     sel_blk = torch.gather(sel_slot, 2, uid.long())
     offs = const(_SUBPEL4_OFFSETS, dev)[sel_blk]         # [., ., 16, 2]
     mvz = sp4_to_z(mv4fp, mbh, mbw)
     mvq = torch.stack([4 * mvz[..., 0] + offs[..., 1],
                        4 * mvz[..., 1] + offs[..., 0]], dim=-1)
     r_idx = (offs[..., 0] + 6) * 13 + (offs[..., 1] + 6)
+    slot = torch.arange(16, device=dev, dtype=uid.dtype)
+    mb_cost = torch.where(uid == slot, best, 0).sum(-1, dtype=_I32)
     return (z_to_sp4(mvq, mbh, mbw).to(_I32).contiguous(),
-            z_to_sp4(r_idx, mbh, mbw).reshape(n4).to(_I32))
-
+            z_to_sp4(r_idx, mbh, mbw).reshape(n4).to(_I32), mb_cost)
 
 
 def _sub_tail(y, planes, part, sub_type, mv4fp, prev_mv, mbh: int,
               mbw: int, lam: int, ref4=None):
     """The sub analysis after the decision: the 4x4 windows (with ref4
     [4mbh,4mbw] from the stacked entries), the qpel tables and the subpel
-    refinement. Returns (mv4, r_idx4, blocks4, wht4)."""
+    refinement. Returns (mv4, r_idx4, blocks4, wht4, mb_cost)."""
     tab = block_table4(gather_windows4(planes, mv4fp, mbh, mbw, ref4=ref4))
     wht = wht4_table(tab)
-    mv4, r_idx4 = subpel_sub(y, wht, part, sub_type, mv4fp, prev_mv, mbh,
-                             mbw, lam)
-    return mv4, r_idx4, tab, wht
+    mv4, r_idx4, mb_cost = subpel_sub(y, wht, part, sub_type, mv4fp,
+                                      prev_mv, mbh, mbw, lam)
+    return mv4, r_idx4, tab, wht, mb_cost
 
 
 def analyse_p_frame_sub(y, ref8, prev_mv, rng: int, mbh: int, mbw: int,
@@ -699,7 +702,7 @@ def analyse_p_frame_sub(y, ref8, prev_mv, rng: int, mbh: int, mbw: int,
     accelerator form), the two-level decision, the per-4x4 windows and
     qpel tables, the subpel refinement. ref8 [4, Hp, Wp] uint8 hpel
     planes. Returns (part, sub_type, mv4 qpel, r_idx4, blocks4 [169, N4,
-    4, 4] uint8, wht4 [169, N4, 16] int16)."""
+    4, 4] uint8, wht4 [169, N4, 16] int16, mb_cost [mbh, mbw])."""
     st = fullpel_sub(y, ref8[0], (prev_mv >> 2).contiguous(), rng, mbh,
                      mbw, lam)
     part, sub_type, mv4fp = decide_partition_sub(st, mbh, mbw, lam,
@@ -717,7 +720,7 @@ def analyse_p_frame_sub_mref(y, refs8, n_valid: int, prev_mv, rng: int,
     shapes merged across entries as on the partition path, each 8x8's
     reference its own masked argmin, and the sub splits inside an 8x8
     costed on that reference (with its te(v) bits). Returns (part,
-    sub_type, mv4, ref8 [2mbh, 2mbw], r_idx4, blocks4, wht4)."""
+    sub_type, mv4, ref8 [2mbh, 2mbw], r_idx4, blocks4, wht4, mb_cost)."""
     ref_bits = te_ref_bits(num_ref)
     pred = (prev_mv >> 2).contiguous()
     sts = [fullpel_sub(y, refs8[r, 0], pred, rng, mbh, mbw, lam)
@@ -737,10 +740,198 @@ def analyse_p_frame_sub_mref(y, refs8, n_valid: int, prev_mv, rng: int,
     part, sub_type, mv4fp = decide_partition_sub(stm, mbh, mbw, lam,
                                                  allow_parts)
     ref8 = ref8_from_partition(stm, part, mbh, mbw)
-    mv4, r_idx4, tab, wht = _sub_tail(
+    mv4, r_idx4, tab, wht, mb_cost = _sub_tail(
         y, refs8, part, sub_type, mv4fp, prev_mv, mbh, mbw, lam,
         ref4=ref8.repeat_interleave(2, 0).repeat_interleave(2, 1))
-    return part, sub_type, mv4, ref8, r_idx4, tab, wht
+    return part, sub_type, mv4, ref8, r_idx4, tab, wht, mb_cost
+
+
+def _z44_to_sp(mv44, mbh: int, mbw: int):
+    """[mbh,mbw,4 (8x8 z),4 (sub z),2] -> [4mbh,4mbw,2] spatial."""
+    return mv44.reshape(mbh, mbw, 2, 2, 2, 2, 2) \
+        .permute(0, 2, 4, 1, 3, 5, 6).reshape(4 * mbh, 4 * mbw, 2)
+
+
+def _bits_per8(luma_lev, chroma_ac, n: int):
+    """The residual CAVLC bits at nC 0 of each 8x8 z block [n, 4] int32:
+    its four luma 4x4s and its chroma AC 4x4 in each plane (chroma DC is
+    left out, as in the reference). luma_lev [mbh,mbw,256] in (by, bx,
+    r, c) order, chroma_ac [mbh,mbw,128] in (plane, by, bx, r, c)."""
+    dev = luma_lev.device
+    zz = const(T.ZIGZAG_4x4, dev).long()
+    blk = luma_lev.reshape(n * 16, 4, 4).to(_I32)
+    bl = cavlc_block_bits(blk[:, zz[:, 0], zz[:, 1]],
+                          torch.zeros(n * 16, dtype=_I32, device=dev)) \
+        .reshape(n, 2, 2, 2, 2)                          # [n,by8,y,bx8,x]
+    per8 = bl.sum((2, 4), dtype=_I32).reshape(n, 4)
+    ca = chroma_ac.reshape(n * 8, 4, 4).to(_I32)
+    cb = cavlc_block_bits(ca[:, zz[:, 0], zz[:, 1]][:, 1:],
+                          torch.zeros(n * 8, dtype=_I32, device=dev),
+                          max_coeff=15).reshape(n, 2, 4)
+    return per8 + cb.sum(1, dtype=_I32)
+
+
+def _ssd_per8(y, u, v, res, mbh: int, mbw: int):
+    """The SSD of each 8x8 z block [n, 4] int32: its 8x8 luma and its 4x4
+    chroma in each plane (x264_rd_cost_part's measure)."""
+    n = mbh * mbw
+    tot = 0
+    for plane, rec, b in ((y, res["recon_y"], 8), (u, res["recon_u"], 4),
+                          (v, res["recon_v"], 4)):
+        d = rec.to(_I32) - plane.to(_I32)
+        tot = tot + (d * d).reshape(mbh, 2, b, mbw, 2, b) \
+            .sum((2, 5), dtype=_I32).permute(0, 2, 1, 3).reshape(n, 4)
+    return tot
+
+
+def _sub_mvd_bits(mv4, mvp, sub_type, n: int, mbh: int, mbw: int):
+    """The se(v) bits of every sub unit's mvd against its 8x8's MVP
+    [n, 4] (mvp [mbh,mbw,4,2] per 8x8, sub_type [n, 4])."""
+    d = sp4_to_z(mv4, mbh, mbw).reshape(n, 4, 4, 2) \
+        - mvp.reshape(n, 4, 1, 2)
+    slots = torch.arange(4, device=mv4.device, dtype=_I32)
+    is_unit = const(_SUB_UNIT_ID, mv4.device)[sub_type.long()] == slots
+    return torch.where(is_unit, se_len(d[..., 0]) + se_len(d[..., 1]),
+                       0).sum(-1, dtype=_I32)
+
+
+def rd_rerank_sub(y, u, v, ref, prev_mv, qp: int, qpc: int, lam: int,
+                  rng: int, mbh: int, mbw: int, trellis: bool = False,
+                  nr_offset=None, tables=None):
+    """The sub-8x8 RD re-rank of `rd` >= 1 with stego off at one
+    reference, the reference's `rd_rerank_sub` (partition.py:1774-1944;
+    x264_mb_analyse_p_rd's P_8x8 branch, analyse.c:2150-2180). B1's
+    sub-unit instance once (against prev_mv >> 2), then seven
+    uniform-shape frame probes, each the 4x4 windows and qpel tables,
+    `subpel_sub`, the fused luma encode (`trellis` the probe trellis: the
+    reference's trellis > 1) and the device scan: the three MB shapes
+    priced by `inter.rd_coded_cost`, the four sub_mb_types per 8x8 by
+    `_bits_per8` + `_ssd_per8` + the mvd bits of each unit against its
+    8x8's probe MVP. Candidates above 5/4 of the SATD best are gated out
+    with 1 << 30; each 8x8 takes the first cheapest sub type, the
+    recomposed mixed P_8x8 frame is encoded and priced exactly, and each
+    MB the first cheapest shape. `ref` is the reference dict. Returns
+    (part, sub_type, mv4 qpel, r_idx4 [N4], mb_cost [mbh,mbw]): the
+    winning shape's subpel cost, on P_8x8 the least uniform sub probe's.
+    The reference's final tables (read only by the stego engine) are not
+    built."""
+    dev = y.device
+    n = mbh * mbw
+    planes = ref["luma"].to(torch.uint8)
+    st = fullpel_sub(y, planes[0], (prev_mv >> 2).contiguous(), rng, mbh,
+                     mbw, lam)
+    shdr = _SUB_HDR_BITS
+    sub_tot = torch.stack([
+        st["c8"] + lam * int(shdr[0]),
+        st["c84"].sum(-1, dtype=_I32) + lam * int(shdr[1]),
+        st["c48"].sum(-1, dtype=_I32) + lam * int(shdr[2]),
+        st["c44"].sum(-1, dtype=_I32) + lam * int(shdr[3])])
+    sub_min = sub_tot.min(0).values                      # [mbh,mbw,4]
+    sub_thresh = torch.div(sub_min * 5, 4, rounding_mode="floor")
+    hdr = _HDR_BITS_SUB
+    tot = torch.stack([
+        st["c16"] + lam * int(hdr[0]),
+        st["c16x8"].sum(-1, dtype=_I32) + lam * int(hdr[1]),
+        st["c8x16"].sum(-1, dtype=_I32) + lam * int(hdr[2]),
+        sub_min.sum(-1, dtype=_I32) + lam * int(hdr[3])])
+    mb_thresh = torch.div(tot.min(0).values * 5, 4, rounding_mode="floor")
+    b44 = (mbh, mbw, 4, 4, 2)
+    cands44 = [
+        st["mv16"][:, :, None, None, :].expand(b44),
+        st["mv16x8"][:, :, [0, 0, 1, 1], None, :].expand(b44),
+        st["mv8x16"][:, :, [0, 1, 0, 1], None, :].expand(b44),
+        st["mv8"][:, :, :, None, :].expand(b44),
+        st["mv84"][:, :, :, [0, 0, 1, 1], :],
+        st["mv48"][:, :, :, [0, 1, 0, 1], :],
+        st["mv44"]]
+    prev = prev_mv.contiguous()
+
+    def probe(ci):
+        """One uniform-shape frame probe: subpel, encode, device scan."""
+        part_c = torch.full((mbh, mbw), min(ci, 3), dtype=_I32, device=dev)
+        sub_c = torch.full((mbh, mbw, 4), max(ci - 3, 0), dtype=_I32,
+                           device=dev)
+        mv4fp = _z44_to_sp(cands44[ci], mbh, mbw).contiguous()
+        wht = wht4_table(block_table4(gather_windows4(planes, mv4fp, mbh,
+                                                      mbw)))
+        mv4_c, r_idx4_c, cost_c = subpel_sub(y, wht, part_c, sub_c, mv4fp,
+                                             prev, mbh, mbw, lam)
+        res = INTER.encode_p_frame_device4(
+            y, u, v, ref["luma"], ref["u"], ref["v"], mv4_c, qp, qpc, mbh,
+            mbw, trellis=trellis, tables=tables, nr_offset=nr_offset)
+        _, mvd_c, mvp_c, _ = scan_p_device(
+            part_c, mv4_c[::2, ::2].contiguous(), res["cbp_luma"].to(_I32),
+            res["cbp_chroma"].to(_I32), mbh, mbw)
+        return mv4_c, r_idx4_c, cost_c, res, mvd_c, mvp_c
+
+    # an int32 sentinel above any MB's SSD + bits cost
+    big = 1 << 30
+    shape_rd, fields = [], []
+    for ci in range(3):
+        mv4_c, r_idx4_c, cost_c, res, mvd_c, _ = probe(ci)
+        rd = INTER.rd_coded_cost(
+            y, u, v, res["luma_lev"], res["chroma_dc"], res["chroma_ac"],
+            res["recon_y"], res["recon_u"], res["recon_v"], mvd_c,
+            torch.full((mbh, mbw), ci, dtype=_I32, device=dev), qp, mbh,
+            mbw)
+        shape_rd.append(torch.where(tot[ci] <= mb_thresh, rd, big))
+        fields.append((mv4_c, r_idx4_c, cost_c))
+    sub_rd = []
+    for t in range(4):
+        mv4_c, r_idx4_c, cost_c, res, _, mvp_c = probe(3 + t)
+        sub_t = torch.full((n, 4), t, dtype=_I32, device=dev)
+        bits = (_bits_per8(res["luma_lev"], res["chroma_ac"], n)
+                + _sub_mvd_bits(mv4_c, mvp_c, sub_t, n, mbh, mbw)
+                + int(_SUB_HDR_BITS[t]))
+        prd = INTER.rd_total(_ssd_per8(y, u, v, res, mbh, mbw), bits, qp) \
+            .reshape(mbh, mbw, 4)
+        sub_rd.append(torch.where(sub_tot[t] <= sub_thresh, prd, big))
+        fields.append((mv4_c, r_idx4_c, cost_c))
+    sub_type = torch.argmin(torch.stack(sub_rd), dim=0).to(_I32)
+
+    # the mixed-sub_type P_8x8 frame, recomposed and priced exactly
+    all44 = torch.stack([sp4_to_z(f[0], mbh, mbw) for f in fields])
+    sel16 = sub_type.repeat_interleave(4, -1)            # [mbh,mbw,16]
+    mv4_mix = z_to_sp4(torch.gather(
+        all44[3:], 0, sel16.long()[None, ..., None].expand(1, mbh, mbw, 16,
+                                                           2))[0],
+        mbh, mbw).contiguous()
+    res_m = INTER.encode_p_frame_device4(
+        y, u, v, ref["luma"], ref["u"], ref["v"], mv4_mix, qp, qpc, mbh,
+        mbw, trellis=trellis, tables=tables, nr_offset=nr_offset)
+    _, _, mvp_m, _ = scan_p_device(
+        torch.full((mbh, mbw), 3, dtype=_I32, device=dev),
+        mv4_mix[::2, ::2].contiguous(), res_m["cbp_luma"].to(_I32),
+        res_m["cbp_chroma"].to(_I32), mbh, mbw)
+    subt_f = sub_type.reshape(n, 4)
+    bits_m = (_bits_per8(res_m["luma_lev"], res_m["chroma_ac"], n).sum(
+        1, dtype=_I32)
+        + _sub_mvd_bits(mv4_mix, mvp_m, subt_f, n, mbh, mbw).sum(
+            1, dtype=_I32)
+        + const(_SUB_HDR_BITS, dev)[subt_f.long()].sum(1, dtype=_I32)
+        + int(_HDR_BITS_SUB[3]))
+    ssd_m = _ssd_per8(y, u, v, res_m, mbh, mbw).sum(1, dtype=_I32)
+    rd_mix = INTER.rd_total(ssd_m, bits_m, qp).reshape(mbh, mbw)
+    shape_rd.append(torch.where(tot[3] <= mb_thresh, rd_mix, big))
+    part = torch.argmin(torch.stack(shape_rd), dim=0).to(_I32)
+    sub_type = torch.where((part == 3)[..., None], sub_type, 0)
+
+    # each 4x4 block takes the winning candidate's MV and offset
+    widx = torch.where((part == 3)[..., None], 3 + sub_type.repeat_interleave(
+        4, -1), part[..., None].expand(mbh, mbw, 16)).long()
+    mv4 = z_to_sp4(torch.gather(all44, 0, widx[None, ..., None].expand(
+        1, mbh, mbw, 16, 2))[0], mbh, mbw)
+    all_ri = torch.stack([sp4_to_z(f[1].reshape(4 * mbh, 4 * mbw), mbh, mbw)
+                          for f in fields])
+    r_idx4 = z_to_sp4(torch.gather(all_ri, 0, widx[None])[0], mbh,
+                      mbw).reshape(16 * n)
+    # the intra compare's inter cost: the winning shape's subpel cost,
+    # on P_8x8 the least of the uniform sub probes'
+    cost3 = torch.stack([f[2] for f in fields[3:]]).min(0).values
+    costs = torch.stack([f[2] for f in fields[:3]] + [cost3])
+    mb_cost = torch.gather(costs, 0, part.long()[None])[0]
+    return (part, sub_type, mv4.to(_I32).contiguous(), r_idx4.to(_I32),
+            mb_cost)
 
 
 def _mb_pred_z(blkz):
