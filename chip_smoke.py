@@ -19,20 +19,27 @@ Phases (any failure raises and the script exits non-zero):
      CTAs at once: array-equal, timed, beside its byte/op bound and a
      latency bound (the knight chain's steps x a cross-SM handoff that
      a ping-pong kernel measures);
-  4. kernels B3 (subpel) and B4 (probe maps), which take the windows
-     and build B2's qpel rows themselves, and B2's standalone entry
-     (qpel tables) against their plain versions at 1080p shapes on a
-     real frame pair run through the accelerator branch's B1 +
-     partition decision: array-equal, timed, beside their bounds;
+  4. the analyse tail (csrc/analyse_tail.cu: B3 -> B4 in one launch),
+     B3 alone (subpel) with and without its mb_cost output, B4's check
+     entry (probe maps) on chosen rows and on rows on every corner and
+     edge of the +-3 box, all of which take the windows and build B2's
+     qpel rows themselves, and B2's standalone entry (qpel tables),
+     against their plain versions at 1080p shapes on a real frame pair
+     run through the accelerator branch's B1 + partition decision, with
+     random and zero predictors, decimate off, and jvt with the inter
+     deadzone 16: array-equal, timed through the wrapper and alone,
+     beside their bounds (bytes, the int8 tensor cores' rate for the
+     transforms, the int32 rate for the rest) and the ALU-only bound;
   5. 112x80 six-frame encode on cuda and on cpu for both tail_kernel
      settings: byte-equal streams that the port's decoder decodes and
      the port's extractor reads;
   6. the main path at 1920x1088, bench.py's Params (tail_kernel=True, the
      reference's accelerator branch), five frames plus flush: payload
-     recovered, B1, B9, B3 and B4 launched once per P frame, B5 once
-     per frame, the fused luma encode once or twice per P frame (pass 1,
-     and pass 2 unless no MB changed), B2's entry and B8a/B8b never,
-     fps printed;
+     recovered, B1, B9 and the fused tail (B3 -> B4) launched once per
+     P frame, B3 alone and B4's check entry never, B5 once per frame,
+     the fused luma encode once or twice per P frame (pass 1, and pass
+     2 unless no MB changed), B2's entry and B8a/B8b never, fps
+     printed;
   7. the tail_kernel=False path (B1 against the predictor prev_mv >> 2)
      at 1920x1088, IDR + 2 P frames plus flush: payload recovered, the
      same launch counts;
@@ -69,7 +76,7 @@ Phases (any failure raises and the script exits non-zero):
      Intra_8x8 and 8x8-transform P MBs, decoded and read by the port's
      decoder and extractor;
  15. config 3 at 1280x720 (45x80 MBs), IDR + 4 P frames plus flush:
-     payload recovered, B1, B9, B3 and B4 launched every P frame, B5
+     payload recovered, B1, B9 and the fused tail every P frame, B5
      every frame, the fused luma encode once or twice per P frame, B2's
      entry and B8a/B8b never, I8x8 and trans8 MB counts, fps printed;
  16. (only with --stages8) per-stage times of a 720p config-3 P frame,
@@ -89,7 +96,7 @@ Phases (any failure raises and the script exits non-zero):
  20. BASELINE config 4's P half (tools/bench_c4.py's Params with bframes
      0: ref_frames 2, CABAC) at 1920x1088, IDR + 2 P: payload recovered
      by the port's CABAC decoder and extractor, B1 launched twice per P
-     frame (once per reference), B9, B3 and B4 once, the fused luma
+     frame (once per reference), B9 and the fused tail once, the luma
      encode twice (pass 1 and the full pass 2), B5 once per frame; P
      fps, bytes, IDR seconds and the share of 8x8 blocks on reference 1
      printed;
@@ -152,9 +159,9 @@ Phases (any failure raises and the script exits non-zero):
      B B P B B: every kernel call of the B frames and every call of the
      fused luma encode in the P anchors (its levels-in entry, fed by the
      trellis) array-equal to its plain version; exact launches per frame
-     type (each P anchor B1, B9, B3, B4, B5 once and the levels-in entry
-     twice, each B frame B1 twice, B9 and B3' twice and the levels-in
-     entry once); the decoded frames, anchors included, equal the
+     type (each P anchor B1, B9, the fused tail, B5 once and the
+     levels-in entry twice, each B frame B1 twice, B9 and B3' twice and
+     the levels-in entry once); the decoded frames, anchors included, equal the
      encoder's recon and the payload is recovered (in a worker); P and B
      fps, the IDR's seconds, bytes by slice type, the I8x8 and trans8 MB
      counts (each must be above 0) and the trellis's ms per frame
@@ -166,18 +173,19 @@ Phases (any failure raises and the script exits non-zero):
      every call of the fused luma encode (pass 1 and the full pass 2,
      both its noise-reduction instance) equal to its plain version on
      the CPU, sums included, reading the offsets of a host model of the
-     reference's NR arithmetic; every B4 call equal to its plain version
-     on the card; the encoder's NR state equal to the model's after each
-     P frame; exact launches; the decoded frames equal the encoder's
-     recon and the payload is recovered (in a worker); P fps, the IDR's
-     seconds and bytes per frame beside phase 6's printed.
+     reference's NR arithmetic; every fused tail call equal to its
+     plain versions on the card; the encoder's NR state equal to the
+     model's after each P frame; exact launches; the decoded frames
+     equal the encoder's recon and the payload is recovered (in a
+     worker); P fps, the IDR's seconds and bytes per frame beside phase
+     6's printed.
  31. the main path's Params with aq_mode 1 at 1920x1088, IDR + 3 P (the
      unfused one-reference path): exact launches, the per-MB qp grids,
      decoded == recon and the payload (in a worker);
  32. BASELINE config 5: 8 concurrent 1920x1088 streams through
      MultiEncoder (tools/bench_streams.py's Params, tail_kernel=True,
      seeds 40 + s), IDR + 2 P steps: exact launches of each P step (B1,
-     B9, B3, B4 and B5 once a stream, the fused luma encode twice a
+     B9, the fused tail and B5 once a stream, the fused luma encode twice a
      stream), every stream's payload recovered and streams 0 and 7
      decoded == recon (in the workers); the IDR step's seconds and the
      aggregate and per-stream P fps printed;
@@ -212,9 +220,10 @@ Phases (any failure raises and the script exits non-zero):
      em_rate 0 (CAVLC, intra_in_p on) at 1920x1088 on bench.py's clip
      with an occlusion reveal in every P frame (`reveal_clip`), IDR + 2
      P at rd 0, then IDR + 1 P at rd 2: exact launches per P frame (rd
-     0: B1, B9, B3's mb_cost instance, the fused luma encode and B5
-     once, B4 never; rd 2: B1 once, B9 and B3 four times, the luma
-     encode 5-11 times, B5 once, B4 never), intra MBs in every P frame,
+     0: B1, B9, B3's mb_cost instance (B3 alone), the fused luma
+     encode and B5 once, the fused tail never; rd 2: B1 once, B9 and B3
+     four times, the luma encode 5-11 times, B5 once, the fused tail
+     never), intra MBs in every P frame,
      `refine_p_intra`'s CUDA-event ms and its share of the frame, P fps,
      decoded == recon and the same intra MBs in the decoder (in a
      worker);
@@ -251,14 +260,13 @@ Phase 2 also holds B1's sub-unit instance (`pcamv_fullpel_sub`, the
 sub-8x8 analysis' search) against its plain version at 1080p shapes, rng
 16 with random and zero predictors, rng 20 and 7 with random ones,
 timed at rng 16.
-Phase 4 also holds B3's mb_cost instance (the plain encoder's per-MB
-inter cost) against its plain twin for a random and a zero predictor
-(timed through the wrapper and alone, beside the instance without it),
-B4 under the jvt inter list and deadzone 16 (timed
-beside the flat tables), phase 9 the fused luma encode's noise-reduction
-instance (qp 26 and 20, with force-zero, timed beside the plain DCT
-entry through the wrapper and alone) and a wrap case (qp 0 under jvt,
-residuals up to +-40000: the quant product leaves int32), and phase 17
+Phase 4's B3 mb_cost instance is the plain encoder's per-MB inter
+cost; B4's check entry is also timed under the jvt inter list and
+deadzone 16, beside the flat tables; phase 9 the fused luma encode's
+noise-reduction instance (qp 26 and 20, with force-zero, timed beside
+the plain DCT entry through the wrapper and alone) and a wrap case (qp
+0 under jvt, residuals up to +-40000: the quant product leaves int32),
+and phase 17
 cqm jvt with the incremental re-encode, cqm jvt with transform_8x8, rd
 1, trellis 1 and CABAC, noise_reduction at ref_frames 2, and
 noise_reduction with B frames and the deadzones 16/8.
@@ -912,36 +920,92 @@ def _tail_inputs(dev):
     return cur, windows, part, mvfp8, prev_mv, lam, qp
 
 
-def _subpel_alone_ms(cur, windows, part, mvfp8, prev_mv, lam, cost: bool,
-                     launches: int = 20, reps: int = 5) -> float:
-    """Device ms a launch of B3's C entry alone (`pcamv_subpel`, with or
-    without its mb_cost output): `launches` back-to-back launches between
-    two CUDA events, the median of `reps`."""
+def _alone_ms(name, argtypes, args, launches: int = 20,
+              reps: int = 5) -> float:
+    """Device ms a launch of a C entry alone: `launches` back-to-back
+    launches between two CUDA events, the median of `reps`."""
     from video_steganography_pcamv_torch import kernels
-    mv8 = torch.empty((2 * MBH, 2 * MBW, 2), dtype=torch.int32,
-                      device=cur.device)
-    r_idx8 = torch.empty((4 * MBH * MBW,), dtype=torch.int32,
-                         device=cur.device)
-    out = torch.empty((MBH, MBW), dtype=torch.int32, device=cur.device)
-    VP, CI = kernels.VP, kernels.CI
-    fn = kernels.entry("pcamv_subpel", [VP] * 5 + [CI] * 3 + [VP] * 4)
-    p = kernels.ptr
-    args = (p(cur), p(windows), p(part), p(mvfp8), p(prev_mv), int(lam), MBH,
-            MBW, p(mv8), p(r_idx8), p(out) if cost else None,
-            kernels.stream(cur))
+    fn = kernels.entry(name, argtypes)
 
     def run():
         for _ in range(launches):
-            kernels.check(fn(*args), "pcamv_subpel")
+            kernels.check(fn(*args), name)
     return cuda_ms(run, reps) / launches
 
 
+# H100 SXM dense int8 tensor-core rate (NVIDIA's data sheet)
+TENSOR_INT8_OPS_PER_S = 1.979e15
+# The analyse tail's work, counted from what it computes: a transform of
+# a difference x - y (each SATD; the probe's residual cur - pred) one
+# product [x | y] x [M; -M], 2 x 256 multiply-adds of 2 ops each, so the
+# subtraction is tensor work; a qpel row's 16 averages of 3 ops; a SATD's
+# 16 x (abs, add) on the ALU; a probe item's quant 80, decimate 80,
+# dequant + IDCT 144, recon 64.
+_MAP, _ROW, _SATD, _CHAIN = 2 * 2 * 256, 16 * 3, 16 * 2, 80 + 80 + 144 + 64
+# and as the ALU-only bound counts it (the butterfly kernels): a row built
+# and transformed with butterflies (16 x 3 + 8 x 8), the probe chain with
+# the recon's WHT and 9 SATDs of 48 a version (B4), a SATD 64 x 3 an 8x8
+_BUILD_OLD = 16 * 3 + 8 * 8
+
+
+def tail_bounds(n8: int, n: int, int_rate: float, search: bool,
+                probe: bool, mb_cost: bool = False):
+    """(bound, ALU-only bound) of B3 (`search`), B4 (`probe`) or the
+    fused tail (both) on n8 8x8 blocks: each (ms, by). The bound is the
+    largest of the bytes over the HBM rate (the windows read once), the
+    transforms' operations over the int8 tensor-core rate and the other
+    integer operations over the int32 rate; the ALU-only bound counts
+    every operation at the int32 rate, as before the transforms moved to
+    the tensor cores."""
+    nbytes = n8 * (1024 + 64 * 4)
+    tensor = alu = old = 0
+    if search:
+        nbytes += n8 * (8 + 12) + n * (12 + 4 * mb_cost)
+        tensor += n8 * 49 * 4 * _MAP
+        alu += n8 * 49 * 4 * (_ROW + _SATD) + n * 8 * mb_cost
+        old += n8 * 49 * (4 * _BUILD_OLD + 64 * 3) + n * 8 * mb_cost
+    if probe:
+        from video_steganography_pcamv_torch.ops import probe as PR
+        nbytes += n8 * (2 * 117 + 13) * 4 + n8 * 4 * (not search)
+        sp_pairs = {frozenset(((cy, cx), (cy + ny, cx + nx)))
+                    for cy, cx in PR._CENTERS for ny, nx in PR._NB
+                    if (ny, nx) != (0, 0)}
+        # the 13 residual DCTs, the 84 SP and 117 SK SATDs of each 4x4
+        tensor += n8 * 4 * (13 + len(sp_pairs) + 13 * 9) * _MAP
+        alu += n8 * (45 * 4 * _ROW + 13 * 4 * _CHAIN
+                     + (13 * 9 * 4 + len(sp_pairs) * 4) * _SATD)
+        old += n8 * 4 * (45 * _BUILD_OLD
+                         + 13 * (80 + 80 + 80 + 144 + 64 + 64 + 9 * 48)
+                         + len(sp_pairs) * 48)
+    t = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+         "tensor": tensor / TENSOR_INT8_OPS_PER_S * 1e3,
+         "alu": alu / int_rate * 1e3}
+    by = max(t, key=t.get)
+    return ((t[by], "bytes" if by == "bytes" else "operations"),
+            bound(nbytes, old, int_rate), t)
+
+
+def _box_edge_rows(n8: int, seed: int = 11):
+    """r_idx8 [N8] with every 8x8 on the edge of the +-3 box, each of its
+    24 cells (the four corners among them) drawn at random."""
+    edge = [(oy + 6) * 13 + ox + 6 for oy in range(-3, 4)
+            for ox in range(-3, 4) if max(abs(oy), abs(ox)) == 3]
+    g = np.random.RandomState(seed)
+    return torch.as_tensor(np.array(edge, np.int32)[g.randint(0, 24, n8)])
+
+
 def phase_tail(dev, int_rate):
+    from video_steganography_pcamv_torch import kernels
+    from video_steganography_pcamv_torch.ops import cqm as CQ
     from video_steganography_pcamv_torch.ops import probe as PR
     cur, windows, part, mvfp8, prev_mv, lam, qp = _tail_inputs(dev)
     n = MBH * MBW
     n8 = 4 * n
     recs = []
+    VP, CI, p = kernels.VP, kernels.CI, kernels.ptr
+    zero = torch.zeros_like(prev_mv)
+    jvt = CQ.QuantTables(CQ.JVT4I, CQ.JVT4P, CQ.JVT8I, CQ.JVT8P,
+                         dz_intra=24, dz_inter=16)
 
     def check(name, got, want):
         torch.cuda.synchronize()
@@ -953,9 +1017,24 @@ def phase_tail(dev, int_rate):
                                                          n8))
         return err
 
-    # B2's standalone entry (on no path: B3 and B4 build their rows
-    # themselves): reads the windows, writes both tables; per 8x8 and
-    # offset, 64 averages (3 ops) and four 4x4 WHTs (64 ops each)
+    def report(rec, bnds, alone, extra=""):
+        """Log a tail kernel's times beside its bounds and keep its
+        record (bound_ms / bound_by: the recounted bound)."""
+        bnd, old, parts = bnds
+        rec.update(bound_ms=bnd[0], bound_by=bnd[1], alone_ms=alone,
+                   bound_alu_only_ms=old[0], bound_parts_ms=parts)
+        log("%s: %.4f ms through the wrapper, %.4f ms alone, plain %.3f "
+            "ms; bound %.4f ms (%s: bytes %.4f, int8 tensor %.4f, int32 "
+            "%.4f), ALU-only bound %.4f ms%s (median, 1080p)"
+            % (rec["name"], rec["ms"], alone, rec["plain_ms"], bnd[0],
+               bnd[1], parts["bytes"], parts["tensor"], parts["alu"],
+               old[0], extra))
+        recs.append(rec)
+
+    # B2's standalone entry (on no path: the tail builds its rows
+    # itself): reads the windows, writes both tables; per 8x8 and offset,
+    # 64 averages (3 ops) on the ALU (the four 4x4 WHTs on the tensor
+    # cores, ~0.006 ms a 1080p frame at the int8 rate)
     blocks8, wht8 = PR.qpel_tables(windows)
     want = PR.block_table8(windows)
     err = check("B2 qpel_tables (standalone entry)", (blocks8, wht8),
@@ -963,104 +1042,108 @@ def phase_tail(dev, int_rate):
     del want, blocks8, wht8
     ms = cuda_ms(lambda: PR.qpel_tables(windows), 20, 3)
     plain_ms = cuda_ms(lambda: PR.wht8_table(PR.block_table8(windows)), 3)
-    bnd = bound(n8 * (1024 + 169 * 64 * 3), n8 * 169 * (64 * 3 + 4 * 64),
-                int_rate)
+    bnd = bound(n8 * (1024 + 169 * 64 * 3), n8 * 169 * 64 * 3, int_rate)
     recs.append(record("qpel_tables", "qpel_tables.cu",
                        "ops/probe_pallas.py:221", err, ms, plain_ms, bnd))
     torch.cuda.empty_cache()
 
-    # a row's 4x4 sub-block, built from the window: 16 averages of 3 ops
-    # (add, add 1, shift) and the 4x4 WHT's 8 butterflies of 8 ops
-    build = 16 * 3 + 8 * 8
-    # B3 with B2's rows fused in: reads cur (int32), the windows (1 KB
-    # per 8x8), part/mv/pred; writes mv8 and r_idx8. ops per 8x8: the 49
-    # offsets' rows (4 sub-blocks each) and their SATDs against cur's
-    # WHT, 64 coefficients x 3 ops (sub, abs, add)
-    got = PR.subpel(cur, windows, part, mvfp8, prev_mv, lam, MBH, MBW)
-    want = PR.subpel_parts(cur, windows, part, mvfp8, prev_mv, MBH, MBW,
-                           lam)
-    err = check("B3 subpel (windows in, B2 fused)", got, want)
-    r_idx8 = got[1]
-    ms = cuda_ms(lambda: PR.subpel(cur, windows, part, mvfp8, prev_mv, lam,
-                                   MBH, MBW), 20, 3)
-    plain_ms = cuda_ms(lambda: PR.subpel_parts(cur, windows, part, mvfp8,
-                                               prev_mv, MBH, MBW, lam), 3)
-    bnd = bound(n8 * (64 * 4 + 1024 + 8 + 12) + n * 12,
-                n8 * 49 * (4 * build + 64 * 3), int_rate)
-    recs.append(record("subpel", "subpel.cu", "ops/probe_pallas.py:301",
-                       err, ms, plain_ms, bnd))
-    # B3's mb_cost instance (the stego-off analysis): the same work and
-    # one int32 more written per MB, for a random and a zero predictor
-    errs = []
-    zero = torch.zeros_like(prev_mv)
+    # B3 alone (stego off, B frames), without and with its mb_cost
+    # output, for a random and a zero predictor
+    mv8 = torch.empty((2 * MBH, 2 * MBW, 2), dtype=torch.int32, device=dev)
+    r8 = torch.empty((n8,), dtype=torch.int32, device=dev)
+    cost = torch.empty((MBH, MBW), dtype=torch.int32, device=dev)
+    errs = {False: [], True: []}
     for pred, pname in ((prev_mv, "random"), (zero, "zero")):
-        got = PR.subpel(cur, windows, part, mvfp8, pred, lam, MBH, MBW,
-                        mb_cost=True)
-        want = PR.subpel_parts(cur, windows, part, mvfp8, pred, MBH, MBW,
-                               lam, mb_cost=True)
-        errs.append(check("B3 subpel with mb_cost (%s predictor)" % pname,
-                          got, want))
-        if not torch.equal(got[0], PR.subpel(cur, windows, part, mvfp8,
-                                             pred, lam, MBH, MBW)[0]):
-            raise AssertionError("B3: mb_cost moved mv8")
-    ms_c = cuda_ms(lambda: PR.subpel(cur, windows, part, mvfp8, prev_mv, lam,
-                                     MBH, MBW, mb_cost=True), 20, 3)
-    alone_c = _subpel_alone_ms(cur, windows, part, mvfp8, prev_mv, lam, True)
-    alone = _subpel_alone_ms(cur, windows, part, mvfp8, prev_mv, lam, False)
-    plain_c = cuda_ms(lambda: PR.subpel_parts(
-        cur, windows, part, mvfp8, prev_mv, MBH, MBW, lam, mb_cost=True), 3)
-    bnd_c = bound(n8 * (64 * 4 + 1024 + 8 + 12) + n * 16,
-                  n8 * 49 * (4 * build + 64 * 3) + n * 8, int_rate)
-    rec = record("subpel_mb_cost", "subpel.cu", "ops/probe_pallas.py:301",
-                 max(errs), ms_c, plain_c, bnd_c)
-    rec.update(alone_ms=alone_c, stego_instance_alone_ms=alone)
-    recs.append(rec)
-    log("B3 mb_cost instance: %.4f ms through the wrapper, %.4f ms alone "
-        "(the stego instance alone %.4f ms), plain %.3f ms, bound %.4f ms "
-        "(%s) (median, 1080p)" % (ms_c, alone_c, alone, plain_c, *bnd_c))
+        for mb_cost in (False, True):
+            got = PR.subpel(cur, windows, part, mvfp8, pred, lam, MBH, MBW,
+                            mb_cost=mb_cost)
+            want = PR.subpel_parts(cur, windows, part, mvfp8, pred, MBH,
+                                   MBW, lam, mb_cost=mb_cost)
+            errs[mb_cost].append(check(
+                "B3 subpel%s (%s predictor)"
+                % (" with mb_cost" if mb_cost else "", pname), got, want))
+    sub_args = [p(cur), p(windows), p(part), p(mvfp8), p(prev_mv), int(lam),
+                MBH, MBW, p(mv8), p(r8)]
+    sub_types = [VP] * 5 + [CI] * 3 + [VP] * 4
+    for mb_cost, name in ((False, "subpel"), (True, "subpel_mb_cost")):
+        ms = cuda_ms(lambda: PR.subpel(cur, windows, part, mvfp8, prev_mv,
+                                       lam, MBH, MBW, mb_cost=mb_cost), 20, 3)
+        plain_ms = cuda_ms(lambda: PR.subpel_parts(
+            cur, windows, part, mvfp8, prev_mv, MBH, MBW, lam,
+            mb_cost=mb_cost), 3)
+        alone = _alone_ms("pcamv_subpel", sub_types, sub_args + [
+            p(cost) if mb_cost else None, kernels.stream(cur)])
+        report(record(name, "analyse_tail.cu", "ops/probe_pallas.py:301",
+                      max(errs[mb_cost]), ms, plain_ms, (None, None)),
+               tail_bounds(n8, n, int_rate, True, False, mb_cost), alone)
 
-    # B4 with B2's rows fused in: reads cur, the windows and r_idx8;
-    # writes SK, SP, sc8. ops per 8x8: the 45 distinct lattice rows
-    # around r_idx8 (4 sub-blocks each; the 13 pred rows are among them),
-    # then per (version, 4x4): residual+DCT 80, quant 80, decimate 80,
-    # dequant+IDCT 144, recon 64, the recon's WHT 64, 9 SATDs of 48 for
-    # SK. The pred's WHT is the lattice row at the version's centre, so
-    # it costs no op; an SP entry is the SATD of two lattice rows, and
-    # each unordered pair of distinct rows is counted once (48 ops a 4x4)
-    for decimate in (True, False):
-        got = PR.probe_maps(cur, windows, r_idx8, qp, MBH, MBW, decimate)
-        want = PR.probe_maps_plain(cur, windows, r_idx8, qp, MBH, MBW,
-                                   decimate)
-        err = check("B4 probe_maps (windows in, B2 fused; decimate %s)"
-                    % decimate, got, want)
+    # the fused tail (B3 -> B4, every stego P path) against subpel_parts
+    # + probe_maps_plain: flat tables with a random and a zero predictor,
+    # decimate off, jvt with the inter deadzone 16
+    errs = []
+    for pred, decimate, tables, what in (
+            (prev_mv, True, None, "random predictor"),
+            (zero, True, None, "zero predictor"),
+            (prev_mv, False, None, "decimate off"),
+            (prev_mv, True, jvt, "jvt, deadzone 16")):
+        got = PR.analyse_tail(cur, windows, part, mvfp8, pred, lam, qp, MBH,
+                              MBW, decimate, tables)
+        want = PR.subpel_parts(cur, windows, part, mvfp8, pred, MBH, MBW,
+                               lam)
+        want += PR.probe_maps_plain(cur, windows, want[1], qp, MBH, MBW,
+                                    decimate, tables)
+        errs.append(check("fused analyse tail (%s)" % what, got, want))
+    r_idx8 = got[1]
+    ms = cuda_ms(lambda: PR.analyse_tail(cur, windows, part, mvfp8, prev_mv,
+                                         lam, qp, MBH, MBW), 20, 3)
+
+    def plain_tail():
+        mv, r = PR.subpel_parts(cur, windows, part, mvfp8, prev_mv, MBH, MBW,
+                                lam)
+        return PR.probe_maps_plain(cur, windows, r, qp, MBH, MBW)
+    plain_ms = cuda_ms(plain_tail, 3)
+    qtab = PR.quant_params(qp, None, dev)
+    sk, sp, sc8 = PR._tail_out(n, dev, False)
+    alone = _alone_ms(
+        "pcamv_analyse_tail", [VP] * 5 + [CI, VP] + [CI] * 4 + [VP] * 6,
+        [p(cur), p(windows), p(part), p(mvfp8), p(prev_mv), int(lam),
+         p(qtab), qp // 6 - 4, 1, MBH, MBW, p(mv8), p(r8), p(sk), p(sp),
+         p(sc8), kernels.stream(cur)])
+    report(record("analyse_tail", "analyse_tail.cu",
+                  "ops/probe_pallas.py:574", max(errs), ms, plain_ms,
+                  (None, None)),
+           tail_bounds(n8, n, int_rate, True, True), alone)
+
+    # B4's check entry (on no path) on chosen rows and on rows on every
+    # corner and edge of the +-3 box, decimate on and off, flat and jvt
+    edge = _box_edge_rows(n8).to(dev)
+    errs = []
+    for rows, rname in ((r_idx8, "chosen rows"), (edge, "box-edge rows")):
+        for decimate, tables, what in ((True, None, "flat"),
+                                       (False, None, "decimate off"),
+                                       (True, jvt, "jvt, deadzone 16")):
+            got = PR.probe_maps(cur, windows, rows, qp, MBH, MBW, decimate,
+                                tables)
+            want = PR.probe_maps_plain(cur, windows, rows, qp, MBH, MBW,
+                                       decimate, tables)
+            errs.append(check("B4 check entry (%s, %s)" % (rname, what),
+                              got, want))
     ms = cuda_ms(lambda: PR.probe_maps(cur, windows, r_idx8, qp, MBH, MBW),
                  20, 3)
+    ms_j = cuda_ms(lambda: PR.probe_maps(cur, windows, r_idx8, qp, MBH, MBW,
+                                         True, jvt), 20, 3)
     plain_ms = cuda_ms(lambda: PR.probe_maps_plain(
         cur, windows, r_idx8, qp, MBH, MBW), 3)
-    rows = {(cy + ny, cx + nx) for cy, cx in PR._CENTERS for ny, nx in PR._NB}
-    nbytes = n8 * (1024 + 64 * 4 + 4 + (2 * 117 + 13) * 4)
-    sp_pairs = {frozenset((c, (c[0] + ny, c[1] + nx))) for c in PR._CENTERS
-                for ny, nx in PR._NB if (ny, nx) != (0, 0)}
-    ops = n8 * 4 * (len(rows) * build
-                    + 13 * (80 + 80 + 80 + 144 + 64 + 64 + 9 * 48)
-                    + len(sp_pairs) * 48)
-    bnd = bound(nbytes, ops, int_rate)
-    recs.append(record("probe_maps", "probe_maps.cu",
-                       "ops/probe_pallas.py:481", err, ms, plain_ms, bnd))
-    # B4 with the jvt inter list and the deadzones of phase 30 (the same
-    # work on other tables)
-    from video_steganography_pcamv_torch.ops import cqm as CQ
-    qt = CQ.QuantTables(CQ.JVT4I, CQ.JVT4P, CQ.JVT8I, CQ.JVT8P,
-                        dz_intra=24, dz_inter=16)
-    got = PR.probe_maps(cur, windows, r_idx8, qp, MBH, MBW, True, qt)
-    check("B4 probe_maps under jvt, deadzone 16", got,
-          PR.probe_maps_plain(cur, windows, r_idx8, qp, MBH, MBW, True, qt))
-    ms_j = cuda_ms(lambda: PR.probe_maps(cur, windows, r_idx8, qp, MBH, MBW,
-                                         True, qt), 20, 3)
-    log("B4 probe_maps under jvt: kernel %.3f ms (flat tables %.3f ms), "
-        "bound %.4f ms (%s) (median, 1080p)" % (ms_j, ms, *bnd))
+    alone = _alone_ms(
+        "pcamv_probe_maps", [VP] * 4 + [CI] * 4 + [VP] * 4,
+        [p(cur), p(windows), p(r_idx8), p(qtab), qp // 6 - 4, 1, MBH, MBW,
+         p(sk), p(sp), p(sc8), kernels.stream(cur)])
+    report(record("probe_maps", "analyse_tail.cu", "ops/probe_pallas.py:481",
+                  max(errs), ms, plain_ms, (None, None)),
+           tail_bounds(n8, n, int_rate, False, True), alone,
+           "; under jvt + deadzone 16 %.4f ms through the wrapper" % ms_j)
     for r in recs:
-        log("%s time: kernel %.3f ms, plain %.3f ms, bound %.4f ms (%s) "
+        log("%s time: kernel %.4f ms, plain %.3f ms, bound %.4f ms (%s) "
             "(median, 1080p)" % (r["name"], r["ms"], r["plain_ms"],
                                  r["bound_ms"], r["bound_by"]))
     return recs
@@ -2352,10 +2435,12 @@ def phase_quant(dev, card, bs6, n_frames: int = 4, w: int = 1920,
                         mbw, decimate, tables)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        want = PR.probe_maps_plain(cur_y, windows, out[1], qp, mbh, mbw,
-                                   decimate, tables)
-        if tables is not qt or not _equal_outputs(out[2:], want):
-            raise AssertionError("%s: B4 call %d kernel != plain"
+        want = PR.subpel_parts(cur_y, windows, part, mvfp8, prev_mv, mbh,
+                               mbw, lam)
+        want += PR.probe_maps_plain(cur_y, windows, want[1], qp, mbh, mbw,
+                                    decimate, tables)
+        if tables is not qt or not _equal_outputs(out, want):
+            raise AssertionError("%s: analyse tail call %d kernel != plain"
                                  % (label, st["probe"]))
         torch.cuda.synchronize()
         st["probe"] += 1
@@ -2399,14 +2484,14 @@ def phase_quant(dev, card, bs6, n_frames: int = 4, w: int = 1920,
     launches = {k: fn.launches for k, fn in fns.items()}
     n_p = enc.stats.p_frames
     want = {k: 0 for k in fns}
-    want.update(fullpel_parts=n_p, gather_windows8=n_p, subpel=n_p,
-                probe_maps=n_p, luma_p_encode=2 * n_p,
+    want.update(fullpel_parts=n_p, gather_windows8=n_p, analyse_tail=n_p,
+                luma_p_encode=2 * n_p,
                 luma_p_encode_nr=2 * n_p, deblock_frame=len(frames))
     if n_p != len(frames) - 1 or launches != want:
         raise AssertionError("%s: %d P frames, launches %s, want %s"
                              % (label, n_p, launches, want))
     if st["luma"] != 2 * n_p or st["probe"] != n_p:
-        raise AssertionError("%s: checked %d luma and %d B4 calls"
+        raise AssertionError("%s: checked %d luma and %d tail calls"
                              % (label, st["luma"], st["probe"]))
 
     def report(r):
@@ -2478,8 +2563,8 @@ def phase_aq(dev, card, bs6, n_frames: int = 4, w: int = 1920,
     n_p = enc.stats.p_frames
     n_emb = sum(len(m) > 0 for m in enc._stego.sent_messages)
     want = {k: 0 for k in fns}
-    want.update(fullpel_parts=n_p, gather_windows8=n_p, subpel=n_p,
-                probe_maps=n_p, luma_p_encode=n_p + n_emb,
+    want.update(fullpel_parts=n_p, gather_windows8=n_p, analyse_tail=n_p,
+                luma_p_encode=n_p + n_emb,
                 luma_p_encode_aq=n_p + n_emb, deblock_frame=len(frames))
     if (n_p != len(frames) - 1 or n_emb != n_p or launches != want
             or deblock_frame.map_launches - maps0 != len(frames)):
@@ -3324,8 +3409,8 @@ def phase_config5(dev, card, n_streams: int = 8, n_steps: int = 3):
         for s, rec in recons.items():
             rec[t] = tuple(x.cpu().numpy() for x in me.encs[s].recon_prev)
     want_p = {k: 0 for k in fns}
-    want_p.update(fullpel_parts=S, gather_windows8=S, subpel=S,
-                  probe_maps=S, deblock_frame=S, luma_p_encode=2 * S)
+    want_p.update(fullpel_parts=S, gather_windows8=S, analyse_tail=S,
+                  deblock_frame=S, luma_p_encode=2 * S)
     for t, got in enumerate(per_step[1:], 1):
         if got != want_p:
             raise AssertionError("%s: P step %d launches %s, want %s"
@@ -3404,8 +3489,7 @@ def phase_pipeline_tile(dev, card):
     want = {"p_frame_step": dict(fullpel_search16=1, gather_windows=1,
                                  luma_p_encode=2),
             "p_frame_step_parts": dict(fullpel_parts=1, gather_windows8=1,
-                                       subpel=1, probe_maps=1,
-                                       luma_p_encode=1)}
+                                       analyse_tail=1, luma_p_encode=1)}
     outs, ms = {}, {}
     for step, w in want.items():
         fn = getattr(TPL, step)
@@ -3655,8 +3739,8 @@ def phase_bpath(dev, card, label, p, n_frames, want_pb=None,
     if p.partitions:
         want_b = {"fullpel_parts": refs + 1, "gather_windows8": 2,
                   "subpel": 2, lp: 1}
-        whole = ("fullpel_parts", "gather_windows8", "subpel", "probe_maps",
-                 lp, "deblock_frame")
+        whole = ("fullpel_parts", "gather_windows8", "subpel",
+                 "analyse_tail", lp, "deblock_frame")
     else:
         want_b = {"fullpel_search16": refs + 1, "gather_windows": refs + 1,
                   lp: 1}
@@ -3787,7 +3871,7 @@ def _check_anchors(label, p, fns, lp, per_a, checked, n_p, enc):
     want = {"I": {k: 0 for k in fns}, "P": {k: 0 for k in fns}}
     want["I"]["deblock_frame"] = 1
     want["P"].update({"fullpel_parts": 1, "gather_windows8": 1,
-                      "subpel": 1, "probe_maps": 1, lp: 2,
+                      "analyse_tail": 1, lp: 2,
                       "deblock_frame": 1})
     for i, (t, got) in enumerate(per_a):
         if got != want[t]:
@@ -3815,6 +3899,7 @@ def _counters():
     return {"fullpel_parts": FP.fullpel_parts, "fullpel_sub": FP.fullpel_sub,
             "qpel_tables": PR.qpel_tables,
             "subpel": PR.subpel, "probe_maps": PR.probe_maps,
+            "analyse_tail": PR.analyse_tail,
             "deblock_frame": deblock_frame,
             "fullpel_search16": FP.fullpel_search16,
             "gather_windows": QT.gather_windows,
@@ -3870,9 +3955,10 @@ def phase_main(dev, card, tail_kernel: bool, n_frames: int,
     if partitions:
         # the fused luma encode: pass 1, and pass 2 unless no MB changed
         want = {"fullpel_parts": n_p, "gather_windows8": n_p,
-                "subpel": n_p, "probe_maps": n_p, "luma_p_encode": n_p}
+                "analyse_tail": n_p, "luma_p_encode": n_p}
         most = {"luma_p_encode": 2 * n_p}
-        exact.update(subpel=n_p, probe_maps=n_p)
+        # B3 -> B4 in one launch: B3 alone and B4's check entry never
+        exact.update(analyse_tail=n_p, subpel=0, probe_maps=0)
     else:
         # per P frame: pass 1, the batched 13-version probe and pass 2
         want = {"fullpel_search16": n_p, "gather_windows": n_p}
@@ -3968,16 +4054,15 @@ def _stage_targets(partitions: bool, mref: bool = False):
         return [(ST.Lookahead, "decide"), (CORE.Encoder, "_stack_l0"),
                 (PT, "fullpel_parts"), (PT, "merge_ref_states"),
                 (PT, "decide_partition"), (PT, "gather_windows8"),
-                (PR, "subpel"), (PR, "probe_maps"),
-                (INTER, "encode_p_frame_device8_mref"),
+                (PR, "analyse_tail"), (INTER, "encode_p_frame_device8_mref"),
                 (native, "scan_p_parts"), (PT, "probe_combine"),
                 (EMB.StegoEngine, "apply_costs"), (CORE, "deblock_frame"),
                 (native, "write_slice_cabac")]
     if partitions:
         return [(ST.Lookahead, "costs_device"), (PT, "fullpel_parts"),
                 (PT, "decide_partition"), (PT, "gather_windows8"),
-                (PR, "subpel"), (PR, "probe_maps"),
-                (INTER, "encode_p_frame_device8"), (PT, "scan_p_device"),
+                (PR, "analyse_tail"), (INTER, "encode_p_frame_device8"),
+                (PT, "scan_p_device"),
                 (PT, "probe_combine"), (EMB.StegoEngine, "apply_costs"),
                 (CORE, "reencode_p_incremental"), (CORE, "deblock_frame"),
                 (native, "write_slice")]
@@ -4142,7 +4227,10 @@ def phase_stages_b(dev, card, n_frames: int = 7, pyramid: bool = False):
 
 
 # run from a checkout's root by `--ab`: the medians of kernels B1 and B9
-# at 1080p, of the checkout's luma encode at 1080p (the main path's
+# at 1080p, of the analyse tail (`ops.probe.analyse_tail`: one launch
+# where the checkout fuses it, else B3 then B4) and of B3 with its
+# mb_cost output on phase 4's inputs, of the checkout's luma encode at
+# 1080p (the main path's
 # pass-1 encode on predictions at random per-8x8 MVs, and the 16x16
 # path's 13-version probe batch: the fused kernel where the checkout has
 # it, else the eager luma_p_encode + cbp_luma_of and the B8a ->
@@ -4193,6 +4281,17 @@ except ImportError:
 C.log("luma encode medians at 1080p: " + ", ".join(
     "%s %.4f ms" % (k, C.cuda_ms(f, 20, 3)) for k, f in cases)
     + "  [%s]" % card)
+from video_steganography_pcamv_torch.ops import probe as PR
+cur, win, part, mvf, pmv, lam, qp = C._tail_inputs(dev)
+r8 = PR.subpel(cur, win, part, mvf, pmv, lam, 68, 120)[1]
+C.log("analyse tail medians at 1080p: analyse_tail %.4f ms, subpel with "
+      "mb_cost %.4f ms, probe_maps %.4f ms  [%s]" % (
+          C.cuda_ms(lambda: PR.analyse_tail(cur, win, part, mvf, pmv, lam,
+                                            qp, 68, 120), 50, 3),
+          C.cuda_ms(lambda: PR.subpel(cur, win, part, mvf, pmv, lam, 68, 120,
+                                      mb_cost=True), 50, 3),
+          C.cuda_ms(lambda: PR.probe_maps(cur, win, r8, qp, 68, 120), 50, 3),
+          card))
 frames = synthetic_sequence(1920, 1088, 10, seed=7)
 enc = Encoder(C._params(1920, 1088, True), device=dev)
 t0 = time.time()

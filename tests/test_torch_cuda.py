@@ -10,6 +10,12 @@ its own:  python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
 - kernels B3 and B4 (the windows in, B2's rows built inside) vs their
   plain versions, and B2's standalone entry vs the plain tables, at
   112x80 and on a band of 1080p MB rows (decimate on and off for B4);
+  the fused analyse tail (B3 -> B4 in one launch) vs subpel_parts +
+  probe_maps_plain at 112x80 and on 1080p MB rows, with a zero
+  predictor, decimate off and jvt with deadzone 16; B4's check entry on
+  rows on the +-3 box's corners and edges; B3's mb_cost instance with
+  both predictors; the launches a P frame on a stego path (the fused
+  tail alone) and on a stego-off path (B3 alone);
 - a small encode on cuda is byte-equal to the same encode on the cpu,
   for both tail_kernel settings;
 - kernels B6, B7, B8a and B8b vs their plain versions (B8 at qp 20, 26
@@ -250,6 +256,87 @@ def test_b2_b3_b4_kernels_match_plain(dev, w, h, qp):
         for g, x in zip(got, want):
             assert torch.equal(g, x)
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("w,h,case", [
+    (112, 80, "random"), (112, 80, "zero"), (112, 80, "decimate-off"),
+    (112, 80, "jvt-dz16"), (1920, 64, "random"), (1920, 64, "jvt-dz16")])
+def test_fused_tail_matches_plain(dev, w, h, case):
+    """The analyse tail in one launch vs subpel_parts + probe_maps_plain:
+    a random or zero predictor, decimate off, jvt with deadzone 16."""
+    qp = 26
+    cur, windows, part, mvfp8, prev_mv, mbh, mbw = _tail_inputs(
+        dev, w, h, qp)
+    if case == "zero":
+        prev_mv = torch.zeros_like(prev_mv)
+    decimate = case != "decimate-off"
+    tables = _jvt_tables() if case == "jvt-dz16" else None
+    n0 = PR.analyse_tail.launches
+    got = PR.analyse_tail(cur, windows, part, mvfp8, prev_mv, 4, qp, mbh,
+                          mbw, decimate, tables)
+    assert PR.analyse_tail.launches == n0 + 1
+    want = PR.subpel_parts(cur, windows, part, mvfp8, prev_mv, mbh, mbw, 4)
+    want += PR.probe_maps_plain(cur, windows, want[1], qp, mbh, mbw,
+                                decimate, tables)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("decimate", [True, False])
+def test_b4_check_entry_on_the_box_edges(dev, decimate):
+    """B4's check entry on rows on every corner and edge of the +-3 box
+    (the lattice then reaches the [-6, 6]^2 table's rim)."""
+    cur, windows, _part, _mv, _pred, mbh, mbw = _tail_inputs(dev, 112, 80,
+                                                             26)
+    edge = [(oy + 6) * 13 + ox + 6 for oy in range(-3, 4)
+            for ox in range(-3, 4) if max(abs(oy), abs(ox)) == 3]
+    rows = torch.as_tensor(np.array(edge * 6, np.int32)[:4 * mbh * mbw],
+                           device=dev)
+    got = PR.probe_maps(cur, windows, rows, 26, mbh, mbw, decimate,
+                        _jvt_tables())
+    want = PR.probe_maps_plain(cur, windows, rows, 26, mbh, mbw, decimate,
+                               _jvt_tables())
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("pred", ["random", "zero"])
+def test_b3_mb_cost_matches_plain(dev, pred):
+    cur, windows, part, mvfp8, prev_mv, mbh, mbw = _tail_inputs(
+        dev, 1920, 64, 26)
+    if pred == "zero":
+        prev_mv = torch.zeros_like(prev_mv)
+    got = PR.subpel(cur, windows, part, mvfp8, prev_mv, 4, mbh, mbw,
+                    mb_cost=True)
+    want = PR.subpel_parts(cur, windows, part, mvfp8, prev_mv, mbh, mbw, 4,
+                           mb_cost=True)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("em_rate", [12, 0], ids=["stego", "stego-off"])
+def test_tail_launches_a_p_frame(dev, em_rate):
+    """A P frame on the main path launches the fused tail once (B3 alone
+    and B4's check entry never); with stego off, B3 alone once with its
+    mb_cost output and the fused tail never."""
+    frames = synthetic_sequence(112, 80, 3, seed=3)
+    enc = Encoder(Params(width=112, height=80, qp=26, me_range=16,
+                         scenecut_threshold=0,
+                         stego=StegoParams(em_rate=em_rate, key=5)),
+                  device=dev)
+    fns = (PR.analyse_tail, PR.subpel, PR.probe_maps)
+    n0 = [f.launches for f in fns]
+    c0 = PR.subpel.cost_launches
+    for f in frames:
+        enc.encode_frame(f)
+    enc.flush()
+    n = [f.launches - a for f, a in zip(fns, n0)]
+    n_p = enc.stats.p_frames
+    assert n_p == 2
+    if em_rate:
+        assert n == [n_p, 0, 0]
+    else:
+        assert n == [0, n_p, 0] and PR.subpel.cost_launches - c0 == n_p
 
 
 @pytest.mark.parametrize("tail_kernel", [True, False])
@@ -1098,7 +1185,8 @@ def test_cuda_stream_equals_cpu_stream_aq(dev, kw):
 def test_multistream_cuda_equals_cpu(dev, tail_kernel):
     """MultiEncoder at 128x96, two streams, IDR + 3 P steps: the streams
     on cuda:0 equal the streams on the cpu, and each P step launched B1,
-    B9, B3, B4 and B5 once and the fused luma encode twice a stream."""
+    B9, the fused tail (B3 -> B4) and B5 once and the fused luma encode
+    twice a stream."""
     from video_steganography_pcamv_torch.encoder.multistream import (
         MultiEncoder)
     seqs = [synthetic_sequence(128, 96, 4, seed=20 + s) for s in range(2)]
@@ -1110,13 +1198,13 @@ def test_multistream_cuda_equals_cpu(dev, tail_kernel):
         me = MultiEncoder(p, 2, devices=[device])
         return [me.encode_step([sq[t] for sq in seqs]) for t in range(4)]
 
-    fns = (FP.fullpel_parts, PT.gather_windows8, PR.subpel, PR.probe_maps,
-           DB.deblock_frame, LP.luma_p_encode)
+    fns = (FP.fullpel_parts, PT.gather_windows8, PR.analyse_tail, PR.subpel,
+           PR.probe_maps, DB.deblock_frame, LP.luma_p_encode)
     n0 = [f.launches for f in fns]
     got = run(dev)
     n = [f.launches - a for f, a in zip(fns, n0)]
     # 3 P steps x 2 streams; B5 also deblocks the 2 IDRs
-    assert n == [6, 6, 6, 6, 8, 12]
+    assert n == [6, 6, 6, 0, 0, 8, 12]
     assert got == run("cpu")
 
 
@@ -1270,6 +1358,11 @@ def test_b5_on_a_plain_p_frame_with_intra_mbs_matches_plain(dev):
         assert torch.equal(a, b)
 
 
+def _b4_launches():
+    """B4's launches: the fused tail's and its check entry's."""
+    return PR.analyse_tail.launches + PR.probe_maps.launches
+
+
 def _reveal_frames(n, W=112, H=80, seed=3):
     """Global motion with a new-content patch in every P frame."""
     r = np.random.RandomState(seed)
@@ -1292,7 +1385,8 @@ def _reveal_frames(n, W=112, H=80, seed=3):
     ids=["cavlc", "cabac", "rd2", "ref2"])
 def test_cuda_stream_equals_cpu_stream_plain(dev, kw):
     """The plain encoder (stego off) at 112x80 on reveal content: cuda
-    == cpu streams, with B3's mb_cost instance launched and B4 never."""
+    == cpu streams, with B3's mb_cost instance launched and B4 (the fused
+    tail, the check entry) never."""
     frames = _reveal_frames(4)
 
     def run(device):
@@ -1301,10 +1395,10 @@ def test_cuda_stream_equals_cpu_stream_plain(dev, kw):
                       device=device)
         return b"".join(enc.encode_frame(f) for f in frames) + enc.flush()
 
-    c0, b4 = PR.subpel.cost_launches, PR.probe_maps.launches
+    c0, b4 = PR.subpel.cost_launches, _b4_launches()
     got = run(dev)
     assert PR.subpel.cost_launches > c0
-    assert PR.probe_maps.launches == b4
+    assert _b4_launches() == b4
     assert got == run("cpu")
 
 
@@ -1377,12 +1471,12 @@ def test_cuda_stream_equals_cpu_stream_plain_sub(dev, kw):
         return LP.luma_p_encode.launches + LP.luma_p_encode.levels_launches
 
     n0, l0, d0, b4 = (FP.fullpel_sub.launches, luma(),
-                      DB.deblock_frame.launches, PR.probe_maps.launches)
+                      DB.deblock_frame.launches, _b4_launches())
     got = run(dev)
     assert FP.fullpel_sub.launches > n0
     assert luma() >= l0 + 2 * 9
     assert DB.deblock_frame.launches > d0
-    assert PR.probe_maps.launches == b4
+    assert _b4_launches() == b4
     assert got == run("cpu")
 
 
@@ -1397,7 +1491,7 @@ def test_cuda_stream_equals_cpu_stream_intra_in_b(dev):
                              b_adapt=0, cabac=True), device=device)
         return b"".join(enc.encode_frame(f) for f in frames) + enc.flush()
 
-    b4 = PR.probe_maps.launches
+    b4 = _b4_launches()
     got = run(dev)
-    assert PR.probe_maps.launches == b4
+    assert _b4_launches() == b4
     assert got == run("cpu")

@@ -3,12 +3,17 @@ end to end vs the JAX `Encoder` on its own accelerator branch.
 
 The reference takes that branch only on a TPU. A fixture puts it there
 on the CPU without changing the JAX package, through `monkeypatch`
-alone: `jax.default_backend` answers "tpu"; the full-pel kernel B1 and
-the analyse tail run their Pallas kernels in interpret mode, as host
-callbacks of the encoder's programs, so that each kernel is compiled
-once a shape rather than inside every program that calls it; the
-deblocker runs `deblock_jax.deblock_frame_device`, the bit-exact twin
-the reference's CPU branch already uses.
+alone: `jax.default_backend` answers "tpu"; the full-pel kernel B1 runs
+its Pallas kernel in interpret mode and the analyse tail runs the XLA
+chain that the reference's own tests/test_probe_pallas.py holds its
+Pallas kernels against (block_table8 + wht8_flat + subpel_parts +
+probe_maps_xla: the interpret-mode tail costs ~50 s to trace and lower
+in every test process; tests/test_torch_probe.py holds the port's tail
+against it in interpret mode), each as a host callback of the encoder's
+programs, so that each is compiled once a shape rather than inside
+every program that calls it; the deblocker runs
+`deblock_jax.deblock_frame_device`, the bit-exact twin the reference's
+CPU branch already uses.
 
 The same branch also serves CABAC (with and without trellis) and the
 reference's default Params (PSNR on, host deblock: the fused P step
@@ -18,11 +23,13 @@ branch, B1 once per reference against a zero predictor).
 """
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from video_steganography_pcamv_tpu.decoder import decode_annexb as j_decode
+from video_steganography_pcamv_tpu.encoder import partition as JPT
 from video_steganography_pcamv_tpu.encoder.core import Encoder as JEncoder
 from video_steganography_pcamv_tpu.ops import cqm
 from video_steganography_pcamv_tpu.ops import deblock_jax
@@ -135,6 +142,25 @@ def _tail_interpret(y, windows, part, mvfp8, prev_mv, lam, qp, mbh, mbw,
                  interpret=True, **kw)
 
 
+def _tail_xla(y, windows, part, mvfp8, prev_mv, lam, qp, mbh, mbw,
+              decimate=True):
+    """The XLA chain tests/test_probe_pallas.py::
+    test_analyse_tail_matches_xla holds `analyse_tail_pallas` against."""
+    blocks8 = JPT.block_table8(windows)
+    wht8 = JPT.wht8_flat(blocks8).astype(jnp.int16)
+    mv8, r_idx8, _ = JPT.subpel_parts(y, wht8, part, mvfp8, prev_mv, mbh,
+                                      mbw, lam, 2)
+    return (mv8, r_idx8) + tuple(JPT.probe_maps_xla(
+        y, blocks8, wht8, r_idx8, qp, mbh, mbw, decimate))
+
+
+def tail_xla(y, windows, part, mvfp8, prev_mv, lam, qp, mbh, mbw, **kw):
+    """The reference's analyse tail as its XLA twin, compiled once a
+    shape (and quant-table set) in this process (`compiled`)."""
+    return compiled(_tail_xla, (y, windows, part, mvfp8, prev_mv, lam, qp),
+                    mbh=mbh, mbw=mbw, **kw)
+
+
 def fullpel_interpret(y, ref, rng, mbh, mbw, lam=1):
     """The reference's B1 (`fullpel_parts_pallas`) in interpret mode,
     compiled once a shape in this process (`compiled`)."""
@@ -153,8 +179,8 @@ def tail_interpret(y, windows, part, mvfp8, prev_mv, lam, qp, mbh, mbw,
 @pytest.fixture
 def reference_accel(monkeypatch):
     """Puts the JAX Encoder on its accelerator branch; counts the calls
-    of the patched kernel entries (B1 and the analyse tail in interpret
-    mode, each traced as a host callback: `_on_host`)."""
+    of the patched kernel entries (B1 in interpret mode, the analyse tail
+    as its XLA twin, each traced as a host callback: `_on_host`)."""
     calls = {"fullpel": 0, "tail": 0}
 
     def fullpel(y, ref, rng, mbh, mbw, lam=1):
@@ -182,7 +208,7 @@ def reference_accel(monkeypatch):
         n = mbh * mbw
         out = (_i32(2 * mbh, 2 * mbw, 2), _i32(4 * n), _i32(13, 9, n, 4),
                _i32(13, 9, n, 4), _i32(13, n, 4))
-        return _on_host(lambda *a: tail_interpret(*a, mbh, mbw, **kw),
+        return _on_host(lambda *a: tail_xla(*a, mbh, mbw, **kw),
                         out, y, windows, part, mvfp8, prev_mv, lam, qp)
 
     monkeypatch.setattr(jax, "default_backend", lambda: "tpu")

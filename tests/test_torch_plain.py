@@ -294,7 +294,7 @@ def _eq(a, b, what=""):
 
 @pytest.mark.parametrize("part_kind", ["decided", "mixed"])
 def test_b3_mb_cost_matches_reference_subpel_parts(part_kind):
-    """B3's per-MB inter cost (the plain twin of `csrc/subpel.cu`'s
+    """B3's per-MB inter cost (the plain twin of `csrc/analyse_tail.cu`'s
     mb_cost output) against the reference's `subpel_parts`, with the
     partition decision's shapes and with every shape in every row."""
     y, _u, _v, ref, prev = _analysis_inputs()

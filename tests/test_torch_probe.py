@@ -5,7 +5,14 @@ kernels run in interpret mode: the plain B2 tables against
 compile tests/test_torch_encoder_accel.py's `tail_interpret` shares
 across the modules of a process), and `probe_combine` on the port's
 maps against the reference's `stego_costs_parts`. Every comparison is
-exact."""
+exact. The constant tables of the tail's CUDA kernel
+(csrc/tail_tables.inc) are held against their sources: the reference's
+D_MV, D_NB and zigzag, the pairs they imply, and its 4x4 WHT and core
+DCT as 16x16 matrices."""
+
+import os
+import re
+import sys
 
 import numpy as np
 import pytest
@@ -16,12 +23,15 @@ import jax.numpy as jnp
 from video_steganography_pcamv_tpu.encoder import me as JME
 from video_steganography_pcamv_tpu.encoder import partition as JPT
 from video_steganography_pcamv_tpu.ops import mc as JMC
+from video_steganography_pcamv_tpu.ops import transform as JT
+from video_steganography_pcamv_tpu.stego.cost import D_MV, D_NB
 from video_steganography_pcamv_tpu.ops.probe_pallas import (
     qpel_tables_pallas)
 from video_steganography_pcamv_tpu.stego.cost import cost_mv_table
 
 from video_steganography_pcamv_torch.encoder import partition as TPT
 from video_steganography_pcamv_torch.ops import probe as TPR
+from video_steganography_pcamv_torch.ops import transform as TT
 
 from test_torch_encoder_accel import tail_interpret
 
@@ -173,3 +183,138 @@ def test_qpel_tables_plain_matches_pallas():
         blocks8.numpy().reshape(169, n8, 64).astype(np.int16),
         to_sp(blk_p))
     np.testing.assert_array_equal(wht8.numpy(), to_sp(wht_p))
+
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_INC = os.path.join(_ROOT, "video_steganography_pcamv_torch", "csrc",
+                    "tail_tables.inc")
+
+
+def _inc_tables():
+    """name -> flat int array of every table in csrc/tail_tables.inc."""
+    with open(_INC) as f:
+        src = f.read()
+    out = {}
+    for m in re.finditer(r"(k\w+)((?:\[\d+\])+) = \{([^}]*)\};", src):
+        shape = [int(d) for d in re.findall(r"\d+", m.group(2))]
+        out[m.group(1)] = np.array(
+            [int(x) for x in m.group(3).split(",")]).reshape(shape)
+    return out
+
+
+def _slot(dy, dx):
+    return (dy + 3) * 7 + dx + 3
+
+
+def _kron_of(fn):
+    """[j = 4*vr + vc, i = 4*r + c] of a transform on axes (-4, -3)."""
+    eye = np.eye(16, dtype=np.int32).reshape(16, 4, 4, 1, 1)
+    return np.asarray(fn(jnp.asarray(eye))).reshape(16, 16).T
+
+
+_CENTRES = [(0, 0)] + [(int(dy), int(dx)) for dx, dy in D_MV]
+_NBS = [(int(dy), int(dx)) for dx, dy in D_NB]
+
+
+def _want_sp_pairs():
+    """Every unordered lattice slot pair {c_v, c_v + nb_k}, nb_k !=
+    (0, 0)."""
+    return {tuple(sorted((_slot(cy, cx), _slot(cy + ny, cx + nx))))
+            for cy, cx in _CENTRES for ny, nx in _NBS if (ny, nx) != (0, 0)}
+
+
+def _check_sp(t):
+    pairs = [tuple(p) for p in t["kSpPair"]]
+    want = _want_sp_pairs()
+    assert len(pairs) == len(set(pairs)) == len(want) == 84
+    assert set(pairs) == want
+    for v, (cy, cx) in enumerate(_CENTRES):
+        for k, (ny, nx) in enumerate(_NBS):
+            i = t["kSpIndex"][9 * v + k]
+            if (ny, nx) == (0, 0):
+                assert i == -1
+            else:
+                assert sorted(pairs[i]) == sorted(
+                    (_slot(cy, cx), _slot(cy + ny, cx + nx)))
+
+
+def _check_slot_version(t):
+    want = np.full(49, -1)
+    for v, (cy, cx) in enumerate(_CENTRES):
+        want[_slot(cy, cx)] = v
+    np.testing.assert_array_equal(t["kSlotVersion"], want)
+
+
+def _check_sk_slot(t):
+    np.testing.assert_array_equal(
+        t["kSkSlot"], [_slot(cy + ny, cx + nx) for cy, cx in _CENTRES
+                       for ny, nx in _NBS])
+
+
+def _check_zigzag(t):
+    zz = [4 * int(r) + int(c) for r, c in JT.ZIGZAG_4x4]
+    np.testing.assert_array_equal(t["kZigzagRank"],
+                                  [zz.index(j) for j in range(16)])
+
+
+def _check_dct(t):
+    np.testing.assert_array_equal(t["kDctKron"], _kron_of(JT.dct4x4))
+    assert set(np.unique(np.abs(t["kDctKron"]))) == {1, 2, 4}
+
+
+def _check_generated(_t):
+    """The file is what its generator writes from the port's sources."""
+    sys.path.insert(0, os.path.join(_ROOT, "tools"))
+    try:
+        import gen_tail_tables
+    finally:
+        sys.path.pop(0)
+    with open(_INC) as f:
+        assert f.read() == gen_tail_tables.source()
+
+
+_TABLE_CHECKS = {
+    "centres": lambda t: np.testing.assert_array_equal(t["kCenter"],
+                                                       _CENTRES),
+    "nb": lambda t: np.testing.assert_array_equal(t["kNb"], _NBS),
+    "slot_version": _check_slot_version,
+    "zigzag_rank": _check_zigzag,
+    "sp_pairs": _check_sp,
+    "sk_slots": _check_sk_slot,
+    "wht_kron": lambda t: np.testing.assert_array_equal(
+        t["kWhtKron"], _kron_of(JT.hadamard4x4)),
+    "dct_kron": _check_dct,
+    "generated": _check_generated,
+}
+
+
+@pytest.mark.parametrize("table", list(_TABLE_CHECKS))
+def test_tail_kernel_tables_match_their_sources(table):
+    """Each table of csrc/tail_tables.inc against its source: the probe
+    versions' centres and D_NB (the reference's D_MV, D_NB), the
+    slot -> version map, the zigzag rank, the 84 SP pairs and the
+    (v, k) -> pair index, the SK slots, the kron WHT and DCT (the
+    reference's `hadamard4x4` / `dct4x4` on the unit blocks), and the
+    file against its generator."""
+    _TABLE_CHECKS[table](_inc_tables())
+
+
+@pytest.mark.parametrize("which", ["wht", "dct"])
+def test_tail_kron_matrices_transform_random_blocks(which):
+    """The kernel's matrices on random uint8 4x4s (a row a block,
+    coefficient order 4*vr + vc) give the port's butterflies' results,
+    and a pair [x | y] against [M; -M] gives M (x - y), the folded SATD
+    difference and residual."""
+    t = _inc_tables()
+    m = t["kWhtKron" if which == "wht" else "kDctKron"].astype(np.int64)
+    fn = TT.hadamard4x4 if which == "wht" else TT.dct4x4
+    g = np.random.RandomState(7)
+    x = g.randint(0, 256, (500, 4, 4))
+    y = g.randint(0, 256, (500, 4, 4))
+    planes = torch.as_tensor(x.transpose(1, 2, 0)[:, :, :, None]
+                             .astype(np.int32))
+    want = fn(planes).numpy()[:, :, :, 0].transpose(2, 0, 1).reshape(500, 16)
+    np.testing.assert_array_equal(x.reshape(500, 16) @ m.T, want)
+    ab = np.concatenate([x.reshape(500, 16), y.reshape(500, 16)], 1)
+    np.testing.assert_array_equal(ab @ np.concatenate([m.T, -m.T]),
+                                  (x - y).reshape(500, 16) @ m.T)

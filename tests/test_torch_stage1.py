@@ -6,7 +6,9 @@ incremental re-encode of a flipped subset and the lean level pack.
 Both branches of stage 1 are covered: the reference's CPU branch
 (`tail_kernel=False`, its own `p_stage1_stego`) and its accelerator
 branch (`tail_kernel=True`), whose reference is composed here from
-partition.py's TPU branch with the Pallas kernels in interpret mode."""
+partition.py's TPU branch with B1's Pallas kernel in interpret mode and
+the analyse tail's XLA twin (the chain the reference's
+tests/test_probe_pallas.py holds its tail kernels against)."""
 
 import numpy as np
 import pytest
@@ -36,7 +38,7 @@ from video_steganography_pcamv_torch.params import Params as TParams
 from video_steganography_pcamv_torch.params import StegoParams as TStegoParams
 from video_steganography_pcamv_torch.state import from_reference
 
-from test_torch_encoder_accel import fullpel_interpret, tail_interpret
+from test_torch_encoder_accel import fullpel_interpret, tail_xla
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -188,9 +190,10 @@ def test_lean_pack_equal(stage1):
 
 def _accel_reference(y, u, v, ref, prev_mv, qp, qpc, lam, cost_mv, extra):
     """The reference's TPU branch of p_stage1_stego
-    (encoder/partition.py:1448-1504), composed with the Pallas kernels
-    in interpret mode (each compiled once a shape in this process:
-    tests/test_torch_encoder_accel.py's `compiled`); the pass-1 encode
+    (encoder/partition.py:1448-1504), composed with B1's Pallas kernel
+    in interpret mode and the analyse tail's XLA twin (each compiled
+    once a shape in this process: tests/test_torch_encoder_accel.py's
+    `compiled` and `tail_xla`); the pass-1 encode
     keeps its levels (cbp_only=False) as the serving path's full_pass1
     does."""
     rng = 16
@@ -198,7 +201,7 @@ def _accel_reference(y, u, v, ref, prev_mv, qp, qpc, lam, cost_mv, extra):
     part, mvfp8 = JPT.decide_partition.__wrapped__(st, MBH, MBW, lam)
     windows = JPT.gather_windows8_mm(ref["luma"].astype(jnp.uint8), mvfp8,
                                      MBH, MBW, rng).astype(jnp.uint8)
-    mv8, _r, SK, SP, sc8 = tail_interpret(
+    mv8, _r, SK, SP, sc8 = tail_xla(
         y, windows, part, mvfp8, prev_mv, lam, qp, MBH, MBW, decimate=True)
     res = JINTER.encode_p_frame_device8.__wrapped__(
         y, u, v, ref["luma"], ref["u"], ref["v"], mv8, qp, qpc, MBH, MBW,

@@ -48,8 +48,9 @@ def sources() -> list:
 
 def lib_path() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sources() + sorted(glob.glob(os.path.join(SRC_DIR,
-                                                          "*.cuh"))):
+    for path in sources() + sorted(
+            glob.glob(os.path.join(SRC_DIR, "*.cuh"))
+            + glob.glob(os.path.join(SRC_DIR, "*.inc"))):
         with open(path, "rb") as f:
             h.update(os.path.basename(path).encode() + f.read())
     return os.path.join(BUILD_DIR, "pcamv_kernels_%s.so" % h.hexdigest()[:16])
@@ -100,12 +101,20 @@ def load() -> ctypes.CDLL:
     return _lib
 
 
+_entries = {}
+
+
 def entry(name: str, argtypes):
     """The library's entry point `name` bound to `argtypes`, returning
-    its CUDA error code."""
-    fn = getattr(load(), name)
-    fn.restype = ctypes.c_int
-    fn.argtypes = argtypes
+    its CUDA error code (bound once a process: a wrapper's host time
+    is part of every launch)."""
+    key = (name, tuple(argtypes))
+    fn = _entries.get(key)
+    if fn is None:
+        fn = getattr(load(), name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+        _entries[key] = fn
     return fn
 
 

@@ -7,18 +7,19 @@ SATD maps).
 
   B2 `qpel_tables_pallas` (probe_pallas.py:221): the 169 qpel rows of
      every 8x8 and their WHTs, written to two tables;
-  B3 `subpel_pallas` (probe_pallas.py:301), replaced by `subpel`,
-     hand-written kernel `csrc/subpel.cu`;
-  B4 `probe_maps_pallas` (probe_pallas.py:481), replaced by
-     `probe_maps`, `csrc/probe_maps.cu`.
+  B3 `subpel_pallas` (probe_pallas.py:301);
+  B4 `probe_maps_pallas` (probe_pallas.py:481).
 
-On the H100, B2 is fused into B3 and B4: each builds the rows it reads
-from the per-8x8 windows (B9's output) in shared memory, with the device
-functions of `csrc/qpel_rows.cuh`, so the tables (1.06 GB a 1080p
-frame) are never written. `qpel_tables` keeps B2 as a standalone entry
-over the same device functions (`csrc/qpel_tables.cu`), on no path: it
-holds the shared row code against `block_table8` / `wht8_table` on its
-own.
+On the H100 one hand-written kernel template serves B3 and B4
+(`csrc/analyse_tail.cu`), with B2 fused in: it builds the rows it
+reads from the per-8x8 windows (B9's output) in shared memory, so the
+tables (1.06 GB a 1080p frame) are never written, and runs the 4x4
+transforms on the int8 tensor cores. `analyse_tail` launches B3 -> B4
+as one kernel (every stego P path); `subpel` launches B3 alone (stego
+off, B frames); `probe_maps` is B4's check entry on given rows, on no
+path. `qpel_tables` keeps B2 as a standalone entry over the row code
+of `csrc/qpel_rows.cuh` (`csrc/qpel_tables.cu`), on no path: it holds
+that code against `block_table8` / `wht8_table` on its own.
 
 On a CPU tensor each wrapper runs its plain PyTorch version (the port's
 twins of the reference's XLA chain: `subpel_parts`, `probe_maps_plain`,
@@ -29,7 +30,8 @@ raises. The TPU's z-order block lanes and 128-lane padding are layout
 for its vector unit and are dropped: every tensor here keeps the 8x8
 blocks in spatial order; a WHT row is in `wht8_flat` order (sub-block
 s = 2*(y>=4) + (x>=4), then 4*vr + vc), the tables are `blocks8 [169,
-N8, 8, 8]` uint8 and `wht8 [169, N8, 64]` int16.
+N8, 8, 8]` uint8 and `wht8 [169, N8, 64]` int16. The kernels read cur
+as 8-bit samples (the luma planes every caller passes).
 
 Block index convention per MB: 8x8 blocks b in {0: TL, 1: TR, 2: BL,
 3: BR} (z-order).
@@ -309,10 +311,10 @@ def _check_windows(fn: str, windows, n8: int) -> None:
 def qpel_tables(windows):
     """Kernel B2's standalone entry, replacing `qpel_tables_pallas`
     (video_steganography_pcamv_tpu/ops/probe_pallas.py:221). On the
-    serving path B2 is fused into `subpel` and `probe_maps`, and this
-    entry is not launched; it checks the shared row code
-    (`csrc/qpel_rows.cuh`) on its own. On the H100 it is bound by its
-    table writes (169 * 64 * 3 B per 8x8).
+    serving path B2 is fused into `analyse_tail` and `subpel`, and this
+    entry is not launched; it checks the shared row and tensor-core WHT
+    code (`csrc/qpel_rows.cuh`) on its own. On the H100 it is bound by
+    its table writes (169 * 64 * 3 B per 8x8).
 
     windows [N8, 4, 16, 16] uint8 (the four hpel phase planes around each
     8x8 block's full-pel MV) -> (blocks8 [169, N8, 8, 8] uint8, wht8
@@ -338,15 +340,36 @@ def qpel_tables(windows):
 qpel_tables.launches = 0
 
 
+# B3's first minimum is the least key cost << 6 | offset in 32 bits: a
+# unit's SATD is below 2^20 and its MV bits at most 50, so lam below
+# 2^20 keeps every cost below 2^26
+_LAM_LIMIT = 1 << 20
+
+
+def _check_tail_inputs(fn, cur_y, windows, part, mvfp8, prev_mv, lam, mbh,
+                       mbw):
+    n8 = 4 * mbh * mbw
+    chk = kernels.check_tensor
+    chk(fn, "cur_y", cur_y, _I32, (16 * mbh, 16 * mbw))
+    _check_windows(fn, windows, n8)
+    chk(fn, "part", part, _I32, (mbh, mbw))
+    chk(fn, "mvfp8", mvfp8, _I32, (2 * mbh, 2 * mbw, 2))
+    chk(fn, "prev_mv", prev_mv, _I32, (mbh, mbw, 2))
+    if not 0 <= lam < _LAM_LIMIT:
+        raise ValueError("%s: lam %d outside [0, 2^20)" % (fn, lam))
+
+
 def subpel(cur_y, windows, part, mvfp8, prev_mv, lam: int, mbh: int,
            mbw: int, mb_cost: bool = False):
-    """Kernel B3, replacing `subpel_pallas`
+    """Kernel B3 alone, replacing `subpel_pallas`
     (video_steganography_pcamv_tpu/ops/probe_pallas.py:301), with the 49
     rows it reads of `qpel_tables_pallas` (probe_pallas.py:221) built
     from the windows: the subpel=2 refine over the 49-offset box, SATD
     summed over each partition unit plus lam * bits(mv - qpel
-    predictor), first minimum in (oy, ox) order. On the H100 it is bound
-    by building the rows (integer operations).
+    predictor), first minimum in (oy, ox) order. The stego paths run it
+    inside `analyse_tail`; this entry serves stego off and the B frames.
+    On the H100 it is bound by building the rows and the SATDs' integer
+    work (the WHTs run on the int8 tensor cores).
 
     cur_y [16mbh,16mbw] int32, windows [N8,4,16,16] uint8, part
     [mbh,mbw] int32, mvfp8 [2mbh,2mbw,2] int32 full-pel, prev_mv
@@ -358,16 +381,11 @@ def subpel(cur_y, windows, part, mvfp8, prev_mv, lam: int, mbh: int,
     if cur_y.device.type == "cpu":
         return subpel_parts(cur_y, windows, part, mvfp8, prev_mv, mbh, mbw,
                             lam, mb_cost)
-    n8 = 4 * mbh * mbw
-    chk = kernels.check_tensor
-    chk("subpel", "cur_y", cur_y, _I32, (16 * mbh, 16 * mbw))
-    _check_windows("subpel", windows, n8)
-    chk("subpel", "part", part, _I32, (mbh, mbw))
-    chk("subpel", "mvfp8", mvfp8, _I32, (2 * mbh, 2 * mbw, 2))
-    chk("subpel", "prev_mv", prev_mv, _I32, (mbh, mbw, 2))
+    _check_tail_inputs("subpel", cur_y, windows, part, mvfp8, prev_mv, lam,
+                       mbh, mbw)
     dev = cur_y.device
     mv8 = torch.empty((2 * mbh, 2 * mbw, 2), dtype=_I32, device=dev)
-    r_idx8 = torch.empty((n8,), dtype=_I32, device=dev)
+    r_idx8 = torch.empty((4 * mbh * mbw,), dtype=_I32, device=dev)
     cost = (torch.empty((mbh, mbw), dtype=_I32, device=dev) if mb_cost
             else None)
     fn = kernels.entry("pcamv_subpel", [_VP] * 5 + [_CI] * 3 + [_VP] * 4)
@@ -395,20 +413,33 @@ def quant_params(qp: int, tables=None, device="cpu") -> torch.Tensor:
     return (FLAT if tables is None else tables).qtab(qp, device)
 
 
+def _tail_out(n: int, dev, search: bool):
+    """The tail's outputs carved from one allocation: (mv8 [2mbh*2mbw
+    flat, 2], r_idx8 [4n]) when `search`, then SK, SP [13, 9, n, 4] and
+    sc8 [13, n, 4] int32."""
+    sizes = ([8 * n, 4 * n] if search else []) + [468 * n, 468 * n, 52 * n]
+    out = list(torch.empty(sum(sizes), dtype=_I32, device=dev)
+               .split(sizes))
+    maps = [out[-3].view(13, 9, n, 4), out[-2].view(13, 9, n, 4),
+            out[-1].view(13, n, 4)]
+    return out[:-3] + maps
+
+
 def probe_maps(cur_y, windows, r_idx8, qp: int, mbh: int, mbw: int,
                decimate: bool = True, tables=None):
-    """Kernel B4, replacing `probe_maps_pallas`
+    """Kernel B4's check entry, replacing `probe_maps_pallas`
     (video_steganography_pcamv_tpu/ops/probe_pallas.py:481), with the
     rows it reads of `qpel_tables_pallas` (probe_pallas.py:221) built
     from the windows: per 8x8 block and per probe version (the centre,
     then the 12 D_MV deltas), DCT -> quant -> decimate score -> dequant
     -> IDCT -> recon, and the SATD of the recon and of the pred against
-    the 9 D_NB lattice rows. On the H100 it is bound by its integer
-    operations (~1450 per version and 4x4 sub-block, plus the 45 WHT
-    rows it builds per 8x8).
+    the 9 D_NB lattice rows. Every path runs B4 inside `analyse_tail`;
+    this entry, B4 on rows the caller gives, is on no path (it holds
+    B4 against its twin on chosen rows). On the H100 it is bound by its
+    integer work (the transforms run on the int8 tensor cores).
 
     cur_y [16mbh,16mbw] int32, windows [N8,4,16,16] uint8, r_idx8 [N8]
-    int32 (B3's chosen rows, in the +-3 box); tables the encoder's
+    int32 (chosen rows, in the +-3 box); tables the encoder's
     `ops.cqm.QuantTables` (its inter class and deadzone; None: flat) ->
     (SK [13,9,n,4], SP [13,9,n,4], sc8 [13,n,4]) int32; with decimate
     off, SP = SK and sc8 = 0."""
@@ -416,18 +447,15 @@ def probe_maps(cur_y, windows, r_idx8, qp: int, mbh: int, mbw: int,
         return probe_maps_plain(cur_y, windows, r_idx8, qp, mbh, mbw,
                                 decimate, tables)
     n = mbh * mbw
-    n8 = 4 * n
     chk = kernels.check_tensor
     chk("probe_maps", "cur_y", cur_y, _I32, (16 * mbh, 16 * mbw))
-    _check_windows("probe_maps", windows, n8)
-    chk("probe_maps", "r_idx8", r_idx8, _I32, (n8,))
+    _check_windows("probe_maps", windows, 4 * n)
+    chk("probe_maps", "r_idx8", r_idx8, _I32, (4 * n,))
     if not 0 <= qp <= 51:
         raise ValueError("probe_maps: qp %d outside [0, 51]" % qp)
     dev = cur_y.device
     qtab = quant_params(qp, tables, dev)
-    SK = torch.empty((13, 9, n, 4), dtype=_I32, device=dev)
-    SP = torch.empty((13, 9, n, 4), dtype=_I32, device=dev)
-    sc8 = torch.empty((13, n, 4), dtype=_I32, device=dev)
+    SK, SP, sc8 = _tail_out(n, dev, False)
     fn = kernels.entry("pcamv_probe_maps", [_VP] * 4 + [_CI] * 4 + [_VP] * 4)
     ptr = kernels.ptr
     rc = fn(ptr(cur_y), ptr(windows), ptr(r_idx8), ptr(qtab), qp // 6 - 4,
@@ -445,15 +473,42 @@ def analyse_tail(cur_y, windows, part, mvfp8, prev_mv, lam: int, qp: int,
                  mbh: int, mbw: int, decimate: bool = True, tables=None):
     """B3 -> B4 on the windows (B2 fused into both), the contract of
     `analyse_tail_pallas`
-    (video_steganography_pcamv_tpu/ops/probe_pallas.py:574).
+    (video_steganography_pcamv_tpu/ops/probe_pallas.py:574), which
+    replaces its kernels `subpel_pallas` (:301) and `probe_maps_pallas`
+    (:481): on the H100 one launch of `csrc/analyse_tail.cu` (each MB's
+    windows staged once, B3's chosen rows kept in shared memory for B4),
+    counted in `analyse_tail.launches`; on the CPU `subpel_parts` then
+    `probe_maps_plain`.
 
     cur_y [16mbh,16mbw] int32; windows [N8,4,16,16] uint8 (spatial
     order, `gather_windows8` layout); part [mbh,mbw]; mvfp8 [2mbh,2mbw,2]
     full-pel; prev_mv [mbh,mbw,2] qpel predictor; tables B4's quant
     tables (None: flat). Returns (mv8 [2mbh,2mbw,2] qpel, r_idx8 [N8]
     spatial, SK [13,9,n,4], SP, sc8 [13,n,4])."""
-    mv8, r_idx8 = subpel(cur_y, windows, part, mvfp8, prev_mv, lam, mbh,
-                         mbw)
-    SK, SP, sc8 = probe_maps(cur_y, windows, r_idx8, qp, mbh, mbw,
-                             decimate, tables)
+    if cur_y.device.type == "cpu":
+        mv8, r_idx8 = subpel_parts(cur_y, windows, part, mvfp8, prev_mv,
+                                   mbh, mbw, lam)
+        return (mv8, r_idx8) + probe_maps_plain(
+            cur_y, windows, r_idx8, qp, mbh, mbw, decimate, tables)
+    _check_tail_inputs("analyse_tail", cur_y, windows, part, mvfp8, prev_mv,
+                       lam, mbh, mbw)
+    if not 0 <= qp <= 51:
+        raise ValueError("analyse_tail: qp %d outside [0, 51]" % qp)
+    n = mbh * mbw
+    dev = cur_y.device
+    qtab = quant_params(qp, tables, dev)
+    mv8, r_idx8, SK, SP, sc8 = _tail_out(n, dev, True)
+    mv8 = mv8.view(2 * mbh, 2 * mbw, 2)
+    fn = kernels.entry("pcamv_analyse_tail",
+                       [_VP] * 5 + [_CI, _VP] + [_CI] * 4 + [_VP] * 6)
+    ptr = kernels.ptr
+    rc = fn(ptr(cur_y), ptr(windows), ptr(part), ptr(mvfp8), ptr(prev_mv),
+            int(lam), ptr(qtab), qp // 6 - 4, int(decimate), mbh, mbw,
+            ptr(mv8), ptr(r_idx8), ptr(SK), ptr(SP), ptr(sc8),
+            kernels.stream(cur_y))
+    kernels.check(rc, "pcamv_analyse_tail")
+    analyse_tail.launches += 1
     return mv8, r_idx8, SK, SP, sc8
+
+
+analyse_tail.launches = 0
